@@ -1,0 +1,67 @@
+"""Dense CEFT level relaxation: the padded sweep's and the dense-layout runs'
+inner contraction (paper Algorithm 1 lines 6-18, batched over a level's tasks).
+
+    maxk[b, w, j] = max_{d valid} min_l pv[b, w, d, l] + (L[b, l] + pdata[w, d] / bw[b, l, j]) * [l != j]
+    argk[b, w, j] = the first maximal parent slot; argl = that slot's argmin class
+
+Rows with no valid parent give ``-BIG`` and indices ``-1``.  Replaces the Pallas
+kernel ``src/repro/kernels/ceft_relax.py:_relax_kernel`` (entry
+``ceft_relax_pallas``).  The CUDA kernel is ``csrc/ceft_relax.cu``: one thread
+per (b, w, j) output that walks its task's D parent slots and P parent classes,
+folding valid slots into a running maximum with a strict ``>``.  On the H100 it
+is bound by its W·D·P² correctly rounded divides; a wide fan-in level with few
+tasks (the star's sink, W = 1, D = 4096) leaves most of the card idle, since it
+gives only P threads.  Splitting D across warps is the next step for that shape.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+BIG = 3.0e38
+
+
+def ceft_relax_plain(pv, pdata, validp, L, bw):
+    """The plain PyTorch version: the CPU path and the on-card comparison.
+
+    pv (B, W, D, P), pdata (W, D), validp (W, D) float mask, L (B, P),
+    bw (B, P, P) -> (maxk (B, W, P), argk (B, W, P) int32, argl (B, W, P)
+    int32).  Same operation order and tie rules as the reference oracle."""
+    P = L.shape[-1]
+    off = 1.0 - torch.eye(P, dtype=pv.dtype, device=pv.device)
+    comm = (L[:, None, None, :, None]
+            + pdata[None, :, :, None, None] / bw[:, None, None]) * off
+    cand = pv[..., :, None] + comm                                 # (B,W,D,Pl,Pj)
+    minl, argl = torch.min(cand, dim=3)                            # (B,W,D,Pj)
+    valid = (validp > 0)[None, :, :, None]
+    minl = torch.where(valid, minl, torch.full_like(minl, -BIG))
+    maxk, argk = torch.max(minl, dim=2)                            # (B,W,Pj)
+    argl_sel = torch.gather(argl, 2, argk[:, :, None, :])[:, :, 0, :]
+    has = (validp > 0).any(dim=1)[None, :, None]
+    argk = torch.where(has, argk, -1)
+    argl_sel = torch.where(has, argl_sel, -1)
+    return maxk, argk.to(torch.int32), argl_sel.to(torch.int32)
+
+
+def ceft_relax_launch(lib: ctypes.CDLL, pv, pdata, validp, L, bw):
+    """Launch ``ceft_relax_f32`` on the current stream.  Inputs are float32,
+    contiguous and on one CUDA device (checked by the caller)."""
+    B, W, D, P = pv.shape
+    maxk = torch.empty((B, W, P), dtype=torch.float32, device=pv.device)
+    argk = torch.empty((B, W, P), dtype=torch.int32, device=pv.device)
+    argl = torch.empty((B, W, P), dtype=torch.int32, device=pv.device)
+    stream = torch.cuda.current_stream(pv.device).cuda_stream
+    err = lib.ceft_relax_f32(
+        pv.data_ptr(), pdata.data_ptr(), validp.data_ptr(), L.data_ptr(),
+        bw.data_ptr(), maxk.data_ptr(), argk.data_ptr(), argl.data_ptr(),
+        B, W, D, P, stream)
+    if err != 0:
+        raise RuntimeError(f"ceft_relax kernel launch failed: CUDA error {err}")
+    return maxk, argk, argl
+
+
+def ceft_relax_argtypes(lib: ctypes.CDLL) -> None:
+    fn = lib.ceft_relax_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int

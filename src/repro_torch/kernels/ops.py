@@ -1,0 +1,177 @@
+"""Public wrappers around the Hopper kernels: the CPU/CUDA split, shape
+normalization, launch counters and the build of ``csrc/*.cu``.
+
+Dispatch is on the tensor's device and nothing else: a CPU tensor takes the
+kernel's plain PyTorch version, a CUDA tensor launches the hand-written kernel
+or raises.  There is no fallback and no switch.
+
+Build: each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, loaded with ``ctypes``.  The
+libraries live in ``_build/<hash of the sources and flags>/`` inside the
+package (ignored by git), are built at first use, and :func:`build_all` starts
+every compile at once.  Nothing is compiled or loaded at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .ceft_relax import ceft_relax_argtypes, ceft_relax_launch, ceft_relax_plain
+from .edge_relax import edge_relax_argtypes, edge_relax_launch, edge_relax_plain
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+KERNELS = {"edge_relax": edge_relax_argtypes, "ceft_relax": ceft_relax_argtypes}
+
+#: launches of each CUDA kernel (incremented only where the kernel launches)
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return str(path)
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD / digest / f"lib{name}.so"
+
+
+def _compile(names) -> None:
+    """Compile the named kernels' sources concurrently (one nvcc each);
+    existing libraries are reused.  Each output is written under a temporary
+    name and renamed into place, so concurrent builders never load a partial
+    file."""
+    procs = []
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def _library(name: str) -> ctypes.CDLL:
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            _compile([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            KERNELS[name](lib)
+            _LIBS[name] = lib
+        return lib
+
+
+def build_all() -> None:
+    """Compile (concurrently) and load every kernel."""
+    with _LOCK:
+        _compile([n for n in KERNELS if n not in _LIBS])
+    for name in KERNELS:
+        _library(name)
+
+
+def _check_cuda(name: str, *tensors) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
+
+
+def edge_relax(pv, pdata, L, bw):
+    """Edge relaxation (see ``edge_relax.py``).
+
+    pv (E, P) with L (P,), bw (P, P); or batched pv (B, E, P) with L (B, P),
+    bw (B, P, P).  pdata (E,) is shared.  Returns (minl, argl int32) shaped
+    like pv."""
+    single = pv.dim() == 2
+    if single:
+        pv, L, bw = pv[None], L[None], bw[None]
+    B, E, P = pv.shape
+    if pdata.shape != (E,) or L.shape != (B, P) or bw.shape != (B, P, P):
+        raise ValueError(f"edge_relax: shapes {tuple(pv.shape)}, "
+                         f"{tuple(pdata.shape)}, {tuple(L.shape)}, {tuple(bw.shape)}")
+    if pv.device.type == "cpu":
+        minl, argl = edge_relax_plain(pv, pdata, L, bw)
+    elif pv.device.type == "cuda":
+        _check_cuda("edge_relax", pv, pdata, L, bw)
+        if pv.numel() == 0:
+            minl = torch.empty_like(pv)
+            argl = torch.empty(pv.shape, dtype=torch.int32, device=pv.device)
+        else:
+            minl, argl = edge_relax_launch(_library("edge_relax"), pv, pdata, L, bw)
+            LAUNCHES["edge_relax"] += 1
+    else:
+        raise ValueError(f"edge_relax: no kernel for device {pv.device}")
+    return (minl[0], argl[0]) if single else (minl, argl)
+
+
+def ceft_relax(pv, pdata, validp, L, bw):
+    """Dense level relaxation (see ``ceft_relax.py``).
+
+    pv (W, D, P) with L (P,), bw (P, P); or batched pv (B, W, D, P) with
+    L (B, P), bw (B, P, P).  pdata and validp (W, D) are shared; validp is a
+    float mask (1 real parent, 0 padding).  Returns (maxk, argk int32,
+    argl int32), each shaped like pv without its D axis."""
+    single = pv.dim() == 3
+    if single:
+        pv, L, bw = pv[None], L[None], bw[None]
+    B, W, D, P = pv.shape
+    if pdata.shape != (W, D) or validp.shape != (W, D) or L.shape != (B, P) \
+            or bw.shape != (B, P, P):
+        raise ValueError(f"ceft_relax: shapes {tuple(pv.shape)}, {tuple(pdata.shape)}, "
+                         f"{tuple(validp.shape)}, {tuple(L.shape)}, {tuple(bw.shape)}")
+    if pv.device.type == "cpu":
+        out = ceft_relax_plain(pv, pdata, validp, L, bw)
+    elif pv.device.type == "cuda":
+        _check_cuda("ceft_relax", pv, pdata, validp, L, bw)
+        if B * W * P == 0:
+            out = (torch.empty((B, W, P), device=pv.device),
+                   torch.empty((B, W, P), dtype=torch.int32, device=pv.device),
+                   torch.empty((B, W, P), dtype=torch.int32, device=pv.device))
+        else:
+            out = ceft_relax_launch(_library("ceft_relax"), pv, pdata, validp, L, bw)
+            LAUNCHES["ceft_relax"] += 1
+    else:
+        raise ValueError(f"ceft_relax: no kernel for device {pv.device}")
+    return tuple(o[0] for o in out) if single else out

@@ -46,6 +46,12 @@ def run_isolated_script(body: str, *, fake_devices: int | None = None,
         assert marker in r.stdout, r.stdout + r.stderr
     return r
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
+
+
 if settings is not None:
     # keep hypothesis fast on the 1-core CI box
     settings.register_profile("ci", max_examples=25, deadline=None)
