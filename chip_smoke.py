@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's CEFT planning path on one NVIDIA GPU and check it.
+"""Drive the port's CEFT planning path and its serving router on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -16,8 +17,22 @@ Phases (any failure exits non-zero; nothing is caught):
      fan-in), the padded sweep, and the paper's Algorithm 1 on a small graph;
   6. the straggler loop: quiet, cached and degraded steps, equal to the same
      loop on the CPU;
-  7. report: launches of each kernel during phases 3-6, then each kernel's time
-     at the path's shapes beside its plain version and its bound.
+  a. the stacked edge relaxation (``edge_relax_superstep``) on the n = 16384
+     graph's own segment-layout run tables, bit-equal slice by slice to
+     ``edge_relax`` and as a whole to its plain version, and at the test shapes;
+  b. the tropical product (``minplus``) at the test shapes and at
+     (4096, 4096, 4096), float32 and bf16, bit-equal to its plain version, and
+     the semiring identity;
+  c. the router (``pool8``: 8 null engines, 6 workload classes, moldable split
+     up to 4) planning on the card: 192 requests served exactly once, every
+     tick's plan bit-equal to the same DAG planned on the CPU, then one engine
+     tripped and the path moved off it, nominal and degraded planes both on
+     the card;
+  d. the seeded chaos soak on 4 subprocess workers: every request completes
+     exactly once, and no worker child starts CUDA;
+  7. report: launches of each kernel on each path (the counts are reset just
+     before a path and read just after it), then each kernel's time at its
+     path's shapes beside its plain version and its bound.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the card's name and power limit, and the one before that the kernel report.
@@ -44,7 +59,12 @@ from repro_torch.graphs import heavy_tail_fan_in, rgg, star_fan_in  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ceft_relax import ceft_relax_plain  # noqa: E402
 from repro_torch.kernels.edge_relax import edge_relax_plain  # noqa: E402
+from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
+from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
 from repro_torch.sched import PlanCache, StragglerMonitor, plancache  # noqa: E402
+from repro_torch.serve import (EnginePool, EngineSlot, Request, Router,  # noqa: E402
+                               WorkerSpec, null_engine_factory)
+from repro_torch.serve.faults import KINDS, install_chaos  # noqa: E402
 
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -56,6 +76,13 @@ EDGE_SHAPES = [(5, 3), (128, 16), (300, 7), (1, 1), (257, 13), (64, 64)]
 CELL_SHAPES = [(8, 3, 4), (5, 1, 2), (16, 7, 13), (33, 9, 64), (64, 2, 128), (1, 1, 1)]
 EDGE_PATH_SHAPES = [(1024, 64), (2048, 64)]
 CELL_PATH_SHAPES = [(1, 4096, 64), (8, 28, 64)]
+SUPERSTEP_SHAPES = [(1, 5, 3), (4, 128, 16), (3, 300, 7), (2, 64, 64), (1, 1, 1)]
+SHAPES_MINPLUS = [(4, 3, 5), (128, 16, 128), (300, 37, 260), (1, 1, 1),
+                  (257, 129, 255), (16, 256, 16)]
+MINPLUS_PATH_SHAPE = (4096, 4096, 4096)
+MINPLUS_DTYPES = (torch.float32, torch.bfloat16)
+# the serving router's largest configuration (benchmarks/serve_router.py, pool8)
+POOL_P, POOL_CLASSES, POOL_NEW, POOL_PER_CLASS, POOL_ROUNDS = 8, 6, 8, 32, 4
 
 
 def log(*args):
@@ -112,7 +139,8 @@ def cell_inputs(shape, seed: int, device, n_valid: int | None = None):
 
 
 def compare_kernels(device) -> dict:
-    """Phase 2: every kernel against its plain version, bit-equal."""
+    """Phase 2: the planning path's kernels against their plain versions,
+    bit-equal."""
     err = {"edge_relax": 0.0, "ceft_relax": 0.0}
     cases = [(s, None) for s in EDGE_SHAPES + EDGE_PATH_SHAPES] + [((1024, 64), 8)]
     for i, (shape, batch) in enumerate(cases):
@@ -263,6 +291,281 @@ def straggler(device):
         f"{ev.new_makespan!r}; counters {gpu[-1][3]}")
 
 
+def superstep_path(device, g, inputs, ceft_pad) -> tuple[list, list]:
+    """Phase a: each segment-layout run of the n = 16384 graph relaxed in one
+    ``edge_relax_superstep`` call over its stacked level tables, with ``pv``
+    gathered from the finished (padded) CEFT table ``ceft_pad`` (each vertex
+    is written once, before its children's level reads it, so these are the
+    values the sweep saw).  Returns the run tables and the kernel's outputs."""
+    L, bw = inputs[3], inputs[4]
+    runs, _, _, _ = plancache.device_state(g, device)
+    tables = []
+    for run in runs:
+        if run.layout != "seg":
+            continue
+        src = torch.stack([lv.edge_src for lv in run.levels])            # (R, E)
+        pdata = torch.stack([lv.edge_data for lv in run.levels]).contiguous()
+        R, E = src.shape
+        pv = ceft_pad.index_select(0, src.reshape(-1)).view(R, E, -1).contiguous()
+        tables.append((pv, pdata, L, bw))
+    check(len(tables) >= 1, "the n = 16384 graph has no segment-layout run")
+    outs = [ops.edge_relax_superstep(*t) for t in tables]             # the drive
+    torch.cuda.synchronize()
+    return tables, outs
+
+
+def check_superstep(device, tables, outs) -> float:
+    err = 0.0
+    for (pv, pdata, L, bw), (minl, argl) in zip(tables, outs):
+        for r in range(pv.shape[0]):
+            m1, a1 = ops.edge_relax(pv[r], pdata[r], L, bw)
+            check(torch.equal(minl[r], m1) and torch.equal(argl[r], a1),
+                  f"superstep slice {r} of {tuple(pv.shape)} != edge_relax on that level")
+        want = edge_relax_superstep_plain(pv, pdata, L, bw)
+        err = max(err, float((minl - want[0]).abs().max()))
+        check(torch.equal(minl, want[0]) and torch.equal(argl, want[1]),
+              f"edge_relax_superstep kernel != plain at {tuple(pv.shape)}")
+        del want
+    for i, (R, E, P) in enumerate(SUPERSTEP_SHAPES):
+        rng = np.random.default_rng(300 + i)
+        pv, pdata, L, bw = (torch.as_tensor(a.astype(np.float32), device=device) for a in (
+            rng.uniform(0, 100, (R, E, P)), rng.uniform(0, 10, (R, E)),
+            rng.uniform(0, 2, (P,)), rng.uniform(0.5, 2, (P, P))))
+        got = ops.edge_relax_superstep(pv, pdata, L, bw)
+        want = edge_relax_superstep_plain(pv, pdata, L, bw)
+        err = max(err, float((got[0] - want[0]).abs().max()))
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"edge_relax_superstep kernel != plain at {(R, E, P)}")
+    log(f"phase a: superstep on the run tables {[tuple(t[0].shape) for t in tables]} "
+        f"bit-equal to per-level edge_relax and to its plain version; test shapes "
+        f"bit-equal; max_abs_err {err}")
+    return err
+
+
+def minplus_inputs(shape, dtype, device, seed: int):
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.uniform(-5, 5, s).astype(np.float32), device=device).to(dtype)
+            for s in ((m, k), (k, n))]
+
+
+def minplus_path(device) -> list:
+    """Phase b (drive): the product at the test shapes and at the timing shape,
+    float32 and bf16, plus the semiring identity of the reference's test."""
+    calls = []
+    for dtype in MINPLUS_DTYPES:
+        for i, shape in enumerate(SHAPES_MINPLUS + [MINPLUS_PATH_SHAPE]):
+            a, b = minplus_inputs(shape, dtype, device, 400 + i)
+            calls.append((f"{tuple(shape)} {dtype}", a, b, ops.minplus(a, b)))
+    for n in (1, 7, 19, 256):
+        a = minplus_inputs((n, n, n), torch.float32, device, 500 + n)[0]
+        eye = torch.where(torch.eye(n, dtype=torch.bool, device=device),
+                          torch.tensor(0.0, device=device), torch.tensor(BIG, device=device))
+        calls.append((f"identity n={n}", a, eye, ops.minplus(a, eye)))
+        calls.append((f"identity^T n={n}", eye, a, ops.minplus(eye, a)))
+    torch.cuda.synchronize()
+    return calls
+
+
+def check_minplus(calls) -> float:
+    err = 0.0
+    for what, a, b, got in calls:
+        want = minplus_plain(a, b)
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        check(torch.equal(got, want), f"minplus kernel != plain at {what}")
+        if what.startswith("identity"):
+            check(torch.equal(got, a if what.startswith("identity n") else b),
+                  f"minplus {what}: eye is not the identity")
+    log(f"phase b: minplus bit-equal to its plain version at {len(calls)} calls "
+        f"(float32 and bf16, up to {MINPLUS_PATH_SHAPE}); identity holds; "
+        f"max_abs_err {err}")
+    return err
+
+
+def pool8_router(device) -> Router:
+    """The ``pool8`` configuration of benchmarks/serve_router.py: 8 null
+    engines, costs pre-seeded from ``default_rng(7)`` for 6 workload classes."""
+    slots = [EngineSlot(f"e{i}", null_engine_factory(), "baseline") for i in range(POOL_P)]
+    router = Router(slots, max_batch=8, max_split=4, device=device)
+    rng = np.random.default_rng(7)
+    for c in range(POOL_CLASSES):
+        for e in range(POOL_P):
+            router.costs.update((1 << (3 + c), POOL_NEW), e, float(rng.uniform(0.5e-3, 2e-3)))
+    return router
+
+
+def watch_ticks(router) -> list:
+    """Record each tick's snapshot (DAG, slowdowns, plans, dispatched rids,
+    host wall ms) as ``serve`` runs it."""
+    ticks, tick = [], router.tick
+
+    def recorded():
+        t = time.perf_counter()
+        out = tick()
+        ms = (time.perf_counter() - t) * 1e3
+        if out:
+            ticks.append(dict(dag=router.last_dag, slow=router._slow.copy(),
+                              plan=router.last_plan, nominal=router.last_nominal,
+                              machine=router.machine, ms=ms,
+                              rids=[r.rid for d in out for r in d.requests]))
+        return out
+
+    router.tick = recorded
+    return ticks
+
+
+def submit_round(router, rng, per_class: int) -> list:
+    rids = []
+    for c in range(POOL_CLASSES):
+        plen = 1 << (3 + c)
+        for _ in range(per_class):
+            r = Request(f"t{c}", rng.integers(2, 100, plen).astype(np.int32), POOL_NEW)
+            check(router.submit(r), "the router refused a request")
+            rids.append(r.rid)
+    return rids
+
+
+def serve_rounds(router, rng, rounds: int, per_round: int) -> tuple[list, dict]:
+    rids, done = [], {}
+    for _ in range(rounds):
+        rids += submit_round(router, rng, per_round)
+        out = router.serve()
+        check(not set(out) & set(done), "a request completed twice")
+        done.update(out)
+    return rids, done
+
+
+def same_plan_on_cpu(tick: dict, cpu_cache: PlanCache, what: str) -> None:
+    """The tick's winning DAG planned with device="cpu": bit-equal plans, for
+    the plane the router dispatched on and, when degraded, the nominal one."""
+    n, src, dst, data, comp_nominal = tick["dag"]
+    g = ct.request_graph(n, src, dst, data)
+    planes = [(comp_nominal * tick["slow"][None, :], tick["plan"])]
+    if tick["nominal"] is not None:
+        planes.append((comp_nominal, tick["nominal"]))
+    for comp, got in planes:
+        want, _, _ = cpu_cache.plan(g, comp, tick["machine"], planner="ceft_cpop", store=False)
+        check(np.array_equal(got.ceft, want.ceft) and got.path == want.path
+              and got.cpl == want.cpl, f"{what}: card plan != cpu plan")
+
+
+def router_path(device) -> dict:
+    """Phase c: the pool8 router with max_split = 4 on the card, 192 requests in
+    4 rounds; each tick's plan checked against the CPU; then one engine is
+    tripped through ``monitor.report``."""
+    cpu_cache = PlanCache(device="cpu")
+    out = {}
+    for dev in (device, "cpu"):
+        router = pool8_router(dev)
+        ticks = watch_ticks(router)
+        before = dict(ops.LAUNCHES)
+        rids, done = serve_rounds(router, np.random.default_rng(7), POOL_ROUNDS,
+                                  POOL_PER_CLASS // POOL_ROUNDS)
+        after = dict(ops.LAUNCHES)
+        n_req = POOL_CLASSES * POOL_PER_CLASS
+        dispatched = [rid for t in ticks for rid in t["rids"]]
+        check(len(rids) == n_req and set(done) == set(rids),
+              f"{dev}: {len(done)} of {n_req} requests completed")
+        check(sorted(dispatched) == sorted(rids), f"{dev}: a request was dispatched twice")
+        out[dev] = dict(router=router, ticks=ticks,
+                        launches={k: after[k] - before[k] for k in after})
+    router, ticks = out[device]["router"], out[device]["ticks"]
+    for k, t in enumerate(ticks):
+        same_plan_on_cpu(t, cpu_cache, f"router tick {k}")
+    launched = out[device]["launches"]
+    check(launched["edge_relax"] + launched["ceft_relax"] > 0,
+          f"the router's ticks launched no relaxation kernel: {launched}")
+    check(sum(out["cpu"]["launches"].values()) == 0, "the cpu router launched a kernel")
+
+    med = {dev: float(np.median([t["ms"] for t in out[dev]["ticks"]])) for dev in out}
+    # trip the engine that carries most of the critical path of one planned
+    # tick, whose requests go back unserved: the next tick plans the same
+    # requests at the same costs with that engine degraded.  The null engines
+    # have fed near-zero measured rates into the cost table, so the reported
+    # slowdown must outweigh that (the factor the router's hedge uses).
+    k0 = len(ticks)
+    trip_rids = submit_round(router, np.random.default_rng(8), 4)
+    before = dict(ops.LAUNCHES)
+    router._requeue(router.tick())
+    mid = dict(ops.LAUNCHES)
+    base = ticks[k0]
+    path_engines = [p for _, p in base["plan"].path]
+    slow = max(set(path_engines), key=path_engines.count)
+    router.monitor.report(slow, 1e6)
+    router.plancache.invalidate(engine=slow)
+    n_deg = router.stats["degraded_plans"]
+    done = router.serve()
+    trip = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    nominal_launches = mid["edge_relax"] + mid["ceft_relax"] \
+        - before["edge_relax"] - before["ceft_relax"]
+    check(set(done) == set(trip_rids), "the tripped round lost a request")
+    check(router.stats["degraded_plans"] > n_deg, "the tripped engine gave no degraded plan")
+    # the tripped tick serves its nominal plane from the cache the untripped
+    # tick swept on the card, and sweeps its degraded plane on the card
+    check(nominal_launches > 0 and trip["edge_relax"] + trip["ceft_relax"] > nominal_launches,
+          f"the nominal or the degraded planes launched no kernel: {mid} {trip}")
+    deg = ticks[k0 + 1]
+    check(base["nominal"] is None and deg["nominal"] is not None,
+          "the tripped tick kept no nominal plane")
+    for k, t in enumerate(ticks[k0:]):
+        same_plan_on_cpu(t, cpu_cache, f"trip tick {k}")
+    check(slow not in {p for _, p in deg["plan"].path},
+          f"the degraded path still uses engine {slow}: {deg['plan'].path}")
+    log(f"phase c: router pool8 max_split=4: {n_req} requests exactly once in "
+        f"{len(ticks[:k0])} ticks, every plan bit-equal to the CPU; median tick "
+        f"{med[device]:.3f} ms on the card, {med['cpu']:.3f} ms with device='cpu' "
+        f"({len(out['cpu']['ticks'])} ticks); launches {launched}; engine {slow} tripped: "
+        f"path {base['plan'].path} -> {deg['plan'].path} (nominal plane "
+        f"{deg['nominal'].path}), launches {trip}; "
+        f"stats {router.stats}")
+    return dict(launches={k: launched[k] + trip[k] for k in launched}, ticks=k0,
+                tick_ms=med[device], tick_ms_cpu=med["cpu"])
+
+
+def chaos_soak(device) -> dict:
+    """Phase d: the seeded chaos soak on 4 subprocess workers."""
+    specs = [WorkerSpec(f"w{i}", factory="repro_torch.serve.pool:null_engine_factory",
+                        backend="subprocess") for i in range(4)]
+    pool = EnginePool(specs, relaunch_backoff=0.05, relaunch_backoff_max=0.2)
+    try:
+        topo = pool.topology()
+        check(all(t["cuda_initialized"] is False for t in topo),
+              f"a worker child started CUDA: {topo}")
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.split()
+        check(not {str(t["pid"]) for t in topo} & set(apps),
+              f"a worker child holds a CUDA context: {apps}")
+        inj = install_chaos(pool, 7, calls=8, rate=0.5, hold=0.3)
+        inj.hang_timeout = 5.0
+        router = Router(pool, deadline_factor=3.0, min_deadline=0.05, wd_poll=0.005,
+                        max_batch=4, device=device)
+        rng = np.random.default_rng(7)
+        rids = []
+        for t, plen in enumerate((8, 16)):
+            for _ in range(6):
+                r = Request(f"t{t}", rng.integers(2, 100, plen).astype(np.int32), 4)
+                check(router.submit(r), "the router refused a request")
+                rids.append(r.rid)
+        t0 = time.perf_counter()
+        try:
+            done = router.serve(max_ticks=500)
+        finally:
+            inj.release()
+        soak_s = time.perf_counter() - t0
+    finally:
+        pool.close()
+    check(set(done) == set(rids), f"lost {sorted(set(rids) - set(done))} under chaos")
+    check(router.stats["completions"] == len(rids), "a request completed twice")
+    check(router.stats["hedges"] <= router.stats["overdue_cp"], "hedges past overdue")
+    fired = {k: inj.stats[k] for k in KINDS}
+    check(sum(fired.values()) >= 3, f"the soak fired {fired}")
+    log(f"phase d: chaos soak seed 7 on 4 subprocess workers: {len(rids)} requests "
+        f"exactly once in {soak_s:.3f} s; faults {fired}; pool {pool.stats}; nvidia-smi "
+        f"compute apps {apps}")
+    return dict(seconds=soak_s, faults=fired)
+
+
 def bound(nbytes: int, n_ops: int) -> tuple[float, str]:
     """The least time the card could take (ms) and what bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -270,15 +573,18 @@ def bound(nbytes: int, n_ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timed(kernel, plain, reps: int) -> dict:
+def timed(kernel, plain, reps: int, plain_reps: int | None = None) -> dict:
     """Kernel and plain version timed in turns (plain, kernel, kernel, plain)."""
-    p1, k1, k2, p2 = (cuda_ms(f, reps) for f in (plain, kernel, kernel, plain))
+    pr = reps if plain_reps is None else plain_reps
+    p1, k1, k2, p2 = (cuda_ms(f, n) for f, n in
+                      ((plain, pr), (kernel, reps), (kernel, reps), (plain, pr)))
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
 
 
-def kernel_report(launches, errs, per_sweep, device) -> list:
-    """Phase 7: each kernel at the planning path's shapes beside its plain
-    version and its bound; the first shape is the one the path runs most."""
+def kernel_report(by_path, errs, per_sweep, tables, device) -> list:
+    """Phase 7: each kernel at its path's shapes beside its plain version and
+    its bound; the first shape is the one the path runs most.  ``by_path``
+    holds each path's launch counts, read around that path alone."""
 
     edge_rows = []
     for E, P in EDGE_PATH_SHAPES:
@@ -298,18 +604,47 @@ def kernel_report(launches, errs, per_sweep, device) -> list:
                               bound_by=by, **timed(
             lambda: ops.ceft_relax(pv, pdata, validp, L, bw),
             lambda: ceft_relax_plain(pv[None], pdata, validp, L[None], bw[None]), 10)))
+    super_rows = []
+    for pv, pdata, L, bw in tables:            # the n = 16384 graph's own runs
+        R, E, P = pv.shape
+        t_min, by = bound(4 * (3 * R * E * P + R * E + P + P * P),
+                          OPS_PER_CANDIDATE * R * E * P * P)
+        super_rows.append(dict(shape=[R, E, P], bound_ms=t_min, bound_by=by, **timed(
+            lambda: ops.edge_relax_superstep(pv, pdata, L, bw),
+            lambda: edge_relax_superstep_plain(pv, pdata, L, bw), 20, 3)))
+    minplus_rows = []
+    for dtype in MINPLUS_DTYPES:
+        a, b = minplus_inputs(MINPLUS_PATH_SHAPE, dtype, device, 600)
+        M, K, N = MINPLUS_PATH_SHAPE
+        t_min, by = bound(a.element_size() * (M * K + K * N + M * N), 2 * M * K * N)
+        minplus_rows.append(dict(shape=[M, K, N], dtype=str(dtype).replace("torch.", ""),
+                                 bound_ms=t_min, bound_by=by, **timed(
+            lambda: ops.minplus(a, b), lambda: minplus_plain(a, b), 10, 2)))
     rows = []
-    for name, line, fn, by_shape in (
-            ("edge_relax", 67, "_edge_relax_kernel", edge_rows),
-            ("ceft_relax", 30, "_relax_kernel", cell_rows)):
+    for name, replaces, by_shape in (
+            ("edge_relax", "src/repro/kernels/ceft_relax.py:67 (_edge_relax_kernel)",
+             edge_rows),
+            ("ceft_relax", "src/repro/kernels/ceft_relax.py:30 (_relax_kernel)", cell_rows),
+            ("edge_relax_superstep",
+             "src/repro/kernels/ceft_relax.py:85 (_edge_relax_superstep_kernel)", super_rows),
+            ("minplus", "src/repro/kernels/minplus.py:22 (_minplus_kernel)", minplus_rows)):
+        paths = {path: counts[name] for path, counts in by_path.items() if counts[name]}
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
-            replaces=f"src/repro/kernels/ceft_relax.py:{line} ({fn})",
-            launches=launches[name], max_abs_err=errs[name],
-            launches_per_rgg16384_sweep=per_sweep[name], library_ms=None,
+            replaces=replaces, launches=sum(paths.values()), launches_by_path=paths,
+            max_abs_err=errs[name], launches_per_rgg16384_sweep=per_sweep[name],
+            library_ms=None,
             **{k: by_shape[0][k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
             by_shape=by_shape))
     return rows
+
+
+def counted(fn, *args):
+    """Run one path with every launch count set to 0 just before it; returns
+    its result and the counts read just after it."""
+    ops.reset_launches()
+    out = fn(*args)
+    return out, dict(ops.LAUNCHES)
 
 
 def main() -> int:
@@ -318,6 +653,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     device = "cuda"
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -326,20 +662,39 @@ def main() -> int:
     log(f"phase 1: kernels built and loaded in {time.perf_counter() - t:.3f} s")
     errs = compare_kernels(device)
 
-    ops.reset_launches()
-    g, comp, m, inputs = plan_large(device)
-    batched(device, g, comp, m)
-    layouts(device)
-    straggler(device)
-    launches = dict(ops.LAUNCHES)
-    log(f"main path launches: {launches}")
-    check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    def planning_path():
+        g, comp, m, inputs = plan_large(device)
+        batched(device, g, comp, m)
+        layouts(device)
+        straggler(device)
+        return g, inputs
+
+    by_path = {}
+    (g, inputs), by_path["planning"] = counted(planning_path)
+    log(f"planning path launches: {by_path['planning']}")
+    check(by_path["planning"]["edge_relax"] > 0 and by_path["planning"]["ceft_relax"] > 0,
+          f"a kernel of the planning path never launched: {by_path['planning']}")
+
+    ceft_pad = ct.csr_sweep(inputs)[0]
+    (tables, outs), by_path["superstep"] = counted(superstep_path, device, g, inputs,
+                                                   ceft_pad)
+    errs["edge_relax_superstep"] = check_superstep(device, tables, outs)
+    del outs
+    calls, by_path["minplus"] = counted(minplus_path, device)
+    errs["minplus"] = check_minplus(calls)
+    del calls
+    check(by_path["superstep"]["edge_relax_superstep"] > 0 and by_path["minplus"]["minplus"] > 0,
+          f"a standalone kernel never launched: {by_path['superstep']} {by_path['minplus']}")
+    _, by_path["router"] = counted(router_path, device)
+    _, by_path["chaos"] = counted(chaos_soak, device)
+    log(f"launches by path: {by_path}")
 
     ops.reset_launches()
     ct.csr_sweep(inputs)
     per_sweep = dict(ops.LAUNCHES)
     log(f"launches per full n=16384 sweep: {per_sweep}")
-    rows = kernel_report(launches, errs, per_sweep, device)
+    rows = kernel_report(by_path, errs, per_sweep, tables, device)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,18 +1,24 @@
-"""repro_torch.kernels — hand-written Hopper kernels for the CEFT relaxation.
+"""repro_torch.kernels — hand-written Hopper kernels, one for each Pallas kernel
+of the reference package.
 
-edge_relax : edge-centric relaxation of the CSR sweep's segment-layout levels
-             (``csrc/edge_relax.cu``; plain version in ``edge_relax.py``)
-ceft_relax : dense level relaxation of the padded sweep and the dense-layout
-             runs (``csrc/ceft_relax.cu``; plain version in ``ceft_relax.py``)
-ops        : the wrappers (CPU -> plain version, CUDA -> kernel), launch
-             counters and the nvcc build
-ref        : PyTorch oracles for all four kernels of the reference package
+edge_relax           : edge-centric relaxation of the CSR sweep's segment-layout
+                       levels (``csrc/edge_relax.cu``)
+ceft_relax           : dense level relaxation of the padded sweep and the
+                       dense-layout runs (``csrc/ceft_relax.cu``)
+edge_relax_superstep : the edge relaxation over a fused run's stacked (R, E, P)
+                       tables in one launch (``csrc/edge_relax_superstep.cu``);
+                       like the reference's, not wired into the sweep
+minplus              : tropical (min, +) matrix product, float32 and bf16
+                       (``csrc/minplus.cu``); nothing in the package calls it
+ops                  : the wrappers (CPU -> plain version, CUDA -> kernel), launch
+                       counters and the nvcc build
+ref                  : PyTorch oracles for all four kernels of the reference package
 
-The reference's ``edge_relax_superstep`` and ``minplus`` kernels are not yet
-ported; ``ref`` holds their oracles.
+Each kernel's plain PyTorch version sits in the module of its name.
 """
 from . import ref
-from .ops import LAUNCHES, build_all, ceft_relax, edge_relax, reset_launches
+from .ops import (LAUNCHES, build_all, ceft_relax, edge_relax, edge_relax_superstep,
+                  minplus, reset_launches)
 
-__all__ = ["LAUNCHES", "build_all", "ceft_relax", "edge_relax", "ref",
-           "reset_launches"]
+__all__ = ["LAUNCHES", "build_all", "ceft_relax", "edge_relax",
+           "edge_relax_superstep", "minplus", "ref", "reset_launches"]

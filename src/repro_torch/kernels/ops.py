@@ -25,12 +25,18 @@ import torch
 
 from .ceft_relax import ceft_relax_argtypes, ceft_relax_launch, ceft_relax_plain
 from .edge_relax import edge_relax_argtypes, edge_relax_launch, edge_relax_plain
+from .edge_relax_superstep import (edge_relax_superstep_argtypes,
+                                   edge_relax_superstep_launch,
+                                   edge_relax_superstep_plain)
+from .minplus import minplus_argtypes, minplus_launch, minplus_plain
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = {"edge_relax": edge_relax_argtypes, "ceft_relax": ceft_relax_argtypes}
+KERNELS = {"edge_relax": edge_relax_argtypes, "ceft_relax": ceft_relax_argtypes,
+           "edge_relax_superstep": edge_relax_superstep_argtypes,
+           "minplus": minplus_argtypes}
 
 #: launches of each CUDA kernel (incremented only where the kernel launches)
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -107,13 +113,13 @@ def build_all() -> None:
         _library(name)
 
 
-def _check_cuda(name: str, *tensors) -> None:
+def _check_cuda(name: str, *tensors, dtypes=(torch.float32,)) -> None:
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: the CUDA kernel takes {dtypes}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
 
@@ -175,3 +181,45 @@ def ceft_relax(pv, pdata, validp, L, bw):
     else:
         raise ValueError(f"ceft_relax: no kernel for device {pv.device}")
     return tuple(o[0] for o in out) if single else out
+
+
+def edge_relax_superstep(pv, pdata, L, bw):
+    """Stacked edge relaxation over a fused run (see
+    ``edge_relax_superstep.py``): pv (R, E, P), pdata (R, E) per level,
+    L (P,) and bw (P, P) shared.  Returns (minl, argl int32) shaped like pv."""
+    R, E, P = pv.shape
+    if pdata.shape != (R, E) or L.shape != (P,) or bw.shape != (P, P):
+        raise ValueError(f"edge_relax_superstep: shapes {tuple(pv.shape)}, "
+                         f"{tuple(pdata.shape)}, {tuple(L.shape)}, {tuple(bw.shape)}")
+    if pv.device.type == "cpu":
+        return edge_relax_superstep_plain(pv, pdata, L, bw)
+    if pv.device.type != "cuda":
+        raise ValueError(f"edge_relax_superstep: no kernel for device {pv.device}")
+    _check_cuda("edge_relax_superstep", pv, pdata, L, bw)
+    if pv.numel() == 0:
+        return (torch.empty_like(pv),
+                torch.empty(pv.shape, dtype=torch.int32, device=pv.device))
+    out = edge_relax_superstep_launch(_library("edge_relax_superstep"), pv, pdata, L, bw)
+    LAUNCHES["edge_relax_superstep"] += 1
+    return out
+
+
+def minplus(a, b):
+    """Tropical matrix product C[i,j] = min(BIG, min_k A[i,k] + B[k,j]) (see
+    ``minplus.py``): a (M, K), b (K, N), both float32 or both bf16; C has
+    their type."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"minplus: shapes {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dtype != b.dtype:
+        raise TypeError(f"minplus: types {a.dtype} and {b.dtype} differ")
+    if a.device.type == "cpu":
+        return minplus_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"minplus: no kernel for device {a.device}")
+    _check_cuda("minplus", a, b, dtypes=(torch.float32, torch.bfloat16))
+    M, N = a.shape[0], b.shape[1]
+    if M * N == 0:
+        return torch.empty((M, N), dtype=a.dtype, device=a.device)
+    out = minplus_launch(_library("minplus"), a, b)
+    LAUNCHES["minplus"] += 1
+    return out

@@ -3,8 +3,12 @@ reference package's JAX oracles (and its Pallas kernels in interpret mode).
 
 Tolerance: float32 results are bit-equal (same operation order, same tie
 rules); the bf16 dense relaxation is held at rtol=1e-2 as in the reference's
-own ``test_ceft_relax_bf16``.  Tests marked ``cuda`` compare the CUDA kernels
-with their plain versions on a card and skip without one."""
+own ``test_ceft_relax_bf16``, and the bf16 min-plus product at the
+reference's rtol=1e-5, compared in float32.  Tests marked ``cuda`` compare the CUDA kernels
+with their plain versions on a card; they live in ``test_torch_cuda.py``,
+which imports no JAX, so that they also run where JAX is not installed."""
+import importlib
+
 import numpy as np
 import pytest
 
@@ -14,41 +18,20 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ceft_relax as jax_ceft_relax  # noqa: E402
 from repro.kernels import edge_relax as jax_edge_relax  # noqa: E402
+from repro.kernels import edge_relax_superstep as jax_edge_relax_superstep  # noqa: E402
+from repro.kernels import minplus as jax_minplus  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.ceft_relax import ceft_relax_plain  # noqa: E402
 from repro_torch.kernels.edge_relax import edge_relax_plain  # noqa: E402
+from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
+from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
 from test_kernels import CELL_SHAPES, EDGE_SHAPES, SHAPES_MINPLUS, SUPERSTEP_SHAPES  # noqa: E402
+from test_torch_cuda import _cell_inputs, _edge_inputs, _minplus_inputs  # noqa: E402
 
 
 def _eq(got, want, name=""):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want), err_msg=name)
-
-
-def _edge_inputs(shape, ties: bool):
-    """(pv, pdata, L, bw) as numpy float32; ``ties`` draws small integers on
-    a homogeneous machine so equal candidates are common."""
-    *lead, E, P = shape
-    rng = np.random.default_rng(hash((shape, ties)) % 2**31)
-    if ties:
-        pv = rng.integers(0, 4, (*lead, E, P)).astype(np.float32)
-        pdata = rng.integers(0, 3, (*lead, E)).astype(np.float32)
-        L = np.full(P, 1.0, np.float32)
-        bw = np.full((P, P), 2.0, np.float32)
-    else:
-        pv = rng.uniform(0, 100, (*lead, E, P)).astype(np.float32)
-        pdata = rng.uniform(0, 10, (*lead, E)).astype(np.float32)
-        L = rng.uniform(0, 2, (P,)).astype(np.float32)
-        bw = rng.uniform(0.5, 2, (P, P)).astype(np.float32)
-    return pv, pdata, L, bw
-
-
-def _cell_inputs(shape, ties: bool, dtype=np.float32):
-    W, D, P = shape
-    rng = np.random.default_rng(hash((shape, ties)) % 2**31)
-    pv, pdata, L, bw = _edge_inputs((W, D, P), ties)
-    validp = (rng.random((W, D)) < 0.8).astype(np.float32)
-    return pv, pdata, validp, L, bw
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -148,36 +131,89 @@ def test_minplus_ref_matches_jax(shape):
         jref.minplus_ref(jnp.asarray(a), jnp.asarray(b)))
 
 
-# ----------------------------------------------------------- on a card only
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    return torch.device("cuda")
+@pytest.mark.parametrize("shape", SUPERSTEP_SHAPES)
+def test_edge_relax_superstep_matches_pallas_interpret(shape):
+    """The port's wrapper (the plain version, on the CPU) against the
+    reference's Pallas kernel in interpret mode, bit-equal."""
+    args = _edge_inputs(shape, ties=False)
+    want = jax_edge_relax_superstep(*map(jnp.asarray, args), interpret=True)
+    got = ops.edge_relax_superstep(*(torch.as_tensor(a) for a in args))
+    for g, w, name in zip(got, want, ["minl", "argl"]):
+        _eq(g, w, name)
+    assert got[1].dtype == torch.int32
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", EDGE_SHAPES + [(1024, 64), (2048, 64)])
-def test_edge_relax_kernel_matches_plain(cuda, shape):
-    pv, pdata, L, bw = (torch.as_tensor(a, device=cuda)
-                        for a in _edge_inputs(shape, ties=False))
-    before = ops.LAUNCHES["edge_relax"]
-    got = ops.edge_relax(pv, pdata, L, bw)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["edge_relax"] == before + 1
-    want = edge_relax_plain(pv[None], pdata, L[None], bw[None])
-    for g, w in zip(got, want):
-        assert torch.equal(g, w[0])
+def test_edge_relax_superstep_consistent_with_per_level():
+    """Each stacked slice equals ``edge_relax`` on that level (the
+    reference's consistency case, with ties)."""
+    pv, pdata, L, bw = (torch.as_tensor(a) for a in _edge_inputs((4, 96, 5), ties=True))
+    minl, argl = ops.edge_relax_superstep(pv, pdata, L, bw)
+    for r in range(pv.shape[0]):
+        m1, a1 = ops.edge_relax(pv[r], pdata[r], L, bw)
+        _eq(minl[r], m1)
+        _eq(argl[r], a1)
+    with pytest.raises(ValueError):
+        ops.edge_relax_superstep(pv, pdata[:, :-1], L, bw)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", CELL_SHAPES + [(1, 4096, 64), (8, 28, 64)])
-def test_ceft_relax_kernel_matches_plain(cuda, shape):
-    args = [torch.as_tensor(a, device=cuda) for a in _cell_inputs(shape, ties=False)]
-    before = ops.LAUNCHES["ceft_relax"]
-    got = ops.ceft_relax(*args)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["ceft_relax"] == before + 1
-    want = ceft_relax_plain(args[0][None], args[1], args[2], args[3][None], args[4][None])
-    for g, w in zip(got, want):
-        assert torch.equal(g, w[0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES_MINPLUS)
+def test_minplus_matches_pallas_interpret(shape, dtype):
+    a, b = _minplus_inputs(shape)
+    want = np.asarray(jax_minplus(jnp.asarray(a, dtype), jnp.asarray(b, dtype)),
+                      np.float32)
+    tdt = getattr(torch, dtype)
+    got = ops.minplus(torch.as_tensor(a).to(tdt), torch.as_tensor(b).to(tdt))
+    assert got.dtype == tdt and got.shape == want.shape
+    if dtype == "float32":
+        _eq(got, want)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_minplus_all_overflow_row_reads_big(dtype):
+    """An entry whose every sum overflows reads BIG, as the reference kernel's
+    accumulator does (its oracle, with no BIG, reads inf there)."""
+    a = np.full((3, 5), 1.0, np.float32)
+    a[1] = 3.0e38
+    b = np.full((5, 4), 3.0e38, np.float32)
+    b[:, 2] = 1.0
+    want = np.asarray(jax_minplus(jnp.asarray(a, dtype), jnp.asarray(b, dtype)),
+                      np.float32)
+    tdt = getattr(torch, dtype)
+    got = ops.minplus(torch.as_tensor(a).to(tdt), torch.as_tensor(b).to(tdt))
+    _eq(got.float(), want)
+    assert float(got[1, 0]) == float(torch.tensor(BIG, dtype=tdt))
+    assert np.isinf(np.asarray(jref.minplus_ref(jnp.asarray(a), jnp.asarray(b)))[1, 0])
+
+
+@pytest.mark.parametrize("n", [1, 7, 19])
+def test_minplus_semiring_identity(n):
+    """The reference test's ``eye`` (0 on the diagonal, 3.0e38 off it) is
+    the identity of the product on both sides, as in the reference."""
+    a = np.random.default_rng(n).uniform(-5, 5, (n, n)).astype(np.float32)
+    eye = np.where(np.eye(n, dtype=bool), 0.0, 3.0e38).astype(np.float32)
+    ta, te = torch.as_tensor(a), torch.as_tensor(eye)
+    _eq(ops.minplus(ta, te), a)
+    _eq(ops.minplus(te, ta), a)
+    _eq(ops.minplus(ta, te), jax_minplus(jnp.asarray(a), jnp.asarray(eye)))
+
+
+def test_minplus_plain_chunks_k_without_changing_a_bit(monkeypatch):
+    """The plain version walks K in chunks so that it fits in memory at large
+    shapes; the chunking changes no bit of the result."""
+    mp = importlib.import_module("repro_torch.kernels.minplus")
+    a, b = (torch.as_tensor(x) for x in _minplus_inputs((33, 70, 29)))
+    whole = minplus_plain(a, b)
+    monkeypatch.setattr(mp, "PLAIN_CHUNK_ELEMS", 33 * 29 * 3)
+    _eq(minplus_plain(a, b), whole)
+
+
+def test_card_test_shapes_are_the_reference_test_shapes():
+    """``test_torch_cuda`` keeps its own copy of the reference's test shapes
+    (it imports no JAX); the copies must not drift."""
+    import test_torch_cuda as tc
+
+    assert (tc.EDGE_SHAPES, tc.CELL_SHAPES, tc.SUPERSTEP_SHAPES, tc.SHAPES_MINPLUS) == \
+        (EDGE_SHAPES, CELL_SHAPES, SUPERSTEP_SHAPES, SHAPES_MINPLUS)

@@ -16,7 +16,11 @@ def test_import_loads_no_jax_and_no_reference():
         for name in names:
             importlib.import_module(name)
         assert {"repro_torch.core.ceft_torch", "repro_torch.kernels.ops",
+                "repro_torch.kernels.edge_relax_superstep", "repro_torch.kernels.minplus",
                 "repro_torch.sched.plancache", "repro_torch.sched.straggler",
+                "repro_torch.sched.deadlines", "repro_torch.serve.router",
+                "repro_torch.serve.pool", "repro_torch.serve.faults",
+                "repro_torch.substrate.compat",
                 "repro_torch.interop", "repro_torch.graphs.rgg"} <= set(names), names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
