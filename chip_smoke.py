@@ -7,19 +7,25 @@ GPU and check them.
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
   2. hold each kernel against its plain PyTorch version on the card, bit-equal,
-     at the test shapes and the planning path's shapes;
+     at the test shapes and the planning path's shapes, and on tie-heavy
+     inputs: ``ceft_relax`` with fan-ins split across blocks, the fused
+     segment level (``seg_level``) with long, tile-crossing, single and
+     padded segments and a batch of 8;
   3. plan the paper's largest graph (RGG "high", n = 16384, P = 64) through
      ``PlanCache(device="cuda")``: bit-equal to the CPU path, a partial
      re-sweep after a change to the deepest levels' costs, and one realized
-     CEFT-CPOP schedule, validated;
+     CEFT-CPOP schedule, validated; a steady sweep launches ``seg_level``
+     once per segment-layout level and nothing else of the kernels;
   4. batched re-planning (B = 8) bit-equal to 8 single sweeps;
   5. the dense layout (star fan-in) and the segment fallback (heavy-tailed
      fan-in), the padded sweep, and the paper's Algorithm 1 on a small graph;
   6. the straggler loop: quiet, cached and degraded steps, equal to the same
      loop on the CPU;
-  a. the stacked edge relaxation (``edge_relax_superstep``) on the n = 16384
-     graph's own segment-layout run tables, bit-equal slice by slice to
-     ``edge_relax`` and as a whole to its plain version, and at the test shapes;
+  a. the edge relaxation at the Pallas kernels' contracts on the n = 16384
+     graph's own segment-layout run tables: ``edge_relax`` level by level and
+     ``edge_relax_superstep`` over each stacked run, bit-equal slice by slice
+     to each other and as a whole to their plain versions, and at the test
+     shapes;
   b. the tropical product (``minplus``) at the test shapes and at
      (4096, 4096, 4096), float32 and bf16, bit-equal to its plain version, and
      the semiring identity;
@@ -32,7 +38,8 @@ Phases (any failure exits non-zero; nothing is caught):
      exactly once, and no worker child starts CUDA;
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
-     path's shapes beside its plain version and its bound.
+     path's shapes beside its plain version and its bound (``seg_level`` at
+     the n = 16384 graph's widest segment-layout levels, 1 and 8 planes).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the card's name and power limit, and the one before that the kernel report.
@@ -58,7 +65,7 @@ from repro_torch.core.schedule import validate_schedule  # noqa: E402
 from repro_torch.graphs import heavy_tail_fan_in, rgg, star_fan_in  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ceft_relax import ceft_relax_plain  # noqa: E402
-from repro_torch.kernels.edge_relax import edge_relax_plain  # noqa: E402
+from repro_torch.kernels.edge_relax import edge_relax_plain, seg_level_plain  # noqa: E402
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
 from repro_torch.sched import PlanCache, StragglerMonitor, plancache  # noqa: E402
@@ -76,6 +83,16 @@ EDGE_SHAPES = [(5, 3), (128, 16), (300, 7), (1, 1), (257, 13), (64, 64)]
 CELL_SHAPES = [(8, 3, 4), (5, 1, 2), (16, 7, 13), (33, 9, 64), (64, 2, 128), (1, 1, 1)]
 EDGE_PATH_SHAPES = [(1024, 64), (2048, 64)]
 CELL_PATH_SHAPES = [(1, 4096, 64), (8, 28, 64)]
+# tie-heavy dense relaxations, most with fan-ins the kernel splits across blocks
+CELL_TIE_CASES = [((1, 4096, 64), "ties"), ((1, 4096, 8), "ties"), ((2, 1000, 128), "ties"),
+                  ((3, 300, 64), "constant"), ((8, 28, 64), "ties"), ((5, 40, 8), "constant"),
+                  ((4, 700, 64), "invalid_rows"), ((6, 90, 8), "invalid_rows"),
+                  ((1, 33, 128), "invalid_rows")]
+# fused segment levels: (B, P, segment lengths or (count, longest), padded
+# edges, padded segment slots); the kernel's edge tile is 1024 // P edges
+SEG_CASES = {"long": (1, 64, [3, 3000, 1, 40], 0, 0), "crossing": (2, 8, (60, 300), 5, 0),
+             "single": (1, 64, [500], 12, 0), "padded": (1, 16, (30, 90), 17, 3),
+             "batch8": (8, 64, (100, 12), 600, 0), "p128": (2, 128, (12, 40), 1, 2)}
 SUPERSTEP_SHAPES = [(1, 5, 3), (4, 128, 16), (3, 300, 7), (2, 64, 64), (1, 1, 1)]
 SHAPES_MINPLUS = [(4, 3, 5), (128, 16, 128), (300, 37, 260), (1, 1, 1),
                   (257, 129, 255), (16, 256, 16)]
@@ -138,10 +155,66 @@ def cell_inputs(shape, seed: int, device, n_valid: int | None = None):
     return [torch.as_tensor(np.asarray(a, np.float32), device=device) for a in arrs]
 
 
+def cell_tie_inputs(shape, mode: str, seed: int, device):
+    """Small integers on a homogeneous machine; "constant" ties every slot,
+    "invalid_rows" leaves every third task without a valid parent."""
+    W, D, P = shape
+    rng = np.random.default_rng(seed)
+    pv = rng.integers(0, 4, (W, D, P)).astype(np.float32)
+    pdata = rng.integers(0, 3, (W, D)).astype(np.float32)
+    validp = (rng.random((W, D)) < 0.9).astype(np.float32)
+    if mode == "constant":
+        pv[:], pdata[:] = 2.0, 1.0
+    if mode == "invalid_rows":
+        validp[::3] = 0.0
+    return [torch.as_tensor(a, device=device) for a in (
+        pv, pdata, validp, np.full(P, 1.0, np.float32), np.full((P, P), 2.0, np.float32))]
+
+
+def seg_inputs(case: str, ties: bool, seed: int):
+    """One segment-layout level on the host: (carry, comp, L, bw, tasks,
+    edge_src, edge_data, edge_seg, e_real, width); parents in the first half
+    of the rows, the level's tasks in the second, the last row the scratch."""
+    B, P, lens, pad_e, pad_w = SEG_CASES[case]
+    rng = np.random.default_rng(seed)
+    if isinstance(lens, tuple):
+        lens = rng.integers(1, lens[1] + 1, lens[0])
+    lens = np.asarray(lens)
+    w, e_real = len(lens), int(lens.sum())
+    V = 2 * max(w, 64) + 1
+    if ties:
+        ceft = rng.integers(0, 4, (B, V, P)).astype(np.float32)
+        data = rng.integers(0, 3, e_real).astype(np.float32)
+        L, bw = np.full((B, P), 1.0, np.float32), np.full((B, P, P), 2.0, np.float32)
+    else:
+        ceft = rng.uniform(0, 100, (B, V, P)).astype(np.float32)
+        data = rng.uniform(0, 10, e_real).astype(np.float32)
+        L = rng.uniform(0, 2, (B, P)).astype(np.float32)
+        bw = rng.uniform(0.5, 2, (B, P, P)).astype(np.float32)
+    ceft[:, V - 1] = 0.0
+    comp = rng.integers(1, 4, (B, V, P)).astype(np.float32)
+    width, E_b = w + pad_w, e_real + pad_e
+    src = np.full(E_b, V - 1, np.int64)
+    src[:e_real] = rng.integers(0, V // 2, e_real)
+    dat = np.zeros(E_b, np.float32)
+    dat[:e_real] = data
+    seg = np.full(E_b, width - 1, np.int64)
+    seg[:e_real] = np.repeat(np.arange(w), lens)
+    tasks = (V // 2 + rng.permutation(V // 2)[:w]).astype(np.int64)
+    carry = tuple(torch.as_tensor(a) for a in (
+        ceft, np.full((B, V, P), -1, np.int32), np.full((B, V, P), -1, np.int32)))
+    return (carry, *(torch.as_tensor(a) for a in (comp, L, bw, tasks, src, dat, seg)),
+            e_real, width)
+
+
+def scratch_is_zero() -> bool:
+    return all(not k.any() and not c.any() for k, c in ops._SCRATCH.values())
+
+
 def compare_kernels(device) -> dict:
     """Phase 2: the planning path's kernels against their plain versions,
     bit-equal."""
-    err = {"edge_relax": 0.0, "ceft_relax": 0.0}
+    err = {"edge_relax": 0.0, "ceft_relax": 0.0, "seg_level": 0.0}
     cases = [(s, None) for s in EDGE_SHAPES + EDGE_PATH_SHAPES] + [((1024, 64), 8)]
     for i, (shape, batch) in enumerate(cases):
         pv, pdata, L, bw = edge_inputs(shape, 100 + i, device, batch)
@@ -162,7 +235,29 @@ def compare_kernels(device) -> dict:
         err["ceft_relax"] = max(err["ceft_relax"], float((got[0] - want[0][0]).abs().max()))
         for g, w, name in zip(got, want, ("maxk", "argk", "argl")):
             check(torch.equal(g, w[0]), f"ceft_relax kernel != plain ({name}) at {shape}")
-    log(f"phase 2: kernels bit-equal to their plain versions; max_abs_err {err}")
+    for i, (shape, mode) in enumerate(CELL_TIE_CASES):
+        pv, pdata, validp, L, bw = cell_tie_inputs(shape, mode, 250 + i, device)
+        got = ops.ceft_relax(pv, pdata, validp, L, bw)
+        torch.cuda.synchronize()
+        want = ceft_relax_plain(pv[None], pdata, validp, L[None], bw[None])
+        err["ceft_relax"] = max(err["ceft_relax"], float((got[0] - want[0][0]).abs().max()))
+        for g, w, name in zip(got, want, ("maxk", "argk", "argl")):
+            check(torch.equal(g, w[0]), f"ceft_relax kernel != plain ({name}) at {shape} {mode}")
+    for i, case in enumerate(SEG_CASES):
+        for ties in (True, False):
+            carry, *rest, e_real, width = seg_inputs(case, ties, 700 + i)
+            want = tuple(c.clone() for c in carry)
+            seg_level_plain(want, *rest, e_real, width)
+            got = tuple(c.to(device) for c in carry)
+            ops.seg_level(got, *(t.to(device) for t in rest), e_real, width)
+            torch.cuda.synchronize()
+            err["seg_level"] = max(err["seg_level"], float((got[0].cpu() - want[0]).abs().max()))
+            for g, w, name in zip(got, want, ("ceft", "pred_task", "pred_proc")):
+                check(torch.equal(g.cpu(), w), f"seg_level kernel != plain ({name}) at {case} "
+                      f"ties={ties}")
+    check(scratch_is_zero(), "a kernel left its cross-block scratch non-zero")
+    log(f"phase 2: kernels bit-equal to their plain versions (ceft_relax tie cases "
+        f"{len(CELL_TIE_CASES)}, seg_level cases {2 * len(SEG_CASES)}); max_abs_err {err}")
     return err
 
 
@@ -291,12 +386,14 @@ def straggler(device):
         f"{ev.new_makespan!r}; counters {gpu[-1][3]}")
 
 
-def superstep_path(device, g, inputs, ceft_pad) -> tuple[list, list]:
-    """Phase a: each segment-layout run of the n = 16384 graph relaxed in one
-    ``edge_relax_superstep`` call over its stacked level tables, with ``pv``
-    gathered from the finished (padded) CEFT table ``ceft_pad`` (each vertex
-    is written once, before its children's level reads it, so these are the
-    values the sweep saw).  Returns the run tables and the kernel's outputs."""
+def superstep_path(device, g, inputs, ceft_pad) -> tuple[list, list, list]:
+    """Phase a: the n = 16384 graph's segment-layout levels relaxed at the
+    Pallas kernels' contracts, with ``pv`` gathered from the finished (padded)
+    CEFT table ``ceft_pad`` (each vertex is written once, before its
+    children's level reads it, so these are the values the sweep saw):
+    ``edge_relax`` level by level, and ``edge_relax_superstep`` once per run
+    over its stacked level tables.  Returns the run tables and both kernels'
+    outputs."""
     L, bw = inputs[3], inputs[4]
     runs, _, _, _ = plancache.device_state(g, device)
     tables = []
@@ -309,18 +406,23 @@ def superstep_path(device, g, inputs, ceft_pad) -> tuple[list, list]:
         pv = ceft_pad.index_select(0, src.reshape(-1)).view(R, E, -1).contiguous()
         tables.append((pv, pdata, L, bw))
     check(len(tables) >= 1, "the n = 16384 graph has no segment-layout run")
-    outs = [ops.edge_relax_superstep(*t) for t in tables]             # the drive
+    per_level = [[ops.edge_relax(pv[r], pdata[r], L, bw) for r in range(pv.shape[0])]
+                 for pv, pdata, L, bw in tables]
+    outs = [ops.edge_relax_superstep(*t) for t in tables]
     torch.cuda.synchronize()
-    return tables, outs
+    return tables, outs, per_level
 
 
-def check_superstep(device, tables, outs) -> float:
-    err = 0.0
-    for (pv, pdata, L, bw), (minl, argl) in zip(tables, outs):
-        for r in range(pv.shape[0]):
-            m1, a1 = ops.edge_relax(pv[r], pdata[r], L, bw)
+def check_superstep(device, tables, outs, per_level) -> tuple[float, float]:
+    err = edge_err = 0.0
+    for (pv, pdata, L, bw), (minl, argl), levels in zip(tables, outs, per_level):
+        for r, (m1, a1) in enumerate(levels):
             check(torch.equal(minl[r], m1) and torch.equal(argl[r], a1),
                   f"superstep slice {r} of {tuple(pv.shape)} != edge_relax on that level")
+            want = edge_relax_plain(pv[r][None], pdata[r], L[None], bw[None])
+            edge_err = max(edge_err, float((m1 - want[0][0]).abs().max()))
+            check(torch.equal(m1, want[0][0]) and torch.equal(a1, want[1][0]),
+                  f"edge_relax kernel != plain on level {r} of {tuple(pv.shape)}")
         want = edge_relax_superstep_plain(pv, pdata, L, bw)
         err = max(err, float((minl - want[0]).abs().max()))
         check(torch.equal(minl, want[0]) and torch.equal(argl, want[1]),
@@ -336,10 +438,10 @@ def check_superstep(device, tables, outs) -> float:
         err = max(err, float((got[0] - want[0]).abs().max()))
         check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
               f"edge_relax_superstep kernel != plain at {(R, E, P)}")
-    log(f"phase a: superstep on the run tables {[tuple(t[0].shape) for t in tables]} "
-        f"bit-equal to per-level edge_relax and to its plain version; test shapes "
-        f"bit-equal; max_abs_err {err}")
-    return err
+    log(f"phase a: edge_relax per level and the superstep per run on the run tables "
+        f"{[tuple(t[0].shape) for t in tables]}, bit-equal to each other and to their "
+        f"plain versions; test shapes bit-equal; max_abs_err {err} (edge_relax {edge_err})")
+    return err, edge_err
 
 
 def minplus_inputs(shape, dtype, device, seed: int):
@@ -449,6 +551,11 @@ def same_plan_on_cpu(tick: dict, cpu_cache: PlanCache, what: str) -> None:
               and got.cpl == want.cpl, f"{what}: card plan != cpu plan")
 
 
+def relax_launches(counts: dict) -> int:
+    """Launches of the kernels a sweep relaxes levels with."""
+    return counts["seg_level"] + counts["ceft_relax"] + counts["edge_relax"]
+
+
 def router_path(device) -> dict:
     """Phase c: the pool8 router with max_split = 4 on the card, 192 requests in
     4 rounds; each tick's plan checked against the CPU; then one engine is
@@ -473,7 +580,7 @@ def router_path(device) -> dict:
     for k, t in enumerate(ticks):
         same_plan_on_cpu(t, cpu_cache, f"router tick {k}")
     launched = out[device]["launches"]
-    check(launched["edge_relax"] + launched["ceft_relax"] > 0,
+    check(relax_launches(launched) > 0,
           f"the router's ticks launched no relaxation kernel: {launched}")
     check(sum(out["cpu"]["launches"].values()) == 0, "the cpu router launched a kernel")
 
@@ -496,13 +603,12 @@ def router_path(device) -> dict:
     n_deg = router.stats["degraded_plans"]
     done = router.serve()
     trip = {k: ops.LAUNCHES[k] - before[k] for k in before}
-    nominal_launches = mid["edge_relax"] + mid["ceft_relax"] \
-        - before["edge_relax"] - before["ceft_relax"]
+    nominal_launches = relax_launches(mid) - relax_launches(before)
     check(set(done) == set(trip_rids), "the tripped round lost a request")
     check(router.stats["degraded_plans"] > n_deg, "the tripped engine gave no degraded plan")
     # the tripped tick serves its nominal plane from the cache the untripped
     # tick swept on the card, and sweeps its degraded plane on the card
-    check(nominal_launches > 0 and trip["edge_relax"] + trip["ceft_relax"] > nominal_launches,
+    check(nominal_launches > 0 and relax_launches(trip) > nominal_launches,
           f"the nominal or the degraded planes launched no kernel: {mid} {trip}")
     deg = ticks[k0 + 1]
     check(base["nominal"] is None and deg["nominal"] is not None,
@@ -581,7 +687,34 @@ def timed(kernel, plain, reps: int, plain_reps: int | None = None) -> dict:
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
 
 
-def kernel_report(by_path, errs, per_sweep, tables, device) -> list:
+def seg_level_rows(g, inputs, device) -> list:
+    """The fused level at the n = 16384 graph's shapes: the widest level of
+    each segment-layout run, and the first run's with 8 planes.  The level
+    writes only its own tasks' rows from parent rows it does not write, so
+    calls on the finished carry repeat the same work and write the same
+    values."""
+    runs = plancache.device_state(g, device)[0]
+    levels = [max(r.levels, key=lambda lv: lv.e_real) for r in runs if r.layout == "seg"]
+    out = []
+    for B, lv in [(1, lv) for lv in levels] + [(8, levels[0])]:
+        carry = tuple(c[None].expand(B, *c.shape).contiguous() for c in ct.csr_sweep(inputs))
+        comp, L, bw = (t[None].expand(B, *t.shape).contiguous()
+                       for t in (inputs[1], inputs[3], inputs[4]))
+        args = (comp, L, bw, lv.tasks, lv.edge_src, lv.edge_data, lv.edge_seg,
+                lv.e_real, lv.width)
+        e, w, P = lv.e_real, lv.tasks.shape[0], comp.shape[-1]
+        # the parent rows read and the carry rows read and written, the level's
+        # edge and task tables, the machine; the real edges' candidates
+        nbytes = 4 * B * (e * P + w * P + 3 * w * P + P + P * P) + 20 * e + 8 * w
+        t_min, by = bound(nbytes, OPS_PER_CANDIDATE * B * e * P * P)
+        out.append(dict(shape=[B, e, P], edge_cap=lv.edge_src.shape[0], tasks=w,
+                        bound_ms=t_min, bound_by=by, **timed(
+                            lambda: ops.seg_level(carry, *args),
+                            lambda: seg_level_plain(carry, *args), 100)))
+    return out
+
+
+def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device) -> list:
     """Phase 7: each kernel at its path's shapes beside its plain version and
     its bound; the first shape is the one the path runs most.  ``by_path``
     holds each path's launch counts, read around that path alone."""
@@ -621,16 +754,22 @@ def kernel_report(by_path, errs, per_sweep, tables, device) -> list:
                                  bound_ms=t_min, bound_by=by, **timed(
             lambda: ops.minplus(a, b), lambda: minplus_plain(a, b), 10, 2)))
     rows = []
-    for name, replaces, by_shape in (
-            ("edge_relax", "src/repro/kernels/ceft_relax.py:67 (_edge_relax_kernel)",
-             edge_rows),
-            ("ceft_relax", "src/repro/kernels/ceft_relax.py:30 (_relax_kernel)", cell_rows),
-            ("edge_relax_superstep",
+    for name, source, replaces, by_shape in (
+            ("seg_level", "edge_relax", "src/repro/kernels/ceft_relax.py:67 "
+             "(_edge_relax_kernel) with the segment max and carry scatter of "
+             "src/repro/core/ceft_jax.py:227 (_superstep_impl)",
+             seg_level_rows(g, inputs, device)),
+            ("edge_relax", "edge_relax", "src/repro/kernels/ceft_relax.py:67 "
+             "(_edge_relax_kernel)", edge_rows),
+            ("ceft_relax", "ceft_relax", "src/repro/kernels/ceft_relax.py:30 (_relax_kernel)",
+             cell_rows),
+            ("edge_relax_superstep", "edge_relax_superstep",
              "src/repro/kernels/ceft_relax.py:85 (_edge_relax_superstep_kernel)", super_rows),
-            ("minplus", "src/repro/kernels/minplus.py:22 (_minplus_kernel)", minplus_rows)):
+            ("minplus", "minplus", "src/repro/kernels/minplus.py:22 (_minplus_kernel)",
+             minplus_rows)):
         paths = {path: counts[name] for path, counts in by_path.items() if counts[name]}
         rows.append(dict(
-            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{source}.cu",
             replaces=replaces, launches=sum(paths.values()), launches_by_path=paths,
             max_abs_err=errs[name], launches_per_rgg16384_sweep=per_sweep[name],
             library_ms=None,
@@ -672,19 +811,21 @@ def main() -> int:
     by_path = {}
     (g, inputs), by_path["planning"] = counted(planning_path)
     log(f"planning path launches: {by_path['planning']}")
-    check(by_path["planning"]["edge_relax"] > 0 and by_path["planning"]["ceft_relax"] > 0,
+    check(by_path["planning"]["seg_level"] > 0 and by_path["planning"]["ceft_relax"] > 0,
           f"a kernel of the planning path never launched: {by_path['planning']}")
 
     ceft_pad = ct.csr_sweep(inputs)[0]
-    (tables, outs), by_path["superstep"] = counted(superstep_path, device, g, inputs,
-                                                   ceft_pad)
-    errs["edge_relax_superstep"] = check_superstep(device, tables, outs)
-    del outs
+    (tables, outs, per_level), by_path["run_tables"] = counted(superstep_path, device, g,
+                                                               inputs, ceft_pad)
+    errs["edge_relax_superstep"], edge_err = check_superstep(device, tables, outs, per_level)
+    errs["edge_relax"] = max(errs["edge_relax"], edge_err)
+    del outs, per_level
     calls, by_path["minplus"] = counted(minplus_path, device)
     errs["minplus"] = check_minplus(calls)
     del calls
-    check(by_path["superstep"]["edge_relax_superstep"] > 0 and by_path["minplus"]["minplus"] > 0,
-          f"a standalone kernel never launched: {by_path['superstep']} {by_path['minplus']}")
+    check(by_path["run_tables"]["edge_relax_superstep"] > 0
+          and by_path["run_tables"]["edge_relax"] > 0 and by_path["minplus"]["minplus"] > 0,
+          f"a standalone kernel never launched: {by_path['run_tables']} {by_path['minplus']}")
     _, by_path["router"] = counted(router_path, device)
     _, by_path["chaos"] = counted(chaos_soak, device)
     log(f"launches by path: {by_path}")
@@ -692,8 +833,15 @@ def main() -> int:
     ops.reset_launches()
     ct.csr_sweep(inputs)
     per_sweep = dict(ops.LAUNCHES)
-    log(f"launches per full n=16384 sweep: {per_sweep}")
-    rows = kernel_report(by_path, errs, per_sweep, tables, device)
+    runs = plancache.device_state(g, device)[0]
+    n_seg = sum(len(r.levels) for r in runs if r.layout == "seg")
+    n_dense = sum(len(r.levels) for r in runs if r.layout == "dense")
+    check(per_sweep["seg_level"] == n_seg and per_sweep["ceft_relax"] == n_dense
+          and per_sweep["edge_relax"] == 0,
+          f"a sweep of {n_seg} segment-layout and {n_dense} dense levels launched {per_sweep}")
+    log(f"launches per full n=16384 sweep: {per_sweep} ({n_seg} segment-layout levels, "
+        f"one seg_level launch each; {n_dense} dense levels)")
+    rows = kernel_report(by_path, errs, per_sweep, tables, g, inputs, device)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(

@@ -6,20 +6,23 @@ one *topological level* at a time; a whole level's relaxation
     cand[w, k, l, j] = CEFT[par[w,k], l] + comm(l, j | data[w,k])
     CEFT[task_w, j]  = comp[task_w, j] + max_k min_l cand[w, k, l, j]
 
-is one kernel launch (``kernels/``) plus a handful of gathers, segmented
-reductions and scatters.  Three formulations, each bit-identical to the
-reference package's counterpart in ``repro.core.ceft_jax``:
+is relaxed by a hand-written kernel (``kernels/``).  Three formulations, each
+bit-identical to the reference package's counterpart in
+``repro.core.ceft_jax``:
 
   * ``ceft_torch`` — the padded dense sweep over (n_levels, Wmax, Dmax)
-    tables, relaxed by the ``ceft_relax`` kernel.  Simple, and the reference
-    the CSR sweep is held against.
+    tables, relaxed by the ``ceft_relax`` kernel (which splits a wide fan-in
+    across warps and blocks) plus a handful of gathers and scatters.  Simple,
+    and the reference the CSR sweep is held against.
   * ``ceft_torch_csr`` — the fused hybrid sweep.  Adjacent levels are grouped
     into runs at bucketed shapes (the bucket policy below); per run the layout
     adapts: no within-level in-degree skew -> run-local dense (R, W, D) tables
     through the same level body as ``ceft_torch``; skewed fan-in -> the
-    edge-centric segment layout (gather parent CEFT rows per *edge*, relax with
-    the ``edge_relax`` kernel, then a per-child segmented max with a first-max
-    tie-break in edge order) — O(e·P²) work, the paper's §5 bound.
+    edge-centric segment layout (gather parent CEFT rows per *edge*, relax
+    them, take a per-child segmented max with a first-max tie-break in edge
+    order, write the children's rows) — O(e·P²) work, the paper's §5 bound.
+    On the card a segment-layout level is one ``seg_level`` launch that does
+    all of it; on the CPU it is the same steps in plain PyTorch.
   * ``ceft_torch_batch_csr`` — the batched re-planning form: an explicit
     leading batch axis over cost planes / machines, with the run tables shared
     across the batch (the straggler loop's shape).
@@ -29,7 +32,8 @@ so the single and batched forms run one code path.  The level loop is a
 Python loop with no host synchronization in it: every quantity a branch
 depends on (real widths, real edge counts, layouts) is known on the host when
 the tables are built.  Rows past a level's real width are never written, so
-the scratch row ``v_b`` stays zero; padded edges read it and are masked.
+the scratch row ``v_b`` stays zero; padded edges read it (plain version) and
+never count.
 
 Every entry point runs on the card unless the caller passes ``device="cpu"``;
 asking for CUDA on a machine without it raises.
@@ -53,9 +57,6 @@ from .taskgraph import (
     padded_level_tables,
     stack_cost_planes,
 )
-
-NEG = -3.4e38  # the masked-edge value (rounds to the reference's float32 NEG)
-
 
 def resolve_device(device) -> torch.device:
     """The torch device for an entry point's ``device=`` argument; CUDA that
@@ -143,41 +144,13 @@ class SegLevel:
     width: int          # W_b, the run's bucketed segment count
 
 
-def _seg_level(carry, comp_pad, L, bw, lv: SegLevel, edge_ids) -> None:
+def _seg_level(carry, comp_pad, L, bw, lv: SegLevel) -> None:
     """One level of the edge-centric sweep: per-edge relaxation, then the
     per-child max over its contiguous parent segment with a first-max
     tie-break in edge order (== ascending parent id, matching the dense
-    argmax).  ``edge_ids`` is ``arange(E_b)`` on the device."""
-    ceft_arr = carry[0]
-    B, _, P = ceft_arr.shape
-    E_b, W_b, e = lv.edge_src.shape[0], lv.width, lv.e_real
-    pv = ceft_arr.index_select(1, lv.edge_src)                     # (B,E,P)
-    minl, argl = ops.edge_relax(pv, lv.edge_data, L, bw)
-    masked = e < E_b
-    if masked:
-        minl[:, e:] = NEG
-    if W_b == 1:
-        # single segment: the segmented reduction collapses to max/argmax,
-        # whose first-max tie-break equals first-max-in-edge-order
-        maxk, arg_edge = torch.max(minl, dim=1, keepdim=True)      # (B,1,P)
-    else:
-        seg = lv.edge_seg.view(1, E_b, 1).expand(B, E_b, P)
-        maxk = torch.full((B, W_b, P), -float("inf"), dtype=minl.dtype,
-                          device=minl.device)
-        maxk.scatter_reduce_(1, seg, minl, "amax")
-        hit = minl == torch.gather(maxk, 1, seg)
-        if masked:
-            hit[:, e:] = False
-        is_first = torch.where(hit, edge_ids.view(1, E_b, 1), E_b)
-        arg_edge = torch.full((B, W_b, P), E_b, dtype=torch.int64, device=minl.device)
-        arg_edge.scatter_reduce_(1, seg, is_first, "amin")
-        arg_edge.clamp_max_(E_b - 1)                               # (B,W,P)
-    w = lv.tasks.shape[0]
-    maxk, arg_edge = maxk[:, :w], arg_edge[:, :w]
-    pt = lv.edge_src[arg_edge].to(torch.int32)
-    pl = torch.gather(argl, 1, arg_edge)
-    newv = comp_pad.index_select(1, lv.tasks) + maxk
-    _write(carry, lv.tasks, newv, pt, pl)
+    argmax), written into the carry -- one ``seg_level`` launch on the card."""
+    ops.seg_level(carry, comp_pad, L, bw, lv.tasks, lv.edge_src, lv.edge_data,
+                  lv.edge_seg, lv.e_real, lv.width)
 
 
 # ------------------------------------------------------------- padded sweep
@@ -338,7 +311,6 @@ class DeviceRun:
     no-op padding levels of the host tables write nothing and are dropped)."""
     layout: str                 # "seg" or "dense"
     levels: tuple               # SegLevel or DenseLevel, one per real level
-    edge_ids: torch.Tensor | None = None   # arange(E_b) for the segment layout
 
 
 def _device_runs(runs, v_b: int, device) -> list[DeviceRun]:
@@ -350,7 +322,6 @@ def _device_runs(runs, v_b: int, device) -> list[DeviceRun]:
             out.append(DeviceRun("dense", tuple(
                 _dense_levels(r.tasks, r.par, r.pdata, v_b, device))))
             continue
-        E_b = r.edge_src.shape[-1]
         levels = []
         for k in range(r.n_levels):
             e = int(r.e_real[k])
@@ -363,8 +334,7 @@ def _device_runs(runs, v_b: int, device) -> list[DeviceRun]:
                 edge_data=torch.as_tensor(r.edge_data[k], device=device),
                 edge_seg=torch.as_tensor(r.edge_seg[k].astype(np.int64), device=device),
                 e_real=e, width=r.width))
-        out.append(DeviceRun("seg", tuple(levels),
-                             torch.arange(E_b, dtype=torch.int64, device=device)))
+        out.append(DeviceRun("seg", tuple(levels)))
     return out
 
 
@@ -416,7 +386,7 @@ def _sweep_runs(runs, comp_pad, srcs, L, bw, *, keep_carries=None, resume=None):
                 _dense_level(carry, comp_pad, L, bw, lv)
         else:
             for lv in run.levels:
-                _seg_level(carry, comp_pad, L, bw, lv, run.edge_ids)
+                _seg_level(carry, comp_pad, L, bw, lv)
         if keep_carries is not None:
             keep_carries.append(tuple(c.clone() for c in carry))
     return carry

@@ -10,91 +10,160 @@
 // ceft_relax_pallas); b is the batch of cost planes / machines sharing one set
 // of level tables.
 //
-// Design: one thread per (b, w, j) output.  L[b] and bw[b] are staged in shared
-// memory; each thread walks its task's D parent slots and, per slot, the P
-// parent classes, folding every valid slot into a running maximum with a
-// strict '>' (the first maximal parent wins, as in the reference's argmax).
-// The (W, D, P, P) candidate tensor never leaves registers.  The bound is the
-// D * P^2 divides per output; a wide fan-in level with few tasks (the star's
-// sink: W = 1, D = 4096) gives only P threads, each with a long serial loop.
-// Splitting D across warps with a (max, first index) reduction is the next
-// step for that shape.  Bit-exactness is pinned as in edge_relax.cu: a
-// correctly rounded divide, explicit round-to-nearest adds and multiplies, the
-// reference's operation order, and strict comparisons.  Never build this file
-// with --use_fast_math.
+// Bound: the valid slots' D * P^2 correctly rounded divides per (b, w).  The
+// shapes range from many narrow tasks (the router's DAGs, P = 8) to one task
+// with a wide fan-in (the star's sink: W = 1, D = 4096, P = 64), so the fan-in
+// D is split across threads and blocks:
+//
+//   * a block takes one (b, w) and a chunk of D; its threads are P j-lanes
+//     times S = 256 / P slot-lanes (4 at P = 64, 32 at P = 8);
+//   * the block copies its pv rows (contiguous in memory) into a shared tile
+//     with coalesced loads, L and bw are staged once;
+//   * each thread folds its slots in ascending order with a strict '>' from
+//     (-BIG, 0, 0), as the sequential scan does, so a NaN slot never wins;
+//   * the slot-lanes are combined in shared memory lexicographically (larger
+//     value, then smaller d), which equals the first-max sequential scan,
+//     including a tie with the initial -BIG;
+//   * when D spans several blocks, each block with a valid slot posts a 64-bit
+//     atomicMax of a packed key (order-preserving value bits, then the
+//     complement of d, then l), and the last block of the (b, w) row to finish
+//     decodes the key and resets it; a key left at 0 means no valid parent.
+//     The scratch is zero between launches, so it needs no memset, and the
+//     result does not depend on block order.
+//
+// The host picks the number of chunks from (B, W, D, P); a level whose fan-in
+// fits one block takes one launch with no atomics.  Bit-exactness is pinned in
+// relax.cuh's relax_cell (shared with edge_relax.cu) and by strict comparisons
+// here.  Never build this file with --use_fast_math.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "relax.cuh"
+
 #define CEFT_BIG 3.0e38f
+#define CEFT_THREADS 256
+#define TILE_ROUNDS 4  // a shared pv tile holds TILE_ROUNDS slots per slot-lane
 
-__global__ void ceft_relax_kernel(const float* __restrict__ pv,      // (B, W, D, P)
-                                  const float* __restrict__ pdata,   // (W, D)
-                                  const float* __restrict__ validp,  // (W, D)
-                                  const float* __restrict__ L,       // (B, P)
-                                  const float* __restrict__ bw,      // (B, P, P)
-                                  float* __restrict__ maxk,          // (B, W, P)
-                                  int32_t* __restrict__ argk,        // (B, W, P)
-                                  int32_t* __restrict__ argl,        // (B, W, P)
-                                  int W, int D, int P) {
+__global__ void __launch_bounds__(CEFT_THREADS) ceft_relax_kernel(
+    const float* __restrict__ pv,      // (B, W, D, P)
+    const float* __restrict__ pdata,   // (W, D)
+    const float* __restrict__ validp,  // (W, D)
+    const float* __restrict__ L,       // (B, P)
+    const float* __restrict__ bw,      // (B, P, P)
+    float* __restrict__ maxk,          // (B, W, P)
+    int32_t* __restrict__ argk,        // (B, W, P)
+    int32_t* __restrict__ argl,        // (B, W, P)
+    unsigned long long* __restrict__ keys,  // (B, W, P) zero on entry and on exit
+    int* __restrict__ counts,               // (B, W) zero on entry and on exit
+    int W, int D, int P, int chunk) {
+  const int S = blockDim.x / P;   // slot-lanes
+  const int TS = TILE_ROUNDS * S;  // slots per shared tile
   extern __shared__ float smem[];
-  float* sL = smem;       // (P,)
-  float* sbw = smem + P;  // (P, P)
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) sL[i] = L[(size_t)b * P + i];
-  for (int i = threadIdx.x; i < P * P; i += blockDim.x)
-    sbw[i] = bw[(size_t)b * P * P + i];
-  __syncthreads();
+  float* sL = smem;                    // (P,)
+  float* sbw = sL + P;                 // (P, P)
+  float* spv = sbw + P * P;            // (TS, P)
+  float* sdat = spv + TS * P;          // (TS,)
+  float* sval = sdat + TS;             // (TS,)
+  float* rv = sval + TS;               // (S, P) each slot-lane's fold
+  int* rd = (int*)(rv + S * P);        // (S, P)
+  int* rl = rd + S * P;                // (S, P)
+  __shared__ int is_last;
 
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)W * P) return;
-  const int w = (int)(idx / P);
-  const int j = (int)(idx % P);
-  float run_max = -CEFT_BIG;
-  int run_k = 0, run_l = 0;
-  bool has = false;
-  for (int d = 0; d < D; ++d) {
-    const size_t td = (size_t)w * D + d;
-    if (!(validp[td] > 0.0f)) continue;  // a padded slot contributes -BIG: never wins
-    has = true;
-    const float dat = pdata[td];
-    const size_t row = ((size_t)b * W * D + td) * P;
-    float best = 0.0f;
-    int arg = 0;
-    for (int l = 0; l < P; ++l) {
-      const float off = (l == j) ? 0.0f : 1.0f;
-      const float comm = __fmul_rn(__fadd_rn(sL[l], __fdiv_rn(dat, sbw[l * P + j])), off);
-      const float c = __fadd_rn(pv[row + l], comm);
-      if (l == 0 || c < best) {
-        best = c;
-        arg = l;
+  const int b = blockIdx.z, w = blockIdx.y;
+  const int j = threadIdx.x % P, sl = threadIdx.x / P;
+  const int d0 = blockIdx.x * chunk, d1 = min(D, d0 + chunk);
+  for (int i = threadIdx.x; i < P; i += blockDim.x) sL[i] = L[(size_t)b * P + i];
+  for (int i = threadIdx.x; i < P * P; i += blockDim.x) sbw[i] = bw[(size_t)b * P * P + i];
+
+  float run = -CEFT_BIG;
+  int run_d = 0, run_l = 0;
+  bool any = false;
+  const size_t task = (size_t)w * D;
+  const float* pv_row = pv + ((size_t)b * W * D + task) * P;
+  for (int t0 = d0; t0 < d1; t0 += TS) {
+    const int n = min(TS, d1 - t0);
+    __syncthreads();  // the previous tile is consumed (and L, bw are staged)
+    for (int i = threadIdx.x; i < n * P; i += blockDim.x) spv[i] = pv_row[(size_t)t0 * P + i];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      sdat[i] = pdata[task + t0 + i];
+      sval[i] = validp[task + t0 + i];
+    }
+    __syncthreads();
+    for (int i = sl; i < n; i += S) {
+      if (!(sval[i] > 0.0f)) continue;  // a padded slot contributes -BIG: never wins
+      any = true;
+      float best;
+      int arg;
+      relax_cell(spv + i * P, sdat[i], sL, sbw, P, j, best, arg);
+      if (best > run) {
+        run = best;
+        run_d = t0 + i;
+        run_l = arg;
       }
     }
-    if (best > run_max) {
-      run_max = best;
-      run_k = d;
-      run_l = arg;
-    }
   }
+  const bool block_any = __syncthreads_or(any);
+  rv[sl * P + j] = run;
+  rd[sl * P + j] = run_d;
+  rl[sl * P + j] = run_l;
+  __syncthreads();
   const size_t out = ((size_t)b * W + w) * P + j;
-  maxk[out] = run_max;
-  argk[out] = has ? run_k : -1;
-  argl[out] = has ? run_l : -1;
+  if (sl == 0) {
+    for (int s = 1; s < S; ++s) {
+      const float v = rv[s * P + j];
+      const int d = rd[s * P + j];
+      if (v > run || (v == run && d < run_d)) {
+        run = v;
+        run_d = d;
+        run_l = rl[s * P + j];
+      }
+    }
+    if (gridDim.x == 1) {
+      maxk[out] = run;
+      argk[out] = block_any ? run_d : -1;
+      argl[out] = block_any ? run_l : -1;
+      return;
+    }
+    if (block_any) atomicMax(&keys[out], pack_key(run, run_d, run_l));
+    __threadfence();
+  }
+  if (gridDim.x == 1) return;
+
+  // the last block of row (b, w) to finish decodes the key
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(&counts[(size_t)b * W + w], 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!is_last || sl != 0) return;
+  __threadfence();
+  const unsigned long long key = atomicExch(&keys[out], 0ull);
+  const uint32_t lo = (uint32_t)key;
+  maxk[out] = key ? from_ordered_bits((uint32_t)(key >> 32)) : -CEFT_BIG;
+  argk[out] = key ? key_index(lo) : -1;
+  argl[out] = key ? key_class(lo) : -1;
+  if (j == 0) counts[(size_t)b * W + w] = 0;
 }
 
+// chunk: parent slots a block takes; n_chunks = ceil(D / chunk) >= 1.  keys
+// holds B * W * P and counts B * W zeros when n_chunks > 1, and are left zero.
 extern "C" int ceft_relax_f32(const void* pv, const void* pdata, const void* validp,
                               const void* L, const void* bw, void* maxk, void* argk,
-                              void* argl, int B, int W, int D, int P, void* stream) {
-  const int threads = 128;
-  const long long n = (long long)W * P;
-  const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)B);
-  const size_t smem = sizeof(float) * ((size_t)P + (size_t)P * P);
+                              void* argl, void* keys, void* counts, int B, int W, int D,
+                              int P, int chunk, int n_chunks, void* stream) {
+  const int S = P >= CEFT_THREADS ? 1 : CEFT_THREADS / P;
+  const int threads = S * P;
+  const int TS = TILE_ROUNDS * S;
+  const size_t smem = sizeof(float) * ((size_t)P + (size_t)P * P + (size_t)TS * P +
+                                       2 * (size_t)TS + 3 * (size_t)S * P);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         ceft_relax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
+  const dim3 grid((unsigned)n_chunks, (unsigned)W, (unsigned)B);
   ceft_relax_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const float*)pv, (const float*)pdata, (const float*)validp, (const float*)L,
-      (const float*)bw, (float*)maxk, (int32_t*)argk, (int32_t*)argl, W, D, P);
+      (const float*)bw, (float*)maxk, (int32_t*)argk, (int32_t*)argl,
+      (unsigned long long*)keys, (int*)counts, W, D, P, chunk);
   return (int)cudaGetLastError();
 }

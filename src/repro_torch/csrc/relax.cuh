@@ -1,0 +1,47 @@
+// Device functions shared by edge_relax.cu and ceft_relax.cu: the relaxation
+// of one (parent row, child class) cell, written once with its pinned rounding
+// (a correctly rounded divide, explicit round-to-nearest adds and multiplies,
+// the reference's operation order, the multiply by off, a strict '<' for the
+// first argmin), and the packed keys through which blocks combine a first-max.
+#pragma once
+#include <stdint.h>
+
+// min over l of pv_row[l] + comm(l, j | d), and the first l attaining it
+__device__ __forceinline__ void relax_cell(const float* pv_row, float d, const float* sL,
+                                           const float* sbw, int P, int j, float& best,
+                                           int& arg) {
+  best = 0.0f;
+  arg = 0;
+  for (int l = 0; l < P; ++l) {
+    const float off = (l == j) ? 0.0f : 1.0f;
+    const float comm = __fmul_rn(__fadd_rn(sL[l], __fdiv_rn(d, sbw[l * P + j])), off);
+    const float c = __fadd_rn(pv_row[l], comm);
+    if (l == 0 || c < best) {
+      best = c;
+      arg = l;
+    }
+  }
+}
+
+// order-preserving map of a float's bits onto unsigned integers
+__device__ __forceinline__ uint32_t ordered_bits(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_ordered_bits(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+// (value, index, class) as one key: a larger value wins, then a smaller index
+// (index < 2^24 and P <= 256, checked by the callers); 0 is below every key
+__device__ __forceinline__ unsigned long long pack_key(float v, int e, int l) {
+  const uint32_t lo = ((0xFFFFFFu - (uint32_t)e) << 8) | (uint32_t)l;
+  return ((unsigned long long)ordered_bits(v) << 32) | lo;
+}
+
+__device__ __forceinline__ int32_t key_index(uint32_t lo) {
+  return (int32_t)(0xFFFFFFu - (lo >> 8));
+}
+
+__device__ __forceinline__ int32_t key_class(uint32_t lo) { return (int32_t)(lo & 0xFFu); }

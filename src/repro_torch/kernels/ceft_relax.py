@@ -6,12 +6,13 @@ inner contraction (paper Algorithm 1 lines 6-18, batched over a level's tasks).
 
 Rows with no valid parent give ``-BIG`` and indices ``-1``.  Replaces the Pallas
 kernel ``src/repro/kernels/ceft_relax.py:_relax_kernel`` (entry
-``ceft_relax_pallas``).  The CUDA kernel is ``csrc/ceft_relax.cu``: one thread
-per (b, w, j) output that walks its task's D parent slots and P parent classes,
-folding valid slots into a running maximum with a strict ``>``.  On the H100 it
-is bound by its W·D·P² correctly rounded divides; a wide fan-in level with few
-tasks (the star's sink, W = 1, D = 4096) leaves most of the card idle, since it
-gives only P threads.  Splitting D across warps is the next step for that shape.
+``ceft_relax_pallas``).  The CUDA kernel is ``csrc/ceft_relax.cu``.  It is bound
+by its valid slots' D·P² correctly rounded divides, and its shapes range from
+many narrow tasks (the router's DAGs) to one task with a wide fan-in (the
+star's sink, W = 1, D = 4096), so it splits the fan-in D across the slot-lanes
+of a block and, when B·W gives too few blocks to fill the card, across blocks
+(:func:`ceft_relax_chunks`); partial maxima are combined by (value, first slot)
+in shared memory and across blocks through a packed 64-bit ``atomicMax``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import ctypes
 import torch
 
 BIG = 3.0e38
+#: threads of a block: P j-lanes times 256 // P slot-lanes (``csrc/ceft_relax.cu``)
+BLOCK_THREADS = 256
 
 
 def ceft_relax_plain(pv, pdata, validp, L, bw):
@@ -44,18 +47,35 @@ def ceft_relax_plain(pv, pdata, validp, L, bw):
     return maxk, argk.to(torch.int32), argl_sel.to(torch.int32)
 
 
-def ceft_relax_launch(lib: ctypes.CDLL, pv, pdata, validp, L, bw):
-    """Launch ``ceft_relax_f32`` on the current stream.  Inputs are float32,
-    contiguous and on one CUDA device (checked by the caller)."""
+def ceft_relax_chunks(B: int, W: int, D: int, P: int, n_sm: int) -> tuple[int, int]:
+    """How the kernel splits the fan-in: (slots per block, blocks per task).
+
+    Enough blocks to give every SM two, but at least one slot per slot-lane
+    of a block; a fan-in that fits one block takes one block, with no
+    atomics."""
+    lanes = max(1, BLOCK_THREADS // P)
+    want = max(1, -(-2 * n_sm // max(1, B * W)))
+    n_chunks = max(1, min(D // lanes, want))
+    chunk = max(1, -(-D // n_chunks))
+    return chunk, max(1, -(-D // chunk))
+
+
+def ceft_relax_launch(lib: ctypes.CDLL, pv, pdata, validp, L, bw, scratch, n_sm: int,
+                      stream: int):
+    """Launch ``ceft_relax_f32`` on ``stream``.  Inputs are float32, contiguous
+    and on one CUDA device (checked by the caller); ``scratch(n_keys,
+    n_counts)`` returns zeroed int64 and int32 buffers that the kernel leaves
+    zero."""
     B, W, D, P = pv.shape
     maxk = torch.empty((B, W, P), dtype=torch.float32, device=pv.device)
     argk = torch.empty((B, W, P), dtype=torch.int32, device=pv.device)
     argl = torch.empty((B, W, P), dtype=torch.int32, device=pv.device)
-    stream = torch.cuda.current_stream(pv.device).cuda_stream
+    chunk, n_chunks = ceft_relax_chunks(B, W, D, P, n_sm)
+    keys, counts = scratch(B * W * P, B * W) if n_chunks > 1 else (0, 0)
     err = lib.ceft_relax_f32(
         pv.data_ptr(), pdata.data_ptr(), validp.data_ptr(), L.data_ptr(),
         bw.data_ptr(), maxk.data_ptr(), argk.data_ptr(), argl.data_ptr(),
-        B, W, D, P, stream)
+        keys, counts, B, W, D, P, chunk, n_chunks, stream)
     if err != 0:
         raise RuntimeError(f"ceft_relax kernel launch failed: CUDA error {err}")
     return maxk, argk, argl
@@ -63,5 +83,5 @@ def ceft_relax_launch(lib: ctypes.CDLL, pv, pdata, validp, L, bw):
 
 def ceft_relax_argtypes(lib: ctypes.CDLL) -> None:
     fn = lib.ceft_relax_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

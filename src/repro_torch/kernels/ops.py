@@ -5,9 +5,18 @@ Dispatch is on the tensor's device and nothing else: a CPU tensor takes the
 kernel's plain PyTorch version, a CUDA tensor launches the hand-written kernel
 or raises.  There is no fallback and no switch.
 
+Scratch: the kernels that combine partial results across blocks
+(``ceft_relax`` when it splits a fan-in, ``seg_level`` when a segment crosses
+an edge tile) take zeroed buffers and leave them zeroed.  One pair of buffers
+per device and stream (:func:`_scratch`) is allocated at first use, grows to
+the largest call seen, and is never cleared again, so a level costs no
+allocation or memset; launches on one stream are ordered, so they never share
+it at the same time.
+
 Build: each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
-own shared library with a plain C interface, loaded with ``ctypes``.  The
-libraries live in ``_build/<hash of the sources and flags>/`` inside the
+own shared library with a plain C interface, loaded with ``ctypes``; shared
+device code sits in ``csrc/*.cuh``.  The libraries live in
+``_build/<hash of the source, the headers and the flags>/`` inside the
 package (ignored by git), are built at first use, and :func:`build_all` starts
 every compile at once.  Nothing is compiled or loaded at import time.
 """
@@ -24,7 +33,8 @@ from pathlib import Path
 import torch
 
 from .ceft_relax import ceft_relax_argtypes, ceft_relax_launch, ceft_relax_plain
-from .edge_relax import edge_relax_argtypes, edge_relax_launch, edge_relax_plain
+from .edge_relax import (edge_relax_argtypes, edge_relax_launch, edge_relax_plain,
+                         seg_level_launch, seg_level_plain)
 from .edge_relax_superstep import (edge_relax_superstep_argtypes,
                                    edge_relax_superstep_launch,
                                    edge_relax_superstep_plain)
@@ -34,15 +44,23 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+#: one library per source, ``csrc/<name>.cu``; ``edge_relax.cu`` also holds
+#: the ``seg_level`` entry
 KERNELS = {"edge_relax": edge_relax_argtypes, "ceft_relax": ceft_relax_argtypes,
            "edge_relax_superstep": edge_relax_superstep_argtypes,
            "minplus": minplus_argtypes}
 
-#: launches of each CUDA kernel (incremented only where the kernel launches)
-LAUNCHES = {name: 0 for name in KERNELS}
+#: launches of each CUDA kernel entry (incremented only where it launches)
+LAUNCHES = {name: 0 for name in (*KERNELS, "seg_level")}
+
+# the packed (value, index, class) keys hold an index below 2**24 and a class
+# below 256 (``csrc/ceft_relax.cu``, ``csrc/edge_relax.cu``)
+MAX_KEY_INDEX, MAX_KEY_P = 1 << 24, 256
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_SCRATCH: dict[tuple, tuple] = {}
+_N_SM: dict[int, int] = {}
 
 
 def reset_launches() -> None:
@@ -63,7 +81,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD / digest / f"lib{name}.so"
 
 
@@ -111,6 +130,31 @@ def build_all() -> None:
         _compile([n for n in KERNELS if n not in _LIBS])
     for name in KERNELS:
         _library(name)
+
+
+def _scratch(device: torch.device, stream: int):
+    """``get(n_keys, n_counts)`` -> pointers to zeroed int64 and int32 buffers
+    of at least those sizes, one pair per device and stream."""
+    key = (device.index, stream)
+
+    def get(n_keys: int, n_counts: int):
+        have = _SCRATCH.get(key)
+        if have is None or have[0].numel() < n_keys or have[1].numel() < n_counts:
+            n_keys = max(n_keys, 0 if have is None else have[0].numel())
+            n_counts = max(n_counts, 0 if have is None else have[1].numel())
+            have = (torch.zeros(n_keys, dtype=torch.int64, device=device),
+                    torch.zeros(n_counts, dtype=torch.int32, device=device))
+            _SCRATCH[key] = have
+        return have[0].data_ptr(), have[1].data_ptr()
+
+    return get
+
+
+def _n_sm(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _N_SM:
+        _N_SM[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _N_SM[idx]
 
 
 def _check_cuda(name: str, *tensors, dtypes=(torch.float32,)) -> None:
@@ -171,16 +215,65 @@ def ceft_relax(pv, pdata, validp, L, bw):
         out = ceft_relax_plain(pv, pdata, validp, L, bw)
     elif pv.device.type == "cuda":
         _check_cuda("ceft_relax", pv, pdata, validp, L, bw)
+        if D >= MAX_KEY_INDEX or P > MAX_KEY_P:
+            raise ValueError(f"ceft_relax: the CUDA kernel takes D < {MAX_KEY_INDEX} "
+                             f"and P <= {MAX_KEY_P}, got D = {D}, P = {P}")
         if B * W * P == 0:
             out = (torch.empty((B, W, P), device=pv.device),
                    torch.empty((B, W, P), dtype=torch.int32, device=pv.device),
                    torch.empty((B, W, P), dtype=torch.int32, device=pv.device))
         else:
-            out = ceft_relax_launch(_library("ceft_relax"), pv, pdata, validp, L, bw)
+            stream = torch.cuda.current_stream(pv.device).cuda_stream
+            out = ceft_relax_launch(_library("ceft_relax"), pv, pdata, validp, L, bw,
+                                    _scratch(pv.device, stream), _n_sm(pv.device), stream)
             LAUNCHES["ceft_relax"] += 1
     else:
         raise ValueError(f"ceft_relax: no kernel for device {pv.device}")
     return tuple(o[0] for o in out) if single else out
+
+
+def seg_level(carry, comp_pad, L, bw, tasks, edge_src, edge_data, edge_seg,
+              e_real: int, width: int) -> None:
+    """One segment-layout level of the CSR sweep, in place on ``carry`` (see
+    ``edge_relax.py``: :func:`seg_level_plain` on the CPU, one
+    ``seg_level_f32`` launch on the card).
+
+    carry = (ceft (B, V, P) float32, pred_task, pred_proc (B, V, P) int32);
+    comp_pad (B, V, P); L (B, P); bw (B, P, P); tasks (w,) int64 carry rows of
+    the level's children; edge_src (E_b,) int64 parent rows, edge_data
+    (E_b,), edge_seg (E_b,) int64 child slots in ascending order, the first
+    ``e_real`` edges real; ``width`` >= w is the run's segment count.  Every
+    child slot below w has at least one real edge."""
+    ceft_arr, ptask, pproc = carry
+    B, V, P = ceft_arr.shape
+    E_b = edge_src.shape[0]
+    if (ptask.shape != (B, V, P) or pproc.shape != (B, V, P)
+            or comp_pad.shape != (B, V, P) or L.shape != (B, P) or bw.shape != (B, P, P)
+            or edge_data.shape != (E_b,) or edge_seg.shape != (E_b,)
+            or not 0 < e_real <= E_b or not 0 < tasks.shape[0] <= width):
+        raise ValueError(f"seg_level: shapes {tuple(ceft_arr.shape)}, {tuple(comp_pad.shape)}, "
+                         f"{tuple(L.shape)}, {tuple(bw.shape)}, tasks {tuple(tasks.shape)}, "
+                         f"edges {E_b}, e_real {e_real}, width {width}")
+    if ceft_arr.device.type == "cpu":
+        seg_level_plain(carry, comp_pad, L, bw, tasks, edge_src, edge_data, edge_seg,
+                        e_real, width)
+        return
+    if ceft_arr.device.type != "cuda":
+        raise ValueError(f"seg_level: no kernel for device {ceft_arr.device}")
+    _check_cuda("seg_level", ceft_arr, comp_pad, L, bw, edge_data)
+    _check_cuda("seg_level", ptask, pproc, dtypes=(torch.int32,))
+    _check_cuda("seg_level", tasks, edge_src, edge_seg, dtypes=(torch.int64,))
+    if ptask.device != ceft_arr.device or tasks.device != ceft_arr.device:
+        raise ValueError(f"seg_level: tensors on {ptask.device}, {tasks.device} and "
+                         f"{ceft_arr.device}")
+    if E_b >= MAX_KEY_INDEX or P > MAX_KEY_P:
+        raise ValueError(f"seg_level: the CUDA kernel takes fewer than {MAX_KEY_INDEX} "
+                         f"edges and P <= {MAX_KEY_P}, got {E_b} and P = {P}")
+    stream = torch.cuda.current_stream(ceft_arr.device).cuda_stream
+    seg_level_launch(_library("edge_relax"), carry, comp_pad, L, bw, tasks, edge_src,
+                     edge_data, edge_seg, e_real, width, _scratch(ceft_arr.device, stream),
+                     stream)
+    LAUNCHES["seg_level"] += 1
 
 
 def edge_relax_superstep(pv, pdata, L, bw):

@@ -5,9 +5,12 @@
 For the paper's largest graph (RGG "high", n = 16384, P = 64), single and
 batched (B = 8), and for the star fan-in (n = 4000, one dense-layout level), it
 prints one JSON line per workload: the steady sweep's host wall time (median of
-7, no profiler), and from one sweep under ``torch.profiler`` the number of
-device kernels, their summed device time by kernel name, and the device's idle
-share of the unprofiled wall time.  Needs one NVIDIA GPU.
+7, no profiler), the launches of each of the port's kernels in one sweep
+(``ops.LAUNCHES``: one ``seg_level`` per segment-layout level, one
+``ceft_relax`` per dense level), and from one sweep under ``torch.profiler``
+the number of device kernels (the port's and PyTorch's), their summed device
+time by kernel name, and the device's idle share of the unprofiled wall time.
+Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from .core import ceft_torch as ct
 from .core import random_machine
 from .graphs import rgg, star_fan_in
+from .kernels import ops
 
 
 def _median_wall(fn, reps: int = 7) -> float:
@@ -38,8 +42,10 @@ def _median_wall(fn, reps: int = 7) -> float:
 def profile_sweep(name: str, fn) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
+    ops.reset_launches()
     fn()
     torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     wall = _median_wall(fn)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -55,6 +61,7 @@ def profile_sweep(name: str, fn) -> dict:
     return {
         "workload": name,
         "steady_wall_ms": wall * 1e3,
+        "launches": launches,
         "device_kernels": sum(v[0] for v in by_name.values()),
         "device_busy_ms": busy_us / 1e3 if busy_us else "not measured",
         "device_idle_share": 1 - busy_us / (wall * 1e6) if busy_us else "not measured",

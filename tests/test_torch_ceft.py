@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.core import (  # noqa: E402
+    from_edge_arrays,
     from_edges,
     linear_chain,
     random_machine,
@@ -117,6 +118,42 @@ def test_rgg_multi_run_segment_sweep():
     """An RGG at P = 64 (the paper's class count): segment-layout runs."""
     wl = rgg("high", 600, 64, np.random.default_rng(5), o=4, alpha=0.75, beta=50)
     _assert_port_equal(wl.graph, wl.comp, wl.machine)
+
+
+def _tied(g, P, seed):
+    """``g`` with edge data in {0, 1, 2}, integer costs in {1, 2, 3} and a
+    homogeneous machine (L = 1, bw = 2): every candidate is exact in float32,
+    so equal candidates and equal segment maxima are common."""
+    rng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(g.n, dtype=np.int32), np.diff(g.cindptr))
+    gi = from_edge_arrays(g.n, src, g.cindices, rng.integers(0, 3, g.n_edges).astype(float))
+    return gi, rng.integers(1, 4, (g.n, P)).astype(float), uniform_machine(P, bw=2.0, L=1.0)
+
+
+@pytest.mark.parametrize("seed,g", [
+    (61, heavy_tail_fan_in(400, np.random.default_rng(61))),
+    (62, heavy_tail_fan_in(3000, np.random.default_rng(62))),
+    (63, rgg("high", 600, 8, np.random.default_rng(5), o=4, alpha=0.75, beta=50).graph),
+], ids=["heavytail400", "heavytail3000", "rgg600"])
+def test_segment_sweep_with_ties_matches_reference(seed, g):
+    """The segment-layout levels (the fused level's plain version) through the
+    whole CSR sweep on tie-heavy integer costs, single and batched (B = 3),
+    against the reference's ``ceft_jax_csr``: bit-equal.  heavytail3000 has a
+    segment of 2834 edges."""
+    gi, comp, m = _tied(g, 8, seed)
+    tg, tm, _ = from_reference_arrays(gi, m)
+    layouts = [r.layout for r in ct.csr_device_inputs(tg, comp, tm, device=CPU)[0]]
+    assert "seg" in layouts
+    _same_result(ct.ceft_torch_csr(tg, comp, tm, device=CPU), cj.ceft_jax_csr(gi, comp, m))
+    rng = np.random.default_rng(seed)
+    comps = rng.integers(1, 4, (3, gi.n, m.P)).astype(np.float32)
+    Ls = np.full((3, m.P), 1.0, np.float32)
+    bws = np.full((3, m.P, m.P), 2.0, np.float32)
+    bws[1] = 4.0
+    got = ct.ceft_torch_batch_csr(tg, comps, Ls, bws, device=CPU)
+    want = cj.ceft_jax_batch_csr(gi, comps, Ls, bws)
+    for a, b, name in zip(got, want, ["ceft", "ptask", "pproc"]):
+        np.testing.assert_array_equal(a, np.asarray(b), err_msg=name)
 
 
 # --------------------------------------------------------- run tables

@@ -9,6 +9,8 @@ seeded input builders that the CPU parity tests share.  Tolerance: exact
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import zlib
+
 import numpy as np
 import pytest
 
@@ -16,7 +18,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ceft_relax import ceft_relax_plain  # noqa: E402
-from repro_torch.kernels.edge_relax import edge_relax_plain  # noqa: E402
+from repro_torch.kernels.edge_relax import edge_relax_plain, seg_level_plain  # noqa: E402
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
 from repro_torch.kernels.minplus import minplus_plain  # noqa: E402
 
@@ -52,6 +54,88 @@ def _cell_inputs(shape, ties: bool, dtype=np.float32):
     pv, pdata, L, bw = _edge_inputs((W, D, P), ties)
     validp = (rng.random((W, D)) < 0.8).astype(np.float32)
     return pv, pdata, validp, L, bw
+
+
+# tie-heavy dense relaxations whose fan-in spans several blocks on the card
+# (the kernel splits D when B·W is small): "ties" draws small integers on a
+# homogeneous machine, "constant" makes every valid slot tie, and
+# "invalid_rows" also leaves the first task and every third one without a
+# valid parent
+CELL_TIE_CASES = [((1, 4096, 64), "ties"), ((1, 4096, 8), "ties"), ((2, 1000, 128), "ties"),
+                  ((3, 300, 64), "constant"), ((8, 28, 64), "ties"), ((5, 40, 8), "constant"),
+                  ((4, 700, 64), "invalid_rows"), ((6, 90, 8), "invalid_rows"),
+                  ((1, 33, 128), "invalid_rows")]
+
+
+def _cell_tie_inputs(shape, mode: str):
+    W, D, P = shape
+    rng = np.random.default_rng(zlib.crc32(repr((shape, mode)).encode()))
+    pv = rng.integers(0, 4, (W, D, P)).astype(np.float32)
+    pdata = rng.integers(0, 3, (W, D)).astype(np.float32)
+    validp = (rng.random((W, D)) < 0.9).astype(np.float32)
+    if mode == "constant":
+        pv[:] = 2.0
+        pdata[:] = 1.0
+    if mode == "invalid_rows":
+        validp[::3] = 0.0
+    return (pv, pdata, validp, np.full(P, 1.0, np.float32),
+            np.full((P, P), 2.0, np.float32))
+
+
+# fused segment-layout levels: (B, P, segment lengths, padded edges past
+# e_real, segment slots past the real children).  The card's edge tile is
+# 1024 // P edges, so "long" has a segment far longer than a tile, "crossing"
+# has many segments across tile boundaries, "single" is W_b == 1, "padded"
+# has e_real < E_b and W_b > w, "batch8" is a batch of eight planes at the
+# n = 16384 graph's level shape.
+SEG_CASES = {
+    "long": (1, 64, [3, 3000, 1, 40], 0, 0),
+    "crossing": (2, 8, "random:60:300", 5, 0),
+    "single": (1, 64, [500], 12, 0),
+    "single_padded": (3, 16, [70], 3, 0),
+    "padded": (1, 16, "random:30:90", 17, 3),
+    "batch8": (8, 64, "random:100:12", 600, 0),
+    "p128": (2, 128, "random:12:40", 1, 2),
+    "one_edge": (1, 8, [1], 0, 0),
+}
+
+
+def _seg_inputs(case: str, ties: bool):
+    """One segment-layout level as numpy arrays: carry (ceft, pred_task,
+    pred_proc) over V rows (parents in the first half, the level's tasks in
+    the second, the last row the zero scratch row), comp, L, bw, tasks,
+    edge_src, edge_data, edge_seg, e_real, width."""
+    B, P, lens, pad_e, pad_w = SEG_CASES[case]
+    rng = np.random.default_rng(zlib.crc32(repr((case, ties)).encode()))
+    if isinstance(lens, str):
+        _, w, most = lens.split(":")
+        lens = rng.integers(1, int(most) + 1, int(w))
+    lens = np.asarray(lens)
+    w, e_real = len(lens), int(lens.sum())
+    V = 2 * max(w, 64) + 1
+    if ties:
+        ceft = rng.integers(0, 4, (B, V, P)).astype(np.float32)
+        data = rng.integers(0, 3, e_real).astype(np.float32)
+        L = np.full((B, P), 1.0, np.float32)
+        bw = np.full((B, P, P), 2.0, np.float32)
+    else:
+        ceft = rng.uniform(0, 100, (B, V, P)).astype(np.float32)
+        data = rng.uniform(0, 10, e_real).astype(np.float32)
+        L = rng.uniform(0, 2, (B, P)).astype(np.float32)
+        bw = rng.uniform(0.5, 2, (B, P, P)).astype(np.float32)
+    ceft[:, V - 1] = 0.0
+    comp = rng.integers(1, 4, (B, V, P)).astype(np.float32)
+    width = w + pad_w
+    E_b = e_real + pad_e
+    edge_src = np.full(E_b, V - 1, np.int64)
+    edge_src[:e_real] = rng.integers(0, V // 2, e_real)
+    edge_data = np.zeros(E_b, np.float32)
+    edge_data[:e_real] = data
+    edge_seg = np.full(E_b, width - 1, np.int64)
+    edge_seg[:e_real] = np.repeat(np.arange(w), lens)
+    tasks = (V // 2 + rng.permutation(V // 2)[:w]).astype(np.int64)
+    carry = (ceft, np.full((B, V, P), -1, np.int32), np.full((B, V, P), -1, np.int32))
+    return carry, comp, L, bw, tasks, edge_src, edge_data, edge_seg, e_real, width
 
 
 def _minplus_inputs(shape):
@@ -122,3 +206,44 @@ def test_minplus_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["minplus"] == before + 1
     assert torch.equal(got, minplus_plain(a, b))
+
+
+def _scratch_is_zero():
+    return all(not k.any() and not c.any() for k, c in ops._SCRATCH.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mode", CELL_TIE_CASES)
+def test_ceft_relax_kernel_ties_across_blocks(cuda, shape, mode):
+    """Tie-heavy fan-ins split across blocks: first-max slot, all-invalid
+    rows (-BIG, -1, -1), bit-equal to the plain version; the scratch the
+    kernel combines blocks through is left zero."""
+    args = [torch.as_tensor(a, device=cuda) for a in _cell_tie_inputs(shape, mode)]
+    before = ops.LAUNCHES["ceft_relax"]
+    got = ops.ceft_relax(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ceft_relax"] == before + 1
+    want = ceft_relax_plain(args[0][None], args[1], args[2], args[3][None], args[4][None])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w[0])
+    assert _scratch_is_zero()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [True, False])
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_seg_level_kernel_matches_plain(cuda, case, ties):
+    """The fused level on the card against its plain version, carry for
+    carry; one launch, scratch left zero."""
+    carry, comp, L, bw, tasks, src, data, seg, e_real, width = _seg_inputs(case, ties)
+    host = [torch.as_tensor(a) for a in (comp, L, bw, tasks, src, data, seg)]
+    want = tuple(torch.as_tensor(c.copy()) for c in carry)
+    seg_level_plain(want, *host, e_real, width)
+    got = tuple(torch.as_tensor(c, device=cuda) for c in carry)
+    before = ops.LAUNCHES["seg_level"]
+    ops.seg_level(got, *(t.to(cuda) for t in host), e_real, width)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["seg_level"] == before + 1
+    for g, w, name in zip(got, want, ("ceft", "pred_task", "pred_proc")):
+        assert torch.equal(g.cpu(), w), name
+    assert _scratch_is_zero()

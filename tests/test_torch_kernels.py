@@ -22,12 +22,14 @@ from repro.kernels import edge_relax_superstep as jax_edge_relax_superstep  # no
 from repro.kernels import minplus as jax_minplus  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.ceft_relax import ceft_relax_plain  # noqa: E402
-from repro_torch.kernels.edge_relax import edge_relax_plain  # noqa: E402
+from repro_torch.kernels.ceft_relax import (BIG as CELL_BIG, ceft_relax_chunks,  # noqa: E402
+                                            ceft_relax_plain)
+from repro_torch.kernels.edge_relax import edge_relax_plain, seg_level_plain  # noqa: E402
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
 from test_kernels import CELL_SHAPES, EDGE_SHAPES, SHAPES_MINPLUS, SUPERSTEP_SHAPES  # noqa: E402
-from test_torch_cuda import _cell_inputs, _edge_inputs, _minplus_inputs  # noqa: E402
+from test_torch_cuda import (CELL_TIE_CASES, SEG_CASES, _cell_inputs,  # noqa: E402
+                             _cell_tie_inputs, _edge_inputs, _minplus_inputs, _seg_inputs)
 
 
 def _eq(got, want, name=""):
@@ -217,3 +219,88 @@ def test_card_test_shapes_are_the_reference_test_shapes():
 
     assert (tc.EDGE_SHAPES, tc.CELL_SHAPES, tc.SUPERSTEP_SHAPES, tc.SHAPES_MINPLUS) == \
         (EDGE_SHAPES, CELL_SHAPES, SUPERSTEP_SHAPES, SHAPES_MINPLUS)
+
+
+@pytest.mark.parametrize("mode", ["ties", "constant", "invalid_rows"])
+@pytest.mark.parametrize("shape", [(1, 70, 8), (4, 33, 5), (3, 9, 16)])
+def test_ceft_relax_tie_modes_match_jax(shape, mode):
+    """The card tests' tie-heavy inputs (every slot tied, rows without a valid
+    parent) through the port's wrapper against the JAX oracle, bit-equal;
+    parent-less rows read (-BIG, -1, -1)."""
+    args = _cell_tie_inputs(shape, mode)
+    want = jref.ceft_relax_ref(*map(jnp.asarray, args))
+    got = ops.ceft_relax(*(torch.as_tensor(a) for a in args))
+    for g, w, name in zip(got, want, ["maxk", "argk", "argl"]):
+        _eq(g, w, name)
+    if mode == "invalid_rows":
+        assert (got[0][::3] == np.float32(-CELL_BIG)).all() and (got[1][::3] == -1).all()
+    if mode == "constant":
+        first = np.argmax(args[2] > 0, axis=1)
+        _eq(got[1], np.broadcast_to(first[:, None], got[1].shape), "first tied slot")
+
+
+@pytest.mark.parametrize("shape,mode", CELL_TIE_CASES)
+def test_ceft_relax_card_split(shape, mode):
+    """How the card kernel splits the fan-in at the card tests' shapes (132
+    SMs): the chunks cover D exactly once, every slot-lane has a slot, a
+    wide fan-in with one task spans many blocks, and a wide level does not
+    split."""
+    W, D, P = shape
+    chunk, n = ceft_relax_chunks(1, W, D, P, 132)
+    assert (n - 1) * chunk < D <= n * chunk
+    assert n == 1 or chunk >= min(D, max(1, 256 // P))
+    if W == 1 and D >= 1000:
+        assert n >= 64
+    # tasks enough to give every SM two blocks: one block per task, no atomics
+    assert ceft_relax_chunks(1, 264, D, P, 132) == (D, 1)
+
+
+@pytest.mark.parametrize("ties", [True, False])
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_seg_level_plain_matches_dense_relax(case, ties):
+    """The fused level's plain version (the wrapper on the CPU) against an
+    independent formulation: each child's segment laid out as dense parent
+    slots in edge order and relaxed by the dense plain version (first
+    maximal slot == first maximal edge).  Bit-equal, rows outside the
+    level untouched."""
+    carry, comp, L, bw, tasks, src, data, seg, e_real, width = _seg_inputs(case, ties)
+    t = [torch.as_tensor(a) for a in (comp, L, bw, tasks, src, data, seg)]
+    got = tuple(torch.as_tensor(c.copy()) for c in carry)
+    ops.seg_level(got, *t, e_real, width)
+    w = len(tasks)
+    lens = np.bincount(seg[:e_real], minlength=w)
+    D = int(lens.max())
+    par = np.full((w, D), carry[0].shape[1] - 1, np.int64)
+    pdat = np.zeros((w, D), np.float32)
+    valid = np.zeros((w, D), np.float32)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    for c in range(w):
+        par[c, :lens[c]] = src[starts[c]:starts[c] + lens[c]]
+        pdat[c, :lens[c]] = data[starts[c]:starts[c] + lens[c]]
+        valid[c, :lens[c]] = 1.0
+    ceft = torch.as_tensor(carry[0])
+    pv = ceft[:, torch.as_tensor(par).reshape(-1)].view(ceft.shape[0], w, D, -1)
+    maxk, argk, argl = ceft_relax_plain(pv, torch.as_tensor(pdat), torch.as_tensor(valid),
+                                        t[1], t[2])
+    rows = t[3]
+    _eq(got[0][:, rows], torch.as_tensor(comp)[:, rows] + maxk, "ceft")
+    _eq(got[1][:, rows], torch.as_tensor(par)[torch.arange(w)[:, None], argk.long()], "pred_task")
+    _eq(got[2][:, rows], argl, "pred_proc")
+    others = np.setdiff1d(np.arange(carry[0].shape[1]), tasks)
+    for g, c in zip(got, carry):
+        _eq(g[:, others], c[:, others])
+
+
+def test_seg_level_rejects_bad_shapes():
+    carry, comp, L, bw, tasks, src, data, seg, e_real, width = _seg_inputs("padded", True)
+    t = [torch.as_tensor(a) for a in (comp, L, bw, tasks, src, data, seg)]
+    c = tuple(torch.as_tensor(x) for x in carry)
+    for bad in ({"e_real": 0}, {"e_real": len(src) + 1}, {"width": len(tasks) - 1}):
+        kw = {"e_real": e_real, "width": width, **bad}
+        with pytest.raises(ValueError):
+            ops.seg_level(c, *t, kw["e_real"], kw["width"])
+    with pytest.raises(ValueError):
+        ops.seg_level(c, t[0][:, :-1], *t[1:], e_real, width)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.seg_level(tuple(x.to("meta") for x in c), *(x.to("meta") for x in t),
+                      e_real, width)
