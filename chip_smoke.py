@@ -5,12 +5,15 @@ GPU and check them.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+  1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a) and
+     print ``ptxas -v``'s registers, shared memory and spills per kernel;
   2. hold each kernel against its plain PyTorch version on the card, bit-equal,
      at the test shapes and the planning path's shapes, and on tie-heavy
      inputs: ``ceft_relax`` with fan-ins split across blocks, the fused
      segment level (``seg_level``) with long, tile-crossing, single and
-     padded segments and a batch of 8;
+     padded segments and a batch of 8; then NaN, inf and -0.0 candidates
+     through ``edge_relax``, ``ceft_relax`` and ``seg_level`` (a NaN wins the
+     min and the max, and the first NaN's index is the arg);
   3. plan the paper's largest graph (RGG "high", n = 16384, P = 64) through
      ``PlanCache(device="cuda")``: bit-equal to the CPU path, a partial
      re-sweep after a change to the deepest levels' costs, and one realized
@@ -25,10 +28,15 @@ Phases (any failure exits non-zero; nothing is caught):
      graph's own segment-layout run tables: ``edge_relax`` level by level and
      ``edge_relax_superstep`` over each stacked run, bit-equal slice by slice
      to each other and as a whole to their plain versions, and at the test
-     shapes;
+     shapes and every instance's widths (P = 8, 32, 128, 161, 200, 240); then
+     the superstep on tie-heavy tables (slice by slice against ``edge_relax``
+     too), on NaN, inf and -0.0 candidates, and on about 2^26 adversarial
+     (pdata, bw) quotients that each reach the output;
   b. the tropical product (``minplus``) at the test shapes and at
      (4096, 4096, 4096), float32 and bf16, bit-equal to its plain version, and
-     the semiring identity;
+     the semiring identity; then NaN, inf and -0.0 operands and adversarial
+     bf16 sums (rounding ties, near the largest bf16 and BIG, subnormals,
+     ±0), float32 and bf16;
   c. the router (``pool8``: 8 null engines, 6 workload classes, moldable split
      up to 4) planning on the card: 192 requests served exactly once, every
      tick's plan bit-equal to the same DAG planned on the CPU, then one engine
@@ -39,14 +47,23 @@ Phases (any failure exits non-zero; nothing is caught):
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
-     the n = 16384 graph's widest segment-layout levels, 1 and 8 planes).
+     the n = 16384 graph's widest segment-layout levels, 1 and 8 planes), and
+     for the superstep and ``minplus`` the instruction-issue floor at the
+     card's largest SM clock.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the card's name and power limit, and the one before that the kernel report.
 Exits with code 2 and prints no result when CUDA is not available.
+
+    python3 chip_smoke.py --turns OTHER_SRC
+
+times the superstep and ``minplus`` of another tree (``OTHER_SRC`` is its
+``src`` directory) and of this one in turns on one card (see ``turns``).
 """
 from __future__ import annotations
 
+import importlib.util
+import itertools
 import json
 import subprocess
 import sys
@@ -63,7 +80,7 @@ from repro_torch.core import ceft_torch as ct  # noqa: E402
 from repro_torch.core.machine import Machine  # noqa: E402
 from repro_torch.core.schedule import validate_schedule  # noqa: E402
 from repro_torch.graphs import heavy_tail_fan_in, rgg, star_fan_in  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, probes  # noqa: E402
 from repro_torch.kernels.ceft_relax import ceft_relax_plain  # noqa: E402
 from repro_torch.kernels.edge_relax import edge_relax_plain, seg_level_plain  # noqa: E402
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
@@ -73,11 +90,20 @@ from repro_torch.serve import (EnginePool, EngineSlot, Request, Router,  # noqa:
                                WorkerSpec, null_engine_factory)
 from repro_torch.serve.faults import KINDS, install_chaos  # noqa: E402
 
-# the card's published peaks (H100 SXM data sheet, dense, at 700 W)
+# the card's published peaks (H100 SXM, dense, at 700 W): memory and float32
+# outside the tensor cores from the data sheet; bf16 outside the tensor cores
+# (packed pairs, twice the float32 rate) from NVIDIA's H100 white paper
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 133.8e12}
 # float32 operations per relaxation candidate: divide, add, multiply, add, compare
 OPS_PER_CANDIDATE = 5
+# issue slots of one warp instruction per lane: 4 schedulers x 32 lanes an SM
+LANES_PER_SM = 128
+# instructions a superstep candidate needs at least: the divide (a multiply,
+# two FMAs), add, multiply, add, a compare and two selects; minplus: an add
+# and a min per (i, k, j) in float32, one packed pair of each per two in bf16
+INSTR_PER_CANDIDATE = 9
+INSTR_PER_MINPLUS_TRIPLE = {torch.float32: 2.0, torch.bfloat16: 1.0}
 
 EDGE_SHAPES = [(5, 3), (128, 16), (300, 7), (1, 1), (257, 13), (64, 64)]
 CELL_SHAPES = [(8, 3, 4), (5, 1, 2), (16, 7, 13), (33, 9, 64), (64, 2, 128), (1, 1, 1)]
@@ -94,9 +120,22 @@ SEG_CASES = {"long": (1, 64, [3, 3000, 1, 40], 0, 0), "crossing": (2, 8, (60, 30
              "single": (1, 64, [500], 12, 0), "padded": (1, 16, (30, 90), 17, 3),
              "batch8": (8, 64, (100, 12), 600, 0), "p128": (2, 128, (12, 40), 1, 2)}
 SUPERSTEP_SHAPES = [(1, 5, 3), (4, 128, 16), (3, 300, 7), (2, 64, 64), (1, 1, 1)]
+# the superstep's other instances: P = 8 and 32 (E not a multiple of the
+# edge tile), the run-time-P instance above 64, and the wide-machine kernel
+SUPERSTEP_WIDTHS = [(3, 300, 8), (5, 100, 32), (2, 70, 128), (2, 9, 161), (2, 40, 200),
+                    (1, 17, 240)]
 SHAPES_MINPLUS = [(4, 3, 5), (128, 16, 128), (300, 37, 260), (1, 1, 1),
                   (257, 129, 255), (16, 256, 16)]
 MINPLUS_PATH_SHAPE = (4096, 4096, 4096)
+# NaN, inf and -0.0 probes (probes.SPECIAL_MODES in each)
+EDGE_NAN_SHAPES = [(64, 64), (1024, 64)]
+CELL_NAN_SHAPES = [(3, 33, 64), (1, 4096, 64), (2, 1000, 8)]
+SUPERSTEP_NAN_SHAPES = [(3, 40, 7), (2, 64, 64), (12, 2048, 64)] + SUPERSTEP_WIDTHS
+MINPLUS_NAN_SHAPES = [(4, 3, 5), (300, 37, 260), (256, 256, 256)]
+# tie-heavy superstep tables ("ties", "constant") and the divide probe's
+# levels per bw kind (1024 edges each at P = 64: 2^26 quotients in all)
+SUPERSTEP_TIE_SHAPES = [(4, 128, 16), (3, 300, 7), (158, 1024, 64)] + SUPERSTEP_WIDTHS
+DIVIDE_LEVELS = 256
 MINPLUS_DTYPES = (torch.float32, torch.bfloat16)
 # the serving router's largest configuration (benchmarks/serve_router.py, pool8)
 POOL_P, POOL_CLASSES, POOL_NEW, POOL_PER_CLASS, POOL_ROUNDS = 8, 6, 8, 32, 4
@@ -207,6 +246,17 @@ def seg_inputs(case: str, ties: bool, seed: int):
             e_real, width)
 
 
+def nan_err(a, b) -> float:
+    """max |a - b| where neither is NaN (0.0 where there is no such entry)."""
+    a, b = a.float(), b.float()
+    keep = ~(torch.isnan(a) | torch.isnan(b))
+    return float((a[keep] - b[keep]).abs().max()) if keep.any() else 0.0
+
+
+def on(device, arrays):
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
 def scratch_is_zero() -> bool:
     return all(not k.any() and not c.any() for k, c in ops._SCRATCH.values())
 
@@ -258,7 +308,52 @@ def compare_kernels(device) -> dict:
     check(scratch_is_zero(), "a kernel left its cross-block scratch non-zero")
     log(f"phase 2: kernels bit-equal to their plain versions (ceft_relax tie cases "
         f"{len(CELL_TIE_CASES)}, seg_level cases {2 * len(SEG_CASES)}); max_abs_err {err}")
+    n = compare_nan(device, err)
+    log(f"phase 2: NaN, inf and -0.0 candidates in {n} calls: NaN where the plain versions "
+        f"have it and bit-equal elsewhere, scratch zero; max_abs_err {err}")
     return err
+
+
+def compare_nan(device, err: dict) -> int:
+    """Phase 2, NaN: special candidates through edge_relax, ceft_relax and
+    seg_level against their plain versions (NaN positions equal, the rest
+    bit-equal)."""
+    n = 0
+    for i, (shape, mode) in enumerate(itertools.product(EDGE_NAN_SHAPES, probes.SPECIAL_MODES)):
+        pv, pdata, L, bw = on(device, probes.edge_specials(shape, mode, 800 + i))
+        got = ops.edge_relax(pv, pdata, L, bw)
+        want = edge_relax_plain(pv[None], pdata, L[None], bw[None])
+        err["edge_relax"] = max(err["edge_relax"], nan_err(got[0], want[0][0]))
+        check(all(probes.equal_nan(g, w[0]) for g, w in zip(got, want)),
+              f"edge_relax kernel != plain at {shape} {mode}")
+        n += 1
+    for i, (shape, mode) in enumerate(itertools.product(CELL_NAN_SHAPES, probes.SPECIAL_MODES)):
+        pv, pdata, validp, L, bw = on(device, probes.cell_specials(shape, mode, 820 + i))
+        got = ops.ceft_relax(pv, pdata, validp, L, bw)
+        want = ceft_relax_plain(pv[None], pdata, validp, L[None], bw[None])
+        err["ceft_relax"] = max(err["ceft_relax"], nan_err(got[0], want[0][0]))
+        check(all(probes.equal_nan(g, w[0]) for g, w in zip(got, want)),
+              f"ceft_relax kernel != plain at {shape} {mode}")
+        n += 1
+    for i, case in enumerate(SEG_CASES):
+        carry, *rest, e_real, width = seg_inputs(case, False, 850 + i)
+        src, P = rest[4], carry[0].shape[-1]
+        ceft = carry[0].clone()
+        ceft[:, src[0], 2 % P] = float("nan")
+        ceft[:, src[e_real // 2], :] = float("nan")
+        carry = (ceft, *carry[1:])
+        want = tuple(c.clone() for c in carry)
+        seg_level_plain(want, *rest, e_real, width)
+        got = tuple(c.to(device) for c in carry)
+        ops.seg_level(got, *(t.to(device) for t in rest), e_real, width)
+        torch.cuda.synchronize()
+        err["seg_level"] = max(err["seg_level"], nan_err(got[0].cpu(), want[0]))
+        for g, w, name in zip(got, want, ("ceft", "pred_task", "pred_proc")):
+            check(probes.equal_nan(g.cpu(), w), f"seg_level kernel != plain ({name}) at "
+                  f"{case} with NaN parents")
+        n += 1
+    check(scratch_is_zero(), "a kernel left its cross-block scratch non-zero after NaN keys")
+    return n
 
 
 def plan_large(device):
@@ -386,14 +481,11 @@ def straggler(device):
         f"{ev.new_makespan!r}; counters {gpu[-1][3]}")
 
 
-def superstep_path(device, g, inputs, ceft_pad) -> tuple[list, list, list]:
-    """Phase a: the n = 16384 graph's segment-layout levels relaxed at the
-    Pallas kernels' contracts, with ``pv`` gathered from the finished (padded)
-    CEFT table ``ceft_pad`` (each vertex is written once, before its
-    children's level reads it, so these are the values the sweep saw):
-    ``edge_relax`` level by level, and ``edge_relax_superstep`` once per run
-    over its stacked level tables.  Returns the run tables and both kernels'
-    outputs."""
+def run_tables(device, g, inputs, ceft_pad) -> list:
+    """The stacked (pv, pdata, L, bw) tables of ``g``'s segment-layout runs,
+    with ``pv`` gathered from the finished (padded) CEFT table ``ceft_pad``
+    (each vertex is written once, before its children's level reads it, so
+    these are the values the sweep saw)."""
     L, bw = inputs[3], inputs[4]
     runs, _, _, _ = plancache.device_state(g, device)
     tables = []
@@ -405,7 +497,16 @@ def superstep_path(device, g, inputs, ceft_pad) -> tuple[list, list, list]:
         R, E = src.shape
         pv = ceft_pad.index_select(0, src.reshape(-1)).view(R, E, -1).contiguous()
         tables.append((pv, pdata, L, bw))
-    check(len(tables) >= 1, "the n = 16384 graph has no segment-layout run")
+    check(len(tables) >= 1, "the graph has no segment-layout run")
+    return tables
+
+
+def superstep_path(device, g, inputs, ceft_pad) -> tuple[list, list, list]:
+    """Phase a: the n = 16384 graph's segment-layout levels relaxed at the
+    Pallas kernels' contracts: ``edge_relax`` level by level, and
+    ``edge_relax_superstep`` once per run over its stacked level tables.
+    Returns the run tables and both kernels' outputs."""
+    tables = run_tables(device, g, inputs, ceft_pad)
     per_level = [[ops.edge_relax(pv[r], pdata[r], L, bw) for r in range(pv.shape[0])]
                  for pv, pdata, L, bw in tables]
     outs = [ops.edge_relax_superstep(*t) for t in tables]
@@ -428,7 +529,7 @@ def check_superstep(device, tables, outs, per_level) -> tuple[float, float]:
         check(torch.equal(minl, want[0]) and torch.equal(argl, want[1]),
               f"edge_relax_superstep kernel != plain at {tuple(pv.shape)}")
         del want
-    for i, (R, E, P) in enumerate(SUPERSTEP_SHAPES):
+    for i, (R, E, P) in enumerate(SUPERSTEP_SHAPES + SUPERSTEP_WIDTHS):
         rng = np.random.default_rng(300 + i)
         pv, pdata, L, bw = (torch.as_tensor(a.astype(np.float32), device=device) for a in (
             rng.uniform(0, 100, (R, E, P)), rng.uniform(0, 10, (R, E)),
@@ -441,6 +542,41 @@ def check_superstep(device, tables, outs, per_level) -> tuple[float, float]:
     log(f"phase a: edge_relax per level and the superstep per run on the run tables "
         f"{[tuple(t[0].shape) for t in tables]}, bit-equal to each other and to their "
         f"plain versions; test shapes bit-equal; max_abs_err {err} (edge_relax {edge_err})")
+    for i, (shape, mode) in enumerate(itertools.product(SUPERSTEP_TIE_SHAPES,
+                                                        ("ties", "constant"))):
+        pv, pdata, L, bw = on(device, probes.edge_ties(shape, mode, 310 + i))
+        got = ops.edge_relax_superstep(pv, pdata, L, bw)
+        want = edge_relax_superstep_plain(pv, pdata, L, bw)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"edge_relax_superstep kernel != plain at {shape} {mode}")
+        for r in range(shape[0]):
+            m1, a1 = ops.edge_relax(pv[r], pdata[r], L, bw)
+            check(torch.equal(got[0][r], m1) and torch.equal(got[1][r], a1),
+                  f"superstep slice {r} of {shape} {mode} != edge_relax")
+    for i, (shape, mode) in enumerate(itertools.product(SUPERSTEP_NAN_SHAPES,
+                                                        probes.SPECIAL_MODES)):
+        pv, pdata, L, bw = on(device, probes.edge_specials(shape, mode, 330 + i))
+        got = ops.edge_relax_superstep(pv, pdata, L, bw)
+        want = edge_relax_superstep_plain(pv, pdata, L, bw)
+        err = max(err, nan_err(got[0], want[0]))
+        check(all(probes.equal_nan(g, w) for g, w in zip(got, want)),
+              f"edge_relax_superstep kernel != plain at {shape} {mode}")
+    pairs = 0
+    for i, kind in enumerate(probes.DIVIDE_KINDS):
+        pv, pdata, L, bw = on(device, probes.divide_probe(kind, DIVIDE_LEVELS, 360 + i))
+        got = ops.edge_relax_superstep(pv, pdata, L, bw)
+        for r0 in range(0, DIVIDE_LEVELS, 32):   # the plain version holds (R, E, P, P)
+            want = edge_relax_superstep_plain(pv[r0:r0 + 32], pdata[r0:r0 + 32], L, bw)
+            err = max(err, nan_err(got[0][r0:r0 + 32], want[0]))
+            check(probes.equal_nan(got[0][r0:r0 + 32], want[0])
+                  and torch.equal(got[1][r0:r0 + 32], want[1]),
+                  f"edge_relax_superstep divide probe {kind}: kernel != plain at levels "
+                  f"{r0}..{r0 + 31}")
+        pairs += pv.shape[0] * pv.shape[1] * (pv.shape[2] - 1)
+    log(f"phase a: superstep tie-heavy tables {SUPERSTEP_TIE_SHAPES} (ties, constant) "
+        f"bit-equal and slice by slice equal to edge_relax; NaN, inf and -0.0 at "
+        f"{SUPERSTEP_NAN_SHAPES}; {pairs} adversarial quotients ({probes.DIVIDE_KINDS}) "
+        f"bit-equal; max_abs_err {err}")
     return err, edge_err
 
 
@@ -481,6 +617,23 @@ def check_minplus(calls) -> float:
     log(f"phase b: minplus bit-equal to its plain version at {len(calls)} calls "
         f"(float32 and bf16, up to {MINPLUS_PATH_SHAPE}); identity holds; "
         f"max_abs_err {err}")
+    n, device = 0, calls[0][1].device
+    for dtype in MINPLUS_DTYPES:
+        cases = [(f"specials {s}", probes.minplus_specials(s, 420 + i))
+                 for i, s in enumerate(MINPLUS_NAN_SHAPES)]
+        cases += [(f"probe {k}", probes.minplus_probe(k, 440 + i))
+                  for i, k in enumerate(probes.MINPLUS_KINDS)]
+        for what, arrays in cases:
+            a, b = (t.to(dtype) for t in on(device, arrays))
+            got, want = ops.minplus(a, b), minplus_plain(a, b)
+            err = max(err, nan_err(got, want))
+            check(probes.equal_nan(got, want), f"minplus kernel != plain at {what} {dtype}")
+            if what.startswith("specials"):
+                check(bool(torch.isnan(got[0]).all() and torch.isnan(got[:, 1]).all()),
+                      f"minplus {what} {dtype}: a NaN did not propagate")
+            n += 1
+    log(f"phase b: NaN, inf, -0.0 and adversarial bf16-sum operands in {n} calls (float32 "
+        f"and bf16): NaN where the plain version has it, bit-equal elsewhere; max_abs_err {err}")
     return err
 
 
@@ -672,10 +825,11 @@ def chaos_soak(device) -> dict:
     return dict(seconds=soak_s, faults=fired)
 
 
-def bound(nbytes: int, n_ops: int) -> tuple[float, str]:
-    """The least time the card could take (ms) and what bounds it."""
+def bound(nbytes: int, n_ops: int, dtype=torch.float32) -> tuple[float, str]:
+    """The least time the card could take (ms) for operations on ``dtype``
+    outside the tensor cores, and what bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -714,10 +868,27 @@ def seg_level_rows(g, inputs, device) -> list:
     return out
 
 
-def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device) -> list:
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def issue_floor(n_instr: float, row: dict) -> dict:
+    """The least time (ms) to issue ``n_instr`` lane-instructions on every SM
+    at the largest SM clock, and the SM clock read just after the row was
+    timed."""
+    f_max = float(smi("clocks.max.sm").split()[0]) * 1e6
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(issue_floor_ms=n_instr / (n_sm * LANES_PER_SM * f_max) * 1e3,
+                sm_clock_mhz_after=smi("clocks.sm"), sm_clock_max_mhz=smi("clocks.max.sm"),
+                **row)
+
+
+def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device, usage) -> list:
     """Phase 7: each kernel at its path's shapes beside its plain version and
     its bound; the first shape is the one the path runs most.  ``by_path``
-    holds each path's launch counts, read around that path alone."""
+    holds each path's launch counts, read around that path alone; ``usage``
+    each source's ``ptxas -v`` figures."""
 
     edge_rows = []
     for E, P in EDGE_PATH_SHAPES:
@@ -742,17 +913,19 @@ def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device) -> list:
         R, E, P = pv.shape
         t_min, by = bound(4 * (3 * R * E * P + R * E + P + P * P),
                           OPS_PER_CANDIDATE * R * E * P * P)
-        super_rows.append(dict(shape=[R, E, P], bound_ms=t_min, bound_by=by, **timed(
-            lambda: ops.edge_relax_superstep(pv, pdata, L, bw),
-            lambda: edge_relax_superstep_plain(pv, pdata, L, bw), 20, 3)))
+        super_rows.append(issue_floor(INSTR_PER_CANDIDATE * R * E * P * P, dict(
+            shape=[R, E, P], bound_ms=t_min, bound_by=by, **timed(
+                lambda: ops.edge_relax_superstep(pv, pdata, L, bw),
+                lambda: edge_relax_superstep_plain(pv, pdata, L, bw), 20, 3))))
     minplus_rows = []
     for dtype in MINPLUS_DTYPES:
         a, b = minplus_inputs(MINPLUS_PATH_SHAPE, dtype, device, 600)
         M, K, N = MINPLUS_PATH_SHAPE
-        t_min, by = bound(a.element_size() * (M * K + K * N + M * N), 2 * M * K * N)
-        minplus_rows.append(dict(shape=[M, K, N], dtype=str(dtype).replace("torch.", ""),
-                                 bound_ms=t_min, bound_by=by, **timed(
-            lambda: ops.minplus(a, b), lambda: minplus_plain(a, b), 10, 2)))
+        t_min, by = bound(a.element_size() * (M * K + K * N + M * N), 2 * M * K * N, dtype)
+        minplus_rows.append(issue_floor(INSTR_PER_MINPLUS_TRIPLE[dtype] * M * K * N, dict(
+            shape=[M, K, N], dtype=str(dtype).replace("torch.", ""), bound_ms=t_min,
+            bound_by=by, **timed(lambda: ops.minplus(a, b), lambda: minplus_plain(a, b),
+                                 10, 2))))
     rows = []
     for name, source, replaces, by_shape in (
             ("seg_level", "edge_relax", "src/repro/kernels/ceft_relax.py:67 "
@@ -772,10 +945,59 @@ def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device) -> list:
             name=name, route="cuda", source=f"src/repro_torch/csrc/{source}.cu",
             replaces=replaces, launches=sum(paths.values()), launches_by_path=paths,
             max_abs_err=errs[name], launches_per_rgg16384_sweep=per_sweep[name],
-            library_ms=None,
+            library_ms=None, ptxas=usage[source],
             **{k: by_shape[0][k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
             by_shape=by_shape))
     return rows
+
+
+def other_tree_ops(src: Path):
+    """The ``repro_torch.kernels.ops`` module of the tree under ``src``, loaded
+    under a package name of its own (the kernel modules import one another
+    relatively), so that it builds and loads that tree's kernel sources."""
+    pkg = src / "repro_torch" / "kernels"
+    spec = importlib.util.spec_from_file_location(
+        "other_tree_kernels", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod.ops
+
+
+def turns(other_src: str) -> int:
+    """``--turns OTHER_SRC``: the superstep on the n = 16384 graph's run tables
+    and ``minplus`` at 4096^3 (float32 and bf16), each timed with the kernels
+    of the tree under ``OTHER_SRC`` (a ``src`` directory holding
+    ``repro_torch``, for example an unpacked ``git archive`` of an earlier
+    commit) and with this tree's, in turns (other, this, this, other), on the
+    same inputs.  Both must give the same outputs (inputs without NaN).
+    Prints one JSON line of times, then the card's name and power limit."""
+    device = "cuda"
+    other = other_tree_ops(Path(other_src).resolve())
+    other.build_all()
+    ops.build_all()
+    wl = rgg("high", 16384, 64, np.random.default_rng(5), o=4, alpha=0.75, beta=50)
+    inputs = ct.csr_device_inputs(wl.graph, wl.comp, wl.machine, device=device)
+    cases = [("edge_relax_superstep", list(t[0].shape), t, other.edge_relax_superstep,
+              ops.edge_relax_superstep, 50)
+             for t in run_tables(device, wl.graph, inputs, ct.csr_sweep(inputs)[0])]
+    cases += [("minplus", list(MINPLUS_PATH_SHAPE),
+               minplus_inputs(MINPLUS_PATH_SHAPE, dtype, device, 600), other.minplus,
+               ops.minplus, 10) for dtype in MINPLUS_DTYPES]
+    rows = []
+    for name, shape, args, theirs, ours, reps in cases:
+        outs = [f(*args) for f in (theirs, ours)]
+        for a, b in zip(*(o if isinstance(o, tuple) else (o,) for o in outs)):
+            check(torch.equal(a, b), f"{name} at {shape}: the trees differ")
+        del outs
+        o1, n1, n2, o2 = (cuda_ms(lambda: f(*args), reps) for f in (theirs, ours, ours, theirs))
+        rows.append(dict(name=name, shape=shape, dtype=str(args[0].dtype).replace("torch.", ""),
+                         other_ms=[o1, o2], this_ms=[n1, n2],
+                         sm_clock_mhz_after=smi("clocks.sm")))
+    print(json.dumps({"turns": rows, "other": other_src,
+                      "sm_clock_max_mhz": smi("clocks.max.sm")}), flush=True)
+    print(smi("name,power.limit"), flush=True)
+    return 0
 
 
 def counted(fn, *args):
@@ -791,6 +1013,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this check needs one NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--turns"] and len(sys.argv) == 3:
+        return turns(sys.argv[2])
+    if len(sys.argv) > 1:
+        print(__doc__, file=sys.stderr)
+        return 2
 
     t_start = time.perf_counter()
     device = "cuda"
@@ -799,6 +1026,12 @@ def main() -> int:
     t = time.perf_counter()
     ops.build_all()
     log(f"phase 1: kernels built and loaded in {time.perf_counter() - t:.3f} s")
+    usage = ops.resource_usage()
+    for source, entries in usage.items():
+        for u in entries:
+            log(f"phase 1: ptxas {source}.cu {u['function']}: {u.get('registers')} registers, "
+                f"{u.get('smem')} bytes static smem, {u.get('stack')} bytes stack, "
+                f"{u.get('spill_stores')} / {u.get('spill_loads')} bytes spill stores / loads")
     errs = compare_kernels(device)
 
     def planning_path():
@@ -841,14 +1074,12 @@ def main() -> int:
           f"a sweep of {n_seg} segment-layout and {n_dense} dense levels launched {per_sweep}")
     log(f"launches per full n=16384 sweep: {per_sweep} ({n_seg} segment-layout levels, "
         f"one seg_level launch each; {n_dense} dense levels)")
-    rows = kernel_report(by_path, errs, per_sweep, tables, g, inputs, device)
+    rows = kernel_report(by_path, errs, per_sweep, tables, g, inputs, device, usage)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = smi("name,power.limit")
     print(json.dumps({"kernels": rows}), flush=True)
-    print(smi, flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

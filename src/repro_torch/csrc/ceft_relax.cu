@@ -19,22 +19,23 @@
 //     times S = 256 / P slot-lanes (4 at P = 64, 32 at P = 8);
 //   * the block copies its pv rows (contiguous in memory) into a shared tile
 //     with coalesced loads, L and bw are staged once;
-//   * each thread folds its slots in ascending order with a strict '>' from
-//     (-BIG, 0, 0), as the sequential scan does, so a NaN slot never wins;
+//   * each thread folds its slots in ascending order from (-BIG, 0, 0) with
+//     takes_max (relax.cuh), as the sequential scan does: a larger value or
+//     the first NaN wins, and a NaN once taken is kept;
 //   * the slot-lanes are combined in shared memory lexicographically (larger
-//     value, then smaller d), which equals the first-max sequential scan,
-//     including a tie with the initial -BIG;
+//     value with NaN above all, then smaller d), which equals the first-max
+//     sequential scan, including a tie with the initial -BIG;
 //   * when D spans several blocks, each block with a valid slot posts a 64-bit
-//     atomicMax of a packed key (order-preserving value bits, then the
-//     complement of d, then l), and the last block of the (b, w) row to finish
+//     atomicMax of a packed key (order-preserving value bits, every NaN
+//     mapped to one NaN above +inf, then the complement of d, then l), and
+//     the last block of the (b, w) row to finish
 //     decodes the key and resets it; a key left at 0 means no valid parent.
 //     The scratch is zero between launches, so it needs no memset, and the
 //     result does not depend on block order.
 //
 // The host picks the number of chunks from (B, W, D, P); a level whose fan-in
 // fits one block takes one launch with no atomics.  Bit-exactness is pinned in
-// relax.cuh's relax_cell (shared with edge_relax.cu) and by strict comparisons
-// here.  Never build this file with --use_fast_math.
+// relax.cuh's relax_cell and compares (shared with edge_relax.cu).  Never build this file with --use_fast_math.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,7 +96,7 @@ __global__ void __launch_bounds__(CEFT_THREADS) ceft_relax_kernel(
       float best;
       int arg;
       relax_cell(spv + i * P, sdat[i], sL, sbw, P, j, best, arg);
-      if (best > run) {
+      if (takes_max(best, run)) {
         run = best;
         run_d = t0 + i;
         run_l = arg;
@@ -112,7 +113,7 @@ __global__ void __launch_bounds__(CEFT_THREADS) ceft_relax_kernel(
     for (int s = 1; s < S; ++s) {
       const float v = rv[s * P + j];
       const int d = rd[s * P + j];
-      if (v > run || (v == run && d < run_d)) {
+      if (first_max_before(v, d, run, run_d)) {
         run = v;
         run_d = d;
         run_l = rl[s * P + j];

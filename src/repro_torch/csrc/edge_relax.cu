@@ -23,7 +23,8 @@
 //                   edges: it stages the tile's parent rows in shared memory,
 //                   relaxes each (edge, j) cell on a thread of its own (1024
 //                   threads, 16 edges at P = 64) into a shared tile, and folds
-//                   each segment piece of the tile with a strict '>'.  A
+//                   each segment piece of the tile (takes_max: a larger
+//                   value or the first NaN wins, as in the reference).  A
 //                   segment that lies inside one tile is written at once; one
 //                   that crosses a tile boundary (heavy-tailed fan-in has
 //                   segments of thousands of edges) goes through a 64-bit
@@ -44,8 +45,8 @@
 // the plain PyTorch versions and to the JAX reference, so every operation is
 // pinned: a correctly rounded divide (__fdiv_rn), explicit round-to-nearest
 // adds and multiplies (no FMA contraction), the reference's operation order,
-// the multiply by off in place of a diagonal special case, and strict
-// comparisons for the first-index argmin and argmax.  Never build this file
+// the multiply by off in place of a diagonal special case, and the NaN-aware
+// first-index compares of relax.cuh for the argmin and the argmax.  Never build this file
 // with --use_fast_math.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,7 +140,7 @@ __global__ void __launch_bounds__(SEG_THREADS, 2) seg_level_kernel(
     int k = e + 1;
     for (; k < ne && sseg[k] == s; ++k) {
       const float c = sval[k * P + j];
-      if (c > v) {
+      if (takes_max(c, v)) {
         v = c;
         ae = k;
         al = sarg[k * P + j];

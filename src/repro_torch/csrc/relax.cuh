@@ -1,10 +1,34 @@
-// Device functions shared by edge_relax.cu and ceft_relax.cu: the relaxation
-// of one (parent row, child class) cell, written once with its pinned rounding
-// (a correctly rounded divide, explicit round-to-nearest adds and multiplies,
-// the reference's operation order, the multiply by off, a strict '<' for the
-// first argmin), and the packed keys through which blocks combine a first-max.
+// Device functions shared by the relaxation kernels: the NaN-aware compares of
+// a first-index argmin and first-index argmax, the relaxation of one (parent
+// row, child class) cell written once with its pinned rounding (a correctly
+// rounded divide, explicit round-to-nearest adds and multiplies, the
+// reference's operation order, the multiply by off), and the packed keys
+// through which blocks combine a first-max.
+//
+// NaN follows the reference (jnp.min / jnp.argmin / jnp.argmax, torch.min /
+// torch.max): a NaN candidate wins the minimum or the maximum, the first NaN
+// in scan order is the index, and once a NaN has won it is kept.  Ties among
+// values that are not NaN keep the first index.
 #pragma once
 #include <stdint.h>
+
+// c replaces best in a first-index argmin scan: smaller, or the first NaN
+__device__ __forceinline__ bool takes_min(float c, float best) {
+  return !(c >= best) && best == best;
+}
+
+// c replaces best in a first-index argmax scan: larger, or the first NaN
+__device__ __forceinline__ bool takes_max(float c, float best) {
+  return c > best || (c != c && best == best);
+}
+
+// (v, i) comes before (best, best_i) in a first-max over unordered pieces:
+// a larger value (NaN above all), or the same value (NaN equal to NaN) at a
+// smaller index
+__device__ __forceinline__ bool first_max_before(float v, int i, float best, int best_i) {
+  const bool same = v == best || (v != v && best != best);
+  return takes_max(v, best) || (same && i < best_i);
+}
 
 // min over l of pv_row[l] + comm(l, j | d), and the first l attaining it
 __device__ __forceinline__ void relax_cell(const float* pv_row, float d, const float* sL,
@@ -16,16 +40,17 @@ __device__ __forceinline__ void relax_cell(const float* pv_row, float d, const f
     const float off = (l == j) ? 0.0f : 1.0f;
     const float comm = __fmul_rn(__fadd_rn(sL[l], __fdiv_rn(d, sbw[l * P + j])), off);
     const float c = __fadd_rn(pv_row[l], comm);
-    if (l == 0 || c < best) {
+    if (l == 0 || takes_min(c, best)) {
       best = c;
       arg = l;
     }
   }
 }
 
-// order-preserving map of a float's bits onto unsigned integers
+// order-preserving map of a float's bits onto unsigned integers; every NaN
+// maps to the bits of one canonical NaN, which sit above +inf
 __device__ __forceinline__ uint32_t ordered_bits(float v) {
-  const uint32_t u = __float_as_uint(v);
+  const uint32_t u = v != v ? 0x7FC00000u : __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
@@ -33,8 +58,9 @@ __device__ __forceinline__ float from_ordered_bits(uint32_t k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
 }
 
-// (value, index, class) as one key: a larger value wins, then a smaller index
-// (index < 2^24 and P <= 256, checked by the callers); 0 is below every key
+// (value, index, class) as one key: a larger value (NaN above all) wins, then
+// a smaller index (index < 2^24 and P <= 256, checked by the callers); 0 is
+// below every key
 __device__ __forceinline__ unsigned long long pack_key(float v, int e, int l) {
   const uint32_t lo = ((0xFFFFFFu - (uint32_t)e) << 8) | (uint32_t)l;
   return ((unsigned long long)ordered_bits(v) << 32) | lo;

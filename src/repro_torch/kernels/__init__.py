@@ -16,6 +16,8 @@ minplus              : tropical (min, +) matrix product, float32 and bf16
 ops                  : the wrappers (CPU -> plain version, CUDA -> kernel), launch
                        counters and the nvcc build
 ref                  : PyTorch oracles for all four kernels of the reference package
+probes               : seeded edge-case inputs (NaN, inf, -0.0, ties, adversarial
+                       divides and bf16 sums) and a NaN-aware equality
 
 Each kernel's plain PyTorch version sits in the module of its name.
 """

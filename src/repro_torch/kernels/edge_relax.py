@@ -60,7 +60,10 @@ def seg_level_plain(carry, comp_pad, L, bw, tasks, edge_src, edge_data, edge_seg
     per-child max over its contiguous parent segment (``edge_seg``, child
     slot of each edge) with a first-max tie-break in edge order (== ascending
     parent id, matching the dense argmax); only the first ``e_real`` edges
-    count.  Child slot ``s < len(tasks)`` writes carry row ``tasks[s]``:
+    count.  A NaN wins the max and the first NaN edge is the argmax (the
+    reference's multi-segment form, ``core/ceft_jax.py:_superstep_impl``,
+    finds no edge equal to a NaN maximum and points at edge ``E_b - 1``;
+    ROADMAP Queue 3).  Child slot ``s < len(tasks)`` writes carry row ``tasks[s]``:
     ``comp + max``, the winning edge's parent and its argmin class."""
     ceft_arr, ptask, pproc = carry
     B, _, P = ceft_arr.shape
@@ -79,7 +82,10 @@ def seg_level_plain(carry, comp_pad, L, bw, tasks, edge_src, edge_data, edge_seg
         maxk = torch.full((B, W_b, P), -float("inf"), dtype=minl.dtype,
                           device=minl.device)
         maxk.scatter_reduce_(1, seg, minl, "amax")
-        hit = minl == torch.gather(maxk, 1, seg)
+        # a NaN propagates through amax; the first NaN edge of the segment is
+        # its argmax, as in the single-segment branch and the dense argmax
+        seg_max = torch.gather(maxk, 1, seg)
+        hit = (minl == seg_max) | (minl.isnan() & seg_max.isnan())
         if masked:
             hit[:, e:] = False
         edge_ids = torch.arange(E_b, dtype=torch.int64, device=minl.device)

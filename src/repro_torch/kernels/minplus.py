@@ -9,13 +9,18 @@ starts at ``BIG``, not ``+inf``: an entry whose every sum overflows reads
 3.0e38 here and in the reference kernel (the reference's oracle
 ``ref.minplus_ref`` has no BIG and reads ``inf`` there).  The CUDA kernel is
 ``csrc/minplus.cu``: 128 x 128 output tiles, an 8 x 8 register micro-tile per
-thread, A and B slices in shared memory and the ragged edge masked in the
-kernel.  It is bound by its 2·M·K·N float32 adds and minima (no tensor-core
-mode computes a (min, +) product, and no library call does either).
+thread read from shared memory with 16-byte loads, K slices of 16 double-
+buffered (``cp.async`` for B, registers for A) and the ragged edge masked in
+the kernel.  It is bound by issue slots: one add and one NaN-propagating min
+per (i, k, j) in float32 (no tensor-core mode computes a (min, +) product,
+and no library call does either), and half of that in bf16, whose adds and
+minima run on packed pairs.
 
-float32 and bf16 inputs: sums and minima are taken in float32 and the result
-is rounded to the input type once, which equals rounding every sum (rounding
-is monotone).
+float32 and bf16 inputs: the plain version takes sums and minima in float32
+and rounds the result to the input type once, which equals rounding every
+sum (rounding is monotone, and a float32 sum of two bf16 values rounds to the
+bf16 sum); the bf16 kernel adds and takes minima in bf16.  NaN propagates
+through the minimum, as in the reference.
 """
 from __future__ import annotations
 

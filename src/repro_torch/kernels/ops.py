@@ -18,13 +18,16 @@ own shared library with a plain C interface, loaded with ``ctypes``; shared
 device code sits in ``csrc/*.cuh``.  The libraries live in
 ``_build/<hash of the source, the headers and the flags>/`` inside the
 package (ignored by git), are built at first use, and :func:`build_all` starts
-every compile at once.  Nothing is compiled or loaded at import time.
+every compile at once.  ``ptxas -v``'s report (registers, shared memory and
+spills of each kernel) is kept beside each library and read by
+:func:`resource_usage`.  Nothing is compiled or loaded at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,6 +38,7 @@ import torch
 from .ceft_relax import ceft_relax_argtypes, ceft_relax_launch, ceft_relax_plain
 from .edge_relax import (edge_relax_argtypes, edge_relax_launch, edge_relax_plain,
                          seg_level_launch, seg_level_plain)
+from .edge_relax_superstep import MAX_P as MAX_SUPERSTEP_P
 from .edge_relax_superstep import (edge_relax_superstep_argtypes,
                                    edge_relax_superstep_launch,
                                    edge_relax_superstep_plain)
@@ -43,7 +47,7 @@ from .minplus import minplus_argtypes, minplus_launch, minplus_plain
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: one library per source, ``csrc/<name>.cu``; ``edge_relax.cu`` also holds
 #: the ``seg_level`` entry
 KERNELS = {"edge_relax": edge_relax_argtypes, "ceft_relax": ceft_relax_argtypes,
@@ -108,6 +112,7 @@ def _compile(names) -> None:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".ptxas.txt").write_text(log)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -130,6 +135,36 @@ def build_all() -> None:
         _compile([n for n in KERNELS if n not in _LIBS])
     for name in KERNELS:
         _library(name)
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def resource_usage() -> dict[str, list[dict]]:
+    """Per kernel source, each entry function's registers a thread, static
+    shared memory, stack frame and spill bytes, as ``ptxas -v`` reported
+    them when the library was built (empty for a library built before
+    the report was kept)."""
+    out = {}
+    for name in KERNELS:
+        report = _lib_path(name).with_suffix(".ptxas.txt")
+        rows, row = [], None
+        for line in report.read_text().splitlines() if report.exists() else ():
+            if m := _PTXAS_ENTRY.search(line):
+                row = {"function": m.group(1)}
+                rows.append(row)
+            elif row is not None and (m := _PTXAS_SPILL.search(line)):
+                row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            elif row is not None and (m := _PTXAS_REGS.search(line)):
+                smem = _PTXAS_SMEM.search(line)
+                row.update(registers=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
+        out[name] = rows
+    return out
 
 
 def _scratch(device: torch.device, stream: int):
@@ -289,10 +324,14 @@ def edge_relax_superstep(pv, pdata, L, bw):
     if pv.device.type != "cuda":
         raise ValueError(f"edge_relax_superstep: no kernel for device {pv.device}")
     _check_cuda("edge_relax_superstep", pv, pdata, L, bw)
+    if P > MAX_SUPERSTEP_P:
+        raise ValueError(f"edge_relax_superstep: the CUDA kernel takes P <= "
+                         f"{MAX_SUPERSTEP_P}, got P = {P}")
     if pv.numel() == 0:
         return (torch.empty_like(pv),
                 torch.empty(pv.shape, dtype=torch.int32, device=pv.device))
-    out = edge_relax_superstep_launch(_library("edge_relax_superstep"), pv, pdata, L, bw)
+    out = edge_relax_superstep_launch(_library("edge_relax_superstep"), pv, pdata, L, bw,
+                                      _n_sm(pv.device))
     LAUNCHES["edge_relax_superstep"] += 1
     return out
 

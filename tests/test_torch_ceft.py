@@ -156,6 +156,47 @@ def test_segment_sweep_with_ties_matches_reference(seed, g):
         np.testing.assert_array_equal(a, np.asarray(b), err_msg=name)
 
 
+@pytest.mark.parametrize("task", [3, 10, 40])
+def test_csr_sweep_on_a_nan_cost_plane(task):
+    """One NaN cost (task ``task``, class 2) through the whole CSR sweep of an
+    RGG with multi-segment levels, against ``ceft_jax_csr``.  The CEFT tables
+    are equal, NaN positions included.  The predecessors differ only where
+    a NaN parent decides a child's maximum inside a multi-segment level:
+    there the port points at the first NaN parent (edge order) and its first
+    NaN class, as the reference's single-segment and dense levels do, while
+    the reference's multi-segment form finds no edge equal to the NaN
+    maximum and points at the level's last edge (ROADMAP Queue 3)."""
+    wl = rgg("high", 600, 8, np.random.default_rng(5), o=4, alpha=0.75, beta=50)
+    g, comp, m = wl.graph, wl.comp.copy(), wl.machine
+    comp[task, 2] = np.nan
+    tg, tm, _ = from_reference_arrays(g, m)
+    got = ct.ceft_torch_csr(tg, comp, tm, device=CPU)
+    want = cj.ceft_jax_csr(g, comp, m)
+    np.testing.assert_array_equal(got.ceft, want.ceft)
+    nan_row = np.isnan(got.ceft).any(axis=1)
+    src = np.repeat(np.arange(g.n), np.diff(g.cindptr))
+    nan_parents = [[] for _ in range(g.n)]
+    for s, d in zip(src, g.cindices):
+        if nan_row[s]:
+            nan_parents[d].append(int(s))
+    diverges = np.zeros(got.pred_task.shape, bool)
+    for run in ct.csr_device_inputs(tg, comp, tm, device=CPU)[0]:
+        for lv in run.levels:
+            if run.layout != "seg":
+                continue
+            for t in lv.tasks.tolist():
+                if not nan_parents[t]:
+                    continue
+                p = min(nan_parents[t])
+                assert (got.pred_task[t] == p).all()
+                assert (got.pred_proc[t] == np.flatnonzero(np.isnan(got.ceft[p]))[0]).all()
+                if lv.width > 1:
+                    diverges[t] = True
+                    assert (want.pred_task[t] == int(lv.edge_src[-1])).all()
+    differ = (got.pred_task != want.pred_task) | (got.pred_proc != want.pred_proc)
+    assert differ.any() and not (differ & ~diverges).any()
+
+
 # --------------------------------------------------------- run tables
 @pytest.mark.parametrize("g", [
     linear_chain(40),

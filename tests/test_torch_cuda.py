@@ -5,7 +5,8 @@ imports no JAX (the card's machine need not have it), so it keeps its own
 copy of the reference's test shapes from ``tests/test_kernels.py``;
 ``test_torch_kernels.py`` checks that the copies match.  It also holds the
 seeded input builders that the CPU parity tests share.  Tolerance: exact
-(``torch.equal``), float32 and bf16 alike.
+(``torch.equal``), float32 and bf16 alike; where an output holds NaN, the NaN
+positions must match and the rest be ``torch.equal`` (``probes.equal_nan``).
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -16,7 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, probes  # noqa: E402
 from repro_torch.kernels.ceft_relax import ceft_relax_plain  # noqa: E402
 from repro_torch.kernels.edge_relax import edge_relax_plain, seg_level_plain  # noqa: E402
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
@@ -28,6 +29,13 @@ CELL_SHAPES = [(8, 3, 4), (5, 1, 2), (16, 7, 13), (33, 9, 64), (64, 2, 128), (1,
 SUPERSTEP_SHAPES = [(1, 5, 3), (4, 128, 16), (3, 300, 7), (2, 64, 64), (1, 1, 1)]
 SHAPES_MINPLUS = [(4, 3, 5), (128, 16, 128), (300, 37, 260), (1, 1, 1),
                   (257, 129, 255), (16, 256, 16)]
+
+
+# the superstep's other instances: P = 8 and 32 (unrolled, E not a multiple
+# of the edge tile), the run-time-P instance above P = 64, and the kernel for
+# machines wider than P = 160, up to the widest it takes
+SUPERSTEP_WIDTHS = [(3, 300, 8), (5, 100, 32), (2, 70, 128), (2, 9, 161), (2, 40, 200),
+                    (1, 17, 240)]
 
 
 def _edge_inputs(shape, ties: bool):
@@ -180,7 +188,8 @@ def test_ceft_relax_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SUPERSTEP_SHAPES + [(192, 1024, 64), (12, 2048, 64)])
+@pytest.mark.parametrize("shape", SUPERSTEP_SHAPES + [(192, 1024, 64), (12, 2048, 64)]
+                         + SUPERSTEP_WIDTHS)
 def test_edge_relax_superstep_kernel_matches_plain(cuda, shape):
     pv, pdata, L, bw = (torch.as_tensor(a, device=cuda)
                         for a in _edge_inputs(shape, ties=False))
@@ -247,3 +256,138 @@ def test_seg_level_kernel_matches_plain(cuda, case, ties):
     for g, w, name in zip(got, want, ("ceft", "pred_task", "pred_proc")):
         assert torch.equal(g.cpu(), w), name
     assert _scratch_is_zero()
+
+
+def _t(arrays, device):
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", probes.SPECIAL_MODES)
+@pytest.mark.parametrize("shape", [(16, 7), (64, 64), (1024, 64)])
+def test_edge_relax_kernel_specials(cuda, shape, mode):
+    """NaN, inf and -0.0 candidates: the kernel gives its plain version's
+    min and argmin (a NaN wins, the first NaN's class is the argmin)."""
+    pv, pdata, L, bw = _t(probes.edge_specials(shape, mode, 51), cuda)
+    got = ops.edge_relax(pv, pdata, L, bw)
+    want = edge_relax_plain(pv[None], pdata, L[None], bw[None])
+    for g, w in zip(got, want):
+        assert probes.equal_nan(g, w[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", probes.SPECIAL_MODES)
+@pytest.mark.parametrize("shape", [(5, 9, 7), (3, 33, 64), (1, 4096, 64), (2, 1000, 8)])
+def test_ceft_relax_kernel_specials(cuda, shape, mode):
+    """The dense kernel with NaN, inf and -0.0 candidates, in one block and
+    split across blocks (the packed keys carry one canonical NaN above
+    +inf): bit-equal to its plain version, NaN positions included; the
+    scratch is left zero."""
+    args = _t(probes.cell_specials(shape, mode, 52), cuda)
+    got = ops.ceft_relax(*args)
+    want = ceft_relax_plain(args[0][None], args[1], args[2], args[3][None], args[4][None])
+    for g, w in zip(got, want):
+        assert probes.equal_nan(g, w[0])
+    assert _scratch_is_zero()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_seg_level_kernel_nan(cuda, case):
+    """NaN parent values through the fused level, in segments inside a tile
+    and across tiles: bit-equal to the plain version (a NaN segment max,
+    its first NaN edge's parent and class), scratch left zero."""
+    carry, comp, L, bw, tasks, src, data, seg, e_real, width = _seg_inputs(case, False)
+    ceft = carry[0].copy()
+    ceft[:, src[0], 2 % ceft.shape[-1]] = np.nan
+    ceft[:, src[e_real // 2], :] = np.nan
+    carry = (ceft, *carry[1:])
+    host = [torch.as_tensor(a) for a in (comp, L, bw, tasks, src, data, seg)]
+    want = tuple(torch.as_tensor(c.copy()) for c in carry)
+    seg_level_plain(want, *host, e_real, width)
+    got = tuple(torch.as_tensor(c, device=cuda) for c in carry)
+    ops.seg_level(got, *(t.to(cuda) for t in host), e_real, width)
+    torch.cuda.synchronize()
+    assert torch.isnan(want[0]).any()
+    for g, w, name in zip(got, want, ("ceft", "pred_task", "pred_proc")):
+        assert probes.equal_nan(g.cpu(), w), name
+    assert _scratch_is_zero()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", probes.SPECIAL_MODES)
+@pytest.mark.parametrize("shape", [(3, 40, 7), (2, 64, 64), (12, 2048, 64)]
+                         + SUPERSTEP_WIDTHS)
+def test_edge_relax_superstep_kernel_specials(cuda, shape, mode):
+    pv, pdata, L, bw = _t(probes.edge_specials(shape, mode, 53), cuda)
+    got = ops.edge_relax_superstep(pv, pdata, L, bw)
+    want = edge_relax_superstep_plain(pv, pdata, L, bw)
+    for g, w in zip(got, want):
+        assert probes.equal_nan(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 3, 5), (300, 37, 260), (256, 256, 256)])
+def test_minplus_kernel_specials(cuda, shape, dtype):
+    a, b = (x.to(getattr(torch, dtype)) for x in _t(probes.minplus_specials(shape, 54), cuda))
+    got = ops.minplus(a, b)
+    assert probes.equal_nan(got, minplus_plain(a, b))
+    assert torch.isnan(got[0]).all() and torch.isnan(got[:, 1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ties", "constant"])
+@pytest.mark.parametrize("shape", [(4, 128, 16), (3, 300, 7), (158, 1024, 64)]
+                         + SUPERSTEP_WIDTHS)
+def test_edge_relax_superstep_kernel_ties(cuda, shape, mode):
+    """Tie-heavy tables (small integers, or every off-diagonal candidate
+    equal) on a homogeneous machine: the first-index argmin of every edge a
+    thread carries, bit-equal to the plain version and slice by slice to
+    ``edge_relax``."""
+    pv, pdata, L, bw = _t(probes.edge_ties(shape, mode, 55), cuda)
+    got = ops.edge_relax_superstep(pv, pdata, L, bw)
+    want = edge_relax_superstep_plain(pv, pdata, L, bw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for r in range(shape[0]):
+        m1, a1 = ops.edge_relax(pv[r], pdata[r], L, bw)
+        assert torch.equal(got[0][r], m1) and torch.equal(got[1][r], a1)
+
+
+@pytest.mark.cuda
+def test_edge_relax_superstep_kernel_rejects_wider_machines(cuda):
+    """P = 241 would not fit bw and L in a block's shared memory: the wrapper
+    raises before launching."""
+    pv, pdata, L, bw = (torch.as_tensor(a, device=cuda)
+                        for a in _edge_inputs((1, 4, 241), ties=False))
+    before = ops.LAUNCHES["edge_relax_superstep"]
+    with pytest.raises(ValueError, match="P <= 240"):
+        ops.edge_relax_superstep(pv, pdata, L, bw)
+    assert ops.LAUNCHES["edge_relax_superstep"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", probes.DIVIDE_KINDS)
+def test_edge_relax_superstep_kernel_divide_probe(cuda, kind):
+    """About a million adversarial (pdata, bw) quotients each reach the
+    output at P = 64: the kernel's divide (Markstein inside its exponent
+    window, __fdiv_rn outside) equals the plain version's correctly rounded
+    CUDA division, bit for bit."""
+    pv, pdata, L, bw = _t(probes.divide_probe(kind, 16, 56), cuda)
+    got = ops.edge_relax_superstep(pv, pdata, L, bw)
+    want = edge_relax_superstep_plain(pv, pdata, L, bw)
+    for g, w in zip(got, want):
+        assert probes.equal_nan(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", probes.MINPLUS_KINDS)
+def test_minplus_kernel_probe(cuda, kind, dtype):
+    """Sums on bf16 rounding ties, near the largest bf16 and BIG, among
+    subnormals and on ±0, each exposed as an output (K = 1), in pairs
+    (K = 2) and in a product: bit-equal to the plain version's float32 sums
+    rounded once."""
+    a, b = (x.to(getattr(torch, dtype)) for x in _t(probes.minplus_probe(kind, 57), cuda))
+    assert probes.equal_nan(ops.minplus(a, b), minplus_plain(a, b))

@@ -8,6 +8,8 @@ reference's rtol=1e-5, compared in float32.  Tests marked ``cuda`` compare the C
 with their plain versions on a card; they live in ``test_torch_cuda.py``,
 which imports no JAX, so that they also run where JAX is not installed."""
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,7 +23,8 @@ from repro.kernels import edge_relax as jax_edge_relax  # noqa: E402
 from repro.kernels import edge_relax_superstep as jax_edge_relax_superstep  # noqa: E402
 from repro.kernels import minplus as jax_minplus  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro.core.ceft_jax import xla_relax  # noqa: E402
+from repro_torch.kernels import ops, probes, ref  # noqa: E402
 from repro_torch.kernels.ceft_relax import (BIG as CELL_BIG, ceft_relax_chunks,  # noqa: E402
                                             ceft_relax_plain)
 from repro_torch.kernels.edge_relax import edge_relax_plain, seg_level_plain  # noqa: E402
@@ -263,7 +266,10 @@ def test_seg_level_plain_matches_dense_relax(case, ties):
     slots in edge order and relaxed by the dense plain version (first
     maximal slot == first maximal edge).  Bit-equal, rows outside the
     level untouched."""
-    carry, comp, L, bw, tasks, src, data, seg, e_real, width = _seg_inputs(case, ties)
+    _check_seg_level_against_dense(*_seg_inputs(case, ties))
+
+
+def _check_seg_level_against_dense(carry, comp, L, bw, tasks, src, data, seg, e_real, width):
     t = [torch.as_tensor(a) for a in (comp, L, bw, tasks, src, data, seg)]
     got = tuple(torch.as_tensor(c.copy()) for c in carry)
     ops.seg_level(got, *t, e_real, width)
@@ -304,3 +310,161 @@ def test_seg_level_rejects_bad_shapes():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.seg_level(tuple(x.to("meta") for x in c), *(x.to("meta") for x in t),
                       e_real, width)
+
+
+def _nan_parent_rows(carry, src, e_real):
+    """NaN into the parent rows of the level's first edge (class 2) and of
+    the edge in the middle (every class), in every plane."""
+    ceft = carry[0].copy()
+    P = ceft.shape[-1]
+    ceft[:, src[0], 2 % P] = np.nan
+    ceft[:, src[e_real // 2], :] = np.nan
+    return (ceft, *carry[1:])
+
+
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_seg_level_plain_nan_matches_dense_relax(case):
+    """NaN parent values through the fused level's plain version against the
+    dense formulation: a segment holding a NaN candidate reads NaN, its
+    first NaN edge is the argmax and that edge's first NaN class the
+    argmin, in one segment or many."""
+    carry, *rest = _seg_inputs(case, False)
+    src, e_real = rest[4], rest[7]
+    carry = _nan_parent_rows(carry, src, e_real)
+    _check_seg_level_against_dense(carry, *rest)
+    got = tuple(torch.as_tensor(c.copy()) for c in carry)
+    ops.seg_level(got, *(torch.as_tensor(a) for a in rest[:7]), e_real, rest[8])
+    assert torch.isnan(got[0]).any()
+
+
+@pytest.mark.parametrize("mode", probes.SPECIAL_MODES)
+@pytest.mark.parametrize("shape", [(16, 7), (64, 64)])
+def test_edge_relax_specials_match_jax(shape, mode):
+    """NaN, inf and -0.0 candidates: the plain version and the wrapper give
+    the JAX oracle's and the Pallas kernel's (interpret mode) min and argmin:
+    a NaN candidate wins and the first NaN's class is the argmin."""
+    args = probes.edge_specials(shape, mode, 31)
+    want = jref.edge_relax_ref(*map(jnp.asarray, args))
+    pallas = jax_edge_relax(*map(jnp.asarray, args), interpret=True)
+    t = [torch.as_tensor(a) for a in args]
+    plain = edge_relax_plain(t[0][None], t[1], t[2][None], t[3][None])
+    got = ops.edge_relax(*t)
+    for i, name in enumerate(["minl", "argl"]):
+        _eq(pallas[i], want[i], name)
+        _eq(plain[i][0], want[i], name)
+        _eq(got[i], want[i], name)
+    if mode == "nan_pv":
+        assert torch.isnan(got[0][0]).all() and (got[1][0] == 2).all()
+
+
+@pytest.mark.parametrize("mode", probes.SPECIAL_MODES)
+@pytest.mark.parametrize("shape", [(3, 40, 7), (2, 64, 64)])
+def test_edge_relax_superstep_specials_match_jax(shape, mode):
+    args = probes.edge_specials(shape, mode, 32)
+    want = jref.edge_relax_superstep_ref(*map(jnp.asarray, args))
+    pallas = jax_edge_relax_superstep(*map(jnp.asarray, args), interpret=True)
+    got = ops.edge_relax_superstep(*(torch.as_tensor(a) for a in args))
+    for i, name in enumerate(["minl", "argl"]):
+        _eq(pallas[i], want[i], name)
+        _eq(got[i], want[i], name)
+    if mode == "nan_pv":
+        assert torch.isnan(got[0][:, 0]).all() and (got[1][:, 0] == 2).all()
+
+
+@pytest.mark.parametrize("mode", probes.SPECIAL_MODES)
+@pytest.mark.parametrize("shape", [(5, 9, 7), (3, 33, 64)])
+def test_ceft_relax_specials_match_jax(shape, mode):
+    """NaN, inf and -0.0 candidates through the dense relaxation: the plain
+    version and the wrapper give the JAX oracle's and the reference sweep's
+    default relaxation's (``xla_relax``) max, argmax slot and argmin class:
+    a valid NaN slot wins the max and the first one is the argmax, a NaN in
+    an invalid slot is masked."""
+    args = probes.cell_specials(shape, mode, 33)
+    want = jref.ceft_relax_ref(*map(jnp.asarray, args))
+    sweep = xla_relax(*map(jnp.asarray, args[:2]), jnp.asarray(args[2] > 0),
+                      *map(jnp.asarray, args[3:]))
+    t = [torch.as_tensor(a) for a in args]
+    plain = ceft_relax_plain(t[0][None], t[1], t[2], t[3][None], t[4][None])
+    got = ops.ceft_relax(*t)
+    for i, name in enumerate(["maxk", "argk", "argl"]):
+        _eq(sweep[i], want[i], name)
+        _eq(plain[i][0], want[i], name)
+        _eq(got[i], want[i], name)
+    if mode == "nan_pv":
+        assert torch.isnan(got[0]).all() and (got[1] == 0).all() and (got[2] == 2).all()
+
+
+def test_ceft_relax_pallas_kernel_lets_no_nan_win_the_max():
+    """The reference's Pallas dense kernel folds parent slots with a strict
+    '>' from -BIG, so a NaN slot never wins its max; its oracle and the
+    sweeps' default relaxation (``xla_relax``) let the NaN win.  The port
+    follows the oracle; this pins the reference's own disagreement."""
+    args = probes.cell_specials((5, 9, 7), "nan_pv", 33)
+    pallas = jax_ceft_relax(*map(jnp.asarray, args), interpret=True)
+    want = jref.ceft_relax_ref(*map(jnp.asarray, args))
+    assert np.isnan(np.asarray(want[0])).all()
+    assert not np.isnan(np.asarray(pallas[0])).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 3, 5), (300, 37, 260)])
+def test_minplus_specials_match_pallas_interpret(shape, dtype):
+    """NaN, inf and -0.0 operands through the product: a NaN propagates
+    through the minimum (a row of A holding one reads NaN everywhere), an
+    all-inf row reads BIG, as in the reference kernel."""
+    a, b = probes.minplus_specials(shape, 34)
+    want = np.asarray(jax_minplus(jnp.asarray(a, dtype), jnp.asarray(b, dtype)), np.float32)
+    tdt = getattr(torch, dtype)
+    got = ops.minplus(torch.as_tensor(a).to(tdt), torch.as_tensor(b).to(tdt))
+    _eq(got.float(), want)
+    assert torch.isnan(got[0]).all() and torch.isnan(got[:, 1]).all()
+    assert float(got[1, 0]) == float(torch.tensor(BIG, dtype=tdt))
+
+
+def _fma32(a, b, c):
+    """RN_float32(a * b + c), exactly, for float32 arrays: the product is
+    exact in float64, TwoSum gives the float64 sum's error, and a sum that
+    lands on a float32 midpoint is rounded toward the error's side."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c64 = c.astype(np.float64)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    r = s.astype(np.float32)
+    r64 = r.astype(np.float64)
+    toward = np.where(s > r64, np.float32(np.inf), np.float32(-np.inf)).astype(np.float32)
+    other = np.nextafter(r, toward)
+    mid = (r64 + other.astype(np.float64)) / 2
+    wrong_side = (s == mid) & (r64 != s) & (err != 0) & (np.sign(err) != np.sign(r64 - s))
+    return np.where(wrong_side, other, r)
+
+
+def test_superstep_markstein_divide_is_correctly_rounded():
+    """The divide of ``csrc/edge_relax_superstep.cu`` emulated exactly on the
+    CPU: inside the source's exponent window, q0 = RN(d * RN(1/b)),
+    rem = fma(-q0, b, d), q = fma(rem, RN(1/b), q0) is RN(d / b) (float64
+    division rounded to float32 is correctly rounded: 53 >= 2 * 24 + 2) for
+    about 3 million adversarial pairs; the kernel sends pairs outside the
+    window through __fdiv_rn, and the card tests hold both to the plain
+    version."""
+    src = (Path(ops.CSRC) / "edge_relax_superstep.cu").read_text()
+    lo = int(re.search(r"#define SS_EXP_LO \(127 - (\d+)\)", src).group(1))
+    hi = int(re.search(r"#define SS_EXP_HI \(127 \+ (\d+)\)", src).group(1))
+
+    def biased(x):
+        return ((x.view(np.uint32) >> 23) & 0xFF).astype(np.int64)
+
+    for i, kind in enumerate(("random", "ones", "pow2")):
+        _, d, _, bw = probes.divide_probe(kind, 3, 40 + i)
+        d, bw = d.reshape(-1), bw.reshape(-1)
+        d = d[(d.view(np.uint32) == 0) | ((biased(d) >= 127 - lo) & (biased(d) <= 127 + hi))]
+        assert len(d) > 1000 and (biased(bw) >= 127 - lo).all() and (biased(bw) <= 127 + hi).all()
+        dd, bb = np.meshgrid(d, bw[:1024], indexing="ij")
+        dd, bb = dd.reshape(-1), bb.reshape(-1)
+        rb = (1.0 / bb.astype(np.float64)).astype(np.float32)
+        q0 = (dd.astype(np.float64) * rb.astype(np.float64)).astype(np.float32)
+        q = _fma32(rb, _fma32(-q0, bb, dd), q0)
+        want = (dd.astype(np.float64) / bb.astype(np.float64)).astype(np.float32)
+        assert np.array_equal(q.view(np.uint32), want.view(np.uint32)), kind
+        if kind == "random":
+            assert not np.array_equal(q0, want)   # the correction step matters
