@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's CEFT planning path and its serving router on one NVIDIA
-GPU and check them.
+"""Drive the port's CEFT planning path, its serving router and its LM engine
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -44,6 +44,17 @@ Phases (any failure exits non-zero; nothing is caught):
      the card;
   d. the seeded chaos soak on 4 subprocess workers: every request completes
      exactly once, and no worker child starts CUDA;
+  e. the LM serving path at granite-3-8b's published widths: e1, at 2 of its
+     40 layers, the engine on the card against the same weights on the CPU
+     (float32 compute with TF32 off: logits within 1e-4 relative and 16
+     greedy tokens identical; bf16: prefill and teacher-forced decode logits
+     within 5e-2 relative); e2, all 40 layers (8.37 B parameters made on the
+     card), two engines sharing one parameter set behind
+     ``Router(device="cuda", max_batch=4)``, two rounds of 2 tenants x 4
+     requests (prompts of 512 and 256 tokens, 32 new tokens): every request
+     exactly once with its prompt in front, the ticks launching
+     ``ceft_relax``, one engine deterministic on a batch; then prefill and
+     decode-step times, tokens/s and peak memory beside their bounds;
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -62,6 +73,7 @@ times the superstep and ``minplus`` of another tree (``OTHER_SRC`` is its
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import itertools
 import json
@@ -75,6 +87,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import ceft_reference, planners, random_machine  # noqa: E402
 from repro_torch.core import ceft_torch as ct  # noqa: E402
 from repro_torch.core.machine import Machine  # noqa: E402
@@ -85,8 +98,11 @@ from repro_torch.kernels.ceft_relax import ceft_relax_plain  # noqa: E402
 from repro_torch.kernels.edge_relax import edge_relax_plain, seg_level_plain  # noqa: E402
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_to  # noqa: E402
 from repro_torch.sched import PlanCache, StragglerMonitor, plancache  # noqa: E402
-from repro_torch.serve import (EnginePool, EngineSlot, Request, Router,  # noqa: E402
+from repro_torch.serve import (Engine, EnginePool, EngineSlot, Request, Router,  # noqa: E402
+                               ServeConfig,
                                WorkerSpec, null_engine_factory)
 from repro_torch.serve.faults import KINDS, install_chaos  # noqa: E402
 
@@ -139,6 +155,14 @@ DIVIDE_LEVELS = 256
 MINPLUS_DTYPES = (torch.float32, torch.bfloat16)
 # the serving router's largest configuration (benchmarks/serve_router.py, pool8)
 POOL_P, POOL_CLASSES, POOL_NEW, POOL_PER_CLASS, POOL_ROUNDS = 8, 6, 8, 32, 4
+# phase e: the LM serving path at the launcher's default model, granite-3-8b;
+# e1 at 2 of its 40 layers (B, prompt, new tokens, teacher-forced steps), e2
+# as published behind the router (prompt length per tenant, requests each)
+LM_ARCH, LM_SEED = "granite-3-8b", 0
+E1_LAYERS, E1_B, E1_P, E1_NEW, E1_FORCED = 2, 2, 64, 16, 8
+E2_PROMPTS, E2_PER_TENANT, E2_NEW, E2_BATCH, E2_ROUNDS = (512, 256), 4, 32, 4, 2
+# the tensor cores' dense bf16 peak (the LM's products run in bf16)
+BF16_TENSOR_OPS_PER_S = 989e12
 
 
 def log(*args):
@@ -651,10 +675,11 @@ def pool8_router(device) -> Router:
 
 def watch_ticks(router) -> list:
     """Record each tick's snapshot (DAG, slowdowns, plans, dispatched rids,
-    host wall ms) as ``serve`` runs it."""
+    host wall ms, kernel launches) as ``serve`` runs it."""
     ticks, tick = [], router.tick
 
     def recorded():
+        before = dict(ops.LAUNCHES)
         t = time.perf_counter()
         out = tick()
         ms = (time.perf_counter() - t) * 1e3
@@ -662,6 +687,7 @@ def watch_ticks(router) -> list:
             ticks.append(dict(dag=router.last_dag, slow=router._slow.copy(),
                               plan=router.last_plan, nominal=router.last_nominal,
                               machine=router.machine, ms=ms,
+                              launches={k: ops.LAUNCHES[k] - before[k] for k in before},
                               rids=[r.rid for d in out for r in d.requests]))
         return out
 
@@ -823,6 +849,242 @@ def chaos_soak(device) -> dict:
         f"exactly once in {soak_s:.3f} s; faults {fired}; pool {pool.stats}; nvidia-smi "
         f"compute apps {apps}")
     return dict(seconds=soak_s, faults=fired)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (the reference's bf16 measure)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def forced_logits(engine, prompts, forced) -> list:
+    """The last prompt token's prefill logits, then each teacher-forced decode
+    step's logits (the columns of ``forced`` fed one at a time), on the CPU."""
+    B, P = prompts.shape
+    dev = engine.device
+    with torch.inference_mode():
+        cache, logits = engine.model.prefill(
+            engine.params, {"tokens": torch.as_tensor(prompts, device=dev)})
+        out = [logits[:, -1].float().cpu()]
+        cache = engine._seed_cache(cache, B, P + forced.shape[1], P)
+        for i in range(forced.shape[1]):
+            logits, cache = engine.model.decode(
+                engine.params, cache, torch.as_tensor(forced[:, i:i + 1], device=dev), P + i)
+            out.append(logits[:, -1].float().cpu())
+    return out
+
+
+def lm_card_vs_cpu(device) -> dict:
+    """Phase e1: granite-3-8b at its published widths and 2 of its 40 layers,
+    weights made once on the CPU from a seed and copied to the card; the card
+    against the CPU in float32 compute with TF32 off (prefill and decode
+    logits within 1e-4 relative, greedy tokens identical) and in the
+    config's bf16 (logits within 5e-2 relative, the reference's bf16
+    bound)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on")
+    base = dataclasses.replace(configs.get(LM_ARCH), n_layers=E1_LAYERS)
+    t = time.perf_counter()
+    params = build(base).init(torch.Generator().manual_seed(LM_SEED), "cpu")
+    on_card = tree_to(params, device)
+    setup_s = time.perf_counter() - t
+    n_bytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    rng = np.random.default_rng(LM_SEED)
+    prompts = rng.integers(2, base.vocab, (E1_B, E1_P)).astype(np.int32)
+    forced = rng.integers(2, base.vocab, (E1_B, E1_FORCED)).astype(np.int32)
+    out = dict(layers=E1_LAYERS, param_bytes=n_bytes, setup_s=setup_s)
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2)):
+        cfg = dataclasses.replace(base, compute_dtype=dtype)
+        cpu = Engine(cfg, params=params, device="cpu")
+        card = Engine(cfg, params=on_card, device=device)
+        errs = [rel_err(g, w) for g, w in zip(forced_logits(card, prompts, forced),
+                                              forced_logits(cpu, prompts, forced))]
+        check(max(errs) < tol, f"{dtype}: card logits off the CPU's by {errs} (bound {tol})")
+        out[dtype] = dict(prefill_rel_err=errs[0], decode_rel_err=max(errs[1:]), bound=tol)
+        if dtype == "float32":
+            scfg = ServeConfig(max_new_tokens=E1_NEW)
+            got, want = card.generate(prompts, scfg), cpu.generate(prompts, scfg)
+            check(np.array_equal(got, want), f"greedy tokens differ: card {got[:, E1_P:]} "
+                  f"cpu {want[:, E1_P:]}")
+            out[dtype]["greedy_tokens_equal"] = int(got.size)
+    del on_card
+    torch.cuda.empty_cache()
+    log(f"phase e1: {LM_ARCH} at its published widths, {E1_LAYERS} layers "
+        f"({n_bytes / 1e9:.3f} GB float32, made on the CPU and copied in {setup_s:.1f} s): "
+        f"card vs CPU, B={E1_B} prompt {E1_P}: float32 (TF32 off) prefill rel err "
+        f"{out['float32']['prefill_rel_err']:.3e}, decode {out['float32']['decode_rel_err']:.3e}, "
+        f"{E1_NEW} greedy tokens identical; bf16 prefill {out['bfloat16']['prefill_rel_err']:.3e}, "
+        f"{E1_FORCED} teacher-forced decode steps {out['bfloat16']['decode_rel_err']:.3e}")
+    return out
+
+
+def lm_step_times(engine, prompts, n_new: int, reps: int = 3) -> dict:
+    """The engine's prefill of ``prompts`` and its decode step (decode, argmax,
+    the token to the host, as ``generate`` takes it) in ms, host clock ended
+    by a synchronize; medians of ``reps``."""
+    B, P = prompts.shape
+    dev = engine.device
+    tokens = torch.as_tensor(prompts, device=dev)
+    pf, dec = [], []
+    with torch.inference_mode():
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, logits = engine.model.prefill(engine.params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cache = engine._seed_cache(cache, B, P + n_new, P)
+            cur = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            t2 = time.perf_counter()
+            for t in range(P, P + n_new - 1):
+                step = torch.as_tensor(cur[:, None].astype(np.int32), device=dev)
+                logits, cache = engine.model.decode(engine.params, cache, step, t)
+                cur = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            t3 = time.perf_counter()
+            pf.append((t1 - t0) * 1e3)
+            dec.append((t3 - t2) * 1e3 / (n_new - 1))
+            del cache, logits
+    return dict(prefill_ms=float(np.median(pf)), decode_ms_per_token=float(np.median(dec)),
+                prefill_ms_runs=pf, decode_ms_runs=dec)
+
+
+def lm_bounds(cfg, B: int, P: int, n_new: int) -> dict:
+    """The least time (ms) the card could take for the engine's prefill of a
+    (B, P) batch and for one of its decode steps.  Prefill: the products'
+    operations (2 per multiply-add: every layer weight on B·P tokens, the
+    unembedding on the B last tokens, causal attention's QK and PV) over the
+    bf16 tensor-core peak.  Decode: the bytes one step moves over the memory
+    rate: each weight read in float32 and its bf16 cast written and read
+    again (8 bytes a parameter), and the float32 KV cache read with its bf16
+    cast written and read (8 bytes an element, the whole P + new slots)."""
+    d, V, L, hd = cfg.d_model, cfg.vocab, cfg.n_layers, cfg.hd
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    w_layer = d * hd * (hq + 2 * hkv) + hq * hd * d + 3 * d * cfg.d_ff
+    flops = (2 * B * P * L * w_layer + 2 * B * d * V + 2 * B * L * hq * hd * P * (P + 1))
+    w_step = L * (w_layer + 2 * d) + d * V + d + B * d
+    kv = 2 * L * B * (P + n_new) * hkv * hd
+    dec_bytes = 8 * w_step + 8 * kv
+    return dict(prefill_flops=flops, prefill_bound_ms=flops / BF16_TENSOR_OPS_PER_S * 1e3,
+                prefill_bound_by="operations", decode_bytes=dec_bytes,
+                decode_bound_ms=dec_bytes / HBM_BYTES_PER_S * 1e3, decode_bound_by="bytes")
+
+
+def lm_serve_round(router, ticks: list, rng, cfg) -> dict:
+    """One round of e2's traffic through ``router.serve``: every request
+    completes exactly once, with its prompt in front and every token in the
+    vocabulary.  Returns the requests, the serve wall time and the launches."""
+    reqs = []
+    for k, plen in enumerate(E2_PROMPTS):
+        for _ in range(E2_PER_TENANT):
+            r = Request(f"tenant{k}", rng.integers(2, cfg.vocab, plen).astype(np.int32), E2_NEW)
+            check(router.submit(r), "the router refused a request")
+            reqs.append(r)
+    n_ticks = len(ticks)
+    before = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = router.serve()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    rids = sorted(r.rid for r in reqs)
+    check(sorted(done) == rids, f"{len(done)} of {len(reqs)} requests completed")
+    check(sorted(rid for tk in ticks[n_ticks:] for rid in tk["rids"]) == rids,
+          "a request was dispatched twice or never")
+    for r in reqs:
+        got, plen = done[r.rid], r.prompt.shape[0]
+        check(got.shape == (plen + E2_NEW,) and np.array_equal(got[:plen], r.prompt),
+              f"request {r.rid}: {got.shape}, prompt not in front")
+        check(got.min() >= 0 and got.max() < cfg.vocab, f"request {r.rid}: token out of range")
+    return dict(reqs=reqs, serve_s=serve_s, tokens_per_s=len(reqs) * E2_NEW / serve_s,
+                launches={k: ops.LAUNCHES[k] - before[k] for k in before})
+
+
+def lm_router(device) -> dict:
+    """Phase e2: granite-3-8b as published (40 layers), weights made on the
+    card from a ``torch.Generator`` there and shared by two engines (profiles
+    serve and baseline) behind ``Router(device="cuda", max_batch=4)``; two
+    tenants send 4 requests each (prompts of 512 and 256 tokens, 32 new
+    tokens), twice (the first round meets cold engines).  Every request
+    completes once with its prompt in front and tokens in the vocabulary,
+    the ticks launch ``ceft_relax``, and the same
+    batch through one engine twice gives the same tokens.  Then the engine's
+    prefill and decode step are timed at (4, 512) beside their bounds."""
+    cfg = configs.get(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = build(cfg).init(torch.Generator(device).manual_seed(LM_SEED), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == cfg.n_params() + cfg.d_model * (2 * cfg.n_layers + 1),
+          f"{n_params} parameters, not {cfg.n_params()} and the norms")
+    profiles = ("serve", "baseline")
+    engines = [Engine(cfg, params=params, profile=p, device=device) for p in profiles]
+    check(all(e.params is params for e in engines), "the engines copied the parameters")
+    router = Router([EngineSlot(f"{LM_ARCH}:{p}#{i}", e, p)
+                     for i, (e, p) in enumerate(zip(engines, profiles))],
+                    device=device, max_batch=E2_BATCH)
+    ticks, dispatches, run = watch_ticks(router), [], router.run_dispatch
+
+    def timed_dispatch(d):
+        t = time.perf_counter()
+        res = run(d)
+        dispatches.append((d.engine, len(d.requests), int(d.requests[0].prompt.shape[0]),
+                           round(time.perf_counter() - t, 4)))
+        return res
+
+    router.run_dispatch = timed_dispatch
+    rng = np.random.default_rng(LM_SEED)
+    rounds = [lm_serve_round(router, ticks, rng, cfg) for _ in range(E2_ROUNDS)]
+    launched = {k: sum(r["launches"][k] for r in rounds) for k in ops.LAUNCHES}
+    check(launched["ceft_relax"] >= 1, f"the router's ticks launched no ceft_relax: {launched}")
+    reqs = rounds[0]["reqs"]
+
+    batch = np.stack([r.prompt for r in reqs[:E2_BATCH]])         # (4, 512)
+    scfg = ServeConfig(max_new_tokens=E2_NEW)
+    t = time.perf_counter()
+    first = engines[0].generate(batch, scfg)
+    generate_s = time.perf_counter() - t
+    check(np.array_equal(first, engines[0].generate(batch, scfg)),
+          "the same batch through one engine twice gave other tokens")
+    steps = lm_step_times(engines[0], batch, E2_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    bounds = lm_bounds(cfg, *batch.shape, E2_NEW)
+    card = smi("name,power.limit")
+    out = dict(
+        arch=LM_ARCH, layers=cfg.n_layers, params=n_params, init_s=init_s,
+        requests_per_round=len(reqs), serve_s=[r["serve_s"] for r in rounds],
+        tokens_per_s=[r["tokens_per_s"] for r in rounds],
+        generate_4x512_s=generate_s, generate_tokens_per_s=E2_BATCH * E2_NEW / generate_s,
+        **steps, **bounds, max_memory_allocated=peak,
+        ticks=[dict(ms=tk["ms"], ceft_relax=tk["launches"]["ceft_relax"],
+                    dispatched=len(tk["rids"])) for tk in ticks],
+        dispatches=dispatches, launches=launched, path=str(router.last_plan.path),
+        card=card)
+    del engines, router, params
+    torch.cuda.empty_cache()
+    log(f"phase e2: {LM_ARCH} as published ({cfg.n_layers} layers, {n_params} parameters, "
+        f"made on the card in {init_s:.1f} s), 2 engines sharing them behind "
+        f"Router(device='cuda', max_batch={E2_BATCH}): {E2_ROUNDS} rounds of {len(reqs)} "
+        f"requests, each exactly once, in {out['serve_s']} s ({out['tokens_per_s']} tokens/s; "
+        f"the first round is cold), ticks "
+        f"{[(round(tk['ms'], 3), tk['ceft_relax']) for tk in out['ticks']]} (ms, ceft_relax "
+        f"launches), dispatches {dispatches} (engine, requests, prompt, s), launches "
+        f"{launched}; card {card}")
+    log(f"phase e2: (4, 512) prefill {steps['prefill_ms']:.3f} ms (bound "
+        f"{bounds['prefill_bound_ms']:.3f} ms, operations), decode "
+        f"{steps['decode_ms_per_token']:.3f} ms a token (bound {bounds['decode_bound_ms']:.3f} "
+        f"ms, bytes), generate {generate_s:.3f} s ({out['generate_tokens_per_s']:.2f} tokens/s), "
+        f"peak memory {peak / 2**30:.3f} GiB; card {card}")
+    print(json.dumps({"lm_serving": out}), flush=True)
+    return out
+
+
+def lm_path(device) -> dict:
+    """Phase e: the LM serving path (e1, then e2)."""
+    return dict(e1=lm_card_vs_cpu(device), e2=lm_router(device))
 
 
 def bound(nbytes: int, n_ops: int, dtype=torch.float32) -> tuple[float, str]:
@@ -1061,6 +1323,7 @@ def main() -> int:
           f"a standalone kernel never launched: {by_path['run_tables']} {by_path['minplus']}")
     _, by_path["router"] = counted(router_path, device)
     _, by_path["chaos"] = counted(chaos_soak, device)
+    _, by_path["lm_serving"] = counted(lm_path, device)
     log(f"launches by path: {by_path}")
 
     ops.reset_launches()

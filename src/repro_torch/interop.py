@@ -1,14 +1,16 @@
 """Carrying state across from the reference package.
 
-The planner has no weights: its state is the task graph, the machine and the
-cost plane.  :func:`from_reference_arrays` turns the reference package's
-objects into this package's, reading their fields by attribute as numpy
-arrays, so both packages can compute on the same inputs without this package
-importing the reference.
+The planner's state is the task graph, the machine and the cost plane:
+:func:`from_reference_arrays` turns the reference package's objects into this
+package's, reading their fields by attribute as numpy arrays.  The models'
+state is a parameter tree: :func:`params_from_reference` turns the
+reference's (nested dicts of numpy arrays) into tensors.  Both packages then
+compute on the same inputs without this package importing the reference.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.machine import Machine
 from .core.taskgraph import TaskGraph
@@ -31,3 +33,20 @@ def from_reference_arrays(graph=None, machine=None, comp=None):
                     counts=np.array(machine.counts))
     c = None if comp is None else np.array(comp)
     return g, m, c
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a)                  # a writable copy, whatever the source
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_reference(tree, device) -> dict:
+    """A parameter (or cache) tree of this package from the reference's:
+    nested dicts of arrays (``np.asarray`` of ``Model.init``'s leaves) to
+    nested dicts of tensors on ``device``, with the same keys, shapes, dtypes
+    and values."""
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)

@@ -1,0 +1,251 @@
+"""Model substrate plumbing: spec-first parameters and the sharding-profile
+registry.
+
+Spec-first parameters: model builders return a *tree of PSpec* (shape +
+logical axis names + init kind).  The tree is materialized two ways:
+  * ``init_params``      -> real tensors on a device, from a ``torch.Generator``
+  * ``abstract_params``  -> tensors on the ``meta`` device (no bytes)
+
+The profile registry names the reference's logical -> mesh rule tables.  This
+package runs on one card and has no mesh yet, so a profile only labels an
+engine (the router's pool validates profile names against
+:func:`profile_names`); the rules are kept so the tables stay one source of
+truth when sharding arrives.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import math
+from types import MappingProxyType
+from typing import Any, Callable, Iterator, Mapping
+
+import torch
+
+# logical axis name -> preferred mesh axes (applied greedily, outermost first).
+# The baseline table; profile overlays never mutate it.
+LOGICAL_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "seq": ("model",),
+    "cache_seq": ("model",),
+    "cache_hd": (),
+    "cache_batch": ("pod", "data"),
+    "tile_q": ("model",),
+    "vocab": ("model",),
+    "heads": ("model",),
+    "qkv": ("model",),
+    "ffn": ("model",),
+    "experts": ("model",),
+    "embed": ("data",),
+    "embed_d": ("data",),
+    "ssm_inner": ("model",),
+    "layers": (),
+    "state": (),
+    "none": (),
+}
+
+# Sharding profiles:
+#  baseline : FSDP everywhere, decode-SP caches
+#  opt1     : baseline minus FSDP on the (un)embedding tables
+#  moe_ep   : a true expert axis for MoE archs whose expert count does not
+#             divide the model axis
+#  serve    : inference layout -- 2D tensor parallelism on weights, decode
+#             activations replicated over the data axis
+PROFILES: dict[str, dict[str, tuple[str, ...]]] = {
+    "baseline": {},
+    "opt1": {"embed_d": ()},
+    "moe_ep": {
+        "experts": ("expert",),
+        "heads": ("expert", "tp"),
+        "qkv": ("expert", "tp"),
+        "ffn": ("tp",),
+        "vocab": ("expert", "tp"),
+        "seq": ("expert", "tp"),
+        "cache_seq": ("expert", "tp"),
+        "ssm_inner": ("expert", "tp"),
+        "tile_q": ("expert", "tp"),
+        "embed_d": (),
+    },
+    "serve": {
+        "batch": (),
+        "seq": (),
+        "embed_d": (),
+        "embed": (),
+        "qkv": ("model", "data"),
+        "ffn": ("model", "data"),
+        "vocab": ("model", "data"),
+        "ssm_inner": ("model", "data"),
+    },
+}
+
+
+def profile_names() -> list[str]:
+    """Registry-derived profile names, the single source of truth for CLI
+    ``--profile`` / ``--pool`` choices."""
+    return sorted(PROFILES)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingProfile:
+    """An immutable, fully-resolved logical->mesh rules table (the baseline
+    rules with the named overlay applied)."""
+    name: str
+    rules: Mapping[str, tuple[str, ...]]
+
+    def rule(self, logical: str) -> tuple[str, ...]:
+        return self.rules.get(logical, ())
+
+
+_PROFILE_CACHE: dict[str, ShardingProfile] = {}
+
+
+def resolve_profile(profile: str | ShardingProfile) -> ShardingProfile:
+    """Name or profile -> ShardingProfile; an unknown name raises KeyError
+    before any state changes."""
+    if isinstance(profile, ShardingProfile):
+        return profile
+    if profile not in _PROFILE_CACHE:
+        if profile not in PROFILES:
+            raise KeyError(
+                f"unknown sharding profile {profile!r}; known: {sorted(PROFILES)}")
+        _PROFILE_CACHE[profile] = ShardingProfile(
+            profile, MappingProxyType({**LOGICAL_RULES, **PROFILES[profile]}))
+    return _PROFILE_CACHE[profile]
+
+
+# contextvars give per-thread AND per-async-task scoping
+_ACTIVE_PROFILE: contextvars.ContextVar[ShardingProfile | None] = \
+    contextvars.ContextVar("repro_torch_sharding_profile", default=None)
+
+
+def active_profile() -> ShardingProfile:
+    """The innermost ``sharding_profile`` block's profile on this thread or
+    task, else baseline."""
+    prof = _ACTIVE_PROFILE.get()
+    return prof if prof is not None else resolve_profile("baseline")
+
+
+@contextlib.contextmanager
+def sharding_profile(profile: str | ShardingProfile) -> Iterator[ShardingProfile]:
+    """Scoped profile selection; nesting replaces, exiting restores the
+    enclosing profile even when the body raises."""
+    prof = resolve_profile(profile)  # validate before touching any state
+    token = _ACTIVE_PROFILE.set(prof)
+    try:
+        yield prof
+    finally:
+        _ACTIVE_PROFILE.reset(token)
+
+
+# ------------------------------------------------------------------ spec tree
+@dataclasses.dataclass(frozen=True)
+class PSpec:
+    """One parameter leaf: shape + logical axes + initializer."""
+    shape: tuple[int, ...]
+    logical: tuple[str, ...]
+    init: str = "fan_in"      # fan_in | zeros | ones | embed | a_log | dt_bias
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} and logical axes {self.logical} "
+                             "differ in length")
+
+
+def is_pspec(x) -> bool:
+    return isinstance(x, PSpec)
+
+
+def tree_map_pspec(fn: Callable[[str, PSpec], Any], tree, path: str = "") -> Any:
+    if is_pspec(tree):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_pspec(fn, v, f"{path}/{k}") for k, v in tree.items()}
+    raise TypeError(type(tree))
+
+
+def torch_dtype(name: str | torch.dtype) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16`` (a torch dtype passes through)."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+_RANDOM_KINDS = ("fan_in", "embed", "a_log", "dt_bias")
+
+
+def _initialize(gen: torch.Generator | None, p: PSpec, dtype: torch.dtype,
+                device) -> torch.Tensor:
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dtype, device=device)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device, generator=gen)
+    if p.init == "a_log":  # mamba2: A ~ U[1,16], stored as log
+        return torch.rand(p.shape, **f32).mul_(15.0).add_(1.0).log_().to(dtype)
+    if p.init == "dt_bias":  # mamba2: softplus^-1 of dt ~ logU[1e-3, 1e-1]
+        u = torch.rand(p.shape, **f32)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    if p.init == "embed":
+        return torch.randn(p.shape, **f32).mul_(0.02).to(dtype)
+    # fan_in: normal with 1/sqrt(fan_in); fan-in = first axis that is not a
+    # stacking ("layers") axis
+    fan = 1
+    for s, l in zip(p.shape, p.logical):
+        if l != "layers":
+            fan = s
+            break
+    return torch.randn(p.shape, **f32).mul_(1.0 / math.sqrt(max(fan, 1))).to(dtype)
+
+
+def init_params(spec_tree, generator: torch.Generator | None, device,
+                param_dtype=torch.float32):
+    """Materialize real parameters on ``device``.
+
+    One 62-bit base seed is drawn from ``generator``; the leaf at sorted path
+    index i then draws from its own generator on ``device`` seeded from
+    (base, i), so a leaf's values do not depend on which other leaves exist
+    or on the order they are made in.  The bits differ from the reference's
+    ``jax.random`` (tests carry the reference's arrays across instead).  A
+    tree of ``zeros``/``ones`` leaves (a decode cache) needs no generator."""
+    dtype = torch_dtype(param_dtype)
+    leaves: list[tuple[str, PSpec]] = []
+    tree_map_pspec(lambda path, p: leaves.append((path, p)), spec_tree)
+    idx = {path: i for i, path in enumerate(sorted(path for path, _ in leaves))}
+    base = None
+    if any(p.init in _RANDOM_KINDS for _, p in leaves):
+        if generator is None:
+            raise ValueError("random initializers need a torch.Generator")
+        base = int(torch.randint(1 << 62, (), generator=generator,
+                                 device=generator.device).item())
+
+    def make(path, p):
+        gen = None
+        if p.init in _RANDOM_KINDS:
+            gen = torch.Generator(device=device)
+            gen.manual_seed((base * 1_000_003 + idx[path]) % (1 << 63))
+        return _initialize(gen, p, dtype, device)
+
+    return tree_map_pspec(make, spec_tree)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested-dict tree, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_to(tree, device):
+    """The same tree with every tensor moved to ``device`` (a copy per leaf
+    unless it is there already)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def abstract_params(spec_tree, param_dtype=torch.float32):
+    """Stand-ins on the ``meta`` device: shapes and dtypes, no allocation."""
+    dtype = torch_dtype(param_dtype)
+    return tree_map_pspec(
+        lambda _, p: torch.empty(p.shape, dtype=dtype, device="meta"), spec_tree)

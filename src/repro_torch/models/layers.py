@@ -1,0 +1,236 @@
+"""Model layers in plain PyTorch: norms, RoPE / M-RoPE, memory-linear
+attention (online-softmax chunking), GQA/SWA, decode-step attention, MLPs.
+
+The reference computes all of these outside any Pallas kernel, so they stay
+plain tensor code here, with the reference's own numerics: float32 norms and
+softmax statistics, parameters cast to the compute type at each product.
+
+Layout conventions:
+  activations x : (B, S, D)
+  q heads       : (B, Hkv, G, S, hd)  with G = Hq // Hkv (GQA groups)
+  kv            : (B, S, Hkv, hd)     (cache layout: seq second)
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from .common import PSpec
+
+NEG_INF = -1e30
+
+
+# ------------------------------------------------------------------------ norms
+def rmsnorm_spec(d: int) -> PSpec:
+    return PSpec((d,), ("none",), init="ones")
+
+
+def rmsnorm(w, x, eps: float = 1e-5):
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * w).to(x.dtype)
+
+
+# ------------------------------------------------------------------------- RoPE
+def _rope_angles(positions, n_freq: int, theta: float):
+    """positions (..., S) -> cos/sin (..., S, n_freq)."""
+    ar = torch.arange(0, n_freq, dtype=torch.float32, device=positions.device)
+    inv = theta ** (-ar / n_freq)
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope_cos_sin(cfg: ArchConfig, positions):
+    """positions: (B, S) int, or (3, B, S) for M-RoPE.
+
+    M-RoPE (Qwen2-VL): the head_dim/2 frequencies are split into
+    (temporal, h, w) sections, each rotated by its own position id.
+    """
+    half = cfg.hd // 2
+    if cfg.mrope:
+        if positions.ndim != 3:
+            raise ValueError("M-RoPE wants (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        secs = cfg.mrope_sections
+        if sum(secs) != half:
+            raise ValueError(f"M-RoPE sections {secs} do not sum to {half}")
+        # per-frequency position: frequencies [0:t) use temporal ids, etc.
+        rep = torch.repeat_interleave(torch.arange(3, device=positions.device),
+                                      torch.tensor(secs, device=positions.device))
+        pos = positions[rep].movedim(0, -1)               # (B, S, half)
+        ar = torch.arange(0, half, dtype=torch.float32, device=positions.device)
+        inv = cfg.rope_theta ** (-ar / half)
+        ang = pos.float() * inv
+        return torch.cos(ang), torch.sin(ang)
+    return _rope_angles(positions, half, cfg.rope_theta)  # (B, S, half)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, hd); cos/sin: (B, S, hd/2) (split-half convention)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# -------------------------------------------------------------------- attention
+def attn_specs(cfg: ArchConfig) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {
+        "wq": PSpec((d, hq * hd), ("embed", "qkv")),
+        "wk": PSpec((d, hkv * hd), ("embed", "qkv")),
+        "wv": PSpec((d, hkv * hd), ("embed", "qkv")),
+        "wo": PSpec((hq * hd, d), ("qkv", "embed")),
+    }
+
+
+def qkv_proj(p, x, cfg: ArchConfig, cos_sin=None):
+    """x (B,S,D) -> q (B,S,Hq,hd), k,v (B,S,Hkv,hd), RoPE applied."""
+    B, S, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, hq, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, hkv, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, hkv, hd)
+    if cos_sin is not None:
+        cos, sin = cos_sin
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def chunked_attention(
+    q, k, v, *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    kv_len: Optional[int] = None,
+    q_chunk: int = 512,
+    k_chunk: int = 1024,
+):
+    """Flash-style online-softmax attention: O(S) memory.
+
+    q: (B, Hkv, G, Sq, hd); k, v: (B, Sk, Hkv, hd).
+    kv_len: number of valid keys (<= Sk) for padded caches.
+    Never materializes (Sq, Sk); the working set is (qc, kc) score tiles.
+    The reference's scheme step for step: scores in the input type scaled
+    there, then float32; masked entries set to NEG_INF; float32 running max
+    and sum; probabilities cast to the value type for the PV product; the
+    sum clamped at 1e-20.
+    """
+    B, Hk, G, Sq, hd = q.shape
+    Sk = k.shape[1]
+    kv_len = Sk if kv_len is None else kv_len
+    qc = min(q_chunk, Sq)
+    kc = min(k_chunk, Sk)
+    pad_q = (-Sq) % qc
+    pad_k = (-Sk) % kc
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = (Sq + pad_q) // qc, (Sk + pad_k) // kc
+    scale = 1.0 / math.sqrt(hd)
+    kT = k.permute(0, 2, 3, 1)[:, :, None]  # (B, Hkv, 1, hd, Skp)
+    vT = v.permute(0, 2, 1, 3)[:, :, None]  # (B, Hkv, 1, Skp, hd)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qb = q[:, :, :, qi * qc:(qi + 1) * qc]
+        qpos = q_offset + qi * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, Hk, G, qc), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, Hk, G, qc), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Hk, G, qc, hd), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            kb = kT[..., ki * kc:(ki + 1) * kc]
+            vb = vT[:, :, :, ki * kc:(ki + 1) * kc]
+            s = (qb @ kb) * scale
+            s = s.float()
+            kpos = ki * kc + torch.arange(kc, device=dev)
+            mask = (kpos[None, :] < kv_len).expand(qc, kc)
+            if causal:
+                mask = mask & (kpos[None, :] <= qpos[:, None])
+            if window:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            s = torch.where(mask, s, NEG_INF)
+            m2 = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m2)
+            pexp = torch.exp(s - m2[..., None])
+            l = l * alpha + pexp.sum(dim=-1)
+            acc = acc * alpha[..., None] + (pexp.to(vb.dtype) @ vb).float()
+            m = m2
+        outs.append((acc / torch.clamp(l, min=1e-20)[..., None]).to(q.dtype))
+    out = torch.cat(outs, dim=3)
+    return out[:, :, :, :Sq]
+
+
+def attn_prefill(p, x, cfg: ArchConfig, cos_sin, *, window: int = 0, causal=True):
+    """Full-sequence attention; returns (out, (k, v)) for cache seeding."""
+    B, S, D = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = qkv_proj(p, x, cfg, cos_sin)
+    qh = q.reshape(B, S, hkv, hq // hkv, hd).movedim(1, 3)  # (B,Hkv,G,S,hd)
+    out = chunked_attention(qh, k, v, causal=causal, window=window)
+    out = out.movedim(3, 1).reshape(B, S, hq * hd)
+    out = out @ p["wo"].to(x.dtype)
+    return out, (k, v)
+
+
+def attn_decode(p, x, cfg: ArchConfig, cache, pos: int, cos_sin, *, window: int = 0):
+    """One-token step: write the cache at pos (ring slot for SWA), attend.
+
+    x: (B, 1, D); cache: dict(k=(B, Sc, Hkv, hd), v=...); pos: int, below
+    Sc unless ``window`` (the engine never decodes past its cache).  The
+    cache is written IN PLACE (the reference returns an updated copy); the
+    returned dict holds the same tensors."""
+    B, _, D = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = qkv_proj(p, x, cfg, cos_sin)
+    ck, cv = cache["k"], cache["v"]
+    Sc = ck.shape[1]
+    slot = pos % Sc if window > 0 else pos
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    qh = q.reshape(B, 1, hkv, hq // hkv, hd).movedim(1, 3)  # (B,Hkv,G,1,hd)
+    scale = 1.0 / math.sqrt(hd)
+    kT = ck.to(qh.dtype).permute(0, 2, 3, 1)[:, :, None]    # (B,Hkv,1,hd,Sc)
+    s = (qh @ kT) * scale
+    s = s.float()
+    idx = torch.arange(Sc, device=x.device)
+    valid = idx < min(pos + 1, Sc) if window > 0 else idx <= pos
+    s = torch.where(valid, s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    vh = cv.to(x.dtype).permute(0, 2, 1, 3)[:, :, None]     # (B,Hkv,1,Sc,hd)
+    out = w @ vh
+    out = out.movedim(3, 1).reshape(B, 1, hq * hd)
+    out = out @ p["wo"].to(x.dtype)
+    return out, {"k": ck, "v": cv}
+
+
+# ------------------------------------------------------------------------- MLPs
+def mlp_specs(cfg: ArchConfig, d_ff: int | None = None) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_style == "swiglu":
+        return {
+            "wg": PSpec((d, ff), ("embed", "ffn")),
+            "wu": PSpec((d, ff), ("embed", "ffn")),
+            "wd": PSpec((ff, d), ("ffn", "embed")),
+        }
+    return {
+        "w1": PSpec((d, ff), ("embed", "ffn")),
+        "w2": PSpec((ff, d), ("ffn", "embed")),
+    }
+
+
+def mlp(p, x, cfg: ArchConfig):
+    if cfg.mlp_style == "swiglu":
+        h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wu"].to(x.dtype))
+        return h @ p["wd"].to(x.dtype)
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(x @ p["w1"].to(x.dtype), approximate="tanh")
+    return h @ p["w2"].to(x.dtype)

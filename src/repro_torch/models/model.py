@@ -1,0 +1,52 @@
+"""Model facade: one object per architecture exposing spec trees, init and
+the prefill/decode functions."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..configs.base import ArchConfig
+from . import transformer
+from .common import abstract_params, init_params, torch_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+
+    def specs(self):
+        return transformer.model_specs(self.cfg)
+
+    def init(self, generator: torch.Generator, device):
+        return init_params(self.specs(), generator, device,
+                           torch_dtype(self.cfg.param_dtype))
+
+    def abstract(self):
+        return abstract_params(self.specs(), torch_dtype(self.cfg.param_dtype))
+
+    def cache_specs(self, batch: int, seq: int):
+        return transformer.cache_specs(self.cfg, batch, seq)
+
+    def prefill(self, params, batch):
+        """Returns (per-layer cache stacked over periods, last-token logits)."""
+        hidden, _, cache = transformer.forward_full(
+            params, self.cfg,
+            tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"),
+            positions=batch.get("positions"),
+            want_cache=True,
+        )
+        return cache, transformer.unembed(params, self.cfg, hidden[:, -1:])
+
+    def decode(self, params, cache, tokens, pos: int, positions=None):
+        """One token at position ``pos``; the cache is written in place."""
+        return transformer.decode_step(params, self.cfg, cache, tokens=tokens,
+                                       pos=pos, positions=positions)
+
+
+def build(cfg: ArchConfig) -> Model:
+    """The model for ``cfg``; raises NotImplementedError for the SSM and
+    encoder-decoder families, which are not ported yet."""
+    transformer.check_supported(cfg)
+    return Model(cfg)

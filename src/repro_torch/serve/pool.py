@@ -121,6 +121,14 @@ def null_engine_factory():
     return _Null()
 
 
+def smoke_engine_factory(arch: str, profile: str, device="cuda"):
+    """A real smoke-scale :class:`Engine` (built inside the worker, in the
+    child for subprocess workers); on the card unless ``device="cpu"``."""
+    from .. import configs as C
+    from .engine import Engine
+    return Engine(C.get(arch, smoke=True), profile=profile, device=device)
+
+
 # ----------------------------------------------------------------- transport
 # Sanity cap on one frame: a corrupt header decodes to a random 64-bit
 # length; without the cap the reader blocks trying to consume exabytes (a

@@ -391,3 +391,28 @@ def test_minplus_kernel_probe(cuda, kind, dtype):
     rounded once."""
     a, b = (x.to(getattr(torch, dtype)) for x in _t(probes.minplus_probe(kind, 57), cuda))
     assert probes.equal_nan(ops.minplus(a, b), minplus_plain(a, b))
+
+
+# ------------------------------------------------------------ the LM engine
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,P", [("granite-3-8b", 24), ("minicpm-2b", 16),
+                                    ("mixtral-8x22b", 40), ("glm4-9b", 8)])
+def test_engine_on_the_card_matches_the_cpu(cuda, arch, P):
+    """A smoke engine on the card against the same engine (the same weights,
+    made on the CPU) on the CPU: float32 compute with TF32 off, identical
+    greedy tokens; mixtral's 40-token prompt takes the SWA ring."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.common import tree_to
+    from repro_torch.serve import Engine, ServeConfig
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(configs.get(arch, smoke=True), compute_dtype="float32")
+    cpu = Engine(cfg, seed=0, device="cpu")
+    card = Engine(cfg, params=tree_to(cpu.params, cuda), device=cuda)
+    prompts = np.random.default_rng(P).integers(2, cfg.vocab, (3, P)).astype(np.int32)
+    scfg = ServeConfig(max_new_tokens=16)
+    got = card.generate(prompts, scfg)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, cpu.generate(prompts, scfg))

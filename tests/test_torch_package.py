@@ -21,7 +21,13 @@ def test_import_loads_no_jax_and_no_reference():
                 "repro_torch.sched.deadlines", "repro_torch.serve.router",
                 "repro_torch.serve.pool", "repro_torch.serve.faults",
                 "repro_torch.substrate.compat",
-                "repro_torch.interop", "repro_torch.graphs.rgg"} <= set(names), names
+                "repro_torch.interop", "repro_torch.graphs.rgg",
+                "repro_torch.configs", "repro_torch.configs.granite_3_8b",
+                "repro_torch.models", "repro_torch.models.common",
+                "repro_torch.models.layers", "repro_torch.models.moe",
+                "repro_torch.models.transformer", "repro_torch.models.model",
+                "repro_torch.serve.engine", "repro_torch.launch",
+                "repro_torch.launch.serve"} <= set(names), names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
@@ -37,7 +43,9 @@ def test_cuda_default_raises_without_cuda():
         pytest.skip("a CUDA device is present")
     from repro_torch.core import ceft_torch as ct
     from repro_torch.core import from_edges, uniform_machine
+    from repro_torch.configs import get
     from repro_torch.sched import PlanCache, StragglerMonitor
+    from repro_torch.serve import Engine, smoke_engine_factory
 
     g = from_edges(3, [(0, 2, 1.0), (1, 2, 1.0)])
     comp = np.ones((3, 2))
@@ -51,8 +59,26 @@ def test_cuda_default_raises_without_cuda():
         lambda: ct.plan_request_dags(3, src, dst, data, comp[None], m.L[None], m.bw[None]),
         lambda: PlanCache(),
         lambda: StragglerMonitor(2),
+        lambda: Engine(get("granite-3-8b", smoke=True)),
+        lambda: smoke_engine_factory("granite-3-8b", "serve"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert ct.ceft_torch_csr(g, comp, m, device="cpu").cpl == 2.0
+
+
+def test_launcher_defaults_to_the_card():
+    """``python -m repro_torch.launch.serve`` without ``--device`` raises on a
+    machine without CUDA rather than serving on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import os
+    import subprocess
+    import sys
+
+    from conftest import REPO
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--max-new", "1"],
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr, r.stderr
