@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's CEFT planning path, its serving router and its LM engine
+"""Drive the port's CEFT planning path, its serving router and its LM engines
 on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
@@ -55,6 +55,18 @@ Phases (any failure exits non-zero; nothing is caught):
      exactly once with its prompt in front, the ticks launching
      ``ceft_relax``, one engine deterministic on a batch; then prefill and
      decode-step times, tokens/s and peak memory beside their bounds;
+  f. the SSM serving path at mamba2-2.7b's published widths: f1, at 2 of its
+     64 layers, the engine on the card against the same weights on the CPU
+     at prompts of one whole SSM chunk (64) and a padded one (100), held as
+     in e1; f2, all 64 layers (2.70 B parameters made on the card; the
+     count checked against ``n_params()`` plus each spec leaf it leaves out,
+     named), e2's router, traffic and checks, then prefill and decode-step
+     times beside their bounds (the decode bytes count the float32 SSM
+     state and conv history); f3, jamba at smoke size through
+     ``Engine.generate`` (identical tokens) and whisper-tiny as published
+     (4 + 4 layers, 1500 zero frames) through ``Model.prefill`` and 8
+     teacher-forced ``Model.decode`` steps (logits within 1e-4), card
+     against CPU in float32 with TF32 off;
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -74,6 +86,7 @@ times the superstep and ``minplus`` of another tree (``OTHER_SRC`` is its
 from __future__ import annotations
 
 import dataclasses
+import gc
 import importlib.util
 import itertools
 import json
@@ -99,7 +112,7 @@ from repro_torch.kernels.edge_relax import edge_relax_plain, seg_level_plain  # 
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
 from repro_torch.models import build  # noqa: E402
-from repro_torch.models.common import tree_leaves, tree_to  # noqa: E402
+from repro_torch.models.common import init_params, tree_leaves, tree_to  # noqa: E402
 from repro_torch.sched import PlanCache, StragglerMonitor, plancache  # noqa: E402
 from repro_torch.serve import (Engine, EnginePool, EngineSlot, Request, Router,  # noqa: E402
                                ServeConfig,
@@ -161,6 +174,12 @@ POOL_P, POOL_CLASSES, POOL_NEW, POOL_PER_CLASS, POOL_ROUNDS = 8, 6, 8, 32, 4
 LM_ARCH, LM_SEED = "granite-3-8b", 0
 E1_LAYERS, E1_B, E1_P, E1_NEW, E1_FORCED = 2, 2, 64, 16, 8
 E2_PROMPTS, E2_PER_TENANT, E2_NEW, E2_BATCH, E2_ROUNDS = (512, 256), 4, 32, 4, 2
+# phase f: the SSM serving path at mamba2-2.7b's published widths; f1 at 2 of
+# its 64 layers (prompts of one whole chunk and of a padded one), f2 as
+# published behind the router with e2's traffic; f3 jamba at smoke size and
+# whisper-tiny as published (prompt, teacher-forced decode steps)
+SSM_ARCH, F1_LAYERS, F1_PROMPTS = "mamba2-2.7b", 2, (64, 100)
+HYBRID_ARCH, ENCDEC_ARCH, F3_P, F3_STEPS = "jamba-v0.1-52b", "whisper-tiny", 16, 8
 # the tensor cores' dense bf16 peak (the LM's products run in bf16)
 BF16_TENSOR_OPS_PER_S = 989e12
 
@@ -874,27 +893,19 @@ def forced_logits(engine, prompts, forced) -> list:
     return out
 
 
-def lm_card_vs_cpu(device) -> dict:
-    """Phase e1: granite-3-8b at its published widths and 2 of its 40 layers,
-    weights made once on the CPU from a seed and copied to the card; the card
-    against the CPU in float32 compute with TF32 off (prefill and decode
-    logits within 1e-4 relative, greedy tokens identical) and in the
-    config's bf16 (logits within 5e-2 relative, the reference's bf16
-    bound)."""
+def tf32_off() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
           "TF32 is on")
-    base = dataclasses.replace(configs.get(LM_ARCH), n_layers=E1_LAYERS)
-    t = time.perf_counter()
-    params = build(base).init(torch.Generator().manual_seed(LM_SEED), "cpu")
-    on_card = tree_to(params, device)
-    setup_s = time.perf_counter() - t
-    n_bytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
-    rng = np.random.default_rng(LM_SEED)
-    prompts = rng.integers(2, base.vocab, (E1_B, E1_P)).astype(np.int32)
-    forced = rng.integers(2, base.vocab, (E1_B, E1_FORCED)).astype(np.int32)
-    out = dict(layers=E1_LAYERS, param_bytes=n_bytes, setup_s=setup_s)
+
+
+def card_vs_cpu(base, params, on_card, prompts, forced, device) -> dict:
+    """One engine on the card against the same weights on the CPU: in
+    float32 compute (TF32 off) prefill and teacher-forced decode logits
+    within 1e-4 relative and ``E1_NEW`` greedy tokens identical; in bf16
+    the logits within 5e-2 relative (the reference's bf16 bound)."""
+    out = {}
     for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2)):
         cfg = dataclasses.replace(base, compute_dtype=dtype)
         cpu = Engine(cfg, params=params, device="cpu")
@@ -904,11 +915,34 @@ def lm_card_vs_cpu(device) -> dict:
         check(max(errs) < tol, f"{dtype}: card logits off the CPU's by {errs} (bound {tol})")
         out[dtype] = dict(prefill_rel_err=errs[0], decode_rel_err=max(errs[1:]), bound=tol)
         if dtype == "float32":
+            P = prompts.shape[1]
             scfg = ServeConfig(max_new_tokens=E1_NEW)
             got, want = card.generate(prompts, scfg), cpu.generate(prompts, scfg)
-            check(np.array_equal(got, want), f"greedy tokens differ: card {got[:, E1_P:]} "
-                  f"cpu {want[:, E1_P:]}")
+            check(np.array_equal(got, want), f"greedy tokens differ: card {got[:, P:]} "
+                  f"cpu {want[:, P:]}")
             out[dtype]["greedy_tokens_equal"] = int(got.size)
+    return out
+
+
+def lm_card_vs_cpu(device) -> dict:
+    """Phase e1: granite-3-8b at its published widths and 2 of its 40 layers,
+    weights made once on the CPU from a seed and copied to the card; the card
+    against the CPU in float32 compute with TF32 off (prefill and decode
+    logits within 1e-4 relative, greedy tokens identical) and in the
+    config's bf16 (logits within 5e-2 relative, the reference's bf16
+    bound)."""
+    tf32_off()
+    base = dataclasses.replace(configs.get(LM_ARCH), n_layers=E1_LAYERS)
+    t = time.perf_counter()
+    params = build(base).init(torch.Generator().manual_seed(LM_SEED), "cpu")
+    on_card = tree_to(params, device)
+    setup_s = time.perf_counter() - t
+    n_bytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    rng = np.random.default_rng(LM_SEED)
+    prompts = rng.integers(2, base.vocab, (E1_B, E1_P)).astype(np.int32)
+    forced = rng.integers(2, base.vocab, (E1_B, E1_FORCED)).astype(np.int32)
+    out = dict(layers=E1_LAYERS, param_bytes=n_bytes, setup_s=setup_s,
+               **card_vs_cpu(base, params, on_card, prompts, forced, device))
     del on_card
     torch.cuda.empty_cache()
     log(f"phase e1: {LM_ARCH} at its published widths, {E1_LAYERS} layers "
@@ -948,6 +982,54 @@ def lm_step_times(engine, prompts, n_new: int, reps: int = 3) -> dict:
             del cache, logits
     return dict(prefill_ms=float(np.median(pf)), decode_ms_per_token=float(np.median(dec)),
                 prefill_ms_runs=pf, decode_ms_runs=dec)
+
+
+def ssm_bounds(cfg, B: int, P: int, n_new: int) -> dict:
+    """The least time (ms) the card could take for an SSM engine's prefill
+    of a (B, P) batch and for one of its decode steps.  Prefill: the
+    products' operations (2 per multiply-add: the in and out projections on
+    B·P tokens; the chunked SSD's scores C·B, its intra-chunk product, its
+    chunk states and its inter-chunk output; the unembedding on the B last
+    tokens) over the dense bf16 tensor-core peak, though the SSD's state
+    products run in float32.  Decode: the bytes one step moves over the
+    memory rate: 8 bytes a parameter as for the dense stack (each weight
+    read in float32, its bf16 cast written and read; the tied embedding
+    read whole to unembed, and B of its rows gathered), and the float32 SSM
+    state and conv history, each read and written."""
+    d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
+    di, H, Ph, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    Q = min(cfg.ssm_chunk, P)
+    nc = -(-P // Q)
+    proj = 2 * B * P * (d * (2 * di + 2 * N + H) + di * d)
+    ssd = 2 * B * nc * (Q * Q * N + H * Q * Q * Ph + 2 * Q * H * Ph * N)
+    flops = L * (proj + ssd) + 2 * B * d * V
+    n_params = sum(t.numel() for t in tree_leaves(build(cfg).abstract()))
+    state = L * B * (H * Ph * N + (cfg.ssm_conv - 1) * (di + 2 * N))
+    dec_bytes = 8 * (n_params + B * d) + 2 * 4 * state
+    return dict(prefill_flops=flops, prefill_bound_ms=flops / BF16_TENSOR_OPS_PER_S * 1e3,
+                prefill_bound_by="operations", decode_bytes=dec_bytes,
+                decode_bound_ms=dec_bytes / HBM_BYTES_PER_S * 1e3, decode_bound_by="bytes")
+
+
+def beyond_n_params(cfg) -> dict:
+    """Each leaf of the spec tree that ``ArchConfig.n_params()`` leaves out,
+    by path, with its count over the stacked layers: the norms, and an SSM
+    layer's conv weight and bias, A (``a_log``), D (``d_skip``), dt bias and
+    gated norm.  ``n_params()`` counts the embeddings, attention, MLP and
+    MoE weights and the SSM's in and out projections."""
+    counted = {"embed", "unembed", "attn", "mlp", "moe", "in_proj", "out_proj"}
+    out = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if k in counted:
+                continue
+            if isinstance(v, dict):
+                walk(v, f"{path}{k}/")
+            else:
+                out[path + k] = v.numel()
+    walk(build(cfg).abstract(), "")
+    return out
 
 
 def lm_bounds(cfg, B: int, P: int, n_new: int) -> dict:
@@ -1001,29 +1083,30 @@ def lm_serve_round(router, ticks: list, rng, cfg) -> dict:
                 launches={k: ops.LAUNCHES[k] - before[k] for k in before})
 
 
-def lm_router(device) -> dict:
-    """Phase e2: granite-3-8b as published (40 layers), weights made on the
-    card from a ``torch.Generator`` there and shared by two engines (profiles
-    serve and baseline) behind ``Router(device="cuda", max_batch=4)``; two
-    tenants send 4 requests each (prompts of 512 and 256 tokens, 32 new
-    tokens), twice (the first round meets cold engines).  Every request
-    completes once with its prompt in front and tokens in the vocabulary,
-    the ticks launch ``ceft_relax``, and the same
-    batch through one engine twice gives the same tokens.  Then the engine's
-    prefill and decode step are timed at (4, 512) beside their bounds."""
-    cfg = configs.get(LM_ARCH)
+def lm_router(device, arch: str = LM_ARCH, phase: str = "e2") -> dict:
+    """Phase e2 (f2): granite-3-8b (mamba2-2.7b) as published, weights made
+    on the card from a ``torch.Generator`` there and shared by two engines
+    (profiles serve and baseline) behind ``Router(device="cuda",
+    max_batch=4)``; two tenants send 4 requests each (prompts of 512 and 256
+    tokens, 32 new tokens), twice (the first round meets cold engines).
+    Every request completes once with its prompt in front and tokens in the
+    vocabulary, the ticks launch ``ceft_relax``, and the same batch through
+    one engine twice gives the same tokens.  Then the engine's prefill and
+    decode step are timed at (4, 512) beside their bounds."""
+    cfg = configs.get(arch)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     params = build(cfg).init(torch.Generator(device).manual_seed(LM_SEED), device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     n_params = sum(p.numel() for p in tree_leaves(params))
-    check(n_params == cfg.n_params() + cfg.d_model * (2 * cfg.n_layers + 1),
-          f"{n_params} parameters, not {cfg.n_params()} and the norms")
+    beyond = beyond_n_params(cfg)
+    check(n_params == cfg.n_params() + sum(beyond.values()),
+          f"{n_params} parameters, not {cfg.n_params()} and {beyond}")
     profiles = ("serve", "baseline")
     engines = [Engine(cfg, params=params, profile=p, device=device) for p in profiles]
     check(all(e.params is params for e in engines), "the engines copied the parameters")
-    router = Router([EngineSlot(f"{LM_ARCH}:{p}#{i}", e, p)
+    router = Router([EngineSlot(f"{arch}:{p}#{i}", e, p)
                      for i, (e, p) in enumerate(zip(engines, profiles))],
                     device=device, max_batch=E2_BATCH)
     ticks, dispatches, run = watch_ticks(router), [], router.run_dispatch
@@ -1051,10 +1134,11 @@ def lm_router(device) -> dict:
           "the same batch through one engine twice gave other tokens")
     steps = lm_step_times(engines[0], batch, E2_NEW)
     peak = torch.cuda.max_memory_allocated()
-    bounds = lm_bounds(cfg, *batch.shape, E2_NEW)
+    bounds = (ssm_bounds if cfg.family == "ssm" else lm_bounds)(cfg, *batch.shape, E2_NEW)
     card = smi("name,power.limit")
     out = dict(
-        arch=LM_ARCH, layers=cfg.n_layers, params=n_params, init_s=init_s,
+        arch=arch, layers=cfg.n_layers, params=n_params, beyond_n_params=beyond,
+        init_s=init_s,
         requests_per_round=len(reqs), serve_s=[r["serve_s"] for r in rounds],
         tokens_per_s=[r["tokens_per_s"] for r in rounds],
         generate_4x512_s=generate_s, generate_tokens_per_s=E2_BATCH * E2_NEW / generate_s,
@@ -1063,28 +1147,127 @@ def lm_router(device) -> dict:
                     dispatched=len(tk["rids"])) for tk in ticks],
         dispatches=dispatches, launches=launched, path=str(router.last_plan.path),
         card=card)
-    del engines, router, params
+    # the patched tick and dispatch hold the router, and through it the
+    # engines and their weights, in reference cycles: collect them so the
+    # next phase starts with the card's memory free
+    del engines, router, params, run, ticks, timed_dispatch
+    gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase e2: {LM_ARCH} as published ({cfg.n_layers} layers, {n_params} parameters, "
-        f"made on the card in {init_s:.1f} s), 2 engines sharing them behind "
+    log(f"phase {phase}: {arch} as published ({cfg.n_layers} layers, {n_params} parameters "
+        f"= n_params() {cfg.n_params()} + {beyond}, made on the card in {init_s:.1f} s), "
+        f"2 engines sharing them behind "
         f"Router(device='cuda', max_batch={E2_BATCH}): {E2_ROUNDS} rounds of {len(reqs)} "
         f"requests, each exactly once, in {out['serve_s']} s ({out['tokens_per_s']} tokens/s; "
         f"the first round is cold), ticks "
         f"{[(round(tk['ms'], 3), tk['ceft_relax']) for tk in out['ticks']]} (ms, ceft_relax "
         f"launches), dispatches {dispatches} (engine, requests, prompt, s), launches "
         f"{launched}; card {card}")
-    log(f"phase e2: (4, 512) prefill {steps['prefill_ms']:.3f} ms (bound "
+    log(f"phase {phase}: (4, 512) prefill {steps['prefill_ms']:.3f} ms (bound "
         f"{bounds['prefill_bound_ms']:.3f} ms, operations), decode "
         f"{steps['decode_ms_per_token']:.3f} ms a token (bound {bounds['decode_bound_ms']:.3f} "
         f"ms, bytes), generate {generate_s:.3f} s ({out['generate_tokens_per_s']:.2f} tokens/s), "
         f"peak memory {peak / 2**30:.3f} GiB; card {card}")
-    print(json.dumps({"lm_serving": out}), flush=True)
+    print(json.dumps({"lm_serving" if phase == "e2" else "ssm_serving": out}), flush=True)
     return out
 
 
 def lm_path(device) -> dict:
     """Phase e: the LM serving path (e1, then e2)."""
     return dict(e1=lm_card_vs_cpu(device), e2=lm_router(device))
+
+
+def ssm_card_vs_cpu(device) -> dict:
+    """Phase f1: mamba2-2.7b at its published widths and 2 of its 64
+    layers, weights made once on the CPU from a seed and copied to the card;
+    the card against the CPU at B = 2 on a prompt of one whole SSM chunk
+    (64) and a padded one (100), as ``card_vs_cpu`` holds them."""
+    tf32_off()
+    base = dataclasses.replace(configs.get(SSM_ARCH), n_layers=F1_LAYERS)
+    params = build(base).init(torch.Generator().manual_seed(LM_SEED), "cpu")
+    on_card = tree_to(params, device)
+    n_bytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    rng = np.random.default_rng(LM_SEED)
+    out = dict(layers=F1_LAYERS, param_bytes=n_bytes)
+    for P in F1_PROMPTS:
+        prompts = rng.integers(2, base.vocab, (E1_B, P)).astype(np.int32)
+        forced = rng.integers(2, base.vocab, (E1_B, E1_FORCED)).astype(np.int32)
+        out[P] = card_vs_cpu(base, params, on_card, prompts, forced, device)
+    del on_card
+    torch.cuda.empty_cache()
+    log(f"phase f1: {SSM_ARCH} at its published widths, {F1_LAYERS} layers "
+        f"({n_bytes / 1e9:.3f} GB float32): card vs CPU, B={E1_B}, prefill / "
+        f"{E1_FORCED} teacher-forced decode steps rel err: "
+        + "; ".join(f"prompt {P}: float32 (TF32 off) {out[P]['float32']['prefill_rel_err']:.3e}"
+                    f" / {out[P]['float32']['decode_rel_err']:.3e}, bf16 "
+                    f"{out[P]['bfloat16']['prefill_rel_err']:.3e} / "
+                    f"{out[P]['bfloat16']['decode_rel_err']:.3e}" for P in F1_PROMPTS)
+        + f"; {E1_NEW} greedy float32 tokens identical at each")
+    return out
+
+
+def whisper_logits(model, params, tokens, P: int) -> list:
+    """whisper's ``Model.prefill`` of ``tokens[:, :P]`` on zero frames (the
+    reference engine's stub), then ``Model.decode`` teacher-forced on the
+    rest (the self cache seeded from the prefill, the cross cache as it
+    comes); the last-token logits of each call, on the CPU."""
+    cfg, dev = model.cfg, tokens.device
+    B, S = tokens.shape
+    with torch.inference_mode():
+        frames = torch.zeros((B, cfg.enc_seq, cfg.d_model), device=dev)
+        pf, logits = model.prefill(params, {"frames": frames, "tokens": tokens[:, :P]})
+        cache = init_params(model.cache_specs(B, S), None, dev)
+        for n in ("k", "v"):
+            cache["self"][n][:, :, :P] = pf["self"][n]
+            cache["cross"][n].copy_(pf["cross"][n])
+        out = [logits[:, -1].float().cpu()]
+        for t in range(P, S):
+            logits, cache = model.decode(params, cache, tokens[:, t:t + 1], t)
+            out.append(logits[:, -1].float().cpu())
+    return out
+
+
+def hybrid_and_encdec(device) -> dict:
+    """Phase f3, card against CPU in float32 with TF32 off: jamba-smoke
+    through ``Engine.generate`` (identical greedy tokens), and whisper-tiny
+    at its published widths (4 + 4 layers, 1500 encoder frames) through
+    ``Model.prefill`` and teacher-forced ``Model.decode`` (logits within
+    1e-4 relative)."""
+    tf32_off()
+    cfg = dataclasses.replace(configs.get(HYBRID_ARCH, smoke=True), compute_dtype="float32")
+    cpu = Engine(cfg, seed=LM_SEED, device="cpu")
+    card = Engine(cfg, params=tree_to(cpu.params, device), device=device)
+    rng = np.random.default_rng(LM_SEED)
+    prompts = rng.integers(2, cfg.vocab, (E1_B, F3_P)).astype(np.int32)
+    scfg = ServeConfig(max_new_tokens=E1_NEW)
+    got, want = card.generate(prompts, scfg), cpu.generate(prompts, scfg)
+    check(np.array_equal(got, want), f"{cfg.name}: greedy tokens differ: card "
+          f"{got[:, F3_P:]} cpu {want[:, F3_P:]}")
+    wcfg = dataclasses.replace(configs.get(ENCDEC_ARCH), compute_dtype="float32")
+    model = build(wcfg)
+    params = model.init(torch.Generator().manual_seed(LM_SEED), "cpu")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    tokens = torch.as_tensor(rng.integers(2, wcfg.vocab, (E1_B, F3_P + F3_STEPS)))
+    errs = [rel_err(g, w) for g, w in zip(
+        whisper_logits(model, tree_to(params, device), tokens.to(device), F3_P),
+        whisper_logits(model, params, tokens, F3_P))]
+    check(max(errs) < 1e-4, f"{ENCDEC_ARCH}: card logits off the CPU's by {errs}")
+    torch.cuda.empty_cache()
+    out = dict(hybrid=dict(arch=cfg.name, greedy_tokens_equal=int(got.size)),
+               encdec=dict(arch=wcfg.name, params=n_params, prefill_rel_err=errs[0],
+                           decode_rel_err=max(errs[1:]), bound=1e-4))
+    log(f"phase f3: {cfg.name} card vs CPU, B={E1_B} prompt {F3_P}: {E1_NEW} greedy tokens "
+        f"identical; {wcfg.name} as published ({wcfg.n_layers} + {wcfg.enc_layers} layers, "
+        f"{wcfg.enc_seq} frames, {n_params} parameters) card vs CPU, float32 (TF32 off): "
+        f"prefill rel err {errs[0]:.3e}, {F3_STEPS} teacher-forced decode steps "
+        f"{max(errs[1:]):.3e}")
+    return out
+
+
+def ssm_path(device) -> dict:
+    """Phase f: the SSM serving path (f1, f2), then the hybrid and the
+    encoder-decoder (f3)."""
+    return dict(f1=ssm_card_vs_cpu(device), f2=lm_router(device, SSM_ARCH, "f2"),
+                f3=hybrid_and_encdec(device))
 
 
 def bound(nbytes: int, n_ops: int, dtype=torch.float32) -> tuple[float, str]:
@@ -1324,6 +1507,7 @@ def main() -> int:
     _, by_path["router"] = counted(router_path, device)
     _, by_path["chaos"] = counted(chaos_soak, device)
     _, by_path["lm_serving"] = counted(lm_path, device)
+    _, by_path["lm_ssm"] = counted(ssm_path, device)
     log(f"launches by path: {by_path}")
 
     ops.reset_launches()

@@ -1,8 +1,11 @@
-"""Serving launcher: batched greedy generation with any assigned architecture
-(smoke scale), on the card unless ``--device cpu``.
+"""Serving launcher: batched greedy generation with any decoder the engine
+serves (dense, MoE, SSM, hybrid; smoke scale), on the card unless ``--device
+cpu``.  whisper and qwen2-vl raise, as the reference's engine does
+(ROADMAP Queue 3).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch mamba2-2.7b
 
 Router mode (--router): a CEFT-routed multi-tenant front-end over an elastic
 engine pool (repro_torch.serve.pool); each tick the pending requests are

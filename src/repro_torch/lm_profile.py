@@ -1,11 +1,11 @@
 """Where the LM engine's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.lm_profile
+    PYTHONPATH=src python -m repro_torch.lm_profile [--arch mamba2-2.7b]
 
-granite-3-8b as published (40 layers, weights made on the card from a seed),
-one engine, a (4, 512) batch: it prints one JSON line for the prefill and one
-for a decode step at position 543 of a 544-slot cache (the engine's last
-step of 32 new tokens).  Each line holds the host wall time (median of 5, no
+A decoder LM as published (granite-3-8b unless ``--arch`` names another;
+weights made on the card from a seed), one engine, a (4, 512) batch: it
+prints one JSON line for the prefill and one for a decode step at position
+543 of a 544-slot cache (the engine's last step of 32 new tokens).  Each line holds the host wall time (median of 5, no
 profiler), and from one call under ``torch.profiler`` the number of device
 kernels, their summed device time in three groups (matrix products; casts
 and copies; everything else) with the top kernels by name, and the device's
@@ -13,6 +13,7 @@ idle share of the unprofiled wall time.  Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -79,10 +80,15 @@ def profile_call(name: str, fn) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    served = [a for a in configs.ARCHS if configs.get(a).family not in ("encdec", "vlm")]
+    ap.add_argument("--arch", choices=served, default=ARCH,
+                    help="a decoder the engine serves (it must fit the card as published)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("lm_profile: needs one NVIDIA GPU", file=sys.stderr)
         return 2
-    cfg = configs.get(ARCH)
+    cfg = configs.get(args.arch)
     params = build(cfg).init(torch.Generator("cuda").manual_seed(SEED), "cuda")
     eng = Engine(cfg, params=params, device="cuda")
     prompts = np.random.default_rng(SEED).integers(2, cfg.vocab, (B, P)).astype(np.int32)
@@ -99,7 +105,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     for r in rows:
-        r["card"] = smi
+        r["arch"], r["card"] = cfg.name, smi
         print(json.dumps(r), flush=True)
     return 0
 

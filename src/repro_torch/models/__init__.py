@@ -1,5 +1,7 @@
-"""repro_torch.models — the decoder LMs (dense, MoE, VLM backbone) in plain
-PyTorch."""
+"""repro_torch.models — every assigned architecture in plain PyTorch: the
+decoder LMs (dense, MoE, SSM, hybrid, VLM backbone; ``transformer``,
+``moe``, ``ssm``) and the encoder-decoder (``encdec``)."""
+from . import encdec, ssm, transformer
 from .common import (
     PSpec,
     ShardingProfile,
@@ -14,5 +16,6 @@ from .model import Model, build
 
 __all__ = [
     "Model", "PSpec", "ShardingProfile", "abstract_params", "active_profile",
-    "build", "init_params", "profile_names", "resolve_profile", "sharding_profile",
+    "build", "encdec", "init_params", "profile_names", "resolve_profile",
+    "sharding_profile", "ssm", "transformer",
 ]

@@ -1,5 +1,6 @@
-"""Model layers in plain PyTorch: norms, RoPE / M-RoPE, memory-linear
-attention (online-softmax chunking), GQA/SWA, decode-step attention, MLPs.
+"""Model layers in plain PyTorch: norms, RoPE / M-RoPE, sinusoidal positions,
+memory-linear attention (online-softmax chunking), GQA/SWA, decode-step
+attention, MLPs.
 
 The reference computes all of these outside any Pallas kernel, so they stay
 plain tensor code here, with the reference's own numerics: float32 norms and
@@ -76,6 +77,18 @@ def apply_rope(x, cos, sin):
     c = cos[:, :, None, :].to(x.dtype)
     s = sin[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def sinusoidal_embedding(S: int, d: int, offset: int = 0, device=None):
+    """Whisper-style absolute sinusoidal positions, (S, d) float32 for the
+    positions offset .. offset + S - 1."""
+    pos = torch.arange(offset, offset + S, dtype=torch.float32, device=device)[:, None]
+    ar = torch.arange(0, d // 2, dtype=torch.float32, device=device)
+    # the power in float64, rounded once: torch's float32 pow is an ulp off
+    # XLA's in a few entries, which position 1500 turns into 1e-4 of angle
+    inv = (1e4 ** (-ar / (d // 2 - 1 + 1e-9)).double()).float()
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # -------------------------------------------------------------------- attention

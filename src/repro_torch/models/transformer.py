@@ -1,10 +1,11 @@
-"""Decoder-LM stack for the dense, MoE and VLM families.
+"""Decoder-LM stack: period blocks covering the dense, MoE, SSM, hybrid and
+VLM families with one code path.
 
 The layer pattern (``configs.base.layer_pattern``) gives the (sequence-mixer,
 channel-mixer) pair per *period position*; parameters are stacked over periods
 as in the reference, whose ``lax.scan`` over the stack becomes a Python loop
 over views of the stacked tensors here (no rematerialization: this package
-runs inference only).  SSM mixers (mamba2, jamba) are not ported yet.
+runs inference only).
 """
 from __future__ import annotations
 
@@ -25,16 +26,7 @@ from .layers import (
     rope_cos_sin,
 )
 from .moe import moe, moe_specs
-
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1: models/ssm.py, then models/encdec.py)"
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for a config whose mixers this package does not have yet."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder family {NOT_PORTED}")
-    if any(m == "ssm" for m, _ in cfg.layer_pattern()):
-        raise NotImplementedError(f"{cfg.name}: the SSM mixer {NOT_PORTED}")
+from .ssm import ssd_decode, ssd_prefill, ssm_specs
 
 
 def stack_specs(tree, n: int):
@@ -44,16 +36,20 @@ def stack_specs(tree, n: int):
 
 
 def block_specs(cfg: ArchConfig) -> dict:
-    """One period's parameters, keyed pos{i}: attention, then the channel
-    mixer (``mlp`` or ``moe``), each behind its norm."""
-    check_supported(cfg)
+    """One period's parameters, keyed pos{i}: the sequence mixer (``attn``
+    or ``ssm``) behind its norm, then the channel mixer (``mlp`` or
+    ``moe``) behind its own, unless the pattern has none."""
     out: dict[str, Any] = {}
-    for i, (_, channel) in enumerate(cfg.layer_pattern()):
-        out[f"pos{i}"] = {
-            "norm1": rmsnorm_spec(cfg.d_model), "attn": attn_specs(cfg),
-            "norm2": rmsnorm_spec(cfg.d_model),
-            channel: mlp_specs(cfg) if channel == "mlp" else moe_specs(cfg),
-        }
+    for i, (mixer, channel) in enumerate(cfg.layer_pattern()):
+        b: dict[str, Any] = {"norm1": rmsnorm_spec(cfg.d_model)}
+        if mixer == "attn":
+            b["attn"] = attn_specs(cfg)
+        else:
+            b["ssm"] = ssm_specs(cfg)
+        if channel != "none":
+            b["norm2"] = rmsnorm_spec(cfg.d_model)
+            b[channel] = mlp_specs(cfg) if channel == "mlp" else moe_specs(cfg)
+        out[f"pos{i}"] = b
     return out
 
 
@@ -71,18 +67,30 @@ def model_specs(cfg: ArchConfig) -> dict:
 
 def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
     """Decode-cache tree as PSpecs: attention caches are (periods, B, S, Hkv,
-    hd); SWA caches are bounded by the window."""
-    check_supported(cfg)
+    hd), SWA caches bounded by the window; SSM caches are O(1) in sequence:
+    the state (periods, B, H, P, N) and the conv history (periods, B, k-1,
+    d_inner + 2N)."""
     n_per = cfg.n_layers // cfg.period
     out: dict[str, Any] = {}
-    for i in range(len(cfg.layer_pattern())):
-        sc = min(seq, cfg.window) if cfg.window else seq
-        kv = PSpec(
-            (n_per, batch, sc, cfg.n_kv_heads, cfg.hd),
-            ("layers", "cache_batch", "cache_seq", "heads", "cache_hd"),
-            init="zeros", dtype=cfg.compute_dtype,
-        )
-        out[f"pos{i}"] = {"k": kv, "v": kv}
+    for i, (mixer, _) in enumerate(cfg.layer_pattern()):
+        if mixer == "attn":
+            sc = min(seq, cfg.window) if cfg.window else seq
+            kv = PSpec(
+                (n_per, batch, sc, cfg.n_kv_heads, cfg.hd),
+                ("layers", "cache_batch", "cache_seq", "heads", "cache_hd"),
+                init="zeros", dtype=cfg.compute_dtype,
+            )
+            out[f"pos{i}"] = {"k": kv, "v": kv}
+        else:
+            H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+            out[f"pos{i}"] = {
+                "ssm": PSpec((n_per, batch, H, P, N),
+                             ("layers", "cache_batch", "ssm_inner", "none", "none"),
+                             init="zeros", dtype="float32"),
+                "conv": PSpec((n_per, batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * N),
+                              ("layers", "cache_batch", "none", "ssm_inner"),
+                              init="zeros", dtype=cfg.compute_dtype),
+            }
     return out
 
 
@@ -110,35 +118,44 @@ def _period_fwd(cfg: ArchConfig, pp, x, cos_sin):
     """Full-seq forward through one period; returns (x, aux, cache_updates)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_out = {}
-    for i, (_, channel) in enumerate(cfg.layer_pattern()):
+    for i, (mixer, channel) in enumerate(cfg.layer_pattern()):
         b = pp[f"pos{i}"]
         h = rmsnorm(b["norm1"], x, cfg.norm_eps)
-        a, (k, v) = attn_prefill(b["attn"], h, cfg, cos_sin, window=cfg.window)
-        cache_out[f"pos{i}"] = {"k": k, "v": v}
-        x = x + a
-        h2 = rmsnorm(b["norm2"], x, cfg.norm_eps)
-        if channel == "mlp":
-            x = x + mlp(b["mlp"], h2, cfg)
+        if mixer == "attn":
+            a, (k, v) = attn_prefill(b["attn"], h, cfg, cos_sin, window=cfg.window)
+            cache_out[f"pos{i}"] = {"k": k, "v": v}
         else:
-            y, a_loss = moe(b["moe"], h2, cfg)
-            x = x + y
-            aux = aux + a_loss
+            a, cache_out[f"pos{i}"] = ssd_prefill(b["ssm"], h, cfg)
+        x = x + a
+        if channel != "none":
+            h2 = rmsnorm(b["norm2"], x, cfg.norm_eps)
+            if channel == "mlp":
+                x = x + mlp(b["mlp"], h2, cfg)
+            else:
+                y, a_loss = moe(b["moe"], h2, cfg)
+                x = x + y
+                aux = aux + a_loss
     return x, aux, cache_out
 
 
-def _cos_sin(cfg: ArchConfig, positions):
-    return rope_cos_sin(cfg, positions) if cfg.use_rope else None
+def _uses_rope(cfg: ArchConfig) -> bool:
+    """RoPE applies only where the pattern has attention (mamba2 leaves
+    ``use_rope`` at its default with no attention at all)."""
+    return cfg.use_rope and any(m == "attn" for m, _ in cfg.layer_pattern())
 
 
 def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
                  positions=None, want_cache: bool = False):
     """Prefill forward.  Returns (hidden (B,S,D), aux, cache|None); the cache
-    holds each period position's (periods, B, S, Hkv, hd) K and V."""
+    holds each period position's entries stacked over periods: (periods, B,
+    S, Hkv, hd) K and V, or the SSM state and conv tail."""
     x = embed_tokens(params, cfg, tokens, embeds)
     B, S, _ = x.shape
-    if positions is None and cfg.use_rope:
-        positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    cos_sin = _cos_sin(cfg, positions)
+    cos_sin = None
+    if _uses_rope(cfg):
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+        cos_sin = rope_cos_sin(cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for i in range(cfg.n_layers // cfg.period):
@@ -149,32 +166,41 @@ def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if not want_cache:
         return x, aux, None
-    stacked = {pos: {n: torch.stack([c[pos][n] for c in caches]) for n in ("k", "v")}
-               for pos in caches[0]}
+    stacked = {pos: {n: torch.stack([c[pos][n] for c in caches]) for n in entry}
+               for pos, entry in caches[0].items()}
     return x, aux, stacked
 
 
 def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
                 pos: int = 0, positions=None):
     """One-token decode.  tokens: (B, 1); pos: the current position.
-    Returns (logits (B, 1, V), cache); the cache is written in place."""
+    Returns (logits (B, 1, V), cache); the cache is written in place: K and
+    V at their slot, an SSM's new state and conv history copied into the
+    stacked tensors through the period's views."""
     x = embed_tokens(params, cfg, tokens, embeds)
     B = x.shape[0]
-    if positions is None and cfg.use_rope:
-        positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    cos_sin = _cos_sin(cfg, positions)
+    cos_sin = None
+    if _uses_rope(cfg):
+        if positions is None:
+            positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        cos_sin = rope_cos_sin(cfg, positions)
     for i in range(cfg.n_layers // cfg.period):
         pp, pc = layer_params(params["blocks"], i), layer_params(cache, i)
-        for j, (_, channel) in enumerate(cfg.layer_pattern()):
-            b = pp[f"pos{j}"]
+        for j, (mixer, channel) in enumerate(cfg.layer_pattern()):
+            b, c = pp[f"pos{j}"], pc[f"pos{j}"]
             h = rmsnorm(b["norm1"], x, cfg.norm_eps)
-            a, _ = attn_decode(b["attn"], h, cfg, pc[f"pos{j}"], pos, cos_sin,
-                               window=cfg.window)
-            x = x + a
-            h2 = rmsnorm(b["norm2"], x, cfg.norm_eps)
-            if channel == "mlp":
-                x = x + mlp(b["mlp"], h2, cfg)
+            if mixer == "attn":
+                a, _ = attn_decode(b["attn"], h, cfg, c, pos, cos_sin, window=cfg.window)
             else:
-                x = x + moe(b["moe"], h2, cfg)[0]
+                a, new = ssd_decode(b["ssm"], h, cfg, c)
+                for n in ("ssm", "conv"):
+                    c[n].copy_(new[n])
+            x = x + a
+            if channel != "none":
+                h2 = rmsnorm(b["norm2"], x, cfg.norm_eps)
+                if channel == "mlp":
+                    x = x + mlp(b["mlp"], h2, cfg)
+                else:
+                    x = x + moe(b["moe"], h2, cfg)[0]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, cfg, x), cache

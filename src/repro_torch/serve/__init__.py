@@ -1,7 +1,7 @@
 """repro_torch.serve — the CEFT-routed serving plane: the batched LM engine,
 admission queue, engine pool, deadline watchdog, fault injection and the
 router.  The pool serves any object with ``generate(prompts, ServeConfig)``:
-an :class:`Engine` (dense, MoE and VLM decoders) or a stand-in such as
+an :class:`Engine` (dense, MoE, SSM and hybrid decoders) or a stand-in such as
 :func:`null_engine_factory`'s."""
 from .engine import Engine, ServeConfig
 from .pool import (

@@ -2,10 +2,14 @@
 EOS stop, KV cache reconciliation between the prefill and decode layouts
 (including SWA ring-buffer packing).
 
-Serves the decoder families this package has (dense, MoE and the VLM
-backbone); the SSM and encoder-decoder families are not ported yet and
-``Engine`` refuses them.  ``ServeConfig`` is shared with the router, the
-pool and its workers, which run against any object with
+Serves the dense, MoE, SSM and hybrid decoders; SSM states pass from the
+prefill to the decode cache unchanged.  The VLM backbone runs only through
+``forward_full``/``decode_step`` with explicit (3, B, S) positions: its
+M-RoPE refuses the token positions ``generate`` builds, as the reference's
+does.  The encoder-decoder family is refused: the reference's ``Engine``
+fails on it too (ROADMAP Queue 3), and its model runs through
+``Model.prefill``/``Model.decode``.  ``ServeConfig`` is shared with the
+router, the pool and its workers, which run against any object with
 ``generate(prompts, ServeConfig)``.
 """
 from __future__ import annotations
@@ -47,6 +51,11 @@ class Engine:
 
     def __init__(self, cfg: ArchConfig, params=None, seed: int = 0,
                  profile: str | ShardingProfile | None = None, device="cuda"):
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                f"{cfg.name}: the engine does not serve the encoder-decoder family; the "
+                "reference's Engine fails on it too (ROADMAP Queue 3); run its model "
+                "through Model.prefill and Model.decode")
         self.cfg = cfg
         self.device = resolve_device(device)
         # pinned at construction (default: whatever is active right now) and
@@ -69,13 +78,17 @@ class Engine:
     # ------------------------------------------------------------------ cache
     def _seed_cache(self, prefill_cache, B: int, total: int, prompt: int):
         """Pack the prefill K/V (length=prompt) into the decode layout
-        (length=total or window).  The decode cache is float32, as the
-        reference's (its ``init_params`` default type), whatever the
-        compute type."""
+        (length=total or window); SSM states pass through unchanged.  The
+        decode cache is float32, as the reference's (its ``init_params``
+        default type), whatever the compute type."""
         cfg = self.cfg
         target = init_params(self.model.cache_specs(B, total), None, self.device)
         w = min(total, cfg.window) if cfg.window else 0
         for k, sub in target.items():
+            if "k" not in sub:   # SSM state and conv history: copy_ casts to the cache type
+                for n, dst in sub.items():
+                    dst.copy_(prefill_cache[k][n])
+                continue
             for n in ("k", "v"):
                 dst, src = sub[n], prefill_cache[k][n]
                 # src: (periods, B, prompt, H, hd) -> dst: (periods, B, Sc, H, hd)

@@ -396,11 +396,13 @@ def test_minplus_kernel_probe(cuda, kind, dtype):
 # ------------------------------------------------------------ the LM engine
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,P", [("granite-3-8b", 24), ("minicpm-2b", 16),
-                                    ("mixtral-8x22b", 40), ("glm4-9b", 8)])
+                                    ("mixtral-8x22b", 40), ("glm4-9b", 8),
+                                    ("mamba2-2.7b", 20), ("jamba-v0.1-52b", 16)])
 def test_engine_on_the_card_matches_the_cpu(cuda, arch, P):
     """A smoke engine on the card against the same engine (the same weights,
     made on the CPU) on the CPU: float32 compute with TF32 off, identical
-    greedy tokens; mixtral's 40-token prompt takes the SWA ring."""
+    greedy tokens; mixtral's 40-token prompt takes the SWA ring, mamba2's
+    20-token prompt a padded SSM chunk."""
     import dataclasses
 
     from repro_torch import configs
@@ -416,3 +418,37 @@ def test_engine_on_the_card_matches_the_cpu(cuda, arch, P):
     got = card.generate(prompts, scfg)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got, cpu.generate(prompts, scfg))
+
+
+@pytest.mark.cuda
+def test_whisper_on_the_card_matches_the_cpu(cuda):
+    """whisper-smoke's ``Model.prefill`` on zero frames (the reference
+    engine's stub) and 8 teacher-forced ``Model.decode`` steps on the card
+    against the CPU, float32 with TF32 off: logits within 1e-4."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import build, init_params
+    from repro_torch.models.common import tree_to
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(configs.get("whisper-tiny", smoke=True), compute_dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    B, P, steps = 2, 8, 8
+    tok = torch.as_tensor(np.random.default_rng(0).integers(2, cfg.vocab, (B, P + steps)))
+    frames = torch.zeros((B, cfg.enc_seq, cfg.d_model))
+    logits = {}
+    for dev, p in (("cpu", params), (cuda, tree_to(params, cuda))):
+        with torch.inference_mode():
+            pf, first = model.prefill(p, {"frames": frames.to(dev), "tokens": tok[:, :P].to(dev)})
+            cache = init_params(model.cache_specs(B, P + steps), None, dev)
+            for n in ("k", "v"):
+                cache["self"][n][:, :, :P] = pf["self"][n]
+                cache["cross"][n].copy_(pf["cross"][n])
+            out = [first]
+            for t in range(P, P + steps):
+                out.append(model.decode(p, cache, tok[:, t:t + 1].to(dev), t)[0])
+        logits[dev] = [x.float().cpu() for x in out]
+    for got, want in zip(logits[cuda], logits["cpu"]):
+        assert float((got - want).abs().max() / want.abs().max()) < 1e-4

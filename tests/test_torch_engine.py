@@ -40,12 +40,16 @@ def engines(arch, n=1, **kw):
 
 @pytest.mark.parametrize("arch,P", [("granite-3-8b", 16), ("minicpm-2b", 16),
                                     ("glm4-9b", 24), ("mixtral-8x22b", 20),
-                                    ("mixtral-8x22b", 40)])
+                                    ("mixtral-8x22b", 40), ("mamba2-2.7b", 8),
+                                    ("mamba2-2.7b", 16), ("mamba2-2.7b", 20),
+                                    ("jamba-v0.1-52b", 16), ("jamba-v0.1-52b", 20)])
 def test_generate_matches_reference(arch, P):
     """Greedy tokens equal to the reference's.  minicpm unembeds with the
     tied embedding; mixtral's window is 32, so a 40-token prompt is packed
     into the ring (slot t % 32) and a 20-token one is not, and both decode
-    past the window."""
+    past the window.  mamba2 and jamba (SSM chunk 16) prefill below one
+    chunk, one whole chunk and a padded second chunk, and their SSM states
+    pass to the decode cache."""
     (je,), (te,) = engines(arch)
     prompts = np.random.default_rng(P).integers(2, je.cfg.vocab, (3, P)).astype(np.int32)
     want = je.generate(prompts, jserve.ServeConfig(max_new_tokens=16))
@@ -92,16 +96,53 @@ def _serve(pkg, engs, **kw):
     return [done[r] for r in rids]
 
 
-def test_router_matches_reference():
-    """The port's Router (planning on the CPU) over two port engines returns
-    every request's tokens equal to the reference Router over two reference
-    engines with the same weights."""
-    js, ts = engines("granite-3-8b", n=2)
+def _same_as_reference_router(arch):
+    js, ts = engines(arch, n=2)
     want = _serve(jserve, js)
     got = _serve(tserve, ts, device="cpu")
     assert len(got) == len(want) == 8
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_router_matches_reference():
+    """The port's Router (planning on the CPU) over two port engines returns
+    every request's tokens equal to the reference Router over two reference
+    engines with the same weights."""
+    _same_as_reference_router("granite-3-8b")
+
+
+def test_router_over_mamba2_engines_matches_reference():
+    """The same traffic over two mamba2 engines (O(1) SSM decode state)."""
+    _same_as_reference_router("mamba2-2.7b")
+
+
+def test_neither_engine_serves_a_vlm():
+    """A gap both packages share: ``generate`` builds (B, S) token
+    positions, and qwen2-vl's M-RoPE wants (3, B, S).  The reference raises
+    AssertionError, the port ValueError, on the same prompts."""
+    (je,), (te,) = engines("qwen2-vl-72b")
+    prompts = np.random.default_rng(0).integers(2, je.cfg.vocab, (2, 8)).astype(np.int32)
+    with pytest.raises(AssertionError, match="M-RoPE"):
+        je.generate(prompts, jserve.ServeConfig(max_new_tokens=4))
+    with pytest.raises(ValueError, match="M-RoPE"):
+        te.generate(prompts, tserve.ServeConfig(max_new_tokens=4))
+
+
+def test_neither_engine_serves_the_encoder_decoder():
+    """A gap both packages share: the reference's engine prefills whisper,
+    then its cache seeding looks for a period key in the encoder-decoder
+    cache and raises KeyError; the port's engine refuses the family up
+    front with NotImplementedError (ROADMAP Queue 3)."""
+    jcfg = dataclasses.replace(JC.get("whisper-tiny", smoke=True), compute_dtype="float32")
+    tcfg = dataclasses.replace(TC.get("whisper-tiny", smoke=True), compute_dtype="float32")
+    prompts = np.random.default_rng(0).integers(2, jcfg.vocab, (2, 8)).astype(np.int32)
+    with pytest.raises(KeyError, match="self"):
+        jserve.Engine(jcfg, seed=0).generate(prompts, jserve.ServeConfig(max_new_tokens=4))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
+        tserve.Engine(tcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        tserve.smoke_engine_factory("whisper-tiny", "serve", device="cpu")
 
 
 def _launch(*args, package="repro_torch", timeout=240):
@@ -127,6 +168,23 @@ def test_launcher_plain_mode():
     ref_toks = [eval(ln.split(": ", 1)[1]) for ln in ref]
     assert all(len(t) == 13 and all(0 <= x < 256 for x in t) for t in toks)
     assert [t[:8] for t in toks] == [t[:8] for t in ref_toks]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
+def test_launcher_serves_the_ssm_families(arch):
+    """``--arch`` mamba2 and jamba through the launcher's plain mode (the
+    reference launcher's seeded prompts in front) and its router mode."""
+    args = ("--arch", arch, "--batch", "2", "--prompt-len", "20", "--max-new", "4")
+    lines, ref = _launch(*args), _launch(*args, package="repro")
+    assert [ln.split(":")[0] for ln in lines] == ["seq 0", "seq 1"]
+    toks = [eval(ln.split(": ", 1)[1]) for ln in lines]
+    ref_toks = [eval(ln.split(": ", 1)[1]) for ln in ref]
+    assert all(len(t) == 24 and all(0 <= x < 256 for x in t) for t in toks)
+    assert [t[:20] for t in toks] == [t[:20] for t in ref_toks]
+    text = "\n".join(_launch("--arch", arch, "--router", "--requests", "2", "--max-new", "3"))
+    assert (f"router: 4 requests served on 2 workers ({arch}:serve#0, "
+            f"{arch}:baseline#1) backend=inproc") in text
+    assert "router: tenant0: 2 completed" in text and "router: tenant1: 2 completed" in text
 
 
 @pytest.mark.parametrize("backend", ["inproc", "subprocess"])

@@ -11,6 +11,7 @@ exception stated at their test: bf16 rounding flips the top-k expert choice
 of a few tokens, which moves those tokens' logits by far more than any
 tolerance, so only the tokens outside a bounded flipped share are held to
 5e-2 (the reference holds its MoE stacks in float32 for the same reason).
+The SSM mixer and the encoder-decoder are held to the same bounds.
 """
 import dataclasses
 
@@ -25,19 +26,23 @@ import jax.numpy as jnp  # noqa: E402
 import repro.configs as JC  # noqa: E402
 from repro.models import build as jbuild  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
+from repro.models import encdec as jed  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
+from repro.models import ssm as jssm  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro.models.common import init_params as j_init  # noqa: E402
 import repro_torch.configs as TC  # noqa: E402
 from repro_torch.interop import params_from_reference  # noqa: E402
 from repro_torch.models import abstract_params, build, init_params  # noqa: E402
+from repro_torch.models import encdec as ted  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
 DECODERS = ["granite-3-8b", "glm4-9b", "llama3-405b", "minicpm-2b", "mixtral-8x22b",
-            "dbrx-132b", "qwen2-vl-72b"]
-MOE = {"mixtral-8x22b", "dbrx-132b"}
+            "dbrx-132b", "qwen2-vl-72b", "mamba2-2.7b", "jamba-v0.1-52b"]
+MOE = {"mixtral-8x22b", "dbrx-132b", "jamba-v0.1-52b"}
 
 
 def cfgs(arch, **kw):
@@ -207,6 +212,99 @@ def test_moe_matches_reference(arch, S, tied):
     assert abs(float(taux) - float(jaux)) <= 1e-6 * abs(float(jaux)) + 1e-9
 
 
+# --------------------------------------------------------------------- SSM
+def _ssm_case(dtype, seed=0):
+    jcfg, tcfg = cfgs("mamba2-2.7b", compute_dtype=dtype)
+    return jcfg, tcfg, jparams(jssm.ssm_specs(jcfg), seed=seed)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 2, 5, 16])
+def test_causal_conv_matches_reference(S, dtype):
+    """The depthwise causal conv and its SiLU, a prompt shorter than the
+    kernel (S < k - 1) included."""
+    rng = np.random.default_rng(20 + S)
+    xbc = rng.normal(size=(2, S, 24)).astype(np.float32)
+    w = rng.normal(size=(4, 24)).astype(np.float32)
+    b = rng.normal(size=(24,)).astype(np.float32)
+    want = jssm._causal_conv(*(jnp.asarray(a).astype(dtype) for a in (xbc, w, b)))
+    got = tssm._causal_conv(*(T(a).to(getattr(torch, dtype)) for a in (xbc, w, b)))
+    assert got.dtype == getattr(torch, dtype)
+    assert rel(got, want) < (1e-6 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("T_len", [1, 7, 16])
+def test_segsum_matches_reference(T_len):
+    """The masked difference of cumulative sums: -inf above the diagonal
+    in the same places, the rest within float32 rounding."""
+    x = np.random.default_rng(T_len).normal(size=(2, 3, T_len)).astype(np.float32)
+    want = np.asarray(jssm._segsum(jnp.asarray(x)))
+    got = tssm._segsum(T(x)).numpy()
+    assert np.array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("S", [1, 2, 3, 8, 16, 20, 48])
+def test_ssd_prefill_matches_reference(S, with_state):
+    """The chunked SSD in float32 (chunk 16): one token, S below the conv
+    width, S below the chunk, one whole chunk, a padded last chunk (20) and
+    three chunks; with and without an initial state.  Output, final state
+    and conv tail within 1e-5."""
+    jcfg, tcfg, p = _ssm_case("float32")
+    rng = np.random.default_rng(30 + S)
+    x = rng.normal(size=(2, S, jcfg.d_model)).astype(np.float32)
+    H, P, N = jcfg.ssm_heads, jcfg.ssm_head_dim, jcfg.ssm_state
+    s0 = rng.normal(size=(2, H, P, N)).astype(np.float32) if with_state else None
+    jy, jst = jssm.ssd_prefill(p, jnp.asarray(x), jcfg,
+                               None if s0 is None else {"ssm": jnp.asarray(s0)})
+    ty, tst = tssm.ssd_prefill(T(p), T(x), tcfg, None if s0 is None else {"ssm": T(s0)})
+    assert ty.shape == jy.shape and tst["conv"].shape == jst["conv"].shape
+    assert tst["ssm"].dtype == torch.float32
+    for got, want in ((ty, jy), (tst["ssm"], jst["ssm"]), (tst["conv"], jst["conv"])):
+        assert rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("S", [3, 16, 20])
+def test_ssd_prefill_matches_reference_bf16(S):
+    """bf16 compute: the intra-chunk product in bf16, states, recurrence and
+    inter-chunk output in float32 (cast after); within 5e-2, the state
+    float32 and the conv tail bf16 as the reference's."""
+    jcfg, tcfg, p = _ssm_case("bfloat16", seed=1)
+    x = np.random.default_rng(40 + S).normal(size=(2, S, jcfg.d_model)).astype(np.float32)
+    jy, jst = jssm.ssd_prefill(p, jnp.asarray(x).astype("bfloat16"), jcfg)
+    ty, tst = tssm.ssd_prefill(T(p), T(x).to(torch.bfloat16), tcfg)
+    assert ty.dtype == torch.bfloat16 and tst["conv"].dtype == torch.bfloat16
+    for got, want in ((ty, jy), (tst["ssm"], jst["ssm"]), (tst["conv"], jst["conv"])):
+        assert rel(got, want) < 5e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [2, 20])
+def test_ssd_decode_matches_reference(S, dtype):
+    """Three decode steps from a prefill's state, the state carried in
+    float32 as the engine's decode cache holds it: in bf16 compute the conv
+    history, the conv and x/B/C promote to float32 and the new state stays
+    float32 in both packages."""
+    jcfg, tcfg, p = _ssm_case(dtype, seed=2)
+    rng = np.random.default_rng(50 + S)
+    x = rng.normal(size=(2, S, jcfg.d_model)).astype(np.float32)
+    _, jst = jssm.ssd_prefill(p, jnp.asarray(x).astype(dtype), jcfg)
+    jst = {k: v.astype(jnp.float32) for k, v in jst.items()}
+    tst = {k: T(np.asarray(v)) for k, v in jst.items()}
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    for step in range(3):
+        xd = rng.normal(size=(2, 1, jcfg.d_model)).astype(np.float32)
+        jy, jst = jssm.ssd_decode(p, jnp.asarray(xd).astype(dtype), jcfg, jst)
+        ty, tst = tssm.ssd_decode(T(p), T(xd).to(getattr(torch, dtype)), tcfg, tst)
+        assert ty.dtype == getattr(torch, dtype)
+        assert tst["ssm"].dtype == tst["conv"].dtype == torch.float32
+        assert str(jst["conv"].dtype) == "float32"
+        for got, want in ((ty, jy), (tst["ssm"], jst["ssm"]), (tst["conv"], jst["conv"])):
+            assert rel(got, want) < tol, step
+
+
 # ------------------------------------------------------------------ stacks
 def _inputs(cfg, rng, B, S):
     """(reference kwargs, port kwargs) for a stack's forward: tokens, or for
@@ -235,15 +333,17 @@ def _forward(arch, dtype, B=2, S=40, seed=0):
 
 @pytest.mark.parametrize("arch", DECODERS)
 def test_forward_full_matches_reference_fp32(arch):
-    """Float32 compute: logits within 1e-4, each layer's K and V (the prefill
-    cache) within 1e-5, the aux loss to float32 rounding."""
+    """Float32 compute: logits within 1e-4, each layer's prefill cache (K
+    and V; an SSM's state and conv tail) within 1e-5, the aux loss to
+    float32 rounding.  S = 40 pads the SSM's last chunk of 16."""
     (jlog, jaux, jcache), (tlog, taux, tcache) = _forward(arch, "float32")
     assert tlog.dtype == torch.float32 and tlog.shape == jlog.shape
     assert rel(tlog, jlog) < 1e-4
-    for pos, kv in jcache.items():
-        for n in ("k", "v"):
-            for layer in range(kv[n].shape[0]):
-                assert rel(tcache[pos][n][layer], kv[n][layer]) < 1e-5, (pos, n, layer)
+    for pos, entry in jcache.items():
+        assert set(tcache[pos]) == set(entry)
+        for n in entry:
+            for layer in range(entry[n].shape[0]):
+                assert rel(tcache[pos][n][layer], entry[n][layer]) < 1e-5, (pos, n, layer)
     assert abs(float(taux) - float(jaux)) <= 1e-5 * abs(float(jaux)) + 1e-9
 
 
@@ -252,11 +352,16 @@ def test_forward_full_matches_reference_bf16(arch):
     """The config's own bf16 compute: logits within 5e-2 relative.  MoE
     stacks: a token whose bf16 router rounding picks other experts in one
     package than in the other is far off by design; such flips hit a few
-    tokens, so at most 1/16 of the tokens may exceed 5e-2."""
+    tokens, so at most 1/16 of the tokens may exceed 5e-2.  jamba routes
+    through 4 MoE layers of its 8 and carries each flip on to the later
+    tokens through its SSM and attention: the reference's own bf16 and
+    float32 logits differ beyond 5e-2 on 6 of these 80 tokens, above 1/16,
+    so its share is bounded at 1/4."""
     (jlog, _, _), (tlog, _, _) = _forward(arch, "bfloat16")
     err = np.abs(N(tlog) - N(jlog)).max(-1) / np.abs(N(jlog)).max()
     if arch in MOE:
-        assert (err > 5e-2).mean() <= 1 / 16, err.max()
+        share = 1 / 4 if arch == "jamba-v0.1-52b" else 1 / 16
+        assert (err > 5e-2).mean() <= share, err.max()
     else:
         assert err.max() < 5e-2
 
@@ -297,11 +402,27 @@ def test_decode_step_matches_reference(arch):
         assert rel(tlog, jlog) < 1e-4, t
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
+def test_decode_step_matches_reference_bf16(arch):
+    """The config's bf16 compute over the float32 decode cache (an SSM's
+    conv history and x/B/C promote to float32 in both packages): each
+    step's logits within 5e-2; jamba's MoE flips bounded as in
+    ``test_forward_full_matches_reference_bf16``."""
+    err = np.stack([np.abs(N(tlog) - N(jlog)).max(-1) / np.abs(N(jlog)).max()
+                    for jlog, tlog in _decode_runs(arch, "bfloat16", 12)])
+    if arch in MOE:
+        assert (err > 5e-2).mean() <= 1 / 4, err.max()
+    else:
+        assert err.max() < 5e-2
+
+
 @pytest.mark.parametrize("arch,dtype,kw,tol", [
     ("granite-3-8b", "bfloat16", {}, 5e-2), ("glm4-9b", "bfloat16", {}, 5e-2),
     ("minicpm-2b", "bfloat16", {}, 5e-2), ("llama3-405b", "bfloat16", {}, 5e-2),
+    ("mamba2-2.7b", "bfloat16", {}, 5e-2),
     ("mixtral-8x22b", "float32", {"capacity_factor": 8.0}, 1e-4),
-    ("dbrx-132b", "float32", {"capacity_factor": 8.0}, 1e-4)])
+    ("dbrx-132b", "float32", {"capacity_factor": 8.0}, 1e-4),
+    ("jamba-v0.1-52b", "float32", {"capacity_factor": 8.0}, 1e-4)])
 def test_decode_matches_teacher_forcing(arch, dtype, kw, tol):
     """The port alone: sequential decode reproduces its own teacher-forced
     forward (the reference's property and bounds: bf16 for dense stacks;
@@ -320,10 +441,116 @@ def test_decode_matches_teacher_forcing(arch, dtype, kw, tol):
             assert rel(lt[:, 0], full[:, t]) < tol, t
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b", "whisper-tiny"])
-def test_build_refuses_the_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        build(TC.get(arch, smoke=True))
+def _shapes(tree, prefix=""):
+    """{path: shape} of a nested-dict tree of arrays, tensors or PSpecs."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _shapes(sub, f"{prefix}/{key}").items()}
+    return {prefix: tuple(tree.shape)}
+
+
+@pytest.mark.parametrize("arch", TC.ARCHS)
+def test_build_accepts_every_arch(arch):
+    """Every assigned architecture builds, with the reference's parameter
+    and decode-cache trees: the same paths and shapes."""
+    jcfg, tcfg = cfgs(arch)
+    jm, tm = jbuild(jcfg), build(tcfg)
+    assert _shapes(tm.abstract()) == _shapes(jm.abstract())
+    assert _shapes(tm.cache_specs(2, 24)) == _shapes(jm.cache_specs(2, 24))
+
+
+# ---------------------------------------------------------- encoder-decoder
+@pytest.mark.parametrize("S,d,offset", [(1, 64, 0), (7, 64, 5), (64, 64, 0),
+                                        (1500, 384, 0), (1, 384, 1234)])
+def test_sinusoidal_embedding_matches_reference(S, d, offset):
+    want = jl.sinusoidal_embedding(S, d, offset=offset)
+    got = tl.sinusoidal_embedding(S, d, offset=offset)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=2e-6)
+
+
+def _whisper(dtype, seed=0, B=2, S=9):
+    """The whisper smoke model's weights, random frames and tokens."""
+    jcfg, tcfg = cfgs("whisper-tiny", compute_dtype=dtype)
+    params = jbuild(jcfg).init(jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+    frames = rng.normal(size=(B, jcfg.enc_seq, jcfg.d_model)).astype(np.float32)
+    tok = rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)
+    return jcfg, tcfg, params, frames, tok
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_encode_and_decode_full_match_reference(dtype, tol):
+    """The encoder (non-causal attention over the frames), then the
+    teacher-forced decoder with its self and cross caches."""
+    jcfg, tcfg, params, frames, tok = _whisper(dtype)
+    jenc = jed.encode(params, jcfg, jnp.asarray(frames))
+    jh, jcache = jed.decode_full(params, jcfg, jnp.asarray(tok), jenc, want_cache=True)
+    with torch.inference_mode():
+        tp = T(params)
+        tenc = ted.encode(tp, tcfg, T(frames))
+        th, tcache = ted.decode_full(tp, tcfg, T(tok), tenc, want_cache=True)
+    assert tenc.dtype == getattr(torch, dtype) and rel(tenc, jenc) < tol
+    assert th.shape == jh.shape and rel(th, jh) < tol
+    for part in ("self", "cross"):
+        for n in ("k", "v"):
+            assert tcache[part][n].shape == jcache[part][n].shape
+            assert rel(tcache[part][n], jcache[part][n]) < tol, (part, n)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_whisper_prefill_and_decode_match_reference(dtype, tol):
+    """``Model.prefill`` on frames and a prompt, then teacher-forced
+    ``Model.decode`` steps on the prefill's cross cache and its self cache
+    padded to the decode length (the reference's decode drops writes past
+    its cache): logits within 1e-4 in float32 and 5e-2 in bf16."""
+    jcfg, tcfg, params, frames, tok = _whisper(dtype, seed=3, S=12)
+    P, steps = 6, 6
+    jm, tm = jbuild(jcfg), build(tcfg)
+    jcache, jlog = jax.jit(jm.prefill)(params, {"frames": jnp.asarray(frames),
+                                                "tokens": jnp.asarray(tok[:, :P])})
+    tp = T(params)
+    with torch.inference_mode():
+        tcache, tlog = tm.prefill(tp, {"frames": T(frames), "tokens": T(tok[:, :P])})
+    assert tlog.dtype == torch.float32 and tlog.shape == jlog.shape == (2, 1, jcfg.vocab)
+    assert rel(tlog, jlog) < tol
+    zeros = j_init(jm.cache_specs(2, P + steps), jax.random.PRNGKey(0))
+    jdc = {"self": {n: zeros["self"][n].at[:, :, :P].set(jcache["self"][n]) for n in ("k", "v")},
+           "cross": {n: jcache["cross"][n].astype(zeros["cross"][n].dtype) for n in ("k", "v")}}
+    tdc = init_params(tm.cache_specs(2, P + steps), None, "cpu")
+    for n in ("k", "v"):
+        tdc["self"][n][:, :, :P] = tcache["self"][n]
+        tdc["cross"][n].copy_(tcache["cross"][n])
+    jdec = jax.jit(jm.decode)
+    for t in range(P, P + steps):
+        jlog, jdc = jdec(params, jdc, jnp.asarray(tok[:, t:t + 1]), jnp.int32(t))
+        with torch.inference_mode():
+            tlog, tdc = tm.decode(tp, tdc, T(tok[:, t:t + 1]), t)
+        assert rel(tlog, jlog) < tol, t
+
+
+def test_whisper_decode_matches_teacher_forcing():
+    """The port alone, bf16: decode from zero self caches and the cross K/V
+    of the encoder output reproduces the teacher-forced decoder (the
+    reference's property and bound)."""
+    _, tcfg = cfgs("whisper-tiny")
+    model = build(tcfg)
+    params = model.init(torch.Generator().manual_seed(1), "cpu")
+    rng = np.random.default_rng(1)
+    B, S = 2, 12
+    frames = torch.as_tensor(rng.normal(size=(B, tcfg.enc_seq, tcfg.d_model)), dtype=torch.float32)
+    tok = torch.as_tensor(rng.integers(0, tcfg.vocab, (B, S)))
+    with torch.inference_mode():
+        enc = ted.encode(params, tcfg, frames)
+        hidden, _ = ted.decode_full(params, tcfg, tok, enc)
+        full = (hidden @ params["unembed"].to(hidden.dtype)).float()
+        cache = init_params(model.cache_specs(B, S), None, "cpu")
+        for i in range(tcfg.n_layers):
+            ck, cv = ted._cross_kv(tt.layer_params(params["dec_blocks"], i), enc, tcfg)
+            cache["cross"]["k"][i], cache["cross"]["v"][i] = ck, cv
+        for t in range(S):
+            lt, cache = model.decode(params, cache, tok[:, t:t + 1], t)
+            assert rel(lt[:, 0], full[:, t]) < 5e-2, t
 
 
 # ------------------------------------------------------------- parameters
@@ -385,3 +612,20 @@ def test_abstract_params_allocate_nothing_at_full_width():
     n = sum(t.numel() for t in leaves)
     norms = cfg.d_model * (2 * cfg.n_layers + 1)
     assert n - norms == cfg.n_params() == 8_371_855_360
+
+
+def test_mamba2_abstract_params_at_full_width():
+    """mamba2-2.7b as published: ``n_params()`` counts the embedding and the
+    SSM in/out projections; the spec tree adds each layer's norm, conv
+    weight and bias, A, D, dt bias and gated norm, and the final norm."""
+    cfg = TC.get("mamba2-2.7b")
+    tree = abstract_params(build(cfg).specs())
+    blocks = tree["blocks"]["pos0"]
+    assert set(blocks) == {"norm1", "ssm"}
+    counted = tree["embed"].numel() + sum(blocks["ssm"][k].numel() for k in ("in_proj", "out_proj"))
+    assert counted == cfg.n_params() == 2_700_349_440
+    extra = sum(t.numel() for k, t in blocks["ssm"].items() if k not in ("in_proj", "out_proj"))
+    extra += blocks["norm1"].numel() + tree["final_norm"].numel()
+    L, d, di, N, H, k = 64, 2560, 5120, 128, 80, 4
+    assert extra == L * (d + k * (di + 2 * N) + (di + 2 * N) + 3 * H + di) + d
+    assert all(t.device.type == "meta" for t in blocks["ssm"].values())

@@ -26,6 +26,8 @@ def test_import_loads_no_jax_and_no_reference():
                 "repro_torch.models", "repro_torch.models.common",
                 "repro_torch.models.layers", "repro_torch.models.moe",
                 "repro_torch.models.transformer", "repro_torch.models.model",
+                "repro_torch.models.ssm", "repro_torch.models.encdec",
+                "repro_torch.lm_profile",
                 "repro_torch.serve.engine", "repro_torch.launch",
                 "repro_torch.launch.serve"} <= set(names), names
         bad = sorted(m for m in sys.modules
@@ -60,6 +62,8 @@ def test_cuda_default_raises_without_cuda():
         lambda: PlanCache(),
         lambda: StragglerMonitor(2),
         lambda: Engine(get("granite-3-8b", smoke=True)),
+        lambda: Engine(get("mamba2-2.7b", smoke=True)),
+        lambda: Engine(get("jamba-v0.1-52b", smoke=True)),
         lambda: smoke_engine_factory("granite-3-8b", "serve"),
     ]
     for call in calls:
