@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's CEFT planning path, its serving router and its LM engines
-on one NVIDIA GPU and check them.
+"""Drive the port's CEFT planning path, its serving router, its LM engines and
+its training stack on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -67,6 +67,22 @@ Phases (any failure exits non-zero; nothing is caught):
      (4 + 4 layers, 1500 zero frames) through ``Model.prefill`` and 8
      teacher-forced ``Model.decode`` steps (logits within 1e-4), card
      against CPU in float32 with TF32 off;
+  g. training at minicpm-2b's published widths: g1, at 2 of its 40 layers,
+     one ``TrainStep`` on the card against the same weights and batch on the
+     CPU (float32 compute with TF32 off: loss within 1e-5 relative, grad
+     norm within 1e-4, each gradient leaf within 1e-4 of its largest entry;
+     bf16: loss, grad norm and the gradient tree within 5e-2; the updated
+     parameters within two learning rates everywhere); g2, all 40 layers (2.72 B parameters made on the card), five
+     steps through ``build_train`` and ``SyntheticLM`` at (B, S) = (2, 4096)
+     (train_4k's sequence, its global batch of 256 cut to 2 for one card),
+     every loss and grad norm finite, forward + backward and the AdamW
+     update timed apart beside their bounds, tokens/s and peak memory; then
+     ``StragglerMonitor(4, device="cuda")`` re-planning this cell's
+     672-task layer DAG bit-equal to the CPU, the degraded plan launching
+     ``ceft_relax``; g3, the ``Trainer`` loop on the card at the smoke
+     config: a failure at step 6 recovers from the step-4 checkpoint with
+     the unfailed run's losses within 2e-4, and a simulated straggler's
+     re-plan launches ``ceft_relax``;
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -90,8 +106,10 @@ import gc
 import importlib.util
 import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -111,13 +129,18 @@ from repro_torch.kernels.ceft_relax import ceft_relax_plain  # noqa: E402
 from repro_torch.kernels.edge_relax import edge_relax_plain, seg_level_plain  # noqa: E402
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
+from repro_torch.configs.base import ShapeCell  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.launch.steps import build_train  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models.common import init_params, tree_leaves, tree_to  # noqa: E402
-from repro_torch.sched import PlanCache, StragglerMonitor, plancache  # noqa: E402
+from repro_torch.models.common import sorted_leaves  # noqa: E402
+from repro_torch.sched import PlanCache, StragglerMonitor, build_layer_dag, plancache  # noqa: E402
 from repro_torch.serve import (Engine, EnginePool, EngineSlot, Request, Router,  # noqa: E402
                                ServeConfig,
                                WorkerSpec, null_engine_factory)
 from repro_torch.serve.faults import KINDS, install_chaos  # noqa: E402
+from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
 # the card's published peaks (H100 SXM, dense, at 700 W): memory and float32
 # outside the tensor cores from the data sheet; bf16 outside the tensor cores
@@ -180,6 +203,16 @@ E2_PROMPTS, E2_PER_TENANT, E2_NEW, E2_BATCH, E2_ROUNDS = (512, 256), 4, 32, 4, 2
 # whisper-tiny as published (prompt, teacher-forced decode steps)
 SSM_ARCH, F1_LAYERS, F1_PROMPTS = "mamba2-2.7b", 2, (64, 100)
 HYBRID_ARCH, ENCDEC_ARCH, F3_P, F3_STEPS = "jamba-v0.1-52b", "whisper-tiny", 16, 8
+# phase g: training at minicpm-2b's published widths; g1 at 2 of its 40
+# layers, one step card against CPU (B, S); g2 all 40 layers, train_4k's
+# sequence with its global batch of 256 cut to 2 for one card, steps; g3 the
+# Trainer loop at the smoke config (steps, failure step, straggler steps)
+TRAIN_ARCH, G1_LAYERS, G1_B, G1_S = "minicpm-2b", 2, 2, 128
+G2_B, G2_S, G2_STEPS, G2_PEAK_LR = 2, 4096, 5, 3e-4
+G3_STEPS, G3_FAIL, G3_SLOW = 8, 6, {6: (0, 2.5), 7: (0, 2.5), 8: (0, 2.5)}
+# bytes the AdamW update moves a float32 parameter: parameter, gradient and
+# both moments read, parameter and moments written
+ADAMW_BYTES_PER_PARAM = 28
 # the tensor cores' dense bf16 peak (the LM's products run in bf16)
 BF16_TENSOR_OPS_PER_S = 989e12
 
@@ -1270,6 +1303,282 @@ def ssm_path(device) -> dict:
                 f3=hybrid_and_encdec(device))
 
 
+def clone_tree(tree, device):
+    """A copy of every tensor of a nested-dict tree on ``device``."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def one_step(cfg, params, batch, device) -> dict:
+    """One ``TrainStep`` of ``cfg`` on ``device`` from a copy of ``params``,
+    its two halves apart: the loss and gradients, then the AdamW update.
+    Returns the loss, the grad norm, the gradients and the updated
+    parameters (sorted key order, on the CPU) and the step's rate."""
+    step, opt = build_train(build(cfg), G2_STEPS, G2_PEAK_LR)
+    p = clone_tree(params, device)
+    state = opt.init(p)
+    loss, grads = step.loss_and_grads(p, {k: torch.as_tensor(v, device=device)
+                                          for k, v in batch.items()})
+    p, state, gnorm = opt.update(grads, state, p)
+    return dict(loss=loss.item(), grad_norm=gnorm.item(), lr=float(opt.lr(state.count)),
+                grads=[t.float().cpu() for t in sorted_leaves(grads)],
+                params=[t.detach().float().cpu() for t in sorted_leaves(p)])
+
+
+def train_card_vs_cpu(device) -> dict:
+    """Phase g1: minicpm-2b at its published widths and 2 of its 40 layers,
+    weights made once on the CPU from a seed; one ``TrainStep`` on a fixed
+    ``SyntheticLM`` batch on the card against the CPU.  float32 compute
+    (TF32 off): the loss within 1e-5 relative, the grad norm within 1e-4,
+    each gradient leaf within 1e-4 of its largest entry; bf16 compute: the
+    loss and grad norm within 5e-2 and the gradient tree within 5e-2 of its
+    largest entry.  The updated parameters: no entry further from the CPU's
+    than two learning rates (Adam's first step is the gradient's sign where
+    the gradient is above its epsilon, so a gradient entry summed to near
+    zero may step either way; the share of entries off by more than a
+    hundredth of a step is reported)."""
+    tf32_off()
+    base = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=G1_LAYERS)
+    params = build(base).init(torch.Generator().manual_seed(LM_SEED), "cpu")
+    batch = SyntheticLM(DataConfig(base.vocab, G1_S, G1_B, LM_SEED)).batch(0)
+    out = dict(layers=G1_LAYERS, batch=[G1_B, G1_S],
+               params=sum(t.numel() for t in tree_leaves(params)))
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, compute_dtype=dtype)
+        card, cpu = (one_step(cfg, params, batch, d) for d in (device, "cpu"))
+        lr = cpu["lr"]
+        diffs = [(a - b).abs() for a, b in zip(card["params"], cpu["params"])]
+        errs = dict(
+            loss=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+            grad_norm=abs(card["grad_norm"] - cpu["grad_norm"]) / abs(cpu["grad_norm"]),
+            grad_leaf=max(float((a - b).abs().max() / b.abs().max())
+                          for a, b in zip(card["grads"], cpu["grads"])),
+            grad_tree=max(float((a - b).abs().max()) for a, b in zip(card["grads"], cpu["grads"]))
+            / max(float(b.abs().max()) for b in cpu["grads"]),
+            params_in_lr=max(float(d.max()) for d in diffs) / lr)
+        out_share = sum(int((d > 1e-2 * lr).sum()) for d in diffs) / out["params"]
+        f32 = dtype == "float32"
+        # two rates: a step of -lr against one of +lr, and the parameter's rounding
+        bounds = dict(loss=1e-5 if f32 else 5e-2, grad_norm=1e-4 if f32 else 5e-2,
+                      params_in_lr=2.01)
+        bounds["grad_leaf" if f32 else "grad_tree"] = 1e-4 if f32 else 5e-2
+        check(all(errs[k] <= b for k, b in bounds.items()),
+              f"{dtype}: the card's train step is off the CPU's by {errs} (bounds {bounds})")
+        check(np.isfinite(card["loss"]) and np.isfinite(card["grad_norm"]), "not finite")
+        out[dtype] = dict(loss=[card["loss"], cpu["loss"]],
+                          grad_norm=[card["grad_norm"], cpu["grad_norm"]], lr=lr,
+                          rel_err=errs, bounds=bounds, params_off_by_a_hundredth_step=out_share)
+    torch.cuda.empty_cache()
+    log(f"phase g1: {TRAIN_ARCH} at its published widths, {G1_LAYERS} layers "
+        f"({out['params']} parameters): one TrainStep at (B, S) = ({G1_B}, {G1_S}) card vs "
+        f"CPU: float32 (TF32 off) {out['float32']['rel_err']} (share of parameters off by "
+        f"over a hundredth of a step {out['float32']['params_off_by_a_hundredth_step']:.3e}), "
+        f"bf16 {out['bfloat16']['rel_err']} "
+        f"({out['bfloat16']['params_off_by_a_hundredth_step']:.3e})")
+    return out
+
+
+def train_bounds(cfg, B: int, S: int, n_params: int) -> dict:
+    """The least time (ms) the card could take for one full-width train
+    step.  Forward + backward: the products' operations over the dense bf16
+    tensor-core peak -- each layer weight and the (tied) unembedding on
+    B·S tokens, causal attention's QK and PV, 2 per multiply-add -- taken
+    4 times: the forward, the backward (twice the forward), and the forward
+    again that ``remat = "full"`` (each layer) and the chunked loss
+    (each logits chunk) recompute in the backward.  The AdamW update: 28
+    bytes a float32 parameter over the memory rate."""
+    d, V, L, hd = cfg.d_model, cfg.vocab, cfg.n_layers, cfg.hd
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    w_layer = d * hd * (hq + 2 * hkv) + hq * hd * d + 3 * d * cfg.d_ff
+    fwd = 2 * B * S * (L * w_layer + d * V) + 2 * B * L * hq * hd * S * (S + 1)
+    upd_bytes = ADAMW_BYTES_PER_PARAM * n_params
+    fb_ms = 4 * fwd / BF16_TENSOR_OPS_PER_S * 1e3
+    upd_ms = upd_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(fwd_bwd_flops=4 * fwd, fwd_bwd_bound_ms=fb_ms, fwd_bwd_bound_by="operations",
+                update_bytes=upd_bytes, update_bound_ms=upd_ms, update_bound_by="bytes",
+                step_bound_ms=fb_ms + upd_ms,
+                tokens_per_s_bound=B * S / ((fb_ms + upd_ms) / 1e3))
+
+
+def same_schedule(a, b, what: str) -> None:
+    check(np.array_equal(a.proc, b.proc) and np.array_equal(a.start, b.start)
+          and np.array_equal(a.finish, b.finish) and a.makespan == b.makespan,
+          f"{what}: the card's schedule differs from the CPU's")
+
+
+def train_replan(device, cfg, cell) -> dict:
+    """The straggler re-plan of the training layer DAG of ``cell``:
+    ``StragglerMonitor(4, device="cuda")`` against the same monitor on the
+    CPU, fed one quiet step, then class 0 slowed 2x until the monitor's
+    EWMA trips its threshold; every plan bit-equal to the CPU's, and the
+    degraded one launching ``ceft_relax``."""
+    g, comp, m, _ = build_layer_dag(cfg, cell)
+    runs = plancache.device_state(g, device)[0]
+    mons = {dev: StragglerMonitor(m.P, device=dev) for dev in (device, "cpu")}
+    steps, launches = [], []
+    for k in range(6):
+        times = np.ones(m.P)
+        if k:
+            times[0] = 2.0
+        before = ops.LAUNCHES["ceft_relax"]
+        t = time.perf_counter()
+        sched, ev = mons[device].maybe_replan(k, g, comp, m, times)
+        torch.cuda.synchronize()
+        steps.append(round(time.perf_counter() - t, 4))
+        launches.append(ops.LAUNCHES["ceft_relax"] - before)
+        want, want_ev = mons["cpu"].maybe_replan(k, g, comp, m, times)
+        same_schedule(sched, want, f"re-plan step {k}")
+        check((ev is None) == (want_ev is None), f"step {k}: events differ")
+        if ev is not None:
+            break
+    check(ev is not None and launches[-1] >= 1,
+          f"no degraded re-plan on the card launching ceft_relax: {launches}")
+    return dict(tasks=g.n, edges=g.n_edges, P=m.P,
+                layouts=[(r.layout, len(r.levels)) for r in runs],
+                step_s=steps, ceft_relax_launches=launches, slowdown=ev.slowdown,
+                makespan_ratio=ev.new_makespan / ev.old_makespan)
+
+
+def train_full_width(device) -> dict:
+    """Phase g2: minicpm-2b as published (40 layers, 2.72 B parameters made
+    on the card from a ``torch.Generator``; float32 weights and AdamW
+    moments, bf16 compute, the WSD schedule) through ``build_train`` and
+    ``SyntheticLM``: five steps at (B, S) = (2, 4096), every loss and grad
+    norm finite; forward + backward and the update timed apart (host clock
+    ended by a synchronize), beside their bounds, tokens/s and the peak
+    memory; then the straggler re-plan of this cell's layer DAG.  Starts
+    and ends with the card's memory free."""
+    cfg = configs.get(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free0 = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    model = build(cfg)
+    params = model.init(torch.Generator(device).manual_seed(LM_SEED), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    beyond = beyond_n_params(cfg)
+    check(n_params == cfg.n_params() + sum(beyond.values()),
+          f"{n_params} parameters, not {cfg.n_params()} and {beyond}")
+    step, opt = build_train(model, G2_STEPS, G2_PEAK_LR)
+    state = opt.init(params)
+    data = SyntheticLM(DataConfig(cfg.vocab, G2_S, G2_B, LM_SEED))
+    batches = [data.device_batch(i, device) for i in range(G2_STEPS)]
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      tree_leaves(params) + sorted_leaves(state.m) + sorted_leaves(state.v))
+    rows = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step.loss_and_grads(params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, state, gnorm = opt.update(grads, state, params)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del grads
+        rows.append(dict(loss=loss.item(), grad_norm=gnorm.item(),
+                         fwd_bwd_ms=(t1 - t0) * 1e3, update_ms=(t2 - t1) * 1e3))
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
+          f"a loss or grad norm is not finite: {rows}")
+    check(int(state.count) == G2_STEPS, f"count {int(state.count)}")
+    peak = torch.cuda.max_memory_allocated()
+    last = rows[-3:]
+    fb = float(np.median([r["fwd_bwd_ms"] for r in last]))
+    upd = float(np.median([r["update_ms"] for r in last]))
+    step_ms = float(np.median([r["fwd_bwd_ms"] + r["update_ms"] for r in last]))
+    bounds = train_bounds(cfg, G2_B, G2_S, n_params)
+    del params, state, batches, loss, gnorm, step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - free0
+    check(held < 2**28, f"{held} bytes still held after g2")
+    replan = train_replan(device, cfg, ShapeCell("g2", G2_S, G2_B, "train"))
+    card = smi("name,power.limit")
+    out = dict(arch=TRAIN_ARCH, layers=cfg.n_layers, params=n_params, beyond_n_params=beyond,
+               batch=[G2_B, G2_S], init_s=init_s, state_bytes=state_bytes, steps=rows,
+               fwd_bwd_ms=fb, update_ms=upd, step_ms=step_ms,
+               tokens_per_s=G2_B * G2_S / (step_ms / 1e3), max_memory_allocated=peak,
+               **bounds, replan=replan, card=card)
+    log(f"phase g2: {TRAIN_ARCH} as published ({cfg.n_layers} layers, {n_params} parameters, "
+        f"made on the card in {init_s:.1f} s; weights and moments {state_bytes / 1e9:.2f} GB): "
+        f"{G2_STEPS} steps at (B, S) = ({G2_B}, {G2_S}), losses "
+        f"{[round(r['loss'], 5) for r in rows]}, grad norms "
+        f"{[round(r['grad_norm'], 5) for r in rows]}")
+    log(f"phase g2: step {step_ms:.3f} ms (bound {bounds['step_bound_ms']:.3f}): forward + "
+        f"backward {fb:.3f} ms (bound {bounds['fwd_bwd_bound_ms']:.3f} ms, operations), "
+        f"AdamW update {upd:.3f} ms (bound {bounds['update_bound_ms']:.3f} ms, bytes), "
+        f"{out['tokens_per_s']:.1f} tokens/s (bound {bounds['tokens_per_s_bound']:.1f}), "
+        f"peak memory {peak / 1e9:.3f} GB; medians of the last 3; card {card}")
+    log(f"phase g2: straggler re-plan of the {replan['tasks']}-task layer DAG (P = "
+        f"{replan['P']}, layouts {replan['layouts']}): steps {replan['step_s']} s, "
+        f"ceft_relax launches {replan['ceft_relax_launches']}, bit-equal to the CPU, "
+        f"slowdown {replan['slowdown']:.3f}, makespan x{replan['makespan_ratio']:.3f}")
+    return out
+
+
+def trainer_loop(device) -> dict:
+    """Phase g3: the ``Trainer`` loop on the card at minicpm's smoke config
+    (checkpoints every 4 steps under a temporary directory the phase
+    removes): a failure at step 6 recovers from the step-4 checkpoint and
+    finishes, its losses from step 7 on equal to an unfailed run's within
+    2e-4 (the reference's bound); a ``straggler_sim`` run gives a
+    ``straggler_replan`` event whose re-plan launched ``ceft_relax``."""
+    cfg = configs.get(TRAIN_ARCH, smoke=True)
+    cell = ShapeCell("smoke", 32, 4, "train")
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(name, **kw):
+            """One Trainer run; returns it, its metrics, its seconds and each
+            re-plan call's (step, ceft_relax launches, event or not)."""
+            tr = Trainer(cfg, cell, TrainerConfig(steps=G3_STEPS, ckpt_every=4,
+                                                  ckpt_dir=f"{tmp}/{name}", log_every=1, **kw),
+                         device=device)
+            calls, replan = [], tr.monitor.maybe_replan
+
+            def watched(step, *args):
+                before = ops.LAUNCHES["ceft_relax"]
+                sched, ev = replan(step, *args)
+                calls.append((step, ops.LAUNCHES["ceft_relax"] - before, ev is not None))
+                return sched, ev
+            tr.monitor.maybe_replan = watched
+            t = time.perf_counter()
+            metrics = tr.run()
+            return tr, metrics, time.perf_counter() - t, calls
+
+        _, ma, sa, _ = run("a")
+        tb, mb, sb, _ = run("b", fail_at_steps=(G3_FAIL,))
+        la = {m["step"]: m["loss"] for m in ma if "loss" in m}
+        lb = {m["step"]: m["loss"] for m in mb if "loss" in m}
+        restarts = [m for m in mb if "restart" in str(m.get("event"))]
+        check(tb.restarts == 1 and len(restarts) == 1 and max(lb) == G3_STEPS,
+              f"recovery: {tb.restarts} restarts, {restarts}, steps {sorted(lb)}")
+        errs = {s: abs(la[s] - lb[s]) / abs(la[s]) for s in range(G3_FAIL + 1, G3_STEPS + 1)}
+        check(all(e <= 2e-4 for e in errs.values()), f"recovered losses off by {errs}")
+        _, mc, sc, calls = run("c", straggler_sim=G3_SLOW)
+        ev = [m for m in mc if m.get("event") == "straggler_replan"]
+        first = next((c for c in calls if c[2]), None)
+        check(len(ev) >= 1 and first is not None and first[1] >= 1,
+              f"straggler: events {ev}, re-plan calls (step, ceft_relax, event) {calls}")
+        check(os.path.isdir(tmp), "the checkpoint directory is gone")
+    check(not os.path.exists(tmp), "the checkpoint directory was not removed")
+    out = dict(steps=G3_STEPS, fail_at=G3_FAIL, losses=la, recovered_losses=lb,
+               recovery_rel_err=errs, run_s=[sa, sb, sc], straggler_events=ev,
+               replan_calls=calls)
+    log(f"phase g3: Trainer on the card, {cfg.name}: unfailed {sa:.2f} s, failure at step "
+        f"{G3_FAIL} recovered from step 4 in {sb:.2f} s, losses after it off by {errs} "
+        f"(bound 2e-4); straggler run {sc:.2f} s: {len(ev)} straggler_replan events, the "
+        f"first {ev[0]}; re-plan calls (step, ceft_relax launches, event) {calls}")
+    return out
+
+
+def training_path(device) -> dict:
+    """Phase g: training (g1, g2, g3)."""
+    return dict(g1=train_card_vs_cpu(device), g2=train_full_width(device),
+                g3=trainer_loop(device))
+
+
 def bound(nbytes: int, n_ops: int, dtype=torch.float32) -> tuple[float, str]:
     """The least time the card could take (ms) for operations on ``dtype``
     outside the tensor cores, and what bounds it."""
@@ -1508,6 +1817,14 @@ def main() -> int:
     _, by_path["chaos"] = counted(chaos_soak, device)
     _, by_path["lm_serving"] = counted(lm_path, device)
     _, by_path["lm_ssm"] = counted(ssm_path, device)
+    train, by_path["training"] = counted(training_path, device)
+    replan_dense = sum(n for layout, n in train["g2"]["replan"]["layouts"] if layout == "dense")
+    check(by_path["training"]["ceft_relax"] >= replan_dense,
+          f"the training path launched ceft_relax {by_path['training']['ceft_relax']} times, "
+          f"less than one re-plan's {replan_dense} dense levels")
+    log(f"training path launches: {by_path['training']} (a re-plan of the g2 layer DAG "
+        f"sweeps {replan_dense} dense levels)")
+    print(json.dumps({"training": train}), flush=True)
     log(f"launches by path: {by_path}")
 
     ops.reset_launches()

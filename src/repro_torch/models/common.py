@@ -22,6 +22,7 @@ from types import MappingProxyType
 from typing import Any, Callable, Iterator, Mapping
 
 import torch
+import torch.utils.checkpoint
 
 # logical axis name -> preferred mesh axes (applied greedily, outermost first).
 # The baseline table; profile overlays never mutate it.
@@ -236,6 +237,22 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def sorted_leaves(tree, out: list | None = None) -> list:
+    """The leaves of a tree in the reference's tree order (``jax.tree``'s):
+    dict keys sorted, tuple and ``NamedTuple`` fields in order, None an
+    empty subtree."""
+    out = [] if out is None else out
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            sorted_leaves(tree[k], out)
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            sorted_leaves(x, out)
+    elif tree is not None:
+        out.append(tree)
+    return out
+
+
 def tree_to(tree, device):
     """The same tree with every tensor moved to ``device`` (a copy per leaf
     unless it is there already)."""
@@ -249,3 +266,12 @@ def abstract_params(spec_tree, param_dtype=torch.float32):
     dtype = torch_dtype(param_dtype)
     return tree_map_pspec(
         lambda _, p: torch.empty(p.shape, dtype=dtype, device="meta"), spec_tree)
+
+
+def checkpointed(fn, *args, enabled: bool = True):
+    """``fn(*args)``, keeping only its inputs for the backward pass and
+    recomputing its activations there (what ``jax.checkpoint`` does).
+    Without autograd (inference), or not ``enabled``, it is a plain call."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)

@@ -5,14 +5,15 @@ precomputed frame embeddings (B, T_enc, D).  Sinusoidal absolute positions
 on both sides (no RoPE), GELU 2-proj MLPs, MHA.  Decode keeps a self-attn KV
 cache plus fixed cross-attn K/V over the encoder output.  The reference's
 ``lax.scan`` over each stack becomes a Python loop over views of the stacked
-tensors; the training loss is not ported yet.
+tensors, each block recomputed in the backward pass when ``cfg.remat ==
+"full"`` (the reference's ``jax.checkpoint`` of the scan body).
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ArchConfig
-from .common import PSpec, torch_dtype
+from .common import PSpec, checkpointed, torch_dtype
 from .layers import (
     attn_decode,
     attn_prefill,
@@ -24,7 +25,7 @@ from .layers import (
     rmsnorm_spec,
     sinusoidal_embedding,
 )
-from .transformer import layer_params, stack_specs
+from .transformer import layer_params, stack_specs, xent_loss
 
 
 def enc_block_specs(cfg: ArchConfig) -> dict:
@@ -70,18 +71,22 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
             "cross": {"k": kv(cfg.enc_seq), "v": kv(cfg.enc_seq)}}
 
 
+def _enc_block(cfg: ArchConfig, bp, x):
+    h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    a, _ = attn_prefill(bp["attn"], h, cfg, None, causal=False)
+    x = x + a
+    h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
+    return x + mlp(bp["mlp"], h, cfg)
+
+
 def encode(params, cfg: ArchConfig, frames):
     """frames: (B, T, D) stub embeddings -> (B, T, D) encoder states."""
     B, T, D = frames.shape
     x = frames.to(torch_dtype(cfg.compute_dtype))
     x = x + sinusoidal_embedding(T, D, device=x.device).to(x.dtype)[None]
     for i in range(cfg.enc_layers):
-        bp = layer_params(params["enc_blocks"], i)
-        h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-        a, _ = attn_prefill(bp["attn"], h, cfg, None, causal=False)
-        x = x + a
-        h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
-        x = x + mlp(bp["mlp"], h, cfg)
+        x = checkpointed(_enc_block, cfg, layer_params(params["enc_blocks"], i), x,
+                         enabled=cfg.remat == "full")
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -105,31 +110,43 @@ def _cross_attend(bp, h, k, v, cfg: ArchConfig):
     return out @ bp["cross_attn"]["wo"].to(h.dtype)
 
 
+def _dec_block(cfg: ArchConfig, bp, x, enc_out):
+    h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    a, (k, v) = attn_prefill(bp["self_attn"], h, cfg, None, causal=True)
+    x = x + a
+    h = rmsnorm(bp["norm_x"], x, cfg.norm_eps)
+    ck, cv = _cross_kv(bp, enc_out, cfg)
+    x = x + _cross_attend(bp, h, ck, cv, cfg)
+    h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
+    return x + mlp(bp["mlp"], h, cfg), {"self": {"k": k, "v": v}, "cross": {"k": ck, "v": cv}}
+
+
 def decode_full(params, cfg: ArchConfig, tokens, enc_out, want_cache=False):
-    """Teacher-forced decoder pass (prefill).  Returns (hidden (B, S, D),
-    cache|None); the cache holds the self-attn K/V (layers, B, S, Hkv, hd)
-    and the cross-attn K/V over the encoder output."""
+    """Teacher-forced decoder pass (training / prefill).  Returns (hidden (B,
+    S, D), cache|None); the cache holds the self-attn K/V (layers, B, S, Hkv,
+    hd) and the cross-attn K/V over the encoder output."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
     x = x + sinusoidal_embedding(S, cfg.d_model, device=x.device).to(x.dtype)[None]
     caches = []
     for i in range(cfg.n_layers):
-        bp = layer_params(params["dec_blocks"], i)
-        h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-        a, (k, v) = attn_prefill(bp["self_attn"], h, cfg, None, causal=True)
-        x = x + a
-        h = rmsnorm(bp["norm_x"], x, cfg.norm_eps)
-        ck, cv = _cross_kv(bp, enc_out, cfg)
-        x = x + _cross_attend(bp, h, ck, cv, cfg)
-        h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
-        x = x + mlp(bp["mlp"], h, cfg)
+        x, cache = checkpointed(_dec_block, cfg, layer_params(params["dec_blocks"], i), x,
+                                enc_out, enabled=cfg.remat == "full")
         if want_cache:
-            caches.append({"self": {"k": k, "v": v}, "cross": {"k": ck, "v": cv}})
+            caches.append(cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if not want_cache:
         return x, None
     return x, {part: {n: torch.stack([c[part][n] for c in caches]) for n in ("k", "v")}
                for part in ("self", "cross")}
+
+
+def loss(params, cfg: ArchConfig, frames, tokens, labels):
+    """(cross-entropy of the decoder on ``labels``, a zero aux term)."""
+    enc_out = encode(params, cfg, frames)
+    hidden, _ = decode_full(params, cfg, tokens, enc_out)
+    return (xent_loss(params, cfg, hidden, labels),
+            torch.zeros((), dtype=torch.float32, device=hidden.device))
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int):

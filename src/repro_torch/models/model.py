@@ -1,12 +1,13 @@
-"""Model facade: one object per architecture exposing spec trees, init and
-the prefill/decode functions."""
+"""Model facade: one object per architecture exposing spec trees, init,
+the loss, the prefill/decode functions and input specs for every shape
+cell."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeCell
 from . import encdec, transformer
 from .common import abstract_params, init_params, torch_dtype
 
@@ -32,6 +33,22 @@ class Model:
             return encdec.cache_specs(self.cfg, batch, seq)
         return transformer.cache_specs(self.cfg, batch, seq)
 
+    def loss(self, params, batch) -> torch.Tensor:
+        """batch: tokens/labels (+ frames for encdec, embeds/positions for vlm);
+        the mean cross-entropy plus the MoE load-balance term, float32."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            l, aux = encdec.loss(params, cfg, batch["frames"], batch["tokens"],
+                                 batch["labels"])
+            return l + aux
+        hidden, aux, _ = transformer.forward_full(
+            params, cfg,
+            tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"),
+            positions=batch.get("positions"),
+        )
+        return transformer.xent_loss(params, cfg, hidden, batch["labels"]) + aux
+
     def prefill(self, params, batch):
         """Returns (per-layer cache stacked over periods, last-token logits);
         the encoder-decoder takes ``batch["frames"]`` beside the tokens."""
@@ -56,6 +73,38 @@ class Model:
             return encdec.decode_step(params, self.cfg, cache, tokens, pos)
         return transformer.decode_step(params, self.cfg, cache, tokens=tokens,
                                        pos=pos, positions=positions)
+
+    def input_specs(self, cell: ShapeCell) -> dict[str, torch.Tensor]:
+        """Stand-ins on the ``meta`` device (shape and dtype, no bytes) for
+        every model input of a shape cell, as the reference's
+        ``jax.ShapeDtypeStruct`` stand-ins."""
+        cfg = self.cfg
+        B, S = cell.global_batch, cell.seq_len
+
+        def spec(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        frames = (B, cfg.enc_seq, cfg.d_model)
+        if cell.kind == "train":
+            if cfg.family == "encdec":
+                return {"frames": spec(frames, torch.float32), "tokens": spec((B, S)),
+                        "labels": spec((B, S))}
+            if cfg.family == "vlm":
+                return {"embeds": spec((B, S, cfg.d_model), torch.float32),
+                        "labels": spec((B, S)), "positions": spec((3, B, S))}
+            return {"tokens": spec((B, S)), "labels": spec((B, S))}
+        if cell.kind == "prefill":
+            if cfg.family == "encdec":
+                return {"frames": spec(frames, torch.float32), "tokens": spec((B, S))}
+            if cfg.family == "vlm":
+                return {"embeds": spec((B, S, cfg.d_model), torch.float32),
+                        "positions": spec((3, B, S))}
+            return {"tokens": spec((B, S))}
+        # decode: one new token against a seq_len cache
+        out = {"tokens": spec((B, 1)), "pos": spec(())}
+        if cfg.family == "vlm":
+            out["positions"] = spec((3, B, 1))
+        return out
 
 
 def build(cfg: ArchConfig) -> Model:

@@ -4,17 +4,20 @@ VLM families with one code path.
 The layer pattern (``configs.base.layer_pattern``) gives the (sequence-mixer,
 channel-mixer) pair per *period position*; parameters are stacked over periods
 as in the reference, whose ``lax.scan`` over the stack becomes a Python loop
-over views of the stacked tensors here (no rematerialization: this package
-runs inference only).
+over views of the stacked tensors here.  Training differentiates the same
+code with autograd; ``cfg.remat == "full"`` recomputes each period's
+activations in the backward pass, as the reference's ``jax.checkpoint`` of
+the scan body does.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .common import PSpec, torch_dtype, tree_map_pspec
+from .common import PSpec, checkpointed, torch_dtype, tree_map_pspec
 from .layers import (
     attn_decode,
     attn_prefill,
@@ -146,9 +149,10 @@ def _uses_rope(cfg: ArchConfig) -> bool:
 
 def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
                  positions=None, want_cache: bool = False):
-    """Prefill forward.  Returns (hidden (B,S,D), aux, cache|None); the cache
-    holds each period position's entries stacked over periods: (periods, B,
-    S, Hkv, hd) K and V, or the SSM state and conv tail."""
+    """Training / prefill forward.  Returns (hidden (B,S,D), aux, cache|None);
+    the cache holds each period position's entries stacked over periods:
+    (periods, B, S, Hkv, hd) K and V, or the SSM state and conv tail.  It
+    writes nothing in place, so autograd runs through it."""
     x = embed_tokens(params, cfg, tokens, embeds)
     B, S, _ = x.shape
     cos_sin = None
@@ -159,7 +163,8 @@ def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for i in range(cfg.n_layers // cfg.period):
-        x, a, cache = _period_fwd(cfg, layer_params(params["blocks"], i), x, cos_sin)
+        x, a, cache = checkpointed(_period_fwd, cfg, layer_params(params["blocks"], i), x,
+                                   cos_sin, enabled=cfg.remat == "full")
         aux = aux + a
         if want_cache:
             caches.append(cache)
@@ -204,3 +209,35 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
                     x = x + moe(b["moe"], h2, cfg)[0]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, cfg, x), cache
+
+
+# ------------------------------------------------------------------------- loss
+def _xent_chunk(params, cfg: ArchConfig, h, labels):
+    """One sequence chunk's summed cross-entropy and its count of valid
+    labels (label -1 is padding), from float32 logits."""
+    logits = unembed(params, cfg, h)                                  # (B,c,V) fp32
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def xent_loss(params, cfg: ArchConfig, hidden, labels):
+    """Chunked softmax cross-entropy: the (B, S, V) logits are never
+    materialized; each sequence chunk computes its own float32 logits, and
+    the backward pass recomputes them chunk by chunk (the reference's
+    ``jax.checkpoint`` of its scan step)."""
+    B, S, D = hidden.shape
+    c = min(cfg.loss_chunk, S)
+    pad = (-S) % c
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range((S + pad) // c):
+        loss, n = checkpointed(_xent_chunk, params, cfg, hidden[:, i * c:(i + 1) * c],
+                               labels[:, i * c:(i + 1) * c])
+        tot = tot + loss
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

@@ -452,3 +452,43 @@ def test_whisper_on_the_card_matches_the_cpu(cuda):
         logits[dev] = [x.float().cpu() for x in out]
     for got, want in zip(logits[cuda], logits["cpu"]):
         assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------- the train step
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mixtral-8x22b", "mamba2-2.7b",
+                                  "jamba-v0.1-52b", "whisper-tiny"])
+def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
+    """Three ``TrainStep``s of a smoke config on the card against the same
+    weights and batches on the CPU, float32 compute with TF32 off: losses
+    within 1e-5 relative, grad norms within 1e-4."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models import build
+    from repro_torch.models.common import tree_to
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(configs.get(arch, smoke=True), compute_dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    data = SyntheticLM(DataConfig(cfg.vocab, 64, 2, 0))
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    metrics = {}
+    for dev in (cuda, "cpu"):      # the CPU run last: it updates ``params`` in place
+        step, opt = build_train(model, 10, 5e-3)
+        p = tree_to(params, dev)
+        state = opt.init(p)
+        out = []
+        for i in range(3):
+            batch = data.device_batch(i, dev)
+            if cfg.family == "encdec":
+                batch["frames"] = frames.to(dev)
+            p, state, m = step(p, state, batch)
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+        metrics[dev] = out
+    for (l1, g1), (l2, g2) in zip(metrics[cuda], metrics["cpu"]):
+        assert abs(l1 - l2) <= 1e-5 * abs(l2) and abs(g1 - g2) <= 1e-4 * abs(g2)

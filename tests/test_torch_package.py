@@ -29,7 +29,14 @@ def test_import_loads_no_jax_and_no_reference():
                 "repro_torch.models.ssm", "repro_torch.models.encdec",
                 "repro_torch.lm_profile",
                 "repro_torch.serve.engine", "repro_torch.launch",
-                "repro_torch.launch.serve"} <= set(names), names
+                "repro_torch.launch.serve",
+                "repro_torch.sched.layer_dag", "repro_torch.sched.partitioner",
+                "repro_torch.optim", "repro_torch.optim.adamw",
+                "repro_torch.optim.schedules", "repro_torch.data",
+                "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                "repro_torch.checkpoint.checkpointer", "repro_torch.train",
+                "repro_torch.train.trainer", "repro_torch.launch.steps",
+                "repro_torch.launch.train"} <= set(names), names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
@@ -48,6 +55,8 @@ def test_cuda_default_raises_without_cuda():
     from repro_torch.configs import get
     from repro_torch.sched import PlanCache, StragglerMonitor
     from repro_torch.serve import Engine, smoke_engine_factory
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.train import Trainer, TrainerConfig
 
     g = from_edges(3, [(0, 2, 1.0), (1, 2, 1.0)])
     comp = np.ones((3, 2))
@@ -65,6 +74,8 @@ def test_cuda_default_raises_without_cuda():
         lambda: Engine(get("mamba2-2.7b", smoke=True)),
         lambda: Engine(get("jamba-v0.1-52b", smoke=True)),
         lambda: smoke_engine_factory("granite-3-8b", "serve"),
+        lambda: Trainer(get("minicpm-2b", smoke=True), ShapeCell("t", 16, 2, "train"),
+                        TrainerConfig(steps=1)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -72,9 +83,10 @@ def test_cuda_default_raises_without_cuda():
     assert ct.ceft_torch_csr(g, comp, m, device="cpu").cpl == 2.0
 
 
-def test_launcher_defaults_to_the_card():
-    """``python -m repro_torch.launch.serve`` without ``--device`` raises on a
-    machine without CUDA rather than serving on the CPU."""
+def test_launcher_defaults_to_the_card(tmp_path):
+    """``python -m repro_torch.launch.serve`` (``.train``) without
+    ``--device`` raises on a machine without CUDA rather than serving
+    (training) on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     import os
@@ -83,6 +95,7 @@ def test_launcher_defaults_to_the_card():
 
     from conftest import REPO
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--max-new", "1"],
-                       env=env, capture_output=True, text=True, timeout=120)
-    assert r.returncode != 0 and "CUDA is not available" in r.stderr, r.stderr
+    for launcher, args in (("serve", ["--max-new", "1"]), ("train", ["--steps", "1"])):
+        r = subprocess.run([sys.executable, "-m", f"repro_torch.launch.{launcher}", *args],
+                           env=env, capture_output=True, text=True, timeout=120, cwd=tmp_path)
+        assert r.returncode != 0 and "CUDA is not available" in r.stderr, (launcher, r.stderr)
