@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's CEFT planning path, its serving router, its LM engines and
-its training stack on one NVIDIA GPU and check them.
+"""Drive the port's CEFT planning path, its serving router, its LM engines, its
+training stack and its distribution substrate on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -83,6 +84,20 @@ Phases (any failure exits non-zero; nothing is caught):
      config: a failure at step 6 recovers from the step-4 checkpoint with
      the unfailed run's losses within 2e-4, and a simulated straggler's
      re-plan launches ``ceft_relax``;
+  h. the distribution substrate: h1, minicpm-2b as published through
+     ``build_train(model, mesh)`` on a (data 1, model 1) mesh of this
+     process's one-rank NCCL world (state laid out by ``Model.shardings``),
+     two ``ShardedTrainStep``s from g2's seed and batches: losses within
+     1e-5 and grad norms within 1e-4 of g2's first two, step time and peak
+     beside g2's; h2, the GPipe forward at granite-3-8b's widths cut to 8
+     layers over 4 pipe ranks spawned on the card (gloo: NCCL refuses two
+     ranks on one card), each making its own layers from per-layer seeds,
+     (B, S) = (8, 512), 4 microbatches, float32 with TF32 off: within 1e-5
+     of the plain stacked forward on the card, both timed; h3,
+     ``compressed_psum`` over 2 pod ranks spawned on the card (gloo), 64 MiB
+     of float32 each, bit-equal to its formula in plain PyTorch on the card,
+     and ``ef_quantize``'s invariant over 50 rounds; h4, g3 with the
+     ``Trainer`` on ``make_test_mesh``;
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -117,6 +132,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+from torch.distributed.tensor import DTensor, Shard  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import ceft_reference, planners, random_machine  # noqa: E402
@@ -131,15 +148,22 @@ from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain 
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
 from repro_torch.configs.base import ShapeCell  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
-from repro_torch.launch.steps import build_train  # noqa: E402
-from repro_torch.models import build  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
+from repro_torch.launch.pipeline import pipeline_forward  # noqa: E402
+from repro_torch.launch.steps import build_train, input_shardings  # noqa: E402
+from repro_torch.models import build, transformer  # noqa: E402
 from repro_torch.models.common import init_params, tree_leaves, tree_to  # noqa: E402
 from repro_torch.models.common import sorted_leaves  # noqa: E402
+from repro_torch.models.layers import rmsnorm  # noqa: E402
+from repro_torch.optim import grad_compress  # noqa: E402
+from repro_torch.optim.adamw import tree_map_sorted  # noqa: E402
+from repro_torch.optim.grad_compress import compressed_psum  # noqa: E402
 from repro_torch.sched import PlanCache, StragglerMonitor, build_layer_dag, plancache  # noqa: E402
 from repro_torch.serve import (Engine, EnginePool, EngineSlot, Request, Router,  # noqa: E402
                                ServeConfig,
                                WorkerSpec, null_engine_factory)
 from repro_torch.serve.faults import KINDS, install_chaos  # noqa: E402
+from repro_torch.substrate import distribute, init_group, make_mesh  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
 # the card's published peaks (H100 SXM, dense, at 700 W): memory and float32
@@ -210,6 +234,14 @@ HYBRID_ARCH, ENCDEC_ARCH, F3_P, F3_STEPS = "jamba-v0.1-52b", "whisper-tiny", 16,
 TRAIN_ARCH, G1_LAYERS, G1_B, G1_S = "minicpm-2b", 2, 2, 128
 G2_B, G2_S, G2_STEPS, G2_PEAK_LR = 2, 4096, 5, 3e-4
 G3_STEPS, G3_FAIL, G3_SLOW = 8, 6, {6: (0, 2.5), 7: (0, 2.5), 8: (0, 2.5)}
+# phase h: the distribution substrate; h1 g2's model, seed and batches through
+# the meshed step (steps); h2 the GPipe forward at granite-3-8b's widths cut to
+# 8 layers over 4 pipe ranks sharing the card (microbatches, B, S, seed); h3
+# compressed_psum over 2 pod ranks, 64 MiB of float32 each, and 50 rounds of
+# error feedback; h4 is g3 on a mesh
+H1_STEPS = 2
+H2_LAYERS, H2_STAGES, H2_MICRO, H2_B, H2_S, H2_SEED = 8, 4, 4, 8, 512, 11
+H3_PODS, H3_NUMEL, H3_ROUNDS, H3_SEED = 2, 16 * 2**20, 50, 13
 # bytes the AdamW update moves a float32 parameter: parameter, gradient and
 # both moments read, parameter and moments written
 ADAMW_BYTES_PER_PARAM = 28
@@ -1315,7 +1347,7 @@ def one_step(cfg, params, batch, device) -> dict:
     its two halves apart: the loss and gradients, then the AdamW update.
     Returns the loss, the grad norm, the gradients and the updated
     parameters (sorted key order, on the CPU) and the step's rate."""
-    step, opt = build_train(build(cfg), G2_STEPS, G2_PEAK_LR)
+    step, opt, _ = build_train(build(cfg), None, G2_STEPS, G2_PEAK_LR)
     p = clone_tree(params, device)
     state = opt.init(p)
     loss, grads = step.loss_and_grads(p, {k: torch.as_tensor(v, device=device)
@@ -1462,7 +1494,7 @@ def train_full_width(device) -> dict:
     beyond = beyond_n_params(cfg)
     check(n_params == cfg.n_params() + sum(beyond.values()),
           f"{n_params} parameters, not {cfg.n_params()} and {beyond}")
-    step, opt = build_train(model, G2_STEPS, G2_PEAK_LR)
+    step, opt, _ = build_train(model, None, G2_STEPS, G2_PEAK_LR)
     state = opt.init(params)
     data = SyntheticLM(DataConfig(cfg.vocab, G2_S, G2_B, LM_SEED))
     batches = [data.device_batch(i, device) for i in range(G2_STEPS)]
@@ -1519,13 +1551,14 @@ def train_full_width(device) -> dict:
     return out
 
 
-def trainer_loop(device) -> dict:
-    """Phase g3: the ``Trainer`` loop on the card at minicpm's smoke config
-    (checkpoints every 4 steps under a temporary directory the phase
-    removes): a failure at step 6 recovers from the step-4 checkpoint and
-    finishes, its losses from step 7 on equal to an unfailed run's within
-    2e-4 (the reference's bound); a ``straggler_sim`` run gives a
-    ``straggler_replan`` event whose re-plan launched ``ceft_relax``."""
+def trainer_loop(device, phase: str = "g3", mesh_factory=None) -> dict:
+    """Phase g3 (h4 with a mesh factory): the ``Trainer`` loop on the card at
+    minicpm's smoke config (checkpoints every 4 steps under a temporary
+    directory the phase removes): a failure at step 6 recovers from the
+    step-4 checkpoint and finishes, its losses from step 7 on equal to an
+    unfailed run's within 2e-4 (the reference's bound); a ``straggler_sim``
+    run gives a ``straggler_replan`` event whose re-plan launched
+    ``ceft_relax``."""
     cfg = configs.get(TRAIN_ARCH, smoke=True)
     cell = ShapeCell("smoke", 32, 4, "train")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1534,7 +1567,7 @@ def trainer_loop(device) -> dict:
             re-plan call's (step, ceft_relax launches, event or not)."""
             tr = Trainer(cfg, cell, TrainerConfig(steps=G3_STEPS, ckpt_every=4,
                                                   ckpt_dir=f"{tmp}/{name}", log_every=1, **kw),
-                         device=device)
+                         mesh_factory, device=device)
             calls, replan = [], tr.monitor.maybe_replan
 
             def watched(step, *args):
@@ -1565,8 +1598,8 @@ def trainer_loop(device) -> dict:
     check(not os.path.exists(tmp), "the checkpoint directory was not removed")
     out = dict(steps=G3_STEPS, fail_at=G3_FAIL, losses=la, recovered_losses=lb,
                recovery_rel_err=errs, run_s=[sa, sb, sc], straggler_events=ev,
-               replan_calls=calls)
-    log(f"phase g3: Trainer on the card, {cfg.name}: unfailed {sa:.2f} s, failure at step "
+               replan_calls=calls, mesh=None if tb.mesh is None else list(tb.mesh.mesh.shape))
+    log(f"phase {phase}: Trainer on the card, {cfg.name}: unfailed {sa:.2f} s, failure at step "
         f"{G3_FAIL} recovered from step 4 in {sb:.2f} s, losses after it off by {errs} "
         f"(bound 2e-4); straggler run {sc:.2f} s: {len(ev)} straggler_replan events, the "
         f"first {ev[0]}; re-plan calls (step, ceft_relax launches, event) {calls}")
@@ -1577,6 +1610,258 @@ def training_path(device) -> dict:
     """Phase g: training (g1, g2, g3)."""
     return dict(g1=train_card_vs_cpu(device), g2=train_full_width(device),
                 g3=trainer_loop(device))
+
+
+def meshed_full_width(device, g2: dict) -> dict:
+    """Phase h1: minicpm-2b as published (all 40 layers, g2's generator
+    seed, batches, schedule and rate) through ``build_train(model, mesh)``
+    on a (data 1, model 1) mesh of the NCCL world of this one process: the
+    state laid out by ``Model.shardings`` under the baseline profile, two
+    ``ShardedTrainStep``s at (B, S) = (2, 4096).  Their losses within 1e-5
+    relative and grad norms within 1e-4 of g2's first two (one rank computes
+    what g2 computed; only the embedding backward's atomics may move a last
+    bit).  Starts and ends with the card's memory free."""
+    cfg = configs.get(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free0 = torch.cuda.memory_allocated()
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    model = build(cfg)
+    step, opt, sh = build_train(model, mesh, G2_STEPS, G2_PEAK_LR)
+    params = model.init(torch.Generator(device).manual_seed(LM_SEED), device)
+    params = tree_map_sorted(distribute, params, sh["params"])
+    state = opt.init(params)
+    in_sh = input_shardings(model.input_specs(ShapeCell("h1", G2_S, G2_B, "train")), mesh)
+    data = SyntheticLM(DataConfig(cfg.vocab, G2_S, G2_B, LM_SEED))
+    rows = []
+    for i in range(H1_STEPS):
+        batch = data.sharded_batch(i, in_sh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        rows.append(dict(loss=loss, grad_norm=gn, step_ms=(time.perf_counter() - t0) * 1e3))
+    peak = torch.cuda.max_memory_allocated()
+    errs = [dict(loss=abs(r["loss"] - w["loss"]) / abs(w["loss"]),
+                 grad_norm=abs(r["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"]))
+            for r, w in zip(rows, g2["steps"])]
+    check(all(e["loss"] <= 1e-5 and e["grad_norm"] <= 1e-4 for e in errs),
+          f"the meshed steps are off g2's by {errs}")
+    placements = sorted({str(x.placements) for x in sorted_leaves(params)})
+    del params, state, batch, m, step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - free0
+    check(held < 2**28, f"{held} bytes still held after h1")
+    g2_ms = [r["fwd_bwd_ms"] + r["update_ms"] for r in g2["steps"][:H1_STEPS]]
+    out = dict(backend=dist.get_backend(), world=dist.get_world_size(), mesh=[1, 1],
+               steps=rows, rel_err=errs, g2_step_ms=g2_ms, max_memory_allocated=peak,
+               g2_max_memory_allocated=g2["max_memory_allocated"], placements=placements)
+    log(f"phase h1: {TRAIN_ARCH} as published through build_train(model, mesh) on a (data 1, "
+        f"model 1) mesh, backend {out['backend']}, world {out['world']}: losses "
+        f"{[r['loss'] for r in rows]}, grad norms {[r['grad_norm'] for r in rows]}, off g2's "
+        f"by {errs} (bounds 1e-5, 1e-4); step ms {[round(r['step_ms'], 3) for r in rows]} "
+        f"(g2's {[round(t, 3) for t in g2_ms]}); peak {peak / 1e9:.3f} GB (g2's "
+        f"{g2['max_memory_allocated'] / 1e9:.3f}); placements {placements}")
+    return out
+
+
+def spawn_ranks(fn, world: int, tmp: str, *args, timeout: float = 300.0) -> list:
+    """Run ``fn(rank, world, init_method, tmp, *args)`` on ``world`` spawned
+    processes with a deadline (every process killed past it); returns each
+    rank's result, read from ``tmp/rank{r}.pt``."""
+    ctx = torch.multiprocessing.start_processes(
+        fn, args=(world, f"file://{tmp}/rendezvous", tmp, *args), nprocs=world, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline, f"{fn.__name__} ran past {timeout} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def pipe_layer_params(cfg, layer: int, device):
+    """Layer ``layer``'s parameters from a generator of its own."""
+    return init_params(transformer.block_specs(cfg),
+                       torch.Generator(device).manual_seed(H2_SEED + layer), device)
+
+
+def pipe_top(cfg, device):
+    """The embedding table and final norm (their own generator) and the
+    tokens of phase h2."""
+    specs = transformer.model_specs(cfg)
+    top = init_params({k: specs[k] for k in ("embed", "final_norm")},
+                      torch.Generator(device).manual_seed(H2_SEED - 1), device)
+    tokens = torch.randint(cfg.vocab, (H2_B, H2_S), generator=torch.Generator().manual_seed(H2_SEED),
+                           dtype=torch.int32).to(device)
+    return top, tokens
+
+
+def stack_trees(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def pipeline_rank(rank, world, init, tmp, device, cfg):
+    """One pipe rank of phase h2 on a gloo group: it makes its own layers
+    from their seeds, then runs ``pipeline_forward`` twice (the second
+    timed, between a barrier and a synchronize); rank 0 keeps the output."""
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        tf32_off()
+    init_group("gloo", rank, world, init)
+    mesh = make_mesh((world,), ("pipe",), device_type=device)
+    per = cfg.n_layers // world
+    stage = stack_trees([pipe_layer_params(cfg, rank * per + i, device) for i in range(per)])
+    blocks = tree_map_sorted(lambda t: DTensor.from_local(t, mesh, [Shard(0)], run_check=False),
+                             stage)
+    top, tokens = pipe_top(cfg, device)
+    x = transformer.embed_tokens(top, cfg, tokens)
+    times = []
+    for _ in range(2):
+        dist.barrier()
+        t = time.perf_counter()
+        h = pipeline_forward(cfg, blocks, x, mesh, n_micro=H2_MICRO)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    out = dict(ms=times, backend=dist.get_backend(), world=dist.get_world_size(),
+               layers=[rank * per + i for i in range(per)])
+    if rank == 0:
+        out["hidden"] = rmsnorm(top["final_norm"], h, cfg.norm_eps).cpu()
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def pipeline_phase(device) -> dict:
+    """Phase h2: the GPipe forward at granite-3-8b's published widths, cut
+    to H2_LAYERS of its 40 layers, over H2_STAGES pipe ranks spawned on the
+    one card (a gloo group: NCCL refuses two ranks on one card; the
+    activations cross through host copies), n_micro = H2_MICRO, (B, S) =
+    (H2_B, H2_S), float32 with TF32 off.  Each rank makes its own layers on
+    the card from a per-layer generator seed; the result is held within 1e-5
+    relative (the reference's bound) of the plain stacked forward on the
+    card from the same seeds, and the two are timed."""
+    cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=H2_LAYERS,
+                              compute_dtype="float32", remat="none")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(pipeline_rank, H2_STAGES, tmp, device, cfg)
+    tf32_off()
+    top, tokens = pipe_top(cfg, device)
+    params = dict(top, blocks=stack_trees([pipe_layer_params(cfg, i, device)
+                                           for i in range(H2_LAYERS)]))
+    plain_ms = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            want = transformer.forward_full(params, cfg, tokens=tokens)[0]
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t) * 1e3)
+    got = ranks[0]["hidden"].to(device)
+    err = rel_err(got, want)
+    check(bool(torch.isfinite(got).all()) and err < 1e-5,
+          f"the pipeline is off the plain forward by {err} (bound 1e-5)")
+    del params, want, got
+    torch.cuda.empty_cache()
+    out = dict(arch=LM_ARCH, layers=H2_LAYERS, stages=H2_STAGES, n_micro=H2_MICRO,
+               batch=[H2_B, H2_S], backend=ranks[0]["backend"], world=ranks[0]["world"],
+               rel_err=err, pipeline_ms=ranks[0]["ms"], plain_ms=plain_ms,
+               stage_layers=[r["layers"] for r in ranks])
+    log(f"phase h2: GPipe forward, {LM_ARCH} at its published widths cut to {H2_LAYERS} layers, "
+        f"{H2_STAGES} pipe ranks on the card (backend {out['backend']}, world {out['world']}), "
+        f"n_micro {H2_MICRO}, (B, S) = ({H2_B}, {H2_S}), float32, TF32 off: off the plain "
+        f"stacked forward by {err:.3e} (bound 1e-5); pipeline ms {[round(t, 3) for t in out['pipeline_ms']]}"
+        f" (the second timed warm), plain ms {[round(t, 3) for t in plain_ms]}")
+    return out
+
+
+def psum_inputs(rank: int, device) -> torch.Tensor:
+    """Pod ``rank``'s float32 part of phase h3 (heavy-tailed, its own seed)."""
+    g = torch.Generator(device).manual_seed(H3_SEED + rank)
+    return torch.randn(H3_NUMEL, generator=g, device=device).pow_(3).mul_(1.0 + 10.0 * rank)
+
+
+def psum_rank(rank, world, init, tmp, device):
+    """One pod rank of phase h3 on a gloo group: ``compressed_psum`` of its
+    part (three calls timed), and the same formula in plain PyTorch on the
+    card from every pod's part, made from their seeds."""
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    init_group("gloo", rank, world, init)
+    mesh = make_mesh((world,), ("pod",), device_type=device)
+    x = DTensor.from_local(psum_inputs(rank, device), mesh, [Shard(0)], run_check=False)
+    times = []
+    for _ in range(3):
+        dist.barrier()
+        t = time.perf_counter()
+        got = compressed_psum(x, mesh, "pod")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    parts = [grad_compress._quant(psum_inputs(r, device)) for r in range(world)]
+    want = torch.sum(torch.stack([q for q, _ in parts]).float()
+                     * torch.stack([s for _, s in parts]).reshape(-1, 1), dim=0)
+    out = dict(ms=times, backend=dist.get_backend(), world=dist.get_world_size(),
+               equal=bool(torch.equal(got.view(torch.int32), want.view(torch.int32))),
+               finite=bool(torch.isfinite(got).all()))
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def compressed_psum_phase(device) -> dict:
+    """Phase h3: ``compressed_psum`` over H3_PODS pod ranks spawned on the
+    card (gloo), each part H3_NUMEL float32 (64 MiB): on every rank
+    bit-equal to the same formula in plain PyTorch on the card; then
+    ``ef_quantize``'s invariant over 50 rounds on the card
+    (``tests/test_substrate.py``'s case)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(psum_rank, H3_PODS, tmp, device)
+    check(all(r["equal"] and r["finite"] for r in ranks),
+          f"compressed_psum is not bit-equal to its formula on the card: {ranks}")
+    g = torch.as_tensor(np.random.default_rng(0).normal(size=(512,)) * 10, dtype=torch.float32,
+                        device=device)
+    ef = torch.zeros(512, device=device)
+    for _ in range(H3_ROUNDS):
+        gh, ef2 = grad_compress.ef_quantize(g, ef)
+        check(bool(torch.allclose(g + ef, gh + ef2, rtol=1e-5, atol=1e-4)),
+              "the error-feedback invariant broke on the card")
+        ef = ef2
+    check(float(ef.abs().max()) < float(g.abs().max()) / 127 * 2, "the residual grew")
+    wire = H3_NUMEL + 4
+    out = dict(pods=H3_PODS, numel=H3_NUMEL, part_bytes=4 * H3_NUMEL, wire_bytes_per_rank=wire,
+               float32_bytes_per_rank=4 * H3_NUMEL, backend=ranks[0]["backend"],
+               world=ranks[0]["world"], ms=[r["ms"] for r in ranks], ef_rounds=H3_ROUNDS)
+    log(f"phase h3: compressed_psum over {H3_PODS} pod ranks on the card (backend "
+        f"{out['backend']}, world {out['world']}), {4 * H3_NUMEL} bytes of float32 a rank, "
+        f"{wire} bytes on the wire a rank: bit-equal to the plain formula on every rank; ms by "
+        f"rank {out['ms']}; ef_quantize's invariant held over {H3_ROUNDS} rounds")
+    return out
+
+
+def distributed_path(device, g2: dict) -> dict:
+    """Phase h: the distribution substrate on the card (h1 in this
+    process's one-rank NCCL world, which h4 reuses through
+    ``make_test_mesh``; h2 and h3 in spawned gloo worlds)."""
+    init_group("nccl")
+    try:
+        h1 = meshed_full_width(device, g2)
+        h2 = pipeline_phase(device)
+        h3 = compressed_psum_phase(device)
+        h4 = trainer_loop(device, "h4", make_test_mesh)
+        h4.update(backend=dist.get_backend(), world=dist.get_world_size())
+        log(f"phase h4: the meshed Trainer ran on backend {h4['backend']}, world "
+            f"{h4['world']}, mesh {h4['mesh']}")
+    finally:
+        dist.destroy_process_group()
+    return dict(h1=h1, h2=h2, h3=h3, h4=h4)
 
 
 def bound(nbytes: int, n_ops: int, dtype=torch.float32) -> tuple[float, str]:
@@ -1825,6 +2110,12 @@ def main() -> int:
     log(f"training path launches: {by_path['training']} (a re-plan of the g2 layer DAG "
         f"sweeps {replan_dense} dense levels)")
     print(json.dumps({"training": train}), flush=True)
+    distributed, by_path["distributed"] = counted(distributed_path, device, train["g2"])
+    check(by_path["distributed"]["ceft_relax"] > 0,
+          f"the distributed path launched no ceft_relax: {by_path['distributed']}")
+    log(f"distributed path launches: {by_path['distributed']} (ceft_relax "
+        f"{by_path['distributed']['ceft_relax']}: h4's straggler re-plans)")
+    print(json.dumps({"distributed": distributed}), flush=True)
     log(f"launches by path: {by_path}")
 
     ops.reset_launches()

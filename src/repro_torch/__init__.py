@@ -6,8 +6,10 @@ layout: ``core`` (task graphs, machines, CEFT and the schedulers; the device
 sweeps in ``core.ceft_torch``), ``kernels`` (one CUDA kernel for each Pallas
 kernel of the reference, sources in ``csrc/``), ``sched`` (plan cache,
 straggler loop, deadline propagation), ``serve`` (admission queue, engine
-pool, watchdog, fault injection, router), ``substrate`` (process placement)
-and ``graphs`` (workload generators).  Nothing here imports JAX or the
+pool, watchdog, fault injection, router), the models, training and their
+launchers, ``substrate`` (meshes, layouts and collectives on
+``torch.distributed``, process placement) and ``graphs`` (workload
+generators).  Nothing here imports JAX or the
 reference package; the reference's objects come in through
 :mod:`repro_torch.interop`.
 """

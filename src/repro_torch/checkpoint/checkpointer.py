@@ -13,6 +13,12 @@ keys sorted, tuple and ``NamedTuple`` fields in order), one ``np.save`` file
 each, a bfloat16 leaf as 2-byte ``'<V2'`` records with dtype ``"bfloat16"``
 in the manifest.  So a checkpoint written by either package restores in the
 other; this one also restores bfloat16 leaves, which the reference cannot.
+
+A tree laid out on a mesh (``DTensor`` leaves) is saved from its full
+leaves: every rank gathers them, rank 0 writes, and a synchronous save ends
+at a barrier so no rank reads the directory before it is whole.  ``restore``
+lays each leaf out by the given shardings, on whatever mesh they name: the
+elastic restore onto another mesh.
 """
 from __future__ import annotations
 
@@ -25,8 +31,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..models.common import sorted_leaves
+from ..substrate import distribute, full_value
 
 BF16 = "bfloat16"
 
@@ -71,8 +80,21 @@ def _write_leaf(path: Path, a: np.ndarray, dtype: str) -> None:
 
 def save(ckpt_dir: str | os.PathLike, step: int, tree, *, async_: bool = False):
     """Device->host copy happens synchronously (consistent snapshot); disk IO
-    optionally on a background thread.  Returns the Thread when async_."""
-    host_leaves = [_host(x) for x in sorted_leaves(tree)]
+    optionally on a background thread.  Returns the Thread when async_.  A
+    tree with ``DTensor`` leaves is a collective call: every rank gathers,
+    rank 0 writes (its thread when async_), the others write nothing."""
+    leaves = sorted_leaves(tree)
+    sharded = any(isinstance(x, DTensor) for x in leaves)
+    writer = not sharded or dist.get_rank() == 0
+    host_leaves = []
+    for x in leaves:
+        full = full_value(x)              # every rank gathers a sharded leaf
+        if writer:
+            host_leaves.append(_host(full))
+    if not writer:
+        if not async_:
+            dist.barrier()
+        return None
 
     def write():
         d = Path(ckpt_dir)
@@ -102,6 +124,8 @@ def save(ckpt_dir: str | os.PathLike, step: int, tree, *, async_: bool = False):
         t.start()
         return t
     write()
+    if sharded:
+        dist.barrier()
     return None
 
 
@@ -162,10 +186,14 @@ def _load_leaf(path: Path, ref: dict, like, device):
     return t
 
 
-def restore(ckpt_dir: str | os.PathLike, step: int, target_tree, device=None):
+def restore(ckpt_dir: str | os.PathLike, step: int, target_tree, shardings=None,
+            device=None):
     """Restore into the structure of target_tree.  A tensor leaf comes back
     as a tensor of that leaf's dtype, on ``device`` (default: the leaf's own,
-    the CPU for a ``meta`` leaf); a bfloat16 leaf bit for bit."""
+    the CPU for a ``meta`` leaf); a bfloat16 leaf bit for bit.  With
+    ``shardings`` (a tree like target_tree of ``Sharding``s) each leaf comes
+    back as a ``DTensor`` laid out by its sharding, whatever mesh the tree
+    was saved from."""
     d = Path(ckpt_dir) / f"step_{step}"
     if not _verify(d):
         raise IOError(f"checkpoint {d} is missing or corrupt")
@@ -174,6 +202,10 @@ def restore(ckpt_dir: str | os.PathLike, step: int, target_tree, device=None):
     if len(leaves) != len(manifest["leaves"]):
         raise IOError(f"checkpoint {d} holds {len(manifest['leaves'])} leaves, "
                       f"the target tree {len(leaves)}")
-    out = [_load_leaf(d / ref["file"], ref, like, device)
-           for ref, like in zip(manifest["leaves"], leaves)]
+    if shardings is None:
+        out = [_load_leaf(d / ref["file"], ref, like, device)
+               for ref, like in zip(manifest["leaves"], leaves)]
+    else:
+        out = [distribute(_load_leaf(d / ref["file"], ref, like, "cpu"), sh)
+               for ref, like, sh in zip(manifest["leaves"], leaves, sorted_leaves(shardings))]
     return _unflatten(target_tree, iter(out))

@@ -1,8 +1,8 @@
 """Deterministic, restart-safe synthetic data pipeline.
 
-Batch ``i`` is a pure function of (seed, i): after a crash/restart, resuming
-at step ``i`` reproduces the exact token stream -- no iterator state to
-checkpoint.  Tokens follow a skewed (zipf-ish) marginal with a short-range
+Batch ``i`` is a pure function of (seed, i): after a crash/restart or an
+elastic re-shard, resuming at step ``i`` reproduces the exact token stream --
+no iterator state to checkpoint.  Tokens follow a skewed (zipf-ish) marginal with a short-range
 bigram structure, so losses decrease measurably during the smoke-scale
 training runs (a uniform stream would pin loss at ln(V)).  The host batches
 are numpy, identical to the reference's for the same config.
@@ -13,6 +13,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..substrate import distribute
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,3 +57,10 @@ class SyntheticLM:
     def device_batch(self, step: int, device) -> dict[str, torch.Tensor]:
         """Batch ``step`` as int32 tensors on ``device``."""
         return {k: torch.as_tensor(v, device=device) for k, v in self.batch(step).items()}
+
+    def sharded_batch(self, step: int, shardings: dict) -> dict:
+        """Batch ``step`` laid out by ``shardings`` (``input_shardings``):
+        every rank makes the host batch and keeps its own shard of each input
+        as a ``DTensor``; an input without a sharding stays a host array."""
+        return {k: distribute(torch.as_tensor(v), shardings[k]) if k in shardings else v
+                for k, v in self.batch(step).items()}

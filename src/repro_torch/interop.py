@@ -4,8 +4,10 @@ The planner's state is the task graph, the machine and the cost plane:
 :func:`from_reference_arrays` turns the reference package's objects into this
 package's, reading their fields by attribute as numpy arrays.  The models'
 state is a parameter tree: :func:`params_from_reference` turns the
-reference's (nested dicts of numpy arrays) into tensors.  Both packages then
-compute on the same inputs without this package importing the reference.
+reference's (nested dicts of numpy arrays) into tensors, and
+:func:`params_onto_mesh` lays them out on a mesh by ``Model.shardings``.  Both
+packages then compute on the same inputs without this package importing the
+reference.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from .core.machine import Machine
 from .core.taskgraph import TaskGraph
+from .substrate import distribute
 
 _GRAPH_FIELDS = ("cindptr", "cindices", "cdata", "pindptr", "pindices",
                  "pdata", "level")
@@ -50,3 +53,12 @@ def params_from_reference(tree, device) -> dict:
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def params_onto_mesh(tree, shardings) -> dict:
+    """The reference's parameter (or cache) tree as ``DTensor``s laid out by
+    ``shardings`` (``Model.shardings(mesh)`` or ``param_shardings``), a tree
+    of the same keys: every rank holds the whole tree and keeps its shards."""
+    if isinstance(tree, dict):
+        return {k: params_onto_mesh(v, shardings[k]) for k, v in tree.items()}
+    return distribute(_tensor(tree, "cpu"), shardings)

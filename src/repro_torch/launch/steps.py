@@ -1,22 +1,67 @@
-"""The train step on one device.
+"""Step builders: the train, prefill and decode steps with the reference's
+sharding contract (params, optimizer state, inputs, caches).
 
-The reference jit-compiles its step with the full sharding contract; this
-package runs the same function eagerly on one device, gradients from
-``torch.autograd`` and the optimizer writing in place.  The reference's
-input and cache shardings, its prefill and decode steps and abstract state
-come with the distribution substrate (ROADMAP Queue 1 items 5 and 6).
+Without a mesh a step runs eagerly on the parameters' device, gradients from
+``torch.autograd`` and the optimizer writing in place (the reference donates).
+
+On a mesh the state lives as ``DTensor``s laid out by ``Model.shardings``
+and ``AdamW.moment_specs`` (FSDP over ``data`` under the baseline profile),
+and :class:`ShardedTrainStep` runs ZeRO-3 style:
+
+  1. all-gather each parameter to its full value (``full_tensor``);
+  2. gather each input's sequence back (the batch stays split over the axes
+     ``input_shardings`` gives it, ``("pod", "data")`` under the baseline)
+     and compute the loss and its gradients on this rank's rows;
+  3. weight the rows' loss by their share (the cross-entropy by valid
+     labels, the MoE term by rows) so the per-rank values sum, over the
+     batch axes, to the whole batch's mean loss;
+  4. reduce-scatter each gradient over the batch axes into its parameter's
+     layout (``reduce_over``);
+  5. the global norm: each leaf's sum of squares over its shards, one
+     all-reduce of the vector of leaves over each mesh axis (a replicated
+     shard counted once), then the float32 sum in the reference's leaf
+     order;
+  6. ``AdamW.apply`` on each rank's shards, in place.
+
+So the ``model`` axis shards storage, not compute: every rank of a data
+group computes the same rows.  Tensor-parallel compute on it is a ROADMAP
+item.  ``abstract_state`` and ``abstract_cache`` belong to the XLA analysis
+tools, which are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
-from ..configs.base import ArchConfig
-from ..models.common import sorted_leaves
+from ..configs.base import ArchConfig, ShapeCell
+from ..models.common import param_shardings, resolve_spec, sorted_leaves
 from ..models.model import Model
-from ..optim import AdamW, for_config
+from ..optim import AdamW, AdamWState, for_config
 from ..optim.adamw import tree_map_sorted
+from ..substrate import (Sharding, distribute, full_value, local_value, psum,
+                         reduce_over)
+from .mesh import mesh_axis_sizes
+
+# logical axes of every named model input
+INPUT_LOGICAL: dict[str, tuple[str, ...]] = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "embeds": ("batch", "seq", "none"),
+    "positions": ("none", "batch", "seq"),
+    "frames": ("batch", "none", "none"),
+    "pos": (),
+}
+
+
+def input_shardings(inputs: dict[str, torch.Tensor], mesh) -> dict[str, Sharding]:
+    """A :class:`Sharding` per model input (``Model.input_specs``' meta
+    tensors or real ones), from its logical axes."""
+    ms = mesh_axis_sizes(mesh)
+    return {k: Sharding(mesh, resolve_spec(tuple(v.shape), INPUT_LOGICAL[k], ms))
+            for k, v in inputs.items()}
 
 
 def make_optimizer(cfg: ArchConfig, total_steps: int = 10_000,
@@ -24,6 +69,12 @@ def make_optimizer(cfg: ArchConfig, total_steps: int = 10_000,
     lr = for_config(cfg.schedule, peak=peak_lr, warmup=min(500, total_steps // 10),
                     total=total_steps)
     return AdamW(lr=lr, moment_dtype=cfg.optstate_dtype)
+
+
+def gathered(tree):
+    """A nested-dict tree with every ``DTensor`` replaced by its full value
+    (sorted key order, so every rank gathers in the same order)."""
+    return tree_map_sorted(full_value, tree)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +104,139 @@ class TrainStep:
         return new_p, new_s, {"loss": loss, "grad_norm": gnorm}
 
 
-def build_train(model: Model, total_steps: int = 10_000, peak_lr: float = 3e-4):
-    """Returns (step function, optimizer)."""
+def _rows(name: str, x) -> tuple[torch.Tensor, tuple[str, ...]]:
+    """This rank's batch rows of input ``name`` with every other dimension
+    whole, and the mesh axes the rows are split over.  A tensor that is not
+    a ``DTensor`` is the whole batch on every rank."""
+    if not isinstance(x, DTensor):
+        return x, ()
+    logical = INPUT_LOGICAL[name]
+    bdim = logical.index("batch") if "batch" in logical else -1
+    keep = [p if p.is_shard(bdim) else Replicate() for p in x.placements]
+    axes = tuple(ax for ax, p in zip(x.device_mesh.mesh_dim_names, keep) if p.is_shard())
+    with torch.no_grad():
+        return x.redistribute(x.device_mesh, keep).to_local(), axes
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedTrainStep(TrainStep):
+    """The train step on a mesh (the module docstring's ZeRO-3 design)."""
+    mesh: Any = None
+
+    def loss_and_grads(self, params, batch):
+        """The whole batch's loss (the same on every rank) and its
+        gradients, each a ``DTensor`` laid out as its parameter."""
+        mesh = self.mesh
+        full = gathered(params)
+        rows, axes = {}, ()
+        for k, v in batch.items():
+            rows[k], ax = _rows(k, v)
+            if k == "labels":
+                axes = ax
+
+        def over_batch(x):
+            for ax in axes:
+                x = psum(x, ax, mesh=mesh)
+            return x
+        labels = rows["labels"]
+        valid = (labels >= 0).sum().float()
+        share_labels = valid / torch.clamp(over_batch(valid), min=1.0)
+        share_rows = labels.shape[0] / batch["labels"].shape[0]
+        leaves = sorted_leaves(full)
+        for p in leaves:
+            p.requires_grad_(True)
+        xent, aux = self.model.loss_terms(full, rows)
+        part = xent * share_labels + aux * share_rows
+        grads = torch.autograd.grad(part, leaves, allow_unused=True, materialize_grads=True)
+        sharded = iter([reduce_over(g, mesh, axes, p.placements)
+                        for g, p in zip(grads, sorted_leaves(params))])
+        return over_batch(part.detach()), tree_map_sorted(lambda _: next(sharded), params)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The float32 norm of the whole gradient tree: each leaf's sum of
+        squares over its shards, a replicated shard counted once (only the
+        rank at coordinate 0 of each axis the leaf does not split adds it),
+        summed over the mesh, then added in the reference's leaf order."""
+        mesh = self.mesh
+        coord = mesh.get_coordinate()
+        parts = []
+        for g in sorted_leaves(grads):
+            owner = all(c == 0 or p.is_shard() for c, p in zip(coord, g.placements))
+            sq = torch.sum(torch.square(local_value(g).float()))
+            parts.append(sq if owner else torch.zeros_like(sq))
+        per_leaf = torch.stack(parts)
+        for ax in mesh.mesh_dim_names:
+            per_leaf = psum(per_leaf, ax, mesh=mesh)
+        return torch.sqrt(sum(per_leaf[i] for i in range(len(parts))))
+
+    def __call__(self, params, opt_state, batch):
+        """One step on the mesh; ``params`` and ``opt_state`` are written in
+        place, shard by shard.  Returns (params, opt_state, {"loss",
+        "grad_norm"}), the metrics the same on every rank."""
+        loss, grads = self.loss_and_grads(params, batch)
+        gn = self.global_norm(grads)
+
+        def local(tree):
+            return tree_map_sorted(local_value, tree)
+        self.optimizer.apply(local(grads), AdamWState(local_value(opt_state.count),
+                                                      local(opt_state.m), local(opt_state.v)),
+                             local(params), gn)
+        return params, opt_state, {"loss": loss, "grad_norm": gn}
+
+
+def build_train(model: Model, mesh=None, total_steps: int = 10_000, peak_lr: float = 3e-4):
+    """Returns (step, optimizer, {"params", "opt"} shardings).  Without a
+    mesh the step is the one-device step and the shardings are None."""
     opt = make_optimizer(model.cfg, total_steps, peak_lr)
-    return TrainStep(model, opt), opt
+    if mesh is None:
+        return TrainStep(model, opt), opt, {"params": None, "opt": None}
+    specs = model.specs()
+    p_sh = param_shardings(specs, mesh)
+    m_sh = param_shardings(opt.moment_specs(specs), mesh)
+    o_sh = AdamWState(Sharding(mesh, ()), m_sh, m_sh)
+    return ShardedTrainStep(model, opt, mesh), opt, {"params": p_sh, "opt": o_sh}
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillStep:
+    model: Model
+
+    @torch.no_grad()
+    def __call__(self, params, batch):
+        """``Model.prefill`` on the full parameters and inputs (every rank
+        computes the whole batch)."""
+        return self.model.prefill(gathered(params), gathered(batch))
+
+
+def build_prefill(model: Model, mesh):
+    """Returns (prefill step, {"params"} shardings)."""
+    return PrefillStep(model), {"params": param_shardings(model.specs(), mesh)}
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeStep:
+    model: Model
+    cache_shardings: Any = None
+
+    @torch.no_grad()
+    def __call__(self, params, cache, inputs: dict):
+        """One greedy token: (next token (B,) int32, logits, the cache).  On
+        a mesh the cache is gathered, written and laid out again by
+        ``cache_shardings``; on one rank the gather is the cache itself,
+        written in place."""
+        inputs = gathered(inputs)
+        logits, new_cache = self.model.decode(
+            gathered(params), gathered(cache), inputs["tokens"], inputs["pos"],
+            positions=inputs.get("positions"))
+        if self.cache_shardings is not None:
+            new_cache = tree_map_sorted(distribute, new_cache, self.cache_shardings)
+        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return next_tok, logits, new_cache
+
+
+def build_decode(model: Model, mesh, cell: ShapeCell):
+    """Returns (decode step, {"params", "cache"} shardings) for a cache of
+    the cell's batch and sequence."""
+    c_sh = param_shardings(model.cache_specs(cell.global_batch, cell.seq_len), mesh)
+    return DecodeStep(model, c_sh), {"params": param_shardings(model.specs(), mesh),
+                                     "cache": c_sh}

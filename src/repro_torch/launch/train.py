@@ -1,8 +1,11 @@
 """Training launcher: any assigned architecture at smoke scale, on the card
-unless ``--device cpu``.
+unless ``--device cpu``, over a ``make_test_mesh`` of the world it was started
+in: one rank, or every rank ``torchrun`` started (a card each under NCCL, or
+host ranks under gloo with ``--device cpu``).  Rank 0 prints the metrics.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b --steps 50
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu
 
 ``--resume`` is parsed and, as in the reference, not read: a run always
 starts from a fresh state (ROADMAP Queue 3).
@@ -11,10 +14,13 @@ import argparse
 import os
 import tempfile
 
+import torch.distributed as dist
+
 from .. import configs as C
 from ..configs.base import ShapeCell
 from ..models.common import profile_names
 from ..train import Trainer, TrainerConfig
+from .mesh import make_test_mesh
 
 
 def main():
@@ -40,9 +46,15 @@ def main():
     tcfg = TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir, log_every=max(1, args.steps // 20),
                          profile=args.profile)
-    tr = Trainer(cfg, cell, tcfg, device=args.device)
-    for m in tr.run():
-        print(m, flush=True)
+    tr = Trainer(cfg, cell, tcfg, lambda: make_test_mesh(device_type=args.device),
+                 device=args.device)
+    try:
+        metrics = tr.run()
+        if dist.get_rank() == 0:
+            for m in metrics:
+                print(m, flush=True)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

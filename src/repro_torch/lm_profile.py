@@ -111,7 +111,7 @@ def main() -> int:
 
 def train_rows(cfg, params) -> list:
     """The train step's two halves at (TRAIN_B, TRAIN_S), a SyntheticLM batch."""
-    step, opt = build_train(build(cfg))
+    step, opt, _ = build_train(build(cfg))
     state = opt.init(params)
     batch = SyntheticLM(DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, SEED)).device_batch(0, "cuda")
     fwd_bwd = profile_call(f"fwd_bwd_{TRAIN_B}x{TRAIN_S}",

@@ -1,16 +1,17 @@
-"""Model substrate plumbing: spec-first parameters and the sharding-profile
-registry.
+"""Model substrate plumbing: spec-first parameters and logical-axis sharding.
 
 Spec-first parameters: model builders return a *tree of PSpec* (shape +
-logical axis names + init kind).  The tree is materialized two ways:
+logical axis names + init kind).  The tree is materialized three ways:
   * ``init_params``      -> real tensors on a device, from a ``torch.Generator``
   * ``abstract_params``  -> tensors on the ``meta`` device (no bytes)
+  * ``param_shardings``  -> a :class:`~repro_torch.substrate.Sharding` per leaf
+                            from the logical rules
 
-The profile registry names the reference's logical -> mesh rule tables.  This
-package runs on one card and has no mesh yet, so a profile only labels an
-engine (the router's pool validates profile names against
-:func:`profile_names`); the rules are kept so the tables stay one source of
-truth when sharding arrives.
+Logical-axis sharding with divisibility degradation: a logical axis maps to
+mesh axes only when the dimension is divisible by their product, so one rules
+table serves every architecture on every mesh.  The rules come from the
+active scoped profile (``sharding_profile``); the router's pool also
+validates profile names against :func:`profile_names`.
 """
 from __future__ import annotations
 
@@ -24,8 +25,11 @@ from typing import Any, Callable, Iterator, Mapping
 import torch
 import torch.utils.checkpoint
 
+from ..substrate import Sharding, constrain_spec, current_axis_sizes, degrade_spec
+
 # logical axis name -> preferred mesh axes (applied greedily, outermost first).
-# The baseline table; profile overlays never mutate it.
+# The baseline table; profile overlays never mutate it.  No module outside
+# models/common.py reads it: consumers go through the active ShardingProfile.
 LOGICAL_RULES: dict[str, tuple[str, ...]] = {
     "batch": ("pod", "data"),
     "seq": ("model",),
@@ -275,3 +279,45 @@ def checkpointed(fn, *args, enabled: bool = True):
     if not (enabled and torch.is_grad_enabled()):
         return fn(*args)
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+# ----------------------------------------------------------------- shardings
+def resolve_spec(shape: tuple[int, ...], logical: tuple[str, ...],
+                 mesh_shape: dict[str, int],
+                 profile: str | ShardingProfile | None = None) -> tuple:
+    """Logical axes -> spec entries (one per dimension: None, a mesh axis
+    or a tuple of them) with divisibility degradation.  Rules come from
+    ``profile`` when given, else from the active scoped profile."""
+    prof = resolve_profile(profile) if profile is not None else active_profile()
+    return degrade_spec(shape, [prof.rule(lname) for lname in logical], mesh_shape)
+
+
+def param_shardings(spec_tree, mesh, profile: str | ShardingProfile | None = None):
+    """A :class:`Sharding` per leaf of a PSpec tree on ``mesh`` (its
+    ``placements`` are the leaf's ``DTensor`` placements)."""
+    ms = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    prof = resolve_profile(profile) if profile is not None else active_profile()
+    return tree_map_pspec(
+        lambda _, p: Sharding(mesh, resolve_spec(p.shape, p.logical, ms, profile=prof)),
+        spec_tree)
+
+
+def logical_pspecs(spec_tree, mesh_shape: dict[str, int],
+                   profile: str | ShardingProfile | None = None):
+    """The spec entries of every leaf for a mesh of ``mesh_shape`` (shapes
+    only: no mesh, no allocation)."""
+    prof = resolve_profile(profile) if profile is not None else active_profile()
+    return tree_map_pspec(
+        lambda _, p: resolve_spec(p.shape, p.logical, mesh_shape, profile=prof),
+        spec_tree)
+
+
+def constrain(x, *logical: str | None, profile: str | ShardingProfile | None = None):
+    """Constrain by logical axis names: the identity outside a mesh
+    context; inside one, a ``DTensor`` is laid out by the resolved spec
+    (an axis that does not divide is dropped)."""
+    ms = current_axis_sizes()
+    if not ms:
+        return x
+    spec = resolve_spec(x.shape, tuple(l or "none" for l in logical), ms, profile=profile)
+    return constrain_spec(x, spec)

@@ -9,7 +9,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeCell
 from . import encdec, transformer
-from .common import abstract_params, init_params, torch_dtype
+from .common import abstract_params, init_params, param_shardings, torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +28,9 @@ class Model:
     def abstract(self):
         return abstract_params(self.specs(), torch_dtype(self.cfg.param_dtype))
 
+    def shardings(self, mesh):
+        return param_shardings(self.specs(), mesh)
+
     def cache_specs(self, batch: int, seq: int):
         if self.cfg.family == "encdec":
             return encdec.cache_specs(self.cfg, batch, seq)
@@ -36,18 +39,23 @@ class Model:
     def loss(self, params, batch) -> torch.Tensor:
         """batch: tokens/labels (+ frames for encdec, embeds/positions for vlm);
         the mean cross-entropy plus the MoE load-balance term, float32."""
+        xent, aux = self.loss_terms(params, batch)
+        return xent + aux
+
+    def loss_terms(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """The loss's two terms apart: the cross-entropy's mean over the
+        valid labels, and the MoE load-balance term (a mean over batch
+        rows and token groups; zero without experts)."""
         cfg = self.cfg
         if cfg.family == "encdec":
-            l, aux = encdec.loss(params, cfg, batch["frames"], batch["tokens"],
-                                 batch["labels"])
-            return l + aux
+            return encdec.loss(params, cfg, batch["frames"], batch["tokens"], batch["labels"])
         hidden, aux, _ = transformer.forward_full(
             params, cfg,
             tokens=batch.get("tokens"),
             embeds=batch.get("embeds"),
             positions=batch.get("positions"),
         )
-        return transformer.xent_loss(params, cfg, hidden, batch["labels"]) + aux
+        return transformer.xent_loss(params, cfg, hidden, batch["labels"]), aux
 
     def prefill(self, params, batch):
         """Returns (per-layer cache stacked over periods, last-token logits);

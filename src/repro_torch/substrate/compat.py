@@ -1,16 +1,132 @@
-"""Host and process placement facts for the engine pool.
+"""Meshes, layouts and named-axis collectives on ``torch.distributed``, and the
+host and process placement facts for the engine pool.
 
-The reference's ``substrate/compat.py`` also holds the JAX mesh and sharding
-shims; the port keeps only the two functions the serving plane needs.
+The reference's ``substrate/compat.py`` papers over two JAX mesh-API
+generations; this module maps the same calls onto one PyTorch API:
+
+    reference                       here
+    ------------------------------  ------------------------------------------
+    make_mesh                       a ``DeviceMesh`` over the default group
+    mesh_context, current_...       a ``contextvars.ContextVar``
+    PartitionSpec                   a tuple: per tensor dimension a mesh axis
+                                    name, a tuple of names (major first) or None
+    NamedSharding                   :class:`Sharding` (mesh, spec), with the
+                                    ``DTensor`` placements that spec means
+    shard_map + lax collectives     :func:`shard_map` with :func:`axis_index`,
+                                    :func:`psum`, :func:`all_gather`,
+                                    :func:`ppermute` on the axis's group
+
+``jax_mesh_api`` tells JAX API generations apart and has no counterpart
+here; ``compiled_cost_analysis`` belongs to the XLA analysis tools, which
+are not ported yet.
+
+A tuple of mesh axes on one dimension chunks it as the reference does: the
+first-named axis is the major one.  ``DTensor`` applies placements in mesh
+order, so where a tuple names a later mesh axis first (the ``serve``
+profile's ``("model", "data")`` on a (data, model) mesh) the earlier mesh
+axis gets a strided shard and the local rows are the reference's
+(:func:`local_slices` computes them; tests hold both to JAX's own map).
+
+Transport.  A collective goes over the group of its mesh axis with that
+group's backend.  Gloo moves host memory only, and NCCL refuses two ranks on
+one card; so several ranks sharing one card run on gloo, and the named-axis
+collectives stage a CUDA tensor through a host copy exactly when the group's
+backend is gloo.  That is the transport of a one-card run; the compute stays
+on the card.  Ranks on cards of their own run NCCL with no staging.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
+import math
 import os
 import socket
+from typing import Any, Callable, Iterator, Sequence
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import Partial, _StridedShard
 
 
+# ------------------------------------------------------------------- groups
+def init_group(backend: str, rank: int = 0, world_size: int = 1,
+               init_method: str | None = None) -> None:
+    """Initialize the default process group.  ``backend`` is the caller's
+    choice (``"nccl"`` for ranks on cards of their own, ``"gloo"`` for host
+    tensors or ranks sharing a card).  ``init_method`` is a
+    ``file://`` / ``tcp://`` / ``env://`` URL; a one-rank world may leave it
+    out and rendezvous in process memory."""
+    if init_method is None:
+        if world_size != 1:
+            raise ValueError("a world of more than one rank needs an init_method")
+        dist.init_process_group(backend, store=dist.HashStore(), rank=rank,
+                                world_size=world_size)
+        return
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size)
+
+
+# ------------------------------------------------------------------ make_mesh
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
+              device_type: str = "cuda") -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape`` over ``axes``, laid over the first
+    ranks of the initialized default group in row-major order.  Raises
+    RuntimeError when CUDA is wanted and absent, or when the world has fewer
+    ranks than the shape needs."""
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device_type='cuda' was requested but CUDA is not available; "
+                           "pass device_type='cpu' to run on the CPU")
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < n:
+        raise RuntimeError(f"need {n} devices, have {have}")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def mesh_axis_sizes(mesh) -> dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """The device this rank's shards live on."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+# --------------------------------------------------------------- mesh context
+_MESH: contextvars.ContextVar[DeviceMesh | None] = \
+    contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh: DeviceMesh) -> Iterator[DeviceMesh]:
+    """Activate ``mesh`` for constraints in this block (per thread and
+    task); exiting restores the enclosing one even when the body raises."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_abstract_mesh() -> DeviceMesh | None:
+    """The mesh of the innermost ``mesh_context`` block, or None."""
+    return _MESH.get()
+
+
+def current_axis_sizes() -> dict[str, int] | None:
+    """axis-name -> size of the active mesh, or None outside any mesh."""
+    mesh = _MESH.get()
+    return None if mesh is None else mesh_axis_sizes(mesh)
+
+
+# ------------------------------------------------------------------ topology
 def host_id() -> str:
     """A stable identifier for this host (the pool's placement unit)."""
     return socket.gethostname()
@@ -31,3 +147,256 @@ def process_topology() -> dict:
             "platform": "cuda" if available else "cpu",
             "n_devices": torch.cuda.device_count() if available else 0,
             "cuda_initialized": torch.cuda.is_initialized()}
+
+
+# -------------------------------------------------------------------- layouts
+def _names(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def degrade_spec(shape: Sequence[int], candidates: Sequence[Sequence[str]],
+                 sizes: dict[str, int]) -> tuple:
+    """Greedy divisibility degradation: per dimension, keep the candidate
+    mesh axes (outermost first) that exist in ``sizes``, are not yet used,
+    and whose cumulative product divides the dimension.  Returns one entry
+    per dimension: None, an axis name, or a tuple of names."""
+    out: list[Any] = []
+    used: set[str] = set()
+    for dim, names in zip(shape, candidates):
+        keep: list[str] = []
+        shard = 1
+        for ax in names:
+            if ax is None:
+                continue
+            if ax in sizes and ax not in used and dim % (shard * sizes[ax]) == 0:
+                keep.append(ax)
+                shard *= sizes[ax]
+        used.update(keep)
+        if not keep:
+            out.append(None)
+        elif len(keep) == 1:
+            out.append(keep[0])
+        else:
+            out.append(tuple(keep))
+    return tuple(out)
+
+
+def spec_placements(spec: Sequence, mesh: DeviceMesh) -> tuple:
+    """The ``DTensor`` placements (one per mesh dimension) of ``spec``.  An
+    axis that a tuple names after an axis of a later mesh dimension is the
+    minor one there, so it is a strided shard whose split factor is the
+    product of those major axes' sizes."""
+    axes = list(mesh.mesh_dim_names)
+    sizes = mesh_axis_sizes(mesh)
+    out: list[Any] = [Replicate()] * len(axes)
+    for d, entry in enumerate(spec):
+        names = _names(entry)
+        for t, ax in enumerate(names):
+            i = axes.index(ax)
+            split = math.prod(sizes[b] for b in names[:t] if axes.index(b) > i)
+            out[i] = _StridedShard(d, split_factor=split) if split > 1 else Shard(d)
+    return tuple(out)
+
+
+def local_slices(shape: Sequence[int], spec: Sequence, sizes: dict[str, int],
+                 coords: dict[str, int]) -> tuple[slice, ...]:
+    """The slice of a ``shape`` tensor that the rank at mesh coordinates
+    ``coords`` holds under ``spec``, as the reference chunks it: a dimension
+    over axes (a, b, ...) splits into size(a)·size(b)·... even chunks, and
+    the rank takes chunk ((coord(a)·size(b) + coord(b))·...)."""
+    out = []
+    for d, dim in enumerate(shape):
+        names = _names(spec[d]) if d < len(spec) else ()
+        n, idx = 1, 0
+        for ax in names:
+            n *= sizes[ax]
+            idx = idx * sizes[ax] + coords[ax]
+        step = dim // n
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A tensor's layout on a mesh: the reference's spec entries (one per
+    tensor dimension) and the ``DTensor`` placements they mean."""
+    mesh: DeviceMesh
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return spec_placements(self.spec, self.mesh)
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of ``full`` (a view where it can be one)."""
+        coords = dict(zip(self.mesh.mesh_dim_names, self.mesh.get_coordinate()))
+        return full[local_slices(full.shape, self.spec, mesh_axis_sizes(self.mesh), coords)]
+
+
+def distribute(full: torch.Tensor, sharding: Sharding) -> DTensor:
+    """A ``DTensor`` laid out by ``sharding`` from the full value, which
+    every rank holds: each rank keeps its own shard on the mesh's device (no
+    collective).  A shard smaller than ``full`` is a copy, so ``full`` can
+    be freed; a shard that is all of it stays ``full`` itself."""
+    local = sharding.local(full)
+    if local.numel() < full.numel():
+        local = local.clone()
+    local = local.to(mesh_device(sharding.mesh)).contiguous()
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False, shape=full.shape, stride=full.stride())
+
+
+@torch.no_grad()
+def full_value(x) -> torch.Tensor:
+    """The full value of a ``DTensor`` on every rank (an all-gather over its
+    sharded mesh dimensions; the local tensor itself when no dimension is
+    split); any other tensor as it is."""
+    if isinstance(x, DTensor):
+        return x.full_tensor()
+    return x
+
+
+def local_value(x) -> torch.Tensor:
+    """The tensor this rank holds: a ``DTensor``'s local shard (its own
+    storage, so in-place writes reach the ``DTensor``), else ``x``."""
+    if isinstance(x, DTensor):
+        with torch.no_grad():
+            return x.to_local()
+    return x
+
+
+def reduce_over(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
+                placements: Sequence) -> DTensor:
+    """Sum the per-rank values ``x`` over the mesh axes ``axes`` and lay the
+    sum out by ``placements``: a reduce-scatter where a placement shards,
+    an all-reduce where it replicates.  Ranks that differ only in the other
+    axes must hold the same ``x``."""
+    partial = [Partial() if ax in axes else Replicate() for ax in mesh.mesh_dim_names]
+    return DTensor.from_local(x, mesh, partial, run_check=False).redistribute(
+        mesh, tuple(placements))
+
+
+# ------------------------------------------------------------------ constrain
+def constrain_spec(x, spec: Sequence):
+    """Lay a ``DTensor`` out by ``spec`` on the active mesh; the identity
+    for any other tensor and outside a mesh."""
+    mesh = _MESH.get()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, spec_placements(spec, mesh))
+
+
+def constrain(x, *axes):
+    """Constrain ``x`` by mesh-axis names, degrading gracefully.  Each
+    entry is a mesh axis name, a tuple of names, or None.  Axes absent from
+    the active mesh or not dividing the dimension are dropped; with no
+    active mesh the call is the identity."""
+    sizes = current_axis_sizes()
+    if not sizes:
+        return x
+    cands = [entry if isinstance(entry, tuple) else (entry,) for entry in axes]
+    return constrain_spec(x, degrade_spec(x.shape, cands, sizes))
+
+
+# ----------------------------------------------------------------- shard_map
+_SHARD_MESH: contextvars.ContextVar[DeviceMesh | None] = \
+    contextvars.ContextVar("repro_torch_shard_map_mesh", default=None)
+
+
+def _tree_map(fn, tree, spec):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, spec) for k, v in tree.items()}
+    return fn(tree, spec)
+
+
+def shard_map(f: Callable, *, mesh: DeviceMesh, in_specs: Sequence, out_specs):
+    """``f`` run on every rank over its local shards.  Each argument (a
+    tensor or a nested dict of them) is laid out by its entry of
+    ``in_specs``: a ``DTensor`` hands over its local shard; a full tensor,
+    which every rank holds, hands over this rank's slice.  Inside ``f`` the
+    named-axis collectives act on ``mesh``.  An output whose spec replicates
+    (``()``) comes back as the local tensor, which the collectives in ``f``
+    must have made equal on every rank; another comes back as a
+    ``DTensor``."""
+    def local(x, spec):
+        return local_value(x) if isinstance(x, DTensor) else Sharding(mesh, spec).local(x)
+
+    def wrapped(*args):
+        token = _SHARD_MESH.set(mesh)
+        try:
+            out = f(*(_tree_map(local, a, s) for a, s in zip(args, in_specs)))
+        finally:
+            _SHARD_MESH.reset(token)
+        if not any(_names(e) for e in out_specs):
+            return out
+        sh = Sharding(mesh, tuple(out_specs))
+        return DTensor.from_local(out, mesh, sh.placements, run_check=False)
+    return wrapped
+
+
+def _axis_mesh(mesh: DeviceMesh | None) -> DeviceMesh:
+    mesh = mesh if mesh is not None else _SHARD_MESH.get()
+    if mesh is None:
+        raise RuntimeError("a named-axis collective outside shard_map needs mesh=")
+    return mesh
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    """Whether ``x`` crosses ``group`` through a host copy: a CUDA tensor
+    on a gloo group."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def axis_index(axis: str, *, mesh: DeviceMesh | None = None) -> int:
+    """This rank's coordinate along ``axis``."""
+    return _axis_mesh(mesh).get_local_rank(axis)
+
+
+def psum(x: torch.Tensor, axis: str, *, mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` (a new tensor, the same on each rank
+    of the axis)."""
+    group = _axis_mesh(mesh).get_group(axis)
+    wire = x.cpu() if _staged(x, group) else x.clone()
+    dist.all_reduce(wire, group=group)
+    return wire.to(x.device)
+
+
+def all_gather(x: torch.Tensor, axis: str, *, mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, stacked on a new leading
+    dimension in axis order."""
+    group = _axis_mesh(mesh).get_group(axis)
+    wire = x.cpu() if _staged(x, group) else x.contiguous()
+    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    return torch.stack(parts).to(x.device)
+
+
+def ppermute(x: torch.Tensor, axis: str, perm: Sequence[tuple[int, int]], *,
+             mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """Send ``x`` along ``axis`` by ``perm`` ((source, destination) axis
+    indices); returns what this rank received, zeros where no source sends
+    to it."""
+    mesh = _axis_mesh(mesh)
+    group = mesh.get_group(axis)
+    dim = list(mesh.mesh_dim_names).index(axis)
+    me = mesh.get_local_rank(axis)
+    coord = list(mesh.get_coordinate())
+
+    def peer(index: int) -> int:
+        coord[dim] = index
+        return int(mesh.mesh[tuple(coord)])
+    staged = _staged(x, group)
+    wire = x.cpu() if staged else x.contiguous()
+    recv = torch.zeros_like(wire)
+    if (me, me) in perm:
+        recv.copy_(wire)
+    p2p = [dist.P2POp(dist.isend, wire, peer(dst), group)
+           for src, dst in perm if src == me != dst]
+    p2p += [dist.P2POp(dist.irecv, recv, peer(src), group)
+            for src, dst in perm if dst == me != src]
+    if p2p:
+        for req in dist.batch_isend_irecv(p2p):
+            req.wait()
+    return recv.to(x.device) if staged else recv

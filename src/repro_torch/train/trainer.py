@@ -1,26 +1,32 @@
-"""Fault-tolerant training loop on one device.
+"""Fault-tolerant training loop, on one device or on a mesh.
 
 Behaviors, all exercised by tests at smoke scale:
   * checkpoint every N steps (atomic, checksummed, optionally async)
   * supervisor loop: a step failure (a simulated node loss) triggers
-    re-setup and restore from the newest *valid* checkpoint -- corrupt
+    re-setup -- with a mesh factory, the mesh is formed again from the ranks
+    that are left -- and restore from the newest *valid* checkpoint; corrupt
     checkpoints are skipped automatically
+  * elastic re-shard: restore accepts a different mesh (data axis grown or
+    shrunk); the state is laid out again by per-leaf shardings
   * straggler mitigation: per-step wall times feed the EWMA monitor; a tripped
     threshold re-plans the layer-DAG schedule with CEFT-CPOP, sweeping on the
     trainer's device (repro_torch.sched)
   * deterministic data: batch i is a pure function of (seed, i) -- restart
     replays the identical stream
 
-The reference re-forms a mesh on restart and lays the state out by its
-shardings; this loop runs on ``device`` (the card unless ``device="cpu"``),
-and meshes come with the distribution substrate (ROADMAP Queue 1 item 5).
+Without a mesh factory the loop runs on ``device`` (the card unless
+``device="cpu"``); with one, on the mesh it returns (whose device type must
+be ``device``'s), the state laid out as ``DTensor``s.  The straggler
+re-plans sweep on ``device`` either way.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import tempfile
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -29,8 +35,10 @@ from .. import checkpoint as ckpt_lib
 from ..configs.base import ArchConfig, ShapeCell
 from ..core.ceft_torch import resolve_device
 from ..data.pipeline import DataConfig, SyntheticLM
-from ..launch.steps import build_train
+from ..launch.steps import build_train, input_shardings
 from ..models.common import resolve_profile, sharding_profile
+from ..optim.adamw import tree_map_sorted
+from ..substrate import distribute, mesh_context
 from ..models.model import build
 from ..sched.layer_dag import build_layer_dag
 from ..sched.straggler import StragglerMonitor
@@ -57,8 +65,9 @@ class SimulatedFailure(RuntimeError):
 
 class Trainer:
     def __init__(self, cfg: ArchConfig, cell: ShapeCell, tcfg: TrainerConfig,
-                 device="cuda"):
+                 mesh_factory: Callable | None = None, device="cuda"):
         self.device = resolve_device(device)
+        self.mesh_factory = mesh_factory
         self.cfg = cfg
         self.cell = cell
         self.tcfg = tcfg
@@ -77,12 +86,33 @@ class Trainer:
     # ------------------------------------------------------------------ setup
     def _setup(self):
         self._warmup_steps = 1  # the first step after (re)setup is a warm-up
-        self.step_fn, self.opt = build_train(
-            self.model, total_steps=self.tcfg.steps, peak_lr=self.tcfg.peak_lr)
+        self.mesh = self.mesh_factory() if self.mesh_factory is not None else None
+        if self.mesh is not None and self.mesh.device_type != self.device.type:
+            raise ValueError(f"a {self.mesh.device_type} mesh for a {self.device.type} trainer")
+        with self._scope():
+            self.step_fn, self.opt, self.shardings = build_train(
+                self.model, self.mesh, total_steps=self.tcfg.steps, peak_lr=self.tcfg.peak_lr)
+            self.in_sh = None if self.mesh is None else input_shardings(
+                self.model.input_specs(self.cell), self.mesh)
+
+    def _scope(self):
+        """The trainer's profile, and its mesh when it has one."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(sharding_profile(self.profile))
+        if self.mesh is not None:
+            stack.enter_context(mesh_context(self.mesh))
+        return stack
 
     def _fresh_state(self):
         params = self.model.init(torch.Generator().manual_seed(self.tcfg.seed), self.device)
+        if self.mesh is not None:
+            params = tree_map_sorted(distribute, params, self.shardings["params"])
         return params, self.opt.init(params)
+
+    def _batch(self, step: int):
+        if self.mesh is None:
+            return self.data.device_batch(step, self.device)
+        return self.data.sharded_batch(step, self.in_sh)
 
     # ------------------------------------------------------------- checkpoint
     def _save(self, step, params, opt_state):
@@ -93,8 +123,9 @@ class Trainer:
         step = ckpt_lib.latest_valid(self.tcfg.ckpt_dir)
         if step is None:
             return 0, None
+        sh = None if self.mesh is None else self.shardings
         tree = ckpt_lib.restore(self.tcfg.ckpt_dir, step,
-                                {"params": params_like, "opt": opt_like})
+                                {"params": params_like, "opt": opt_like}, sh)
         return step + 1, tree
 
     # -------------------------------------------------------------------- run
@@ -108,8 +139,8 @@ class Trainer:
                 if step in self.tcfg.fail_at_steps and self.restarts < len(self.tcfg.fail_at_steps):
                     self.restarts += 1
                     raise SimulatedFailure(f"node lost at step {step}")
-                batch = self.data.device_batch(step - 1, self.device)
-                with sharding_profile(self.profile):
+                batch = self._batch(step - 1)
+                with self._scope():
                     params, opt_state, m = self.step_fn(params, opt_state, batch)
                 loss = float(m["loss"])
                 dt = time.monotonic() - t0

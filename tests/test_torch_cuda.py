@@ -479,7 +479,7 @@ def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
     frames = torch.as_tensor(rng.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
     metrics = {}
     for dev in (cuda, "cpu"):      # the CPU run last: it updates ``params`` in place
-        step, opt = build_train(model, 10, 5e-3)
+        step, opt, _ = build_train(model, None, 10, 5e-3)
         p = tree_to(params, dev)
         state = opt.init(p)
         out = []

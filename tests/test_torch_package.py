@@ -36,7 +36,8 @@ def test_import_loads_no_jax_and_no_reference():
                 "repro_torch.data.pipeline", "repro_torch.checkpoint",
                 "repro_torch.checkpoint.checkpointer", "repro_torch.train",
                 "repro_torch.train.trainer", "repro_torch.launch.steps",
-                "repro_torch.launch.train"} <= set(names), names
+                "repro_torch.launch.train", "repro_torch.launch.mesh",
+                "repro_torch.launch.pipeline", "repro_torch.optim.grad_compress"} <= set(names), names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
@@ -56,6 +57,7 @@ def test_cuda_default_raises_without_cuda():
     from repro_torch.sched import PlanCache, StragglerMonitor
     from repro_torch.serve import Engine, smoke_engine_factory
     from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.train import Trainer, TrainerConfig
 
     g = from_edges(3, [(0, 2, 1.0), (1, 2, 1.0)])
@@ -76,6 +78,9 @@ def test_cuda_default_raises_without_cuda():
         lambda: smoke_engine_factory("granite-3-8b", "serve"),
         lambda: Trainer(get("minicpm-2b", smoke=True), ShapeCell("t", 16, 2, "train"),
                         TrainerConfig(steps=1)),
+        lambda: make_test_mesh(),
+        lambda: Trainer(get("minicpm-2b", smoke=True), ShapeCell("t", 16, 2, "train"),
+                        TrainerConfig(steps=1), mesh_factory=make_test_mesh),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -204,7 +204,7 @@ def test_train_steps_match_reference(reference_steps):
     and the optimizer's count."""
     dtype, tcfg, init, want = reference_steps
     f32 = dtype == "float32"
-    step, opt = build_train(build(tcfg), STEPS, PEAK_LR)
+    step, opt, _ = build_train(build(tcfg), None, STEPS, PEAK_LR)
     params = params_from_reference(init, "cpu")
     state = opt.init(params)
     data = SyntheticLM(DataConfig(tcfg.vocab, SMOKE_CELL.seq_len, SMOKE_CELL.global_batch, 0))
