@@ -14,7 +14,9 @@ Phases (any failure exits non-zero; nothing is caught):
      segment level (``seg_level``) with long, tile-crossing, single and
      padded segments and a batch of 8; then NaN, inf and -0.0 candidates
      through ``edge_relax``, ``ceft_relax`` and ``seg_level`` (a NaN wins the
-     min and the max, and the first NaN's index is the arg);
+     min and the max, and the first NaN's index is the arg); and the bf16
+     instance of ``ceft_relax`` at the same shapes, tie cases and NaN, inf
+     and -0.0 probes, bit for bit against the plain version in bf16;
   3. plan the paper's largest graph (RGG "high", n = 16384, P = 64) through
      ``PlanCache(device="cuda")``: bit-equal to the CPU path, a partial
      re-sweep after a change to the deepest levels' costs, and one realized
@@ -98,6 +100,19 @@ Phases (any failure exits non-zero; nothing is caught):
      of float32 each, bit-equal to its formula in plain PyTorch on the card,
      and ``ef_quantize``'s invariant over 50 rounds; h4, g3 with the
      ``Trainer`` on ``make_test_mesh``;
+  i. the analysis tools on the card's own runs, after every timed phase:
+     i1, ``launch.dryrun``'s trace of g2's exact cell (minicpm-2b as
+     published, (B, S) = (2, 4096), float32 weights and moments) on a
+     one-rank fake mesh: the predicted per-device argument + temp bytes
+     within 15 % of g2's measured peak, its product FLOPs equal to the hand
+     count of the products the step runs and within [1.0, 1.1] x g2's hand
+     count; i2, ``roofline.analyze_cell`` with the H100's peaks on one chip
+     for g2's cell, e2's prefill (4, 512) and e2's decode (B = 4, cache
+     544), each beside the phase's measured time and its hand bound; i3,
+     beside i1 and i2 through the dry-run's command line, granite-3-8b
+     ``train_4k`` as published on the (16, 16) production mesh of 256 fake
+     ranks: the record ``ok``, collective bytes > 0, this rank's laid-out
+     state equal to ``analytic_bytes_per_device``, and the trace's seconds;
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -121,6 +136,7 @@ import gc
 import importlib.util
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -148,7 +164,9 @@ from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain 
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
 from repro_torch.configs.base import ShapeCell  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.launch.dryrun import trace_step  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
+from repro_torch.launch.roofline import HW, analyze_cell  # noqa: E402
 from repro_torch.launch.pipeline import pipeline_forward  # noqa: E402
 from repro_torch.launch.steps import build_train, input_shardings  # noqa: E402
 from repro_torch.models import build, transformer  # noqa: E402
@@ -163,7 +181,7 @@ from repro_torch.serve import (Engine, EnginePool, EngineSlot, Request, Router, 
                                ServeConfig,
                                WorkerSpec, null_engine_factory)
 from repro_torch.serve.faults import KINDS, install_chaos  # noqa: E402
-from repro_torch.substrate import distribute, init_group, make_mesh  # noqa: E402
+from repro_torch.substrate import distribute, fake_store, init_group, make_mesh  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
 # the card's published peaks (H100 SXM, dense, at 700 W): memory and float32
@@ -247,6 +265,16 @@ H3_PODS, H3_NUMEL, H3_ROUNDS, H3_SEED = 2, 16 * 2**20, 50, 13
 ADAMW_BYTES_PER_PARAM = 28
 # the tensor cores' dense bf16 peak (the LM's products run in bf16)
 BF16_TENSOR_OPS_PER_S = 989e12
+# phase i: i1's bound on the predicted peak's error against g2's measured
+# one, and on its traced FLOPs over g2's hand count (the trace runs every
+# masked attention tile, the hand count the causal half: 1.079 at g2's
+# cell); e2's decode cell (its prompt plus its new tokens); i3's production
+# cell and the longest its trace may take
+I1_MEMORY_RTOL = 0.15
+I1_FLOPS_OVER_HAND = (1.0, 1.10)
+I2_DECODE_CACHE = E2_PROMPTS[0] + E2_NEW
+I3_ARCH, I3_CELL, I3_MESH = "granite-3-8b", "train_4k", "single"
+I3_TIMEOUT_S = 600
 
 
 def log(*args):
@@ -462,6 +490,41 @@ def compare_nan(device, err: dict) -> int:
         n += 1
     check(scratch_is_zero(), "a kernel left its cross-block scratch non-zero after NaN keys")
     return n
+
+
+def relax_bf16_path(device) -> list:
+    """Phase 2, bf16 (drive): the bf16 instance of ``ceft_relax`` at phase
+    2's shapes (random, tie cases across blocks, NaN, inf and -0.0 probes),
+    the float32 inputs rounded to bf16."""
+    cases = [(f"{shape}", cell_inputs(shape, 200 + i, device,
+                                      3999 if shape == (1, 4096, 64) else None))
+             for i, shape in enumerate(CELL_SHAPES + CELL_PATH_SHAPES)]
+    cases += [(f"{shape} {mode}", cell_tie_inputs(shape, mode, 250 + i, device))
+              for i, (shape, mode) in enumerate(CELL_TIE_CASES)]
+    cases += [(f"{shape} {mode}", on(device, probes.cell_specials(shape, mode, 820 + i)))
+              for i, (shape, mode) in enumerate(itertools.product(CELL_NAN_SHAPES,
+                                                                  probes.SPECIAL_MODES))]
+    calls = []
+    for what, args in cases:
+        args = [a.to(torch.bfloat16) for a in args]
+        calls.append((what, args, ops.ceft_relax(*args)))
+    torch.cuda.synchronize()
+    return calls
+
+
+def check_relax_bf16(calls) -> float:
+    err = 0.0
+    for what, (pv, pdata, validp, L, bw), got in calls:
+        want = ceft_relax_plain(pv[None], pdata, validp, L[None], bw[None])
+        check(got[0].dtype == torch.bfloat16, f"ceft_relax bf16 at {what}: {got[0].dtype}")
+        err = max(err, nan_err(got[0], want[0][0]))
+        check(probes.equal_bits(got[0], want[0][0]), f"ceft_relax bf16 kernel != plain (maxk) at {what}")
+        for g, w, name in zip(got[1:], want[1:], ("argk", "argl")):
+            check(torch.equal(g, w[0]), f"ceft_relax bf16 kernel != plain ({name}) at {what}")
+    check(scratch_is_zero(), "the bf16 ceft_relax left its cross-block scratch non-zero")
+    log(f"phase 2: the bf16 ceft_relax bit-equal to its plain version in bf16 at {len(calls)} "
+        f"calls (random, tie cases, NaN, inf and -0.0 probes); max_abs_err {err}")
+    return err
 
 
 def plan_large(device):
@@ -1864,12 +1927,157 @@ def distributed_path(device, g2: dict) -> dict:
     return dict(h1=h1, h2=h2, h3=h3, h4=h4)
 
 
+def start_i3(out: str) -> subprocess.Popen:
+    """Phase i3's trace through the dry-run's command line: granite-3-8b
+    ``train_4k`` as published on the (16, 16) mesh, a fake fleet of 256
+    ranks in a process of its own (a process holds one default group)."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", I3_ARCH, "--cell",
+           I3_CELL, "--mesh", I3_MESH, "--device", "cuda", "--out", out]
+    return subprocess.Popen(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def traced_train_flops(cfg, B: int, S: int) -> int:
+    """The product FLOPs one train step of a swiglu decoder runs, as the
+    dry-run counts them: ``train_bounds``' products, but every (q, k) tile
+    of the chunked attention (the masked ones too), and each layer's down
+    projection without its recompute (the non-reentrant checkpoint stops
+    once the tensors the backward needs are back, and the block's last
+    product saves none)."""
+    d, V, L, hd = cfg.d_model, cfg.vocab, cfg.n_layers, cfg.hd
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    w_layer = d * hd * (hq + 2 * hkv) + hq * hd * d + 3 * d * cfg.d_ff
+    qc, kc = min(512, S), min(1024, S)
+    sq, sk = -(-S // qc) * qc, -(-S // kc) * kc
+    fwd = 2 * B * S * (L * w_layer + d * V) + 4 * B * L * hq * hd * sq * sk
+    return 4 * fwd - L * 2 * B * S * d * cfg.d_ff
+
+
+def analysis_phase(device, g2: dict, e2: dict) -> dict:
+    """Phase i, after every timed phase: i3 traced in a process of its own
+    while this one runs i1, the dry-run of g2's cell, and i2, the roofline of
+    the cells g2 and e2 ran, on a one-rank fake world (this process's
+    default group for i1 and i2 alone)."""
+    card = smi("name,power.limit")
+    with tempfile.TemporaryDirectory() as tmp:
+        t3 = time.perf_counter()
+        i3_proc = start_i3(tmp)
+        try:
+            i1, i2 = analysis_one_rank(device, g2, e2, card)
+            i3_out, _ = i3_proc.communicate(timeout=I3_TIMEOUT_S)
+        finally:
+            if i3_proc.poll() is None:
+                i3_proc.kill()
+                i3_proc.wait()
+        i3_wall = time.perf_counter() - t3
+        check(i3_proc.returncode == 0, f"i3: the dry-run exited with {i3_proc.returncode}: "
+              f"{i3_out[-4000:]}")
+        i3 = json.loads((Path(tmp) / f"{I3_ARCH}__{I3_CELL}__{I3_MESH}.json").read_text())
+    check(i3["ok"] and i3["collectives"]["collective_bytes"] > 0,
+          f"i3: ok {i3['ok']}, collectives {i3.get('collectives')}, error {i3.get('error')}")
+    check(i3["state_bytes_laid_out"] == i3["state_bytes_per_device"],
+          f"i3: laid-out state {i3['state_bytes_laid_out']} bytes, analytic "
+          f"{i3['state_bytes_per_device']}")
+    i3["wall_s"] = i3_wall
+    log(f"phase i3: {I3_ARCH} {I3_CELL} on the {i3['mesh_shape']} mesh of "
+        f"{math.prod(i3['mesh_shape'].values())} fake ranks: trace {i3['lower_s']} s "
+        f"({i3_wall:.1f} s in all, beside i1 and i2), state "
+        f"{i3['state_bytes_per_device']} bytes a device as analytic, memory "
+        f"{i3['memory_analysis']}, cost {i3['cost_analysis']}, collectives "
+        f"{i3['collectives']}")
+    return dict(i1=i1, i2=i2, i3=i3, card=card)
+
+
+def analysis_one_rank(device, g2: dict, e2: dict, card: str) -> tuple[dict, list]:
+    """Phases i1 and i2 on a one-rank fake world."""
+    train_cfg, lm_cfg = configs.get(TRAIN_ARCH), configs.get(LM_ARCH)
+    g2_cell = ShapeCell("g2", G2_S, G2_B, "train")
+    init_group("fake", 0, 1, store=fake_store())
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=device)
+        t = time.perf_counter()
+        rec = trace_step(train_cfg, g2_cell, mesh, device)
+        wall = time.perf_counter() - t
+        mem = rec["memory_analysis"]
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        measured = g2["max_memory_allocated"]
+        flops = rec["cost_analysis"]["flops"]
+        hand = traced_train_flops(train_cfg, G2_B, G2_S)
+        i1 = dict(cell=[G2_B, G2_S], predicted_bytes=predicted, measured_bytes=measured,
+                  rel_err=predicted / measured - 1, flops=flops, traced_hand_flops=hand,
+                  g2_flops=g2["fwd_bwd_flops"], flops_over_g2_hand=flops / g2["fwd_bwd_flops"],
+                  trace_s=rec["lower_s"], wall_s=wall, record=rec)
+        log(f"phase i1: dry-run of g2's cell: argument {mem['argument_size_in_bytes']} + temp "
+            f"{mem['temp_size_in_bytes']} = {predicted} bytes predicted against "
+            f"g2's max_memory_allocated {measured} ({i1['rel_err']:+.4f}); product FLOPs "
+            f"{flops:.6e}, the hand count of the traced products {hand:.6e}, "
+            f"{i1['flops_over_g2_hand']:.4f} x g2's hand count {i1['g2_flops']:.6e}; trace "
+            f"{rec['lower_s']} s ({wall:.1f} s in all); card {card}")
+        check(abs(i1["rel_err"]) <= I1_MEMORY_RTOL,
+              f"i1 predicted {predicted} bytes, g2 measured {measured}")
+        check(flops == hand, f"i1 traced {flops} product FLOPs, the hand count is {hand}")
+        lo, hi = I1_FLOPS_OVER_HAND
+        check(lo <= i1["flops_over_g2_hand"] <= hi,
+              f"i1 traced {i1['flops_over_g2_hand']:.4f} x g2's hand count, outside [{lo}, {hi}]")
+        cells = [("g2 train", train_cfg, g2_cell, g2["step_ms"], g2["step_bound_ms"]),
+                 ("e2 prefill", lm_cfg, ShapeCell("e2_prefill", E2_PROMPTS[0], E2_BATCH,
+                                                  "prefill"),
+                  e2["prefill_ms"], e2["prefill_bound_ms"]),
+                 ("e2 decode", lm_cfg, ShapeCell("e2_decode", I2_DECODE_CACHE, E2_BATCH,
+                                                 "decode"),
+                  e2["decode_ms_per_token"], e2["decode_bound_ms"])]
+        i2 = []
+        for name, cfg, cell, ms, hand_ms in cells:
+            t = time.perf_counter()
+            roof = analyze_cell(cfg, cell, mesh, device=device)
+            row = dict(cell=name, terms=roof["terms"], dominant=roof["dominant"],
+                       step_time_lower_bound_s=roof["step_time_lower_bound_s"],
+                       roofline_fraction=roof["roofline_fraction"],
+                       model_flops=roof["model_flops"], measured_ms=ms, hand_bound_ms=hand_ms,
+                       components={k: {f: c[f] for f in ("flops", "bytes", "trips")}
+                                   for k, c in roof["components"].items()},
+                       analyze_s=time.perf_counter() - t)
+            check(row["step_time_lower_bound_s"] > 0, f"i2 {name}: no bound")
+            i2.append(row)
+            log(f"phase i2: {name}: terms {roof['terms']} ({roof['dominant']}), lower bound "
+                f"{roof['step_time_lower_bound_s'] * 1e3:.3f} ms, roofline_fraction "
+                f"{roof['roofline_fraction']:.4f}; measured {ms:.3f} ms, hand bound "
+                f"{hand_ms:.3f} ms; {row['analyze_s']:.1f} s; HW {HW}")
+    finally:
+        dist.destroy_process_group()
+    return i1, i2
+
+
 def bound(nbytes: int, n_ops: int, dtype=torch.float32) -> tuple[float, str]:
     """The least time the card could take (ms) for operations on ``dtype``
     outside the tensor cores, and what bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(fn, kernel: str, reps: int = 20, attempts: int = 3) -> float:
+    """The mean device time (ms) of the CUDA kernels whose name holds
+    ``kernel`` in ``reps`` calls of ``fn``, from ``torch.profiler``.  The
+    profiler's kernel records can come back incomplete (13 of 20 once on
+    the H100): such a reading is taken again, up to ``attempts`` times, and
+    never averaged over fewer launches than were made."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if len(us) >= reps:
+            return sum(us) / reps / 1e3
+        log(f"device_ms: the profiler returned {len(us)} {kernel} kernels of {reps} calls "
+            f"(attempt {attempt + 1} of {attempts})")
+    check(False, f"the profiler saw {len(us)} {kernel} kernels in {reps} calls, {attempts} times")
 
 
 def timed(kernel, plain, reps: int, plain_reps: int | None = None) -> dict:
@@ -1901,7 +2109,8 @@ def seg_level_rows(g, inputs, device) -> list:
         nbytes = 4 * B * (e * P + w * P + 3 * w * P + P + P * P) + 20 * e + 8 * w
         t_min, by = bound(nbytes, OPS_PER_CANDIDATE * B * e * P * P)
         out.append(dict(shape=[B, e, P], edge_cap=lv.edge_src.shape[0], tasks=w,
-                        bound_ms=t_min, bound_by=by, **timed(
+                        bound_ms=t_min, bound_by=by, device_ms=device_ms(
+                            lambda: ops.seg_level(carry, *args), "seg_level_kernel"), **timed(
                             lambda: ops.seg_level(carry, *args),
                             lambda: seg_level_plain(carry, *args), 100)))
     return out
@@ -1933,7 +2142,8 @@ def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device, usage) ->
     for E, P in EDGE_PATH_SHAPES:
         pv, pdata, L, bw = edge_inputs((E, P), 7, device)
         t_min, by = bound(4 * (3 * E * P + E + P + P * P), OPS_PER_CANDIDATE * E * P * P)
-        edge_rows.append(dict(shape=[E, P], bound_ms=t_min, bound_by=by, **timed(
+        edge_rows.append(dict(shape=[E, P], bound_ms=t_min, bound_by=by, device_ms=device_ms(
+            lambda: ops.edge_relax(pv, pdata, L, bw), "edge_relax_kernel"), **timed(
             lambda: ops.edge_relax(pv, pdata, L, bw),
             lambda: edge_relax_plain(pv[None], pdata, L[None], bw[None]), 100)))
     cell_rows = []
@@ -1944,7 +2154,22 @@ def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device, usage) ->
         t_min, by = bound(4 * (W * D * P + 2 * W * D + P + P * P + 3 * W * P),
                           OPS_PER_CANDIDATE * valid * P * P)
         cell_rows.append(dict(shape=[W, D, P], valid_parents=valid, bound_ms=t_min,
-                              bound_by=by, **timed(
+                              bound_by=by, device_ms=device_ms(
+            lambda: ops.ceft_relax(pv, pdata, validp, L, bw), "ceft_relax_kernel"), **timed(
+            lambda: ops.ceft_relax(pv, pdata, validp, L, bw),
+            lambda: ceft_relax_plain(pv[None], pdata, validp, L[None], bw[None]), 10)))
+    bf16_rows = []
+    for W, D, P in CELL_PATH_SHAPES:
+        n_valid = 3999 if (W, D, P) == (1, 4096, 64) else None
+        pv, pdata, validp, L, bw = (t.to(torch.bfloat16) for t in
+                                    cell_inputs((W, D, P), 8, device, n_valid))
+        valid = int(validp.float().sum().item())
+        # bf16 inputs and maxk, int32 argk and argl
+        t_min, by = bound(2 * (W * D * P + 2 * W * D + P + P * P + W * P) + 8 * W * P,
+                          OPS_PER_CANDIDATE * valid * P * P, torch.bfloat16)
+        bf16_rows.append(dict(shape=[W, D, P], dtype="bfloat16", valid_parents=valid,
+                              bound_ms=t_min, bound_by=by, device_ms=device_ms(
+            lambda: ops.ceft_relax(pv, pdata, validp, L, bw), "ceft_relax_kernel"), **timed(
             lambda: ops.ceft_relax(pv, pdata, validp, L, bw),
             lambda: ceft_relax_plain(pv[None], pdata, validp, L[None], bw[None]), 10)))
     super_rows = []
@@ -1953,7 +2178,9 @@ def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device, usage) ->
         t_min, by = bound(4 * (3 * R * E * P + R * E + P + P * P),
                           OPS_PER_CANDIDATE * R * E * P * P)
         super_rows.append(issue_floor(INSTR_PER_CANDIDATE * R * E * P * P, dict(
-            shape=[R, E, P], bound_ms=t_min, bound_by=by, **timed(
+            shape=[R, E, P], bound_ms=t_min, bound_by=by, device_ms=device_ms(
+                lambda: ops.edge_relax_superstep(pv, pdata, L, bw), "edge_relax_superstep"),
+            **timed(
                 lambda: ops.edge_relax_superstep(pv, pdata, L, bw),
                 lambda: edge_relax_superstep_plain(pv, pdata, L, bw), 20, 3))))
     minplus_rows = []
@@ -1963,7 +2190,8 @@ def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device, usage) ->
         t_min, by = bound(a.element_size() * (M * K + K * N + M * N), 2 * M * K * N, dtype)
         minplus_rows.append(issue_floor(INSTR_PER_MINPLUS_TRIPLE[dtype] * M * K * N, dict(
             shape=[M, K, N], dtype=str(dtype).replace("torch.", ""), bound_ms=t_min,
-            bound_by=by, **timed(lambda: ops.minplus(a, b), lambda: minplus_plain(a, b),
+            bound_by=by, device_ms=device_ms(lambda: ops.minplus(a, b), "minplus_kernel", 5),
+            **timed(lambda: ops.minplus(a, b), lambda: minplus_plain(a, b),
                                  10, 2))))
     rows = []
     for name, source, replaces, by_shape in (
@@ -1975,6 +2203,8 @@ def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device, usage) ->
              "(_edge_relax_kernel)", edge_rows),
             ("ceft_relax", "ceft_relax", "src/repro/kernels/ceft_relax.py:30 (_relax_kernel)",
              cell_rows),
+            ("ceft_relax_bf16", "ceft_relax",
+             "src/repro/kernels/ceft_relax.py:30 (_relax_kernel), bf16", bf16_rows),
             ("edge_relax_superstep", "edge_relax_superstep",
              "src/repro/kernels/ceft_relax.py:85 (_edge_relax_superstep_kernel)", super_rows),
             ("minplus", "minplus", "src/repro/kernels/minplus.py:22 (_minplus_kernel)",
@@ -1985,7 +2215,8 @@ def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device, usage) ->
             replaces=replaces, launches=sum(paths.values()), launches_by_path=paths,
             max_abs_err=errs[name], launches_per_rgg16384_sweep=per_sweep[name],
             library_ms=None, ptxas=usage[source],
-            **{k: by_shape[0][k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+            **{k: by_shape[0][k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                           "bound_by")},
             by_shape=by_shape))
     return rows
 
@@ -2072,6 +2303,13 @@ def main() -> int:
                 f"{u.get('smem')} bytes static smem, {u.get('stack')} bytes stack, "
                 f"{u.get('spill_stores')} / {u.get('spill_loads')} bytes spill stores / loads")
     errs = compare_kernels(device)
+    by_path = {}
+    bf16_calls, by_path["ceft_relax_bf16"] = counted(relax_bf16_path, device)
+    errs["ceft_relax_bf16"] = check_relax_bf16(bf16_calls)
+    del bf16_calls
+    check(by_path["ceft_relax_bf16"]["ceft_relax_bf16"] > 0
+          and by_path["ceft_relax_bf16"]["ceft_relax"] == 0,
+          f"the bf16 path launched {by_path['ceft_relax_bf16']}")
 
     def planning_path():
         g, comp, m, inputs = plan_large(device)
@@ -2080,7 +2318,6 @@ def main() -> int:
         straggler(device)
         return g, inputs
 
-    by_path = {}
     (g, inputs), by_path["planning"] = counted(planning_path)
     log(f"planning path launches: {by_path['planning']}")
     check(by_path["planning"]["seg_level"] > 0 and by_path["planning"]["ceft_relax"] > 0,
@@ -2100,7 +2337,7 @@ def main() -> int:
           f"a standalone kernel never launched: {by_path['run_tables']} {by_path['minplus']}")
     _, by_path["router"] = counted(router_path, device)
     _, by_path["chaos"] = counted(chaos_soak, device)
-    _, by_path["lm_serving"] = counted(lm_path, device)
+    lm, by_path["lm_serving"] = counted(lm_path, device)
     _, by_path["lm_ssm"] = counted(ssm_path, device)
     train, by_path["training"] = counted(training_path, device)
     replan_dense = sum(n for layout, n in train["g2"]["replan"]["layouts"] if layout == "dense")
@@ -2116,6 +2353,8 @@ def main() -> int:
     log(f"distributed path launches: {by_path['distributed']} (ceft_relax "
         f"{by_path['distributed']['ceft_relax']}: h4's straggler re-plans)")
     print(json.dumps({"distributed": distributed}), flush=True)
+    analysis, by_path["analysis"] = counted(analysis_phase, device, train["g2"], lm["e2"])
+    print(json.dumps({"analysis": analysis}, default=float), flush=True)
     log(f"launches by path: {by_path}")
 
     ops.reset_launches()

@@ -30,7 +30,15 @@ __device__ __forceinline__ bool first_max_before(float v, int i, float best, int
   return takes_max(v, best) || (same && i < best_i);
 }
 
-// min over l of pv_row[l] + comm(l, j | d), and the first l attaining it
+// the working type's rounding of a float32 result: none for float32 data
+struct NoRound {
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+// min over l of pv_row[l] + comm(l, j | d), and the first l attaining it.
+// Each operation is computed in float32 and rounded by R to the working type
+// before the next one (R = NoRound: the float32 arithmetic itself).
+template <typename R = NoRound>
 __device__ __forceinline__ void relax_cell(const float* pv_row, float d, const float* sL,
                                            const float* sbw, int P, int j, float& best,
                                            int& arg) {
@@ -38,8 +46,9 @@ __device__ __forceinline__ void relax_cell(const float* pv_row, float d, const f
   arg = 0;
   for (int l = 0; l < P; ++l) {
     const float off = (l == j) ? 0.0f : 1.0f;
-    const float comm = __fmul_rn(__fadd_rn(sL[l], __fdiv_rn(d, sbw[l * P + j])), off);
-    const float c = __fadd_rn(pv_row[l], comm);
+    const float q = R::round(__fdiv_rn(d, sbw[l * P + j]));
+    const float comm = R::round(__fmul_rn(R::round(__fadd_rn(sL[l], q)), off));
+    const float c = R::round(__fadd_rn(pv_row[l], comm));
     if (l == 0 || takes_min(c, best)) {
       best = c;
       arg = l;

@@ -13,6 +13,9 @@ star's sink, W = 1, D = 4096), so it splits the fan-in D across the slot-lanes
 of a block and, when B·W gives too few blocks to fill the card, across blocks
 (:func:`ceft_relax_chunks`); partial maxima are combined by (value, first slot)
 in shared memory and across blocks through a packed 64-bit ``atomicMax``.
+It has a float32 and a bf16 instance, as the Pallas kernel takes either; the
+bf16 one rounds after each operation, as :func:`ceft_relax_plain` does in
+bf16, and is bit-equal to it.
 """
 from __future__ import annotations
 
@@ -60,19 +63,24 @@ def ceft_relax_chunks(B: int, W: int, D: int, P: int, n_sm: int) -> tuple[int, i
     return chunk, max(1, -(-D // chunk))
 
 
+#: the kernel's entry for each input type
+ENTRIES = {torch.float32: "ceft_relax_f32", torch.bfloat16: "ceft_relax_bf16"}
+
+
 def ceft_relax_launch(lib: ctypes.CDLL, pv, pdata, validp, L, bw, scratch, n_sm: int,
                       stream: int):
-    """Launch ``ceft_relax_f32`` on ``stream``.  Inputs are float32, contiguous
-    and on one CUDA device (checked by the caller); ``scratch(n_keys,
-    n_counts)`` returns zeroed int64 and int32 buffers that the kernel leaves
-    zero."""
+    """Launch the entry for the inputs' type (:data:`ENTRIES`) on ``stream``.
+    Inputs are all float32 or all bf16, contiguous and on one CUDA device
+    (checked by the caller); ``scratch(n_keys, n_counts)`` returns zeroed
+    int64 and int32 buffers that the kernel leaves zero.  maxk has the
+    inputs' type."""
     B, W, D, P = pv.shape
-    maxk = torch.empty((B, W, P), dtype=torch.float32, device=pv.device)
+    maxk = torch.empty((B, W, P), dtype=pv.dtype, device=pv.device)
     argk = torch.empty((B, W, P), dtype=torch.int32, device=pv.device)
     argl = torch.empty((B, W, P), dtype=torch.int32, device=pv.device)
     chunk, n_chunks = ceft_relax_chunks(B, W, D, P, n_sm)
     keys, counts = scratch(B * W * P, B * W) if n_chunks > 1 else (0, 0)
-    err = lib.ceft_relax_f32(
+    err = getattr(lib, ENTRIES[pv.dtype])(
         pv.data_ptr(), pdata.data_ptr(), validp.data_ptr(), L.data_ptr(),
         bw.data_ptr(), maxk.data_ptr(), argk.data_ptr(), argl.data_ptr(),
         keys, counts, B, W, D, P, chunk, n_chunks, stream)
@@ -82,6 +90,7 @@ def ceft_relax_launch(lib: ctypes.CDLL, pv, pdata, validp, L, bw, scratch, n_sm:
 
 
 def ceft_relax_argtypes(lib: ctypes.CDLL) -> None:
-    fn = lib.ceft_relax_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for entry in ENTRIES.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int

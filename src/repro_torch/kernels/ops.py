@@ -54,8 +54,9 @@ KERNELS = {"edge_relax": edge_relax_argtypes, "ceft_relax": ceft_relax_argtypes,
            "edge_relax_superstep": edge_relax_superstep_argtypes,
            "minplus": minplus_argtypes}
 
-#: launches of each CUDA kernel entry (incremented only where it launches)
-LAUNCHES = {name: 0 for name in (*KERNELS, "seg_level")}
+#: launches of each CUDA kernel entry (incremented only where it launches);
+#: ``ceft_relax_bf16`` counts the bf16 instance of ``csrc/ceft_relax.cu``
+LAUNCHES = {name: 0 for name in (*KERNELS, "seg_level", "ceft_relax_bf16")}
 
 # the packed (value, index, class) keys hold an index below 2**24 and a class
 # below 256 (``csrc/ceft_relax.cu``, ``csrc/edge_relax.cu``)
@@ -236,8 +237,9 @@ def ceft_relax(pv, pdata, validp, L, bw):
 
     pv (W, D, P) with L (P,), bw (P, P); or batched pv (B, W, D, P) with
     L (B, P), bw (B, P, P).  pdata and validp (W, D) are shared; validp is a
-    float mask (1 real parent, 0 padding).  Returns (maxk, argk int32,
-    argl int32), each shaped like pv without its D axis."""
+    float mask (1 real parent, 0 padding).  All five are float32, or all
+    bf16 (each operation rounded to bf16).  Returns (maxk of the inputs'
+    type, argk int32, argl int32), each shaped like pv without its D axis."""
     single = pv.dim() == 3
     if single:
         pv, L, bw = pv[None], L[None], bw[None]
@@ -249,19 +251,23 @@ def ceft_relax(pv, pdata, validp, L, bw):
     if pv.device.type == "cpu":
         out = ceft_relax_plain(pv, pdata, validp, L, bw)
     elif pv.device.type == "cuda":
-        _check_cuda("ceft_relax", pv, pdata, validp, L, bw)
+        _check_cuda("ceft_relax", pv, pdata, validp, L, bw,
+                    dtypes=(torch.float32, torch.bfloat16))
+        if any(t.dtype != pv.dtype for t in (pdata, validp, L, bw)):
+            raise TypeError(f"ceft_relax: the CUDA kernel takes one type, got {pv.dtype}, "
+                            f"{pdata.dtype}, {validp.dtype}, {L.dtype}, {bw.dtype}")
         if D >= MAX_KEY_INDEX or P > MAX_KEY_P:
             raise ValueError(f"ceft_relax: the CUDA kernel takes D < {MAX_KEY_INDEX} "
                              f"and P <= {MAX_KEY_P}, got D = {D}, P = {P}")
         if B * W * P == 0:
-            out = (torch.empty((B, W, P), device=pv.device),
+            out = (torch.empty((B, W, P), dtype=pv.dtype, device=pv.device),
                    torch.empty((B, W, P), dtype=torch.int32, device=pv.device),
                    torch.empty((B, W, P), dtype=torch.int32, device=pv.device))
         else:
             stream = torch.cuda.current_stream(pv.device).cuda_stream
             out = ceft_relax_launch(_library("ceft_relax"), pv, pdata, validp, L, bw,
                                     _scratch(pv.device, stream), _n_sm(pv.device), stream)
-            LAUNCHES["ceft_relax"] += 1
+            LAUNCHES["ceft_relax" if pv.dtype == torch.float32 else "ceft_relax_bf16"] += 1
     else:
         raise ValueError(f"ceft_relax: no kernel for device {pv.device}")
     return tuple(o[0] for o in out) if single else out

@@ -12,7 +12,8 @@ and a NaN-aware equality to hold the results with.
   quotients near overflow and underflow);
 * :func:`minplus_specials` — (min, +) operands with NaN, ``inf`` and -0.0;
 * :func:`minplus_probe` — (min, +) operands whose sums fall on bf16 rounding
-  ties, near the largest bf16 and ``BIG``, among subnormals and on ±0.
+  ties, near the largest bf16 and ``BIG``, among subnormals and on ±0;
+* :func:`equal_bits` — :func:`equal_nan` that also tells -0.0 from 0.0.
 
 The CPU tests feed them to the JAX reference and the port's plain versions;
 the card tests and ``chip_smoke.py`` feed them to the CUDA kernels.  Arrays
@@ -44,6 +45,16 @@ def equal_nan(a, b) -> bool:
     zero = torch.zeros((), dtype=a.dtype, device=a.device)
     return torch.equal(na, nb) and torch.equal(torch.where(na, zero, a),
                                                torch.where(nb, zero, b))
+
+
+def equal_bits(a, b) -> bool:
+    """:func:`equal_nan`, and every entry that is not NaN the same bits
+    (so -0.0 differs from 0.0)."""
+    if not equal_nan(a, b) or not a.is_floating_point():
+        return equal_nan(a, b)
+    keep = ~torch.isnan(a)
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a[keep].view(view), b[keep].view(view))
 
 
 def _bits(u) -> np.ndarray:

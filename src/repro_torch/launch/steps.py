@@ -25,8 +25,8 @@ and :class:`ShardedTrainStep` runs ZeRO-3 style:
 
 So the ``model`` axis shards storage, not compute: every rank of a data
 group computes the same rows.  Tensor-parallel compute on it is a ROADMAP
-item.  ``abstract_state`` and ``abstract_cache`` belong to the XLA analysis
-tools, which are not ported yet.
+item.  ``abstract_state`` and ``abstract_cache`` give the state and the
+cache as ``meta`` tensors for the dry-run (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -37,7 +37,8 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs.base import ArchConfig, ShapeCell
-from ..models.common import param_shardings, resolve_spec, sorted_leaves
+from ..models.common import (abstract_params, param_shardings, resolve_spec, sorted_leaves,
+                             torch_dtype, tree_map_pspec)
 from ..models.model import Model
 from ..optim import AdamW, AdamWState, for_config
 from ..optim.adamw import tree_map_sorted
@@ -240,3 +241,24 @@ def build_decode(model: Model, mesh, cell: ShapeCell):
     c_sh = param_shardings(model.cache_specs(cell.global_batch, cell.seq_len), mesh)
     return DecodeStep(model, c_sh), {"params": param_shardings(model.specs(), mesh),
                                      "cache": c_sh}
+
+
+def abstract_state(model: Model, opt: AdamW):
+    """(params, opt_state) as ``meta`` tensors (shapes and dtypes, no
+    bytes): parameters in the config's ``param_dtype``, moments in the
+    optimizer's ``moment_dtype``, the count an int32 scalar."""
+    specs = model.specs()
+    params = abstract_params(specs, torch_dtype(model.cfg.param_dtype))
+    mspec = opt.moment_specs(specs)
+    m = abstract_params(mspec, torch_dtype(opt.moment_dtype))
+    v = abstract_params(mspec, torch_dtype(opt.moment_dtype))
+    count = torch.empty((), dtype=torch.int32, device="meta")
+    return params, AdamWState(count, m, v)
+
+
+def abstract_cache(model: Model, cell: ShapeCell):
+    """The decode cache of the cell's batch and sequence as ``meta``
+    tensors, each leaf in its spec's dtype."""
+    return tree_map_pspec(
+        lambda _, p: torch.empty(p.shape, dtype=torch_dtype(p.dtype), device="meta"),
+        model.cache_specs(cell.global_batch, cell.seq_len))

@@ -60,8 +60,10 @@ def rope_cos_sin(cfg: ArchConfig, positions):
         if sum(secs) != half:
             raise ValueError(f"M-RoPE sections {secs} do not sum to {half}")
         # per-frequency position: frequencies [0:t) use temporal ids, etc.
+        # output_size: the length is known without reading the repeats
         rep = torch.repeat_interleave(torch.arange(3, device=positions.device),
-                                      torch.tensor(secs, device=positions.device))
+                                      torch.tensor(secs, device=positions.device),
+                                      output_size=half)
         pos = positions[rep].movedim(0, -1)               # (B, S, half)
         ar = torch.arange(0, half, dtype=torch.float32, device=positions.device)
         inv = cfg.rope_theta ** (-ar / half)

@@ -37,11 +37,13 @@ class DeviceClass:
 
 
 # The reference's fleet description, value for value: a planning input that
-# every default plan depends on, not a measurement of any card.
+# every default plan depends on, not a measurement of any card.  Its TPU
+# classes' figures are quoted data, marked so on their lines; no peak of the
+# port's own hardware model comes from them.
 DEFAULT_FLEET = [
-    DeviceClass("v5e-96", 96 * 197e12, 96 * 819e9, 50e9, 12),
-    DeviceClass("v5p-32", 32 * 459e12, 32 * 2765e9, 90e9, 6),
-    DeviceClass("v5e-96-degraded", 48 * 197e12, 48 * 819e9, 25e9, 4),
+    DeviceClass("v5e-96", 96 * 197e12, 96 * 819e9, 50e9, 12),  # quoted fleet data
+    DeviceClass("v5p-32", 32 * 459e12, 32 * 2765e9, 90e9, 6),  # quoted fleet data
+    DeviceClass("v5e-96-degraded", 48 * 197e12, 48 * 819e9, 25e9, 4),  # quoted fleet data
     DeviceClass("host-cpu", 3e12, 100e9, 12.5e9, 32),
 ]
 

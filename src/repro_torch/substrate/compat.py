@@ -17,8 +17,9 @@ generations; this module maps the same calls onto one PyTorch API:
                                     :func:`ppermute` on the axis's group
 
 ``jax_mesh_api`` tells JAX API generations apart and has no counterpart
-here; ``compiled_cost_analysis`` belongs to the XLA analysis tools, which
-are not ported yet.
+here.  The reference's ``compiled_cost_analysis`` reads XLA's cost analysis
+of a compiled program; here :class:`CostCounter` counts the same figures
+over a traced step (below).
 
 A tuple of mesh axes on one dimension chunks it as the reference does: the
 first-named axis is the major one.  ``DTensor`` applies placements in mesh
@@ -42,31 +43,52 @@ import dataclasses
 import math
 import os
 import socket
+import weakref
 from typing import Any, Callable, Iterator, Sequence
 
 import torch
 import torch.distributed as dist
+import torch.utils._pytree as pytree
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.placement_types import Partial, _StridedShard
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+from torch.utils.weak import WeakIdKeyDictionary
 
 
 # ------------------------------------------------------------------- groups
 def init_group(backend: str, rank: int = 0, world_size: int = 1,
-               init_method: str | None = None) -> None:
+               init_method: str | None = None, store: dist.Store | None = None) -> None:
     """Initialize the default process group.  ``backend`` is the caller's
     choice (``"nccl"`` for ranks on cards of their own, ``"gloo"`` for host
-    tensors or ranks sharing a card).  ``init_method`` is a
-    ``file://`` / ``tcp://`` / ``env://`` URL; a one-rank world may leave it
-    out and rendezvous in process memory."""
-    if init_method is None:
+    tensors or ranks sharing a card, ``"fake"`` for a fleet that one process
+    stands in for, with :func:`fake_store`).  The rendezvous is ``store``
+    when given, else ``init_method`` (a ``file://`` / ``tcp://`` /
+    ``env://`` URL); a one-rank world may give neither and rendezvous in
+    process memory."""
+    if store is None and init_method is None:
         if world_size != 1:
-            raise ValueError("a world of more than one rank needs an init_method")
-        dist.init_process_group(backend, store=dist.HashStore(), rank=rank,
-                                world_size=world_size)
+            raise ValueError("a world of more than one rank needs an init_method or a store")
+        store = dist.HashStore()
+    if store is not None:
+        dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
         return
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size)
+
+
+def fake_store() -> dist.Store:
+    """The store of a ``"fake"`` process group: one process plays one rank
+    of a fleet of any size, and every collective completes at once without
+    moving data.  Importing PyTorch's testing module registers the backend."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    return FakeStore()
+
+
+def is_fake_group(group=None) -> bool:
+    """Whether ``group`` (the default group when None) is a ``"fake"`` one."""
+    return dist.is_initialized() and dist.get_backend(group) == "fake"
 
 
 # ------------------------------------------------------------------ make_mesh
@@ -74,9 +96,10 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
               device_type: str = "cuda") -> DeviceMesh:
     """A ``DeviceMesh`` of ``shape`` over ``axes``, laid over the first
     ranks of the initialized default group in row-major order.  Raises
-    RuntimeError when CUDA is wanted and absent, or when the world has fewer
-    ranks than the shape needs."""
-    if device_type == "cuda" and not torch.cuda.is_available():
+    RuntimeError when CUDA is wanted and absent (a ``"fake"`` world needs no
+    card: its tensors are fake ones), or when the world has fewer ranks than
+    the shape needs."""
+    if device_type == "cuda" and not torch.cuda.is_available() and not is_fake_group():
         raise RuntimeError("device_type='cuda' was requested but CUDA is not available; "
                            "pass device_type='cpu' to run on the CPU")
     shape = tuple(int(s) for s in shape)
@@ -93,7 +116,10 @@ def mesh_axis_sizes(mesh) -> dict[str, int]:
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:
-    """The device this rank's shards live on."""
+    """The device this rank's shards live on (card 0 in a ``"fake"``
+    world, whose tensors are fake ones)."""
+    if mesh.device_type == "cuda" and is_fake_group():
+        return torch.device("cuda", 0)
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
@@ -400,3 +426,129 @@ def ppermute(x: torch.Tensor, axis: str, perm: Sequence[tuple[int, int]], *,
         for req in dist.batch_isend_irecv(p2p):
             req.wait()
     return recv.to(x.device) if staged else recv
+
+
+# ------------------------------------------------------------- cost analysis
+#: the reference's collective kinds (HLO op names) of the ``c10d`` and
+#: functional collectives; a point-to-point receive is one rank's share of a
+#: ``collective-permute``
+COLLECTIVE_KINDS = {
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_coalesced_": "all-gather", "allgather_into_tensor_coalesced_": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
+    "alltoall_base_": "all-to-all", "recv_": "collective-permute",
+}
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional",
+                          "_c10d_functional_autograd")
+#: ops that take one transcendental function an element, as XLA counts them
+#: (exp, log, logistic, tanh, sqrt, rsqrt, erf, sin, cos): the elementwise
+#: ones, the activations and softmaxes built on them, and the backward ops
+#: that recompute one (``silu_backward`` its sigmoid, ``gelu_backward`` its
+#: tanh or erf, ``_log_softmax_backward_data`` its exp); ``pow`` is left out,
+#: since a square is a product
+TRANSCENDENTAL_OPS = frozenset((
+    "exp", "exp2", "expm1", "log", "log1p", "log2", "log10", "tanh", "sqrt", "rsqrt",
+    "erf", "sin", "cos", "tan", "sigmoid", "silu", "gelu", "_softmax", "_log_softmax",
+    "logsumexp", "silu_backward", "gelu_backward", "_log_softmax_backward_data"))
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+class CostCounter(TorchDispatchMode):
+    """The counterpart of the reference's ``compiled_cost_analysis``
+    (``src/repro/substrate/compat.py``), which reads XLA's cost analysis of a
+    compiled program: a dispatch mode that counts, over the ops a traced step
+    runs, the same figures per device, and the step's collectives and live
+    bytes.  Run the step inside ``with counter:``, over fake tensors
+    (``FakeTensorMode``) on a ``"fake"`` world for a fleet that is not there.
+
+    Per device: an op on ``DTensor``s is let through (``NotImplemented``), so
+    ``DTensor`` runs it as ops on this rank's local shards and their
+    collectives, and only those are counted.  (Counting above the
+    ``DTensor`` layer, as ``FlopCounterMode`` does, counts the global
+    product: the whole mesh's work.)
+
+    * ``flops``: products, from ``torch.utils.flop_counter``'s registry
+      (matrix products, convolutions, attention);
+    * ``bytes accessed``: every op's input and output bytes, unfused, as
+      XLA:CPU's figure is (view ops move nothing and are left out);
+    * ``transcendentals``: the elements of the ops in
+      :data:`TRANSCENDENTAL_OPS` (of the larger of the first input and the
+      outputs, so that ``logsumexp`` counts an exp an input element);
+    * :attr:`collectives`: one event ``(kind, dtype, numel)`` per collective
+      executed, the kind the reference's HLO name and the result's type and
+      elements (``launch.hlo_stats.collective_stats`` sums them);
+    * :attr:`live`, :attr:`peak`: bytes of the storages alive now and at
+      most, each storage counted once whatever views it has, from its birth
+      in an op (or :meth:`hold`) to its death (a weak reference).
+    """
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.flops = 0
+        self.bytes_accessed = 0
+        self.transcendentals = 0
+        self.collectives: list[tuple[str, torch.dtype, int]] = []
+        self.live = 0
+        self.peak = 0
+        self._storages = WeakIdKeyDictionary()
+
+    def _track(self, t: torch.Tensor) -> int:
+        st = t.untyped_storage()
+        if st in self._storages:
+            return 0
+        n = st.nbytes()
+        self._storages[st] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._release, n)
+        return n
+
+    def _release(self, n: int) -> None:
+        self.live -= n
+
+    def hold(self, tree) -> int:
+        """Count the storages of a tree's tensors (a ``DTensor`` by its local
+        shard) as live, as arguments that exist before the step; returns the
+        bytes newly counted."""
+        return sum(self._track(local_value(t)) for t in _tensors(tree))
+
+    def cost_analysis(self) -> dict:
+        """The reference's keys: {"flops", "bytes accessed",
+        "transcendentals"}, per device."""
+        return {"flops": float(self.flops), "bytes accessed": float(self.bytes_accessed),
+                "transcendentals": float(self.transcendentals)}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if not isinstance(func, torch._ops.OpOverload):
+            return out
+        name = func._overloadpacket.__name__
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            kind = COLLECTIVE_KINDS.get(name)
+            if kind is not None:
+                res = _tensors(out) or _tensors(args[0])
+                self.collectives.append((kind, res[0].dtype, sum(t.numel() for t in res)))
+        elif func._overloadpacket in flop_registry:
+            self.flops += flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
+        outs = _tensors(out)
+        if not func.is_view:
+            self.bytes_accessed += sum(t.numel() * t.element_size()
+                                       for t in _tensors((args, kwargs)) + outs)
+        if name.rstrip("_") in TRANSCENDENTAL_OPS:
+            self.transcendentals += max(t.numel() for t in _tensors(args[:1]) + outs)
+        for t in outs:
+            self._track(t)
+        return out

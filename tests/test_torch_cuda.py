@@ -291,6 +291,39 @@ def test_ceft_relax_kernel_specials(cuda, shape, mode):
     assert _scratch_is_zero()
 
 
+def _check_bf16(arrays, device):
+    """The bf16 kernel on ``arrays`` against the plain version in bf16: maxk
+    bit for bit, argk and argl equal, one launch, the scratch left zero."""
+    args = [torch.as_tensor(a, device=device).to(torch.bfloat16) for a in arrays]
+    before = ops.LAUNCHES["ceft_relax_bf16"]
+    got = ops.ceft_relax(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ceft_relax_bf16"] == before + 1
+    want = ceft_relax_plain(args[0][None], args[1], args[2], args[3][None], args[4][None])
+    assert got[0].dtype == torch.bfloat16
+    assert probes.equal_bits(got[0], want[0][0])
+    assert torch.equal(got[1], want[1][0]) and torch.equal(got[2], want[2][0])
+    assert _scratch_is_zero()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 3, 4), (16, 7, 13)])
+def test_ceft_relax_kernel_bf16(cuda, shape):
+    """The bf16 instance at the shapes of the reference's bf16 test
+    (``tests/test_kernels.py``), which it holds at rtol 1e-2: bit-equal to
+    the plain version's bf16 arithmetic here."""
+    _check_bf16(_cell_inputs(shape, ties=False), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", probes.SPECIAL_MODES)
+@pytest.mark.parametrize("shape", [(16, 7, 13), (3, 33, 64), (1, 4096, 64), (2, 1000, 8)])
+def test_ceft_relax_kernel_bf16_specials(cuda, shape, mode):
+    """The bf16 instance with NaN, inf and -0.0 candidates, in one block and
+    split across blocks: bit-equal to the plain version in bf16."""
+    _check_bf16(probes.cell_specials(shape, mode, 58), cuda)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(SEG_CASES))
 def test_seg_level_kernel_nan(cuda, case):

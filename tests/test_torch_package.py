@@ -37,7 +37,10 @@ def test_import_loads_no_jax_and_no_reference():
                 "repro_torch.checkpoint.checkpointer", "repro_torch.train",
                 "repro_torch.train.trainer", "repro_torch.launch.steps",
                 "repro_torch.launch.train", "repro_torch.launch.mesh",
-                "repro_torch.launch.pipeline", "repro_torch.optim.grad_compress"} <= set(names), names
+                "repro_torch.launch.pipeline", "repro_torch.optim.grad_compress",
+                "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+                "repro_torch.launch.roofline_main",
+                "repro_torch.launch.hlo_stats"} <= set(names), names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
