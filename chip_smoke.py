@@ -159,7 +159,8 @@ from repro_torch.core.schedule import validate_schedule  # noqa: E402
 from repro_torch.graphs import heavy_tail_fan_in, rgg, star_fan_in  # noqa: E402
 from repro_torch.kernels import ops, probes  # noqa: E402
 from repro_torch.kernels.ceft_relax import ceft_relax_plain  # noqa: E402
-from repro_torch.kernels.edge_relax import edge_relax_plain, seg_level_plain  # noqa: E402
+from repro_torch.kernels.edge_relax import (edge_relax_plain, seg_level_grid,  # noqa: E402
+                                            seg_level_plain)
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
 from repro_torch.configs.base import ShapeCell  # noqa: E402
@@ -194,9 +195,12 @@ OPS_PER_CANDIDATE = 5
 # issue slots of one warp instruction per lane: 4 schedulers x 32 lanes an SM
 LANES_PER_SM = 128
 # instructions a superstep candidate needs at least: the divide (a multiply,
-# two FMAs), add, multiply, add, a compare and two selects; minplus: an add
+# two FMAs), add, multiply, add, a compare and two selects; a seg_level
+# candidate one fewer (the multiply by off and the add are one exact FMA);
+# minplus: an add
 # and a min per (i, k, j) in float32, one packed pair of each per two in bf16
 INSTR_PER_CANDIDATE = 9
+INSTR_PER_SEG_CANDIDATE = 8
 INSTR_PER_MINPLUS_TRIPLE = {torch.float32: 2.0, torch.bfloat16: 1.0}
 
 EDGE_SHAPES = [(5, 3), (128, 16), (300, 7), (1, 1), (257, 13), (64, 64)]
@@ -209,10 +213,18 @@ CELL_TIE_CASES = [((1, 4096, 64), "ties"), ((1, 4096, 8), "ties"), ((2, 1000, 12
                   ((4, 700, 64), "invalid_rows"), ((6, 90, 8), "invalid_rows"),
                   ((1, 33, 128), "invalid_rows")]
 # fused segment levels: (B, P, segment lengths or (count, longest), padded
-# edges, padded segment slots); the kernel's edge tile is 1024 // P edges
+# edges, padded segment slots); the kernel's edge tile is 4 to 128 edges
+# (seg_level_grid); p8, p16, p32 take those instances, p24, p128 and p200
+# the run-time P, tiles has the n = 16384 graph's segment lengths over many
+# 16-edge tiles
 SEG_CASES = {"long": (1, 64, [3, 3000, 1, 40], 0, 0), "crossing": (2, 8, (60, 300), 5, 0),
              "single": (1, 64, [500], 12, 0), "padded": (1, 16, (30, 90), 17, 3),
-             "batch8": (8, 64, (100, 12), 600, 0), "p128": (2, 128, (12, 40), 1, 2)}
+             "batch8": (8, 64, (100, 12), 600, 0), "p128": (2, 128, (12, 40), 1, 2),
+             "p8": (3, 8, (50, 40), 2, 1), "p16": (1, 16, (70, 30), 0, 0),
+             "p32": (2, 32, (40, 25), 4, 2), "p24": (2, 24, (30, 20), 3, 1),
+             "p200": (1, 200, (6, 12), 0, 1), "tiles": (1, 64, (130, 15), 0, 0)}
+# the divide probe's levels through seg_level (16384 single-edge segments)
+SEG_DIVIDE_LEVELS = 16
 SUPERSTEP_SHAPES = [(1, 5, 3), (4, 128, 16), (3, 300, 7), (2, 64, 64), (1, 1, 1)]
 # the superstep's other instances: P = 8 and 32 (E not a multiple of the
 # edge tile), the run-time-P instance above 64, and the wide-machine kernel
@@ -447,7 +459,31 @@ def compare_kernels(device) -> dict:
     n = compare_nan(device, err)
     log(f"phase 2: NaN, inf and -0.0 candidates in {n} calls: NaN where the plain versions "
         f"have it and bit-equal elsewhere, scratch zero; max_abs_err {err}")
+    n = compare_seg_divide(device, err)
+    log(f"phase 2: seg_level on the divide probe ({n} levels of "
+        f"{SEG_DIVIDE_LEVELS * 1024} single-edge segments, P = 64, kinds "
+        f"{probes.DIVIDE_KINDS}): bit-equal to the plain version, scratch zero")
     return err
+
+
+def compare_seg_divide(device, err: dict) -> int:
+    """Phase 2, divide: ``probes.seg_divide_level`` through seg_level, every
+    adversarial quotient reaching the carry; plain version on the card."""
+    for i, kind in enumerate(probes.DIVIDE_KINDS):
+        carry, *rest, e_real, width = probes.seg_divide_level(kind, SEG_DIVIDE_LEVELS, 860 + i)
+        args = on(device, rest)
+        want = tuple(torch.as_tensor(c, device=device) for c in carry)
+        seg_level_plain(want, *args, e_real, width)
+        got = tuple(torch.as_tensor(c, device=device) for c in carry)
+        ops.seg_level(got, *args, e_real, width)
+        torch.cuda.synchronize()
+        err["seg_level"] = max(err["seg_level"], nan_err(got[0], want[0]))
+        for g, w, name in zip(got, want, ("ceft", "pred_task", "pred_proc")):
+            check(probes.equal_nan(g, w), f"seg_level kernel != plain ({name}) on the {kind} "
+                  f"divide probe")
+        del want, got
+    check(scratch_is_zero(), "seg_level left its scratch non-zero on the divide probe")
+    return len(probes.DIVIDE_KINDS)
 
 
 def compare_nan(device, err: dict) -> int:
@@ -2088,31 +2124,44 @@ def timed(kernel, plain, reps: int, plain_reps: int | None = None) -> dict:
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
 
 
-def seg_level_rows(g, inputs, device) -> list:
-    """The fused level at the n = 16384 graph's shapes: the widest level of
-    each segment-layout run, and the first run's with 8 planes.  The level
+def seg_levels(g, device) -> list:
+    """The fused level's path shapes on the n = 16384 graph: the widest level of
+    each segment-layout run with 1 plane, then the first run's with 8."""
+    runs = plancache.device_state(g, device)[0]
+    levels = [max(r.levels, key=lambda lv: lv.e_real) for r in runs if r.layout == "seg"]
+    return [(1, lv) for lv in levels] + [(8, levels[0])]
+
+
+def seg_args(inputs, B: int, lv):
+    """A finished carry and the level's arguments with B planes.  The level
     writes only its own tasks' rows from parent rows it does not write, so
     calls on the finished carry repeat the same work and write the same
     values."""
-    runs = plancache.device_state(g, device)[0]
-    levels = [max(r.levels, key=lambda lv: lv.e_real) for r in runs if r.layout == "seg"]
+    carry = tuple(c[None].expand(B, *c.shape).contiguous() for c in ct.csr_sweep(inputs))
+    comp, L, bw = (t[None].expand(B, *t.shape).contiguous()
+                   for t in (inputs[1], inputs[3], inputs[4]))
+    return carry, (comp, L, bw, lv.tasks, lv.edge_src, lv.edge_data, lv.edge_seg,
+                   lv.e_real, lv.width)
+
+
+def seg_level_rows(g, inputs, device) -> list:
+    """The fused level at its path shapes (``seg_levels``) beside its plain
+    version, its bound, its issue floor and its launch shape."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
-    for B, lv in [(1, lv) for lv in levels] + [(8, levels[0])]:
-        carry = tuple(c[None].expand(B, *c.shape).contiguous() for c in ct.csr_sweep(inputs))
-        comp, L, bw = (t[None].expand(B, *t.shape).contiguous()
-                       for t in (inputs[1], inputs[3], inputs[4]))
-        args = (comp, L, bw, lv.tasks, lv.edge_src, lv.edge_data, lv.edge_seg,
-                lv.e_real, lv.width)
-        e, w, P = lv.e_real, lv.tasks.shape[0], comp.shape[-1]
+    for B, lv in seg_levels(g, device):
+        carry, args = seg_args(inputs, B, lv)
+        e, w, P = lv.e_real, lv.tasks.shape[0], carry[0].shape[-1]
         # the parent rows read and the carry rows read and written, the level's
         # edge and task tables, the machine; the real edges' candidates
         nbytes = 4 * B * (e * P + w * P + 3 * w * P + P + P * P) + 20 * e + 8 * w
         t_min, by = bound(nbytes, OPS_PER_CANDIDATE * B * e * P * P)
-        out.append(dict(shape=[B, e, P], edge_cap=lv.edge_src.shape[0], tasks=w,
-                        bound_ms=t_min, bound_by=by, device_ms=device_ms(
-                            lambda: ops.seg_level(carry, *args), "seg_level_kernel"), **timed(
-                            lambda: ops.seg_level(carry, *args),
-                            lambda: seg_level_plain(carry, *args), 100)))
+        out.append(issue_floor(INSTR_PER_SEG_CANDIDATE * B * e * P * P, dict(
+            shape=[B, e, P], edge_cap=lv.edge_src.shape[0], tasks=w,
+            launch=seg_level_grid(B, e, P, n_sm)._asdict(), bound_ms=t_min, bound_by=by,
+            device_ms=device_ms(lambda: ops.seg_level(carry, *args), "seg_level_kernel"),
+            **timed(lambda: ops.seg_level(carry, *args),
+                    lambda: seg_level_plain(carry, *args), 100))))
     return out
 
 
@@ -2234,23 +2283,50 @@ def other_tree_ops(src: Path):
     return mod.ops
 
 
+def sweep_busy_ms(fn, reps: int = 5) -> tuple[float, float]:
+    """One sweep's device busy time (ms: every CUDA kernel it runs, from
+    ``torch.profiler`` over ``reps`` sweeps) and its median host wall time
+    (ms, unprofiled)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3, sorted(walls)[reps // 2] * 1e3
+
+
 def turns(other_src: str) -> int:
-    """``--turns OTHER_SRC``: the superstep on the n = 16384 graph's run tables
-    and ``minplus`` at 4096^3 (float32 and bf16), each timed with the kernels
-    of the tree under ``OTHER_SRC`` (a ``src`` directory holding
-    ``repro_torch``, for example an unpacked ``git archive`` of an earlier
-    commit) and with this tree's, in turns (other, this, this, other), on the
-    same inputs.  Both must give the same outputs (inputs without NaN).
-    Prints one JSON line of times, then the card's name and power limit."""
+    """``--turns OTHER_SRC``: kernels of the tree under ``OTHER_SRC`` (a ``src``
+    directory holding ``repro_torch``, for example an unpacked ``git
+    archive`` of an earlier commit) and of this one, timed in turns (other,
+    this, this, other) on the same inputs on one card: the superstep on the
+    n = 16384 graph's run tables and ``minplus`` at 4096^3 (float32 and
+    bf16), kernel ms by CUDA events; ``seg_level`` at its path shapes
+    (``seg_levels``), device ms by ``torch.profiler``; and the steady
+    n = 16384 sweep at B = 1 and B = 8 with each tree's kernels, its device
+    busy ms and host wall ms.  Both trees must give the same outputs and
+    carries (inputs without NaN).  Prints one JSON line of times, then the
+    card's name and power limit."""
     device = "cuda"
     other = other_tree_ops(Path(other_src).resolve())
     other.build_all()
     ops.build_all()
     wl = rgg("high", 16384, 64, np.random.default_rng(5), o=4, alpha=0.75, beta=50)
-    inputs = ct.csr_device_inputs(wl.graph, wl.comp, wl.machine, device=device)
+    g, comp, m = wl.graph, wl.comp, wl.machine
+    inputs = ct.csr_device_inputs(g, comp, m, device=device)
     cases = [("edge_relax_superstep", list(t[0].shape), t, other.edge_relax_superstep,
               ops.edge_relax_superstep, 50)
-             for t in run_tables(device, wl.graph, inputs, ct.csr_sweep(inputs)[0])]
+             for t in run_tables(device, g, inputs, ct.csr_sweep(inputs)[0])]
     cases += [("minplus", list(MINPLUS_PATH_SHAPE),
                minplus_inputs(MINPLUS_PATH_SHAPE, dtype, device, 600), other.minplus,
                ops.minplus, 10) for dtype in MINPLUS_DTYPES]
@@ -2263,6 +2339,44 @@ def turns(other_src: str) -> int:
         o1, n1, n2, o2 = (cuda_ms(lambda: f(*args), reps) for f in (theirs, ours, ours, theirs))
         rows.append(dict(name=name, shape=shape, dtype=str(args[0].dtype).replace("torch.", ""),
                          other_ms=[o1, o2], this_ms=[n1, n2],
+                         sm_clock_mhz_after=smi("clocks.sm")))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, lv in seg_levels(g, device):
+        carry, args = seg_args(inputs, B, lv)
+        mine = tuple(c.clone() for c in carry)
+        other.seg_level(carry, *args)
+        ops.seg_level(mine, *args)
+        check(all(torch.equal(a, b) for a, b in zip(carry, mine)),
+              f"seg_level at {(B, lv.e_real)}: the trees' carries differ")
+        o1, n1, n2, o2 = (device_ms(lambda: f(carry, *args), "seg_level_kernel", 50)
+                          for f in (other.seg_level, ops.seg_level, ops.seg_level,
+                                    other.seg_level))
+        rows.append(dict(name="seg_level", shape=[B, lv.e_real, carry[0].shape[-1]],
+                         dtype="float32", timer="torch.profiler device ms",
+                         launch=seg_level_grid(B, lv.e_real, carry[0].shape[-1], n_sm)._asdict(),
+                         other_ms=[o1, o2], this_ms=[n1, n2],
+                         sm_clock_mhz_after=smi("clocks.sm")))
+    rng = np.random.default_rng(11)
+    comps = comp[None] * rng.uniform(1.0, 2.0, (8, 1, m.P))
+    binputs = ct.csr_batch_device_inputs(g, comps, np.repeat(m.L[None], 8, 0),
+                                         np.repeat(m.bw[None], 8, 0), device=device)
+    for B, sweep in ((1, lambda: ct.csr_sweep(inputs)), (8, lambda: ct.csr_batch_sweep(binputs))):
+        def with_ops(mod):
+            def run():
+                ct.ops = mod     # the sweep's kernel calls go through this module
+                try:
+                    return sweep()
+                finally:
+                    ct.ops = ops
+            return run
+        theirs, ours = with_ops(other), with_ops(ops)
+        check(all(torch.equal(a, b) for a, b in zip(theirs(), ours())),
+              f"the B = {B} sweep: the trees' carries differ")
+        (ob1, ow1), (nb1, nw1), (nb2, nw2), (ob2, ow2) = (
+            sweep_busy_ms(f) for f in (theirs, ours, ours, theirs))
+        rows.append(dict(name="steady_sweep_rgg16384", shape=[B, g.n, m.P],
+                         other_busy_ms=[ob1, ob2], this_busy_ms=[nb1, nb2],
+                         other_wall_ms=[ow1, ow2], this_wall_ms=[nw1, nw2],
                          sm_clock_mhz_after=smi("clocks.sm")))
     print(json.dumps({"turns": rows, "other": other_src,
                       "sm_clock_max_mhz": smi("clocks.max.sm")}), flush=True)

@@ -6,51 +6,80 @@
 // with off[l, j] = 0.0 on the diagonal and 1.0 elsewhere.  Replaces the Pallas
 // kernel src/repro/kernels/ceft_relax.py:_edge_relax_kernel (entry
 // edge_relax_pallas); b is the batch of cost planes / machines that share one
-// set of edge tables.
+// set of edge tables.  Two entries:
 //
-// Two entries share the arithmetic (relax_cell in relax.cuh, which ceft_relax.cu
-// uses too):
-//
-//   edge_relax_f32  the (B, E, P) contract of the Pallas kernel: one thread per
-//                   (b, e, j) output, L[b] and bw[b] staged in shared memory
-//                   (16.6 KB at P = 64).
+//   edge_relax_f32  the (B, E, P) contract of the Pallas kernel, off the
+//                   sweep: one thread per (b, e, j) output through
+//                   relax.cuh's relax_cell, L[b] and bw[b] staged in shared
+//                   memory (16.6 KB at P = 64).
 //   seg_level_f32   a whole segment-layout level of the sweep in one launch:
 //                   it gathers each edge's parent row from the carry, relaxes
 //                   it, takes each child's max over its contiguous segment of
 //                   edges (the first maximal edge in edge order wins), adds
 //                   comp and writes ceft, pred_task and pred_proc into the
-//                   carry rows of the level's tasks.  A block takes a tile of
-//                   edges: it stages the tile's parent rows in shared memory,
-//                   relaxes each (edge, j) cell on a thread of its own (1024
-//                   threads, 16 edges at P = 64) into a shared tile, and folds
-//                   each segment piece of the tile (takes_max: a larger
-//                   value or the first NaN wins, as in the reference).  A
-//                   segment that lies inside one tile is written at once; one
-//                   that crosses a tile boundary (heavy-tailed fan-in has
-//                   segments of thousands of edges) goes through a 64-bit
-//                   atomicMax on a packed (value, first edge, class) key, and
-//                   the block that finishes last decodes those keys and resets
-//                   them, so the scratch stays zero between launches and needs
-//                   no memset.  The result does not depend on block order.
+//                   carry rows of the level's tasks.
+//
+// seg_level's bound: issue slots.  A level is B * e_real * P^2 candidates of
+// float32 scalar arithmetic (a divide, two adds, a multiply by off, a
+// NaN-aware compare and two selects) with no tensor-core form and a few bytes
+// each.  The sweep's levels are small (385 real edges on average, 1611 at
+// most, at P = 64 for the paper's n = 16384 graph), so a level must also
+// spread over every SM, and a block's chain of dependent memory round trips
+// counts as much as its arithmetic.  The design:
+//
+//   * The whole card.  The host (kernels/edge_relax.py:seg_level_grid) picks
+//     the launch from the level's size and the SM count: a block takes a
+//     tile of edges and JC of the P child classes (a j-chunk; splitting j
+//     costs nothing in the segment max, which is per class), grid (tiles x
+//     j-chunks, B); a tile takes as many passes as keep the grid within what
+//     the card holds at once, and a small level halves its block instead.
+//   * The class loop split across lanes.  G lanes (8 for a single level at
+//     P = 64, fewer for a batch of planes, where the threads are plenty)
+//     share one (edge, j) cell, each scanning a contiguous range of classes
+//     l, two at a time, and combine in l order with warp shuffles
+//     (takes_min: the upper range replaces the lower only if smaller or the
+//     first NaN), which is the serial first-index scan exactly.
+//   * SEG_EPT edges a thread for one j, so that each staged (bw, RN(1/bw),
+//     L, off) entry read from shared memory serves SEG_EPT candidates and
+//     their chains run side by side.
+//   * The divide without a MUFU per candidate: the block stages its j-chunk's
+//     (bw, RN(1/bw)) once (every load issued before any reciprocal) and
+//     checks every bw and each edge's d against relax.cuh's exponent window;
+//     inside it the divide is relax.cuh's Markstein form, outside it
+//     __fdiv_rn, and either is correctly rounded.
+//   * Three memory round trips before the arithmetic, not one a phase: the
+//     first brings a window of the edge tables and the machine, and moves
+//     each tile boundary on to the next segment start within SEG_SNAP edges
+//     (a warp ballot), so that few segments cross tiles; the second brings
+//     the tile's parent rows by cp.async (16 bytes where aligned) and each
+//     segment's task row; the third, each segment's comp row, lands while the
+//     block relaxes.
+//   * Segments: each segment piece of a tile is folded in edge order in shared
+//     memory, four edges a step (takes_max: a larger value or the first NaN
+//     wins).  A segment inside one tile is written at once; one that crosses
+//     a tile boundary goes through a 64-bit atomicMax on a packed (value,
+//     first edge, class) key, and the tile that arrives last at that segment
+//     (a 64-bit counter per segment and j-chunk counts arrivals and records
+//     the first and last tile, so the last arrival knows it is last) decodes
+//     its keys and resets them and the counter.  The scratch stays zero
+//     between launches and needs no memset; the result does not depend on
+//     block order.
 //
 // A level reads only parent rows (lower levels) and writes only its own tasks'
 // rows, so updating the carry in place inside one launch is race-free.
 //
-// Bound: the level's E·P² correctly rounded divides.  The sweep's levels are
-// small (about 400 real edges at P = 64 for the paper's n = 16384 graph), so
-// the twenty-odd launches of the plain version's gathers, segment reduction
-// and scatters cost more than the arithmetic; one launch does it all.  Each
-// thread's chain of P dependent divides then sets the kernel's time while a
-// level fills only a few of the card's SMs.  The outputs must be bit-equal to
-// the plain PyTorch versions and to the JAX reference, so every operation is
-// pinned: a correctly rounded divide (__fdiv_rn), explicit round-to-nearest
-// adds and multiplies (no FMA contraction), the reference's operation order,
-// the multiply by off in place of a diagonal special case, and the NaN-aware
-// first-index compares of relax.cuh for the argmin and the argmax.  Never build this file
-// with --use_fast_math.
+// The outputs must be bit-equal to the plain PyTorch versions and to the JAX
+// reference, so every operation is pinned: a correctly rounded divide,
+// explicit round-to-nearest adds (the one FMA outside the divide adds pv to
+// (L + q) * off, a product by 0 or 1 that is exact, so it rounds as the
+// multiply and then the add do), the reference's operation order, the
+// multiply by off in place of a diagonal special case, and the NaN-aware
+// first-index compares of relax.cuh for the argmin and the argmax.  Never
+// build this file with --use_fast_math.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "relax.cuh"
 
 __device__ __forceinline__ void stage_machine(const float* L, const float* bw, int b, int P,
@@ -85,10 +114,103 @@ __global__ void edge_relax_kernel(const float* __restrict__ pv,     // (B, E, P)
   argl[row + j] = arg;
 }
 
-// a block relaxes one (edge, j) cell a thread: a tile is SEG_THREADS / P edges
-#define SEG_THREADS 1024
+#define SEG_MAX_THREADS 256
+#define SEG_BLOCKS_PER_SM 3  // resident blocks an SM (launch bounds: 85 registers)
+#define SEG_EPT 8            // edges a thread relaxes for one class j in a pass
+#define SEG_SNAP 16          // the farthest a tile boundary moves on to a segment start
+static_assert(SEG_SNAP == 16, "the snap takes half a warp for each tile boundary");
+#define SEG_STAGE 4          // machine entries a thread loads before it computes any
+// a crossing segment's arrival counter: arrivals in the high word; the low
+// word gains SEG_TILE_BIG - t from its first tile t0 and SEG_TILE_BIG + t from
+// its last tile t1, so it holds 2 SEG_TILE_BIG + t1 - t0 once both arrived
+#define SEG_TILE_BIG (1u << 24)
 
-__global__ void __launch_bounds__(SEG_THREADS, 2) seg_level_kernel(
+// staged entries between two classes j: at least G * lpt, so that the
+// lanes of one quarter-warp reading entries (8 / G classes j, G lanes each)
+// land on distinct 16-byte banks, and for G >= 8 (one j a quarter-warp) one
+// more, so that lanes staging one class l for consecutive j do too
+__host__ __device__ __forceinline__ int seg_stride(int G, int lpt) {
+  return G >= 8 ? G * lpt + 1 : G * lpt + ((G - G * lpt) & 7);
+}
+
+__host__ __device__ __forceinline__ size_t align16(size_t bytes) {
+  return (bytes + 15) & ~(size_t)15;
+}
+
+// a block's shared memory, each array 16-byte aligned, in kernel order; EP
+// is the edges of a pass
+struct SegSmem {
+  size_t sq, spv, ssrc, sdat, sseg, stask, sval, sarg, scomp, total;
+  __host__ __device__ SegSmem(int P, int G, int JC, int TE, int EP) {
+    const int lpt = (P + G - 1) / G;
+    const size_t cap = (size_t)TE + SEG_SNAP, nwin = cap + 1;
+    sq = 0;                                                    // (JC, S) float4
+    // (cap + EP, P) parent rows: a pass past the tile reads rows it does not write
+    spv = sq + align16(16 * (size_t)JC * seg_stride(G, lpt));
+    ssrc = spv + align16(4 * (cap + EP) * P);                  // (nwin,) window's esrc
+    sdat = ssrc + align16(8 * nwin);                           // (nwin,) edata
+    sseg = sdat + align16(4 * nwin);                           // (nwin,) eseg, -1 outside
+    stask = sseg + align16(4 * nwin);                          // (cap,) piece starts' rows
+    sval = stask + align16(4 * cap);                           // (cap, JC) cell minima
+    sarg = sval + align16(4 * cap * JC);                       // (cap, JC) their classes
+    scomp = sarg + align16(4 * cap * JC);                      // (cap, JC) piece starts' comp
+    total = scomp + align16(4 * cap * JC);
+  }
+};
+
+// one lane's scan of classes l0 .. l0 + nl - 1 for SEG_EPT edges and one
+// class j, two classes at a time: edge k's row is pv + k * P from class l0 on
+// (rows past the tile hold garbage, and are not written), its data d[k]; sq
+// points at the lane's first staged entry (class l0 + i at sq[i * G]).  It
+// starts from (+inf, l0): a candidate equal to +inf then keeps l0, as the
+// serial scan keeps its first.
+template <int PT, bool FAST>
+__device__ __forceinline__ void relax_lanes(const float* pv, int P, const float (&d)[SEG_EPT],
+                                            const float4* sq, int G, int l0, int nl,
+                                            float (&best)[SEG_EPT], int (&arg)[SEG_EPT]) {
+#pragma unroll
+  for (int k = 0; k < SEG_EPT; ++k) {
+    best[k] = __int_as_float(0x7F800000);
+    arg[k] = l0;
+  }
+#pragma unroll 4
+  for (int i0 = 0; i0 < nl; i0 += 2) {
+    float2 x[SEG_EPT];
+#pragma unroll
+    for (int k = 0; k < SEG_EPT; ++k) {
+      if (PT > 0) {  // nl is even and the row 8-byte aligned
+        x[k] = *(const float2*)(pv + k * P + i0);
+      } else {
+        x[k].x = pv[k * P + i0];
+        x[k].y = i0 + 1 < nl ? pv[k * P + i0 + 1] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (PT == 0 && i0 + u >= nl) break;
+      const float4 q = sq[(i0 + u) * G];  // (bw[l, j], RN(1 / bw[l, j]), L[l], off[l, j])
+#pragma unroll
+      for (int k = 0; k < SEG_EPT; ++k) {
+        // pv + (L + q) * off in one rounding: the product by off (0 or 1) is
+        // exact, so the FMA rounds exactly as the multiply and then the add do
+        const float qt = FAST ? div_markstein(d[k], q.x, q.y) : __fdiv_rn(d[k], q.x);
+        const float c = __fmaf_rn(__fadd_rn(q.z, qt), q.w, u ? x[k].y : x[k].x);
+        if (takes_min(c, best[k])) {
+          best[k] = c;
+          arg[k] = l0 + i0 + u;
+        }
+      }
+    }
+  }
+}
+
+// PT: P for the 8, 16, 32 and 64 instances, 0 for the one with a run-time P.
+// Block (tile, j-chunk) of plane blockIdx.y.  An edge group is G * JC
+// consecutive threads (a power of two up to the block): G lanes of a warp for
+// each of its JC classes j; the groups of a block take SEG_EPT edges each in
+// a pass.
+template <int PT>
+__global__ void __launch_bounds__(SEG_MAX_THREADS, SEG_BLOCKS_PER_SM) seg_level_kernel(
     float* __restrict__ ceft,                // (B, V, P) carry, updated in place
     int32_t* __restrict__ ptask,             // (B, V, P)
     int32_t* __restrict__ pproc,             // (B, V, P)
@@ -100,86 +222,239 @@ __global__ void __launch_bounds__(SEG_THREADS, 2) seg_level_kernel(
     const float* __restrict__ edata,         // (E_b,)
     const int64_t* __restrict__ eseg,        // (E_b,) child slot of each edge, ascending
     unsigned long long* __restrict__ keys,   // (B, W, P) zero on entry and on exit
-    int* __restrict__ counts,                // (B,) zero on entry and on exit
-    int V, int P, int W, int e_real, int tile_e) {
-  extern __shared__ float smem[];
-  float* sL = smem;                     // (P,)
-  float* sbw = sL + P;                  // (P, P)
-  float* spv = sbw + P * P;             // (tile_e, P) parent rows
-  float* sval = spv + tile_e * P;       // (tile_e, P) relaxed values
-  int* sarg = (int*)(sval + tile_e * P);  // (tile_e, P) their argmin classes
-  int* sseg = sarg + tile_e * P;        // (tile_e,)
-  __shared__ int is_last;
-
-  const int b = blockIdx.y;
-  const int e0 = blockIdx.x * tile_e;
-  const int ne = min(tile_e, e_real - e0);
+    unsigned long long* __restrict__ cnt,    // (B, W, n_jc) zero on entry and on exit
+    int V, int P_rt, int W, int e_real, int G, int JC, int n_jc, int TE) {
+  const int P = PT > 0 ? PT : P_rt;
+  const int lpt = (P + G - 1) / G;
+  const int S = seg_stride(G, lpt);
+  const int EP = blockDim.x / (G * JC) * SEG_EPT;  // edges a pass
+  const int b = blockIdx.y, tile = blockIdx.x / n_jc, jc = blockIdx.x % n_jc;
+  const int j0 = jc * JC, nj = min(JC, P - j0);
   const size_t plane = (size_t)b * V * P;
-  stage_machine(L, bw, b, P, sL, sbw);
-  for (int i = threadIdx.x; i < ne; i += blockDim.x) sseg[i] = (int)eseg[e0 + i];
-  for (int i = threadIdx.x; i < ne * P; i += blockDim.x)
-    spv[i] = ceft[plane + (size_t)esrc[e0 + i / P] * P + i % P];
-  __syncthreads();
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int jcs = __ffs(JC) - 1, lps = __ffs(lpt) - 1;  // JC, G and (for PT > 0) lpt: powers of two
+  const int g = lane & (G - 1), jl = (tid / G) & (JC - 1), eg = tid / (G * JC);
 
-  for (int i = threadIdx.x; i < ne * P; i += blockDim.x) {
-    const int e = i / P;
-    float best;
-    int arg;
-    relax_cell(spv + e * P, edata[e0 + e], sL, sbw, P, i % P, best, arg);
-    sval[i] = best;
-    sarg[i] = arg;
+  extern __shared__ float4 smem4[];
+  const SegSmem lay(P, G, JC, TE, EP);
+  char* base = (char*)smem4;
+  float4* sq = (float4*)(base + lay.sq);        // (bw, RN(1/bw), L, off) of the j-chunk
+  float* spv = (float*)(base + lay.spv);
+  int64_t* ssrc = (int64_t*)(base + lay.ssrc);
+  float* sdat = (float*)(base + lay.sdat);
+  int* sseg = (int*)(base + lay.sseg);
+  int* stask = (int*)(base + lay.stask);
+  float* sval = (float*)(base + lay.sval);
+  int* sarg = (int*)(base + lay.sarg);
+  float* scomp = (float*)(base + lay.scomp);
+  __shared__ int snap[2], cross[2], crossr[2], decode[2];
+
+  // the edge tables of the window [x0 - 1, x0 + TE + SEG_SNAP), the j-chunk
+  // of the machine, and where the tile starts and ends: each nominal boundary
+  // x moves on to the first segment start in [x, x + SEG_SNAP), so that few
+  // segments cross tiles (warp 0: lanes 0-15 the start, 16-31 the end; a
+  // boundary without a segment start in its window stays where it was; a
+  // tile may end up empty)
+  const int x0 = tile * TE, w0 = x0 - 1, nwin = TE + SEG_SNAP + 1;
+  const int side = lane / 16, y = x0 + side * TE + lane % 16;
+  int64_t sy = -1, sy1 = -1;  // warp 0: the slots of edges y and y - 1, loaded first
+  if (tid < 32 && y < e_real) {
+    sy = eseg[y];
+    if (y > 0) sy1 = eseg[y - 1];
   }
-  __syncthreads();
-
-  // one thread per (segment piece, j): fold the piece in edge order
-  for (int i = threadIdx.x; i < ne * P; i += blockDim.x) {
-    const int e = i / P, j = i % P, s = sseg[e];
-    if (e > 0 && sseg[e - 1] == s) continue;  // not the first edge of its piece
-    float v = sval[i];
-    int ae = e, al = sarg[i];
-    int k = e + 1;
-    for (; k < ne && sseg[k] == s; ++k) {
-      const float c = sval[k * P + j];
-      if (takes_max(c, v)) {
-        v = c;
-        ae = k;
-        al = sarg[k * P + j];
+  for (int i = tid; i < nwin; i += blockDim.x) {
+    const int e = w0 + i;
+    const bool in = e >= 0 && e < e_real;
+    ssrc[i] = in ? esrc[e] : 0;
+    sdat[i] = in ? edata[e] : 0.0f;
+    sseg[i] = in ? (int)eseg[e] : -1;
+  }
+  bool ok = true;
+  const float* bwb = bw + (size_t)b * P * P + j0;  // this plane's j-chunk
+  const float* Lb = L + (size_t)b * P;
+  for (int i0 = tid; i0 < P * JC; i0 += SEG_STAGE * blockDim.x) {
+    float bv[SEG_STAGE], lv[SEG_STAGE];
+#pragma unroll
+    for (int u = 0; u < SEG_STAGE; ++u) {  // every load first
+      const int i = i0 + u * blockDim.x, c = i & (JC - 1), l = i >> jcs;
+      const bool in = i < P * JC && c < nj;
+      bv[u] = in ? bwb[l * P + c] : 1.0f;
+      lv[u] = in ? Lb[l] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < SEG_STAGE; ++u) {
+      const int i = i0 + u * blockDim.x, c = i & (JC - 1), l = i >> jcs;
+      if (i < P * JC && c < nj) {
+        ok = ok && markstein_den(bv[u]);
+        const int li = PT > 0 ? (l & (lpt - 1)) * G + (l >> lps) : (l % lpt) * G + l / lpt;
+        sq[c * S + li] = make_float4(bv[u], __frcp_rn(bv[u]), lv[u], l == j0 + c ? 0.0f : 1.0f);
       }
     }
-    const bool starts = e > 0 || e0 == 0 || eseg[e0 - 1] != s;
-    const bool ends = k < ne || e0 + k == e_real || eseg[e0 + k] != s;
-    if (starts && ends) {
-      const size_t o = plane + (size_t)tasks[s] * P + j;
-      ceft[o] = __fadd_rn(comp[o], v);
-      ptask[o] = (int32_t)esrc[e0 + ae];
-      pproc[o] = al;
+  }
+  if (tid < 32) {
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, y < e_real && sy != sy1) >> (16 * side) & 0xFFFFu;
+    if (lane % 16 == 0) snap[side] = m ? y + __ffs(m) - 1 : y;
+  }
+  if (tid < 2) cross[tid] = -1;
+  const bool bw_window = __syncthreads_and(ok);
+  const int e0 = snap[0], e1 = min(snap[1], e_real);
+  const int ne = e1 - e0, at0 = e0 - w0;  // window index of edge e0
+
+  // the parent rows (cp.async, 16 bytes where aligned); each piece's task row
+  // and, behind it, its comp row
+  const bool vec = P % 4 == 0 && (((uintptr_t)ceft | (uintptr_t)comp) & 15) == 0;
+  if (vec) {
+    const int n4 = P / 4;
+    for (int i = tid; i < ne * n4; i += blockDim.x) {
+      const int r = i / n4, q = i % n4;
+      cp_async16(spv + r * P + 4 * q, ceft + plane + (size_t)ssrc[at0 + r] * P + 4 * q);
+    }
+  } else {
+    for (int i = tid; i < ne * P; i += blockDim.x)
+      cp_async4(spv + i, ceft + plane + (size_t)ssrc[at0 + i / P] * P + i % P);
+  }
+  cp_async_commit();
+  for (int r = tid; r < ne; r += blockDim.x) {
+    if (r > 0 && sseg[at0 + r - 1] == sseg[at0 + r]) continue;
+    const int t = (int)tasks[sseg[at0 + r]];
+    stask[r] = t;
+    const float* crow = comp + plane + (size_t)t * P + j0;
+    float* dst = scomp + (r << jcs);
+    if (vec && JC % 4 == 0 && nj % 4 == 0) {
+      for (int c = 0; c < nj; c += 4) cp_async16(dst + c, crow + c);
     } else {
-      atomicMax(&keys[((size_t)b * W + s) * P + j], pack_key(v, e0 + ae, al));
+      for (int c = 0; c < nj; ++c) cp_async4(dst + c, crow + c);
     }
   }
-  if (gridDim.x == 1) return;
+  cp_async_commit();
+  cp_async_wait<1>();  // this thread's parent rows have landed
+  __syncthreads();     // and everyone's
 
-  // the last block of plane b to finish decodes the crossing segments' keys
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(&counts[b], 1) == (int)gridDim.x - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  for (int i = threadIdx.x; i < ((int)gridDim.x - 1) * P; i += blockDim.x) {
-    const int t = i / P + 1, j = i % P;     // tile boundary t: edge t * tile_e
-    const int be = t * tile_e, ps = be - tile_e;
-    const int s = (int)eseg[be];
-    if (eseg[be - 1] != s) continue;          // no segment crosses it
-    if (ps > 0 && eseg[ps - 1] == s) continue;  // decoded at an earlier boundary
-    const unsigned long long key = atomicExch(&keys[((size_t)b * W + s) * P + j], 0ull);
-    const uint32_t lo = (uint32_t)key;
-    const size_t o = plane + (size_t)tasks[s] * P + j;
-    ceft[o] = __fadd_rn(comp[o], from_ordered_bits((uint32_t)(key >> 32)));
-    ptask[o] = (int32_t)esrc[key_index(lo)];
-    pproc[o] = key_class(lo);
+  // relax the tile's edges, SEG_EPT a thread a pass
+  const int l0 = g * lpt, nl = max(0, min(lpt, P - l0));
+  const float4* sqc = sq + jl * S + g;
+  for (int p0 = 0; p0 < ne; p0 += EP) {
+    const int r0 = p0 + eg * SEG_EPT;
+    float d[SEG_EPT];
+    bool fast = bw_window;
+#pragma unroll
+    for (int k = 0; k < SEG_EPT; ++k) {  // past the tile: its last edge's data
+      d[k] = sdat[at0 + min(r0 + k, ne - 1)];
+      fast = fast && markstein_num(d[k]);
+    }
+    float best[SEG_EPT];
+    int arg[SEG_EPT];
+    if (fast)
+      relax_lanes<PT, true>(spv + r0 * P + l0, P, d, sqc, G, l0, nl, best, arg);
+    else
+      relax_lanes<PT, false>(spv + r0 * P + l0, P, d, sqc, G, l0, nl, best, arg);
+    // combine the G lanes' contiguous ranges in l order: lane g (a multiple
+    // of 2o) takes lane g + o's range, the upper one, where takes_min says so
+    for (int o = 1; o < G; o <<= 1) {
+#pragma unroll
+      for (int k = 0; k < SEG_EPT; ++k) {
+        const float ob = __shfl_down_sync(0xFFFFFFFFu, best[k], o);
+        const int oa = __shfl_down_sync(0xFFFFFFFFu, arg[k], o);
+        if (takes_min(ob, best[k])) {
+          best[k] = ob;
+          arg[k] = oa;
+        }
+      }
+    }
+    if (g == 0 && jl < nj) {
+#pragma unroll
+      for (int k = 0; k < SEG_EPT; ++k) {
+        const int r = p0 + eg * SEG_EPT + k;
+        if (r < ne) {
+          sval[(r << jcs) + jl] = best[k];
+          sarg[(r << jcs) + jl] = arg[k];
+        }
+      }
+    }
   }
-  if (threadIdx.x == 0) counts[b] = 0;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // one thread per (segment piece, j): fold the piece in edge order, four
+  // edges a step
+  for (int i = tid; i < ne * JC; i += blockDim.x) {
+    const int r = i >> jcs, c = i & (JC - 1), s = sseg[at0 + r];
+    if (c >= nj || (r > 0 && sseg[at0 + r - 1] == s)) continue;  // not a piece's first edge
+    float v = sval[i];
+    int ar = r, al = sarg[i], k = r + 1;  // k: one past the piece
+    for (bool more = true; more;) {
+      int sk[4];
+      float xv[4];
+      int xa[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int q = min(k + u, ne - 1);
+        sk[u] = k + u < ne ? sseg[at0 + q] : -1;
+        xv[u] = sval[(q << jcs) + c];
+        xa[u] = sarg[(q << jcs) + c];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        more = more && sk[u] == s;
+        if (more) {
+          if (takes_max(xv[u], v)) {
+            v = xv[u];
+            ar = k;
+            al = xa[u];
+          }
+          ++k;
+        }
+      }
+    }
+    const bool starts = sseg[at0 - 1] != s || r > 0, ends = k < ne || sseg[at0 + ne] != s;
+    const int j = j0 + c;
+    if (starts && ends) {
+      const size_t o = plane + (size_t)stask[r] * P + j;
+      ceft[o] = __fadd_rn(scomp[i], v);
+      ptask[o] = (int32_t)ssrc[at0 + ar];
+      pproc[o] = al;
+    } else {
+      atomicMax(&keys[((size_t)b * W + s) * P + j], pack_key(v, e0 + ar, al));
+      __threadfence();
+      if (c == 0) {  // a crossing piece is the tile's first or last
+        cross[r == 0 ? 0 : 1] = s;
+        crossr[r == 0 ? 0 : 1] = r;
+      }
+    }
+  }
+  __syncthreads();
+
+  // the tile that arrives last at a crossing segment decodes it
+  if (tid < 2) {
+    const int s = cross[tid];
+    decode[tid] = -1;
+    if (s >= 0) {
+      const bool first = sseg[at0 - 1] != s, last = sseg[at0 + ne] != s;
+      const unsigned long long add = (1ull << 32) + (first ? SEG_TILE_BIG - tile : 0u) +
+                                     (last ? SEG_TILE_BIG + tile : 0u);
+      unsigned long long* ct = &cnt[((size_t)b * W + s) * n_jc + jc];
+      const unsigned long long now = atomicAdd(ct, add) + add;
+      const uint32_t lo = (uint32_t)now, hi = (uint32_t)(now >> 32);
+      if (lo >= 2 * SEG_TILE_BIG && hi - 1 == lo - 2 * SEG_TILE_BIG) {
+        *ct = 0ull;
+        decode[tid] = s;
+      }
+    }
+  }
+  __syncthreads();
+  for (int t = 0; t < 2; ++t) {
+    const int s = decode[t], r = crossr[t];
+    if (s < 0) continue;
+    __threadfence();
+    for (int c = tid; c < nj; c += blockDim.x) {
+      const unsigned long long key = atomicExch(&keys[((size_t)b * W + s) * P + j0 + c], 0ull);
+      const uint32_t lo = (uint32_t)key;
+      const size_t o = plane + (size_t)stask[r] * P + j0 + c;
+      ceft[o] = __fadd_rn(scomp[(r << jcs) + c], from_ordered_bits((uint32_t)(key >> 32)));
+      ptask[o] = (int32_t)esrc[key_index(lo)];
+      pproc[o] = key_class(lo);
+    }
+  }
 }
 
 static int set_smem(const void* kernel, size_t smem) {
@@ -203,23 +478,46 @@ extern "C" int edge_relax_f32(const void* pv, const void* pdata, const void* L,
   return (int)cudaGetLastError();
 }
 
-// One segment-layout level over the first e_real edges (e_real >= 1); keys
-// holds B * W * P and counts B zeros, and are left zero.
+// One segment-layout level over the first e_real edges (e_real >= 1), with the
+// launch shape seg_level_grid chose: G lanes a cell (a power of two up to 32
+// and P, P / G even for P = 8, 16, 32, 64), JC classes a block (G * JC a
+// power of two up to the block), `threads` threads (whole warps, at most
+// SEG_MAX_THREADS), TE edges a tile before snapping (whole passes).  keys
+// holds B * W * P zeros and then B * W * n_jc zeros for the counters, and is
+// left zero.
 extern "C" int seg_level_f32(void* ceft, void* ptask, void* pproc, const void* comp,
                              const void* L, const void* bw, const void* tasks,
                              const void* esrc, const void* edata, const void* eseg,
-                             void* keys, void* counts, int B, int V, int P, int W,
-                             int e_real, void* stream) {
-  const int tile_e = P >= SEG_THREADS ? 1 : SEG_THREADS / P;
-  const dim3 grid((unsigned)((e_real + tile_e - 1) / tile_e), (unsigned)B);
-  const size_t smem = sizeof(float) * ((size_t)P + (size_t)P * P + 3 * (size_t)tile_e * P +
-                                       (size_t)tile_e);
-  const int err = set_smem((const void*)seg_level_kernel, smem);
-  if (err != 0) return err;
-  seg_level_kernel<<<grid, SEG_THREADS, smem, (cudaStream_t)stream>>>(
-      (float*)ceft, (int32_t*)ptask, (int32_t*)pproc, (const float*)comp, (const float*)L,
-      (const float*)bw, (const int64_t*)tasks, (const int64_t*)esrc, (const float*)edata,
-      (const int64_t*)eseg, (unsigned long long*)keys, (int*)counts, V, P, W, e_real,
-      tile_e);
+                             void* keys, int B, int V, int P, int W, int e_real, int G,
+                             int JC, int threads, int TE, void* stream) {
+  const bool templated = P == 8 || P == 16 || P == 32 || P == 64;
+  const int grp = G * JC;
+  if (G < 1 || G > 32 || G > P || (G & (G - 1)) != 0 || JC < 1 || (grp & (grp - 1)) != 0 ||
+      threads > SEG_MAX_THREADS || threads % 32 != 0 || threads % grp != 0 || TE < 1 ||
+      TE % (threads / grp * SEG_EPT) != 0 || (templated && (P / G) % 2 != 0))
+    return (int)cudaErrorInvalidValue;
+  const int n_jc = (P + JC - 1) / JC;
+  const dim3 grid((unsigned)(((e_real + TE - 1) / TE) * n_jc), (unsigned)B);
+  const size_t smem = SegSmem(P, G, JC, TE, threads / grp * SEG_EPT).total;
+  unsigned long long* k = (unsigned long long*)keys;
+  unsigned long long* cnt = k + (size_t)B * W * P;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define SEG_LAUNCH(PT)                                                                     \
+  do {                                                                                     \
+    const int err = set_smem((const void*)seg_level_kernel<PT>, smem);                     \
+    if (err != 0) return err;                                                              \
+    seg_level_kernel<PT><<<grid, threads, smem, s>>>(                                      \
+        (float*)ceft, (int32_t*)ptask, (int32_t*)pproc, (const float*)comp, (const float*)L, \
+        (const float*)bw, (const int64_t*)tasks, (const int64_t*)esrc, (const float*)edata, \
+        (const int64_t*)eseg, k, cnt, V, P, W, e_real, G, JC, n_jc, TE);                    \
+  } while (0)
+  switch (P) {
+    case 8: SEG_LAUNCH(8); break;
+    case 16: SEG_LAUNCH(16); break;
+    case 32: SEG_LAUNCH(32); break;
+    case 64: SEG_LAUNCH(64); break;
+    default: SEG_LAUNCH(0); break;
+  }
+#undef SEG_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -41,7 +41,8 @@
 //     leaves the normal range.  The staging checks every bw once and each
 //     edge's d once against an exponent window that guarantees that (d may
 //     also be +0, the padding edges' value); a thread whose edges or machine
-//     fall outside it relaxes its tile with __fdiv_rn.  Either way the
+//     fall outside it relaxes its tile with __fdiv_rn (the window and the
+//     divide live in relax.cuh, shared with seg_level).  Either way the
 //     quotient is the correctly rounded one, and the card tests hold it to
 //     the plain version's CUDA division on about 2^26 adversarial pairs.
 //
@@ -63,28 +64,6 @@
 // memory; wider ones take edge_relax_superstep_wide_kernel
 #define SS_MAX_STAGED_P 160
 constexpr int kUnroll = 4;  // unrolling of the class loop (a pragma takes no macro)
-// biased exponents of the window in which the Markstein divide is exact: d
-// and bw within 2^+-62 keep the quotient, the remainder and RN(1/bw) normal
-#define SS_EXP_LO (127 - 62)
-#define SS_EXP_HI (127 + 62)
-
-__device__ __forceinline__ bool markstein_num(float d) {
-  const uint32_t u = __float_as_uint(d);
-  const uint32_t e = (u >> 23) & 0xFFu;
-  return u == 0u || (e >= SS_EXP_LO && e <= SS_EXP_HI);
-}
-
-__device__ __forceinline__ bool markstein_den(float b) {
-  const uint32_t e = __float_as_uint(b) >> 23;  // the sign bit must be clear
-  return e >= SS_EXP_LO && e <= SS_EXP_HI;
-}
-
-// RN(d / b) from rb = RN(1 / b), for d and b inside the window
-__device__ __forceinline__ float div_markstein(float d, float b, float rb) {
-  const float q0 = __fmul_rn(d, rb);
-  const float rem = __fmaf_rn(-q0, b, d);
-  return __fmaf_rn(rem, rb, q0);
-}
 
 struct Tile {
   int r, e0, ne, sh;  // level, first edge, edges, floats before a 16-byte boundary

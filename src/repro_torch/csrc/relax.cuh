@@ -2,8 +2,9 @@
 // a first-index argmin and first-index argmax, the relaxation of one (parent
 // row, child class) cell written once with its pinned rounding (a correctly
 // rounded divide, explicit round-to-nearest adds and multiplies, the
-// reference's operation order, the multiply by off), and the packed keys
-// through which blocks combine a first-max.
+// reference's operation order, the multiply by off), the correctly rounded
+// Markstein divide that edge_relax_superstep.cu and seg_level share, and the
+// packed keys through which blocks combine a first-max.
 //
 // NaN follows the reference (jnp.min / jnp.argmin / jnp.argmax, torch.min /
 // torch.max): a NaN candidate wins the minimum or the maximum, the first NaN
@@ -28,6 +29,34 @@ __device__ __forceinline__ bool takes_max(float c, float best) {
 __device__ __forceinline__ bool first_max_before(float v, int i, float best, int best_i) {
   const bool same = v == best || (v != v && best != best);
   return takes_max(v, best) || (same && i < best_i);
+}
+
+// The divide without a MUFU per candidate (Markstein): with rb = RN(1/b),
+// q0 = RN(d * rb), rem = fma(-q0, b, d) is exact and fma(rem, rb, q0) is
+// RN(d / b), as long as no operand or intermediate leaves the normal range.
+// Callers check every b once and each d once against the exponent window
+// below (d may also be +0) and use __fdiv_rn outside it.  The window's
+// biased exponents: d and bw within 2^+-62 keep the quotient, the remainder
+// and RN(1/bw) normal.
+#define SS_EXP_LO (127 - 62)
+#define SS_EXP_HI (127 + 62)
+
+__device__ __forceinline__ bool markstein_num(float d) {
+  const uint32_t u = __float_as_uint(d);
+  const uint32_t e = (u >> 23) & 0xFFu;
+  return u == 0u || (e >= SS_EXP_LO && e <= SS_EXP_HI);
+}
+
+__device__ __forceinline__ bool markstein_den(float b) {
+  const uint32_t e = __float_as_uint(b) >> 23;  // the sign bit must be clear
+  return e >= SS_EXP_LO && e <= SS_EXP_HI;
+}
+
+// RN(d / b) from rb = RN(1 / b), for d and b inside the window
+__device__ __forceinline__ float div_markstein(float d, float b, float rb) {
+  const float q0 = __fmul_rn(d, rb);
+  const float rem = __fmaf_rn(-q0, b, d);
+  return __fmaf_rn(rem, rb, q0);
 }
 
 // the working type's rounding of a float32 result: none for float32 data

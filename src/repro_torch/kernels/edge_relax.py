@@ -6,7 +6,7 @@ segment-layout levels.
 
 Replaces the Pallas kernel ``src/repro/kernels/ceft_relax.py:_edge_relax_kernel``
 (entry ``edge_relax_pallas``).  The CUDA source is ``csrc/edge_relax.cu``, with
-two entries that share one device function for the arithmetic:
+two entries that compute the same arithmetic, rounding for rounding:
 
 * ``edge_relax_f32`` keeps the Pallas kernel's (B, E, P) contract: one thread
   per output with L and bw staged in shared memory, so the (E, P, P)
@@ -16,14 +16,20 @@ two entries that share one device function for the arithmetic:
   launch (:func:`seg_level_plain` is its plain version): it gathers the
   parent rows from the carry, relaxes them, takes each child's first-max
   over its segment of edges, adds ``comp`` and writes the level's carry
-  rows.  Edges are tiled; segments inside a tile finish in shared memory and
-  segments that cross tiles combine through a packed 64-bit ``atomicMax``
-  (value, then first edge).
+  rows.  A block takes a tile of edges and a chunk of the child classes j;
+  up to 8 lanes share each (edge, j) cell's class loop and combine in l order;
+  segments inside a tile finish in shared memory and segments that cross
+  tiles combine through a packed 64-bit ``atomicMax`` (value, then first
+  edge), decoded by the tile that arrives last.  :func:`seg_level_grid`
+  picks the launch on the host so that a level covers the card.
 
-On the H100 the arithmetic is bound by its E·P² correctly rounded divides
-(float32, no tensor cores: this is a min/argmin scan, not a matrix product);
-at the sweep's shapes (a few hundred real edges, P = 64) a level is so small
-that launches and host work dominate, which is why the level is one launch.
+On the H100 the arithmetic is bound by issue slots: E·P² candidates, each a
+divide, two adds, a multiply by off and a NaN-aware compare (float32, no
+tensor cores: this is a min/argmin scan, not a matrix product).  ``seg_level``
+divides by Markstein's correctly rounded form from a staged RN(1/bw) inside an
+exponent window and by ``__fdiv_rn`` outside it; ``edge_relax_f32`` divides
+with ``__fdiv_rn``.  At the sweep's shapes (a few hundred real edges, P = 64)
+a level is small, which is why it is one launch spread over every SM.
 
 The leading ``b`` axis is the batch of cost planes / machines of the batched
 re-planning sweep; the edge tables are shared across it.
@@ -31,10 +37,106 @@ re-planning sweep; the edge tables are shared across it.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 NEG = -3.4e38  # the masked-edge value (rounds to the reference's float32 NEG)
+
+#: ``csrc/edge_relax.cu``'s seg_level: edges a thread relaxes for one class j
+#: in a pass, the largest block, resident blocks an SM, the farthest a tile
+#: boundary moves on to a segment start, and the most lanes sharing a cell
+SEG_EPT, SEG_MAX_THREADS, SEG_BLOCKS_PER_SM, SEG_SNAP, SEG_MAX_LANES = 8, 256, 3, 16, 8
+#: shared memory a block may hold on the H100, an SM's, and what each
+#: resident block also takes
+SMEM_LIMIT, SMEM_SM, SMEM_RESERVED = 227 * 1024, 228 * 1024, 1024
+
+
+class SegGrid(NamedTuple):
+    """A ``seg_level_f32`` launch: ``lanes`` (G) lanes share each (edge, j)
+    cell's class loop, a block takes ``jc`` classes j of a tile of ``te``
+    edges (before its boundaries snap to segment starts) with ``threads``
+    threads, and the grid is (tiles x j-chunks, B)."""
+    lanes: int
+    jc: int
+    threads: int
+    te: int
+    n_tiles: int
+    n_jc: int
+    blocks: int
+    smem: int
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def seg_smem(P: int, G: int, jc: int, te: int, threads: int) -> int:
+    """Shared memory of a ``seg_level_f32`` block (``csrc/edge_relax.cu``,
+    ``SegSmem``): the j-chunk's staged machine entries, the snapped tile's
+    parent rows (and a pass's worth past them), the edge tables' window, and
+    the per-cell results."""
+    lpt = -(-P // G)
+    stride = G * lpt + 1 if G >= 8 else G * lpt + ((G - G * lpt) & 7)
+    cap = te + SEG_SNAP
+    nwin, ep = cap + 1, threads // (G * jc) * SEG_EPT
+    return (_align16(16 * jc * stride) + _align16(4 * (cap + ep) * P) + _align16(8 * nwin)
+            + 2 * _align16(4 * nwin) + _align16(4 * cap) + 3 * _align16(4 * cap * jc))
+
+
+@functools.lru_cache(maxsize=4096)
+def seg_level_grid(B: int, e_real: int, P: int, n_sm: int) -> SegGrid:
+    """How ``seg_level_f32`` covers a level of ``e_real`` real edges, B planes
+    and P classes on a card with ``n_sm`` SMs.
+
+    G, the lanes that split a cell's class loop, is the least power of two
+    that gives the card (SEG_BLOCKS_PER_SM blocks of 256 threads an SM)
+    enough threads, at most SEG_MAX_LANES and at least 2 classes a lane, so
+    small levels spread and large ones spend few shuffles.  A j-chunk takes
+    JC of the classes (16 at most, and at most 4096 staged entries); an edge
+    group of G * JC threads takes SEG_EPT edges a pass; a block of 256
+    threads halves, and then its j-chunk, while a pass's parent rows do not
+    fit its shared memory.  A tile takes as many passes as keep the grid
+    within the blocks the card holds at once (as many as shared memory lets
+    sit on an SM, at most SEG_BLOCKS_PER_SM); a level too small to give every
+    SM a block halves the block instead, and then the j-chunk, down to a
+    warp."""
+    want = SEG_BLOCKS_PER_SM * n_sm * SEG_MAX_THREADS * SEG_EPT / (B * e_real * P)
+    G, most = 1, min(SEG_MAX_LANES, max(1, P // 2))
+    while G < want and 2 * G <= most:
+        G *= 2
+    jc = min(1 << (P - 1).bit_length(), 16, 1 << (4096 // P).bit_length() - 1)
+    threads = SEG_MAX_THREADS
+
+    def smaller(threads, jc):  # half the block, and the j-chunk once a block is one group
+        if threads > max(32, G * jc):
+            return threads // 2, jc
+        if jc > 1 and threads > 32:
+            return threads // 2, jc // 2
+        return None
+
+    def blocks(threads, jc, passes=1):
+        return B * -(-e_real // (passes * threads // (G * jc) * SEG_EPT)) * -(-P // jc)
+
+    while seg_smem(P, G, jc, threads // (G * jc) * SEG_EPT, threads) > SMEM_LIMIT:
+        threads, jc = smaller(threads, jc)
+    ep = threads // (G * jc) * SEG_EPT
+
+    def held(te):  # blocks the card holds at once with tiles of te edges
+        per_sm = SMEM_SM // (seg_smem(P, G, jc, te, threads) + SMEM_RESERVED)
+        return n_sm * min(SEG_BLOCKS_PER_SM, per_sm)
+
+    passes = 1
+    while (blocks(threads, jc, passes) > held(passes * ep) and passes * ep < e_real
+           and seg_smem(P, G, jc, (passes + 1) * ep, threads) <= SMEM_LIMIT):
+        passes += 1
+    while passes == 1 and blocks(threads, jc) < n_sm and smaller(threads, jc):
+        threads, jc = smaller(threads, jc)
+    te = passes * threads // (G * jc) * SEG_EPT
+    n_tiles, n_jc = -(-e_real // te), -(-P // jc)
+    return SegGrid(G, jc, threads, te, n_tiles, n_jc, B * n_tiles * n_jc,
+                   seg_smem(P, G, jc, te, threads))
 
 
 def edge_relax_plain(pv, pdata, L, bw):
@@ -101,21 +203,25 @@ def seg_level_plain(carry, comp_pad, L, bw, tasks, edge_src, edge_data, edge_seg
 
 
 def seg_level_launch(lib: ctypes.CDLL, carry, comp_pad, L, bw, tasks, edge_src,
-                     edge_data, edge_seg, e_real: int, width: int, scratch,
-                     stream: int) -> None:
-    """Launch ``seg_level_f32`` on ``stream``.  Inputs are contiguous and on
-    one CUDA device (checked by the caller); ``scratch(n_keys, n_counts)``
-    returns zeroed int64 and int32 buffers that the kernel leaves zero."""
+                     edge_data, edge_seg, e_real: int, width: int, scratch, n_sm: int,
+                     stream: int) -> SegGrid:
+    """Launch ``seg_level_f32`` on ``stream`` with :func:`seg_level_grid`'s
+    shape.  Inputs are contiguous and on one CUDA device (checked by the
+    caller); ``scratch(n_keys, n_counts)`` returns zeroed int64 and int32
+    buffers that the kernel leaves zero (the keys, then each crossing
+    segment's arrival counters).  Returns the launch shape."""
     ceft_arr, ptask, pproc = carry
     B, V, P = ceft_arr.shape
-    keys, counts = scratch(B * width * P, B)
+    grid = seg_level_grid(B, e_real, P, n_sm)
+    keys, _ = scratch(B * width * (P + grid.n_jc), 0)
     err = lib.seg_level_f32(
         ceft_arr.data_ptr(), ptask.data_ptr(), pproc.data_ptr(), comp_pad.data_ptr(),
         L.data_ptr(), bw.data_ptr(), tasks.data_ptr(), edge_src.data_ptr(),
-        edge_data.data_ptr(), edge_seg.data_ptr(), keys, counts,
-        B, V, P, width, e_real, stream)
+        edge_data.data_ptr(), edge_seg.data_ptr(), keys,
+        B, V, P, width, e_real, grid.lanes, grid.jc, grid.threads, grid.te, stream)
     if err != 0:
         raise RuntimeError(f"seg_level kernel launch failed: CUDA error {err}")
+    return grid
 
 
 def edge_relax_launch(lib: ctypes.CDLL, pv, pdata, L, bw):
@@ -138,5 +244,5 @@ def edge_relax_argtypes(lib: ctypes.CDLL) -> None:
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.seg_level_f32
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

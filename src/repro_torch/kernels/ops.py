@@ -313,7 +313,7 @@ def seg_level(carry, comp_pad, L, bw, tasks, edge_src, edge_data, edge_seg,
     stream = torch.cuda.current_stream(ceft_arr.device).cuda_stream
     seg_level_launch(_library("edge_relax"), carry, comp_pad, L, bw, tasks, edge_src,
                      edge_data, edge_seg, e_real, width, _scratch(ceft_arr.device, stream),
-                     stream)
+                     _n_sm(ceft_arr.device), stream)
     LAUNCHES["seg_level"] += 1
 
 

@@ -9,7 +9,8 @@ and a NaN-aware equality to hold the results with.
 * :func:`divide_probe` — stacked edge tables at P = 64 whose candidates
   expose ``pdata / bw`` for adversarial operand pairs (all-ones and
   power-of-two significands, zeros, subnormals, values near ``FLT_MAX``,
-  quotients near overflow and underflow);
+  quotients near overflow and underflow); :func:`seg_divide_level` lays
+  the same pairs out as one segment-layout level;
 * :func:`minplus_specials` — (min, +) operands with NaN, ``inf`` and -0.0;
 * :func:`minplus_probe` — (min, +) operands whose sums fall on bf16 rounding
   ties, near the largest bf16 and ``BIG``, among subnormals and on ±0;
@@ -200,6 +201,24 @@ def divide_probe(kind: str, R: int, seed: int, E: int = 1024, P: int = 64):
     pv = np.full((n, P), INF, np.float32)
     pv[np.arange(n), star] = 0.0
     return pv.reshape(R, E, P), pdata.reshape(R, E), np.zeros(P, np.float32), bw
+
+
+def seg_divide_level(kind: str, R: int, seed: int, E: int = 1024, P: int = 64):
+    """:func:`divide_probe`'s tables as one segment-layout level of one plane:
+    (carry, comp, L, bw, tasks, edge_src, edge_data, edge_seg, e_real, width)
+    for ``ops.seg_level``.  Each of the n = R E edges is the only edge of
+    its own child segment, its parent row is the probe's pv row and comp is
+    0, so child e's ceft row is 0 + the probe's minl row: every quotient
+    ``pdata / bw[l*, j]`` reaches the carry.  Rows 0 .. n - 1 are the
+    parents, n .. 2n - 1 the children, row 2n is zero."""
+    pv, pdata, L, bw = divide_probe(kind, R, seed, E, P)
+    n = R * E
+    ceft = np.zeros((1, 2 * n + 1, P), np.float32)
+    ceft[0, :n] = pv.reshape(n, P)
+    ids = np.arange(n, dtype=np.int64)
+    carry = (ceft, np.full(ceft.shape, -1, np.int32), np.full(ceft.shape, -1, np.int32))
+    return (carry, np.zeros(ceft.shape, np.float32), L[None], bw[None], n + ids, ids,
+            pdata.reshape(n), ids.copy(), n, n)
 
 
 def _bf16_pool(rng) -> np.ndarray:

@@ -91,11 +91,15 @@ def _cell_tie_inputs(shape, mode: str):
 
 
 # fused segment-layout levels: (B, P, segment lengths, padded edges past
-# e_real, segment slots past the real children).  The card's edge tile is
-# 1024 // P edges, so "long" has a segment far longer than a tile, "crossing"
-# has many segments across tile boundaries, "single" is W_b == 1, "padded"
-# has e_real < E_b and W_b > w, "batch8" is a batch of eight planes at the
-# n = 16384 graph's level shape.
+# e_real, segment slots past the real children).  The card's edge tile
+# (``seg_level_grid``) is 4 to 128 edges, so "long" has a segment far longer
+# than a tile, "crossing" has many segments across tile boundaries, "single"
+# is W_b == 1, "padded" has e_real < E_b and W_b > w, "batch8" is a batch of
+# eight planes at the n = 16384 graph's level shape; "p8", "p16", "p32" take
+# those instances of the kernel, "p24" and "p200" its run-time P (200: a
+# j-chunk of two classes, 32 lanes a cell, some with no class), "tiles" has
+# the n = 16384 graph's segment lengths over many 16-edge tiles (most
+# segments cross one or more tile boundaries).
 SEG_CASES = {
     "long": (1, 64, [3, 3000, 1, 40], 0, 0),
     "crossing": (2, 8, "random:60:300", 5, 0),
@@ -105,6 +109,12 @@ SEG_CASES = {
     "batch8": (8, 64, "random:100:12", 600, 0),
     "p128": (2, 128, "random:12:40", 1, 2),
     "one_edge": (1, 8, [1], 0, 0),
+    "p8": (3, 8, "random:50:40", 2, 1),
+    "p16": (1, 16, "random:70:30", 0, 0),
+    "p32": (2, 32, "random:40:25", 4, 2),
+    "p24": (2, 24, "random:30:20", 3, 1),
+    "p200": (1, 200, "random:6:12", 0, 1),
+    "tiles": (1, 64, "random:130:15", 0, 0),
 }
 
 
@@ -412,6 +422,26 @@ def test_edge_relax_superstep_kernel_divide_probe(cuda, kind):
     want = edge_relax_superstep_plain(pv, pdata, L, bw)
     for g, w in zip(got, want):
         assert probes.equal_nan(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", probes.DIVIDE_KINDS)
+def test_seg_level_kernel_divide_probe(cuda, kind):
+    """The divide probe's adversarial (pdata, bw) pairs as one level of
+    16384 single-edge segments: every quotient reaches the carry through
+    the fused level's divide (Markstein inside its exponent window,
+    __fdiv_rn outside), bit-equal to the plain version's CUDA division,
+    scratch left zero."""
+    carry, *rest, e_real, width = probes.seg_divide_level(kind, 16, 58)
+    args = [torch.as_tensor(a, device=cuda) for a in rest]
+    want = tuple(torch.as_tensor(c, device=cuda) for c in carry)
+    seg_level_plain(want, *args, e_real, width)
+    got = tuple(torch.as_tensor(c, device=cuda) for c in carry)
+    ops.seg_level(got, *args, e_real, width)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("ceft", "pred_task", "pred_proc")):
+        assert probes.equal_nan(g, w), name
+    assert _scratch_is_zero()
 
 
 @pytest.mark.cuda

@@ -27,7 +27,10 @@ from repro.core.ceft_jax import xla_relax  # noqa: E402
 from repro_torch.kernels import ops, probes, ref  # noqa: E402
 from repro_torch.kernels.ceft_relax import (BIG as CELL_BIG, ceft_relax_chunks,  # noqa: E402
                                             ceft_relax_plain)
-from repro_torch.kernels.edge_relax import edge_relax_plain, seg_level_plain  # noqa: E402
+from repro_torch.kernels.edge_relax import (SEG_BLOCKS_PER_SM, SEG_EPT,  # noqa: E402
+                                            SEG_MAX_LANES, SMEM_LIMIT, SMEM_RESERVED, SMEM_SM,
+                                            edge_relax_plain, seg_level_grid, seg_level_plain,
+                                            seg_smem)
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
 from test_kernels import CELL_SHAPES, EDGE_SHAPES, SHAPES_MINPLUS, SUPERSTEP_SHAPES  # noqa: E402
@@ -297,6 +300,85 @@ def _check_seg_level_against_dense(carry, comp, L, bw, tasks, src, data, seg, e_
         _eq(g[:, others], c[:, others])
 
 
+@pytest.mark.parametrize("B,e_real", [(1, 385), (1, 1005), (1, 1611), (8, 1005)])
+def test_seg_level_grid_covers_the_card(B, e_real):
+    """The fused level's launch at the n = 16384 graph's level sizes (P = 64,
+    132 SMs): the mean level and the widest put a block on every SM and no
+    more than the card holds at once, the tiles cover the real edges exactly
+    once in whole passes; single levels split each cell's class loop over 8
+    lanes, the batch of 8 over fewer."""
+    grid = seg_level_grid(B, e_real, 64, 132)
+    assert grid.lanes == (8 if B == 1 else 2)
+    assert (grid.n_tiles - 1) * grid.te < e_real <= grid.n_tiles * grid.te
+    assert grid.te % (grid.threads // (grid.lanes * grid.jc) * SEG_EPT) == 0
+    per_sm = min(SEG_BLOCKS_PER_SM, SMEM_SM // (grid.smem + SMEM_RESERVED))
+    assert 132 <= grid.blocks == B * grid.n_tiles * grid.n_jc <= per_sm * 132
+    assert grid.smem == seg_smem(64, grid.lanes, grid.jc, grid.te, grid.threads)
+
+
+def test_seg_level_grid_takes_every_width():
+    """Every P up to the packed keys' 256, level sizes from one edge up, 1 and
+    8 planes, SM counts from 1 to 132: a launch shape the kernel accepts (a
+    power of two of lanes, at most P and 8, an even number of classes each
+    for P = 8, 16, 32, 64; whole edge groups of lanes x classes in a block;
+    j-chunks covering P; whole warps, at most 256 threads; whole passes),
+    tiles covering e_real once, shared memory within a block's 227 KB; a
+    level too small for the card halves its block only while that adds
+    blocks."""
+    for P in range(1, ops.MAX_KEY_P + 1):
+        for B, e_real, n_sm in ((1, 1, 132), (1, 7, 132), (1, 385, 132), (8, 1611, 132),
+                                (1, 5000, 1)):
+            g = seg_level_grid(B, e_real, P, n_sm)
+            grp = g.lanes * g.jc
+            assert g.lanes & (g.lanes - 1) == 0 and g.lanes <= min(P, SEG_MAX_LANES)
+            if P in (8, 16, 32, 64):
+                assert (P // g.lanes) % 2 == 0
+            assert grp & (grp - 1) == 0 and g.threads % grp == 0
+            assert (g.n_jc - 1) * g.jc < P <= g.n_jc * g.jc
+            assert g.threads % 32 == 0 and g.threads <= 256
+            assert g.te % (g.threads // grp * SEG_EPT) == 0
+            assert (g.n_tiles - 1) * g.te < e_real <= g.n_tiles * g.te
+            assert g.smem <= SMEM_LIMIT
+            if g.threads < 256 and g.te == g.threads // grp * SEG_EPT:
+                # a block twice as large gives too few blocks or too much memory
+                assert (B * -(-e_real // (2 * g.te)) * g.n_jc < n_sm
+                        or seg_smem(P, g.lanes, g.jc, 2 * g.te, 2 * g.threads) > SMEM_LIMIT)
+
+
+def test_seg_level_profile_anchors_match_the_kernel():
+    """``repro_torch.seg_level_profile`` marks the phases of the kernel's
+    source at fixed lines: every anchor is found once, so the instrumented
+    copy has all seven clock marks and both timers."""
+    from repro_torch import seg_level_profile
+
+    src = seg_level_profile.instrument((Path(ops.CSRC) / "edge_relax.cu").read_text())
+    assert src.count("= clock64();") == 7 and src.count("%%globaltimer") == 2
+    assert "seg_probe_read" in src
+
+
+def test_seg_divide_level_exposes_every_quotient():
+    """``probes.seg_divide_level`` lays the divide probe out as a level of
+    single-edge segments: through the fused level's plain version every
+    child's row off its parent's class l* is the probe's quotient
+    pdata / bw[l*, j] (+0 for -0), its pred_task the parent, its pred_proc
+    l* (class 0 where the quotient overflows)."""
+    carry, *rest, e_real, width = probes.seg_divide_level("random", 1, 59)
+    pdata, bw, tasks, src = rest[5], rest[2][0], rest[3], rest[4]
+    got = tuple(torch.as_tensor(c.copy()) for c in carry)
+    ops.seg_level(got, *(torch.as_tensor(a) for a in rest), e_real, width)
+    P = bw.shape[0]
+    star = np.arange(e_real) % P
+    with np.errstate(over="ignore"):
+        want = (pdata[:, None].astype(np.float64) / bw[star].astype(np.float64)).astype(
+            np.float32)
+    want[np.arange(e_real), star] = 0.0
+    _eq(got[0][0, tasks], want + np.float32(0.0), "ceft")
+    _eq(got[1][0, tasks], np.broadcast_to(src[:, None], (e_real, P)), "pred_task")
+    # a quotient that overflows ties every class at +inf: the first wins
+    _eq(got[2][0, tasks], np.where(np.isinf(want), 0, star[:, None]), "pred_proc")
+    assert np.isinf(want).any() and (want == 0).sum() > e_real
+
+
 def test_seg_level_rejects_bad_shapes():
     carry, comp, L, bw, tasks, src, data, seg, e_real, width = _seg_inputs("padded", True)
     t = [torch.as_tensor(a) for a in (comp, L, bw, tasks, src, data, seg)]
@@ -440,14 +522,14 @@ def _fma32(a, b, c):
 
 
 def test_superstep_markstein_divide_is_correctly_rounded():
-    """The divide of ``csrc/edge_relax_superstep.cu`` emulated exactly on the
-    CPU: inside the source's exponent window, q0 = RN(d * RN(1/b)),
-    rem = fma(-q0, b, d), q = fma(rem, RN(1/b), q0) is RN(d / b) (float64
-    division rounded to float32 is correctly rounded: 53 >= 2 * 24 + 2) for
-    about 3 million adversarial pairs; the kernel sends pairs outside the
-    window through __fdiv_rn, and the card tests hold both to the plain
-    version."""
-    src = (Path(ops.CSRC) / "edge_relax_superstep.cu").read_text()
+    """The divide of ``csrc/edge_relax_superstep.cu`` and ``seg_level``
+    (``csrc/relax.cuh``) emulated exactly on the CPU: inside the source's
+    exponent window, q0 = RN(d * RN(1/b)), rem = fma(-q0, b, d),
+    q = fma(rem, RN(1/b), q0) is RN(d / b) (float64 division rounded to
+    float32 is correctly rounded: 53 >= 2 * 24 + 2) for about 3 million
+    adversarial pairs; the kernels send pairs outside the window through
+    __fdiv_rn, and the card tests hold both to the plain version."""
+    src = (Path(ops.CSRC) / "relax.cuh").read_text()
     lo = int(re.search(r"#define SS_EXP_LO \(127 - (\d+)\)", src).group(1))
     hi = int(re.search(r"#define SS_EXP_HI \(127 \+ (\d+)\)", src).group(1))
 
