@@ -10,7 +10,12 @@ Phases (any failure exits non-zero; nothing is caught):
      print ``ptxas -v``'s registers, shared memory and spills per kernel;
   2. hold each kernel against its plain PyTorch version on the card, bit-equal,
      at the test shapes and the planning path's shapes, and on tie-heavy
-     inputs: ``ceft_relax`` with fan-ins split across blocks, the fused
+     inputs: ``edge_relax`` past the 240 classes its kernel once refused (P =
+     241, 256, 300, 2048, the widest staged launch, and 2049), batches of 3
+     and 8 planes, ragged last tiles, tie-heavy and constant rows, and the
+     divide probe's four kinds (16384 edges a call, every adversarial
+     quotient reaching the output); ``ceft_relax`` with fan-ins split across
+     blocks, the fused
      segment level (``seg_level``) with long, tile-crossing, single and
      padded segments and a batch of 8; then NaN, inf and -0.0 candidates
      through ``edge_relax``, ``ceft_relax`` and ``seg_level`` (a NaN wins the
@@ -116,9 +121,13 @@ Phases (any failure exits non-zero; nothing is caught):
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
-     the n = 16384 graph's widest segment-layout levels, 1 and 8 planes), and
-     for the superstep and ``minplus`` the instruction-issue floor at the
-     card's largest SM clock.
+     the n = 16384 graph's widest segment-layout levels, 1 and 8 planes;
+     ``edge_relax`` at phase a's (1024, 64) and (2048, 64) and at 8 planes of
+     (1024, 64), with the launch shape ``edge_relax_grid`` chose), and for
+     ``seg_level``, ``edge_relax``, the superstep and ``minplus`` the
+     instruction-issue floor at the card's largest SM clock (``edge_relax``'s
+     at the instructions a candidate that its class loop really has, read
+     from the SASS of the built library by ``cuobjdump``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the card's name and power limit, and the one before that the kernel report.
@@ -126,8 +135,9 @@ Exits with code 2 and prints no result when CUDA is not available.
 
     python3 chip_smoke.py --turns OTHER_SRC
 
-times the superstep and ``minplus`` of another tree (``OTHER_SRC`` is its
-``src`` directory) and of this one in turns on one card (see ``turns``).
+times the superstep, ``minplus``, ``edge_relax`` (at its three timed
+shapes), ``seg_level`` and the steady sweeps of another tree (``OTHER_SRC`` is
+its ``src`` directory) and of this one in turns on one card (see ``turns``).
 """
 from __future__ import annotations
 
@@ -138,6 +148,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -159,8 +170,8 @@ from repro_torch.core.schedule import validate_schedule  # noqa: E402
 from repro_torch.graphs import heavy_tail_fan_in, rgg, star_fan_in  # noqa: E402
 from repro_torch.kernels import ops, probes  # noqa: E402
 from repro_torch.kernels.ceft_relax import ceft_relax_plain  # noqa: E402
-from repro_torch.kernels.edge_relax import (edge_relax_plain, seg_level_grid,  # noqa: E402
-                                            seg_level_plain)
+from repro_torch.kernels.edge_relax import (edge_relax_grid, edge_relax_plain,  # noqa: E402
+                                            seg_level_grid, seg_level_plain)
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
 from repro_torch.configs.base import ShapeCell  # noqa: E402
@@ -204,6 +215,16 @@ INSTR_PER_SEG_CANDIDATE = 8
 INSTR_PER_MINPLUS_TRIPLE = {torch.float32: 2.0, torch.bfloat16: 1.0}
 
 EDGE_SHAPES = [(5, 3), (128, 16), (300, 7), (1, 1), (257, 13), (64, 64)]
+# edge_relax past the 240 classes its kernel once held whole in shared memory,
+# up to and past the widest staged launch (P = 2048, then one thread per
+# output), and batches of planes each with its own machine
+EDGE_WIDE_CASES = [((9, 241), None), ((40, 256), None), ((5, 300), None), ((6, 2048), None),
+                   ((3, 2049), None), ((100, 241), 8), ((1029, 64), 8), ((77, 32), 3)]
+# tie-heavy and constant rows through edge_relax (probes.edge_ties)
+EDGE_TIE_SHAPES = [(1024, 64), (2048, 64), (300, 7), (257, 13), (40, 256), (100, 8)]
+# edge_relax's timed shapes (E, P, B): phase a's two level widths, and a batch
+# of 8 planes
+EDGE_TIMED = [(1024, 64, 1), (2048, 64, 1), (1024, 64, 8)]
 CELL_SHAPES = [(8, 3, 4), (5, 1, 2), (16, 7, 13), (33, 9, 64), (64, 2, 128), (1, 1, 1)]
 EDGE_PATH_SHAPES = [(1024, 64), (2048, 64)]
 CELL_PATH_SHAPES = [(1, 4096, 64), (8, 28, 64)]
@@ -234,7 +255,7 @@ SHAPES_MINPLUS = [(4, 3, 5), (128, 16, 128), (300, 37, 260), (1, 1, 1),
                   (257, 129, 255), (16, 256, 16)]
 MINPLUS_PATH_SHAPE = (4096, 4096, 4096)
 # NaN, inf and -0.0 probes (probes.SPECIAL_MODES in each)
-EDGE_NAN_SHAPES = [(64, 64), (1024, 64)]
+EDGE_NAN_SHAPES = [(64, 64), (1024, 64), (64, 300), (8, 2049)]
 CELL_NAN_SHAPES = [(3, 33, 64), (1, 4096, 64), (2, 1000, 8)]
 SUPERSTEP_NAN_SHAPES = [(3, 40, 7), (2, 64, 64), (12, 2048, 64)] + SUPERSTEP_WIDTHS
 MINPLUS_NAN_SHAPES = [(4, 3, 5), (300, 37, 260), (256, 256, 256)]
@@ -414,6 +435,7 @@ def compare_kernels(device) -> dict:
     bit-equal."""
     err = {"edge_relax": 0.0, "ceft_relax": 0.0, "seg_level": 0.0}
     cases = [(s, None) for s in EDGE_SHAPES + EDGE_PATH_SHAPES] + [((1024, 64), 8)]
+    cases += EDGE_WIDE_CASES
     for i, (shape, batch) in enumerate(cases):
         pv, pdata, L, bw = edge_inputs(shape, 100 + i, device, batch)
         got = ops.edge_relax(pv, pdata, L, bw)
@@ -424,6 +446,12 @@ def compare_kernels(device) -> dict:
         err["edge_relax"] = max(err["edge_relax"], float((got[0] - want[0]).abs().max()))
         check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
               f"edge_relax kernel != plain at {shape} batch {batch}")
+    for i, (shape, mode) in enumerate(itertools.product(EDGE_TIE_SHAPES, ("ties", "constant"))):
+        pv, pdata, L, bw = on(device, probes.edge_ties(shape, mode, 140 + i))
+        got = ops.edge_relax(pv, pdata, L, bw)
+        want = edge_relax_plain(pv[None], pdata, L[None], bw[None])
+        check(torch.equal(got[0], want[0][0]) and torch.equal(got[1], want[1][0]),
+              f"edge_relax kernel != plain at {shape} {mode}")
     for i, shape in enumerate(CELL_SHAPES + CELL_PATH_SHAPES):
         n_valid = 3999 if shape == (1, 4096, 64) else None
         pv, pdata, validp, L, bw = cell_inputs(shape, 200 + i, device, n_valid)
@@ -454,8 +482,10 @@ def compare_kernels(device) -> dict:
                 check(torch.equal(g.cpu(), w), f"seg_level kernel != plain ({name}) at {case} "
                       f"ties={ties}")
     check(scratch_is_zero(), "a kernel left its cross-block scratch non-zero")
-    log(f"phase 2: kernels bit-equal to their plain versions (ceft_relax tie cases "
-        f"{len(CELL_TIE_CASES)}, seg_level cases {2 * len(SEG_CASES)}); max_abs_err {err}")
+    log(f"phase 2: kernels bit-equal to their plain versions (edge_relax at "
+        f"{EDGE_SHAPES + EDGE_PATH_SHAPES}, B = 8, {EDGE_WIDE_CASES}, tie cases "
+        f"{EDGE_TIE_SHAPES} x (ties, constant); ceft_relax tie cases {len(CELL_TIE_CASES)}, "
+        f"seg_level cases {2 * len(SEG_CASES)}); max_abs_err {err}")
     n = compare_nan(device, err)
     log(f"phase 2: NaN, inf and -0.0 candidates in {n} calls: NaN where the plain versions "
         f"have it and bit-equal elsewhere, scratch zero; max_abs_err {err}")
@@ -463,7 +493,25 @@ def compare_kernels(device) -> dict:
     log(f"phase 2: seg_level on the divide probe ({n} levels of "
         f"{SEG_DIVIDE_LEVELS * 1024} single-edge segments, P = 64, kinds "
         f"{probes.DIVIDE_KINDS}): bit-equal to the plain version, scratch zero")
+    n = compare_edge_divide(device, err)
+    log(f"phase 2: edge_relax on the divide probe ({n} calls of {SEG_DIVIDE_LEVELS * 1024} "
+        f"edges, P = 64, kinds {probes.DIVIDE_KINDS}): bit-equal to the plain version")
     return err
+
+
+def compare_edge_divide(device, err: dict) -> int:
+    """Phase 2, divide: ``probes.divide_probe``'s levels as one edge_relax
+    call each kind, every adversarial quotient reaching the output."""
+    for i, kind in enumerate(probes.DIVIDE_KINDS):
+        pv, pdata, L, bw = on(device, probes.divide_probe(kind, SEG_DIVIDE_LEVELS, 870 + i))
+        pv, pdata = pv.reshape(-1, pv.shape[-1]), pdata.reshape(-1)
+        got = ops.edge_relax(pv, pdata, L, bw)
+        want = edge_relax_plain(pv[None], pdata, L[None], bw[None])
+        err["edge_relax"] = max(err["edge_relax"], nan_err(got[0], want[0][0]))
+        check(probes.equal_nan(got[0], want[0][0]) and torch.equal(got[1], want[1][0]),
+              f"edge_relax kernel != plain on the {kind} divide probe")
+        del want, got
+    return len(probes.DIVIDE_KINDS)
 
 
 def compare_seg_divide(device, err: dict) -> int:
@@ -2148,6 +2196,7 @@ def seg_level_rows(g, inputs, device) -> list:
     """The fused level at its path shapes (``seg_levels``) beside its plain
     version, its bound, its issue floor and its launch shape."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    loop = sass_loop("edge_relax", "seg_level_kernelILi64E")
     out = []
     for B, lv in seg_levels(g, device):
         carry, args = seg_args(inputs, B, lv)
@@ -2157,7 +2206,7 @@ def seg_level_rows(g, inputs, device) -> list:
         nbytes = 4 * B * (e * P + w * P + 3 * w * P + P + P * P) + 20 * e + 8 * w
         t_min, by = bound(nbytes, OPS_PER_CANDIDATE * B * e * P * P)
         out.append(issue_floor(INSTR_PER_SEG_CANDIDATE * B * e * P * P, dict(
-            shape=[B, e, P], edge_cap=lv.edge_src.shape[0], tasks=w,
+            shape=[B, e, P], edge_cap=lv.edge_src.shape[0], tasks=w, sass_loop=loop,
             launch=seg_level_grid(B, e, P, n_sm)._asdict(), bound_ms=t_min, bound_by=by,
             device_ms=device_ms(lambda: ops.seg_level(carry, *args), "seg_level_kernel"),
             **timed(lambda: ops.seg_level(carry, *args),
@@ -2168,6 +2217,50 @@ def seg_level_rows(g, inputs, device) -> list:
 def smi(query: str) -> str:
     return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def sass_loop(source: str, kernel: str) -> dict:
+    """The loop of ``kernel`` (a fragment of its mangled name) in the SASS of
+    ``csrc/<source>.cu``'s library (``cuobjdump -sass``) whose body holds the
+    most FMULs for its length: the relaxation's class loop, where each
+    Markstein divide has one FMUL, so one FMUL is one candidate.  Returns
+    the loop's instructions (loop control included), its FMULs and their
+    ratio, the instructions a candidate really costs."""
+    sass = subprocess.run([str(Path(ops._nvcc()).parent / "cuobjdump"), "-sass",
+                           str(ops._lib_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, name, labels, pending = {}, None, {}, []
+    for line in sass.splitlines():
+        if m := re.match(r"\s*Function : (\S+)", line):
+            name = m.group(1)
+            funcs[name], labels[name] = [], {}
+        elif name and (m := re.match(r"\s*(\.L_x_\d+):", line)):
+            pending.append(m.group(1))           # the next instruction's address
+        elif name and (m := re.match(r"\s*/\*([0-9a-f]+)\*/\s+([^;]*);", line)):
+            addr = int(m.group(1), 16)
+            labels[name].update((lab, addr) for lab in pending)
+            pending.clear()
+            funcs[name].append((addr, m.group(2).split()))
+    (name, ins), = [(n, v) for n, v in funcs.items() if kernel in n]
+
+    def opcode(words):
+        return next(w for w in words if not w.startswith("@")).split(".")[0]
+
+    best = None
+    for end, words in ins:
+        if opcode(words) != "BRA":
+            continue
+        target = words[-1].strip("`()")
+        start = labels[name].get(target, int(target, 16) if target.startswith("0x") else None)
+        if start is None or start > end:
+            continue
+        body = [opcode(w) for a, w in ins if start <= a <= end]
+        fmul = body.count("FMUL")
+        if fmul >= 16 and (best is None or fmul / len(body) > best["candidates"] / best["instructions"]):
+            best = dict(function=name, instructions=len(body), candidates=fmul)
+    check(best is not None, f"no relaxation loop found in the SASS of {kernel}")
+    best["per_candidate"] = best["instructions"] / best["candidates"]
+    return best
 
 
 def issue_floor(n_instr: float, row: dict) -> dict:
@@ -2187,14 +2280,21 @@ def kernel_report(by_path, errs, per_sweep, tables, g, inputs, device, usage) ->
     holds each path's launch counts, read around that path alone; ``usage``
     each source's ``ptxas -v`` figures."""
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    loop = sass_loop("edge_relax", "edge_relax_kernelILi64E")
     edge_rows = []
-    for E, P in EDGE_PATH_SHAPES:
-        pv, pdata, L, bw = edge_inputs((E, P), 7, device)
-        t_min, by = bound(4 * (3 * E * P + E + P + P * P), OPS_PER_CANDIDATE * E * P * P)
-        edge_rows.append(dict(shape=[E, P], bound_ms=t_min, bound_by=by, device_ms=device_ms(
-            lambda: ops.edge_relax(pv, pdata, L, bw), "edge_relax_kernel"), **timed(
-            lambda: ops.edge_relax(pv, pdata, L, bw),
-            lambda: edge_relax_plain(pv[None], pdata, L[None], bw[None]), 100)))
+    for E, P, B in EDGE_TIMED:
+        pv, pdata, L, bw = edge_inputs((E, P), 7, device, None if B == 1 else B)
+        lead = (lambda t: t[None]) if B == 1 else (lambda t: t)
+        # pv, pdata, L, bw read once, minl and argl written once
+        t_min, by = bound(4 * (3 * B * E * P + E + B * P + B * P * P),
+                          OPS_PER_CANDIDATE * B * E * P * P)
+        edge_rows.append(issue_floor(loop["per_candidate"] * B * E * P * P, dict(
+            shape=[E, P] if B == 1 else [B, E, P], bound_ms=t_min, bound_by=by, sass_loop=loop,
+            launch=edge_relax_grid(B, E, P, n_sm)._asdict(), device_ms=device_ms(
+                lambda: ops.edge_relax(pv, pdata, L, bw), "edge_relax_kernel"), **timed(
+                lambda: ops.edge_relax(pv, pdata, L, bw),
+                lambda: edge_relax_plain(lead(pv), pdata, lead(L), lead(bw)), 100))))
     cell_rows = []
     for W, D, P in CELL_PATH_SHAPES:
         n_valid = 3999 if (W, D, P) == (1, 4096, 64) else None
@@ -2311,7 +2411,8 @@ def turns(other_src: str) -> int:
     archive`` of an earlier commit) and of this one, timed in turns (other,
     this, this, other) on the same inputs on one card: the superstep on the
     n = 16384 graph's run tables and ``minplus`` at 4096^3 (float32 and
-    bf16), kernel ms by CUDA events; ``seg_level`` at its path shapes
+    bf16), kernel ms by CUDA events; ``edge_relax`` at ``EDGE_TIMED`` with
+    this tree's launch shape, and ``seg_level`` at its path shapes
     (``seg_levels``), device ms by ``torch.profiler``; and the steady
     n = 16384 sweep at B = 1 and B = 8 with each tree's kernels, its device
     busy ms and host wall ms.  Both trees must give the same outputs and
@@ -2341,6 +2442,20 @@ def turns(other_src: str) -> int:
                          other_ms=[o1, o2], this_ms=[n1, n2],
                          sm_clock_mhz_after=smi("clocks.sm")))
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for E, P, B in EDGE_TIMED:
+        args = edge_inputs((E, P), 7, device, None if B == 1 else B)
+        outs = [f(*args) for f in (other.edge_relax, ops.edge_relax)]
+        check(all(torch.equal(a, b) for a, b in zip(*outs)),
+              f"edge_relax at {(B, E, P)}: the trees differ")
+        del outs
+        o1, n1, n2, o2 = (device_ms(lambda: f(*args), "edge_relax_kernel", 50)
+                          for f in (other.edge_relax, ops.edge_relax, ops.edge_relax,
+                                    other.edge_relax))
+        rows.append(dict(name="edge_relax", shape=[B, E, P], dtype="float32",
+                         timer="torch.profiler device ms",
+                         launch=edge_relax_grid(B, E, P, n_sm)._asdict(),
+                         other_ms=[o1, o2], this_ms=[n1, n2],
+                         sm_clock_mhz_after=smi("clocks.sm")))
     for B, lv in seg_levels(g, device):
         carry, args = seg_args(inputs, B, lv)
         mine = tuple(c.clone() for c in carry)

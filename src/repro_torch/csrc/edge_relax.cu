@@ -9,9 +9,8 @@
 // set of edge tables.  Two entries:
 //
 //   edge_relax_f32  the (B, E, P) contract of the Pallas kernel, off the
-//                   sweep: one thread per (b, e, j) output through
-//                   relax.cuh's relax_cell, L[b] and bw[b] staged in shared
-//                   memory (16.6 KB at P = 64).
+//                   sweep: the relaxation alone, with no gather, segment max
+//                   or carry writes around it.
 //   seg_level_f32   a whole segment-layout level of the sweep in one launch:
 //                   it gathers each edge's parent row from the carry, relaxes
 //                   it, takes each child's max over its contiguous segment of
@@ -19,10 +18,41 @@
 //                   comp and writes ceft, pred_task and pred_proc into the
 //                   carry rows of the level's tasks.
 //
-// seg_level's bound: issue slots.  A level is B * e_real * P^2 candidates of
-// float32 scalar arithmetic (a divide, two adds, a multiply by off, a
-// NaN-aware compare and two selects) with no tensor-core form and a few bytes
-// each.  The sweep's levels are small (385 real edges on average, 1611 at
+// Both are bound by issue slots: B * E * P^2 candidates of float32 scalar
+// arithmetic (a divide, two adds, a multiply by off, a NaN-aware compare and
+// two selects) with no tensor-core form and a few bytes each.  Both split the
+// class loop across lanes and divide by Markstein's form (relax.cuh:
+// stage_pairs, relax_lanes).  edge_relax's design:
+//
+//   * The launch, from the host (kernels/edge_relax.py:edge_relax_grid, a
+//     rule chosen by timing every launch shape on the H100): a block takes a
+//     tile of TE edges of one plane and a j-chunk of JC classes; G lanes
+//     split each (edge, j) cell's class loop, the fewest that still give
+//     every SM threads (2 at (1, 1024, 64), 1 at (1, 2048, 64) and for a
+//     batch of 8): each lane more shortens a thread's loop and adds a
+//     combine round; a tile takes as many passes as keep the grid within
+//     what the card holds at once.
+//   * One memory round trip before the arithmetic: the tile's pv rows (one
+//     contiguous range) and edge data by cp.async, and while they land the
+//     j-chunk's (bw, RN(1/bw), L, off) entries, every load issued before any
+//     reciprocal, each bw checked against the Markstein window; a thread
+//     whose edges or machine leave the window relaxes its pass with
+//     __fdiv_rn.  Only the j-chunk is staged, so every width fits: P up to
+//     2048 in the staged kernel, any wider machine in a kernel that reads L
+//     and bw from global memory.
+//   * ER_EPT = 4 edges a thread for one class j, so that each staged entry
+//     serves 4 candidates and their chains run side by side (8 took 80
+//     registers and spilled).
+//   * The lanes combine by a reduce-scatter (relax.cuh: scatter_lanes): each
+//     round halves the edges a lane holds, so a lane shuffles ER_EPT -
+//     ER_EPT / G values of each kind, not ER_EPT log2(G), and every lane ends
+//     with its own cells and stores them.
+//   * P is a template parameter for 8, 16, 32 and 64 (a 16-byte aligned pv),
+//     one instance with a run-time P takes every other width.  argl is int32
+//     and nothing is packed, so no key limits P.
+//
+// seg_level's design.  A level is B * e_real * P^2 candidates.  The sweep's
+// levels are small (385 real edges on average, 1611 at
 // most, at P = 64 for the paper's n = 16384 graph), so a level must also
 // spread over every SM, and a block's chain of dependent memory round trips
 // counts as much as its arithmetic.  The design:
@@ -82,36 +112,131 @@
 #include "async_copy.cuh"
 #include "relax.cuh"
 
-__device__ __forceinline__ void stage_machine(const float* L, const float* bw, int b, int P,
-                                              float* sL, float* sbw) {
-  for (int i = threadIdx.x; i < P; i += blockDim.x) sL[i] = L[(size_t)b * P + i];
-  for (int i = threadIdx.x; i < P * P; i += blockDim.x) sbw[i] = bw[(size_t)b * P * P + i];
+__host__ __device__ __forceinline__ size_t align16(size_t bytes) {
+  return (bytes + 15) & ~(size_t)15;
 }
 
-__global__ void edge_relax_kernel(const float* __restrict__ pv,     // (B, E, P)
-                                  const float* __restrict__ pdata,  // (E,)
-                                  const float* __restrict__ L,      // (B, P)
-                                  const float* __restrict__ bw,     // (B, P, P)
-                                  float* __restrict__ minl,         // (B, E, P)
-                                  int32_t* __restrict__ argl,       // (B, E, P)
-                                  int E, int P) {
-  extern __shared__ float smem[];
-  float* sL = smem;       // (P,)
-  float* sbw = smem + P;  // (P, P)
-  const int b = blockIdx.y;
-  stage_machine(L, bw, b, P, sL, sbw);
-  __syncthreads();
+#define ER_MAX_THREADS 256
+#define ER_BLOCKS_PER_SM 3  // resident blocks an SM (launch bounds: 85 registers)
+#define ER_EPT 4            // edges a thread relaxes for one class j in a pass
+#define ER_MAX_LANES ER_EPT  // the combine leaves each lane ER_EPT / G edges
+#define ER_STAGE 4          // machine entries a thread loads before it computes any
 
+// an edge_relax block's shared memory, each array 16-byte aligned: the
+// j-chunk's staged machine entries, the tile's pv rows (4 floats more, so that
+// they keep their 16-byte phase in global memory) and its edge data
+struct ErSmem {
+  size_t sq, spv, sd, total;
+  __host__ __device__ ErSmem(int P, int G, int JC, int TE) {
+    const int lpt = (P + G - 1) / G;
+    sq = 0;                                                      // (JC, S) float4
+    spv = sq + align16(16 * (size_t)JC * lane_stride(G, lpt));   // (TE, P) + 4
+    sd = spv + align16(4 * ((size_t)TE * P + 4));                // (TE,)
+    total = sd + align16(4 * (size_t)TE);
+  }
+};
+
+// PT: P for the 8, 16, 32 and 64 instances (pv 16-byte aligned), 0 for the
+// one with a run-time P.  Block blockIdx.x = (b n_tiles + tile) n_jc + jc
+// takes TE edges of plane b from e0 = tile TE on, and the JC classes j of
+// j-chunk jc.  A group of G * JC consecutive threads (a power of two up to
+// the block) is G lanes of a warp for each of its JC classes j; a block's
+// groups take ER_EPT edges each in a pass.
+template <int PT>
+__global__ void __launch_bounds__(ER_MAX_THREADS, ER_BLOCKS_PER_SM) edge_relax_kernel(
+    const float* __restrict__ pv,     // (B, E, P)
+    const float* __restrict__ pdata,  // (E,)
+    const float* __restrict__ L,      // (B, P)
+    const float* __restrict__ bw,     // (B, P, P)
+    float* __restrict__ minl,         // (B, E, P)
+    int32_t* __restrict__ argl,       // (B, E, P)
+    int E, int P_rt, int G, int JC, int n_jc, int n_tiles, int TE) {
+  const int P = PT > 0 ? PT : P_rt;
+  const int lpt = (P + G - 1) / G, S = lane_stride(G, lpt);
+  const int EP = blockDim.x / (G * JC) * ER_EPT;  // edges a pass
+  const int jc = blockIdx.x % n_jc, bt = blockIdx.x / n_jc;
+  const int b = bt / n_tiles, e0 = bt % n_tiles * TE, ne = min(TE, E - e0);
+  const int j0 = jc * JC, nj = min(JC, P - j0);
+  const int jcs = __ffs(JC) - 1, lps = __ffs(lpt) - 1;  // JC, G and (for PT > 0) lpt: powers of two
+  const int gl = threadIdx.x & (G - 1);                 // this thread's lane of its cell
+  const int cj = (threadIdx.x / G) & (JC - 1);          // its class j - j0
+  const int grp = threadIdx.x / (G * JC);               // its edge group
+
+  extern __shared__ float4 smem4[];
+  const ErSmem lay(P, G, JC, TE);
+  char* base = (char*)smem4;
+  float4* sq = (float4*)(base + lay.sq);  // (bw, RN(1/bw), L, off) of the j-chunk
+  float* sd = (float*)(base + lay.sd);
+
+  // one round trip before the arithmetic: the tile's pv rows (one contiguous
+  // range: 16-byte copies between a head and a tail) and edge data by
+  // cp.async, and, while they land, the machine's j-chunk
+  const size_t row0 = ((size_t)b * E + e0) * P;
+  const float* src = pv + row0;
+  const int sh = (int)(((uintptr_t)src >> 2) & 3);  // 0 for PT > 0
+  float* rows = (float*)(base + lay.spv) + sh;
+  const int n = ne * P, head = min((4 - sh) & 3, n), n16 = (n - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) cp_async4(rows + i, src + i);
+  for (int c = threadIdx.x; c < n16; c += blockDim.x)
+    cp_async16(rows + head + 4 * c, src + head + 4 * c);
+  for (int i = head + 4 * n16 + threadIdx.x; i < n; i += blockDim.x) cp_async4(rows + i, src + i);
+  for (int i = threadIdx.x; i < ne; i += blockDim.x) cp_async4(sd + i, pdata + e0 + i);
+  cp_async_commit();
+  const bool staged_ok = stage_pairs<PT, ER_STAGE>(
+      bw + (size_t)b * P * P + j0, L + (size_t)b * P, P, j0, nj, JC, jcs, G, lpt, lps, S, sq);
+  cp_async_wait<0>();
+  const bool machine_in_window = __syncthreads_and(staged_ok);
+
+  // relax the tile's edges, ER_EPT a thread a pass; the lanes' combine leaves
+  // lane gl with ER_EPT / G of them, which it stores
+  const int l0 = gl * lpt, nl = max(0, min(lpt, P - l0));
+  const float4* sqc = sq + cj * S + gl;
+  const size_t out0 = row0 + j0 + cj;
+  for (int p0 = 0; p0 < ne; p0 += EP) {
+    const int r0 = p0 + grp * ER_EPT;
+    float d[ER_EPT];
+    bool fast = machine_in_window;
+#pragma unroll
+    for (int k = 0; k < ER_EPT; ++k) {  // past the tile: its last edge's data
+      d[k] = sd[min(r0 + k, ne - 1)];
+      fast = fast && markstein_num(d[k]);
+    }
+    float best[ER_EPT];
+    int arg[ER_EPT];
+    if (fast)
+      relax_lanes<PT, true>(rows + r0 * P + l0, P, d, sqc, G, l0, nl, best, arg);
+    else
+      relax_lanes<PT, false>(rows + r0 * P + l0, P, d, sqc, G, l0, nl, best, arg);
+    const int k0 = scatter_lanes(best, arg, G, gl);
+    if (cj < nj) {
+#pragma unroll
+      for (int i = 0; i < ER_EPT; ++i) {
+        const int r = r0 + k0 + i;
+        if (i < ER_EPT / G && r < ne) {
+          minl[out0 + (size_t)r * P] = best[i];
+          argl[out0 + (size_t)r * P] = arg[i];
+        }
+      }
+    }
+  }
+}
+
+// Machines too wide for any staged launch (edge_relax_grid: P above 2048):
+// one thread per (b, e, j) output through relax.cuh's relax_cell, reading L
+// and bw from global memory, with __fdiv_rn.
+__global__ void __launch_bounds__(ER_MAX_THREADS) edge_relax_global_kernel(
+    const float* __restrict__ pv, const float* __restrict__ pdata, const float* __restrict__ L,
+    const float* __restrict__ bw, float* __restrict__ minl, int32_t* __restrict__ argl, int B,
+    int E, int P) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)E * P) return;
-  const int e = (int)(idx / P);
-  const int j = (int)(idx % P);
-  const size_t row = ((size_t)b * E + e) * P;
+  if (idx >= (long long)B * E * P) return;
+  const long long be = idx / P;  // b E + e
+  const int j = (int)(idx % P), e = (int)(be % E), b = (int)(be / E);
   float best;
   int arg;
-  relax_cell(pv + row, pdata[e], sL, sbw, P, j, best, arg);
-  minl[row + j] = best;
-  argl[row + j] = arg;
+  relax_cell(pv + be * P, pdata[e], L + (size_t)b * P, bw + (size_t)b * P * P, P, j, best, arg);
+  minl[idx] = best;
+  argl[idx] = arg;
 }
 
 #define SEG_MAX_THREADS 256
@@ -125,18 +250,6 @@ static_assert(SEG_SNAP == 16, "the snap takes half a warp for each tile boundary
 // its last tile t1, so it holds 2 SEG_TILE_BIG + t1 - t0 once both arrived
 #define SEG_TILE_BIG (1u << 24)
 
-// staged entries between two classes j: at least G * lpt, so that the
-// lanes of one quarter-warp reading entries (8 / G classes j, G lanes each)
-// land on distinct 16-byte banks, and for G >= 8 (one j a quarter-warp) one
-// more, so that lanes staging one class l for consecutive j do too
-__host__ __device__ __forceinline__ int seg_stride(int G, int lpt) {
-  return G >= 8 ? G * lpt + 1 : G * lpt + ((G - G * lpt) & 7);
-}
-
-__host__ __device__ __forceinline__ size_t align16(size_t bytes) {
-  return (bytes + 15) & ~(size_t)15;
-}
-
 // a block's shared memory, each array 16-byte aligned, in kernel order; EP
 // is the edges of a pass
 struct SegSmem {
@@ -146,7 +259,7 @@ struct SegSmem {
     const size_t cap = (size_t)TE + SEG_SNAP, nwin = cap + 1;
     sq = 0;                                                    // (JC, S) float4
     // (cap + EP, P) parent rows: a pass past the tile reads rows it does not write
-    spv = sq + align16(16 * (size_t)JC * seg_stride(G, lpt));
+    spv = sq + align16(16 * (size_t)JC * lane_stride(G, lpt));
     ssrc = spv + align16(4 * (cap + EP) * P);                  // (nwin,) window's esrc
     sdat = ssrc + align16(8 * nwin);                           // (nwin,) edata
     sseg = sdat + align16(4 * nwin);                           // (nwin,) eseg, -1 outside
@@ -157,52 +270,6 @@ struct SegSmem {
     total = scomp + align16(4 * cap * JC);
   }
 };
-
-// one lane's scan of classes l0 .. l0 + nl - 1 for SEG_EPT edges and one
-// class j, two classes at a time: edge k's row is pv + k * P from class l0 on
-// (rows past the tile hold garbage, and are not written), its data d[k]; sq
-// points at the lane's first staged entry (class l0 + i at sq[i * G]).  It
-// starts from (+inf, l0): a candidate equal to +inf then keeps l0, as the
-// serial scan keeps its first.
-template <int PT, bool FAST>
-__device__ __forceinline__ void relax_lanes(const float* pv, int P, const float (&d)[SEG_EPT],
-                                            const float4* sq, int G, int l0, int nl,
-                                            float (&best)[SEG_EPT], int (&arg)[SEG_EPT]) {
-#pragma unroll
-  for (int k = 0; k < SEG_EPT; ++k) {
-    best[k] = __int_as_float(0x7F800000);
-    arg[k] = l0;
-  }
-#pragma unroll 4
-  for (int i0 = 0; i0 < nl; i0 += 2) {
-    float2 x[SEG_EPT];
-#pragma unroll
-    for (int k = 0; k < SEG_EPT; ++k) {
-      if (PT > 0) {  // nl is even and the row 8-byte aligned
-        x[k] = *(const float2*)(pv + k * P + i0);
-      } else {
-        x[k].x = pv[k * P + i0];
-        x[k].y = i0 + 1 < nl ? pv[k * P + i0 + 1] : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      if (PT == 0 && i0 + u >= nl) break;
-      const float4 q = sq[(i0 + u) * G];  // (bw[l, j], RN(1 / bw[l, j]), L[l], off[l, j])
-#pragma unroll
-      for (int k = 0; k < SEG_EPT; ++k) {
-        // pv + (L + q) * off in one rounding: the product by off (0 or 1) is
-        // exact, so the FMA rounds exactly as the multiply and then the add do
-        const float qt = FAST ? div_markstein(d[k], q.x, q.y) : __fdiv_rn(d[k], q.x);
-        const float c = __fmaf_rn(__fadd_rn(q.z, qt), q.w, u ? x[k].y : x[k].x);
-        if (takes_min(c, best[k])) {
-          best[k] = c;
-          arg[k] = l0 + i0 + u;
-        }
-      }
-    }
-  }
-}
 
 // PT: P for the 8, 16, 32 and 64 instances, 0 for the one with a run-time P.
 // Block (tile, j-chunk) of plane blockIdx.y.  An edge group is G * JC
@@ -226,7 +293,7 @@ __global__ void __launch_bounds__(SEG_MAX_THREADS, SEG_BLOCKS_PER_SM) seg_level_
     int V, int P_rt, int W, int e_real, int G, int JC, int n_jc, int TE) {
   const int P = PT > 0 ? PT : P_rt;
   const int lpt = (P + G - 1) / G;
-  const int S = seg_stride(G, lpt);
+  const int S = lane_stride(G, lpt);
   const int EP = blockDim.x / (G * JC) * SEG_EPT;  // edges a pass
   const int b = blockIdx.y, tile = blockIdx.x / n_jc, jc = blockIdx.x % n_jc;
   const int j0 = jc * JC, nj = min(JC, P - j0);
@@ -269,28 +336,8 @@ __global__ void __launch_bounds__(SEG_MAX_THREADS, SEG_BLOCKS_PER_SM) seg_level_
     sdat[i] = in ? edata[e] : 0.0f;
     sseg[i] = in ? (int)eseg[e] : -1;
   }
-  bool ok = true;
-  const float* bwb = bw + (size_t)b * P * P + j0;  // this plane's j-chunk
-  const float* Lb = L + (size_t)b * P;
-  for (int i0 = tid; i0 < P * JC; i0 += SEG_STAGE * blockDim.x) {
-    float bv[SEG_STAGE], lv[SEG_STAGE];
-#pragma unroll
-    for (int u = 0; u < SEG_STAGE; ++u) {  // every load first
-      const int i = i0 + u * blockDim.x, c = i & (JC - 1), l = i >> jcs;
-      const bool in = i < P * JC && c < nj;
-      bv[u] = in ? bwb[l * P + c] : 1.0f;
-      lv[u] = in ? Lb[l] : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < SEG_STAGE; ++u) {
-      const int i = i0 + u * blockDim.x, c = i & (JC - 1), l = i >> jcs;
-      if (i < P * JC && c < nj) {
-        ok = ok && markstein_den(bv[u]);
-        const int li = PT > 0 ? (l & (lpt - 1)) * G + (l >> lps) : (l % lpt) * G + l / lpt;
-        sq[c * S + li] = make_float4(bv[u], __frcp_rn(bv[u]), lv[u], l == j0 + c ? 0.0f : 1.0f);
-      }
-    }
-  }
+  const bool ok = stage_pairs<PT, SEG_STAGE>(bw + (size_t)b * P * P + j0, L + (size_t)b * P,
+                                             P, j0, nj, JC, jcs, G, lpt, lps, S, sq);
   if (tid < 32) {
     const unsigned m = __ballot_sync(0xFFFFFFFFu, y < e_real && sy != sy1) >> (16 * side) & 0xFFFFu;
     if (lane % 16 == 0) snap[side] = m ? y + __ffs(m) - 1 : y;
@@ -463,18 +510,51 @@ static int set_smem(const void* kernel, size_t smem) {
                                    (int)smem);
 }
 
+// The (B, E, P) relaxation, B, E, P >= 1, with the launch shape
+// edge_relax_grid chose: G lanes a cell (a power of two up to ER_MAX_LANES
+// and P, P / G even for P = 8, 16, 32, 64), JC classes a block (G * JC a
+// power of two up to the block), `threads` threads (whole warps, at most
+// ER_MAX_THREADS), TE edges a tile (whole passes); G = 0 takes the kernel
+// that stages nothing.
 extern "C" int edge_relax_f32(const void* pv, const void* pdata, const void* L,
-                              const void* bw, void* minl, void* argl, int B, int E,
-                              int P, void* stream) {
-  const int threads = 256;
-  const long long n = (long long)E * P;
-  const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)B);
-  const size_t smem = sizeof(float) * ((size_t)P + (size_t)P * P);
-  const int err = set_smem((const void*)edge_relax_kernel, smem);
-  if (err != 0) return err;
-  edge_relax_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)pv, (const float*)pdata, (const float*)L, (const float*)bw,
-      (float*)minl, (int32_t*)argl, E, P);
+                              const void* bw, void* minl, void* argl, int B, int E, int P,
+                              int G, int JC, int threads, int TE, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (G == 0) {
+    const long long n = (long long)B * E * P;
+    edge_relax_global_kernel<<<(unsigned)((n + ER_MAX_THREADS - 1) / ER_MAX_THREADS),
+                               ER_MAX_THREADS, 0, s>>>(
+        (const float*)pv, (const float*)pdata, (const float*)L, (const float*)bw, (float*)minl,
+        (int32_t*)argl, B, E, P);
+    return (int)cudaGetLastError();
+  }
+  const bool templated = (P == 8 || P == 16 || P == 32 || P == 64) && ((uintptr_t)pv & 15) == 0;
+  const int grp = G * JC;
+  if (G < 1 || G > ER_MAX_LANES || G > P || (G & (G - 1)) != 0 || JC < 1 ||
+      (grp & (grp - 1)) != 0 || threads > ER_MAX_THREADS || threads % 32 != 0 ||
+      threads % grp != 0 || TE < 1 || TE % (threads / grp * ER_EPT) != 0 ||
+      ((P == 8 || P == 16 || P == 32 || P == 64) && (P / G) % 2 != 0))
+    return (int)cudaErrorInvalidValue;
+  const int n_jc = (P + JC - 1) / JC, n_tiles = (E + TE - 1) / TE;
+  const long long blocks = (long long)B * n_tiles * n_jc;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = ErSmem(P, G, JC, TE).total;
+#define ER_LAUNCH(PT)                                                                       \
+  do {                                                                                      \
+    const int err = set_smem((const void*)edge_relax_kernel<PT>, smem);                     \
+    if (err != 0) return err;                                                               \
+    edge_relax_kernel<PT><<<(unsigned)blocks, threads, smem, s>>>(                          \
+        (const float*)pv, (const float*)pdata, (const float*)L, (const float*)bw,           \
+        (float*)minl, (int32_t*)argl, E, P, G, JC, n_jc, n_tiles, TE);                      \
+  } while (0)
+  switch (templated ? P : 0) {
+    case 8: ER_LAUNCH(8); break;
+    case 16: ER_LAUNCH(16); break;
+    case 32: ER_LAUNCH(32); break;
+    case 64: ER_LAUNCH(64); break;
+    default: ER_LAUNCH(0); break;
+  }
+#undef ER_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -8,10 +8,13 @@ Replaces the Pallas kernel ``src/repro/kernels/ceft_relax.py:_edge_relax_kernel`
 (entry ``edge_relax_pallas``).  The CUDA source is ``csrc/edge_relax.cu``, with
 two entries that compute the same arithmetic, rounding for rounding:
 
-* ``edge_relax_f32`` keeps the Pallas kernel's (B, E, P) contract: one thread
-  per output with L and bw staged in shared memory, so the (E, P, P)
-  candidate tensor that :func:`edge_relax_plain` materializes stays in
-  registers.
+* ``edge_relax_f32`` keeps the Pallas kernel's (B, E, P) contract, for any
+  width: a block takes a tile of edges and a chunk of the child classes j,
+  stages the tile's pv rows and the chunk's machine entries in one round
+  trip, up to 4 lanes share each (edge, j) cell's class loop and combine in l
+  order, each lane storing its own cells; :func:`edge_relax_grid` picks the
+  launch on the host.  The (E, P, P) candidate tensor that
+  :func:`edge_relax_plain` materializes stays in registers.
 * ``seg_level_f32`` runs a whole segment-layout level of the CSR sweep in one
   launch (:func:`seg_level_plain` is its plain version): it gathers the
   parent rows from the carry, relaxes them, takes each child's first-max
@@ -25,11 +28,11 @@ two entries that compute the same arithmetic, rounding for rounding:
 
 On the H100 the arithmetic is bound by issue slots: E·P² candidates, each a
 divide, two adds, a multiply by off and a NaN-aware compare (float32, no
-tensor cores: this is a min/argmin scan, not a matrix product).  ``seg_level``
-divides by Markstein's correctly rounded form from a staged RN(1/bw) inside an
-exponent window and by ``__fdiv_rn`` outside it; ``edge_relax_f32`` divides
-with ``__fdiv_rn``.  At the sweep's shapes (a few hundred real edges, P = 64)
-a level is small, which is why it is one launch spread over every SM.
+tensor cores: this is a min/argmin scan, not a matrix product).  Both entries
+divide by Markstein's correctly rounded form from a staged RN(1/bw) inside an
+exponent window and by ``__fdiv_rn`` outside it.  At the sweep's shapes (a few
+hundred real edges, P = 64) a level is small, which is why each call is one
+launch spread over every SM.
 
 The leading ``b`` axis is the batch of cost planes / machines of the batched
 re-planning sweep; the edge tables are shared across it.
@@ -48,6 +51,10 @@ NEG = -3.4e38  # the masked-edge value (rounds to the reference's float32 NEG)
 #: in a pass, the largest block, resident blocks an SM, the farthest a tile
 #: boundary moves on to a segment start, and the most lanes sharing a cell
 SEG_EPT, SEG_MAX_THREADS, SEG_BLOCKS_PER_SM, SEG_SNAP, SEG_MAX_LANES = 8, 256, 3, 16, 8
+#: ``csrc/edge_relax.cu``'s edge_relax: edges a thread relaxes for one class j
+#: in a pass, the largest block, resident blocks an SM, and the most lanes
+#: sharing a cell (the lanes' combine leaves each ER_EPT / G edges)
+ER_EPT, ER_MAX_THREADS, ER_BLOCKS_PER_SM, ER_MAX_LANES = 4, 256, 3, 4
 #: shared memory a block may hold on the H100, an SM's, and what each
 #: resident block also takes
 SMEM_LIMIT, SMEM_SM, SMEM_RESERVED = 227 * 1024, 228 * 1024, 1024
@@ -68,8 +75,30 @@ class SegGrid(NamedTuple):
     smem: int
 
 
+class EdgeGrid(NamedTuple):
+    """An ``edge_relax_f32`` launch: ``lanes`` (G) lanes share each (edge, j)
+    cell's class loop, a block takes ``jc`` classes j of a tile of ``te``
+    edges of one plane with ``threads`` threads, and the grid is B x tiles x
+    j-chunks blocks.  ``lanes == 0``: the machine is too wide for any staged
+    launch, and one thread per output reads L and bw from global memory."""
+    lanes: int
+    jc: int
+    threads: int
+    te: int
+    n_tiles: int
+    n_jc: int
+    blocks: int
+    smem: int
+
+
 def _align16(n: int) -> int:
     return (n + 15) & ~15
+
+
+def _lane_stride(G: int, lpt: int) -> int:
+    """Staged machine entries between two classes j (``csrc/relax.cuh``,
+    ``lane_stride``)."""
+    return G * lpt + 1 if G >= 8 else G * lpt + ((G - G * lpt) & 7)
 
 
 def seg_smem(P: int, G: int, jc: int, te: int, threads: int) -> int:
@@ -77,12 +106,99 @@ def seg_smem(P: int, G: int, jc: int, te: int, threads: int) -> int:
     ``SegSmem``): the j-chunk's staged machine entries, the snapped tile's
     parent rows (and a pass's worth past them), the edge tables' window, and
     the per-cell results."""
-    lpt = -(-P // G)
-    stride = G * lpt + 1 if G >= 8 else G * lpt + ((G - G * lpt) & 7)
     cap = te + SEG_SNAP
     nwin, ep = cap + 1, threads // (G * jc) * SEG_EPT
-    return (_align16(16 * jc * stride) + _align16(4 * (cap + ep) * P) + _align16(8 * nwin)
-            + 2 * _align16(4 * nwin) + _align16(4 * cap) + 3 * _align16(4 * cap * jc))
+    return (_align16(16 * jc * _lane_stride(G, -(-P // G))) + _align16(4 * (cap + ep) * P)
+            + _align16(8 * nwin) + 2 * _align16(4 * nwin) + _align16(4 * cap)
+            + 3 * _align16(4 * cap * jc))
+
+
+def edge_smem(P: int, G: int, jc: int, te: int) -> int:
+    """Shared memory of an ``edge_relax_f32`` block (``csrc/edge_relax.cu``,
+    ``ErSmem``): the j-chunk's staged machine entries, the tile's pv rows
+    (4 floats more, to keep their 16-byte phase) and its edge data."""
+    return (_align16(16 * jc * _lane_stride(G, -(-P // G))) + _align16(4 * (te * P + 4))
+            + _align16(4 * te))
+
+
+def _smaller(threads: int, jc: int, G: int):
+    """Half the block, and the j-chunk once a block is one group of G * jc
+    threads; None at a warp."""
+    if threads > max(32, G * jc):
+        return threads // 2, jc
+    if jc > 1 and threads > 32:
+        return threads // 2, jc // 2
+    return None
+
+
+def _j_chunk(P: int) -> int:
+    """A block's classes j: a power of two, at most 16 and P, and at most
+    4096 staged machine entries where P allows."""
+    return min(1 << (P - 1).bit_length(), 16, 1 << max(0, (4096 // P).bit_length() - 1))
+
+
+@functools.lru_cache(maxsize=4096)
+def edge_relax_grid(B: int, E: int, P: int, n_sm: int) -> EdgeGrid:
+    """How ``edge_relax_f32`` covers B planes of E edges and P classes on a
+    card with ``n_sm`` SMs (the rule was chosen by timing every launch shape
+    on the H100 at phase a's shapes and around them, ``PERF.md``).
+
+    G, the lanes that split a cell's class loop, is the least power of two
+    that gives every SM a block of 128 threads (ER_EPT cells a thread), at
+    most ER_MAX_LANES and at least 2 classes a lane: a lane more costs a
+    combine round and shortens each thread's loop, so few lanes are best as
+    long as the card has threads.  A j-chunk takes JC of the classes (16 at
+    most, and at most 4096 staged entries where P allows); an edge group of
+    G * JC threads takes ER_EPT edges a pass; a block of 256 threads halves,
+    and then its j-chunk, while its shared memory does not fit, and a warp of
+    several edge groups takes more lanes a cell (past that the machine is too
+    wide to stage: ``lanes == 0``, P above 2048).  A tile takes as many
+    passes as keep the grid within the blocks the card holds at once (as
+    many as shared memory lets sit on an SM, at most ER_BLOCKS_PER_SM); a
+    call that gives fewer than half the SMs a block halves its block and its
+    j-chunk together (each thread still stages its machine entries in one
+    round of loads), down to a warp."""
+    most = min(ER_MAX_LANES, max(1, P // 2))
+    G = 1
+    while B * E * P * G < n_sm * 128 * ER_EPT and 2 * G <= most:
+        G *= 2
+    jc, threads = _j_chunk(P), ER_MAX_THREADS
+
+    def ep(threads, jc):  # edges a pass
+        return threads // (G * jc) * ER_EPT
+
+    while edge_smem(P, G, jc, ep(threads, jc)) > SMEM_LIMIT:
+        nxt = _smaller(threads, jc, G)
+        if nxt is not None:
+            threads, jc = nxt
+        elif G * jc < 32 and 2 * G <= most:     # a warp of several edge groups:
+            G *= 2                              # fewer, with more lanes each
+        else:
+            n = -(-B * E * P // ER_MAX_THREADS)
+            return EdgeGrid(0, 0, ER_MAX_THREADS, 0, 0, 0, n, 0)
+
+    def blocks(threads, jc, passes=1):
+        return B * -(-E // (passes * ep(threads, jc))) * -(-P // jc)
+
+    def held(te):  # blocks the card holds at once with tiles of te edges
+        per_sm = SMEM_SM // (edge_smem(P, G, jc, te) + SMEM_RESERVED)
+        return n_sm * min(ER_BLOCKS_PER_SM, per_sm)
+
+    passes, e1 = 1, ep(threads, jc)
+    while (blocks(threads, jc, passes) > held(passes * e1) and passes * e1 < E
+           and edge_smem(P, G, jc, (passes + 1) * e1) <= SMEM_LIMIT):
+        passes += 1
+    while passes == 1 and 2 * blocks(threads, jc) < n_sm and threads > 32:
+        if jc > 1 and G * (jc // 2) <= threads // 2:
+            threads, jc = threads // 2, jc // 2
+        elif threads // 2 >= G * jc:
+            threads //= 2
+        else:
+            break
+    te = passes * ep(threads, jc)
+    n_tiles, n_jc = -(-E // te), -(-P // jc)
+    return EdgeGrid(G, jc, threads, te, n_tiles, n_jc, B * n_tiles * n_jc,
+                    edge_smem(P, G, jc, te))
 
 
 @functools.lru_cache(maxsize=4096)
@@ -106,21 +222,13 @@ def seg_level_grid(B: int, e_real: int, P: int, n_sm: int) -> SegGrid:
     G, most = 1, min(SEG_MAX_LANES, max(1, P // 2))
     while G < want and 2 * G <= most:
         G *= 2
-    jc = min(1 << (P - 1).bit_length(), 16, 1 << (4096 // P).bit_length() - 1)
-    threads = SEG_MAX_THREADS
-
-    def smaller(threads, jc):  # half the block, and the j-chunk once a block is one group
-        if threads > max(32, G * jc):
-            return threads // 2, jc
-        if jc > 1 and threads > 32:
-            return threads // 2, jc // 2
-        return None
+    jc, threads = _j_chunk(P), SEG_MAX_THREADS
 
     def blocks(threads, jc, passes=1):
         return B * -(-e_real // (passes * threads // (G * jc) * SEG_EPT)) * -(-P // jc)
 
     while seg_smem(P, G, jc, threads // (G * jc) * SEG_EPT, threads) > SMEM_LIMIT:
-        threads, jc = smaller(threads, jc)
+        threads, jc = _smaller(threads, jc, G)
     ep = threads // (G * jc) * SEG_EPT
 
     def held(te):  # blocks the card holds at once with tiles of te edges
@@ -131,8 +239,8 @@ def seg_level_grid(B: int, e_real: int, P: int, n_sm: int) -> SegGrid:
     while (blocks(threads, jc, passes) > held(passes * ep) and passes * ep < e_real
            and seg_smem(P, G, jc, (passes + 1) * ep, threads) <= SMEM_LIMIT):
         passes += 1
-    while passes == 1 and blocks(threads, jc) < n_sm and smaller(threads, jc):
-        threads, jc = smaller(threads, jc)
+    while passes == 1 and blocks(threads, jc) < n_sm and _smaller(threads, jc, G):
+        threads, jc = _smaller(threads, jc, G)
     te = passes * threads // (G * jc) * SEG_EPT
     n_tiles, n_jc = -(-e_real // te), -(-P // jc)
     return SegGrid(G, jc, threads, te, n_tiles, n_jc, B * n_tiles * n_jc,
@@ -224,16 +332,19 @@ def seg_level_launch(lib: ctypes.CDLL, carry, comp_pad, L, bw, tasks, edge_src,
     return grid
 
 
-def edge_relax_launch(lib: ctypes.CDLL, pv, pdata, L, bw):
-    """Launch ``edge_relax_f32`` on the current stream.  Inputs are float32,
-    contiguous and on one CUDA device (checked by the caller)."""
+def edge_relax_launch(lib: ctypes.CDLL, pv, pdata, L, bw, n_sm: int):
+    """Launch ``edge_relax_f32`` on the current stream with
+    :func:`edge_relax_grid`'s shape.  Inputs are float32, contiguous, not
+    empty and on one CUDA device (checked by the caller)."""
     B, E, P = pv.shape
+    grid = edge_relax_grid(B, E, P, n_sm)
     minl = torch.empty((B, E, P), dtype=torch.float32, device=pv.device)
     argl = torch.empty((B, E, P), dtype=torch.int32, device=pv.device)
     stream = torch.cuda.current_stream(pv.device).cuda_stream
     err = lib.edge_relax_f32(
         pv.data_ptr(), pdata.data_ptr(), L.data_ptr(), bw.data_ptr(),
-        minl.data_ptr(), argl.data_ptr(), B, E, P, stream)
+        minl.data_ptr(), argl.data_ptr(), B, E, P, grid.lanes, grid.jc, grid.threads,
+        grid.te, stream)
     if err != 0:
         raise RuntimeError(f"edge_relax kernel launch failed: CUDA error {err}")
     return minl, argl
@@ -241,7 +352,7 @@ def edge_relax_launch(lib: ctypes.CDLL, pv, pdata, L, bw):
 
 def edge_relax_argtypes(lib: ctypes.CDLL) -> None:
     fn = lib.edge_relax_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.seg_level_f32
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]

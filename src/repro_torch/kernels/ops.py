@@ -225,7 +225,8 @@ def edge_relax(pv, pdata, L, bw):
             minl = torch.empty_like(pv)
             argl = torch.empty(pv.shape, dtype=torch.int32, device=pv.device)
         else:
-            minl, argl = edge_relax_launch(_library("edge_relax"), pv, pdata, L, bw)
+            minl, argl = edge_relax_launch(_library("edge_relax"), pv, pdata, L, bw,
+                                           _n_sm(pv.device))
             LAUNCHES["edge_relax"] += 1
     else:
         raise ValueError(f"edge_relax: no kernel for device {pv.device}")

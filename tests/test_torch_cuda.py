@@ -56,6 +56,26 @@ def _edge_inputs(shape, ties: bool):
     return pv, pdata, L, bw
 
 
+# edge_relax past the widths its kernel once held whole in shared memory
+# (P <= 240), up to and past the widest staged launch (edge_relax_grid: P =
+# 2048, above it one thread per output); batches of planes; edge counts that
+# leave the last tile ragged; every templated instance
+EDGE_WIDE_CASES = [(9, 241), (40, 256), (5, 300), (6, 2048), (3, 2049), (8, 1024, 64),
+                   (8, 100, 241), (3, 9, 2049), (1, 1029, 64), (2, 1001, 64), (3, 77, 32),
+                   (2, 45, 16), (1, 33, 8), (4, 130, 7)]
+
+
+def _edge_batch_inputs(shape):
+    """(pv, pdata, L, bw) as numpy float32 for ``shape`` = (E, P), or (B, E,
+    P) with a machine for each plane and the edge data shared."""
+    *lead, E, P = shape
+    rng = np.random.default_rng(zlib.crc32(repr(shape).encode()))
+    return (rng.uniform(0, 100, (*lead, E, P)).astype(np.float32),
+            rng.uniform(0, 10, E).astype(np.float32),
+            rng.uniform(0, 2, (*lead, P)).astype(np.float32),
+            rng.uniform(0.5, 2, (*lead, P, P)).astype(np.float32))
+
+
 def _cell_inputs(shape, ties: bool, dtype=np.float32):
     W, D, P = shape
     rng = np.random.default_rng(hash((shape, ties)) % 2**31)
@@ -185,6 +205,50 @@ def test_edge_relax_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_WIDE_CASES)
+def test_edge_relax_kernel_widths_and_batches(cuda, shape):
+    """Machines wider than 240 classes (which the kernel once refused), a
+    batch of planes each with its own machine, ragged last tiles and every
+    templated width: one launch, bit-equal to the plain version."""
+    pv, pdata, L, bw = _t(_edge_batch_inputs(shape), cuda)
+    before = ops.LAUNCHES["edge_relax"]
+    got = ops.edge_relax(pv, pdata, L, bw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["edge_relax"] == before + 1
+    b = (lambda t: t) if len(shape) == 3 else (lambda t: t[None])
+    want = edge_relax_plain(b(pv), pdata, b(L), b(bw))
+    for g, w in zip(got, want):
+        assert torch.equal(b(g), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ties", "constant"])
+@pytest.mark.parametrize("shape", [(1024, 64), (300, 7), (257, 13), (40, 256), (100, 8)])
+def test_edge_relax_kernel_ties(cuda, shape, mode):
+    """Tie-heavy rows and constant rows (every candidate off the diagonal
+    equal): the first-index argmin survives the lanes' combine."""
+    pv, pdata, L, bw = _t(probes.edge_ties(shape, mode, 53), cuda)
+    got = ops.edge_relax(pv, pdata, L, bw)
+    want = edge_relax_plain(pv[None], pdata, L[None], bw[None])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", probes.DIVIDE_KINDS)
+def test_edge_relax_kernel_divide_probe(cuda, kind):
+    """The divide probe's 16 levels as one call of 16384 edges at P = 64:
+    about a million adversarial (pdata, bw) quotients each reach the output,
+    bit-equal to the plain version's correctly rounded CUDA division."""
+    pv, pdata, L, bw = _t(probes.divide_probe(kind, 16, 57), cuda)
+    pv, pdata = pv.reshape(-1, pv.shape[-1]), pdata.reshape(-1)
+    got = ops.edge_relax(pv, pdata, L, bw)
+    want = edge_relax_plain(pv[None], pdata, L[None], bw[None])
+    for g, w in zip(got, want):
+        assert probes.equal_nan(g, w[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", CELL_SHAPES + [(1, 4096, 64), (8, 28, 64)])
 def test_ceft_relax_kernel_matches_plain(cuda, shape):
     args = [torch.as_tensor(a, device=cuda) for a in _cell_inputs(shape, ties=False)]
@@ -274,7 +338,7 @@ def _t(arrays, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", probes.SPECIAL_MODES)
-@pytest.mark.parametrize("shape", [(16, 7), (64, 64), (1024, 64)])
+@pytest.mark.parametrize("shape", [(16, 7), (64, 64), (1024, 64), (64, 300), (8, 2049)])
 def test_edge_relax_kernel_specials(cuda, shape, mode):
     """NaN, inf and -0.0 candidates: the kernel gives its plain version's
     min and argmin (a NaN wins, the first NaN's class is the argmin)."""

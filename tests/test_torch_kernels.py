@@ -27,9 +27,11 @@ from repro.core.ceft_jax import xla_relax  # noqa: E402
 from repro_torch.kernels import ops, probes, ref  # noqa: E402
 from repro_torch.kernels.ceft_relax import (BIG as CELL_BIG, ceft_relax_chunks,  # noqa: E402
                                             ceft_relax_plain)
-from repro_torch.kernels.edge_relax import (SEG_BLOCKS_PER_SM, SEG_EPT,  # noqa: E402
-                                            SEG_MAX_LANES, SMEM_LIMIT, SMEM_RESERVED, SMEM_SM,
-                                            edge_relax_plain, seg_level_grid, seg_level_plain,
+from repro_torch.kernels.edge_relax import (ER_BLOCKS_PER_SM, ER_EPT,  # noqa: E402
+                                            ER_MAX_LANES, ER_MAX_THREADS, SEG_BLOCKS_PER_SM,
+                                            SEG_EPT, SEG_MAX_LANES, SMEM_LIMIT, SMEM_RESERVED,
+                                            SMEM_SM, edge_relax_grid, edge_relax_plain,
+                                            edge_smem, seg_level_grid, seg_level_plain,
                                             seg_smem)
 from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain  # noqa: E402
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
@@ -43,7 +45,7 @@ def _eq(got, want, name=""):
 
 
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("shape", EDGE_SHAPES)
+@pytest.mark.parametrize("shape", EDGE_SHAPES + [(9, 241), (5, 300)])
 def test_edge_relax_matches_jax(shape, ties):
     pv, pdata, L, bw = _edge_inputs(shape, ties)
     want = jref.edge_relax_ref(*map(jnp.asarray, (pv, pdata, L, bw)))
@@ -343,6 +345,120 @@ def test_seg_level_grid_takes_every_width():
                 # a block twice as large gives too few blocks or too much memory
                 assert (B * -(-e_real // (2 * g.te)) * g.n_jc < n_sm
                         or seg_smem(P, g.lanes, g.jc, 2 * g.te, 2 * g.threads) > SMEM_LIMIT)
+
+
+def test_edge_relax_grid_matches_the_kernel_source():
+    """The host's copies of ``csrc/edge_relax.cu``'s edge_relax constants."""
+    src = (Path(ops.CSRC) / "edge_relax.cu").read_text()
+    for name, value in (("ER_MAX_THREADS", ER_MAX_THREADS), ("ER_BLOCKS_PER_SM", ER_BLOCKS_PER_SM),
+                        ("ER_EPT", ER_EPT)):
+        assert int(re.search(rf"#define {name} (\d+)", src).group(1)) == value, name
+    assert re.search(r"#define ER_MAX_LANES ER_EPT", src) and ER_MAX_LANES == ER_EPT
+
+
+@pytest.mark.parametrize("B,E,P,G", [(1, 1024, 64, 2), (1, 2048, 64, 1), (8, 1024, 64, 1)])
+def test_edge_relax_grid_covers_the_card(B, E, P, G):
+    """``edge_relax_f32`` at its timed shapes (132 SMs): the fewest lanes that
+    give every SM a 128-thread block's worth of threads, 256-thread blocks,
+    no more blocks than the card holds at once, tiles covering the edges
+    once in whole passes, and the cells spread so evenly that the busiest
+    SM holds at most 4 % more than an even split (at (1, 1024, 64): 128
+    blocks of 512 cells on 132 SMs, where an even split is 496)."""
+    grid = edge_relax_grid(B, E, P, 132)
+    assert grid.lanes == G and grid.threads == ER_MAX_THREADS
+    assert (grid.n_tiles - 1) * grid.te < E <= grid.n_tiles * grid.te
+    assert grid.te % (grid.threads // (grid.lanes * grid.jc) * ER_EPT) == 0
+    per_sm = min(ER_BLOCKS_PER_SM, SMEM_SM // (grid.smem + SMEM_RESERVED))
+    assert grid.blocks == B * grid.n_tiles * grid.n_jc <= per_sm * 132
+    assert -(-grid.blocks // 132) * grid.te * grid.jc <= 1.04 * B * E * P / 132
+    assert grid.smem == edge_smem(P, grid.lanes, grid.jc, grid.te)
+
+
+def _edge_relax_stores(B, E, P, g):
+    """How often ``edge_relax_kernel`` (``csrc/edge_relax.cu``) stores each
+    (b, e, j) output under launch ``g``: the block and thread index
+    arithmetic of the source, each pass, and the lanes' reduce-scatter that
+    leaves lane gl with edges k0 .. k0 + ER_EPT / G - 1 of its thread's
+    ER_EPT."""
+    count = np.zeros(B * E * P, np.int64)
+    if g.lanes == 0:          # one thread per output
+        idx = np.arange(g.blocks * g.threads)
+        np.add.at(count, idx[idx < B * E * P], 1)
+        return count.reshape(B, E, P)
+    G, JC, t = g.lanes, g.jc, np.arange(g.threads)
+    gl, cj, grp = t & (G - 1), (t // G) & (JC - 1), t // (G * JC)
+    k0 = np.zeros_like(t)
+    for r in range(ER_EPT.bit_length() - 1):
+        o, h = 1 << r, ER_EPT >> (r + 1)
+        if o >= G:
+            break
+        k0 += np.where(gl & o, h, 0)
+    blk = np.arange(g.blocks)
+    jc, bt = blk % g.n_jc, blk // g.n_jc
+    b, e0 = bt // g.n_tiles, bt % g.n_tiles * g.te
+    ne, j0 = np.minimum(g.te, E - e0), jc * JC
+    nj = np.minimum(JC, P - j0)
+    ep = g.threads // (G * JC) * ER_EPT
+    for p0 in range(0, g.te, ep):
+        for i in range(ER_EPT // G):
+            r = p0 + grp[None, :] * ER_EPT + k0[None, :] + i               # (blocks, threads)
+            ok = (p0 < ne[:, None]) & (r < ne[:, None]) & (cj[None, :] < nj[:, None])
+            out = ((b[:, None] * E + e0[:, None] + r) * P + j0[:, None] + cj[None, :])
+            np.add.at(count, out[ok], 1)
+    return count.reshape(B, E, P)
+
+
+def test_edge_relax_grid_takes_every_width():
+    """Every P from 1 to 300 (past the 240 at which the kernel once raised),
+    1, 2 and 8 planes, edge counts from one up, SM counts of 132 and 1: a
+    launch shape the kernel accepts (a power of two of lanes, at most P,
+    ER_MAX_LANES and ER_EPT, an even number of classes each for P = 8, 16,
+    32, 64; whole edge groups of lanes x classes in a block; whole warps, at
+    most 256 threads; whole passes), shared memory within a block's 227 KB,
+    and every (b, e, j) output stored by exactly one thread of one block."""
+    for P in range(1, 301):
+        for B, E, n_sm in ((1, 1, 132), (2, 13, 132), (8, 100, 132), (1, 37, 1)):
+            g = edge_relax_grid(B, E, P, n_sm)
+            assert g.lanes > 0 and g.smem <= SMEM_LIMIT
+            grp = g.lanes * g.jc
+            assert g.lanes & (g.lanes - 1) == 0 and g.lanes <= min(P, ER_MAX_LANES, ER_EPT)
+            if P in (8, 16, 32, 64):
+                assert (P // g.lanes) % 2 == 0
+            assert grp & (grp - 1) == 0 and g.threads % grp == 0
+            assert g.threads % 32 == 0 and g.threads <= ER_MAX_THREADS
+            assert g.te % (g.threads // grp * ER_EPT) == 0
+            assert (g.n_tiles - 1) * g.te < E <= g.n_tiles * g.te
+            assert (g.n_jc - 1) * g.jc < P <= g.n_jc * g.jc
+            assert g.blocks == B * g.n_tiles * g.n_jc
+            assert g.smem == edge_smem(P, g.lanes, g.jc, g.te)
+            assert (_edge_relax_stores(B, E, P, g) == 1).all(), (P, B, E, n_sm, g)
+
+
+@pytest.mark.parametrize("B,E,P", [(1, 5, 2048), (3, 9, 2049), (1, 2, 5000)])
+def test_edge_relax_grid_past_the_staged_widths(B, E, P):
+    """Up to P = 2048 a staged launch fits a block's shared memory; above it
+    the grid is one thread per output, each stored once."""
+    g = edge_relax_grid(B, E, P, 132)
+    assert (g.lanes > 0) == (P <= 2048)
+    assert g.smem <= SMEM_LIMIT
+    assert (_edge_relax_stores(B, E, P, g) == 1).all()
+
+
+def test_launch_sweep_times_the_default_launch():
+    """``repro_torch.launch_sweep`` times only shapes the kernel accepts, and
+    at ``chip_smoke.py``'s timed shapes the launch ``edge_relax_grid`` picks
+    is among them."""
+    from repro_torch import launch_sweep
+
+    for i, (B, E, P) in enumerate(launch_sweep.EDGE_SHAPES):
+        cands = list(launch_sweep.shapes(P, E, ER_EPT, ER_MAX_LANES,
+                                         lambda G, jc, threads, te: edge_smem(P, G, jc, te)))
+        g = edge_relax_grid(B, E, P, 132)
+        assert i >= 3 or (g.lanes, g.jc, g.threads, g.te) in cands
+        for G, jc, threads, te in cands:
+            assert G & (G - 1) == 0 and G <= ER_MAX_LANES and (G * jc) & (G * jc - 1) == 0
+            assert threads % 32 == 0 and threads % (G * jc) == 0
+            assert te % (threads // (G * jc) * ER_EPT) == 0
 
 
 def test_seg_level_profile_anchors_match_the_kernel():
