@@ -104,7 +104,20 @@ Phases (any failure exits non-zero; nothing is caught):
      ``compressed_psum`` over 2 pod ranks spawned on the card (gloo), 64 MiB
      of float32 each, bit-equal to its formula in plain PyTorch on the card,
      and ``ef_quantize``'s invariant over 50 rounds; h4, g3 with the
-     ``Trainer`` on ``make_test_mesh``;
+     ``Trainer`` on ``make_test_mesh``; h5, the dense family's tensor- and
+     sequence-parallel ``ShardedTrainStep`` at granite-3-8b's widths cut to
+     2 layers, (B, S) = (2, 4096), on a (data 1, model 4) mesh of 4 gloo
+     ranks spawned on the card (the sequence, the heads, the 8 kv heads and
+     the MLP's columns split; the vocabulary of 49155 does not): its first
+     step's loss and grad norm within 1e-5 and 1e-4 of the one-device step
+     on the card from the same seeded weights and batches in float32 (TF32
+     off), within g1's 5e-2 in bf16; each rank's peak memory beside the
+     one-device step's, and the step's ms (gloo on one card: not a speed);
+     h6, the ZeRO-3 ``ShardedTrainStep`` the other families run, on h1's
+     (data 1, model 1) NCCL mesh: mamba2-2.7b at its published widths cut
+     to 2 layers and mixtral-8x22b's smoke config, (B, S) = (2, 4096), two
+     steps each within 1e-5 (loss) and 1e-4 (grad norm) of the one-device
+     step on the card from the same seeded weights and batches;
   i. the analysis tools on the card's own runs, after every timed phase:
      i1, ``launch.dryrun``'s trace of g2's exact cell (minicpm-2b as
      published, (B, S) = (2, 4096), float32 weights and moments) on a
@@ -117,7 +130,13 @@ Phases (any failure exits non-zero; nothing is caught):
      beside i1 and i2 through the dry-run's command line, granite-3-8b
      ``train_4k`` as published on the (16, 16) production mesh of 256 fake
      ranks: the record ``ok``, collective bytes > 0, this rank's laid-out
-     state equal to ``analytic_bytes_per_device``, and the trace's seconds;
+     state equal to ``analytic_bytes_per_device``, argument + temp bytes
+     below the card's memory, the temp at most twice the reference's XLA
+     compile count of the same cell on 256 fake host devices
+     (15,465,583,616 bytes), the collective bytes a device at most that
+     count's (546,732,035,224), the product FLOPs equal to the tensor-parallel
+     step's hand count (``hand_train_flops``) and at most a twelfth of the
+     ZeRO-3 step's, and the trace's seconds;
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -185,6 +204,7 @@ from repro_torch.models import build, transformer  # noqa: E402
 from repro_torch.models.common import init_params, tree_leaves, tree_to  # noqa: E402
 from repro_torch.models.common import sorted_leaves  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
+from repro_torch.models.tensor_parallel import hand_train_flops  # noqa: E402
 from repro_torch.optim import grad_compress  # noqa: E402
 from repro_torch.optim.adamw import tree_map_sorted  # noqa: E402
 from repro_torch.optim.grad_compress import compressed_psum  # noqa: E402
@@ -293,6 +313,16 @@ G3_STEPS, G3_FAIL, G3_SLOW = 8, 6, {6: (0, 2.5), 7: (0, 2.5), 8: (0, 2.5)}
 H1_STEPS = 2
 H2_LAYERS, H2_STAGES, H2_MICRO, H2_B, H2_S, H2_SEED = 8, 4, 4, 8, 512, 11
 H3_PODS, H3_NUMEL, H3_ROUNDS, H3_SEED = 2, 16 * 2**20, 50, 13
+# h5 the dense tensor-parallel step at granite-3-8b's widths cut to 2 layers,
+# (B, S), on a (data 1, model 4) mesh of 4 gloo ranks sharing the card;
+# the first step compared with the one-device step, the second timed
+H5_LAYERS, H5_B, H5_S, H5_MESH, H5_SEED, H5_STEPS = 2, 2, 4096, (1, 4), 17, 2
+H5_BOUNDS = {"float32": (1e-5, 1e-4), "bfloat16": (5e-2, 5e-2)}  # loss, grad norm (g1's)
+# h6 the ZeRO-3 step of the other families on h1's (data 1, model 1) mesh:
+# an SSM at its published widths cut to F1_LAYERS layers and a MoE at its
+# smoke config (published, it outgrows the card with its optimizer state),
+# (B, S), steps against the one-device step
+H6_ARCHS, H6_B, H6_S, H6_SEED = (("mamba2-2.7b", False), ("mixtral-8x22b", True)), 2, 4096, 19
 # bytes the AdamW update moves a float32 parameter: parameter, gradient and
 # both moments read, parameter and moments written
 ADAMW_BYTES_PER_PARAM = 28
@@ -308,6 +338,19 @@ I1_FLOPS_OVER_HAND = (1.0, 1.10)
 I2_DECODE_CACHE = E2_PROMPTS[0] + E2_NEW
 I3_ARCH, I3_CELL, I3_MESH = "granite-3-8b", "train_4k", "single"
 I3_TIMEOUT_S = 600
+# i3 beside the reference's XLA compile count of the same cell on 256 fake
+# host devices (python -m repro.launch.dryrun --arch granite-3-8b --cell
+# train_4k --mesh single, on the CPU; jax 0.4.37 and 0.9.0 give the same
+# temp): its temp, its collective bytes a device (each op weighted by its
+# loops' trips, an all-reduce twice its result) and the collective ops of
+# its HLO by kind (each op once, not its executions); and the port's ZeRO-3
+# trace of the cell before the dense family's step went tensor-parallel
+# (product FLOPs)
+I3_REFERENCE_TEMP_BYTES = 15_465_583_616
+I3_REFERENCE_COLLECTIVE_BYTES = 546_732_035_224
+I3_REFERENCE_COLLECTIVE_OPS = {"all-gather": 55, "all-reduce": 14, "collective-permute": 14,
+                               "all-to-all": 12}
+I3_ZERO3_FLOPS = 4.7125e15
 
 
 def log(*args):
@@ -1993,10 +2036,187 @@ def compressed_psum_phase(device) -> dict:
     return out
 
 
+def h5_config(dtype: str):
+    return dataclasses.replace(configs.get(LM_ARCH), n_layers=H5_LAYERS, compute_dtype=dtype)
+
+
+def h5_steps(step, opt, params, batches, sync) -> list:
+    """``H5_STEPS`` steps, each timed between a barrier (``sync``) and a
+    synchronize; the loss, grad norm and ms of each."""
+    state = opt.init(params)
+    rows = []
+    for batch in batches:
+        sync()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        rows.append(dict(loss=loss, grad_norm=gn, ms=(time.perf_counter() - t) * 1e3))
+    return rows
+
+
+def tensor_parallel_rank(rank, world, init, tmp, device):
+    """One rank of phase h5 on a gloo group sharing the card: per compute
+    type, the weights made on the card from the seed and laid out on the
+    (data 1, model 4) mesh, ``H5_STEPS`` ``ShardedTrainStep``s (the dense
+    tensor-parallel step) and the rank's peak memory over them."""
+    torch.cuda.set_device(0)
+    tf32_off()
+    init_group("gloo", rank, world, init)
+    mesh = make_mesh(H5_MESH, ("data", "model"), device_type=device)
+    out = dict(backend=dist.get_backend(), world=dist.get_world_size())
+    for dtype in H5_BOUNDS:
+        cfg = h5_config(dtype)
+        model = build(cfg)
+        step, opt, sh = build_train(model, mesh, G2_STEPS, G2_PEAK_LR)
+        params = model.init(torch.Generator(device).manual_seed(H5_SEED), device)
+        params = tree_map_sorted(distribute, params, sh["params"])
+        in_sh = input_shardings(model.input_specs(ShapeCell("h5", H5_S, H5_B, "train")), mesh)
+        data = SyntheticLM(DataConfig(cfg.vocab, H5_S, H5_B, H5_SEED))
+        batches = [data.sharded_batch(i, in_sh) for i in range(H5_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows = h5_steps(step, opt, params, batches, dist.barrier)
+        out[dtype] = dict(steps=rows, max_memory_allocated=torch.cuda.max_memory_allocated())
+        del params, batches, step, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def tensor_parallel_phase(device) -> dict:
+    """Phase h5: the dense family's tensor- and sequence-parallel train step
+    at granite-3-8b's published widths cut to H5_LAYERS layers, (B, S) =
+    (H5_B, H5_S), on a (data 1, model 4) mesh of 4 gloo ranks spawned on
+    the card (NCCL refuses two ranks on one card; the stream's collectives
+    cross through host copies), so the sequence, the heads (the 8 kv heads
+    too), the MLP's columns all split, and the vocabulary (49155) does not.
+    Against the one-device ``TrainStep`` on the card from the same seeded
+    weights and batches: the first step's loss and grad norm within 1e-5
+    and 1e-4 relative in float32 (TF32 off), within g1's bf16 bound in
+    bf16.  Each rank's peak memory beside the one-device step's; the
+    second step's ms, gloo on one card, is not a speed."""
+    tf32_off()
+    one = {}
+    for dtype in H5_BOUNDS:
+        cfg = h5_config(dtype)
+        model = build(cfg)
+        step, opt, _ = build_train(model, None, G2_STEPS, G2_PEAK_LR)
+        params = model.init(torch.Generator(device).manual_seed(H5_SEED), device)
+        data = SyntheticLM(DataConfig(cfg.vocab, H5_S, H5_B, H5_SEED))
+        batches = [data.device_batch(i, device) for i in range(H5_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows = h5_steps(step, opt, params, batches, torch.cuda.synchronize)
+        one[dtype] = dict(steps=rows, max_memory_allocated=torch.cuda.max_memory_allocated())
+        del params, batches, step, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(tensor_parallel_rank, math.prod(H5_MESH), tmp, device, timeout=600.0)
+    out = dict(arch=LM_ARCH, layers=H5_LAYERS, batch=[H5_B, H5_S], mesh=list(H5_MESH),
+               backend=ranks[0]["backend"], world=ranks[0]["world"])
+    for dtype, (b_loss, b_gn) in H5_BOUNDS.items():
+        want = one[dtype]["steps"][0]
+        errs = [dict(loss=abs(r[dtype]["steps"][0]["loss"] - want["loss"]) / abs(want["loss"]),
+                     grad_norm=abs(r[dtype]["steps"][0]["grad_norm"] - want["grad_norm"])
+                     / abs(want["grad_norm"])) for r in ranks]
+        out[dtype] = dict(
+            rel_err=errs, bounds=dict(loss=b_loss, grad_norm=b_gn),
+            losses=[[s["loss"] for s in r[dtype]["steps"]] for r in ranks],
+            one_device_losses=[s["loss"] for s in one[dtype]["steps"]],
+            grad_norms=[[s["grad_norm"] for s in r[dtype]["steps"]] for r in ranks],
+            one_device_grad_norms=[s["grad_norm"] for s in one[dtype]["steps"]],
+            rank_max_memory_allocated=[r[dtype]["max_memory_allocated"] for r in ranks],
+            one_device_max_memory_allocated=one[dtype]["max_memory_allocated"],
+            gloo_on_one_card_step_ms=[[s["ms"] for s in r[dtype]["steps"]] for r in ranks],
+            one_device_step_ms=[s["ms"] for s in one[dtype]["steps"]])
+        check(all(math.isfinite(x) for r in ranks for s in r[dtype]["steps"]
+                  for x in (s["loss"], s["grad_norm"])), f"h5 {dtype}: a step is not finite")
+        check(all(e["loss"] <= b_loss and e["grad_norm"] <= b_gn for e in errs),
+              f"h5 {dtype}: the tensor-parallel step is off the one-device step by {errs} "
+              f"(bounds {b_loss}, {b_gn})")
+        o = out[dtype]
+        log(f"phase h5: {LM_ARCH} at its published widths cut to {H5_LAYERS} layers, (B, S) = "
+            f"({H5_B}, {H5_S}), {dtype}, the tensor-parallel step on a (data, model) = "
+            f"{H5_MESH} mesh of {out['world']} {out['backend']} ranks on the card: step 1 off "
+            f"the one-device step by loss {max(e['loss'] for e in errs):.3e}, grad norm "
+            f"{max(e['grad_norm'] for e in errs):.3e} (bounds {b_loss}, {b_gn}); losses "
+            f"{o['losses'][0]} (one device {o['one_device_losses']}); peak by rank "
+            f"{o['rank_max_memory_allocated']} bytes (one device "
+            f"{o['one_device_max_memory_allocated']}); step ms by rank, gloo on one card, not "
+            f"a speed: {[[round(t, 1) for t in r] for r in o['gloo_on_one_card_step_ms']]} "
+            f"(one device {[round(t, 1) for t in o['one_device_step_ms']]})")
+    return out
+
+
+def h6_steps(model, mesh, device) -> list:
+    """``H1_STEPS`` steps of ``build_train(model, mesh)`` (the one-device
+    step where ``mesh`` is None) from ``H6_SEED``'s weights and batches on
+    the card: the loss and grad norm of each.  A meshed step must have taken
+    the ZeRO-3 path (it keeps no tensor-parallel plan)."""
+    cfg = model.cfg
+    step, opt, sh = build_train(model, mesh, G2_STEPS, G2_PEAK_LR)
+    params = model.init(torch.Generator(device).manual_seed(H6_SEED), device)
+    data = SyntheticLM(DataConfig(cfg.vocab, H6_S, H6_B, H6_SEED))
+    if mesh is None:
+        batches = [data.device_batch(i, device) for i in range(H1_STEPS)]
+    else:
+        params = tree_map_sorted(distribute, params, sh["params"])
+        in_sh = input_shardings(model.input_specs(ShapeCell("h6", H6_S, H6_B, "train")), mesh)
+        batches = [data.sharded_batch(i, in_sh) for i in range(H1_STEPS)]
+    state = opt.init(params)
+    rows = []
+    for batch in batches:
+        params, state, m = step(params, state, batch)
+        rows.append(dict(loss=m["loss"].item(), grad_norm=m["grad_norm"].item()))
+    if mesh is not None:
+        check(not step._plans, f"h6: {cfg.name}'s meshed step took the tensor-parallel path")
+    del params, state, batches, step, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def zero3_phase(device) -> dict:
+    """Phase h6: the ZeRO-3 ``ShardedTrainStep`` that every family but the
+    dense one runs on a mesh, on a (data 1, model 1) mesh of this process's
+    one-rank NCCL world (h1's): each of ``H6_ARCHS`` from the same seeded
+    weights and batches as the one-device step on the card, every loss
+    within 1e-5 relative and grad norm within 1e-4 (one rank computes what
+    the one-device step computes)."""
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    out = {}
+    for arch, smoke in H6_ARCHS:
+        cfg = configs.get(arch, smoke=smoke)
+        if not smoke:
+            cfg = dataclasses.replace(cfg, n_layers=F1_LAYERS)
+        check(cfg.family != "dense", f"h6: {arch} is dense, its meshed step tensor-parallel")
+        model = build(cfg)
+        one, meshed = h6_steps(model, None, device), h6_steps(model, mesh, device)
+        errs = [dict(loss=abs(r["loss"] - w["loss"]) / abs(w["loss"]),
+                     grad_norm=abs(r["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"]))
+                for r, w in zip(meshed, one)]
+        check(all(math.isfinite(x) for r in meshed for x in r.values()),
+              f"h6 {arch}: a step is not finite")
+        check(all(e["loss"] <= 1e-5 and e["grad_norm"] <= 1e-4 for e in errs),
+              f"h6 {arch}: the ZeRO-3 step is off the one-device step by {errs}")
+        out[arch] = dict(family=cfg.family, layers=cfg.n_layers, smoke=smoke, steps=meshed,
+                         one_device_steps=one, rel_err=errs)
+        log(f"phase h6: {arch} ({cfg.family}{', smoke config' if smoke else ''}, {cfg.n_layers} "
+            f"layers), (B, S) = ({H6_B}, {H6_S}), the ZeRO-3 step on a (data 1, model 1) mesh, "
+            f"backend {dist.get_backend()}: losses {[r['loss'] for r in meshed]}, grad norms "
+            f"{[r['grad_norm'] for r in meshed]}, off the one-device step by {errs} (bounds "
+            f"1e-5, 1e-4)")
+    return out
+
+
 def distributed_path(device, g2: dict) -> dict:
     """Phase h: the distribution substrate on the card (h1 in this
     process's one-rank NCCL world, which h4 reuses through
-    ``make_test_mesh``; h2 and h3 in spawned gloo worlds)."""
+    ``make_test_mesh`` and h6 through a mesh of its own; h2, h3 and h5 in
+    spawned gloo worlds)."""
     init_group("nccl")
     try:
         h1 = meshed_full_width(device, g2)
@@ -2006,9 +2226,11 @@ def distributed_path(device, g2: dict) -> dict:
         h4.update(backend=dist.get_backend(), world=dist.get_world_size())
         log(f"phase h4: the meshed Trainer ran on backend {h4['backend']}, world "
             f"{h4['world']}, mesh {h4['mesh']}")
+        h5 = tensor_parallel_phase(device)
+        h6 = zero3_phase(device)
     finally:
         dist.destroy_process_group()
-    return dict(h1=h1, h2=h2, h3=h3, h4=h4)
+    return dict(h1=h1, h2=h2, h3=h3, h4=h4, h5=h5, h6=h6)
 
 
 def start_i3(out: str) -> subprocess.Popen:
@@ -2064,12 +2286,45 @@ def analysis_phase(device, g2: dict, e2: dict) -> dict:
           f"i3: laid-out state {i3['state_bytes_laid_out']} bytes, analytic "
           f"{i3['state_bytes_per_device']}")
     i3["wall_s"] = i3_wall
-    log(f"phase i3: {I3_ARCH} {I3_CELL} on the {i3['mesh_shape']} mesh of "
-        f"{math.prod(i3['mesh_shape'].values())} fake ranks: trace {i3['lower_s']} s "
+    mem, flops = i3["memory_analysis"], i3["cost_analysis"]["flops"]
+    shape = i3["mesh_shape"]
+    i3_cfg, i3_cell = configs.get(I3_ARCH), configs.SHAPES[I3_CELL]
+    # the baseline profile: the batch on data; the sequence, heads and MLP on
+    # model; the vocabulary on model where it divides (granite's does not)
+    n = shape["model"]
+    hand = hand_train_flops(i3_cfg, i3_cell.global_batch, i3_cell.seq_len, dict(
+        batch=shape["data"], seq=n, qkv=n, ffn=n, vocab=n if i3_cfg.vocab % n == 0 else 1))
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    coll = i3["collectives"]
+    i3.update(hand_flops=hand, card_bytes=card_bytes,
+              reference_temp_bytes=I3_REFERENCE_TEMP_BYTES,
+              temp_over_reference=mem["temp_size_in_bytes"] / I3_REFERENCE_TEMP_BYTES,
+              reference_collective_bytes_per_device=I3_REFERENCE_COLLECTIVE_BYTES,
+              reference_collective_ops=I3_REFERENCE_COLLECTIVE_OPS,
+              collectives_over_reference=coll["collective_bytes_per_device"]
+              / I3_REFERENCE_COLLECTIVE_BYTES)
+    log(f"phase i3: {I3_ARCH} {I3_CELL} on the {shape} mesh of "
+        f"{math.prod(shape.values())} fake ranks: trace {i3['lower_s']} s "
         f"({i3_wall:.1f} s in all, beside i1 and i2), state "
         f"{i3['state_bytes_per_device']} bytes a device as analytic, memory "
-        f"{i3['memory_analysis']}, cost {i3['cost_analysis']}, collectives "
-        f"{i3['collectives']}")
+        f"{mem}, cost {i3['cost_analysis']}, collectives {coll}: "
+        f"{coll['collective_bytes_per_device']:.0f} bytes a device, "
+        f"{i3['collectives_over_reference']:.4f} x the reference's "
+        f"{I3_REFERENCE_COLLECTIVE_BYTES} (its HLO's ops {I3_REFERENCE_COLLECTIVE_OPS}); temp "
+        f"{mem['temp_size_in_bytes']} bytes a device, {i3['temp_over_reference']:.4f} x the "
+        f"reference's {I3_REFERENCE_TEMP_BYTES} (its XLA compile count on 256 fake host "
+        f"devices); argument + temp {mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']} "
+        f"bytes against the card's {card_bytes}; product FLOPs {flops:.6e}, the hand count "
+        f"{hand:.6e}, {I3_ZERO3_FLOPS / flops:.2f} x under the ZeRO-3 step's {I3_ZERO3_FLOPS:.4e}")
+    check(mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] < card_bytes,
+          f"i3: {mem} does not fit the card's {card_bytes} bytes")
+    check(mem["temp_size_in_bytes"] <= 2 * I3_REFERENCE_TEMP_BYTES,
+          f"i3: temp {mem['temp_size_in_bytes']} above twice the reference's")
+    check(flops == hand and flops <= I3_ZERO3_FLOPS / 12,
+          f"i3: {flops} product FLOPs, the hand count {hand}")
+    check(coll["collective_bytes_per_device"] <= I3_REFERENCE_COLLECTIVE_BYTES,
+          f"i3: {coll['collective_bytes_per_device']} collective bytes a device, above the "
+          f"reference's {I3_REFERENCE_COLLECTIVE_BYTES}")
     return dict(i1=i1, i2=i2, i3=i3, card=card)
 
 

@@ -42,17 +42,20 @@ _FACTOR = {"all-reduce": 2.0}
 
 
 def collective_stats(events: Iterable[tuple[str, torch.dtype, int]], n_devices: int) -> dict:
-    """Per-device and global collective bytes and the executions of each
-    kind, from ``CostCounter.collectives`` events."""
-    per_device = 0.0
+    """Per-device and global collective bytes, the per-device bytes of each
+    kind and the executions of each kind, from ``CostCounter.collectives``
+    events."""
+    by_kind: Counter = Counter()
     counts: Counter = Counter()
     for kind, dtype, numel in events:
         if kind not in COLLECTIVES:
             continue
-        per_device += numel * DTYPE_BYTES[dtype] * _FACTOR.get(kind, 1.0)
+        by_kind[kind] += numel * DTYPE_BYTES[dtype] * _FACTOR.get(kind, 1.0)
         counts[kind] += 1
+    per_device = float(sum(by_kind.values()))
     return {
         "collective_bytes": per_device * n_devices,
         "collective_bytes_per_device": per_device,
+        "collective_bytes_per_device_by_kind": dict(by_kind),
         "op_counts": dict(counts),
     }

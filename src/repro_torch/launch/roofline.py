@@ -19,7 +19,13 @@ the reference:
 Training probes run the scalarised probe's value and its gradients
 (``torch.autograd`` in place of ``jax.value_and_grad``); remat="full" adds
 one forward per layer with the reference's approximation (a third of the
-probe's figures).
+probe's figures).  A probe runs as the port's step runs that layer: the
+dense family's train probes call the layer code of the tensor-parallel step
+(``models.tensor_parallel``: parameters gathered over their embed axes,
+this rank's heads, columns and vocabulary, the stream's collectives), and
+sum their gradients into the parameters' layouts as it does; every other
+probe gathers its parameters whole, as the ZeRO-3, prefill and decode steps
+do.
 
 Per device: the counter counts this rank's local ops below the ``DTensor``
 layer, so ``flops`` and ``coll`` are one device's, as XLA's are under SPMD.
@@ -55,10 +61,12 @@ from ..configs.base import ArchConfig, ShapeCell
 from ..models.common import (PSpec, ShardingProfile, abstract_params, active_profile,
                              param_shardings, profile_names, resolve_profile, resolve_spec,
                              sharding_profile, sorted_leaves, torch_dtype)
-from ..models.layers import attn_decode, attn_specs, mlp, mlp_specs, qkv_proj, rmsnorm, \
-    rmsnorm_spec
+from ..models.layers import (attn_decode, attn_out, attn_specs, mlp, mlp_specs, qkv_proj,
+                             rmsnorm, rmsnorm_spec)
 from ..models.moe import moe, moe_specs
 from ..models.ssm import _causal_conv, _segsum, ssd_decode, ssm_specs
+from ..models.tensor_parallel import TensorParallel, plan_train
+from ..models.transformer import _xent_chunk, embed_tokens, model_specs
 from ..substrate import (CostCounter, Sharding, full_value, local_value, mesh_context,
                          reduce_over)
 from .dryrun import laid_out
@@ -122,15 +130,20 @@ def _split_axes(shardings, mesh) -> tuple[str, ...]:
 
 
 def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", n_params: int = 0,
-                   grad: bool = False, rows_only: tuple[int, ...] = ()) -> dict:
+                   grad: bool = False, rows_only: tuple[int, ...] = (),
+                   tp: TensorParallel | None = None, param_specs=None) -> dict:
     """Trace ``fn`` once on fake ``DTensor``s laid out by ``shardings`` on
-    ``mesh``, as the port's sharded step (ZeRO-3) runs a layer: the first
-    ``n_params`` arguments (parameter trees) all-gathered to their full
-    values, the arguments ``rows_only`` on their batch rows (as the decode
-    step gathers its cache), every other argument on this rank's shards; a
-    gradient probe's parameter gradients reduce-scattered back into their
-    layouts over the mesh axes that split the other arguments.  Returns
-    per-device product flops, unfused and fusion-ideal bytes, and
+    ``mesh``, as the port's sharded step runs a layer.  Without ``tp`` (the
+    ZeRO-3 step, every family but the dense one): the first ``n_params``
+    arguments (parameter trees) all-gathered to their full values, the
+    arguments ``rows_only`` on their batch rows (as the decode step gathers
+    its cache), every other argument on this rank's shards; a gradient
+    probe's parameter gradients reduce-scattered back into their layouts
+    over the mesh axes that split the other arguments.  With ``tp`` (the
+    dense family's tensor-parallel step): the parameter tree (of the PSpecs
+    ``param_specs``) in its working layout and its gradients summed from
+    there into the parameters' layouts, as ``ShardedTrainStep`` does.
+    Returns per-device product flops, unfused and fusion-ideal bytes, and
     collective bytes."""
     # the outputs' global shapes, for the fusion-ideal bytes
     outs = fn(*(_traced(a, s, lambda m, _: torch.empty_like(m))
@@ -142,11 +155,17 @@ def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", n_params: in
         laid = [_traced(a, s, lambda m, sh: laid_out(m, sh, device))
                 for a, s in zip(args, shardings)]
         with counter:
-            local = [_tree(full_value if i < n_params else
-                           _batch_rows if i in rows_only else local_value, a)
-                     for i, a in enumerate(laid)]
-            out = fn(*local)
-            if grad and n_params:
+            if tp is not None:
+                layouts = tp.layouts(param_specs)
+                local = [tp.working(laid[0], layouts)] + [_tree(local_value, a) for a in laid[1:]]
+            else:
+                local = [_tree(full_value if i < n_params else
+                               _batch_rows if i in rows_only else local_value, a)
+                         for i, a in enumerate(laid)]
+            out = fn(*local) if tp is None else fn(*local, tp=tp)
+            if grad and tp is not None:
+                tp.reduce_grads(out[1][0], laid[0], layouts)
+            elif grad and n_params:
                 axes = _split_axes(shardings[n_params:], mesh)
                 for g, p in zip(out[1][0], sorted_leaves(laid[0])):
                     reduce_over(g, mesh, axes, p.placements)
@@ -169,11 +188,13 @@ class Probe:
     grad: bool = False  # trace the value and its gradients instead of fn
     n_params: int = 0   # leading arguments that are parameter trees
     rows_only: tuple[int, ...] = ()  # arguments traced on their batch rows only
+    tp: TensorParallel | None = None  # the dense train step's plan
+    param_specs: dict | None = None   # the parameter tree's PSpecs, with tp
 
 
 def _scalarize(fn):
-    def wrapped(*args):
-        out = fn(*args)
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
         leaves = [x for x in sorted_leaves(out) if isinstance(x, torch.Tensor)]
         return sum(torch.sum(x.float()) for x in leaves)
     return wrapped
@@ -183,10 +204,10 @@ def _value_and_grad(fn, argnums):
     """``fn``'s value and its gradients with respect to the tensors of the
     arguments ``argnums`` (one list per argument, in ``sorted_leaves``
     order), as ``jax.value_and_grad`` gives them."""
-    def wrapped(*args):
+    def wrapped(*args, **kw):
         wrt = [sorted_leaves(args[i]) for i in argnums]
         flat = [t.requires_grad_(True) for group in wrt for t in group]
-        val = fn(*args)
+        val = fn(*args, **kw)
         grads = iter(torch.autograd.grad(val, flat, allow_unused=True,
                                          materialize_grads=True))
         return val.detach(), [[next(grads) for _ in group] for group in wrt]
@@ -220,6 +241,12 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
 
     x_sh = _sh(mesh, (B, S, D), ("batch", "seq", "none"))
     x_abs = _abs((B, S, D), bf16)
+    # the dense family trains tensor-parallel (launch.steps.ShardedTrainStep):
+    # its probes run the step's layer code on this rank's working shards,
+    # and on whole tensors (tp=None) for their outputs' global shapes
+    plan = None
+    if train and cfg.family == "dense":
+        plan = plan_train(cfg, model_specs(cfg), mesh, (B, S))
 
     def add(name, fn, params_specs, extra_args, extra_sh, trips, grad, argnums=(0, 1),
             rows_only=()):
@@ -227,19 +254,20 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
         p_sh = param_shardings(params_specs, mesh)
         g = _value_and_grad(_scalarize(fn), argnums) if grad else fn
         probes.append(Probe(name, g, (p_abs,) + extra_args, (p_sh,) + extra_sh, trips, grad,
-                            n_params=1, rows_only=rows_only))
+                            n_params=1, rows_only=rows_only, tp=plan,
+                            param_specs=params_specs if plan is not None else None))
 
     # ---------------------------------------------------------- attention
     if n_attn and not decode:
         specs = {"norm": rmsnorm_spec(D), **attn_specs(cfg)}
 
-        def attn_proj(p, x):
+        def attn_proj(p, x, tp=None):
             h = rmsnorm(p["norm"], x, cfg.norm_eps)
-            q, k, v = qkv_proj(p, h, cfg, None)
-            Bx, Sx = x.shape[:2]
-            ctx = torch.repeat_interleave(v, cfg.n_heads // cfg.n_kv_heads, dim=2)
-            out = ctx.reshape(Bx, Sx, -1) @ p["wo"].to(x.dtype)
-            return x + out
+            if tp is not None:
+                h = tp.gather_seq(h)
+            q, k, v = qkv_proj(p, h, cfg, None, tp)
+            ctx = torch.repeat_interleave(v, q.shape[2] // v.shape[2], dim=2)
+            return x + attn_out(p, ctx.flatten(2), tp)
 
         add("attn_proj", attn_proj, specs, (x_abs,), (x_sh,), n_attn, train)
 
@@ -382,8 +410,8 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
     if n_mlp:
         specs = {"norm": rmsnorm_spec(D), **mlp_specs(cfg)}
 
-        def mlp_block(p, x):
-            return x + mlp(p, rmsnorm(p["norm"], x, cfg.norm_eps), cfg)
+        def mlp_block(p, x, tp=None):
+            return x + mlp(p, rmsnorm(p["norm"], x, cfg.norm_eps), cfg, tp)
 
         add("mlp_block", mlp_block, specs, (tok_abs,), (tok_sh,), n_mlp, train)
     if n_moe:
@@ -412,14 +440,10 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
         hc = _abs((B, c, D), bf16)
         lc = _abs((B, c), i32)
 
-        def loss_chunk(p, h, l):
-            logits = (h @ p["unembed"].to(h.dtype)).float()
-            lse = torch.logsumexp(logits, dim=-1)
-            # the gather on (tokens, vocab) rows: DTensor's vocab-parallel
-            # gather takes a 2-d table
-            gold = torch.gather(logits.reshape(-1, logits.shape[-1]), -1,
-                                l.long().reshape(-1, 1)).reshape(l.shape)
-            return torch.sum(lse - gold)
+        untied = dataclasses.replace(cfg, tie_embeddings=False)  # the probe's (D, V) table
+
+        def loss_chunk(p, h, l, tp=None):
+            return _xent_chunk(p, untied, h, l, tp)[0]
 
         add("loss_chunk", loss_chunk, spec,
             (hc, lc), (_sh(mesh, hc.shape, ("batch", "none", "none")),
@@ -428,8 +452,8 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
 
         tok = _abs((B, S), i32)
 
-        def emb(p, t):
-            return F.embedding(t, p["embed"]).to(bf16)
+        def emb(p, t, tp=None):
+            return embed_tokens(p, cfg, t, tp=tp)
 
         add("embed", emb, emb_spec, (tok,),
             (_sh(mesh, tok.shape, ("batch", "seq")),), 1, train, argnums=(0,))
@@ -471,7 +495,7 @@ def _analyze_cell(cfg: ArchConfig, cell: ShapeCell, mesh, prof: ShardingProfile,
     totals = {"flops": 0.0, "bytes": 0.0, "bytes_hlo": 0.0, "coll": 0.0}
     for pr in build_probes(cfg, cell, mesh):
         st = _compile_stats(pr.fn, pr.args, pr.shardings, mesh, device, pr.n_params, pr.grad,
-                            pr.rows_only)
+                            pr.rows_only, pr.tp, pr.param_specs)
         comps[pr.name] = {**st, "trips": pr.trips, "grad": pr.grad}
         for k in totals:
             totals[k] += st[k] * pr.trips

@@ -5,28 +5,42 @@ Without a mesh a step runs eagerly on the parameters' device, gradients from
 ``torch.autograd`` and the optimizer writing in place (the reference donates).
 
 On a mesh the state lives as ``DTensor``s laid out by ``Model.shardings``
-and ``AdamW.moment_specs`` (FSDP over ``data`` under the baseline profile),
-and :class:`ShardedTrainStep` runs ZeRO-3 style:
+and ``AdamW.moment_specs`` (FSDP over ``data`` under the baseline profile).
+:class:`ShardedTrainStep` splits the dense family's compute over the mesh as
+the reference's ``LOGICAL_RULES`` lay it out (``models.tensor_parallel``):
 
-  1. all-gather each parameter to its full value (``full_tensor``);
-  2. gather each input's sequence back (the batch stays split over the axes
-     ``input_shardings`` gives it, ``("pod", "data")`` under the baseline)
-     and compute the loss and its gradients on this rank's rows;
-  3. weight the rows' loss by their share (the cross-entropy by valid
-     labels, the MoE term by rows) so the per-rank values sum, over the
-     batch axes, to the whole batch's mean loss;
-  4. reduce-scatter each gradient over the batch axes into its parameter's
-     layout (``reduce_over``);
+  1. gather each parameter over its ``embed`` axes only (its working
+     layout; a q / k / v weight whose heads do not split, whole); the
+     ``qkv``, ``ffn`` and ``vocab`` shards stay on their ranks;
+  2. take each input's own shard: this rank's batch rows and sequence slice,
+     the residual stream; each block gathers the normed stream's sequence,
+     runs its column-parallel products on this rank's heads and columns and
+     reduce-scatters its row-parallel partial sums back into the slice; the
+     embedding and the cross-entropy are vocab-parallel where the
+     vocabulary splits;
+  3. weight the rank's loss by its share of the valid labels (and by one
+     over the ranks that hold the same tokens) so the per-rank values sum,
+     over the mesh, to the whole batch's mean loss; the collectives are
+     differentiated as their adjoints under that sum, so one
+     ``torch.autograd.grad`` gives each working gradient;
+  4. sum each working gradient over the mesh axes its layout does not split
+     into its parameter's layout (``reduce_over``: a reduce-scatter over
+     ``data`` for a weight, an all-reduce over every axis for a norm);
   5. the global norm: each leaf's sum of squares over its shards, one
      all-reduce of the vector of leaves over each mesh axis (a replicated
      shard counted once), then the float32 sum in the reference's leaf
      order;
   6. ``AdamW.apply`` on each rank's shards, in place.
 
-So the ``model`` axis shards storage, not compute: every rank of a data
-group computes the same rows.  Tensor-parallel compute on it is a ROADMAP
-item.  ``abstract_state`` and ``abstract_cache`` give the state and the
-cache as ``meta`` tensors for the dry-run (``launch.dryrun``).
+The other families (MoE, SSM, hybrid, encoder-decoder, VLM) run ZeRO-3
+instead: every parameter gathered whole, each rank computing its batch
+rows' whole sequence, each gradient reduce-scattered over the batch axes;
+so their ``model`` axis shards storage, not compute.  That is a choice by
+family, not a fallback: their expert, SSM and cross-attention layouts are
+later slices (ROADMAP).  The prefill and decode steps gather every
+parameter, for every family.  ``abstract_state`` and ``abstract_cache``
+give the state and the cache as ``meta`` tensors for the dry-run
+(``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -37,9 +51,10 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs.base import ArchConfig, ShapeCell
-from ..models.common import (abstract_params, param_shardings, resolve_spec, sorted_leaves,
-                             torch_dtype, tree_map_pspec)
+from ..models.common import (abstract_params, active_profile, param_shardings, resolve_spec,
+                             sorted_leaves, torch_dtype, tree_map_pspec)
 from ..models.model import Model
+from ..models.tensor_parallel import TensorParallel, plan_train
 from ..optim import AdamW, AdamWState, for_config
 from ..optim.adamw import tree_map_sorted
 from ..substrate import (Sharding, distribute, full_value, local_value, psum,
@@ -119,14 +134,61 @@ def _rows(name: str, x) -> tuple[torch.Tensor, tuple[str, ...]]:
         return x.redistribute(x.device_mesh, keep).to_local(), axes
 
 
+def _stream_rows(x, sharding: Sharding) -> torch.Tensor:
+    """This rank's shard of input ``x`` laid out by ``sharding`` (a
+    ``DTensor`` redistributed there, a whole tensor sliced)."""
+    if not isinstance(x, DTensor):
+        return sharding.local(x)
+    with torch.no_grad():
+        return x.redistribute(x.device_mesh, sharding.placements).to_local()
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardedTrainStep(TrainStep):
-    """The train step on a mesh (the module docstring's ZeRO-3 design)."""
+    """The train step on a mesh: tensor- and sequence-parallel for the
+    dense family, ZeRO-3 for the others (the module docstring)."""
     mesh: Any = None
+    _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def loss_and_grads(self, params, batch):
         """The whole batch's loss (the same on every rank) and its
         gradients, each a ``DTensor`` laid out as its parameter."""
+        if self.model.cfg.family == "dense":
+            return self._tensor_parallel(params, batch)
+        return self._zero3(params, batch)
+
+    def plan(self, labels) -> tuple[TensorParallel, list]:
+        """The dense step's plan for a batch of ``labels``' (global) shape
+        under the active profile, and its working layouts in sorted leaf
+        order: made at the first step of that shape and kept."""
+        key = (tuple(labels.shape), active_profile().name)
+        if key not in self._plans:
+            specs = self.model.specs()
+            tp = plan_train(self.model.cfg, specs, self.mesh, key[0])
+            self._plans[key] = (tp, tp.layouts(specs))
+        return self._plans[key]
+
+    def _tensor_parallel(self, params, batch):
+        mesh, model = self.mesh, self.model
+        tp, layouts = self.plan(batch["labels"])
+        work = tp.working(params, layouts)
+        rows = {k: _stream_rows(batch[k], tp.stream) for k in ("tokens", "labels")}
+
+        def over_mesh(x):
+            for ax in tp.mesh_axes:
+                x = psum(x, ax, mesh=mesh)
+            return x
+        valid = (rows["labels"] >= 0).sum().float()
+        share = valid / torch.clamp(over_mesh(valid) / tp.replicas, min=1.0) / tp.replicas
+        leaves = sorted_leaves(work)
+        for w in leaves:
+            w.requires_grad_(True)
+        part = model.loss_terms(work, rows, tp)[0] * share    # the dense family has no aux term
+        grads = torch.autograd.grad(part, leaves, allow_unused=True, materialize_grads=True)
+        sharded = iter(tp.reduce_grads(grads, params, layouts))
+        return over_mesh(part.detach()), tree_map_sorted(lambda _: next(sharded), params)
+
+    def _zero3(self, params, batch):
         mesh = self.mesh
         full = gathered(params)
         rows, axes = {}, ()
@@ -162,7 +224,7 @@ class ShardedTrainStep(TrainStep):
         coord = mesh.get_coordinate()
         parts = []
         for g in sorted_leaves(grads):
-            owner = all(c == 0 or p.is_shard() for c, p in zip(coord, g.placements))
+            owner = all(c == 0 or not p.is_replicate() for c, p in zip(coord, g.placements))
             sq = torch.sum(torch.square(local_value(g).float()))
             parts.append(sq if owner else torch.zeros_like(sq))
         per_leaf = torch.stack(parts)

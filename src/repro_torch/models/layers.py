@@ -104,13 +104,19 @@ def attn_specs(cfg: ArchConfig) -> dict:
     }
 
 
-def qkv_proj(p, x, cfg: ArchConfig, cos_sin=None):
-    """x (B,S,D) -> q (B,S,Hq,hd), k,v (B,S,Hkv,hd), RoPE applied."""
+def qkv_proj(p, x, cfg: ArchConfig, cos_sin=None, tp=None):
+    """x (B,S,D) -> q (B,S,Hq,hd), k,v (B,S,Hkv,hd), RoPE applied.  The head
+    counts come from the weights' widths, so on a mesh (``tp``, a
+    ``TensorParallel``) they are this rank's heads; k and v there take the kv
+    heads this rank's q heads use."""
     B, S, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, hq, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, hkv, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, hkv, hd)
+    hd = cfg.hd
+    wk, wv = p["wk"], p["wv"]
+    if tp is not None:
+        wk, wv = tp.kv_heads(wk, hd), tp.kv_heads(wv, hd)
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, -1, hd)
+    k = (x @ wk.to(x.dtype)).reshape(B, S, -1, hd)
+    v = (x @ wv.to(x.dtype)).reshape(B, S, -1, hd)
     if cos_sin is not None:
         cos, sin = cos_sin
         q = apply_rope(q, cos, sin)
@@ -184,16 +190,30 @@ def chunked_attention(
     return out[:, :, :, :Sq]
 
 
-def attn_prefill(p, x, cfg: ArchConfig, cos_sin, *, window: int = 0, causal=True):
-    """Full-sequence attention; returns (out, (k, v)) for cache seeding."""
+def attn_prefill(p, x, cfg: ArchConfig, cos_sin, *, window: int = 0, causal=True, tp=None):
+    """Full-sequence attention; returns (out, (k, v)) for cache seeding.  On
+    a mesh (``tp``) ``x`` and ``out`` are this rank's slice of the stream:
+    the sequence is gathered, this rank's heads attend over all of it, and
+    the output projection's partial sums come back into the slice."""
+    if tp is not None:
+        x = tp.gather_seq(x)
     B, S, D = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = qkv_proj(p, x, cfg, cos_sin)
+    hd = cfg.hd
+    q, k, v = qkv_proj(p, x, cfg, cos_sin, tp)
+    hq, hkv = q.shape[2], k.shape[2]
     qh = q.reshape(B, S, hkv, hq // hkv, hd).movedim(1, 3)  # (B,Hkv,G,S,hd)
     out = chunked_attention(qh, k, v, causal=causal, window=window)
     out = out.movedim(3, 1).reshape(B, S, hq * hd)
-    out = out @ p["wo"].to(x.dtype)
-    return out, (k, v)
+    return attn_out(p, out, tp), (k, v)
+
+
+def attn_out(p, ctx, tp=None):
+    """The output projection of the attention output ``ctx`` (B, S, Hq·hd);
+    on a mesh, this rank's rows of ``wo`` on its columns of ``ctx``, summed
+    into the stream."""
+    if tp is None:
+        return ctx @ p["wo"].to(ctx.dtype)
+    return tp.to_stream(tp.head_cols(ctx) @ p["wo"].to(ctx.dtype), tp.qkv_axes)
 
 
 def attn_decode(p, x, cfg: ArchConfig, cache, pos: int, cos_sin, *, window: int = 0):
@@ -242,10 +262,17 @@ def mlp_specs(cfg: ArchConfig, d_ff: int | None = None) -> dict:
     }
 
 
-def mlp(p, x, cfg: ArchConfig):
+def mlp(p, x, cfg: ArchConfig, tp=None):
+    """The MLP; on a mesh (``tp``) ``x`` and the output are this rank's
+    slice of the stream, the hidden layer its columns of the whole
+    sequence."""
+    if tp is not None:
+        x = tp.gather_seq(x)
     if cfg.mlp_style == "swiglu":
         h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wu"].to(x.dtype))
-        return h @ p["wd"].to(x.dtype)
-    # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(x @ p["w1"].to(x.dtype), approximate="tanh")
-    return h @ p["w2"].to(x.dtype)
+        y = h @ p["wd"].to(x.dtype)
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(x @ p["w1"].to(x.dtype), approximate="tanh")
+        y = h @ p["w2"].to(x.dtype)
+    return y if tp is None else tp.to_stream(y, tp.ffn_axes)

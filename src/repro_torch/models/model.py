@@ -42,11 +42,16 @@ class Model:
         xent, aux = self.loss_terms(params, batch)
         return xent + aux
 
-    def loss_terms(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    def loss_terms(self, params, batch, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
         """The loss's two terms apart: the cross-entropy's mean over the
         valid labels, and the MoE load-balance term (a mean over batch
-        rows and token groups; zero without experts)."""
+        rows and token groups; zero without experts).  ``tp`` (a
+        ``TensorParallel``, the dense family only): ``params`` are this
+        rank's working shards and ``batch`` its slice of the stream, and the
+        mean is over its own labels."""
         cfg = self.cfg
+        if tp is not None and cfg.family != "dense":
+            raise ValueError(f"a tensor-parallel loss for the {cfg.family} family")
         if cfg.family == "encdec":
             return encdec.loss(params, cfg, batch["frames"], batch["tokens"], batch["labels"])
         hidden, aux, _ = transformer.forward_full(
@@ -54,8 +59,9 @@ class Model:
             tokens=batch.get("tokens"),
             embeds=batch.get("embeds"),
             positions=batch.get("positions"),
+            tp=tp,
         )
-        return transformer.xent_loss(params, cfg, hidden, batch["labels"]), aux
+        return transformer.xent_loss(params, cfg, hidden, batch["labels"], tp), aux
 
     def prefill(self, params, batch):
         """Returns (per-layer cache stacked over periods, last-token logits);

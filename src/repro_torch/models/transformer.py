@@ -105,11 +105,21 @@ def layer_params(tree, i: int):
 
 
 # ---------------------------------------------------------------------- forward
-def embed_tokens(params, cfg: ArchConfig, tokens=None, embeds=None):
+def embed_tokens(params, cfg: ArchConfig, tokens=None, embeds=None, tp=None):
+    """The input stream in the compute type.  On a mesh (``tp``) the tokens
+    and the result are this rank's slice of the stream; where the vocabulary
+    splits, each rank looks up the tokens of its rows of the table over the
+    whole sequence, and the partial rows are summed into the slice."""
     dtype = torch_dtype(cfg.compute_dtype)
     if embeds is not None:
         return embeds.to(dtype)
-    return params["embed"][tokens.long()].to(dtype)
+    if tp is None or not tp.vocab_axes:
+        return params["embed"][tokens.long()].to(dtype)
+    table = params["embed"]
+    idx = tp.gather_seq(tokens).long() - tp.vocab_rows(cfg.vocab).start
+    ours = (idx >= 0) & (idx < table.shape[0])
+    x = torch.where(ours[..., None], table[idx.clamp(0, table.shape[0] - 1)].to(dtype), 0)
+    return tp.to_stream(x, tp.vocab_axes)
 
 
 def unembed(params, cfg: ArchConfig, x):
@@ -117,15 +127,17 @@ def unembed(params, cfg: ArchConfig, x):
     return (x @ w.to(x.dtype)).float()
 
 
-def _period_fwd(cfg: ArchConfig, pp, x, cos_sin):
-    """Full-seq forward through one period; returns (x, aux, cache_updates)."""
+def _period_fwd(cfg: ArchConfig, pp, x, cos_sin, tp=None):
+    """Full-seq forward through one period; returns (x, aux, cache_updates).
+    On a mesh (``tp``, the dense family) ``x`` is this rank's slice of the
+    stream."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_out = {}
     for i, (mixer, channel) in enumerate(cfg.layer_pattern()):
         b = pp[f"pos{i}"]
         h = rmsnorm(b["norm1"], x, cfg.norm_eps)
         if mixer == "attn":
-            a, (k, v) = attn_prefill(b["attn"], h, cfg, cos_sin, window=cfg.window)
+            a, (k, v) = attn_prefill(b["attn"], h, cfg, cos_sin, window=cfg.window, tp=tp)
             cache_out[f"pos{i}"] = {"k": k, "v": v}
         else:
             a, cache_out[f"pos{i}"] = ssd_prefill(b["ssm"], h, cfg)
@@ -133,7 +145,7 @@ def _period_fwd(cfg: ArchConfig, pp, x, cos_sin):
         if channel != "none":
             h2 = rmsnorm(b["norm2"], x, cfg.norm_eps)
             if channel == "mlp":
-                x = x + mlp(b["mlp"], h2, cfg)
+                x = x + mlp(b["mlp"], h2, cfg, tp)
             else:
                 y, a_loss = moe(b["moe"], h2, cfg)
                 x = x + y
@@ -148,13 +160,16 @@ def _uses_rope(cfg: ArchConfig) -> bool:
 
 
 def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
-                 positions=None, want_cache: bool = False):
+                 positions=None, want_cache: bool = False, tp=None):
     """Training / prefill forward.  Returns (hidden (B,S,D), aux, cache|None);
     the cache holds each period position's entries stacked over periods:
     (periods, B, S, Hkv, hd) K and V, or the SSM state and conv tail.  It
-    writes nothing in place, so autograd runs through it."""
-    x = embed_tokens(params, cfg, tokens, embeds)
-    B, S, _ = x.shape
+    writes nothing in place, so autograd runs through it.  On a mesh
+    (``tp``, a ``TensorParallel``; the dense family's train step) the tokens
+    and the hidden states are this rank's slice of the stream, and RoPE's
+    angles are the whole sequence's."""
+    x = embed_tokens(params, cfg, tokens, embeds, tp)
+    B, S = x.shape[0], x.shape[1] * (1 if tp is None else tp.parts(tp.seq_axes))
     cos_sin = None
     if _uses_rope(cfg):
         if positions is None:
@@ -164,7 +179,7 @@ def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     caches = []
     for i in range(cfg.n_layers // cfg.period):
         x, a, cache = checkpointed(_period_fwd, cfg, layer_params(params["blocks"], i), x,
-                                   cos_sin, enabled=cfg.remat == "full")
+                                   cos_sin, tp, enabled=cfg.remat == "full")
         aux = aux + a
         if want_cache:
             caches.append(cache)
@@ -212,32 +227,53 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
 
 
 # ------------------------------------------------------------------------- loss
-def _xent_chunk(params, cfg: ArchConfig, h, labels):
+def _xent_chunk(params, cfg: ArchConfig, h, labels, tp=None, valid=None):
     """One sequence chunk's summed cross-entropy and its count of valid
-    labels (label -1 is padding), from float32 logits."""
+    labels, from float32 logits.  ``valid`` marks the labels counted (default:
+    those not -1, the padding).  Where a mesh (``tp``) splits the vocabulary,
+    ``h`` and ``labels`` are the same on every rank of the vocab axes, each
+    rank its columns of the logits: the softmax's max and sum and the gold
+    logit are summed over those axes."""
     logits = unembed(params, cfg, h)                                  # (B,c,V) fp32
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
-    valid = (labels >= 0).float()
+    if tp is None or not tp.vocab_axes:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    else:
+        m = tp.vocab_max(logits.detach().amax(dim=-1))
+        lse = torch.log(tp.vocab_sum(torch.exp(logits - m[..., None]).sum(dim=-1))) + m
+        idx = labels.long() - tp.vocab_rows(cfg.vocab).start
+        ours = (idx >= 0) & (idx < logits.shape[-1])
+        own = torch.gather(logits, -1, idx.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+        gold = tp.vocab_sum(torch.where(ours, own, 0.0))
+    valid = (labels >= 0 if valid is None else valid).float()
     return ((lse - gold) * valid).sum(), valid.sum()
 
 
-def xent_loss(params, cfg: ArchConfig, hidden, labels):
+def xent_loss(params, cfg: ArchConfig, hidden, labels, tp=None):
     """Chunked softmax cross-entropy: the (B, S, V) logits are never
     materialized; each sequence chunk computes its own float32 logits, and
     the backward pass recomputes them chunk by chunk (the reference's
-    ``jax.checkpoint`` of its scan step)."""
+    ``jax.checkpoint`` of its scan step).  On a mesh (``tp``) ``hidden`` and
+    ``labels`` are this rank's slice of the stream and the mean is over its
+    labels; a split vocabulary gathers the sequence and counts this rank's
+    labels only."""
+    valid = labels >= 0
+    if tp is not None and tp.vocab_axes:
+        valid = tp.pad_seq(labels) >= 0
+        hidden, labels = tp.gather_seq(hidden), tp.gather_seq(labels)
     B, S, D = hidden.shape
     c = min(cfg.loss_chunk, S)
     pad = (-S) % c
     if pad:
         hidden = F.pad(hidden, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
+        valid = F.pad(valid, (0, pad), value=False)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range((S + pad) // c):
-        loss, n = checkpointed(_xent_chunk, params, cfg, hidden[:, i * c:(i + 1) * c],
-                               labels[:, i * c:(i + 1) * c])
+        chunk = slice(i * c, (i + 1) * c)
+        loss, n = checkpointed(_xent_chunk, params, cfg, hidden[:, chunk], labels[:, chunk], tp,
+                               valid[:, chunk])
         tot = tot + loss
         cnt = cnt + n
     return tot / torch.clamp(cnt, min=1.0)

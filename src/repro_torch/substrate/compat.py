@@ -294,14 +294,20 @@ def local_value(x) -> torch.Tensor:
 
 
 def reduce_over(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
-                placements: Sequence) -> DTensor:
+                placements: Sequence, layout: Sequence | None = None,
+                shape: Sequence[int] | None = None) -> DTensor:
     """Sum the per-rank values ``x`` over the mesh axes ``axes`` and lay the
     sum out by ``placements``: a reduce-scatter where a placement shards,
-    an all-reduce where it replicates.  Ranks that differ only in the other
-    axes must hold the same ``x``."""
-    partial = [Partial() if ax in axes else Replicate() for ax in mesh.mesh_dim_names]
-    return DTensor.from_local(x, mesh, partial, run_check=False).redistribute(
-        mesh, tuple(placements))
+    an all-reduce where it replicates.  On the other axes ``x`` is laid out
+    by ``layout`` (one placement per mesh axis; default replicated: ranks
+    that differ only there hold the same ``x``), a tensor of global
+    ``shape`` (default: ``x``'s own, as a replicated layout has it)."""
+    layout = layout or [Replicate()] * mesh.ndim
+    src = [Partial() if ax in axes else p for ax, p in zip(mesh.mesh_dim_names, layout)]
+    shape = tuple(shape) if shape is not None else tuple(x.shape)
+    stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+    return DTensor.from_local(x, mesh, src, run_check=False, shape=shape,
+                              stride=stride).redistribute(mesh, tuple(placements))
 
 
 # ------------------------------------------------------------------ constrain
@@ -426,6 +432,129 @@ def ppermute(x: torch.Tensor, axis: str, perm: Sequence[tuple[int, int]], *,
         for req in dist.batch_isend_irecv(p2p):
             req.wait()
     return recv.to(x.device) if staged else recv
+
+
+# ------------------------------------------- collectives under autograd
+# A tensor-parallel step computes each rank's share of one loss: the whole
+# loss is the sum of every rank's part.  So each collective below is
+# differentiable with its adjoint under that sum: an all-gather's backward
+# is a reduce-scatter, a reduce-scatter's an all-gather, an all-reduce's an
+# all-reduce.  A tuple of mesh axes splits a dimension as ``local_slices``
+# does, its first-named axis the major one.
+def _gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    wire = (x.cpu() if _staged(x, group) else x).contiguous()
+    out = wire.new_empty((n * wire.shape[0],) + tuple(wire.shape[1:]))
+    dist.all_gather_into_tensor(out, wire, group=group)
+    return out.to(x.device).unflatten(0, (n, -1)).movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    parts = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(dim, 0)
+    wire = (parts.cpu() if _staged(x, group) else parts).contiguous()
+    out = wire.new_empty(wire.shape[1:])
+    dist.reduce_scatter_tensor(out, wire.flatten(0, 1), group=group)
+    return out.to(x.device)
+
+
+def _sum_over(x: torch.Tensor, groups, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    for group in groups:
+        wire = x.cpu() if _staged(x, group) else x.clone()
+        dist.all_reduce(wire, op=op, group=group)
+        x = wire.to(x.device)
+    return x
+
+
+class _GatherOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups, dim):
+        ctx.groups, ctx.dim = groups, dim
+        for group in reversed(groups):
+            x = _gather_dim(x, group, dim)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for group in ctx.groups:
+            g = _scatter_dim(g, group, ctx.dim)
+        return g, None, None
+
+
+class _ScatterOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups, dim):
+        ctx.groups, ctx.dim = groups, dim
+        for group in groups:
+            x = _scatter_dim(x, group, dim)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for group in reversed(ctx.groups):
+            g = _gather_dim(g, group, ctx.dim)
+        return g, None, None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _sum_over(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.groups), None
+
+
+def _axis_groups(mesh: DeviceMesh, axes: Sequence[str]) -> tuple:
+    return tuple(mesh.get_group(ax) for ax in axes)
+
+
+def gather_over(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
+                dim: int) -> torch.Tensor:
+    """Every rank's ``x`` over the mesh axes ``axes``, joined along ``dim``
+    in chunk order (an all-gather an axis, the minor one first); its
+    backward is the reduce-scatter.  No axes: ``x`` itself."""
+    if not axes:
+        return x
+    return _GatherOver.apply(x, _axis_groups(mesh, axes), dim % x.dim())
+
+
+def scatter_over(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
+                 dim: int) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axes``, of which this rank keeps
+    its chunk along ``dim`` (a reduce-scatter an axis, the major one first);
+    its backward is the all-gather.  No axes: ``x`` itself."""
+    if not axes:
+        return x
+    return _ScatterOver.apply(x, _axis_groups(mesh, axes), dim % x.dim())
+
+
+def sum_over(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axes`` (an all-reduce an axis);
+    its backward is the same sum of the gradients.  No axes: ``x`` itself."""
+    if not axes:
+        return x
+    return _SumOver.apply(x, _axis_groups(mesh, axes))
+
+
+@torch.no_grad()
+def max_over(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch.Tensor:
+    """The elementwise maximum of every rank's ``x`` over ``axes``, outside
+    autograd."""
+    return _sum_over(x, _axis_groups(mesh, axes), dist.ReduceOp.MAX) if axes else x
+
+
+def chunk_of(n: int, mesh: DeviceMesh, axes: Sequence[str]) -> slice:
+    """This rank's chunk of ``n`` elements split evenly over ``axes``."""
+    parts, idx = 1, 0
+    for ax in axes:
+        size = mesh.size(list(mesh.mesh_dim_names).index(ax))
+        parts *= size
+        idx = idx * size + mesh.get_local_rank(ax)
+    step = n // parts
+    return slice(idx * step, (idx + 1) * step)
 
 
 # ------------------------------------------------------------- cost analysis

@@ -30,6 +30,9 @@ import torch.multiprocessing as mp  # noqa: E402
 PIPE_B, PIPE_S = 8, 16
 SMOKE = dict(seq_len=32, global_batch=8, kind="train")
 PSUM_N = 4096
+# a family each whose meshed train step is ZeRO-3 (the dense family's is
+# tensor-parallel): MoE, SSM, hybrid
+ZERO3_ARCHS = ("mixtral-8x22b", "mamba2-2.7b", "jamba-v0.1-52b")
 
 
 # ------------------------------------------------------------------ spawning
@@ -74,7 +77,8 @@ def pipe_cfg(layers: int):
 # ------------------------------------------------------------- four ranks
 def four_rank_job(rank, world, init, tmp, ref):
     """On a 4-rank gloo group: the pipeline at 1 and 2 layers a stage; the
-    sharded step on (data 2, model 2); the meshed Trainer with a failure,
+    sharded step on (data 2, model 2), minicpm's (tensor-parallel) and the
+    ZeRO-3 families'; the meshed Trainer with a failure,
     the elastic run's first half and an unresharded run; the reference's
     checkpoint restored onto the mesh and saved again; each rank's rows and
     the round trip of a tuple spec; sharded prefill and decode."""
@@ -104,20 +108,28 @@ def four_rank_job(rank, world, init, tmp, ref):
 
     mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
     cell = ShapeCell("smoke", **SMOKE)
+
+    def meshed_steps(cfg, weights):
+        """Step 1's gradients, then three steps' losses and grad norms of
+        ``build_train(model, mesh)`` from ``weights``, and whether the step
+        took the tensor-parallel path (it keeps a plan) or ZeRO-3."""
+        model = build(cfg)
+        step, opt, sh = build_train(model, mesh, 10, 5e-3)
+        params = params_onto_mesh(weights, sh["params"])
+        state = opt.init(params)
+        in_sh = input_shardings(model.input_specs(cell), mesh)
+        data = SyntheticLM(DataConfig(cfg.vocab, cell.seq_len, cell.global_batch, 0))
+        _, grads = step.loss_and_grads(params, data.sharded_batch(0, in_sh))
+        res = dict(grads=[full_value(g) for g in sorted_leaves(grads)], steps=[])
+        for i in range(3):
+            params, state, m = step(params, state, data.sharded_batch(i, in_sh))
+            res["steps"].append((float(m["loss"]), float(m["grad_norm"])))
+        res["tensor_parallel"] = bool(step._plans)
+        return res
     cfg = smoke_cfg("minicpm-2b")
     model = build(cfg)
-    step, opt, sh = build_train(model, mesh, 10, 5e-3)
-    params = params_onto_mesh(ref["train"], sh["params"])
-    state = opt.init(params)
-    in_sh = input_shardings(model.input_specs(cell), mesh)
-    data = SyntheticLM(DataConfig(cfg.vocab, cell.seq_len, cell.global_batch, 0))
-    _, grads = step.loss_and_grads(params, data.sharded_batch(0, in_sh))
-    out["grads"] = [full_value(g) for g in sorted_leaves(grads)]
-    out["steps"] = []
-    for i in range(3):
-        params, state, m = step(params, state, data.sharded_batch(i, in_sh))
-        out["steps"].append((float(m["loss"]), float(m["grad_norm"])))
-    out["params"] = [full_value(p) for p in sorted_leaves(params)]
+    out.update(meshed_steps(cfg, ref["train"]))
+    out["zero3"] = {arch: meshed_steps(smoke_cfg(arch), w) for arch, w in ref["zero3"].items()}
 
     for name, steps, kw in (("elastic", 6, {}), ("unresharded", 10, {"ckpt_every": 100}),
                             ("failed", 10, {"fail_at_steps": (5,)})):
@@ -128,7 +140,7 @@ def four_rank_job(rank, world, init, tmp, ref):
         out[name] = tr.run()
     out["mesh_shape"] = tuple(tr.mesh.mesh.shape)
 
-    model_sh = build_train(model, mesh)[2]
+    _, opt, model_sh = build_train(model, mesh)
     like = {"params": model.abstract(), "opt": opt.init(model.abstract())}
     got = ckpt.restore(f"{tmp}/ref_ckpt", 3, like, model_sh)
     out["restored_sharded"] = [any(p.is_shard() for p in x.placements) for x in sorted_leaves(got)]
@@ -217,7 +229,8 @@ def ref_state(model, seed: int):
 def reference():
     """The reference's weights and results on the parent's CPU: granite
     smoke (``tests/test_pipeline.py``'s config, and at 8 layers) and its
-    scanned ``forward_full``; minicpm smoke's initial weights; a reference
+    scanned ``forward_full``; the initial weights of minicpm smoke and of
+    the smoke configs of ``ZERO3_ARCHS``; a reference
     checkpoint of a minicpm state; the compressed psum's inputs."""
     import jax.numpy as jnp
     import repro.configs as JC
@@ -234,10 +247,14 @@ def reference():
         pipe[layers] = jax.tree.map(np.asarray, params)
     jcfg = dataclasses.replace(JC.get("minicpm-2b", smoke=True), compute_dtype="float32")
     train, _ = ref_state(jbuild(jcfg), 0)
+    zero3 = {arch: ref_state(jbuild(dataclasses.replace(JC.get(arch, smoke=True),
+                                                        compute_dtype="float32")), 0)[0]
+             for arch in ZERO3_ARCHS}
     state = ref_state(jbuild(jcfg), 1)
     rng = np.random.default_rng(4)
     xs = [(rng.standard_t(3, PSUM_N) * s).astype(np.float32) for s in (0.5, 40.0)]
-    return dict(tokens=tokens, pipe=pipe, hidden=hidden, train=train, state=state, xs=xs)
+    return dict(tokens=tokens, pipe=pipe, hidden=hidden, train=train, state=state, xs=xs,
+                zero3=zero3)
 
 
 @pytest.fixture(scope="module")
@@ -246,7 +263,7 @@ def four(reference, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("four")
     params, opt = reference["state"]
     jckpt.save(tmp / "ref_ckpt", 3, {"params": params, "opt": opt})
-    ref = {k: reference[k] for k in ("tokens", "pipe", "train")}
+    ref = {k: reference[k] for k in ("tokens", "pipe", "train", "zero3")}
     return tmp, spawn(four_rank_job, 4, tmp, ref)
 
 
@@ -312,34 +329,64 @@ def test_compressed_psum_is_bit_equal_to_reference_formula(two, reference):
         np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
-def test_sharded_train_step_matches_one_device_step(four, reference):
-    """(data 2, model 2), minicpm smoke in float32 from the reference's
-    weights: the gradients of step 1 and three steps' losses and grad norms
-    against the port's one-device step on the same batches."""
+def one_device_steps(arch: str, weights):
+    """The port's one-device step in float32 from ``weights`` on the smoke
+    batches: step 1's gradients, then three steps' losses and grad norms."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.interop import params_from_reference
     from repro_torch.launch.steps import build_train
     from repro_torch.models import build
     from repro_torch.models.common import sorted_leaves
-    _, ranks = four
-    cfg = smoke_cfg("minicpm-2b")
+    cfg = smoke_cfg(arch)
     cell = ShapeCell("smoke", **SMOKE)
     step, opt, _ = build_train(build(cfg), None, 10, 5e-3)
-    params = params_from_reference(reference["train"], "cpu")
+    params = params_from_reference(weights, "cpu")
     state = opt.init(params)
     data = SyntheticLM(DataConfig(cfg.vocab, cell.seq_len, cell.global_batch, 0))
     _, grads = step.loss_and_grads(params, data.device_batch(0, "cpu"))
-    want = []
+    steps = []
     for i in range(3):
         params, state, m = step(params, state, data.device_batch(i, "cpu"))
-        want.append((float(m["loss"]), float(m["grad_norm"])))
-    for r in ranks:
-        for got_g, want_g in zip(r["grads"], sorted_leaves(grads)):
+        steps.append((float(m["loss"]), float(m["grad_norm"])))
+    return sorted_leaves(grads), steps
+
+
+def check_meshed_steps(runs: list, grads, steps) -> None:
+    """Each rank's meshed run (``meshed_steps``) against the one-device
+    step's: every gradient leaf within 1e-4 of its largest entry, each
+    loss within 1e-5 and grad norm within 1e-4 relative, the same on every
+    rank."""
+    for r in runs:
+        assert len(r["grads"]) == len(grads)
+        for got_g, want_g in zip(r["grads"], grads):
             assert rel(got_g, want_g) <= 1e-4
-        for (gl, gn), (wl, wn) in zip(r["steps"], want):
+        for (gl, gn), (wl, wn) in zip(r["steps"], steps):
             assert abs(gl - wl) <= 1e-5 * abs(wl) and abs(gn - wn) <= 1e-4 * abs(wn)
-        assert r["steps"] == ranks[0]["steps"]
+        assert r["steps"] == runs[0]["steps"]
+
+
+def test_sharded_train_step_matches_one_device_step(four, reference):
+    """(data 2, model 2), minicpm smoke in float32 from the reference's
+    weights (the dense family: the tensor-parallel step): the gradients of
+    step 1 and three steps' losses and grad norms against the port's
+    one-device step on the same batches."""
+    _, ranks = four
+    assert all(r["tensor_parallel"] for r in ranks)
+    check_meshed_steps(ranks, *one_device_steps("minicpm-2b", reference["train"]))
+
+
+@pytest.mark.parametrize("arch", ZERO3_ARCHS)
+def test_zero3_train_step_matches_one_device_step(four, reference, arch):
+    """(data 2, model 2), a MoE, an SSM and a hybrid smoke config in float32
+    from the reference's weights, through the ZeRO-3 step their families
+    run on a mesh: the gradients of step 1 and three steps' losses and grad
+    norms against the port's one-device step on the same batches, at the
+    tensor-parallel step's bounds."""
+    _, ranks = four
+    runs = [r["zero3"][arch] for r in ranks]
+    assert not any(r["tensor_parallel"] for r in runs)
+    check_meshed_steps(runs, *one_device_steps(arch, reference["zero3"][arch]))
 
 
 def test_recovery_on_a_mesh_reproduces_unfailed_run(four):
