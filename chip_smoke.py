@@ -117,7 +117,16 @@ Phases (any failure exits non-zero; nothing is caught):
      (data 1, model 1) NCCL mesh: mamba2-2.7b at its published widths cut
      to 2 layers and mixtral-8x22b's smoke config, (B, S) = (2, 4096), two
      steps each within 1e-5 (loss) and 1e-4 (grad norm) of the one-device
-     step on the card from the same seeded weights and batches;
+     step on the card from the same seeded weights and batches; h7, the
+     dense family's sharded ``PrefillStep`` and ``DecodeStep`` at
+     granite-3-8b's widths cut to 2 layers on 4 gloo ranks spawned on the
+     card, a (1, 4) mesh under baseline and a (2, 2) mesh under serve (the
+     cache in the decode-SP layout: rows on data, sequence on model):
+     prefill (4, 512), the cache moved into 1024 positions by
+     ``seed_cache``, 16 greedy tokens, float32 with TF32 off, every step's
+     logits within 1e-5 of the one-device steps' on the card and every
+     token identical; each rank's peak beside the one-device run's, the
+     steps' ms (gloo on one card: not a speed);
   i. the analysis tools on the card's own runs, after every timed phase:
      i1, ``launch.dryrun``'s trace of g2's exact cell (minicpm-2b as
      published, (B, S) = (2, 4096), float32 weights and moments) on a
@@ -136,7 +145,18 @@ Phases (any failure exits non-zero; nothing is caught):
      (15,465,583,616 bytes), the collective bytes a device at most that
      count's (546,732,035,224), the product FLOPs equal to the tensor-parallel
      step's hand count (``hand_train_flops``) and at most a twelfth of the
-     ZeRO-3 step's, and the trace's seconds;
+     ZeRO-3 step's, and the trace's seconds; i4, beside i3 in processes of
+     their own, the dense family's sharded serving cells on the same fleet:
+     granite-3-8b ``decode_32k`` as published (argument + temp + output below
+     the card's memory, temp at most twice the reference's XLA count
+     5,664,096,168, collective bytes a device at most 1.5 x its
+     2,096,794,848, product FLOPs equal to ``hand_decode_flops``) and
+     ``prefill_32k`` cut to 4 of its 40 layers (FLOPs equal to
+     ``hand_prefill_flops`` at that depth, collective bytes at most 4/40 of
+     the reference's 140,338,135,088, argument + temp + output below 4/40
+     of the card's memory, temp at most twice the reference's
+     3,619,734,528), each beside the reference's figures and the card's
+     name and power limit;
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -199,12 +219,15 @@ from repro_torch.launch.dryrun import trace_step  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.launch.roofline import HW, analyze_cell  # noqa: E402
 from repro_torch.launch.pipeline import pipeline_forward  # noqa: E402
-from repro_torch.launch.steps import build_train, input_shardings  # noqa: E402
+from repro_torch.launch.steps import (DecodeStep, PrefillStep, build_decode,  # noqa: E402
+                                      build_prefill, build_train, input_shardings,
+                                      seed_cache)
 from repro_torch.models import build, transformer  # noqa: E402
 from repro_torch.models.common import init_params, tree_leaves, tree_to  # noqa: E402
-from repro_torch.models.common import sorted_leaves  # noqa: E402
+from repro_torch.models.common import sharding_profile, sorted_leaves  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
-from repro_torch.models.tensor_parallel import hand_train_flops  # noqa: E402
+from repro_torch.models.tensor_parallel import (hand_decode_flops,  # noqa: E402
+                                                hand_prefill_flops, hand_train_flops)
 from repro_torch.optim import grad_compress  # noqa: E402
 from repro_torch.optim.adamw import tree_map_sorted  # noqa: E402
 from repro_torch.optim.grad_compress import compressed_psum  # noqa: E402
@@ -323,6 +346,13 @@ H5_BOUNDS = {"float32": (1e-5, 1e-4), "bfloat16": (5e-2, 5e-2)}  # loss, grad no
 # smoke config (published, it outgrows the card with its optimizer state),
 # (B, S), steps against the one-device step
 H6_ARCHS, H6_B, H6_S, H6_SEED = (("mamba2-2.7b", False), ("mixtral-8x22b", True)), 2, 4096, 19
+# h7 the dense family's sharded prefill and decode at granite-3-8b's widths
+# cut to H5_LAYERS layers on 4 gloo ranks sharing the card, each mesh under its
+# profile: (B, prompt) prefilled, moved into a cache of H7_CACHE positions,
+# then H7_NEW greedy tokens, float32 with TF32 off, against the one-device
+# steps on the card from the same seeded weights (logits within H7_RTOL)
+H7_MESHES = (((1, 4), "baseline"), ((2, 2), "serve"))
+H7_B, H7_P, H7_CACHE, H7_NEW, H7_SEED, H7_RTOL = 4, 512, 1024, 16, 23, 1e-5
 # bytes the AdamW update moves a float32 parameter: parameter, gradient and
 # both moments read, parameter and moments written
 ADAMW_BYTES_PER_PARAM = 28
@@ -351,6 +381,32 @@ I3_REFERENCE_COLLECTIVE_BYTES = 546_732_035_224
 I3_REFERENCE_COLLECTIVE_OPS = {"all-gather": 55, "all-reduce": 14, "collective-permute": 14,
                                "all-to-all": 12}
 I3_ZERO3_FLOPS = 4.7125e15
+# i4 the dense family's sharded serving cells of granite-3-8b on the same mesh
+# and fleet, each through the dry-run's command line in a process of its own
+# beside i3: decode_32k as published, prefill_32k cut to 4 of its 40 layers
+# (the whole depth traces for about 20 minutes on a CPU; PERF.md records that
+# run), its collective bytes and its argument + temp + output bound scaled by
+# 4/40.  Beside the reference's XLA compile counts of each cell on 256 fake
+# host devices (python -m repro.launch.dryrun --arch granite-3-8b --cell
+# <cell> --mesh single, on the CPU, jax 0.9.0): argument, temp and output
+# bytes a device, collective bytes a device (each op weighted by its loops'
+# trips, an all-reduce twice its result) and its HLO's collective ops by kind;
+# and the port's gathering decode step's figures of decode_32k before the
+# dense family's serving was sharded (its dry-run, the same command)
+I4_CELLS = (("decode_32k", 0), ("prefill_32k", 4))
+I4_REFERENCE = {
+    "decode_32k": dict(argument=2_910_869_540, temp=5_664_096_168, output=2_685_927_584,
+                       collective=2_096_794_848,
+                       ops={"all-gather": 18, "all-reduce": 7, "collective-permute": 4,
+                            "all-to-all": 1}),
+    "prefill_32k": dict(argument=226_531_328, temp=3_619_734_528, output=5_704_646_704,
+                        collective=140_338_135_088,
+                        ops={"all-gather": 17, "all-to-all": 2, "all-reduce": 2,
+                             "collective-permute": 1}),
+}
+I4_TEMP_OVER_REFERENCE = 2.0
+I4_COLLECTIVE_OVER_REFERENCE = {"decode_32k": 1.5, "prefill_32k": 1.0}
+I4_GATHERED_DECODE = dict(temp=1_429_351_793_152, collective=765_624_156_672, flops=4.84e12)
 
 
 def log(*args):
@@ -2212,6 +2268,152 @@ def zero3_phase(device) -> dict:
     return out
 
 
+def h7_config():
+    return dataclasses.replace(configs.get(LM_ARCH), n_layers=H5_LAYERS, compute_dtype="float32")
+
+
+def h7_prompts(cfg, device) -> torch.Tensor:
+    rng = np.random.default_rng(H7_SEED)
+    return torch.as_tensor(rng.integers(0, cfg.vocab, (H7_B, H7_P)), dtype=torch.int32,
+                           device=device)
+
+
+def h7_run(prefill, decode, seed, params, prompts, sync) -> dict:
+    """Prefill ``prompts``, move the cache into the decode cache
+    (``seed``), then ``H7_NEW`` greedy steps: each step's logits (on the
+    host) and tokens, the prefill's ms and each decode step's, each timed
+    between ``sync`` and a synchronize."""
+    sync()
+    t = time.perf_counter()
+    pcache, logits = prefill(params, {"tokens": prompts})
+    cache = seed(pcache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    del pcache
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    steps, decode_ms = [(logits.cpu(), tok.cpu())], []
+    for i in range(H7_NEW):
+        sync()
+        t = time.perf_counter()
+        tok, logits, cache = decode(params, cache, {"tokens": tok[:, None], "pos": H7_P + i})
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+        steps.append((logits.cpu(), tok.cpu()))
+    return dict(steps=steps, prefill_ms=prefill_ms, decode_ms=decode_ms)
+
+
+def serve_rank(rank, world, init, tmp, device):
+    """One rank of phase h7 on a gloo group sharing the card: per mesh and
+    profile, the weights made on the card from the seed and laid out on the
+    mesh, the sharded prefill, ``seed_cache`` and the decode steps, and the
+    rank's peak memory over them."""
+    torch.cuda.set_device(0)
+    tf32_off()
+    init_group("gloo", rank, world, init)
+    model = build(h7_config())
+    prompts = h7_prompts(model.cfg, device)
+    out = dict(backend=dist.get_backend(), world=dist.get_world_size())
+    for shape, profile in H7_MESHES:
+        with sharding_profile(profile):
+            mesh = make_mesh(shape, ("data", "model"), device_type=device)
+            fwd, psh = build_prefill(model, mesh)
+            dec, dsh = build_decode(model, mesh, ShapeCell("h7", H7_CACHE, H7_B, "decode"))
+            params = tree_map_sorted(
+                distribute, model.init(torch.Generator(device).manual_seed(H7_SEED), device),
+                psh["params"])
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run = h7_run(fwd, dec, lambda c: seed_cache(c, dsh["cache"], H7_CACHE), params,
+                         prompts, dist.barrier)
+            (tp, _), = dec._plans.values()
+            out[profile] = dict(run, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                                plan=dict(q_local=tp.q_local, kv_local=tp.kv_local,
+                                          qkv=tp.qkv_axes, cache_rows=tp.cache_row_axes,
+                                          cache_seq=tp.cache_seq_axes))
+            del params, fwd, dec
+            gc.collect()
+            torch.cuda.empty_cache()
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def one_device_cache(model, pcache, device):
+    """The one-device decode cache of ``H7_CACHE`` positions holding the
+    prefill's k, v at positions [0, P), zeros beyond (the engine's seeding)."""
+    cache = init_params(model.cache_specs(H7_B, H7_CACHE), None, device)
+    for pos, entry in cache.items():
+        for n, dst in entry.items():
+            dst[:, :, :pcache[pos][n].shape[2]] = pcache[pos][n]
+    return cache
+
+
+def sharded_serve_phase(device) -> dict:
+    """Phase h7: the dense family's sharded ``PrefillStep`` and
+    ``DecodeStep`` at granite-3-8b's published widths cut to H5_LAYERS
+    layers, float32 (TF32 off), on 4 gloo ranks spawned on the card, on a
+    (data 1, model 4) mesh under the baseline profile (the sequence, the
+    heads and the 8 kv heads on model; the cache's sequence on model) and a
+    (2, 2) mesh under serve (heads, kv heads and the MLP on (model, data), the
+    stream whole, the cache's rows on data and its sequence on model): (B,
+    prompt) = (H7_B, H7_P) prefilled, moved into a cache of H7_CACHE
+    positions by ``seed_cache``, then H7_NEW greedy tokens.  Against the
+    one-device steps on the card from the same seeded weights and prompts:
+    every step's logits within H7_RTOL relative on every rank, every token
+    identical.  Each rank's peak beside the one-device run's; the steps' ms,
+    gloo on one card, are not a speed."""
+    tf32_off()
+    card = smi("name,power.limit")
+    model = build(h7_config())
+    params = model.init(torch.Generator(device).manual_seed(H7_SEED), device)
+    prompts = h7_prompts(model.cfg, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one = h7_run(PrefillStep(model), DecodeStep(model),
+                 lambda c: one_device_cache(model, c, device), params, prompts,
+                 torch.cuda.synchronize)
+    one["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(serve_rank, 4, tmp, device, timeout=600.0)
+    out = dict(arch=LM_ARCH, layers=H5_LAYERS, batch=H7_B, prompt=H7_P, cache=H7_CACHE,
+               new=H7_NEW, card=card, backend=ranks[0]["backend"], world=ranks[0]["world"],
+               one_device=dict(prefill_ms=one["prefill_ms"], decode_ms=one["decode_ms"],
+                               max_memory_allocated=one["max_memory_allocated"]))
+    want_tokens = [tok for _, tok in one["steps"]]
+    for shape, profile in H7_MESHES:
+        errs = [max(rel_err(lg, w) for (lg, _), (w, _) in zip(r[profile]["steps"], one["steps"]))
+                for r in ranks]
+        same = [all(tok.equal(w) for (_, tok), w in zip(r[profile]["steps"], want_tokens))
+                for r in ranks]
+        row = dict(mesh=list(shape), plan=ranks[0][profile]["plan"], rel_err=errs,
+                   tokens_identical=same, bound=H7_RTOL,
+                   rank_max_memory_allocated=[r[profile]["max_memory_allocated"] for r in ranks],
+                   gloo_on_one_card_prefill_ms=[r[profile]["prefill_ms"] for r in ranks],
+                   gloo_on_one_card_decode_ms=[r[profile]["decode_ms"] for r in ranks])
+        out[profile] = row
+        log(f"phase h7: {LM_ARCH} at its published widths cut to {H5_LAYERS} layers, float32, "
+            f"prefill ({H7_B}, {H7_P}) into a {H7_CACHE}-position cache and {H7_NEW} greedy "
+            f"tokens, sharded on a (data, model) = {shape} mesh under {profile} (plan "
+            f"{row['plan']}) of {out['world']} {out['backend']} ranks on the card: logits off "
+            f"the one-device steps by {max(errs):.3e} at most (bound {H7_RTOL}), tokens "
+            f"identical on every rank: {all(same)}; peak by rank "
+            f"{row['rank_max_memory_allocated']} bytes (one device "
+            f"{one['max_memory_allocated']}); ms by rank, gloo on one card, not a speed: "
+            f"prefill {[round(t, 1) for t in row['gloo_on_one_card_prefill_ms']]}, decode "
+            f"mean {[round(sum(t) / len(t), 2) for t in row['gloo_on_one_card_decode_ms']]} "
+            f"(one device: prefill {one['prefill_ms']:.1f}, decode mean "
+            f"{sum(one['decode_ms']) / len(one['decode_ms']):.2f}); card {card}")
+        check(all(math.isfinite(float(lg.abs().max())) for r in ranks
+                  for lg, _ in r[profile]["steps"]), f"h7 {profile}: logits not finite")
+        check(all(e <= H7_RTOL for e in errs),
+              f"h7 {profile}: the sharded steps are off the one-device steps by {errs}")
+        check(all(same), f"h7 {profile}: the sharded steps' tokens differ: {same}")
+    return out
+
+
 def distributed_path(device, g2: dict) -> dict:
     """Phase h: the distribution substrate on the card (h1 in this
     process's one-rank NCCL world, which h4 reuses through
@@ -2228,20 +2430,114 @@ def distributed_path(device, g2: dict) -> dict:
             f"{h4['world']}, mesh {h4['mesh']}")
         h5 = tensor_parallel_phase(device)
         h6 = zero3_phase(device)
+        h7 = sharded_serve_phase(device)
     finally:
         dist.destroy_process_group()
-    return dict(h1=h1, h2=h2, h3=h3, h4=h4, h5=h5, h6=h6)
+    return dict(h1=h1, h2=h2, h3=h3, h4=h4, h5=h5, h6=h6, h7=h7)
 
 
-def start_i3(out: str) -> subprocess.Popen:
-    """Phase i3's trace through the dry-run's command line: granite-3-8b
-    ``train_4k`` as published on the (16, 16) mesh, a fake fleet of 256
-    ranks in a process of its own (a process holds one default group)."""
+def start_dryrun(out: str, cell: str, layers: int = 0) -> subprocess.Popen:
+    """A trace through the dry-run's command line (phases i3 and i4):
+    granite-3-8b's ``cell`` as published (or cut to ``layers`` layers) on
+    the (16, 16) mesh, a fake fleet of 256 ranks in a process of its own (a
+    process holds one default group), its output in ``out/<cell>.log``."""
     root = Path(__file__).resolve().parent
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", I3_ARCH, "--cell",
-           I3_CELL, "--mesh", I3_MESH, "--device", "cuda", "--out", out]
-    return subprocess.Popen(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=str(root / "src")),
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+           cell, "--mesh", I3_MESH, "--device", "cuda", "--out", out, "--layers", str(layers)]
+    with open(Path(out) / f"{cell}.log", "w") as log_file:
+        return subprocess.Popen(cmd, cwd=root, stdout=log_file, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONPATH=str(root / "src")))
+
+
+def finish_dryrun(proc: subprocess.Popen, out: str, cell: str, what: str) -> dict:
+    """Wait for a ``start_dryrun`` process (killed past I3_TIMEOUT_S) and
+    read its record."""
+    try:
+        proc.wait(timeout=I3_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = (Path(out) / f"{cell}.log").read_text()
+    check(proc.returncode == 0, f"{what}: the dry-run exited with {proc.returncode}: "
+          f"{text[-4000:]}")
+    rec = json.loads((Path(out) / f"{I3_ARCH}__{cell}__{I3_MESH}.json").read_text())
+    check(rec["ok"] and rec["collectives"]["collective_bytes"] > 0,
+          f"{what}: ok {rec['ok']}, collectives {rec.get('collectives')}, error "
+          f"{rec.get('error')}")
+    check(rec["state_bytes_laid_out"] == rec["state_bytes_per_device"],
+          f"{what}: laid-out state {rec['state_bytes_laid_out']} bytes, analytic "
+          f"{rec['state_bytes_per_device']}")
+    return rec
+
+
+def baseline_parts(shape: dict, cfg) -> dict:
+    """The ranks each logical axis of the dense family's sharded steps
+    splits over on the (data, model) mesh under the baseline profile: the
+    batch and the cache's rows on data; the sequence, the heads, the MLP and
+    the cache's sequence on model; the vocabulary on model where it divides
+    (granite's does not)."""
+    n = shape["model"]
+    return dict(batch=shape["data"], seq=n, qkv=n, ffn=n, cache_batch=shape["data"],
+                cache_seq=n, vocab=n if cfg.vocab % n == 0 else 1)
+
+
+def check_i4(rec: dict, cell_name: str, layers: int, card_bytes: int, card: str) -> dict:
+    """Phase i4's bounds on one serving cell's record, beside the
+    reference's counts of the whole cell (a depth cut scales the collective
+    bytes and the argument + temp + output bound by its share of the
+    layers; the temp, one layer's working set and the weights gathered
+    once, is held to the whole cell's bound)."""
+    cfg = configs.get(I3_ARCH)
+    share = 1.0
+    if layers:
+        share = layers / cfg.n_layers
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cell = configs.SHAPES[cell_name]
+    shape = rec["mesh_shape"]
+    hand_fn = hand_decode_flops if cell.kind == "decode" else hand_prefill_flops
+    hand = hand_fn(cfg, cell.global_batch, cell.seq_len, baseline_parts(shape, cfg))
+    mem, coll, flops = rec["memory_analysis"], rec["collectives"], rec["cost_analysis"]["flops"]
+    ref = I4_REFERENCE[cell_name]
+    total = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] + \
+        mem["output_size_in_bytes"]
+    out = dict(cell=cell_name, layers=cfg.n_layers, share=share, trace_s=rec["lower_s"],
+               memory=mem, argument_temp_output=total, card_bytes=card_bytes,
+               collective_bytes_per_device=coll["collective_bytes_per_device"],
+               collective_by_kind=coll["collective_bytes_per_device_by_kind"],
+               collective_ops=coll["op_counts"], flops=flops, hand_flops=hand,
+               reference=ref, card=card,
+               temp_over_reference=mem["temp_size_in_bytes"] / ref["temp"],
+               collectives_over_reference=coll["collective_bytes_per_device"]
+               / (ref["collective"] * share))
+    log(f"phase i4: {I3_ARCH} {cell_name}{f' cut to {layers} layers' if layers else ''} on "
+        f"the {shape} mesh of {math.prod(shape.values())} fake ranks, sharded: trace "
+        f"{rec['lower_s']} s; argument {mem['argument_size_in_bytes']} / temp "
+        f"{mem['temp_size_in_bytes']} / output {mem['output_size_in_bytes']} bytes a device "
+        f"(the reference's {ref['argument']} / {ref['temp']} / {ref['output']}; temp "
+        f"{out['temp_over_reference']:.4f} x), argument + temp + output {total} against "
+        f"{card_bytes * share:.0f} (the card's {card_bytes}{' x ' + str(share) if layers else ''}"
+        f"); collective bytes a device {coll['collective_bytes_per_device']:.0f} by kind "
+        f"{coll['collective_bytes_per_device_by_kind']}, ops {coll['op_counts']}, "
+        f"{out['collectives_over_reference']:.4f} x the reference's {ref['collective']}"
+        f"{' x ' + str(share) if layers else ''} (its HLO's ops {ref['ops']}); product FLOPs "
+        f"{flops:.6e}, the hand count {hand:.6e}; card {card}")
+    if cell.kind == "decode":
+        g = I4_GATHERED_DECODE
+        log(f"phase i4: decode_32k before (the gathering step): temp {g['temp']}, collective "
+            f"bytes a device {g['collective']}, FLOPs {g['flops']:.3e}; now "
+            f"{mem['temp_size_in_bytes']}, {coll['collective_bytes_per_device']:.0f}, "
+            f"{flops:.4e} ({g['flops'] / flops:.1f} x fewer)")
+    check(total < card_bytes * share,
+          f"i4 {cell_name}: argument + temp + output {total} above {card_bytes * share}")
+    check(mem["temp_size_in_bytes"] <= I4_TEMP_OVER_REFERENCE * ref["temp"],
+          f"i4 {cell_name}: temp {mem['temp_size_in_bytes']} above "
+          f"{I4_TEMP_OVER_REFERENCE} x the reference's {ref['temp']}")
+    check(out["collectives_over_reference"] <= I4_COLLECTIVE_OVER_REFERENCE[cell_name],
+          f"i4 {cell_name}: collective bytes {out['collectives_over_reference']:.4f} x the "
+          f"reference's, above {I4_COLLECTIVE_OVER_REFERENCE[cell_name]}")
+    check(flops == hand, f"i4 {cell_name}: {flops} product FLOPs, the hand count {hand}")
+    return out
 
 
 def traced_train_flops(cfg, B: int, S: int) -> int:
@@ -2268,32 +2564,28 @@ def analysis_phase(device, g2: dict, e2: dict) -> dict:
     card = smi("name,power.limit")
     with tempfile.TemporaryDirectory() as tmp:
         t3 = time.perf_counter()
-        i3_proc = start_i3(tmp)
+        procs = {}
         try:
+            procs["i3"] = start_dryrun(tmp, I3_CELL)
+            for cell, layers in I4_CELLS:
+                procs[cell] = start_dryrun(tmp, cell, layers)
             i1, i2 = analysis_one_rank(device, g2, e2, card)
-            i3_out, _ = i3_proc.communicate(timeout=I3_TIMEOUT_S)
+            i3 = finish_dryrun(procs["i3"], tmp, I3_CELL, "i3")
+            i3_wall = time.perf_counter() - t3
+            i4 = {cell: finish_dryrun(procs[cell], tmp, cell, f"i4 {cell}")
+                  for cell, _ in I4_CELLS}
+            i4_wall = time.perf_counter() - t3
         finally:
-            if i3_proc.poll() is None:
-                i3_proc.kill()
-                i3_proc.wait()
-        i3_wall = time.perf_counter() - t3
-        check(i3_proc.returncode == 0, f"i3: the dry-run exited with {i3_proc.returncode}: "
-              f"{i3_out[-4000:]}")
-        i3 = json.loads((Path(tmp) / f"{I3_ARCH}__{I3_CELL}__{I3_MESH}.json").read_text())
-    check(i3["ok"] and i3["collectives"]["collective_bytes"] > 0,
-          f"i3: ok {i3['ok']}, collectives {i3.get('collectives')}, error {i3.get('error')}")
-    check(i3["state_bytes_laid_out"] == i3["state_bytes_per_device"],
-          f"i3: laid-out state {i3['state_bytes_laid_out']} bytes, analytic "
-          f"{i3['state_bytes_per_device']}")
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     i3["wall_s"] = i3_wall
     mem, flops = i3["memory_analysis"], i3["cost_analysis"]["flops"]
     shape = i3["mesh_shape"]
     i3_cfg, i3_cell = configs.get(I3_ARCH), configs.SHAPES[I3_CELL]
-    # the baseline profile: the batch on data; the sequence, heads and MLP on
-    # model; the vocabulary on model where it divides (granite's does not)
-    n = shape["model"]
-    hand = hand_train_flops(i3_cfg, i3_cell.global_batch, i3_cell.seq_len, dict(
-        batch=shape["data"], seq=n, qkv=n, ffn=n, vocab=n if i3_cfg.vocab % n == 0 else 1))
+    hand = hand_train_flops(i3_cfg, i3_cell.global_batch, i3_cell.seq_len,
+                            baseline_parts(shape, i3_cfg))
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     coll = i3["collectives"]
     i3.update(hand_flops=hand, card_bytes=card_bytes,
@@ -2325,7 +2617,9 @@ def analysis_phase(device, g2: dict, e2: dict) -> dict:
     check(coll["collective_bytes_per_device"] <= I3_REFERENCE_COLLECTIVE_BYTES,
           f"i3: {coll['collective_bytes_per_device']} collective bytes a device, above the "
           f"reference's {I3_REFERENCE_COLLECTIVE_BYTES}")
-    return dict(i1=i1, i2=i2, i3=i3, card=card)
+    i4 = {cell: check_i4(i4[cell], cell, layers, card_bytes, card) for cell, layers in I4_CELLS}
+    log(f"phase i4: {i4_wall:.1f} s for i3 and i4 beside i1 and i2")
+    return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, card=card)
 
 
 def analysis_one_rank(device, g2: dict, e2: dict, card: str) -> tuple[dict, list]:

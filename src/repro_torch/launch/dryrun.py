@@ -6,6 +6,8 @@ devices).
 
     python -m repro_torch.launch.dryrun --arch glm4-9b --cell train_4k --mesh single
     python -m repro_torch.launch.dryrun --all --out experiments/dryrun      # driver
+    python -m repro_torch.launch.dryrun --arch granite-3-8b --cell prefill_32k \
+        --mesh single --layers 4     # the published widths at 4 layers' depth
 
 The fleet is a ``"fake"`` process group of ``--devices`` ranks (default: the
 mesh's size) that this process stands in for, as rank 0; every collective
@@ -44,6 +46,7 @@ is generated) and ``compile_s`` (nothing is compiled).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -201,11 +204,13 @@ def trace_step(cfg: ArchConfig, cell: ShapeCell, mesh, device: str = "cuda") -> 
 
 
 def run_cell(arch: str, cell_name: str, mesh_kind: str, smoke: bool, out_dir: Path,
-             profile: str = "baseline", device: str = "cuda", devices: int = 0) -> bool:
+             profile: str = "baseline", device: str = "cuda", devices: int = 0,
+             layers: int = 0) -> bool:
     """Trace one cell on a fake fleet of ``devices`` ranks (default: the
-    mesh's size) and write its record; returns whether it traced.  The
-    process joins the fleet as rank 0 unless a default group exists, and
-    leaves a group it joined."""
+    mesh's size) and write its record; returns whether it traced.
+    ``layers`` cuts the architecture's depth (0: as configured; the record's
+    ``n_layers`` says which).  The process joins the fleet as rank 0 unless a
+    default group exists, and leaves a group it joined."""
     joined = False
     if not dist.is_initialized():
         init_group("fake", 0, devices or math.prod(mesh_shape(mesh_kind, smoke)[0]),
@@ -214,15 +219,18 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str, smoke: bool, out_dir: Pa
     try:
         # the profile travels with this cell, not with process-global state
         with sharding_profile(profile):
-            return _run_cell(arch, cell_name, mesh_kind, smoke, out_dir, profile, device)
+            return _run_cell(arch, cell_name, mesh_kind, smoke, out_dir, profile, device,
+                             layers)
     finally:
         if joined:
             dist.destroy_process_group()
 
 
 def _run_cell(arch: str, cell_name: str, mesh_kind: str, smoke: bool, out_dir: Path,
-              profile: str, device: str) -> bool:
+              profile: str, device: str, layers: int = 0) -> bool:
     cfg = C.get(arch, smoke=smoke)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     # smoke: shrink the cells to smoke scale but keep their character
     cell = C.smoke_cell(cell_name) if smoke else C.SHAPES[cell_name]
     shape, axes = mesh_shape(mesh_kind, smoke)
@@ -232,7 +240,7 @@ def _run_cell(arch: str, cell_name: str, mesh_kind: str, smoke: bool, out_dir: P
         "seq_len": cell.seq_len, "global_batch": cell.global_batch,
         "kind": cell.kind, "ok": False,
         "n_params": cfg.n_params(), "n_active_params": cfg.n_active_params(),
-        "device": device,
+        "n_layers": cfg.n_layers, "device": device,
     }
     t0 = time.monotonic()
     try:
@@ -298,6 +306,8 @@ def main():
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="the type of the fake tensors")
     ap.add_argument("--profile", default="baseline", choices=profile_names())
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the architecture's depth to this many layers (0: as configured)")
     ap.add_argument("--out", default="experiments/dryrun")
     args = ap.parse_args()
     if args.all:
@@ -305,7 +315,8 @@ def main():
     if not (args.arch and args.cell and args.mesh in ("single", "multi", "moe")):
         ap.error("--arch, --cell and one --mesh of single, multi, moe (or --all)")
     ok = run_cell(args.arch, args.cell, args.mesh, args.smoke, Path(args.out),
-                  profile=args.profile, device=args.device, devices=args.devices)
+                  profile=args.profile, device=args.device, devices=args.devices,
+                  layers=args.layers)
     sys.exit(0 if ok else 1)
 
 

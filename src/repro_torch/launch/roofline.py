@@ -20,12 +20,13 @@ Training probes run the scalarised probe's value and its gradients
 (``torch.autograd`` in place of ``jax.value_and_grad``); remat="full" adds
 one forward per layer with the reference's approximation (a third of the
 probe's figures).  A probe runs as the port's step runs that layer: the
-dense family's train probes call the layer code of the tensor-parallel step
+dense family's probes call the layer code of its tensor-parallel steps
 (``models.tensor_parallel``: parameters gathered over their embed axes,
-this rank's heads, columns and vocabulary, the stream's collectives), and
-sum their gradients into the parameters' layouts as it does; every other
-probe gathers its parameters whole, as the ZeRO-3, prefill and decode steps
-do.
+this rank's heads, columns and vocabulary, the stream's collectives; the
+train probes sum their gradients into the parameters' layouts, the prefill
+and decode probes gather their weights in the compute type and decode
+attends over this rank's cache shard); every other family's probe gathers
+its parameters whole, as its steps do.
 
 Per device: the counter counts this rank's local ops below the ``DTensor``
 layer, so ``flops`` and ``coll`` are one device's, as XLA's are under SPMD.
@@ -65,8 +66,8 @@ from ..models.layers import (attn_decode, attn_out, attn_specs, mlp, mlp_specs, 
                              rmsnorm, rmsnorm_spec)
 from ..models.moe import moe, moe_specs
 from ..models.ssm import _causal_conv, _segsum, ssd_decode, ssm_specs
-from ..models.tensor_parallel import TensorParallel, plan_train
-from ..models.transformer import _xent_chunk, embed_tokens, model_specs
+from ..models.tensor_parallel import TensorParallel, plan_decode, plan_prefill, plan_train
+from ..models.transformer import _xent_chunk, cache_specs, embed_tokens, model_specs
 from ..substrate import (CostCounter, Sharding, full_value, local_value, mesh_context,
                          reduce_over)
 from .dryrun import laid_out
@@ -131,7 +132,8 @@ def _split_axes(shardings, mesh) -> tuple[str, ...]:
 
 def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", n_params: int = 0,
                    grad: bool = False, rows_only: tuple[int, ...] = (),
-                   tp: TensorParallel | None = None, param_specs=None) -> dict:
+                   tp: TensorParallel | None = None, param_specs=None,
+                   work_dtype: torch.dtype | None = None) -> dict:
     """Trace ``fn`` once on fake ``DTensor``s laid out by ``shardings`` on
     ``mesh``, as the port's sharded step runs a layer.  Without ``tp`` (the
     ZeRO-3 step, every family but the dense one): the first ``n_params``
@@ -140,9 +142,10 @@ def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", n_params: in
     its cache), every other argument on this rank's shards; a gradient
     probe's parameter gradients reduce-scattered back into their layouts
     over the mesh axes that split the other arguments.  With ``tp`` (the
-    dense family's tensor-parallel step): the parameter tree (of the PSpecs
-    ``param_specs``) in its working layout and its gradients summed from
-    there into the parameters' layouts, as ``ShardedTrainStep`` does.
+    dense family's tensor-parallel steps): the parameter tree (of the PSpecs
+    ``param_specs``) in its working layout (gathered in ``work_dtype``, the
+    serving steps' compute type) and a gradient probe's gradients summed
+    from there into the parameters' layouts, as ``ShardedTrainStep`` does.
     Returns per-device product flops, unfused and fusion-ideal bytes, and
     collective bytes."""
     # the outputs' global shapes, for the fusion-ideal bytes
@@ -157,7 +160,8 @@ def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", n_params: in
         with counter:
             if tp is not None:
                 layouts = tp.layouts(param_specs)
-                local = [tp.working(laid[0], layouts)] + [_tree(local_value, a) for a in laid[1:]]
+                local = [tp.working(laid[0], layouts, work_dtype)] + \
+                    [_tree(local_value, a) for a in laid[1:]]
             else:
                 local = [_tree(full_value if i < n_params else
                                _batch_rows if i in rows_only else local_value, a)
@@ -188,8 +192,9 @@ class Probe:
     grad: bool = False  # trace the value and its gradients instead of fn
     n_params: int = 0   # leading arguments that are parameter trees
     rows_only: tuple[int, ...] = ()  # arguments traced on their batch rows only
-    tp: TensorParallel | None = None  # the dense train step's plan
+    tp: TensorParallel | None = None  # the dense family's step's plan
     param_specs: dict | None = None   # the parameter tree's PSpecs, with tp
+    work_dtype: torch.dtype | None = None  # the type the weights travel in, with tp
 
 
 def _scalarize(fn):
@@ -241,12 +246,17 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
 
     x_sh = _sh(mesh, (B, S, D), ("batch", "seq", "none"))
     x_abs = _abs((B, S, D), bf16)
-    # the dense family trains tensor-parallel (launch.steps.ShardedTrainStep):
-    # its probes run the step's layer code on this rank's working shards,
-    # and on whole tensors (tp=None) for their outputs' global shapes
+    # the dense family's steps are tensor-parallel (launch.steps): its probes
+    # run the step's layer code on this rank's working shards, and on whole
+    # tensors (tp=None) for their outputs' global shapes
     plan = None
-    if train and cfg.family == "dense":
-        plan = plan_train(cfg, model_specs(cfg), mesh, (B, S))
+    if cfg.family == "dense":
+        if train:
+            plan = plan_train(cfg, model_specs(cfg), mesh, (B, S))
+        elif decode:
+            plan = plan_decode(cfg, model_specs(cfg), cache_specs(cfg, B, S), mesh, B)
+        else:
+            plan = plan_prefill(cfg, model_specs(cfg), mesh, (B, S))
 
     def add(name, fn, params_specs, extra_args, extra_sh, trips, grad, argnums=(0, 1),
             rows_only=()):
@@ -255,7 +265,8 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
         g = _value_and_grad(_scalarize(fn), argnums) if grad else fn
         probes.append(Probe(name, g, (p_abs,) + extra_args, (p_sh,) + extra_sh, trips, grad,
                             n_params=1, rows_only=rows_only, tp=plan,
-                            param_specs=params_specs if plan is not None else None))
+                            param_specs=params_specs if plan is not None else None,
+                            work_dtype=None if train or plan is None else bf16))
 
     # ---------------------------------------------------------- attention
     if n_attn and not decode:
@@ -324,9 +335,9 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
         x1 = _abs((B, 1, D), bf16)
         x1_sh = _sh(mesh, x1.shape, ("batch", "none", "none"))
 
-        def dec_attn(p, x, cache, pos):
+        def dec_attn(p, x, cache, pos, tp=None):
             h = rmsnorm(p["norm"], x, cfg.norm_eps)
-            out, nc = attn_decode(p, h, cfg, cache, pos, None, window=cfg.window)
+            out, nc = attn_decode(p, h, cfg, cache, pos, None, window=cfg.window, tp=tp)
             return x + out, nc
 
         add("dec_attn", dec_attn, specs, (x1, cache_abs, _abs((), i32)),
@@ -428,9 +439,12 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
     if decode:
         tok = _abs((B, 1), i32)
 
-        def emb_unemb(p, t):
-            x = F.embedding(t, p["embed"]).to(bf16)
-            return (x @ p["embed"].T.to(bf16)).float()
+        def emb_unemb(p, t, tp=None):
+            if tp is None:
+                x = F.embedding(t, p["embed"]).to(bf16)
+                return (x @ p["embed"].T.to(bf16)).float()
+            x = embed_tokens(p, cfg, t, tp=tp)
+            return tp.whole_logits((x @ p["embed"].T.to(x.dtype)).float())
 
         add("embed+unembed", emb_unemb, emb_spec,
             (tok,), (_sh(mesh, tok.shape, ("batch", "none")),), 1, False)
@@ -495,7 +509,7 @@ def _analyze_cell(cfg: ArchConfig, cell: ShapeCell, mesh, prof: ShardingProfile,
     totals = {"flops": 0.0, "bytes": 0.0, "bytes_hlo": 0.0, "coll": 0.0}
     for pr in build_probes(cfg, cell, mesh):
         st = _compile_stats(pr.fn, pr.args, pr.shardings, mesh, device, pr.n_params, pr.grad,
-                            pr.rows_only, pr.tp, pr.param_specs)
+                            pr.rows_only, pr.tp, pr.param_specs, pr.work_dtype)
         comps[pr.name] = {**st, "trips": pr.trips, "grad": pr.grad}
         for k in totals:
             totals[k] += st[k] * pr.trips

@@ -37,14 +37,27 @@ instead: every parameter gathered whole, each rank computing its batch
 rows' whole sequence, each gradient reduce-scattered over the batch axes;
 so their ``model`` axis shards storage, not compute.  That is a choice by
 family, not a fallback: their expert, SSM and cross-attention layouts are
-later slices (ROADMAP).  The prefill and decode steps gather every
-parameter, for every family.  ``abstract_state`` and ``abstract_cache``
-give the state and the cache as ``meta`` tensors for the dry-run
-(``launch.dryrun``).
+later slices (ROADMAP).
+
+:class:`PrefillStep` and :class:`DecodeStep` on a mesh split the dense
+family's serving the same way (``plan_prefill``, ``plan_decode``): each
+parameter gathered over its ``embed`` axes only, in the compute type; each
+input's own shard; the decode cache kept in the reference's decode-SP
+layout (rows on ``cache_batch``, sequence on ``cache_seq``, every kv head),
+each rank reading and writing only its shard, in place.  Prefill returns
+its cache laid out so (:func:`seed_cache` moves it into a longer decode
+cache, shard to shard); both return the logits and the next tokens whole on
+every rank.  The other families' prefill and decode gather every parameter,
+input and cache leaf whole and compute the whole batch on every rank, as
+their train step does.  A dense model whose plan raises ``ValueError`` on a
+mesh fails; it does not gather instead.  ``abstract_state`` and
+``abstract_cache`` give the state and the cache as ``meta`` tensors for the
+dry-run (``launch.dryrun``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -54,11 +67,11 @@ from ..configs.base import ArchConfig, ShapeCell
 from ..models.common import (abstract_params, active_profile, param_shardings, resolve_spec,
                              sorted_leaves, torch_dtype, tree_map_pspec)
 from ..models.model import Model
-from ..models.tensor_parallel import TensorParallel, plan_train
+from ..models.tensor_parallel import TensorParallel, plan_decode, plan_prefill, plan_train
 from ..optim import AdamW, AdamWState, for_config
 from ..optim.adamw import tree_map_sorted
-from ..substrate import (Sharding, distribute, full_value, local_value, psum,
-                         reduce_over)
+from ..substrate import (Sharding, chunk_of, distribute, exchange_over, from_shard,
+                         full_value, local_value, psum, reduce_over)
 from .mesh import mesh_axis_sizes
 
 # logical axes of every named model input
@@ -260,39 +273,93 @@ def build_train(model: Model, mesh=None, total_steps: int = 10_000, peak_lr: flo
     return ShardedTrainStep(model, opt, mesh), opt, {"params": p_sh, "opt": o_sh}
 
 
+def _serves_on(model: Model, mesh) -> bool:
+    """Whether the prefill and decode steps split the model's compute on
+    ``mesh`` (the dense family) rather than gathering everything."""
+    return mesh is not None and model.cfg.family == "dense"
+
+
 @dataclasses.dataclass(frozen=True)
 class PrefillStep:
     model: Model
+    mesh: Any = None
+    _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def plan(self, tokens) -> tuple[TensorParallel, list, dict]:
+        """The dense prefill's plan for ``tokens``' (global) shape under the
+        active profile, its working layouts and the cache's shardings: made
+        at the first call of that shape and kept."""
+        key = (tuple(tokens.shape), active_profile().name)
+        if key not in self._plans:
+            model, specs = self.model, self.model.specs()
+            tp = plan_prefill(model.cfg, specs, self.mesh, key[0])
+            self._plans[key] = (tp, tp.layouts(specs),
+                                param_shardings(model.cache_specs(*key[0]), self.mesh))
+        return self._plans[key]
 
     @torch.no_grad()
     def __call__(self, params, batch):
-        """``Model.prefill`` on the full parameters and inputs (every rank
-        computes the whole batch)."""
-        return self.model.prefill(gathered(params), gathered(batch))
+        """``Model.prefill``: (the cache, the last token's logits).  Without
+        a mesh, or for a family other than the dense one, on the full
+        parameters and inputs (every rank computes the whole batch); for the
+        dense family on a mesh, sharded, the cache as ``DTensor``s laid out
+        by ``Model.cache_specs`` of the batch's shape."""
+        if not _serves_on(self.model, self.mesh):
+            return self.model.prefill(gathered(params), gathered(batch))
+        tp, layouts, cache_sh = self.plan(batch["tokens"])
+        work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype))
+        tokens = _stream_rows(batch["tokens"], tp.stream)
+        cache, logits = self.model.prefill(work, {"tokens": tokens}, tp)
+        return tree_map_sorted(from_shard, cache, cache_sh), logits
 
 
 def build_prefill(model: Model, mesh):
     """Returns (prefill step, {"params"} shardings)."""
-    return PrefillStep(model), {"params": param_shardings(model.specs(), mesh)}
+    return PrefillStep(model, mesh), {"params": param_shardings(model.specs(), mesh)}
 
 
 @dataclasses.dataclass(frozen=True)
 class DecodeStep:
     model: Model
     cache_shardings: Any = None
+    mesh: Any = None
+    _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def plan(self, tokens, cache) -> tuple[TensorParallel, list]:
+        """The dense decode step's plan for ``tokens``' (global) shape and
+        the cache's length under the active profile, and its working
+        layouts: made at the first step of that shape and kept."""
+        seq = sorted_leaves(cache)[0].shape[2]
+        key = (tuple(tokens.shape), seq, active_profile().name)
+        if key not in self._plans:
+            model, specs = self.model, self.model.specs()
+            B = key[0][0]
+            tp = plan_decode(model.cfg, specs, model.cache_specs(B, seq), self.mesh, B)
+            self._plans[key] = (tp, tp.layouts(specs))
+        return self._plans[key]
 
     @torch.no_grad()
     def __call__(self, params, cache, inputs: dict):
-        """One greedy token: (next token (B,) int32, logits, the cache).  On
-        a mesh the cache is gathered, written and laid out again by
-        ``cache_shardings``; on one rank the gather is the cache itself,
-        written in place."""
-        inputs = gathered(inputs)
-        logits, new_cache = self.model.decode(
-            gathered(params), gathered(cache), inputs["tokens"], inputs["pos"],
-            positions=inputs.get("positions"))
-        if self.cache_shardings is not None:
-            new_cache = tree_map_sorted(distribute, new_cache, self.cache_shardings)
+        """One greedy token: (next token (B,) int32, logits (B, 1, V), the
+        cache), the token and logits whole on every rank.  The dense family
+        on a mesh writes each rank's cache shard in place and returns the
+        same ``DTensor``s.  Another family on a mesh gathers the cache,
+        writes it and lays it out again by ``cache_shardings``; on one rank
+        the gather is the cache itself, written in place."""
+        if _serves_on(self.model, self.mesh):
+            tp, layouts = self.plan(inputs["tokens"], cache)
+            work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype))
+            tokens = _stream_rows(inputs["tokens"], tp.stream)
+            logits, _ = self.model.decode(work, tree_map_sorted(local_value, cache), tokens,
+                                          inputs["pos"], tp=tp)
+            new_cache = cache
+        else:
+            inputs = gathered(inputs)
+            logits, new_cache = self.model.decode(
+                gathered(params), gathered(cache), inputs["tokens"], inputs["pos"],
+                positions=inputs.get("positions"))
+            if self.cache_shardings is not None:
+                new_cache = tree_map_sorted(distribute, new_cache, self.cache_shardings)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, logits, new_cache
 
@@ -301,8 +368,53 @@ def build_decode(model: Model, mesh, cell: ShapeCell):
     """Returns (decode step, {"params", "cache"} shardings) for a cache of
     the cell's batch and sequence."""
     c_sh = param_shardings(model.cache_specs(cell.global_batch, cell.seq_len), mesh)
-    return DecodeStep(model, c_sh), {"params": param_shardings(model.specs(), mesh),
-                                     "cache": c_sh}
+    return DecodeStep(model, c_sh, mesh), {"params": param_shardings(model.specs(), mesh),
+                                           "cache": c_sh}
+
+
+def _seq_axes(x: DTensor) -> tuple[str, ...]:
+    return tuple(ax for ax, p in zip(x.device_mesh.mesh_dim_names, x.placements)
+                 if p.is_shard(2))
+
+
+@torch.no_grad()
+def seed_cache(prefill_cache, shardings, seq: int):
+    """A decode cache of ``seq`` positions laid out by ``shardings``
+    (``build_decode``'s) holding the prompt's k, v from a sharded
+    ``PrefillStep``'s cache (``DTensor``s of P <= ``seq`` positions) at
+    positions [0, P) and zeros beyond, as the engine seeds its cache.  Each
+    rank allocates its own shard and gets the positions of it that other
+    ranks' prefill shards hold through an all-to-all over the one mesh axis
+    that splits both caches' sequence; nothing is gathered whole.  The
+    dense family's cache (k, v leaves, no sliding window)."""
+    def seed(src: DTensor, sh: Sharding) -> DTensor:
+        mesh, local, P = sh.mesh, src.to_local(), src.shape[2]
+        entry = sh.spec[2]
+        src_axes = _seq_axes(src)
+        dst_axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        n = math.prod(mesh_axis_sizes(mesh)[ax] for ax in dst_axes)
+        own = chunk_of(seq, mesh, dst_axes)
+        shape = list(local.shape)
+        shape[2] = seq // n
+        out = torch.zeros(shape, dtype=local.dtype, device=local.device)
+        if not src_axes:
+            stop = min(P, own.stop)
+            if stop > own.start:
+                out[:, :, :stop - own.start] = local[:, :, own.start:stop]
+            return from_shard(out, sh)
+        if len(src_axes) != 1 or src_axes != dst_axes:
+            raise ValueError(f"a prefill cache split over {src_axes} into one over {dst_axes}")
+        have = chunk_of(P, mesh, src_axes)
+
+        def span(a: slice, b: slice) -> int:
+            return max(0, min(a.stop, b.stop) - max(a.start, b.start))
+        step_p, step_s = P // n, seq // n
+        send = [span(have, slice(j * step_s, (j + 1) * step_s)) for j in range(n)]
+        recv = [span(slice(j * step_p, (j + 1) * step_p), own) for j in range(n)]
+        got = exchange_over(local.movedim(2, 0), mesh, src_axes[0], send, recv)
+        out[:, :, :got.shape[0]] = got.movedim(0, 2)
+        return from_shard(out, sh)
+    return tree_map_sorted(seed, prefill_cache, shardings)
 
 
 def abstract_state(model: Model, opt: AdamW):

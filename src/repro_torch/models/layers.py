@@ -194,7 +194,9 @@ def attn_prefill(p, x, cfg: ArchConfig, cos_sin, *, window: int = 0, causal=True
     """Full-sequence attention; returns (out, (k, v)) for cache seeding.  On
     a mesh (``tp``) ``x`` and ``out`` are this rank's slice of the stream:
     the sequence is gathered, this rank's heads attend over all of it, and
-    the output projection's partial sums come back into the slice."""
+    the output projection's partial sums come back into the slice; a
+    serving plan's k, v are this rank's shard of the cache
+    (:func:`_cache_kv`)."""
     if tp is not None:
         x = tp.gather_seq(x)
     B, S, D = x.shape
@@ -204,25 +206,57 @@ def attn_prefill(p, x, cfg: ArchConfig, cos_sin, *, window: int = 0, causal=True
     qh = q.reshape(B, S, hkv, hq // hkv, hd).movedim(1, 3)  # (B,Hkv,G,S,hd)
     out = chunked_attention(qh, k, v, causal=causal, window=window)
     out = out.movedim(3, 1).reshape(B, S, hq * hd)
+    if tp is not None and tp.cache_spec is not None:
+        k, v = _cache_kv(p, x, k, v, cfg, cos_sin, tp)
     return attn_out(p, out, tp), (k, v)
 
 
-def attn_out(p, ctx, tp=None):
+def _cache_kv(p, x, k, v, cfg: ArchConfig, cos_sin, tp):
+    """This rank's shard of a layer's cache, (B / cache rows, S / cache
+    sequence, Hkv, hd), from the gathered stream ``x`` and the k, v its
+    attention used.  Chosen by the bytes each way moves: where every rank
+    computed every head, its slice of them (none); where ``wk`` and ``wv``
+    are whole on every rank (q heads split, kv heads not), its slice of
+    ``x`` projected with them (none; the k, v of every kv head on a
+    sequence slice instead of one kv head's on the whole sequence); where
+    the kv heads split, an all-to-all over each of their axes, trading
+    heads for the cache's sequence or rows (the shard's bytes, once an
+    axis)."""
+    seq = tp.cache_seq(x.shape[1])
+    if not tp.q_local:
+        return tp.cache_rows(k)[:, seq], tp.cache_rows(v)[:, seq]
+    if tp.kv_local:
+        return tp.heads_to_cache(k), tp.heads_to_cache(v)
+    xs = tp.cache_rows(x)[:, seq]
+    k = (xs @ p["wk"].to(xs.dtype)).unflatten(-1, (-1, cfg.hd))
+    v = (xs @ p["wv"].to(xs.dtype)).unflatten(-1, (-1, cfg.hd))
+    if cos_sin is not None:
+        cos, sin = (tp.cache_rows(t)[:, seq] for t in cos_sin)
+        k = apply_rope(k, cos, sin)
+    return k, v
+
+
+def attn_out(p, ctx, tp=None, all_heads: bool = False):
     """The output projection of the attention output ``ctx`` (B, S, Hq·hd);
     on a mesh, this rank's rows of ``wo`` on its columns of ``ctx``, summed
-    into the stream."""
+    into the stream (``all_heads``: ``ctx`` holds every head, as decode's
+    does)."""
     if tp is None:
         return ctx @ p["wo"].to(ctx.dtype)
-    return tp.to_stream(tp.head_cols(ctx) @ p["wo"].to(ctx.dtype), tp.qkv_axes)
+    return tp.to_stream(tp.head_cols(ctx, all_heads) @ p["wo"].to(ctx.dtype), tp.qkv_axes)
 
 
-def attn_decode(p, x, cfg: ArchConfig, cache, pos: int, cos_sin, *, window: int = 0):
+def attn_decode(p, x, cfg: ArchConfig, cache, pos: int, cos_sin, *, window: int = 0,
+                tp=None):
     """One-token step: write the cache at pos (ring slot for SWA), attend.
 
     x: (B, 1, D); cache: dict(k=(B, Sc, Hkv, hd), v=...); pos: int, below
     Sc unless ``window`` (the engine never decodes past its cache).  The
     cache is written IN PLACE (the reference returns an updated copy); the
-    returned dict holds the same tensors."""
+    returned dict holds the same tensors.  On a mesh (``tp``, a decode plan)
+    see :func:`_attn_decode_sp`."""
+    if tp is not None:
+        return _attn_decode_sp(p, x, cfg, cache, pos, cos_sin, window, tp)
     B, _, D = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = qkv_proj(p, x, cfg, cos_sin)
@@ -245,6 +279,55 @@ def attn_decode(p, x, cfg: ArchConfig, cache, pos: int, cos_sin, *, window: int 
     out = out.movedim(3, 1).reshape(B, 1, hq * hd)
     out = out @ p["wo"].to(x.dtype)
     return out, {"k": ck, "v": cv}
+
+
+def _attn_decode_sp(p, x, cfg: ArchConfig, cache, pos: int, cos_sin, window: int, tp):
+    """Decode-SP: ``x`` is this rank's stream rows, ``cache`` its shard
+    (its cache rows, its slice of the sequence, every kv head).  q, k and v
+    of the new token cover every head (gathered over the ``qkv`` axes where
+    this rank's weights hold a share); the rank whose slice holds the slot
+    writes k, v there in place; each rank computes a partial softmax over
+    its slice in float32 (the running max, the sum of exponentials and the
+    weighted sum of v, with the one-device path's ``valid`` mask in global
+    positions), the partials are combined over the ``cache_seq`` axes (the
+    max first, then the rescaled sums), and ``wo`` runs row-parallel.  The
+    one-device softmax normalizes before its weighted sum, this one after
+    the split sums: in float32 the two agree within 1e-5 relative, not bit
+    for bit."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"].to(x.dtype)).unflatten(-1, (-1, hd))
+    k = (x @ p["wk"].to(x.dtype)).unflatten(-1, (-1, hd))
+    v = (x @ p["wv"].to(x.dtype)).unflatten(-1, (-1, hd))
+    if cos_sin is not None:
+        cos, sin = cos_sin
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    q = tp.cache_rows(tp.all_heads(q, tp.q_local))
+    k = tp.cache_rows(tp.all_heads(k, tp.kv_local))
+    v = tp.cache_rows(tp.all_heads(v, tp.kv_local))
+    ck, cv = cache["k"], cache["v"]
+    B, Sl = ck.shape[0], ck.shape[1]
+    Sc = Sl * tp.parts(tp.cache_seq_axes)
+    start = tp.cache_seq(Sc).start
+    slot = pos % Sc if window > 0 else pos
+    if start <= slot < start + Sl:
+        ck[:, slot - start] = k[:, 0].to(ck.dtype)
+        cv[:, slot - start] = v[:, 0].to(cv.dtype)
+    qh = q[:, 0].reshape(B, hkv, hq // hkv, hd)             # (B,Hkv,G,hd)
+    kT = ck.to(qh.dtype).permute(0, 2, 3, 1)                # (B,Hkv,hd,Sl)
+    s = ((qh @ kT) * (1.0 / math.sqrt(hd))).float()         # (B,Hkv,G,Sl)
+    idx = start + torch.arange(Sl, device=x.device)
+    valid = idx < min(pos + 1, Sc) if window > 0 else idx <= pos
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    acc = e @ cv.float().permute(0, 2, 1, 3)                # (B,Hkv,G,hd)
+    big = tp.seq_max(m)
+    r = torch.exp(m - big)
+    l_sum = tp.seq_sum(e.sum(dim=-1) * r)
+    acc = tp.seq_sum(acc * r[..., None])
+    out = tp.stream_rows((acc / l_sum[..., None]).to(x.dtype).reshape(B, 1, hq * hd))
+    return attn_out(p, out, tp, all_heads=True), {"k": ck, "v": cv}
 
 
 # ------------------------------------------------------------------------- MLPs

@@ -50,8 +50,7 @@ class Model:
         rank's working shards and ``batch`` its slice of the stream, and the
         mean is over its own labels."""
         cfg = self.cfg
-        if tp is not None and cfg.family != "dense":
-            raise ValueError(f"a tensor-parallel loss for the {cfg.family} family")
+        self._dense_only(tp)
         if cfg.family == "encdec":
             return encdec.loss(params, cfg, batch["frames"], batch["tokens"], batch["labels"])
         hidden, aux, _ = transformer.forward_full(
@@ -63,10 +62,14 @@ class Model:
         )
         return transformer.xent_loss(params, cfg, hidden, batch["labels"], tp), aux
 
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, tp=None):
         """Returns (per-layer cache stacked over periods, last-token logits);
-        the encoder-decoder takes ``batch["frames"]`` beside the tokens."""
+        the encoder-decoder takes ``batch["frames"]`` beside the tokens.
+        ``tp`` (a ``plan_prefill`` plan, the dense family only): ``params``
+        are this rank's working shards and ``batch`` its slice of the
+        stream; the cache is this rank's shard and the logits are whole."""
         cfg = self.cfg
+        self._dense_only(tp)
         if cfg.family == "encdec":
             enc_out = encdec.encode(params, cfg, batch["frames"])
             hidden, cache = encdec.decode_full(params, cfg, batch["tokens"], enc_out,
@@ -78,15 +81,26 @@ class Model:
             embeds=batch.get("embeds"),
             positions=batch.get("positions"),
             want_cache=True,
+            tp=tp,
         )
-        return cache, transformer.unembed(params, self.cfg, hidden[:, -1:])
+        if tp is None:
+            return cache, transformer.unembed(params, self.cfg, hidden[:, -1:])
+        return cache, tp.whole_logits(transformer.unembed(params, self.cfg,
+                                                          tp.last_token(hidden)))
 
-    def decode(self, params, cache, tokens, pos: int, positions=None):
-        """One token at position ``pos``; the cache is written in place."""
+    def decode(self, params, cache, tokens, pos: int, positions=None, tp=None):
+        """One token at position ``pos``; the cache is written in place.
+        ``tp`` (a ``plan_decode`` plan, the dense family only): this rank's
+        working shards, stream rows and cache shard; the logits are whole."""
+        self._dense_only(tp)
         if self.cfg.family == "encdec":
             return encdec.decode_step(params, self.cfg, cache, tokens, pos)
         return transformer.decode_step(params, self.cfg, cache, tokens=tokens,
-                                       pos=pos, positions=positions)
+                                       pos=pos, positions=positions, tp=tp)
+
+    def _dense_only(self, tp) -> None:
+        if tp is not None and self.cfg.family != "dense":
+            raise ValueError(f"a tensor-parallel step for the {self.cfg.family} family")
 
     def input_specs(self, cell: ShapeCell) -> dict[str, torch.Tensor]:
         """Stand-ins on the ``meta`` device (shape and dtype, no bytes) for

@@ -28,6 +28,30 @@ collectives (``substrate.gather_over``, ``scatter_over``, ``sum_over``) are
 differentiated as their adjoints under that sum, and a value several ranks
 compute alike (the tokens the batch and sequence axes do not split) weighs
 ``1 / replicas`` on each.
+
+Serving (:func:`plan_prefill`, :func:`plan_decode`) adds the k / v cache's
+own resolved layout, the reference's decode-SP one: its rows on
+``cache_batch`` (``("pod", "data")`` under every profile, so it stays split
+under ``serve``, where the stream's batch does not) and its sequence on
+``cache_seq`` (``model``); ``heads`` cannot take ``model`` once
+``cache_seq`` has it, so a rank holds every kv head of its sequence slice.
+
+* Prefill runs the train forward's layout, and lays each layer's k, v out as
+  the cache: where every rank computed every head, its own rows and
+  sequence slice of them; where the q heads split and the kv heads do not,
+  ``wk`` and ``wv`` are whole on every rank, so each rank projects its
+  sequence slice of the normed stream with them (no bytes move); where the
+  kv heads split, an all-to-all over each ``qkv`` axis trades heads for the
+  cache's sequence (``model``) or rows (``data`` under ``serve``): the cache
+  shard's bytes, once an axis.  The last token's hidden state lies on
+  the rank holding position S - 1: it is gathered over the sequence, and
+  the logits (vocab-parallel where the vocabulary splits) gathered whole.
+* Decode's stream is this rank's batch rows of one token.  q covers every
+  head (gathered over the ``qkv`` axes, one token a row), each rank attends
+  over its sequence slice of the cache with a partial softmax, the partials
+  are combined over the ``cache_seq`` axes, and ``wo`` runs row-parallel.
+* The weights move in the compute type: a leaf the working layout gathers
+  is cast before it travels (each product casts it there anyway).
 """
 from __future__ import annotations
 
@@ -37,12 +61,14 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 from ..optim.adamw import tree_map_sorted
-from ..substrate import (Sharding, chunk_of, gather_over, max_over, mesh_axis_sizes,
-                         reduce_over, scatter_over, sum_over)
+from ..substrate import (Sharding, all_to_all_over, chunk_of, gather_over, max_over,
+                         mesh_axis_sizes, reduce_over, scatter_over, sum_over)
 from .common import resolve_spec, sorted_leaves, tree_map_pspec
+from .transformer import cache_specs
 
 #: the logical axes a weight is gathered over before its product (FSDP)
 FSDP_LOGICAL = ("embed", "embed_d")
@@ -61,6 +87,16 @@ def head_split(n_heads: int, n_kv_heads: int, n: int) -> tuple[bool, bool]:
     split whole."""
     q = n_heads % n == 0 and (n_kv_heads % n == 0 or n % n_kv_heads == 0)
     return q, q and n_kv_heads % n == 0
+
+
+def _heads(cfg: ArchConfig, n: int) -> tuple[int, int]:
+    """This rank's q heads and the kv heads its attention uses over ``n``
+    ranks of ``qkv`` (:func:`head_split`): a split share, or all of them,
+    or the one kv head of this rank's GQA group."""
+    q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
+    q_heads = cfg.n_heads // n if q_local else cfg.n_heads
+    kv_heads = cfg.n_kv_heads // n if kv_local else 1 if q_local else cfg.n_kv_heads
+    return q_heads, kv_heads
 
 
 def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
@@ -83,11 +119,9 @@ def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> 
         raise ValueError(f"counted for remat 'full', not {cfg.remat!r}")
     d, hd, L, V = cfg.d_model, cfg.hd, cfg.n_layers, cfg.vocab
     n = parts["qkv"]
-    q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
     rows = B // parts["batch"]
     T = rows * S
-    q_heads = cfg.n_heads // n if q_local else cfg.n_heads
-    kv_heads = cfg.n_kv_heads // n if kv_local else 1 if q_local else cfg.n_kv_heads
+    q_heads, kv_heads = _heads(cfg, n)
     ff = cfg.d_ff // parts["ffn"]
     per_layer = 2 * T * d * hd * (q_heads + 2 * kv_heads) + 2 * T * (cfg.n_heads * hd // n) * d \
         + 3 * 2 * T * d * ff
@@ -101,6 +135,54 @@ def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> 
     return 4 * (L * (per_layer + attn) + loss) - L * 2 * T * ff * d
 
 
+def hand_prefill_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
+    """The product FLOPs one rank runs in a swiglu decoder's sharded prefill
+    of (B, S) tokens, counted by hand from the widths (the dry-run's trace
+    must equal it).  ``parts`` gives the ranks each of ``batch``, ``seq``,
+    ``qkv``, ``ffn``, ``vocab``, ``cache_batch`` and ``cache_seq`` splits
+    over.  The train forward's products (every (q, k) tile of the chunked
+    attention for this rank's q heads, masked tiles included); where the q
+    heads split and the kv heads do not, the cache's k and v projected on
+    this rank's cache rows and sequence slice with every kv head; the last
+    token's logits on this rank's rows and vocabulary columns."""
+    d, hd, L, V = cfg.d_model, cfg.hd, cfg.n_layers, cfg.vocab
+    n = parts["qkv"]
+    q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
+    q_heads, kv_heads = _heads(cfg, n)
+    rows = B // parts["batch"]
+    T = rows * S
+    per_layer = 2 * T * d * hd * (q_heads + 2 * kv_heads) + 2 * T * (cfg.n_heads * hd // n) * d \
+        + 3 * 2 * T * d * (cfg.d_ff // parts["ffn"])
+    qc, kc = min(512, S), min(1024, S)
+    per_layer += 4 * rows * q_heads * hd * (-(-S // qc) * qc) * (-(-S // kc) * kc)
+    if q_local and not kv_local:
+        per_layer += 2 * 2 * (B // parts["cache_batch"]) * (S // parts["cache_seq"]) * d \
+            * cfg.n_kv_heads * hd
+    return L * per_layer + 2 * rows * d * (V // parts["vocab"])
+
+
+def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
+    """The product FLOPs one rank runs in a swiglu decoder's sharded decode
+    step of B tokens against a cache of S positions, counted by hand (the
+    dry-run's trace must equal it; ``parts`` as :func:`hand_prefill_flops`).
+    Each layer: q on this rank's stream rows and q heads, k and v on them
+    with this rank's kv heads where they split, else every kv head (the
+    whole ``wk`` / ``wv``); the scores and the weighted sum of v for every
+    q head over this rank's cache rows and sequence slice; its rows of
+    ``wo`` and its columns of the MLP; the logits on its rows and vocabulary
+    columns."""
+    d, hd, L, V = cfg.d_model, cfg.hd, cfg.n_layers, cfg.vocab
+    n = parts["qkv"]
+    q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
+    q_heads = cfg.n_heads // n if q_local else cfg.n_heads
+    kv_heads = cfg.n_kv_heads // n if kv_local else cfg.n_kv_heads
+    rows = B // parts["batch"]
+    per_layer = 2 * rows * d * hd * (q_heads + 2 * kv_heads) \
+        + 2 * rows * (cfg.n_heads * hd // n) * d + 3 * 2 * rows * d * (cfg.d_ff // parts["ffn"]) \
+        + 4 * (B // parts["cache_batch"]) * cfg.n_heads * hd * (S // parts["cache_seq"])
+    return L * per_layer + 2 * rows * d * (V // parts["vocab"])
+
+
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     mesh: DeviceMesh
@@ -112,6 +194,11 @@ class TensorParallel:
     q_local: bool                 # q heads split over qkv_axes (else all on every rank)
     kv_local: bool                # kv heads split too (else gathered whole)
     stream_spec: tuple            # the labels' resolved spec: the stream's layout
+    # serving plans only: a k / v cache leaf's resolved spec, the mesh axes its
+    # rows split over beyond the stream's, and those of its sequence
+    cache_spec: tuple | None = None
+    cache_row_axes: tuple[str, ...] = ()
+    cache_seq_axes: tuple[str, ...] = ()
 
     @property
     def stream(self) -> Sharding:
@@ -162,13 +249,60 @@ class TensorParallel:
         j = c * hkv // n
         return w[..., j * hd:(j + 1) * hd]
 
-    def head_cols(self, ctx: torch.Tensor) -> torch.Tensor:
+    def head_cols(self, ctx: torch.Tensor, all_heads: bool = False) -> torch.Tensor:
         """This rank's columns of the attention output, the rows of ``wo`` it
         holds: all of it where the heads split, its chunk where every rank
-        computed every head."""
-        if self.q_local:
+        computed every head (``all_heads``: ``ctx`` holds every head)."""
+        if self.q_local and not all_heads:
             return ctx
         return ctx[..., chunk_of(ctx.shape[-1], self.mesh, self.qkv_axes)]
+
+    def all_heads(self, t: torch.Tensor, split: bool) -> torch.Tensor:
+        """(B, S, heads, hd) -> every head: gathered over the ``qkv`` axes
+        where this rank holds a ``split`` share of them."""
+        return gather_over(t, self.mesh, self.qkv_axes, 2) if split else t
+
+    def heads_to_cache(self, t: torch.Tensor) -> torch.Tensor:
+        """(B, S, heads / n, hd), this rank's kv heads over its stream rows'
+        whole sequence -> its cache shard, every kv head over the cache's
+        rows and sequence slice: an all-to-all over each ``qkv`` axis, the
+        minor one first, each trading heads for the cache's rows or its
+        sequence (:func:`plan_prefill` checks that each axis splits one of
+        them)."""
+        for ax in reversed(self.qkv_axes):
+            t = all_to_all_over(t, self.mesh, ax, 0 if ax in self.cache_row_axes else 1, 2)
+        return t
+
+    # -------------------------------------------------------------- cache
+    def cache_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's stream rows (dimension 0) -> its cache's rows."""
+        return x[chunk_of(x.shape[0], self.mesh, self.cache_row_axes)]
+
+    def stream_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The cache's rows -> the stream's (gathered where the cache
+        splits them further)."""
+        return gather_over(x, self.mesh, self.cache_row_axes, 0)
+
+    def cache_seq(self, n: int) -> slice:
+        """This rank's slice of a cache of ``n`` positions."""
+        return chunk_of(n, self.mesh, self.cache_seq_axes)
+
+    def seq_max(self, x: torch.Tensor) -> torch.Tensor:
+        return max_over(x, self.mesh, self.cache_seq_axes)
+
+    def seq_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return sum_over(x, self.mesh, self.cache_seq_axes)
+
+    def last_token(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S / parts, D) -> (B, 1, D): the hidden state at the last
+        position, from the rank of the sequence axes that holds it."""
+        return gather_over(x[:, -1:], self.mesh, self.seq_axes, 1)[:, -1:]
+
+    def whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's rows and vocabulary columns of (B, 1, V) logits ->
+        all of them, the same on every rank."""
+        logits = gather_over(logits, self.mesh, self.vocab_axes, -1)
+        return gather_over(logits, self.mesh, self.batch_axes, 0)
 
     # -------------------------------------------------------------- vocab
     def vocab_rows(self, n_vocab: int) -> slice:
@@ -200,13 +334,22 @@ class TensorParallel:
         """:meth:`working_shardings` in sorted leaf order."""
         return sorted_leaves(self.working_shardings(spec_tree))
 
-    def working(self, params, layouts) -> dict:
+    def working(self, params, layouts, dtype: torch.dtype | None = None) -> dict:
         """This rank's working shard of every parameter (``DTensor``s) in
         ``layouts`` (:meth:`layouts` of their specs): a tree like
-        ``params``."""
+        ``params``.  With ``dtype`` (serving: the compute type) a leaf that
+        moves is cast before it travels; every such leaf of the dense family
+        (a product's weight, the embedding table) is cast to the compute
+        type at its use, so the values computed are the same."""
+        def work(p, sh):
+            if dtype is not None and tuple(p.placements) != tuple(sh.placements):
+                # the shard cast and wrapped again: a DTensor op would build
+                # its global-size output to propagate the layout
+                p = DTensor.from_local(p.to_local().to(dtype), p.device_mesh, p.placements,
+                                       run_check=False, shape=p.shape, stride=p.stride())
+            return p.redistribute(self.mesh, sh.placements).to_local()
         with torch.no_grad():
-            work = iter([p.redistribute(self.mesh, sh.placements).to_local()
-                         for p, sh in zip(sorted_leaves(params), layouts)])
+            work = iter([work(p, sh) for p, sh in zip(sorted_leaves(params), layouts)])
         return tree_map_sorted(lambda _: next(work), params)
 
     def reduce_grads(self, grads, params, layouts) -> list:
@@ -269,3 +412,61 @@ def plan_train(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, batch_shape) -> Ten
     tokens: the stream laid out as the labels (``batch``, ``seq``)."""
     stream = resolve_spec(tuple(batch_shape), ("batch", "seq"), mesh_axis_sizes(mesh))
     return tensor_parallel(cfg, spec_tree, mesh, stream)
+
+
+def _with_cache(tp: TensorParallel, cfg: ArchConfig, cache_specs,
+                mesh: DeviceMesh) -> TensorParallel:
+    """``tp`` with the layout of ``cache_specs``' k / v leaves ((periods, B,
+    S, Hkv, hd)).  Raises ValueError where the cache splits its heads (not
+    the decode-SP layout) or its rows are not a split of the stream's."""
+    sizes = mesh_axis_sizes(mesh)
+    specs: set = set()
+
+    def note(_, p):
+        if p.logical[2] == "cache_seq":
+            specs.add(resolve_spec(p.shape, p.logical, sizes))
+    tree_map_pspec(note, cache_specs)
+    if len(specs) != 1:
+        raise ValueError(f"{cfg.name}: the cache's k / v leaves lay out as {sorted(specs)}")
+    spec = next(iter(specs))
+
+    def live(entry):
+        return tuple(ax for ax in _axes(entry) if sizes[ax] > 1)
+    rows, sq = live(spec[1]), live(spec[2])
+    if live(spec[3]) or live(spec[4]):
+        raise ValueError(f"{cfg.name}: the cache splits its heads as {spec}")
+    if rows[:len(tp.batch_axes)] != tp.batch_axes:
+        raise ValueError(f"the cache's rows on {rows} do not split the stream's {tp.batch_axes}")
+    return dataclasses.replace(tp, cache_spec=spec, cache_row_axes=rows[len(tp.batch_axes):],
+                               cache_seq_axes=sq)
+
+
+def plan_prefill(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, batch_shape) -> TensorParallel:
+    """The plan of a sharded prefill of ``batch_shape`` (B, S) tokens: the
+    stream laid out as the tokens (``batch``, ``seq``), and the cache of
+    (B, S) as the decode-SP layout.  Where the kv heads split, each of their
+    axes must split the cache's sequence or, beyond the stream's, its rows,
+    at most one axis each, and the cache split over nothing else: the
+    all-to-alls that lay it out (ValueError otherwise)."""
+    sizes = mesh_axis_sizes(mesh)
+    B, S = batch_shape
+    stream = resolve_spec((B, S), ("batch", "seq"), sizes)
+    tp = _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream), cfg,
+                     cache_specs(cfg, B, S), mesh)
+    if tp.kv_local:
+        rows, seq = set(tp.cache_row_axes), set(tp.cache_seq_axes)
+        if set(tp.qkv_axes) != rows | seq or len(rows) > 1 or len(seq) > 1:
+            raise ValueError(f"kv heads split over {tp.qkv_axes}, the cache's rows over "
+                             f"{tp.cache_row_axes} and sequence over {tp.cache_seq_axes}: "
+                             "no all-to-all lays the cache out")
+    return tp
+
+
+def plan_decode(cfg: ArchConfig, spec_tree, cache_spec_tree, mesh: DeviceMesh,
+                batch: int) -> TensorParallel:
+    """The plan of a sharded decode step of ``batch`` tokens against the
+    cache of ``cache_spec_tree`` (``Model.cache_specs``): the stream this
+    rank's batch rows of one token, the cache its own resolved layout."""
+    stream = resolve_spec((batch, 1), ("batch", "seq"), mesh_axis_sizes(mesh))
+    return _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream), cfg, cache_spec_tree,
+                       mesh)

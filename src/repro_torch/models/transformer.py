@@ -165,9 +165,10 @@ def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     the cache holds each period position's entries stacked over periods:
     (periods, B, S, Hkv, hd) K and V, or the SSM state and conv tail.  It
     writes nothing in place, so autograd runs through it.  On a mesh
-    (``tp``, a ``TensorParallel``; the dense family's train step) the tokens
-    and the hidden states are this rank's slice of the stream, and RoPE's
-    angles are the whole sequence's."""
+    (``tp``, a ``TensorParallel``; the dense family's train step and
+    prefill) the tokens and the hidden states are this rank's slice of the
+    stream, and RoPE's angles are the whole sequence's; a serving plan's
+    cache is this rank's shard of each layer's, stacked."""
     x = embed_tokens(params, cfg, tokens, embeds, tp)
     B, S = x.shape[0], x.shape[1] * (1 if tp is None else tp.parts(tp.seq_axes))
     cos_sin = None
@@ -192,12 +193,14 @@ def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
 
 
 def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
-                pos: int = 0, positions=None):
+                pos: int = 0, positions=None, tp=None):
     """One-token decode.  tokens: (B, 1); pos: the current position.
     Returns (logits (B, 1, V), cache); the cache is written in place: K and
     V at their slot, an SSM's new state and conv history copied into the
-    stacked tensors through the period's views."""
-    x = embed_tokens(params, cfg, tokens, embeds)
+    stacked tensors through the period's views.  On a mesh (``tp``, a
+    decode plan; the dense family) the tokens are this rank's stream rows,
+    the cache its shard, and the logits come out whole on every rank."""
+    x = embed_tokens(params, cfg, tokens, embeds, tp)
     B = x.shape[0]
     cos_sin = None
     if _uses_rope(cfg):
@@ -210,7 +213,7 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
             b, c = pp[f"pos{j}"], pc[f"pos{j}"]
             h = rmsnorm(b["norm1"], x, cfg.norm_eps)
             if mixer == "attn":
-                a, _ = attn_decode(b["attn"], h, cfg, c, pos, cos_sin, window=cfg.window)
+                a, _ = attn_decode(b["attn"], h, cfg, c, pos, cos_sin, window=cfg.window, tp=tp)
             else:
                 a, new = ssd_decode(b["ssm"], h, cfg, c)
                 for n in ("ssm", "conv"):
@@ -219,11 +222,12 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
             if channel != "none":
                 h2 = rmsnorm(b["norm2"], x, cfg.norm_eps)
                 if channel == "mlp":
-                    x = x + mlp(b["mlp"], h2, cfg)
+                    x = x + mlp(b["mlp"], h2, cfg, tp)
                 else:
                     x = x + moe(b["moe"], h2, cfg)[0]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, cfg, x), cache
+    logits = unembed(params, cfg, x)
+    return (logits if tp is None else tp.whole_logits(logits)), cache
 
 
 # ------------------------------------------------------------------------- loss

@@ -546,6 +546,47 @@ def max_over(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch.Te
     return _sum_over(x, _axis_groups(mesh, axes), dist.ReduceOp.MAX) if axes else x
 
 
+@torch.no_grad()
+def all_to_all_over(x: torch.Tensor, mesh: DeviceMesh, axis: str, split_dim: int,
+                    cat_dim: int) -> torch.Tensor:
+    """``x`` split evenly along ``split_dim`` over the ranks of ``axis``, the
+    rank at index j sent chunk j; what every rank sent this one, joined along
+    ``cat_dim`` in axis order (an all-to-all), outside autograd."""
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    parts = x.unflatten(split_dim, (n, x.shape[split_dim] // n)).movedim(split_dim, 0)
+    wire = (parts.cpu() if _staged(x, group) else parts).contiguous()
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=group)
+    return out.to(x.device).movedim(0, cat_dim).flatten(cat_dim, cat_dim + 1)
+
+
+@torch.no_grad()
+def exchange_over(x: torch.Tensor, mesh: DeviceMesh, axis: str, send: Sequence[int],
+                  recv: Sequence[int]) -> torch.Tensor:
+    """Consecutive runs of ``x``'s first dimension sent over the ranks of
+    ``axis``: the first ``send[0]`` rows to the rank at index 0, the next
+    ``send[1]`` to index 1, and so on; returns the ``recv[j]`` rows each rank
+    j sent this one, joined in axis order (an all-to-all of uneven runs)."""
+    group = mesh.get_group(axis)
+    wire = (x.cpu() if _staged(x, group) else x).contiguous()
+    out = wire.new_empty((sum(recv),) + tuple(wire.shape[1:]))
+    dist.all_to_all_single(out, wire, list(recv), list(send), group=group)
+    return out.to(x.device)
+
+
+def from_shard(local: torch.Tensor, sharding: "Sharding") -> DTensor:
+    """The ``DTensor`` whose shard on this rank is ``local``, laid out by
+    ``sharding`` (each rank passes its own; no collective): its global
+    shape is the local one times the ranks each dimension is split over."""
+    sizes = mesh_axis_sizes(sharding.mesh)
+    shape = [n * math.prod(sizes[ax] for ax in _names(sharding.spec[d]))
+             if d < len(sharding.spec) else n for d, n in enumerate(local.shape)]
+    stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+    return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
 def chunk_of(n: int, mesh: DeviceMesh, axes: Sequence[str]) -> slice:
     """This rank's chunk of ``n`` elements split evenly over ``axes``."""
     parts, idx = 1, 0

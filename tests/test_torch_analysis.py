@@ -33,7 +33,14 @@ What is held, and how closely:
   axes, products on this rank's heads, columns and vocabulary), so its
   FLOPs sit at or below the reference's HLO FLOPs, but ``attn_proj``'s: it
   counts the q and k products that XLA drops as dead code (ROADMAP
-  Queue 3).
+  Queue 3);
+* the dense family's sharded prefill and decode (granite smoke
+  ``prefill_32k`` and ``decode_32k`` on 8 fake ranks): the dry-run's product
+  FLOPs equal ``hand_prefill_flops`` / ``hand_decode_flops``, its collective
+  bytes and executions a hand count from the specs, its temp at most twice
+  the reference's; the roofline's serving probes run the sharded layer code,
+  their FLOPs at or below the reference's but where ``ABOVE_REFERENCE``
+  says why, the cells' collective bytes within ``COLL_OVER_REFERENCE``.
 """
 import json
 import math
@@ -139,6 +146,71 @@ def roof(tmp_path_factory):
 
 
 # ------------------------------------------------------------- collectives
+SERVE_CELLS = ("prefill_32k", "decode_32k")
+
+
+@pytest.fixture(scope="module")
+def serve_dry(tmp_path_factory):
+    """Both packages' dry-run records of granite smoke's serving cells on
+    the (4, 2) mesh of 8 fake ranks."""
+    out = tmp_path_factory.mktemp("serve_dry")
+    _run(f"""
+        from pathlib import Path
+        from repro.launch.dryrun import run_cell
+        for cell in {SERVE_CELLS!r}:
+            assert run_cell("granite-3-8b", cell, "single", True, Path({str(out / 'ref')!r}))
+    """, env={"REPRO_DRYRUN_DEVICES": "8", "JAX_PLATFORMS": "cpu"})
+    _run(f"""
+        from pathlib import Path
+        from repro_torch.launch.dryrun import run_cell
+        for cell in {SERVE_CELLS!r}:
+            assert run_cell("granite-3-8b", cell, "single", True, Path({str(out / 'port')!r}),
+                            device="cpu", devices=8)
+    """)
+    return {cell: tuple(json.loads((out / pkg / f"granite-3-8b__{cell}__single.json")
+                                   .read_text()) for pkg in ("ref", "port"))
+            for cell in SERVE_CELLS}
+
+
+@pytest.fixture(scope="module")
+def roof_serve(tmp_path_factory):
+    """Both packages' roofline records of granite smoke's serving cells on
+    the (4, 2) mesh, under each profile."""
+    out = tmp_path_factory.mktemp("roof_serve")
+    cases = repr([(c, p) for c in SERVE_CELLS for p in PROFILES])
+    _run(f"""
+        import json
+        import repro.configs as C
+        from repro.launch.dryrun import make_mesh
+        from repro.launch.roofline import analyze_cell
+        mesh = make_mesh("single", smoke=True)
+        for cell, prof in {cases}:
+            rec = analyze_cell(C.get("granite-3-8b", smoke=True), C.smoke_cell(cell), mesh,
+                               profile=prof)
+            open({str(out)!r} + f"/ref_{{cell}}_{{prof}}.json", "w").write(
+                json.dumps(rec, default=float))
+    """, env={"REPRO_DRYRUN_DEVICES": "8", "JAX_PLATFORMS": "cpu"})
+    _run(f"""
+        import json
+        import torch.distributed as dist
+        import repro_torch.configs as C
+        from repro_torch.launch.dryrun import make_mesh
+        from repro_torch.launch.roofline import analyze_cell
+        from repro_torch.substrate import fake_store, init_group
+        init_group("fake", 0, 8, store=fake_store())
+        mesh = make_mesh("single", smoke=True, device_type="cpu")
+        for cell, prof in {cases}:
+            rec = analyze_cell(C.get("granite-3-8b", smoke=True), C.smoke_cell(cell), mesh,
+                               profile=prof, device="cpu")
+            open({str(out)!r} + f"/port_{{cell}}_{{prof}}.json", "w").write(
+                json.dumps(rec, default=float))
+        dist.destroy_process_group()
+    """)
+    return {(cell, prof): tuple(json.loads((out / f"{pkg}_{cell}_{prof}.json").read_text())
+                                for pkg in ("ref", "port"))
+            for cell in SERVE_CELLS for prof in PROFILES}
+
+
 def test_collective_stats_matches_reference_hlo():
     """The collectives of the reference's HLO test (tests/test_launch.py),
     issued on a fake group of 4 under the counter: 7 times an f32[128, 64]
@@ -598,6 +670,138 @@ def test_dryrun_temp_holds_gathered_state(dry, case):
     assert mem["temp_size_in_bytes"] >= need, (mem, need)
 
 
+def _serve_plan(cell_name: str):
+    """The serving layout of granite smoke's ``cell_name`` on the smoke mesh
+    under the baseline profile, by hand from the resolved specs: ``_plan``'s
+    weights' axes with the stream laid out as the cell's tokens, and the
+    cache's rows and sequence axes."""
+    from repro_torch import configs as C
+    from repro_torch.models import build
+    from repro_torch.models.common import resolve_spec
+    cfg, _, plan = _plan("baseline")
+    cell = C.smoke_cell(cell_name)
+    B, S = cell.global_batch, cell.seq_len
+    tokens = _entries(resolve_spec((B, 1 if cell.kind == "decode" else S), ("batch", "seq"),
+                                   SMOKE_MESH, profile="baseline"))
+    cache = next(iter(_pspecs(build(cfg).cache_specs(B, S))))
+    c_spec = _entries(resolve_spec(cache.shape, cache.logical, SMOKE_MESH, profile="baseline"))
+    return cfg, cell, dict(plan, batch=tokens[0], seq=tokens[1], cache_batch=c_spec[1],
+                           cache_seq=c_spec[2])
+
+
+def _hand_serve_collectives(cell_name: str):
+    """Per-device collective bytes and executions of granite smoke's sharded
+    prefill or decode step, from the specs (a product's weights and the
+    stream in bf16, the partial softmax and the logits in float32):
+
+    * each parameter the working layout moves gathered over its embed axes,
+      in the compute type (the norms do not move);
+    * prefill: the train forward's stream collectives (those of
+      :func:`_hand_tp_collectives` without the recompute), each layer's k
+      and v traded from heads to sequence by an all-to-all where the kv
+      heads split, the last token gathered over the sequence;
+    * decode: the embedding's partial rows summed over the vocab axes, each
+      layer's q (and, where the kv heads split, k and v) gathered over the
+      heads' axes, the partial softmax's max, sum and weighted sum summed
+      over the cache's sequence axes, ``wo``'s and the MLP's partial sums
+      summed into the stream;
+    * the logits gathered over the vocab axes, then over the batch axes."""
+    from repro_torch.models import build
+    from repro_torch.models.common import resolve_spec
+    cfg, cell, plan = _serve_plan(cell_name)
+    B, S, D, V, hd = cell.global_batch, cell.seq_len, cfg.d_model, cfg.vocab, cfg.hd
+    R = B // _parts(plan["batch"])
+    n = _parts(plan["qkv"])
+    st = _Stream(plan)
+    bf, f32 = 2, 4
+    wire = []
+
+    def add(ops, itemsize):
+        wire.extend((kind, k * itemsize) for kind, k in ops)
+    for path, p in _pspec_paths(build(cfg).specs()):
+        spec = resolve_spec(p.shape, p.logical, SMOKE_MESH)
+        keep = _working_keep(path, p, spec, plan)
+        add([("all-gather", k) for k in _gathers(math.prod(p.shape), spec, SMOKE_MESH, keep)],
+            bf)
+    vocab = plan["vocab"]
+    if cell.kind == "prefill":
+        Sl = S // _parts(plan["seq"])
+        full, own = R * S * D, R * Sl * D
+        if vocab:
+            add(st.gather(R * Sl), 4)
+            add(st.to_stream(full, vocab), bf)
+        for _ in range(cfg.n_layers):
+            add(st.gather(own) + st.to_stream(full, plan["qkv"]) + st.gather(own)
+                + st.to_stream(full, plan["ffn"]), bf)
+            if plan["kv_local"]:
+                add([("all-to-all", R * S * cfg.n_kv_heads // n * hd)] * 2, bf)
+        add(st.gather(R * D), bf)
+    else:
+        if vocab:
+            add(st.sum(R * D, vocab), bf)
+        heads = [(cfg.n_heads, plan["q_local"]), (cfg.n_kv_heads, plan["kv_local"]),
+                 (cfg.n_kv_heads, plan["kv_local"])]
+        seq = _Stream(dict(seq=plan["cache_seq"]))
+        for _ in range(cfg.n_layers):
+            add([("all-gather", R * h * hd) for h, split in heads if split and plan["qkv"]], bf)
+            add(seq.sum(R * cfg.n_heads, plan["cache_seq"]) * 2
+                + seq.sum(R * cfg.n_heads * hd, plan["cache_seq"]), f32)
+            add(st.sum(R * D, plan["qkv"]) + st.sum(R * D, plan["ffn"]), bf)
+    gathered = R * (V // _parts(vocab))
+    for axes in (vocab, plan["batch"]):
+        for ax in reversed(axes):
+            gathered *= SMOKE_MESH[ax]
+            add([("all-gather", gathered)], f32)
+    counts: dict = {}
+    for kind, _ in wire:
+        counts[kind] = counts.get(kind, 0) + 1
+    return sum(b for _, b in wire), counts
+
+
+def _serve_parts(cell_name: str) -> tuple:
+    cfg, cell, plan = _serve_plan(cell_name)
+    parts = {k: _parts(plan[k]) for k in ("batch", "seq", "qkv", "ffn", "vocab", "cache_batch",
+                                          "cache_seq")}
+    return cfg, cell, parts
+
+
+@pytest.mark.parametrize("cell", SERVE_CELLS)
+def test_dryrun_serving_flops_hand_count(serve_dry, cell):
+    """The sharded prefill's and decode step's per-device product FLOPs
+    equal ``hand_prefill_flops`` / ``hand_decode_flops`` with the ranks each
+    logical axis splits over on the smoke mesh."""
+    from repro_torch.models.tensor_parallel import hand_decode_flops, hand_prefill_flops
+    ref, port = serve_dry[cell]
+    assert port["ok"], port.get("error")
+    cfg, c, parts = _serve_parts(cell)
+    hand = hand_decode_flops if c.kind == "decode" else hand_prefill_flops
+    assert port["cost_analysis"]["flops"] == hand(cfg, c.global_batch, c.seq_len, parts)
+
+
+@pytest.mark.parametrize("cell", SERVE_CELLS)
+def test_dryrun_serving_collectives_hand_count(serve_dry, cell):
+    """The sharded step's collective bytes a device and its executions of
+    each kind equal the hand count from the specs (no cache leaf and no
+    parameter gathered beyond its shard and its working layout)."""
+    _, port = serve_dry[cell]
+    want, counts = _hand_serve_collectives(cell)
+    assert port["collectives"]["collective_bytes_per_device"] == want
+    assert port["collectives"]["op_counts"] == counts
+
+
+@pytest.mark.parametrize("cell", SERVE_CELLS)
+def test_dryrun_serving_temp_within_twice_reference(serve_dry, cell):
+    """The sharded step's temp a device is at most twice the reference's
+    XLA count of the same smoke cell, its arguments the reference's bytes
+    (the state laid out as the reference lays it out)."""
+    ref, port = serve_dry[cell]
+    got, want = (r["memory_analysis"]["temp_size_in_bytes"] for r in (port, ref))
+    print(f"{cell}: temp {got}, {got / want:.4f} x the reference's {want}")
+    assert got <= 2 * want
+    assert port["state_bytes_laid_out"] == port["state_bytes_per_device"] \
+        == ref["state_bytes_per_device"]
+
+
 def test_dryrun_cli(tmp_path):
     """The command line writes an ``ok`` record and exits 0."""
     r = subprocess.run(
@@ -669,9 +873,17 @@ def _hand_flops(name: str, profile: str) -> int:
     return 0                  # embed and adamw: no products
 
 
-#: (profile, probe) whose per-device FLOPs exceed the reference's HLO FLOPs
-#: (ROADMAP Queue 3): attn_proj computes q and k, which XLA drops as dead
-ABOVE_REFERENCE = {("baseline", "attn_proj"), ("serve", "attn_proj")}
+#: (cell, profile, probe) whose per-device FLOPs exceed the reference's HLO
+#: FLOPs, and why (ROADMAP Queue 3)
+ABOVE_REFERENCE = {
+    ("train_4k", "baseline", "attn_proj"): "computes q and k, which XLA drops as dead",
+    ("train_4k", "serve", "attn_proj"): "computes q and k, which XLA drops as dead",
+    # the probe's output reaches only v and o: XLA drops the q and k
+    # products, the port runs them on this rank's heads (1.82 x)
+    ("prefill_32k", "baseline", "attn_proj"): "computes q and k, which XLA drops as dead",
+    # the same, on the whole stream every rank holds under serve (6.71 x)
+    ("prefill_32k", "serve", "attn_proj"): "computes q and k, which XLA drops as dead",
+}
 PROBES = ("attn_proj", "attn_tile", "mlp_block", "loss_chunk", "embed", "adamw")
 
 
@@ -686,7 +898,7 @@ def test_roofline_probe_flops(roof, profile, name):
     got, want = port["components"][name]["flops"], ref["components"][name]["flops"]
     print(f"{profile} {name}: port / reference FLOPs {got / want:.4f}")
     assert got == _hand_flops(name, profile)
-    if (profile, name) in ABOVE_REFERENCE:
+    if ("train_4k", profile, name) in ABOVE_REFERENCE:
         assert got > want
     else:
         assert got <= want
@@ -796,6 +1008,56 @@ def test_roofline_cell_ratios_to_reference(roof, profile):
     flops = port["hlo_flops_global"] / ref["hlo_flops_global"]
     coll = _coll(port) / _coll(ref)
     print(f"{profile}: port / reference FLOPs {flops:.6f}, collective bytes {coll:.6f}")
+    assert flops < 1.0
+    assert coll <= COLL_OVER_REFERENCE[profile]
+
+
+SERVE_PROBES = {"prefill_32k": ("attn_proj", "attn_tile", "mlp_block", "loss_chunk", "embed"),
+                "decode_32k": ("dec_attn", "mlp_block", "embed+unembed")}
+SERVE_KEYS = [(c, p) for c in SERVE_CELLS for p in PROFILES]
+
+
+@pytest.mark.parametrize("cell, profile", SERVE_KEYS)
+def test_roofline_serving_structure_matches_reference(roof_serve, cell, profile):
+    """The serving cells' probes: names, trips, chips, mesh shape and model
+    FLOPs the reference's; each probe's fusion-ideal bytes within rel
+    1e-12."""
+    ref, port = roof_serve[(cell, profile)]
+    assert "error" not in port, port.get("error")
+    for key in ("chips", "mesh_shape", "model_flops"):
+        assert port[key] == ref[key], key
+    assert list(port["components"]) == list(ref["components"]) == list(SERVE_PROBES[cell])
+    for name, got in port["components"].items():
+        want = ref["components"][name]
+        assert got["trips"] == want["trips"] and not got["grad"], name
+        assert got["bytes"] == pytest.approx(want["bytes"], rel=1e-12), name
+
+
+@pytest.mark.parametrize("cell, profile, name",
+                         [(c, p, n) for c, p in SERVE_KEYS for n in SERVE_PROBES[c]])
+def test_roofline_serving_probe_flops(roof_serve, cell, profile, name):
+    """Each serving probe, run as the sharded step runs its layer, has
+    product FLOPs at or below the reference's HLO FLOPs, or above them where
+    ``ABOVE_REFERENCE`` says why; the ratio is printed."""
+    ref, port = roof_serve[(cell, profile)]
+    got, want = port["components"][name]["flops"], ref["components"][name]["flops"]
+    print(f"{cell} {profile} {name}: port / reference FLOPs {got / max(want, 1):.4f}")
+    if (cell, profile, name) in ABOVE_REFERENCE:
+        assert got > want
+    else:
+        assert got <= want
+
+
+@pytest.mark.parametrize("cell, profile", SERVE_KEYS)
+def test_roofline_serving_cell_ratios_to_reference(roof_serve, cell, profile):
+    """The serving cells' global FLOPs below the reference's, their
+    collective bytes within ``COLL_OVER_REFERENCE`` of its (under ``serve``
+    the partial sums over ("model", "data") go one axis at a time, as in
+    train)."""
+    ref, port = roof_serve[(cell, profile)]
+    flops = port["hlo_flops_global"] / ref["hlo_flops_global"]
+    coll = _coll(port) / _coll(ref)
+    print(f"{cell} {profile}: port / reference FLOPs {flops:.6f}, collective bytes {coll:.6f}")
     assert flops < 1.0
     assert coll <= COLL_OVER_REFERENCE[profile]
 

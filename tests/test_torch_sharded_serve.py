@@ -1,0 +1,298 @@
+"""The dense family's sharded prefill and decode (``launch.steps.PrefillStep``
+and ``DecodeStep`` on a mesh, ``models.tensor_parallel.plan_prefill`` /
+``plan_decode``) on a gloo group of 4 spawned CPU ranks, against the
+reference's ``Model.prefill`` / ``Model.decode`` under JAX on the CPU from the
+same weights (``Model.init``, carried over by ``params_onto_mesh``) and
+prompts, in float32.
+
+Cases: granite smoke on (data 2, model 2) (its 2 kv heads split: prefill's
+cache through an all-to-all) and on (1, 4) (the whole ``wk`` / ``wv``
+project each rank's cache slice); llama3 smoke on (1, 4) (2 q heads a rank
+in one GQA group); minicpm smoke on (1, 4) (6 heads on 4 ranks: every head
+on every rank; tied embeddings over a split vocabulary); glm4 smoke on
+(1, 4) (one kv head); granite smoke under ``serve`` on (2, 2) (heads, MLP and
+vocabulary over both axes, the stream's batch whole, the cache's rows on
+``data``), and so with 4 kv heads (which split over both axes, so prefill's
+cache takes an all-to-all over ``data`` for its rows and one over ``model``
+for its sequence, as granite-3-8b's 8 kv heads do on the card's (2, 2)).
+Each prefills (B, P) prompts, moves the cache into a decode cache of T
+positions (``seed_cache``, as the engine pads the reference's) and decodes
+NEW greedy tokens.
+
+Held: the tokens identical; the logits within 1e-5 of the reference's largest
+(the split softmax of decode is not bit for bit the one-device softmax); each
+rank's prefill and decode cache shard within 1e-6 of the matching slice of
+the reference's cache (``substrate.local_slices``).  The mixtral smoke model
+(MoE) on (2, 2) takes the gathering steps, held to the port's one-device
+steps.  A fake 8-rank trace of the decode and prefill steps shows that no
+all-gather outputs more than a rank's cache shard or a parameter's working
+layout.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch.distributed as dist  # noqa: E402
+
+from test_torch_distributed import rel, smoke_cfg, spawn  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CASES = {  # name: (arch, mesh shape, profile, kv heads: None for the smoke config's)
+    "granite-2x2": ("granite-3-8b", (2, 2), "baseline", None),
+    "granite-1x4": ("granite-3-8b", (1, 4), "baseline", None),
+    "llama3-1x4": ("llama3-405b", (1, 4), "baseline", None),
+    "minicpm-1x4": ("minicpm-2b", (1, 4), "baseline", None),
+    "glm4-1x4": ("glm4-9b", (1, 4), "baseline", None),
+    "granite-serve-2x2": ("granite-3-8b", (2, 2), "serve", None),
+    "granite-serve-kv4-2x2": ("granite-3-8b", (2, 2), "serve", 4),
+}
+B, P, T, NEW = 4, 8, 16, 6
+GATHERING = "mixtral-8x22b"
+
+
+def model_key(arch: str, kv) -> str:
+    return arch if kv is None else f"{arch}-kv{kv}"
+
+
+def prompts_for(vocab: int) -> np.ndarray:
+    return np.random.default_rng(5).integers(0, vocab, (B, P)).astype(np.int32)
+
+
+def serve_rank_job(rank, world, init, tmp, weights):
+    """Every case on one 4-rank gloo group: prefill, the decode cache seeded
+    from it, NEW greedy steps; each step's logits and tokens, and this rank's
+    cache shards with their specs.  Then mixtral smoke's gathering steps on
+    (2, 2) and on one device."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.interop import params_onto_mesh
+    from repro_torch.launch.steps import (DecodeStep, PrefillStep, build_decode, build_prefill,
+                                          seed_cache)
+    from repro_torch.models import build
+    from repro_torch.models.common import init_params, sharding_profile, sorted_leaves
+    from repro_torch.optim.adamw import tree_map_sorted
+    from repro_torch.substrate import distribute, init_group, make_mesh
+    torch.set_num_threads(2)
+    init_group("gloo", rank, world, init)
+    cell = ShapeCell("serve", T, B, "decode")
+
+    def shards(cache, sh):
+        return [(x.to_local().clone(), s.spec) for x, s in zip(sorted_leaves(cache),
+                                                                 sorted_leaves(sh))]
+    out = {}
+    for name, (arch, shape, profile, kv) in CASES.items():
+        model = build(smoke_cfg(arch) if kv is None else smoke_cfg(arch, n_kv_heads=kv))
+        with sharding_profile(profile):
+            mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+            fwd, psh = build_prefill(model, mesh)
+            dec, dsh = build_decode(model, mesh, cell)
+            params = params_onto_mesh(weights[model_key(arch, kv)], psh["params"])
+            tokens = torch.as_tensor(prompts_for(model.cfg.vocab))
+            pcache, logits = fwd(params, {"tokens": tokens})
+            prefill_shards = shards(pcache, fwd.plan(tokens)[2])
+            cache = seed_cache(pcache, dsh["cache"], T)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            steps = [(logits, tok)]
+            for i in range(NEW):
+                tok, logits, cache = dec(params, cache, {"tokens": tok[:, None], "pos": P + i})
+                steps.append((logits, tok))
+            tp = dec.plan(torch.empty(B, 1), cache)[0]
+        out[name] = dict(steps=steps, prefill=prefill_shards, decode=shards(cache, dsh["cache"]),
+                         coords=dict(zip(("data", "model"), mesh.get_coordinate())),
+                         plan=(tp.q_local, tp.kv_local, tp.cache_row_axes, tp.cache_seq_axes))
+
+    model = build(smoke_cfg(GATHERING))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.as_tensor(prompts_for(model.cfg.vocab))
+    runs = {}
+    for where in ("mesh", "one"):
+        if where == "one":
+            fwd, dec, p = PrefillStep(model), DecodeStep(model), params
+            cache = init_params(model.cache_specs(B, T), None, "cpu")
+        else:
+            mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+            fwd, psh = build_prefill(model, mesh)
+            dec, dsh = build_decode(model, mesh, cell)
+            p = tree_map_sorted(distribute, params, psh["params"])
+            cache = tree_map_sorted(distribute, init_params(model.cache_specs(B, T), None, "cpu"),
+                                    dsh["cache"])
+        _, logits = fwd(p, {"tokens": tokens})
+        seq, tok = [], tokens[:, :1]
+        for pos in range(NEW):
+            nxt, _, cache = dec(p, cache, {"tokens": tok, "pos": pos})
+            seq.append(nxt)
+            tok = nxt[:, None]
+        runs[where] = (logits, torch.stack(seq, 1), bool(fwd._plans or dec._plans))
+    out[GATHERING] = runs
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """Per architecture: the reference's ``Model.init`` weights (seed 0) in
+    float32 compute, and its greedy run: the prefill's logits and cache, the
+    cache padded to T positions, NEW ``Model.decode`` steps' logits and
+    tokens, and the final cache."""
+    import jax
+    import jax.numpy as jnp
+    import repro.configs as JC
+    from repro.models import build as jbuild
+    out = {}
+    for arch, kv in sorted({(a, kv) for a, _, _, kv in CASES.values()}, key=str):
+        jcfg = dataclasses.replace(JC.get(arch, smoke=True), compute_dtype="float32")
+        if kv is not None:
+            jcfg = dataclasses.replace(jcfg, n_kv_heads=kv)
+        model = jbuild(jcfg)
+        params = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0)))
+        pcache, logits = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(
+            prompts_for(jcfg.vocab))})
+        cache = jax.tree.map(lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, T - P), (0, 0), (0, 0))),
+                             pcache)
+        dec = jax.jit(model.decode)
+        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+        steps = [(np.asarray(logits), np.asarray(tok))]
+        for i in range(NEW):
+            logits, cache = dec(params, cache, tok[:, None], jnp.int32(P + i))
+            tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+            steps.append((np.asarray(logits), np.asarray(tok)))
+        out[model_key(arch, kv)] = dict(params=params, steps=steps,
+                         prefill=[np.asarray(x) for x in jax.tree.leaves(pcache)],
+                         decode=[np.asarray(x) for x in jax.tree.leaves(cache)])
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(reference, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("serve")
+    return spawn(serve_rank_job, 4, tmp, {a: r["params"] for a, r in reference.items()})
+
+
+PLANS = {  # name: (q heads split, kv heads split, cache rows beyond the stream's, cache seq)
+    "granite-2x2": (True, True, (), ("model",)),
+    "granite-1x4": (True, False, (), ("model",)),
+    "llama3-1x4": (True, False, (), ("model",)),
+    "minicpm-1x4": (False, False, (), ("model",)),
+    "glm4-1x4": (True, False, (), ("model",)),
+    "granite-serve-2x2": (True, False, ("data",), ("model",)),
+    "granite-serve-kv4-2x2": (True, True, ("data",), ("model",)),
+}
+
+
+def _slice_err(local, spec, full, coords, shape) -> float:
+    from repro_torch.substrate import local_slices
+    sizes = dict(zip(("data", "model"), shape))
+    want = full[local_slices(full.shape, spec, sizes, coords)]
+    assert tuple(local.shape) == want.shape
+    return rel(local, want)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_sharded_serve_matches_reference(ranks, reference, name):
+    """Prefill and NEW greedy decode steps on the mesh: on every rank the
+    tokens equal the reference's, the logits (whole on every rank) within
+    1e-5 of its largest, and the rank's prefill and decode cache shards
+    within 1e-6 of the reference's caches' matching slices.  Each case takes
+    the head branch it names."""
+    arch, shape, _, kv = CASES[name]
+    ref = reference[model_key(arch, kv)]
+    errs = {"logits": 0.0, "prefill": 0.0, "decode": 0.0}
+    for r in ranks:
+        got = r[name]
+        assert got["plan"] == PLANS[name]
+        for (lg, tok), (wl, wt) in zip(got["steps"], ref["steps"]):
+            assert tuple(lg.shape) == wl.shape
+            assert np.array_equal(tok.numpy(), wt)
+            errs["logits"] = max(errs["logits"], rel(lg, wl))
+        for kind in ("prefill", "decode"):
+            for (local, spec), full in zip(got[kind], ref[kind]):
+                errs[kind] = max(errs[kind], _slice_err(local, spec, full, got["coords"], shape))
+    print(name, errs)
+    assert errs["logits"] <= 1e-5 and errs["prefill"] <= 1e-6 and errs["decode"] <= 1e-6, errs
+
+
+def test_other_families_gather_on_a_mesh(ranks):
+    """The MoE smoke model on (2, 2) runs the gathering prefill and decode
+    (no tensor-parallel plan is made): its prefill logits within 1e-5 of
+    the one-device step's and six greedy tokens identical."""
+    for r in ranks:
+        (lm, tm, planned), (lo, to, _) = r[GATHERING]["mesh"], r[GATHERING]["one"]
+        assert not planned
+        assert rel(lm, lo) < 1e-5
+        assert tm.equal(to)
+
+
+TRACE = """
+import json
+import math
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+import repro_torch.configs as C
+from repro_torch.launch.dryrun import laid_out, make_mesh
+from repro_torch.launch.steps import abstract_cache, build_decode, build_prefill, input_shardings
+from repro_torch.models import build
+from repro_torch.models.common import sorted_leaves
+from repro_torch.optim.adamw import tree_map_sorted
+from repro_torch.substrate import CostCounter, fake_store, init_group, mesh_context
+init_group("fake", 0, 8, store=fake_store())
+mesh = make_mesh("single", smoke=True, device_type="cpu")
+cfg = C.get("granite-3-8b", smoke=True)
+model = build(cfg)
+out = {}
+for name in ("decode_32k", "prefill_32k"):
+    cell = C.smoke_cell(name)
+    inputs = {k: v for k, v in model.input_specs(cell).items() if k != "pos"}
+    in_sh = input_shardings(inputs, mesh)
+    if cell.kind == "decode":
+        step, sh = build_decode(model, mesh, cell)
+    else:
+        step, sh = build_prefill(model, mesh)
+    with mesh_context(mesh), FakeTensorMode(allow_non_fake_inputs=True):
+        batch = {k: laid_out(v, in_sh[k], "cpu") for k, v in inputs.items()}
+        params = tree_map_sorted(lambda m, s: laid_out(m, s, "cpu"), model.abstract(),
+                                 sh["params"])
+        counter = CostCounter()
+        if cell.kind == "decode":
+            cache = tree_map_sorted(lambda m, s: laid_out(m, s, "cpu"),
+                                    abstract_cache(model, cell), sh["cache"])
+            batch["pos"] = cell.seq_len - 1
+            with counter:
+                step(params, cache, batch)
+            tp, layouts = step.plan(batch["tokens"], cache)
+            held = [c.to_local().numel() for c in sorted_leaves(cache)]
+        else:
+            with counter:
+                _, logits = step(params, batch)
+            tp, layouts, _ = step.plan(batch["tokens"])
+            # the stream's gathered sequence, as the train step gathers it
+            held = [cell.global_batch // tp.parts(tp.batch_axes) * cell.seq_len * cfg.d_model]
+        work = tp.working(params, layouts)
+        held += [w.numel() for w in sorted_leaves(work)]
+    out[name] = dict(gathers=[n for k, _, n in counter.collectives if k == "all-gather"],
+                     held=max(held), kinds=sorted({k for k, _, _ in counter.collectives}))
+print("RESULT" + json.dumps(out))
+"""
+
+
+def test_serving_steps_gather_no_more_than_a_shard():
+    """granite smoke ``decode_32k`` and ``prefill_32k`` on the (data 4,
+    model 2) mesh of 8 fake ranks, the steps traced under the counter: no
+    all-gather's result holds more elements than the largest of a rank's
+    cache shards and its parameters' working layouts (prefill: or its rows'
+    gathered sequence, as the train step gathers it); the gathering decode
+    step's cache all-gathers held every row and position."""
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(TRACE)],
+                       env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    out = json.loads(r.stdout.split("RESULT", 1)[1])
+    for name, rec in out.items():
+        print(name, max(rec["gathers"]), rec["held"], rec["kinds"])
+        assert rec["gathers"] and max(rec["gathers"]) <= rec["held"], (name, rec)
