@@ -113,9 +113,9 @@ Phases (any failure exits non-zero; nothing is caught):
      on the card from the same seeded weights and batches in float32 (TF32
      off), within g1's 5e-2 in bf16; each rank's peak memory beside the
      one-device step's, and the step's ms (gloo on one card: not a speed);
-     h6, the ZeRO-3 ``ShardedTrainStep`` the other families run, on h1's
-     (data 1, model 1) NCCL mesh: mamba2-2.7b at its published widths cut
-     to 2 layers and mixtral-8x22b's smoke config, (B, S) = (2, 4096), two
+     h6, the ZeRO-3 ``ShardedTrainStep`` the families without a plan run,
+     on h1's (data 1, model 1) NCCL mesh: mamba2-2.7b at its published
+     widths cut to 2 layers and jamba's smoke config, (B, S) = (2, 4096), two
      steps each within 1e-5 (loss) and 1e-4 (grad norm) of the one-device
      step on the card from the same seeded weights and batches; h7, the
      dense family's sharded ``PrefillStep`` and ``DecodeStep`` at
@@ -126,7 +126,18 @@ Phases (any failure exits non-zero; nothing is caught):
      ``seed_cache``, 16 greedy tokens, float32 with TF32 off, every step's
      logits within 1e-5 of the one-device steps' on the card and every
      token identical; each rank's peak beside the one-device run's, the
-     steps' ms (gloo on one card: not a speed);
+     steps' ms (gloo on one card: not a speed); h8, the MoE family's
+     sharded train step at mixtral-8x22b's published widths cut to 1 layer,
+     (B, S) = (2, 4096), on 4 gloo ranks spawned on the card, a (1, 4) mesh
+     under baseline (2 of the 8 experts a rank) and a (data, expert, tp) =
+     (1, 2, 2) mesh under moe_ep: step 1's loss and grad norm against the
+     one-device step run first and freed, at h5's bounds in float32 (TF32
+     off) and bf16, and every expert choice that differs from the
+     one-device step's at a router probability gap below 1e-5 in float32
+     (bf16's reported); h9, its sharded prefill of a (1, 5120) prompt past
+     the 4096-token window, ``seed_cache`` into the ring and 16 greedy
+     tokens on the same meshes, float32, logits within 1e-5 of the
+     one-device steps and tokens identical;
   i. the analysis tools on the card's own runs, after every timed phase:
      i1, ``launch.dryrun``'s trace of g2's exact cell (minicpm-2b as
      published, (B, S) = (2, 4096), float32 weights and moments) on a
@@ -156,7 +167,16 @@ Phases (any failure exits non-zero; nothing is caught):
      the reference's 140,338,135,088, argument + temp + output below 4/40
      of the card's memory, temp at most twice the reference's
      3,619,734,528), each beside the reference's figures and the card's
-     name and power limit;
+     name and power limit; i5, the MoE family's production cells in
+     processes of their own at low priority, started with phase h:
+     dbrx-132b and mixtral-8x22b (moe_ep, (16, 8, 2)) ``decode_32k`` and
+     ``train_4k`` as published, mixtral-8x22b ``train_4k`` on (16, 16) and
+     dbrx-132b ``prefill_32k`` cut to 4 of its 40 layers, each against the
+     reference's XLA counts (``I5_REFERENCE``): argument + temp + output
+     below the card's memory, collective bytes a device at most 1.0 x
+     (train, prefill) or 1.5 x (decode) the reference's (both scaled by the
+     share of the layers where the depth is cut), product FLOPs equal to the
+     hand counts, the temp printed beside the reference's;
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -188,6 +208,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -221,8 +242,10 @@ from repro_torch.launch.roofline import HW, analyze_cell  # noqa: E402
 from repro_torch.launch.pipeline import pipeline_forward  # noqa: E402
 from repro_torch.launch.steps import (DecodeStep, PrefillStep, build_decode,  # noqa: E402
                                       build_prefill, build_train, input_shardings,
-                                      seed_cache)
+                                      ring_positions, seed_cache)
 from repro_torch.models import build, transformer  # noqa: E402
+from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models.model import PLANNED  # noqa: E402
 from repro_torch.models.common import init_params, tree_leaves, tree_to  # noqa: E402
 from repro_torch.models.common import sharding_profile, sorted_leaves  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
@@ -341,11 +364,10 @@ H3_PODS, H3_NUMEL, H3_ROUNDS, H3_SEED = 2, 16 * 2**20, 50, 13
 # the first step compared with the one-device step, the second timed
 H5_LAYERS, H5_B, H5_S, H5_MESH, H5_SEED, H5_STEPS = 2, 2, 4096, (1, 4), 17, 2
 H5_BOUNDS = {"float32": (1e-5, 1e-4), "bfloat16": (5e-2, 5e-2)}  # loss, grad norm (g1's)
-# h6 the ZeRO-3 step of the other families on h1's (data 1, model 1) mesh:
-# an SSM at its published widths cut to F1_LAYERS layers and a MoE at its
-# smoke config (published, it outgrows the card with its optimizer state),
-# (B, S), steps against the one-device step
-H6_ARCHS, H6_B, H6_S, H6_SEED = (("mamba2-2.7b", False), ("mixtral-8x22b", True)), 2, 4096, 19
+# h6 the ZeRO-3 step of the families without a plan on h1's (data 1, model
+# 1) mesh: an SSM at its published widths cut to F1_LAYERS layers and the
+# hybrid at its smoke config, (B, S), steps against the one-device step
+H6_ARCHS, H6_B, H6_S, H6_SEED = (("mamba2-2.7b", False), ("jamba-v0.1-52b", True)), 2, 4096, 19
 # h7 the dense family's sharded prefill and decode at granite-3-8b's widths
 # cut to H5_LAYERS layers on 4 gloo ranks sharing the card, each mesh under its
 # profile: (B, prompt) prefilled, moved into a cache of H7_CACHE positions,
@@ -353,6 +375,21 @@ H6_ARCHS, H6_B, H6_S, H6_SEED = (("mamba2-2.7b", False), ("mixtral-8x22b", True)
 # steps on the card from the same seeded weights (logits within H7_RTOL)
 H7_MESHES = (((1, 4), "baseline"), ((2, 2), "serve"))
 H7_B, H7_P, H7_CACHE, H7_NEW, H7_SEED, H7_RTOL = 4, 512, 1024, 16, 23, 1e-5
+# h8 the MoE family's train step at mixtral-8x22b's published widths cut to
+# H8_LAYERS layers, (B, S), on 4 gloo ranks sharing the card, each mesh under
+# its profile: (1, 4) baseline (2 of the 8 experts a rank) and (data, expert,
+# tp) = (1, 2, 2) under moe_ep; the first step against the one-device step at
+# h5's bounds, float32 (TF32 off) and bf16, every expert choice that differs
+# from the one-device step's at a router probability gap (its K-th largest
+# less its (K+1)-th) below H8_GAP; h9 the sharded prefill of a (H9_B, H9_P)
+# prompt longer than the 4096-token window (20 groups of 256), seed_cache
+# into the ring and H9_NEW greedy tokens on the same meshes, float32, logits
+# within H7_RTOL of the one-device steps and tokens identical
+H8_ARCH, H8_LAYERS, H8_B, H8_S, H8_SEED, H8_GAP = "mixtral-8x22b", 1, 2, 4096, 29, 1e-5
+H8_STEPS = 1
+H8_MESHES = (((1, 4), ("data", "model"), "baseline"),
+             ((1, 2, 2), ("data", "expert", "tp"), "moe_ep"))
+H9_B, H9_P, H9_NEW, H9_SEED = 1, 5120, 16, 31
 # bytes the AdamW update moves a float32 parameter: parameter, gradient and
 # both moments read, parameter and moments written
 ADAMW_BYTES_PER_PARAM = 28
@@ -407,6 +444,65 @@ I4_REFERENCE = {
 I4_TEMP_OVER_REFERENCE = 2.0
 I4_COLLECTIVE_OVER_REFERENCE = {"decode_32k": 1.5, "prefill_32k": 1.0}
 I4_GATHERED_DECODE = dict(temp=1_429_351_793_152, collective=765_624_156_672, flops=4.84e12)
+# i5 the MoE family's production cells on the same fleet, each through the
+# dry-run's command line in a process of its own, started (at low priority)
+# when phase h starts and read in phase i: (arch, cell, mesh kind, profile,
+# layers: 0 as published); the train cells trace whole in 80-130 s on a
+# CPU, the prefill cell is cut to 4 of its 40 layers (the whole depth
+# traces for about 20 minutes; PERF.md records that CPU run), its
+# collective bytes and argument + temp + output bound scaled by the share
+# of the layers (a trace still running I5_TIMEOUT_S after the start is
+# killed and fails).  Beside the reference's XLA
+# compile counts of each whole cell on 256 fake host devices (python -m
+# repro.launch.dryrun --arch <arch> --cell <cell> --mesh <mesh> [--profile
+# moe_ep], on the CPU, jax 0.9.0): argument, temp and output bytes a device,
+# collective bytes a device and its HLO's collective ops by kind; the port's
+# figures before the MoE family was sharded (its ZeRO-3 train step and
+# gathering decode step through the same dry-run: temp and collective bytes)
+I5_CELLS = (("dbrx-132b", "decode_32k", "single", "baseline", 0),
+            ("mixtral-8x22b", "decode_32k", "moe", "moe_ep", 0),
+            ("dbrx-132b", "train_4k", "single", "baseline", 0),
+            ("mixtral-8x22b", "train_4k", "moe", "moe_ep", 0),
+            ("mixtral-8x22b", "train_4k", "single", "baseline", 0),
+            ("dbrx-132b", "prefill_32k", "single", "baseline", 4))
+I5_TIMEOUT_S = 900
+I5_REFERENCE = {
+    ("dbrx-132b", "train_4k", "single"): dict(
+        argument=6_174_568_452, temp=31_441_918_240, output=6_174_536_028,
+        collective=834_085_307_176,
+        ops={"all-gather": 61, "all-reduce": 18, "collective-permute": 12, "all-to-all": 19}),
+    ("mixtral-8x22b", "train_4k", "moe"): dict(
+        argument=6_883_610_628, temp=26_249_517_384, output=6_883_578_204,
+        collective=1_347_127_616_576,
+        ops={"all-gather": 70, "all-reduce": 23, "collective-permute": 22, "all-to-all": 20}),
+    ("mixtral-8x22b", "train_4k", "single"): dict(
+        argument=6_602_301_444, temp=37_186_229_736, output=6_602_269_020,
+        collective=2_415_047_197_736,
+        ops={"all-gather": 64, "all-reduce": 17, "collective-permute": 12, "all-to-all": 12}),
+    ("dbrx-132b", "decode_32k", "single"): dict(
+        argument=4_742_533_156, temp=6_866_211_968, output=2_684_555_328,
+        collective=32_820_509_216,
+        ops={"all-gather": 24, "all-reduce": 9, "collective-permute": 3, "all-to-all": 1}),
+    ("mixtral-8x22b", "decode_32k", "moe"): dict(
+        argument=2_764_288_036, temp=2_018_643_264, output=469_827_648,
+        collective=35_185_096_704,
+        ops={"all-gather": 23, "all-reduce": 10, "collective-permute": 2}),
+    ("dbrx-132b", "prefill_32k", "single"): dict(
+        argument=2_058_194_944, temp=4_223_010_392, output=5_704_303_640,
+        collective=200_090_664_960,
+        ops={"all-gather": 19, "all-to-all": 5, "all-reduce": 3, "collective-permute": 2}),
+}
+I5_BEFORE = {
+    ("dbrx-132b", "train_4k", "single"): dict(temp=1_428_782_604_316,
+                                               collective=592_186_622_176),
+    ("mixtral-8x22b", "train_4k", "moe"): dict(temp=1_536_131_162_140,
+                                                collective=640_441_565_512),
+    ("dbrx-132b", "decode_32k", "single"): dict(temp=1_922_248_475_136,
+                                                 collective=1_289_427_550_720),
+    ("mixtral-8x22b", "decode_32k", "moe"): dict(temp=932_958_437_888,
+                                                  collective=730_872_316_416),
+}
+I5_COLLECTIVE_OVER_REFERENCE = {"train": 1.0, "prefill": 1.0, "decode": 1.5}
 
 
 def log(*args):
@@ -2236,8 +2332,8 @@ def h6_steps(model, mesh, device) -> list:
 
 
 def zero3_phase(device) -> dict:
-    """Phase h6: the ZeRO-3 ``ShardedTrainStep`` that every family but the
-    dense one runs on a mesh, on a (data 1, model 1) mesh of this process's
+    """Phase h6: the ZeRO-3 ``ShardedTrainStep`` that every family without
+    a plan runs on a mesh, on a (data 1, model 1) mesh of this process's
     one-rank NCCL world (h1's): each of ``H6_ARCHS`` from the same seeded
     weights and batches as the one-device step on the card, every loss
     within 1e-5 relative and grad norm within 1e-4 (one rank computes what
@@ -2248,7 +2344,7 @@ def zero3_phase(device) -> dict:
         cfg = configs.get(arch, smoke=smoke)
         if not smoke:
             cfg = dataclasses.replace(cfg, n_layers=F1_LAYERS)
-        check(cfg.family != "dense", f"h6: {arch} is dense, its meshed step tensor-parallel")
+        check(cfg.family not in PLANNED, f"h6: {arch}'s meshed step is tensor-parallel")
         model = build(cfg)
         one, meshed = h6_steps(model, None, device), h6_steps(model, mesh, device)
         errs = [dict(loss=abs(r["loss"] - w["loss"]) / abs(w["loss"]),
@@ -2414,6 +2510,307 @@ def sharded_serve_phase(device) -> dict:
     return out
 
 
+class RouteRecorder:
+    """Within ``with``: the router probabilities of the first ``n`` calls of
+    ``models.moe._route`` (the forward's layers, before a recompute), each
+    (rows, tokens, E) on the host; the routing is what the step computes,
+    the recorder only reads it."""
+
+    def __init__(self, n: int):
+        self.n, self.probs = n, []
+
+    def __enter__(self):
+        self.route = moe_module._route
+
+        def recorded(xg, router, cfg):
+            out = self.route(xg, router, cfg)
+            if len(self.probs) < self.n:
+                self.probs.append(out[0].detach().flatten(1, 2).float().cpu())
+            return out
+        moe_module._route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        moe_module._route = self.route
+
+
+def routing_gaps(one: list, ranks: list, K: int) -> dict:
+    """Each rank's top-K expert choices (``RouteRecorder`` probabilities of
+    its rows, data 1, and its chunk of the sequence, chunk index = rank)
+    against the one-device step's on the same tokens: how many tokens choose
+    another set of experts, the largest one-device probability gap (the K-th
+    largest less the (K+1)-th) among them, and the least gap of any token."""
+    out = dict(tokens=0, differing=0, max_differing_gap=0.0, min_gap=float("inf"))
+    for layer, probs in enumerate(one):
+        top, idx = moe_module.top_k_first_index(probs, K + 1)
+        gap = top[..., K - 1] - top[..., K]
+        want = idx[..., :K].sort(-1).values
+        out["min_gap"] = min(out["min_gap"], float(gap.min()))
+        for r, rank in enumerate(ranks):
+            got = moe_module.top_k_first_index(rank[layer], K)[1].sort(-1).values
+            own = slice(r * got.shape[1], (r + 1) * got.shape[1])
+            differ = (got != want[:, own]).any(-1)
+            out["tokens"] += differ.numel()
+            out["differing"] += int(differ.sum())
+            if differ.any():
+                out["max_differing_gap"] = max(out["max_differing_gap"],
+                                               float(gap[:, own][differ].max()))
+    return out
+
+
+def h8_config(dtype: str):
+    return dataclasses.replace(configs.get(H8_ARCH), n_layers=H8_LAYERS, compute_dtype=dtype)
+
+
+def h8_one_device(device) -> dict:
+    """The one-device references of h8 and h9 on the card, each run and
+    freed before the ranks spawn: per compute type the first ``H8_STEPS``
+    train steps (loss, grad norm, ms, the first forward's routing, the
+    peak); the float32 prefill, ring-seeded cache and decode steps."""
+    out = {}
+    for dtype in H5_BOUNDS:
+        cfg = h8_config(dtype)
+        model = build(cfg)
+        step, opt, _ = build_train(model, None, G2_STEPS, G2_PEAK_LR)
+        params = model.init(torch.Generator(device).manual_seed(H8_SEED), device)
+        data = SyntheticLM(DataConfig(cfg.vocab, H8_S, H8_B, H8_SEED))
+        batches = [data.device_batch(i, device) for i in range(H8_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with RouteRecorder(H8_LAYERS) as routes:
+            rows = h5_steps(step, opt, params, batches, torch.cuda.synchronize)
+        out[dtype] = dict(steps=rows, routes=routes.probs,
+                          max_memory_allocated=torch.cuda.max_memory_allocated())
+        del params, batches, step, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    model = build(h8_config("float32"))
+    params = model.init(torch.Generator(device).manual_seed(H9_SEED), device)
+    prompts = h9_prompts(model.cfg, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with RouteRecorder(H8_LAYERS) as routes:
+        run = h9_run(PrefillStep(model), DecodeStep(model),
+                     lambda c: ring_cache(model, c, device), params, prompts,
+                     torch.cuda.synchronize)
+    out["serve"] = dict(run, routes=routes.probs,
+                        max_memory_allocated=torch.cuda.max_memory_allocated())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def h9_prompts(cfg, device) -> torch.Tensor:
+    rng = np.random.default_rng(H9_SEED)
+    return torch.as_tensor(rng.integers(0, cfg.vocab, (H9_B, H9_P)), dtype=torch.int32,
+                           device=device)
+
+
+def h9_run(prefill, decode, seed, params, prompts, sync) -> dict:
+    """h7's run at h9's prompt: the prefill, the seeded ring and H9_NEW
+    greedy steps (logits on the host, tokens, ms)."""
+    sync()
+    t = time.perf_counter()
+    pcache, logits = prefill(params, {"tokens": prompts})
+    cache = seed(pcache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    del pcache
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    steps, decode_ms = [(logits.cpu(), tok.cpu())], []
+    for i in range(H9_NEW):
+        sync()
+        t = time.perf_counter()
+        tok, logits, cache = decode(params, cache, {"tokens": tok[:, None], "pos": H9_P + i})
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+        steps.append((logits.cpu(), tok.cpu()))
+    return dict(steps=steps, prefill_ms=prefill_ms, decode_ms=decode_ms)
+
+
+def ring_cache(model, pcache, device):
+    """The one-device decode cache of ``H9_P + H9_NEW`` positions (the
+    window's ring) seeded as the engine seeds it: the prompt's last window
+    positions at their ring slots."""
+    cache = init_params(model.cache_specs(H9_B, H9_P + H9_NEW), None, device)
+    for pos, entry in cache.items():
+        for n, dst in entry.items():
+            where = ring_positions(H9_P, dst.shape[2], model.cfg.window).to(device)
+            held = (where >= 0).nonzero()[:, 0]
+            dst[:, :, held] = pcache[pos][n][:, :, where[held]]
+    return cache
+
+
+def moe_rank(rank, world, init, tmp, device):
+    """One rank of phases h8 and h9 on a gloo group sharing the card: per
+    mesh and profile, h8's ``H8_STEPS`` sharded train steps in each compute
+    type (the first forward's routing, the peak), then h9's sharded prefill,
+    ``seed_cache`` into the ring and decode steps in float32."""
+    torch.cuda.set_device(0)
+    tf32_off()
+    init_group("gloo", rank, world, init)
+    out = dict(backend=dist.get_backend(), world=dist.get_world_size())
+    for shape, axes, profile in H8_MESHES:
+        with sharding_profile(profile):
+            mesh = make_mesh(shape, axes, device_type=device)
+            for dtype in H5_BOUNDS:
+                cfg = h8_config(dtype)
+                model = build(cfg)
+                step, opt, sh = build_train(model, mesh, G2_STEPS, G2_PEAK_LR)
+                params = model.init(torch.Generator(device).manual_seed(H8_SEED), device)
+                params = tree_map_sorted(distribute, params, sh["params"])
+                in_sh = input_shardings(model.input_specs(ShapeCell("h8", H8_S, H8_B, "train")),
+                                        mesh)
+                data = SyntheticLM(DataConfig(cfg.vocab, H8_S, H8_B, H8_SEED))
+                batches = [data.sharded_batch(i, in_sh) for i in range(H8_STEPS)]
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with RouteRecorder(H8_LAYERS) as routes:
+                    rows = h5_steps(step, opt, params, batches, dist.barrier)
+                (tp, _, _), = step._plans.values()
+                out[profile, dtype] = dict(
+                    steps=rows, routes=routes.probs,
+                    max_memory_allocated=torch.cuda.max_memory_allocated(),
+                    plan=dict(experts=tp.expert_axes, expert_ffn=tp.expert_ffn_axes,
+                              seq=tp.seq_axes))
+                del params, batches, step, opt
+                gc.collect()
+                torch.cuda.empty_cache()
+            model = build(h8_config("float32"))
+            fwd, psh = build_prefill(model, mesh)
+            dec, dsh = build_decode(model, mesh,
+                                    ShapeCell("h9", H9_P + H9_NEW, H9_B, "decode"))
+            params = tree_map_sorted(
+                distribute, model.init(torch.Generator(device).manual_seed(H9_SEED), device),
+                psh["params"])
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with RouteRecorder(H8_LAYERS) as routes:
+                run = h9_run(fwd, dec, lambda c: seed_cache(c, dsh["cache"], H9_P + H9_NEW,
+                                                            model.cfg.window),
+                             params, h9_prompts(model.cfg, device), dist.barrier)
+            out[profile, "serve"] = dict(run, routes=routes.probs,
+                                         max_memory_allocated=torch.cuda.max_memory_allocated())
+            del params, fwd, dec
+            gc.collect()
+            torch.cuda.empty_cache()
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def moe_phase(device) -> tuple[dict, dict]:
+    """Phases h8 and h9: the MoE family's sharded train step, prefill and
+    decode at mixtral-8x22b's published widths cut to H8_LAYERS layer(s),
+    on 4 gloo ranks spawned on the card under each of H8_MESHES (the
+    sequence, the heads, the vocabulary and the experts split; under
+    moe_ep the experts' hidden columns on tp), against the one-device steps
+    on the card from the same seeded weights and inputs: h8's first step's
+    loss and grad norm at h5's bounds in float32 (TF32 off) and bf16, and
+    the routing: every expert choice a rank makes that differs from the
+    one-device step's must sit at a probability gap below H8_GAP in float32
+    (bf16's own rounding of the stream, 2^-8 relative, moves choices at far
+    larger gaps: reported, not held); h9's logits within H7_RTOL on every
+    rank and every token identical.  Each rank's peak beside the one-device
+    run's; ms on gloo on one card are not a speed."""
+    tf32_off()
+    card = smi("name,power.limit")
+    one = h8_one_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(moe_rank, 4, tmp, device, timeout=900.0)
+    K = configs.get(H8_ARCH).top_k
+    h8 = dict(arch=H8_ARCH, layers=H8_LAYERS, batch=[H8_B, H8_S], card=card,
+              backend=ranks[0]["backend"], world=ranks[0]["world"])
+    for shape, _, profile in H8_MESHES:
+        for dtype, (b_loss, b_gn) in H5_BOUNDS.items():
+            want = one[dtype]["steps"][0]
+            errs = [dict(loss=abs(r[profile, dtype]["steps"][0]["loss"] - want["loss"])
+                         / abs(want["loss"]),
+                         grad_norm=abs(r[profile, dtype]["steps"][0]["grad_norm"]
+                                       - want["grad_norm"]) / abs(want["grad_norm"]))
+                    for r in ranks]
+            gaps = routing_gaps(one[dtype]["routes"],
+                                [r[profile, dtype]["routes"] for r in ranks], K)
+            row = dict(mesh=list(shape), plan=ranks[0][profile, dtype]["plan"], rel_err=errs,
+                       bounds=dict(loss=b_loss, grad_norm=b_gn), routing=gaps,
+                       losses=[[s["loss"] for s in r[profile, dtype]["steps"]] for r in ranks],
+                       one_device_losses=[s["loss"] for s in one[dtype]["steps"]],
+                       rank_max_memory_allocated=[r[profile, dtype]["max_memory_allocated"]
+                                                  for r in ranks],
+                       one_device_max_memory_allocated=one[dtype]["max_memory_allocated"],
+                       gloo_on_one_card_step_ms=[[s["ms"] for s in r[profile, dtype]["steps"]]
+                                                 for r in ranks],
+                       one_device_step_ms=[s["ms"] for s in one[dtype]["steps"]])
+            h8[f"{profile}/{dtype}"] = row
+            log(f"phase h8: {H8_ARCH} at its published widths cut to {H8_LAYERS} layer(s), "
+                f"(B, S) = ({H8_B}, {H8_S}), {dtype}, the sharded train step on a {shape} mesh "
+                f"under {profile} (plan {row['plan']}) of {h8['world']} {h8['backend']} ranks "
+                f"on the card: step 1 off the one-device step by loss "
+                f"{max(e['loss'] for e in errs):.3e}, grad norm "
+                f"{max(e['grad_norm'] for e in errs):.3e} (bounds {b_loss}, {b_gn}); routing: "
+                f"{gaps['differing']} of {gaps['tokens']} tokens choose other experts than in "
+                f"the one-device step, the largest one-device probability gap among them "
+                f"{gaps['max_differing_gap']:.3e} (bound {H8_GAP} in float32), the least gap "
+                f"of any token {gaps['min_gap']:.3e}; losses {row['losses'][0]} (one device "
+                f"{row['one_device_losses']}); peak by rank {row['rank_max_memory_allocated']} "
+                f"bytes (one device {row['one_device_max_memory_allocated']}); step ms by "
+                f"rank, gloo on one card, not a speed: "
+                f"{[[round(t, 1) for t in r] for r in row['gloo_on_one_card_step_ms']]} (one "
+                f"device {[round(t, 1) for t in row['one_device_step_ms']]}); card {card}")
+            check(all(math.isfinite(x) for r in ranks for s in r[profile, dtype]["steps"]
+                      for x in (s["loss"], s["grad_norm"])), f"h8 {profile} {dtype}: not finite")
+            check(all(e["loss"] <= b_loss and e["grad_norm"] <= b_gn for e in errs),
+                  f"h8 {profile} {dtype}: the sharded step is off the one-device step by "
+                  f"{errs} (bounds {b_loss}, {b_gn})")
+            if dtype == "float32":
+                check(gaps["max_differing_gap"] < H8_GAP,
+                      f"h8 {profile}: an expert choice differs at a gap of "
+                      f"{gaps['max_differing_gap']:.3e}: {gaps}")
+    h9 = dict(arch=H8_ARCH, layers=H8_LAYERS, batch=H9_B, prompt=H9_P,
+              window=configs.get(H8_ARCH).window, new=H9_NEW, card=card,
+              one_device=dict(prefill_ms=one["serve"]["prefill_ms"],
+                              decode_ms=one["serve"]["decode_ms"],
+                              max_memory_allocated=one["serve"]["max_memory_allocated"]))
+    want_steps = one["serve"]["steps"]
+    for shape, _, profile in H8_MESHES:
+        runs = [r[profile, "serve"] for r in ranks]
+        errs = [max(rel_err(lg, w) for (lg, _), (w, _) in zip(run["steps"], want_steps))
+                for run in runs]
+        same = [all(tok.equal(w) for (_, tok), (_, w) in zip(run["steps"], want_steps))
+                for run in runs]
+        gaps = routing_gaps(one["serve"]["routes"], [run["routes"] for run in runs], K)
+        row = dict(mesh=list(shape), rel_err=errs, tokens_identical=same, bound=H7_RTOL,
+                   routing=gaps,
+                   rank_max_memory_allocated=[run["max_memory_allocated"] for run in runs],
+                   gloo_on_one_card_prefill_ms=[run["prefill_ms"] for run in runs],
+                   gloo_on_one_card_decode_ms=[run["decode_ms"] for run in runs])
+        h9[profile] = row
+        log(f"phase h9: {H8_ARCH} at its published widths cut to {H8_LAYERS} layer(s), "
+            f"float32, prefill ({H9_B}, {H9_P}) (window {h9['window']}) seeded into the ring "
+            f"and {H9_NEW} greedy tokens, sharded on a {shape} mesh under {profile}: logits "
+            f"off the one-device steps by {max(errs):.3e} at most (bound {H7_RTOL}), tokens "
+            f"identical on every rank: {all(same)}; routing of the prompt: "
+            f"{gaps['differing']} of {gaps['tokens']} tokens choose other experts (largest gap "
+            f"among them {gaps['max_differing_gap']:.3e}, least gap {gaps['min_gap']:.3e}); peak "
+            f"by rank {row['rank_max_memory_allocated']} bytes (one device "
+            f"{h9['one_device']['max_memory_allocated']}); ms by rank, gloo on one card, not a "
+            f"speed: prefill {[round(t, 1) for t in row['gloo_on_one_card_prefill_ms']]}, "
+            f"decode mean {[round(sum(t) / len(t), 2) for t in row['gloo_on_one_card_decode_ms']]}"
+            f" (one device: prefill {h9['one_device']['prefill_ms']:.1f}, decode mean "
+            f"{sum(h9['one_device']['decode_ms']) / len(h9['one_device']['decode_ms']):.2f}); "
+            f"card {card}")
+        check(all(math.isfinite(float(lg.abs().max())) for run in runs for lg, _ in run["steps"]),
+              f"h9 {profile}: logits not finite")
+        check(gaps["max_differing_gap"] < H8_GAP, f"h9 {profile}: an expert choice differs at "
+              f"a gap of {gaps['max_differing_gap']:.3e}")
+        check(all(e <= H7_RTOL for e in errs),
+              f"h9 {profile}: the sharded steps are off the one-device steps by {errs}")
+        check(all(same), f"h9 {profile}: the sharded steps' tokens differ: {same}")
+    return h8, h9
+
+
 def distributed_path(device, g2: dict) -> dict:
     """Phase h: the distribution substrate on the card (h1 in this
     process's one-rank NCCL world, which h4 reuses through
@@ -2431,37 +2828,46 @@ def distributed_path(device, g2: dict) -> dict:
         h5 = tensor_parallel_phase(device)
         h6 = zero3_phase(device)
         h7 = sharded_serve_phase(device)
+        h8, h9 = moe_phase(device)
     finally:
         dist.destroy_process_group()
-    return dict(h1=h1, h2=h2, h3=h3, h4=h4, h5=h5, h6=h6, h7=h7)
+    return dict(h1=h1, h2=h2, h3=h3, h4=h4, h5=h5, h6=h6, h7=h7, h8=h8, h9=h9)
 
 
-def start_dryrun(out: str, cell: str, layers: int = 0) -> subprocess.Popen:
-    """A trace through the dry-run's command line (phases i3 and i4):
-    granite-3-8b's ``cell`` as published (or cut to ``layers`` layers) on
-    the (16, 16) mesh, a fake fleet of 256 ranks in a process of its own (a
-    process holds one default group), its output in ``out/<cell>.log``."""
+def start_dryrun(out: str, cell: str, layers: int = 0, arch: str = I3_ARCH,
+                 mesh: str = I3_MESH, profile: str = "baseline",
+                 nice: int = 0) -> subprocess.Popen:
+    """A trace through the dry-run's command line (phases i3, i4 and i5):
+    ``arch``'s ``cell`` as published (or cut to ``layers`` layers) on the
+    production ``mesh`` under ``profile``, a fake fleet of 256 ranks in a
+    process of its own (a process holds one default group) at priority
+    ``nice``, its output in ``out/<arch>__<cell>__<mesh>.log``."""
     root = Path(__file__).resolve().parent
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", I3_ARCH, "--cell",
-           cell, "--mesh", I3_MESH, "--device", "cuda", "--out", out, "--layers", str(layers)]
-    with open(Path(out) / f"{cell}.log", "w") as log_file:
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--cell",
+           cell, "--mesh", mesh, "--profile", profile, "--device", "cuda", "--out", out,
+           "--layers", str(layers)]
+    with open(Path(out) / f"{arch}__{cell}__{mesh}.log", "w") as log_file:
         return subprocess.Popen(cmd, cwd=root, stdout=log_file, stderr=subprocess.STDOUT,
-                                env=dict(os.environ, PYTHONPATH=str(root / "src")))
+                                env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                                preexec_fn=(lambda: os.nice(nice)) if nice else None)
 
 
-def finish_dryrun(proc: subprocess.Popen, out: str, cell: str, what: str) -> dict:
-    """Wait for a ``start_dryrun`` process (killed past I3_TIMEOUT_S) and
+def finish_dryrun(proc: subprocess.Popen, out: str, cell: str, what: str,
+                  arch: str = I3_ARCH, mesh: str = I3_MESH, profile: str = "baseline",
+                  timeout: float = I3_TIMEOUT_S) -> dict:
+    """Wait for a ``start_dryrun`` process (killed past ``timeout``) and
     read its record."""
     try:
-        proc.wait(timeout=I3_TIMEOUT_S)
+        proc.wait(timeout=timeout)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    text = (Path(out) / f"{cell}.log").read_text()
+    text = (Path(out) / f"{arch}__{cell}__{mesh}.log").read_text()
     check(proc.returncode == 0, f"{what}: the dry-run exited with {proc.returncode}: "
           f"{text[-4000:]}")
-    rec = json.loads((Path(out) / f"{I3_ARCH}__{cell}__{I3_MESH}.json").read_text())
+    tag = "" if profile == "baseline" else f"__{profile}"
+    rec = json.loads((Path(out) / f"{arch}__{cell}__{mesh}{tag}.json").read_text())
     check(rec["ok"] and rec["collectives"]["collective_bytes"] > 0,
           f"{what}: ok {rec['ok']}, collectives {rec.get('collectives')}, error "
           f"{rec.get('error')}")
@@ -2540,6 +2946,98 @@ def check_i4(rec: dict, cell_name: str, layers: int, card_bytes: int, card: str)
     return out
 
 
+def moe_parts(cfg, mesh: str, shape: dict, kind: str) -> dict:
+    """The ranks each logical axis of the MoE family's sharded steps splits
+    over on a production mesh: on (data, model) under the baseline profile
+    the batch and the cache's rows on data, the sequence, heads, vocabulary
+    and the cache's sequence on model, the experts on model where they
+    divide it (dbrx's 16), else their hidden columns (mixtral's 8); on
+    (data, expert, tp) under moe_ep those on (expert, tp), the experts on
+    expert and their hidden columns on tp.  Where the sequence splits, the
+    tokens cross the experts' axes (1 below); in decode the experts and
+    their columns split among the ranks holding the same tokens."""
+    if mesh == "moe":
+        n = shape["expert"] * shape["tp"]
+        experts, expert_ffn = shape["expert"], shape["tp"]
+    else:
+        n = shape["model"]
+        experts = n if cfg.n_experts % n == 0 else 1
+        expert_ffn = 1 if experts > 1 else n
+    parts = dict(batch=shape["data"], seq=n, qkv=n, ffn=1, vocab=n if cfg.vocab % n == 0 else 1,
+                 cache_batch=shape["data"], cache_seq=n)
+    if kind == "decode":
+        parts.update(seq=1, experts=experts, expert_ffn=expert_ffn)
+    return parts
+
+
+def start_i5(out: str) -> dict:
+    """Phase i5's traces, each in a process of its own at low priority."""
+    return {(arch, cell, mesh): start_dryrun(out, cell, layers, arch, mesh, profile, nice=10)
+            for arch, cell, mesh, profile, layers in I5_CELLS}
+
+
+def check_i5(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> dict:
+    """Phase i5: each MoE cell's record against the reference's counts of
+    the whole cell: argument + temp + output below the card's memory,
+    collective bytes a device at most ``I5_COLLECTIVE_OVER_REFERENCE`` x the
+    reference's (both scaled by the share of the layers where the depth is
+    cut), product FLOPs equal to the hand count (``hand_*_flops`` with
+    ``moe_parts``); the temp printed beside the reference's."""
+    rows = {}
+    for arch, cell_name, mesh, profile, layers in I5_CELLS:
+        what = f"i5 {arch} {cell_name} {mesh}"
+        rec = finish_dryrun(procs[arch, cell_name, mesh], out, cell_name, what, arch, mesh,
+                            profile, timeout=max(1.0, I5_TIMEOUT_S - (time.perf_counter() - t0)))
+        cfg = configs.get(arch)
+        share = layers / cfg.n_layers if layers else 1.0
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cell = configs.SHAPES[cell_name]
+        hand_fn = dict(train=hand_train_flops, prefill=hand_prefill_flops,
+                       decode=hand_decode_flops)[cell.kind]
+        hand = hand_fn(cfg, cell.global_batch, cell.seq_len,
+                       moe_parts(cfg, mesh, rec["mesh_shape"], cell.kind))
+        mem, coll, flops = rec["memory_analysis"], rec["collectives"], rec["cost_analysis"]["flops"]
+        ref = I5_REFERENCE[arch, cell_name, mesh]
+        total = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] + \
+            mem["output_size_in_bytes"]
+        over = coll["collective_bytes_per_device"] / (ref["collective"] * share)
+        row = dict(arch=arch, cell=cell_name, mesh=mesh, profile=profile, layers=cfg.n_layers,
+                   share=share, trace_s=rec["lower_s"], memory=mem, argument_temp_output=total,
+                   card_bytes=card_bytes, collective_bytes_per_device=coll[
+                       "collective_bytes_per_device"],
+                   collective_by_kind=coll["collective_bytes_per_device_by_kind"],
+                   collective_ops=coll["op_counts"], flops=flops, hand_flops=hand,
+                   reference=ref, before=I5_BEFORE.get((arch, cell_name, mesh)), card=card,
+                   temp_over_reference=mem["temp_size_in_bytes"] / ref["temp"],
+                   collectives_over_reference=over)
+        rows[f"{arch}/{cell_name}/{mesh}"] = row
+        log(f"phase i5: {arch} {cell_name}{f' cut to {layers} layers' if layers else ''} on "
+            f"the {rec['mesh_shape']} mesh under {profile} of "
+            f"{math.prod(rec['mesh_shape'].values())} fake ranks, sharded: trace "
+            f"{rec['lower_s']} s; argument {mem['argument_size_in_bytes']} / temp "
+            f"{mem['temp_size_in_bytes']} / output {mem['output_size_in_bytes']} bytes a device "
+            f"(the reference's {ref['argument']} / {ref['temp']} / {ref['output']}; temp "
+            f"{row['temp_over_reference']:.4f} x), argument + temp + output {total} against "
+            f"{card_bytes * share:.0f} (the card's {card_bytes}"
+            f"{' x ' + str(share) if layers else ''}); collective bytes a device "
+            f"{coll['collective_bytes_per_device']:.0f} by kind "
+            f"{coll['collective_bytes_per_device_by_kind']}, ops {coll['op_counts']}, "
+            f"{over:.4f} x the reference's {ref['collective']}"
+            f"{' x ' + str(share) if layers else ''} (its HLO's ops {ref['ops']}); product "
+            f"FLOPs {flops:.6e}, the hand count {hand:.6e}; before (ZeRO-3 or gathering): "
+            f"{row['before']}; card {card}")
+        check(total < card_bytes * share,
+              f"{what}: argument + temp + output {total} above {card_bytes * share}")
+        check(over <= I5_COLLECTIVE_OVER_REFERENCE[cell.kind],
+              f"{what}: collective bytes {over:.4f} x the reference's, above "
+              f"{I5_COLLECTIVE_OVER_REFERENCE[cell.kind]}")
+        check(flops == hand, f"{what}: {flops} product FLOPs, the hand count {hand}")
+    log(f"phase i5: {time.perf_counter() - t0:.1f} s from the traces' start to their last "
+        f"record")
+    return rows
+
+
 def traced_train_flops(cfg, B: int, S: int) -> int:
     """The product FLOPs one train step of a swiglu decoder runs, as the
     dry-run counts them: ``train_bounds``' products, but every (q, k) tile
@@ -2556,11 +3054,13 @@ def traced_train_flops(cfg, B: int, S: int) -> int:
     return 4 * fwd - L * 2 * B * S * d * cfg.d_ff
 
 
-def analysis_phase(device, g2: dict, e2: dict) -> dict:
+def analysis_phase(device, g2: dict, e2: dict, i5_procs: dict, i5_dir: str,
+                   i5_t0: float) -> dict:
     """Phase i, after every timed phase: i3 traced in a process of its own
     while this one runs i1, the dry-run of g2's cell, and i2, the roofline of
     the cells g2 and e2 ran, on a one-rank fake world (this process's
-    default group for i1 and i2 alone)."""
+    default group for i1 and i2 alone); then i5's records, whose traces
+    started with phase h."""
     card = smi("name,power.limit")
     with tempfile.TemporaryDirectory() as tmp:
         t3 = time.perf_counter()
@@ -2619,7 +3119,8 @@ def analysis_phase(device, g2: dict, e2: dict) -> dict:
           f"reference's {I3_REFERENCE_COLLECTIVE_BYTES}")
     i4 = {cell: check_i4(i4[cell], cell, layers, card_bytes, card) for cell, layers in I4_CELLS}
     log(f"phase i4: {i4_wall:.1f} s for i3 and i4 beside i1 and i2")
-    return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, card=card)
+    i5 = check_i5(i5_procs, i5_dir, i5_t0, card_bytes, card)
+    return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, i5=i5, card=card)
 
 
 def analysis_one_rank(device, g2: dict, e2: dict, card: str) -> tuple[dict, list]:
@@ -3125,13 +3626,24 @@ def main() -> int:
     log(f"training path launches: {by_path['training']} (a re-plan of the g2 layer DAG "
         f"sweeps {replan_dense} dense levels)")
     print(json.dumps({"training": train}), flush=True)
-    distributed, by_path["distributed"] = counted(distributed_path, device, train["g2"])
-    check(by_path["distributed"]["ceft_relax"] > 0,
-          f"the distributed path launched no ceft_relax: {by_path['distributed']}")
-    log(f"distributed path launches: {by_path['distributed']} (ceft_relax "
-        f"{by_path['distributed']['ceft_relax']}: h4's straggler re-plans)")
-    print(json.dumps({"distributed": distributed}), flush=True)
-    analysis, by_path["analysis"] = counted(analysis_phase, device, train["g2"], lm["e2"])
+    i5_dir = tempfile.mkdtemp()
+    i5_t0 = time.perf_counter()
+    i5_procs = start_i5(i5_dir)
+    try:
+        distributed, by_path["distributed"] = counted(distributed_path, device, train["g2"])
+        check(by_path["distributed"]["ceft_relax"] > 0,
+              f"the distributed path launched no ceft_relax: {by_path['distributed']}")
+        log(f"distributed path launches: {by_path['distributed']} (ceft_relax "
+            f"{by_path['distributed']['ceft_relax']}: h4's straggler re-plans)")
+        print(json.dumps({"distributed": distributed}), flush=True)
+        analysis, by_path["analysis"] = counted(analysis_phase, device, train["g2"], lm["e2"],
+                                                i5_procs, i5_dir, i5_t0)
+    finally:
+        for proc in i5_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(i5_dir, ignore_errors=True)
     print(json.dumps({"analysis": analysis}, default=float), flush=True)
     log(f"launches by path: {by_path}")
 

@@ -20,13 +20,14 @@ Training probes run the scalarised probe's value and its gradients
 (``torch.autograd`` in place of ``jax.value_and_grad``); remat="full" adds
 one forward per layer with the reference's approximation (a third of the
 probe's figures).  A probe runs as the port's step runs that layer: the
-dense family's probes call the layer code of its tensor-parallel steps
-(``models.tensor_parallel``: parameters gathered over their embed axes,
-this rank's heads, columns and vocabulary, the stream's collectives; the
-train probes sum their gradients into the parameters' layouts, the prefill
-and decode probes gather their weights in the compute type and decode
-attends over this rank's cache shard); every other family's probe gathers
-its parameters whole, as its steps do.
+dense and MoE families' probes call the layer code of their tensor-parallel
+steps (``models.tensor_parallel``: parameters gathered over their embed
+axes, this rank's heads, columns, experts and vocabulary, the stream's and
+the dispatched tokens' collectives; the train probes sum their gradients
+into the parameters' layouts, the expert weights travelling in the compute
+type, the prefill and decode probes gather their weights in the compute
+type and decode attends over this rank's cache shard); every other
+family's probe gathers its parameters whole, as its steps do.
 
 Per device: the counter counts this rank's local ops below the ``DTensor``
 layer, so ``flops`` and ``coll`` are one device's, as XLA's are under SPMD.
@@ -64,9 +65,11 @@ from ..models.common import (PSpec, ShardingProfile, abstract_params, active_pro
                              sharding_profile, sorted_leaves, torch_dtype)
 from ..models.layers import (attn_decode, attn_out, attn_specs, mlp, mlp_specs, qkv_proj,
                              rmsnorm, rmsnorm_spec)
+from ..models.model import PLANNED
 from ..models.moe import moe, moe_specs
 from ..models.ssm import _causal_conv, _segsum, ssd_decode, ssm_specs
-from ..models.tensor_parallel import TensorParallel, plan_decode, plan_prefill, plan_train
+from ..models.tensor_parallel import (TensorParallel, expert_leaves, plan_decode, plan_prefill,
+                                      plan_train)
 from ..models.transformer import _xent_chunk, cache_specs, embed_tokens, model_specs
 from ..substrate import (CostCounter, Sharding, full_value, local_value, mesh_context,
                          reduce_over)
@@ -133,19 +136,20 @@ def _split_axes(shardings, mesh) -> tuple[str, ...]:
 def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", n_params: int = 0,
                    grad: bool = False, rows_only: tuple[int, ...] = (),
                    tp: TensorParallel | None = None, param_specs=None,
-                   work_dtype: torch.dtype | None = None) -> dict:
+                   work_dtype: torch.dtype | None = None, work_cast=None) -> dict:
     """Trace ``fn`` once on fake ``DTensor``s laid out by ``shardings`` on
     ``mesh``, as the port's sharded step runs a layer.  Without ``tp`` (the
-    ZeRO-3 step, every family but the dense one): the first ``n_params``
+    ZeRO-3 step, every family without a plan): the first ``n_params``
     arguments (parameter trees) all-gathered to their full values, the
     arguments ``rows_only`` on their batch rows (as the decode step gathers
     its cache), every other argument on this rank's shards; a gradient
     probe's parameter gradients reduce-scattered back into their layouts
     over the mesh axes that split the other arguments.  With ``tp`` (the
-    dense family's tensor-parallel steps): the parameter tree (of the PSpecs
-    ``param_specs``) in its working layout (gathered in ``work_dtype``, the
-    serving steps' compute type) and a gradient probe's gradients summed
-    from there into the parameters' layouts, as ``ShardedTrainStep`` does.
+    dense and MoE families' tensor-parallel steps): the parameter tree (of
+    the PSpecs ``param_specs``) in its working layout (the leaves
+    ``work_cast`` marks, all where it is None, gathered in ``work_dtype``,
+    the compute type) and a gradient probe's gradients summed from there
+    into the parameters' layouts, as ``ShardedTrainStep`` does.
     Returns per-device product flops, unfused and fusion-ideal bytes, and
     collective bytes."""
     # the outputs' global shapes, for the fusion-ideal bytes
@@ -160,7 +164,7 @@ def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", n_params: in
         with counter:
             if tp is not None:
                 layouts = tp.layouts(param_specs)
-                local = [tp.working(laid[0], layouts, work_dtype)] + \
+                local = [tp.working(laid[0], layouts, work_dtype, work_cast)] + \
                     [_tree(local_value, a) for a in laid[1:]]
             else:
                 local = [_tree(full_value if i < n_params else
@@ -192,9 +196,10 @@ class Probe:
     grad: bool = False  # trace the value and its gradients instead of fn
     n_params: int = 0   # leading arguments that are parameter trees
     rows_only: tuple[int, ...] = ()  # arguments traced on their batch rows only
-    tp: TensorParallel | None = None  # the dense family's step's plan
+    tp: TensorParallel | None = None  # the planned families' step's plan
     param_specs: dict | None = None   # the parameter tree's PSpecs, with tp
     work_dtype: torch.dtype | None = None  # the type the weights travel in, with tp
+    work_cast: list | None = None     # the leaves that travel so (None: all), with tp
 
 
 def _scalarize(fn):
@@ -246,11 +251,11 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
 
     x_sh = _sh(mesh, (B, S, D), ("batch", "seq", "none"))
     x_abs = _abs((B, S, D), bf16)
-    # the dense family's steps are tensor-parallel (launch.steps): its probes
-    # run the step's layer code on this rank's working shards, and on whole
-    # tensors (tp=None) for their outputs' global shapes
+    # the dense and MoE families' steps are tensor-parallel (launch.steps):
+    # their probes run the step's layer code on this rank's working shards,
+    # and on whole tensors (tp=None) for their outputs' global shapes
     plan = None
-    if cfg.family == "dense":
+    if cfg.family in PLANNED:
         if train:
             plan = plan_train(cfg, model_specs(cfg), mesh, (B, S))
         elif decode:
@@ -266,7 +271,8 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
         probes.append(Probe(name, g, (p_abs,) + extra_args, (p_sh,) + extra_sh, trips, grad,
                             n_params=1, rows_only=rows_only, tp=plan,
                             param_specs=params_specs if plan is not None else None,
-                            work_dtype=None if train or plan is None else bf16))
+                            work_dtype=None if plan is None else bf16,
+                            work_cast=expert_leaves(params_specs) if train else None))
 
     # ---------------------------------------------------------- attention
     if n_attn and not decode:
@@ -428,8 +434,8 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
     if n_moe:
         specs = {"norm": rmsnorm_spec(D), **moe_specs(cfg)}
 
-        def moe_block(p, x):
-            y, aux = moe(p, rmsnorm(p["norm"], x, cfg.norm_eps), cfg)
+        def moe_block(p, x, tp=None):
+            y, aux = moe(p, rmsnorm(p["norm"], x, cfg.norm_eps), cfg, tp)
             return x + y + aux
 
         add("moe_block", moe_block, specs, (tok_abs,), (tok_sh,), n_moe, train)
@@ -509,7 +515,8 @@ def _analyze_cell(cfg: ArchConfig, cell: ShapeCell, mesh, prof: ShardingProfile,
     totals = {"flops": 0.0, "bytes": 0.0, "bytes_hlo": 0.0, "coll": 0.0}
     for pr in build_probes(cfg, cell, mesh):
         st = _compile_stats(pr.fn, pr.args, pr.shardings, mesh, device, pr.n_params, pr.grad,
-                            pr.rows_only, pr.tp, pr.param_specs, pr.work_dtype)
+                            pr.rows_only, pr.tp, pr.param_specs, pr.work_dtype,
+                            pr.work_cast)
         comps[pr.name] = {**st, "trips": pr.trips, "grad": pr.grad}
         for k in totals:
             totals[k] += st[k] * pr.trips

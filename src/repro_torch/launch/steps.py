@@ -6,53 +6,62 @@ Without a mesh a step runs eagerly on the parameters' device, gradients from
 
 On a mesh the state lives as ``DTensor``s laid out by ``Model.shardings``
 and ``AdamW.moment_specs`` (FSDP over ``data`` under the baseline profile).
-:class:`ShardedTrainStep` splits the dense family's compute over the mesh as
-the reference's ``LOGICAL_RULES`` lay it out (``models.tensor_parallel``):
+:class:`ShardedTrainStep` splits the dense and MoE families' compute over the
+mesh as the reference's ``LOGICAL_RULES`` lay it out
+(``models.tensor_parallel``):
 
   1. gather each parameter over its ``embed`` axes only (its working
-     layout; a q / k / v weight whose heads do not split, whole); the
-     ``qkv``, ``ffn`` and ``vocab`` shards stay on their ranks;
+     layout; a q / k / v weight whose heads do not split, and a MoE router,
+     whole; an expert weight in the compute type); the ``qkv``, ``ffn``,
+     ``experts`` and ``vocab`` shards stay on their ranks;
   2. take each input's own shard: this rank's batch rows and sequence slice,
      the residual stream; each block gathers the normed stream's sequence,
      runs its column-parallel products on this rank's heads and columns and
      reduce-scatters its row-parallel partial sums back into the slice; the
      embedding and the cross-entropy are vocab-parallel where the
-     vocabulary splits;
+     vocabulary splits; a MoE block routes its own tokens, and the
+     dispatched tokens cross the expert axes by an all-to-all (or, where the
+     experts do not divide the axis, the layer gathers the expert weights'
+     hidden columns and runs every expert on its own groups:
+     ``models.moe``);
   3. weight the rank's loss by its share of the valid labels (and by one
-     over the ranks that hold the same tokens) so the per-rank values sum,
-     over the mesh, to the whole batch's mean loss; the collectives are
-     differentiated as their adjoints under that sum, so one
-     ``torch.autograd.grad`` gives each working gradient;
-  4. sum each working gradient over the mesh axes its layout does not split
-     into its parameter's layout (``reduce_over``: a reduce-scatter over
-     ``data`` for a weight, an all-reduce over every axis for a norm);
+     over the ranks that hold the same tokens), and add its share of the
+     load-balance term, so the per-rank values sum, over the mesh, to the
+     whole batch's loss; the collectives are differentiated as their
+     adjoints under that sum, so one ``torch.autograd.grad`` gives each
+     working gradient;
+  4. sum each working gradient, in its parameter's type, over the mesh axes
+     its layout does not split into its parameter's layout
+     (``TensorParallel.reduce_grads``: a reduce-scatter over ``data`` for a
+     weight, an all-reduce over every axis for a norm);
   5. the global norm: each leaf's sum of squares over its shards, one
      all-reduce of the vector of leaves over each mesh axis (a replicated
      shard counted once), then the float32 sum in the reference's leaf
      order;
   6. ``AdamW.apply`` on each rank's shards, in place.
 
-The other families (MoE, SSM, hybrid, encoder-decoder, VLM) run ZeRO-3
-instead: every parameter gathered whole, each rank computing its batch
-rows' whole sequence, each gradient reduce-scattered over the batch axes;
-so their ``model`` axis shards storage, not compute.  That is a choice by
-family, not a fallback: their expert, SSM and cross-attention layouts are
-later slices (ROADMAP).
+The other families (SSM, hybrid, encoder-decoder, VLM) run ZeRO-3 instead:
+every parameter gathered whole, each rank computing its batch rows' whole
+sequence, each gradient reduce-scattered over the batch axes; so their
+``model`` axis shards storage, not compute.  That is a choice by family, not
+a fallback: their SSM, hybrid and cross-attention layouts are later slices
+(ROADMAP).
 
-:class:`PrefillStep` and :class:`DecodeStep` on a mesh split the dense
-family's serving the same way (``plan_prefill``, ``plan_decode``): each
+:class:`PrefillStep` and :class:`DecodeStep` on a mesh split the dense and
+MoE families' serving the same way (``plan_prefill``, ``plan_decode``): each
 parameter gathered over its ``embed`` axes only, in the compute type; each
 input's own shard; the decode cache kept in the reference's decode-SP
 layout (rows on ``cache_batch``, sequence on ``cache_seq``, every kv head),
 each rank reading and writing only its shard, in place.  Prefill returns
-its cache laid out so (:func:`seed_cache` moves it into a longer decode
-cache, shard to shard); both return the logits and the next tokens whole on
-every rank.  The other families' prefill and decode gather every parameter,
-input and cache leaf whole and compute the whole batch on every rank, as
-their train step does.  A dense model whose plan raises ``ValueError`` on a
-mesh fails; it does not gather instead.  ``abstract_state`` and
-``abstract_cache`` give the state and the cache as ``meta`` tensors for the
-dry-run (``launch.dryrun``).
+its cache laid out so, every position (a sliding window's too), and
+:func:`seed_cache` moves it into a decode cache, shard to shard (a window's
+ring slots as the engine fills them); both return the logits and the next
+tokens whole on every rank.  The other families' prefill and decode gather
+every parameter, input and cache leaf whole and compute the whole batch on
+every rank, as their train step does.  A planned model whose plan raises
+``ValueError`` on a mesh fails; it does not gather instead.
+``abstract_state`` and ``abstract_cache`` give the state and the cache as
+``meta`` tensors for the dry-run (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -66,8 +75,9 @@ from torch.distributed.tensor import DTensor, Replicate
 from ..configs.base import ArchConfig, ShapeCell
 from ..models.common import (abstract_params, active_profile, param_shardings, resolve_spec,
                              sorted_leaves, torch_dtype, tree_map_pspec)
-from ..models.model import Model
-from ..models.tensor_parallel import TensorParallel, plan_decode, plan_prefill, plan_train
+from ..models.model import PLANNED, Model
+from ..models.tensor_parallel import (TensorParallel, expert_leaves, plan_decode, plan_prefill,
+                                      plan_train)
 from ..optim import AdamW, AdamWState, for_config
 from ..optim.adamw import tree_map_sorted
 from ..substrate import (Sharding, chunk_of, distribute, exchange_over, from_shard,
@@ -158,33 +168,35 @@ def _stream_rows(x, sharding: Sharding) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class ShardedTrainStep(TrainStep):
-    """The train step on a mesh: tensor- and sequence-parallel for the
-    dense family, ZeRO-3 for the others (the module docstring)."""
+    """The train step on a mesh: tensor-, sequence- and expert-parallel for
+    the dense and MoE families, ZeRO-3 for the others (the module
+    docstring)."""
     mesh: Any = None
     _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def loss_and_grads(self, params, batch):
         """The whole batch's loss (the same on every rank) and its
         gradients, each a ``DTensor`` laid out as its parameter."""
-        if self.model.cfg.family == "dense":
+        if self.model.cfg.family in PLANNED:
             return self._tensor_parallel(params, batch)
         return self._zero3(params, batch)
 
-    def plan(self, labels) -> tuple[TensorParallel, list]:
-        """The dense step's plan for a batch of ``labels``' (global) shape
-        under the active profile, and its working layouts in sorted leaf
-        order: made at the first step of that shape and kept."""
+    def plan(self, labels) -> tuple[TensorParallel, list, list]:
+        """The planned step's plan for a batch of ``labels``' (global) shape
+        under the active profile, its working layouts in sorted leaf order
+        and which leaves travel in the compute type (the expert weights):
+        made at the first step of that shape and kept."""
         key = (tuple(labels.shape), active_profile().name)
         if key not in self._plans:
             specs = self.model.specs()
             tp = plan_train(self.model.cfg, specs, self.mesh, key[0])
-            self._plans[key] = (tp, tp.layouts(specs))
+            self._plans[key] = (tp, tp.layouts(specs), expert_leaves(specs))
         return self._plans[key]
 
     def _tensor_parallel(self, params, batch):
         mesh, model = self.mesh, self.model
-        tp, layouts = self.plan(batch["labels"])
-        work = tp.working(params, layouts)
+        tp, layouts, cast = self.plan(batch["labels"])
+        work = tp.working(params, layouts, torch_dtype(model.cfg.compute_dtype), cast)
         rows = {k: _stream_rows(batch[k], tp.stream) for k in ("tokens", "labels")}
 
         def over_mesh(x):
@@ -196,8 +208,11 @@ class ShardedTrainStep(TrainStep):
         leaves = sorted_leaves(work)
         for w in leaves:
             w.requires_grad_(True)
-        part = model.loss_terms(work, rows, tp)[0] * share    # the dense family has no aux term
-        grads = torch.autograd.grad(part, leaves, allow_unused=True, materialize_grads=True)
+        xent, aux = model.loss_terms(work, rows, tp)
+        part = xent * share + aux
+        grads = list(torch.autograd.grad(part, leaves, allow_unused=True,
+                                         materialize_grads=True))
+        del work, leaves    # the working copy is not needed past the backward
         sharded = iter(tp.reduce_grads(grads, params, layouts))
         return over_mesh(part.detach()), tree_map_sorted(lambda _: next(sharded), params)
 
@@ -275,8 +290,9 @@ def build_train(model: Model, mesh=None, total_steps: int = 10_000, peak_lr: flo
 
 def _serves_on(model: Model, mesh) -> bool:
     """Whether the prefill and decode steps split the model's compute on
-    ``mesh`` (the dense family) rather than gathering everything."""
-    return mesh is not None and model.cfg.family == "dense"
+    ``mesh`` (the dense and MoE families) rather than gathering
+    everything."""
+    return mesh is not None and model.cfg.family in PLANNED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,24 +302,26 @@ class PrefillStep:
     _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def plan(self, tokens) -> tuple[TensorParallel, list, dict]:
-        """The dense prefill's plan for ``tokens``' (global) shape under the
-        active profile, its working layouts and the cache's shardings: made
-        at the first call of that shape and kept."""
+        """The sharded prefill's plan for ``tokens``' (global) shape under
+        the active profile, its working layouts and the shardings of the
+        cache it returns (every position): made at the first call of that
+        shape and kept."""
         key = (tuple(tokens.shape), active_profile().name)
         if key not in self._plans:
             model, specs = self.model, self.model.specs()
             tp = plan_prefill(model.cfg, specs, self.mesh, key[0])
             self._plans[key] = (tp, tp.layouts(specs),
-                                param_shardings(model.cache_specs(*key[0]), self.mesh))
+                                param_shardings(model.cache_specs(*key[0], ring=False),
+                                                self.mesh))
         return self._plans[key]
 
     @torch.no_grad()
     def __call__(self, params, batch):
         """``Model.prefill``: (the cache, the last token's logits).  Without
-        a mesh, or for a family other than the dense one, on the full
-        parameters and inputs (every rank computes the whole batch); for the
-        dense family on a mesh, sharded, the cache as ``DTensor``s laid out
-        by ``Model.cache_specs`` of the batch's shape."""
+        a mesh, or for a family without a plan, on the full parameters and
+        inputs (every rank computes the whole batch); for the dense and MoE
+        families on a mesh, sharded, the cache as ``DTensor``s laid out by
+        ``Model.cache_specs`` of the batch's shape at every position."""
         if not _serves_on(self.model, self.mesh):
             return self.model.prefill(gathered(params), gathered(batch))
         tp, layouts, cache_sh = self.plan(batch["tokens"])
@@ -326,7 +344,7 @@ class DecodeStep:
     _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def plan(self, tokens, cache) -> tuple[TensorParallel, list]:
-        """The dense decode step's plan for ``tokens``' (global) shape and
+        """The sharded decode step's plan for ``tokens``' (global) shape and
         the cache's length under the active profile, and its working
         layouts: made at the first step of that shape and kept."""
         seq = sorted_leaves(cache)[0].shape[2]
@@ -341,11 +359,11 @@ class DecodeStep:
     @torch.no_grad()
     def __call__(self, params, cache, inputs: dict):
         """One greedy token: (next token (B,) int32, logits (B, 1, V), the
-        cache), the token and logits whole on every rank.  The dense family
-        on a mesh writes each rank's cache shard in place and returns the
-        same ``DTensor``s.  Another family on a mesh gathers the cache,
-        writes it and lays it out again by ``cache_shardings``; on one rank
-        the gather is the cache itself, written in place."""
+        cache), the token and logits whole on every rank.  The dense and
+        MoE families on a mesh write each rank's cache shard in place and
+        return the same ``DTensor``s.  Another family on a mesh gathers the
+        cache, writes it and lays it out again by ``cache_shardings``; on
+        one rank the gather is the cache itself, written in place."""
         if _serves_on(self.model, self.mesh):
             tp, layouts = self.plan(inputs["tokens"], cache)
             work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype))
@@ -377,42 +395,71 @@ def _seq_axes(x: DTensor) -> tuple[str, ...]:
                  if p.is_shard(2))
 
 
+def ring_positions(P: int, Sc: int, window: int) -> torch.Tensor:
+    """The prompt position each of a decode cache's ``Sc`` slots holds once
+    a prompt of ``P`` tokens is seeded, -1 for none, as the engine seeds it:
+    with a sliding ``window`` and a prompt of at least ``Sc`` tokens, the
+    last ``Sc`` positions t at ring slot t % Sc; else position s at slot s
+    below ``P``."""
+    s = torch.arange(Sc)
+    if window and P >= Sc:
+        return P - Sc + (s - (P - Sc)) % Sc
+    return torch.where(s < P, s, -1)
+
+
 @torch.no_grad()
-def seed_cache(prefill_cache, shardings, seq: int):
-    """A decode cache of ``seq`` positions laid out by ``shardings``
-    (``build_decode``'s) holding the prompt's k, v from a sharded
-    ``PrefillStep``'s cache (``DTensor``s of P <= ``seq`` positions) at
-    positions [0, P) and zeros beyond, as the engine seeds its cache.  Each
-    rank allocates its own shard and gets the positions of it that other
-    ranks' prefill shards hold through an all-to-all over the one mesh axis
-    that splits both caches' sequence; nothing is gathered whole.  The
-    dense family's cache (k, v leaves, no sliding window)."""
+def seed_cache(prefill_cache, shardings, seq: int, window: int = 0):
+    """A decode cache of ``seq`` positions (``min(seq, window)`` ring slots
+    under a sliding ``window``) laid out by ``shardings`` (``build_decode``'s)
+    holding the prompt's k, v from a sharded ``PrefillStep``'s cache
+    (``DTensor``s of P positions) at the slots :func:`ring_positions` gives
+    and zeros elsewhere, as the engine seeds its cache.  Each rank allocates
+    its own shard; the rows of every rank's prefill shard that land in
+    another's decode shard travel with their slots, one exchange of uneven
+    runs over each mesh axis that splits both caches' sequence (the same
+    axes, major first), so nothing is gathered whole.  The attention
+    caches' k, v leaves (the dense and MoE families)."""
     def seed(src: DTensor, sh: Sharding) -> DTensor:
         mesh, local, P = sh.mesh, src.to_local(), src.shape[2]
+        sizes = mesh_axis_sizes(mesh)
         entry = sh.spec[2]
         src_axes = _seq_axes(src)
         dst_axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
-        n = math.prod(mesh_axis_sizes(mesh)[ax] for ax in dst_axes)
-        own = chunk_of(seq, mesh, dst_axes)
+        n = math.prod(sizes[ax] for ax in dst_axes)
+        Sc = min(seq, window) if window else seq
+        own = chunk_of(Sc, mesh, dst_axes)
         shape = list(local.shape)
-        shape[2] = seq // n
+        shape[2] = Sc // n
         out = torch.zeros(shape, dtype=local.dtype, device=local.device)
+        where = ring_positions(P, Sc, window).to(local.device)
         if not src_axes:
-            stop = min(P, own.stop)
-            if stop > own.start:
-                out[:, :, :stop - own.start] = local[:, :, own.start:stop]
+            mine = where[own]
+            held = (mine >= 0).nonzero()[:, 0]
+            out[:, :, held] = local[:, :, mine[held]]
             return from_shard(out, sh)
-        if len(src_axes) != 1 or src_axes != dst_axes:
+        if src_axes != dst_axes:
             raise ValueError(f"a prefill cache split over {src_axes} into one over {dst_axes}")
         have = chunk_of(P, mesh, src_axes)
-
-        def span(a: slice, b: slice) -> int:
-            return max(0, min(a.stop, b.stop) - max(a.start, b.start))
-        step_p, step_s = P // n, seq // n
-        send = [span(have, slice(j * step_s, (j + 1) * step_s)) for j in range(n)]
-        recv = [span(slice(j * step_p, (j + 1) * step_p), own) for j in range(n)]
-        got = exchange_over(local.movedim(2, 0), mesh, src_axes[0], send, recv)
-        out[:, :, :got.shape[0]] = got.movedim(0, 2)
+        slot = torch.full((P,), -1, dtype=torch.long, device=local.device)
+        kept = (where >= 0).nonzero()[:, 0]
+        slot[where[kept]] = kept
+        slot = slot[have]
+        sent = (slot >= 0).nonzero()[:, 0]
+        rows, slot = local.movedim(2, 0)[sent], slot[sent]
+        rank = slot // (Sc // n)              # the destination's index, major axis first
+        stride = n
+        for ax in dst_axes:
+            stride //= sizes[ax]
+            dest = rank // stride % sizes[ax]
+            order = torch.argsort(dest, stable=True)
+            rows, slot, rank = rows[order], slot[order], rank[order]
+            send = torch.bincount(dest, minlength=sizes[ax])
+            ones = [1] * sizes[ax]
+            recv = exchange_over(send, mesh, ax, ones, ones).tolist()
+            send = send.tolist()
+            rows, slot, rank = (exchange_over(t, mesh, ax, send, recv)
+                                for t in (rows, slot, rank))
+        out[:, :, slot - own.start] = rows.movedim(0, 2)
         return from_shard(out, sh)
     return tree_map_sorted(seed, prefill_cache, shardings)
 

@@ -11,6 +11,10 @@ from ..configs.base import ArchConfig, ShapeCell
 from . import encdec, transformer
 from .common import abstract_params, init_params, param_shardings, torch_dtype
 
+#: the families whose steps run on a mesh through a ``TensorParallel`` plan
+#: (``models.tensor_parallel``); the others gather (launch.steps)
+PLANNED = ("dense", "moe")
+
 
 @dataclasses.dataclass(frozen=True)
 class Model:
@@ -31,10 +35,12 @@ class Model:
     def shardings(self, mesh):
         return param_shardings(self.specs(), mesh)
 
-    def cache_specs(self, batch: int, seq: int):
+    def cache_specs(self, batch: int, seq: int, ring: bool = True):
+        """The decode cache's PSpecs; not ``ring``: a sliding window's
+        attention cache at every position, as ``prefill`` returns it."""
         if self.cfg.family == "encdec":
             return encdec.cache_specs(self.cfg, batch, seq)
-        return transformer.cache_specs(self.cfg, batch, seq)
+        return transformer.cache_specs(self.cfg, batch, seq, ring)
 
     def loss(self, params, batch) -> torch.Tensor:
         """batch: tokens/labels (+ frames for encdec, embeds/positions for vlm);
@@ -46,11 +52,13 @@ class Model:
         """The loss's two terms apart: the cross-entropy's mean over the
         valid labels, and the MoE load-balance term (a mean over batch
         rows and token groups; zero without experts).  ``tp`` (a
-        ``TensorParallel``, the dense family only): ``params`` are this
-        rank's working shards and ``batch`` its slice of the stream, and the
-        mean is over its own labels."""
+        ``TensorParallel``, the families of :data:`PLANNED`): ``params``
+        are this rank's working shards and ``batch`` its slice of the
+        stream, the mean is over its own labels, and the load-balance term
+        is this rank's share of the whole batch's (the shares sum to it
+        over the mesh)."""
         cfg = self.cfg
-        self._dense_only(tp)
+        self._planned(tp)
         if cfg.family == "encdec":
             return encdec.loss(params, cfg, batch["frames"], batch["tokens"], batch["labels"])
         hidden, aux, _ = transformer.forward_full(
@@ -65,11 +73,12 @@ class Model:
     def prefill(self, params, batch, tp=None):
         """Returns (per-layer cache stacked over periods, last-token logits);
         the encoder-decoder takes ``batch["frames"]`` beside the tokens.
-        ``tp`` (a ``plan_prefill`` plan, the dense family only): ``params``
-        are this rank's working shards and ``batch`` its slice of the
-        stream; the cache is this rank's shard and the logits are whole."""
+        ``tp`` (a ``plan_prefill`` plan, the families of :data:`PLANNED`):
+        ``params`` are this rank's working shards and ``batch`` its slice of
+        the stream; the cache is this rank's shard (every position, a
+        sliding window's too) and the logits are whole."""
         cfg = self.cfg
-        self._dense_only(tp)
+        self._planned(tp)
         if cfg.family == "encdec":
             enc_out = encdec.encode(params, cfg, batch["frames"])
             hidden, cache = encdec.decode_full(params, cfg, batch["tokens"], enc_out,
@@ -90,16 +99,17 @@ class Model:
 
     def decode(self, params, cache, tokens, pos: int, positions=None, tp=None):
         """One token at position ``pos``; the cache is written in place.
-        ``tp`` (a ``plan_decode`` plan, the dense family only): this rank's
-        working shards, stream rows and cache shard; the logits are whole."""
-        self._dense_only(tp)
+        ``tp`` (a ``plan_decode`` plan, the families of :data:`PLANNED`):
+        this rank's working shards, stream rows and cache shard; the logits
+        are whole."""
+        self._planned(tp)
         if self.cfg.family == "encdec":
             return encdec.decode_step(params, self.cfg, cache, tokens, pos)
         return transformer.decode_step(params, self.cfg, cache, tokens=tokens,
                                        pos=pos, positions=positions, tp=tp)
 
-    def _dense_only(self, tp) -> None:
-        if tp is not None and self.cfg.family != "dense":
+    def _planned(self, tp) -> None:
+        if tp is not None and self.cfg.family not in PLANNED:
             raise ValueError(f"a tensor-parallel step for the {self.cfg.family} family")
 
     def input_specs(self, cell: ShapeCell) -> dict[str, torch.Tensor]:

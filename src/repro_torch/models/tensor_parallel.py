@@ -1,6 +1,7 @@
 """The layout a tensor- and sequence-parallel train step computes in on one
-rank of a mesh (the dense decoders), as the reference's ``LOGICAL_RULES``
-(``models/common.py``) lay a step out and XLA partitions it.
+rank of a mesh (the dense and MoE decoders), as the reference's
+``LOGICAL_RULES`` (``models/common.py``) lay a step out and XLA partitions
+it.
 
 * The residual stream is this rank's batch rows and sequence slice: the
   labels' own layout (``batch`` on ``("pod", "data")`` and ``seq`` on
@@ -17,6 +18,17 @@ rank of a mesh (the dense decoders), as the reference's ``LOGICAL_RULES``
   columns of the attention output.  Where the q heads split and the kv heads
   do not, ``wk`` and ``wv`` are gathered whole and each rank takes the
   columns of the kv heads its q heads use (GQA groups).
+* Experts (``models.moe``): the router is whole on every rank, which
+  routes its own tokens.  Where ``experts`` resolves to mesh axes
+  (:attr:`TensorParallel.expert_axes`: dbrx's 16 on ``model``, ``expert``
+  under ``moe_ep``), an expert weight keeps its ``experts`` and ``ffn``
+  shards and the dispatched tokens, the hidden activations and the
+  experts' outputs move (an all-to-all over the expert axes that split the
+  sequence, a gather and reduce-scatter over the hidden columns' axes that
+  do); where it resolves to nothing (mixtral's 8 on a 16-way ``model``),
+  every rank runs every expert on its own groups and the expert weights
+  move, gathered over the hidden columns' axes that split the sequence (the
+  reference's pins give ``ffn``'s axis to the groups there).
 * The embedding and the loss: where ``vocab`` splits, the look-up and the
   cross-entropy are vocab-parallel (each rank its rows of the table; the
   softmax's max and sum and the gold logit summed over the vocab axes);
@@ -50,8 +62,9 @@ under ``serve``, where the stream's batch does not) and its sequence on
   head (gathered over the ``qkv`` axes, one token a row), each rank attends
   over its sequence slice of the cache with a partial softmax, the partials
   are combined over the ``cache_seq`` axes, and ``wo`` runs row-parallel.
-* The weights move in the compute type: a leaf the working layout gathers
-  is cast before it travels (each product casts it there anyway).
+* The serving steps' weights, and the train step's expert weights, move in
+  the compute type: a leaf the working layout gathers is cast before it
+  travels (each product casts it there anyway).
 """
 from __future__ import annotations
 
@@ -66,8 +79,9 @@ from torch.distributed.tensor import DTensor
 from ..configs.base import ArchConfig
 from ..optim.adamw import tree_map_sorted
 from ..substrate import (Sharding, all_to_all_over, chunk_of, gather_over, max_over,
-                         mesh_axis_sizes, reduce_over, scatter_over, sum_over)
+                         mesh_axis_sizes, scatter_over, sum_over)
 from .common import resolve_spec, sorted_leaves, tree_map_pspec
+from .moe import GROUP
 from .transformer import cache_specs
 
 #: the logical axes a weight is gathered over before its product (FSDP)
@@ -99,22 +113,53 @@ def _heads(cfg: ArchConfig, n: int) -> tuple[int, int]:
     return q_heads, kv_heads
 
 
+def _moe_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> dict:
+    """One MoE block's forward product FLOPs on one rank (:func:`moe.moe` on a
+    plan): ``rows`` batch rows of ``S // parts["seq"]`` tokens, in groups of
+    ``min(GROUP, S)`` tokens of the whole sequence (a rank's fragment of a
+    group where it spans ranks, with a whole group's ``C`` slots an
+    expert); ``parts["experts"]`` and ``parts["expert_ffn"]`` are the ranks
+    that split the experts and their hidden columns among the ranks holding
+    the same tokens (1 where those axes split the sequence: the tokens cross
+    them instead).  The router; the combine weights (the gate over the
+    capacity slots); the dispatch and the combine einsums on this rank's
+    experts; the three expert products over every capacity slot.  An
+    einsum that contracts one element (a one-token group's dispatch; the
+    combine of one expert's one slot) is a broadcast product: no FLOPs."""
+    d, E, K = cfg.d_model, cfg.n_experts, cfg.top_k
+    s_local = S // parts["seq"]
+    gs = min(GROUP, S)
+    gl = min(gs, s_local)
+    C = max(1, int(cfg.capacity_factor * gs * K / E))
+    T = rows * s_local
+    e_local = E // parts.get("experts", 1)
+    return dict(router=2 * T * d * E, route=2 * T * E * C * K,
+                dispatch=2 * T * e_local * C * d if gl > 1 else 0,
+                experts=3 * 2 * rows * (s_local // gl) * e_local * C * d
+                * (cfg.d_ff // parts.get("expert_ffn", 1)),
+                combine=2 * T * e_local * C * d if e_local * C > 1 else 0)
+
+
 def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
     """The product FLOPs one rank runs in a swiglu decoder's tensor-parallel
     train step under ``remat = "full"``, counted by hand from the widths
     (the dry-run's trace of the step must equal it).  ``parts`` gives the
     ranks each of ``batch``, ``seq``, ``qkv``, ``ffn`` and ``vocab`` splits
-    over (1 where it does not split).  Each layer's products run on this
-    rank's rows of the whole sequence and its columns: its q heads (all of
-    them where they do not split, :func:`head_split`), the kv heads they use,
-    its rows of ``wo``, its columns of the MLP; every (q, k) tile of the
-    chunked attention for its q heads (masked tiles included); the
+    over (1 where it does not split), and for the MoE family ``experts`` and
+    ``expert_ffn`` (:func:`_moe_products`).  Each layer's products run on
+    this rank's rows of the whole sequence and its columns: its q heads (all
+    of them where they do not split, :func:`head_split`), the kv heads they
+    use, its rows of ``wo``, its columns of the MLP; every (q, k) tile of
+    the chunked attention for its q heads (masked tiles included); the
     unembedding on its columns of the vocabulary where that splits, else on
     the whole vocabulary for its own tokens.  4 times the forward (the
     forward, the recompute and the chunked loss's, and the backward's two
     products a product), less each layer's down projection: the
     non-reentrant checkpoint stops once the tensors the backward needs are
-    back, and the block's last product saves none."""
+    back, and the block's last product saves none.  The MoE block's last
+    product is its combine einsum (so 3 times); its combine weights and its
+    dispatch differentiate one operand (3 times: no second backward
+    product)."""
     if cfg.remat != "full":
         raise ValueError(f"counted for remat 'full', not {cfg.remat!r}")
     d, hd, L, V = cfg.d_model, cfg.hd, cfg.n_layers, cfg.vocab
@@ -122,9 +167,7 @@ def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> 
     rows = B // parts["batch"]
     T = rows * S
     q_heads, kv_heads = _heads(cfg, n)
-    ff = cfg.d_ff // parts["ffn"]
-    per_layer = 2 * T * d * hd * (q_heads + 2 * kv_heads) + 2 * T * (cfg.n_heads * hd // n) * d \
-        + 3 * 2 * T * d * ff
+    per_layer = 2 * T * d * hd * (q_heads + 2 * kv_heads) + 2 * T * (cfg.n_heads * hd // n) * d
     qc, kc = min(512, S), min(1024, S)
     sq, sk = -(-S // qc) * qc, -(-S // kc) * kc
     attn = 4 * rows * q_heads * hd * sq * sk
@@ -132,7 +175,23 @@ def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> 
         loss = 2 * T * d * (V // parts["vocab"])
     else:
         loss = 2 * rows * (S // parts["seq"]) * d * V
-    return 4 * (L * (per_layer + attn) + loss) - L * 2 * T * ff * d
+    if cfg.family == "moe":
+        m = _moe_products(cfg, rows, S, parts)
+        channel = 4 * (m["router"] + m["experts"]) + 3 * (m["route"] + m["dispatch"]
+                                                          + m["combine"])
+    else:
+        ff = cfg.d_ff // parts["ffn"]
+        channel = 4 * 3 * 2 * T * d * ff - 2 * T * ff * d
+    return 4 * (L * (per_layer + attn) + loss) + L * channel
+
+
+def _channel(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> int:
+    """One layer's channel mixer's forward product FLOPs on one rank: the
+    MLP on this rank's columns over its rows' whole sequence, or the MoE
+    block (:func:`_moe_products`)."""
+    if cfg.family == "moe":
+        return sum(_moe_products(cfg, rows, S, parts).values())
+    return 3 * 2 * rows * S * cfg.d_model * (cfg.d_ff // parts["ffn"])
 
 
 def hand_prefill_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
@@ -152,7 +211,7 @@ def hand_prefill_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -
     rows = B // parts["batch"]
     T = rows * S
     per_layer = 2 * T * d * hd * (q_heads + 2 * kv_heads) + 2 * T * (cfg.n_heads * hd // n) * d \
-        + 3 * 2 * T * d * (cfg.d_ff // parts["ffn"])
+        + _channel(cfg, rows, S, parts)
     qc, kc = min(512, S), min(1024, S)
     per_layer += 4 * rows * q_heads * hd * (-(-S // qc) * qc) * (-(-S // kc) * kc)
     if q_local and not kv_local:
@@ -168,9 +227,10 @@ def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) ->
     Each layer: q on this rank's stream rows and q heads, k and v on them
     with this rank's kv heads where they split, else every kv head (the
     whole ``wk`` / ``wv``); the scores and the weighted sum of v for every
-    q head over this rank's cache rows and sequence slice; its rows of
-    ``wo`` and its columns of the MLP; the logits on its rows and vocabulary
-    columns."""
+    q head over this rank's cache rows and sequence slice (a sliding
+    window's cache holds ``min(S, window)`` positions); its rows of ``wo``
+    and its columns of the MLP, or the MoE block (:func:`_moe_products` of
+    one-token groups); the logits on its rows and vocabulary columns."""
     d, hd, L, V = cfg.d_model, cfg.hd, cfg.n_layers, cfg.vocab
     n = parts["qkv"]
     q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
@@ -178,8 +238,9 @@ def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) ->
     kv_heads = cfg.n_kv_heads // n if kv_local else cfg.n_kv_heads
     rows = B // parts["batch"]
     per_layer = 2 * rows * d * hd * (q_heads + 2 * kv_heads) \
-        + 2 * rows * (cfg.n_heads * hd // n) * d + 3 * 2 * rows * d * (cfg.d_ff // parts["ffn"]) \
-        + 4 * (B // parts["cache_batch"]) * cfg.n_heads * hd * (S // parts["cache_seq"])
+        + 2 * rows * (cfg.n_heads * hd // n) * d + _channel(cfg, rows, 1, dict(parts, seq=1)) \
+        + 4 * (B // parts["cache_batch"]) * cfg.n_heads * hd \
+        * ((min(S, cfg.window) if cfg.window else S) // parts["cache_seq"])
     return L * per_layer + 2 * rows * d * (V // parts["vocab"])
 
 
@@ -194,6 +255,9 @@ class TensorParallel:
     q_local: bool                 # q heads split over qkv_axes (else all on every rank)
     kv_local: bool                # kv heads split too (else gathered whole)
     stream_spec: tuple            # the labels' resolved spec: the stream's layout
+    # the MoE family: the mesh axes its experts and their hidden columns split over
+    expert_axes: tuple[str, ...] = ()
+    expert_ffn_axes: tuple[str, ...] = ()
     # serving plans only: a k / v cache leaf's resolved spec, the mesh axes its
     # rows split over beyond the stream's, and those of its sequence
     cache_spec: tuple | None = None
@@ -265,12 +329,15 @@ class TensorParallel:
     def heads_to_cache(self, t: torch.Tensor) -> torch.Tensor:
         """(B, S, heads / n, hd), this rank's kv heads over its stream rows'
         whole sequence -> its cache shard, every kv head over the cache's
-        rows and sequence slice: an all-to-all over each ``qkv`` axis, the
+        rows and sequence slice: an all-to-all over the ``qkv`` axes,
+        trading heads for the cache's sequence where those are its axes too
+        (``moe_ep``'s (expert, tp)), else one over each ``qkv`` axis, the
         minor one first, each trading heads for the cache's rows or its
-        sequence (:func:`plan_prefill` checks that each axis splits one of
-        them)."""
+        sequence (:func:`plan_prefill` checks that one of the two holds)."""
+        if self.qkv_axes == self.cache_seq_axes:
+            return all_to_all_over(t, self.mesh, self.qkv_axes, 1, 2)
         for ax in reversed(self.qkv_axes):
-            t = all_to_all_over(t, self.mesh, ax, 0 if ax in self.cache_row_axes else 1, 2)
+            t = all_to_all_over(t, self.mesh, (ax,), 0 if ax in self.cache_row_axes else 1, 2)
         return t
 
     # -------------------------------------------------------------- cache
@@ -314,54 +381,166 @@ class TensorParallel:
     def vocab_max(self, x: torch.Tensor) -> torch.Tensor:
         return max_over(x, self.mesh, self.vocab_axes)
 
+    # ------------------------------------------------------------ experts
+    @property
+    def experts_traded(self) -> tuple[str, ...]:
+        """The expert axes that split the stream's sequence: the dispatched
+        tokens cross them by an all-to-all, each rank's groups for each
+        rank's experts."""
+        return self.expert_axes if set(self.expert_axes) <= set(self.seq_axes) else ()
+
+    @property
+    def experts_local(self) -> tuple[str, ...]:
+        """The expert axes whose ranks hold the same tokens (decode's one
+        token a row, a batch the sequence does not split): each rank runs
+        its experts on them and the outputs are summed there."""
+        return () if self.experts_traded else self.expert_axes
+
+    @property
+    def expert_ffn_traded(self) -> tuple[str, ...]:
+        """The axes of the experts' hidden columns that split the sequence:
+        with experts apart, the dispatched tokens are gathered over them
+        and the down projection's partial sums reduce-scattered back; with
+        every expert on every rank, the weights are gathered over them."""
+        return tuple(ax for ax in self.expert_ffn_axes if ax in self.seq_axes)
+
+    @property
+    def expert_ffn_local(self) -> tuple[str, ...]:
+        """The axes of the experts' hidden columns whose ranks hold the same
+        tokens: column-parallel there, the outputs summed over them."""
+        return tuple(ax for ax in self.expert_ffn_axes if ax not in self.seq_axes)
+
+    def group_before(self, counts: torch.Tensor, share: int) -> torch.Tensor:
+        """(B, 1, ..., E) counts of this rank's share of a token group that
+        spans ``share`` consecutive ranks of the sequence -> the sum of the
+        group's earlier ranks' counts (zero on its first rank): the
+        exclusive prefix a rank's capacity positions start from."""
+        every = gather_over(counts, self.mesh, self.seq_axes, 1)
+        i = chunk_of(self.parts(self.seq_axes), self.mesh, self.seq_axes).start
+        return every[:, i // share * share:i].sum(1, keepdim=True)
+
+    def group_sums(self, x: torch.Tensor, share: int) -> torch.Tensor:
+        """(B, 1, E) sums over this rank's share of a group that spans
+        ``share`` ranks of the sequence -> (B, groups, E), each of this
+        rank's rows' groups summed over its ranks."""
+        return gather_over(x, self.mesh, self.seq_axes, 1).unflatten(1, (-1, share)).sum(2)
+
+    def dispatched(self, xe: torch.Tensor) -> torch.Tensor:
+        """(B, E, groups, C, D), this rank's groups dispatched to every
+        expert -> this rank's experts' slots: an all-to-all over the traded
+        expert axes (the groups of every rank there), then gathered over the
+        traded axes of the experts' hidden columns."""
+        xe = all_to_all_over(xe, self.mesh, self.experts_traded, 1, 2)
+        return gather_over(xe, self.mesh, self.expert_ffn_traded, 2) if self.expert_axes else xe
+
+    def returned(self, ye: torch.Tensor) -> torch.Tensor:
+        """:meth:`dispatched`'s reverse for the experts' outputs: the down
+        projection's partial sums reduce-scattered over the traded hidden
+        axes, then the reverse all-to-all."""
+        if self.expert_axes:
+            ye = scatter_over(ye, self.mesh, self.expert_ffn_traded, 2)
+        return all_to_all_over(ye, self.mesh, self.experts_traded, 1, 2, reverse=True)
+
+    def expert_weight(self, w: torch.Tensor, ffn_dim: int) -> torch.Tensor:
+        """An expert weight as the products use it: as it is with experts
+        apart, or (every expert on every rank) gathered over the traded
+        axes of its hidden columns (dimension ``ffn_dim``)."""
+        if self.expert_axes:
+            return w
+        return gather_over(w, self.mesh, self.expert_ffn_traded, ffn_dim)
+
+    def expert_sum(self, y: torch.Tensor) -> torch.Tensor:
+        """The MoE output summed over the ranks that hold the same tokens
+        and split the experts or their hidden columns."""
+        return sum_over(y, self.mesh, self.experts_local + self.expert_ffn_local)
+
     # ------------------------------------------------------------ weights
     def working_shardings(self, spec_tree):
         """Per parameter leaf, the layout the step computes with: its spec
         without the FSDP axes, or replicated for a ``wq`` / ``wk`` / ``wv``
-        whose heads do not split."""
+        whose heads do not split and for a MoE router.  An expert weight
+        keeps its ``experts`` and ``ffn`` shards (:meth:`expert_weight`
+        gathers the traded hidden columns in the layer where every expert
+        is on every rank)."""
         sizes = mesh_axis_sizes(self.mesh)
 
         def work(path, p):
             name = path.rsplit("/", 1)[-1]
             whole = (name == "wq" and not self.q_local) or \
-                (name in ("wk", "wv") and not self.kv_local)
+                (name in ("wk", "wv") and not self.kv_local) or name == "router"
             spec = resolve_spec(p.shape, p.logical, sizes)
             return Sharding(self.mesh, tuple(None if whole or lname in FSDP_LOGICAL else entry
                                              for entry, lname in zip(spec, p.logical)))
         return tree_map_pspec(work, spec_tree)
 
     def layouts(self, spec_tree) -> list:
-        """:meth:`working_shardings` in sorted leaf order."""
-        return sorted_leaves(self.working_shardings(spec_tree))
+        """Each leaf's (resolved spec, working spec), in sorted leaf order."""
+        sizes = mesh_axis_sizes(self.mesh)
+        specs = tree_map_pspec(lambda _, p: Sharding(self.mesh, resolve_spec(
+            p.shape, p.logical, sizes)), spec_tree)
+        return [(sh.spec, work.spec) for sh, work in
+                zip(sorted_leaves(specs), sorted_leaves(self.working_shardings(spec_tree)))]
 
-    def working(self, params, layouts, dtype: torch.dtype | None = None) -> dict:
+    def working(self, params, layouts, dtype: torch.dtype | None = None,
+                cast: list[bool] | None = None) -> dict:
         """This rank's working shard of every parameter (``DTensor``s) in
         ``layouts`` (:meth:`layouts` of their specs): a tree like
-        ``params``.  With ``dtype`` (serving: the compute type) a leaf that
-        moves is cast before it travels; every such leaf of the dense family
-        (a product's weight, the embedding table) is cast to the compute
-        type at its use, so the values computed are the same."""
-        def work(p, sh):
-            if dtype is not None and tuple(p.placements) != tuple(sh.placements):
-                # the shard cast and wrapped again: a DTensor op would build
-                # its global-size output to propagate the layout
-                p = DTensor.from_local(p.to_local().to(dtype), p.device_mesh, p.placements,
-                                       run_check=False, shape=p.shape, stride=p.stride())
-            return p.redistribute(self.mesh, sh.placements).to_local()
+        ``params``.  Each dimension the working layout no longer splits is
+        gathered (``gather_over``: its axes staged through the host on a
+        gloo group, as ``DTensor``'s own collectives are not), mesh axis by
+        mesh axis from the last, as ``DTensor`` orders them.  With ``dtype``
+        (the compute type) a leaf that moves is cast before it travels,
+        every such leaf where ``cast`` (sorted leaf order) is None, else
+        those it marks (the train step's expert weights,
+        :func:`expert_leaves`); every leaf cast so is a product's weight,
+        cast to the compute type at its use (the embedding table at its
+        look-up, but serving only), so the values computed, and the
+        gradients, are the same."""
+        cast = cast or [True] * len(layouts)
+        order = list(reversed(self.mesh_axes))
+
+        def work(p, spec, work_spec, c):
+            x = p.to_local()
+            moved = {d: tuple(ax for ax in _axes(e) if ax in order)
+                     for d, (e, w) in enumerate(zip(spec, work_spec)) if _axes(e) and not w}
+            moved = {d: axes for d, axes in moved.items() if axes}
+            if moved and c and dtype is not None:
+                x = x.to(dtype)
+            for d, axes in sorted(moved.items(), key=lambda kv: min(order.index(a)
+                                                                    for a in kv[1])):
+                x = gather_over(x, self.mesh, axes, d)
+            return x
         with torch.no_grad():
-            work = iter([work(p, sh) for p, sh in zip(sorted_leaves(params), layouts)])
+            work = iter([work(p, *lay, c)
+                         for p, lay, c in zip(sorted_leaves(params), layouts, cast)])
         return tree_map_sorted(lambda _: next(work), params)
 
     def reduce_grads(self, grads, params, layouts) -> list:
-        """Each working gradient (sorted leaf order) summed over the mesh
-        axes its layout does not split (each rank's part of the loss reaches
-        the leaf there) into its parameter's layout: ``DTensor``s."""
-        def summed(sh):
-            used = {ax for entry in sh.spec for ax in _axes(entry)}
-            return tuple(ax for ax in self.mesh_axes if ax not in used)
-        return [reduce_over(g, self.mesh, summed(sh), p.placements, layout=sh.placements,
-                            shape=p.shape)
-                for g, sh, p in zip(grads, layouts, sorted_leaves(params))]
+        """Each working gradient (sorted leaf order) in its parameter's type,
+        summed over the mesh axes its layout does not split (each rank's
+        part of the loss reaches the leaf there) into its parameter's
+        layout: a reduce-scatter over each such axis that splits the
+        parameter (in the spec's order, a tuple's major axis first), then an
+        all-reduce over each other one, in mesh order (staged through the
+        host on a gloo group); ``DTensor``s.  A list of gradients is emptied
+        as it goes, so each working gradient (and its copy in the
+        parameter's type) is released once reduced."""
+        out = []
+        for i, ((spec, work_spec), p) in enumerate(zip(layouts, sorted_leaves(params))):
+            g = grads[i].to(p.dtype)
+            if isinstance(grads, list):
+                grads[i] = None
+            used = {ax for entry in work_spec for ax in _axes(entry)}
+            summed = [ax for ax in self.mesh_axes if ax not in used]
+            for d, entry in enumerate(spec):
+                g = scatter_over(g, self.mesh, tuple(ax for ax in _axes(entry) if ax in summed),
+                                 d)
+            split = {ax for entry in spec for ax in _axes(entry)}
+            g = sum_over(g, self.mesh, tuple(ax for ax in summed if ax not in split))
+            out.append(DTensor.from_local(g, self.mesh, p.placements, run_check=False,
+                                          shape=p.shape, stride=p.stride()))
+            del g
+        return out
 
     @property
     def mesh_axes(self) -> tuple[str, ...]:
@@ -370,30 +549,52 @@ class TensorParallel:
         return tuple(ax for ax, n in mesh_axis_sizes(self.mesh).items() if n > 1)
 
 
+def _is_expert_weight(p) -> bool:
+    """A MoE block's ``wg``, ``wu`` or ``wd``: its experts' hidden columns."""
+    return "experts" in p.logical and "ffn" in p.logical
+
+
+def expert_leaves(spec_tree) -> list[bool]:
+    """Whether each leaf (sorted order) is an expert weight: the train
+    step's working copy casts these to the compute type before they travel
+    (:meth:`TensorParallel.working`)."""
+    return sorted_leaves(tree_map_pspec(lambda _, p: _is_expert_weight(p), spec_tree))
+
+
 def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh,
                     stream_spec) -> TensorParallel:
     """The plan of ``cfg``'s step on ``mesh`` under the active profile:
     ``stream_spec`` is the labels' resolved spec (batch entry, seq entry),
     the weights' axes come from ``spec_tree``'s resolved specs (axes of one
-    rank left out).  Raises ValueError where two leaves split one logical
-    axis differently (``wk`` and ``wv`` count only where their heads split),
-    or a weight's split meets the batch's axes (its ranks would hold other
-    rows)."""
+    rank left out): ``experts`` from a MoE block's router and expert
+    weights, and their ``ffn`` apart from a dense MLP's.  Raises ValueError
+    where two leaves split one logical axis differently (``wk`` and ``wv``
+    count only where their heads split), a weight's split meets the batch's
+    axes (its ranks would hold other rows), the experts' axes split the
+    sequence in part, or, with every expert on every rank, the hidden
+    columns' axes that split the sequence are not the minor ones (the
+    layer gathers those)."""
     sizes = mesh_axis_sizes(mesh)
 
     def live(axes):
         return tuple(ax for ax in axes if sizes[ax] > 1)
-    found: dict[str, set] = {"qkv": set(), "kv": set(), "ffn": set(), "vocab": set()}
+    found: dict[str, set] = {"qkv": set(), "kv": set(), "ffn": set(), "vocab": set(),
+                             "experts": set(), "expert_ffn": set()}
 
     def note(path, p):
         kv = path.rsplit("/", 1)[-1] in ("wk", "wv")
+        expert = _is_expert_weight(p)
         for entry, lname in zip(resolve_spec(p.shape, p.logical, sizes), p.logical):
             if lname in found:
-                found["kv" if kv and lname == "qkv" else lname].add(live(_axes(entry)))
+                if kv and lname == "qkv":
+                    lname = "kv"
+                elif expert and lname == "ffn":
+                    lname = "expert_ffn"
+                found[lname].add(live(_axes(entry)))
     tree_map_pspec(note, spec_tree)
     batch_axes, seq_axes = (live(_axes(e)) for e in stream_spec)
     axes = {}
-    for lname in ("qkv", "ffn", "vocab"):
+    for lname in ("qkv", "ffn", "vocab", "experts", "expert_ffn"):
         if len(found[lname]) > 1:
             raise ValueError(f"the leaves split {lname!r} as {sorted(found[lname])}")
         axes[lname] = next(iter(found[lname]), ())
@@ -403,8 +604,16 @@ def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh,
                                    math.prod(sizes[ax] for ax in axes["qkv"]))
     if kv_local and found["kv"] - {axes["qkv"]}:
         raise ValueError(f"wk / wv split as {sorted(found['kv'])}, wq as {axes['qkv']}")
-    return TensorParallel(mesh, batch_axes, seq_axes, axes["qkv"], axes["ffn"], axes["vocab"],
-                          q_local, kv_local, tuple(stream_spec))
+    tp = TensorParallel(mesh, batch_axes, seq_axes, axes["qkv"], axes["ffn"], axes["vocab"],
+                        q_local, kv_local, tuple(stream_spec), axes["experts"],
+                        axes["expert_ffn"])
+    if set(tp.expert_axes) & set(seq_axes) and not tp.experts_traded:
+        raise ValueError(f"experts on {tp.expert_axes} split the sequence's {seq_axes} in part")
+    traded = tp.expert_ffn_traded
+    if not tp.expert_axes and traded and tp.expert_ffn_axes[-len(traded):] != traded:
+        raise ValueError(f"the experts' hidden columns on {tp.expert_ffn_axes} split the "
+                         f"sequence over {traded}, not their minor axes")
+    return tp
 
 
 def plan_train(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, batch_shape) -> TensorParallel:
@@ -444,16 +653,17 @@ def _with_cache(tp: TensorParallel, cfg: ArchConfig, cache_specs,
 def plan_prefill(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, batch_shape) -> TensorParallel:
     """The plan of a sharded prefill of ``batch_shape`` (B, S) tokens: the
     stream laid out as the tokens (``batch``, ``seq``), and the cache of
-    (B, S) as the decode-SP layout.  Where the kv heads split, each of their
-    axes must split the cache's sequence or, beyond the stream's, its rows,
-    at most one axis each, and the cache split over nothing else: the
-    all-to-alls that lay it out (ValueError otherwise)."""
+    (B, S) (every position, a sliding window's too) as the decode-SP
+    layout.  Where the kv heads split, their axes must be the cache
+    sequence's, or each must split the cache's sequence or, beyond the
+    stream's, its rows, at most one axis each, and the cache split over
+    nothing else: the all-to-alls that lay it out (ValueError otherwise)."""
     sizes = mesh_axis_sizes(mesh)
     B, S = batch_shape
     stream = resolve_spec((B, S), ("batch", "seq"), sizes)
     tp = _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream), cfg,
-                     cache_specs(cfg, B, S), mesh)
-    if tp.kv_local:
+                     cache_specs(cfg, B, S, ring=False), mesh)
+    if tp.kv_local and tp.qkv_axes != tp.cache_seq_axes:
         rows, seq = set(tp.cache_row_axes), set(tp.cache_seq_axes)
         if set(tp.qkv_axes) != rows | seq or len(rows) > 1 or len(seq) > 1:
             raise ValueError(f"kv heads split over {tp.qkv_axes}, the cache's rows over "

@@ -68,16 +68,17 @@ def model_specs(cfg: ArchConfig) -> dict:
     return specs
 
 
-def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
+def cache_specs(cfg: ArchConfig, batch: int, seq: int, ring: bool = True) -> dict:
     """Decode-cache tree as PSpecs: attention caches are (periods, B, S, Hkv,
-    hd), SWA caches bounded by the window; SSM caches are O(1) in sequence:
-    the state (periods, B, H, P, N) and the conv history (periods, B, k-1,
-    d_inner + 2N)."""
+    hd), SWA caches bounded by the window (not ``ring``: every position, as
+    a prefill returns them); SSM caches are O(1) in sequence: the state
+    (periods, B, H, P, N) and the conv history (periods, B, k-1, d_inner +
+    2N)."""
     n_per = cfg.n_layers // cfg.period
     out: dict[str, Any] = {}
     for i, (mixer, _) in enumerate(cfg.layer_pattern()):
         if mixer == "attn":
-            sc = min(seq, cfg.window) if cfg.window else seq
+            sc = min(seq, cfg.window) if cfg.window and ring else seq
             kv = PSpec(
                 (n_per, batch, sc, cfg.n_kv_heads, cfg.hd),
                 ("layers", "cache_batch", "cache_seq", "heads", "cache_hd"),
@@ -129,8 +130,8 @@ def unembed(params, cfg: ArchConfig, x):
 
 def _period_fwd(cfg: ArchConfig, pp, x, cos_sin, tp=None):
     """Full-seq forward through one period; returns (x, aux, cache_updates).
-    On a mesh (``tp``, the dense family) ``x`` is this rank's slice of the
-    stream."""
+    On a mesh (``tp``; the dense and MoE families) ``x`` is this rank's
+    slice of the stream and ``aux`` its share of the load-balance term."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_out = {}
     for i, (mixer, channel) in enumerate(cfg.layer_pattern()):
@@ -147,7 +148,7 @@ def _period_fwd(cfg: ArchConfig, pp, x, cos_sin, tp=None):
             if channel == "mlp":
                 x = x + mlp(b["mlp"], h2, cfg, tp)
             else:
-                y, a_loss = moe(b["moe"], h2, cfg)
+                y, a_loss = moe(b["moe"], h2, cfg, tp)
                 x = x + y
                 aux = aux + a_loss
     return x, aux, cache_out
@@ -165,10 +166,11 @@ def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     the cache holds each period position's entries stacked over periods:
     (periods, B, S, Hkv, hd) K and V, or the SSM state and conv tail.  It
     writes nothing in place, so autograd runs through it.  On a mesh
-    (``tp``, a ``TensorParallel``; the dense family's train step and
-    prefill) the tokens and the hidden states are this rank's slice of the
-    stream, and RoPE's angles are the whole sequence's; a serving plan's
-    cache is this rank's shard of each layer's, stacked."""
+    (``tp``, a ``TensorParallel``; the dense and MoE families' train step
+    and prefill) the tokens and the hidden states are this rank's slice of
+    the stream, RoPE's angles are the whole sequence's and ``aux`` is this
+    rank's share of the load-balance term; a serving plan's cache is this
+    rank's shard of each layer's, stacked."""
     x = embed_tokens(params, cfg, tokens, embeds, tp)
     B, S = x.shape[0], x.shape[1] * (1 if tp is None else tp.parts(tp.seq_axes))
     cos_sin = None
@@ -198,8 +200,9 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
     Returns (logits (B, 1, V), cache); the cache is written in place: K and
     V at their slot, an SSM's new state and conv history copied into the
     stacked tensors through the period's views.  On a mesh (``tp``, a
-    decode plan; the dense family) the tokens are this rank's stream rows,
-    the cache its shard, and the logits come out whole on every rank."""
+    decode plan; the dense and MoE families) the tokens are this rank's
+    stream rows, the cache its shard, and the logits come out whole on every
+    rank."""
     x = embed_tokens(params, cfg, tokens, embeds, tp)
     B = x.shape[0]
     cos_sin = None
@@ -224,7 +227,7 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
                 if channel == "mlp":
                     x = x + mlp(b["mlp"], h2, cfg, tp)
                 else:
-                    x = x + moe(b["moe"], h2, cfg)[0]
+                    x = x + moe(b["moe"], h2, cfg, tp)[0]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     return (logits if tp is None else tp.whole_logits(logits)), cache

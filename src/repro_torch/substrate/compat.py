@@ -546,19 +546,62 @@ def max_over(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch.Te
     return _sum_over(x, _axis_groups(mesh, axes), dist.ReduceOp.MAX) if axes else x
 
 
-@torch.no_grad()
-def all_to_all_over(x: torch.Tensor, mesh: DeviceMesh, axis: str, split_dim: int,
-                    cat_dim: int) -> torch.Tensor:
-    """``x`` split evenly along ``split_dim`` over the ranks of ``axis``, the
-    rank at index j sent chunk j; what every rank sent this one, joined along
-    ``cat_dim`` in axis order (an all-to-all), outside autograd."""
-    group = mesh.get_group(axis)
+def _all_to_all_dim(x: torch.Tensor, group, split_dim: int, cat_dim: int, split_lead: int = 1,
+                    cat_lead: int = 1) -> torch.Tensor:
+    """One all-to-all over ``group``'s n ranks: ``split_dim`` viewed as
+    (split_lead, n, rest), the rank at index j sent the j-th slice of the
+    middle factor; what rank j sent joined along ``cat_dim`` as the middle
+    factor of (cat_lead, n, rest)."""
     n = dist.get_world_size(group)
-    parts = x.unflatten(split_dim, (n, x.shape[split_dim] // n)).movedim(split_dim, 0)
+    parts = x.unflatten(split_dim, (split_lead, n, -1)).movedim(split_dim + 1, 0)
+    parts = parts.flatten(split_dim + 1, split_dim + 2)
     wire = (parts.cpu() if _staged(x, group) else parts).contiguous()
     out = torch.empty_like(wire)
     dist.all_to_all_single(out, wire, group=group)
-    return out.to(x.device).movedim(0, cat_dim).flatten(cat_dim, cat_dim + 1)
+    out = out.to(x.device).unflatten(cat_dim + 1, (cat_lead, -1)).movedim(0, cat_dim + 1)
+    return out.flatten(cat_dim, cat_dim + 2)
+
+
+def _all_to_all_over(x, groups, split_dim: int, cat_dim: int, reverse: bool):
+    """The all-to-all over ``groups`` (major first) as one over their joined
+    ranks: the minor axis first, each on its own factor of ``split_dim``,
+    so the chunks come split and joined in chunk order; ``reverse``, its
+    inverse (the major axis first)."""
+    sizes = [dist.get_world_size(g) for g in groups]
+    if not reverse:
+        for k in reversed(range(len(groups))):
+            x = _all_to_all_dim(x, groups[k], split_dim, cat_dim, split_lead=math.prod(sizes[:k]))
+        return x
+    for k in range(len(groups)):
+        x = _all_to_all_dim(x, groups[k], cat_dim, split_dim, cat_lead=math.prod(sizes[:k]))
+    return x
+
+
+class _AllToAllOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups, split_dim, cat_dim, reverse):
+        ctx.args = groups, split_dim, cat_dim, reverse
+        return _all_to_all_over(x, groups, split_dim, cat_dim, reverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        groups, split_dim, cat_dim, reverse = ctx.args
+        return _all_to_all_over(g, groups, split_dim, cat_dim, not reverse), None, None, None, None
+
+
+def all_to_all_over(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str], split_dim: int,
+                    cat_dim: int, reverse: bool = False) -> torch.Tensor:
+    """``x`` split evenly along ``split_dim`` over the ranks of ``axes``, the
+    rank at chunk index j (the first-named axis the major one, as
+    ``chunk_of``) sent chunk j; what every rank sent this one, joined along
+    ``cat_dim`` in chunk order (an all-to-all an axis).  ``reverse``: the
+    inverse of that all-to-all with the same arguments (the chunks joined
+    along ``cat_dim`` go back, and come back along ``split_dim``).  Each
+    one's backward is the other.  No axes: ``x`` itself."""
+    if not axes:
+        return x
+    return _AllToAllOver.apply(x, _axis_groups(mesh, axes), split_dim % x.dim(),
+                               cat_dim % x.dim(), reverse)
 
 
 @torch.no_grad()

@@ -16,10 +16,12 @@ What is held, and how closely:
 * the dry-run: the structural fields of every record equal the
   reference's; the collective bytes and executions of every case equal a
   hand count from the specs (the dense train step's tensor-parallel
-  collectives, the prefill and decode steps' gathers); the train cell's
-  product FLOPs, under both profiles, equal a hand count of the
-  tensor-parallel step's products; each prefill and decode temp figure
-  holds at least the state the step gathers whole, and the train step's
+  collectives, the MoE decode step's sharded ones, the other prefill and
+  decode steps' gathers); the train cell's product FLOPs, under both
+  profiles, equal a hand count of the tensor-parallel step's products;
+  each gathering prefill and decode temp figure holds at least the state
+  the step gathers whole (the sharded MoE decode its working layouts), and
+  the train step's
   its working state and less than the ZeRO-3 step's on the same case.  The
   reference's figures count a ``scan`` body once (one layer), so its
   whole-step FLOPs are no yardstick;
@@ -40,7 +42,11 @@ What is held, and how closely:
   bytes and executions a hand count from the specs, its temp at most twice
   the reference's; the roofline's serving probes run the sharded layer code,
   their FLOPs at or below the reference's but where ``ABOVE_REFERENCE``
-  says why, the cells' collective bytes within ``COLL_OVER_REFERENCE``.
+  says why, the cells' collective bytes within ``COLL_OVER_REFERENCE``;
+* the MoE family's sharded steps (dbrx smoke on (4, 2), mixtral smoke under
+  ``moe_ep`` on (2, 2, 2)): the dry-run's product FLOPs equal the hand
+  counts with the MoE block's, and the roofline's ``moe_block`` probe runs
+  the planned layer code, its FLOPs the block's hand count.
 """
 import json
 import math
@@ -591,6 +597,72 @@ def _hand_collectives(arch: str, cell_name: str, mesh_kind: str, profile: str):
     return sum(b for _, b in wire), counts, math.prod(sizes.values())
 
 
+def _moe_working(arch: str, mesh_kind: str):
+    """Per parameter leaf of a MoE smoke model on a smoke mesh: its PSpec,
+    resolved spec, the mesh axes its working layout keeps (none for the
+    router, which every rank holds whole; else all but its embed axes: the
+    smoke heads split whole on the model axis) and whether it moves; and the
+    mesh's axis sizes."""
+    from repro_torch import configs as C
+    from repro_torch.launch.dryrun import mesh_shape
+    from repro_torch.models import build
+    from repro_torch.models.common import resolve_spec
+    from repro_torch.models.tensor_parallel import head_split
+    cfg = C.get(arch, smoke=True)
+    shape, axes = mesh_shape(mesh_kind, True)
+    sizes = dict(zip(axes, shape))
+    assert head_split(cfg.n_heads, cfg.n_kv_heads, sizes["model"]) == (True, True)
+    out = []
+    for path, p in _pspec_paths(build(cfg).specs()):
+        spec = resolve_spec(p.shape, p.logical, sizes)
+        keep = () if path.endswith("/router") else tuple(
+            ax for entry, lname in zip(_entries(spec), p.logical)
+            if lname not in ("embed", "embed_d") for ax in entry)
+        moves = set(keep) != {ax for e in _entries(spec) for ax in e}
+        out.append((p, spec, keep, moves))
+    return cfg, sizes, out
+
+
+def _hand_moe_decode_collectives(arch: str, cell_name: str, mesh_kind: str):
+    """Per-device collective bytes and executions of a MoE smoke model's
+    sharded decode step on the (pod, data, model) smoke mesh, from the
+    specs: each parameter the working layout moves gathered over its embed
+    axes (the router whole) in bf16; the embedding's partial rows summed
+    over the vocab axis; each layer's q, k and v gathered over the heads'
+    axis, the partial softmax's max, sum and weighted sum summed over the
+    cache's sequence axis (float32), ``wo``'s partial sums and the experts'
+    outputs (each rank its own experts of the same tokens) summed over the
+    model axis; the logits gathered over the vocab axis, then the batch's."""
+    from repro_torch import configs as C
+    cfg, sizes, leaves = _moe_working(arch, mesh_kind)
+    cell = C.smoke_cell(cell_name)
+    batch = ("pod", "data")
+    R, D, V, hd = cell.global_batch // math.prod(sizes[a] for a in batch), cfg.d_model, \
+        cfg.vocab, cfg.hd
+    m = sizes["model"]
+    bf, f32 = 2, 4
+    wire = []
+    for p, spec, keep, moves in leaves:
+        if moves:
+            wire += [("all-gather", n * bf) for n in _gathers(math.prod(p.shape), spec, sizes,
+                                                              keep)]
+    wire.append(("all-reduce", 2 * R * D * bf))
+    for _ in range(cfg.n_layers):
+        wire += [("all-gather", R * h * hd * bf)
+                 for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+        wire += [("all-reduce", 2 * R * cfg.n_heads * f32)] * 2
+        wire.append(("all-reduce", 2 * R * cfg.n_heads * hd * f32))
+        wire += [("all-reduce", 2 * R * D * bf)] * 2
+    gathered = R * V // m
+    for ax in ("model", "data", "pod"):
+        gathered *= sizes[ax]
+        wire.append(("all-gather", gathered * f32))
+    counts: dict = {}
+    for kind, _ in wire:
+        counts[kind] = counts.get(kind, 0) + 1
+    return sum(b for _, b in wire), counts, math.prod(sizes.values())
+
+
 DRY_KEYS = [*CASES, "serve"]
 
 
@@ -598,10 +670,13 @@ DRY_KEYS = [*CASES, "serve"]
 def test_dryrun_collectives_hand_count(dry, key):
     """Each case's collective bytes a device and its executions of each
     kind equal the hand count from the specs (the tensor-parallel train step
-    under both profiles; the prefill and decode steps gather everything)."""
+    under both profiles; the MoE family's sharded decode step; the other
+    families' prefill and decode steps gather everything)."""
     rec = dry[key] if key == "serve" else dry[key][1]
     if rec["kind"] == "train":
         want, counts, n = _hand_tp_collectives(rec["profile"])
+    elif rec["arch"] == "mixtral-8x22b":
+        want, counts, n = _hand_moe_decode_collectives(rec["arch"], rec["cell"], rec["mesh"])
     else:
         want, counts, n = _hand_collectives(rec["arch"], rec["cell"], rec["mesh"], rec["profile"])
     assert rec["collectives"]["collective_bytes_per_device"] == want
@@ -632,9 +707,12 @@ def test_dryrun_train_flops_hand_count(dry, profile):
 
 @pytest.mark.parametrize("case", CASES, ids=["-".join(c) for c in CASES])
 def test_dryrun_temp_holds_gathered_state(dry, case):
-    """A prefill or decode step gathers its parameters whole (the decode
-    step its cache too) before the model runs: the temp figure is at least
-    those bytes.  The dense train step holds its working state (this rank's
+    """A prefill or decode step of a family without a plan gathers its
+    parameters whole (the decode step its cache too) before the model runs:
+    the temp figure is at least those bytes; the MoE family's sharded decode
+    step holds its parameters' working layouts in bf16 (each gathered over
+    its embed axes, the router whole) and no more than half the whole
+    gather.  The dense train step holds its working state (this rank's
     parameters gathered over their embed axes, whole for a q / k / v weight
     whose heads do not split, and their gradients), so its temp is at least
     those bytes, and below the temp of the ZeRO-3 step on the same case,
@@ -662,6 +740,12 @@ def test_dryrun_temp_holds_gathered_state(dry, case):
               f"reference's {ref}; ZeRO-3 {zero3} ({zero3 / ref:.4f} x)")
         assert 2 * working <= mem["temp_size_in_bytes"] < zero3
         assert zero3 >= 2 * whole
+        return
+    if cfg.family == "moe":
+        _, sizes, leaves = _moe_working(*case[::2])
+        working = sum(math.prod(p.shape) // math.prod(sizes[ax] for ax in keep) * 2
+                      for p, _, keep, moves in leaves if moves)
+        assert working <= mem["temp_size_in_bytes"] < whole // 2, (mem, working, whole)
         return
     need = whole
     if cell.kind == "decode":
@@ -800,6 +884,115 @@ def test_dryrun_serving_temp_within_twice_reference(serve_dry, cell):
     assert got <= 2 * want
     assert port["state_bytes_laid_out"] == port["state_bytes_per_device"] \
         == ref["state_bytes_per_device"]
+
+
+# ------------------------------------------------------------- the MoE family
+MOE_CASES = [("dbrx-132b", "single", "baseline"), ("mixtral-8x22b", "moe", "moe_ep")]
+MOE_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+# the ranks each logical axis splits over on the smoke meshes, (data 4, model
+# 2) and (data 2, expert 2, tp 2): dbrx's 8 experts on model, mixtral's 4 on
+# expert and their hidden columns on tp; in decode (one token a row, the
+# sequence unsplit) the experts and their columns split among the ranks
+# that hold the same tokens
+MOE_PARTS = {
+    "dbrx-132b": dict(batch=4, seq=2, qkv=2, ffn=1, vocab=2, cache_batch=4, cache_seq=2),
+    "mixtral-8x22b": dict(batch=2, seq=4, qkv=4, ffn=1, vocab=4, cache_batch=2, cache_seq=4),
+}
+MOE_DECODE = {"dbrx-132b": dict(experts=2, expert_ffn=1),
+              "mixtral-8x22b": dict(experts=2, expert_ffn=2)}
+
+
+def _moe_parts(arch: str, cell) -> dict:
+    parts = dict(MOE_PARTS[arch])
+    if cell.kind == "decode":
+        parts.update(seq=1, **MOE_DECODE[arch])
+    return parts
+
+
+@pytest.fixture(scope="module")
+def moe_dry(tmp_path_factory):
+    """The port's dry-run records of the MoE smoke cells on 8 fake ranks,
+    and its roofline records of the same cells (each arch on its mesh,
+    under its profile)."""
+    out = tmp_path_factory.mktemp("moe_dry")
+    _run(f"""
+        import json
+        from pathlib import Path
+        import torch.distributed as dist
+        import repro_torch.configs as C
+        from repro_torch.launch.dryrun import make_mesh, run_cell
+        from repro_torch.launch.roofline import analyze_cell
+        from repro_torch.substrate import fake_store, init_group
+        init_group("fake", 0, 8, store=fake_store())
+        for arch, mesh_kind, prof in {MOE_CASES!r}:
+            mesh = make_mesh(mesh_kind, smoke=True, device_type="cpu")
+            for cell in {MOE_CELLS!r}:
+                assert run_cell(arch, cell, mesh_kind, True, Path({str(out)!r}), profile=prof,
+                                device="cpu")
+                rec = analyze_cell(C.get(arch, smoke=True), C.smoke_cell(cell), mesh,
+                                   profile=prof, device="cpu")
+                open({str(out)!r} + f"/roof_{{arch}}_{{cell}}.json", "w").write(
+                    json.dumps(rec, default=float))
+        dist.destroy_process_group()
+    """)
+    recs = {}
+    for arch, mesh_kind, prof in MOE_CASES:
+        tag = "" if prof == "baseline" else f"__{prof}"
+        for cell in MOE_CELLS:
+            recs[arch, cell] = (
+                json.loads((out / f"{arch}__{cell}__{mesh_kind}{tag}.json").read_text()),
+                json.loads((out / f"roof_{arch}_{cell}.json").read_text()))
+    return recs
+
+
+MOE_KEYS = [(a, c) for a, _, _ in MOE_CASES for c in MOE_CELLS]
+
+
+@pytest.mark.parametrize("arch, cell", MOE_KEYS, ids=["-".join(k) for k in MOE_KEYS])
+def test_dryrun_moe_flops_hand_count(moe_dry, arch, cell):
+    """The MoE family's sharded train step, prefill and decode step (dbrx
+    smoke's experts apart on ``model``, mixtral smoke's under ``moe_ep``):
+    the dry-run's per-device product FLOPs equal ``hand_train_flops`` /
+    ``hand_prefill_flops`` / ``hand_decode_flops`` with the MoE block's
+    counts."""
+    import repro_torch.configs as C
+    from repro_torch.models.tensor_parallel import (hand_decode_flops, hand_prefill_flops,
+                                                    hand_train_flops)
+    rec, _ = moe_dry[arch, cell]
+    assert rec["ok"], rec.get("error")
+    cfg, c = C.get(arch, smoke=True), C.smoke_cell(cell)
+    hand = dict(train=hand_train_flops, prefill=hand_prefill_flops,
+                decode=hand_decode_flops)[c.kind]
+    assert rec["cost_analysis"]["flops"] == hand(cfg, c.global_batch, c.seq_len,
+                                                 _moe_parts(arch, c))
+
+
+@pytest.mark.parametrize("arch, cell", MOE_KEYS, ids=["-".join(k) for k in MOE_KEYS])
+def test_roofline_moe_block_probe_on_the_plan(moe_dry, arch, cell):
+    """The roofline's ``moe_block`` probe runs the planned layer code: its
+    per-device product FLOPs equal the block's hand count
+    (``tensor_parallel._moe_products``) on this rank's tokens and experts,
+    the forward for prefill and decode and, for train, the probe's value and
+    gradients (three times the products that differentiate both operands:
+    the router, the expert products and the combine; twice the combine
+    weights and the dispatch, whose second operand has no gradient), and it
+    runs collectives (the dispatched tokens' all-to-alls, or decode's sums
+    of the experts' outputs)."""
+    import repro_torch.configs as C
+    from repro_torch.models.tensor_parallel import _moe_products
+    _, roof = moe_dry[arch, cell]
+    cfg, c = C.get(arch, smoke=True), C.smoke_cell(cell)
+    parts = _moe_parts(arch, c)
+    S = 1 if c.kind == "decode" else c.seq_len
+    m = _moe_products(cfg, c.global_batch // parts["batch"], S, parts)
+    if c.kind == "train":
+        want = 3 * (m["router"] + m["experts"] + m["combine"]) + 2 * (m["route"]
+                                                                      + m["dispatch"])
+    else:
+        want = sum(m.values())
+    probe = roof["components"]["moe_block"]
+    assert probe["flops"] == want
+    assert probe["coll"] > 0
 
 
 def test_dryrun_cli(tmp_path):

@@ -30,9 +30,13 @@ import torch.multiprocessing as mp  # noqa: E402
 PIPE_B, PIPE_S = 8, 16
 SMOKE = dict(seq_len=32, global_batch=8, kind="train")
 PSUM_N = 4096
-# a family each whose meshed train step is ZeRO-3 (the dense family's is
-# tensor-parallel): MoE, SSM, hybrid
-ZERO3_ARCHS = ("mixtral-8x22b", "mamba2-2.7b", "jamba-v0.1-52b")
+# the families whose meshed train step is ZeRO-3 (the dense and MoE
+# families' is tensor-parallel): name -> (arch, mesh shape); SSM, and the
+# hybrid on (data 2, model 2) and on (1, 4)
+ZERO3_CASES = {"mamba2-2.7b": ("mamba2-2.7b", (2, 2)),
+               "jamba-v0.1-52b": ("jamba-v0.1-52b", (2, 2)),
+               "jamba-v0.1-52b-1x4": ("jamba-v0.1-52b", (1, 4))}
+ZERO3_ARCHS = sorted({arch for arch, _ in ZERO3_CASES.values()})
 
 
 # ------------------------------------------------------------------ spawning
@@ -109,7 +113,7 @@ def four_rank_job(rank, world, init, tmp, ref):
     mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
     cell = ShapeCell("smoke", **SMOKE)
 
-    def meshed_steps(cfg, weights):
+    def meshed_steps(cfg, weights, mesh=mesh):
         """Step 1's gradients, then three steps' losses and grad norms of
         ``build_train(model, mesh)`` from ``weights``, and whether the step
         took the tensor-parallel path (it keeps a plan) or ZeRO-3."""
@@ -129,7 +133,9 @@ def four_rank_job(rank, world, init, tmp, ref):
     cfg = smoke_cfg("minicpm-2b")
     model = build(cfg)
     out.update(meshed_steps(cfg, ref["train"]))
-    out["zero3"] = {arch: meshed_steps(smoke_cfg(arch), w) for arch, w in ref["zero3"].items()}
+    out["zero3"] = {name: meshed_steps(smoke_cfg(arch), ref["zero3"][arch],
+                                       make_mesh(shape, ("data", "model"), device_type="cpu"))
+                    for name, (arch, shape) in ZERO3_CASES.items()}
 
     for name, steps, kw in (("elastic", 6, {}), ("unresharded", 10, {"ckpt_every": 100}),
                             ("failed", 10, {"fail_at_steps": (5,)})):
@@ -376,15 +382,16 @@ def test_sharded_train_step_matches_one_device_step(four, reference):
     check_meshed_steps(ranks, *one_device_steps("minicpm-2b", reference["train"]))
 
 
-@pytest.mark.parametrize("arch", ZERO3_ARCHS)
-def test_zero3_train_step_matches_one_device_step(four, reference, arch):
-    """(data 2, model 2), a MoE, an SSM and a hybrid smoke config in float32
-    from the reference's weights, through the ZeRO-3 step their families
-    run on a mesh: the gradients of step 1 and three steps' losses and grad
-    norms against the port's one-device step on the same batches, at the
-    tensor-parallel step's bounds."""
+@pytest.mark.parametrize("name", list(ZERO3_CASES))
+def test_zero3_train_step_matches_one_device_step(four, reference, name):
+    """An SSM smoke config on (data 2, model 2) and a hybrid one on (2, 2)
+    and (1, 4), in float32 from the reference's weights, through the ZeRO-3
+    step their families run on a mesh: the gradients of step 1 and three
+    steps' losses and grad norms against the port's one-device step on the
+    same batches, at the tensor-parallel step's bounds."""
     _, ranks = four
-    runs = [r["zero3"][arch] for r in ranks]
+    arch = ZERO3_CASES[name][0]
+    runs = [r["zero3"][name] for r in ranks]
     assert not any(r["tensor_parallel"] for r in runs)
     check_meshed_steps(runs, *one_device_steps(arch, reference["zero3"][arch]))
 

@@ -22,11 +22,12 @@ NEW greedy tokens.
 Held: the tokens identical; the logits within 1e-5 of the reference's largest
 (the split softmax of decode is not bit for bit the one-device softmax); each
 rank's prefill and decode cache shard within 1e-6 of the matching slice of
-the reference's cache (``substrate.local_slices``).  The mixtral smoke model
-(MoE) on (2, 2) takes the gathering steps, held to the port's one-device
-steps.  A fake 8-rank trace of the decode and prefill steps shows that no
-all-gather outputs more than a rank's cache shard or a parameter's working
-layout.
+the reference's cache (``substrate.local_slices``).  The jamba smoke model
+(hybrid) on (2, 2) takes the gathering steps, held to the port's one-device
+steps.  A fake 8-rank trace of the decode and prefill steps of granite,
+dbrx and mixtral smoke (the MoE family's too, under ``moe_ep`` on its own
+mesh) shows that no all-gather outputs more than a rank's cache shard, a
+parameter's working layout or the tokens its experts run on.
 """
 import dataclasses
 import json
@@ -55,7 +56,7 @@ CASES = {  # name: (arch, mesh shape, profile, kv heads: None for the smoke conf
     "granite-serve-kv4-2x2": ("granite-3-8b", (2, 2), "serve", 4),
 }
 B, P, T, NEW = 4, 8, 16, 6
-GATHERING = "mixtral-8x22b"
+GATHERING = "jamba-v0.1-52b"
 
 
 def model_key(arch: str, kv) -> str:
@@ -69,7 +70,7 @@ def prompts_for(vocab: int) -> np.ndarray:
 def serve_rank_job(rank, world, init, tmp, weights):
     """Every case on one 4-rank gloo group: prefill, the decode cache seeded
     from it, NEW greedy steps; each step's logits and tokens, and this rank's
-    cache shards with their specs.  Then mixtral smoke's gathering steps on
+    cache shards with their specs.  Then jamba smoke's gathering steps on
     (2, 2) and on one device."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.interop import params_onto_mesh
@@ -219,9 +220,9 @@ def test_sharded_serve_matches_reference(ranks, reference, name):
 
 
 def test_other_families_gather_on_a_mesh(ranks):
-    """The MoE smoke model on (2, 2) runs the gathering prefill and decode
-    (no tensor-parallel plan is made): its prefill logits within 1e-5 of
-    the one-device step's and six greedy tokens identical."""
+    """The hybrid smoke model on (2, 2) runs the gathering prefill and
+    decode (no tensor-parallel plan is made): its prefill logits within
+    1e-5 of the one-device step's and six greedy tokens identical."""
     for r in ranks:
         (lm, tm, planned), (lo, to, _) = r[GATHERING]["mesh"], r[GATHERING]["one"]
         assert not planned
@@ -238,57 +239,83 @@ import repro_torch.configs as C
 from repro_torch.launch.dryrun import laid_out, make_mesh
 from repro_torch.launch.steps import abstract_cache, build_decode, build_prefill, input_shardings
 from repro_torch.models import build
-from repro_torch.models.common import sorted_leaves
+from repro_torch.models.common import sharding_profile, sorted_leaves
+from repro_torch.models.moe import GROUP
 from repro_torch.optim.adamw import tree_map_sorted
 from repro_torch.substrate import CostCounter, fake_store, init_group, mesh_context
 init_group("fake", 0, 8, store=fake_store())
-mesh = make_mesh("single", smoke=True, device_type="cpu")
-cfg = C.get("granite-3-8b", smoke=True)
-model = build(cfg)
+
+
+def expert_tokens(cfg, tp, B, S):
+    # the tokens a rank's experts run on: its rows' groups of every rank of
+    # the traded expert axes, gathered over the traded hidden-column axes
+    if not tp.expert_axes:
+        return 0
+    s_local = S // tp.parts(tp.seq_axes)
+    gs = min(GROUP, S)
+    C = max(1, int(cfg.capacity_factor * gs * cfg.top_k / cfg.n_experts))
+    return (B // tp.parts(tp.batch_axes) * cfg.n_experts // tp.parts(tp.expert_axes)
+            * (s_local // min(gs, s_local)) * tp.parts(tp.experts_traded)
+            * tp.parts(tp.expert_ffn_traded) * C * cfg.d_model)
+
+
 out = {}
-for name in ("decode_32k", "prefill_32k"):
-    cell = C.smoke_cell(name)
-    inputs = {k: v for k, v in model.input_specs(cell).items() if k != "pos"}
-    in_sh = input_shardings(inputs, mesh)
-    if cell.kind == "decode":
-        step, sh = build_decode(model, mesh, cell)
-    else:
-        step, sh = build_prefill(model, mesh)
-    with mesh_context(mesh), FakeTensorMode(allow_non_fake_inputs=True):
-        batch = {k: laid_out(v, in_sh[k], "cpu") for k, v in inputs.items()}
-        params = tree_map_sorted(lambda m, s: laid_out(m, s, "cpu"), model.abstract(),
-                                 sh["params"])
-        counter = CostCounter()
-        if cell.kind == "decode":
-            cache = tree_map_sorted(lambda m, s: laid_out(m, s, "cpu"),
-                                    abstract_cache(model, cell), sh["cache"])
-            batch["pos"] = cell.seq_len - 1
-            with counter:
-                step(params, cache, batch)
-            tp, layouts = step.plan(batch["tokens"], cache)
-            held = [c.to_local().numel() for c in sorted_leaves(cache)]
-        else:
-            with counter:
-                _, logits = step(params, batch)
-            tp, layouts, _ = step.plan(batch["tokens"])
-            # the stream's gathered sequence, as the train step gathers it
-            held = [cell.global_batch // tp.parts(tp.batch_axes) * cell.seq_len * cfg.d_model]
-        work = tp.working(params, layouts)
-        held += [w.numel() for w in sorted_leaves(work)]
-    out[name] = dict(gathers=[n for k, _, n in counter.collectives if k == "all-gather"],
-                     held=max(held), kinds=sorted({k for k, _, _ in counter.collectives}))
+for arch, kind, profile in CELLS:
+    cfg = C.get(arch, smoke=True)
+    model = build(cfg)
+    with sharding_profile(profile):
+        mesh = make_mesh(kind, smoke=True, device_type="cpu")
+        for name in ("decode_32k", "prefill_32k"):
+            cell = C.smoke_cell(name)
+            inputs = {k: v for k, v in model.input_specs(cell).items() if k != "pos"}
+            in_sh = input_shardings(inputs, mesh)
+            if cell.kind == "decode":
+                step, sh = build_decode(model, mesh, cell)
+            else:
+                step, sh = build_prefill(model, mesh)
+            with mesh_context(mesh), FakeTensorMode(allow_non_fake_inputs=True):
+                batch = {k: laid_out(v, in_sh[k], "cpu") for k, v in inputs.items()}
+                params = tree_map_sorted(lambda m, s: laid_out(m, s, "cpu"), model.abstract(),
+                                         sh["params"])
+                counter = CostCounter()
+                if cell.kind == "decode":
+                    cache = tree_map_sorted(lambda m, s: laid_out(m, s, "cpu"),
+                                            abstract_cache(model, cell), sh["cache"])
+                    batch["pos"] = cell.seq_len - 1
+                    with counter:
+                        step(params, cache, batch)
+                    tp, layouts = step.plan(batch["tokens"], cache)
+                    held = [c.to_local().numel() for c in sorted_leaves(cache)]
+                else:
+                    with counter:
+                        _, logits = step(params, batch)
+                    tp, layouts, _ = step.plan(batch["tokens"])
+                    # the stream's gathered sequence, as the train step gathers it
+                    held = [cell.global_batch // tp.parts(tp.batch_axes) * cell.seq_len
+                            * cfg.d_model]
+                work = tp.working(params, layouts)
+                held += [w.numel() for w in sorted_leaves(work)]
+                held.append(expert_tokens(cfg, tp, cell.global_batch,
+                                          1 if cell.kind == "decode" else cell.seq_len))
+            out[f"{arch}/{kind}/{name}"] = dict(
+                gathers=[n for k, _, n in counter.collectives if k == "all-gather"],
+                held=max(held), kinds=sorted({k for k, _, _ in counter.collectives}))
 print("RESULT" + json.dumps(out))
 """
+TRACE_CELLS = [("granite-3-8b", "single", "baseline"), ("dbrx-132b", "single", "baseline"),
+               ("mixtral-8x22b", "single", "baseline"), ("mixtral-8x22b", "moe", "moe_ep")]
 
 
 def test_serving_steps_gather_no_more_than_a_shard():
-    """granite smoke ``decode_32k`` and ``prefill_32k`` on the (data 4,
-    model 2) mesh of 8 fake ranks, the steps traced under the counter: no
-    all-gather's result holds more elements than the largest of a rank's
-    cache shards and its parameters' working layouts (prefill: or its rows'
-    gathered sequence, as the train step gathers it); the gathering decode
-    step's cache all-gathers held every row and position."""
-    r = subprocess.run([sys.executable, "-c", textwrap.dedent(TRACE)],
+    """``decode_32k`` and ``prefill_32k`` at smoke size on 8 fake ranks,
+    the steps traced under the counter: granite, dbrx and mixtral smoke on
+    the (data 4, model 2) mesh, and mixtral's under ``moe_ep`` on (data 2,
+    expert 2, tp 2).  No all-gather's result holds more elements than the
+    largest of a rank's cache shards, its parameters' working layouts
+    (prefill: or its rows' gathered sequence, as the train step gathers it)
+    and the dispatched tokens its experts run on."""
+    script = f"CELLS = {TRACE_CELLS!r}" + textwrap.dedent(TRACE)
+    r = subprocess.run([sys.executable, "-c", script],
                        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
