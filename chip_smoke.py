@@ -114,10 +114,11 @@ Phases (any failure exits non-zero; nothing is caught):
      off), within g1's 5e-2 in bf16; each rank's peak memory beside the
      one-device step's, and the step's ms (gloo on one card: not a speed);
      h6, the ZeRO-3 ``ShardedTrainStep`` the families without a plan run,
-     on h1's (data 1, model 1) NCCL mesh: mamba2-2.7b at its published
-     widths cut to 2 layers and jamba's smoke config, (B, S) = (2, 4096), two
-     steps each within 1e-5 (loss) and 1e-4 (grad norm) of the one-device
-     step on the card from the same seeded weights and batches; h7, the
+     on h1's (data 1, model 1) NCCL mesh: whisper-tiny as published (its
+     encoder's frames seeded normal) and jamba's smoke config, (B, S) =
+     (2, 4096), two steps each within 1e-5 (loss) and 1e-4 (grad norm) of
+     the one-device step on the card from the same seeded weights and
+     batches; h7, the
      dense family's sharded ``PrefillStep`` and ``DecodeStep`` at
      granite-3-8b's widths cut to 2 layers on 4 gloo ranks spawned on the
      card, a (1, 4) mesh under baseline and a (2, 2) mesh under serve (the
@@ -137,7 +138,17 @@ Phases (any failure exits non-zero; nothing is caught):
      (bf16's reported); h9, its sharded prefill of a (1, 5120) prompt past
      the 4096-token window, ``seed_cache`` into the ring and 16 greedy
      tokens on the same meshes, float32, logits within 1e-5 of the
-     one-device steps and tokens identical;
+     one-device steps and tokens identical; h10, the SSM family's
+     head-parallel train step at mamba2-2.7b's published widths cut to 2
+     layers, (B, S) = (2, 4096), on a (1, 4) mesh of 4 gloo ranks under
+     baseline (20 of the 80 heads and 2644 of in_proj's 10576 columns a
+     rank), step 1 against the one-device step run first and freed, at h5's
+     bounds in float32 (TF32 off) and bf16; h11, its sharded prefill of a
+     (4, 1000) prompt (15 chunks of 64 and a ragged one), ``seed_cache`` and
+     16 greedy tokens on h7's (1, 4) baseline and (2, 2) serve meshes,
+     float32, logits within 1e-5 of the one-device steps and tokens
+     identical; every h phase prints each rank's peak and the card's name
+     and power limit;
   i. the analysis tools on the card's own runs, after every timed phase:
      i1, ``launch.dryrun``'s trace of g2's exact cell (minicpm-2b as
      published, (B, S) = (2, 4096), float32 weights and moments) on a
@@ -176,7 +187,16 @@ Phases (any failure exits non-zero; nothing is caught):
      below the card's memory, collective bytes a device at most 1.0 x
      (train, prefill) or 1.5 x (decode) the reference's (both scaled by the
      share of the layers where the depth is cut), product FLOPs equal to the
-     hand counts, the temp printed beside the reference's;
+     hand counts, the temp printed beside the reference's; i6, the SSM
+     family's production cells the same way: mamba2-2.7b ``train_4k``,
+     ``prefill_32k``, ``decode_32k`` and ``long_500k`` as published on
+     (16, 16), against the reference's XLA counts (``I6_REFERENCE``):
+     argument + temp + output below the card's memory, collective bytes a
+     device at most 1.0 x (train, prefill) or 1.5 x (``decode_32k``) the
+     reference's and, for ``long_500k``, below a tenth of the gathering
+     step's (the reference's printed beside them), product FLOPs equal to
+     the hand counts and ``train_4k``'s at most a twelfth of the ZeRO-3
+     step's;
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -365,9 +385,10 @@ H3_PODS, H3_NUMEL, H3_ROUNDS, H3_SEED = 2, 16 * 2**20, 50, 13
 H5_LAYERS, H5_B, H5_S, H5_MESH, H5_SEED, H5_STEPS = 2, 2, 4096, (1, 4), 17, 2
 H5_BOUNDS = {"float32": (1e-5, 1e-4), "bfloat16": (5e-2, 5e-2)}  # loss, grad norm (g1's)
 # h6 the ZeRO-3 step of the families without a plan on h1's (data 1, model
-# 1) mesh: an SSM at its published widths cut to F1_LAYERS layers and the
-# hybrid at its smoke config, (B, S), steps against the one-device step
-H6_ARCHS, H6_B, H6_S, H6_SEED = (("mamba2-2.7b", False), ("jamba-v0.1-52b", True)), 2, 4096, 19
+# 1) mesh: the encoder-decoder as published (its encoder's frames seeded
+# normal) and the hybrid at its smoke config, (B, S), steps against the
+# one-device step
+H6_ARCHS, H6_B, H6_S, H6_SEED = (("whisper-tiny", False), ("jamba-v0.1-52b", True)), 2, 4096, 19
 # h7 the dense family's sharded prefill and decode at granite-3-8b's widths
 # cut to H5_LAYERS layers on 4 gloo ranks sharing the card, each mesh under its
 # profile: (B, prompt) prefilled, moved into a cache of H7_CACHE positions,
@@ -390,6 +411,22 @@ H8_STEPS = 1
 H8_MESHES = (((1, 4), ("data", "model"), "baseline"),
              ((1, 2, 2), ("data", "expert", "tp"), "moe_ep"))
 H9_B, H9_P, H9_NEW, H9_SEED = 1, 5120, 16, 31
+# h10 the SSM family's head-parallel train step at mamba2-2.7b's published
+# widths cut to H10_LAYERS layers, (B, S), on a (data 1, model 4) mesh of 4
+# gloo ranks sharing the card (20 of the 80 heads a rank, 2644 of in_proj's
+# 10576 columns), step 1 against the one-device step run first and freed, at
+# h5's bounds in float32 (TF32 off) and bf16; h11 its sharded prefill of a
+# (H11_B, H11_P) prompt (15 chunks of 64 and a ragged one), seed_cache and
+# H11_NEW greedy tokens on each of H7_MESHES, float32, logits within H7_RTOL
+# of the one-device steps and tokens identical
+H10_ARCH, H10_LAYERS, H10_B, H10_S, H10_MESH, H10_SEED = "mamba2-2.7b", 2, 2, 4096, (1, 4), 37
+H11_B, H11_P, H11_NEW, H11_SEED = 4, 1000, 16, 41
+# the planned train and serving phases: (arch, layers, B, S, mesh, seed) and
+# (arch, layers, B, prompt, cache positions, new tokens, seed)
+TRAIN_PHASES = {"h5": (LM_ARCH, H5_LAYERS, H5_B, H5_S, H5_MESH, H5_SEED),
+                "h10": (H10_ARCH, H10_LAYERS, H10_B, H10_S, H10_MESH, H10_SEED)}
+SERVE_PHASES = {"h7": (LM_ARCH, H5_LAYERS, H7_B, H7_P, H7_CACHE, H7_NEW, H7_SEED),
+                "h11": (H10_ARCH, H10_LAYERS, H11_B, H11_P, H11_P + H11_NEW, H11_NEW, H11_SEED)}
 # bytes the AdamW update moves a float32 parameter: parameter, gradient and
 # both moments read, parameter and moments written
 ADAMW_BYTES_PER_PARAM = 28
@@ -503,6 +540,46 @@ I5_BEFORE = {
                                                   collective=730_872_316_416),
 }
 I5_COLLECTIVE_OVER_REFERENCE = {"train": 1.0, "prefill": 1.0, "decode": 1.5}
+# i6 the SSM family's production cells on the same fleet, mamba2-2.7b as
+# published on the (16, 16) mesh under the baseline profile, each through
+# the dry-run's command line in a process of its own started (at low
+# priority) with phase h and read in phase i.  Beside the reference's XLA
+# compile counts of each cell on 256 fake host devices (python -m
+# repro.launch.dryrun --arch mamba2-2.7b --cell <cell> --mesh single, on the
+# CPU, jax 0.9.0): argument, temp and output bytes a device, collective
+# bytes a device and its HLO's collective ops by kind; and the port's
+# figures before the SSM family was sharded (its ZeRO-3 train step and
+# gathering serving steps through the same dry-run, torch 2.13 on the CPU:
+# temp, collective bytes a device and product FLOPs).  long_500k's one row
+# moves activations in XLA's partitioning and weights in the port's, so its
+# collective bytes are held below a tenth of the gathering step's
+I6_ARCH, I6_MESH = "mamba2-2.7b", "single"
+I6_CELLS = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+I6_REFERENCE = {
+    "train_4k": dict(argument=220_832_772, temp=10_669_434_640, output=220_800_300,
+                     collective=588_400_059_536,
+                     ops={"all-gather": 44, "all-reduce": 10, "collective-permute": 38,
+                          "all-to-all": 1}),
+    "prefill_32k": dict(argument=73_616_384, temp=4_432_646_568, output=340_075_352,
+                        collective=184_007_249_920,
+                        ops={"all-gather": 14, "collective-permute": 12, "all-reduce": 1}),
+    "decode_32k": dict(argument=158_518_304, temp=66_428_720, output=86_527_296,
+                       collective=694_567_456,
+                       ops={"all-gather": 5, "collective-permute": 54, "all-reduce": 3,
+                            "all-to-all": 1}),
+    "long_500k": dict(argument=84_214_788, temp=402_672, output=10_815_940,
+                      collective=1_548_616,
+                      ops={"all-gather": 3, "all-reduce": 6, "collective-permute": 54}),
+}
+I6_BEFORE = {
+    "train_4k": dict(temp=73_442_620_224, collective=12_145_947_840, flops=1.3611e15),
+    "prefill_32k": dict(temp=364_111_561_036, collective=11_456_954_368, flops=5.6141e15),
+    "decode_32k": dict(temp=76_840_518_144, collective=34_550_268_416, flops=7.0238e11),
+    "long_500k": dict(temp=21_233_336_320, collective=11_622_334_464, flops=5.4873e9),
+}
+I6_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0, "decode_32k": 1.5}
+I6_LONG_OVER_BEFORE = 0.1
+I6_TRAIN_FLOPS_UNDER_BEFORE = 12
 
 
 def log(*args):
@@ -2188,8 +2265,9 @@ def compressed_psum_phase(device) -> dict:
     return out
 
 
-def h5_config(dtype: str):
-    return dataclasses.replace(configs.get(LM_ARCH), n_layers=H5_LAYERS, compute_dtype=dtype)
+def h5_config(dtype: str, phase: str = "h5"):
+    arch, layers = TRAIN_PHASES[phase][:2]
+    return dataclasses.replace(configs.get(arch), n_layers=layers, compute_dtype=dtype)
 
 
 def h5_steps(step, opt, params, batches, sync) -> list:
@@ -2207,29 +2285,34 @@ def h5_steps(step, opt, params, batches, sync) -> list:
     return rows
 
 
-def tensor_parallel_rank(rank, world, init, tmp, device):
-    """One rank of phase h5 on a gloo group sharing the card: per compute
-    type, the weights made on the card from the seed and laid out on the
-    (data 1, model 4) mesh, ``H5_STEPS`` ``ShardedTrainStep``s (the dense
-    tensor-parallel step) and the rank's peak memory over them."""
+def tensor_parallel_rank(rank, world, init, tmp, device, phase: str = "h5"):
+    """One rank of phase h5 (or h10) on a gloo group sharing the card: per
+    compute type, the weights made on the card from the seed and laid out
+    on the (data 1, model 4) mesh, ``H5_STEPS`` ``ShardedTrainStep``s (the
+    dense tensor-parallel step, or the SSM's head-parallel one) and the
+    rank's peak memory over them."""
+    _, _, B, S, shape, seed = TRAIN_PHASES[phase]
     torch.cuda.set_device(0)
     tf32_off()
     init_group("gloo", rank, world, init)
-    mesh = make_mesh(H5_MESH, ("data", "model"), device_type=device)
+    mesh = make_mesh(shape, ("data", "model"), device_type=device)
     out = dict(backend=dist.get_backend(), world=dist.get_world_size())
     for dtype in H5_BOUNDS:
-        cfg = h5_config(dtype)
+        cfg = h5_config(dtype, phase)
         model = build(cfg)
         step, opt, sh = build_train(model, mesh, G2_STEPS, G2_PEAK_LR)
-        params = model.init(torch.Generator(device).manual_seed(H5_SEED), device)
+        params = model.init(torch.Generator(device).manual_seed(seed), device)
         params = tree_map_sorted(distribute, params, sh["params"])
-        in_sh = input_shardings(model.input_specs(ShapeCell("h5", H5_S, H5_B, "train")), mesh)
-        data = SyntheticLM(DataConfig(cfg.vocab, H5_S, H5_B, H5_SEED))
+        in_sh = input_shardings(model.input_specs(ShapeCell(phase, S, B, "train")), mesh)
+        data = SyntheticLM(DataConfig(cfg.vocab, S, B, seed))
         batches = [data.sharded_batch(i, in_sh) for i in range(H5_STEPS)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         rows = h5_steps(step, opt, params, batches, dist.barrier)
-        out[dtype] = dict(steps=rows, max_memory_allocated=torch.cuda.max_memory_allocated())
+        (tp, _, _), = step._plans.values()
+        out[dtype] = dict(steps=rows, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                          plan=dict(seq=tp.seq_axes, qkv=tp.qkv_axes, ssm_heads=tp.ssm_head_axes,
+                                    ssm_columns=tp.ssm_in_axes))
         del params, batches, step, opt
         gc.collect()
         torch.cuda.empty_cache()
@@ -2237,26 +2320,33 @@ def tensor_parallel_rank(rank, world, init, tmp, device):
     dist.destroy_process_group()
 
 
-def tensor_parallel_phase(device) -> dict:
+def tensor_parallel_phase(device, phase: str = "h5") -> dict:
     """Phase h5: the dense family's tensor- and sequence-parallel train step
     at granite-3-8b's published widths cut to H5_LAYERS layers, (B, S) =
     (H5_B, H5_S), on a (data 1, model 4) mesh of 4 gloo ranks spawned on
     the card (NCCL refuses two ranks on one card; the stream's collectives
     cross through host copies), so the sequence, the heads (the 8 kv heads
     too), the MLP's columns all split, and the vocabulary (49155) does not.
-    Against the one-device ``TrainStep`` on the card from the same seeded
-    weights and batches: the first step's loss and grad norm within 1e-5
-    and 1e-4 relative in float32 (TF32 off), within g1's bf16 bound in
-    bf16.  Each rank's peak memory beside the one-device step's; the
-    second step's ms, gloo on one card, is not a speed."""
+    Phase h10 (``phase="h10"``): the SSM family's head-parallel step at
+    mamba2-2.7b's published widths cut to H10_LAYERS layers, (H10_B,
+    H10_S), on the same mesh: the sequence, the 80 heads and in_proj's
+    columns on model (20 heads and 2644 columns a rank), the vocabulary of
+    50280 whole.  Against the one-device ``TrainStep`` on the card from the
+    same seeded weights and batches, run first and freed: the first step's
+    loss and grad norm within 1e-5 and 1e-4 relative in float32 (TF32
+    off), within g1's bf16 bound in bf16.  Each rank's peak memory beside
+    the one-device step's; the second step's ms, gloo on one card, is not a
+    speed."""
+    arch, layers, B, S, shape, seed = TRAIN_PHASES[phase]
+    card = smi("name,power.limit")
     tf32_off()
     one = {}
     for dtype in H5_BOUNDS:
-        cfg = h5_config(dtype)
+        cfg = h5_config(dtype, phase)
         model = build(cfg)
         step, opt, _ = build_train(model, None, G2_STEPS, G2_PEAK_LR)
-        params = model.init(torch.Generator(device).manual_seed(H5_SEED), device)
-        data = SyntheticLM(DataConfig(cfg.vocab, H5_S, H5_B, H5_SEED))
+        params = model.init(torch.Generator(device).manual_seed(seed), device)
+        data = SyntheticLM(DataConfig(cfg.vocab, S, B, seed))
         batches = [data.device_batch(i, device) for i in range(H5_STEPS)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2266,8 +2356,9 @@ def tensor_parallel_phase(device) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_ranks(tensor_parallel_rank, math.prod(H5_MESH), tmp, device, timeout=600.0)
-    out = dict(arch=LM_ARCH, layers=H5_LAYERS, batch=[H5_B, H5_S], mesh=list(H5_MESH),
+        ranks = spawn_ranks(tensor_parallel_rank, math.prod(shape), tmp, device, phase,
+                            timeout=600.0)
+    out = dict(arch=arch, layers=layers, batch=[B, S], mesh=list(shape), card=card,
                backend=ranks[0]["backend"], world=ranks[0]["world"])
     for dtype, (b_loss, b_gn) in H5_BOUNDS.items():
         want = one[dtype]["steps"][0]
@@ -2283,41 +2374,49 @@ def tensor_parallel_phase(device) -> dict:
             rank_max_memory_allocated=[r[dtype]["max_memory_allocated"] for r in ranks],
             one_device_max_memory_allocated=one[dtype]["max_memory_allocated"],
             gloo_on_one_card_step_ms=[[s["ms"] for s in r[dtype]["steps"]] for r in ranks],
-            one_device_step_ms=[s["ms"] for s in one[dtype]["steps"]])
+            one_device_step_ms=[s["ms"] for s in one[dtype]["steps"]], plan=ranks[0][dtype]["plan"])
         check(all(math.isfinite(x) for r in ranks for s in r[dtype]["steps"]
-                  for x in (s["loss"], s["grad_norm"])), f"h5 {dtype}: a step is not finite")
+                  for x in (s["loss"], s["grad_norm"])), f"{phase} {dtype}: a step is not finite")
         check(all(e["loss"] <= b_loss and e["grad_norm"] <= b_gn for e in errs),
-              f"h5 {dtype}: the tensor-parallel step is off the one-device step by {errs} "
+              f"{phase} {dtype}: the tensor-parallel step is off the one-device step by {errs} "
               f"(bounds {b_loss}, {b_gn})")
         o = out[dtype]
-        log(f"phase h5: {LM_ARCH} at its published widths cut to {H5_LAYERS} layers, (B, S) = "
-            f"({H5_B}, {H5_S}), {dtype}, the tensor-parallel step on a (data, model) = "
-            f"{H5_MESH} mesh of {out['world']} {out['backend']} ranks on the card: step 1 off "
-            f"the one-device step by loss {max(e['loss'] for e in errs):.3e}, grad norm "
+        log(f"phase {phase}: {arch} at its published widths cut to {layers} layers, (B, S) = "
+            f"({B}, {S}), {dtype}, the tensor-parallel step (plan {o['plan']}) on a (data, "
+            f"model) = {shape} mesh of {out['world']} {out['backend']} ranks on the card: step 1 "
+            f"off the one-device step by loss {max(e['loss'] for e in errs):.3e}, grad norm "
             f"{max(e['grad_norm'] for e in errs):.3e} (bounds {b_loss}, {b_gn}); losses "
             f"{o['losses'][0]} (one device {o['one_device_losses']}); peak by rank "
             f"{o['rank_max_memory_allocated']} bytes (one device "
             f"{o['one_device_max_memory_allocated']}); step ms by rank, gloo on one card, not "
             f"a speed: {[[round(t, 1) for t in r] for r in o['gloo_on_one_card_step_ms']]} "
-            f"(one device {[round(t, 1) for t in o['one_device_step_ms']]})")
+            f"(one device {[round(t, 1) for t in o['one_device_step_ms']]}); card {card}")
     return out
 
 
 def h6_steps(model, mesh, device) -> list:
     """``H1_STEPS`` steps of ``build_train(model, mesh)`` (the one-device
     step where ``mesh`` is None) from ``H6_SEED``'s weights and batches on
-    the card: the loss and grad norm of each.  A meshed step must have taken
-    the ZeRO-3 path (it keeps no tensor-parallel plan)."""
+    the card (an encoder-decoder's frames seeded normal): the loss and grad
+    norm of each.  A meshed step must have taken the ZeRO-3 path (it keeps
+    no tensor-parallel plan)."""
     cfg = model.cfg
     step, opt, sh = build_train(model, mesh, G2_STEPS, G2_PEAK_LR)
     params = model.init(torch.Generator(device).manual_seed(H6_SEED), device)
     data = SyntheticLM(DataConfig(cfg.vocab, H6_S, H6_B, H6_SEED))
+    frames = [torch.randn((H6_B, cfg.enc_seq, cfg.d_model),
+                          generator=torch.Generator().manual_seed(H6_SEED + i))
+              for i in range(H1_STEPS)] if cfg.family == "encdec" else None
     if mesh is None:
         batches = [data.device_batch(i, device) for i in range(H1_STEPS)]
+        for i, batch in enumerate(batches if frames else ()):
+            batch["frames"] = frames[i].to(device)
     else:
         params = tree_map_sorted(distribute, params, sh["params"])
         in_sh = input_shardings(model.input_specs(ShapeCell("h6", H6_S, H6_B, "train")), mesh)
         batches = [data.sharded_batch(i, in_sh) for i in range(H1_STEPS)]
+        for i, batch in enumerate(batches if frames else ()):
+            batch["frames"] = distribute(frames[i], in_sh["frames"])
     state = opt.init(params)
     rows = []
     for batch in batches:
@@ -2334,16 +2433,15 @@ def h6_steps(model, mesh, device) -> list:
 def zero3_phase(device) -> dict:
     """Phase h6: the ZeRO-3 ``ShardedTrainStep`` that every family without
     a plan runs on a mesh, on a (data 1, model 1) mesh of this process's
-    one-rank NCCL world (h1's): each of ``H6_ARCHS`` from the same seeded
-    weights and batches as the one-device step on the card, every loss
-    within 1e-5 relative and grad norm within 1e-4 (one rank computes what
-    the one-device step computes)."""
+    one-rank NCCL world (h1's): each of ``H6_ARCHS`` (whisper-tiny as
+    published, the hybrid's smoke config) from the same seeded weights and
+    batches as the one-device step on the card, every loss within 1e-5
+    relative and grad norm within 1e-4 (one rank computes what the
+    one-device step computes)."""
     mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
     out = {}
     for arch, smoke in H6_ARCHS:
         cfg = configs.get(arch, smoke=smoke)
-        if not smoke:
-            cfg = dataclasses.replace(cfg, n_layers=F1_LAYERS)
         check(cfg.family not in PLANNED, f"h6: {arch}'s meshed step is tensor-parallel")
         model = build(cfg)
         one, meshed = h6_steps(model, None, device), h6_steps(model, mesh, device)
@@ -2364,19 +2462,21 @@ def zero3_phase(device) -> dict:
     return out
 
 
-def h7_config():
-    return dataclasses.replace(configs.get(LM_ARCH), n_layers=H5_LAYERS, compute_dtype="float32")
+def h7_config(phase: str = "h7"):
+    arch, layers = SERVE_PHASES[phase][:2]
+    return dataclasses.replace(configs.get(arch), n_layers=layers, compute_dtype="float32")
 
 
-def h7_prompts(cfg, device) -> torch.Tensor:
-    rng = np.random.default_rng(H7_SEED)
-    return torch.as_tensor(rng.integers(0, cfg.vocab, (H7_B, H7_P)), dtype=torch.int32,
+def h7_prompts(cfg, device, phase: str = "h7") -> torch.Tensor:
+    _, _, B, P, _, _, seed = SERVE_PHASES[phase]
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)), dtype=torch.int32,
                            device=device)
 
 
-def h7_run(prefill, decode, seed, params, prompts, sync) -> dict:
+def h7_run(prefill, decode, seed, params, prompts, sync, new: int = H7_NEW) -> dict:
     """Prefill ``prompts``, move the cache into the decode cache
-    (``seed``), then ``H7_NEW`` greedy steps: each step's logits (on the
+    (``seed``), then ``new`` greedy steps: each step's logits (on the
     host) and tokens, the prefill's ms and each decode step's, each timed
     between ``sync`` and a synchronize."""
     sync()
@@ -2388,45 +2488,50 @@ def h7_run(prefill, decode, seed, params, prompts, sync) -> dict:
     del pcache
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     steps, decode_ms = [(logits.cpu(), tok.cpu())], []
-    for i in range(H7_NEW):
+    P = prompts.shape[1]
+    for i in range(new):
         sync()
         t = time.perf_counter()
-        tok, logits, cache = decode(params, cache, {"tokens": tok[:, None], "pos": H7_P + i})
+        tok, logits, cache = decode(params, cache, {"tokens": tok[:, None], "pos": P + i})
         torch.cuda.synchronize()
         decode_ms.append((time.perf_counter() - t) * 1e3)
         steps.append((logits.cpu(), tok.cpu()))
     return dict(steps=steps, prefill_ms=prefill_ms, decode_ms=decode_ms)
 
 
-def serve_rank(rank, world, init, tmp, device):
-    """One rank of phase h7 on a gloo group sharing the card: per mesh and
-    profile, the weights made on the card from the seed and laid out on the
-    mesh, the sharded prefill, ``seed_cache`` and the decode steps, and the
-    rank's peak memory over them."""
+def serve_rank(rank, world, init, tmp, device, phase: str = "h7"):
+    """One rank of phase h7 (or h11) on a gloo group sharing the card: per
+    mesh and profile, the weights made on the card from the seed and laid
+    out on the mesh, the sharded prefill, ``seed_cache`` and the decode
+    steps, and the rank's peak memory over them."""
+    _, _, B, _, cache_len, new, seed = SERVE_PHASES[phase]
     torch.cuda.set_device(0)
     tf32_off()
     init_group("gloo", rank, world, init)
-    model = build(h7_config())
-    prompts = h7_prompts(model.cfg, device)
+    model = build(h7_config(phase))
+    prompts = h7_prompts(model.cfg, device, phase)
     out = dict(backend=dist.get_backend(), world=dist.get_world_size())
     for shape, profile in H7_MESHES:
         with sharding_profile(profile):
             mesh = make_mesh(shape, ("data", "model"), device_type=device)
             fwd, psh = build_prefill(model, mesh)
-            dec, dsh = build_decode(model, mesh, ShapeCell("h7", H7_CACHE, H7_B, "decode"))
+            dec, dsh = build_decode(model, mesh, ShapeCell(phase, cache_len, B, "decode"))
             params = tree_map_sorted(
-                distribute, model.init(torch.Generator(device).manual_seed(H7_SEED), device),
+                distribute, model.init(torch.Generator(device).manual_seed(seed), device),
                 psh["params"])
             gc.collect()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            run = h7_run(fwd, dec, lambda c: seed_cache(c, dsh["cache"], H7_CACHE), params,
-                         prompts, dist.barrier)
+            run = h7_run(fwd, dec, lambda c: seed_cache(c, dsh["cache"], cache_len), params,
+                         prompts, dist.barrier, new)
             (tp, _), = dec._plans.values()
             out[profile] = dict(run, max_memory_allocated=torch.cuda.max_memory_allocated(),
                                 plan=dict(q_local=tp.q_local, kv_local=tp.kv_local,
                                           qkv=tp.qkv_axes, cache_rows=tp.cache_row_axes,
-                                          cache_seq=tp.cache_seq_axes))
+                                          cache_seq=tp.cache_seq_axes,
+                                          ssm_heads=tp.ssm_head_axes,
+                                          ssm_columns=tp.ssm_in_axes,
+                                          cache_conv=tp.cache_conv_axes))
             del params, fwd, dec
             gc.collect()
             torch.cuda.empty_cache()
@@ -2434,17 +2539,22 @@ def serve_rank(rank, world, init, tmp, device):
     dist.destroy_process_group()
 
 
-def one_device_cache(model, pcache, device):
-    """The one-device decode cache of ``H7_CACHE`` positions holding the
-    prefill's k, v at positions [0, P), zeros beyond (the engine's seeding)."""
-    cache = init_params(model.cache_specs(H7_B, H7_CACHE), None, device)
+def one_device_cache(model, pcache, device, phase: str = "h7"):
+    """The one-device decode cache of the phase's positions holding the
+    prefill's k, v at positions [0, P), zeros beyond (the engine's seeding);
+    an SSM's state and conv history as the prefill left them."""
+    _, _, B, _, cache_len, _, _ = SERVE_PHASES[phase]
+    cache = init_params(model.cache_specs(B, cache_len), None, device)
     for pos, entry in cache.items():
         for n, dst in entry.items():
-            dst[:, :, :pcache[pos][n].shape[2]] = pcache[pos][n]
+            if n in ("k", "v"):
+                dst[:, :, :pcache[pos][n].shape[2]] = pcache[pos][n]
+            else:
+                dst.copy_(pcache[pos][n])
     return cache
 
 
-def sharded_serve_phase(device) -> dict:
+def sharded_serve_phase(device, phase: str = "h7") -> dict:
     """Phase h7: the dense family's sharded ``PrefillStep`` and
     ``DecodeStep`` at granite-3-8b's published widths cut to H5_LAYERS
     layers, float32 (TF32 off), on 4 gloo ranks spawned on the card, on a
@@ -2457,25 +2567,32 @@ def sharded_serve_phase(device) -> dict:
     one-device steps on the card from the same seeded weights and prompts:
     every step's logits within H7_RTOL relative on every rank, every token
     identical.  Each rank's peak beside the one-device run's; the steps' ms,
-    gloo on one card, are not a speed."""
+    gloo on one card, are not a speed.  Phase h11 (``phase="h11"``): the
+    SSM family's sharded steps at mamba2-2.7b's published widths cut to
+    H10_LAYERS layers, a (H11_B, H11_P) prompt (15 chunks of 64 and a
+    ragged one) and H11_NEW greedy tokens on the same meshes (the heads and
+    the cache's state heads on model, in_proj's columns on model, under
+    serve the conv weights, norm and out_proj on (model, data), the cache's
+    rows on data), the one-device steps run first and freed."""
+    arch, layers, B, P, cache_len, new, seed = SERVE_PHASES[phase]
     tf32_off()
     card = smi("name,power.limit")
-    model = build(h7_config())
-    params = model.init(torch.Generator(device).manual_seed(H7_SEED), device)
-    prompts = h7_prompts(model.cfg, device)
+    model = build(h7_config(phase))
+    params = model.init(torch.Generator(device).manual_seed(seed), device)
+    prompts = h7_prompts(model.cfg, device, phase)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     one = h7_run(PrefillStep(model), DecodeStep(model),
-                 lambda c: one_device_cache(model, c, device), params, prompts,
-                 torch.cuda.synchronize)
+                 lambda c: one_device_cache(model, c, device, phase), params, prompts,
+                 torch.cuda.synchronize, new)
     one["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     del params
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_ranks(serve_rank, 4, tmp, device, timeout=600.0)
-    out = dict(arch=LM_ARCH, layers=H5_LAYERS, batch=H7_B, prompt=H7_P, cache=H7_CACHE,
-               new=H7_NEW, card=card, backend=ranks[0]["backend"], world=ranks[0]["world"],
+        ranks = spawn_ranks(serve_rank, 4, tmp, device, phase, timeout=600.0)
+    out = dict(arch=arch, layers=layers, batch=B, prompt=P, cache=cache_len,
+               new=new, card=card, backend=ranks[0]["backend"], world=ranks[0]["world"],
                one_device=dict(prefill_ms=one["prefill_ms"], decode_ms=one["decode_ms"],
                                max_memory_allocated=one["max_memory_allocated"]))
     want_tokens = [tok for _, tok in one["steps"]]
@@ -2490,8 +2607,8 @@ def sharded_serve_phase(device) -> dict:
                    gloo_on_one_card_prefill_ms=[r[profile]["prefill_ms"] for r in ranks],
                    gloo_on_one_card_decode_ms=[r[profile]["decode_ms"] for r in ranks])
         out[profile] = row
-        log(f"phase h7: {LM_ARCH} at its published widths cut to {H5_LAYERS} layers, float32, "
-            f"prefill ({H7_B}, {H7_P}) into a {H7_CACHE}-position cache and {H7_NEW} greedy "
+        log(f"phase {phase}: {arch} at its published widths cut to {layers} layers, float32, "
+            f"prefill ({B}, {P}) into a {cache_len}-position cache and {new} greedy "
             f"tokens, sharded on a (data, model) = {shape} mesh under {profile} (plan "
             f"{row['plan']}) of {out['world']} {out['backend']} ranks on the card: logits off "
             f"the one-device steps by {max(errs):.3e} at most (bound {H7_RTOL}), tokens "
@@ -2503,10 +2620,10 @@ def sharded_serve_phase(device) -> dict:
             f"(one device: prefill {one['prefill_ms']:.1f}, decode mean "
             f"{sum(one['decode_ms']) / len(one['decode_ms']):.2f}); card {card}")
         check(all(math.isfinite(float(lg.abs().max())) for r in ranks
-                  for lg, _ in r[profile]["steps"]), f"h7 {profile}: logits not finite")
+                  for lg, _ in r[profile]["steps"]), f"{phase} {profile}: logits not finite")
         check(all(e <= H7_RTOL for e in errs),
-              f"h7 {profile}: the sharded steps are off the one-device steps by {errs}")
-        check(all(same), f"h7 {profile}: the sharded steps' tokens differ: {same}")
+              f"{phase} {profile}: the sharded steps are off the one-device steps by {errs}")
+        check(all(same), f"{phase} {profile}: the sharded steps' tokens differ: {same}")
     return out
 
 
@@ -2814,8 +2931,8 @@ def moe_phase(device) -> tuple[dict, dict]:
 def distributed_path(device, g2: dict) -> dict:
     """Phase h: the distribution substrate on the card (h1 in this
     process's one-rank NCCL world, which h4 reuses through
-    ``make_test_mesh`` and h6 through a mesh of its own; h2, h3 and h5 in
-    spawned gloo worlds)."""
+    ``make_test_mesh`` and h6 through a mesh of its own; h2, h3, h5 and
+    h7-h11 in spawned gloo worlds)."""
     init_group("nccl")
     try:
         h1 = meshed_full_width(device, g2)
@@ -2829,9 +2946,12 @@ def distributed_path(device, g2: dict) -> dict:
         h6 = zero3_phase(device)
         h7 = sharded_serve_phase(device)
         h8, h9 = moe_phase(device)
+        h10 = tensor_parallel_phase(device, "h10")
+        h11 = sharded_serve_phase(device, "h11")
     finally:
         dist.destroy_process_group()
-    return dict(h1=h1, h2=h2, h3=h3, h4=h4, h5=h5, h6=h6, h7=h7, h8=h8, h9=h9)
+    return dict(h1=h1, h2=h2, h3=h3, h4=h4, h5=h5, h6=h6, h7=h7, h8=h8, h9=h9, h10=h10,
+                h11=h11)
 
 
 def start_dryrun(out: str, cell: str, layers: int = 0, arch: str = I3_ARCH,
@@ -3038,6 +3158,94 @@ def check_i5(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
     return rows
 
 
+def ssm_parts(cfg, shape: dict, cell) -> dict:
+    """The ranks each logical axis of the SSM family's sharded steps splits
+    over on the (data, model) mesh under the baseline profile: the batch and
+    the cache's rows on data where the batch divides it (long_500k's one
+    row does not); the sequence on model (one token in decode);
+    ``in_proj``'s columns and the heads on model (10576 and 80 divide 16);
+    the vocabulary on model where it divides (50280 does not)."""
+    n, rows = shape["model"], shape["data"] if cell.global_batch % shape["data"] == 0 else 1
+    di, H, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
+    return dict(batch=rows, cache_batch=rows, seq=1 if cell.kind == "decode" else n,
+                vocab=n if cfg.vocab % n == 0 else 1,
+                ssm_inner=n if (2 * di + 2 * N + H) % n == 0 else 1,
+                ssm_heads=n if H % n == 0 else 1)
+
+
+def start_i6(out: str) -> dict:
+    """Phase i6's traces, each in a process of its own at low priority."""
+    return {(I6_ARCH, cell, I6_MESH): start_dryrun(out, cell, 0, I6_ARCH, I6_MESH, nice=10)
+            for cell in I6_CELLS}
+
+
+def check_i6(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> dict:
+    """Phase i6: each SSM cell's record against the reference's counts:
+    argument + temp + output below the card's memory, collective bytes a
+    device at most ``I6_COLLECTIVE_OVER_REFERENCE`` x the reference's
+    (long_500k: below ``I6_LONG_OVER_BEFORE`` of the gathering step's,
+    printed beside the reference's), product FLOPs equal to the hand count
+    (``hand_*_flops`` with ``ssm_parts``), train_4k's at most
+    1 / ``I6_TRAIN_FLOPS_UNDER_BEFORE`` of the ZeRO-3 step's; the temp
+    printed beside the reference's."""
+    rows = {}
+    cfg = configs.get(I6_ARCH)
+    for cell_name in I6_CELLS:
+        what = f"i6 {I6_ARCH} {cell_name}"
+        rec = finish_dryrun(procs[I6_ARCH, cell_name, I6_MESH], out, cell_name, what, I6_ARCH,
+                            I6_MESH, timeout=max(1.0, I5_TIMEOUT_S - (time.perf_counter() - t0)))
+        cell = configs.SHAPES[cell_name]
+        hand_fn = dict(train=hand_train_flops, prefill=hand_prefill_flops,
+                       decode=hand_decode_flops)[cell.kind]
+        hand = hand_fn(cfg, cell.global_batch, cell.seq_len,
+                       ssm_parts(cfg, rec["mesh_shape"], cell))
+        mem, coll, flops = rec["memory_analysis"], rec["collectives"], rec["cost_analysis"]["flops"]
+        ref, before = I6_REFERENCE[cell_name], I6_BEFORE[cell_name]
+        total = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] + \
+            mem["output_size_in_bytes"]
+        got = coll["collective_bytes_per_device"]
+        row = dict(arch=I6_ARCH, cell=cell_name, mesh=I6_MESH, trace_s=rec["lower_s"],
+                   memory=mem, argument_temp_output=total, card_bytes=card_bytes,
+                   collective_bytes_per_device=got,
+                   collective_by_kind=coll["collective_bytes_per_device_by_kind"],
+                   collective_ops=coll["op_counts"], flops=flops, hand_flops=hand,
+                   reference=ref, before=before, card=card,
+                   temp_over_reference=mem["temp_size_in_bytes"] / ref["temp"],
+                   collectives_over_reference=got / ref["collective"],
+                   collectives_over_before=got / before["collective"])
+        rows[cell_name] = row
+        log(f"phase i6: {I6_ARCH} {cell_name} on the {rec['mesh_shape']} mesh of "
+            f"{math.prod(rec['mesh_shape'].values())} fake ranks, head-parallel: trace "
+            f"{rec['lower_s']} s; argument {mem['argument_size_in_bytes']} / temp "
+            f"{mem['temp_size_in_bytes']} / output {mem['output_size_in_bytes']} bytes a device "
+            f"(the reference's {ref['argument']} / {ref['temp']} / {ref['output']}; temp "
+            f"{row['temp_over_reference']:.4f} x), argument + temp + output {total} against "
+            f"the card's {card_bytes}; collective bytes a device {got:.0f} by kind "
+            f"{coll['collective_bytes_per_device_by_kind']}, ops {coll['op_counts']}, "
+            f"{row['collectives_over_reference']:.4f} x the reference's {ref['collective']} "
+            f"(its HLO's ops {ref['ops']}), {row['collectives_over_before']:.4f} x the gathering "
+            f"or ZeRO-3 step's {before['collective']}; product FLOPs {flops:.6e}, the hand "
+            f"count {hand:.6e} (before: {before['flops']:.4e}); before: temp {before['temp']}; "
+            f"card {card}")
+        check(total < card_bytes, f"{what}: argument + temp + output {total} above {card_bytes}")
+        if cell_name in I6_COLLECTIVE_OVER_REFERENCE:
+            check(row["collectives_over_reference"] <= I6_COLLECTIVE_OVER_REFERENCE[cell_name],
+                  f"{what}: collective bytes {row['collectives_over_reference']:.4f} x the "
+                  f"reference's, above {I6_COLLECTIVE_OVER_REFERENCE[cell_name]}")
+        else:
+            check(got < I6_LONG_OVER_BEFORE * before["collective"],
+                  f"{what}: collective bytes {got} not below {I6_LONG_OVER_BEFORE} x the "
+                  f"gathering step's {before['collective']}")
+        check(flops == hand, f"{what}: {flops} product FLOPs, the hand count {hand}")
+        if cell.kind == "train":
+            check(flops <= before["flops"] / I6_TRAIN_FLOPS_UNDER_BEFORE,
+                  f"{what}: {flops} product FLOPs above 1/{I6_TRAIN_FLOPS_UNDER_BEFORE} of the "
+                  f"ZeRO-3 step's {before['flops']}")
+    log(f"phase i6: {time.perf_counter() - t0:.1f} s from the traces' start to their last "
+        f"record")
+    return rows
+
+
 def traced_train_flops(cfg, B: int, S: int) -> int:
     """The product FLOPs one train step of a swiglu decoder runs, as the
     dry-run counts them: ``train_bounds``' products, but every (q, k) tile
@@ -3059,8 +3267,8 @@ def analysis_phase(device, g2: dict, e2: dict, i5_procs: dict, i5_dir: str,
     """Phase i, after every timed phase: i3 traced in a process of its own
     while this one runs i1, the dry-run of g2's cell, and i2, the roofline of
     the cells g2 and e2 ran, on a one-rank fake world (this process's
-    default group for i1 and i2 alone); then i5's records, whose traces
-    started with phase h."""
+    default group for i1 and i2 alone); then i5's and i6's records, whose
+    traces (``i5_procs`` holds both) started with phase h."""
     card = smi("name,power.limit")
     with tempfile.TemporaryDirectory() as tmp:
         t3 = time.perf_counter()
@@ -3120,7 +3328,8 @@ def analysis_phase(device, g2: dict, e2: dict, i5_procs: dict, i5_dir: str,
     i4 = {cell: check_i4(i4[cell], cell, layers, card_bytes, card) for cell, layers in I4_CELLS}
     log(f"phase i4: {i4_wall:.1f} s for i3 and i4 beside i1 and i2")
     i5 = check_i5(i5_procs, i5_dir, i5_t0, card_bytes, card)
-    return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, i5=i5, card=card)
+    i6 = check_i6(i5_procs, i5_dir, i5_t0, card_bytes, card)
+    return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, i5=i5, i6=i6, card=card)
 
 
 def analysis_one_rank(device, g2: dict, e2: dict, card: str) -> tuple[dict, list]:
@@ -3628,7 +3837,7 @@ def main() -> int:
     print(json.dumps({"training": train}), flush=True)
     i5_dir = tempfile.mkdtemp()
     i5_t0 = time.perf_counter()
-    i5_procs = start_i5(i5_dir)
+    i5_procs = {**start_i5(i5_dir), **start_i6(i5_dir)}
     try:
         distributed, by_path["distributed"] = counted(distributed_path, device, train["g2"])
         check(by_path["distributed"]["ceft_relax"] > 0,

@@ -20,14 +20,16 @@ Training probes run the scalarised probe's value and its gradients
 (``torch.autograd`` in place of ``jax.value_and_grad``); remat="full" adds
 one forward per layer with the reference's approximation (a third of the
 probe's figures).  A probe runs as the port's step runs that layer: the
-dense and MoE families' probes call the layer code of their tensor-parallel
-steps (``models.tensor_parallel``: parameters gathered over their embed
-axes, this rank's heads, columns, experts and vocabulary, the stream's and
-the dispatched tokens' collectives; the train probes sum their gradients
-into the parameters' layouts, the expert weights travelling in the compute
-type, the prefill and decode probes gather their weights in the compute
-type and decode attends over this rank's cache shard); every other
-family's probe gathers its parameters whole, as its steps do.
+dense, MoE and SSM families' probes call the layer code of their
+tensor-parallel steps (``models.tensor_parallel``: parameters gathered over
+their embed axes, this rank's heads, columns, experts and vocabulary, the
+stream's, the dispatched tokens' and ``in_proj``'s output's collectives;
+the train probes sum their gradients into the parameters' layouts, the
+expert weights travelling in the compute type, the prefill and decode
+probes gather their weights in the compute type, decode attends over this
+rank's cache shard and steps its SSM heads' state; the SSD chunk probe
+runs on this rank's rows and heads); every other family's probe gathers
+its parameters whole, as its steps do.
 
 Per device: the counter counts this rank's local ops below the ``DTensor``
 layer, so ``flops`` and ``coll`` are one device's, as XLA's are under SPMD.
@@ -67,9 +69,11 @@ from ..models.layers import (attn_decode, attn_out, attn_specs, mlp, mlp_specs, 
                              rmsnorm, rmsnorm_spec)
 from ..models.model import PLANNED
 from ..models.moe import moe, moe_specs
-from ..models.ssm import _causal_conv, _segsum, ssd_decode, ssm_specs
-from ..models.tensor_parallel import (TensorParallel, expert_leaves, plan_decode, plan_prefill,
-                                      plan_train)
+from ..models.ssm import (_causal_conv, _conv_params, _gated_norm, _in_proj, _out_proj, _segsum,
+                          ssd_decode, ssm_specs)
+from ..models.tensor_parallel import (TensorParallel, expert_leaves, plan_decode,
+                                      plan_prefill, plan_train, spec_entry,
+                                      weight_leaves)
 from ..models.transformer import _xent_chunk, cache_specs, embed_tokens, model_specs
 from ..substrate import (CostCounter, Sharding, full_value, local_value, mesh_context,
                          reduce_over)
@@ -272,7 +276,8 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
                             n_params=1, rows_only=rows_only, tp=plan,
                             param_specs=params_specs if plan is not None else None,
                             work_dtype=None if plan is None else bf16,
-                            work_cast=expert_leaves(params_specs) if train else None))
+                            work_cast=expert_leaves(params_specs) if train
+                            else weight_leaves(params_specs)))
 
     # ---------------------------------------------------------- attention
     if n_attn and not decode:
@@ -361,33 +366,35 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
                                 ("cache_batch", "ssm_inner", "none", "none")),
                      "conv": _sh(mesh, st["conv"].shape, ("cache_batch", "none", "ssm_inner"))}
 
-            def dec_ssd(p, x, state):
+            def dec_ssd(p, x, state, tp=None):
                 h = rmsnorm(p["block_norm"], x, cfg.norm_eps)
-                out, ns = ssd_decode(p["ssm"], h, cfg, state)
+                out, ns = ssd_decode(p["ssm"], h, cfg, state, tp)
                 return x + out, ns
 
-            # the state on its batch rows: the gathered projections give
-            # every channel
+            # without a plan the state on its batch rows (the gathered
+            # projections give every channel); on one, its cache shard
             add("dec_ssd", dec_ssd, specs, (x1, st),
                 (_sh(mesh, x1.shape, ("batch", "none", "none")), st_sh), n_ssm, False,
                 rows_only=(2,))
         else:
-            # (a) per-layer projections: weights stream from HBM once per layer
-            def ssm_proj(p, x):
+            # (a) per-layer projections: weights stream from HBM once per
+            # layer; on a plan the head-parallel layer's: in_proj's output
+            # moved to this rank's heads, the conv on their channels, the
+            # gated norm summed over the heads, out_proj row-parallel
+            def ssm_proj(p, x, tp=None):
                 h = rmsnorm(p["block_norm"], x, cfg.norm_eps)
-                zxbcdt = h @ p["ssm"]["in_proj"].to(h.dtype)
-                z, xbc, _ = torch.split(zxbcdt, [di, di + 2 * N, zxbcdt.shape[-1] - 2 * di - 2 * N],
-                                        dim=-1)
-                xbc = _causal_conv(xbc, p["ssm"]["conv_w"].to(h.dtype),
-                                   p["ssm"]["conv_b"].to(h.dtype))
-                xs = xbc[..., :di]
-                y = rmsnorm(p["ssm"]["norm"], xs * F.silu(z), cfg.norm_eps)
-                return x + y @ p["ssm"]["out_proj"].to(h.dtype)
+                if tp is not None:
+                    h = tp.gather_seq(h)
+                z, xbc, _ = _in_proj(p["ssm"], h, cfg, tp)
+                xbc = _causal_conv(xbc, *_conv_params(p["ssm"], cfg, tp, h.dtype))
+                xs = xbc[..., :z.shape[-1]]
+                return x + _out_proj(p["ssm"], _gated_norm(p["ssm"]["norm"], xs, z, cfg, tp), tp)
 
             add("ssm_proj", ssm_proj, specs, (x_abs,), (x_sh,), n_ssm, train)
 
             # (b) per-chunk inner SSD (dual form + state construction), no
-            # weights -- the chunk math of ssm.ssd_prefill
+            # weights -- the chunk math of ssm.ssd_prefill; on a plan on this
+            # rank's rows and heads
             Q = cfg.ssm_chunk
             xh = _abs((B, Q, H, P), bf16)
             Bh = _abs((B, Q, N), f32)
@@ -398,6 +405,11 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
                 _sh(mesh, Bh.shape, ("batch", "none", "none")),
                 _sh(mesh, dth.shape, ("batch", "none", "ssm_inner")),
             )
+            if plan is not None:
+                rows, heads = spec_entry(plan.batch_axes), spec_entry(plan.ssm_head_axes)
+                inner_sh = (Sharding(mesh, (rows, None, heads, None)),
+                            Sharding(mesh, (rows, None, None)), Sharding(mesh, (rows, None, None)),
+                            Sharding(mesh, (rows, None, heads)))
 
             def ssd_inner(xh, Bc, Cc, dt):
                 # this rank's heads

@@ -6,14 +6,16 @@ Without a mesh a step runs eagerly on the parameters' device, gradients from
 
 On a mesh the state lives as ``DTensor``s laid out by ``Model.shardings``
 and ``AdamW.moment_specs`` (FSDP over ``data`` under the baseline profile).
-:class:`ShardedTrainStep` splits the dense and MoE families' compute over the
-mesh as the reference's ``LOGICAL_RULES`` lay it out
+:class:`ShardedTrainStep` splits the dense, MoE and SSM families' compute over
+the mesh as the reference's ``LOGICAL_RULES`` lay it out
 (``models.tensor_parallel``):
 
   1. gather each parameter over its ``embed`` axes only (its working
-     layout; a q / k / v weight whose heads do not split, and a MoE router,
-     whole; an expert weight in the compute type); the ``qkv``, ``ffn``,
-     ``experts`` and ``vocab`` shards stay on their ranks;
+     layout; a q / k / v weight whose heads do not split, a MoE router and
+     an SSM block's conv weights whole; an SSM block's norm and
+     ``out_proj`` on this rank's heads' rows; an expert weight in the
+     compute type); the ``qkv``, ``ffn``, ``experts``, ``ssm_inner`` and
+     ``vocab`` shards stay on their ranks;
   2. take each input's own shard: this rank's batch rows and sequence slice,
      the residual stream; each block gathers the normed stream's sequence,
      runs its column-parallel products on this rank's heads and columns and
@@ -23,7 +25,9 @@ mesh as the reference's ``LOGICAL_RULES`` lay it out
      dispatched tokens cross the expert axes by an all-to-all (or, where the
      experts do not divide the axis, the layer gathers the expert weights'
      hidden columns and runs every expert on its own groups:
-     ``models.moe``);
+     ``models.moe``); an SSM block runs its heads' chunked SSD over its
+     rows' whole sequence, ``in_proj``'s output moved from its stored
+     columns to the heads' (``models.ssm``);
   3. weight the rank's loss by its share of the valid labels (and by one
      over the ranks that hold the same tokens), and add its share of the
      load-balance term, so the per-rank values sum, over the mesh, to the
@@ -40,26 +44,28 @@ mesh as the reference's ``LOGICAL_RULES`` lay it out
      order;
   6. ``AdamW.apply`` on each rank's shards, in place.
 
-The other families (SSM, hybrid, encoder-decoder, VLM) run ZeRO-3 instead:
+The other families (hybrid, encoder-decoder, VLM) run ZeRO-3 instead:
 every parameter gathered whole, each rank computing its batch rows' whole
 sequence, each gradient reduce-scattered over the batch axes; so their
 ``model`` axis shards storage, not compute.  That is a choice by family, not
-a fallback: their SSM, hybrid and cross-attention layouts are later slices
+a fallback: their hybrid and cross-attention layouts are later slices
 (ROADMAP).
 
-:class:`PrefillStep` and :class:`DecodeStep` on a mesh split the dense and
-MoE families' serving the same way (``plan_prefill``, ``plan_decode``): each
-parameter gathered over its ``embed`` axes only, in the compute type; each
-input's own shard; the decode cache kept in the reference's decode-SP
-layout (rows on ``cache_batch``, sequence on ``cache_seq``, every kv head),
-each rank reading and writing only its shard, in place.  Prefill returns
-its cache laid out so, every position (a sliding window's too), and
-:func:`seed_cache` moves it into a decode cache, shard to shard (a window's
-ring slots as the engine fills them); both return the logits and the next
-tokens whole on every rank.  The other families' prefill and decode gather
-every parameter, input and cache leaf whole and compute the whole batch on
-every rank, as their train step does.  A planned model whose plan raises
-``ValueError`` on a mesh fails; it does not gather instead.
+:class:`PrefillStep` and :class:`DecodeStep` on a mesh split the dense, MoE
+and SSM families' serving the same way (``plan_prefill``, ``plan_decode``):
+each parameter gathered over its ``embed`` axes only, in the compute type
+(``weight_leaves``); each input's own shard; the decode cache kept in the
+reference's layout (attention: the decode-SP one, rows on ``cache_batch``,
+sequence on ``cache_seq``, every kv head; SSM: the state's heads and the
+conv history's channels on ``ssm_inner``), each rank reading and writing
+only its shard, in place.  Prefill returns its cache laid out so, every
+position (a sliding window's too), and :func:`seed_cache` moves it into a
+decode cache, shard to shard (a window's ring slots as the engine fills
+them; an SSM's state and conv history as they are); both return the logits
+and the next tokens whole on every rank.  The other families' prefill and
+decode gather every parameter, input and cache leaf whole and compute the
+whole batch on every rank, as their train step does.  A planned model whose
+plan raises ``ValueError`` on a mesh fails; it does not gather instead.
 ``abstract_state`` and ``abstract_cache`` give the state and the cache as
 ``meta`` tensors for the dry-run (``launch.dryrun``).
 """
@@ -77,7 +83,7 @@ from ..models.common import (abstract_params, active_profile, param_shardings, r
                              sorted_leaves, torch_dtype, tree_map_pspec)
 from ..models.model import PLANNED, Model
 from ..models.tensor_parallel import (TensorParallel, expert_leaves, plan_decode, plan_prefill,
-                                      plan_train)
+                                      plan_train, weight_leaves)
 from ..optim import AdamW, AdamWState, for_config
 from ..optim.adamw import tree_map_sorted
 from ..substrate import (Sharding, chunk_of, distribute, exchange_over, from_shard,
@@ -169,8 +175,8 @@ def _stream_rows(x, sharding: Sharding) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class ShardedTrainStep(TrainStep):
     """The train step on a mesh: tensor-, sequence- and expert-parallel for
-    the dense and MoE families, ZeRO-3 for the others (the module
-    docstring)."""
+    the dense and MoE families, head-parallel for the SSM family, ZeRO-3
+    for the others (the module docstring)."""
     mesh: Any = None
     _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
@@ -290,8 +296,8 @@ def build_train(model: Model, mesh=None, total_steps: int = 10_000, peak_lr: flo
 
 def _serves_on(model: Model, mesh) -> bool:
     """Whether the prefill and decode steps split the model's compute on
-    ``mesh`` (the dense and MoE families) rather than gathering
-    everything."""
+    ``mesh`` (the families of ``PLANNED``: dense, MoE and SSM) rather than
+    gathering everything."""
     return mesh is not None and model.cfg.family in PLANNED
 
 
@@ -304,8 +310,8 @@ class PrefillStep:
     def plan(self, tokens) -> tuple[TensorParallel, list, dict]:
         """The sharded prefill's plan for ``tokens``' (global) shape under
         the active profile, its working layouts and the shardings of the
-        cache it returns (every position): made at the first call of that
-        shape and kept."""
+        cache it returns (every position; an SSM's of the decode cache's
+        shape): made at the first call of that shape and kept."""
         key = (tuple(tokens.shape), active_profile().name)
         if key not in self._plans:
             model, specs = self.model, self.model.specs()
@@ -319,13 +325,14 @@ class PrefillStep:
     def __call__(self, params, batch):
         """``Model.prefill``: (the cache, the last token's logits).  Without
         a mesh, or for a family without a plan, on the full parameters and
-        inputs (every rank computes the whole batch); for the dense and MoE
-        families on a mesh, sharded, the cache as ``DTensor``s laid out by
+        inputs (every rank computes the whole batch); for the families of
+        ``PLANNED`` on a mesh, sharded, the cache as ``DTensor``s laid out by
         ``Model.cache_specs`` of the batch's shape at every position."""
         if not _serves_on(self.model, self.mesh):
             return self.model.prefill(gathered(params), gathered(batch))
         tp, layouts, cache_sh = self.plan(batch["tokens"])
-        work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype))
+        work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
+                          weight_leaves(self.model.specs()))
         tokens = _stream_rows(batch["tokens"], tp.stream)
         cache, logits = self.model.prefill(work, {"tokens": tokens}, tp)
         return tree_map_sorted(from_shard, cache, cache_sh), logits
@@ -345,7 +352,8 @@ class DecodeStep:
 
     def plan(self, tokens, cache) -> tuple[TensorParallel, list]:
         """The sharded decode step's plan for ``tokens``' (global) shape and
-        the cache's length under the active profile, and its working
+        the cache's length (dimension 2 of its first leaf; an SSM cache's
+        does not depend on it) under the active profile, and its working
         layouts: made at the first step of that shape and kept."""
         seq = sorted_leaves(cache)[0].shape[2]
         key = (tuple(tokens.shape), seq, active_profile().name)
@@ -359,14 +367,15 @@ class DecodeStep:
     @torch.no_grad()
     def __call__(self, params, cache, inputs: dict):
         """One greedy token: (next token (B,) int32, logits (B, 1, V), the
-        cache), the token and logits whole on every rank.  The dense and
-        MoE families on a mesh write each rank's cache shard in place and
+        cache), the token and logits whole on every rank.  The families of
+        ``PLANNED`` on a mesh write each rank's cache shard in place and
         return the same ``DTensor``s.  Another family on a mesh gathers the
         cache, writes it and lays it out again by ``cache_shardings``; on
         one rank the gather is the cache itself, written in place."""
         if _serves_on(self.model, self.mesh):
             tp, layouts = self.plan(inputs["tokens"], cache)
-            work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype))
+            work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
+                              weight_leaves(self.model.specs()))
             tokens = _stream_rows(inputs["tokens"], tp.stream)
             logits, _ = self.model.decode(work, tree_map_sorted(local_value, cache), tokens,
                                           inputs["pos"], tp=tp)
@@ -417,8 +426,10 @@ def seed_cache(prefill_cache, shardings, seq: int, window: int = 0):
     its own shard; the rows of every rank's prefill shard that land in
     another's decode shard travel with their slots, one exchange of uneven
     runs over each mesh axis that splits both caches' sequence (the same
-    axes, major first), so nothing is gathered whole.  The attention
-    caches' k, v leaves (the dense and MoE families)."""
+    axes, major first), so nothing is gathered whole.  An SSM layer's
+    ``ssm`` and ``conv`` leaves hold no sequence (dimension 2 is the heads,
+    or the conv's k - 1 positions): each rank's shard is copied into its
+    decode shard, laid out again only where the two shardings differ."""
     def seed(src: DTensor, sh: Sharding) -> DTensor:
         mesh, local, P = sh.mesh, src.to_local(), src.shape[2]
         sizes = mesh_axis_sizes(mesh)
@@ -461,7 +472,15 @@ def seed_cache(prefill_cache, shardings, seq: int, window: int = 0):
                                 for t in (rows, slot, rank))
         out[:, :, slot - own.start] = rows.movedim(0, 2)
         return from_shard(out, sh)
-    return tree_map_sorted(seed, prefill_cache, shardings)
+
+    def carry(src: DTensor, sh: Sharding) -> DTensor:
+        if tuple(src.placements) != tuple(sh.placements):
+            src = src.redistribute(sh.mesh, sh.placements)
+        return from_shard(src.to_local().clone(), sh)
+    return {pos: {n: (seed if n in ("k", "v") else carry)(prefill_cache[pos][n],
+                                                          shardings[pos][n])
+                  for n in sorted(entry)}
+            for pos, entry in sorted(prefill_cache.items())}
 
 
 def abstract_state(model: Model, opt: AdamW):

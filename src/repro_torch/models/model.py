@@ -12,8 +12,10 @@ from . import encdec, transformer
 from .common import abstract_params, init_params, param_shardings, torch_dtype
 
 #: the families whose steps run on a mesh through a ``TensorParallel`` plan
-#: (``models.tensor_parallel``); the others gather (launch.steps)
-PLANNED = ("dense", "moe")
+#: (``models.tensor_parallel``); the others gather (launch.steps).  The
+#: hybrid stays out until its own slice, though its SSM layers are the SSM
+#: block that runs on a plan
+PLANNED = ("dense", "moe", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)

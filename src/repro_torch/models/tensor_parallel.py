@@ -1,5 +1,5 @@
 """The layout a tensor- and sequence-parallel train step computes in on one
-rank of a mesh (the dense and MoE decoders), as the reference's
+rank of a mesh (the dense, MoE and SSM decoders), as the reference's
 ``LOGICAL_RULES`` (``models/common.py``) lay a step out and XLA partitions
 it.
 
@@ -29,6 +29,18 @@ it.
   every rank runs every expert on its own groups and the expert weights
   move, gathered over the hidden columns' axes that split the sequence (the
   reference's pins give ``ffn``'s axis to the groups there).
+* SSM heads (``models.ssm``): head-parallel over the axes the decode
+  cache's ``ssm`` leaf splits its heads over (:attr:`TensorParallel.
+  ssm_head_axes`: ``model`` at (16, 16) under both profiles), one layout
+  for the train step, prefill and decode.  ``in_proj`` keeps its stored
+  ``ssm_inner`` columns; its output (z | x, B, C | dt, split contiguously)
+  moves to this rank's heads' z, x and dt and the shared B and C by an
+  exchange of uneven runs over the head axis (:meth:`TensorParallel.
+  ssm_columns`); ``conv_w``, ``conv_b`` and the per-head vectors are whole,
+  ``norm`` and ``out_proj`` this rank's heads' rows (gathered to whole
+  heads where ``serve`` splits them further).  Each head's chunked SSD and
+  its float32 recurrence are the one-device code; the gated norm's sum of
+  squares is summed over the head axes, and ``out_proj`` is row-parallel.
 * The embedding and the loss: where ``vocab`` splits, the look-up and the
   cross-entropy are vocab-parallel (each rank its rows of the table; the
   softmax's max and sum and the gold logit summed over the vocab axes);
@@ -62,9 +74,18 @@ under ``serve``, where the stream's batch does not) and its sequence on
   head (gathered over the ``qkv`` axes, one token a row), each rank attends
   over its sequence slice of the cache with a partial softmax, the partials
   are combined over the ``cache_seq`` axes, and ``wo`` runs row-parallel.
+* The SSM family's cache is the reference's too: the state's rows on
+  ``cache_batch`` and its heads on ``ssm_inner`` (this rank's heads: the
+  prefill's final state is its shard, no bytes move), the conv history's
+  channels on ``ssm_inner`` (a contiguous split that straddles heads: the
+  prefill's last k - 1 positions and decode's history are gathered over
+  the axes that split them, a few rows of channels, and each rank keeps
+  its stored shard).  Decode gathers the one-token ``zxbcdt`` row whole,
+  runs the conv on every channel and the recurrence on this rank's heads.
 * The serving steps' weights, and the train step's expert weights, move in
   the compute type: a leaf the working layout gathers is cast before it
-  travels (each product casts it there anyway).
+  travels (each product casts it there anyway; the SSM's gated-norm scale,
+  applied in float32, travels in its own type: :func:`weight_leaves`).
 """
 from __future__ import annotations
 
@@ -79,7 +100,7 @@ from torch.distributed.tensor import DTensor
 from ..configs.base import ArchConfig
 from ..optim.adamw import tree_map_sorted
 from ..substrate import (Sharding, all_to_all_over, chunk_of, gather_over, max_over,
-                         mesh_axis_sizes, scatter_over, sum_over)
+                         mesh_axis_sizes, scatter_over, sum_over, trade_over)
 from .common import resolve_spec, sorted_leaves, tree_map_pspec
 from .moe import GROUP
 from .transformer import cache_specs
@@ -140,6 +161,41 @@ def _moe_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> 
                 combine=2 * T * e_local * C * d if e_local * C > 1 else 0)
 
 
+def spec_entry(axes: tuple[str, ...]):
+    """Mesh axes as a spec entry: None, one name, or a tuple of names."""
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def ssm_runs(cfg: ArchConfig, n: int, j: int) -> list[tuple[int, int]]:
+    """The columns of ``in_proj``'s output (z | x, B, C | dt) that the heads
+    of rank ``j`` of ``n`` use, as [start, stop) runs in column order: its
+    heads' z and x channels, the B and C every head shares, its heads' dt."""
+    di, H, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
+    w, h = di // n, H // n
+    return [(w * j, w * (j + 1)), (di + w * j, di + w * (j + 1)), (2 * di, 2 * di + 2 * N),
+            (2 * di + 2 * N + h * j, 2 * di + 2 * N + h * (j + 1))]
+
+
+def _ssm_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> dict:
+    """One SSM block's forward product FLOPs on one rank (:func:`ssm.
+    ssd_prefill` on a plan): ``rows`` batch rows of the whole sequence of S
+    tokens in ``ceil(S / Q)`` chunks of Q = min(ssm_chunk, S);
+    ``parts["ssm_inner"]`` the ranks ``in_proj``'s columns split over and
+    ``parts["ssm_heads"]`` those of the heads.  ``in_proj`` on the stored
+    columns; the chunks' C.B scores on every rank (B and C are shared); the
+    intra-chunk output, the chunk states and the inter-chunk output on this
+    rank's heads; ``out_proj`` on its heads' rows."""
+    d, di, H, P, N = cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    Q = min(cfg.ssm_chunk, S)
+    nc = -(-S // Q)
+    h = H // parts["ssm_heads"]
+    T = rows * S
+    return dict(in_proj=2 * T * d * ((2 * di + 2 * N + H) // parts["ssm_inner"]),
+                scores=2 * rows * nc * Q * Q * N, y_diag=2 * rows * nc * h * Q * Q * P,
+                states=2 * rows * nc * Q * N * h * P, y_off=2 * rows * nc * Q * N * h * P,
+                out_proj=2 * T * (di // parts["ssm_heads"]) * d)
+
+
 def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
     """The product FLOPs one rank runs in a swiglu decoder's tensor-parallel
     train step under ``remat = "full"``, counted by hand from the widths
@@ -159,22 +215,27 @@ def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> 
     back, and the block's last product saves none.  The MoE block's last
     product is its combine einsum (so 3 times); its combine weights and its
     dispatch differentiate one operand (3 times: no second backward
-    product)."""
+    product).  The SSM family's layer is :func:`_ssm_products` (``parts``
+    gives ``ssm_inner`` and ``ssm_heads`` in place of the attention's and
+    the MLP's axes), its last product ``out_proj``."""
     if cfg.remat != "full":
         raise ValueError(f"counted for remat 'full', not {cfg.remat!r}")
     d, hd, L, V = cfg.d_model, cfg.hd, cfg.n_layers, cfg.vocab
-    n = parts["qkv"]
     rows = B // parts["batch"]
     T = rows * S
+    if parts["vocab"] > 1:
+        loss = 2 * T * d * (V // parts["vocab"])
+    else:
+        loss = 2 * rows * (S // parts["seq"]) * d * V
+    if cfg.family == "ssm":
+        m = _ssm_products(cfg, rows, S, parts)
+        return 4 * (L * sum(m.values()) + loss) - L * m["out_proj"]
+    n = parts["qkv"]
     q_heads, kv_heads = _heads(cfg, n)
     per_layer = 2 * T * d * hd * (q_heads + 2 * kv_heads) + 2 * T * (cfg.n_heads * hd // n) * d
     qc, kc = min(512, S), min(1024, S)
     sq, sk = -(-S // qc) * qc, -(-S // kc) * kc
     attn = 4 * rows * q_heads * hd * sq * sk
-    if parts["vocab"] > 1:
-        loss = 2 * T * d * (V // parts["vocab"])
-    else:
-        loss = 2 * rows * (S // parts["seq"]) * d * V
     if cfg.family == "moe":
         m = _moe_products(cfg, rows, S, parts)
         channel = 4 * (m["router"] + m["experts"]) + 3 * (m["route"] + m["dispatch"]
@@ -203,12 +264,16 @@ def hand_prefill_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -
     attention for this rank's q heads, masked tiles included); where the q
     heads split and the kv heads do not, the cache's k and v projected on
     this rank's cache rows and sequence slice with every kv head; the last
-    token's logits on this rank's rows and vocabulary columns."""
+    token's logits on this rank's rows and vocabulary columns.  The SSM
+    family: :func:`_ssm_products` a layer on this rank's rows."""
     d, hd, L, V = cfg.d_model, cfg.hd, cfg.n_layers, cfg.vocab
+    rows = B // parts["batch"]
+    logits = 2 * rows * d * (V // parts["vocab"])
+    if cfg.family == "ssm":
+        return L * sum(_ssm_products(cfg, rows, S, parts).values()) + logits
     n = parts["qkv"]
     q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
     q_heads, kv_heads = _heads(cfg, n)
-    rows = B // parts["batch"]
     T = rows * S
     per_layer = 2 * T * d * hd * (q_heads + 2 * kv_heads) + 2 * T * (cfg.n_heads * hd // n) * d \
         + _channel(cfg, rows, S, parts)
@@ -217,7 +282,7 @@ def hand_prefill_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -
     if q_local and not kv_local:
         per_layer += 2 * 2 * (B // parts["cache_batch"]) * (S // parts["cache_seq"]) * d \
             * cfg.n_kv_heads * hd
-    return L * per_layer + 2 * rows * d * (V // parts["vocab"])
+    return L * per_layer + logits
 
 
 def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
@@ -230,13 +295,24 @@ def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) ->
     q head over this rank's cache rows and sequence slice (a sliding
     window's cache holds ``min(S, window)`` positions); its rows of ``wo``
     and its columns of the MLP, or the MoE block (:func:`_moe_products` of
-    one-token groups); the logits on its rows and vocabulary columns."""
+    one-token groups); the logits on its rows and vocabulary columns.  The
+    SSM family: ``in_proj`` on this rank's stream rows and stored columns,
+    the conv (an einsum over the k positions) on every channel of its cache
+    rows, the state's output C.h on its cache rows and heads, ``out_proj``
+    on its stream rows and heads' rows."""
     d, hd, L, V = cfg.d_model, cfg.hd, cfg.n_layers, cfg.vocab
+    rows = B // parts["batch"]
+    if cfg.family == "ssm":
+        di, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        rc, h = B // parts["cache_batch"], H // parts["ssm_heads"]
+        per_layer = 2 * rows * d * ((2 * di + 2 * N + H) // parts["ssm_inner"]) \
+            + 2 * rc * cfg.ssm_conv * (di + 2 * N) + 2 * rc * N * h * P \
+            + 2 * rows * (di // parts["ssm_heads"]) * d
+        return L * per_layer + 2 * rows * d * (V // parts["vocab"])
     n = parts["qkv"]
     q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
     q_heads = cfg.n_heads // n if q_local else cfg.n_heads
     kv_heads = cfg.n_kv_heads // n if kv_local else cfg.n_kv_heads
-    rows = B // parts["batch"]
     per_layer = 2 * rows * d * hd * (q_heads + 2 * kv_heads) \
         + 2 * rows * (cfg.n_heads * hd // n) * d + _channel(cfg, rows, 1, dict(parts, seq=1)) \
         + 4 * (B // parts["cache_batch"]) * cfg.n_heads * hd \
@@ -263,6 +339,12 @@ class TensorParallel:
     cache_spec: tuple | None = None
     cache_row_axes: tuple[str, ...] = ()
     cache_seq_axes: tuple[str, ...] = ()
+    # the SSM family: the mesh axes its heads split over (the decode cache's
+    # ``ssm`` leaf's) and those of ``in_proj``'s stored ``ssm_inner`` columns;
+    # serving plans: those of the conv history's channels
+    ssm_head_axes: tuple[str, ...] = ()
+    ssm_in_axes: tuple[str, ...] = ()
+    cache_conv_axes: tuple[str, ...] | None = None
 
     @property
     def stream(self) -> Sharding:
@@ -454,6 +536,70 @@ class TensorParallel:
         and split the experts or their hidden columns."""
         return sum_over(y, self.mesh, self.experts_local + self.expert_ffn_local)
 
+    # ---------------------------------------------------------------- ssm
+    def ssm_heads(self, n: int) -> slice:
+        """This rank's share of ``n`` elements split as the SSM heads are:
+        its heads, or their channels."""
+        return chunk_of(n, self.mesh, self.ssm_head_axes)
+
+    def ssm_columns(self, zxbcdt: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+        """(..., C / parts) ``in_proj`` output on its stored columns -> (...,
+        this rank's heads' z | x, B, C | dt channels) (:func:`ssm_runs`).
+        Where the heads split over one axis, the major one of the columns'
+        split, the columns are gathered over the split's other axes, then
+        each rank sends every other the runs of its columns that the
+        other's heads use (an exchange of uneven runs over the head axis:
+        the bytes the heads need, B and C to every rank); elsewhere every
+        column is gathered and the runs are sliced.  Differentiable: the
+        exchange's backward returns each gradient to the rank that computed
+        the column."""
+        heads = self.ssm_head_axes
+        traded = heads if len(heads) == 1 and self.ssm_in_axes[:1] == heads else ()
+        x = gather_over(zxbcdt, self.mesh, self.ssm_in_axes[len(traded):], -1)
+        n = self.parts(self.ssm_head_axes)
+        me = chunk_of(n, self.mesh, self.ssm_head_axes).start
+        if not traded:
+            return torch.cat([x[..., a:b] for a, b in ssm_runs(cfg, n, me)], -1)
+        c = x.shape[-1]
+        lo = me * c
+        send, pieces = [], []
+        for j in range(n):
+            k = 0
+            for a, b in ssm_runs(cfg, n, j):
+                a, b = max(a, lo), min(b, lo + c)
+                if a < b:
+                    pieces.append(x[..., a - lo:b - lo])
+                    k += b - a
+            send.append(k)
+        recv = [sum(max(0, min(b, (i + 1) * c) - max(a, i * c)) for a, b in ssm_runs(cfg, n, me))
+                for i in range(n)]
+        return trade_over(torch.cat(pieces, -1) if pieces else x[..., :0], self.mesh, traded[0],
+                          send, recv, -1)
+
+    def ssm_whole_columns(self, zxbcdt: torch.Tensor) -> torch.Tensor:
+        """``in_proj``'s output on its stored columns -> every column,
+        gathered over the axes of their split (decode's one-token row)."""
+        return gather_over(zxbcdt, self.mesh, self.ssm_in_axes, -1)
+
+    def ssm_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-head partial (the gated norm's sum of squares, ``out_proj``'s
+        partial sums) summed over the head axes."""
+        return sum_over(x, self.mesh, self.ssm_head_axes)
+
+    def ssm_all_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., this rank's heads' channels) -> every head's, gathered over
+        the head axes."""
+        return gather_over(x, self.mesh, self.ssm_head_axes, -1)
+
+    def conv_rows(self, conv: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a conv history (..., channels / parts) ->
+        every channel, gathered over the axes that split them."""
+        return gather_over(conv, self.mesh, self.cache_conv_axes, -1)
+
+    def conv_shard(self, conv: torch.Tensor) -> torch.Tensor:
+        """A conv history over every channel -> this rank's stored shard."""
+        return conv[..., chunk_of(conv.shape[-1], self.mesh, self.cache_conv_axes)]
+
     # ------------------------------------------------------------ weights
     def working_shardings(self, spec_tree):
         """Per parameter leaf, the layout the step computes with: its spec
@@ -461,16 +607,22 @@ class TensorParallel:
         whose heads do not split and for a MoE router.  An expert weight
         keeps its ``experts`` and ``ffn`` shards (:meth:`expert_weight`
         gathers the traded hidden columns in the layer where every expert
-        is on every rank)."""
+        is on every rank).  The SSM block's ``conv_w`` and ``conv_b`` are
+        whole; its ``norm`` and ``out_proj`` keep this rank's heads' rows
+        (their ``ssm_inner`` split cut to the head axes, its major ones)."""
         sizes = mesh_axis_sizes(self.mesh)
 
         def work(path, p):
             name = path.rsplit("/", 1)[-1]
             whole = (name == "wq" and not self.q_local) or \
-                (name in ("wk", "wv") and not self.kv_local) or name == "router"
+                (name in ("wk", "wv") and not self.kv_local) or name == "router" or \
+                ("ssm_inner" in p.logical and name in ("conv_w", "conv_b"))
+            heads = "ssm_inner" in p.logical and name in ("norm", "out_proj")
             spec = resolve_spec(p.shape, p.logical, sizes)
-            return Sharding(self.mesh, tuple(None if whole or lname in FSDP_LOGICAL else entry
-                                             for entry, lname in zip(spec, p.logical)))
+            return Sharding(self.mesh, tuple(
+                None if whole or lname in FSDP_LOGICAL else
+                spec_entry(self.ssm_head_axes) if heads and lname == "ssm_inner" else entry
+                for entry, lname in zip(spec, p.logical)))
         return tree_map_pspec(work, spec_tree)
 
     def layouts(self, spec_tree) -> list:
@@ -485,10 +637,11 @@ class TensorParallel:
                 cast: list[bool] | None = None) -> dict:
         """This rank's working shard of every parameter (``DTensor``s) in
         ``layouts`` (:meth:`layouts` of their specs): a tree like
-        ``params``.  Each dimension the working layout no longer splits is
-        gathered (``gather_over``: its axes staged through the host on a
-        gloo group, as ``DTensor``'s own collectives are not), mesh axis by
-        mesh axis from the last, as ``DTensor`` orders them.  With ``dtype``
+        ``params``.  Each dimension is gathered over the axes of its split
+        that the working layout drops (its minor ones; ``gather_over``: its
+        axes staged through the host on a gloo group, as ``DTensor``'s own
+        collectives are not), mesh axis by mesh axis from the last, as
+        ``DTensor`` orders them.  With ``dtype``
         (the compute type) a leaf that moves is cast before it travels,
         every such leaf where ``cast`` (sorted leaf order) is None, else
         those it marks (the train step's expert weights,
@@ -501,8 +654,8 @@ class TensorParallel:
 
         def work(p, spec, work_spec, c):
             x = p.to_local()
-            moved = {d: tuple(ax for ax in _axes(e) if ax in order)
-                     for d, (e, w) in enumerate(zip(spec, work_spec)) if _axes(e) and not w}
+            moved = {d: tuple(ax for ax in _axes(e) if ax in order and ax not in _axes(w))
+                     for d, (e, w) in enumerate(zip(spec, work_spec))}
             moved = {d: axes for d, axes in moved.items() if axes}
             if moved and c and dtype is not None:
                 x = x.to(dtype)
@@ -561,17 +714,60 @@ def expert_leaves(spec_tree) -> list[bool]:
     return sorted_leaves(tree_map_pspec(lambda _, p: _is_expert_weight(p), spec_tree))
 
 
-def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh,
-                    stream_spec) -> TensorParallel:
+def weight_leaves(spec_tree) -> list[bool]:
+    """Whether each leaf (sorted order) may travel in the compute type in
+    the serving steps' working copy: every leaf but the SSM block's
+    gated-norm scale, which multiplies a float32 value (the others are cast
+    to the compute type at their use)."""
+    return sorted_leaves(tree_map_pspec(
+        lambda path, p: not ("ssm_inner" in p.logical and path.rsplit("/", 1)[-1] == "norm"),
+        spec_tree))
+
+
+def _live(entry, sizes) -> tuple[str, ...]:
+    return tuple(ax for ax in _axes(entry) if sizes[ax] > 1)
+
+
+def _cache_layout(cache_specs, sizes) -> dict[str, set]:
+    """The resolved layouts of a decode cache's leaves, by kind: the k / v
+    leaves' specs, and the live mesh axes of every leaf's rows, of the SSM
+    state's heads and of the conv history's channels."""
+    out: dict[str, set] = {"kv": set(), "rows": set(), "heads": set(), "conv": set()}
+
+    def note(_, p):
+        spec = resolve_spec(p.shape, p.logical, sizes)
+        out["rows"].add(_live(spec[1], sizes))
+        if p.logical[2] == "cache_seq":
+            out["kv"].add(spec)
+        elif p.logical[2] == "ssm_inner":
+            out["heads"].add(_live(spec[2], sizes))
+        else:
+            out["conv"].add(_live(spec[3], sizes))
+    tree_map_pspec(note, cache_specs)
+    return out
+
+
+def _ssm_head_axes(cache_specs, sizes) -> tuple[str, ...]:
+    heads = _cache_layout(cache_specs, sizes)["heads"]
+    if len(heads) > 1:
+        raise ValueError(f"the cache's ssm leaves split their heads as {sorted(heads)}")
+    return next(iter(heads), ())
+
+
+def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, stream_spec,
+                    ssm_head_axes: tuple[str, ...] = ()) -> TensorParallel:
     """The plan of ``cfg``'s step on ``mesh`` under the active profile:
     ``stream_spec`` is the labels' resolved spec (batch entry, seq entry),
     the weights' axes come from ``spec_tree``'s resolved specs (axes of one
     rank left out): ``experts`` from a MoE block's router and expert
-    weights, and their ``ffn`` apart from a dense MLP's.  Raises ValueError
+    weights, and their ``ffn`` apart from a dense MLP's; ``ssm_head_axes``
+    are the decode cache's (:func:`_ssm_head_axes`).  Raises ValueError
     where two leaves split one logical axis differently (``wk`` and ``wv``
-    count only where their heads split), a weight's split meets the batch's
-    axes (its ranks would hold other rows), the experts' axes split the
-    sequence in part, or, with every expert on every rank, the hidden
+    count only where their heads split; an SSM leaf's ``ssm_inner`` is held
+    to the heads instead: ``norm`` and ``out_proj`` must split their rows
+    over the head axes first), a weight's split or the SSM heads' meets the
+    batch's axes (its ranks would hold other rows), the experts' axes split
+    the sequence in part, or, with every expert on every rank, the hidden
     columns' axes that split the sequence are not the minor ones (the
     layer gathers those)."""
     sizes = mesh_axis_sizes(mesh)
@@ -579,12 +775,18 @@ def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh,
     def live(axes):
         return tuple(ax for ax in axes if sizes[ax] > 1)
     found: dict[str, set] = {"qkv": set(), "kv": set(), "ffn": set(), "vocab": set(),
-                             "experts": set(), "expert_ffn": set()}
+                             "experts": set(), "expert_ffn": set(), "ssm_in": set()}
+    ssm_rows: set = set()
 
     def note(path, p):
-        kv = path.rsplit("/", 1)[-1] in ("wk", "wv")
+        name = path.rsplit("/", 1)[-1]
+        kv = name in ("wk", "wv")
         expert = _is_expert_weight(p)
         for entry, lname in zip(resolve_spec(p.shape, p.logical, sizes), p.logical):
+            if lname == "ssm_inner" and name == "in_proj":
+                found["ssm_in"].add(live(_axes(entry)))
+            elif lname == "ssm_inner" and name in ("norm", "out_proj"):
+                ssm_rows.add(live(_axes(entry)))
             if lname in found:
                 if kv and lname == "qkv":
                     lname = "kv"
@@ -594,19 +796,26 @@ def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh,
     tree_map_pspec(note, spec_tree)
     batch_axes, seq_axes = (live(_axes(e)) for e in stream_spec)
     axes = {}
-    for lname in ("qkv", "ffn", "vocab", "experts", "expert_ffn"):
+    for lname in ("qkv", "ffn", "vocab", "experts", "expert_ffn", "ssm_in"):
         if len(found[lname]) > 1:
             raise ValueError(f"the leaves split {lname!r} as {sorted(found[lname])}")
         axes[lname] = next(iter(found[lname]), ())
         if set(axes[lname]) & set(batch_axes):
             raise ValueError(f"{lname!r} on {axes[lname]} meets the batch's {batch_axes}")
+    heads = live(ssm_head_axes)
+    if set(heads) & set(batch_axes):
+        raise ValueError(f"the SSM heads on {heads} meet the batch's {batch_axes}")
+    for rows in ssm_rows:
+        if rows[:len(heads)] != heads:
+            raise ValueError(f"the SSM's norm / out_proj split on {rows}, not first over the "
+                             f"heads' {heads}")
     q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads,
                                    math.prod(sizes[ax] for ax in axes["qkv"]))
     if kv_local and found["kv"] - {axes["qkv"]}:
         raise ValueError(f"wk / wv split as {sorted(found['kv'])}, wq as {axes['qkv']}")
     tp = TensorParallel(mesh, batch_axes, seq_axes, axes["qkv"], axes["ffn"], axes["vocab"],
                         q_local, kv_local, tuple(stream_spec), axes["experts"],
-                        axes["expert_ffn"])
+                        axes["expert_ffn"], ssm_head_axes=heads, ssm_in_axes=axes["ssm_in"])
     if set(tp.expert_axes) & set(seq_axes) and not tp.experts_traded:
         raise ValueError(f"experts on {tp.expert_axes} split the sequence's {seq_axes} in part")
     traded = tp.expert_ffn_traded
@@ -618,36 +827,45 @@ def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh,
 
 def plan_train(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, batch_shape) -> TensorParallel:
     """:func:`tensor_parallel` for a train batch of ``batch_shape`` (B, S)
-    tokens: the stream laid out as the labels (``batch``, ``seq``)."""
-    stream = resolve_spec(tuple(batch_shape), ("batch", "seq"), mesh_axis_sizes(mesh))
-    return tensor_parallel(cfg, spec_tree, mesh, stream)
+    tokens: the stream laid out as the labels (``batch``, ``seq``), the SSM
+    heads as a decode cache of B rows splits them."""
+    sizes = mesh_axis_sizes(mesh)
+    stream = resolve_spec(tuple(batch_shape), ("batch", "seq"), sizes)
+    return tensor_parallel(cfg, spec_tree, mesh, stream,
+                           _ssm_head_axes(cache_specs(cfg, *batch_shape), sizes))
 
 
 def _with_cache(tp: TensorParallel, cfg: ArchConfig, cache_specs,
                 mesh: DeviceMesh) -> TensorParallel:
-    """``tp`` with the layout of ``cache_specs``' k / v leaves ((periods, B,
-    S, Hkv, hd)).  Raises ValueError where the cache splits its heads (not
-    the decode-SP layout) or its rows are not a split of the stream's."""
+    """``tp`` with the layout of ``cache_specs``: its k / v leaves'
+    ((periods, B, S, Hkv, hd)) and its SSM leaves' (the conv history's
+    channels; the state's heads are the plan's).  Raises ValueError where
+    the cache splits its kv heads (not the decode-SP layout), its leaves
+    split their rows differently or not as a split of the stream's, or its
+    state's heads not as the plan's."""
     sizes = mesh_axis_sizes(mesh)
-    specs: set = set()
-
-    def note(_, p):
-        if p.logical[2] == "cache_seq":
-            specs.add(resolve_spec(p.shape, p.logical, sizes))
-    tree_map_pspec(note, cache_specs)
-    if len(specs) != 1:
-        raise ValueError(f"{cfg.name}: the cache's k / v leaves lay out as {sorted(specs)}")
-    spec = next(iter(specs))
-
-    def live(entry):
-        return tuple(ax for ax in _axes(entry) if sizes[ax] > 1)
-    rows, sq = live(spec[1]), live(spec[2])
-    if live(spec[3]) or live(spec[4]):
-        raise ValueError(f"{cfg.name}: the cache splits its heads as {spec}")
+    lay = _cache_layout(cache_specs, sizes)
+    if len(lay["kv"]) > 1 or not (lay["kv"] or lay["heads"]):
+        raise ValueError(f"{cfg.name}: the cache's k / v leaves lay out as {sorted(lay['kv'])}")
+    if len(lay["rows"]) != 1:
+        raise ValueError(f"{cfg.name}: the cache's leaves split their rows as "
+                         f"{sorted(lay['rows'])}")
+    rows = next(iter(lay["rows"]))
     if rows[:len(tp.batch_axes)] != tp.batch_axes:
         raise ValueError(f"the cache's rows on {rows} do not split the stream's {tp.batch_axes}")
-    return dataclasses.replace(tp, cache_spec=spec, cache_row_axes=rows[len(tp.batch_axes):],
-                               cache_seq_axes=sq)
+    fields: dict = dict(cache_row_axes=rows[len(tp.batch_axes):])
+    if lay["kv"]:
+        spec = next(iter(lay["kv"]))
+        if _live(spec[3], sizes) or _live(spec[4], sizes):
+            raise ValueError(f"{cfg.name}: the cache splits its heads as {spec}")
+        fields.update(cache_spec=spec, cache_seq_axes=_live(spec[2], sizes))
+    if lay["heads"]:
+        if lay["heads"] != {tp.ssm_head_axes} or len(lay["conv"]) != 1:
+            raise ValueError(f"{cfg.name}: the cache's ssm heads on {sorted(lay['heads'])} and "
+                             f"conv channels on {sorted(lay['conv'])}, the plan's heads on "
+                             f"{tp.ssm_head_axes}")
+        fields["cache_conv_axes"] = next(iter(lay["conv"]))
+    return dataclasses.replace(tp, **fields)
 
 
 def plan_prefill(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, batch_shape) -> TensorParallel:
@@ -661,8 +879,9 @@ def plan_prefill(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, batch_shape) -> T
     sizes = mesh_axis_sizes(mesh)
     B, S = batch_shape
     stream = resolve_spec((B, S), ("batch", "seq"), sizes)
-    tp = _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream), cfg,
-                     cache_specs(cfg, B, S, ring=False), mesh)
+    cache = cache_specs(cfg, B, S, ring=False)
+    tp = _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream, _ssm_head_axes(cache, sizes)),
+                     cfg, cache, mesh)
     if tp.kv_local and tp.qkv_axes != tp.cache_seq_axes:
         rows, seq = set(tp.cache_row_axes), set(tp.cache_seq_axes)
         if set(tp.qkv_axes) != rows | seq or len(rows) > 1 or len(seq) > 1:
@@ -677,6 +896,8 @@ def plan_decode(cfg: ArchConfig, spec_tree, cache_spec_tree, mesh: DeviceMesh,
     """The plan of a sharded decode step of ``batch`` tokens against the
     cache of ``cache_spec_tree`` (``Model.cache_specs``): the stream this
     rank's batch rows of one token, the cache its own resolved layout."""
-    stream = resolve_spec((batch, 1), ("batch", "seq"), mesh_axis_sizes(mesh))
-    return _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream), cfg, cache_spec_tree,
-                       mesh)
+    sizes = mesh_axis_sizes(mesh)
+    stream = resolve_spec((batch, 1), ("batch", "seq"), sizes)
+    return _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream,
+                                       _ssm_head_axes(cache_spec_tree, sizes)),
+                       cfg, cache_spec_tree, mesh)

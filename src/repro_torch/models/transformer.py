@@ -130,7 +130,7 @@ def unembed(params, cfg: ArchConfig, x):
 
 def _period_fwd(cfg: ArchConfig, pp, x, cos_sin, tp=None):
     """Full-seq forward through one period; returns (x, aux, cache_updates).
-    On a mesh (``tp``; the dense and MoE families) ``x`` is this rank's
+    On a mesh (``tp``; the dense, MoE and SSM families) ``x`` is this rank's
     slice of the stream and ``aux`` its share of the load-balance term."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_out = {}
@@ -141,7 +141,7 @@ def _period_fwd(cfg: ArchConfig, pp, x, cos_sin, tp=None):
             a, (k, v) = attn_prefill(b["attn"], h, cfg, cos_sin, window=cfg.window, tp=tp)
             cache_out[f"pos{i}"] = {"k": k, "v": v}
         else:
-            a, cache_out[f"pos{i}"] = ssd_prefill(b["ssm"], h, cfg)
+            a, cache_out[f"pos{i}"] = ssd_prefill(b["ssm"], h, cfg, tp=tp)
         x = x + a
         if channel != "none":
             h2 = rmsnorm(b["norm2"], x, cfg.norm_eps)
@@ -166,8 +166,8 @@ def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     the cache holds each period position's entries stacked over periods:
     (periods, B, S, Hkv, hd) K and V, or the SSM state and conv tail.  It
     writes nothing in place, so autograd runs through it.  On a mesh
-    (``tp``, a ``TensorParallel``; the dense and MoE families' train step
-    and prefill) the tokens and the hidden states are this rank's slice of
+    (``tp``, a ``TensorParallel``; the dense, MoE and SSM families' train
+    step and prefill) the tokens and the hidden states are this rank's slice of
     the stream, RoPE's angles are the whole sequence's and ``aux`` is this
     rank's share of the load-balance term; a serving plan's cache is this
     rank's shard of each layer's, stacked."""
@@ -200,8 +200,9 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
     Returns (logits (B, 1, V), cache); the cache is written in place: K and
     V at their slot, an SSM's new state and conv history copied into the
     stacked tensors through the period's views.  On a mesh (``tp``, a
-    decode plan; the dense and MoE families) the tokens are this rank's
-    stream rows, the cache its shard, and the logits come out whole on every
+    decode plan; the dense, MoE and SSM families) the tokens are this rank's
+    stream rows, the cache its shard (each rank writes its own ``ssm`` and
+    ``conv`` shards in place), and the logits come out whole on every
     rank."""
     x = embed_tokens(params, cfg, tokens, embeds, tp)
     B = x.shape[0]
@@ -218,7 +219,7 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
             if mixer == "attn":
                 a, _ = attn_decode(b["attn"], h, cfg, c, pos, cos_sin, window=cfg.window, tp=tp)
             else:
-                a, new = ssd_decode(b["ssm"], h, cfg, c)
+                a, new = ssd_decode(b["ssm"], h, cfg, c, tp)
                 for n in ("ssm", "conv"):
                     c[n].copy_(new[n])
             x = x + a

@@ -604,6 +604,30 @@ def all_to_all_over(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str], spli
                                cat_dim % x.dim(), reverse)
 
 
+def _exchange(x: torch.Tensor, group, send: Sequence[int], recv: Sequence[int],
+              dim: int) -> torch.Tensor:
+    """Consecutive runs of ``x`` along ``dim`` sent over ``group``'s ranks
+    (``send[j]`` elements to rank j), the ``recv[j]`` each rank j sent
+    joined along ``dim`` in rank order."""
+    wire = x.movedim(dim, 0)
+    wire = (wire.cpu() if _staged(x, group) else wire).contiguous()
+    out = wire.new_empty((sum(recv),) + tuple(wire.shape[1:]))
+    dist.all_to_all_single(out, wire, list(recv), list(send), group=group)
+    return out.to(x.device).movedim(0, dim)
+
+
+class _TradeOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, send, recv, dim):
+        ctx.args = group, send, recv, dim
+        return _exchange(x, group, send, recv, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, send, recv, dim = ctx.args
+        return _exchange(g, group, recv, send, dim), None, None, None, None
+
+
 @torch.no_grad()
 def exchange_over(x: torch.Tensor, mesh: DeviceMesh, axis: str, send: Sequence[int],
                   recv: Sequence[int]) -> torch.Tensor:
@@ -611,11 +635,16 @@ def exchange_over(x: torch.Tensor, mesh: DeviceMesh, axis: str, send: Sequence[i
     ``axis``: the first ``send[0]`` rows to the rank at index 0, the next
     ``send[1]`` to index 1, and so on; returns the ``recv[j]`` rows each rank
     j sent this one, joined in axis order (an all-to-all of uneven runs)."""
-    group = mesh.get_group(axis)
-    wire = (x.cpu() if _staged(x, group) else x).contiguous()
-    out = wire.new_empty((sum(recv),) + tuple(wire.shape[1:]))
-    dist.all_to_all_single(out, wire, list(recv), list(send), group=group)
-    return out.to(x.device)
+    return _exchange(x, mesh.get_group(axis), send, recv, 0)
+
+
+def trade_over(x: torch.Tensor, mesh: DeviceMesh, axis: str, send: Sequence[int],
+               recv: Sequence[int], dim: int) -> torch.Tensor:
+    """:func:`exchange_over` along ``dim``, differentiable: its backward
+    sends each rank's gradient back the way its elements came (the same
+    exchange with ``send`` and ``recv`` swapped), its adjoint under the sum
+    of every rank's share of one loss."""
+    return _TradeOver.apply(x, mesh.get_group(axis), tuple(send), tuple(recv), dim % x.dim())
 
 
 def from_shard(local: torch.Tensor, sharding: "Sharding") -> DTensor:

@@ -16,12 +16,12 @@ What is held, and how closely:
 * the dry-run: the structural fields of every record equal the
   reference's; the collective bytes and executions of every case equal a
   hand count from the specs (the dense train step's tensor-parallel
-  collectives, the MoE decode step's sharded ones, the other prefill and
-  decode steps' gathers); the train cell's product FLOPs, under both
-  profiles, equal a hand count of the tensor-parallel step's products;
-  each gathering prefill and decode temp figure holds at least the state
-  the step gathers whole (the sharded MoE decode its working layouts), and
-  the train step's
+  collectives, the MoE and SSM decode steps' sharded ones, the other
+  prefill and decode steps' gathers); the train cell's product FLOPs,
+  under both profiles, equal a hand count of the tensor-parallel step's
+  products; each gathering prefill and decode temp figure holds at least
+  the state the step gathers whole (the sharded MoE and SSM decode steps
+  their working layouts), and the train step's
   its working state and less than the ZeRO-3 step's on the same case.  The
   reference's figures count a ``scan`` body once (one layer), so its
   whole-step FLOPs are no yardstick;
@@ -670,11 +670,16 @@ DRY_KEYS = [*CASES, "serve"]
 def test_dryrun_collectives_hand_count(dry, key):
     """Each case's collective bytes a device and its executions of each
     kind equal the hand count from the specs (the tensor-parallel train step
-    under both profiles; the MoE family's sharded decode step; the other
-    families' prefill and decode steps gather everything)."""
+    under both profiles; the MoE and SSM families' sharded decode steps;
+    the other families' prefill and decode steps gather everything)."""
     rec = dry[key] if key == "serve" else dry[key][1]
     if rec["kind"] == "train":
         want, counts, n = _hand_tp_collectives(rec["profile"])
+    elif rec["arch"] == "mamba2-2.7b":
+        # the SSM family's planned decode step (tests/test_torch_ssm_parallel.py)
+        from test_torch_ssm_parallel import _hand_ssm_collectives
+        want, counts = _hand_ssm_collectives(rec["cell"], rec["mesh"])
+        n = math.prod(rec["mesh_shape"].values())
     elif rec["arch"] == "mixtral-8x22b":
         want, counts, n = _hand_moe_decode_collectives(rec["arch"], rec["cell"], rec["mesh"])
     else:
@@ -709,13 +714,13 @@ def test_dryrun_train_flops_hand_count(dry, profile):
 def test_dryrun_temp_holds_gathered_state(dry, case):
     """A prefill or decode step of a family without a plan gathers its
     parameters whole (the decode step its cache too) before the model runs:
-    the temp figure is at least those bytes; the MoE family's sharded decode
-    step holds its parameters' working layouts in bf16 (each gathered over
-    its embed axes, the router whole) and no more than half the whole
-    gather.  The dense train step holds its working state (this rank's
-    parameters gathered over their embed axes, whole for a q / k / v weight
-    whose heads do not split, and their gradients), so its temp is at least
-    those bytes, and below the temp of the ZeRO-3 step on the same case,
+    the temp figure is at least those bytes; the MoE and SSM families'
+    sharded decode steps hold their parameters' working layouts in bf16
+    (each gathered over its embed axes, the router and the conv weights
+    whole) and no more than half the whole gather.  The dense train step
+    holds its working state (this rank's parameters gathered over their
+    embed axes, whole for a q / k / v weight whose heads do not split, and
+    their gradients), so its temp is at least those bytes, and below the temp of the ZeRO-3 step on the same case,
     which gathers every parameter and holds every gradient whole.  The
     arguments are this rank's shards."""
     from repro_torch import configs as C
@@ -745,6 +750,21 @@ def test_dryrun_temp_holds_gathered_state(dry, case):
         _, sizes, leaves = _moe_working(*case[::2])
         working = sum(math.prod(p.shape) // math.prod(sizes[ax] for ax in keep) * 2
                       for p, _, keep, moves in leaves if moves)
+        assert working <= mem["temp_size_in_bytes"] < whole // 2, (mem, working, whole)
+        return
+    if cfg.family == "ssm":
+        # the planned decode step: its weights' working layouts in bf16 (the
+        # conv weights whole, the rest gathered over their embed axes) and
+        # one layer's one-token rows, not the whole parameters or cache
+        from test_torch_ssm_parallel import _smoke_plan, _ssm_keep
+        plan = _smoke_plan(case[1], "baseline", case[2])
+        sizes = plan["sizes"]
+        working = 0
+        for path, p in _pspec_paths(model.specs()):
+            spec = resolve_spec(p.shape, p.logical, sizes)
+            keep = _ssm_keep(path, p, spec, plan)
+            if set(keep) != {ax for e in _entries(spec) for ax in e}:
+                working += math.prod(p.shape) // math.prod(sizes[ax] for ax in keep) * 2
         assert working <= mem["temp_size_in_bytes"] < whole // 2, (mem, working, whole)
         return
     need = whole

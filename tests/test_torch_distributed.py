@@ -30,10 +30,10 @@ import torch.multiprocessing as mp  # noqa: E402
 PIPE_B, PIPE_S = 8, 16
 SMOKE = dict(seq_len=32, global_batch=8, kind="train")
 PSUM_N = 4096
-# the families whose meshed train step is ZeRO-3 (the dense and MoE
-# families' is tensor-parallel): name -> (arch, mesh shape); SSM, and the
-# hybrid on (data 2, model 2) and on (1, 4)
-ZERO3_CASES = {"mamba2-2.7b": ("mamba2-2.7b", (2, 2)),
+# the families whose meshed train step is ZeRO-3 (the dense, MoE and SSM
+# families' is tensor-parallel): name -> (arch, mesh shape); the hybrid on
+# (data 4, model 1), on (2, 2) and on (1, 4)
+ZERO3_CASES = {"jamba-v0.1-52b-4x1": ("jamba-v0.1-52b", (4, 1)),
                "jamba-v0.1-52b": ("jamba-v0.1-52b", (2, 2)),
                "jamba-v0.1-52b-1x4": ("jamba-v0.1-52b", (1, 4))}
 ZERO3_ARCHS = sorted({arch for arch, _ in ZERO3_CASES.values()})
@@ -384,11 +384,11 @@ def test_sharded_train_step_matches_one_device_step(four, reference):
 
 @pytest.mark.parametrize("name", list(ZERO3_CASES))
 def test_zero3_train_step_matches_one_device_step(four, reference, name):
-    """An SSM smoke config on (data 2, model 2) and a hybrid one on (2, 2)
-    and (1, 4), in float32 from the reference's weights, through the ZeRO-3
-    step their families run on a mesh: the gradients of step 1 and three
-    steps' losses and grad norms against the port's one-device step on the
-    same batches, at the tensor-parallel step's bounds."""
+    """The hybrid smoke config on (data 4, model 1), (2, 2) and (1, 4), in
+    float32 from the reference's weights, through the ZeRO-3 step its
+    family runs on a mesh: the gradients of step 1 and three steps' losses
+    and grad norms against the port's one-device step on the same batches,
+    at the tensor-parallel step's bounds."""
     _, ranks = four
     arch = ZERO3_CASES[name][0]
     runs = [r["zero3"][name] for r in ranks]
