@@ -113,12 +113,11 @@ Phases (any failure exits non-zero; nothing is caught):
      on the card from the same seeded weights and batches in float32 (TF32
      off), within g1's 5e-2 in bf16; each rank's peak memory beside the
      one-device step's, and the step's ms (gloo on one card: not a speed);
-     h6, the ZeRO-3 ``ShardedTrainStep`` the families without a plan run,
+     h6, the ZeRO-3 ``ShardedTrainStep`` the family without a plan runs,
      on h1's (data 1, model 1) NCCL mesh: whisper-tiny as published (its
-     encoder's frames seeded normal) and jamba's smoke config, (B, S) =
-     (2, 4096), two steps each within 1e-5 (loss) and 1e-4 (grad norm) of
-     the one-device step on the card from the same seeded weights and
-     batches; h7, the
+     encoder's frames seeded normal), (B, S) = (2, 4096), two steps within
+     1e-5 (loss) and 1e-4 (grad norm) of the one-device step on the card
+     from the same seeded weights and batches; h7, the
      dense family's sharded ``PrefillStep`` and ``DecodeStep`` at
      granite-3-8b's widths cut to 2 layers on 4 gloo ranks spawned on the
      card, a (1, 4) mesh under baseline and a (2, 2) mesh under serve (the
@@ -147,10 +146,29 @@ Phases (any failure exits non-zero; nothing is caught):
      (4, 1000) prompt (15 chunks of 64 and a ragged one), ``seed_cache`` and
      16 greedy tokens on h7's (1, 4) baseline and (2, 2) serve meshes,
      float32, logits within 1e-5 of the one-device steps and tokens
-     identical; every h phase prints each rank's peak and the card's name
-     and power limit;
-  i. the analysis tools on the card's own runs, after every timed phase:
-     i1, ``launch.dryrun``'s trace of g2's exact cell (minicpm-2b as
+     identical; h12, the hybrid's planned train step at jamba-v0.1-52b's
+     published widths cut to an (attention, MLP) and an (SSM, MoE) layer,
+     (B, S) = (1, 4096), on (1, 4) (8 q heads, 4 of the 16 experts and 32
+     of the 128 SSM heads a rank), step 1's loss and gradients (no update:
+     with the moments neither the one-device step nor the 4 ranks fit) at
+     h5's bounds in float32 and bf16 with h8's routing-gap rule; h13 its
+     sharded prefill (4, 1024), ``seed_cache`` into 1040 positions and 16
+     greedy tokens on (1, 4) baseline and (2, 2) serve, float32, logits
+     within 1e-5 beyond the one-device prefill's own float32 spread (the
+     same prompts prefilled whole against row by row: 9.5e-6 at these
+     widths) and tokens identical; h14, the VLM's planned train step at
+     qwen2-vl-72b's published widths cut to 1 layer, (2, 4096) of seeded
+     embeds and image-grid (3, B, S) positions, as h12; h15 its sharded
+     prefill from (4, 1000) embeds and decode with (3, B, 1) positions, as
+     h13.  h2, h5 and h7-h15 run on one group of 4 gloo ranks spawned once
+     (each rank's spawn-to-first-collective seconds and each phase's
+     seconds printed), their one-device references run first in this
+     process, each freed; every h phase prints each rank's peak and the
+     card's name and power limit;
+  i. the analysis tools on the card's own runs, read after every timed
+     phase (every trace runs in a process of its own at low priority,
+     started with phase h): i1, ``launch.dryrun``'s trace of g2's exact
+     cell (minicpm-2b as
      published, (B, S) = (2, 4096), float32 weights and moments) on a
      one-rank fake mesh: the predicted per-device argument + temp bytes
      within 15 % of g2's measured peak, its product FLOPs equal to the hand
@@ -158,7 +176,7 @@ Phases (any failure exits non-zero; nothing is caught):
      count; i2, ``roofline.analyze_cell`` with the H100's peaks on one chip
      for g2's cell, e2's prefill (4, 512) and e2's decode (B = 4, cache
      544), each beside the phase's measured time and its hand bound; i3,
-     beside i1 and i2 through the dry-run's command line, granite-3-8b
+     through the dry-run's command line, granite-3-8b
      ``train_4k`` as published on the (16, 16) production mesh of 256 fake
      ranks: the record ``ok``, collective bytes > 0, this rank's laid-out
      state equal to ``analytic_bytes_per_device``, argument + temp bytes
@@ -167,8 +185,8 @@ Phases (any failure exits non-zero; nothing is caught):
      (15,465,583,616 bytes), the collective bytes a device at most that
      count's (546,732,035,224), the product FLOPs equal to the tensor-parallel
      step's hand count (``hand_train_flops``) and at most a twelfth of the
-     ZeRO-3 step's, and the trace's seconds; i4, beside i3 in processes of
-     their own, the dense family's sharded serving cells on the same fleet:
+     ZeRO-3 step's, and the trace's seconds; i4, the dense family's
+     sharded serving cells on the same fleet:
      granite-3-8b ``decode_32k`` as published (argument + temp + output below
      the card's memory, temp at most twice the reference's XLA count
      5,664,096,168, collective bytes a device at most 1.5 x its
@@ -178,8 +196,7 @@ Phases (any failure exits non-zero; nothing is caught):
      the reference's 140,338,135,088, argument + temp + output below 4/40
      of the card's memory, temp at most twice the reference's
      3,619,734,528), each beside the reference's figures and the card's
-     name and power limit; i5, the MoE family's production cells in
-     processes of their own at low priority, started with phase h:
+     name and power limit; i5, the MoE family's production cells:
      dbrx-132b and mixtral-8x22b (moe_ep, (16, 8, 2)) ``decode_32k`` and
      ``train_4k`` as published, mixtral-8x22b ``train_4k`` on (16, 16) and
      dbrx-132b ``prefill_32k`` cut to 4 of its 40 layers, each against the
@@ -196,7 +213,16 @@ Phases (any failure exits non-zero; nothing is caught):
      reference's and, for ``long_500k``, below a tenth of the gathering
      step's (the reference's printed beside them), product FLOPs equal to
      the hand counts and ``train_4k``'s at most a twelfth of the ZeRO-3
-     step's;
+     step's; i7, the hybrid's and the VLM's production cells the same way:
+     jamba-v0.1-52b ``train_4k``, ``prefill_32k``, ``decode_32k`` and
+     ``long_500k`` and qwen2-vl-72b ``train_4k`` and ``decode_32k`` as
+     published, its ``prefill_32k`` cut to 8 of its 80 layers, against the
+     reference's XLA counts (``I7_REFERENCE``): argument + temp + output
+     below the card's memory (scaled by the share of the layers where the
+     depth is cut), collective bytes a device at most 1.0 x (train,
+     prefill) or 1.5 x (decode) the reference's (long_500k: below a tenth of
+     the gathering step's), product FLOPs equal to the hand counts, beside
+     the parent's gathering and ZeRO-3 steps' figures (``I7_BEFORE``);
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -267,7 +293,7 @@ from repro_torch.models import build, transformer  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models.model import PLANNED  # noqa: E402
 from repro_torch.models.common import init_params, tree_leaves, tree_to  # noqa: E402
-from repro_torch.models.common import sharding_profile, sorted_leaves  # noqa: E402
+from repro_torch.models.common import resolve_spec, sharding_profile, sorted_leaves  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.models.tensor_parallel import (hand_decode_flops,  # noqa: E402
                                                 hand_prefill_flops, hand_train_flops)
@@ -384,11 +410,11 @@ H3_PODS, H3_NUMEL, H3_ROUNDS, H3_SEED = 2, 16 * 2**20, 50, 13
 # the first step compared with the one-device step, the second timed
 H5_LAYERS, H5_B, H5_S, H5_MESH, H5_SEED, H5_STEPS = 2, 2, 4096, (1, 4), 17, 2
 H5_BOUNDS = {"float32": (1e-5, 1e-4), "bfloat16": (5e-2, 5e-2)}  # loss, grad norm (g1's)
-# h6 the ZeRO-3 step of the families without a plan on h1's (data 1, model
-# 1) mesh: the encoder-decoder as published (its encoder's frames seeded
-# normal) and the hybrid at its smoke config, (B, S), steps against the
-# one-device step
-H6_ARCHS, H6_B, H6_S, H6_SEED = (("whisper-tiny", False), ("jamba-v0.1-52b", True)), 2, 4096, 19
+# h6 the ZeRO-3 step of the family without a plan on h1's (data 1, model 1)
+# mesh: the encoder-decoder as published (its encoder's frames seeded
+# normal), (B, S), steps against the one-device step (the hybrid, planned,
+# is h12's)
+H6_ARCHS, H6_B, H6_S, H6_SEED = (("whisper-tiny", False),), 2, 4096, 19
 # h7 the dense family's sharded prefill and decode at granite-3-8b's widths
 # cut to H5_LAYERS layers on 4 gloo ranks sharing the card, each mesh under its
 # profile: (B, prompt) prefilled, moved into a cache of H7_CACHE positions,
@@ -421,12 +447,60 @@ H9_B, H9_P, H9_NEW, H9_SEED = 1, 5120, 16, 31
 # of the one-device steps and tokens identical
 H10_ARCH, H10_LAYERS, H10_B, H10_S, H10_MESH, H10_SEED = "mamba2-2.7b", 2, 2, 4096, (1, 4), 37
 H11_B, H11_P, H11_NEW, H11_SEED = 4, 1000, 16, 41
+# h12 the hybrid's train step at jamba-v0.1-52b's published widths cut to
+# H12_LAYERS layers, one (attention, MLP) and one (SSM, MoE) layer as jamba
+# pairs them (H12_CUT; one real period of 8 layers holds about 51.5 GB of
+# float32 weights), (B, S), on a (data 1, model 4) mesh of 4 gloo ranks
+# sharing the card (8 of the 32 q heads, 4 of the 16 experts, 32 of the 128
+# SSM heads a rank), step 1 against the one-device step run first and
+# freed, at h5's bounds in float32 (TF32 off) and bf16, with h8's
+# routing-gap rule; h13 its sharded prefill of a (H13_B, H13_P) prompt (a
+# whole number of the MoE block's 256-token groups, as the reference's
+# routing needs), seed_cache into H13_P + H13_NEW positions and H13_NEW
+# greedy tokens on each of H7_MESHES, float32, logits within H7_RTOL beyond
+# the one-device prefill's spread (SPREAD_BOUND) and tokens identical
+H12_ARCH, H12_LAYERS, H12_B, H12_S, H12_MESH, H12_SEED = "jamba-v0.1-52b", 2, 1, 4096, (1, 4), 43
+H12_CUT = dict(attn_every=2, attn_pos=0, moe_every=2)
+H13_B, H13_P, H13_NEW, H13_SEED = 4, 1024, 16, 47
+# h14 the VLM's train step at qwen2-vl-72b's published widths cut to
+# H14_LAYERS layer, (B, S), fed seeded embeds and the (3, B, S) positions of
+# an image grid (frames of GRID x GRID patches: the temporal, row and column
+# ids differ, so every M-RoPE section turns), on h12's mesh at h5's bounds;
+# h15 its sharded prefill from (H15_B, H15_P) embeds, seed_cache and H15_NEW
+# greedy tokens with (3, B, 1) positions on each of H7_MESHES
+H14_ARCH, H14_LAYERS, H14_B, H14_S, H14_SEED = "qwen2-vl-72b", 1, 2, 4096, 53
+H15_B, H15_P, H15_NEW, H15_SEED = 4, 1000, 16, 59
+GRID = 32
 # the planned train and serving phases: (arch, layers, B, S, mesh, seed) and
-# (arch, layers, B, prompt, cache positions, new tokens, seed)
+# (arch, layers, B, prompt, cache positions, new tokens, seed); the config
+# changes beside the depth; the train phases that hold step 1's loss and grad
+# norm without the AdamW update (with the float32 moments neither the
+# one-device step nor 4 ranks of h12 fit the card: the dry-run's trace of
+# each takes 81.3 GB of arguments and temp; the update is h5's, h8's and
+# h10's ``AdamW.apply`` on each rank's shards)
 TRAIN_PHASES = {"h5": (LM_ARCH, H5_LAYERS, H5_B, H5_S, H5_MESH, H5_SEED),
-                "h10": (H10_ARCH, H10_LAYERS, H10_B, H10_S, H10_MESH, H10_SEED)}
+                "h10": (H10_ARCH, H10_LAYERS, H10_B, H10_S, H10_MESH, H10_SEED),
+                "h12": (H12_ARCH, H12_LAYERS, H12_B, H12_S, H12_MESH, H12_SEED),
+                "h14": (H14_ARCH, H14_LAYERS, H14_B, H14_S, H12_MESH, H14_SEED)}
 SERVE_PHASES = {"h7": (LM_ARCH, H5_LAYERS, H7_B, H7_P, H7_CACHE, H7_NEW, H7_SEED),
-                "h11": (H10_ARCH, H10_LAYERS, H11_B, H11_P, H11_P + H11_NEW, H11_NEW, H11_SEED)}
+                "h11": (H10_ARCH, H10_LAYERS, H11_B, H11_P, H11_P + H11_NEW, H11_NEW, H11_SEED),
+                "h13": (H12_ARCH, H12_LAYERS, H13_B, H13_P, H13_P + H13_NEW, H13_NEW, H13_SEED),
+                "h15": (H14_ARCH, H14_LAYERS, H15_B, H15_P, H15_P + H15_NEW, H15_NEW, H15_SEED)}
+PHASE_CUTS = {"h12": H12_CUT, "h13": H12_CUT}
+GRADS_ONLY = ("h12", "h14")
+# each serving phase's one-device prefill also runs row by row: the float32
+# spread of the same function batched otherwise (the products' reduction
+# order follows the batch's shape), printed beside the sharded steps'
+# errors.  h13's logits are held within H7_RTOL beyond that spread: at the
+# hybrid's widths the spread alone is 9.5e-6 (granite's at h7's 4.9e-6,
+# mamba2's 2.9e-6, qwen2-vl's 2.2e-6; NVIDIA H100 80GB HBM3, 700 W), so no
+# other order of the same float32 sums is held to H7_RTOL itself
+SPREAD_BOUND = ("h13",)
+# the phases one group of 4 gloo ranks spawned on the card runs in turn (h2's
+# pipe, then the planned train and serving phases), each rank's memory freed
+# between them; the one-device references run first, each freed
+GROUP_PHASES = ("h2", "h5", "h7", "h8", "h10", "h11", "h12", "h13", "h14", "h15")
+GROUP_WORLD, GROUP_TIMEOUT_S = 4, 1000
 # bytes the AdamW update moves a float32 parameter: parameter, gradient and
 # both moments read, parameter and moments written
 ADAMW_BYTES_PER_PARAM = 28
@@ -579,11 +653,78 @@ I6_BEFORE = {
 }
 I6_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0, "decode_32k": 1.5}
 I6_LONG_OVER_BEFORE = 0.1
+# i7 the hybrid's and the VLM's production cells on the same fleet, each
+# through the dry-run's command line in a process of its own started (at low
+# priority) with phase h and read in phase i: (arch, cell, layers: 0 as
+# published); jamba-v0.1-52b's four cells and qwen2-vl-72b's train_4k and
+# decode_32k as published, its prefill_32k cut to 8 of its 80 layers (the
+# share of i4's and i5's cuts: the whole depth traces for far longer than
+# the check's limit), its collective bytes and argument + temp + output bound
+# scaled by the share.  Beside the reference's XLA compile counts of each
+# whole cell on 256 fake host devices (python -m repro.launch.dryrun --arch
+# <arch> --cell <cell> --mesh single, on the CPU, jax 0.9.0): argument, temp
+# and output bytes a device, collective bytes a device and its HLO's
+# collective ops by kind; and the port's figures before the two families were
+# planned (their ZeRO-3 train step and gathering decode step through the same
+# dry-run, torch 2.13 on the CPU: temp, collective bytes a device, argument +
+# temp + output and product FLOPs).  long_500k's one row moves weights in the
+# port and the token in XLA's partitioning, so its collective bytes are held
+# below a tenth of the gathering step's
+I7_CELLS = (("jamba-v0.1-52b", "train_4k", 0), ("jamba-v0.1-52b", "prefill_32k", 0),
+            ("jamba-v0.1-52b", "decode_32k", 0), ("jamba-v0.1-52b", "long_500k", 0),
+            ("qwen2-vl-72b", "train_4k", 0), ("qwen2-vl-72b", "decode_32k", 0),
+            ("qwen2-vl-72b", "prefill_32k", 8))
+I7_REFERENCE = {
+    ("jamba-v0.1-52b", "train_4k"): dict(
+        argument=2_416_502_052, temp=60_304_109_008, output=2_416_471_884,
+        collective=226_279_220_456,
+        ops={"collective-permute": 179, "all-gather": 359, "all-reduce": 17, "all-to-all": 35}),
+    ("jamba-v0.1-52b", "prefill_32k"): dict(
+        argument=805_506_144, temp=10_650_156_504, output=602_581_640,
+        collective=68_398_020_096,
+        ops={"all-gather": 148, "collective-permute": 78, "all-to-all": 8, "all-reduce": 2}),
+    ("jamba-v0.1-52b", "decode_32k"): dict(
+        argument=1_081_956_100, temp=4_492_712_376, output=276_597_552,
+        collective=12_819_921_184,
+        ops={"all-gather": 76, "collective-permute": 365, "all-reduce": 36, "all-to-all": 1}),
+    ("jamba-v0.1-52b", "long_500k"): dict(
+        argument=1_343_364_536, temp=1_506_059_136, output=537_891_300,
+        collective=3_800_840, ops={"all-reduce": 73, "collective-permute": 380, "all-gather": 33}),
+    ("qwen2-vl-72b", "train_4k"): dict(
+        argument=3_558_113_284, temp=36_135_048_128, output=3_423_830_340,
+        collective=2_404_379_902_104,
+        ops={"collective-permute": 11, "all-gather": 56, "all-reduce": 13, "all-to-all": 12}),
+    ("qwen2-vl-72b", "decode_32k"): dict(
+        argument=6_509_985_924, temp=11_449_021_416, output=5_369_013_312,
+        collective=18_062_894_880,
+        ops={"all-gather": 22, "collective-permute": 3, "all-reduce": 7, "all-to-all": 1}),
+    ("qwen2-vl-72b", "prefill_32k"): dict(
+        argument=1_256_079_360, temp=7_584_351_232, output=11_408_582_936,
+        collective=664_458_690_560,
+        ops={"all-gather": 16, "all-to-all": 2, "all-reduce": 2, "collective-permute": 1}),
+}
+I7_BEFORE = {
+    ("jamba-v0.1-52b", "train_4k"): dict(temp=889_963_029_048, collective=231_581_853_888,
+        total=894_796_000_392, flops=7.0091e+15),
+    ("jamba-v0.1-52b", "decode_32k"): dict(temp=346_600_130_560, collective=293_902_315_520,
+        total=347_992_107_904, flops=1.3381e+13),
+    ("jamba-v0.1-52b", "long_500k"): dict(temp=233_073_818_624, collective=227_309_476_608,
+        total=234_955_320_072, flops=1.3675e+11),
+    ("qwen2-vl-72b", "train_4k"): dict(temp=906_404_331_544, collective=329_327_378_640,
+        total=913_386_274_856, flops=3.7740e+16),
+    ("qwen2-vl-72b", "decode_32k"): dict(temp=3_082_545_006_592, collective=1_769_281_161_216,
+        total=3_094_501_558_912, flops=2.9288e+13),
+}
+I7_COLLECTIVE_OVER_REFERENCE = {"train": 1.0, "prefill": 1.0, "decode": 1.5}
 I6_TRAIN_FLOPS_UNDER_BEFORE = 12
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    """A line of the check's output, after the seconds since it started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *args, flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -2089,7 +2230,9 @@ def meshed_full_width(device, g2: dict) -> dict:
 def spawn_ranks(fn, world: int, tmp: str, *args, timeout: float = 300.0) -> list:
     """Run ``fn(rank, world, init_method, tmp, *args)`` on ``world`` spawned
     processes with a deadline (every process killed past it); returns each
-    rank's result, read from ``tmp/rank{r}.pt``."""
+    rank's result, read from ``tmp/rank{r}.pt``.  The spawn's wall time is
+    in the environment the ranks inherit (``joined`` reads it)."""
+    os.environ["CHIP_SMOKE_SPAWNED_AT"] = repr(time.time())
     ctx = torch.multiprocessing.start_processes(
         fn, args=(world, f"file://{tmp}/rendezvous", tmp, *args), nprocs=world, join=False,
         start_method="spawn")
@@ -2102,6 +2245,18 @@ def spawn_ranks(fn, world: int, tmp: str, *args, timeout: float = 300.0) -> list
             if proc.is_alive():
                 proc.kill()
     return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def joined(rank: int, world: int, init: str, device) -> float:
+    """Join a spawned rank's gloo group on the card (TF32 off) and pass its
+    first collective, a barrier; returns the seconds from the spawn to it
+    (the process's start, its imports and the rendezvous)."""
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        tf32_off()
+    init_group("gloo", rank, world, init)
+    dist.barrier()
+    return time.time() - float(os.environ["CHIP_SMOKE_SPAWNED_AT"])
 
 
 def pipe_layer_params(cfg, layer: int, device):
@@ -2127,14 +2282,11 @@ def stack_trees(trees: list):
     return torch.stack(trees)
 
 
-def pipeline_rank(rank, world, init, tmp, device, cfg):
-    """One pipe rank of phase h2 on a gloo group: it makes its own layers
-    from their seeds, then runs ``pipeline_forward`` twice (the second
-    timed, between a barrier and a synchronize); rank 0 keeps the output."""
-    if device == "cuda":
-        torch.cuda.set_device(0)
-        tf32_off()
-    init_group("gloo", rank, world, init)
+def pipeline_work(device, cfg) -> dict:
+    """One pipe rank of phase h2 in the group: it makes its own layers from
+    their seeds, then runs ``pipeline_forward`` twice (the second timed,
+    between a barrier and a synchronize); rank 0 keeps the output."""
+    rank, world = dist.get_rank(), dist.get_world_size()
     mesh = make_mesh((world,), ("pipe",), device_type=device)
     per = cfg.n_layers // world
     stage = stack_trees([pipe_layer_params(cfg, rank * per + i, device) for i in range(per)])
@@ -2150,28 +2302,23 @@ def pipeline_rank(rank, world, init, tmp, device, cfg):
         if device == "cuda":
             torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-    out = dict(ms=times, backend=dist.get_backend(), world=dist.get_world_size(),
+    out = dict(ms=times, backend=dist.get_backend(), world=world,
                layers=[rank * per + i for i in range(per)])
     if rank == 0:
         out["hidden"] = rmsnorm(top["final_norm"], h, cfg.norm_eps).cpu()
-    torch.save(out, f"{tmp}/rank{rank}.pt")
-    dist.destroy_process_group()
+    del stage, blocks, top, x, h
+    return out
 
 
-def pipeline_phase(device) -> dict:
-    """Phase h2: the GPipe forward at granite-3-8b's published widths, cut
-    to H2_LAYERS of its 40 layers, over H2_STAGES pipe ranks spawned on the
-    one card (a gloo group: NCCL refuses two ranks on one card; the
-    activations cross through host copies), n_micro = H2_MICRO, (B, S) =
-    (H2_B, H2_S), float32 with TF32 off.  Each rank makes its own layers on
-    the card from a per-layer generator seed; the result is held within 1e-5
-    relative (the reference's bound) of the plain stacked forward on the
-    card from the same seeds, and the two are timed."""
-    cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=H2_LAYERS,
-                              compute_dtype="float32", remat="none")
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_ranks(pipeline_rank, H2_STAGES, tmp, device, cfg)
+def h2_config():
+    return dataclasses.replace(configs.get(LM_ARCH), n_layers=H2_LAYERS,
+                               compute_dtype="float32", remat="none")
+
+
+def pipeline_reference(device) -> dict:
+    """h2's plain stacked forward on the card from the same per-layer seeds
+    (float32, TF32 off), twice, timed; the output kept on the host."""
+    cfg = h2_config()
     tf32_off()
     top, tokens = pipe_top(cfg, device)
     params = dict(top, blocks=stack_trees([pipe_layer_params(cfg, i, device)
@@ -2184,21 +2331,36 @@ def pipeline_phase(device) -> dict:
             want = transformer.forward_full(params, cfg, tokens=tokens)[0]
             torch.cuda.synchronize()
             plain_ms.append((time.perf_counter() - t) * 1e3)
-    got = ranks[0]["hidden"].to(device)
+    out = dict(hidden=want.cpu(), plain_ms=plain_ms)
+    del params, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_check(ref: dict, ranks: list) -> dict:
+    """Phase h2: the GPipe forward at granite-3-8b's published widths, cut
+    to H2_LAYERS of its 40 layers, over H2_STAGES pipe ranks of the group on
+    the one card (gloo: NCCL refuses two ranks on one card; the activations
+    cross through host copies), n_micro = H2_MICRO, (B, S) = (H2_B, H2_S),
+    float32 with TF32 off.  Each rank makes its own layers on the card from a
+    per-layer generator seed; the result is held within 1e-5 relative (the
+    reference's bound) of the plain stacked forward on the card from the same
+    seeds (``pipeline_reference``), and the two are timed."""
+    got, want = ranks[0]["hidden"], ref["hidden"]
     err = rel_err(got, want)
     check(bool(torch.isfinite(got).all()) and err < 1e-5,
           f"the pipeline is off the plain forward by {err} (bound 1e-5)")
-    del params, want, got
-    torch.cuda.empty_cache()
     out = dict(arch=LM_ARCH, layers=H2_LAYERS, stages=H2_STAGES, n_micro=H2_MICRO,
                batch=[H2_B, H2_S], backend=ranks[0]["backend"], world=ranks[0]["world"],
-               rel_err=err, pipeline_ms=ranks[0]["ms"], plain_ms=plain_ms,
+               rel_err=err, pipeline_ms=ranks[0]["ms"], plain_ms=ref["plain_ms"],
                stage_layers=[r["layers"] for r in ranks])
     log(f"phase h2: GPipe forward, {LM_ARCH} at its published widths cut to {H2_LAYERS} layers, "
         f"{H2_STAGES} pipe ranks on the card (backend {out['backend']}, world {out['world']}), "
         f"n_micro {H2_MICRO}, (B, S) = ({H2_B}, {H2_S}), float32, TF32 off: off the plain "
-        f"stacked forward by {err:.3e} (bound 1e-5); pipeline ms {[round(t, 3) for t in out['pipeline_ms']]}"
-        f" (the second timed warm), plain ms {[round(t, 3) for t in plain_ms]}")
+        f"stacked forward by {err:.3e} (bound 1e-5); pipeline ms "
+        f"{[round(t, 3) for t in out['pipeline_ms']]}"
+        f" (the second timed warm), plain ms {[round(t, 3) for t in ref['plain_ms']]}")
     return out
 
 
@@ -2212,9 +2374,7 @@ def psum_rank(rank, world, init, tmp, device):
     """One pod rank of phase h3 on a gloo group: ``compressed_psum`` of its
     part (three calls timed), and the same formula in plain PyTorch on the
     card from every pod's part, made from their seeds."""
-    if device == "cuda":
-        torch.cuda.set_device(0)
-    init_group("gloo", rank, world, init)
+    startup = joined(rank, world, init, device)
     mesh = make_mesh((world,), ("pod",), device_type=device)
     x = DTensor.from_local(psum_inputs(rank, device), mesh, [Shard(0)], run_check=False)
     times = []
@@ -2230,7 +2390,7 @@ def psum_rank(rank, world, init, tmp, device):
                      * torch.stack([s for _, s in parts]).reshape(-1, 1), dim=0)
     out = dict(ms=times, backend=dist.get_backend(), world=dist.get_world_size(),
                equal=bool(torch.equal(got.view(torch.int32), want.view(torch.int32))),
-               finite=bool(torch.isfinite(got).all()))
+               finite=bool(torch.isfinite(got).all()), startup_s=startup)
     torch.save(out, f"{tmp}/rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -2257,17 +2417,77 @@ def compressed_psum_phase(device) -> dict:
     wire = H3_NUMEL + 4
     out = dict(pods=H3_PODS, numel=H3_NUMEL, part_bytes=4 * H3_NUMEL, wire_bytes_per_rank=wire,
                float32_bytes_per_rank=4 * H3_NUMEL, backend=ranks[0]["backend"],
-               world=ranks[0]["world"], ms=[r["ms"] for r in ranks], ef_rounds=H3_ROUNDS)
+               world=ranks[0]["world"], ms=[r["ms"] for r in ranks], ef_rounds=H3_ROUNDS,
+               startup_s=[r["startup_s"] for r in ranks])
     log(f"phase h3: compressed_psum over {H3_PODS} pod ranks on the card (backend "
         f"{out['backend']}, world {out['world']}), {4 * H3_NUMEL} bytes of float32 a rank, "
         f"{wire} bytes on the wire a rank: bit-equal to the plain formula on every rank; ms by "
-        f"rank {out['ms']}; ef_quantize's invariant held over {H3_ROUNDS} rounds")
+        f"rank {out['ms']}; ef_quantize's invariant held over {H3_ROUNDS} rounds; spawn to "
+        f"first collective by rank {[round(t, 2) for t in out['startup_s']]} s")
     return out
 
 
 def h5_config(dtype: str, phase: str = "h5"):
     arch, layers = TRAIN_PHASES[phase][:2]
-    return dataclasses.replace(configs.get(arch), n_layers=layers, compute_dtype=dtype)
+    return dataclasses.replace(configs.get(arch), n_layers=layers, compute_dtype=dtype,
+                               **PHASE_CUTS.get(phase, {}))
+
+
+def grid_positions(B: int, S: int, device) -> torch.Tensor:
+    """(3, B, S) M-RoPE positions of an image grid: frames of GRID x GRID
+    patches, each position's frame (temporal), frame + row (h) and frame +
+    column (w), each batch row offset by its index."""
+    s = torch.arange(S)
+    frame = s // (GRID * GRID)
+    grid = torch.stack([frame, frame + s % (GRID * GRID) // GRID, frame + s % GRID])
+    return (grid[:, None] + torch.arange(B)[None, :, None]).to(torch.int32).to(device)
+
+
+def moe_layers(cfg) -> int:
+    """The MoE blocks one forward runs (``RouteRecorder``'s calls)."""
+    return sum(ch == "moe" for _, ch in cfg.layer_pattern()) * (cfg.n_layers // cfg.period)
+
+
+def train_batches(cfg, phase: str, device, shardings=None) -> list:
+    """The phase's train batches on the card, or laid out by ``shardings``
+    (``input_shardings``): ``SyntheticLM``'s tokens and labels from the
+    phase's seed; a VLM's labels with embeds seeded normal on the card and
+    ``grid_positions`` in place of the tokens.  One batch for a phase of
+    ``GRADS_ONLY``, else ``H5_STEPS``."""
+    _, _, B, S, _, seed = TRAIN_PHASES[phase]
+    data = SyntheticLM(DataConfig(cfg.vocab, S, B, seed))
+    out = []
+    for i in range(1 if phase in GRADS_ONLY else H5_STEPS):
+        batch = data.device_batch(i, device)
+        if cfg.family == "vlm":
+            g = torch.Generator(device).manual_seed(seed + i)
+            batch = {"labels": batch["labels"], "positions": grid_positions(B, S, device),
+                     "embeds": torch.randn((B, S, cfg.d_model), generator=g, device=device)}
+        out.append(batch if shardings is None else
+                   {k: distribute(v, shardings[k]) for k, v in batch.items()})
+    return out
+
+
+def one_device_norm(grads) -> torch.Tensor:
+    """The float32 global norm ``AdamW.update`` takes of a gradient tree."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in sorted_leaves(grads)))
+
+
+def grad_steps(step, params, batches, sync, norm) -> list:
+    """Step 1's loss and gradients of each batch and their global norm
+    (``norm``) without the update (the phases of ``GRADS_ONLY``), each timed
+    between a barrier (``sync``) and a synchronize."""
+    rows = []
+    for batch in batches:
+        sync()
+        t = time.perf_counter()
+        loss, grads = step.loss_and_grads(params, batch)
+        gn = norm(grads)
+        loss, gn = loss.item(), gn.item()
+        torch.cuda.synchronize()
+        rows.append(dict(loss=loss, grad_norm=gn, ms=(time.perf_counter() - t) * 1e3))
+        del grads
+    return rows
 
 
 def h5_steps(step, opt, params, batches, sync) -> list:
@@ -2285,18 +2505,15 @@ def h5_steps(step, opt, params, batches, sync) -> list:
     return rows
 
 
-def tensor_parallel_rank(rank, world, init, tmp, device, phase: str = "h5"):
-    """One rank of phase h5 (or h10) on a gloo group sharing the card: per
-    compute type, the weights made on the card from the seed and laid out
-    on the (data 1, model 4) mesh, ``H5_STEPS`` ``ShardedTrainStep``s (the
-    dense tensor-parallel step, or the SSM's head-parallel one) and the
-    rank's peak memory over them."""
+def tensor_parallel_work(device, phase: str = "h5") -> dict:
+    """One rank of phase h5 (h10, h12, h14) in the group: per compute type,
+    the weights made on the card from the seed and laid out on the (data 1,
+    model 4) mesh, the phase's ``ShardedTrainStep``s (the tensor-parallel
+    step, the SSM blocks head-parallel, the experts split), the first
+    forward's routing, and the rank's peak memory over them."""
     _, _, B, S, shape, seed = TRAIN_PHASES[phase]
-    torch.cuda.set_device(0)
-    tf32_off()
-    init_group("gloo", rank, world, init)
     mesh = make_mesh(shape, ("data", "model"), device_type=device)
-    out = dict(backend=dist.get_backend(), world=dist.get_world_size())
+    out = {}
     for dtype in H5_BOUNDS:
         cfg = h5_config(dtype, phase)
         model = build(cfg)
@@ -2304,69 +2521,89 @@ def tensor_parallel_rank(rank, world, init, tmp, device, phase: str = "h5"):
         params = model.init(torch.Generator(device).manual_seed(seed), device)
         params = tree_map_sorted(distribute, params, sh["params"])
         in_sh = input_shardings(model.input_specs(ShapeCell(phase, S, B, "train")), mesh)
-        data = SyntheticLM(DataConfig(cfg.vocab, S, B, seed))
-        batches = [data.sharded_batch(i, in_sh) for i in range(H5_STEPS)]
+        batches = train_batches(cfg, phase, device, in_sh)
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        rows = h5_steps(step, opt, params, batches, dist.barrier)
+        with RouteRecorder(moe_layers(cfg)) as routes:
+            if phase in GRADS_ONLY:
+                rows = grad_steps(step, params, batches, dist.barrier, step.global_norm)
+            else:
+                rows = h5_steps(step, opt, params, batches, dist.barrier)
         (tp, _, _), = step._plans.values()
-        out[dtype] = dict(steps=rows, max_memory_allocated=torch.cuda.max_memory_allocated(),
+        out[dtype] = dict(steps=rows, routes=routes.probs,
+                          max_memory_allocated=torch.cuda.max_memory_allocated(),
                           plan=dict(seq=tp.seq_axes, qkv=tp.qkv_axes, ssm_heads=tp.ssm_head_axes,
-                                    ssm_columns=tp.ssm_in_axes))
+                                    ssm_columns=tp.ssm_in_axes, experts=tp.expert_axes))
         del params, batches, step, opt
         gc.collect()
         torch.cuda.empty_cache()
-    torch.save(out, f"{tmp}/rank{rank}.pt")
-    dist.destroy_process_group()
+    return out
 
 
-def tensor_parallel_phase(device, phase: str = "h5") -> dict:
-    """Phase h5: the dense family's tensor- and sequence-parallel train step
-    at granite-3-8b's published widths cut to H5_LAYERS layers, (B, S) =
-    (H5_B, H5_S), on a (data 1, model 4) mesh of 4 gloo ranks spawned on
-    the card (NCCL refuses two ranks on one card; the stream's collectives
-    cross through host copies), so the sequence, the heads (the 8 kv heads
-    too), the MLP's columns all split, and the vocabulary (49155) does not.
-    Phase h10 (``phase="h10"``): the SSM family's head-parallel step at
-    mamba2-2.7b's published widths cut to H10_LAYERS layers, (H10_B,
-    H10_S), on the same mesh: the sequence, the 80 heads and in_proj's
-    columns on model (20 heads and 2644 columns a rank), the vocabulary of
-    50280 whole.  Against the one-device ``TrainStep`` on the card from the
-    same seeded weights and batches, run first and freed: the first step's
-    loss and grad norm within 1e-5 and 1e-4 relative in float32 (TF32
-    off), within g1's bf16 bound in bf16.  Each rank's peak memory beside
-    the one-device step's; the second step's ms, gloo on one card, is not a
-    speed."""
-    arch, layers, B, S, shape, seed = TRAIN_PHASES[phase]
-    card = smi("name,power.limit")
+def train_one_device(device, phase: str = "h5") -> dict:
+    """A train phase's one-device reference on the card, run and freed
+    before the group starts: per compute type the ``TrainStep``s from the
+    same seeded weights and batches (loss, grad norm, ms, the first
+    forward's routing, the peak)."""
     tf32_off()
     one = {}
     for dtype in H5_BOUNDS:
         cfg = h5_config(dtype, phase)
         model = build(cfg)
         step, opt, _ = build_train(model, None, G2_STEPS, G2_PEAK_LR)
-        params = model.init(torch.Generator(device).manual_seed(seed), device)
-        data = SyntheticLM(DataConfig(cfg.vocab, S, B, seed))
-        batches = [data.device_batch(i, device) for i in range(H5_STEPS)]
+        params = model.init(torch.Generator(device).manual_seed(TRAIN_PHASES[phase][5]), device)
+        batches = train_batches(cfg, phase, device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        rows = h5_steps(step, opt, params, batches, torch.cuda.synchronize)
-        one[dtype] = dict(steps=rows, max_memory_allocated=torch.cuda.max_memory_allocated())
+        with RouteRecorder(moe_layers(cfg)) as routes:
+            if phase in GRADS_ONLY:
+                rows = grad_steps(step, params, batches, torch.cuda.synchronize, one_device_norm)
+            else:
+                rows = h5_steps(step, opt, params, batches, torch.cuda.synchronize)
+        one[dtype] = dict(steps=rows, routes=routes.probs,
+                          max_memory_allocated=torch.cuda.max_memory_allocated())
         del params, batches, step, opt
         gc.collect()
         torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_ranks(tensor_parallel_rank, math.prod(shape), tmp, device, phase,
-                            timeout=600.0)
+    return one
+
+
+def check_train(phase: str, one: dict, ranks: list, card: str) -> dict:
+    """Phase h5: the dense family's tensor- and sequence-parallel train step
+    at granite-3-8b's published widths cut to H5_LAYERS layers, (B, S) =
+    (H5_B, H5_S), on a (data 1, model 4) mesh of the group's 4 gloo ranks on
+    the card (NCCL refuses two ranks on one card; the stream's collectives
+    cross through host copies), so the sequence, the heads (the 8 kv heads
+    too), the MLP's columns all split, and the vocabulary (49155) does not.
+    h10: the SSM family's head-parallel step at mamba2-2.7b's published
+    widths cut to H10_LAYERS layers, (H10_B, H10_S), on the same mesh: the
+    sequence, the 80 heads and in_proj's columns on model (20 heads and 2644
+    columns a rank), the vocabulary of 50280 whole.  h12: the hybrid at
+    jamba's widths cut to an (attention, MLP) and an (SSM, MoE) layer, (1,
+    4096): 8 q heads, 4 experts and 32 SSM heads a rank, the vocabulary of
+    65536 on model.  h14: the VLM at qwen2-vl's widths cut to 1 layer, (2,
+    4096) of seeded embeds and grid positions: 16 q heads, the 8 kv heads and
+    the MLP's columns a rank's share.  Against the one-device ``TrainStep``
+    on the card from the same seeded weights and batches
+    (``train_one_device``): the first step's loss and grad norm within 1e-5
+    and 1e-4 relative in float32 (TF32 off), within g1's bf16 bound in bf16;
+    with experts, every expert choice that differs from the one-device
+    step's at a router probability gap below H8_GAP in float32.  Each rank's
+    peak memory beside the one-device step's; the ms, gloo on one card, are
+    not a speed."""
+    arch, layers, B, S, shape, _ = TRAIN_PHASES[phase]
     out = dict(arch=arch, layers=layers, batch=[B, S], mesh=list(shape), card=card,
-               backend=ranks[0]["backend"], world=ranks[0]["world"])
+               grads_only=phase in GRADS_ONLY, cut=PHASE_CUTS.get(phase, {}))
     for dtype, (b_loss, b_gn) in H5_BOUNDS.items():
         want = one[dtype]["steps"][0]
         errs = [dict(loss=abs(r[dtype]["steps"][0]["loss"] - want["loss"]) / abs(want["loss"]),
                      grad_norm=abs(r[dtype]["steps"][0]["grad_norm"] - want["grad_norm"])
                      / abs(want["grad_norm"])) for r in ranks]
+        gaps = routing_gaps(one[dtype]["routes"], [r[dtype]["routes"] for r in ranks],
+                            configs.get(arch).top_k) if one[dtype]["routes"] else None
         out[dtype] = dict(
-            rel_err=errs, bounds=dict(loss=b_loss, grad_norm=b_gn),
+            rel_err=errs, bounds=dict(loss=b_loss, grad_norm=b_gn), routing=gaps,
             losses=[[s["loss"] for s in r[dtype]["steps"]] for r in ranks],
             one_device_losses=[s["loss"] for s in one[dtype]["steps"]],
             grad_norms=[[s["grad_norm"] for s in r[dtype]["steps"]] for r in ranks],
@@ -2375,22 +2612,31 @@ def tensor_parallel_phase(device, phase: str = "h5") -> dict:
             one_device_max_memory_allocated=one[dtype]["max_memory_allocated"],
             gloo_on_one_card_step_ms=[[s["ms"] for s in r[dtype]["steps"]] for r in ranks],
             one_device_step_ms=[s["ms"] for s in one[dtype]["steps"]], plan=ranks[0][dtype]["plan"])
-        check(all(math.isfinite(x) for r in ranks for s in r[dtype]["steps"]
-                  for x in (s["loss"], s["grad_norm"])), f"{phase} {dtype}: a step is not finite")
-        check(all(e["loss"] <= b_loss and e["grad_norm"] <= b_gn for e in errs),
-              f"{phase} {dtype}: the tensor-parallel step is off the one-device step by {errs} "
-              f"(bounds {b_loss}, {b_gn})")
         o = out[dtype]
-        log(f"phase {phase}: {arch} at its published widths cut to {layers} layers, (B, S) = "
-            f"({B}, {S}), {dtype}, the tensor-parallel step (plan {o['plan']}) on a (data, "
-            f"model) = {shape} mesh of {out['world']} {out['backend']} ranks on the card: step 1 "
+        routing = "" if gaps is None else (
+            f"; routing: {gaps['differing']} of {gaps['tokens']} tokens choose other experts, the "
+            f"largest one-device gap among them {gaps['max_differing_gap']:.3e} (bound {H8_GAP} in "
+            f"float32), the least gap of any token {gaps['min_gap']:.3e}")
+        log(f"phase {phase}: {arch} at its published widths cut to {layers} layers"
+            f"{' ' + str(out['cut']) if out['cut'] else ''}, (B, S) = ({B}, {S}), {dtype}, the "
+            f"{'loss and gradients' if out['grads_only'] else 'tensor-parallel step'} (plan "
+            f"{o['plan']}) on a (data, model) = {shape} mesh of 4 gloo ranks on the card: step 1 "
             f"off the one-device step by loss {max(e['loss'] for e in errs):.3e}, grad norm "
-            f"{max(e['grad_norm'] for e in errs):.3e} (bounds {b_loss}, {b_gn}); losses "
+            f"{max(e['grad_norm'] for e in errs):.3e} (bounds {b_loss}, {b_gn}){routing}; losses "
             f"{o['losses'][0]} (one device {o['one_device_losses']}); peak by rank "
             f"{o['rank_max_memory_allocated']} bytes (one device "
             f"{o['one_device_max_memory_allocated']}); step ms by rank, gloo on one card, not "
             f"a speed: {[[round(t, 1) for t in r] for r in o['gloo_on_one_card_step_ms']]} "
             f"(one device {[round(t, 1) for t in o['one_device_step_ms']]}); card {card}")
+        check(all(math.isfinite(x) for r in ranks for s in r[dtype]["steps"]
+                  for x in (s["loss"], s["grad_norm"])), f"{phase} {dtype}: a step is not finite")
+        check(all(e["loss"] <= b_loss and e["grad_norm"] <= b_gn for e in errs),
+              f"{phase} {dtype}: the tensor-parallel step is off the one-device step by {errs} "
+              f"(bounds {b_loss}, {b_gn})")
+        if gaps is not None and dtype == "float32":
+            check(gaps["max_differing_gap"] < H8_GAP,
+                  f"{phase}: an expert choice differs at a gap of "
+                  f"{gaps['max_differing_gap']:.3e}: {gaps}")
     return out
 
 
@@ -2434,7 +2680,7 @@ def zero3_phase(device) -> dict:
     """Phase h6: the ZeRO-3 ``ShardedTrainStep`` that every family without
     a plan runs on a mesh, on a (data 1, model 1) mesh of this process's
     one-rank NCCL world (h1's): each of ``H6_ARCHS`` (whisper-tiny as
-    published, the hybrid's smoke config) from the same seeded weights and
+    published) from the same seeded weights and
     batches as the one-device step on the card, every loss within 1e-5
     relative and grad norm within 1e-4 (one rank computes what the
     one-device step computes)."""
@@ -2464,53 +2710,65 @@ def zero3_phase(device) -> dict:
 
 def h7_config(phase: str = "h7"):
     arch, layers = SERVE_PHASES[phase][:2]
-    return dataclasses.replace(configs.get(arch), n_layers=layers, compute_dtype="float32")
+    return dataclasses.replace(configs.get(arch), n_layers=layers, compute_dtype="float32",
+                               **PHASE_CUTS.get(phase, {}))
 
 
-def h7_prompts(cfg, device, phase: str = "h7") -> torch.Tensor:
-    _, _, B, P, _, _, seed = SERVE_PHASES[phase]
+def h7_prompts(cfg, device, phase: str = "h7") -> tuple[dict, torch.Tensor | None]:
+    """A serving phase's prefill inputs and its decode steps' (3, B, new)
+    M-RoPE positions (None without M-RoPE): seeded tokens, or a VLM's embeds
+    seeded normal on the card and the grid's positions, the decode's
+    continuing it."""
+    _, _, B, P, _, new, seed = SERVE_PHASES[phase]
+    if cfg.family == "vlm":
+        g = torch.Generator(device).manual_seed(seed)
+        pos = grid_positions(B, P + new, device)
+        return {"embeds": torch.randn((B, P, cfg.d_model), generator=g, device=device),
+                "positions": pos[:, :, :P]}, pos[:, :, P:]
     rng = np.random.default_rng(seed)
-    return torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)), dtype=torch.int32,
-                           device=device)
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)), dtype=torch.int32,
+                                      device=device)}, None
 
 
 def h7_run(prefill, decode, seed, params, prompts, sync, new: int = H7_NEW) -> dict:
-    """Prefill ``prompts``, move the cache into the decode cache
-    (``seed``), then ``new`` greedy steps: each step's logits (on the
-    host) and tokens, the prefill's ms and each decode step's, each timed
-    between ``sync`` and a synchronize."""
+    """Prefill ``prompts`` (``h7_prompts``' pair: the inputs and the decode
+    positions), move the cache into the decode cache (``seed``), then
+    ``new`` greedy steps: each step's logits (on the host) and tokens, the
+    prefill's ms and each decode step's, each timed between ``sync`` and a
+    synchronize."""
+    inputs, positions = prompts
     sync()
     t = time.perf_counter()
-    pcache, logits = prefill(params, {"tokens": prompts})
+    pcache, logits = prefill(params, inputs)
     cache = seed(pcache)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t) * 1e3
     del pcache
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     steps, decode_ms = [(logits.cpu(), tok.cpu())], []
-    P = prompts.shape[1]
+    P = next(iter(inputs.values())).shape[1]
     for i in range(new):
+        step_in = {"tokens": tok[:, None], "pos": P + i}
+        if positions is not None:
+            step_in["positions"] = positions[:, :, i:i + 1]
         sync()
         t = time.perf_counter()
-        tok, logits, cache = decode(params, cache, {"tokens": tok[:, None], "pos": P + i})
+        tok, logits, cache = decode(params, cache, step_in)
         torch.cuda.synchronize()
         decode_ms.append((time.perf_counter() - t) * 1e3)
         steps.append((logits.cpu(), tok.cpu()))
     return dict(steps=steps, prefill_ms=prefill_ms, decode_ms=decode_ms)
 
 
-def serve_rank(rank, world, init, tmp, device, phase: str = "h7"):
-    """One rank of phase h7 (or h11) on a gloo group sharing the card: per
-    mesh and profile, the weights made on the card from the seed and laid
-    out on the mesh, the sharded prefill, ``seed_cache`` and the decode
-    steps, and the rank's peak memory over them."""
+def serve_work(device, phase: str = "h7") -> dict:
+    """One rank of phase h7 (h11, h13, h15) in the group: per mesh and
+    profile, the weights made on the card from the seed and laid out on the
+    mesh, the sharded prefill, ``seed_cache`` and the decode steps, and the
+    rank's peak memory over them."""
     _, _, B, _, cache_len, new, seed = SERVE_PHASES[phase]
-    torch.cuda.set_device(0)
-    tf32_off()
-    init_group("gloo", rank, world, init)
     model = build(h7_config(phase))
     prompts = h7_prompts(model.cfg, device, phase)
-    out = dict(backend=dist.get_backend(), world=dist.get_world_size())
+    out = {}
     for shape, profile in H7_MESHES:
         with sharding_profile(profile):
             mesh = make_mesh(shape, ("data", "model"), device_type=device)
@@ -2531,12 +2789,12 @@ def serve_rank(rank, world, init, tmp, device, phase: str = "h7"):
                                           cache_seq=tp.cache_seq_axes,
                                           ssm_heads=tp.ssm_head_axes,
                                           ssm_columns=tp.ssm_in_axes,
-                                          cache_conv=tp.cache_conv_axes))
+                                          cache_conv=tp.cache_conv_axes,
+                                          experts=tp.expert_axes))
             del params, fwd, dec
             gc.collect()
             torch.cuda.empty_cache()
-    torch.save(out, f"{tmp}/rank{rank}.pt")
-    dist.destroy_process_group()
+    return out
 
 
 def one_device_cache(model, pcache, device, phase: str = "h7"):
@@ -2554,29 +2812,12 @@ def one_device_cache(model, pcache, device, phase: str = "h7"):
     return cache
 
 
-def sharded_serve_phase(device, phase: str = "h7") -> dict:
-    """Phase h7: the dense family's sharded ``PrefillStep`` and
-    ``DecodeStep`` at granite-3-8b's published widths cut to H5_LAYERS
-    layers, float32 (TF32 off), on 4 gloo ranks spawned on the card, on a
-    (data 1, model 4) mesh under the baseline profile (the sequence, the
-    heads and the 8 kv heads on model; the cache's sequence on model) and a
-    (2, 2) mesh under serve (heads, kv heads and the MLP on (model, data), the
-    stream whole, the cache's rows on data and its sequence on model): (B,
-    prompt) = (H7_B, H7_P) prefilled, moved into a cache of H7_CACHE
-    positions by ``seed_cache``, then H7_NEW greedy tokens.  Against the
-    one-device steps on the card from the same seeded weights and prompts:
-    every step's logits within H7_RTOL relative on every rank, every token
-    identical.  Each rank's peak beside the one-device run's; the steps' ms,
-    gloo on one card, are not a speed.  Phase h11 (``phase="h11"``): the
-    SSM family's sharded steps at mamba2-2.7b's published widths cut to
-    H10_LAYERS layers, a (H11_B, H11_P) prompt (15 chunks of 64 and a
-    ragged one) and H11_NEW greedy tokens on the same meshes (the heads and
-    the cache's state heads on model, in_proj's columns on model, under
-    serve the conv weights, norm and out_proj on (model, data), the cache's
-    rows on data), the one-device steps run first and freed."""
-    arch, layers, B, P, cache_len, new, seed = SERVE_PHASES[phase]
+def serve_one_device(device, phase: str = "h7") -> dict:
+    """A serving phase's one-device reference on the card, run and freed
+    before the group starts: the prefill, the seeded decode cache and the
+    greedy steps from the same seeded weights and prompts, and the peak."""
+    _, _, _, _, _, new, seed = SERVE_PHASES[phase]
     tf32_off()
-    card = smi("name,power.limit")
     model = build(h7_config(phase))
     params = model.init(torch.Generator(device).manual_seed(seed), device)
     prompts = h7_prompts(model.cfg, device, phase)
@@ -2586,33 +2827,71 @@ def sharded_serve_phase(device, phase: str = "h7") -> dict:
                  lambda c: one_device_cache(model, c, device, phase), params, prompts,
                  torch.cuda.synchronize, new)
     one["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    del params
+    inputs = prompts[0]
+    step = PrefillStep(model)
+    rows = torch.cat([step(params, {k: v[:, b:b + 1] if k == "positions" else v[b:b + 1]
+                                    for k, v in inputs.items()})[1].cpu()
+                      for b in range(next(iter(inputs.values())).shape[0])])
+    one["spread"] = rel_err(rows, one["steps"][0][0])
+    del params, prompts, inputs, rows
     gc.collect()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_ranks(serve_rank, 4, tmp, device, phase, timeout=600.0)
-    out = dict(arch=arch, layers=layers, batch=B, prompt=P, cache=cache_len,
-               new=new, card=card, backend=ranks[0]["backend"], world=ranks[0]["world"],
+    return one
+
+
+def check_serve(phase: str, one: dict, ranks: list, card: str) -> dict:
+    """Phase h7: the dense family's sharded ``PrefillStep`` and
+    ``DecodeStep`` at granite-3-8b's published widths cut to H5_LAYERS
+    layers, float32 (TF32 off), on the group's 4 gloo ranks on the card, on
+    a (data 1, model 4) mesh under the baseline profile (the sequence, the
+    heads and the 8 kv heads on model; the cache's sequence on model) and a
+    (2, 2) mesh under serve (heads, kv heads and the MLP on (model, data),
+    the stream whole, the cache's rows on data and its sequence on model):
+    (B, prompt) = (H7_B, H7_P) prefilled, moved into a cache of H7_CACHE
+    positions by ``seed_cache``, then H7_NEW greedy tokens.  Against the
+    one-device steps on the card from the same seeded weights and prompts
+    (``serve_one_device``): every step's logits within H7_RTOL relative on
+    every rank, every token identical.  Each rank's peak beside the
+    one-device run's; the steps' ms, gloo on one card, are not a speed.
+    h11: the SSM family at mamba2-2.7b's widths cut to H10_LAYERS layers, a
+    (H11_B, H11_P) prompt (15 chunks of 64 and a ragged one) on the same
+    meshes (the heads and the cache's state heads on model, in_proj's
+    columns on model, under serve the conv weights, norm and out_proj on
+    (model, data), the cache's rows on data).  h13: the hybrid at h12's cut,
+    a (H13_B, H13_P) prompt into H13_P + H13_NEW positions (its attention
+    and SSM caches in one decode cache), its logits held within H7_RTOL
+    beyond the one-device prefill's spread (``SPREAD_BOUND``), which every
+    phase prints.  h15: the VLM at h14's cut from
+    (H15_B, H15_P) seeded embeds and grid positions, decoding with (3, B, 1)
+    positions."""
+    arch, layers, B, P, cache_len, new, _ = SERVE_PHASES[phase]
+    bound = H7_RTOL + one["spread"] if phase in SPREAD_BOUND else H7_RTOL
+    out = dict(arch=arch, layers=layers, batch=B, prompt=P, cache=cache_len, new=new, card=card,
+               cut=PHASE_CUTS.get(phase, {}), one_device_spread=one["spread"], bound=bound,
                one_device=dict(prefill_ms=one["prefill_ms"], decode_ms=one["decode_ms"],
                                max_memory_allocated=one["max_memory_allocated"]))
     want_tokens = [tok for _, tok in one["steps"]]
     for shape, profile in H7_MESHES:
+        by_step = [max(rel_err(r[profile]["steps"][i][0], w) for r in ranks)
+                   for i, (w, _) in enumerate(one["steps"])]
         errs = [max(rel_err(lg, w) for (lg, _), (w, _) in zip(r[profile]["steps"], one["steps"]))
                 for r in ranks]
         same = [all(tok.equal(w) for (_, tok), w in zip(r[profile]["steps"], want_tokens))
                 for r in ranks]
         row = dict(mesh=list(shape), plan=ranks[0][profile]["plan"], rel_err=errs,
-                   tokens_identical=same, bound=H7_RTOL,
+                   rel_err_by_step=by_step, tokens_identical=same, bound=bound,
                    rank_max_memory_allocated=[r[profile]["max_memory_allocated"] for r in ranks],
                    gloo_on_one_card_prefill_ms=[r[profile]["prefill_ms"] for r in ranks],
                    gloo_on_one_card_decode_ms=[r[profile]["decode_ms"] for r in ranks])
         out[profile] = row
-        log(f"phase {phase}: {arch} at its published widths cut to {layers} layers, float32, "
-            f"prefill ({B}, {P}) into a {cache_len}-position cache and {new} greedy "
-            f"tokens, sharded on a (data, model) = {shape} mesh under {profile} (plan "
-            f"{row['plan']}) of {out['world']} {out['backend']} ranks on the card: logits off "
-            f"the one-device steps by {max(errs):.3e} at most (bound {H7_RTOL}), tokens "
-            f"identical on every rank: {all(same)}; peak by rank "
+        log(f"phase {phase}: {arch} at its published widths cut to {layers} layers"
+            f"{' ' + str(out['cut']) if out['cut'] else ''}, float32, prefill ({B}, {P}) into a "
+            f"{cache_len}-position cache and {new} greedy tokens, sharded on a (data, model) = "
+            f"{shape} mesh under {profile} (plan {row['plan']}) of 4 gloo ranks on the card: "
+            f"logits off the one-device steps by {max(errs):.3e} at most (bound {bound:.3e}; "
+            f"prefill {by_step[0]:.3e}, decode steps {[float(f'{e:.3e}') for e in by_step[1:]]}), "
+            f"tokens identical on every rank: {all(same)}; the one-device prefill's own "
+            f"spread (whole batch against row by row) {one['spread']:.3e}; peak by rank "
             f"{row['rank_max_memory_allocated']} bytes (one device "
             f"{one['max_memory_allocated']}); ms by rank, gloo on one card, not a speed: "
             f"prefill {[round(t, 1) for t in row['gloo_on_one_card_prefill_ms']]}, decode "
@@ -2621,8 +2900,9 @@ def sharded_serve_phase(device, phase: str = "h7") -> dict:
             f"{sum(one['decode_ms']) / len(one['decode_ms']):.2f}); card {card}")
         check(all(math.isfinite(float(lg.abs().max())) for r in ranks
                   for lg, _ in r[profile]["steps"]), f"{phase} {profile}: logits not finite")
-        check(all(e <= H7_RTOL for e in errs),
-              f"{phase} {profile}: the sharded steps are off the one-device steps by {errs}")
+        check(all(e <= bound for e in errs),
+              f"{phase} {profile}: the sharded steps are off the one-device steps by {errs} "
+              f"(bound {bound})")
         check(all(same), f"{phase} {profile}: the sharded steps' tokens differ: {same}")
     return out
 
@@ -2707,9 +2987,9 @@ def h8_one_device(device) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with RouteRecorder(H8_LAYERS) as routes:
-        run = h9_run(PrefillStep(model), DecodeStep(model),
-                     lambda c: ring_cache(model, c, device), params, prompts,
-                     torch.cuda.synchronize)
+        run = h7_run(PrefillStep(model), DecodeStep(model),
+                     lambda c: ring_cache(model, c, device), params, ({"tokens": prompts}, None),
+                     torch.cuda.synchronize, H9_NEW)
     out["serve"] = dict(run, routes=routes.probs,
                         max_memory_allocated=torch.cuda.max_memory_allocated())
     del params
@@ -2722,28 +3002,6 @@ def h9_prompts(cfg, device) -> torch.Tensor:
     rng = np.random.default_rng(H9_SEED)
     return torch.as_tensor(rng.integers(0, cfg.vocab, (H9_B, H9_P)), dtype=torch.int32,
                            device=device)
-
-
-def h9_run(prefill, decode, seed, params, prompts, sync) -> dict:
-    """h7's run at h9's prompt: the prefill, the seeded ring and H9_NEW
-    greedy steps (logits on the host, tokens, ms)."""
-    sync()
-    t = time.perf_counter()
-    pcache, logits = prefill(params, {"tokens": prompts})
-    cache = seed(pcache)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t) * 1e3
-    del pcache
-    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    steps, decode_ms = [(logits.cpu(), tok.cpu())], []
-    for i in range(H9_NEW):
-        sync()
-        t = time.perf_counter()
-        tok, logits, cache = decode(params, cache, {"tokens": tok[:, None], "pos": H9_P + i})
-        torch.cuda.synchronize()
-        decode_ms.append((time.perf_counter() - t) * 1e3)
-        steps.append((logits.cpu(), tok.cpu()))
-    return dict(steps=steps, prefill_ms=prefill_ms, decode_ms=decode_ms)
 
 
 def ring_cache(model, pcache, device):
@@ -2759,15 +3017,12 @@ def ring_cache(model, pcache, device):
     return cache
 
 
-def moe_rank(rank, world, init, tmp, device):
-    """One rank of phases h8 and h9 on a gloo group sharing the card: per
-    mesh and profile, h8's ``H8_STEPS`` sharded train steps in each compute
-    type (the first forward's routing, the peak), then h9's sharded prefill,
-    ``seed_cache`` into the ring and decode steps in float32."""
-    torch.cuda.set_device(0)
-    tf32_off()
-    init_group("gloo", rank, world, init)
-    out = dict(backend=dist.get_backend(), world=dist.get_world_size())
+def moe_work(device) -> dict:
+    """One rank of phases h8 and h9 in the group: per mesh and profile, h8's
+    ``H8_STEPS`` sharded train steps in each compute type (the first
+    forward's routing, the peak), then h9's sharded prefill, ``seed_cache``
+    into the ring and decode steps in float32."""
+    out = {}
     for shape, axes, profile in H8_MESHES:
         with sharding_profile(profile):
             mesh = make_mesh(shape, axes, device_type=device)
@@ -2806,22 +3061,22 @@ def moe_rank(rank, world, init, tmp, device):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             with RouteRecorder(H8_LAYERS) as routes:
-                run = h9_run(fwd, dec, lambda c: seed_cache(c, dsh["cache"], H9_P + H9_NEW,
+                run = h7_run(fwd, dec, lambda c: seed_cache(c, dsh["cache"], H9_P + H9_NEW,
                                                             model.cfg.window),
-                             params, h9_prompts(model.cfg, device), dist.barrier)
+                             params, ({"tokens": h9_prompts(model.cfg, device)}, None),
+                             dist.barrier, H9_NEW)
             out[profile, "serve"] = dict(run, routes=routes.probs,
                                          max_memory_allocated=torch.cuda.max_memory_allocated())
             del params, fwd, dec
             gc.collect()
             torch.cuda.empty_cache()
-    torch.save(out, f"{tmp}/rank{rank}.pt")
-    dist.destroy_process_group()
+    return out
 
 
-def moe_phase(device) -> tuple[dict, dict]:
+def check_moe(one: dict, ranks: list, card: str) -> tuple[dict, dict]:
     """Phases h8 and h9: the MoE family's sharded train step, prefill and
     decode at mixtral-8x22b's published widths cut to H8_LAYERS layer(s),
-    on 4 gloo ranks spawned on the card under each of H8_MESHES (the
+    on the group's 4 gloo ranks on the card under each of H8_MESHES (the
     sequence, the heads, the vocabulary and the experts split; under
     moe_ep the experts' hidden columns on tp), against the one-device steps
     on the card from the same seeded weights and inputs: h8's first step's
@@ -2831,15 +3086,10 @@ def moe_phase(device) -> tuple[dict, dict]:
     (bf16's own rounding of the stream, 2^-8 relative, moves choices at far
     larger gaps: reported, not held); h9's logits within H7_RTOL on every
     rank and every token identical.  Each rank's peak beside the one-device
-    run's; ms on gloo on one card are not a speed."""
-    tf32_off()
-    card = smi("name,power.limit")
-    one = h8_one_device(device)
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_ranks(moe_rank, 4, tmp, device, timeout=900.0)
+    run's; ms on gloo on one card are not a speed.  ``one`` is
+    ``h8_one_device``'s, run before the group starts."""
     K = configs.get(H8_ARCH).top_k
-    h8 = dict(arch=H8_ARCH, layers=H8_LAYERS, batch=[H8_B, H8_S], card=card,
-              backend=ranks[0]["backend"], world=ranks[0]["world"])
+    h8 = dict(arch=H8_ARCH, layers=H8_LAYERS, batch=[H8_B, H8_S], card=card)
     for shape, _, profile in H8_MESHES:
         for dtype, (b_loss, b_gn) in H5_BOUNDS.items():
             want = one[dtype]["steps"][0]
@@ -2863,7 +3113,7 @@ def moe_phase(device) -> tuple[dict, dict]:
             h8[f"{profile}/{dtype}"] = row
             log(f"phase h8: {H8_ARCH} at its published widths cut to {H8_LAYERS} layer(s), "
                 f"(B, S) = ({H8_B}, {H8_S}), {dtype}, the sharded train step on a {shape} mesh "
-                f"under {profile} (plan {row['plan']}) of {h8['world']} {h8['backend']} ranks "
+                f"under {profile} (plan {row['plan']}) of 4 gloo ranks "
                 f"on the card: step 1 off the one-device step by loss "
                 f"{max(e['loss'] for e in errs):.3e}, grad norm "
                 f"{max(e['grad_norm'] for e in errs):.3e} (bounds {b_loss}, {b_gn}); routing: "
@@ -2928,30 +3178,101 @@ def moe_phase(device) -> tuple[dict, dict]:
     return h8, h9
 
 
+def group_work(name: str, device) -> dict:
+    """One rank's share of a phase of ``GROUP_PHASES``."""
+    if name == "h2":
+        return pipeline_work(device, h2_config())
+    if name == "h8":
+        return moe_work(device)
+    if name in TRAIN_PHASES:
+        return tensor_parallel_work(device, name)
+    return serve_work(device, name)
+
+
+def group_rank(rank, world, init, tmp, device, phases):
+    """One rank of the group on the card: it joins once (its spawn-to-first-
+    collective seconds kept), then runs each of ``phases`` in turn, timed
+    between barriers, its memory freed between them."""
+    out = dict(startup_s=joined(rank, world, init, device), backend=dist.get_backend(),
+               world=dist.get_world_size(), seconds={})
+    for name in phases:
+        t = time.perf_counter()
+        out[name] = group_work(name, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        out["seconds"][name] = time.perf_counter() - t
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def group_phases(device) -> dict:
+    """Phases h2, h5, h7-h15 on one group of GROUP_WORLD gloo ranks spawned
+    on the card: the one-device references first, each run and freed in
+    this process (so the ranks have the card), then the ranks run every
+    phase in turn; each phase is checked against its reference after."""
+    card = smi("name,power.limit")
+    refs, ref_s = {}, {}
+    for name in GROUP_PHASES:
+        t = time.perf_counter()
+        if name == "h2":
+            refs[name] = pipeline_reference(device)
+        elif name == "h8":
+            tf32_off()
+            refs[name] = h8_one_device(device)
+        elif name in TRAIN_PHASES:
+            refs[name] = train_one_device(device, name)
+        else:
+            refs[name] = serve_one_device(device, name)
+        ref_s[name] = time.perf_counter() - t
+    log(f"phase h: the one-device references of {list(GROUP_PHASES)} in "
+        f"{sum(ref_s.values()):.1f} s: {({k: round(v, 1) for k, v in ref_s.items()})}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(group_rank, GROUP_WORLD, tmp, device, GROUP_PHASES,
+                            timeout=GROUP_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    seconds = {k: max(r["seconds"][k] for r in ranks) for k in GROUP_PHASES}
+    startup = [r["startup_s"] for r in ranks]
+    log(f"phase h: one group of {GROUP_WORLD} {ranks[0]['backend']} ranks on the card ran "
+        f"{list(GROUP_PHASES)} in {wall:.1f} s: spawn to first collective by rank "
+        f"{[round(x, 2) for x in startup]} s, each phase's seconds "
+        f"{({k: round(v, 1) for k, v in seconds.items()})}")
+    out = {}
+    for name in GROUP_PHASES:
+        got = [r[name] for r in ranks]
+        if name == "h2":
+            out["h2"] = pipeline_check(refs[name], got)
+        elif name == "h8":
+            out["h8"], out["h9"] = check_moe(refs[name], got, card)
+        elif name in TRAIN_PHASES:
+            out[name] = check_train(name, refs[name], got, card)
+        else:
+            out[name] = check_serve(name, refs[name], got, card)
+    out["group"] = dict(world=GROUP_WORLD, backend=ranks[0]["backend"], wall_s=wall,
+                        startup_s=startup, phase_s=seconds, one_device_s=ref_s)
+    return out
+
+
 def distributed_path(device, g2: dict) -> dict:
     """Phase h: the distribution substrate on the card (h1 in this
     process's one-rank NCCL world, which h4 reuses through
-    ``make_test_mesh`` and h6 through a mesh of its own; h2, h3, h5 and
-    h7-h11 in spawned gloo worlds)."""
+    ``make_test_mesh`` and h6 through a mesh of its own; h3 in a spawned
+    gloo world of 2; h2, h5 and h7-h15 in one spawned gloo group of 4)."""
     init_group("nccl")
     try:
         h1 = meshed_full_width(device, g2)
-        h2 = pipeline_phase(device)
         h3 = compressed_psum_phase(device)
         h4 = trainer_loop(device, "h4", make_test_mesh)
         h4.update(backend=dist.get_backend(), world=dist.get_world_size())
         log(f"phase h4: the meshed Trainer ran on backend {h4['backend']}, world "
             f"{h4['world']}, mesh {h4['mesh']}")
-        h5 = tensor_parallel_phase(device)
         h6 = zero3_phase(device)
-        h7 = sharded_serve_phase(device)
-        h8, h9 = moe_phase(device)
-        h10 = tensor_parallel_phase(device, "h10")
-        h11 = sharded_serve_phase(device, "h11")
+        group = group_phases(device)
     finally:
         dist.destroy_process_group()
-    return dict(h1=h1, h2=h2, h3=h3, h4=h4, h5=h5, h6=h6, h7=h7, h8=h8, h9=h9, h10=h10,
-                h11=h11)
+    return dict(h1=h1, h3=h3, h4=h4, h6=h6, **group)
 
 
 def start_dryrun(out: str, cell: str, layers: int = 0, arch: str = I3_ARCH,
@@ -2997,17 +3318,6 @@ def finish_dryrun(proc: subprocess.Popen, out: str, cell: str, what: str,
     return rec
 
 
-def baseline_parts(shape: dict, cfg) -> dict:
-    """The ranks each logical axis of the dense family's sharded steps
-    splits over on the (data, model) mesh under the baseline profile: the
-    batch and the cache's rows on data; the sequence, the heads, the MLP and
-    the cache's sequence on model; the vocabulary on model where it divides
-    (granite's does not)."""
-    n = shape["model"]
-    return dict(batch=shape["data"], seq=n, qkv=n, ffn=n, cache_batch=shape["data"],
-                cache_seq=n, vocab=n if cfg.vocab % n == 0 else 1)
-
-
 def check_i4(rec: dict, cell_name: str, layers: int, card_bytes: int, card: str) -> dict:
     """Phase i4's bounds on one serving cell's record, beside the
     reference's counts of the whole cell (a depth cut scales the collective
@@ -3022,7 +3332,7 @@ def check_i4(rec: dict, cell_name: str, layers: int, card_bytes: int, card: str)
     cell = configs.SHAPES[cell_name]
     shape = rec["mesh_shape"]
     hand_fn = hand_decode_flops if cell.kind == "decode" else hand_prefill_flops
-    hand = hand_fn(cfg, cell.global_batch, cell.seq_len, baseline_parts(shape, cfg))
+    hand = hand_fn(cfg, cell.global_batch, cell.seq_len, planned_parts(cfg, shape, cell))
     mem, coll, flops = rec["memory_analysis"], rec["collectives"], rec["cost_analysis"]["flops"]
     ref = I4_REFERENCE[cell_name]
     total = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] + \
@@ -3066,30 +3376,6 @@ def check_i4(rec: dict, cell_name: str, layers: int, card_bytes: int, card: str)
     return out
 
 
-def moe_parts(cfg, mesh: str, shape: dict, kind: str) -> dict:
-    """The ranks each logical axis of the MoE family's sharded steps splits
-    over on a production mesh: on (data, model) under the baseline profile
-    the batch and the cache's rows on data, the sequence, heads, vocabulary
-    and the cache's sequence on model, the experts on model where they
-    divide it (dbrx's 16), else their hidden columns (mixtral's 8); on
-    (data, expert, tp) under moe_ep those on (expert, tp), the experts on
-    expert and their hidden columns on tp.  Where the sequence splits, the
-    tokens cross the experts' axes (1 below); in decode the experts and
-    their columns split among the ranks holding the same tokens."""
-    if mesh == "moe":
-        n = shape["expert"] * shape["tp"]
-        experts, expert_ffn = shape["expert"], shape["tp"]
-    else:
-        n = shape["model"]
-        experts = n if cfg.n_experts % n == 0 else 1
-        expert_ffn = 1 if experts > 1 else n
-    parts = dict(batch=shape["data"], seq=n, qkv=n, ffn=1, vocab=n if cfg.vocab % n == 0 else 1,
-                 cache_batch=shape["data"], cache_seq=n)
-    if kind == "decode":
-        parts.update(seq=1, experts=experts, expert_ffn=expert_ffn)
-    return parts
-
-
 def start_i5(out: str) -> dict:
     """Phase i5's traces, each in a process of its own at low priority."""
     return {(arch, cell, mesh): start_dryrun(out, cell, layers, arch, mesh, profile, nice=10)
@@ -3102,7 +3388,7 @@ def check_i5(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
     collective bytes a device at most ``I5_COLLECTIVE_OVER_REFERENCE`` x the
     reference's (both scaled by the share of the layers where the depth is
     cut), product FLOPs equal to the hand count (``hand_*_flops`` with
-    ``moe_parts``); the temp printed beside the reference's."""
+    ``planned_parts``); the temp printed beside the reference's."""
     rows = {}
     for arch, cell_name, mesh, profile, layers in I5_CELLS:
         what = f"i5 {arch} {cell_name} {mesh}"
@@ -3115,8 +3401,9 @@ def check_i5(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
         cell = configs.SHAPES[cell_name]
         hand_fn = dict(train=hand_train_flops, prefill=hand_prefill_flops,
                        decode=hand_decode_flops)[cell.kind]
-        hand = hand_fn(cfg, cell.global_batch, cell.seq_len,
-                       moe_parts(cfg, mesh, rec["mesh_shape"], cell.kind))
+        with sharding_profile(profile):
+            hand = hand_fn(cfg, cell.global_batch, cell.seq_len,
+                           planned_parts(cfg, rec["mesh_shape"], cell))
         mem, coll, flops = rec["memory_analysis"], rec["collectives"], rec["cost_analysis"]["flops"]
         ref = I5_REFERENCE[arch, cell_name, mesh]
         total = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] + \
@@ -3158,21 +3445,6 @@ def check_i5(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
     return rows
 
 
-def ssm_parts(cfg, shape: dict, cell) -> dict:
-    """The ranks each logical axis of the SSM family's sharded steps splits
-    over on the (data, model) mesh under the baseline profile: the batch and
-    the cache's rows on data where the batch divides it (long_500k's one
-    row does not); the sequence on model (one token in decode);
-    ``in_proj``'s columns and the heads on model (10576 and 80 divide 16);
-    the vocabulary on model where it divides (50280 does not)."""
-    n, rows = shape["model"], shape["data"] if cell.global_batch % shape["data"] == 0 else 1
-    di, H, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
-    return dict(batch=rows, cache_batch=rows, seq=1 if cell.kind == "decode" else n,
-                vocab=n if cfg.vocab % n == 0 else 1,
-                ssm_inner=n if (2 * di + 2 * N + H) % n == 0 else 1,
-                ssm_heads=n if H % n == 0 else 1)
-
-
 def start_i6(out: str) -> dict:
     """Phase i6's traces, each in a process of its own at low priority."""
     return {(I6_ARCH, cell, I6_MESH): start_dryrun(out, cell, 0, I6_ARCH, I6_MESH, nice=10)
@@ -3185,7 +3457,7 @@ def check_i6(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
     device at most ``I6_COLLECTIVE_OVER_REFERENCE`` x the reference's
     (long_500k: below ``I6_LONG_OVER_BEFORE`` of the gathering step's,
     printed beside the reference's), product FLOPs equal to the hand count
-    (``hand_*_flops`` with ``ssm_parts``), train_4k's at most
+    (``hand_*_flops`` with ``planned_parts``), train_4k's at most
     1 / ``I6_TRAIN_FLOPS_UNDER_BEFORE`` of the ZeRO-3 step's; the temp
     printed beside the reference's."""
     rows = {}
@@ -3198,7 +3470,7 @@ def check_i6(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
         hand_fn = dict(train=hand_train_flops, prefill=hand_prefill_flops,
                        decode=hand_decode_flops)[cell.kind]
         hand = hand_fn(cfg, cell.global_batch, cell.seq_len,
-                       ssm_parts(cfg, rec["mesh_shape"], cell))
+                       planned_parts(cfg, rec["mesh_shape"], cell))
         mem, coll, flops = rec["memory_analysis"], rec["collectives"], rec["cost_analysis"]["flops"]
         ref, before = I6_REFERENCE[cell_name], I6_BEFORE[cell_name]
         total = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] + \
@@ -3246,6 +3518,123 @@ def check_i6(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
     return rows
 
 
+def planned_parts(cfg, shape: dict, cell) -> dict:
+    """The ranks each logical axis of a planned step splits over on a
+    production mesh under the active profile, from the resolved specs (i3
+    to i7's hand FLOP counts): the stream's rows and sequence (one
+    token in decode), the attention's heads, the MLP's and the
+    vocabulary's columns; the experts and their hidden columns (where the
+    experts' axes split the sequence the tokens cross them instead: 1);
+    ``in_proj``'s columns, the SSM heads (the decode cache's ``ssm`` leaf);
+    the cache's rows and sequence."""
+    def axes(entry) -> tuple:
+        return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+
+    def n(entry) -> int:
+        return math.prod(shape[ax] for ax in axes(entry))
+
+    def spec(p):
+        return resolve_spec(tuple(p.shape), p.logical, shape)
+    model = build(cfg)
+    B, S = cell.global_batch, 1 if cell.kind == "decode" else cell.seq_len
+    stream = resolve_spec((B, S), ("batch", "seq"), shape)
+    specs = model.specs()
+    layer = {k: v for b in specs["blocks"].values() for k, v in b.items()}
+    parts = dict(batch=n(stream[0]), seq=n(stream[1]), vocab=n(spec(specs["embed"])[0]))
+    if "attn" in layer:
+        parts["qkv"] = n(spec(layer["attn"]["wq"])[2])
+    if "mlp" in layer:
+        parts["ffn"] = n(spec(layer["mlp"]["wg"])[2])
+    if "moe" in layer:
+        w = layer["moe"]["wg"]
+        experts, ffn = (axes(spec(w)[w.logical.index(k)]) for k in ("experts", "ffn"))
+        seq = set(axes(stream[1]))
+        parts["experts"] = 1 if set(experts) & seq else n(experts)
+        parts["expert_ffn"] = n(tuple(ax for ax in ffn if ax not in seq))
+    if "ssm" in layer:
+        w = layer["ssm"]["in_proj"]
+        parts["ssm_inner"] = n(spec(w)[w.logical.index("ssm_inner")])
+    cache = {k: v for e in model.cache_specs(cell.global_batch, cell.seq_len).values()
+             for k, v in e.items()}
+    if "k" in cache:
+        parts.update(cache_batch=n(spec(cache["k"])[1]), cache_seq=n(spec(cache["k"])[2]))
+    if "ssm" in cache:
+        parts.update(cache_batch=n(spec(cache["ssm"])[1]), ssm_heads=n(spec(cache["ssm"])[2]))
+    return parts
+
+
+def start_i7(out: str) -> dict:
+    """Phase i7's traces, each in a process of its own at low priority."""
+    return {(arch, cell, "single"): start_dryrun(out, cell, layers, arch, "single", nice=10)
+            for arch, cell, layers in I7_CELLS}
+
+
+def check_i7(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> dict:
+    """Phase i7: each hybrid and VLM cell's record against the reference's
+    counts of the whole cell: argument + temp + output below the card's
+    memory, collective bytes a device at most ``I7_COLLECTIVE_OVER_REFERENCE``
+    x the reference's (both scaled by the share of the layers where the depth
+    is cut; long_500k: below ``I6_LONG_OVER_BEFORE`` of the gathering
+    step's), product FLOPs equal to the hand count (``hand_*_flops`` with
+    ``planned_parts``); the temp and the gathering or ZeRO-3 step's figures
+    printed beside them."""
+    rows = {}
+    for arch, cell_name, layers in I7_CELLS:
+        what = f"i7 {arch} {cell_name}"
+        rec = finish_dryrun(procs[arch, cell_name, "single"], out, cell_name, what, arch,
+                            "single", timeout=max(1.0, I5_TIMEOUT_S - (time.perf_counter() - t0)))
+        cfg = configs.get(arch)
+        share = layers / cfg.n_layers if layers else 1.0
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cell = configs.SHAPES[cell_name]
+        hand_fn = dict(train=hand_train_flops, prefill=hand_prefill_flops,
+                       decode=hand_decode_flops)[cell.kind]
+        hand = hand_fn(cfg, cell.global_batch, cell.seq_len,
+                       planned_parts(cfg, rec["mesh_shape"], cell))
+        mem, coll, flops = rec["memory_analysis"], rec["collectives"], rec["cost_analysis"]["flops"]
+        ref, before = I7_REFERENCE[arch, cell_name], I7_BEFORE.get((arch, cell_name))
+        total = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] + \
+            mem["output_size_in_bytes"]
+        got = coll["collective_bytes_per_device"]
+        row = dict(arch=arch, cell=cell_name, layers=cfg.n_layers, share=share,
+                   trace_s=rec["lower_s"], memory=mem, argument_temp_output=total,
+                   card_bytes=card_bytes, collective_bytes_per_device=got,
+                   collective_by_kind=coll["collective_bytes_per_device_by_kind"],
+                   collective_ops=coll["op_counts"], flops=flops, hand_flops=hand,
+                   reference=ref, before=before, card=card,
+                   temp_over_reference=mem["temp_size_in_bytes"] / ref["temp"],
+                   collectives_over_reference=got / (ref["collective"] * share))
+        rows[f"{arch}/{cell_name}"] = row
+        log(f"phase i7: {arch} {cell_name}{f' cut to {layers} layers' if layers else ''} on the "
+            f"{rec['mesh_shape']} mesh of {math.prod(rec['mesh_shape'].values())} fake ranks, "
+            f"planned: trace {rec['lower_s']} s; argument {mem['argument_size_in_bytes']} / temp "
+            f"{mem['temp_size_in_bytes']} / output {mem['output_size_in_bytes']} bytes a device "
+            f"(the reference's {ref['argument']} / {ref['temp']} / {ref['output']}; temp "
+            f"{row['temp_over_reference']:.4f} x), argument + temp + output {total} against "
+            f"{card_bytes * share:.0f} (the card's {card_bytes}"
+            f"{' x ' + str(share) if layers else ''}); collective bytes a device {got:.0f} by "
+            f"kind {coll['collective_bytes_per_device_by_kind']}, ops {coll['op_counts']}, "
+            f"{row['collectives_over_reference']:.4f} x the reference's {ref['collective']}"
+            f"{' x ' + str(share) if layers else ''} (its HLO's ops {ref['ops']}); product FLOPs "
+            f"{flops:.6e}, the hand count {hand:.6e}; before (the gathering or ZeRO-3 step): "
+            f"{before if before else 'not traced'}; card {card}")
+        check(total < card_bytes * share,
+              f"{what}: argument + temp + output {total} above {card_bytes * share}")
+        if cell_name == "long_500k":
+            check(got < I6_LONG_OVER_BEFORE * before["collective"],
+                  f"{what}: collective bytes {got} not below {I6_LONG_OVER_BEFORE} x the "
+                  f"gathering step's {before['collective']}")
+        else:
+            check(row["collectives_over_reference"] <= I7_COLLECTIVE_OVER_REFERENCE[cell.kind],
+                  f"{what}: collective bytes {row['collectives_over_reference']:.4f} x the "
+                  f"reference's, above {I7_COLLECTIVE_OVER_REFERENCE[cell.kind]}")
+        check(flops == hand, f"{what}: {flops} product FLOPs, the hand count {hand}")
+    log(f"phase i7: {time.perf_counter() - t0:.1f} s from the traces' start to their last "
+        f"record")
+    return rows
+
+
 def traced_train_flops(cfg, B: int, S: int) -> int:
     """The product FLOPs one train step of a swiglu decoder runs, as the
     dry-run counts them: ``train_bounds``' products, but every (q, k) tile
@@ -3262,38 +3651,25 @@ def traced_train_flops(cfg, B: int, S: int) -> int:
     return 4 * fwd - L * 2 * B * S * d * cfg.d_ff
 
 
-def analysis_phase(device, g2: dict, e2: dict, i5_procs: dict, i5_dir: str,
-                   i5_t0: float) -> dict:
-    """Phase i, after every timed phase: i3 traced in a process of its own
-    while this one runs i1, the dry-run of g2's cell, and i2, the roofline of
-    the cells g2 and e2 ran, on a one-rank fake world (this process's
-    default group for i1 and i2 alone); then i5's and i6's records, whose
-    traces (``i5_procs`` holds both) started with phase h."""
+def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float) -> dict:
+    """Phase i, after every timed phase: the records of the traces
+    ``start_analysis`` started with phase h (``procs``, their output in
+    ``out``): i1, the dry-run of g2's cell, then i2, the roofline of the
+    cells g2 and e2 ran, on a one-rank fake world (this process's default
+    group for i2 alone); i3, i4, i5, i6 and i7."""
     card = smi("name,power.limit")
-    with tempfile.TemporaryDirectory() as tmp:
-        t3 = time.perf_counter()
-        procs = {}
-        try:
-            procs["i3"] = start_dryrun(tmp, I3_CELL)
-            for cell, layers in I4_CELLS:
-                procs[cell] = start_dryrun(tmp, cell, layers)
-            i1, i2 = analysis_one_rank(device, g2, e2, card)
-            i3 = finish_dryrun(procs["i3"], tmp, I3_CELL, "i3")
-            i3_wall = time.perf_counter() - t3
-            i4 = {cell: finish_dryrun(procs[cell], tmp, cell, f"i4 {cell}")
-                  for cell, _ in I4_CELLS}
-            i4_wall = time.perf_counter() - t3
-        finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+    t3 = time.perf_counter()
+    i1, i2 = analysis_one_rank(device, g2, e2, card, procs["i1"], out)
+    i3 = finish_dryrun(procs["i3"], out, I3_CELL, "i3")
+    i3_wall = time.perf_counter() - t3
+    i4 = {cell: finish_dryrun(procs[cell], out, cell, f"i4 {cell}") for cell, _ in I4_CELLS}
+    i4_wall = time.perf_counter() - t3
     i3["wall_s"] = i3_wall
     mem, flops = i3["memory_analysis"], i3["cost_analysis"]["flops"]
     shape = i3["mesh_shape"]
     i3_cfg, i3_cell = configs.get(I3_ARCH), configs.SHAPES[I3_CELL]
     hand = hand_train_flops(i3_cfg, i3_cell.global_batch, i3_cell.seq_len,
-                            baseline_parts(shape, i3_cfg))
+                            planned_parts(i3_cfg, shape, i3_cell))
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     coll = i3["collectives"]
     i3.update(hand_flops=hand, card_bytes=card_bytes,
@@ -3305,7 +3681,7 @@ def analysis_phase(device, g2: dict, e2: dict, i5_procs: dict, i5_dir: str,
               / I3_REFERENCE_COLLECTIVE_BYTES)
     log(f"phase i3: {I3_ARCH} {I3_CELL} on the {shape} mesh of "
         f"{math.prod(shape.values())} fake ranks: trace {i3['lower_s']} s "
-        f"({i3_wall:.1f} s in all, beside i1 and i2), state "
+        f"({i3_wall:.1f} s in phase i to read i1 to i3), state "
         f"{i3['state_bytes_per_device']} bytes a device as analytic, memory "
         f"{mem}, cost {i3['cost_analysis']}, collectives {coll}: "
         f"{coll['collective_bytes_per_device']:.0f} bytes a device, "
@@ -3326,22 +3702,68 @@ def analysis_phase(device, g2: dict, e2: dict, i5_procs: dict, i5_dir: str,
           f"i3: {coll['collective_bytes_per_device']} collective bytes a device, above the "
           f"reference's {I3_REFERENCE_COLLECTIVE_BYTES}")
     i4 = {cell: check_i4(i4[cell], cell, layers, card_bytes, card) for cell, layers in I4_CELLS}
-    log(f"phase i4: {i4_wall:.1f} s for i3 and i4 beside i1 and i2")
-    i5 = check_i5(i5_procs, i5_dir, i5_t0, card_bytes, card)
-    i6 = check_i6(i5_procs, i5_dir, i5_t0, card_bytes, card)
-    return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, i5=i5, i6=i6, card=card)
+    log(f"phase i4: {i4_wall:.1f} s in phase i to read i1 to i4, their traces started with "
+        f"phase h, {t3 - t0:.1f} s before")
+    i5 = check_i5(procs, out, t0, card_bytes, card)
+    i6 = check_i6(procs, out, t0, card_bytes, card)
+    i7 = check_i7(procs, out, t0, card_bytes, card)
+    return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, i5=i5, i6=i6, i7=i7, card=card)
 
 
-def analysis_one_rank(device, g2: dict, e2: dict, card: str) -> tuple[dict, list]:
-    """Phases i1 and i2 on a one-rank fake world."""
-    train_cfg, lm_cfg = configs.get(TRAIN_ARCH), configs.get(LM_ARCH)
-    g2_cell = ShapeCell("g2", G2_S, G2_B, "train")
+def i1_trace(out: str, device: str = "cuda") -> None:
+    """Phase i1's trace in a process of its own: ``trace_step`` of g2's cell
+    on a one-rank fake world, its record written to ``out/i1.json``."""
     init_group("fake", 0, 1, store=fake_store())
     try:
         mesh = make_mesh((1, 1), ("data", "model"), device_type=device)
         t = time.perf_counter()
-        rec = trace_step(train_cfg, g2_cell, mesh, device)
-        wall = time.perf_counter() - t
+        rec = trace_step(configs.get(TRAIN_ARCH), ShapeCell("g2", G2_S, G2_B, "train"), mesh,
+                         device)
+        rec["wall_s"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    (Path(out) / "i1.json").write_text(json.dumps(rec, default=float))
+
+
+def start_i1(out: str) -> subprocess.Popen:
+    """``i1_trace`` in a process of its own at low priority, its output in
+    ``out/i1.log``."""
+    root = Path(__file__).resolve().parent
+    with open(Path(out) / "i1.log", "w") as log_file:
+        return subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.i1_trace(sys.argv[1])",
+             out], cwd=root, stdout=log_file, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(root / "src")), preexec_fn=lambda: os.nice(10))
+
+
+def start_analysis(out: str) -> dict:
+    """Phase i's traces, each in a process of its own at low priority,
+    started with phase h: i1's, i3's, i4's, i5's, i6's and i7's."""
+    procs = {"i1": start_i1(out), "i3": start_dryrun(out, I3_CELL, nice=10)}
+    for cell, layers in I4_CELLS:
+        procs[cell] = start_dryrun(out, cell, layers, nice=10)
+    return {**procs, **start_i5(out), **start_i6(out), **start_i7(out)}
+
+
+def analysis_one_rank(device, g2: dict, e2: dict, card: str, proc: subprocess.Popen,
+                      out: str) -> tuple[dict, list]:
+    """Phase i1 from its trace's record (``start_i1``), and i2 on a one-rank
+    fake world."""
+    train_cfg, lm_cfg = configs.get(TRAIN_ARCH), configs.get(LM_ARCH)
+    g2_cell = ShapeCell("g2", G2_S, G2_B, "train")
+    try:
+        proc.wait(timeout=I3_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"i1: the trace exited with {proc.returncode}: "
+          f"{(Path(out) / 'i1.log').read_text()[-4000:]}")
+    rec = json.loads((Path(out) / "i1.json").read_text())
+    wall = rec["wall_s"]
+    init_group("fake", 0, 1, store=fake_store())
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=device)
         mem = rec["memory_analysis"]
         predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
         measured = g2["max_memory_allocated"]
@@ -3835,9 +4257,9 @@ def main() -> int:
     log(f"training path launches: {by_path['training']} (a re-plan of the g2 layer DAG "
         f"sweeps {replan_dense} dense levels)")
     print(json.dumps({"training": train}), flush=True)
-    i5_dir = tempfile.mkdtemp()
-    i5_t0 = time.perf_counter()
-    i5_procs = {**start_i5(i5_dir), **start_i6(i5_dir)}
+    i_dir = tempfile.mkdtemp()
+    i_t0 = time.perf_counter()
+    i_procs = start_analysis(i_dir)
     try:
         distributed, by_path["distributed"] = counted(distributed_path, device, train["g2"])
         check(by_path["distributed"]["ceft_relax"] > 0,
@@ -3846,13 +4268,13 @@ def main() -> int:
             f"{by_path['distributed']['ceft_relax']}: h4's straggler re-plans)")
         print(json.dumps({"distributed": distributed}), flush=True)
         analysis, by_path["analysis"] = counted(analysis_phase, device, train["g2"], lm["e2"],
-                                                i5_procs, i5_dir, i5_t0)
+                                                i_procs, i_dir, i_t0)
     finally:
-        for proc in i5_procs.values():
+        for proc in i_procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        shutil.rmtree(i5_dir, ignore_errors=True)
+        shutil.rmtree(i_dir, ignore_errors=True)
     print(json.dumps({"analysis": analysis}, default=float), flush=True)
     log(f"launches by path: {by_path}")
 

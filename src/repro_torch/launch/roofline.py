@@ -20,16 +20,16 @@ Training probes run the scalarised probe's value and its gradients
 (``torch.autograd`` in place of ``jax.value_and_grad``); remat="full" adds
 one forward per layer with the reference's approximation (a third of the
 probe's figures).  A probe runs as the port's step runs that layer: the
-dense, MoE and SSM families' probes call the layer code of their
-tensor-parallel steps (``models.tensor_parallel``: parameters gathered over
+planned families' probes (every family but the encoder-decoder) call the
+layer code of their tensor-parallel steps (``models.tensor_parallel``: parameters gathered over
 their embed axes, this rank's heads, columns, experts and vocabulary, the
 stream's, the dispatched tokens' and ``in_proj``'s output's collectives;
 the train probes sum their gradients into the parameters' layouts, the
 expert weights travelling in the compute type, the prefill and decode
 probes gather their weights in the compute type, decode attends over this
 rank's cache shard and steps its SSM heads' state; the SSD chunk probe
-runs on this rank's rows and heads); every other family's probe gathers
-its parameters whole, as its steps do.
+runs on this rank's rows and heads); the encoder-decoder's probes gather
+their parameters whole, as its steps do.
 
 Per device: the counter counts this rank's local ops below the ``DTensor``
 layer, so ``flops`` and ``coll`` are one device's, as XLA's are under SPMD.
@@ -149,7 +149,7 @@ def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", n_params: in
     its cache), every other argument on this rank's shards; a gradient
     probe's parameter gradients reduce-scattered back into their layouts
     over the mesh axes that split the other arguments.  With ``tp`` (the
-    dense and MoE families' tensor-parallel steps): the parameter tree (of
+    planned families' tensor-parallel steps): the parameter tree (of
     the PSpecs ``param_specs``) in its working layout (the leaves
     ``work_cast`` marks, all where it is None, gathered in ``work_dtype``,
     the compute type) and a gradient probe's gradients summed from there
@@ -255,9 +255,9 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
 
     x_sh = _sh(mesh, (B, S, D), ("batch", "seq", "none"))
     x_abs = _abs((B, S, D), bf16)
-    # the dense and MoE families' steps are tensor-parallel (launch.steps):
-    # their probes run the step's layer code on this rank's working shards,
-    # and on whole tensors (tp=None) for their outputs' global shapes
+    # the planned families' steps are tensor-parallel (launch.steps): their
+    # probes run the step's layer code on this rank's working shards, and on
+    # whole tensors (tp=None) for their outputs' global shapes
     plan = None
     if cfg.family in PLANNED:
         if train:

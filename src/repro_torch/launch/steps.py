@@ -6,9 +6,9 @@ Without a mesh a step runs eagerly on the parameters' device, gradients from
 
 On a mesh the state lives as ``DTensor``s laid out by ``Model.shardings``
 and ``AdamW.moment_specs`` (FSDP over ``data`` under the baseline profile).
-:class:`ShardedTrainStep` splits the dense, MoE and SSM families' compute over
-the mesh as the reference's ``LOGICAL_RULES`` lay it out
-(``models.tensor_parallel``):
+:class:`ShardedTrainStep` splits the compute of the families of ``PLANNED``
+(dense, MoE, SSM, the hybrid and the VLM) over the mesh as the reference's
+``LOGICAL_RULES`` lay it out (``models.tensor_parallel``):
 
   1. gather each parameter over its ``embed`` axes only (its working
      layout; a q / k / v weight whose heads do not split, a MoE router and
@@ -16,9 +16,11 @@ the mesh as the reference's ``LOGICAL_RULES`` lay it out
      ``out_proj`` on this rank's heads' rows; an expert weight in the
      compute type); the ``qkv``, ``ffn``, ``experts``, ``ssm_inner`` and
      ``vocab`` shards stay on their ranks;
-  2. take each input's own shard: this rank's batch rows and sequence slice,
-     the residual stream; each block gathers the normed stream's sequence,
-     runs its column-parallel products on this rank's heads and columns and
+  2. take each input's own shard: this rank's batch rows and sequence slice
+     of the tokens (or a VLM's embeds) and labels, the residual stream, and
+     M-RoPE's positions on its rows over the whole sequence; each block
+     gathers the normed stream's sequence, runs its column-parallel
+     products on this rank's heads and columns and
      reduce-scatters its row-parallel partial sums back into the slice; the
      embedding and the cross-entropy are vocab-parallel where the
      vocabulary splits; a MoE block routes its own tokens, and the
@@ -44,15 +46,14 @@ the mesh as the reference's ``LOGICAL_RULES`` lay it out
      order;
   6. ``AdamW.apply`` on each rank's shards, in place.
 
-The other families (hybrid, encoder-decoder, VLM) run ZeRO-3 instead:
-every parameter gathered whole, each rank computing its batch rows' whole
-sequence, each gradient reduce-scattered over the batch axes; so their
-``model`` axis shards storage, not compute.  That is a choice by family, not
-a fallback: their hybrid and cross-attention layouts are later slices
-(ROADMAP).
+The encoder-decoder runs ZeRO-3 instead: every parameter gathered whole,
+each rank computing its batch rows' whole sequence, each gradient
+reduce-scattered over the batch axes; so its ``model`` axis shards storage,
+not compute.  That is a choice by family, not a fallback: its
+cross-attention layout is a later slice (ROADMAP).
 
-:class:`PrefillStep` and :class:`DecodeStep` on a mesh split the dense, MoE
-and SSM families' serving the same way (``plan_prefill``, ``plan_decode``):
+:class:`PrefillStep` and :class:`DecodeStep` on a mesh split the planned
+families' serving the same way (``plan_prefill``, ``plan_decode``):
 each parameter gathered over its ``embed`` axes only, in the compute type
 (``weight_leaves``); each input's own shard; the decode cache kept in the
 reference's layout (attention: the decode-SP one, rows on ``cache_batch``,
@@ -62,9 +63,9 @@ only its shard, in place.  Prefill returns its cache laid out so, every
 position (a sliding window's too), and :func:`seed_cache` moves it into a
 decode cache, shard to shard (a window's ring slots as the engine fills
 them; an SSM's state and conv history as they are); both return the logits
-and the next tokens whole on every rank.  The other families' prefill and
+and the next tokens whole on every rank.  The encoder-decoder's prefill and
 decode gather every parameter, input and cache leaf whole and compute the
-whole batch on every rank, as their train step does.  A planned model whose
+whole batch on every rank, as its train step does.  A planned model whose
 plan raises ``ValueError`` on a mesh fails; it does not gather instead.
 ``abstract_state`` and ``abstract_cache`` give the state and the cache as
 ``meta`` tensors for the dry-run (``launch.dryrun``).
@@ -87,7 +88,7 @@ from ..models.tensor_parallel import (TensorParallel, expert_leaves, plan_decode
 from ..optim import AdamW, AdamWState, for_config
 from ..optim.adamw import tree_map_sorted
 from ..substrate import (Sharding, chunk_of, distribute, exchange_over, from_shard,
-                         full_value, local_value, psum, reduce_over)
+                         full_value, gather_over, local_value, psum, reduce_over)
 from .mesh import mesh_axis_sizes
 
 # logical axes of every named model input
@@ -172,11 +173,40 @@ def _stream_rows(x, sharding: Sharding) -> torch.Tensor:
         return x.redistribute(x.device_mesh, sharding.placements).to_local()
 
 
+@torch.no_grad()
+def _position_rows(x, tp: TensorParallel) -> torch.Tensor:
+    """M-RoPE's (3, B, S) positions -> this rank's stream rows over the
+    whole sequence (RoPE's angles are the whole sequence's): a whole tensor
+    sliced, a ``DTensor``'s shard gathered over the axes that split its
+    sequence (an input laid out by ``INPUT_LOGICAL`` splits its rows as the
+    stream does)."""
+    if not isinstance(x, DTensor):
+        return x[:, chunk_of(x.shape[1], tp.mesh, tp.batch_axes)]
+    names = x.device_mesh.mesh_dim_names
+    rows = tuple(ax for ax, p in zip(names, x.placements) if p.is_shard(1) and ax in tp.mesh_axes)
+    if rows != tp.batch_axes:
+        raise ValueError(f"positions split their rows over {rows}, the stream over "
+                         f"{tp.batch_axes}")
+    seq = tuple(ax for ax, p in zip(names, x.placements) if p.is_shard(2))
+    return gather_over(x.to_local(), tp.mesh, seq, 2)
+
+
+def _stream_inputs(batch: dict, tp: TensorParallel) -> dict:
+    """This rank's shard of each model input a planned step takes: the
+    tokens (or a VLM's embeds) and the labels laid out as the stream, its
+    rows and sequence slice; M-RoPE's positions by :func:`_position_rows`."""
+    out = {k: _stream_rows(batch[k], Sharding(tp.mesh, tp.stream_spec + (None,) * (k == "embeds")))
+           for k in ("tokens", "embeds", "labels") if k in batch}
+    if "positions" in batch:
+        out["positions"] = _position_rows(batch["positions"], tp)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardedTrainStep(TrainStep):
     """The train step on a mesh: tensor-, sequence- and expert-parallel for
-    the dense and MoE families, head-parallel for the SSM family, ZeRO-3
-    for the others (the module docstring)."""
+    the dense, MoE, hybrid and VLM families, head-parallel for the SSM
+    blocks, ZeRO-3 for the encoder-decoder (the module docstring)."""
     mesh: Any = None
     _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
@@ -203,7 +233,7 @@ class ShardedTrainStep(TrainStep):
         mesh, model = self.mesh, self.model
         tp, layouts, cast = self.plan(batch["labels"])
         work = tp.working(params, layouts, torch_dtype(model.cfg.compute_dtype), cast)
-        rows = {k: _stream_rows(batch[k], tp.stream) for k in ("tokens", "labels")}
+        rows = _stream_inputs(batch, tp)
 
         def over_mesh(x):
             for ax in tp.mesh_axes:
@@ -296,8 +326,8 @@ def build_train(model: Model, mesh=None, total_steps: int = 10_000, peak_lr: flo
 
 def _serves_on(model: Model, mesh) -> bool:
     """Whether the prefill and decode steps split the model's compute on
-    ``mesh`` (the families of ``PLANNED``: dense, MoE and SSM) rather than
-    gathering everything."""
+    ``mesh`` (the families of ``PLANNED``: all but the encoder-decoder)
+    rather than gathering everything."""
     return mesh is not None and model.cfg.family in PLANNED
 
 
@@ -307,12 +337,13 @@ class PrefillStep:
     mesh: Any = None
     _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
-    def plan(self, tokens) -> tuple[TensorParallel, list, dict]:
-        """The sharded prefill's plan for ``tokens``' (global) shape under
-        the active profile, its working layouts and the shardings of the
-        cache it returns (every position; an SSM's of the decode cache's
-        shape): made at the first call of that shape and kept."""
-        key = (tuple(tokens.shape), active_profile().name)
+    def plan(self, x) -> tuple[TensorParallel, list, dict]:
+        """The sharded prefill's plan for the (global) (B, S) of input ``x``
+        (the tokens, or a VLM's embeds) under the active profile, its
+        working layouts and the shardings of the cache it returns (every
+        position; an SSM's of the decode cache's shape): made at the first
+        call of that shape and kept."""
+        key = (tuple(x.shape[:2]), active_profile().name)
         if key not in self._plans:
             model, specs = self.model, self.model.specs()
             tp = plan_prefill(model.cfg, specs, self.mesh, key[0])
@@ -330,11 +361,11 @@ class PrefillStep:
         ``Model.cache_specs`` of the batch's shape at every position."""
         if not _serves_on(self.model, self.mesh):
             return self.model.prefill(gathered(params), gathered(batch))
-        tp, layouts, cache_sh = self.plan(batch["tokens"])
+        tp, layouts, cache_sh = self.plan(batch["tokens"] if "tokens" in batch
+                                          else batch["embeds"])
         work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
                           weight_leaves(self.model.specs()))
-        tokens = _stream_rows(batch["tokens"], tp.stream)
-        cache, logits = self.model.prefill(work, {"tokens": tokens}, tp)
+        cache, logits = self.model.prefill(work, _stream_inputs(batch, tp), tp)
         return tree_map_sorted(from_shard, cache, cache_sh), logits
 
 
@@ -352,10 +383,11 @@ class DecodeStep:
 
     def plan(self, tokens, cache) -> tuple[TensorParallel, list]:
         """The sharded decode step's plan for ``tokens``' (global) shape and
-        the cache's length (dimension 2 of its first leaf; an SSM cache's
-        does not depend on it) under the active profile, and its working
-        layouts: made at the first step of that shape and kept."""
-        seq = sorted_leaves(cache)[0].shape[2]
+        the cache's length (dimension 2 of an attention layer's ``k``; an
+        SSM cache's layout does not depend on it) under the active profile,
+        and its working layouts: made at the first step of that shape and
+        kept."""
+        seq = next((entry["k"].shape[2] for entry in cache.values() if "k" in entry), 1)
         key = (tuple(tokens.shape), seq, active_profile().name)
         if key not in self._plans:
             model, specs = self.model, self.model.specs()
@@ -376,9 +408,10 @@ class DecodeStep:
             tp, layouts = self.plan(inputs["tokens"], cache)
             work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
                               weight_leaves(self.model.specs()))
-            tokens = _stream_rows(inputs["tokens"], tp.stream)
-            logits, _ = self.model.decode(work, tree_map_sorted(local_value, cache), tokens,
-                                          inputs["pos"], tp=tp)
+            rows = _stream_inputs(inputs, tp)
+            logits, _ = self.model.decode(work, tree_map_sorted(local_value, cache),
+                                          rows["tokens"], inputs["pos"],
+                                          positions=rows.get("positions"), tp=tp)
             new_cache = cache
         else:
             inputs = gathered(inputs)
@@ -424,12 +457,17 @@ def seed_cache(prefill_cache, shardings, seq: int, window: int = 0):
     (``DTensor``s of P positions) at the slots :func:`ring_positions` gives
     and zeros elsewhere, as the engine seeds its cache.  Each rank allocates
     its own shard; the rows of every rank's prefill shard that land in
-    another's decode shard travel with their slots, one exchange of uneven
-    runs over each mesh axis that splits both caches' sequence (the same
-    axes, major first), so nothing is gathered whole.  An SSM layer's
-    ``ssm`` and ``conv`` leaves hold no sequence (dimension 2 is the heads,
-    or the conv's k - 1 positions): each rank's shard is copied into its
-    decode shard, laid out again only where the two shardings differ."""
+    another's decode shard travel with their slots, so nothing is gathered
+    beyond a decode shard: the two caches' sequence may split differently
+    (a prompt whose length divides an axis into a cache whose length does
+    not).  Over an axis that splits the prefill's sequence and not the
+    decode cache's, the rows are gathered (each rank of it holds the decode
+    shard's every position); over one that splits both, one exchange of
+    uneven runs (major axis first); over one that splits only the decode
+    cache's, each rank keeps the rows of its slots.  An SSM layer's ``ssm``
+    and ``conv`` leaves hold no sequence (dimension 2 is the heads, or the
+    conv's k - 1 positions): each rank's shard is copied into its decode
+    shard, laid out again only where the two shardings differ."""
     def seed(src: DTensor, sh: Sharding) -> DTensor:
         mesh, local, P = sh.mesh, src.to_local(), src.shape[2]
         sizes = mesh_axis_sizes(mesh)
@@ -443,18 +481,13 @@ def seed_cache(prefill_cache, shardings, seq: int, window: int = 0):
         shape[2] = Sc // n
         out = torch.zeros(shape, dtype=local.dtype, device=local.device)
         where = ring_positions(P, Sc, window).to(local.device)
-        if not src_axes:
-            mine = where[own]
-            held = (mine >= 0).nonzero()[:, 0]
-            out[:, :, held] = local[:, :, mine[held]]
-            return from_shard(out, sh)
-        if src_axes != dst_axes:
-            raise ValueError(f"a prefill cache split over {src_axes} into one over {dst_axes}")
-        have = chunk_of(P, mesh, src_axes)
         slot = torch.full((P,), -1, dtype=torch.long, device=local.device)
         kept = (where >= 0).nonzero()[:, 0]
         slot[where[kept]] = kept
-        slot = slot[have]
+        gathered_axes = tuple(ax for ax in src_axes if ax not in dst_axes)
+        pos = torch.arange(P, device=local.device)[chunk_of(P, mesh, src_axes)]
+        local = gather_over(local, mesh, gathered_axes, 2)
+        slot = slot[gather_over(pos, mesh, gathered_axes, 0)]
         sent = (slot >= 0).nonzero()[:, 0]
         rows, slot = local.movedim(2, 0)[sent], slot[sent]
         rank = slot // (Sc // n)              # the destination's index, major axis first
@@ -462,6 +495,10 @@ def seed_cache(prefill_cache, shardings, seq: int, window: int = 0):
         for ax in dst_axes:
             stride //= sizes[ax]
             dest = rank // stride % sizes[ax]
+            if ax not in src_axes:            # every rank of the axis holds these rows
+                mine = dest == chunk_of(sizes[ax], mesh, (ax,)).start
+                rows, slot, rank = rows[mine], slot[mine], rank[mine]
+                continue
             order = torch.argsort(dest, stable=True)
             rows, slot, rank = rows[order], slot[order], rank[order]
             send = torch.bincount(dest, minlength=sizes[ax])

@@ -12,10 +12,9 @@ from . import encdec, transformer
 from .common import abstract_params, init_params, param_shardings, torch_dtype
 
 #: the families whose steps run on a mesh through a ``TensorParallel`` plan
-#: (``models.tensor_parallel``); the others gather (launch.steps).  The
-#: hybrid stays out until its own slice, though its SSM layers are the SSM
-#: block that runs on a plan
-PLANNED = ("dense", "moe", "ssm")
+#: (``models.tensor_parallel``); the encoder-decoder, the one left out,
+#: gathers (launch.steps) until its cross-attention's own slice
+PLANNED = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)

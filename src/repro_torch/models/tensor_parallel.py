@@ -1,5 +1,5 @@
 """The layout a tensor- and sequence-parallel train step computes in on one
-rank of a mesh (the dense, MoE and SSM decoders), as the reference's
+rank of a mesh (the dense, MoE, SSM, hybrid and VLM decoders), as the reference's
 ``LOGICAL_RULES`` (``models/common.py``) lay a step out and XLA partitions
 it.
 
@@ -41,6 +41,13 @@ it.
   heads where ``serve`` splits them further).  Each head's chunked SSD and
   its float32 recurrence are the one-device code; the gated norm's sum of
   squares is summed over the head axes, and ``out_proj`` is row-parallel.
+* The hybrid (jamba) and the VLM (qwen2-vl) compose these blocks on one
+  plan: the hybrid's attention, MLP, MoE and SSM layers each as above (its
+  decode cache holds k / v and ``ssm`` / ``conv`` leaves, each kind in its
+  own layout: :func:`_with_cache`); the VLM is the dense family fed
+  ``embeds`` on the stream and M-RoPE's (3, B, S) positions on its rows
+  over the whole sequence.  The hand FLOP counts sum each layer of the
+  pattern (:func:`_layer_products`).
 * The embedding and the loss: where ``vocab`` splits, the look-up and the
   cross-entropy are vocab-parallel (each rank its rows of the table; the
   softmax's max and sum and the gold logit summed over the vocab axes);
@@ -196,128 +203,139 @@ def _ssm_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> 
                 out_proj=2 * T * (di // parts["ssm_heads"]) * d)
 
 
-def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
-    """The product FLOPs one rank runs in a swiglu decoder's tensor-parallel
-    train step under ``remat = "full"``, counted by hand from the widths
-    (the dry-run's trace of the step must equal it).  ``parts`` gives the
-    ranks each of ``batch``, ``seq``, ``qkv``, ``ffn`` and ``vocab`` splits
-    over (1 where it does not split), and for the MoE family ``experts`` and
-    ``expert_ffn`` (:func:`_moe_products`).  Each layer's products run on
-    this rank's rows of the whole sequence and its columns: its q heads (all
-    of them where they do not split, :func:`head_split`), the kv heads they
-    use, its rows of ``wo``, its columns of the MLP; every (q, k) tile of
-    the chunked attention for its q heads (masked tiles included); the
-    unembedding on its columns of the vocabulary where that splits, else on
-    the whole vocabulary for its own tokens.  4 times the forward (the
-    forward, the recompute and the chunked loss's, and the backward's two
-    products a product), less each layer's down projection: the
-    non-reentrant checkpoint stops once the tensors the backward needs are
-    back, and the block's last product saves none.  The MoE block's last
-    product is its combine einsum (so 3 times); its combine weights and its
-    dispatch differentiate one operand (3 times: no second backward
-    product).  The SSM family's layer is :func:`_ssm_products` (``parts``
-    gives ``ssm_inner`` and ``ssm_heads`` in place of the attention's and
-    the MLP's axes), its last product ``out_proj``."""
-    if cfg.remat != "full":
-        raise ValueError(f"counted for remat 'full', not {cfg.remat!r}")
-    d, hd, L, V = cfg.d_model, cfg.hd, cfg.n_layers, cfg.vocab
-    rows = B // parts["batch"]
-    T = rows * S
-    if parts["vocab"] > 1:
-        loss = 2 * T * d * (V // parts["vocab"])
-    else:
-        loss = 2 * rows * (S // parts["seq"]) * d * V
-    if cfg.family == "ssm":
-        m = _ssm_products(cfg, rows, S, parts)
-        return 4 * (L * sum(m.values()) + loss) - L * m["out_proj"]
+def _attn_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> dict:
+    """One attention layer's forward product FLOPs on one rank over its rows'
+    whole sequence: q on this rank's q heads (all of them where they do not
+    split, :func:`head_split`), k and v on the kv heads they use, every
+    (q, k) tile of the chunked attention for its q heads (masked tiles
+    included), its rows of ``wo``."""
+    d, hd = cfg.d_model, cfg.hd
     n = parts["qkv"]
     q_heads, kv_heads = _heads(cfg, n)
-    per_layer = 2 * T * d * hd * (q_heads + 2 * kv_heads) + 2 * T * (cfg.n_heads * hd // n) * d
+    T = rows * S
     qc, kc = min(512, S), min(1024, S)
-    sq, sk = -(-S // qc) * qc, -(-S // kc) * kc
-    attn = 4 * rows * q_heads * hd * sq * sk
-    if cfg.family == "moe":
-        m = _moe_products(cfg, rows, S, parts)
-        channel = 4 * (m["router"] + m["experts"]) + 3 * (m["route"] + m["dispatch"]
-                                                          + m["combine"])
+    return dict(qkv=2 * T * d * hd * (q_heads + 2 * kv_heads),
+                tiles=4 * rows * q_heads * hd * (-(-S // qc) * qc) * (-(-S // kc) * kc),
+                wo=2 * T * (cfg.n_heads * hd // n) * d)
+
+
+def _mlp_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> dict:
+    """One MLP's forward product FLOPs on this rank's columns over its rows'
+    whole sequence: the gate and up projections, then ``wd``."""
+    T, ff = rows * S, cfg.d_ff // parts["ffn"]
+    return dict(gate_up=2 * 2 * T * cfg.d_model * ff, wd=2 * T * ff * cfg.d_model)
+
+
+def _layer_products(cfg: ArchConfig, mixer: str, channel: str, rows: int, S: int,
+                    parts: dict[str, int]) -> list[dict]:
+    """One layer of the pattern (``cfg.layer_pattern()``'s (mixer, channel)):
+    its sequence mixer's products and its channel mixer's, each in forward
+    order."""
+    out = [(_attn_products if mixer == "attn" else _ssm_products)(cfg, rows, S, parts)]
+    if channel != "none":
+        out.append((_mlp_products if channel == "mlp" else _moe_products)(cfg, rows, S, parts))
+    return out
+
+
+def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
+    """The product FLOPs one rank runs in a decoder's tensor-parallel train
+    step under ``remat = "full"``, counted by hand from the widths (the
+    dry-run's trace of the step must equal it).  ``parts`` gives the ranks
+    each of ``batch``, ``seq``, ``qkv``, ``ffn`` and ``vocab`` splits over
+    (1 where it does not split), with a MoE block ``experts`` and
+    ``expert_ffn`` (:func:`_moe_products`), with an SSM block ``ssm_inner``
+    and ``ssm_heads`` (:func:`_ssm_products`).  Each layer of the pattern
+    runs on this rank's rows of the whole sequence and its columns: the
+    attention's (:func:`_attn_products`) or the SSM block's products, then
+    the MLP's (:func:`_mlp_products`) or the MoE block's; the unembedding on
+    its columns of the vocabulary where that splits, else on the whole
+    vocabulary for its own tokens.  4 times the forward (the forward, the
+    recompute and the chunked loss's, and the backward's two products a
+    product), but the MoE block's combine weights and dispatch, which
+    differentiate one operand (3 times: no second backward product), and
+    less each period's last product (a layer's ``wd``, a MoE block's
+    combine einsum, an SSM block's ``out_proj``): the non-reentrant
+    checkpoint of a period stops once the tensors the backward needs are
+    back, and the period's last product saves none.  A period is one layer
+    but in the hybrid, whose period is ``attn_every`` layers."""
+    if cfg.remat != "full":
+        raise ValueError(f"counted for remat 'full', not {cfg.remat!r}")
+    d, V = cfg.d_model, cfg.vocab
+    rows = B // parts["batch"]
+    if parts["vocab"] > 1:
+        loss = 2 * rows * S * d * (V // parts["vocab"])
     else:
-        ff = cfg.d_ff // parts["ffn"]
-        channel = 4 * 3 * 2 * T * d * ff - 2 * T * ff * d
-    return 4 * (L * (per_layer + attn) + loss) + L * channel
-
-
-def _channel(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> int:
-    """One layer's channel mixer's forward product FLOPs on one rank: the
-    MLP on this rank's columns over its rows' whole sequence, or the MoE
-    block (:func:`_moe_products`)."""
-    if cfg.family == "moe":
-        return sum(_moe_products(cfg, rows, S, parts).values())
-    return 3 * 2 * rows * S * cfg.d_model * (cfg.d_ff // parts["ffn"])
+        loss = 2 * rows * (S // parts["seq"]) * d * V
+    period = 0
+    for mixer, channel in cfg.layer_pattern():
+        for m in _layer_products(cfg, mixer, channel, rows, S, parts):
+            period += 4 * sum(m.values()) - m.get("route", 0) - m.get("dispatch", 0)
+    period -= list(m.values())[-1]
+    return cfg.n_layers // cfg.period * period + 4 * loss
 
 
 def hand_prefill_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
-    """The product FLOPs one rank runs in a swiglu decoder's sharded prefill
-    of (B, S) tokens, counted by hand from the widths (the dry-run's trace
-    must equal it).  ``parts`` gives the ranks each of ``batch``, ``seq``,
+    """The product FLOPs one rank runs in a decoder's sharded prefill of (B,
+    S) tokens, counted by hand from the widths (the dry-run's trace must
+    equal it).  ``parts`` gives the ranks each of ``batch``, ``seq``,
     ``qkv``, ``ffn``, ``vocab``, ``cache_batch`` and ``cache_seq`` splits
-    over.  The train forward's products (every (q, k) tile of the chunked
-    attention for this rank's q heads, masked tiles included); where the q
-    heads split and the kv heads do not, the cache's k and v projected on
-    this rank's cache rows and sequence slice with every kv head; the last
-    token's logits on this rank's rows and vocabulary columns.  The SSM
-    family: :func:`_ssm_products` a layer on this rank's rows."""
-    d, hd, L, V = cfg.d_model, cfg.hd, cfg.n_layers, cfg.vocab
+    over (with the MoE and SSM blocks' axes as :func:`hand_train_flops`).
+    The train forward's products (:func:`_layer_products` a layer); where
+    the q heads split and the kv heads do not, an attention layer's cache k
+    and v projected on this rank's cache rows and sequence slice with every
+    kv head; the last token's logits on this rank's rows and vocabulary
+    columns."""
+    d, hd = cfg.d_model, cfg.hd
     rows = B // parts["batch"]
-    logits = 2 * rows * d * (V // parts["vocab"])
-    if cfg.family == "ssm":
-        return L * sum(_ssm_products(cfg, rows, S, parts).values()) + logits
-    n = parts["qkv"]
-    q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
-    q_heads, kv_heads = _heads(cfg, n)
-    T = rows * S
-    per_layer = 2 * T * d * hd * (q_heads + 2 * kv_heads) + 2 * T * (cfg.n_heads * hd // n) * d \
-        + _channel(cfg, rows, S, parts)
-    qc, kc = min(512, S), min(1024, S)
-    per_layer += 4 * rows * q_heads * hd * (-(-S // qc) * qc) * (-(-S // kc) * kc)
-    if q_local and not kv_local:
-        per_layer += 2 * 2 * (B // parts["cache_batch"]) * (S // parts["cache_seq"]) * d \
-            * cfg.n_kv_heads * hd
-    return L * per_layer + logits
+    q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, parts.get("qkv", 1))
+    period = 0
+    for mixer, channel in cfg.layer_pattern():
+        period += sum(sum(m.values()) for m in _layer_products(cfg, mixer, channel, rows, S, parts))
+        if mixer == "attn" and q_local and not kv_local:
+            period += 2 * 2 * (B // parts["cache_batch"]) * (S // parts["cache_seq"]) * d \
+                * cfg.n_kv_heads * hd
+    return cfg.n_layers // cfg.period * period + 2 * rows * d * (cfg.vocab // parts["vocab"])
 
 
 def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
-    """The product FLOPs one rank runs in a swiglu decoder's sharded decode
-    step of B tokens against a cache of S positions, counted by hand (the
-    dry-run's trace must equal it; ``parts`` as :func:`hand_prefill_flops`).
-    Each layer: q on this rank's stream rows and q heads, k and v on them
-    with this rank's kv heads where they split, else every kv head (the
-    whole ``wk`` / ``wv``); the scores and the weighted sum of v for every
-    q head over this rank's cache rows and sequence slice (a sliding
-    window's cache holds ``min(S, window)`` positions); its rows of ``wo``
-    and its columns of the MLP, or the MoE block (:func:`_moe_products` of
-    one-token groups); the logits on its rows and vocabulary columns.  The
-    SSM family: ``in_proj`` on this rank's stream rows and stored columns,
-    the conv (an einsum over the k positions) on every channel of its cache
+    """The product FLOPs one rank runs in a decoder's sharded decode step of
+    B tokens against a cache of S positions, counted by hand (the dry-run's
+    trace must equal it; ``parts`` as :func:`hand_prefill_flops`).  An
+    attention layer: q on this rank's stream rows and q heads, k and v on
+    them with this rank's kv heads where they split, else every kv head (the
+    whole ``wk`` / ``wv``); the scores and the weighted sum of v for every q
+    head over this rank's cache rows and sequence slice (a sliding window's
+    cache holds ``min(S, window)`` positions); its rows of ``wo``.  An SSM
+    layer: ``in_proj`` on this rank's stream rows and stored columns, the
+    conv (an einsum over the k positions) on every channel of its cache
     rows, the state's output C.h on its cache rows and heads, ``out_proj``
-    on its stream rows and heads' rows."""
-    d, hd, L, V = cfg.d_model, cfg.hd, cfg.n_layers, cfg.vocab
+    on its stream rows and heads' rows.  Then its columns of the MLP, or the
+    MoE block (:func:`_moe_products` of one-token groups); the logits on its
+    rows and vocabulary columns."""
+    d, hd = cfg.d_model, cfg.hd
     rows = B // parts["batch"]
-    if cfg.family == "ssm":
-        di, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-        rc, h = B // parts["cache_batch"], H // parts["ssm_heads"]
-        per_layer = 2 * rows * d * ((2 * di + 2 * N + H) // parts["ssm_inner"]) \
-            + 2 * rc * cfg.ssm_conv * (di + 2 * N) + 2 * rc * N * h * P \
-            + 2 * rows * (di // parts["ssm_heads"]) * d
-        return L * per_layer + 2 * rows * d * (V // parts["vocab"])
-    n = parts["qkv"]
-    q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
-    q_heads = cfg.n_heads // n if q_local else cfg.n_heads
-    kv_heads = cfg.n_kv_heads // n if kv_local else cfg.n_kv_heads
-    per_layer = 2 * rows * d * hd * (q_heads + 2 * kv_heads) \
-        + 2 * rows * (cfg.n_heads * hd // n) * d + _channel(cfg, rows, 1, dict(parts, seq=1)) \
-        + 4 * (B // parts["cache_batch"]) * cfg.n_heads * hd \
-        * ((min(S, cfg.window) if cfg.window else S) // parts["cache_seq"])
-    return L * per_layer + 2 * rows * d * (V // parts["vocab"])
+    period = 0
+    for mixer, channel in cfg.layer_pattern():
+        if mixer == "attn":
+            n = parts["qkv"]
+            q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
+            q_heads = cfg.n_heads // n if q_local else cfg.n_heads
+            kv_heads = cfg.n_kv_heads // n if kv_local else cfg.n_kv_heads
+            period += 2 * rows * d * hd * (q_heads + 2 * kv_heads) \
+                + 2 * rows * (cfg.n_heads * hd // n) * d \
+                + 4 * (B // parts["cache_batch"]) * cfg.n_heads * hd \
+                * ((min(S, cfg.window) if cfg.window else S) // parts["cache_seq"])
+        else:
+            di, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+            rc, h = B // parts["cache_batch"], H // parts["ssm_heads"]
+            period += 2 * rows * d * ((2 * di + 2 * N + H) // parts["ssm_inner"]) \
+                + 2 * rc * cfg.ssm_conv * (di + 2 * N) + 2 * rc * N * h * P \
+                + 2 * rows * (di // parts["ssm_heads"]) * d
+        if channel != "none":
+            m = (_mlp_products if channel == "mlp" else _moe_products)(
+                cfg, rows, 1, dict(parts, seq=1))
+            period += sum(m.values())
+    return cfg.n_layers // cfg.period * period + 2 * rows * d * (cfg.vocab // parts["vocab"])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -108,9 +108,10 @@ def layer_params(tree, i: int):
 # ---------------------------------------------------------------------- forward
 def embed_tokens(params, cfg: ArchConfig, tokens=None, embeds=None, tp=None):
     """The input stream in the compute type.  On a mesh (``tp``) the tokens
-    and the result are this rank's slice of the stream; where the vocabulary
-    splits, each rank looks up the tokens of its rows of the table over the
-    whole sequence, and the partial rows are summed into the slice."""
+    (or a VLM's ``embeds``) and the result are this rank's slice of the
+    stream; where the vocabulary splits, each rank looks up the tokens of
+    its rows of the table over the whole sequence, and the partial rows are
+    summed into the slice."""
     dtype = torch_dtype(cfg.compute_dtype)
     if embeds is not None:
         return embeds.to(dtype)
@@ -130,8 +131,8 @@ def unembed(params, cfg: ArchConfig, x):
 
 def _period_fwd(cfg: ArchConfig, pp, x, cos_sin, tp=None):
     """Full-seq forward through one period; returns (x, aux, cache_updates).
-    On a mesh (``tp``; the dense, MoE and SSM families) ``x`` is this rank's
-    slice of the stream and ``aux`` its share of the load-balance term."""
+    On a mesh (``tp``; the planned families) ``x`` is this rank's slice of
+    the stream and ``aux`` its share of the load-balance term."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_out = {}
     for i, (mixer, channel) in enumerate(cfg.layer_pattern()):
@@ -166,11 +167,12 @@ def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     the cache holds each period position's entries stacked over periods:
     (periods, B, S, Hkv, hd) K and V, or the SSM state and conv tail.  It
     writes nothing in place, so autograd runs through it.  On a mesh
-    (``tp``, a ``TensorParallel``; the dense, MoE and SSM families' train
-    step and prefill) the tokens and the hidden states are this rank's slice of
-    the stream, RoPE's angles are the whole sequence's and ``aux`` is this
-    rank's share of the load-balance term; a serving plan's cache is this
-    rank's shard of each layer's, stacked."""
+    (``tp``, a ``TensorParallel``; the planned families' train step and
+    prefill) the tokens (or embeds) and the hidden states are this rank's
+    slice of the stream, RoPE's angles are the whole sequence's (M-RoPE's
+    (3, B, S) ``positions`` are this rank's rows over the whole sequence)
+    and ``aux`` is this rank's share of the load-balance term; a serving
+    plan's cache is this rank's shard of each layer's, stacked."""
     x = embed_tokens(params, cfg, tokens, embeds, tp)
     B, S = x.shape[0], x.shape[1] * (1 if tp is None else tp.parts(tp.seq_axes))
     cos_sin = None
@@ -200,10 +202,10 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
     Returns (logits (B, 1, V), cache); the cache is written in place: K and
     V at their slot, an SSM's new state and conv history copied into the
     stacked tensors through the period's views.  On a mesh (``tp``, a
-    decode plan; the dense, MoE and SSM families) the tokens are this rank's
-    stream rows, the cache its shard (each rank writes its own ``ssm`` and
-    ``conv`` shards in place), and the logits come out whole on every
-    rank."""
+    decode plan; the planned families) the tokens and M-RoPE's (3, B, 1)
+    ``positions`` are this rank's stream rows, the cache its shard (each
+    rank writes its own ``ssm`` and ``conv`` shards in place), and the
+    logits come out whole on every rank."""
     x = embed_tokens(params, cfg, tokens, embeds, tp)
     B = x.shape[0]
     cos_sin = None

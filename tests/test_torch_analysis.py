@@ -61,6 +61,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from conftest import REPO, run_isolated_script  # noqa: E402
+from test_torch_hybrid_vlm_parallel import _smoke_plan as _hv_plan  # noqa: E402
 
 CASES = [  # the reference's tests/test_dryrun.py cases
     ("granite-3-8b", "train_4k", "single"),
@@ -408,16 +409,17 @@ def _pspec_paths(tree) -> list:
     return out
 
 
-def _plan(profile: str):
-    """The tensor-parallel layout of granite smoke ``train_4k`` on the smoke
-    mesh, by hand from the resolved specs: the stream's batch and sequence
-    axes, the axes of the heads, the MLP's hidden layer and the vocabulary,
-    and whether the q heads (and the kv heads) split whole (the port's
-    ``head_split``, the rule's one statement)."""
+def _plan(profile: str, arch: str = "granite-3-8b"):
+    """The tensor-parallel layout of a dense smoke model's ``train_4k``
+    (granite's by default) on the smoke mesh, by hand from the resolved
+    specs: the stream's batch and sequence axes, the axes of the heads, the
+    MLP's hidden layer and the vocabulary, and whether the q heads (and the
+    kv heads) split whole (the port's ``head_split``, the rule's one
+    statement)."""
     from repro_torch import configs as C
     from repro_torch.models.common import resolve_spec
     from repro_torch.models.tensor_parallel import head_split
-    cfg, cell = C.get("granite-3-8b", smoke=True), C.smoke_cell("train_4k")
+    cfg, cell = C.get(arch, smoke=True), C.smoke_cell("train_4k")
     B, S, D = cell.global_batch, cell.seq_len, cfg.d_model
 
     def axes(shape, logical, d):
@@ -774,15 +776,15 @@ def test_dryrun_temp_holds_gathered_state(dry, case):
     assert mem["temp_size_in_bytes"] >= need, (mem, need)
 
 
-def _serve_plan(cell_name: str):
-    """The serving layout of granite smoke's ``cell_name`` on the smoke mesh
-    under the baseline profile, by hand from the resolved specs: ``_plan``'s
-    weights' axes with the stream laid out as the cell's tokens, and the
-    cache's rows and sequence axes."""
+def _serve_plan(cell_name: str, arch: str = "granite-3-8b"):
+    """The serving layout of a dense smoke model's ``cell_name`` (granite's
+    by default) on the smoke mesh under the baseline profile, by hand from
+    the resolved specs: ``_plan``'s weights' axes with the stream laid out as
+    the cell's tokens, and the cache's rows and sequence axes."""
     from repro_torch import configs as C
     from repro_torch.models import build
     from repro_torch.models.common import resolve_spec
-    cfg, _, plan = _plan("baseline")
+    cfg, _, plan = _plan("baseline", arch)
     cell = C.smoke_cell(cell_name)
     B, S = cell.global_batch, cell.seq_len
     tokens = _entries(resolve_spec((B, 1 if cell.kind == "decode" else S), ("batch", "seq"),
@@ -793,10 +795,12 @@ def _serve_plan(cell_name: str):
                            cache_seq=c_spec[2])
 
 
-def _hand_serve_collectives(cell_name: str):
-    """Per-device collective bytes and executions of granite smoke's sharded
-    prefill or decode step, from the specs (a product's weights and the
-    stream in bf16, the partial softmax and the logits in float32):
+def _hand_serve_collectives(cell_name: str, arch: str = "granite-3-8b"):
+    """Per-device collective bytes and executions of a dense smoke model's
+    sharded prefill or decode step (granite's by default; the VLM's, whose
+    positions are laid out as its stream, the same), from the specs (a
+    product's weights and the stream in bf16, the partial softmax and the
+    logits in float32):
 
     * each parameter the working layout moves gathered over its embed axes,
       in the compute type (the norms do not move);
@@ -812,7 +816,7 @@ def _hand_serve_collectives(cell_name: str):
     * the logits gathered over the vocab axes, then over the batch axes."""
     from repro_torch.models import build
     from repro_torch.models.common import resolve_spec
-    cfg, cell, plan = _serve_plan(cell_name)
+    cfg, cell, plan = _serve_plan(cell_name, arch)
     B, S, D, V, hd = cell.global_batch, cell.seq_len, cfg.d_model, cfg.vocab, cfg.hd
     R = B // _parts(plan["batch"])
     n = _parts(plan["qkv"])
@@ -1013,6 +1017,318 @@ def test_roofline_moe_block_probe_on_the_plan(moe_dry, arch, cell):
     probe = roof["components"]["moe_block"]
     assert probe["flops"] == want
     assert probe["coll"] > 0
+
+
+# --------------------------------------------------- the hybrid and the VLM
+HV_CASES = [("jamba-v0.1-52b", "train_4k", "single"), ("jamba-v0.1-52b", "long_500k", "multi"),
+            ("qwen2-vl-72b", "decode_32k", "single")]
+HV_IDS = ["-".join(c) for c in HV_CASES]
+
+
+@pytest.fixture(scope="module")
+def hv_dry(tmp_path_factory):
+    """The port's dry-run records of the hybrid's and the VLM's smoke cells
+    on 8 fake ranks, each case's roofline record, and the hybrid's train
+    case through the ZeRO-3 step (``zero3``)."""
+    out = tmp_path_factory.mktemp("hv_dry")
+    _run(f"""
+        import json
+        from pathlib import Path
+        import torch.distributed as dist
+        import repro_torch.configs as C
+        from repro_torch.launch.dryrun import make_mesh, run_cell
+        from repro_torch.launch.roofline import analyze_cell
+        from repro_torch.launch.steps import ShardedTrainStep
+        from repro_torch.substrate import fake_store, init_group
+        init_group("fake", 0, 8, store=fake_store())
+        for arch, cell, mesh_kind in {HV_CASES!r}:
+            assert run_cell(arch, cell, mesh_kind, True, Path({str(out)!r}), device="cpu")
+            rec = analyze_cell(C.get(arch, smoke=True), C.smoke_cell(cell),
+                               make_mesh(mesh_kind, smoke=True, device_type="cpu"), device="cpu")
+            open({str(out)!r} + f"/roof_{{arch}}_{{cell}}.json", "w").write(
+                json.dumps(rec, default=float))
+        ShardedTrainStep.loss_and_grads = ShardedTrainStep._zero3
+        assert run_cell(*{HV_CASES[0]!r}, True, Path({str(out / 'zero3')!r}), device="cpu")
+        dist.destroy_process_group()
+    """)
+    recs = {case: (json.loads((out / f"{case[0]}__{case[1]}__{case[2]}.json").read_text()),
+                   json.loads((out / f"roof_{case[0]}_{case[1]}.json").read_text()))
+            for case in HV_CASES}
+    recs["zero3"] = json.loads((out / "zero3" / "{}__{}__{}.json".format(*HV_CASES[0]))
+                               .read_text())
+    return recs
+
+
+def _hv_keep(path: str, p, spec, plan) -> tuple[str, ...]:
+    """The mesh axes a parameter's working layout keeps: none for the MoE
+    router, an SSM block's conv weights and a q / k / v weight whose heads
+    do not split (whole); the SSM heads' axes for its ``norm``'s and
+    ``out_proj``'s ``ssm_inner`` rows; else all but the embed axes."""
+    name = path.rsplit("/", 1)[-1]
+    if name == "router" or ("ssm_inner" in p.logical and name in ("conv_w", "conv_b")):
+        return ()
+    if (name == "wq" and not plan["q_local"]) or (name in ("wk", "wv") and not plan["kv_local"]):
+        return ()
+    return tuple(ax for e, lname in zip(spec, p.logical) if lname not in ("embed", "embed_d")
+                 for ax in (plan["heads"] if lname == "ssm_inner" and name in ("norm", "out_proj")
+                            else e))
+
+
+def _count(wire) -> tuple[int, dict]:
+    counts: dict = {}
+    for kind, _ in wire:
+        counts[kind] = counts.get(kind, 0) + 1
+    return sum(b for _, b in wire), counts
+
+
+def _hand_hybrid_decode_collectives(arch: str, cell_name: str, mesh_kind: str):
+    """Per-device collective bytes and executions of the hybrid's planned
+    decode step on a smoke mesh, from the specs (weights and the stream in
+    bf16; the SSM norm's scale, the partial softmax, the gated norm's sums
+    and the logits in float32):
+
+    * each parameter gathered over the axes its working layout drops;
+    * the embedding's partial rows summed over the vocab axes;
+    * an SSM layer: the one-token ``in_proj`` row gathered over its
+      columns' axes, the conv history's rows over its channels', the gated
+      norm's sum of squares and ``out_proj``'s partial sums over the heads';
+    * an attention layer: q (and k, v where the kv heads split) gathered
+      over the heads' axes, the partial softmax's max, sum and weighted sum
+      over the cache's sequence axes, ``wo``'s partial sums over the heads';
+    * the MLP's partial sums over its columns' axes, the experts' outputs
+      over the experts' (each rank its own experts of the same tokens);
+    * the logits gathered over the vocab axes, then the batch's."""
+    plan = _hv_plan(arch, cell_name, "baseline", mesh_kind)
+    cfg, cell, sizes = plan["cfg"], plan["cell"], plan["sizes"]
+    B, D, V, hd = cell.global_batch, cfg.d_model, cfg.vocab, cfg.hd
+    di, H, N, k = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_conv
+
+    def n(axes) -> int:
+        return math.prod(sizes[ax] for ax in axes)
+    R, Rc = B // n(plan["batch"]), B // n(plan["cache_batch"])
+    bf, f32 = 2, 4
+    wire = []
+
+    def add(ops, itemsize):
+        wire.extend((kind, m * itemsize) for kind, m in ops)
+    for path, p in _pspec_paths(plan["model"].specs()):
+        spec = plan["spec"](p)
+        own = "ssm_inner" in p.logical and path.endswith("/norm")     # travels in float32
+        add([("all-gather", m) for m in _gathers(math.prod(p.shape), spec, sizes,
+                                                 _hv_keep(path, p, spec, plan))],
+            f32 if own else bf)
+    add(_Stream.sum(R * D, plan["vocab"]), bf)
+    for _ in range(cfg.n_layers // cfg.period):
+        for mixer, channel in cfg.layer_pattern():
+            if mixer == "ssm":
+                add([("all-gather", R * (2 * di + 2 * N + H))] if plan["columns"] else [], bf)
+                add([("all-gather", Rc * (k - 1) * (di + 2 * N))] if plan["conv"] else [], bf)
+                add(_Stream.sum(R, plan["heads"]), f32)
+                add(_Stream.sum(R * D, plan["heads"]), bf)
+            else:
+                heads = [(cfg.n_heads, plan["q_local"]), (cfg.n_kv_heads, plan["kv_local"]),
+                         (cfg.n_kv_heads, plan["kv_local"])]
+                add([("all-gather", R * h * hd) for h, split in heads if split and plan["qkv"]],
+                    bf)
+                add(_Stream.sum(Rc * cfg.n_heads, plan["cache_seq"]) * 2
+                    + _Stream.sum(Rc * cfg.n_heads * hd, plan["cache_seq"]), f32)
+                add(_Stream.sum(R * D, plan["qkv"]), bf)
+            add(_Stream.sum(R * D, plan["ffn"] if channel == "mlp" else plan["experts"]), bf)
+    gathered = R * (V // n(plan["vocab"]))
+    for axes in (plan["vocab"], plan["batch"]):
+        for ax in reversed(axes):
+            gathered *= sizes[ax]
+            add([("all-gather", gathered)], f32)
+    return _count(wire)
+
+
+def _hand_hybrid_train_collectives(arch: str, cell_name: str):
+    """Per-device collective bytes and executions of the hybrid's planned
+    train step on the (data 4, model 2) smoke mesh, from the specs (the
+    stream and the expert weights in bf16; the other weights, the norms'
+    and the loss's sums and the routing counts in float32):
+
+    * each parameter gathered over the axes its working layout drops;
+    * the embedding over the split vocabulary: the tokens' sequence
+      gathered (int32), the partial rows into the stream and back;
+    * each period (its layers checkpointed together): the forward's
+      collectives twice (the forward and the recompute: the period's last
+      product, its MoE block's combine, is followed by none), then each
+      one's adjoint.  An SSM layer: the stream's sequence gathered,
+      ``in_proj``'s output exchanged to the heads' columns, the gated norm's
+      sum of squares summed over the heads, ``out_proj``'s partial sums
+      reduce-scattered (backward: the exchange returns what rank 0 sent,
+      :func:`test_torch_ssm_parallel._sent_columns`).  An attention layer
+      and an MLP: the stream's sequence gathered, the partial sums brought
+      into the stream.  A MoE block whose groups span the sequence's ranks
+      and whose experts split it: the group's expert counts, ``f`` and
+      ``pbar`` gathered over the sequence (``pbar``'s adjoint a
+      reduce-scatter), the dispatched tokens and the experts' outputs each
+      an all-to-all over the experts' axes (each one's adjoint too);
+    * the loss as the dense step's (:func:`_hand_tp_collectives`), the label
+      counts, the loss, the squared norms, each working gradient summed into
+      its parameter's layout."""
+    from repro_torch.models.moe import GROUP
+    from test_torch_ssm_parallel import _sent_columns
+    plan = _hv_plan(arch, cell_name)
+    cfg, cell, sizes = plan["cfg"], plan["cell"], plan["sizes"]
+    assert sizes == SMOKE_MESH and plan["experts"] == plan["seq"]
+    B, S, D = cell.global_batch, cell.seq_len, cfg.d_model
+    di, H, N, E = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.n_experts
+    R, ns = B // _parts(plan["batch"]), _parts(plan["seq"])
+    Sl = S // ns
+    full, own = R * S * D, R * Sl * D
+    nh, nc = _parts(plan["heads"]), _parts(plan["columns"])
+    cols = 2 * di // nh + 2 * N + H // nh
+    gs = min(GROUP, S)
+    nF = Sl // min(gs, Sl)
+    assert gs > Sl      # a group spans ranks of the sequence
+    dispatched = R * E * nF * max(1, int(cfg.capacity_factor * gs * cfg.top_k / E)) * D
+    st = _Stream(plan)
+    bf, f32, i32 = 2, 4, 4
+    wire = []
+
+    def add(ops, itemsize):
+        wire.extend((kind, m * itemsize) for kind, m in ops)
+    leaves = []
+    for path, p in _pspec_paths(plan["model"].specs()):
+        spec = plan["spec"](p)
+        keep = _hv_keep(path, p, spec, plan)
+        leaves.append((p, spec, keep))
+        expert = "experts" in p.logical and "ffn" in p.logical
+        add([("all-gather", m) for m in _gathers(math.prod(p.shape), spec, sizes, keep)],
+            bf if expert else f32)
+    vocab = plan["vocab"]
+    add(st.gather(R * Sl), i32)
+    add(st.to_stream(full, vocab) + st.to_stream_back(full, vocab), bf)
+    fwd, fwd32, back, back32 = [], [], [], []
+    for mixer, channel in cfg.layer_pattern():
+        if mixer == "ssm":
+            fwd += st.gather(own) + [("all-to-all", R * S * cols)] + st.scatter(full)
+            fwd32 += st.sum(R * S, plan["heads"])
+            back += st.gather(own) + [("all-to-all", R * S * _sent_columns(cfg, nc, nh))] \
+                + st.scatter(full)
+            back32 += st.sum(R * S, plan["heads"])
+        else:
+            fwd += st.gather(own) + st.to_stream(full, plan["qkv"])
+            back += st.to_stream_back(full, plan["qkv"]) + st.scatter(full)
+        if channel == "mlp":
+            fwd += st.gather(own) + st.to_stream(full, plan["ffn"])
+            back += st.to_stream_back(full, plan["ffn"]) + st.scatter(full)
+        else:
+            fwd32 += [("all-gather", R * nF * ns * E)] * 3
+            fwd += [("all-to-all", dispatched)] * 2
+            back32 += [("reduce-scatter", R * nF * E)]
+            back += [("all-to-all", dispatched)] * 2
+    for _ in range(cfg.n_layers // cfg.period):
+        add(fwd * 2 + back, bf)
+        add(fwd32 * 2 + back32, f32)
+    add(st.gather(own) + st.scatter(full), bf)
+    add(st.gather(R * Sl), i32)
+    c = min(cfg.loss_chunk, S)
+    add(st.sum(R * c, vocab) * 8 * (-(-S // c)), f32)
+    every = tuple(sizes)
+    add(st.sum(1, every) * 2 + st.sum(len(leaves), every), f32)
+    for p, spec, keep in leaves:
+        add(_tp_reduction(math.prod(p.shape), spec, keep, sizes), f32)
+    return _count(wire)
+
+
+@pytest.mark.parametrize("case", HV_CASES, ids=HV_IDS)
+def test_dryrun_hybrid_vlm_flops_hand_count(hv_dry, case):
+    """The planned train step (jamba smoke) and decode steps (jamba smoke's
+    ``long_500k`` on (pod 2, data 2, model 2), qwen2-vl smoke's
+    ``decode_32k``): the dry-run's per-device product FLOPs equal
+    ``hand_train_flops`` / ``hand_decode_flops`` summed over the layer
+    pattern, with the ranks each axis splits over from the specs."""
+    from repro_torch.models.tensor_parallel import hand_decode_flops, hand_train_flops
+    rec, _ = hv_dry[case]
+    assert rec["ok"], rec.get("error")
+    hand = _hv_plan(case[0], case[1], "baseline", case[2])
+    c = hand["cell"]
+    fn = hand_train_flops if c.kind == "train" else hand_decode_flops
+    assert rec["cost_analysis"]["flops"] == fn(hand["cfg"], c.global_batch, c.seq_len,
+                                               hand["parts"])
+
+
+@pytest.mark.parametrize("case", HV_CASES, ids=HV_IDS)
+def test_dryrun_hybrid_vlm_collectives_hand_count(hv_dry, case):
+    """Each case's collective bytes a device and its executions of each kind
+    equal the hand count from the specs: the hybrid's train step
+    (:func:`_hand_hybrid_train_collectives`) and decode step
+    (:func:`_hand_hybrid_decode_collectives`), the VLM's decode step as the
+    dense family's (:func:`_hand_serve_collectives`: its positions lie as
+    its stream's rows, so they move nothing)."""
+    rec, _ = hv_dry[case]
+    arch, cell, mesh = case
+    if cell == "train_4k":
+        want, counts = _hand_hybrid_train_collectives(arch, cell)
+    elif arch == "qwen2-vl-72b":
+        want, counts = _hand_serve_collectives(cell, arch)
+    else:
+        want, counts = _hand_hybrid_decode_collectives(arch, cell, mesh)
+    assert rec["collectives"]["collective_bytes_per_device"] == want
+    assert rec["collectives"]["collective_bytes"] == want * 8
+    assert rec["collectives"]["op_counts"] == counts
+
+
+@pytest.mark.parametrize("case", HV_CASES, ids=HV_IDS)
+def test_dryrun_hybrid_vlm_temp_holds_working_layouts(hv_dry, case):
+    """The planned steps hold their parameters' working layouts and no whole
+    gather: a decode step's temp at least the bytes of every leaf its
+    working layout moves, in bf16, and below half the whole parameters';
+    the train step's at least twice its working state (the working copy and
+    its gradients, float32) and below the ZeRO-3 step's on the same case,
+    which gathers every parameter and holds every gradient whole."""
+    rec, _ = hv_dry[case]
+    plan = _hv_plan(case[0], case[1], "baseline", case[2])
+    cfg, sizes, mem = plan["cfg"], plan["sizes"], rec["memory_analysis"]
+    whole = working = moved = 0
+    for path, p in _pspec_paths(plan["model"].specs()):
+        spec = plan["spec"](p)
+        keep = _hv_keep(path, p, spec, plan)
+        numel = math.prod(p.shape)
+        whole += numel * _itemsize(cfg.param_dtype)
+        working += numel // math.prod(sizes[ax] for ax in keep) * _itemsize(cfg.param_dtype)
+        if set(keep) != {ax for e in spec for ax in e}:
+            moved += numel // math.prod(sizes[ax] for ax in keep) * 2
+    temp = mem["temp_size_in_bytes"]
+    print(case, temp, working, moved, whole)
+    if plan["cell"].kind == "train":
+        zero3 = hv_dry["zero3"]["memory_analysis"]["temp_size_in_bytes"]
+        assert 2 * working <= temp < zero3 and zero3 >= 2 * whole, (temp, working, zero3)
+    else:
+        assert moved <= temp < whole // 2, (temp, moved, whole)
+
+
+@pytest.mark.parametrize("case", HV_CASES, ids=HV_IDS)
+def test_roofline_hybrid_vlm_probes_on_the_plan(hv_dry, case):
+    """The roofline's probes run the planned layer code: the ``mlp_block``
+    probe's per-device product FLOPs equal the MLP's on this rank's columns
+    (the forward; train: its value and gradients, three times), the
+    ``moe_block`` probe's the block's hand count (``_moe_products`` on this
+    rank's tokens and experts, as the MoE family's test holds it), and each
+    of them runs collectives (the plan's stream or experts)."""
+    from repro_torch.models.tensor_parallel import _mlp_products, _moe_products
+    _, roof = hv_dry[case]
+    hand = _hv_plan(case[0], case[1], "baseline", case[2])
+    cfg, c, parts = hand["cfg"], hand["cell"], hand["parts"]
+    S = 1 if c.kind == "decode" else c.seq_len
+    rows = c.global_batch // parts["batch"]
+    blocks = {"mlp_block": _mlp_products(cfg, rows, S, parts)}
+    if cfg.n_experts:
+        blocks["moe_block"] = _moe_products(cfg, rows, S, parts)
+    for name, m in blocks.items():
+        if c.kind != "train":
+            want = sum(m.values())
+        elif name == "mlp_block":
+            want = 3 * sum(m.values())
+        else:
+            want = 3 * (m["router"] + m["experts"] + m["combine"]) + 2 * (m["route"]
+                                                                          + m["dispatch"])
+        probe = roof["components"][name]
+        assert probe["flops"] == want, (name, probe["flops"], want)
+        assert probe["coll"] > 0
 
 
 def test_dryrun_cli(tmp_path):

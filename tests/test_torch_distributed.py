@@ -30,12 +30,12 @@ import torch.multiprocessing as mp  # noqa: E402
 PIPE_B, PIPE_S = 8, 16
 SMOKE = dict(seq_len=32, global_batch=8, kind="train")
 PSUM_N = 4096
-# the families whose meshed train step is ZeRO-3 (the dense, MoE and SSM
-# families' is tensor-parallel): name -> (arch, mesh shape); the hybrid on
-# (data 4, model 1), on (2, 2) and on (1, 4)
-ZERO3_CASES = {"jamba-v0.1-52b-4x1": ("jamba-v0.1-52b", (4, 1)),
-               "jamba-v0.1-52b": ("jamba-v0.1-52b", (2, 2)),
-               "jamba-v0.1-52b-1x4": ("jamba-v0.1-52b", (1, 4))}
+# the family whose meshed train step is ZeRO-3 (every other family's is
+# tensor-parallel): name -> (arch, mesh shape); the encoder-decoder on
+# (data 4, model 1), on (2, 2) and on (1, 4), fed seeded encoder frames
+ZERO3_CASES = {"whisper-tiny-4x1": ("whisper-tiny", (4, 1)),
+               "whisper-tiny": ("whisper-tiny", (2, 2)),
+               "whisper-tiny-1x4": ("whisper-tiny", (1, 4))}
 ZERO3_ARCHS = sorted({arch for arch, _ in ZERO3_CASES.values()})
 
 
@@ -74,6 +74,21 @@ def smoke_cfg(arch: str, **kw):
     return dataclasses.replace(TC.get(arch, smoke=True), compute_dtype="float32", **kw)
 
 
+def smoke_batch(cfg, data, i: int, shardings=None) -> dict:
+    """Smoke train batch ``i`` of ``data`` (a ``SyntheticLM``): its tokens and
+    labels, with an encoder-decoder's frames seeded normal, laid out by
+    ``shardings`` (``input_shardings``) or whole on the CPU."""
+    from repro_torch.substrate import distribute
+    batch = data.device_batch(i, "cpu") if shardings is None else \
+        data.sharded_batch(i, shardings)
+    if cfg.family == "encdec":
+        frames = torch.as_tensor(np.random.default_rng(50 + i).standard_normal(
+            (SMOKE["global_batch"], cfg.enc_seq, cfg.d_model)).astype(np.float32))
+        batch["frames"] = frames if shardings is None else distribute(frames,
+                                                                       shardings["frames"])
+    return batch
+
+
 def pipe_cfg(layers: int):
     return smoke_cfg("granite-3-8b", n_layers=layers, remat="none")
 
@@ -82,7 +97,7 @@ def pipe_cfg(layers: int):
 def four_rank_job(rank, world, init, tmp, ref):
     """On a 4-rank gloo group: the pipeline at 1 and 2 layers a stage; the
     sharded step on (data 2, model 2), minicpm's (tensor-parallel) and the
-    ZeRO-3 families'; the meshed Trainer with a failure,
+    ZeRO-3 family's; the meshed Trainer with a failure,
     the elastic run's first half and an unresharded run; the reference's
     checkpoint restored onto the mesh and saved again; each rank's rows and
     the round trip of a tuple spec; sharded prefill and decode."""
@@ -123,10 +138,10 @@ def four_rank_job(rank, world, init, tmp, ref):
         state = opt.init(params)
         in_sh = input_shardings(model.input_specs(cell), mesh)
         data = SyntheticLM(DataConfig(cfg.vocab, cell.seq_len, cell.global_batch, 0))
-        _, grads = step.loss_and_grads(params, data.sharded_batch(0, in_sh))
+        _, grads = step.loss_and_grads(params, smoke_batch(cfg, data, 0, in_sh))
         res = dict(grads=[full_value(g) for g in sorted_leaves(grads)], steps=[])
         for i in range(3):
-            params, state, m = step(params, state, data.sharded_batch(i, in_sh))
+            params, state, m = step(params, state, smoke_batch(cfg, data, i, in_sh))
             res["steps"].append((float(m["loss"]), float(m["grad_norm"])))
         res["tensor_parallel"] = bool(step._plans)
         return res
@@ -350,10 +365,10 @@ def one_device_steps(arch: str, weights):
     params = params_from_reference(weights, "cpu")
     state = opt.init(params)
     data = SyntheticLM(DataConfig(cfg.vocab, cell.seq_len, cell.global_batch, 0))
-    _, grads = step.loss_and_grads(params, data.device_batch(0, "cpu"))
+    _, grads = step.loss_and_grads(params, smoke_batch(cfg, data, 0))
     steps = []
     for i in range(3):
-        params, state, m = step(params, state, data.device_batch(i, "cpu"))
+        params, state, m = step(params, state, smoke_batch(cfg, data, i))
         steps.append((float(m["loss"]), float(m["grad_norm"])))
     return sorted_leaves(grads), steps
 
@@ -384,11 +399,12 @@ def test_sharded_train_step_matches_one_device_step(four, reference):
 
 @pytest.mark.parametrize("name", list(ZERO3_CASES))
 def test_zero3_train_step_matches_one_device_step(four, reference, name):
-    """The hybrid smoke config on (data 4, model 1), (2, 2) and (1, 4), in
-    float32 from the reference's weights, through the ZeRO-3 step its
-    family runs on a mesh: the gradients of step 1 and three steps' losses
-    and grad norms against the port's one-device step on the same batches,
-    at the tensor-parallel step's bounds."""
+    """The encoder-decoder's smoke config (whisper) on (data 4, model 1),
+    (2, 2) and (1, 4), in float32 from the reference's weights and seeded
+    frames, through the ZeRO-3 step its family runs on a mesh: the
+    gradients of step 1 and three steps' losses and grad norms against the
+    port's one-device step on the same batches, at the tensor-parallel
+    step's bounds."""
     _, ranks = four
     arch = ZERO3_CASES[name][0]
     runs = [r["zero3"][name] for r in ranks]

@@ -22,10 +22,11 @@ NEW greedy tokens.
 Held: the tokens identical; the logits within 1e-5 of the reference's largest
 (the split softmax of decode is not bit for bit the one-device softmax); each
 rank's prefill and decode cache shard within 1e-6 of the matching slice of
-the reference's cache (``substrate.local_slices``).  The jamba smoke model
-(hybrid) on (2, 2) takes the gathering steps, held to the port's one-device
-steps.  A fake 8-rank trace of the decode and prefill steps of granite,
-dbrx and mixtral smoke (the MoE family's too, under ``moe_ep`` on its own
+the reference's cache (``substrate.local_slices``).  The whisper smoke model
+(the encoder-decoder, the one family without a plan) on (2, 2) takes the
+gathering steps, held to the port's one-device steps.  A fake 8-rank trace
+of the decode and prefill steps of granite, dbrx and mixtral smoke (the MoE
+family's too, under ``moe_ep`` on its own
 mesh) shows that no all-gather outputs more than a rank's cache shard, a
 parameter's working layout or the tokens its experts run on.
 """
@@ -56,7 +57,7 @@ CASES = {  # name: (arch, mesh shape, profile, kv heads: None for the smoke conf
     "granite-serve-kv4-2x2": ("granite-3-8b", (2, 2), "serve", 4),
 }
 B, P, T, NEW = 4, 8, 16, 6
-GATHERING = "jamba-v0.1-52b"
+GATHERING = "whisper-tiny"
 
 
 def model_key(arch: str, kv) -> str:
@@ -70,8 +71,8 @@ def prompts_for(vocab: int) -> np.ndarray:
 def serve_rank_job(rank, world, init, tmp, weights):
     """Every case on one 4-rank gloo group: prefill, the decode cache seeded
     from it, NEW greedy steps; each step's logits and tokens, and this rank's
-    cache shards with their specs.  Then jamba smoke's gathering steps on
-    (2, 2) and on one device."""
+    cache shards with their specs.  Then whisper smoke's gathering steps on
+    (2, 2) and on one device, from seeded frames."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.interop import params_onto_mesh
     from repro_torch.launch.steps import (DecodeStep, PrefillStep, build_decode, build_prefill,
@@ -112,6 +113,8 @@ def serve_rank_job(rank, world, init, tmp, weights):
     model = build(smoke_cfg(GATHERING))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     tokens = torch.as_tensor(prompts_for(model.cfg.vocab))
+    frames = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        (B, model.cfg.enc_seq, model.cfg.d_model)).astype(np.float32))
     runs = {}
     for where in ("mesh", "one"):
         if where == "one":
@@ -124,7 +127,7 @@ def serve_rank_job(rank, world, init, tmp, weights):
             p = tree_map_sorted(distribute, params, psh["params"])
             cache = tree_map_sorted(distribute, init_params(model.cache_specs(B, T), None, "cpu"),
                                     dsh["cache"])
-        _, logits = fwd(p, {"tokens": tokens})
+        _, logits = fwd(p, {"tokens": tokens, "frames": frames})
         seq, tok = [], tokens[:, :1]
         for pos in range(NEW):
             nxt, _, cache = dec(p, cache, {"tokens": tok, "pos": pos})
@@ -220,9 +223,10 @@ def test_sharded_serve_matches_reference(ranks, reference, name):
 
 
 def test_other_families_gather_on_a_mesh(ranks):
-    """The hybrid smoke model on (2, 2) runs the gathering prefill and
-    decode (no tensor-parallel plan is made): its prefill logits within
-    1e-5 of the one-device step's and six greedy tokens identical."""
+    """The encoder-decoder's smoke model (whisper) on (2, 2) runs the
+    gathering prefill and decode (no tensor-parallel plan is made): its
+    prefill logits within 1e-5 of the one-device step's and six greedy
+    tokens identical."""
     for r in ranks:
         (lm, tm, planned), (lo, to, _) = r[GATHERING]["mesh"], r[GATHERING]["one"]
         assert not planned
