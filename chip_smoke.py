@@ -113,11 +113,11 @@ Phases (any failure exits non-zero; nothing is caught):
      on the card from the same seeded weights and batches in float32 (TF32
      off), within g1's 5e-2 in bf16; each rank's peak memory beside the
      one-device step's, and the step's ms (gloo on one card: not a speed);
-     h6, the ZeRO-3 ``ShardedTrainStep`` the family without a plan runs,
-     on h1's (data 1, model 1) NCCL mesh: whisper-tiny as published (its
-     encoder's frames seeded normal), (B, S) = (2, 4096), two steps within
-     1e-5 (loss) and 1e-4 (grad norm) of the one-device step on the card
-     from the same seeded weights and batches; h7, the
+     h6, the encoder-decoder's planned ``ShardedTrainStep`` on h1's (data
+     1, model 1) NCCL mesh: whisper-tiny as published (its encoder's frames
+     seeded normal), (B, S) = (2, 4096), two steps within 1e-5 (loss) and
+     1e-4 (grad norm) of the one-device step on the card from the same
+     seeded weights and batches, the step's plan made; h7, the
      dense family's sharded ``PrefillStep`` and ``DecodeStep`` at
      granite-3-8b's widths cut to 2 layers on 4 gloo ranks spawned on the
      card, a (1, 4) mesh under baseline and a (2, 2) mesh under serve (the
@@ -160,8 +160,17 @@ Phases (any failure exits non-zero; nothing is caught):
      qwen2-vl-72b's published widths cut to 1 layer, (2, 4096) of seeded
      embeds and image-grid (3, B, S) positions, as h12; h15 its sharded
      prefill from (4, 1000) embeds and decode with (3, B, 1) positions, as
-     h13.  h2, h5 and h7-h15 run on one group of 4 gloo ranks spawned once
-     (each rank's spawn-to-first-collective seconds and each phase's
+     h13; h16, the encoder-decoder's planned train step at whisper-tiny as
+     published, (B, S) = (2, 4096) tokens and seeded (2, 1500, 384) frames,
+     on (1, 4) baseline (the 6 heads and the vocabulary whole, 375 frames a
+     rank) and (2, 2) serve, one step (the AdamW update included) against
+     the one-device step at h5's bounds in float32 (TF32 off) and bf16;
+     h17, its sharded prefill of (4, 1000) tokens with their frames,
+     ``seed_cache`` into 1016 self-cache positions (the cross cache carried
+     as the prefill laid it out) and 16 greedy tokens on h7's meshes,
+     float32, logits within 1e-5 of the one-device steps and tokens
+     identical.  h2, h5 and h7-h17 run on one group of 4 gloo ranks spawned
+     once (each rank's spawn-to-first-collective seconds and each phase's
      seconds printed), their one-device references run first in this
      process, each freed; every h phase prints each rank's peak and the
      card's name and power limit;
@@ -222,7 +231,16 @@ Phases (any failure exits non-zero; nothing is caught):
      depth is cut), collective bytes a device at most 1.0 x (train,
      prefill) or 1.5 x (decode) the reference's (long_500k: below a tenth of
      the gathering step's), product FLOPs equal to the hand counts, beside
-     the parent's gathering and ZeRO-3 steps' figures (``I7_BEFORE``);
+     the parent's gathering and ZeRO-3 steps' figures (``I7_BEFORE``); i8,
+     the encoder-decoder's production cells the same way: whisper-tiny's
+     ``train_4k``, ``prefill_32k`` and ``decode_32k`` as published, each
+     record's sum, temp, collective bytes and FLOPs equal to the CPU's
+     counts of the same command (``I8_CPU``) to the byte, FLOPs equal to the
+     hand counts, collective bytes a device at most the reference's (train,
+     prefill) and, for ``decode_32k``, below a hundredth of the gathering
+     step's with its temp below 1 GB, beside the reference's XLA counts
+     (``I8_REFERENCE``) and the parent's ZeRO-3 and gathering steps'
+     (``I8_BEFORE``);
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -291,7 +309,6 @@ from repro_torch.launch.steps import (DecodeStep, PrefillStep, build_decode,  # 
                                       ring_positions, seed_cache)
 from repro_torch.models import build, transformer  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
-from repro_torch.models.model import PLANNED  # noqa: E402
 from repro_torch.models.common import init_params, tree_leaves, tree_to  # noqa: E402
 from repro_torch.models.common import resolve_spec, sharding_profile, sorted_leaves  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
@@ -410,10 +427,9 @@ H3_PODS, H3_NUMEL, H3_ROUNDS, H3_SEED = 2, 16 * 2**20, 50, 13
 # the first step compared with the one-device step, the second timed
 H5_LAYERS, H5_B, H5_S, H5_MESH, H5_SEED, H5_STEPS = 2, 2, 4096, (1, 4), 17, 2
 H5_BOUNDS = {"float32": (1e-5, 1e-4), "bfloat16": (5e-2, 5e-2)}  # loss, grad norm (g1's)
-# h6 the ZeRO-3 step of the family without a plan on h1's (data 1, model 1)
-# mesh: the encoder-decoder as published (its encoder's frames seeded
-# normal), (B, S), steps against the one-device step (the hybrid, planned,
-# is h12's)
+# h6 the encoder-decoder's planned step on h1's (data 1, model 1) mesh:
+# whisper-tiny as published (its encoder's frames seeded normal), (B, S),
+# steps against the one-device step
 H6_ARCHS, H6_B, H6_S, H6_SEED = (("whisper-tiny", False),), 2, 4096, 19
 # h7 the dense family's sharded prefill and decode at granite-3-8b's widths
 # cut to H5_LAYERS layers on 4 gloo ranks sharing the card, each mesh under its
@@ -471,23 +487,44 @@ H13_B, H13_P, H13_NEW, H13_SEED = 4, 1024, 16, 47
 H14_ARCH, H14_LAYERS, H14_B, H14_S, H14_SEED = "qwen2-vl-72b", 1, 2, 4096, 53
 H15_B, H15_P, H15_NEW, H15_SEED = 4, 1000, 16, 59
 GRID = 32
-# the planned train and serving phases: (arch, layers, B, S, mesh, seed) and
-# (arch, layers, B, prompt, cache positions, new tokens, seed); the config
-# changes beside the depth; the train phases that hold step 1's loss and grad
-# norm without the AdamW update (with the float32 moments neither the
-# one-device step nor 4 ranks of h12 fit the card: the dry-run's trace of
-# each takes 81.3 GB of arguments and temp; the update is h5's, h8's and
-# h10's ``AdamW.apply`` on each rank's shards)
-TRAIN_PHASES = {"h5": (LM_ARCH, H5_LAYERS, H5_B, H5_S, H5_MESH, H5_SEED),
-                "h10": (H10_ARCH, H10_LAYERS, H10_B, H10_S, H10_MESH, H10_SEED),
-                "h12": (H12_ARCH, H12_LAYERS, H12_B, H12_S, H12_MESH, H12_SEED),
-                "h14": (H14_ARCH, H14_LAYERS, H14_B, H14_S, H12_MESH, H14_SEED)}
+# h16 the encoder-decoder's planned train step at whisper-tiny as published
+# (4 + 4 layers, d 384, 6 heads, a vocabulary of 51865, 1500 frames), (B, S)
+# tokens and (B, 1500, 384) frames seeded normal, on (1, 4) baseline (the 6
+# heads and the vocabulary whole, 375 frames a rank) and (2, 2) serve, at
+# h5's bounds in float32 (TF32 off) and bf16, one step; h17 its sharded
+# prefill of (H17_B, H17_P) tokens with their frames, seed_cache into
+# H17_P + H17_NEW positions (the cross cache carried) and H17_NEW greedy
+# tokens on each of H7_MESHES, float32, logits within H7_RTOL of the
+# one-device steps and tokens identical
+H16_ARCH, H16_B, H16_S, H16_SEED = "whisper-tiny", 2, 4096, 61
+H16_MESHES = (((1, 4), "baseline"), ((2, 2), "serve"))
+H17_B, H17_P, H17_NEW, H17_SEED = 4, 1000, 16, 67
+# the planned train and serving phases: (arch, layers, B, S, meshes: (shape,
+# profile) each, seed) and (arch, layers, B, prompt, cache positions, new
+# tokens, seed); the config changes beside the depth; the train phases that
+# hold step 1's loss and grad norm without the AdamW update (with the
+# float32 moments neither the one-device step nor 4 ranks of h12 fit the
+# card: the dry-run's trace of each takes 81.3 GB of arguments and temp; the
+# update is h5's, h8's, h10's and h16's ``AdamW.apply`` on each rank's
+# shards), and the steps of the others (H5_STEPS where not named)
+TRAIN_PHASES = {"h5": (LM_ARCH, H5_LAYERS, H5_B, H5_S, ((H5_MESH, "baseline"),), H5_SEED),
+                "h10": (H10_ARCH, H10_LAYERS, H10_B, H10_S, ((H10_MESH, "baseline"),),
+                        H10_SEED),
+                "h12": (H12_ARCH, H12_LAYERS, H12_B, H12_S, ((H12_MESH, "baseline"),),
+                        H12_SEED),
+                "h14": (H14_ARCH, H14_LAYERS, H14_B, H14_S, ((H12_MESH, "baseline"),),
+                        H14_SEED),
+                "h16": (H16_ARCH, configs.get(H16_ARCH).n_layers, H16_B, H16_S, H16_MESHES,
+                        H16_SEED)}
 SERVE_PHASES = {"h7": (LM_ARCH, H5_LAYERS, H7_B, H7_P, H7_CACHE, H7_NEW, H7_SEED),
                 "h11": (H10_ARCH, H10_LAYERS, H11_B, H11_P, H11_P + H11_NEW, H11_NEW, H11_SEED),
                 "h13": (H12_ARCH, H12_LAYERS, H13_B, H13_P, H13_P + H13_NEW, H13_NEW, H13_SEED),
-                "h15": (H14_ARCH, H14_LAYERS, H15_B, H15_P, H15_P + H15_NEW, H15_NEW, H15_SEED)}
+                "h15": (H14_ARCH, H14_LAYERS, H15_B, H15_P, H15_P + H15_NEW, H15_NEW, H15_SEED),
+                "h17": (H16_ARCH, configs.get(H16_ARCH).n_layers, H17_B, H17_P, H17_P + H17_NEW,
+                        H17_NEW, H17_SEED)}
 PHASE_CUTS = {"h12": H12_CUT, "h13": H12_CUT}
 GRADS_ONLY = ("h12", "h14")
+TRAIN_STEPS = {"h16": 1}
 # each serving phase's one-device prefill also runs row by row: the float32
 # spread of the same function batched otherwise (the products' reduction
 # order follows the batch's shape), printed beside the sharded steps'
@@ -499,7 +536,7 @@ SPREAD_BOUND = ("h13",)
 # the phases one group of 4 gloo ranks spawned on the card runs in turn (h2's
 # pipe, then the planned train and serving phases), each rank's memory freed
 # between them; the one-device references run first, each freed
-GROUP_PHASES = ("h2", "h5", "h7", "h8", "h10", "h11", "h12", "h13", "h14", "h15")
+GROUP_PHASES = ("h2", "h5", "h7", "h8", "h10", "h11", "h12", "h13", "h14", "h15", "h16", "h17")
 GROUP_WORLD, GROUP_TIMEOUT_S = 4, 1000
 # bytes the AdamW update moves a float32 parameter: parameter, gradient and
 # both moments read, parameter and moments written
@@ -717,6 +754,54 @@ I7_BEFORE = {
 }
 I7_COLLECTIVE_OVER_REFERENCE = {"train": 1.0, "prefill": 1.0, "decode": 1.5}
 I6_TRAIN_FLOPS_UNDER_BEFORE = 12
+# i8 the encoder-decoder's production cells on the same fleet: whisper-tiny's
+# train_4k, prefill_32k and decode_32k as published on (16, 16) under the
+# baseline profile, each through the dry-run's command line in a process of
+# its own started (at low priority) with phase h and read in phase i.  Beside
+# the reference's XLA compile counts of each cell on 256 fake host devices
+# (python -m repro.launch.dryrun --arch whisper-tiny --cell <cell> --mesh
+# single, on the CPU, jax 0.9.0): argument, temp and output bytes a device,
+# collective bytes a device and its HLO's collective ops by kind; the port's
+# figures before the family was planned (its ZeRO-3 train step and gathering
+# serving steps through the same dry-run, torch 2.13 on the CPU: argument +
+# temp + output, temp, collective bytes a device, product FLOPs); and the
+# planned steps' counts of the same command on the CPU, which the card's host
+# must print to the byte.  decode_32k moves the weights where XLA moves the
+# token (Queue 1 item 14 of ROADMAP.md), so its collective bytes are held
+# below a hundredth of the gathering step's and its temp below 1 GB
+I8_ARCH = "whisper-tiny"
+I8_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+I8_REFERENCE = {
+    "train_4k": dict(argument=67_646_532, temp=15_489_875_632, output=30_750_396,
+                     collective=42_046_598_656,
+                     ops={"collective-permute": 14, "all-gather": 93, "all-reduce": 23,
+                          "all-to-all": 1}),
+    "prefill_32k": dict(argument=14_874_304, temp=631_274_640, output=223_540_464,
+                        collective=2_749_120_912,
+                        ops={"all-gather": 34, "all-reduce": 4, "collective-permute": 1}),
+    "decode_32k": dict(argument=184_498_404, temp=380_911_104, output=176_051_056,
+                       collective=10_438_848,
+                       ops={"all-gather": 16, "all-reduce": 8, "all-to-all": 4,
+                            "collective-permute": 2}),
+}
+I8_BEFORE = {
+    "train_4k": dict(total=28_865_277_864, temp=28_766_881_560, collective=244_197_472,
+                     flops=2.7067e13),
+    "prefill_32k": dict(total=23_500_091_200, temp=16_741_215_232, collective=307_702_784,
+                        flops=2.4303e14),
+    "decode_32k": dict(total=54_135_539_936, temp=53_749_952_000, collective=28_789_583_360,
+                       flops=3.4593e10),
+}
+I8_CPU = {
+    "train_4k": dict(total=27_739_488_168, temp=27_641_091_864, collective=2_866_169_328,
+                     flops=13_818_918_862_848),
+    "prefill_32k": dict(total=897_900_864, temp=832_790_016, collective=777_601_664,
+                        flops=14_434_749_027_840),
+    "decode_32k": dict(total=528_456_096, temp=142_868_160, collective=119_149_568,
+                       flops=536_696_832),
+}
+I8_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0}
+I8_DECODE_OVER_BEFORE, I8_DECODE_TEMP = 0.01, 1e9
 
 
 _T0 = time.perf_counter()
@@ -2452,17 +2537,21 @@ def train_batches(cfg, phase: str, device, shardings=None) -> list:
     """The phase's train batches on the card, or laid out by ``shardings``
     (``input_shardings``): ``SyntheticLM``'s tokens and labels from the
     phase's seed; a VLM's labels with embeds seeded normal on the card and
-    ``grid_positions`` in place of the tokens.  One batch for a phase of
-    ``GRADS_ONLY``, else ``H5_STEPS``."""
+    ``grid_positions`` in place of the tokens; an encoder-decoder's frames
+    seeded normal on the card beside them.  One batch for a phase of
+    ``GRADS_ONLY``, else its ``TRAIN_STEPS`` (``H5_STEPS``)."""
     _, _, B, S, _, seed = TRAIN_PHASES[phase]
     data = SyntheticLM(DataConfig(cfg.vocab, S, B, seed))
     out = []
-    for i in range(1 if phase in GRADS_ONLY else H5_STEPS):
+    for i in range(1 if phase in GRADS_ONLY else TRAIN_STEPS.get(phase, H5_STEPS)):
         batch = data.device_batch(i, device)
+        g = torch.Generator(device).manual_seed(seed + i)
         if cfg.family == "vlm":
-            g = torch.Generator(device).manual_seed(seed + i)
             batch = {"labels": batch["labels"], "positions": grid_positions(B, S, device),
                      "embeds": torch.randn((B, S, cfg.d_model), generator=g, device=device)}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=g,
+                                          device=device)
         out.append(batch if shardings is None else
                    {k: distribute(v, shardings[k]) for k, v in batch.items()})
     return out
@@ -2491,8 +2580,8 @@ def grad_steps(step, params, batches, sync, norm) -> list:
 
 
 def h5_steps(step, opt, params, batches, sync) -> list:
-    """``H5_STEPS`` steps, each timed between a barrier (``sync``) and a
-    synchronize; the loss, grad norm and ms of each."""
+    """A step on each of ``batches``, each timed between a barrier
+    (``sync``) and a synchronize; the loss, grad norm and ms of each."""
     state = opt.init(params)
     rows = []
     for batch in batches:
@@ -2506,38 +2595,45 @@ def h5_steps(step, opt, params, batches, sync) -> list:
 
 
 def tensor_parallel_work(device, phase: str = "h5") -> dict:
-    """One rank of phase h5 (h10, h12, h14) in the group: per compute type,
-    the weights made on the card from the seed and laid out on the (data 1,
-    model 4) mesh, the phase's ``ShardedTrainStep``s (the tensor-parallel
-    step, the SSM blocks head-parallel, the experts split), the first
-    forward's routing, and the rank's peak memory over them."""
-    _, _, B, S, shape, seed = TRAIN_PHASES[phase]
-    mesh = make_mesh(shape, ("data", "model"), device_type=device)
+    """One rank of phase h5 (h10, h12, h14, h16) in the group: per compute
+    type and mesh (under its profile), the weights made on the card from the
+    seed and laid out on the mesh, the phase's ``ShardedTrainStep``s (the
+    tensor-parallel step, the SSM blocks head-parallel, the experts split,
+    an encoder-decoder's frames on their own stream), the first forward's
+    routing, and the rank's peak memory over them."""
+    _, _, B, S, meshes, seed = TRAIN_PHASES[phase]
     out = {}
     for dtype in H5_BOUNDS:
         cfg = h5_config(dtype, phase)
         model = build(cfg)
-        step, opt, sh = build_train(model, mesh, G2_STEPS, G2_PEAK_LR)
-        params = model.init(torch.Generator(device).manual_seed(seed), device)
-        params = tree_map_sorted(distribute, params, sh["params"])
-        in_sh = input_shardings(model.input_specs(ShapeCell(phase, S, B, "train")), mesh)
-        batches = train_batches(cfg, phase, device, in_sh)
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with RouteRecorder(moe_layers(cfg)) as routes:
-            if phase in GRADS_ONLY:
-                rows = grad_steps(step, params, batches, dist.barrier, step.global_norm)
-            else:
-                rows = h5_steps(step, opt, params, batches, dist.barrier)
-        (tp, _, _), = step._plans.values()
-        out[dtype] = dict(steps=rows, routes=routes.probs,
-                          max_memory_allocated=torch.cuda.max_memory_allocated(),
-                          plan=dict(seq=tp.seq_axes, qkv=tp.qkv_axes, ssm_heads=tp.ssm_head_axes,
-                                    ssm_columns=tp.ssm_in_axes, experts=tp.expert_axes))
-        del params, batches, step, opt
-        gc.collect()
-        torch.cuda.empty_cache()
+        out[dtype] = {}
+        for shape, profile in meshes:
+            with sharding_profile(profile):
+                mesh = make_mesh(shape, ("data", "model"), device_type=device)
+                step, opt, sh = build_train(model, mesh, G2_STEPS, G2_PEAK_LR)
+                params = model.init(torch.Generator(device).manual_seed(seed), device)
+                params = tree_map_sorted(distribute, params, sh["params"])
+                in_sh = input_shardings(model.input_specs(ShapeCell(phase, S, B, "train")), mesh)
+                batches = train_batches(cfg, phase, device, in_sh)
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with RouteRecorder(moe_layers(cfg)) as routes:
+                    if phase in GRADS_ONLY:
+                        rows = grad_steps(step, params, batches, dist.barrier, step.global_norm)
+                    else:
+                        rows = h5_steps(step, opt, params, batches, dist.barrier)
+                (tp, _, _), = step._plans.values()
+                out[dtype][profile] = dict(
+                    steps=rows, routes=routes.probs,
+                    max_memory_allocated=torch.cuda.max_memory_allocated(),
+                    plan=dict(seq=tp.seq_axes, qkv=tp.qkv_axes, q_local=tp.q_local,
+                              ssm_heads=tp.ssm_head_axes, ssm_columns=tp.ssm_in_axes,
+                              experts=tp.expert_axes, frames=tp.encoder.seq_axes
+                              if tp.enc_stream_spec is not None else None))
+                del params, batches, step, opt
+                gc.collect()
+                torch.cuda.empty_cache()
     return out
 
 
@@ -2569,6 +2665,14 @@ def train_one_device(device, phase: str = "h5") -> dict:
     return one
 
 
+def depth(arch: str, layers: int) -> str:
+    """How a phase runs ``arch``: ``at its published widths cut to N
+    layers``, or ``as published`` where it keeps the whole depth."""
+    if layers == configs.get(arch).n_layers:
+        return "as published"
+    return f"at its published widths cut to {layers} layers"
+
+
 def check_train(phase: str, one: dict, ranks: list, card: str) -> dict:
     """Phase h5: the dense family's tensor- and sequence-parallel train step
     at granite-3-8b's published widths cut to H5_LAYERS layers, (B, S) =
@@ -2584,59 +2688,68 @@ def check_train(phase: str, one: dict, ranks: list, card: str) -> dict:
     4096): 8 q heads, 4 experts and 32 SSM heads a rank, the vocabulary of
     65536 on model.  h14: the VLM at qwen2-vl's widths cut to 1 layer, (2,
     4096) of seeded embeds and grid positions: 16 q heads, the 8 kv heads and
-    the MLP's columns a rank's share.  Against the one-device ``TrainStep``
-    on the card from the same seeded weights and batches
-    (``train_one_device``): the first step's loss and grad norm within 1e-5
-    and 1e-4 relative in float32 (TF32 off), within g1's bf16 bound in bf16;
-    with experts, every expert choice that differs from the one-device
-    step's at a router probability gap below H8_GAP in float32.  Each rank's
-    peak memory beside the one-device step's; the ms, gloo on one card, are
-    not a speed."""
-    arch, layers, B, S, shape, _ = TRAIN_PHASES[phase]
-    out = dict(arch=arch, layers=layers, batch=[B, S], mesh=list(shape), card=card,
+    the MLP's columns a rank's share.  h16: the encoder-decoder at
+    whisper-tiny as published, (H16_B, H16_S) tokens and seeded (B, 1500,
+    384) frames, on (1, 4) baseline (the sequence, 375 frames and the MLP's
+    columns a rank; the 6 heads and the vocabulary of 51865 whole) and (2, 2)
+    serve (the stream and the frames whole, the MLP's columns on (model,
+    data)).  Against the one-device ``TrainStep`` on the card from the same
+    seeded weights and batches (``train_one_device``): the first step's loss
+    and grad norm within 1e-5 and 1e-4 relative in float32 (TF32 off),
+    within g1's bf16 bound in bf16; with experts, every expert choice that
+    differs from the one-device step's at a router probability gap below
+    H8_GAP in float32.  Each rank's peak memory beside the one-device
+    step's; the ms, gloo on one card, are not a speed."""
+    arch, layers, B, S, meshes, _ = TRAIN_PHASES[phase]
+    out = dict(arch=arch, layers=layers, batch=[B, S], card=card,
                grads_only=phase in GRADS_ONLY, cut=PHASE_CUTS.get(phase, {}))
     for dtype, (b_loss, b_gn) in H5_BOUNDS.items():
         want = one[dtype]["steps"][0]
-        errs = [dict(loss=abs(r[dtype]["steps"][0]["loss"] - want["loss"]) / abs(want["loss"]),
-                     grad_norm=abs(r[dtype]["steps"][0]["grad_norm"] - want["grad_norm"])
-                     / abs(want["grad_norm"])) for r in ranks]
-        gaps = routing_gaps(one[dtype]["routes"], [r[dtype]["routes"] for r in ranks],
-                            configs.get(arch).top_k) if one[dtype]["routes"] else None
-        out[dtype] = dict(
-            rel_err=errs, bounds=dict(loss=b_loss, grad_norm=b_gn), routing=gaps,
-            losses=[[s["loss"] for s in r[dtype]["steps"]] for r in ranks],
-            one_device_losses=[s["loss"] for s in one[dtype]["steps"]],
-            grad_norms=[[s["grad_norm"] for s in r[dtype]["steps"]] for r in ranks],
-            one_device_grad_norms=[s["grad_norm"] for s in one[dtype]["steps"]],
-            rank_max_memory_allocated=[r[dtype]["max_memory_allocated"] for r in ranks],
-            one_device_max_memory_allocated=one[dtype]["max_memory_allocated"],
-            gloo_on_one_card_step_ms=[[s["ms"] for s in r[dtype]["steps"]] for r in ranks],
-            one_device_step_ms=[s["ms"] for s in one[dtype]["steps"]], plan=ranks[0][dtype]["plan"])
-        o = out[dtype]
-        routing = "" if gaps is None else (
-            f"; routing: {gaps['differing']} of {gaps['tokens']} tokens choose other experts, the "
-            f"largest one-device gap among them {gaps['max_differing_gap']:.3e} (bound {H8_GAP} in "
-            f"float32), the least gap of any token {gaps['min_gap']:.3e}")
-        log(f"phase {phase}: {arch} at its published widths cut to {layers} layers"
-            f"{' ' + str(out['cut']) if out['cut'] else ''}, (B, S) = ({B}, {S}), {dtype}, the "
-            f"{'loss and gradients' if out['grads_only'] else 'tensor-parallel step'} (plan "
-            f"{o['plan']}) on a (data, model) = {shape} mesh of 4 gloo ranks on the card: step 1 "
-            f"off the one-device step by loss {max(e['loss'] for e in errs):.3e}, grad norm "
-            f"{max(e['grad_norm'] for e in errs):.3e} (bounds {b_loss}, {b_gn}){routing}; losses "
-            f"{o['losses'][0]} (one device {o['one_device_losses']}); peak by rank "
-            f"{o['rank_max_memory_allocated']} bytes (one device "
-            f"{o['one_device_max_memory_allocated']}); step ms by rank, gloo on one card, not "
-            f"a speed: {[[round(t, 1) for t in r] for r in o['gloo_on_one_card_step_ms']]} "
-            f"(one device {[round(t, 1) for t in o['one_device_step_ms']]}); card {card}")
-        check(all(math.isfinite(x) for r in ranks for s in r[dtype]["steps"]
-                  for x in (s["loss"], s["grad_norm"])), f"{phase} {dtype}: a step is not finite")
-        check(all(e["loss"] <= b_loss and e["grad_norm"] <= b_gn for e in errs),
-              f"{phase} {dtype}: the tensor-parallel step is off the one-device step by {errs} "
-              f"(bounds {b_loss}, {b_gn})")
-        if gaps is not None and dtype == "float32":
-            check(gaps["max_differing_gap"] < H8_GAP,
-                  f"{phase}: an expert choice differs at a gap of "
-                  f"{gaps['max_differing_gap']:.3e}: {gaps}")
+        out[dtype] = {}
+        for shape, profile in meshes:
+            got = [r[dtype][profile] for r in ranks]
+            errs = [dict(loss=abs(g["steps"][0]["loss"] - want["loss"]) / abs(want["loss"]),
+                         grad_norm=abs(g["steps"][0]["grad_norm"] - want["grad_norm"])
+                         / abs(want["grad_norm"])) for g in got]
+            gaps = routing_gaps(one[dtype]["routes"], [g["routes"] for g in got],
+                                configs.get(arch).top_k) if one[dtype]["routes"] else None
+            o = out[dtype][profile] = dict(
+                mesh=list(shape), rel_err=errs, bounds=dict(loss=b_loss, grad_norm=b_gn),
+                routing=gaps, losses=[[st["loss"] for st in g["steps"]] for g in got],
+                one_device_losses=[st["loss"] for st in one[dtype]["steps"]],
+                grad_norms=[[st["grad_norm"] for st in g["steps"]] for g in got],
+                one_device_grad_norms=[st["grad_norm"] for st in one[dtype]["steps"]],
+                rank_max_memory_allocated=[g["max_memory_allocated"] for g in got],
+                one_device_max_memory_allocated=one[dtype]["max_memory_allocated"],
+                gloo_on_one_card_step_ms=[[st["ms"] for st in g["steps"]] for g in got],
+                one_device_step_ms=[st["ms"] for st in one[dtype]["steps"]], plan=got[0]["plan"])
+            routing = "" if gaps is None else (
+                f"; routing: {gaps['differing']} of {gaps['tokens']} tokens choose other "
+                f"experts, the largest one-device gap among them "
+                f"{gaps['max_differing_gap']:.3e} (bound {H8_GAP} in float32), the least gap of "
+                f"any token {gaps['min_gap']:.3e}")
+            log(f"phase {phase}: {arch} {depth(arch, layers)}"
+                f"{' ' + str(out['cut']) if out['cut'] else ''}, (B, S) = ({B}, {S}), {dtype}, "
+                f"the {'loss and gradients' if out['grads_only'] else 'tensor-parallel step'} "
+                f"(plan {o['plan']}) on a (data, model) = {shape} mesh under {profile} of 4 "
+                f"gloo ranks on the card: step 1 off the one-device step by loss "
+                f"{max(e['loss'] for e in errs):.3e}, grad norm "
+                f"{max(e['grad_norm'] for e in errs):.3e} (bounds {b_loss}, {b_gn}){routing}; "
+                f"losses {o['losses'][0]} (one device {o['one_device_losses']}); peak by rank "
+                f"{o['rank_max_memory_allocated']} bytes (one device "
+                f"{o['one_device_max_memory_allocated']}); step ms by rank, gloo on one card, "
+                f"not a speed: {[[round(t, 1) for t in r] for r in o['gloo_on_one_card_step_ms']]}"
+                f" (one device {[round(t, 1) for t in o['one_device_step_ms']]}); card {card}")
+            check(all(math.isfinite(x) for g in got for st in g["steps"]
+                      for x in (st["loss"], st["grad_norm"])),
+                  f"{phase} {dtype} {profile}: a step is not finite")
+            check(all(e["loss"] <= b_loss and e["grad_norm"] <= b_gn for e in errs),
+                  f"{phase} {dtype} {profile}: the tensor-parallel step is off the one-device "
+                  f"step by {errs} (bounds {b_loss}, {b_gn})")
+            if gaps is not None and dtype == "float32":
+                check(gaps["max_differing_gap"] < H8_GAP,
+                      f"{phase}: an expert choice differs at a gap of "
+                      f"{gaps['max_differing_gap']:.3e}: {gaps}")
     return out
 
 
@@ -2644,8 +2757,7 @@ def h6_steps(model, mesh, device) -> list:
     """``H1_STEPS`` steps of ``build_train(model, mesh)`` (the one-device
     step where ``mesh`` is None) from ``H6_SEED``'s weights and batches on
     the card (an encoder-decoder's frames seeded normal): the loss and grad
-    norm of each.  A meshed step must have taken the ZeRO-3 path (it keeps
-    no tensor-parallel plan)."""
+    norm of each.  A meshed step must have made its tensor-parallel plan."""
     cfg = model.cfg
     step, opt, sh = build_train(model, mesh, G2_STEPS, G2_PEAK_LR)
     params = model.init(torch.Generator(device).manual_seed(H6_SEED), device)
@@ -2669,26 +2781,24 @@ def h6_steps(model, mesh, device) -> list:
         params, state, m = step(params, state, batch)
         rows.append(dict(loss=m["loss"].item(), grad_norm=m["grad_norm"].item()))
     if mesh is not None:
-        check(not step._plans, f"h6: {cfg.name}'s meshed step took the tensor-parallel path")
+        check(bool(step._plans), f"h6: {cfg.name}'s meshed step made no plan")
     del params, state, batches, step, opt
     gc.collect()
     torch.cuda.empty_cache()
     return rows
 
 
-def zero3_phase(device) -> dict:
-    """Phase h6: the ZeRO-3 ``ShardedTrainStep`` that every family without
-    a plan runs on a mesh, on a (data 1, model 1) mesh of this process's
-    one-rank NCCL world (h1's): each of ``H6_ARCHS`` (whisper-tiny as
-    published) from the same seeded weights and
-    batches as the one-device step on the card, every loss within 1e-5
-    relative and grad norm within 1e-4 (one rank computes what the
-    one-device step computes)."""
+def encdec_phase(device) -> dict:
+    """Phase h6: the encoder-decoder's planned ``ShardedTrainStep`` on a
+    (data 1, model 1) mesh of this process's one-rank NCCL world (h1's):
+    each of ``H6_ARCHS`` (whisper-tiny as published) from the same seeded
+    weights and batches as the one-device step on the card, every loss
+    within 1e-5 relative and grad norm within 1e-4 (one rank computes what
+    the one-device step computes)."""
     mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
     out = {}
     for arch, smoke in H6_ARCHS:
         cfg = configs.get(arch, smoke=smoke)
-        check(cfg.family not in PLANNED, f"h6: {arch}'s meshed step is tensor-parallel")
         model = build(cfg)
         one, meshed = h6_steps(model, None, device), h6_steps(model, mesh, device)
         errs = [dict(loss=abs(r["loss"] - w["loss"]) / abs(w["loss"]),
@@ -2697,11 +2807,11 @@ def zero3_phase(device) -> dict:
         check(all(math.isfinite(x) for r in meshed for x in r.values()),
               f"h6 {arch}: a step is not finite")
         check(all(e["loss"] <= 1e-5 and e["grad_norm"] <= 1e-4 for e in errs),
-              f"h6 {arch}: the ZeRO-3 step is off the one-device step by {errs}")
+              f"h6 {arch}: the planned step is off the one-device step by {errs}")
         out[arch] = dict(family=cfg.family, layers=cfg.n_layers, smoke=smoke, steps=meshed,
                          one_device_steps=one, rel_err=errs)
         log(f"phase h6: {arch} ({cfg.family}{', smoke config' if smoke else ''}, {cfg.n_layers} "
-            f"layers), (B, S) = ({H6_B}, {H6_S}), the ZeRO-3 step on a (data 1, model 1) mesh, "
+            f"layers), (B, S) = ({H6_B}, {H6_S}), the planned step on a (data 1, model 1) mesh, "
             f"backend {dist.get_backend()}: losses {[r['loss'] for r in meshed]}, grad norms "
             f"{[r['grad_norm'] for r in meshed]}, off the one-device step by {errs} (bounds "
             f"1e-5, 1e-4)")
@@ -2716,18 +2826,22 @@ def h7_config(phase: str = "h7"):
 
 def h7_prompts(cfg, device, phase: str = "h7") -> tuple[dict, torch.Tensor | None]:
     """A serving phase's prefill inputs and its decode steps' (3, B, new)
-    M-RoPE positions (None without M-RoPE): seeded tokens, or a VLM's embeds
-    seeded normal on the card and the grid's positions, the decode's
+    M-RoPE positions (None without M-RoPE): seeded tokens (an
+    encoder-decoder's with frames seeded normal on the card), or a VLM's
+    embeds seeded normal on the card and the grid's positions, the decode's
     continuing it."""
     _, _, B, P, _, new, seed = SERVE_PHASES[phase]
+    g = torch.Generator(device).manual_seed(seed)
     if cfg.family == "vlm":
-        g = torch.Generator(device).manual_seed(seed)
         pos = grid_positions(B, P + new, device)
         return {"embeds": torch.randn((B, P, cfg.d_model), generator=g, device=device),
                 "positions": pos[:, :, :P]}, pos[:, :, P:]
     rng = np.random.default_rng(seed)
-    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)), dtype=torch.int32,
-                                      device=device)}, None
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)), dtype=torch.int32,
+                                     device=device)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=g, device=device)
+    return out, None
 
 
 def h7_run(prefill, decode, seed, params, prompts, sync, new: int = H7_NEW) -> dict:
@@ -2746,7 +2860,7 @@ def h7_run(prefill, decode, seed, params, prompts, sync, new: int = H7_NEW) -> d
     del pcache
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     steps, decode_ms = [(logits.cpu(), tok.cpu())], []
-    P = next(iter(inputs.values())).shape[1]
+    P = inputs["tokens" if "tokens" in inputs else "embeds"].shape[1]
     for i in range(new):
         step_in = {"tokens": tok[:, None], "pos": P + i}
         if positions is not None:
@@ -2787,6 +2901,7 @@ def serve_work(device, phase: str = "h7") -> dict:
                                 plan=dict(q_local=tp.q_local, kv_local=tp.kv_local,
                                           qkv=tp.qkv_axes, cache_rows=tp.cache_row_axes,
                                           cache_seq=tp.cache_seq_axes,
+                                          cross_seq=tp.cross_seq_axes,
                                           ssm_heads=tp.ssm_head_axes,
                                           ssm_columns=tp.ssm_in_axes,
                                           cache_conv=tp.cache_conv_axes,
@@ -2863,7 +2978,9 @@ def check_serve(phase: str, one: dict, ranks: list, card: str) -> dict:
     beyond the one-device prefill's spread (``SPREAD_BOUND``), which every
     phase prints.  h15: the VLM at h14's cut from
     (H15_B, H15_P) seeded embeds and grid positions, decoding with (3, B, 1)
-    positions."""
+    positions.  h17: the encoder-decoder at whisper-tiny as published, a
+    (H17_B, H17_P) prompt with its seeded frames into H17_P + H17_NEW
+    self-cache positions, the cross cache carried over its 1500 frames."""
     arch, layers, B, P, cache_len, new, _ = SERVE_PHASES[phase]
     bound = H7_RTOL + one["spread"] if phase in SPREAD_BOUND else H7_RTOL
     out = dict(arch=arch, layers=layers, batch=B, prompt=P, cache=cache_len, new=new, card=card,
@@ -2884,7 +3001,7 @@ def check_serve(phase: str, one: dict, ranks: list, card: str) -> dict:
                    gloo_on_one_card_prefill_ms=[r[profile]["prefill_ms"] for r in ranks],
                    gloo_on_one_card_decode_ms=[r[profile]["decode_ms"] for r in ranks])
         out[profile] = row
-        log(f"phase {phase}: {arch} at its published widths cut to {layers} layers"
+        log(f"phase {phase}: {arch} {depth(arch, layers)}"
             f"{' ' + str(out['cut']) if out['cut'] else ''}, float32, prefill ({B}, {P}) into a "
             f"{cache_len}-position cache and {new} greedy tokens, sharded on a (data, model) = "
             f"{shape} mesh under {profile} (plan {row['plan']}) of 4 gloo ranks on the card: "
@@ -3207,7 +3324,7 @@ def group_rank(rank, world, init, tmp, device, phases):
 
 
 def group_phases(device) -> dict:
-    """Phases h2, h5, h7-h15 on one group of GROUP_WORLD gloo ranks spawned
+    """Phases h2, h5, h7-h17 on one group of GROUP_WORLD gloo ranks spawned
     on the card: the one-device references first, each run and freed in
     this process (so the ranks have the card), then the ranks run every
     phase in turn; each phase is checked against its reference after."""
@@ -3259,7 +3376,7 @@ def distributed_path(device, g2: dict) -> dict:
     """Phase h: the distribution substrate on the card (h1 in this
     process's one-rank NCCL world, which h4 reuses through
     ``make_test_mesh`` and h6 through a mesh of its own; h3 in a spawned
-    gloo world of 2; h2, h5 and h7-h15 in one spawned gloo group of 4)."""
+    gloo world of 2; h2, h5 and h7-h17 in one spawned gloo group of 4)."""
     init_group("nccl")
     try:
         h1 = meshed_full_width(device, g2)
@@ -3268,7 +3385,7 @@ def distributed_path(device, g2: dict) -> dict:
         h4.update(backend=dist.get_backend(), world=dist.get_world_size())
         log(f"phase h4: the meshed Trainer ran on backend {h4['backend']}, world "
             f"{h4['world']}, mesh {h4['mesh']}")
-        h6 = zero3_phase(device)
+        h6 = encdec_phase(device)
         group = group_phases(device)
     finally:
         dist.destroy_process_group()
@@ -3526,7 +3643,8 @@ def planned_parts(cfg, shape: dict, cell) -> dict:
     vocabulary's columns; the experts and their hidden columns (where the
     experts' axes split the sequence the tokens cross them instead: 1);
     ``in_proj``'s columns, the SSM heads (the decode cache's ``ssm`` leaf);
-    the cache's rows and sequence."""
+    the cache's rows and sequence, an encoder-decoder's cross cache's
+    sequence (the frames')."""
     def axes(entry) -> tuple:
         return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
 
@@ -3539,12 +3657,15 @@ def planned_parts(cfg, shape: dict, cell) -> dict:
     B, S = cell.global_batch, 1 if cell.kind == "decode" else cell.seq_len
     stream = resolve_spec((B, S), ("batch", "seq"), shape)
     specs = model.specs()
-    layer = {k: v for b in specs["blocks"].values() for k, v in b.items()}
+    if cfg.family == "encdec":
+        layer = dict(specs["dec_blocks"], attn=specs["dec_blocks"]["self_attn"])
+    else:
+        layer = {k: v for b in specs["blocks"].values() for k, v in b.items()}
     parts = dict(batch=n(stream[0]), seq=n(stream[1]), vocab=n(spec(specs["embed"])[0]))
     if "attn" in layer:
         parts["qkv"] = n(spec(layer["attn"]["wq"])[2])
     if "mlp" in layer:
-        parts["ffn"] = n(spec(layer["mlp"]["wg"])[2])
+        parts["ffn"] = n(spec(next(iter(layer["mlp"].values())))[2])
     if "moe" in layer:
         w = layer["moe"]["wg"]
         experts, ffn = (axes(spec(w)[w.logical.index(k)]) for k in ("experts", "ffn"))
@@ -3554,8 +3675,10 @@ def planned_parts(cfg, shape: dict, cell) -> dict:
     if "ssm" in layer:
         w = layer["ssm"]["in_proj"]
         parts["ssm_inner"] = n(spec(w)[w.logical.index("ssm_inner")])
-    cache = {k: v for e in model.cache_specs(cell.global_batch, cell.seq_len).values()
-             for k, v in e.items()}
+    caches = model.cache_specs(cell.global_batch, cell.seq_len)
+    cache = {k: v for name, e in caches.items() if name != "cross" for k, v in e.items()}
+    if "cross" in caches:
+        parts["cross_seq"] = n(spec(caches["cross"]["k"])[2])
     if "k" in cache:
         parts.update(cache_batch=n(spec(cache["k"])[1]), cache_seq=n(spec(cache["k"])[2]))
     if "ssm" in cache:
@@ -3635,6 +3758,77 @@ def check_i7(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
     return rows
 
 
+def start_i8(out: str) -> dict:
+    """Phase i8's traces, each in a process of its own at low priority."""
+    return {(I8_ARCH, cell, "single"): start_dryrun(out, cell, 0, I8_ARCH, "single", nice=10)
+            for cell in I8_CELLS}
+
+
+def check_i8(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> dict:
+    """Phase i8: each whisper-tiny cell's record against the reference's
+    counts and the CPU's: sum, temp, collective bytes and FLOPs equal to
+    ``I8_CPU`` to the byte, argument + temp + output below the card's
+    memory, product FLOPs equal to the hand count (``hand_*_flops`` with
+    ``planned_parts``), collective bytes a device at most the reference's
+    (train, prefill) or, for decode_32k, below ``I8_DECODE_OVER_BEFORE`` of
+    the gathering step's with its temp below ``I8_DECODE_TEMP``; the
+    reference's and the parent's figures printed beside them."""
+    rows = {}
+    cfg = configs.get(I8_ARCH)
+    for cell_name in I8_CELLS:
+        what = f"i8 {I8_ARCH} {cell_name}"
+        rec = finish_dryrun(procs[I8_ARCH, cell_name, "single"], out, cell_name, what, I8_ARCH,
+                            "single", timeout=max(1.0, I5_TIMEOUT_S - (time.perf_counter() - t0)))
+        cell = configs.SHAPES[cell_name]
+        hand_fn = dict(train=hand_train_flops, prefill=hand_prefill_flops,
+                       decode=hand_decode_flops)[cell.kind]
+        hand = hand_fn(cfg, cell.global_batch, cell.seq_len,
+                       planned_parts(cfg, rec["mesh_shape"], cell))
+        mem, coll, flops = rec["memory_analysis"], rec["collectives"], rec["cost_analysis"]["flops"]
+        ref, before, cpu = I8_REFERENCE[cell_name], I8_BEFORE[cell_name], I8_CPU[cell_name]
+        total = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] + \
+            mem["output_size_in_bytes"]
+        got = coll["collective_bytes_per_device"]
+        here = dict(total=total, temp=mem["temp_size_in_bytes"], collective=got, flops=flops)
+        row = dict(arch=I8_ARCH, cell=cell_name, trace_s=rec["lower_s"], memory=mem,
+                   argument_temp_output=total, card_bytes=card_bytes,
+                   collective_bytes_per_device=got,
+                   collective_by_kind=coll["collective_bytes_per_device_by_kind"],
+                   collective_ops=coll["op_counts"], flops=flops, hand_flops=hand,
+                   reference=ref, before=before, cpu=cpu, card=card,
+                   temp_over_reference=mem["temp_size_in_bytes"] / ref["temp"],
+                   collectives_over_reference=got / ref["collective"],
+                   collectives_over_before=got / before["collective"])
+        rows[cell_name] = row
+        log(f"phase i8: {I8_ARCH} {cell_name} on the {rec['mesh_shape']} mesh of "
+            f"{math.prod(rec['mesh_shape'].values())} fake ranks, planned: trace "
+            f"{rec['lower_s']} s; argument {mem['argument_size_in_bytes']} / temp "
+            f"{mem['temp_size_in_bytes']} / output {mem['output_size_in_bytes']} bytes a device "
+            f"(the reference's {ref['argument']} / {ref['temp']} / {ref['output']}; temp "
+            f"{row['temp_over_reference']:.4f} x), argument + temp + output {total} against the "
+            f"card's {card_bytes}; collective bytes a device {got:.0f} by kind "
+            f"{coll['collective_bytes_per_device_by_kind']}, ops {coll['op_counts']}, "
+            f"{row['collectives_over_reference']:.4f} x the reference's {ref['collective']} (its "
+            f"HLO's ops {ref['ops']}), {row['collectives_over_before']:.4f} x before's; product "
+            f"FLOPs {flops:.6e}, the hand count {hand:.6e}; the CPU's counts {cpu}; before (the "
+            f"ZeRO-3 or gathering step): {before}; card {card}")
+        check(here == cpu, f"{what}: {here}, not the CPU's counts {cpu}")
+        check(total < card_bytes, f"{what}: argument + temp + output {total} above {card_bytes}")
+        check(flops == hand, f"{what}: {flops} product FLOPs, the hand count {hand}")
+        if cell.kind == "decode":
+            check(got <= I8_DECODE_OVER_BEFORE * before["collective"]
+                  and mem["temp_size_in_bytes"] < I8_DECODE_TEMP,
+                  f"{what}: collective bytes {got} against {I8_DECODE_OVER_BEFORE} x the "
+                  f"gathering step's {before['collective']}, temp {mem['temp_size_in_bytes']}")
+        else:
+            check(row["collectives_over_reference"] <= I8_COLLECTIVE_OVER_REFERENCE[cell_name],
+                  f"{what}: collective bytes {row['collectives_over_reference']:.4f} x the "
+                  f"reference's, above {I8_COLLECTIVE_OVER_REFERENCE[cell_name]}")
+    log(f"phase i8: {time.perf_counter() - t0:.1f} s from the traces' start to their last "
+        f"record")
+    return rows
+
+
 def traced_train_flops(cfg, B: int, S: int) -> int:
     """The product FLOPs one train step of a swiglu decoder runs, as the
     dry-run counts them: ``train_bounds``' products, but every (q, k) tile
@@ -3656,7 +3850,7 @@ def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float)
     ``start_analysis`` started with phase h (``procs``, their output in
     ``out``): i1, the dry-run of g2's cell, then i2, the roofline of the
     cells g2 and e2 ran, on a one-rank fake world (this process's default
-    group for i2 alone); i3, i4, i5, i6 and i7."""
+    group for i2 alone); i3, i4, i5, i6, i7 and i8."""
     card = smi("name,power.limit")
     t3 = time.perf_counter()
     i1, i2 = analysis_one_rank(device, g2, e2, card, procs["i1"], out)
@@ -3707,7 +3901,9 @@ def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float)
     i5 = check_i5(procs, out, t0, card_bytes, card)
     i6 = check_i6(procs, out, t0, card_bytes, card)
     i7 = check_i7(procs, out, t0, card_bytes, card)
-    return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, i5=i5, i6=i6, i7=i7, card=card)
+    i8 = check_i8(procs, out, t0, card_bytes, card)
+    return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, i5=i5, i6=i6, i7=i7, i8=i8,
+                card=card)
 
 
 def i1_trace(out: str, device: str = "cuda") -> None:
@@ -3738,11 +3934,11 @@ def start_i1(out: str) -> subprocess.Popen:
 
 def start_analysis(out: str) -> dict:
     """Phase i's traces, each in a process of its own at low priority,
-    started with phase h: i1's, i3's, i4's, i5's, i6's and i7's."""
+    started with phase h: i1's, i3's, i4's, i5's, i6's, i7's and i8's."""
     procs = {"i1": start_i1(out), "i3": start_dryrun(out, I3_CELL, nice=10)}
     for cell, layers in I4_CELLS:
         procs[cell] = start_dryrun(out, cell, layers, nice=10)
-    return {**procs, **start_i5(out), **start_i6(out), **start_i7(out)}
+    return {**procs, **start_i5(out), **start_i6(out), **start_i7(out), **start_i8(out)}
 
 
 def analysis_one_rank(device, g2: dict, e2: dict, card: str, proc: subprocess.Popen,

@@ -19,17 +19,18 @@ the reference:
 Training probes run the scalarised probe's value and its gradients
 (``torch.autograd`` in place of ``jax.value_and_grad``); remat="full" adds
 one forward per layer with the reference's approximation (a third of the
-probe's figures).  A probe runs as the port's step runs that layer: the
-planned families' probes (every family but the encoder-decoder) call the
-layer code of their tensor-parallel steps (``models.tensor_parallel``: parameters gathered over
-their embed axes, this rank's heads, columns, experts and vocabulary, the
-stream's, the dispatched tokens' and ``in_proj``'s output's collectives;
-the train probes sum their gradients into the parameters' layouts, the
-expert weights travelling in the compute type, the prefill and decode
-probes gather their weights in the compute type, decode attends over this
-rank's cache shard and steps its SSM heads' state; the SSD chunk probe
-runs on this rank's rows and heads); the encoder-decoder's probes gather
-their parameters whole, as its steps do.
+probe's figures).  A probe runs as the port's step runs that layer: every
+family's probes call the layer code of its tensor-parallel steps
+(``models.tensor_parallel``: parameters gathered over their embed axes,
+this rank's heads, columns, experts and vocabulary, the stream's, the
+dispatched tokens' and ``in_proj``'s output's collectives; the train probes
+sum their gradients into the parameters' layouts, the expert weights
+travelling in the compute type, the prefill and decode probes gather their
+weights in the compute type, decode attends over this rank's cache shard
+and steps its SSM heads' state; the SSD chunk probe runs on this rank's
+rows and heads; the encoder-decoder's encoder blocks run at its frames on
+the frames' layout, and its decode's cross-attention over the cross
+cache's shard).
 
 Per device: the counter counts this rank's local ops below the ``DTensor``
 layer, so ``flops`` and ``coll`` are one device's, as XLA's are under SPMD.
@@ -59,24 +60,23 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs.base import ArchConfig, ShapeCell
 from ..models.common import (PSpec, ShardingProfile, abstract_params, active_profile,
                              param_shardings, profile_names, resolve_profile, resolve_spec,
                              sharding_profile, sorted_leaves, torch_dtype)
-from ..models.layers import (attn_decode, attn_out, attn_specs, mlp, mlp_specs, qkv_proj,
-                             rmsnorm, rmsnorm_spec)
-from ..models.model import PLANNED
+from ..models.layers import (attn_decode, attn_out, attn_prefill, attn_specs, mlp, mlp_specs,
+                             qkv_proj, rmsnorm, rmsnorm_spec)
+from ..models.encdec import _cross_decode
+from ..models.model import Model
 from ..models.moe import moe, moe_specs
 from ..models.ssm import (_causal_conv, _conv_params, _gated_norm, _in_proj, _out_proj, _segsum,
                           ssd_decode, ssm_specs)
 from ..models.tensor_parallel import (TensorParallel, expert_leaves, plan_decode,
                                       plan_prefill, plan_train, spec_entry,
                                       weight_leaves)
-from ..models.transformer import _xent_chunk, cache_specs, embed_tokens, model_specs
-from ..substrate import (CostCounter, Sharding, full_value, local_value, mesh_context,
-                         reduce_over)
+from ..models.transformer import _xent_chunk, embed_tokens
+from ..substrate import CostCounter, Sharding, local_value, mesh_context
 from .dryrun import laid_out
 from .hlo_stats import collective_stats
 from .mesh import mesh_axis_sizes
@@ -123,39 +123,18 @@ def _tree(fn, tree):
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
-def _batch_rows(x: DTensor) -> torch.Tensor:
-    """This rank's batch rows of a ``DTensor``: the split of its first
-    dimension kept, every other dimension gathered."""
-    keep = [p if p.is_shard(0) else Replicate() for p in x.placements]
-    return x.redistribute(x.device_mesh, keep).to_local()
-
-
-def _split_axes(shardings, mesh) -> tuple[str, ...]:
-    """The mesh axes that split any of ``shardings``' tensors, in mesh order."""
-    used = {ax for sh in sorted_leaves(shardings) for entry in sh.spec if entry is not None
-            for ax in (entry if isinstance(entry, tuple) else (entry,))}
-    return tuple(ax for ax in mesh.mesh_dim_names if ax in used)
-
-
-def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", n_params: int = 0,
-                   grad: bool = False, rows_only: tuple[int, ...] = (),
+def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", grad: bool = False,
                    tp: TensorParallel | None = None, param_specs=None,
                    work_dtype: torch.dtype | None = None, work_cast=None) -> dict:
     """Trace ``fn`` once on fake ``DTensor``s laid out by ``shardings`` on
-    ``mesh``, as the port's sharded step runs a layer.  Without ``tp`` (the
-    ZeRO-3 step, every family without a plan): the first ``n_params``
-    arguments (parameter trees) all-gathered to their full values, the
-    arguments ``rows_only`` on their batch rows (as the decode step gathers
-    its cache), every other argument on this rank's shards; a gradient
-    probe's parameter gradients reduce-scattered back into their layouts
-    over the mesh axes that split the other arguments.  With ``tp`` (the
-    planned families' tensor-parallel steps): the parameter tree (of
-    the PSpecs ``param_specs``) in its working layout (the leaves
-    ``work_cast`` marks, all where it is None, gathered in ``work_dtype``,
-    the compute type) and a gradient probe's gradients summed from there
-    into the parameters' layouts, as ``ShardedTrainStep`` does.
-    Returns per-device product flops, unfused and fusion-ideal bytes, and
-    collective bytes."""
+    ``mesh``, as the port's sharded step runs a layer: every argument on
+    this rank's shards; with ``tp`` (the step's plan; the first argument is
+    then a parameter tree of the PSpecs ``param_specs``) the parameters in
+    their working layout (the leaves ``work_cast`` marks, all where it is
+    None, gathered in ``work_dtype``, the compute type) and a gradient
+    probe's gradients summed from there into the parameters' layouts, as
+    ``ShardedTrainStep`` does.  Returns per-device product flops, unfused
+    and fusion-ideal bytes, and collective bytes."""
     # the outputs' global shapes, for the fusion-ideal bytes
     outs = fn(*(_traced(a, s, lambda m, _: torch.empty_like(m))
                 for a, s in zip(args, shardings)))
@@ -171,16 +150,10 @@ def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", n_params: in
                 local = [tp.working(laid[0], layouts, work_dtype, work_cast)] + \
                     [_tree(local_value, a) for a in laid[1:]]
             else:
-                local = [_tree(full_value if i < n_params else
-                               _batch_rows if i in rows_only else local_value, a)
-                         for i, a in enumerate(laid)]
+                local = [_tree(local_value, a) for a in laid]
             out = fn(*local) if tp is None else fn(*local, tp=tp)
             if grad and tp is not None:
                 tp.reduce_grads(out[1][0], laid[0], layouts)
-            elif grad and n_params:
-                axes = _split_axes(shardings[n_params:], mesh)
-                for g, p in zip(out[1][0], sorted_leaves(laid[0])):
-                    reduce_over(g, mesh, axes, p.placements)
     coll = collective_stats(counter.collectives, mesh.mesh.numel())
     return {
         "flops": float(counter.flops),
@@ -198,9 +171,7 @@ class Probe:
     shardings: tuple
     trips: float
     grad: bool = False  # trace the value and its gradients instead of fn
-    n_params: int = 0   # leading arguments that are parameter trees
-    rows_only: tuple[int, ...] = ()  # arguments traced on their batch rows only
-    tp: TensorParallel | None = None  # the planned families' step's plan
+    tp: TensorParallel | None = None  # the step's plan (the first argument: its parameters)
     param_specs: dict | None = None   # the parameter tree's PSpecs, with tp
     work_dtype: torch.dtype | None = None  # the type the weights travel in, with tp
     work_cast: list | None = None     # the leaves that travel so (None: all), with tp
@@ -246,36 +217,33 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
     n_ssm = sum(1 for mx, _ in pattern if mx == "ssm") * reps
     n_mlp = sum(1 for _, ch in pattern if ch == "mlp") * reps
     n_moe = sum(1 for _, ch in pattern if ch == "moe") * reps
-    if cfg.family == "encdec":
-        # self+cross projections at S tokens; encoder blocks at enc_seq tokens
-        # are folded in as fractional trips of the S-token probes
-        frac = cfg.enc_seq / max(S, 1)
-        n_attn = cfg.n_layers * 2 + cfg.enc_layers * frac
-        n_mlp = cfg.n_layers + cfg.enc_layers * frac
+    encdec = cfg.family == "encdec"
+    if encdec:
+        # the decoder's self-attention (train and prefill: its cross-attention's
+        # projections too) at S tokens; the encoder's blocks, and decode's
+        # cross-attention, are probes of their own
+        n_attn, n_mlp = cfg.n_layers * (1 if decode else 2), cfg.n_layers
 
     x_sh = _sh(mesh, (B, S, D), ("batch", "seq", "none"))
     x_abs = _abs((B, S, D), bf16)
-    # the planned families' steps are tensor-parallel (launch.steps): their
-    # probes run the step's layer code on this rank's working shards, and on
-    # whole tensors (tp=None) for their outputs' global shapes
-    plan = None
-    if cfg.family in PLANNED:
-        if train:
-            plan = plan_train(cfg, model_specs(cfg), mesh, (B, S))
-        elif decode:
-            plan = plan_decode(cfg, model_specs(cfg), cache_specs(cfg, B, S), mesh, B)
-        else:
-            plan = plan_prefill(cfg, model_specs(cfg), mesh, (B, S))
+    # every family's steps are tensor-parallel (launch.steps): the probes run
+    # the step's layer code on this rank's working shards under the step's
+    # plan, and on whole tensors (tp=None) for their outputs' global shapes
+    model = Model(cfg)
+    if train:
+        plan = plan_train(cfg, model.specs(), mesh, (B, S))
+    elif decode:
+        plan = plan_decode(cfg, model.specs(), model.cache_specs(B, S), mesh, B)
+    else:
+        plan = plan_prefill(cfg, model.specs(), mesh, (B, S))
 
-    def add(name, fn, params_specs, extra_args, extra_sh, trips, grad, argnums=(0, 1),
-            rows_only=()):
+    def add(name, fn, params_specs, extra_args, extra_sh, trips, grad, argnums=(0, 1), tp=plan):
         p_abs = abstract_params(params_specs, f32)
         p_sh = param_shardings(params_specs, mesh)
         g = _value_and_grad(_scalarize(fn), argnums) if grad else fn
         probes.append(Probe(name, g, (p_abs,) + extra_args, (p_sh,) + extra_sh, trips, grad,
-                            n_params=1, rows_only=rows_only, tp=plan,
-                            param_specs=params_specs if plan is not None else None,
-                            work_dtype=None if plan is None else bf16,
+                            tp=tp, param_specs=params_specs,
+                            work_dtype=bf16,
                             work_cast=expert_leaves(params_specs) if train
                             else weight_leaves(params_specs)))
 
@@ -292,6 +260,22 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
             return x + attn_out(p, ctx.flatten(2), tp)
 
         add("attn_proj", attn_proj, specs, (x_abs,), (x_sh,), n_attn, train)
+        if encdec:
+            T = cfg.enc_seq
+            enc_abs = _abs((B, T, D), bf16)
+            enc_sh = _sh(mesh, (B, T, D), ("batch", "seq", "none"))
+
+            def enc_attn(p, x, tp=None):
+                h = rmsnorm(p["norm"], x, cfg.norm_eps)
+                return x + attn_prefill(p, h, cfg, None, causal=False, tp=tp)[0]
+
+            def enc_mlp(p, x, tp=None):
+                return x + mlp(p, rmsnorm(p["norm"], x, cfg.norm_eps), cfg, tp)
+
+            add("enc_attn_block", enc_attn, specs, (enc_abs,), (enc_sh,), cfg.enc_layers,
+                train, tp=plan.encoder)
+            add("enc_mlp_block", enc_mlp, {"norm": rmsnorm_spec(D), **mlp_specs(cfg)},
+                (enc_abs,), (enc_sh,), cfg.enc_layers, train, tp=plan.encoder)
 
         hq, hd = cfg.n_heads, cfg.hd
         # flat-Hq layout: q as (B, Hq, Q, hd) with Hq on the model axis; k/v
@@ -353,6 +337,18 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
 
         add("dec_attn", dec_attn, specs, (x1, cache_abs, _abs((), i32)),
             (x1_sh, cache_sh, Sharding(mesh, ())), n_attn, False)
+        if encdec:
+            T = cfg.enc_seq
+            cross_abs = {k: _abs((B, T, cfg.n_kv_heads, cfg.hd), bf16) for k in ("k", "v")}
+            cross_sh = {k: _sh(mesh, v.shape, ("cache_batch", "cache_seq", "heads", "cache_hd"))
+                        for k, v in cross_abs.items()}
+
+            def dec_cross(p, x, cache, tp=None):
+                h = rmsnorm(p["norm"], x, cfg.norm_eps)
+                return x + _cross_decode({"cross_attn": p}, h, cache, cfg, tp)
+
+            add("dec_cross", dec_cross, specs, (x1, cross_abs), (x1_sh, cross_sh),
+                cfg.n_layers, False)
 
     # ---------------------------------------------------------------- ssd
     if n_ssm:
@@ -371,11 +367,9 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
                 out, ns = ssd_decode(p["ssm"], h, cfg, state, tp)
                 return x + out, ns
 
-            # without a plan the state on its batch rows (the gathered
-            # projections give every channel); on one, its cache shard
+            # the state and the conv history on this rank's cache shard
             add("dec_ssd", dec_ssd, specs, (x1, st),
-                (_sh(mesh, x1.shape, ("batch", "none", "none")), st_sh), n_ssm, False,
-                rows_only=(2,))
+                (_sh(mesh, x1.shape, ("batch", "none", "none")), st_sh), n_ssm, False)
         else:
             # (a) per-layer projections: weights stream from HBM once per
             # layer; on a plan the head-parallel layer's: in_proj's output
@@ -399,17 +393,10 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
             xh = _abs((B, Q, H, P), bf16)
             Bh = _abs((B, Q, N), f32)
             dth = _abs((B, Q, H), f32)
-            inner_sh = (
-                _sh(mesh, xh.shape, ("batch", "none", "ssm_inner", "none")),
-                _sh(mesh, Bh.shape, ("batch", "none", "none")),
-                _sh(mesh, Bh.shape, ("batch", "none", "none")),
-                _sh(mesh, dth.shape, ("batch", "none", "ssm_inner")),
-            )
-            if plan is not None:
-                rows, heads = spec_entry(plan.batch_axes), spec_entry(plan.ssm_head_axes)
-                inner_sh = (Sharding(mesh, (rows, None, heads, None)),
-                            Sharding(mesh, (rows, None, None)), Sharding(mesh, (rows, None, None)),
-                            Sharding(mesh, (rows, None, heads)))
+            rows, heads = spec_entry(plan.batch_axes), spec_entry(plan.ssm_head_axes)
+            inner_sh = (Sharding(mesh, (rows, None, heads, None)),
+                        Sharding(mesh, (rows, None, None)), Sharding(mesh, (rows, None, None)),
+                        Sharding(mesh, (rows, None, heads)))
 
             def ssd_inner(xh, Bc, Cc, dt):
                 # this rank's heads
@@ -526,8 +513,8 @@ def _analyze_cell(cfg: ArchConfig, cell: ShapeCell, mesh, prof: ShardingProfile,
     comps = {}
     totals = {"flops": 0.0, "bytes": 0.0, "bytes_hlo": 0.0, "coll": 0.0}
     for pr in build_probes(cfg, cell, mesh):
-        st = _compile_stats(pr.fn, pr.args, pr.shardings, mesh, device, pr.n_params, pr.grad,
-                            pr.rows_only, pr.tp, pr.param_specs, pr.work_dtype,
+        st = _compile_stats(pr.fn, pr.args, pr.shardings, mesh, device, pr.grad,
+                            pr.tp, pr.param_specs, pr.work_dtype,
                             pr.work_cast)
         comps[pr.name] = {**st, "trips": pr.trips, "grad": pr.grad}
         for k in totals:

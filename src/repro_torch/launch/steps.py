@@ -6,9 +6,9 @@ Without a mesh a step runs eagerly on the parameters' device, gradients from
 
 On a mesh the state lives as ``DTensor``s laid out by ``Model.shardings``
 and ``AdamW.moment_specs`` (FSDP over ``data`` under the baseline profile).
-:class:`ShardedTrainStep` splits the compute of the families of ``PLANNED``
-(dense, MoE, SSM, the hybrid and the VLM) over the mesh as the reference's
-``LOGICAL_RULES`` lay it out (``models.tensor_parallel``):
+:class:`ShardedTrainStep` splits the compute of every family (dense, MoE,
+SSM, the hybrid, the VLM and the encoder-decoder) over the mesh as the
+reference's ``LOGICAL_RULES`` lay it out (``models.tensor_parallel``):
 
   1. gather each parameter over its ``embed`` axes only (its working
      layout; a q / k / v weight whose heads do not split, a MoE router and
@@ -29,7 +29,10 @@ and ``AdamW.moment_specs`` (FSDP over ``data`` under the baseline profile).
      hidden columns and runs every expert on its own groups:
      ``models.moe``); an SSM block runs its heads' chunked SSD over its
      rows' whole sequence, ``in_proj``'s output moved from its stored
-     columns to the heads' (``models.ssm``);
+     columns to the heads' (``models.ssm``); an encoder-decoder's frames
+     are a stream of their own (this rank's rows and, where they divide
+     it, its slice of the frames), and its cross-attention reads its rows
+     of the encoder's output over every frame (``models.encdec``);
   3. weight the rank's loss by its share of the valid labels (and by one
      over the ranks that hold the same tokens), and add its share of the
      load-balance term, so the per-rank values sum, over the mesh, to the
@@ -46,27 +49,24 @@ and ``AdamW.moment_specs`` (FSDP over ``data`` under the baseline profile).
      order;
   6. ``AdamW.apply`` on each rank's shards, in place.
 
-The encoder-decoder runs ZeRO-3 instead: every parameter gathered whole,
-each rank computing its batch rows' whole sequence, each gradient
-reduce-scattered over the batch axes; so its ``model`` axis shards storage,
-not compute.  That is a choice by family, not a fallback: its
-cross-attention layout is a later slice (ROADMAP).
+No family gathers its weights whole on a mesh: a model whose plan raises
+``ValueError`` there fails.  (``ShardedTrainStep._zero3``, every parameter
+gathered whole, is kept only as the dry-run's yardstick that the tests
+patch in.)
 
-:class:`PrefillStep` and :class:`DecodeStep` on a mesh split the planned
-families' serving the same way (``plan_prefill``, ``plan_decode``):
-each parameter gathered over its ``embed`` axes only, in the compute type
-(``weight_leaves``); each input's own shard; the decode cache kept in the
-reference's layout (attention: the decode-SP one, rows on ``cache_batch``,
-sequence on ``cache_seq``, every kv head; SSM: the state's heads and the
-conv history's channels on ``ssm_inner``), each rank reading and writing
-only its shard, in place.  Prefill returns its cache laid out so, every
-position (a sliding window's too), and :func:`seed_cache` moves it into a
-decode cache, shard to shard (a window's ring slots as the engine fills
-them; an SSM's state and conv history as they are); both return the logits
-and the next tokens whole on every rank.  The encoder-decoder's prefill and
-decode gather every parameter, input and cache leaf whole and compute the
-whole batch on every rank, as its train step does.  A planned model whose
-plan raises ``ValueError`` on a mesh fails; it does not gather instead.
+:class:`PrefillStep` and :class:`DecodeStep` on a mesh split serving the
+same way (``plan_prefill``, ``plan_decode``): each parameter gathered over
+its ``embed`` axes only, in the compute type (``weight_leaves``); each
+input's own shard; the decode cache kept in the reference's layout
+(attention: the decode-SP one, rows on ``cache_batch``, sequence on
+``cache_seq``, every kv head; an encoder-decoder's cross cache the same
+over its frames; SSM: the state's heads and the conv history's channels on
+``ssm_inner``), each rank reading and writing only its shard, in place.
+Prefill returns its cache laid out so, every position (a sliding window's
+too), and :func:`seed_cache` moves it into a decode cache, shard to shard (a
+window's ring slots as the engine fills them; an SSM's state and conv
+history and the cross cache as they are); both return the logits and the
+next tokens whole on every rank.
 ``abstract_state`` and ``abstract_cache`` give the state and the cache as
 ``meta`` tensors for the dry-run (``launch.dryrun``).
 """
@@ -82,12 +82,12 @@ from torch.distributed.tensor import DTensor, Replicate
 from ..configs.base import ArchConfig, ShapeCell
 from ..models.common import (abstract_params, active_profile, param_shardings, resolve_spec,
                              sorted_leaves, torch_dtype, tree_map_pspec)
-from ..models.model import PLANNED, Model
+from ..models.model import Model
 from ..models.tensor_parallel import (TensorParallel, expert_leaves, plan_decode, plan_prefill,
                                       plan_train, weight_leaves)
 from ..optim import AdamW, AdamWState, for_config
 from ..optim.adamw import tree_map_sorted
-from ..substrate import (Sharding, chunk_of, distribute, exchange_over, from_shard,
+from ..substrate import (Sharding, chunk_of, exchange_over, from_shard,
                          full_value, gather_over, local_value, psum, reduce_over)
 from .mesh import mesh_axis_sizes
 
@@ -194,9 +194,14 @@ def _position_rows(x, tp: TensorParallel) -> torch.Tensor:
 def _stream_inputs(batch: dict, tp: TensorParallel) -> dict:
     """This rank's shard of each model input a planned step takes: the
     tokens (or a VLM's embeds) and the labels laid out as the stream, its
-    rows and sequence slice; M-RoPE's positions by :func:`_position_rows`."""
+    rows and sequence slice; an encoder-decoder's frames as the frames'
+    stream (its rows and slice of the frames); M-RoPE's positions by
+    :func:`_position_rows`."""
     out = {k: _stream_rows(batch[k], Sharding(tp.mesh, tp.stream_spec + (None,) * (k == "embeds")))
            for k in ("tokens", "embeds", "labels") if k in batch}
+    if "frames" in batch:
+        out["frames"] = _stream_rows(batch["frames"],
+                                     Sharding(tp.mesh, tp.enc_stream_spec + (None,)))
     if "positions" in batch:
         out["positions"] = _position_rows(batch["positions"], tp)
     return out
@@ -205,17 +210,9 @@ def _stream_inputs(batch: dict, tp: TensorParallel) -> dict:
 @dataclasses.dataclass(frozen=True)
 class ShardedTrainStep(TrainStep):
     """The train step on a mesh: tensor-, sequence- and expert-parallel for
-    the dense, MoE, hybrid and VLM families, head-parallel for the SSM
-    blocks, ZeRO-3 for the encoder-decoder (the module docstring)."""
+    every family, head-parallel for the SSM blocks (the module docstring)."""
     mesh: Any = None
     _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
-
-    def loss_and_grads(self, params, batch):
-        """The whole batch's loss (the same on every rank) and its
-        gradients, each a ``DTensor`` laid out as its parameter."""
-        if self.model.cfg.family in PLANNED:
-            return self._tensor_parallel(params, batch)
-        return self._zero3(params, batch)
 
     def plan(self, labels) -> tuple[TensorParallel, list, list]:
         """The planned step's plan for a batch of ``labels``' (global) shape
@@ -229,7 +226,9 @@ class ShardedTrainStep(TrainStep):
             self._plans[key] = (tp, tp.layouts(specs), expert_leaves(specs))
         return self._plans[key]
 
-    def _tensor_parallel(self, params, batch):
+    def loss_and_grads(self, params, batch):
+        """The whole batch's loss (the same on every rank) and its
+        gradients, each a ``DTensor`` laid out as its parameter."""
         mesh, model = self.mesh, self.model
         tp, layouts, cast = self.plan(batch["labels"])
         work = tp.working(params, layouts, torch_dtype(model.cfg.compute_dtype), cast)
@@ -253,6 +252,11 @@ class ShardedTrainStep(TrainStep):
         return over_mesh(part.detach()), tree_map_sorted(lambda _: next(sharded), params)
 
     def _zero3(self, params, batch):
+        """The ZeRO-3 step: every parameter gathered whole, each rank
+        computing its batch rows' whole sequence, each gradient
+        reduce-scattered over the batch axes.  No step runs it: it is the
+        yardstick the dry-run tests patch in for ``loss_and_grads``, the
+        temp a step that gathers everything would hold."""
         mesh = self.mesh
         full = gathered(params)
         rows, axes = {}, ()
@@ -324,13 +328,6 @@ def build_train(model: Model, mesh=None, total_steps: int = 10_000, peak_lr: flo
     return ShardedTrainStep(model, opt, mesh), opt, {"params": p_sh, "opt": o_sh}
 
 
-def _serves_on(model: Model, mesh) -> bool:
-    """Whether the prefill and decode steps split the model's compute on
-    ``mesh`` (the families of ``PLANNED``: all but the encoder-decoder)
-    rather than gathering everything."""
-    return mesh is not None and model.cfg.family in PLANNED
-
-
 @dataclasses.dataclass(frozen=True)
 class PrefillStep:
     model: Model
@@ -355,12 +352,11 @@ class PrefillStep:
     @torch.no_grad()
     def __call__(self, params, batch):
         """``Model.prefill``: (the cache, the last token's logits).  Without
-        a mesh, or for a family without a plan, on the full parameters and
-        inputs (every rank computes the whole batch); for the families of
-        ``PLANNED`` on a mesh, sharded, the cache as ``DTensor``s laid out by
-        ``Model.cache_specs`` of the batch's shape at every position."""
-        if not _serves_on(self.model, self.mesh):
-            return self.model.prefill(gathered(params), gathered(batch))
+        a mesh on the parameters and inputs as they are; on a mesh sharded,
+        the cache as ``DTensor``s laid out by ``Model.cache_specs`` of the
+        batch's shape at every position."""
+        if self.mesh is None:
+            return self.model.prefill(params, batch)
         tp, layouts, cache_sh = self.plan(batch["tokens"] if "tokens" in batch
                                           else batch["embeds"])
         work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
@@ -377,17 +373,18 @@ def build_prefill(model: Model, mesh):
 @dataclasses.dataclass(frozen=True)
 class DecodeStep:
     model: Model
-    cache_shardings: Any = None
     mesh: Any = None
     _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def plan(self, tokens, cache) -> tuple[TensorParallel, list]:
         """The sharded decode step's plan for ``tokens``' (global) shape and
-        the cache's length (dimension 2 of an attention layer's ``k``; an
-        SSM cache's layout does not depend on it) under the active profile,
-        and its working layouts: made at the first step of that shape and
-        kept."""
-        seq = next((entry["k"].shape[2] for entry in cache.values() if "k" in entry), 1)
+        the cache's length (dimension 2 of a self-attention layer's ``k``,
+        by name: never an encoder-decoder's ``cross`` entry, whose length is
+        the frames'; an SSM cache's layout does not depend on it) under the
+        active profile, and its working layouts: made at the first step of
+        that shape and kept."""
+        seq = next((entry["k"].shape[2] for name, entry in cache.items()
+                    if name != "cross" and "k" in entry), 1)
         key = (tuple(tokens.shape), seq, active_profile().name)
         if key not in self._plans:
             model, specs = self.model, self.model.specs()
@@ -399,12 +396,12 @@ class DecodeStep:
     @torch.no_grad()
     def __call__(self, params, cache, inputs: dict):
         """One greedy token: (next token (B,) int32, logits (B, 1, V), the
-        cache), the token and logits whole on every rank.  The families of
-        ``PLANNED`` on a mesh write each rank's cache shard in place and
-        return the same ``DTensor``s.  Another family on a mesh gathers the
-        cache, writes it and lays it out again by ``cache_shardings``; on
-        one rank the gather is the cache itself, written in place."""
-        if _serves_on(self.model, self.mesh):
+        cache), the token and logits whole on every rank; the cache written
+        in place (on a mesh each rank's shard, the same ``DTensor``s)."""
+        if self.mesh is None:
+            logits, cache = self.model.decode(params, cache, inputs["tokens"], inputs["pos"],
+                                              positions=inputs.get("positions"))
+        else:
             tp, layouts = self.plan(inputs["tokens"], cache)
             work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
                               weight_leaves(self.model.specs()))
@@ -412,24 +409,16 @@ class DecodeStep:
             logits, _ = self.model.decode(work, tree_map_sorted(local_value, cache),
                                           rows["tokens"], inputs["pos"],
                                           positions=rows.get("positions"), tp=tp)
-            new_cache = cache
-        else:
-            inputs = gathered(inputs)
-            logits, new_cache = self.model.decode(
-                gathered(params), gathered(cache), inputs["tokens"], inputs["pos"],
-                positions=inputs.get("positions"))
-            if self.cache_shardings is not None:
-                new_cache = tree_map_sorted(distribute, new_cache, self.cache_shardings)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok, logits, new_cache
+        return next_tok, logits, cache
 
 
 def build_decode(model: Model, mesh, cell: ShapeCell):
     """Returns (decode step, {"params", "cache"} shardings) for a cache of
     the cell's batch and sequence."""
     c_sh = param_shardings(model.cache_specs(cell.global_batch, cell.seq_len), mesh)
-    return DecodeStep(model, c_sh, mesh), {"params": param_shardings(model.specs(), mesh),
-                                           "cache": c_sh}
+    return DecodeStep(model, mesh), {"params": param_shardings(model.specs(), mesh),
+                                     "cache": c_sh}
 
 
 def _seq_axes(x: DTensor) -> tuple[str, ...]:
@@ -466,8 +455,9 @@ def seed_cache(prefill_cache, shardings, seq: int, window: int = 0):
     uneven runs (major axis first); over one that splits only the decode
     cache's, each rank keeps the rows of its slots.  An SSM layer's ``ssm``
     and ``conv`` leaves hold no sequence (dimension 2 is the heads, or the
-    conv's k - 1 positions): each rank's shard is copied into its decode
-    shard, laid out again only where the two shardings differ."""
+    conv's k - 1 positions), and an encoder-decoder's ``cross`` leaves hold
+    the frames, whatever ``seq`` is: each rank's shard is copied into its
+    decode shard, laid out again only where the two shardings differ."""
     def seed(src: DTensor, sh: Sharding) -> DTensor:
         mesh, local, P = sh.mesh, src.to_local(), src.shape[2]
         sizes = mesh_axis_sizes(mesh)
@@ -514,9 +504,8 @@ def seed_cache(prefill_cache, shardings, seq: int, window: int = 0):
         if tuple(src.placements) != tuple(sh.placements):
             src = src.redistribute(sh.mesh, sh.placements)
         return from_shard(src.to_local().clone(), sh)
-    return {pos: {n: (seed if n in ("k", "v") else carry)(prefill_cache[pos][n],
-                                                          shardings[pos][n])
-                  for n in sorted(entry)}
+    return {pos: {n: (seed if n in ("k", "v") and pos != "cross" else carry)(
+        prefill_cache[pos][n], shardings[pos][n]) for n in sorted(entry)}
             for pos, entry in sorted(prefill_cache.items())}
 
 

@@ -7,6 +7,14 @@ cache plus fixed cross-attn K/V over the encoder output.  The reference's
 ``lax.scan`` over each stack becomes a Python loop over views of the stacked
 tensors, each block recomputed in the backward pass when ``cfg.remat ==
 "full"`` (the reference's ``jax.checkpoint`` of the scan body).
+
+On a mesh every function takes the step's plan (``tp``, a
+``models.tensor_parallel.TensorParallel``): the frames and the encoder's
+states are this rank's rows and slice of the frames (``tp.encoder``), the
+tokens and the decoder's states its rows and sequence slice, each at its own
+positions; cross-attention reads this rank's rows of the encoder's output
+over every frame; a serving plan's caches are this rank's shards (the cross
+cache in its own layout, ``tp.cross``).
 """
 from __future__ import annotations
 
@@ -15,7 +23,9 @@ import torch
 from ..configs.base import ArchConfig
 from .common import PSpec, checkpointed, torch_dtype
 from .layers import (
+    _cache_kv,
     attn_decode,
+    attn_out,
     attn_prefill,
     attn_specs,
     chunked_attention,
@@ -24,8 +34,9 @@ from .layers import (
     rmsnorm,
     rmsnorm_spec,
     sinusoidal_embedding,
+    sp_attend,
 )
-from .transformer import layer_params, stack_specs, xent_loss
+from .transformer import embed_tokens, layer_params, stack_specs, unembed, xent_loss
 
 
 def enc_block_specs(cfg: ArchConfig) -> dict:
@@ -71,67 +82,90 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
             "cross": {"k": kv(cfg.enc_seq), "v": kv(cfg.enc_seq)}}
 
 
-def _enc_block(cfg: ArchConfig, bp, x):
+def _enc_block(cfg: ArchConfig, bp, x, tp=None):
     h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    a, _ = attn_prefill(bp["attn"], h, cfg, None, causal=False)
+    a, _ = attn_prefill(bp["attn"], h, cfg, None, causal=False, tp=tp)
     x = x + a
     h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    return x + mlp(bp["mlp"], h, cfg)
+    return x + mlp(bp["mlp"], h, cfg, tp)
 
 
-def encode(params, cfg: ArchConfig, frames):
-    """frames: (B, T, D) stub embeddings -> (B, T, D) encoder states."""
-    B, T, D = frames.shape
-    x = frames.to(torch_dtype(cfg.compute_dtype))
-    x = x + sinusoidal_embedding(T, D, device=x.device).to(x.dtype)[None]
+def _positions(x, cfg: ArchConfig, tp=None):
+    """``x`` (B, S, D) plus the sinusoids of its positions: this rank's
+    slice's on a plan (``tp``'s sequence axes)."""
+    start = 0 if tp is None else tp.seq_start(x.shape[1])
+    return x + sinusoidal_embedding(x.shape[1], cfg.d_model, offset=start,
+                                    device=x.device).to(x.dtype)[None]
+
+
+def encode(params, cfg: ArchConfig, frames, tp=None):
+    """frames: (B, T, D) stub embeddings -> (B, T, D) encoder states.  On a
+    plan (``tp``) the frames and the states are this rank's rows and slice
+    of the frames (``tp.encoder``'s stream)."""
+    enc = None if tp is None else tp.encoder
+    x = _positions(frames.to(torch_dtype(cfg.compute_dtype)), cfg, enc)
     for i in range(cfg.enc_layers):
-        x = checkpointed(_enc_block, cfg, layer_params(params["enc_blocks"], i), x,
+        x = checkpointed(_enc_block, cfg, layer_params(params["enc_blocks"], i), x, enc,
                          enabled=cfg.remat == "full")
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def _cross_kv(bp, enc_out, cfg: ArchConfig):
-    B, T, _ = enc_out.shape
-    k = (enc_out @ bp["cross_attn"]["wk"].to(enc_out.dtype)).reshape(
-        B, T, cfg.n_kv_heads, cfg.hd)
-    v = (enc_out @ bp["cross_attn"]["wv"].to(enc_out.dtype)).reshape(
-        B, T, cfg.n_kv_heads, cfg.hd)
+def _cross_kv(bp, enc_out, cfg: ArchConfig, tp=None):
+    """k and v (B, T, Hkv, hd) of the encoder's output over every frame; on
+    a plan the kv heads this rank's q heads use."""
+    wk, wv = bp["cross_attn"]["wk"], bp["cross_attn"]["wv"]
+    if tp is not None:
+        wk, wv = tp.kv_heads(wk, cfg.hd), tp.kv_heads(wv, cfg.hd)
+    k = (enc_out @ wk.to(enc_out.dtype)).unflatten(-1, (-1, cfg.hd))
+    v = (enc_out @ wv.to(enc_out.dtype)).unflatten(-1, (-1, cfg.hd))
     return k, v
 
 
-def _cross_attend(bp, h, k, v, cfg: ArchConfig):
-    """h: (B, S, D) queries over the cross K/V (B, T, Hkv, hd), no mask."""
+def _cross_attend(bp, h, k, v, cfg: ArchConfig, tp=None):
+    """h: (B, S, D) queries over the cross K/V (B, T, Hkv, hd), no mask.  On
+    a plan ``h`` and the output are this rank's slice of the decoder's
+    stream: q over its rows' whole sequence on its heads, ``wo`` summed
+    back into the slice."""
+    if tp is not None:
+        h = tp.gather_seq(h)
     B, S, D = h.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (h @ bp["cross_attn"]["wq"].to(h.dtype)).reshape(B, S, hq, hd)
-    qh = q.reshape(B, S, hkv, hq // hkv, hd).movedim(1, 3)
+    q = (h @ bp["cross_attn"]["wq"].to(h.dtype)).unflatten(-1, (-1, cfg.hd))
+    hq, hkv = q.shape[2], k.shape[2]
+    qh = q.reshape(B, S, hkv, hq // hkv, cfg.hd).movedim(1, 3)
     out = chunked_attention(qh, k.to(h.dtype), v.to(h.dtype), causal=False)
-    out = out.movedim(3, 1).reshape(B, S, hq * hd)
-    return out @ bp["cross_attn"]["wo"].to(h.dtype)
+    return attn_out(bp["cross_attn"], out.movedim(3, 1).reshape(B, S, hq * cfg.hd), tp)
 
 
-def _dec_block(cfg: ArchConfig, bp, x, enc_out):
+def _dec_block(cfg: ArchConfig, bp, x, enc_out, tp=None):
+    """One decoder block; ``enc_out`` is the encoder's output over every
+    frame (on a plan this rank's rows).  Returns (x, the block's cache: on
+    a serving plan this rank's shards)."""
     h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    a, (k, v) = attn_prefill(bp["self_attn"], h, cfg, None, causal=True)
+    a, (k, v) = attn_prefill(bp["self_attn"], h, cfg, None, causal=True, tp=tp)
     x = x + a
     h = rmsnorm(bp["norm_x"], x, cfg.norm_eps)
-    ck, cv = _cross_kv(bp, enc_out, cfg)
-    x = x + _cross_attend(bp, h, ck, cv, cfg)
+    ck, cv = _cross_kv(bp, enc_out, cfg, tp)
+    x = x + _cross_attend(bp, h, ck, cv, cfg, tp)
+    if tp is not None and tp.cross_cache_spec is not None:
+        ck, cv = _cache_kv(bp["cross_attn"], enc_out, ck, cv, cfg, None, tp.cross)
     h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    return x + mlp(bp["mlp"], h, cfg), {"self": {"k": k, "v": v}, "cross": {"k": ck, "v": cv}}
+    return x + mlp(bp["mlp"], h, cfg, tp), {"self": {"k": k, "v": v}, "cross": {"k": ck, "v": cv}}
 
 
-def decode_full(params, cfg: ArchConfig, tokens, enc_out, want_cache=False):
+def decode_full(params, cfg: ArchConfig, tokens, enc_out, want_cache=False, tp=None):
     """Teacher-forced decoder pass (training / prefill).  Returns (hidden (B,
     S, D), cache|None); the cache holds the self-attn K/V (layers, B, S, Hkv,
-    hd) and the cross-attn K/V over the encoder output."""
-    B, S = tokens.shape
-    x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
-    x = x + sinusoidal_embedding(S, cfg.d_model, device=x.device).to(x.dtype)[None]
+    hd) and the cross-attn K/V over the encoder output.  On a plan the
+    tokens and the hidden states are this rank's slice of the stream,
+    ``enc_out`` its slice of the frames (gathered here, once), and the
+    caches its shards."""
+    x = _positions(embed_tokens(params, cfg, tokens, tp=tp), cfg, tp)
+    if tp is not None:
+        enc_out = tp.encoder.gather_seq(enc_out)
     caches = []
     for i in range(cfg.n_layers):
         x, cache = checkpointed(_dec_block, cfg, layer_params(params["dec_blocks"], i), x,
-                                enc_out, enabled=cfg.remat == "full")
+                                enc_out, tp, enabled=cfg.remat == "full")
         if want_cache:
             caches.append(cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -141,35 +175,58 @@ def decode_full(params, cfg: ArchConfig, tokens, enc_out, want_cache=False):
                for part in ("self", "cross")}
 
 
-def loss(params, cfg: ArchConfig, frames, tokens, labels):
-    """(cross-entropy of the decoder on ``labels``, a zero aux term)."""
-    enc_out = encode(params, cfg, frames)
-    hidden, _ = decode_full(params, cfg, tokens, enc_out)
-    return (xent_loss(params, cfg, hidden, labels),
+def loss(params, cfg: ArchConfig, frames, tokens, labels, tp=None):
+    """(cross-entropy of the decoder on ``labels``, a zero aux term); on a
+    plan the mean over this rank's labels."""
+    enc_out = encode(params, cfg, frames, tp)
+    hidden, _ = decode_full(params, cfg, tokens, enc_out, tp=tp)
+    return (xent_loss(params, cfg, hidden, labels, tp),
             torch.zeros((), dtype=torch.float32, device=hidden.device))
 
 
-def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int):
+def prefill(params, cfg: ArchConfig, frames, tokens, tp=None):
+    """(the caches, the last token's logits (B, 1, V) float32); on a plan
+    the caches are this rank's shards and the logits whole."""
+    hidden, cache = decode_full(params, cfg, tokens, encode(params, cfg, frames, tp),
+                                want_cache=True, tp=tp)
+    if tp is None:
+        return cache, unembed(params, cfg, hidden[:, -1:])
+    return cache, tp.whole_logits(unembed(params, cfg, tp.last_token(hidden)))
+
+
+def _cross_decode(bp, h, cache, cfg: ArchConfig, tp=None):
+    """One token's cross-attention over the cross cache (never written); on
+    a plan its partial softmax over this rank's shard, combined over the
+    cross cache's sequence axes."""
+    B = h.shape[0]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (h @ bp["cross_attn"]["wq"].to(h.dtype)).unflatten(-1, (-1, hd))
+    ck, cv = cache["k"].to(h.dtype), cache["v"].to(h.dtype)
+    if tp is not None:
+        q = tp.cache_rows(tp.all_heads(q, tp.q_local))
+        return attn_out(bp["cross_attn"], sp_attend(q, ck, cv, None, tp.cross), tp,
+                        all_heads=True)
+    qh = q.reshape(B, 1, hkv, hq // hkv, hd).movedim(1, 3)
+    co = chunked_attention(qh, ck, cv, causal=False)
+    return attn_out(bp["cross_attn"], co.movedim(3, 1).reshape(B, 1, hq * hd))
+
+
+def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int, tp=None):
     """One decoder token at position ``pos``.  cache: {self: {k, v (L, B,
     Sc, Hkv, hd)}, cross: {...}}; the self-attn cache is written in place.
-    Returns (logits (B, 1, V) float32, cache)."""
-    x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    Returns (logits (B, 1, V) float32, cache).  On a decode plan the tokens
+    are this rank's stream rows, the caches its shards, the logits whole."""
+    x = embed_tokens(params, cfg, tokens, tp=tp)
     x = x + sinusoidal_embedding(1, cfg.d_model, offset=pos, device=x.device).to(x.dtype)[None]
-    B = x.shape[0]
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     for i in range(cfg.n_layers):
         bp, pc = layer_params(params["dec_blocks"], i), layer_params(cache, i)
         h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-        a, _ = attn_decode(bp["self_attn"], h, cfg, pc["self"], pos, None)
+        a, _ = attn_decode(bp["self_attn"], h, cfg, pc["self"], pos, None, tp=tp)
         x = x + a
         h = rmsnorm(bp["norm_x"], x, cfg.norm_eps)
-        q = (h @ bp["cross_attn"]["wq"].to(h.dtype)).reshape(B, 1, hq, hd)
-        qh = q.reshape(B, 1, hkv, hq // hkv, hd).movedim(1, 3)
-        ck, cv = pc["cross"]["k"].to(h.dtype), pc["cross"]["v"].to(h.dtype)
-        co = chunked_attention(qh, ck, cv, causal=False)
-        co = co.movedim(3, 1).reshape(B, 1, hq * hd)
-        x = x + co @ bp["cross_attn"]["wo"].to(h.dtype)
+        x = x + _cross_decode(bp, h, pc["cross"], cfg, tp)
         h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
-        x = x + mlp(bp["mlp"], h, cfg)
+        x = x + mlp(bp["mlp"], h, cfg, tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return (x @ params["unembed"].to(x.dtype)).float(), cache
+    logits = unembed(params, cfg, x)
+    return (logits if tp is None else tp.whole_logits(logits)), cache

@@ -294,7 +294,7 @@ def _attn_decode_sp(p, x, cfg: ArchConfig, cache, pos: int, cos_sin, window: int
     one-device softmax normalizes before its weighted sum, this one after
     the split sums: in float32 the two agree within 1e-5 relative, not bit
     for bit."""
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     q = (x @ p["wq"].to(x.dtype)).unflatten(-1, (-1, hd))
     k = (x @ p["wk"].to(x.dtype)).unflatten(-1, (-1, hd))
     v = (x @ p["wv"].to(x.dtype)).unflatten(-1, (-1, hd))
@@ -306,19 +306,34 @@ def _attn_decode_sp(p, x, cfg: ArchConfig, cache, pos: int, cos_sin, window: int
     k = tp.cache_rows(tp.all_heads(k, tp.kv_local))
     v = tp.cache_rows(tp.all_heads(v, tp.kv_local))
     ck, cv = cache["k"], cache["v"]
-    B, Sl = ck.shape[0], ck.shape[1]
+    Sl = ck.shape[1]
     Sc = Sl * tp.parts(tp.cache_seq_axes)
     start = tp.cache_seq(Sc).start
     slot = pos % Sc if window > 0 else pos
     if start <= slot < start + Sl:
         ck[:, slot - start] = k[:, 0].to(ck.dtype)
         cv[:, slot - start] = v[:, 0].to(cv.dtype)
+    idx = start + torch.arange(Sl, device=x.device)
+    valid = idx < min(pos + 1, Sc) if window > 0 else idx <= pos
+    return attn_out(p, sp_attend(q, ck, cv, valid, tp), tp, all_heads=True), {"k": ck, "v": cv}
+
+
+def sp_attend(q, ck, cv, valid, tp):
+    """One token's attention over a cache split on ``tp.cache_seq_axes``:
+    ``q`` (cache rows, 1, Hq, hd) holds every head, ``ck``, ``cv`` this
+    rank's shard (its rows, its slice of the sequence, every kv head) and
+    ``valid`` (its positions; None: all) the keys it may attend to.  Each
+    rank's partial softmax in float32 (the running max, the sum of
+    exponentials, the weighted sum of v), the partials combined over the
+    sequence axes (the max first, then the rescaled sums), normalized after
+    the combine; returns the stream's rows, (B, 1, Hq·hd) in ``q``'s type."""
+    B, hkv = ck.shape[0], ck.shape[2]
+    hq, hd = q.shape[2], q.shape[3]
     qh = q[:, 0].reshape(B, hkv, hq // hkv, hd)             # (B,Hkv,G,hd)
     kT = ck.to(qh.dtype).permute(0, 2, 3, 1)                # (B,Hkv,hd,Sl)
     s = ((qh @ kT) * (1.0 / math.sqrt(hd))).float()         # (B,Hkv,G,Sl)
-    idx = start + torch.arange(Sl, device=x.device)
-    valid = idx < min(pos + 1, Sc) if window > 0 else idx <= pos
-    s = torch.where(valid, s, NEG_INF)
+    if valid is not None:
+        s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1)
     e = torch.exp(s - m[..., None])
     acc = e @ cv.float().permute(0, 2, 1, 3)                # (B,Hkv,G,hd)
@@ -326,8 +341,7 @@ def _attn_decode_sp(p, x, cfg: ArchConfig, cache, pos: int, cos_sin, window: int
     r = torch.exp(m - big)
     l_sum = tp.seq_sum(e.sum(dim=-1) * r)
     acc = tp.seq_sum(acc * r[..., None])
-    out = tp.stream_rows((acc / l_sum[..., None]).to(x.dtype).reshape(B, 1, hq * hd))
-    return attn_out(p, out, tp, all_heads=True), {"k": ck, "v": cv}
+    return tp.stream_rows((acc / l_sum[..., None]).to(q.dtype).reshape(B, 1, hq * hd))
 
 
 # ------------------------------------------------------------------------- MLPs

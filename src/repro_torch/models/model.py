@@ -11,11 +11,6 @@ from ..configs.base import ArchConfig, ShapeCell
 from . import encdec, transformer
 from .common import abstract_params, init_params, param_shardings, torch_dtype
 
-#: the families whose steps run on a mesh through a ``TensorParallel`` plan
-#: (``models.tensor_parallel``); the encoder-decoder, the one left out,
-#: gathers (launch.steps) until its cross-attention's own slice
-PLANNED = ("dense", "moe", "ssm", "hybrid", "vlm")
-
 
 @dataclasses.dataclass(frozen=True)
 class Model:
@@ -53,15 +48,15 @@ class Model:
         """The loss's two terms apart: the cross-entropy's mean over the
         valid labels, and the MoE load-balance term (a mean over batch
         rows and token groups; zero without experts).  ``tp`` (a
-        ``TensorParallel``, the families of :data:`PLANNED`): ``params``
+        ``TensorParallel``): ``params``
         are this rank's working shards and ``batch`` its slice of the
         stream, the mean is over its own labels, and the load-balance term
         is this rank's share of the whole batch's (the shares sum to it
         over the mesh)."""
         cfg = self.cfg
-        self._planned(tp)
         if cfg.family == "encdec":
-            return encdec.loss(params, cfg, batch["frames"], batch["tokens"], batch["labels"])
+            return encdec.loss(params, cfg, batch["frames"], batch["tokens"], batch["labels"],
+                               tp)
         hidden, aux, _ = transformer.forward_full(
             params, cfg,
             tokens=batch.get("tokens"),
@@ -74,17 +69,13 @@ class Model:
     def prefill(self, params, batch, tp=None):
         """Returns (per-layer cache stacked over periods, last-token logits);
         the encoder-decoder takes ``batch["frames"]`` beside the tokens.
-        ``tp`` (a ``plan_prefill`` plan, the families of :data:`PLANNED`):
-        ``params`` are this rank's working shards and ``batch`` its slice of
-        the stream; the cache is this rank's shard (every position, a
-        sliding window's too) and the logits are whole."""
+        ``tp`` (a ``plan_prefill`` plan): ``params`` are this rank's working
+        shards and ``batch`` its slice of the stream (and of the frames);
+        the cache is this rank's shard (every position, a sliding window's
+        too; the cross cache in its own layout) and the logits are whole."""
         cfg = self.cfg
-        self._planned(tp)
         if cfg.family == "encdec":
-            enc_out = encdec.encode(params, cfg, batch["frames"])
-            hidden, cache = encdec.decode_full(params, cfg, batch["tokens"], enc_out,
-                                               want_cache=True)
-            return cache, (hidden[:, -1:] @ params["unembed"].to(hidden.dtype)).float()
+            return encdec.prefill(params, cfg, batch["frames"], batch["tokens"], tp)
         hidden, _, cache = transformer.forward_full(
             params, self.cfg,
             tokens=batch.get("tokens"),
@@ -100,18 +91,12 @@ class Model:
 
     def decode(self, params, cache, tokens, pos: int, positions=None, tp=None):
         """One token at position ``pos``; the cache is written in place.
-        ``tp`` (a ``plan_decode`` plan, the families of :data:`PLANNED`):
-        this rank's working shards, stream rows and cache shard; the logits
-        are whole."""
-        self._planned(tp)
+        ``tp`` (a ``plan_decode`` plan): this rank's working shards, stream
+        rows and cache shard; the logits are whole."""
         if self.cfg.family == "encdec":
-            return encdec.decode_step(params, self.cfg, cache, tokens, pos)
+            return encdec.decode_step(params, self.cfg, cache, tokens, pos, tp)
         return transformer.decode_step(params, self.cfg, cache, tokens=tokens,
                                        pos=pos, positions=positions, tp=tp)
-
-    def _planned(self, tp) -> None:
-        if tp is not None and self.cfg.family not in PLANNED:
-            raise ValueError(f"a tensor-parallel step for the {self.cfg.family} family")
 
     def input_specs(self, cell: ShapeCell) -> dict[str, torch.Tensor]:
         """Stand-ins on the ``meta`` device (shape and dtype, no bytes) for

@@ -1,7 +1,7 @@
 """The layout a tensor- and sequence-parallel train step computes in on one
-rank of a mesh (the dense, MoE, SSM, hybrid and VLM decoders), as the reference's
-``LOGICAL_RULES`` (``models/common.py``) lay a step out and XLA partitions
-it.
+rank of a mesh (every family: the dense, MoE, SSM, hybrid and VLM decoders
+and the encoder-decoder), as the reference's ``LOGICAL_RULES``
+(``models/common.py``) lay a step out and XLA partitions it.
 
 * The residual stream is this rank's batch rows and sequence slice: the
   labels' own layout (``batch`` on ``("pod", "data")`` and ``seq`` on
@@ -48,6 +48,15 @@ it.
   ``embeds`` on the stream and M-RoPE's (3, B, S) positions on its rows
   over the whole sequence.  The hand FLOP counts sum each layer of the
   pattern (:func:`_layer_products`).
+* The encoder-decoder (whisper): the encoder's frames are a stream of their
+  own, this rank's rows and its slice of the frames' sequence where
+  ``enc_seq`` divides the ``seq`` axes (:attr:`TensorParallel.encoder`, the
+  decoder's plan with that sequence; at (16, 16) the 1500 frames do not
+  split, and a block's partial sums are then all-reduced).  Cross-attention
+  takes q from the decoder's gathered stream and k, v from this rank's rows
+  of the encoder's output over every frame (gathered over the frames' axes
+  once a forward), on the heads :func:`head_split` gives; ``wo`` sums into
+  the decoder's slice.
 * The embedding and the loss: where ``vocab`` splits, the look-up and the
   cross-entropy are vocab-parallel (each rank its rows of the table; the
   softmax's max and sum and the gold logit summed over the vocab axes);
@@ -81,6 +90,11 @@ under ``serve``, where the stream's batch does not) and its sequence on
   head (gathered over the ``qkv`` axes, one token a row), each rank attends
   over its sequence slice of the cache with a partial softmax, the partials
   are combined over the ``cache_seq`` axes, and ``wo`` runs row-parallel.
+* The encoder-decoder's cross cache has a layout of its own (its length is
+  the frames', not the prompt's): :attr:`TensorParallel.cross` is the plan
+  with it in the self cache's place.  Prefill lays it out as the self cache;
+  decode attends over it with the same partial softmax, combined over its
+  sequence axes, and never writes it.
 * The SSM family's cache is the reference's too: the state's rows on
   ``cache_batch`` and its heads on ``ssm_inner`` (this rank's heads: the
   prefill's final state is its shard, no bytes move), the conv history's
@@ -108,6 +122,7 @@ from ..configs.base import ArchConfig
 from ..optim.adamw import tree_map_sorted
 from ..substrate import (Sharding, all_to_all_over, chunk_of, gather_over, max_over,
                          mesh_axis_sizes, scatter_over, sum_over, trade_over)
+from . import encdec
 from .common import resolve_spec, sorted_leaves, tree_map_pspec
 from .moe import GROUP
 from .transformer import cache_specs
@@ -221,17 +236,43 @@ def _attn_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) ->
 
 def _mlp_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> dict:
     """One MLP's forward product FLOPs on this rank's columns over its rows'
-    whole sequence: the gate and up projections, then ``wd``."""
+    whole sequence: the gate and up projections (a GELU MLP's one ``w1``),
+    then ``wd`` (``w2``)."""
     T, ff = rows * S, cfg.d_ff // parts["ffn"]
-    return dict(gate_up=2 * 2 * T * cfg.d_model * ff, wd=2 * T * ff * cfg.d_model)
+    n_in = 2 if cfg.mlp_style == "swiglu" else 1
+    return dict(gate_up=n_in * 2 * T * cfg.d_model * ff, wd=2 * T * ff * cfg.d_model)
+
+
+def _cross_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> dict:
+    """One cross-attention's forward product FLOPs on one rank: k and v of
+    the kv heads this rank's q heads use over its rows' ``enc_seq`` frames,
+    q on its q heads over its rows' whole sequence of S tokens, every (q,
+    frame) tile of the chunked attention, its rows of ``wo``."""
+    d, hd, T = cfg.d_model, cfg.hd, cfg.enc_seq
+    q_heads, kv_heads = _heads(cfg, parts["qkv"])
+    qc, kc = min(512, S), min(1024, T)
+    return dict(kv=2 * 2 * rows * T * d * hd * kv_heads, q=2 * rows * S * d * hd * q_heads,
+                tiles=4 * rows * q_heads * hd * (-(-S // qc) * qc) * (-(-T // kc) * kc),
+                wo=2 * rows * S * (cfg.n_heads * hd // parts["qkv"]) * d)
+
+
+def _encoder_products(cfg: ArchConfig, rows: int, parts: dict[str, int]) -> list[dict]:
+    """The encoder-decoder's encoder, one block at a time, on one rank: the
+    non-causal attention and the MLP over its rows' ``enc_seq`` frames."""
+    one = [_attn_products(cfg, rows, cfg.enc_seq, parts),
+           _mlp_products(cfg, rows, cfg.enc_seq, parts)]
+    return [one] * cfg.enc_layers
 
 
 def _layer_products(cfg: ArchConfig, mixer: str, channel: str, rows: int, S: int,
                     parts: dict[str, int]) -> list[dict]:
     """One layer of the pattern (``cfg.layer_pattern()``'s (mixer, channel)):
-    its sequence mixer's products and its channel mixer's, each in forward
-    order."""
+    its sequence mixer's products (an encoder-decoder's decoder block: its
+    self-attention's, then its cross-attention's) and its channel mixer's,
+    each in forward order."""
     out = [(_attn_products if mixer == "attn" else _ssm_products)(cfg, rows, S, parts)]
+    if cfg.family == "encdec":
+        out.append(_cross_products(cfg, rows, S, parts))
     if channel != "none":
         out.append((_mlp_products if channel == "mlp" else _moe_products)(cfg, rows, S, parts))
     return out
@@ -257,7 +298,10 @@ def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> 
     combine einsum, an SSM block's ``out_proj``): the non-reentrant
     checkpoint of a period stops once the tensors the backward needs are
     back, and the period's last product saves none.  A period is one layer
-    but in the hybrid, whose period is ``attn_every`` layers."""
+    but in the hybrid, whose period is ``attn_every`` layers.  The
+    encoder-decoder's decoder block adds its cross-attention
+    (:func:`_cross_products`), and its encoder blocks (each checkpointed on
+    its own) run at ``enc_seq`` frames (:func:`_encoder_products`)."""
     if cfg.remat != "full":
         raise ValueError(f"counted for remat 'full', not {cfg.remat!r}")
     d, V = cfg.d_model, cfg.vocab
@@ -271,7 +315,10 @@ def hand_train_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> 
         for m in _layer_products(cfg, mixer, channel, rows, S, parts):
             period += 4 * sum(m.values()) - m.get("route", 0) - m.get("dispatch", 0)
     period -= list(m.values())[-1]
-    return cfg.n_layers // cfg.period * period + 4 * loss
+    encoder = sum(4 * sum(sum(m.values()) for m in block) - block[-1]["wd"]
+                  for block in (_encoder_products(cfg, rows, parts)
+                                if cfg.family == "encdec" else ()))
+    return cfg.n_layers // cfg.period * period + encoder + 4 * loss
 
 
 def hand_prefill_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
@@ -283,8 +330,9 @@ def hand_prefill_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -
     The train forward's products (:func:`_layer_products` a layer); where
     the q heads split and the kv heads do not, an attention layer's cache k
     and v projected on this rank's cache rows and sequence slice with every
-    kv head; the last token's logits on this rank's rows and vocabulary
-    columns."""
+    kv head (the encoder-decoder's cross cache too, over its ``cross_seq``
+    slice of the frames); the encoder-decoder's encoder blocks; the last
+    token's logits on this rank's rows and vocabulary columns."""
     d, hd = cfg.d_model, cfg.hd
     rows = B // parts["batch"]
     q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, parts.get("qkv", 1))
@@ -292,9 +340,16 @@ def hand_prefill_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -
     for mixer, channel in cfg.layer_pattern():
         period += sum(sum(m.values()) for m in _layer_products(cfg, mixer, channel, rows, S, parts))
         if mixer == "attn" and q_local and not kv_local:
-            period += 2 * 2 * (B // parts["cache_batch"]) * (S // parts["cache_seq"]) * d \
-                * cfg.n_kv_heads * hd
-    return cfg.n_layers // cfg.period * period + 2 * rows * d * (cfg.vocab // parts["vocab"])
+            lengths = [S // parts["cache_seq"]]
+            if cfg.family == "encdec":
+                lengths.append(cfg.enc_seq // parts.get("cross_seq", 1))
+            period += sum(2 * 2 * (B // parts["cache_batch"]) * n * d * cfg.n_kv_heads * hd
+                          for n in lengths)
+    encoder = sum(sum(m.values()) for block in (_encoder_products(cfg, rows, parts)
+                                                if cfg.family == "encdec" else ())
+                  for m in block)
+    return cfg.n_layers // cfg.period * period + encoder \
+        + 2 * rows * d * (cfg.vocab // parts["vocab"])
 
 
 def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
@@ -309,9 +364,12 @@ def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) ->
     layer: ``in_proj`` on this rank's stream rows and stored columns, the
     conv (an einsum over the k positions) on every channel of its cache
     rows, the state's output C.h on its cache rows and heads, ``out_proj``
-    on its stream rows and heads' rows.  Then its columns of the MLP, or the
-    MoE block (:func:`_moe_products` of one-token groups); the logits on its
-    rows and vocabulary columns."""
+    on its stream rows and heads' rows.  The encoder-decoder's
+    cross-attention: q and ``wo`` as the self-attention's, the scores and the
+    weighted sum over this rank's cache rows and ``cross_seq`` slice of the
+    frames.  Then its columns of the MLP, or the MoE block
+    (:func:`_moe_products` of one-token groups); the logits on its rows and
+    vocabulary columns."""
     d, hd = cfg.d_model, cfg.hd
     rows = B // parts["batch"]
     period = 0
@@ -325,6 +383,10 @@ def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) ->
                 + 2 * rows * (cfg.n_heads * hd // n) * d \
                 + 4 * (B // parts["cache_batch"]) * cfg.n_heads * hd \
                 * ((min(S, cfg.window) if cfg.window else S) // parts["cache_seq"])
+            if cfg.family == "encdec":
+                period += 2 * rows * d * hd * q_heads + 2 * rows * (cfg.n_heads * hd // n) * d \
+                    + 4 * (B // parts["cache_batch"]) * cfg.n_heads * hd \
+                    * (cfg.enc_seq // parts.get("cross_seq", 1))
         else:
             di, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
             rc, h = B // parts["cache_batch"], H // parts["ssm_heads"]
@@ -363,6 +425,12 @@ class TensorParallel:
     ssm_head_axes: tuple[str, ...] = ()
     ssm_in_axes: tuple[str, ...] = ()
     cache_conv_axes: tuple[str, ...] | None = None
+    # the encoder-decoder: the frames' resolved (batch, seq) spec (their own
+    # stream); serving plans: the cross cache's resolved spec and the mesh
+    # axes of its sequence (its rows split as the self cache's)
+    enc_stream_spec: tuple | None = None
+    cross_cache_spec: tuple | None = None
+    cross_seq_axes: tuple[str, ...] = ()
 
     @property
     def stream(self) -> Sharding:
@@ -371,6 +439,21 @@ class TensorParallel:
     def parts(self, axes) -> int:
         sizes = mesh_axis_sizes(self.mesh)
         return math.prod(sizes[ax] for ax in axes)
+
+    @property
+    def encoder(self) -> "TensorParallel":
+        """The plan the encoder's blocks run on: the frames' stream, this
+        rank's rows and its slice of the frames' sequence (every frame
+        where ``enc_seq`` does not divide the ``seq`` axes), and no cache."""
+        sizes = mesh_axis_sizes(self.mesh)
+        return dataclasses.replace(self, stream_spec=self.enc_stream_spec, seq_axes=tuple(
+            ax for ax in _axes(self.enc_stream_spec[1]) if sizes[ax] > 1), cache_spec=None)
+
+    @property
+    def cross(self) -> "TensorParallel":
+        """The plan with the cross cache's layout in the cache's place."""
+        return dataclasses.replace(self, cache_spec=self.cross_cache_spec,
+                                   cache_seq_axes=self.cross_seq_axes)
 
     @property
     def replicas(self) -> int:
@@ -391,6 +474,11 @@ class TensorParallel:
             return scatter_over(y, self.mesh, axes, 1)
         y = sum_over(y, self.mesh, axes)
         return y[:, chunk_of(y.shape[1], self.mesh, self.seq_axes)] if self.seq_axes else y
+
+    def seq_start(self, n: int) -> int:
+        """This rank's first position in a stream of ``n`` positions a rank
+        (its sequence slice's offset)."""
+        return chunk_of(n * self.parts(self.seq_axes), self.mesh, self.seq_axes).start
 
     def pad_seq(self, labels: torch.Tensor) -> torch.Tensor:
         """(B, S / parts) labels -> (B, S): this rank's at their positions,
@@ -426,6 +514,17 @@ class TensorParallel:
         where this rank holds a ``split`` share of them."""
         return gather_over(t, self.mesh, self.qkv_axes, 2) if split else t
 
+    @property
+    def heads_traded(self) -> bool:
+        """Whether all-to-alls over the ``qkv`` axes lay this rank's kv heads
+        out as its cache shard: the axes are the cache sequence's, or each
+        splits the cache's sequence or, beyond the stream's, its rows, at
+        most one axis each, and the cache splits over nothing else."""
+        if self.qkv_axes == self.cache_seq_axes:
+            return True
+        rows, seq = set(self.cache_row_axes), set(self.cache_seq_axes)
+        return set(self.qkv_axes) == rows | seq and len(rows) <= 1 and len(seq) <= 1
+
     def heads_to_cache(self, t: torch.Tensor) -> torch.Tensor:
         """(B, S, heads / n, hd), this rank's kv heads over its stream rows'
         whole sequence -> its cache shard, every kv head over the cache's
@@ -433,7 +532,7 @@ class TensorParallel:
         trading heads for the cache's sequence where those are its axes too
         (``moe_ep``'s (expert, tp)), else one over each ``qkv`` axis, the
         minor one first, each trading heads for the cache's rows or its
-        sequence (:func:`plan_prefill` checks that one of the two holds)."""
+        sequence (:attr:`heads_traded`, which :func:`plan_prefill` checks)."""
         if self.qkv_axes == self.cache_seq_axes:
             return all_to_all_over(t, self.mesh, self.qkv_axes, 1, 2)
         for ax in reversed(self.qkv_axes):
@@ -748,15 +847,17 @@ def _live(entry, sizes) -> tuple[str, ...]:
 
 def _cache_layout(cache_specs, sizes) -> dict[str, set]:
     """The resolved layouts of a decode cache's leaves, by kind: the k / v
-    leaves' specs, and the live mesh axes of every leaf's rows, of the SSM
-    state's heads and of the conv history's channels."""
-    out: dict[str, set] = {"kv": set(), "rows": set(), "heads": set(), "conv": set()}
+    leaves' specs (an encoder-decoder's ``cross`` entry's apart, by its
+    path), and the live mesh axes of every leaf's rows, of the SSM state's
+    heads and of the conv history's channels."""
+    out: dict[str, set] = {"kv": set(), "cross": set(), "rows": set(), "heads": set(),
+                           "conv": set()}
 
-    def note(_, p):
+    def note(path, p):
         spec = resolve_spec(p.shape, p.logical, sizes)
         out["rows"].add(_live(spec[1], sizes))
         if p.logical[2] == "cache_seq":
-            out["kv"].add(spec)
+            out["cross" if path.split("/")[1] == "cross" else "kv"].add(spec)
         elif p.logical[2] == "ssm_inner":
             out["heads"].add(_live(spec[2], sizes))
         else:
@@ -773,9 +874,12 @@ def _ssm_head_axes(cache_specs, sizes) -> tuple[str, ...]:
 
 
 def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, stream_spec,
-                    ssm_head_axes: tuple[str, ...] = ()) -> TensorParallel:
+                    ssm_head_axes: tuple[str, ...] = (),
+                    enc_stream_spec: tuple | None = None) -> TensorParallel:
     """The plan of ``cfg``'s step on ``mesh`` under the active profile:
     ``stream_spec`` is the labels' resolved spec (batch entry, seq entry),
+    ``enc_stream_spec`` an encoder-decoder's frames' (B rows, as the
+    stream's),
     the weights' axes come from ``spec_tree``'s resolved specs (axes of one
     rank left out): ``experts`` from a MoE block's router and expert
     weights, and their ``ffn`` apart from a dense MLP's; ``ssm_head_axes``
@@ -833,7 +937,9 @@ def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, stream_spec,
         raise ValueError(f"wk / wv split as {sorted(found['kv'])}, wq as {axes['qkv']}")
     tp = TensorParallel(mesh, batch_axes, seq_axes, axes["qkv"], axes["ffn"], axes["vocab"],
                         q_local, kv_local, tuple(stream_spec), axes["experts"],
-                        axes["expert_ffn"], ssm_head_axes=heads, ssm_in_axes=axes["ssm_in"])
+                        axes["expert_ffn"], ssm_head_axes=heads, ssm_in_axes=axes["ssm_in"],
+                        enc_stream_spec=None if enc_stream_spec is None
+                        else tuple(enc_stream_spec))
     if set(tp.expert_axes) & set(seq_axes) and not tp.experts_traded:
         raise ValueError(f"experts on {tp.expert_axes} split the sequence's {seq_axes} in part")
     traded = tp.expert_ffn_traded
@@ -843,28 +949,47 @@ def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, stream_spec,
     return tp
 
 
+def _frames(cfg: ArchConfig, B: int, sizes) -> tuple | None:
+    """An encoder-decoder's frames' resolved (``batch``, ``seq``) spec for B
+    rows of ``enc_seq`` frames; None for a decoder."""
+    if cfg.family != "encdec":
+        return None
+    return resolve_spec((B, cfg.enc_seq), ("batch", "seq"), sizes)
+
+
+def _serving_cache(cfg: ArchConfig, B: int, S: int) -> dict:
+    """The PSpecs of a prefill's cache of (B, S) (every position)."""
+    if cfg.family == "encdec":
+        return encdec.cache_specs(cfg, B, S)
+    return cache_specs(cfg, B, S, ring=False)
+
+
 def plan_train(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, batch_shape) -> TensorParallel:
     """:func:`tensor_parallel` for a train batch of ``batch_shape`` (B, S)
     tokens: the stream laid out as the labels (``batch``, ``seq``), the SSM
-    heads as a decode cache of B rows splits them."""
+    heads as a decode cache of B rows splits them, an encoder-decoder's
+    frames as B rows of ``enc_seq`` (``batch``, ``seq``)."""
     sizes = mesh_axis_sizes(mesh)
     stream = resolve_spec(tuple(batch_shape), ("batch", "seq"), sizes)
     return tensor_parallel(cfg, spec_tree, mesh, stream,
-                           _ssm_head_axes(cache_specs(cfg, *batch_shape), sizes))
+                           _ssm_head_axes(cache_specs(cfg, *batch_shape), sizes),
+                           _frames(cfg, batch_shape[0], sizes))
 
 
 def _with_cache(tp: TensorParallel, cfg: ArchConfig, cache_specs,
                 mesh: DeviceMesh) -> TensorParallel:
     """``tp`` with the layout of ``cache_specs``: its k / v leaves'
-    ((periods, B, S, Hkv, hd)) and its SSM leaves' (the conv history's
-    channels; the state's heads are the plan's).  Raises ValueError where
+    ((periods, B, S, Hkv, hd); an encoder-decoder's ``cross`` leaves apart)
+    and its SSM leaves' (the conv history's channels; the state's heads are
+    the plan's).  Raises ValueError where
     the cache splits its kv heads (not the decode-SP layout), its leaves
     split their rows differently or not as a split of the stream's, or its
     state's heads not as the plan's."""
     sizes = mesh_axis_sizes(mesh)
     lay = _cache_layout(cache_specs, sizes)
-    if len(lay["kv"]) > 1 or not (lay["kv"] or lay["heads"]):
-        raise ValueError(f"{cfg.name}: the cache's k / v leaves lay out as {sorted(lay['kv'])}")
+    if len(lay["kv"]) > 1 or not (lay["kv"] or lay["heads"]) or len(lay["cross"]) > 1:
+        raise ValueError(f"{cfg.name}: the cache's k / v leaves lay out as {sorted(lay['kv'])}, "
+                         f"its cross leaves as {sorted(lay['cross'])}")
     if len(lay["rows"]) != 1:
         raise ValueError(f"{cfg.name}: the cache's leaves split their rows as "
                          f"{sorted(lay['rows'])}")
@@ -872,11 +997,13 @@ def _with_cache(tp: TensorParallel, cfg: ArchConfig, cache_specs,
     if rows[:len(tp.batch_axes)] != tp.batch_axes:
         raise ValueError(f"the cache's rows on {rows} do not split the stream's {tp.batch_axes}")
     fields: dict = dict(cache_row_axes=rows[len(tp.batch_axes):])
-    if lay["kv"]:
-        spec = next(iter(lay["kv"]))
-        if _live(spec[3], sizes) or _live(spec[4], sizes):
-            raise ValueError(f"{cfg.name}: the cache splits its heads as {spec}")
-        fields.update(cache_spec=spec, cache_seq_axes=_live(spec[2], sizes))
+    for kind, spec_field, seq_field in (("kv", "cache_spec", "cache_seq_axes"),
+                                        ("cross", "cross_cache_spec", "cross_seq_axes")):
+        if lay[kind]:
+            spec = next(iter(lay[kind]))
+            if _live(spec[3], sizes) or _live(spec[4], sizes):
+                raise ValueError(f"{cfg.name}: the cache splits its heads as {spec}")
+            fields.update({spec_field: spec, seq_field: _live(spec[2], sizes)})
     if lay["heads"]:
         if lay["heads"] != {tp.ssm_head_axes} or len(lay["conv"]) != 1:
             raise ValueError(f"{cfg.name}: the cache's ssm heads on {sorted(lay['heads'])} and "
@@ -888,23 +1015,24 @@ def _with_cache(tp: TensorParallel, cfg: ArchConfig, cache_specs,
 
 def plan_prefill(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, batch_shape) -> TensorParallel:
     """The plan of a sharded prefill of ``batch_shape`` (B, S) tokens: the
-    stream laid out as the tokens (``batch``, ``seq``), and the cache of
-    (B, S) (every position, a sliding window's too) as the decode-SP
-    layout.  Where the kv heads split, their axes must be the cache
-    sequence's, or each must split the cache's sequence or, beyond the
-    stream's, its rows, at most one axis each, and the cache split over
-    nothing else: the all-to-alls that lay it out (ValueError otherwise)."""
+    stream laid out as the tokens (``batch``, ``seq``), an encoder-decoder's
+    frames as B rows of ``enc_seq``, and the cache of (B, S) (every
+    position, a sliding window's too; the cross cache at its frames) as the
+    decode-SP layout.  Where the kv heads split, their axes must be each
+    cache's sequence's, or each must split the cache's sequence or, beyond
+    the stream's, its rows, at most one axis each, and the cache split over
+    nothing else: the all-to-alls that lay it out
+    (:attr:`TensorParallel.heads_traded`; ValueError otherwise)."""
     sizes = mesh_axis_sizes(mesh)
     B, S = batch_shape
     stream = resolve_spec((B, S), ("batch", "seq"), sizes)
-    cache = cache_specs(cfg, B, S, ring=False)
-    tp = _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream, _ssm_head_axes(cache, sizes)),
-                     cfg, cache, mesh)
-    if tp.kv_local and tp.qkv_axes != tp.cache_seq_axes:
-        rows, seq = set(tp.cache_row_axes), set(tp.cache_seq_axes)
-        if set(tp.qkv_axes) != rows | seq or len(rows) > 1 or len(seq) > 1:
-            raise ValueError(f"kv heads split over {tp.qkv_axes}, the cache's rows over "
-                             f"{tp.cache_row_axes} and sequence over {tp.cache_seq_axes}: "
+    cache = _serving_cache(cfg, B, S)
+    tp = _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream, _ssm_head_axes(cache, sizes),
+                                     _frames(cfg, B, sizes)), cfg, cache, mesh)
+    for plan in (tp, tp.cross) if tp.cross_cache_spec is not None else (tp,):
+        if plan.kv_local and not plan.heads_traded:
+            raise ValueError(f"kv heads split over {plan.qkv_axes}, the cache's rows over "
+                             f"{plan.cache_row_axes} and sequence over {plan.cache_seq_axes}: "
                              "no all-to-all lays the cache out")
     return tp
 

@@ -30,9 +30,9 @@ import torch.multiprocessing as mp  # noqa: E402
 PIPE_B, PIPE_S = 8, 16
 SMOKE = dict(seq_len=32, global_batch=8, kind="train")
 PSUM_N = 4096
-# the family whose meshed train step is ZeRO-3 (every other family's is
-# tensor-parallel): name -> (arch, mesh shape); the encoder-decoder on
-# (data 4, model 1), on (2, 2) and on (1, 4), fed seeded encoder frames
+# the encoder-decoder's planned meshed train step (it ran ZeRO-3 until every
+# family had a plan): name -> (arch, mesh shape); on (data 4, model 1), on
+# (2, 2) and on (1, 4), fed seeded encoder frames
 ZERO3_CASES = {"whisper-tiny-4x1": ("whisper-tiny", (4, 1)),
                "whisper-tiny": ("whisper-tiny", (2, 2)),
                "whisper-tiny-1x4": ("whisper-tiny", (1, 4))}
@@ -96,8 +96,8 @@ def pipe_cfg(layers: int):
 # ------------------------------------------------------------- four ranks
 def four_rank_job(rank, world, init, tmp, ref):
     """On a 4-rank gloo group: the pipeline at 1 and 2 layers a stage; the
-    sharded step on (data 2, model 2), minicpm's (tensor-parallel) and the
-    ZeRO-3 family's; the meshed Trainer with a failure,
+    sharded step on (data 2, model 2), minicpm's and the encoder-decoder's
+    (both tensor-parallel); the meshed Trainer with a failure,
     the elastic run's first half and an unresharded run; the reference's
     checkpoint restored onto the mesh and saved again; each rank's rows and
     the round trip of a tuple spec; sharded prefill and decode."""
@@ -131,7 +131,7 @@ def four_rank_job(rank, world, init, tmp, ref):
     def meshed_steps(cfg, weights, mesh=mesh):
         """Step 1's gradients, then three steps' losses and grad norms of
         ``build_train(model, mesh)`` from ``weights``, and whether the step
-        took the tensor-parallel path (it keeps a plan) or ZeRO-3."""
+        took the tensor-parallel path (it keeps a plan)."""
         model = build(cfg)
         step, opt, sh = build_train(model, mesh, 10, 5e-3)
         params = params_onto_mesh(weights, sh["params"])
@@ -401,14 +401,14 @@ def test_sharded_train_step_matches_one_device_step(four, reference):
 def test_zero3_train_step_matches_one_device_step(four, reference, name):
     """The encoder-decoder's smoke config (whisper) on (data 4, model 1),
     (2, 2) and (1, 4), in float32 from the reference's weights and seeded
-    frames, through the ZeRO-3 step its family runs on a mesh: the
-    gradients of step 1 and three steps' losses and grad norms against the
-    port's one-device step on the same batches, at the tensor-parallel
-    step's bounds."""
+    frames, through the planned (tensor-parallel) step every family runs on
+    a mesh (its ZeRO-3 step until then): the gradients of step 1 and three
+    steps' losses and grad norms against the port's one-device step on the
+    same batches, at the tensor-parallel step's bounds."""
     _, ranks = four
     arch = ZERO3_CASES[name][0]
     runs = [r["zero3"][name] for r in ranks]
-    assert not any(r["tensor_parallel"] for r in runs)
+    assert all(r["tensor_parallel"] for r in runs)
     check_meshed_steps(runs, *one_device_steps(arch, reference["zero3"][arch]))
 
 

@@ -23,8 +23,9 @@ Held: the tokens identical; the logits within 1e-5 of the reference's largest
 (the split softmax of decode is not bit for bit the one-device softmax); each
 rank's prefill and decode cache shard within 1e-6 of the matching slice of
 the reference's cache (``substrate.local_slices``).  The whisper smoke model
-(the encoder-decoder, the one family without a plan) on (2, 2) takes the
-gathering steps, held to the port's one-device steps.  A fake 8-rank trace
+(the encoder-decoder, which gathered whole until it had a plan) on (2, 2)
+takes planned steps too, held to the port's one-device steps
+(``tests/test_torch_encdec_parallel.py`` holds them to the reference).  A fake 8-rank trace
 of the decode and prefill steps of granite, dbrx and mixtral smoke (the MoE
 family's too, under ``moe_ep`` on its own
 mesh) shows that no all-gather outputs more than a rank's cache shard, a
@@ -71,8 +72,8 @@ def prompts_for(vocab: int) -> np.ndarray:
 def serve_rank_job(rank, world, init, tmp, weights):
     """Every case on one 4-rank gloo group: prefill, the decode cache seeded
     from it, NEW greedy steps; each step's logits and tokens, and this rank's
-    cache shards with their specs.  Then whisper smoke's gathering steps on
-    (2, 2) and on one device, from seeded frames."""
+    cache shards with their specs.  Then whisper smoke's steps on (2, 2)
+    and on one device, from seeded frames."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.interop import params_onto_mesh
     from repro_torch.launch.steps import (DecodeStep, PrefillStep, build_decode, build_prefill,
@@ -133,7 +134,7 @@ def serve_rank_job(rank, world, init, tmp, weights):
             nxt, _, cache = dec(p, cache, {"tokens": tok, "pos": pos})
             seq.append(nxt)
             tok = nxt[:, None]
-        runs[where] = (logits, torch.stack(seq, 1), bool(fwd._plans or dec._plans))
+        runs[where] = (logits, torch.stack(seq, 1), bool(fwd._plans and dec._plans))
     out[GATHERING] = runs
     torch.save(out, f"{tmp}/rank{rank}.pt")
     dist.destroy_process_group()
@@ -223,13 +224,13 @@ def test_sharded_serve_matches_reference(ranks, reference, name):
 
 
 def test_other_families_gather_on_a_mesh(ranks):
-    """The encoder-decoder's smoke model (whisper) on (2, 2) runs the
-    gathering prefill and decode (no tensor-parallel plan is made): its
-    prefill logits within 1e-5 of the one-device step's and six greedy
-    tokens identical."""
+    """The encoder-decoder's smoke model (whisper) on (2, 2), the last family
+    that gathered whole to serve, makes a plan for its prefill and its
+    decode now, as every family does: its prefill logits within 1e-5 of
+    the one-device step's and six greedy tokens identical."""
     for r in ranks:
         (lm, tm, planned), (lo, to, _) = r[GATHERING]["mesh"], r[GATHERING]["one"]
-        assert not planned
+        assert planned
         assert rel(lm, lo) < 1e-5
         assert tm.equal(to)
 
