@@ -91,6 +91,22 @@ Phases (any failure exits non-zero; nothing is caught):
      config: a failure at step 6 recovers from the step-4 checkpoint with
      the unfailed run's losses within 2e-4, and a simulated straggler's
      re-plan launches ``ceft_relax``;
+  x. the reference's examples through ``repro_torch.examples`` on the card:
+     x1, ``quickstart`` (host work, as in the reference: its figures and
+     seconds; the CPU tests hold them to the reference's); x2,
+     ``heterogeneous_pipeline``: its plans (host work) once, its glm4-9b
+     straggler scenario with the monitor's re-plans sweeping on the card and
+     again on the CPU, the event (step, class, slowdown, old and new
+     makespan) and the classes in use bit-equal, the ``ceft_relax``
+     launches printed; x3, ``serve_batched`` (the demo dense model, mixtral
+     smoke's ring cache, mamba2 smoke's state) in float32 with TF32 off on
+     the card and on the CPU from the same weights: equal output shapes,
+     every sequence EOS-padded after its first EOS, prefill and
+     teacher-forced decode logits (on the CPU run's tokens) within 1e-4
+     relative; x4, ``train_100m`` at full width (12 layers x 768, a
+     vocabulary of 32768, (8, 256)) for 60 steps on a one-rank NCCL mesh, a
+     node lost at step 55 restoring step 50's checkpoint, the loss falling,
+     step ms, tokens/s and the peak;
   h. the distribution substrate: h1, minicpm-2b as published through
      ``build_train(model, mesh)`` on a (data 1, model 1) mesh of this
      process's one-rank NCCL world (state laid out by ``Model.shardings``),
@@ -169,14 +185,20 @@ Phases (any failure exits non-zero; nothing is caught):
      ``seed_cache`` into 1016 self-cache positions (the cross cache carried
      as the prefill laid it out) and 16 greedy tokens on h7's meshes,
      float32, logits within 1e-5 of the one-device steps and tokens
-     identical.  h2, h5 and h7-h17 run on one group of 4 gloo ranks spawned
+     identical; h18, h8's train step at (1, 4096) against one-device steps
+     of its own (at (2, 4096) four ranks of it do not fit the card) and h9's
+     prefill and decode against h9's, on a (2, 2) mesh under serve (the
+     experts on model, their hidden columns on data, what the experts leave
+     of (model, data); the tokens replicated over data, the sequence whole),
+     at h8's and h9's bounds with h8's routing-gap rule.  h2, h5 and
+     h7-h18 run on one group of 4 gloo ranks spawned
      once (each rank's spawn-to-first-collective seconds and each phase's
      seconds printed), their one-device references run first in this
      process, each freed; every h phase prints each rank's peak and the
      card's name and power limit;
   i. the analysis tools on the card's own runs, read after every timed
      phase (every trace runs in a process of its own at low priority,
-     started with phase h): i1, ``launch.dryrun``'s trace of g2's exact
+     started before phase x): i1, ``launch.dryrun``'s trace of g2's exact
      cell (minicpm-2b as
      published, (B, S) = (2, 4096), float32 weights and moments) on a
      one-rank fake mesh: the predicted per-device argument + temp bytes
@@ -300,6 +322,8 @@ from repro_torch.kernels.edge_relax_superstep import edge_relax_superstep_plain 
 from repro_torch.kernels.minplus import BIG, minplus_plain  # noqa: E402
 from repro_torch.configs.base import ShapeCell  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.examples import (heterogeneous_pipeline, quickstart,  # noqa: E402
+                                  serve_batched, train_100m)
 from repro_torch.launch.dryrun import trace_step  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.launch.roofline import HW, analyze_cell  # noqa: E402
@@ -438,6 +462,14 @@ H6_ARCHS, H6_B, H6_S, H6_SEED = (("whisper-tiny", False),), 2, 4096, 19
 # steps on the card from the same seeded weights (logits within H7_RTOL)
 H7_MESHES = (((1, 4), "baseline"), ((2, 2), "serve"))
 H7_B, H7_P, H7_CACHE, H7_NEW, H7_SEED, H7_RTOL = 4, 512, 1024, 16, 23, 1e-5
+# phase x: the reference's examples on the card (repro_torch.examples): x1
+# quickstart (host work), x2 heterogeneous_pipeline's plans once and its
+# straggler on the card and on the CPU, x3 serve_batched in float32 on the
+# card against the CPU (weights made on the CPU from X3_SEED; teacher-forced
+# on the CPU run's tokens), x4 train_100m at full width with its arguments,
+# restoring from the checkpoint of step X4_RESTORE
+X3_SEED = 71
+X4_ARGS, X4_FAIL, X4_RESTORE = ("--steps", "60"), 55, 50
 # h8 the MoE family's train step at mixtral-8x22b's published widths cut to
 # H8_LAYERS layers, (B, S), on 4 gloo ranks sharing the card, each mesh under
 # its profile: (1, 4) baseline (2 of the 8 experts a rank) and (data, expert,
@@ -453,6 +485,16 @@ H8_STEPS = 1
 H8_MESHES = (((1, 4), ("data", "model"), "baseline"),
              ((1, 2, 2), ("data", "expert", "tp"), "moe_ep"))
 H9_B, H9_P, H9_NEW, H9_SEED = 1, 5120, 16, 31
+# h18 h8's train step and h9's prefill and decode (the same seeds and
+# inputs; h9's one-device references) on a (2, 2) mesh under serve: the
+# experts on model, their hidden columns on what the experts leave of (model,
+# data), the tokens replicated over data and the sequence whole.  The train
+# step runs at (H18_B, H8_S) against one-device references of its own: at
+# h8's (2, 4096) the CPU dry-run's trace of a rank's step predicted 18.46 GB
+# in float32 (73.8 GB for the four), and the four ranks ran out of the card's
+# 79.18 GiB in the backward (NVIDIA H100 80GB HBM3, 700 W); at (1, 4096) it
+# predicts 16.46 GB a rank
+H18_MESHES, H18_B = (((2, 2), ("data", "model"), "serve"),), 1
 # h10 the SSM family's head-parallel train step at mamba2-2.7b's published
 # widths cut to H10_LAYERS layers, (B, S), on a (data 1, model 4) mesh of 4
 # gloo ranks sharing the card (20 of the 80 heads a rank, 2644 of in_proj's
@@ -536,7 +578,8 @@ SPREAD_BOUND = ("h13",)
 # the phases one group of 4 gloo ranks spawned on the card runs in turn (h2's
 # pipe, then the planned train and serving phases), each rank's memory freed
 # between them; the one-device references run first, each freed
-GROUP_PHASES = ("h2", "h5", "h7", "h8", "h10", "h11", "h12", "h13", "h14", "h15", "h16", "h17")
+GROUP_PHASES = ("h2", "h5", "h7", "h8", "h10", "h11", "h12", "h13", "h14", "h15", "h16", "h17",
+                "h18")
 GROUP_WORLD, GROUP_TIMEOUT_S = 4, 1000
 # bytes the AdamW update moves a float32 parameter: parameter, gradient and
 # both moments read, parameter and moments written
@@ -654,7 +697,7 @@ I5_COLLECTIVE_OVER_REFERENCE = {"train": 1.0, "prefill": 1.0, "decode": 1.5}
 # i6 the SSM family's production cells on the same fleet, mamba2-2.7b as
 # published on the (16, 16) mesh under the baseline profile, each through
 # the dry-run's command line in a process of its own started (at low
-# priority) with phase h and read in phase i.  Beside the reference's XLA
+# priority) before phase x and read in phase i.  Beside the reference's XLA
 # compile counts of each cell on 256 fake host devices (python -m
 # repro.launch.dryrun --arch mamba2-2.7b --cell <cell> --mesh single, on the
 # CPU, jax 0.9.0): argument, temp and output bytes a device, collective
@@ -692,7 +735,7 @@ I6_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0, "decode_32k
 I6_LONG_OVER_BEFORE = 0.1
 # i7 the hybrid's and the VLM's production cells on the same fleet, each
 # through the dry-run's command line in a process of its own started (at low
-# priority) with phase h and read in phase i: (arch, cell, layers: 0 as
+# priority) before phase x and read in phase i: (arch, cell, layers: 0 as
 # published); jamba-v0.1-52b's four cells and qwen2-vl-72b's train_4k and
 # decode_32k as published, its prefill_32k cut to 8 of its 80 layers (the
 # share of i4's and i5's cuts: the whole depth traces for far longer than
@@ -757,7 +800,7 @@ I6_TRAIN_FLOPS_UNDER_BEFORE = 12
 # i8 the encoder-decoder's production cells on the same fleet: whisper-tiny's
 # train_4k, prefill_32k and decode_32k as published on (16, 16) under the
 # baseline profile, each through the dry-run's command line in a process of
-# its own started (at low priority) with phase h and read in phase i.  Beside
+# its own started (at low priority) before phase x and read in phase i.  Beside
 # the reference's XLA compile counts of each cell on 256 fake host devices
 # (python -m repro.launch.dryrun --arch whisper-tiny --cell <cell> --mesh
 # single, on the CPU, jax 0.9.0): argument, temp and output bytes a device,
@@ -2257,6 +2300,157 @@ def training_path(device) -> dict:
                 g3=trainer_loop(device))
 
 
+def x1_quickstart() -> dict:
+    """Phase x1: the quickstart, host work as in the reference (the CPU
+    tests hold its figures to the reference's)."""
+    t = time.perf_counter()
+    out = quickstart.run()
+    seconds = time.perf_counter() - t
+    spans = [s["makespan"] for s in out["schedules"].values()]
+    check(all(math.isfinite(x) and x > 0 for x in [out["cpl"], out["cpop_cpl"], *spans])
+          and out["cpl"] <= out["cpop_cpl"] and min(spans) >= out["cpl"],
+          f"quickstart's figures: {out}")
+    log(f"phase x1: quickstart on the card's host in {seconds:.3f} s: CEFT critical path "
+        f"{out['cpl']:.1f}, CPOP's realized {out['cpop_cpl']:.1f}, path head "
+        f"{out['path'][:6]}; " + ", ".join(
+            f"{k} makespan {v['makespan']:.1f} speedup {v['speedup']:.2f} SLR {v['slr']:.2f} "
+            f"slack {v['slack']:.1f}" for k, v in out["schedules"].items()))
+    return dict(out, path=out["path"][:6], seconds=seconds)
+
+
+def x2_pipeline(device) -> dict:
+    """Phase x2: the heterogeneous pipeline example; its plans (host work)
+    once, its glm4-9b straggler scenario with the monitor's re-plans
+    sweeping on the card and again on the CPU: the event (step, class,
+    slowdown, old and new makespan) and the classes in use bit-equal."""
+    t = time.perf_counter()
+    plans = heterogeneous_pipeline.plans()
+    plan_s = time.perf_counter() - t
+    before = ops.LAUNCHES["ceft_relax"]
+    t = time.perf_counter()
+    card = heterogeneous_pipeline.straggler(device)
+    card_s = time.perf_counter() - t
+    launches = ops.LAUNCHES["ceft_relax"] - before
+    t = time.perf_counter()
+    cpu = heterogeneous_pipeline.straggler("cpu")
+    cpu_s = time.perf_counter() - t
+    check(card is not None and card == cpu, f"the straggler's re-plan: card {card}, CPU {cpu}")
+    check(launches > 0, "the straggler's re-plans launched no ceft_relax")
+    check(all(p["makespan"] >= p["cpl"] * 0.999 for p in plans.values()),
+          f"a plan's makespan below its critical path: {plans}")
+    log(f"phase x2: heterogeneous_pipeline: {len(plans)} plans in {plan_s:.2f} s (host); "
+        f"{heterogeneous_pipeline.STRAGGLER_ARCH} straggler on the card in {card_s:.3f} s "
+        f"({launches} ceft_relax launches), on the CPU in {cpu_s:.3f} s, bit-equal: step "
+        f"{card['step']}, class {card['device_class']}, slowdown {card['slowdown']!r}, "
+        f"makespan {card['old_makespan']!r} -> {card['new_makespan']!r}, classes in use "
+        f"{card['classes']}")
+    return dict(plans={f"{a}/{c}": p for (a, c), p in plans.items()}, plan_s=plan_s,
+                straggler=card, card_s=card_s, cpu_s=cpu_s, ceft_relax_launches=launches)
+
+
+def x3_serve(device) -> dict:
+    """Phase x3: the batched-serving example's three engines (the demo
+    dense model, mixtral smoke's ring cache, mamba2 smoke's state) in float32
+    (TF32 off) on the card and on the CPU from the same weights, made on the
+    CPU: equal output shapes, every sequence EOS-padded after its first EOS,
+    and the card's prefill and decode logits, teacher-forced on the CPU
+    run's tokens, within 1e-4 relative of the CPU's."""
+    tf32_off()
+    cfgs = serve_batched.engine_configs("float32")
+    params = {k: build(c).init(torch.Generator().manual_seed(X3_SEED), "cpu")
+              for k, c in cfgs.items()}
+    on_card = {k: tree_to(p, device) for k, p in params.items()}
+    card = serve_batched.run(device, on_card, "float32")
+    cpu = serve_batched.run("cpu", params, "float32")
+    out = {}
+    for name, (prompts, _) in serve_batched.prompts().items():
+        got, want = card[name]["tokens"], cpu[name]["tokens"]
+        check(got.shape == want.shape, f"x3 {name}: card {got.shape}, CPU {want.shape}")
+        for toks in (got, want):
+            for row in toks[:, prompts.shape[1]:]:
+                hit = np.flatnonzero(row == serve_batched.EOS)
+                check(not hit.size or bool((row[hit[0]:] == serve_batched.EOS).all()),
+                      f"x3 {name}: a sequence goes on past EOS: {row}")
+        forced = want[:, prompts.shape[1]:]
+        errs = [rel_err(g, w) for g, w in zip(
+            forced_logits(Engine(cfgs[name], params=on_card[name], device=device), prompts,
+                          forced),
+            forced_logits(Engine(cfgs[name], params=params[name], device="cpu"), prompts,
+                          forced))]
+        check(max(errs) < 1e-4, f"x3 {name}: card logits off the CPU's by {errs} (bound 1e-4)")
+        out[name] = dict(shape=list(got.shape), tokens_identical=bool(np.array_equal(got, want)),
+                         prefill_rel_err=errs[0], decode_rel_err=max(errs[1:]), bound=1e-4,
+                         card_s=card[name]["seconds"], cpu_s=cpu[name]["seconds"])
+    del on_card
+    torch.cuda.empty_cache()
+    log("phase x3: serve_batched, float32 (TF32 off), card against CPU: " + "; ".join(
+        f"{k} {v['shape']} prefill rel err {v['prefill_rel_err']:.3e}, teacher-forced decode "
+        f"{v['decode_rel_err']:.3e} (bound 1e-4), greedy tokens identical "
+        f"{v['tokens_identical']}, generate {v['card_s']:.3f} s (first call; CPU "
+        f"{v['cpu_s']:.3f} s)" for k, v in out.items()))
+    return out
+
+
+def x4_train(device) -> dict:
+    """Phase x4: the 100M-parameter training example at full width
+    (``CFG_100M``, its (8, 256) batch) through ``train_100m.main`` on a
+    one-rank NCCL mesh, checkpoints under a temporary directory: a node
+    lost at step X4_FAIL restores step X4_RESTORE's checkpoint and the run
+    finishes; the loss falls; step ms, tokens/s and the peak."""
+    restored, restore = [], Trainer._restore_latest
+
+    def watched(self, *args):
+        start, tree = restore(self, *args)
+        restored.append(None if tree is None else start - 1)
+        return start, tree
+    Trainer._restore_latest = watched
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = train_100m.main([*X4_ARGS, "--fail-at", str(X4_FAIL), "--ckpt", f"{tmp}/ckpt",
+                                   "--device", device])
+            wall = time.perf_counter() - t
+    finally:
+        Trainer._restore_latest = restore
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    restarts = [e for e in out["events"] if "restart" in str(e.get("event"))]
+    check(out["restarts"] == 1 and [e["step"] for e in restarts] == [X4_FAIL]
+          and restored == [X4_RESTORE] and losses[-1]["step"] == int(X4_ARGS[1]),
+          f"x4 recovery: {out['restarts']} restarts {restarts}, restored {restored}, "
+          f"logged steps {[m['step'] for m in losses]}")
+    check(all(math.isfinite(m["loss"]) for m in losses) and losses[-1]["loss"] < losses[0]["loss"],
+          f"x4: the loss did not fall: {losses}")
+    step_ms = sorted(1e3 * m["time_s"] for m in losses)
+    median_ms = step_ms[len(step_ms) // 2]
+    tokens = out["batch"] * out["seq"]
+    log(f"phase x4: train_100m at full width ({out['n_params'] / 1e6:.1f}M parameters, "
+        f"({out['batch']}, {out['seq']})), {out['steps']} steps in {wall:.1f} s: loss "
+        f"{losses[0]['loss']:.4f} at step {losses[0]['step']} -> {losses[-1]['loss']:.4f} at "
+        f"step {losses[-1]['step']}; node lost at step {X4_FAIL}, restored from step "
+        f"{restored[0]}; logged steps' ms {[round(x, 1) for x in step_ms]}, median "
+        f"{median_ms:.1f} ms, {tokens / median_ms * 1e3:.0f} tokens/s; peak {peak} bytes; "
+        f"events {out['events']}")
+    return dict(out, wall_s=wall, step_ms=step_ms, median_step_ms=median_ms,
+                tokens_per_s=tokens / median_ms * 1e3, max_memory_allocated=peak,
+                restored_from=restored[0])
+
+
+def examples_path(device) -> dict:
+    """Phase x: the reference's four examples through the port's
+    ``repro_torch.examples`` on the card, each one's seconds printed."""
+    out, seconds = {}, {}
+    for name, fn, args in (("x1", x1_quickstart, ()), ("x2", x2_pipeline, (device,)),
+                           ("x3", x3_serve, (device,)), ("x4", x4_train, (device,))):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t
+    log(f"phase x: the examples' seconds {({k: round(v, 1) for k, v in seconds.items()})}")
+    return dict(out, seconds=seconds)
+
+
 def meshed_full_width(device, g2: dict) -> dict:
     """Phase h1: minicpm-2b as published (all 40 layers, g2's generator
     seed, batches, schedule and rate) through ``build_train(model, mesh)``
@@ -3050,10 +3244,12 @@ class RouteRecorder:
 
 def routing_gaps(one: list, ranks: list, K: int) -> dict:
     """Each rank's top-K expert choices (``RouteRecorder`` probabilities of
-    its rows, data 1, and its chunk of the sequence, chunk index = rank)
-    against the one-device step's on the same tokens: how many tokens choose
-    another set of experts, the largest one-device probability gap (the K-th
-    largest less the (K+1)-th) among them, and the least gap of any token."""
+    its rows, every row, and its chunk of the sequence: chunk index = rank
+    modulo the chunks, the whole sequence where the tokens are replicated,
+    as under serve) against the one-device step's on the same tokens: how
+    many tokens choose another set of experts, the largest one-device
+    probability gap (the K-th largest less the (K+1)-th) among them, and the
+    least gap of any token."""
     out = dict(tokens=0, differing=0, max_differing_gap=0.0, min_gap=float("inf"))
     for layer, probs in enumerate(one):
         top, idx = moe_module.top_k_first_index(probs, K + 1)
@@ -3062,7 +3258,8 @@ def routing_gaps(one: list, ranks: list, K: int) -> dict:
         out["min_gap"] = min(out["min_gap"], float(gap.min()))
         for r, rank in enumerate(ranks):
             got = moe_module.top_k_first_index(rank[layer], K)[1].sort(-1).values
-            own = slice(r * got.shape[1], (r + 1) * got.shape[1])
+            chunk = r % (want.shape[1] // got.shape[1])
+            own = slice(chunk * got.shape[1], (chunk + 1) * got.shape[1])
             differ = (got != want[:, own]).any(-1)
             out["tokens"] += differ.numel()
             out["differing"] += int(differ.sum())
@@ -3076,18 +3273,19 @@ def h8_config(dtype: str):
     return dataclasses.replace(configs.get(H8_ARCH), n_layers=H8_LAYERS, compute_dtype=dtype)
 
 
-def h8_one_device(device) -> dict:
+def h8_one_device(device, B: int = H8_B, serve: bool = True) -> dict:
     """The one-device references of h8 and h9 on the card, each run and
     freed before the ranks spawn: per compute type the first ``H8_STEPS``
-    train steps (loss, grad norm, ms, the first forward's routing, the
-    peak); the float32 prefill, ring-seeded cache and decode steps."""
+    train steps at (B, H8_S) (loss, grad norm, ms, the first forward's
+    routing, the peak); with ``serve``, the float32 prefill, ring-seeded
+    cache and decode steps."""
     out = {}
     for dtype in H5_BOUNDS:
         cfg = h8_config(dtype)
         model = build(cfg)
         step, opt, _ = build_train(model, None, G2_STEPS, G2_PEAK_LR)
         params = model.init(torch.Generator(device).manual_seed(H8_SEED), device)
-        data = SyntheticLM(DataConfig(cfg.vocab, H8_S, H8_B, H8_SEED))
+        data = SyntheticLM(DataConfig(cfg.vocab, H8_S, B, H8_SEED))
         batches = [data.device_batch(i, device) for i in range(H8_STEPS)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3098,6 +3296,8 @@ def h8_one_device(device) -> dict:
         del params, batches, step, opt
         gc.collect()
         torch.cuda.empty_cache()
+    if not serve:
+        return out
     model = build(h8_config("float32"))
     params = model.init(torch.Generator(device).manual_seed(H9_SEED), device)
     prompts = h9_prompts(model.cfg, device)
@@ -3134,13 +3334,14 @@ def ring_cache(model, pcache, device):
     return cache
 
 
-def moe_work(device) -> dict:
-    """One rank of phases h8 and h9 in the group: per mesh and profile, h8's
-    ``H8_STEPS`` sharded train steps in each compute type (the first
-    forward's routing, the peak), then h9's sharded prefill, ``seed_cache``
-    into the ring and decode steps in float32."""
+def moe_work(device, meshes=H8_MESHES, B: int = H8_B) -> dict:
+    """One rank of phases h8 and h9 (h18: ``H18_MESHES``, ``H18_B``) in the
+    group: per mesh and profile, h8's ``H8_STEPS`` sharded train steps at
+    (B, H8_S) in each compute type (the first forward's routing, the peak),
+    then h9's sharded prefill, ``seed_cache`` into the ring and decode steps
+    in float32."""
     out = {}
-    for shape, axes, profile in H8_MESHES:
+    for shape, axes, profile in meshes:
         with sharding_profile(profile):
             mesh = make_mesh(shape, axes, device_type=device)
             for dtype in H5_BOUNDS:
@@ -3149,9 +3350,9 @@ def moe_work(device) -> dict:
                 step, opt, sh = build_train(model, mesh, G2_STEPS, G2_PEAK_LR)
                 params = model.init(torch.Generator(device).manual_seed(H8_SEED), device)
                 params = tree_map_sorted(distribute, params, sh["params"])
-                in_sh = input_shardings(model.input_specs(ShapeCell("h8", H8_S, H8_B, "train")),
+                in_sh = input_shardings(model.input_specs(ShapeCell("h8", H8_S, B, "train")),
                                         mesh)
-                data = SyntheticLM(DataConfig(cfg.vocab, H8_S, H8_B, H8_SEED))
+                data = SyntheticLM(DataConfig(cfg.vocab, H8_S, B, H8_SEED))
                 batches = [data.sharded_batch(i, in_sh) for i in range(H8_STEPS)]
                 gc.collect()
                 torch.cuda.synchronize()
@@ -3190,7 +3391,8 @@ def moe_work(device) -> dict:
     return out
 
 
-def check_moe(one: dict, ranks: list, card: str) -> tuple[dict, dict]:
+def check_moe(one: dict, ranks: list, card: str, meshes=H8_MESHES,
+              phases=("h8", "h9"), B: int = H8_B) -> tuple[dict, dict]:
     """Phases h8 and h9: the MoE family's sharded train step, prefill and
     decode at mixtral-8x22b's published widths cut to H8_LAYERS layer(s),
     on the group's 4 gloo ranks on the card under each of H8_MESHES (the
@@ -3204,10 +3406,12 @@ def check_moe(one: dict, ranks: list, card: str) -> tuple[dict, dict]:
     larger gaps: reported, not held); h9's logits within H7_RTOL on every
     rank and every token identical.  Each rank's peak beside the one-device
     run's; ms on gloo on one card are not a speed.  ``one`` is
-    ``h8_one_device``'s, run before the group starts."""
+    ``h8_one_device``'s, run before the group starts; h18 is h8 at
+    (``H18_B``, H8_S) and h9 on ``H18_MESHES``, named by ``phases``."""
+    train, serve = phases
     K = configs.get(H8_ARCH).top_k
-    h8 = dict(arch=H8_ARCH, layers=H8_LAYERS, batch=[H8_B, H8_S], card=card)
-    for shape, _, profile in H8_MESHES:
+    h8 = dict(arch=H8_ARCH, layers=H8_LAYERS, batch=[B, H8_S], card=card)
+    for shape, _, profile in meshes:
         for dtype, (b_loss, b_gn) in H5_BOUNDS.items():
             want = one[dtype]["steps"][0]
             errs = [dict(loss=abs(r[profile, dtype]["steps"][0]["loss"] - want["loss"])
@@ -3228,8 +3432,8 @@ def check_moe(one: dict, ranks: list, card: str) -> tuple[dict, dict]:
                                                  for r in ranks],
                        one_device_step_ms=[s["ms"] for s in one[dtype]["steps"]])
             h8[f"{profile}/{dtype}"] = row
-            log(f"phase h8: {H8_ARCH} at its published widths cut to {H8_LAYERS} layer(s), "
-                f"(B, S) = ({H8_B}, {H8_S}), {dtype}, the sharded train step on a {shape} mesh "
+            log(f"phase {train}: {H8_ARCH} at its published widths cut to {H8_LAYERS} layer(s), "
+                f"(B, S) = ({B}, {H8_S}), {dtype}, the sharded train step on a {shape} mesh "
                 f"under {profile} (plan {row['plan']}) of 4 gloo ranks "
                 f"on the card: step 1 off the one-device step by loss "
                 f"{max(e['loss'] for e in errs):.3e}, grad norm "
@@ -3244,13 +3448,14 @@ def check_moe(one: dict, ranks: list, card: str) -> tuple[dict, dict]:
                 f"{[[round(t, 1) for t in r] for r in row['gloo_on_one_card_step_ms']]} (one "
                 f"device {[round(t, 1) for t in row['one_device_step_ms']]}); card {card}")
             check(all(math.isfinite(x) for r in ranks for s in r[profile, dtype]["steps"]
-                      for x in (s["loss"], s["grad_norm"])), f"h8 {profile} {dtype}: not finite")
+                      for x in (s["loss"], s["grad_norm"])),
+                  f"{train} {profile} {dtype}: not finite")
             check(all(e["loss"] <= b_loss and e["grad_norm"] <= b_gn for e in errs),
-                  f"h8 {profile} {dtype}: the sharded step is off the one-device step by "
+                  f"{train} {profile} {dtype}: the sharded step is off the one-device step by "
                   f"{errs} (bounds {b_loss}, {b_gn})")
             if dtype == "float32":
                 check(gaps["max_differing_gap"] < H8_GAP,
-                      f"h8 {profile}: an expert choice differs at a gap of "
+                      f"{train} {profile}: an expert choice differs at a gap of "
                       f"{gaps['max_differing_gap']:.3e}: {gaps}")
     h9 = dict(arch=H8_ARCH, layers=H8_LAYERS, batch=H9_B, prompt=H9_P,
               window=configs.get(H8_ARCH).window, new=H9_NEW, card=card,
@@ -3258,7 +3463,7 @@ def check_moe(one: dict, ranks: list, card: str) -> tuple[dict, dict]:
                               decode_ms=one["serve"]["decode_ms"],
                               max_memory_allocated=one["serve"]["max_memory_allocated"]))
     want_steps = one["serve"]["steps"]
-    for shape, _, profile in H8_MESHES:
+    for shape, _, profile in meshes:
         runs = [r[profile, "serve"] for r in ranks]
         errs = [max(rel_err(lg, w) for (lg, _), (w, _) in zip(run["steps"], want_steps))
                 for run in runs]
@@ -3271,7 +3476,7 @@ def check_moe(one: dict, ranks: list, card: str) -> tuple[dict, dict]:
                    gloo_on_one_card_prefill_ms=[run["prefill_ms"] for run in runs],
                    gloo_on_one_card_decode_ms=[run["decode_ms"] for run in runs])
         h9[profile] = row
-        log(f"phase h9: {H8_ARCH} at its published widths cut to {H8_LAYERS} layer(s), "
+        log(f"phase {serve}: {H8_ARCH} at its published widths cut to {H8_LAYERS} layer(s), "
             f"float32, prefill ({H9_B}, {H9_P}) (window {h9['window']}) seeded into the ring "
             f"and {H9_NEW} greedy tokens, sharded on a {shape} mesh under {profile}: logits "
             f"off the one-device steps by {max(errs):.3e} at most (bound {H7_RTOL}), tokens "
@@ -3286,12 +3491,12 @@ def check_moe(one: dict, ranks: list, card: str) -> tuple[dict, dict]:
             f"{sum(h9['one_device']['decode_ms']) / len(h9['one_device']['decode_ms']):.2f}); "
             f"card {card}")
         check(all(math.isfinite(float(lg.abs().max())) for run in runs for lg, _ in run["steps"]),
-              f"h9 {profile}: logits not finite")
-        check(gaps["max_differing_gap"] < H8_GAP, f"h9 {profile}: an expert choice differs at "
+              f"{serve} {profile}: logits not finite")
+        check(gaps["max_differing_gap"] < H8_GAP, f"{serve} {profile}: an expert choice differs at "
               f"a gap of {gaps['max_differing_gap']:.3e}")
         check(all(e <= H7_RTOL for e in errs),
-              f"h9 {profile}: the sharded steps are off the one-device steps by {errs}")
-        check(all(same), f"h9 {profile}: the sharded steps' tokens differ: {same}")
+              f"{serve} {profile}: the sharded steps are off the one-device steps by {errs}")
+        check(all(same), f"{serve} {profile}: the sharded steps' tokens differ: {same}")
     return h8, h9
 
 
@@ -3301,6 +3506,8 @@ def group_work(name: str, device) -> dict:
         return pipeline_work(device, h2_config())
     if name == "h8":
         return moe_work(device)
+    if name == "h18":
+        return moe_work(device, H18_MESHES, H18_B)
     if name in TRAIN_PHASES:
         return tensor_parallel_work(device, name)
     return serve_work(device, name)
@@ -3324,7 +3531,7 @@ def group_rank(rank, world, init, tmp, device, phases):
 
 
 def group_phases(device) -> dict:
-    """Phases h2, h5, h7-h17 on one group of GROUP_WORLD gloo ranks spawned
+    """Phases h2, h5, h7-h18 on one group of GROUP_WORLD gloo ranks spawned
     on the card: the one-device references first, each run and freed in
     this process (so the ranks have the card), then the ranks run every
     phase in turn; each phase is checked against its reference after."""
@@ -3337,6 +3544,9 @@ def group_phases(device) -> dict:
         elif name == "h8":
             tf32_off()
             refs[name] = h8_one_device(device)
+        elif name == "h18":
+            refs[name] = dict(h8_one_device(device, H18_B, serve=False),
+                              serve=refs["h8"]["serve"])
         elif name in TRAIN_PHASES:
             refs[name] = train_one_device(device, name)
         else:
@@ -3363,6 +3573,9 @@ def group_phases(device) -> dict:
             out["h2"] = pipeline_check(refs[name], got)
         elif name == "h8":
             out["h8"], out["h9"] = check_moe(refs[name], got, card)
+        elif name == "h18":
+            out["h18"], out["h18_serve"] = check_moe(refs[name], got, card, H18_MESHES,
+                                                     ("h18", "h18"), H18_B)
         elif name in TRAIN_PHASES:
             out[name] = check_train(name, refs[name], got, card)
         else:
@@ -3376,7 +3589,7 @@ def distributed_path(device, g2: dict) -> dict:
     """Phase h: the distribution substrate on the card (h1 in this
     process's one-rank NCCL world, which h4 reuses through
     ``make_test_mesh`` and h6 through a mesh of its own; h3 in a spawned
-    gloo world of 2; h2, h5 and h7-h17 in one spawned gloo group of 4)."""
+    gloo world of 2; h2, h5 and h7-h18 in one spawned gloo group of 4)."""
     init_group("nccl")
     try:
         h1 = meshed_full_width(device, g2)
@@ -3847,7 +4060,7 @@ def traced_train_flops(cfg, B: int, S: int) -> int:
 
 def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float) -> dict:
     """Phase i, after every timed phase: the records of the traces
-    ``start_analysis`` started with phase h (``procs``, their output in
+    ``start_analysis`` started before phase x (``procs``, their output in
     ``out``): i1, the dry-run of g2's cell, then i2, the roofline of the
     cells g2 and e2 ran, on a one-rank fake world (this process's default
     group for i2 alone); i3, i4, i5, i6, i7 and i8."""
@@ -3896,8 +4109,8 @@ def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float)
           f"i3: {coll['collective_bytes_per_device']} collective bytes a device, above the "
           f"reference's {I3_REFERENCE_COLLECTIVE_BYTES}")
     i4 = {cell: check_i4(i4[cell], cell, layers, card_bytes, card) for cell, layers in I4_CELLS}
-    log(f"phase i4: {i4_wall:.1f} s in phase i to read i1 to i4, their traces started with "
-        f"phase h, {t3 - t0:.1f} s before")
+    log(f"phase i4: {i4_wall:.1f} s in phase i to read i1 to i4, their traces started before "
+        f"phase x, {t3 - t0:.1f} s before")
     i5 = check_i5(procs, out, t0, card_bytes, card)
     i6 = check_i6(procs, out, t0, card_bytes, card)
     i7 = check_i7(procs, out, t0, card_bytes, card)
@@ -3934,7 +4147,7 @@ def start_i1(out: str) -> subprocess.Popen:
 
 def start_analysis(out: str) -> dict:
     """Phase i's traces, each in a process of its own at low priority,
-    started with phase h: i1's, i3's, i4's, i5's, i6's, i7's and i8's."""
+    started before phase x: i1's, i3's, i4's, i5's, i6's, i7's and i8's."""
     procs = {"i1": start_i1(out), "i3": start_dryrun(out, I3_CELL, nice=10)}
     for cell, layers in I4_CELLS:
         procs[cell] = start_dryrun(out, cell, layers, nice=10)
@@ -4457,6 +4670,12 @@ def main() -> int:
     i_t0 = time.perf_counter()
     i_procs = start_analysis(i_dir)
     try:
+        examples, by_path["examples"] = counted(examples_path, device)
+        check(by_path["examples"]["ceft_relax"] > 0,
+              f"the examples launched no ceft_relax: {by_path['examples']}")
+        log(f"examples path launches: {by_path['examples']} (ceft_relax: x2's and x4's "
+            f"straggler re-plans)")
+        print(json.dumps({"examples": examples}, default=float), flush=True)
         distributed, by_path["distributed"] = counted(distributed_path, device, train["g2"])
         check(by_path["distributed"]["ceft_relax"] > 0,
               f"the distributed path launched no ceft_relax: {by_path['distributed']}")

@@ -10,6 +10,7 @@ from .common import (
     init_params,
     profile_names,
     resolve_profile,
+    set_sharding_profile,
     sharding_profile,
 )
 from .model import Model, build
@@ -17,5 +18,5 @@ from .model import Model, build
 __all__ = [
     "Model", "PSpec", "ShardingProfile", "abstract_params", "active_profile",
     "build", "encdec", "init_params", "profile_names", "resolve_profile",
-    "sharding_profile", "ssm", "transformer",
+    "set_sharding_profile", "sharding_profile", "ssm", "transformer",
 ]

@@ -10,7 +10,8 @@ logical axis names + init kind).  The tree is materialized three ways:
 Logical-axis sharding with divisibility degradation: a logical axis maps to
 mesh axes only when the dimension is divisible by their product, so one rules
 table serves every architecture on every mesh.  The rules come from the
-active scoped profile (``sharding_profile``); the router's pool also
+active scoped profile (``sharding_profile``), else the process default
+that the deprecated :func:`set_sharding_profile` sets; the router's pool also
 validates profile names against :func:`profile_names`.
 """
 from __future__ import annotations
@@ -19,6 +20,7 @@ import contextlib
 import contextvars
 import dataclasses
 import math
+import warnings
 from types import MappingProxyType
 from typing import Any, Callable, Iterator, Mapping
 
@@ -122,13 +124,21 @@ def resolve_profile(profile: str | ShardingProfile) -> ShardingProfile:
 # contextvars give per-thread AND per-async-task scoping
 _ACTIVE_PROFILE: contextvars.ContextVar[ShardingProfile | None] = \
     contextvars.ContextVar("repro_torch_sharding_profile", default=None)
+# process-wide fallback for the deprecated set_sharding_profile() shim;
+# scoped sharding_profile(...) blocks always take precedence
+_PROCESS_DEFAULT_PROFILE: ShardingProfile | None = None
 
 
 def active_profile() -> ShardingProfile:
     """The innermost ``sharding_profile`` block's profile on this thread or
-    task, else baseline."""
+    task, else the process default set by the deprecated shim, else
+    baseline."""
     prof = _ACTIVE_PROFILE.get()
-    return prof if prof is not None else resolve_profile("baseline")
+    if prof is not None:
+        return prof
+    if _PROCESS_DEFAULT_PROFILE is not None:
+        return _PROCESS_DEFAULT_PROFILE
+    return resolve_profile("baseline")
 
 
 @contextlib.contextmanager
@@ -141,6 +151,21 @@ def sharding_profile(profile: str | ShardingProfile) -> Iterator[ShardingProfile
         yield prof
     finally:
         _ACTIVE_PROFILE.reset(token)
+
+
+def set_sharding_profile(name: str) -> None:
+    """DEPRECATED shim: sets the process-wide *default* profile.
+
+    Use ``sharding_profile(name)`` instead: the scoped form composes under
+    concurrency; this one is a process global that any active scoped profile
+    overrides.  An unknown name raises before the default changes."""
+    warnings.warn(
+        "set_sharding_profile() is deprecated; use the scoped "
+        "`with sharding_profile(name):` context manager",
+        DeprecationWarning, stacklevel=2)
+    prof = resolve_profile(name)
+    global _PROCESS_DEFAULT_PROFILE
+    _PROCESS_DEFAULT_PROFILE = prof
 
 
 # ------------------------------------------------------------------ spec tree

@@ -516,27 +516,34 @@ class TensorParallel:
 
     @property
     def heads_traded(self) -> bool:
-        """Whether all-to-alls over the ``qkv`` axes lay this rank's kv heads
+        """Whether collectives over the ``qkv`` axes lay this rank's kv heads
         out as its cache shard: the axes are the cache sequence's, or each
         splits the cache's sequence or, beyond the stream's, its rows, at
-        most one axis each, and the cache splits over nothing else."""
+        most one axis each, or neither (the cache is whole over it), and the
+        cache splits over nothing else."""
         if self.qkv_axes == self.cache_seq_axes:
             return True
         rows, seq = set(self.cache_row_axes), set(self.cache_seq_axes)
-        return set(self.qkv_axes) == rows | seq and len(rows) <= 1 and len(seq) <= 1
+        return rows | seq <= set(self.qkv_axes) and len(rows) <= 1 and len(seq) <= 1
 
     def heads_to_cache(self, t: torch.Tensor) -> torch.Tensor:
         """(B, S, heads / n, hd), this rank's kv heads over its stream rows'
         whole sequence -> its cache shard, every kv head over the cache's
         rows and sequence slice: an all-to-all over the ``qkv`` axes,
         trading heads for the cache's sequence where those are its axes too
-        (``moe_ep``'s (expert, tp)), else one over each ``qkv`` axis, the
-        minor one first, each trading heads for the cache's rows or its
-        sequence (:attr:`heads_traded`, which :func:`plan_prefill` checks)."""
+        (``moe_ep``'s (expert, tp)), else a collective over each ``qkv``
+        axis, the minor one first: an all-to-all trading heads for the
+        cache's rows or its sequence where the axis splits them, an
+        all-gather of the heads where the cache is whole over it (``serve``'s
+        ``data`` where the rows do not divide it) (:attr:`heads_traded`,
+        which :func:`plan_prefill` checks)."""
         if self.qkv_axes == self.cache_seq_axes:
             return all_to_all_over(t, self.mesh, self.qkv_axes, 1, 2)
         for ax in reversed(self.qkv_axes):
-            t = all_to_all_over(t, self.mesh, (ax,), 0 if ax in self.cache_row_axes else 1, 2)
+            if ax in self.cache_row_axes or ax in self.cache_seq_axes:
+                t = all_to_all_over(t, self.mesh, (ax,), 0 if ax in self.cache_row_axes else 1, 2)
+            else:
+                t = gather_over(t, self.mesh, (ax,), 2)
         return t
 
     # -------------------------------------------------------------- cache
@@ -1020,8 +1027,8 @@ def plan_prefill(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, batch_shape) -> T
     position, a sliding window's too; the cross cache at its frames) as the
     decode-SP layout.  Where the kv heads split, their axes must be each
     cache's sequence's, or each must split the cache's sequence or, beyond
-    the stream's, its rows, at most one axis each, and the cache split over
-    nothing else: the all-to-alls that lay it out
+    the stream's, its rows, at most one axis each, or leave the cache whole,
+    and the cache split over nothing else: the collectives that lay it out
     (:attr:`TensorParallel.heads_traded`; ValueError otherwise)."""
     sizes = mesh_axis_sizes(mesh)
     B, S = batch_shape
@@ -1033,7 +1040,7 @@ def plan_prefill(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, batch_shape) -> T
         if plan.kv_local and not plan.heads_traded:
             raise ValueError(f"kv heads split over {plan.qkv_axes}, the cache's rows over "
                              f"{plan.cache_row_axes} and sequence over {plan.cache_seq_axes}: "
-                             "no all-to-all lays the cache out")
+                             "no collective lays the cache out")
     return tp
 
 

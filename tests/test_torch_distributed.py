@@ -74,6 +74,32 @@ def smoke_cfg(arch: str, **kw):
     return dataclasses.replace(TC.get(arch, smoke=True), compute_dtype="float32", **kw)
 
 
+TABLES = ("embed", "unembed")
+
+
+def table_specs(shardings) -> dict:
+    """The (un)embedding tables' spec entries of a ``param_shardings`` tree."""
+    return {k: shardings[k].spec for k in TABLES if k in shardings}
+
+
+def check_tables(got: dict, arch: str, axes, shape, profile: str, **kw) -> None:
+    """The (un)embedding tables' specs (``table_specs``) equal the
+    reference's ``resolve_spec`` under ``profile`` for the smoke config (with
+    ``kw``'s changes) on a mesh of ``shape`` over ``axes``; under ``opt1``
+    neither table is split over ``data``."""
+    import repro.configs as JC
+    from repro.models import build as jbuild
+    from repro.models.common import resolve_spec
+    specs = jbuild(dataclasses.replace(JC.get(arch, smoke=True), **kw)).specs()
+    sizes = dict(zip(axes, shape))
+    want = {k: tuple(resolve_spec(specs[k].shape, specs[k].logical, sizes, profile=profile))
+            for k in TABLES if k in specs}
+    assert got == want, (got, want)
+    if profile == "opt1":
+        assert not any("data" in (e if isinstance(e, tuple) else (e,))
+                       for spec in got.values() for e in spec), got
+
+
 def smoke_batch(cfg, data, i: int, shardings=None) -> dict:
     """Smoke train batch ``i`` of ``data`` (a ``SyntheticLM``): its tokens and
     labels, with an encoder-decoder's frames seeded normal, laid out by

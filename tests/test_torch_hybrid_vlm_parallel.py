@@ -9,7 +9,8 @@ Cases: jamba smoke (8 layers: 6 SSM, 2 attention, 4 MoE of 4 experts) and
 qwen2-vl smoke (M-RoPE sections (2, 3, 3), fed seeded ``embeds`` and (3, B,
 S) positions whose three rows differ, as an image grid's (temporal, h, w)
 do) on (data 1, model 4) and (2, 2) under the baseline profile and on (2,
-2) under ``serve``.  Prompts of 8, 40 and 64 tokens seeded into decode
+2) under ``serve`` and under ``opt1`` (the (un)embedding tables whole over
+``data``, as the reference's ``resolve_spec`` lays them out).  Prompts of 8, 40 and 64 tokens seeded into decode
 caches of 16, 46 and 72 positions: 46 does not divide 4, so on (1, 4) the
 decode cache is whole where the prefill's is split over ``model``, and
 ``seed_cache`` moves the rows from the one split into the other.  Beside
@@ -50,11 +51,11 @@ torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
 
-from test_torch_distributed import rel, smoke_cfg, spawn  # noqa: E402
+from test_torch_distributed import check_tables, rel, smoke_cfg, spawn, table_specs  # noqa: E402
 
 ARCHS = {"jamba": "jamba-v0.1-52b", "qwen2vl": "qwen2-vl-72b"}
 MESHES = {"1x4": ((1, 4), "baseline"), "2x2": ((2, 2), "baseline"),
-          "serve-2x2": ((2, 2), "serve")}
+          "serve-2x2": ((2, 2), "serve"), "opt1-2x2": ((2, 2), "opt1")}
 CASES = {f"{a}-{m}": (arch, shape, profile)
          for a, arch in ARCHS.items() for m, (shape, profile) in MESHES.items()}
 # the decode cache's sequence split over model, whole, and over model; the
@@ -72,6 +73,11 @@ PLANS = {  # name: (cache rows beyond the stream's, cache sequence, SSM heads, e
                     {16: ("model",), 46: ("model",), 72: ("model",)}, (), ()),
     "qwen2vl-serve-2x2": ({16: ("data",), 46: ("data",), 72: ("data",)},
                           {16: ("model",), 46: ("model",), 72: ("model",)}, (), ()),
+    "jamba-opt1-2x2": ({16: (), 46: (), 72: ()},
+                       {16: ("model",), 46: ("model",), 72: ("model",)}, ("model",),
+                       ("model",)),
+    "qwen2vl-opt1-2x2": ({16: (), 46: (), 72: ()},
+                         {16: ("model",), 46: ("model",), 72: ("model",)}, (), ()),
 }
 TRAIN = (4, 64)                    # (B, S)
 PROMPTS = {8: 16, 40: 46, 64: 72}  # prompt: decode cache positions
@@ -238,7 +244,8 @@ def rank_job(rank, world, init, tmp, weights):
                      for P, T in PROMPTS.items()}
         out[name] = dict(train=rows, serve=serve, planned=bool(step._plans),
                          coords=dict(zip(("data", "model"), mesh.get_coordinate())),
-                         plan=(tp.ssm_head_axes, tp.expert_axes))
+                         plan=(tp.ssm_head_axes, tp.expert_axes),
+                         tables=table_specs(sh["params"]))
 
     model = build(smoke_cfg(SEED_ARCH))
     mesh = make_mesh(SEED_MESH, ("data", "model"), device_type="cpu")
@@ -328,6 +335,7 @@ def test_train_step_matches_one_device_step(ranks, reference, name):
         got = r[name]
         assert got["planned"]
         assert got["plan"] == PLANS[name][2:]
+        check_tables(got["tables"], arch, ("data", "model"), *CASES[name][1:])
         assert abs(got["train"][0]["loss"][1] - want) <= 1e-5 * abs(want)
         for row in got["train"]:
             (gl, wl), (gn, wn) = row["loss"], row["grad_norm"]

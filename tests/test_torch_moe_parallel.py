@@ -18,6 +18,17 @@ prefill lays its cache out by one all-to-all over both axes (mixtral-8x22b's
 whose groups of 256 fall whole on a rank of (2, 2) and span two ranks of
 ``moe_ep``'s four.  The mixtral prompts of 40 and 512 tokens are longer than
 its 32-token window, so the ring wraps in ``seed_cache`` and in decode.
+dbrx and mixtral smoke under ``serve`` on (2, 2): the experts on ``model``,
+their hidden columns on what the experts leave of (``model``, ``data``), so
+``data``, and the tokens replicated over ``data`` with the sequence whole,
+as the reference's ``resolve_spec`` lays them out; dbrx smoke under
+``opt1`` on (2, 2), baseline's layout with the (un)embedding tables whole
+over ``data``.  Each case's tables resolve to the reference's specs under
+its profile.  mixtral smoke under ``serve`` with 4 kv heads, which split
+over (``model``, ``data``), prefills one row, which ``data`` does not
+divide: the cache is whole over ``data``, so prefill gathers the heads over
+``data`` and trades them for the sequence over ``model`` (mixtral-8x22b's 8
+kv heads and (1, 5120) prompt on the card's (2, 2) do the same).
 
 Held, at ``test_torch_tensor_parallel.py``'s and
 ``test_torch_sharded_serve.py``'s bounds: three train steps against the
@@ -41,7 +52,7 @@ torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
 
-from test_torch_distributed import rel, smoke_cfg, spawn  # noqa: E402
+from test_torch_distributed import check_tables, rel, smoke_cfg, spawn, table_specs  # noqa: E402
 
 CASES = {  # name: (arch, mesh shape, profile, config changes, train (B, S), serve (B, P, T))
     "dbrx-2x2": ("dbrx-132b", (2, 2), "baseline", {}, (4, 64), (4, 8, 16)),
@@ -55,6 +66,11 @@ CASES = {  # name: (arch, mesh shape, profile, config changes, train (B, S), ser
     "dbrx-2x2-s512": ("dbrx-132b", (2, 2), "baseline", {}, (2, 512), (2, 512, 520)),
     "mixtral-ep-1x2x2-s512": ("mixtral-8x22b", (1, 2, 2), "moe_ep", {}, (2, 512),
                               (2, 512, 520)),
+    "dbrx-serve-2x2": ("dbrx-132b", (2, 2), "serve", {}, (4, 64), (4, 8, 16)),
+    "mixtral-serve-2x2": ("mixtral-8x22b", (2, 2), "serve", {}, (4, 64), (4, 40, 48)),
+    "dbrx-opt1-2x2": ("dbrx-132b", (2, 2), "opt1", {}, (4, 64), (4, 8, 16)),
+    "mixtral-serve-kv4-b1-2x2": ("mixtral-8x22b", (2, 2), "serve", {"n_kv_heads": 4},
+                                 (4, 64), (1, 40, 48)),
 }
 PLANS = {  # name: (expert axes, the experts' hidden-column axes, the train stream's sequence)
     "dbrx-2x2": (("model",), (), ("model",)),
@@ -65,6 +81,10 @@ PLANS = {  # name: (expert axes, the experts' hidden-column axes, the train stre
     "mixtral-ep-kv4-1x2x2": (("expert",), ("tp",), ("expert", "tp")),
     "dbrx-2x2-s512": (("model",), (), ("model",)),
     "mixtral-ep-1x2x2-s512": (("expert",), ("tp",), ("expert", "tp")),
+    "dbrx-serve-2x2": (("model",), ("data",), ()),
+    "mixtral-serve-2x2": (("model",), ("data",), ()),
+    "dbrx-opt1-2x2": (("model",), (), ("model",)),
+    "mixtral-serve-kv4-b1-2x2": (("model",), ("data",), ()),
 }
 STEPS, NEW = 3, 6
 # the keep-mask probe: (B, S) tokens on (1, 4), groups of 64 (one over every
@@ -188,7 +208,8 @@ def moe_rank_job(rank, world, init, tmp, weights):
                          decode=shards(cache, dsh["cache"]),
                          one_device=one_device if rank == 0 else None,
                          coords=dict(zip(axes_of(shape), mesh.get_coordinate())),
-                         plan=(tp.expert_axes, tp.expert_ffn_axes, tp.seq_axes))
+                         plan=(tp.expert_axes, tp.expert_ffn_axes, tp.seq_axes),
+                         tables=table_specs(sh["params"]))
 
     # a split group's keep mask and positions: this rank's 16 tokens of each row
     B, S, K, E, C = (SLOTS[k] for k in "BSKEC")
@@ -277,12 +298,14 @@ def test_moe_train_step_matches_one_device_step(ranks, reference, name):
     step's at the same parameters and optimizer state, and the first loss
     against the reference's; the plan takes the branch the case names."""
     ref = reference[1][name]
+    arch, shape, profile, kw = CASES[name][:4]
     rows = [row for r in ranks for row in r[name]["train"]]
     print(name, {k: max(abs(row[k][0] - row[k][1]) / abs(row[k][1]) for row in rows)
                  for k in ("loss", "grad_norm")}, max(row["grad_leaf"] for row in rows))
     for r in ranks:
         got = r[name]
         assert got["plan"] == PLANS[name]
+        check_tables(got["tables"], arch, axes_of(shape), shape, profile, **kw)
         assert abs(got["train"][0]["loss"][1] - ref["loss"]) <= 1e-5 * abs(ref["loss"])
         for row in got["train"]:
             (gl, wl), (gn, wn) = row["loss"], row["grad_norm"]

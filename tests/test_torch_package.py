@@ -40,7 +40,10 @@ def test_import_loads_no_jax_and_no_reference():
                 "repro_torch.launch.pipeline", "repro_torch.optim.grad_compress",
                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
                 "repro_torch.launch.roofline_main",
-                "repro_torch.launch.hlo_stats"} <= set(names), names
+                "repro_torch.launch.hlo_stats", "repro_torch.examples",
+                "repro_torch.examples.quickstart", "repro_torch.examples.serve_batched",
+                "repro_torch.examples.train_100m",
+                "repro_torch.examples.heterogeneous_pipeline"} <= set(names), names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
@@ -92,9 +95,9 @@ def test_cuda_default_raises_without_cuda():
 
 
 def test_launcher_defaults_to_the_card(tmp_path):
-    """``python -m repro_torch.launch.serve`` (``.train``) without
-    ``--device`` raises on a machine without CUDA rather than serving
-    (training) on the CPU."""
+    """``python -m repro_torch.launch.serve`` (``.train``) and the examples
+    ``serve_batched`` and ``train_100m --smoke`` without ``--device`` raise on
+    a machine without CUDA rather than serving (training) on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     import os
@@ -103,7 +106,10 @@ def test_launcher_defaults_to_the_card(tmp_path):
 
     from conftest import REPO
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    for launcher, args in (("serve", ["--max-new", "1"]), ("train", ["--steps", "1"])):
-        r = subprocess.run([sys.executable, "-m", f"repro_torch.launch.{launcher}", *args],
+    for launcher, args in (("launch.serve", ["--max-new", "1"]),
+                           ("launch.train", ["--steps", "1"]),
+                           ("examples.serve_batched", []),
+                           ("examples.train_100m", ["--smoke", "--steps", "1"])):
+        r = subprocess.run([sys.executable, "-m", f"repro_torch.{launcher}", *args],
                            env=env, capture_output=True, text=True, timeout=120, cwd=tmp_path)
         assert r.returncode != 0 and "CUDA is not available" in r.stderr, (launcher, r.stderr)

@@ -14,7 +14,9 @@ on every rank; tied embeddings over a split vocabulary); glm4 smoke on
 vocabulary over both axes, the stream's batch whole, the cache's rows on
 ``data``), and so with 4 kv heads (which split over both axes, so prefill's
 cache takes an all-to-all over ``data`` for its rows and one over ``model``
-for its sequence, as granite-3-8b's 8 kv heads do on the card's (2, 2)).
+for its sequence, as granite-3-8b's 8 kv heads do on the card's (2, 2));
+granite smoke under ``opt1`` on (2, 2) (the (un)embedding tables whole over
+``data``, as the reference's ``resolve_spec`` lays them out under it).
 Each prefills (B, P) prompts, moves the cache into a decode cache of T
 positions (``seed_cache``, as the engine pads the reference's) and decodes
 NEW greedy tokens.
@@ -45,7 +47,7 @@ torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
 
-from test_torch_distributed import rel, smoke_cfg, spawn  # noqa: E402
+from test_torch_distributed import check_tables, rel, smoke_cfg, spawn, table_specs  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = {  # name: (arch, mesh shape, profile, kv heads: None for the smoke config's)
@@ -56,6 +58,7 @@ CASES = {  # name: (arch, mesh shape, profile, kv heads: None for the smoke conf
     "glm4-1x4": ("glm4-9b", (1, 4), "baseline", None),
     "granite-serve-2x2": ("granite-3-8b", (2, 2), "serve", None),
     "granite-serve-kv4-2x2": ("granite-3-8b", (2, 2), "serve", 4),
+    "granite-opt1-2x2": ("granite-3-8b", (2, 2), "opt1", None),
 }
 B, P, T, NEW = 4, 8, 16, 6
 GATHERING = "whisper-tiny"
@@ -109,7 +112,8 @@ def serve_rank_job(rank, world, init, tmp, weights):
             tp = dec.plan(torch.empty(B, 1), cache)[0]
         out[name] = dict(steps=steps, prefill=prefill_shards, decode=shards(cache, dsh["cache"]),
                          coords=dict(zip(("data", "model"), mesh.get_coordinate())),
-                         plan=(tp.q_local, tp.kv_local, tp.cache_row_axes, tp.cache_seq_axes))
+                         plan=(tp.q_local, tp.kv_local, tp.cache_row_axes, tp.cache_seq_axes),
+                         tables=table_specs(psh["params"]))
 
     model = build(smoke_cfg(GATHERING))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
@@ -188,6 +192,7 @@ PLANS = {  # name: (q heads split, kv heads split, cache rows beyond the stream'
     "glm4-1x4": (True, False, (), ("model",)),
     "granite-serve-2x2": (True, False, ("data",), ("model",)),
     "granite-serve-kv4-2x2": (True, True, ("data",), ("model",)),
+    "granite-opt1-2x2": (True, True, (), ("model",)),
 }
 
 
@@ -206,12 +211,14 @@ def test_sharded_serve_matches_reference(ranks, reference, name):
     1e-5 of its largest, and the rank's prefill and decode cache shards
     within 1e-6 of the reference's caches' matching slices.  Each case takes
     the head branch it names."""
-    arch, shape, _, kv = CASES[name]
+    arch, shape, profile, kv = CASES[name]
     ref = reference[model_key(arch, kv)]
     errs = {"logits": 0.0, "prefill": 0.0, "decode": 0.0}
     for r in ranks:
         got = r[name]
         assert got["plan"] == PLANS[name]
+        check_tables(got["tables"], arch, ("data", "model"), shape, profile,
+                     **({} if kv is None else {"n_kv_heads": kv}))
         for (lg, tok), (wl, wt) in zip(got["steps"], ref["steps"]):
             assert tuple(lg.shape) == wl.shape
             assert np.array_equal(tok.numpy(), wt)

@@ -8,7 +8,10 @@ Cases: mamba2 smoke (4 heads, ``in_proj``'s 292 columns) on (data 1, model
 traded for the head's by an exchange over ``model``; on (2, 2), two heads a
 rank; and under ``serve`` on (2, 2), where ``in_proj``'s columns split over
 (model, data), the conv weights, ``norm`` and ``out_proj`` too, the heads
-over ``model`` only (the cache's rows take ``data``) and the stream whole.
+over ``model`` only (the cache's rows take ``data``) and the stream whole;
+and under ``opt1`` on (2, 2), (2, 2)'s layout with the tied table's
+``d_model`` axis whole over ``data`` (each case's table as the reference's
+``resolve_spec`` lays it out).
 Prompts of 8 tokens (shorter than the 16-token chunk), 40 (a ragged last
 chunk) and 64.
 
@@ -46,18 +49,20 @@ torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
 
-from test_torch_distributed import rel, smoke_cfg, spawn  # noqa: E402
+from test_torch_distributed import check_tables, rel, smoke_cfg, spawn, table_specs  # noqa: E402
 
 ARCH = "mamba2-2.7b"
 CASES = {  # name: (mesh shape, profile)
     "mamba2-1x4": ((1, 4), "baseline"),
     "mamba2-2x2": ((2, 2), "baseline"),
     "mamba2-serve-2x2": ((2, 2), "serve"),
+    "mamba2-opt1-2x2": ((2, 2), "opt1"),
 }
 PLANS = {  # name: (the heads' axes, in_proj's stored columns' axes)
     "mamba2-1x4": (("model",), ("model",)),
     "mamba2-2x2": (("model",), ("model",)),
     "mamba2-serve-2x2": (("model",), ("model", "data")),
+    "mamba2-opt1-2x2": (("model",), ("model",)),
 }
 TRAIN = (4, 64)                    # (B, S)
 PROMPTS = (8, 40, 64)              # shorter than a chunk, a ragged last chunk, four chunks
@@ -201,7 +206,7 @@ def ssm_rank_job(rank, world, init, tmp, weights):
             norm = rel(got, ref)
         out[name] = dict(train=rows, serve=serve, move=move, norm=norm,
                          coords=dict(zip(("data", "model"), mesh.get_coordinate())),
-                         plan=(tp.ssm_head_axes, tp.ssm_in_axes))
+                         plan=(tp.ssm_head_axes, tp.ssm_in_axes), tables=table_specs(sh["params"]))
     torch.save(out, f"{tmp}/rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -261,6 +266,7 @@ def test_ssm_train_step_matches_one_device_step(ranks, reference, name):
     for r in ranks:
         got = r[name]
         assert got["plan"] == PLANS[name]
+        check_tables(got["tables"], ARCH, ("data", "model"), *CASES[name])
         assert abs(got["train"][0]["loss"][1] - reference[1]) <= 1e-5 * abs(reference[1])
         for row in got["train"]:
             (gl, wl), (gn, wn) = row["loss"], row["grad_norm"]

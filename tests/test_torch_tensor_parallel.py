@@ -9,7 +9,10 @@ Cases: granite smoke on (data 2, model 2) (its 2 kv heads split) and on
 on (1, 4) (2 q heads a rank in one GQA group); minicpm smoke on (1, 4) (6
 heads on 4 ranks: every head on every rank; tied embeddings over a split
 vocabulary); granite smoke under the ``serve`` profile on (2, 2) (heads,
-MLP and vocabulary over both axes, the batch and sequence whole).
+MLP and vocabulary over both axes, the batch and sequence whole); granite smoke
+under ``opt1`` on (2, 2) (baseline's layout but the (un)embedding tables'
+``d_model`` axis whole: on (1, 4) the two profiles are one layout).  Each
+case's tables resolve to the reference's ``resolve_spec`` under its profile.
 
 Tolerances (``test_torch_distributed.py``'s for the sharded step): the loss
 within 1e-5 relative, the grad norm within 1e-4, each gradient leaf within
@@ -25,7 +28,8 @@ torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
 
-from test_torch_distributed import SMOKE, rel, smoke_cfg, spawn  # noqa: E402
+from test_torch_distributed import (SMOKE, check_tables, rel, smoke_cfg, spawn,  # noqa: E402
+                                    table_specs)
 
 CASES = {  # name: (arch, mesh shape, profile)
     "granite-2x2": ("granite-3-8b", (2, 2), "baseline"),
@@ -33,6 +37,7 @@ CASES = {  # name: (arch, mesh shape, profile)
     "llama3-1x4": ("llama3-405b", (1, 4), "baseline"),
     "minicpm-1x4": ("minicpm-2b", (1, 4), "baseline"),
     "granite-serve-2x2": ("granite-3-8b", (2, 2), "serve"),
+    "granite-opt1-2x2": ("granite-3-8b", (2, 2), "opt1"),
 }
 STEPS = 3
 
@@ -90,7 +95,8 @@ def tp_rank_job(rank, world, init, tmp, weights):
                                   zip(sorted_leaves(grads), sorted_leaves(grads1))),
                     params_in_lr=max(float((full_value(a) - b).abs().max()) for a, b in
                                      zip(sorted_leaves(params), sorted_leaves(p1))) / lr))
-        out[name] = dict(steps=rows, plan=(tp.q_local, tp.kv_local, tp.vocab_axes, tp.seq_axes))
+        out[name] = dict(steps=rows, plan=(tp.q_local, tp.kv_local, tp.vocab_axes, tp.seq_axes),
+                         tables=table_specs(sh["params"]))
 
     cfg = smoke_cfg("granite-3-8b")
     mesh = make_mesh((1, 4), ("data", "model"), device_type="cpu")
@@ -148,6 +154,7 @@ PLANS = {  # name: (q heads split, kv heads split, vocabulary axes, sequence axe
     "llama3-1x4": (True, False, ("model",), ("model",)),
     "minicpm-1x4": (False, False, ("model",), ("model",)),
     "granite-serve-2x2": (True, False, ("model", "data"), ()),
+    "granite-opt1-2x2": (True, True, ("model",), ("model",)),
 }
 
 
@@ -170,6 +177,7 @@ def test_tensor_parallel_step_matches_one_device_step(ranks, reference, name):
     for r in ranks:
         got = r[name]
         assert got["plan"] == PLANS[name]
+        check_tables(got["tables"], CASES[name][0], ("data", "model"), *CASES[name][1:])
         assert abs(got["steps"][0]["loss"][1] - ref_loss) <= 1e-5 * abs(ref_loss)
         for row in got["steps"]:
             (gl, wl), (gn, wn) = row["loss"], row["grad_norm"]
