@@ -262,7 +262,9 @@ Phases (any failure exits non-zero; nothing is caught):
      prefill) and, for ``decode_32k``, below a hundredth of the gathering
      step's with its temp below 1 GB, beside the reference's XLA counts
      (``I8_REFERENCE``) and the parent's ZeRO-3 and gathering steps'
-     (``I8_BEFORE``);
+     (``I8_BEFORE``); every i3-i8 cell's temp below the parent tree's
+     (``I_PARENT_TEMP``: its steps gathered every period's working weights
+     before the model ran, where these gather a period's where it runs);
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -808,8 +810,9 @@ I6_TRAIN_FLOPS_UNDER_BEFORE = 12
 # figures before the family was planned (its ZeRO-3 train step and gathering
 # serving steps through the same dry-run, torch 2.13 on the CPU: argument +
 # temp + output, temp, collective bytes a device, product FLOPs); and the
-# planned steps' counts of the same command on the CPU, which the card's host
-# must print to the byte.  decode_32k moves the weights where XLA moves the
+# planned steps' counts of the same command on the CPU (the card's host, each
+# period's blocks gathered where it runs), which the card's host must print
+# to the byte.  decode_32k moves the weights where XLA moves the
 # token (Queue 1 item 14 of ROADMAP.md), so its collective bytes are held
 # below a hundredth of the gathering step's and its temp below 1 GB
 I8_ARCH = "whisper-tiny"
@@ -836,15 +839,46 @@ I8_BEFORE = {
                        flops=3.4593e10),
 }
 I8_CPU = {
-    "train_4k": dict(total=27_739_488_168, temp=27_641_091_864, collective=2_866_169_328,
+    "train_4k": dict(total=27_703_753_128, temp=27_605_356_824, collective=2_891_531_760,
                      flops=13_818_918_862_848),
-    "prefill_32k": dict(total=897_900_864, temp=832_790_016, collective=777_601_664,
+    "prefill_32k": dict(total=887_836_992, temp=822_726_144, collective=777_601_664,
                         flops=14_434_749_027_840),
-    "decode_32k": dict(total=528_456_096, temp=142_868_160, collective=119_149_568,
+    "decode_32k": dict(total=518_386_080, temp=132_798_144, collective=114_725_888,
                        flops=536_696_832),
 }
 I8_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0}
 I8_DECODE_OVER_BEFORE, I8_DECODE_TEMP = 0.01, 1e9
+
+
+# each phase i cell's temp a device in the parent's trace (PR 28's last chip
+# call, the card's host: its steps gathered every period's working weights
+# before the model ran), by (arch, cell, mesh kind); each cell's temp is held
+# below it
+I_PARENT_TEMP = {
+    ("granite-3-8b", "train_4k", "single"): 19_353_010_204,
+    ("granite-3-8b", "decode_32k", "single"): 2_569_575_456,
+    ("granite-3-8b", "prefill_32k", "single"): 2_985_476_108,
+    ("dbrx-132b", "decode_32k", "single"): 22_861_578_240,
+    ("mixtral-8x22b", "decode_32k", "moe"): 24_844_173_312,
+    ("dbrx-132b", "train_4k", "single"): 54_311_283_744,
+    ("mixtral-8x22b", "train_4k", "moe"): 57_895_708_192,
+    ("mixtral-8x22b", "train_4k", "single"): 64_086_204_952,
+    ("dbrx-132b", "prefill_32k", "single"): 4_647_157_772,
+    ("mamba2-2.7b", "train_4k", "single"): 6_988_148_760,
+    ("mamba2-2.7b", "prefill_32k", "single"): 2_841_768_992,
+    ("mamba2-2.7b", "decode_32k", "single"): 855_851_520,
+    ("mamba2-2.7b", "long_500k", "single"): 855_851_520,
+    ("jamba-v0.1-52b", "train_4k", "single"): 49_660_043_620,
+    ("jamba-v0.1-52b", "prefill_32k", "single"): 9_367_669_680,
+    ("jamba-v0.1-52b", "decode_32k", "single"): 6_880_501_248,
+    ("jamba-v0.1-52b", "long_500k", "single"): 6_880_501_248,
+    ("qwen2-vl-72b", "train_4k", "single"): 69_678_989_336,
+    ("qwen2-vl-72b", "decode_32k", "single"): 13_866_762_240,
+    ("qwen2-vl-72b", "prefill_32k", "single"): 5_475_401_740,
+    ("whisper-tiny", "train_4k", "single"): 27_641_091_864,
+    ("whisper-tiny", "prefill_32k", "single"): 832_790_016,
+    ("whisper-tiny", "decode_32k", "single"): 142_868_160,
+}
 
 
 _T0 = time.perf_counter()
@@ -3648,6 +3682,13 @@ def finish_dryrun(proc: subprocess.Popen, out: str, cell: str, what: str,
     return rec
 
 
+def below_parent(what: str, key: tuple, temp: int) -> None:
+    """Fails unless a phase i cell's ``temp`` is below the parent's
+    (``I_PARENT_TEMP[key]``)."""
+    check(temp < I_PARENT_TEMP[key], f"{what}: temp {temp} not below the parent's "
+          f"{I_PARENT_TEMP[key]}")
+
+
 def check_i4(rec: dict, cell_name: str, layers: int, card_bytes: int, card: str) -> dict:
     """Phase i4's bounds on one serving cell's record, beside the
     reference's counts of the whole cell (a depth cut scales the collective
@@ -3672,7 +3713,7 @@ def check_i4(rec: dict, cell_name: str, layers: int, card_bytes: int, card: str)
                collective_bytes_per_device=coll["collective_bytes_per_device"],
                collective_by_kind=coll["collective_bytes_per_device_by_kind"],
                collective_ops=coll["op_counts"], flops=flops, hand_flops=hand,
-               reference=ref, card=card,
+               reference=ref, card=card, parent_temp=I_PARENT_TEMP[I3_ARCH, cell_name, I3_MESH],
                temp_over_reference=mem["temp_size_in_bytes"] / ref["temp"],
                collectives_over_reference=coll["collective_bytes_per_device"]
                / (ref["collective"] * share))
@@ -3687,7 +3728,9 @@ def check_i4(rec: dict, cell_name: str, layers: int, card_bytes: int, card: str)
         f"{coll['collective_bytes_per_device_by_kind']}, ops {coll['op_counts']}, "
         f"{out['collectives_over_reference']:.4f} x the reference's {ref['collective']}"
         f"{' x ' + str(share) if layers else ''} (its HLO's ops {ref['ops']}); product FLOPs "
-        f"{flops:.6e}, the hand count {hand:.6e}; card {card}")
+        f"{flops:.6e}, the hand count {hand:.6e}; the parent's temp {out['parent_temp']}; "
+        f"card {card}")
+    below_parent(f"i4 {cell_name}", (I3_ARCH, cell_name, I3_MESH), mem["temp_size_in_bytes"])
     if cell.kind == "decode":
         g = I4_GATHERED_DECODE
         log(f"phase i4: decode_32k before (the gathering step): temp {g['temp']}, collective "
@@ -3746,6 +3789,7 @@ def check_i5(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
                    collective_by_kind=coll["collective_bytes_per_device_by_kind"],
                    collective_ops=coll["op_counts"], flops=flops, hand_flops=hand,
                    reference=ref, before=I5_BEFORE.get((arch, cell_name, mesh)), card=card,
+                   parent_temp=I_PARENT_TEMP[arch, cell_name, mesh],
                    temp_over_reference=mem["temp_size_in_bytes"] / ref["temp"],
                    collectives_over_reference=over)
         rows[f"{arch}/{cell_name}/{mesh}"] = row
@@ -3763,7 +3807,8 @@ def check_i5(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
             f"{over:.4f} x the reference's {ref['collective']}"
             f"{' x ' + str(share) if layers else ''} (its HLO's ops {ref['ops']}); product "
             f"FLOPs {flops:.6e}, the hand count {hand:.6e}; before (ZeRO-3 or gathering): "
-            f"{row['before']}; card {card}")
+            f"{row['before']}; the parent's temp {row['parent_temp']}; card {card}")
+        below_parent(what, (arch, cell_name, mesh), mem["temp_size_in_bytes"])
         check(total < card_bytes * share,
               f"{what}: argument + temp + output {total} above {card_bytes * share}")
         check(over <= I5_COLLECTIVE_OVER_REFERENCE[cell.kind],
@@ -3812,6 +3857,7 @@ def check_i6(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
                    collective_by_kind=coll["collective_bytes_per_device_by_kind"],
                    collective_ops=coll["op_counts"], flops=flops, hand_flops=hand,
                    reference=ref, before=before, card=card,
+                   parent_temp=I_PARENT_TEMP[I6_ARCH, cell_name, I6_MESH],
                    temp_over_reference=mem["temp_size_in_bytes"] / ref["temp"],
                    collectives_over_reference=got / ref["collective"],
                    collectives_over_before=got / before["collective"])
@@ -3828,7 +3874,8 @@ def check_i6(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
             f"(its HLO's ops {ref['ops']}), {row['collectives_over_before']:.4f} x the gathering "
             f"or ZeRO-3 step's {before['collective']}; product FLOPs {flops:.6e}, the hand "
             f"count {hand:.6e} (before: {before['flops']:.4e}); before: temp {before['temp']}; "
-            f"card {card}")
+            f"the parent's temp {row['parent_temp']}; card {card}")
+        below_parent(what, (I6_ARCH, cell_name, I6_MESH), mem["temp_size_in_bytes"])
         check(total < card_bytes, f"{what}: argument + temp + output {total} above {card_bytes}")
         if cell_name in I6_COLLECTIVE_OVER_REFERENCE:
             check(row["collectives_over_reference"] <= I6_COLLECTIVE_OVER_REFERENCE[cell_name],
@@ -3939,6 +3986,7 @@ def check_i7(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
                    collective_by_kind=coll["collective_bytes_per_device_by_kind"],
                    collective_ops=coll["op_counts"], flops=flops, hand_flops=hand,
                    reference=ref, before=before, card=card,
+                   parent_temp=I_PARENT_TEMP[arch, cell_name, "single"],
                    temp_over_reference=mem["temp_size_in_bytes"] / ref["temp"],
                    collectives_over_reference=got / (ref["collective"] * share))
         rows[f"{arch}/{cell_name}"] = row
@@ -3954,7 +4002,9 @@ def check_i7(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
             f"{row['collectives_over_reference']:.4f} x the reference's {ref['collective']}"
             f"{' x ' + str(share) if layers else ''} (its HLO's ops {ref['ops']}); product FLOPs "
             f"{flops:.6e}, the hand count {hand:.6e}; before (the gathering or ZeRO-3 step): "
-            f"{before if before else 'not traced'}; card {card}")
+            f"{before if before else 'not traced'}; the parent's temp {row['parent_temp']}; "
+            f"card {card}")
+        below_parent(what, (arch, cell_name, "single"), mem["temp_size_in_bytes"])
         check(total < card_bytes * share,
               f"{what}: argument + temp + output {total} above {card_bytes * share}")
         if cell_name == "long_500k":
@@ -4009,6 +4059,7 @@ def check_i8(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
                    collective_by_kind=coll["collective_bytes_per_device_by_kind"],
                    collective_ops=coll["op_counts"], flops=flops, hand_flops=hand,
                    reference=ref, before=before, cpu=cpu, card=card,
+                   parent_temp=I_PARENT_TEMP[I8_ARCH, cell_name, "single"],
                    temp_over_reference=mem["temp_size_in_bytes"] / ref["temp"],
                    collectives_over_reference=got / ref["collective"],
                    collectives_over_before=got / before["collective"])
@@ -4024,8 +4075,10 @@ def check_i8(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
             f"{row['collectives_over_reference']:.4f} x the reference's {ref['collective']} (its "
             f"HLO's ops {ref['ops']}), {row['collectives_over_before']:.4f} x before's; product "
             f"FLOPs {flops:.6e}, the hand count {hand:.6e}; the CPU's counts {cpu}; before (the "
-            f"ZeRO-3 or gathering step): {before}; card {card}")
+            f"ZeRO-3 or gathering step): {before}; the parent's temp {row['parent_temp']}; "
+            f"card {card}")
         check(here == cpu, f"{what}: {here}, not the CPU's counts {cpu}")
+        below_parent(what, (I8_ARCH, cell_name, "single"), mem["temp_size_in_bytes"])
         check(total < card_bytes, f"{what}: argument + temp + output {total} above {card_bytes}")
         check(flops == hand, f"{what}: {flops} product FLOPs, the hand count {hand}")
         if cell.kind == "decode":
@@ -4098,7 +4151,10 @@ def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float)
         f"reference's {I3_REFERENCE_TEMP_BYTES} (its XLA compile count on 256 fake host "
         f"devices); argument + temp {mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']} "
         f"bytes against the card's {card_bytes}; product FLOPs {flops:.6e}, the hand count "
-        f"{hand:.6e}, {I3_ZERO3_FLOPS / flops:.2f} x under the ZeRO-3 step's {I3_ZERO3_FLOPS:.4e}")
+        f"{hand:.6e}, {I3_ZERO3_FLOPS / flops:.2f} x under the ZeRO-3 step's {I3_ZERO3_FLOPS:.4e}; "
+        f"the parent's temp {I_PARENT_TEMP[I3_ARCH, I3_CELL, I3_MESH]}")
+    i3["parent_temp"] = I_PARENT_TEMP[I3_ARCH, I3_CELL, I3_MESH]
+    below_parent("i3", (I3_ARCH, I3_CELL, I3_MESH), mem["temp_size_in_bytes"])
     check(mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] < card_bytes,
           f"i3: {mem} does not fit the card's {card_bytes} bytes")
     check(mem["temp_size_in_bytes"] <= 2 * I3_REFERENCE_TEMP_BYTES,

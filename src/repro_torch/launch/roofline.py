@@ -124,17 +124,14 @@ def _tree(fn, tree):
 
 
 def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", grad: bool = False,
-                   tp: TensorParallel | None = None, param_specs=None,
-                   work_dtype: torch.dtype | None = None, work_cast=None) -> dict:
+                   tp: TensorParallel | None = None) -> dict:
     """Trace ``fn`` once on fake ``DTensor``s laid out by ``shardings`` on
     ``mesh``, as the port's sharded step runs a layer: every argument on
-    this rank's shards; with ``tp`` (the step's plan; the first argument is
-    then a parameter tree of the PSpecs ``param_specs``) the parameters in
-    their working layout (the leaves ``work_cast`` marks, all where it is
-    None, gathered in ``work_dtype``, the compute type) and a gradient
-    probe's gradients summed from there into the parameters' layouts, as
-    ``ShardedTrainStep`` does.  Returns per-device product flops, unfused
-    and fusion-ideal bytes, and collective bytes."""
+    this rank's shards; with ``tp`` (the step's plan) ``fn`` takes it and
+    gathers its parameters as the step gathers a period (``build_probes``'
+    ``add``), a gradient probe's gradients summed into the parameters'
+    layouts in its backward.  Returns per-device product flops, unfused and
+    fusion-ideal bytes, and collective bytes."""
     # the outputs' global shapes, for the fusion-ideal bytes
     outs = fn(*(_traced(a, s, lambda m, _: torch.empty_like(m))
                 for a, s in zip(args, shardings)))
@@ -145,15 +142,8 @@ def _compile_stats(fn, args, shardings, mesh, device: str = "cuda", grad: bool =
         laid = [_traced(a, s, lambda m, sh: laid_out(m, sh, device))
                 for a, s in zip(args, shardings)]
         with counter:
-            if tp is not None:
-                layouts = tp.layouts(param_specs)
-                local = [tp.working(laid[0], layouts, work_dtype, work_cast)] + \
-                    [_tree(local_value, a) for a in laid[1:]]
-            else:
-                local = [_tree(local_value, a) for a in laid]
-            out = fn(*local) if tp is None else fn(*local, tp=tp)
-            if grad and tp is not None:
-                tp.reduce_grads(out[1][0], laid[0], layouts)
+            local = [_tree(local_value, a) for a in laid]
+            fn(*local) if tp is None else fn(*local, tp=tp)
     coll = collective_stats(counter.collectives, mesh.mesh.numel())
     return {
         "flops": float(counter.flops),
@@ -172,9 +162,6 @@ class Probe:
     trips: float
     grad: bool = False  # trace the value and its gradients instead of fn
     tp: TensorParallel | None = None  # the step's plan (the first argument: its parameters)
-    param_specs: dict | None = None   # the parameter tree's PSpecs, with tp
-    work_dtype: torch.dtype | None = None  # the type the weights travel in, with tp
-    work_cast: list | None = None     # the leaves that travel so (None: all), with tp
 
 
 def _scalarize(fn):
@@ -240,12 +227,19 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
     def add(name, fn, params_specs, extra_args, extra_sh, trips, grad, argnums=(0, 1), tp=plan):
         p_abs = abstract_params(params_specs, f32)
         p_sh = param_shardings(params_specs, mesh)
-        g = _value_and_grad(_scalarize(fn), argnums) if grad else fn
+        layouts = tp.layouts(params_specs)
+        cast = expert_leaves(params_specs) if train else weight_leaves(params_specs)
+
+        def period(p, *rest, tp=None):
+            # on the plan the probe's parameters are one period of the step's
+            # blocks: this rank's shards, gathered as the step gathers a
+            # period, the gradients summed into the shards in its backward
+            if tp is not None:
+                p = tp.gather_period(p, layouts, bf16, cast)
+            return fn(p, *rest, tp=tp)
+        g = _value_and_grad(_scalarize(period), argnums) if grad else period
         probes.append(Probe(name, g, (p_abs,) + extra_args, (p_sh,) + extra_sh, trips, grad,
-                            tp=tp, param_specs=params_specs,
-                            work_dtype=bf16,
-                            work_cast=expert_leaves(params_specs) if train
-                            else weight_leaves(params_specs)))
+                            tp=tp))
 
     # ---------------------------------------------------------- attention
     if n_attn and not decode:
@@ -513,9 +507,7 @@ def _analyze_cell(cfg: ArchConfig, cell: ShapeCell, mesh, prof: ShardingProfile,
     comps = {}
     totals = {"flops": 0.0, "bytes": 0.0, "bytes_hlo": 0.0, "coll": 0.0}
     for pr in build_probes(cfg, cell, mesh):
-        st = _compile_stats(pr.fn, pr.args, pr.shardings, mesh, device, pr.grad,
-                            pr.tp, pr.param_specs, pr.work_dtype,
-                            pr.work_cast)
+        st = _compile_stats(pr.fn, pr.args, pr.shardings, mesh, device, pr.grad, pr.tp)
         comps[pr.name] = {**st, "trips": pr.trips, "grad": pr.grad}
         for k in totals:
             totals[k] += st[k] * pr.trips

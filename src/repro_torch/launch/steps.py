@@ -15,7 +15,11 @@ reference's ``LOGICAL_RULES`` lay it out (``models.tensor_parallel``):
      an SSM block's conv weights whole; an SSM block's norm and
      ``out_proj`` on this rank's heads' rows; an expert weight in the
      compute type); the ``qkv``, ``ffn``, ``experts``, ``ssm_inner`` and
-     ``vocab`` shards stay on their ranks;
+     ``vocab`` shards stay on their ranks.  The stacked blocks are
+     gathered a period at a time, inside the period's checkpointed call
+     and again in its recompute, as the reference's scan step gathers
+     them; the other leaves (the tables, the final norms) before the
+     model runs;
   2. take each input's own shard: this rank's batch rows and sequence slice
      of the tokens (or a VLM's embeds) and labels, the residual stream, and
      M-RoPE's positions on its rows over the whole sequence; each block
@@ -41,8 +45,9 @@ reference's ``LOGICAL_RULES`` lay it out (``models.tensor_parallel``):
      working gradient;
   4. sum each working gradient, in its parameter's type, over the mesh axes
      its layout does not split into its parameter's layout
-     (``TensorParallel.reduce_grads``: a reduce-scatter over ``data`` for a
-     weight, an all-reduce over every axis for a norm);
+     (``TensorParallel.reduce_leaf``: a reduce-scatter over ``data`` for a
+     weight, an all-reduce over every axis for a norm): a period's blocks'
+     as the backward leaves the period, the other leaves' after it;
   5. the global norm: each leaf's sum of squares over its shards, one
      all-reduce of the vector of leaves over each mesh axis (a replicated
      shard counted once), then the float32 sum in the reference's leaf
@@ -56,7 +61,8 @@ patch in.)
 
 :class:`PrefillStep` and :class:`DecodeStep` on a mesh split serving the
 same way (``plan_prefill``, ``plan_decode``): each parameter gathered over
-its ``embed`` axes only, in the compute type (``weight_leaves``); each
+its ``embed`` axes only, in the compute type (``weight_leaves``), a period's
+blocks where the period runs; each
 input's own shard; the decode cache kept in the reference's layout
 (attention: the decode-SP one, rows on ``cache_batch``, sequence on
 ``cache_seq``, every kv head; an encoder-decoder's cross cache the same
@@ -83,8 +89,8 @@ from ..configs.base import ArchConfig, ShapeCell
 from ..models.common import (abstract_params, active_profile, param_shardings, resolve_spec,
                              sorted_leaves, torch_dtype, tree_map_pspec)
 from ..models.model import Model
-from ..models.tensor_parallel import (TensorParallel, expert_leaves, plan_decode, plan_prefill,
-                                      plan_train, weight_leaves)
+from ..models.tensor_parallel import (STACKED, TensorParallel, expert_leaves, grad_leaves,
+                                      plan_decode, plan_prefill, plan_train, weight_leaves)
 from ..optim import AdamW, AdamWState, for_config
 from ..optim.adamw import tree_map_sorted
 from ..substrate import (Sharding, chunk_of, exchange_over, from_shard,
@@ -228,10 +234,15 @@ class ShardedTrainStep(TrainStep):
 
     def loss_and_grads(self, params, batch):
         """The whole batch's loss (the same on every rank) and its
-        gradients, each a ``DTensor`` laid out as its parameter."""
+        gradients, each a ``DTensor`` laid out as its parameter.  The
+        leaves outside the stacked blocks are gathered before the model
+        runs and their gradients summed after the backward; each period's
+        blocks are gathered inside its checkpointed call (again in its
+        recompute) and their gradients summed into the shards as the
+        backward leaves the period (``TensorParallel.weights``)."""
         mesh, model = self.mesh, self.model
         tp, layouts, cast = self.plan(batch["labels"])
-        work = tp.working(params, layouts, torch_dtype(model.cfg.compute_dtype), cast)
+        work = tp.weights(params, layouts, torch_dtype(model.cfg.compute_dtype), cast)
         rows = _stream_inputs(batch, tp)
 
         def over_mesh(x):
@@ -240,15 +251,18 @@ class ShardedTrainStep(TrainStep):
             return x
         valid = (rows["labels"] >= 0).sum().float()
         share = valid / torch.clamp(over_mesh(valid) / tp.replicas, min=1.0) / tp.replicas
-        leaves = sorted_leaves(work)
+        leaves = grad_leaves(work)
         for w in leaves:
             w.requires_grad_(True)
         xent, aux = model.loss_terms(work, rows, tp)
         part = xent * share + aux
         grads = list(torch.autograd.grad(part, leaves, allow_unused=True,
                                          materialize_grads=True))
-        del work, leaves    # the working copy is not needed past the backward
-        sharded = iter(tp.reduce_grads(grads, params, layouts))
+        # the working leaves are not needed past the backward, the periods'
+        # shards (views of the parameters) to stack their gradients
+        stacks = {k: work[k] for k in STACKED if k in work}
+        del work, leaves
+        sharded = iter(tp.weight_grads(stacks, grads, params, layouts))
         return over_mesh(part.detach()), tree_map_sorted(lambda _: next(sharded), params)
 
     def _zero3(self, params, batch):
@@ -359,7 +373,7 @@ class PrefillStep:
             return self.model.prefill(params, batch)
         tp, layouts, cache_sh = self.plan(batch["tokens"] if "tokens" in batch
                                           else batch["embeds"])
-        work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
+        work = tp.weights(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
                           weight_leaves(self.model.specs()))
         cache, logits = self.model.prefill(work, _stream_inputs(batch, tp), tp)
         return tree_map_sorted(from_shard, cache, cache_sh), logits
@@ -403,7 +417,7 @@ class DecodeStep:
                                               positions=inputs.get("positions"))
         else:
             tp, layouts = self.plan(inputs["tokens"], cache)
-            work = tp.working(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
+            work = tp.weights(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
                               weight_leaves(self.model.specs()))
             rows = _stream_inputs(inputs, tp)
             logits, _ = self.model.decode(work, tree_map_sorted(local_value, cache),

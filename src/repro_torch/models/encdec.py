@@ -14,7 +14,8 @@ states are this rank's rows and slice of the frames (``tp.encoder``), the
 tokens and the decoder's states its rows and sequence slice, each at its own
 positions; cross-attention reads this rank's rows of the encoder's output
 over every frame; a serving plan's caches are this rank's shards (the cross
-cache in its own layout, ``tp.cross``).
+cache in its own layout, ``tp.cross``), and each block's weights are
+gathered inside its call (``transformer.at_period``).
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from .layers import (
     sinusoidal_embedding,
     sp_attend,
 )
-from .transformer import embed_tokens, layer_params, stack_specs, unembed, xent_loss
+from .transformer import at_period, embed_tokens, layer_params, stack_specs, unembed, xent_loss
 
 
 def enc_block_specs(cfg: ArchConfig) -> dict:
@@ -105,7 +106,7 @@ def encode(params, cfg: ArchConfig, frames, tp=None):
     enc = None if tp is None else tp.encoder
     x = _positions(frames.to(torch_dtype(cfg.compute_dtype)), cfg, enc)
     for i in range(cfg.enc_layers):
-        x = checkpointed(_enc_block, cfg, layer_params(params["enc_blocks"], i), x, enc,
+        x = checkpointed(at_period, _enc_block, cfg, params["enc_blocks"], i, x, enc,
                          enabled=cfg.remat == "full")
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
@@ -164,7 +165,7 @@ def decode_full(params, cfg: ArchConfig, tokens, enc_out, want_cache=False, tp=N
         enc_out = tp.encoder.gather_seq(enc_out)
     caches = []
     for i in range(cfg.n_layers):
-        x, cache = checkpointed(_dec_block, cfg, layer_params(params["dec_blocks"], i), x,
+        x, cache = checkpointed(at_period, _dec_block, cfg, params["dec_blocks"], i, x,
                                 enc_out, tp, enabled=cfg.remat == "full")
         if want_cache:
             caches.append(cache)
@@ -211,6 +212,18 @@ def _cross_decode(bp, h, cache, cfg: ArchConfig, tp=None):
     return attn_out(bp["cross_attn"], co.movedim(3, 1).reshape(B, 1, hq * hd))
 
 
+def _dec_decode(cfg: ArchConfig, bp, x, pc, pos: int, tp=None):
+    """One token through one decoder block (parameters ``bp``, cache views
+    ``pc``, the self cache written in place); returns the stream."""
+    h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    a, _ = attn_decode(bp["self_attn"], h, cfg, pc["self"], pos, None, tp=tp)
+    x = x + a
+    h = rmsnorm(bp["norm_x"], x, cfg.norm_eps)
+    x = x + _cross_decode(bp, h, pc["cross"], cfg, tp)
+    h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
+    return x + mlp(bp["mlp"], h, cfg, tp)
+
+
 def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int, tp=None):
     """One decoder token at position ``pos``.  cache: {self: {k, v (L, B,
     Sc, Hkv, hd)}, cross: {...}}; the self-attn cache is written in place.
@@ -219,14 +232,8 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int, tp=None):
     x = embed_tokens(params, cfg, tokens, tp=tp)
     x = x + sinusoidal_embedding(1, cfg.d_model, offset=pos, device=x.device).to(x.dtype)[None]
     for i in range(cfg.n_layers):
-        bp, pc = layer_params(params["dec_blocks"], i), layer_params(cache, i)
-        h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-        a, _ = attn_decode(bp["self_attn"], h, cfg, pc["self"], pos, None, tp=tp)
-        x = x + a
-        h = rmsnorm(bp["norm_x"], x, cfg.norm_eps)
-        x = x + _cross_decode(bp, h, pc["cross"], cfg, tp)
-        h = rmsnorm(bp["norm2"], x, cfg.norm_eps)
-        x = x + mlp(bp["mlp"], h, cfg, tp)
+        x = at_period(_dec_decode, cfg, params["dec_blocks"], i, x, layer_params(cache, i), pos,
+                      tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     return (logits if tp is None else tp.whole_logits(logits)), cache

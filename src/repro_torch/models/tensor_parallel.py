@@ -103,6 +103,13 @@ under ``serve``, where the stream's batch does not) and its sequence on
   the axes that split them, a few rows of channels, and each rank keeps
   its stored shard).  Decode gathers the one-token ``zxbcdt`` row whole,
   runs the conv on every channel and the recurrence on this rank's heads.
+* The stacked blocks are gathered a period at a time, where the period runs
+  (:class:`StackedWeights`, :class:`_PeriodGather`), as the reference's
+  ``lax.scan`` of ``jax.checkpoint(body)`` gathers its step's weight shards:
+  again in the train step's recompute, and each period's gradients summed
+  into the shards as the backward leaves it.  The tables and the final norms
+  are gathered before the model runs and summed after the backward
+  (:meth:`TensorParallel.weights`).
 * The serving steps' weights, and the train step's expert weights, move in
   the compute type: a leaf the working layout gathers is cast before it
   travels (each product casts it there anyway; the SSM's gated-norm scale,
@@ -120,8 +127,8 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 from ..optim.adamw import tree_map_sorted
-from ..substrate import (Sharding, all_to_all_over, chunk_of, gather_over, max_over,
-                         mesh_axis_sizes, scatter_over, sum_over, trade_over)
+from ..substrate import (Sharding, all_to_all_over, chunk_of, gather_over, local_value,
+                         max_over, mesh_axis_sizes, scatter_over, sum_over, trade_over)
 from . import encdec
 from .common import resolve_spec, sorted_leaves, tree_map_pspec
 from .moe import GROUP
@@ -757,66 +764,127 @@ class TensorParallel:
         return [(sh.spec, work.spec) for sh, work in
                 zip(sorted_leaves(specs), sorted_leaves(self.working_shardings(spec_tree)))]
 
+    def _moved(self, spec, work_spec) -> list[tuple[int, tuple[str, ...]]]:
+        """Each dimension of a leaf laid out by ``spec`` and the axes of its
+        split that ``work_spec`` drops (its minor ones), in the order they
+        are gathered: mesh axis by mesh axis from the last, as ``DTensor``
+        orders them."""
+        order = list(reversed(self.mesh_axes))
+        moved = {d: tuple(ax for ax in _axes(e) if ax in order and ax not in _axes(w))
+                 for d, (e, w) in enumerate(zip(spec, work_spec))}
+        return sorted(((d, axes) for d, axes in moved.items() if axes),
+                      key=lambda kv: min(order.index(a) for a in kv[1]))
+
+    def gather_leaf(self, x: torch.Tensor, spec, work_spec,
+                    dtype: torch.dtype | None = None) -> torch.Tensor:
+        """This rank's shard ``x`` of a leaf laid out by ``spec`` -> its
+        working shard (``work_spec``): gathered over the axes the working
+        layout drops (``gather_over``: staged through the host on a gloo
+        group, as ``DTensor``'s own collectives are not), cast to ``dtype``
+        first where it moves."""
+        moved = self._moved(spec, work_spec)
+        if moved and dtype is not None:
+            x = x.to(dtype)
+        for d, axes in moved:
+            x = gather_over(x, self.mesh, axes, d)
+        return x
+
+    def reduce_leaf(self, g: torch.Tensor, spec, work_spec, dtype: torch.dtype) -> torch.Tensor:
+        """:meth:`gather_leaf`'s adjoint: a working gradient in ``dtype``
+        (its parameter's type), summed over the mesh axes ``work_spec``
+        does not split (each rank's part of the loss reaches the leaf
+        there) into the layout of ``spec``: a reduce-scatter over each such
+        axis that splits the parameter (in the spec's order, a tuple's major
+        axis first), then an all-reduce over each other one, in mesh
+        order."""
+        g = g.to(dtype)
+        used = {ax for entry in work_spec for ax in _axes(entry)}
+        summed = [ax for ax in self.mesh_axes if ax not in used]
+        for d, entry in enumerate(spec):
+            g = scatter_over(g, self.mesh, tuple(ax for ax in _axes(entry) if ax in summed), d)
+        split = {ax for entry in spec for ax in _axes(entry)}
+        return sum_over(g, self.mesh, tuple(ax for ax in summed if ax not in split))
+
     def working(self, params, layouts, dtype: torch.dtype | None = None,
                 cast: list[bool] | None = None) -> dict:
         """This rank's working shard of every parameter (``DTensor``s) in
-        ``layouts`` (:meth:`layouts` of their specs): a tree like
-        ``params``.  Each dimension is gathered over the axes of its split
-        that the working layout drops (its minor ones; ``gather_over``: its
-        axes staged through the host on a gloo group, as ``DTensor``'s own
-        collectives are not), mesh axis by mesh axis from the last, as
-        ``DTensor`` orders them.  With ``dtype``
-        (the compute type) a leaf that moves is cast before it travels,
-        every such leaf where ``cast`` (sorted leaf order) is None, else
-        those it marks (the train step's expert weights,
+        ``layouts`` (:meth:`layouts` of their specs), gathered now, outside
+        autograd (:meth:`gather_leaf`): a tree like ``params``.  With
+        ``dtype`` (the compute type) a leaf that moves is cast before it
+        travels, every such leaf where ``cast`` (sorted leaf order) is None,
+        else those it marks (the train step's expert weights,
         :func:`expert_leaves`); every leaf cast so is a product's weight,
         cast to the compute type at its use (the embedding table at its
         look-up, but serving only), so the values computed, and the
-        gradients, are the same."""
+        gradients, are the same.  The steps gather so only the leaves
+        outside the stacked blocks (:meth:`weights`)."""
         cast = cast or [True] * len(layouts)
-        order = list(reversed(self.mesh_axes))
-
-        def work(p, spec, work_spec, c):
-            x = p.to_local()
-            moved = {d: tuple(ax for ax in _axes(e) if ax in order and ax not in _axes(w))
-                     for d, (e, w) in enumerate(zip(spec, work_spec))}
-            moved = {d: axes for d, axes in moved.items() if axes}
-            if moved and c and dtype is not None:
-                x = x.to(dtype)
-            for d, axes in sorted(moved.items(), key=lambda kv: min(order.index(a)
-                                                                    for a in kv[1])):
-                x = gather_over(x, self.mesh, axes, d)
-            return x
         with torch.no_grad():
-            work = iter([work(p, *lay, c)
+            work = iter([self.gather_leaf(local_value(p), *lay, dtype if c else None)
                          for p, lay, c in zip(sorted_leaves(params), layouts, cast)])
         return tree_map_sorted(lambda _: next(work), params)
 
     def reduce_grads(self, grads, params, layouts) -> list:
         """Each working gradient (sorted leaf order) in its parameter's type,
-        summed over the mesh axes its layout does not split (each rank's
-        part of the loss reaches the leaf there) into its parameter's
-        layout: a reduce-scatter over each such axis that splits the
-        parameter (in the spec's order, a tuple's major axis first), then an
-        all-reduce over each other one, in mesh order (staged through the
-        host on a gloo group); ``DTensor``s.  A list of gradients is emptied
-        as it goes, so each working gradient (and its copy in the
-        parameter's type) is released once reduced."""
+        summed into its parameter's layout (:meth:`reduce_leaf`);
+        ``DTensor``s.  A list of gradients is emptied as it goes, so each
+        working gradient (and its copy in the parameter's type) is released
+        once reduced."""
         out = []
         for i, ((spec, work_spec), p) in enumerate(zip(layouts, sorted_leaves(params))):
-            g = grads[i].to(p.dtype)
+            g = grads[i]
             if isinstance(grads, list):
                 grads[i] = None
-            used = {ax for entry in work_spec for ax in _axes(entry)}
-            summed = [ax for ax in self.mesh_axes if ax not in used]
-            for d, entry in enumerate(spec):
-                g = scatter_over(g, self.mesh, tuple(ax for ax in _axes(entry) if ax in summed),
-                                 d)
-            split = {ax for entry in spec for ax in _axes(entry)}
-            g = sum_over(g, self.mesh, tuple(ax for ax in summed if ax not in split))
+            g = self.reduce_leaf(g, spec, work_spec, p.dtype)
             out.append(DTensor.from_local(g, self.mesh, p.placements, run_check=False,
                                           shape=p.shape, stride=p.stride()))
             del g
+        return out
+
+    def gather_period(self, tree, layouts, dtype: torch.dtype | None = None,
+                      cast: list[bool] | None = None) -> dict:
+        """One period's working weights from this rank's shards ``tree``
+        (tensors laid out by ``layouts``, a period's (spec, working spec)
+        in sorted leaf order), gathered by one :class:`_PeriodGather`, whose
+        backward sums each gradient into its shard's layout: a tree like
+        ``tree``.  ``dtype`` and ``cast`` as :meth:`working`."""
+        cast = cast or [True] * len(layouts)
+        out = iter(_PeriodGather.apply(self, tuple(layouts),
+                                       tuple(dtype if c else None for c in cast),
+                                       *sorted_leaves(tree)))
+        return tree_map_sorted(lambda _: next(out), tree)
+
+    def weights(self, params, layouts, dtype: torch.dtype | None = None,
+                cast: list[bool] | None = None) -> dict:
+        """``params`` (``DTensor``s; ``layouts`` and ``cast`` in sorted leaf
+        order) as the layers take them on this plan: each leaf outside the
+        stacked blocks gathered now (:meth:`working`: the embedding and
+        unembedding tables, the final norms), each stacked tree
+        (:data:`STACKED`) a :class:`StackedWeights` that gathers a period
+        where the period runs, as the reference's scan step does.  The train
+        step differentiates :func:`grad_leaves` and lays the gradients out
+        by :meth:`weight_grads`."""
+        cast = cast or [True] * len(layouts)
+        lays, casts = _by_key(params, layouts), _by_key(params, cast)
+        return {k: StackedWeights(self, params[k], lays[k], dtype, casts[k])
+                if k in STACKED else self.working(params[k], lays[k], dtype, casts[k])
+                for k in sorted(params)}
+
+    def weight_grads(self, stacks: dict, grads: list, params, layouts) -> list:
+        """The gradients of :func:`grad_leaves` of a :meth:`weights` tree,
+        whose stacked trees are ``stacks`` -> each parameter's, laid out as
+        it is (``DTensor``s, sorted leaf order): a leaf outside the stacked
+        blocks summed here (:meth:`reduce_grads`), a stacked leaf's periods,
+        already summed in the backward, stacked.  ``grads`` is emptied as it
+        goes."""
+        lays = _by_key(params, layouts)
+        out, i = [], 0
+        for k in sorted(params):
+            n = len(stacks[k].leaves()) if k in STACKED else len(lays[k])
+            part, grads[i:i + n] = grads[i:i + n], [None] * n
+            i += n
+            out += stacks[k].stacked_grads(part) if k in STACKED \
+                else self.reduce_grads(part, params[k], lays[k])
         return out
 
     @property
@@ -824,6 +892,99 @@ class TensorParallel:
         """The mesh axes of more than one rank (an axis of one moves
         nothing)."""
         return tuple(ax for ax, n in mesh_axis_sizes(self.mesh).items() if n > 1)
+
+
+#: the top-level keys of a parameter tree whose leaves are stacked over
+#: periods (the reference's scanned blocks)
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def _by_key(params, seq) -> dict:
+    """``seq`` (one entry a leaf of ``params``, sorted leaf order) cut into
+    each top-level key's run."""
+    out, i = {}, 0
+    for k in sorted(params):
+        n = len(sorted_leaves(params[k]))
+        out[k], i = list(seq[i:i + n]), i + n
+    return out
+
+
+class _PeriodGather(torch.autograd.Function):
+    """One period's working weights from this rank's shards: forward, each
+    leaf in sorted leaf order cast where it travels in the compute type and
+    gathered axis by axis (:meth:`TensorParallel.gather_leaf`); backward,
+    the exact adjoint, leaf by leaf in the same order: each gradient in its
+    shard's type summed into the shard's layout
+    (:meth:`TensorParallel.reduce_leaf`).  One function a period, so every
+    rank issues the period's collectives in one order (autograd does not
+    order the backward of separate leaves)."""
+
+    @staticmethod
+    def forward(ctx, tp, layouts, dtypes, *shards):
+        ctx.tp, ctx.layouts = tp, layouts
+        ctx.types = tuple(s.dtype for s in shards)
+        return tuple(tp.gather_leaf(s, spec, work, dt)
+                     for s, (spec, work), dt in zip(shards, layouts, dtypes))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None) + tuple(
+            ctx.tp.reduce_leaf(g, spec, work, dt)
+            for g, (spec, work), dt in zip(grads, ctx.layouts, ctx.types))
+
+
+class StackedWeights:
+    """A stacked block tree's weights on a plan, as the layers take them:
+    this rank's shard of each leaf, split into periods once (views, so each
+    period's gradient is a shard-sized tensor of its own), and gathered a
+    period at a time where the period runs (:meth:`period`; inside a
+    checkpointed period, so the recompute gathers it again, as the
+    reference's ``jax.checkpoint`` of its scan body does)."""
+
+    def __init__(self, tp: TensorParallel, tree, layouts, dtype: torch.dtype | None,
+                 cast: list[bool]) -> None:
+        self.tp, self.tree, self.dtype, self.cast = tp, tree, dtype, cast
+        # a period's leaf drops the stacking dimension ("layers": never split)
+        self.layouts = [(spec[1:], work[1:]) for spec, work in layouts]
+        self.periods = [tree_map_sorted(lambda p, i=i: local_value(p)[i].detach(), tree)
+                        for i in range(sorted_leaves(tree)[0].shape[0])]
+
+    def period(self, i: int) -> dict:
+        """Period ``i``'s working weights, gathered now
+        (:meth:`TensorParallel.gather_period`)."""
+        return self.tp.gather_period(self.periods[i], self.layouts, self.dtype, self.cast)
+
+    def leaves(self) -> list[torch.Tensor]:
+        """Every period's shards, period by period, each in sorted leaf
+        order."""
+        return [x for tree in self.periods for x in sorted_leaves(tree)]
+
+    def stacked_grads(self, grads: list) -> list:
+        """The gradients of :meth:`leaves` -> each leaf's, its periods
+        stacked, laid out as its parameter (``DTensor``s, sorted leaf
+        order); ``grads`` is emptied leaf by leaf."""
+        k, n = len(self.layouts), len(self.periods)
+        out = []
+        for j, p in enumerate(sorted_leaves(self.tree)):
+            parts = [grads[i * k + j] for i in range(n)]
+            for i in range(n):
+                grads[i * k + j] = None
+            g = torch.stack(parts) if n > 1 else parts[0].unsqueeze(0)
+            del parts
+            out.append(DTensor.from_local(g, self.tp.mesh, p.placements, run_check=False,
+                                          shape=p.shape, stride=p.stride()))
+        return out
+
+
+def grad_leaves(work) -> list[torch.Tensor]:
+    """The tensors a planned train step differentiates in ``work``
+    (:meth:`TensorParallel.weights`), in sorted key order: each working leaf
+    outside the stacked blocks, each stacked tree's periods' shards."""
+    out = []
+    for k in sorted(work):
+        w = work[k]
+        out += w.leaves() if isinstance(w, StackedWeights) else sorted_leaves(w)
+    return out
 
 
 def _is_expert_weight(p) -> bool:

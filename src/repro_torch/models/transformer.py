@@ -4,10 +4,11 @@ VLM families with one code path.
 The layer pattern (``configs.base.layer_pattern``) gives the (sequence-mixer,
 channel-mixer) pair per *period position*; parameters are stacked over periods
 as in the reference, whose ``lax.scan`` over the stack becomes a Python loop
-over views of the stacked tensors here.  Training differentiates the same
-code with autograd; ``cfg.remat == "full"`` recomputes each period's
-activations in the backward pass, as the reference's ``jax.checkpoint`` of
-the scan body does.
+over views of the stacked tensors here (on a mesh, over each period's
+working weights, gathered inside the period's call: ``at_period``).
+Training differentiates the same code with autograd; ``cfg.remat == "full"``
+recomputes each period's activations in the backward pass, as the
+reference's ``jax.checkpoint`` of the scan body does.
 """
 from __future__ import annotations
 
@@ -105,6 +106,17 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
+def at_period(fn, cfg: ArchConfig, blocks, i: int, *args):
+    """``fn(cfg, period i's parameters, *args)``, the parameters taken
+    inside the call: views of a stacked tree, or on a plan its working
+    weights (``tensor_parallel.StackedWeights``), gathered here.
+    Checkpointed, a plan's period is gathered again in the recompute, as the
+    reference's ``jax.checkpoint`` of its scan body gathers its step's
+    weights, and no period's working copy outlives its call."""
+    return fn(cfg, layer_params(blocks, i) if isinstance(blocks, dict) else blocks.period(i),
+              *args)
+
+
 # ---------------------------------------------------------------------- forward
 def embed_tokens(params, cfg: ArchConfig, tokens=None, embeds=None, tp=None):
     """The input stream in the compute type.  On a mesh (``tp``) the tokens
@@ -168,7 +180,9 @@ def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     (periods, B, S, Hkv, hd) K and V, or the SSM state and conv tail.  It
     writes nothing in place, so autograd runs through it.  On a mesh
     (``tp``, a ``TensorParallel``; the planned families' train step and
-    prefill) the tokens (or embeds) and the hidden states are this rank's
+    prefill; ``params["blocks"]`` a ``StackedWeights``, each period gathered
+    inside its checkpointed call) the tokens (or embeds) and the hidden
+    states are this rank's
     slice of the stream, RoPE's angles are the whole sequence's (M-RoPE's
     (3, B, S) ``positions`` are this rank's rows over the whole sequence)
     and ``aux`` is this rank's share of the load-balance term; a serving
@@ -183,7 +197,7 @@ def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for i in range(cfg.n_layers // cfg.period):
-        x, a, cache = checkpointed(_period_fwd, cfg, layer_params(params["blocks"], i), x,
+        x, a, cache = checkpointed(at_period, _period_fwd, cfg, params["blocks"], i, x,
                                    cos_sin, tp, enabled=cfg.remat == "full")
         aux = aux + a
         if want_cache:
@@ -196,13 +210,36 @@ def forward_full(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     return x, aux, stacked
 
 
+def _period_decode(cfg: ArchConfig, pp, x, pc, pos: int, cos_sin, tp=None):
+    """One token through one period (parameters ``pp``, cache views
+    ``pc``, written in place); returns the stream."""
+    for j, (mixer, channel) in enumerate(cfg.layer_pattern()):
+        b, c = pp[f"pos{j}"], pc[f"pos{j}"]
+        h = rmsnorm(b["norm1"], x, cfg.norm_eps)
+        if mixer == "attn":
+            a, _ = attn_decode(b["attn"], h, cfg, c, pos, cos_sin, window=cfg.window, tp=tp)
+        else:
+            a, new = ssd_decode(b["ssm"], h, cfg, c, tp)
+            for n in ("ssm", "conv"):
+                c[n].copy_(new[n])
+        x = x + a
+        if channel != "none":
+            h2 = rmsnorm(b["norm2"], x, cfg.norm_eps)
+            if channel == "mlp":
+                x = x + mlp(b["mlp"], h2, cfg, tp)
+            else:
+                x = x + moe(b["moe"], h2, cfg, tp)[0]
+    return x
+
+
 def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
                 pos: int = 0, positions=None, tp=None):
     """One-token decode.  tokens: (B, 1); pos: the current position.
     Returns (logits (B, 1, V), cache); the cache is written in place: K and
     V at their slot, an SSM's new state and conv history copied into the
     stacked tensors through the period's views.  On a mesh (``tp``, a
-    decode plan; the planned families) the tokens and M-RoPE's (3, B, 1)
+    decode plan; the planned families; each period's weights gathered at
+    its use) the tokens and M-RoPE's (3, B, 1)
     ``positions`` are this rank's stream rows, the cache its shard (each
     rank writes its own ``ssm`` and ``conv`` shards in place), and the
     logits come out whole on every rank."""
@@ -214,23 +251,8 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
             positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
         cos_sin = rope_cos_sin(cfg, positions)
     for i in range(cfg.n_layers // cfg.period):
-        pp, pc = layer_params(params["blocks"], i), layer_params(cache, i)
-        for j, (mixer, channel) in enumerate(cfg.layer_pattern()):
-            b, c = pp[f"pos{j}"], pc[f"pos{j}"]
-            h = rmsnorm(b["norm1"], x, cfg.norm_eps)
-            if mixer == "attn":
-                a, _ = attn_decode(b["attn"], h, cfg, c, pos, cos_sin, window=cfg.window, tp=tp)
-            else:
-                a, new = ssd_decode(b["ssm"], h, cfg, c, tp)
-                for n in ("ssm", "conv"):
-                    c[n].copy_(new[n])
-            x = x + a
-            if channel != "none":
-                h2 = rmsnorm(b["norm2"], x, cfg.norm_eps)
-                if channel == "mlp":
-                    x = x + mlp(b["mlp"], h2, cfg, tp)
-                else:
-                    x = x + moe(b["moe"], h2, cfg, tp)[0]
+        x = at_period(_period_decode, cfg, params["blocks"], i, x, layer_params(cache, i), pos,
+                      cos_sin, tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     return (logits if tp is None else tp.whole_logits(logits)), cache

@@ -510,7 +510,9 @@ def _hand_ssm_collectives(cell_name: str, mesh_kind: str = "single") -> tuple[in
     in float32):
 
     * each parameter gathered over the axes its working layout drops: the
-      embed axes; ``conv_w`` and ``conv_b`` whole (float32 in train);
+      embed axes; ``conv_w`` and ``conv_b`` whole (float32 in train); a
+      block's where its period runs, and again in train's recompute
+      (``test_torch_analysis._weight_gathers``);
     * the embedding over the split vocabulary: the tokens' sequence gathered
       (int32) and the partial rows into the stream (decode: summed);
     * each layer, forward: the stream's sequence gathered, ``in_proj``'s
@@ -523,11 +525,12 @@ def _hand_ssm_collectives(cell_name: str, mesh_kind: str = "single") -> tuple[in
       one-token row and the conv history's rows gathered, the norm's sum
       and ``out_proj``'s partial sums summed;
     * train: the loss as the dense step's (``test_torch_analysis``), the
-      label counts, the loss, each working gradient into its layout and the
-      squared norms; serving: the last token over the sequence and the
+      label counts, the loss, each working gradient into its layout (a
+      block's a period at a time) and the squared norms; serving: the last token over the sequence and the
       logits over the vocabulary, then the batch."""
     from repro_torch.models.common import resolve_spec
-    from test_torch_analysis import SMOKE_MESH, _gathers, _pspec_paths, _Stream, _tp_reduction
+    from test_torch_analysis import (SMOKE_MESH, _per_period, _periods, _pspec_paths, _Stream,
+                                     _tp_reduction, _weight_gathers)
     from repro_torch.models import build
     plan = _smoke_plan(cell_name, "baseline", mesh_kind)
     sizes = plan["sizes"]
@@ -546,9 +549,8 @@ def _hand_ssm_collectives(cell_name: str, mesh_kind: str = "single") -> tuple[in
     for path, p in _pspec_paths(build(cfg).specs()):
         spec = resolve_spec(p.shape, p.logical, sizes)
         keep = _ssm_keep(path, p, spec, plan)
-        leaves.append((p, spec, keep))
-        add([("all-gather", n) for n in _gathers(math.prod(p.shape), spec, sizes, keep)],
-            f32 if train else bf)
+        leaves.append((path, p, spec, keep))
+        add(_weight_gathers(path, p, spec, sizes, keep, train), f32 if train else bf)
     st = _Stream(dict(seq=plan["seq"]))
     vocab = plan["vocab"]
     assert vocab and plan["heads"] == plan["columns"] == ("model",)
@@ -583,8 +585,9 @@ def _hand_ssm_collectives(cell_name: str, mesh_kind: str = "single") -> tuple[in
             add(st.sum(R * c, vocab) * 8 * (-(-S // c)), f32)
             every = tuple(SMOKE_MESH)
             add(st.sum(1, every) * 2 + st.sum(len(leaves), every), f32)
-            for p, spec, keep in leaves:
-                add(_tp_reduction(math.prod(p.shape), spec, keep, SMOKE_MESH), f32)
+            for path, p, spec, keep in leaves:
+                add(_per_period(_tp_reduction(math.prod(p.shape), spec, keep, SMOKE_MESH),
+                                _periods(path, p)), f32)
         else:
             add(st.gather(R * D), bf)
     if not train:
