@@ -190,8 +190,16 @@ Phases (any failure exits non-zero; nothing is caught):
      prefill and decode against h9's, on a (2, 2) mesh under serve (the
      experts on model, their hidden columns on data, what the experts leave
      of (model, data); the tokens replicated over data, the sequence whole),
-     at h8's and h9's bounds with h8's routing-gap rule.  h2, h5 and
-     h7-h18 run on one group of 4 gloo ranks spawned
+     at h8's and h9's bounds with h8's routing-gap rule; h19, one row on a
+     (2, 2) mesh under baseline, whose decode plan keeps every weight on its
+     ``data`` (embed) shard and moves the token: h11's model, a (1, 1000)
+     prompt, and h13's, a (1, 1024) prompt (whole 256-token MoE groups),
+     each prefilled, moved by ``seed_cache`` and decoded for 16 greedy
+     tokens, float32, logits within 1e-5 of the one-device steps (the
+     hybrid's beyond its one-device prefill's spread: the row alone against
+     the row in a batch of 4) and tokens identical, each rank's peak and
+     decode ms printed beside h11's and h13's four-row figures.  h2, h5 and
+     h7-h19 run on one group of 4 gloo ranks spawned
      once (each rank's spawn-to-first-collective seconds and each phase's
      seconds printed), their one-device references run first in this
      process, each freed; every h phase prints each rank's peak and the
@@ -241,8 +249,10 @@ Phases (any failure exits non-zero; nothing is caught):
      (16, 16), against the reference's XLA counts (``I6_REFERENCE``):
      argument + temp + output below the card's memory, collective bytes a
      device at most 1.0 x (train, prefill) or 1.5 x (``decode_32k``) the
-     reference's and, for ``long_500k``, below a tenth of the gathering
-     step's (the reference's printed beside them), product FLOPs equal to
+     reference's and, for ``long_500k`` (one row: the weights stay on their
+     ``data`` shards and the token moves), at most a fiftieth of the parent
+     tree's, which gathered every weight over ``data`` (the reference's
+     printed beside them), product FLOPs equal to
      the hand counts and ``train_4k``'s at most a twelfth of the ZeRO-3
      step's; i7, the hybrid's and the VLM's production cells the same way:
      jamba-v0.1-52b ``train_4k``, ``prefill_32k``, ``decode_32k`` and
@@ -251,8 +261,8 @@ Phases (any failure exits non-zero; nothing is caught):
      reference's XLA counts (``I7_REFERENCE``): argument + temp + output
      below the card's memory (scaled by the share of the layers where the
      depth is cut), collective bytes a device at most 1.0 x (train,
-     prefill) or 1.5 x (decode) the reference's (long_500k: below a tenth of
-     the gathering step's), product FLOPs equal to the hand counts, beside
+     prefill) or 1.5 x (decode) the reference's (long_500k: at most a
+     fiftieth of the parent tree's), product FLOPs equal to the hand counts, beside
      the parent's gathering and ZeRO-3 steps' figures (``I7_BEFORE``); i8,
      the encoder-decoder's production cells the same way: whisper-tiny's
      ``train_4k``, ``prefill_32k`` and ``decode_32k`` as published, each
@@ -262,9 +272,11 @@ Phases (any failure exits non-zero; nothing is caught):
      prefill) and, for ``decode_32k``, below a hundredth of the gathering
      step's with its temp below 1 GB, beside the reference's XLA counts
      (``I8_REFERENCE``) and the parent's ZeRO-3 and gathering steps'
-     (``I8_BEFORE``); every i3-i8 cell's temp below the parent tree's
+     (``I8_BEFORE``); every i3-i8 cell's temp below a parent tree's
      (``I_PARENT_TEMP``: its steps gathered every period's working weights
-     before the model ran, where these gather a period's where it runs);
+     before the model ran, where these gather a period's where it runs; the
+     long_500k cells' below the tree that gathered each period's weights
+     over ``data``);
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -566,7 +578,19 @@ SERVE_PHASES = {"h7": (LM_ARCH, H5_LAYERS, H7_B, H7_P, H7_CACHE, H7_NEW, H7_SEED
                 "h15": (H14_ARCH, H14_LAYERS, H15_B, H15_P, H15_P + H15_NEW, H15_NEW, H15_SEED),
                 "h17": (H16_ARCH, configs.get(H16_ARCH).n_layers, H17_B, H17_P, H17_P + H17_NEW,
                         H17_NEW, H17_SEED)}
-PHASE_CUTS = {"h12": H12_CUT, "h13": H12_CUT}
+# h19 one row a phase on H19_MESHES, whose decode plan keeps every weight on
+# its data shard: h11's model and seed (its prompt the first of h11's, of
+# H19_P tokens) and h13's (the first of h13's prompts: H13_P tokens, whole
+# 256-token MoE groups), prefill, seed_cache and H19_NEW greedy tokens,
+# float32, at h11's and h13's bounds (the hybrid's spread: the row alone
+# against the row in a batch of H13_B)
+H19_MESHES = (((2, 2), "baseline"),)
+H19_P, H19_NEW = 1000, 16
+SERVE_PHASES.update({
+    "h19-mamba2": (H10_ARCH, H10_LAYERS, 1, H19_P, H19_P + H19_NEW, H19_NEW, H11_SEED),
+    "h19-jamba": (H12_ARCH, H12_LAYERS, 1, H13_P, H13_P + H19_NEW, H19_NEW, H13_SEED)})
+PHASE_MESHES = {"h19-mamba2": H19_MESHES, "h19-jamba": H19_MESHES}
+PHASE_CUTS = {"h12": H12_CUT, "h13": H12_CUT, "h19-jamba": H12_CUT}
 GRADS_ONLY = ("h12", "h14")
 TRAIN_STEPS = {"h16": 1}
 # each serving phase's one-device prefill also runs row by row: the float32
@@ -576,12 +600,12 @@ TRAIN_STEPS = {"h16": 1}
 # hybrid's widths the spread alone is 9.5e-6 (granite's at h7's 4.9e-6,
 # mamba2's 2.9e-6, qwen2-vl's 2.2e-6; NVIDIA H100 80GB HBM3, 700 W), so no
 # other order of the same float32 sums is held to H7_RTOL itself
-SPREAD_BOUND = ("h13",)
+SPREAD_BOUND = ("h13", "h19-jamba")
 # the phases one group of 4 gloo ranks spawned on the card runs in turn (h2's
 # pipe, then the planned train and serving phases), each rank's memory freed
 # between them; the one-device references run first, each freed
 GROUP_PHASES = ("h2", "h5", "h7", "h8", "h10", "h11", "h12", "h13", "h14", "h15", "h16", "h17",
-                "h18")
+                "h18", "h19-mamba2", "h19-jamba")
 GROUP_WORLD, GROUP_TIMEOUT_S = 4, 1000
 # bytes the AdamW update moves a float32 parameter: parameter, gradient and
 # both moments read, parameter and moments written
@@ -707,8 +731,10 @@ I5_COLLECTIVE_OVER_REFERENCE = {"train": 1.0, "prefill": 1.0, "decode": 1.5}
 # figures before the SSM family was sharded (its ZeRO-3 train step and
 # gathering serving steps through the same dry-run, torch 2.13 on the CPU:
 # temp, collective bytes a device and product FLOPs).  long_500k's one row
-# moves activations in XLA's partitioning and weights in the port's, so its
-# collective bytes are held below a tenth of the gathering step's
+# leaves the weights on their data shards and moves the token, as XLA
+# partitions the reference's step; its collective bytes are held to at most
+# 1 / I_LONG_UNDER_PARENT of the parent tree's, whose decode gathered every
+# weight over data (I_LONG_PARENT_COLLECTIVE: its dry-run on the card's host)
 I6_ARCH, I6_MESH = "mamba2-2.7b", "single"
 I6_CELLS = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 I6_REFERENCE = {
@@ -734,7 +760,8 @@ I6_BEFORE = {
     "long_500k": dict(temp=21_233_336_320, collective=11_622_334_464, flops=5.4873e9),
 }
 I6_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0, "decode_32k": 1.5}
-I6_LONG_OVER_BEFORE = 0.1
+I_LONG_UNDER_PARENT = 50
+I_LONG_PARENT_COLLECTIVE = {"mamba2-2.7b": 586_402_304, "jamba-v0.1-52b": 6_507_602_912}
 # i7 the hybrid's and the VLM's production cells on the same fleet, each
 # through the dry-run's command line in a process of its own started (at low
 # priority) before phase x and read in phase i: (arch, cell, layers: 0 as
@@ -749,9 +776,7 @@ I6_LONG_OVER_BEFORE = 0.1
 # collective ops by kind; and the port's figures before the two families were
 # planned (their ZeRO-3 train step and gathering decode step through the same
 # dry-run, torch 2.13 on the CPU: temp, collective bytes a device, argument +
-# temp + output and product FLOPs).  long_500k's one row moves weights in the
-# port and the token in XLA's partitioning, so its collective bytes are held
-# below a tenth of the gathering step's
+# temp + output and product FLOPs).  long_500k's as i6's
 I7_CELLS = (("jamba-v0.1-52b", "train_4k", 0), ("jamba-v0.1-52b", "prefill_32k", 0),
             ("jamba-v0.1-52b", "decode_32k", 0), ("jamba-v0.1-52b", "long_500k", 0),
             ("qwen2-vl-72b", "train_4k", 0), ("qwen2-vl-72b", "decode_32k", 0),
@@ -850,10 +875,11 @@ I8_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0}
 I8_DECODE_OVER_BEFORE, I8_DECODE_TEMP = 0.01, 1e9
 
 
-# each phase i cell's temp a device in the parent's trace (PR 28's last chip
-# call, the card's host: its steps gathered every period's working weights
-# before the model ran), by (arch, cell, mesh kind); each cell's temp is held
-# below it
+# each phase i cell's temp a device in a parent tree's trace on the card's
+# host, by (arch, cell, mesh kind): of the steps that gathered every period's
+# working weights before the model ran, and for the long_500k cells of the
+# decode step that gathered each period's weights over data where it ran;
+# each cell's temp is held below it
 I_PARENT_TEMP = {
     ("granite-3-8b", "train_4k", "single"): 19_353_010_204,
     ("granite-3-8b", "decode_32k", "single"): 2_569_575_456,
@@ -867,11 +893,11 @@ I_PARENT_TEMP = {
     ("mamba2-2.7b", "train_4k", "single"): 6_988_148_760,
     ("mamba2-2.7b", "prefill_32k", "single"): 2_841_768_992,
     ("mamba2-2.7b", "decode_32k", "single"): 855_851_520,
-    ("mamba2-2.7b", "long_500k", "single"): 855_851_520,
+    ("mamba2-2.7b", "long_500k", "single"): 530_956_800,
     ("jamba-v0.1-52b", "train_4k", "single"): 49_660_043_620,
     ("jamba-v0.1-52b", "prefill_32k", "single"): 9_367_669_680,
     ("jamba-v0.1-52b", "decode_32k", "single"): 6_880_501_248,
-    ("jamba-v0.1-52b", "long_500k", "single"): 6_880_501_248,
+    ("jamba-v0.1-52b", "long_500k", "single"): 1_818_270_272,
     ("qwen2-vl-72b", "train_4k", "single"): 69_678_989_336,
     ("qwen2-vl-72b", "decode_32k", "single"): 13_866_762_240,
     ("qwen2-vl-72b", "prefill_32k", "single"): 5_475_401_740,
@@ -3077,7 +3103,8 @@ def h7_run(prefill, decode, seed, params, prompts, sync, new: int = H7_NEW) -> d
     positions), move the cache into the decode cache (``seed``), then
     ``new`` greedy steps: each step's logits (on the host) and tokens, the
     prefill's ms and each decode step's, each timed between ``sync`` and a
-    synchronize."""
+    synchronize; the peak memory of the prefill and the seeding (since the
+    caller's reset) and of the decode steps alone."""
     inputs, positions = prompts
     sync()
     t = time.perf_counter()
@@ -3086,6 +3113,8 @@ def h7_run(prefill, decode, seed, params, prompts, sync, new: int = H7_NEW) -> d
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t) * 1e3
     del pcache
+    prefill_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     steps, decode_ms = [(logits.cpu(), tok.cpu())], []
     P = inputs["tokens" if "tokens" in inputs else "embeds"].shape[1]
@@ -3099,19 +3128,20 @@ def h7_run(prefill, decode, seed, params, prompts, sync, new: int = H7_NEW) -> d
         torch.cuda.synchronize()
         decode_ms.append((time.perf_counter() - t) * 1e3)
         steps.append((logits.cpu(), tok.cpu()))
-    return dict(steps=steps, prefill_ms=prefill_ms, decode_ms=decode_ms)
+    return dict(steps=steps, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                prefill_peak=prefill_peak, decode_peak=torch.cuda.max_memory_allocated())
 
 
 def serve_work(device, phase: str = "h7") -> dict:
-    """One rank of phase h7 (h11, h13, h15) in the group: per mesh and
-    profile, the weights made on the card from the seed and laid out on the
-    mesh, the sharded prefill, ``seed_cache`` and the decode steps, and the
-    rank's peak memory over them."""
+    """One rank of phase h7 (h11, h13, h15, h17, h19) in the group: per mesh
+    and profile, the weights made on the card from the seed and laid out on
+    the mesh, the sharded prefill, ``seed_cache`` and the decode steps, and
+    the rank's peak memory over them."""
     _, _, B, _, cache_len, new, seed = SERVE_PHASES[phase]
     model = build(h7_config(phase))
     prompts = h7_prompts(model.cfg, device, phase)
     out = {}
-    for shape, profile in H7_MESHES:
+    for shape, profile in PHASE_MESHES.get(phase, H7_MESHES):
         with sharding_profile(profile):
             mesh = make_mesh(shape, ("data", "model"), device_type=device)
             fwd, psh = build_prefill(model, mesh)
@@ -3125,7 +3155,8 @@ def serve_work(device, phase: str = "h7") -> dict:
             run = h7_run(fwd, dec, lambda c: seed_cache(c, dsh["cache"], cache_len), params,
                          prompts, dist.barrier, new)
             (tp, _), = dec._plans.values()
-            out[profile] = dict(run, max_memory_allocated=torch.cuda.max_memory_allocated(),
+            out[profile] = dict(run, max_memory_allocated=max(run["prefill_peak"],
+                                                              run["decode_peak"]),
                                 plan=dict(q_local=tp.q_local, kv_local=tp.kv_local,
                                           qkv=tp.qkv_axes, cache_rows=tp.cache_row_axes,
                                           cache_seq=tp.cache_seq_axes,
@@ -3133,7 +3164,8 @@ def serve_work(device, phase: str = "h7") -> dict:
                                           ssm_heads=tp.ssm_head_axes,
                                           ssm_columns=tp.ssm_in_axes,
                                           cache_conv=tp.cache_conv_axes,
-                                          experts=tp.expert_axes))
+                                          experts=tp.expert_axes,
+                                          stationary=tp.stationary_axes))
             del params, fwd, dec
             gc.collect()
             torch.cuda.empty_cache()
@@ -3158,7 +3190,9 @@ def one_device_cache(model, pcache, device, phase: str = "h7"):
 def serve_one_device(device, phase: str = "h7") -> dict:
     """A serving phase's one-device reference on the card, run and freed
     before the group starts: the prefill, the seeded decode cache and the
-    greedy steps from the same seeded weights and prompts, and the peak."""
+    greedy steps from the same seeded weights and prompts, and the peak;
+    the prefill's float32 spread: the prompts prefilled whole against row by
+    row (one row: alone against the row in a batch of H13_B)."""
     _, _, _, _, _, new, seed = SERVE_PHASES[phase]
     tf32_off()
     model = build(h7_config(phase))
@@ -3169,12 +3203,16 @@ def serve_one_device(device, phase: str = "h7") -> dict:
     one = h7_run(PrefillStep(model), DecodeStep(model),
                  lambda c: one_device_cache(model, c, device, phase), params, prompts,
                  torch.cuda.synchronize, new)
-    one["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    one["max_memory_allocated"] = max(one["prefill_peak"], one["decode_peak"])
     inputs = prompts[0]
     step = PrefillStep(model)
-    rows = torch.cat([step(params, {k: v[:, b:b + 1] if k == "positions" else v[b:b + 1]
-                                    for k, v in inputs.items()})[1].cpu()
-                      for b in range(next(iter(inputs.values())).shape[0])])
+    if next(iter(inputs.values())).shape[0] == 1:
+        rows = step(params, {k: torch.cat([v] * H13_B, 1 if k == "positions" else 0)
+                             for k, v in inputs.items()})[1][:1].cpu()
+    else:
+        rows = torch.cat([step(params, {k: v[:, b:b + 1] if k == "positions" else v[b:b + 1]
+                                        for k, v in inputs.items()})[1].cpu()
+                          for b in range(next(iter(inputs.values())).shape[0])])
     one["spread"] = rel_err(rows, one["steps"][0][0])
     del params, prompts, inputs, rows
     gc.collect()
@@ -3208,7 +3246,10 @@ def check_serve(phase: str, one: dict, ranks: list, card: str) -> dict:
     (H15_B, H15_P) seeded embeds and grid positions, decoding with (3, B, 1)
     positions.  h17: the encoder-decoder at whisper-tiny as published, a
     (H17_B, H17_P) prompt with its seeded frames into H17_P + H17_NEW
-    self-cache positions, the cross cache carried over its 1500 frames."""
+    self-cache positions, the cross cache carried over its 1500 frames.
+    h19: h11's and h13's models serving one row on H19_MESHES, the decode
+    plan's weights on their data shards (its stationary axes printed with
+    the plan)."""
     arch, layers, B, P, cache_len, new, _ = SERVE_PHASES[phase]
     bound = H7_RTOL + one["spread"] if phase in SPREAD_BOUND else H7_RTOL
     out = dict(arch=arch, layers=layers, batch=B, prompt=P, cache=cache_len, new=new, card=card,
@@ -3216,7 +3257,7 @@ def check_serve(phase: str, one: dict, ranks: list, card: str) -> dict:
                one_device=dict(prefill_ms=one["prefill_ms"], decode_ms=one["decode_ms"],
                                max_memory_allocated=one["max_memory_allocated"]))
     want_tokens = [tok for _, tok in one["steps"]]
-    for shape, profile in H7_MESHES:
+    for shape, profile in PHASE_MESHES.get(phase, H7_MESHES):
         by_step = [max(rel_err(r[profile]["steps"][i][0], w) for r in ranks)
                    for i, (w, _) in enumerate(one["steps"])]
         errs = [max(rel_err(lg, w) for (lg, _), (w, _) in zip(r[profile]["steps"], one["steps"]))
@@ -3226,6 +3267,7 @@ def check_serve(phase: str, one: dict, ranks: list, card: str) -> dict:
         row = dict(mesh=list(shape), plan=ranks[0][profile]["plan"], rel_err=errs,
                    rel_err_by_step=by_step, tokens_identical=same, bound=bound,
                    rank_max_memory_allocated=[r[profile]["max_memory_allocated"] for r in ranks],
+                   rank_decode_peak=[r[profile]["decode_peak"] for r in ranks],
                    gloo_on_one_card_prefill_ms=[r[profile]["prefill_ms"] for r in ranks],
                    gloo_on_one_card_decode_ms=[r[profile]["decode_ms"] for r in ranks])
         out[profile] = row
@@ -3249,6 +3291,10 @@ def check_serve(phase: str, one: dict, ranks: list, card: str) -> dict:
               f"{phase} {profile}: the sharded steps are off the one-device steps by {errs} "
               f"(bound {bound})")
         check(all(same), f"{phase} {profile}: the sharded steps' tokens differ: {same}")
+        if phase in PHASE_MESHES:   # h19: the weights stayed on their data shards
+            check(all(r[profile]["plan"]["stationary"] == ("data",) for r in ranks),
+                  f"{phase} {profile}: the decode plan's stationary axes are "
+                  f"{[r[profile]['plan']['stationary'] for r in ranks]}, not ('data',)")
     return out
 
 
@@ -3264,8 +3310,8 @@ class RouteRecorder:
     def __enter__(self):
         self.route = moe_module._route
 
-        def recorded(xg, router, cfg):
-            out = self.route(xg, router, cfg)
+        def recorded(xg, router, cfg, tp=None):
+            out = self.route(xg, router, cfg, tp)
             if len(self.probs) < self.n:
                 self.probs.append(out[0].detach().flatten(1, 2).float().cpu())
             return out
@@ -3342,7 +3388,7 @@ def h8_one_device(device, B: int = H8_B, serve: bool = True) -> dict:
                      lambda c: ring_cache(model, c, device), params, ({"tokens": prompts}, None),
                      torch.cuda.synchronize, H9_NEW)
     out["serve"] = dict(run, routes=routes.probs,
-                        max_memory_allocated=torch.cuda.max_memory_allocated())
+                        max_memory_allocated=max(run["prefill_peak"], run["decode_peak"]))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3418,7 +3464,8 @@ def moe_work(device, meshes=H8_MESHES, B: int = H8_B) -> dict:
                              params, ({"tokens": h9_prompts(model.cfg, device)}, None),
                              dist.barrier, H9_NEW)
             out[profile, "serve"] = dict(run, routes=routes.probs,
-                                         max_memory_allocated=torch.cuda.max_memory_allocated())
+                                         max_memory_allocated=max(run["prefill_peak"],
+                                                                  run["decode_peak"]))
             del params, fwd, dec
             gc.collect()
             torch.cuda.empty_cache()
@@ -3565,7 +3612,7 @@ def group_rank(rank, world, init, tmp, device, phases):
 
 
 def group_phases(device) -> dict:
-    """Phases h2, h5, h7-h18 on one group of GROUP_WORLD gloo ranks spawned
+    """Phases h2, h5, h7-h19 on one group of GROUP_WORLD gloo ranks spawned
     on the card: the one-device references first, each run and freed in
     this process (so the ranks have the card), then the ranks run every
     phase in turn; each phase is checked against its reference after."""
@@ -3614,16 +3661,32 @@ def group_phases(device) -> dict:
             out[name] = check_train(name, refs[name], got, card)
         else:
             out[name] = check_serve(name, refs[name], got, card)
+    for one, four in (("h19-mamba2", "h11"), ("h19-jamba", "h13")):
+        if one in out and four in out:
+            log(f"phase {one}: one row on {H19_MESHES[0]} beside {four}'s four rows on "
+                f"{[list(m) for m, _ in H7_MESHES]}: peak by rank "
+                f"{out[one]['baseline']['rank_max_memory_allocated']} against "
+                f"{[out[four][p]['rank_max_memory_allocated'] for _, p in H7_MESHES]} bytes, "
+                f"the decode steps' own {out[one]['baseline']['rank_decode_peak']} against "
+                f"{[out[four][p]['rank_decode_peak'] for _, p in H7_MESHES]}; "
+                f"decode mean ms by rank (gloo on one card, not a speed) "
+                f"{mean_ms(out[one]['baseline'])} against "
+                f"{[mean_ms(out[four][p]) for _, p in H7_MESHES]}; card {card}")
     out["group"] = dict(world=GROUP_WORLD, backend=ranks[0]["backend"], wall_s=wall,
                         startup_s=startup, phase_s=seconds, one_device_s=ref_s)
     return out
+
+
+def mean_ms(row: dict) -> list:
+    """A serving phase's mean decode ms by rank (``check_serve``'s row)."""
+    return [round(sum(t) / len(t), 2) for t in row["gloo_on_one_card_decode_ms"]]
 
 
 def distributed_path(device, g2: dict) -> dict:
     """Phase h: the distribution substrate on the card (h1 in this
     process's one-rank NCCL world, which h4 reuses through
     ``make_test_mesh`` and h6 through a mesh of its own; h3 in a spawned
-    gloo world of 2; h2, h5 and h7-h18 in one spawned gloo group of 4)."""
+    gloo world of 2; h2, h5 and h7-h19 in one spawned gloo group of 4)."""
     init_group("nccl")
     try:
         h1 = meshed_full_width(device, g2)
@@ -3830,8 +3893,9 @@ def check_i6(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
     """Phase i6: each SSM cell's record against the reference's counts:
     argument + temp + output below the card's memory, collective bytes a
     device at most ``I6_COLLECTIVE_OVER_REFERENCE`` x the reference's
-    (long_500k: below ``I6_LONG_OVER_BEFORE`` of the gathering step's,
-    printed beside the reference's), product FLOPs equal to the hand count
+    (long_500k: at most 1 / ``I_LONG_UNDER_PARENT`` of the parent tree's
+    ``I_LONG_PARENT_COLLECTIVE``, printed beside the reference's), product
+    FLOPs equal to the hand count
     (``hand_*_flops`` with ``planned_parts``), train_4k's at most
     1 / ``I6_TRAIN_FLOPS_UNDER_BEFORE`` of the ZeRO-3 step's; the temp
     printed beside the reference's."""
@@ -3882,9 +3946,7 @@ def check_i6(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
                   f"{what}: collective bytes {row['collectives_over_reference']:.4f} x the "
                   f"reference's, above {I6_COLLECTIVE_OVER_REFERENCE[cell_name]}")
         else:
-            check(got < I6_LONG_OVER_BEFORE * before["collective"],
-                  f"{what}: collective bytes {got} not below {I6_LONG_OVER_BEFORE} x the "
-                  f"gathering step's {before['collective']}")
+            check_long(what, I6_ARCH, got)
         check(flops == hand, f"{what}: {flops} product FLOPs, the hand count {hand}")
         if cell.kind == "train":
             check(flops <= before["flops"] / I6_TRAIN_FLOPS_UNDER_BEFORE,
@@ -3893,6 +3955,17 @@ def check_i6(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
     log(f"phase i6: {time.perf_counter() - t0:.1f} s from the traces' start to their last "
         f"record")
     return rows
+
+
+def check_long(what: str, arch: str, got: float) -> None:
+    """A long_500k cell's collective bytes a device: at most 1 /
+    ``I_LONG_UNDER_PARENT`` of the parent tree's, printed with the ratio."""
+    parent = I_LONG_PARENT_COLLECTIVE[arch]
+    log(f"{what}: collective bytes a device {got:.0f}, {got / parent:.6f} x the parent tree's "
+        f"{parent} (bound {1 / I_LONG_UNDER_PARENT})")
+    check(got * I_LONG_UNDER_PARENT <= parent,
+          f"{what}: collective bytes {got} above 1/{I_LONG_UNDER_PARENT} of the parent tree's "
+          f"{parent}")
 
 
 def planned_parts(cfg, shape: dict, cell) -> dict:
@@ -3904,7 +3977,9 @@ def planned_parts(cfg, shape: dict, cell) -> dict:
     experts' axes split the sequence the tokens cross them instead: 1);
     ``in_proj``'s columns, the SSM heads (the decode cache's ``ssm`` leaf);
     the cache's rows and sequence, an encoder-decoder's cross cache's
-    sequence (the frames')."""
+    sequence (the frames'); a decode step's weights' embed axes that its
+    rows leave whole (``embed``: the plan's stationary axes), wk's columns
+    (``kv``) and the conv history's channels (``conv``)."""
     def axes(entry) -> tuple:
         return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
 
@@ -3942,7 +4017,14 @@ def planned_parts(cfg, shape: dict, cell) -> dict:
     if "k" in cache:
         parts.update(cache_batch=n(spec(cache["k"])[1]), cache_seq=n(spec(cache["k"])[2]))
     if "ssm" in cache:
-        parts.update(cache_batch=n(spec(cache["ssm"])[1]), ssm_heads=n(spec(cache["ssm"])[2]))
+        parts.update(cache_batch=n(spec(cache["ssm"])[1]), ssm_heads=n(spec(cache["ssm"])[2]),
+                     conv=n(spec(cache["conv"])[3]))
+    if "attn" in layer:
+        parts["kv"] = n(spec(layer["attn"]["wk"])[2])
+    embed = {ax for p in tree_leaves(specs) for e, lname in zip(spec(p), p.logical)
+             if lname in ("embed", "embed_d") for ax in axes(e)}
+    parts["embed"] = n(tuple(ax for ax in shape if ax in embed and ax not in axes(stream[0])
+                             and shape[ax] > 1)) if cell.kind == "decode" else 1
     return parts
 
 
@@ -3957,8 +4039,8 @@ def check_i7(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
     counts of the whole cell: argument + temp + output below the card's
     memory, collective bytes a device at most ``I7_COLLECTIVE_OVER_REFERENCE``
     x the reference's (both scaled by the share of the layers where the depth
-    is cut; long_500k: below ``I6_LONG_OVER_BEFORE`` of the gathering
-    step's), product FLOPs equal to the hand count (``hand_*_flops`` with
+    is cut; long_500k: at most 1 / ``I_LONG_UNDER_PARENT`` of the parent
+    tree's), product FLOPs equal to the hand count (``hand_*_flops`` with
     ``planned_parts``); the temp and the gathering or ZeRO-3 step's figures
     printed beside them."""
     rows = {}
@@ -4008,9 +4090,7 @@ def check_i7(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
         check(total < card_bytes * share,
               f"{what}: argument + temp + output {total} above {card_bytes * share}")
         if cell_name == "long_500k":
-            check(got < I6_LONG_OVER_BEFORE * before["collective"],
-                  f"{what}: collective bytes {got} not below {I6_LONG_OVER_BEFORE} x the "
-                  f"gathering step's {before['collective']}")
+            check_long(what, arch, got)
         else:
             check(row["collectives_over_reference"] <= I7_COLLECTIVE_OVER_REFERENCE[cell.kind],
                   f"{what}: collective bytes {row['collectives_over_reference']:.4f} x the "

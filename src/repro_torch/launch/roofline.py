@@ -443,7 +443,7 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
                 x = F.embedding(t, p["embed"]).to(bf16)
                 return (x @ p["embed"].T.to(bf16)).float()
             x = embed_tokens(p, cfg, t, tp=tp)
-            return tp.whole_logits((x @ p["embed"].T.to(x.dtype)).float())
+            return tp.whole_logits(tp.embed_in(x, p["embed"].T.to(x.dtype)).float())
 
         add("embed+unembed", emb_unemb, emb_spec,
             (tok,), (_sh(mesh, tok.shape, ("batch", "none")),), 1, False)

@@ -68,6 +68,9 @@ input's own shard; the decode cache kept in the reference's layout
 ``cache_seq``, every kv head; an encoder-decoder's cross cache the same
 over its frames; SSM: the state's heads and the conv history's channels on
 ``ssm_inner``), each rank reading and writing only its shard, in place.
+A decode step whose rows leave a weight's embed axes whole (one row under
+the baseline profile) gathers no weight: each stays on its embed shard and
+the token's activations move (``TensorParallel.stationary_axes``).
 Prefill returns its cache laid out so, every position (a sliding window's
 too), and :func:`seed_cache` moves it into a decode cache, shard to shard (a
 window's ring slots as the engine fills them; an SSM's state and conv

@@ -36,6 +36,7 @@ from .layers import (
     rmsnorm_spec,
     sinusoidal_embedding,
     sp_attend,
+    token_heads,
 )
 from .transformer import at_period, embed_tokens, layer_params, stack_specs, unembed, xent_loss
 
@@ -201,12 +202,13 @@ def _cross_decode(bp, h, cache, cfg: ArchConfig, tp=None):
     cross cache's sequence axes."""
     B = h.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (h @ bp["cross_attn"]["wq"].to(h.dtype)).unflatten(-1, (-1, hd))
+    wq = bp["cross_attn"]["wq"]
     ck, cv = cache["k"].to(h.dtype), cache["v"].to(h.dtype)
     if tp is not None:
-        q = tp.cache_rows(tp.all_heads(q, tp.q_local))
-        return attn_out(bp["cross_attn"], sp_attend(q, ck, cv, None, tp.cross), tp,
-                        all_heads=True)
+        q = tp.cache_rows(token_heads(wq, h, hd, hq * hd, tp.qkv_axes, tp))
+        return tp.columns(attn_out(bp["cross_attn"], sp_attend(q, ck, cv, None, tp.cross), tp,
+                                   all_heads=True), tp.stationary_axes, h.shape[-1])
+    q = (h @ wq.to(h.dtype)).unflatten(-1, (-1, hd))
     qh = q.reshape(B, 1, hkv, hq // hkv, hd).movedim(1, 3)
     co = chunked_attention(qh, ck, cv, causal=False)
     return attn_out(bp["cross_attn"], co.movedim(3, 1).reshape(B, 1, hq * hd))
@@ -235,5 +237,5 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int, tp=None):
         x = at_period(_dec_decode, cfg, params["dec_blocks"], i, x, layer_params(cache, i), pos,
                       tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params, cfg, x)
+    logits = unembed(params, cfg, x, tp)
     return (logits if tp is None else tp.whole_logits(logits)), cache

@@ -295,16 +295,14 @@ def _attn_decode_sp(p, x, cfg: ArchConfig, cache, pos: int, cos_sin, window: int
     the split sums: in float32 the two agree within 1e-5 relative, not bit
     for bit."""
     hd = cfg.hd
-    q = (x @ p["wq"].to(x.dtype)).unflatten(-1, (-1, hd))
-    k = (x @ p["wk"].to(x.dtype)).unflatten(-1, (-1, hd))
-    v = (x @ p["wv"].to(x.dtype)).unflatten(-1, (-1, hd))
+    q, k, v = (token_heads(p[n], x, hd, width, axes, tp) for n, width, axes in (
+        ("wq", cfg.n_heads * hd, tp.qkv_axes), ("wk", cfg.n_kv_heads * hd, tp.kv_axes),
+        ("wv", cfg.n_kv_heads * hd, tp.kv_axes)))
     if cos_sin is not None:
         cos, sin = cos_sin
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    q = tp.cache_rows(tp.all_heads(q, tp.q_local))
-    k = tp.cache_rows(tp.all_heads(k, tp.kv_local))
-    v = tp.cache_rows(tp.all_heads(v, tp.kv_local))
+    q, k, v = (tp.cache_rows(t) for t in (q, k, v))
     ck, cv = cache["k"], cache["v"]
     Sl = ck.shape[1]
     Sc = Sl * tp.parts(tp.cache_seq_axes)
@@ -315,7 +313,19 @@ def _attn_decode_sp(p, x, cfg: ArchConfig, cache, pos: int, cos_sin, window: int
         cv[:, slot - start] = v[:, 0].to(cv.dtype)
     idx = start + torch.arange(Sl, device=x.device)
     valid = idx < min(pos + 1, Sc) if window > 0 else idx <= pos
-    return attn_out(p, sp_attend(q, ck, cv, valid, tp), tp, all_heads=True), {"k": ck, "v": cv}
+    out = attn_out(p, sp_attend(q, ck, cv, valid, tp), tp, all_heads=True)
+    return tp.columns(out, tp.stationary_axes, x.shape[-1]), {"k": ck, "v": cv}
+
+
+def token_heads(w, x, hd: int, width: int, axes, tp):
+    """One decode token's q, k or v over every head, (B, 1, width / hd,
+    hd): the stream rows ``x`` (B, 1, D) times the working ``w`` (its
+    columns split over ``axes`` where its heads do; on a plan whose weights
+    stay on their embed shards, its embed rows too, the partial products
+    summed), the columns gathered.  RoPE acts head by head, so gathering
+    before it gives what gathering the heads after it would."""
+    y = tp.embed_in(x, w.to(x.dtype))
+    return tp.columns(y, axes, width).unflatten(-1, (-1, hd))
 
 
 def sp_attend(q, ck, cv, valid, tp):
@@ -362,14 +372,21 @@ def mlp_specs(cfg: ArchConfig, d_ff: int | None = None) -> dict:
 def mlp(p, x, cfg: ArchConfig, tp=None):
     """The MLP; on a mesh (``tp``) ``x`` and the output are this rank's
     slice of the stream, the hidden layer its columns of the whole
-    sequence."""
-    if tp is not None:
+    sequence (on a plan whose weights stay on their embed shards, the up
+    projections' partial products summed and the output's columns
+    gathered)."""
+    if tp is None:
+        def dot(a, w):
+            return a @ w
+    else:
         x = tp.gather_seq(x)
+        dot = tp.embed_in
     if cfg.mlp_style == "swiglu":
-        h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wu"].to(x.dtype))
+        h = F.silu(dot(x, p["wg"].to(x.dtype))) * dot(x, p["wu"].to(x.dtype))
         y = h @ p["wd"].to(x.dtype)
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p["w1"].to(x.dtype), approximate="tanh")
+        h = F.gelu(dot(x, p["w1"].to(x.dtype)), approximate="tanh")
         y = h @ p["w2"].to(x.dtype)
-    return y if tp is None else tp.to_stream(y, tp.ffn_axes)
+    return y if tp is None else tp.columns(tp.to_stream(y, tp.ffn_axes), tp.stationary_axes,
+                                           x.shape[-1])

@@ -59,12 +59,18 @@ def slots(mask, C: int, before=None):
     return keep, torch.clamp(pos, 0, C - 1).long()
 
 
-def _route(xg, router, cfg: ArchConfig):
+def _route(xg, router, cfg: ArchConfig, tp=None):
     """Routing of token groups ``xg`` (B, nG, g, D): the router's
     probabilities (B, nG, g, E), the top-K gates (B, nG, g, K) and the
-    one-hot choices (B, nG, g, K, E)."""
+    one-hot choices (B, nG, g, K, E).  On a plan whose weights stay on their
+    embed shards (``tp``) the router's partial logits are summed and its
+    columns gathered over the experts' axes."""
     E, K = cfg.n_experts, cfg.top_k
-    logits = (xg @ router.to(xg.dtype)).float()                       # (B,nG,gs,E)
+    if tp is None:
+        logits = xg @ router.to(xg.dtype)
+    else:
+        logits = tp.columns(tp.embed_in(xg, router.to(xg.dtype)), tp.expert_axes, E)
+    logits = logits.float()                                           # (B,nG,gs,E)
     probs = torch.softmax(logits, dim=-1)
     gate, idx = top_k_first_index(probs, K)                           # (B,nG,gs,K)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -142,6 +148,12 @@ def _moe_sharded(p, x, cfg: ArchConfig, tp):
       reference's pins give ``ffn``'s axis to the groups); over axes that
       hold the same tokens the experts run column-parallel and the outputs
       are summed.  The weights move; the tokens do not.
+    * On a decode plan whose weights stay on their embed shards (one row:
+      ``tp.stationary_axes``), the router's and the up projections' partial
+      products are summed over those axes (the router's columns gathered
+      over the experts' axes), the down projection and the combine run on
+      this rank's embed columns, summed over the expert axes, then
+      gathered.
 
     The aux term is this rank's share of the whole batch's: each group's
     ``f`` and ``pbar`` (summed over the group's ranks where it is split),
@@ -158,7 +170,7 @@ def _moe_sharded(p, x, cfg: ArchConfig, tp):
     C = max(1, int(cfg.capacity_factor * gs * K / E))
 
     xg = x.reshape(B, nF, gl, D)
-    probs, gate, mask = _route(xg, p["router"], cfg)
+    probs, gate, mask = _route(xg, p["router"], cfg, tp)
     before = None if share == 1 else tp.group_before(mask.sum((2, 3))[:, :, None], share)
     combine = _combine(gate, mask, C, before)
 
@@ -182,8 +194,14 @@ def _moe_sharded(p, x, cfg: ArchConfig, tp):
     wg = tp.expert_weight(p["wg"].to(x.dtype), 2)
     wu = tp.expert_weight(p["wu"].to(x.dtype), 2)
     wd = tp.expert_weight(p["wd"].to(x.dtype), 1)
-    h = F.silu(torch.einsum("begcd,edf->begcf", xe, wg))
-    h = h * torch.einsum("begcd,edf->begcf", xe, wu)
-    ye = tp.returned(torch.einsum("begcf,efd->begcd", h, wd))         # (B,E',nF,C,D)
+    h = F.silu(tp.embed_in(xe, wg, 1, _up))
+    h = h * tp.embed_in(xe, wu, 1, _up)
+    ye = tp.returned(torch.einsum("begcf,efd->begcd", h, wd))         # (B,E',nF,C,D')
     out = torch.einsum("bgsec,begcd->bgsd", combine.to(x.dtype), ye)
-    return tp.expert_sum(out.reshape(B, Sl, D)), aux
+    return tp.columns(tp.expert_sum(out.reshape(B, Sl, -1)), tp.stationary_axes, D), aux
+
+
+def _up(xe, w):
+    """The experts' up projections: (B, E', groups, C, D) tokens times (E',
+    D, F) weights."""
+    return torch.einsum("begcd,edf->begcf", xe, w)

@@ -250,18 +250,27 @@ def _ssd_decode_tp(p, x, cfg: ArchConfig, state, tp: TensorParallel):
     every channel of the cache rows and the recurrence on this rank's
     heads; the new state is this rank's shard (its heads, its stored
     channels), and the heads' outputs go back to the stream's rows for the
-    gated norm and the row-parallel ``out_proj``."""
-    di, H, P, N, conv_dim = _dims(cfg)
+    gated norm and the row-parallel ``out_proj``.  On a plan whose weights
+    stay on their embed shards, ``in_proj``'s partial products are summed
+    before the row is gathered, the conv runs on this rank's stored
+    channels with its shard of ``conv_w`` and ``conv_b`` and its output is
+    gathered (the history does not move), and ``out_proj``'s columns are
+    gathered after their sum."""
+    di, H, P, N, _ = _dims(cfg)
     f32 = torch.float32
-    zxbcdt = tp.ssm_whole_columns(x @ p["in_proj"].to(x.dtype))
+    zxbcdt = tp.ssm_whole_columns(tp.embed_in(x, p["in_proj"].to(x.dtype)))
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
     own, heads = tp.ssm_heads(di), tp.ssm_heads(H)
 
     ct = torch.promote_types(state["conv"].dtype, xbc.dtype)
-    hist = torch.cat([tp.conv_rows(state["conv"]).to(ct), tp.cache_rows(xbc).to(ct)], dim=1)
+    local = tp.conv_local
+    rows = tp.cache_rows(xbc)
+    hist = torch.cat([(state["conv"] if local else tp.conv_rows(state["conv"])).to(ct),
+                      (tp.conv_shard(rows) if local else rows).to(ct)], dim=1)
     w = p["conv_w"].to(x.dtype).to(ct)
     conv = torch.einsum("bkc,kc->bc", hist, w) + p["conv_b"].to(x.dtype).to(ct)
-    xbc1 = F.silu(conv)[:, None, :]
+    xbc1 = (tp.conv_rows(F.silu(conv)) if local else F.silu(conv))[:, None, :]
+    new_conv = hist[:, 1:] if local else tp.conv_shard(hist[:, 1:])
     xs, Bc, Cc = torch.split(xbc1, [di, N, N], dim=-1)
 
     B = hist.shape[0]                                                     # cache rows
@@ -274,5 +283,6 @@ def _ssd_decode_tp(p, x, cfg: ArchConfig, state, tp: TensorParallel):
     y = torch.einsum("bn,bhpn->bhp", Cc[:, 0].to(f32), new_ssm)
     y = y + xh * p["d_skip"][heads][None, :, None]
     y = tp.stream_rows(y.reshape(B, 1, -1).to(x.dtype))
-    out = _out_proj(p, _gated_norm(p["norm"], y, z[..., own], cfg, tp), tp)
-    return out, {"ssm": new_ssm, "conv": tp.conv_shard(hist[:, 1:])}
+    out = tp.columns(_out_proj(p, _gated_norm(p["norm"], y, z[..., own], cfg, tp), tp),
+                     tp.stationary_axes, x.shape[-1])
+    return out, {"ssm": new_ssm, "conv": new_conv}

@@ -90,6 +90,17 @@ under ``serve``, where the stream's batch does not) and its sequence on
   head (gathered over the ``qkv`` axes, one token a row), each rank attends
   over its sequence slice of the cache with a partial softmax, the partials
   are combined over the ``cache_seq`` axes, and ``wo`` runs row-parallel.
+* Where decode's rows do not split over a weight's ``embed`` axes (one row
+  under the baseline profile: the rows leave ``data`` whole), the weights
+  stay on their embed shards and the token moves, as XLA partitions the
+  reference's step (:attr:`TensorParallel.stationary_axes`): a product
+  contracting ``embed`` takes this rank's slice of the row and sums the
+  partial products over those axes (:meth:`TensorParallel.embed_in`), one
+  whose output lies on ``embed`` computes this rank's columns, sums them as
+  the stream needs and gathers the columns (:meth:`TensorParallel.columns`
+  over those axes); q, k, v, the router's logits and the SSM conv's output
+  (:attr:`TensorParallel.conv_local`) are computed on the weights' own
+  columns or channels and gathered.  No weight moves.
 * The encoder-decoder's cross cache has a layout of its own (its length is
   the frames', not the prompt's): :attr:`TensorParallel.cross` is the plan
   with it in the self cache's place.  Prefill lays it out as the self cache;
@@ -175,15 +186,19 @@ def _moe_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> 
     capacity slots); the dispatch and the combine einsums on this rank's
     experts; the three expert products over every capacity slot.  An
     einsum that contracts one element (a one-token group's dispatch; the
-    combine of one expert's one slot) is a broadcast product: no FLOPs."""
-    d, E, K = cfg.d_model, cfg.n_experts, cfg.top_k
+    combine of one expert's one slot) is a broadcast product: no FLOPs.
+    ``parts["embed"]`` (a decode plan's stationary axes) splits ``d_model``
+    in every product but the combine weights', and the router's columns
+    over the experts' axes."""
+    d, E, K = cfg.d_model // parts.get("embed", 1), cfg.n_experts, cfg.top_k
     s_local = S // parts["seq"]
     gs = min(GROUP, S)
     gl = min(gs, s_local)
     C = max(1, int(cfg.capacity_factor * gs * K / E))
     T = rows * s_local
     e_local = E // parts.get("experts", 1)
-    return dict(router=2 * T * d * E, route=2 * T * E * C * K,
+    router_cols = E // parts.get("experts", 1) if parts.get("embed", 1) > 1 else E
+    return dict(router=2 * T * d * router_cols, route=2 * T * E * C * K,
                 dispatch=2 * T * e_local * C * d if gl > 1 else 0,
                 experts=3 * 2 * rows * (s_local // gl) * e_local * C * d
                 * (cfg.d_ff // parts.get("expert_ffn", 1)),
@@ -244,10 +259,10 @@ def _attn_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) ->
 def _mlp_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> dict:
     """One MLP's forward product FLOPs on this rank's columns over its rows'
     whole sequence: the gate and up projections (a GELU MLP's one ``w1``),
-    then ``wd`` (``w2``)."""
-    T, ff = rows * S, cfg.d_ff // parts["ffn"]
+    then ``wd`` (``w2``); ``d_model`` split over ``parts["embed"]``."""
+    T, ff, d = rows * S, cfg.d_ff // parts["ffn"], cfg.d_model // parts.get("embed", 1)
     n_in = 2 if cfg.mlp_style == "swiglu" else 1
-    return dict(gate_up=n_in * 2 * T * cfg.d_model * ff, wd=2 * T * ff * cfg.d_model)
+    return dict(gate_up=n_in * 2 * T * d * ff, wd=2 * T * ff * d)
 
 
 def _cross_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> dict:
@@ -376,29 +391,36 @@ def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) ->
     weighted sum over this rank's cache rows and ``cross_seq`` slice of the
     frames.  Then its columns of the MLP, or the MoE block
     (:func:`_moe_products` of one-token groups); the logits on its rows and
-    vocabulary columns."""
-    d, hd = cfg.d_model, cfg.hd
+    vocabulary columns.  Where ``parts["embed"]`` > 1 (the plan's
+    stationary axes) every product's ``d_model`` is split over them, q, k
+    and v run on their weights' columns (``parts["qkv"]``, and
+    ``parts["kv"]`` where the kv heads do not split whole) and the conv on
+    this rank's channels of the history (``parts["conv"]``)."""
+    e = parts.get("embed", 1)
+    d, hd = cfg.d_model // e, cfg.hd
     rows = B // parts["batch"]
     period = 0
     for mixer, channel in cfg.layer_pattern():
         if mixer == "attn":
             n = parts["qkv"]
             q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
-            q_heads = cfg.n_heads // n if q_local else cfg.n_heads
-            kv_heads = cfg.n_kv_heads // n if kv_local else cfg.n_kv_heads
-            period += 2 * rows * d * hd * (q_heads + 2 * kv_heads) \
+            q_cols = cfg.n_heads * hd // (n if q_local or e > 1 else 1)
+            kv_cols = cfg.n_kv_heads * hd // (n if kv_local else parts.get("kv", 1) if e > 1
+                                              else 1)
+            period += 2 * rows * d * (q_cols + 2 * kv_cols) \
                 + 2 * rows * (cfg.n_heads * hd // n) * d \
                 + 4 * (B // parts["cache_batch"]) * cfg.n_heads * hd \
                 * ((min(S, cfg.window) if cfg.window else S) // parts["cache_seq"])
             if cfg.family == "encdec":
-                period += 2 * rows * d * hd * q_heads + 2 * rows * (cfg.n_heads * hd // n) * d \
+                period += 2 * rows * d * q_cols + 2 * rows * (cfg.n_heads * hd // n) * d \
                     + 4 * (B // parts["cache_batch"]) * cfg.n_heads * hd \
                     * (cfg.enc_seq // parts.get("cross_seq", 1))
         else:
             di, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
             rc, h = B // parts["cache_batch"], H // parts["ssm_heads"]
+            conv = parts.get("conv", 1) if e > 1 else 1
             period += 2 * rows * d * ((2 * di + 2 * N + H) // parts["ssm_inner"]) \
-                + 2 * rc * cfg.ssm_conv * (di + 2 * N) + 2 * rc * N * h * P \
+                + 2 * rc * cfg.ssm_conv * ((di + 2 * N) // conv) + 2 * rc * N * h * P \
                 + 2 * rows * (di // parts["ssm_heads"]) * d
         if channel != "none":
             m = (_mlp_products if channel == "mlp" else _moe_products)(
@@ -438,6 +460,14 @@ class TensorParallel:
     enc_stream_spec: tuple | None = None
     cross_cache_spec: tuple | None = None
     cross_seq_axes: tuple[str, ...] = ()
+    # the mesh axes wk / wv's columns split over (their ``qkv`` entry's)
+    kv_axes: tuple[str, ...] = ()
+    # decode plans only: the weights' embed axes the stream's rows leave
+    # whole, over which every weight stays on its shard and the token moves,
+    # and whether the SSM conv then runs on this rank's stored channels
+    # (its weights' channels split as the conv history's)
+    stationary_axes: tuple[str, ...] = ()
+    conv_local: bool = False
 
     @property
     def stream(self) -> Sharding:
@@ -493,6 +523,27 @@ class TensorParallel:
         n = labels.shape[1] * self.parts(self.seq_axes)
         own = chunk_of(n, self.mesh, self.seq_axes)
         return F.pad(labels, (own.start, n - own.stop), value=-1)
+
+    # ------------------------------------------------- stationary weights
+    def embed_in(self, x: torch.Tensor, w: torch.Tensor, dim: int = 0,
+                 product=torch.matmul) -> torch.Tensor:
+        """``product(x, w)``, which contracts ``x``'s last dimension (the
+        stream's whole ``d_model``) with ``w``'s dimension ``dim``.  Where
+        ``w`` holds this rank's embed shard of it (a decode plan's
+        :attr:`stationary_axes`), this rank's slice of ``x`` times the
+        shard, the partial products summed over those axes."""
+        D = x.shape[-1]
+        if w.shape[dim] == D:
+            return product(x, w)
+        part = product(x[..., chunk_of(D, self.mesh, self.stationary_axes)], w)
+        return sum_over(part, self.mesh, self.stationary_axes)
+
+    def columns(self, y: torch.Tensor, axes: tuple[str, ...], n: int) -> torch.Tensor:
+        """(..., n / parts) -> (..., n): a product's output on a weight's
+        columns split over ``axes`` (an output on this rank's embed columns,
+        summed as the stream needs it, over the :attr:`stationary_axes`),
+        gathered; all ``n`` as it is."""
+        return y if y.shape[-1] == n else gather_over(y, self.mesh, axes, -1)
 
     # -------------------------------------------------------------- heads
     def kv_heads(self, w: torch.Tensor, hd: int) -> torch.Tensor:
@@ -740,18 +791,28 @@ class TensorParallel:
         gathers the traded hidden columns in the layer where every expert
         is on every rank).  The SSM block's ``conv_w`` and ``conv_b`` are
         whole; its ``norm`` and ``out_proj`` keep this rank's heads' rows
-        (their ``ssm_inner`` split cut to the head axes, its major ones)."""
+        (their ``ssm_inner`` split cut to the head axes, its major ones).
+        On a plan with :attr:`stationary_axes` every leaf keeps them on its
+        embed entries and nothing is whole: the q / k / v weights and the
+        router keep their columns, ``conv_w`` and ``conv_b`` their channels
+        where the conv history's shard holds the same ones
+        (:attr:`conv_local`)."""
         sizes = mesh_axis_sizes(self.mesh)
 
         def work(path, p):
             name = path.rsplit("/", 1)[-1]
-            whole = (name == "wq" and not self.q_local) or \
-                (name in ("wk", "wv") and not self.kv_local) or name == "router" or \
-                ("ssm_inner" in p.logical and name in ("conv_w", "conv_b"))
-            heads = "ssm_inner" in p.logical and name in ("norm", "out_proj")
             spec = resolve_spec(p.shape, p.logical, sizes)
+            conv = "ssm_inner" in p.logical and name in ("conv_w", "conv_b")
+            if self.stationary_axes:
+                whole = conv and not self.conv_local
+            else:
+                whole = (name == "wq" and not self.q_local) or \
+                    (name in ("wk", "wv") and not self.kv_local) or name == "router" or conv
+            heads = "ssm_inner" in p.logical and name in ("norm", "out_proj")
             return Sharding(self.mesh, tuple(
-                None if whole or lname in FSDP_LOGICAL else
+                None if whole else
+                spec_entry(tuple(ax for ax in _axes(entry) if ax in self.stationary_axes))
+                if lname in FSDP_LOGICAL else
                 spec_entry(self.ssm_head_axes) if heads and lname == "ssm_inner" else entry
                 for entry, lname in zip(spec, p.logical)))
         return tree_map_pspec(work, spec_tree)
@@ -1086,7 +1147,7 @@ def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, stream_spec,
     tree_map_pspec(note, spec_tree)
     batch_axes, seq_axes = (live(_axes(e)) for e in stream_spec)
     axes = {}
-    for lname in ("qkv", "ffn", "vocab", "experts", "expert_ffn", "ssm_in"):
+    for lname in ("qkv", "kv", "ffn", "vocab", "experts", "expert_ffn", "ssm_in"):
         if len(found[lname]) > 1:
             raise ValueError(f"the leaves split {lname!r} as {sorted(found[lname])}")
         axes[lname] = next(iter(found[lname]), ())
@@ -1107,7 +1168,7 @@ def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, stream_spec,
                         q_local, kv_local, tuple(stream_spec), axes["experts"],
                         axes["expert_ffn"], ssm_head_axes=heads, ssm_in_axes=axes["ssm_in"],
                         enc_stream_spec=None if enc_stream_spec is None
-                        else tuple(enc_stream_spec))
+                        else tuple(enc_stream_spec), kv_axes=axes["kv"])
     if set(tp.expert_axes) & set(seq_axes) and not tp.experts_traded:
         raise ValueError(f"experts on {tp.expert_axes} split the sequence's {seq_axes} in part")
     traded = tp.expert_ffn_traded
@@ -1209,9 +1270,25 @@ def plan_decode(cfg: ArchConfig, spec_tree, cache_spec_tree, mesh: DeviceMesh,
                 batch: int) -> TensorParallel:
     """The plan of a sharded decode step of ``batch`` tokens against the
     cache of ``cache_spec_tree`` (``Model.cache_specs``): the stream this
-    rank's batch rows of one token, the cache its own resolved layout."""
+    rank's batch rows of one token, the cache its own resolved layout, and
+    the weights' embed axes that the rows do not split
+    (:attr:`TensorParallel.stationary_axes`: ``data`` for one row under the
+    baseline profile; none where the rows split over it)."""
     sizes = mesh_axis_sizes(mesh)
     stream = resolve_spec((batch, 1), ("batch", "seq"), sizes)
-    return _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream,
-                                       _ssm_head_axes(cache_spec_tree, sizes)),
-                       cfg, cache_spec_tree, mesh)
+    tp = _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream,
+                                     _ssm_head_axes(cache_spec_tree, sizes)),
+                     cfg, cache_spec_tree, mesh)
+    embed, conv = set(), set()
+
+    def note(path, p):
+        spec = resolve_spec(p.shape, p.logical, sizes)
+        for entry, lname in zip(spec, p.logical):
+            if lname in FSDP_LOGICAL:
+                embed.update(_live(entry, sizes))
+        if "ssm_inner" in p.logical and path.rsplit("/", 1)[-1] in ("conv_w", "conv_b"):
+            conv.add(_live(spec[-1], sizes))
+    tree_map_pspec(note, spec_tree)
+    stationary = tuple(ax for ax in tp.mesh_axes if ax in embed and ax not in tp.batch_axes)
+    return dataclasses.replace(tp, stationary_axes=stationary, conv_local=bool(
+        stationary and tp.cache_conv_axes and conv == {tp.cache_conv_axes}))

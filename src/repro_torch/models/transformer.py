@@ -123,22 +123,29 @@ def embed_tokens(params, cfg: ArchConfig, tokens=None, embeds=None, tp=None):
     (or a VLM's ``embeds``) and the result are this rank's slice of the
     stream; where the vocabulary splits, each rank looks up the tokens of
     its rows of the table over the whole sequence, and the partial rows are
-    summed into the slice."""
+    summed into the slice; where the table keeps this rank's embed shard of
+    its columns (a decode plan's stationary axes), the rows' columns are
+    gathered last."""
     dtype = torch_dtype(cfg.compute_dtype)
     if embeds is not None:
         return embeds.to(dtype)
-    if tp is None or not tp.vocab_axes:
+    if tp is None:
         return params["embed"][tokens.long()].to(dtype)
+    if not tp.vocab_axes:
+        return tp.columns(params["embed"][tokens.long()].to(dtype), tp.stationary_axes,
+                          cfg.d_model)
     table = params["embed"]
     idx = tp.gather_seq(tokens).long() - tp.vocab_rows(cfg.vocab).start
     ours = (idx >= 0) & (idx < table.shape[0])
     x = torch.where(ours[..., None], table[idx.clamp(0, table.shape[0] - 1)].to(dtype), 0)
-    return tp.to_stream(x, tp.vocab_axes)
+    return tp.columns(tp.to_stream(x, tp.vocab_axes), tp.stationary_axes, cfg.d_model)
 
 
-def unembed(params, cfg: ArchConfig, x):
+def unembed(params, cfg: ArchConfig, x, tp=None):
+    """Float32 logits of the hidden states ``x``; on a plan whose table
+    keeps this rank's embed shard (``tp``), its partial products summed."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return (x @ w.to(x.dtype)).float()
+    return (x @ w.to(x.dtype) if tp is None else tp.embed_in(x, w.to(x.dtype))).float()
 
 
 def _period_fwd(cfg: ArchConfig, pp, x, cos_sin, tp=None):
@@ -254,7 +261,7 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
         x = at_period(_period_decode, cfg, params["blocks"], i, x, layer_params(cache, i), pos,
                       cos_sin, tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params, cfg, x)
+    logits = unembed(params, cfg, x, tp)
     return (logits if tp is None else tp.whole_logits(logits)), cache
 
 

@@ -770,16 +770,21 @@ def test_dryrun_train_flops_hand_count(dry, profile):
     assert rec["cost_analysis"]["flops"] == _hand_train_flops(profile)
 
 
-# each case's temp a device in the parent's trace (torch 2.13 on the CPU,
-# the smoke cases on 8 fake ranks), whose steps gathered every period's
-# working weights before the model ran
+# each case's temp a device in a parent's trace (torch 2.13 on the CPU, the
+# smoke cases on 8 fake ranks): of the steps that gathered every period's
+# working weights before the model ran, and for the one-row long_500k cases
+# of the step that gathered each period's weights over ``data`` where it ran
 PARENT_TEMP = {("granite-3-8b", "train_4k", "single"): 926_620,
                ("mixtral-8x22b", "decode_32k", "multi"): 320_512,
-               ("mamba2-2.7b", "long_500k", "multi"): 97_920,
+               ("mamba2-2.7b", "long_500k", "multi"): 60_192,
                ("whisper-tiny", "prefill_32k", "single"): 727_040,
                ("jamba-v0.1-52b", "train_4k", "single"): 5_799_532,
-               ("jamba-v0.1-52b", "long_500k", "multi"): 771_472,
+               ("jamba-v0.1-52b", "long_500k", "multi"): 427_088,
                ("qwen2-vl-72b", "decode_32k", "single"): 146_144}
+# the one-row cases' collective bytes a device in that step's trace, which
+# gathered every weight over ``data``
+ONE_ROW = {("mamba2-2.7b", "long_500k", "multi"): 80_288,
+           ("jamba-v0.1-52b", "long_500k", "multi"): 741_216}
 
 
 def _held_at_once(leaves) -> int:
@@ -860,6 +865,37 @@ def test_dryrun_temp_holds_gathered_state(dry, case):
     # parameters; the decode steps under half of them
     bound = whole if cfg.family == "encdec" else whole // 2
     assert _held_at_once(moved) <= temp < bound, (mem, moved, whole)
+
+
+@pytest.mark.parametrize("case", list(ONE_ROW), ids=["-".join(c) for c in ONE_ROW])
+def test_dryrun_one_row_decode_moves_no_weight(dry, hv_dry, case):
+    """mamba2's and jamba's smoke ``long_500k`` on (pod 2, data 2, model 2):
+    two rows split over ``pod``, so the rows leave the weights' ``data``
+    (embed) axis whole and the plan keeps every weight on its embed shard
+    there (``stationary_axes``).  No all-gather moves a weight leaf: the
+    hand count's weight gathers are none, and the record's all-gather bytes
+    and executions are the hand count's activation gathers
+    (:func:`_stationary_decode_wire`); its collective bytes below the
+    gathering step's (:data:`ONE_ROW`) and its product FLOPs equal to
+    ``hand_decode_flops`` with ``d_model`` split over ``data``."""
+    from repro_torch.models.tensor_parallel import hand_decode_flops
+    if case[0] == "mamba2-2.7b":
+        from test_torch_ssm_parallel import _smoke_plan
+        rec, plan = dry[case][1], _smoke_plan(case[1], "baseline", case[2])
+    else:
+        rec, plan = hv_dry[case][0], _hv_plan(case[0], case[1], "baseline", case[2])
+    assert plan["batch"] == ("pod",) and plan["stationary"] == ("data",)
+    assert _stationary_weight_gathers(plan) == []
+    gathers = [b for kind, b in _stationary_decode_wire(plan) if kind == "all-gather"]
+    coll = rec["collectives"]
+    print(case, coll["collective_bytes_per_device"], ONE_ROW[case], coll["op_counts"])
+    assert coll["collective_bytes_per_device_by_kind"]["all-gather"] == sum(gathers)
+    assert coll["op_counts"]["all-gather"] == len(gathers)
+    assert coll["collective_bytes_per_device"] < ONE_ROW[case]
+    c = plan["cell"]
+    assert plan["parts"]["embed"] == 2
+    assert rec["cost_analysis"]["flops"] == hand_decode_flops(plan["cfg"], c.global_batch,
+                                                              c.seq_len, plan["parts"])
 
 
 def _serve_plan(cell_name: str, arch: str = "granite-3-8b"):
@@ -1148,7 +1184,10 @@ def _hv_keep(path: str, p, spec, plan) -> tuple[str, ...]:
     """The mesh axes a parameter's working layout keeps: none for the MoE
     router, an SSM block's conv weights and a q / k / v weight whose heads
     do not split (whole); the SSM heads' axes for its ``norm``'s and
-    ``out_proj``'s ``ssm_inner`` rows; else all but the embed axes."""
+    ``out_proj``'s ``ssm_inner`` rows; else all but the embed axes.  On a
+    one-row decode plan, :func:`_stationary_keep`."""
+    if plan["stationary"]:
+        return _stationary_keep(path, p, spec, plan)
     name = path.rsplit("/", 1)[-1]
     if name == "router" or ("ssm_inner" in p.logical and name in ("conv_w", "conv_b")):
         return ()
@@ -1183,8 +1222,13 @@ def _hand_hybrid_decode_collectives(arch: str, cell_name: str, mesh_kind: str):
       over the cache's sequence axes, ``wo``'s partial sums over the heads';
     * the MLP's partial sums over its columns' axes, the experts' outputs
       over the experts' (each rank its own experts of the same tokens);
-    * the logits gathered over the vocab axes, then the batch's."""
+    * the logits gathered over the vocab axes, then the batch's.
+
+    A plan whose rows leave the weights' embed axes whole (one row):
+    :func:`_stationary_decode_wire`."""
     plan = _hv_plan(arch, cell_name, "baseline", mesh_kind)
+    if plan["stationary"]:
+        return _count(_stationary_decode_wire(plan))
     cfg, cell, sizes = plan["cfg"], plan["cell"], plan["sizes"]
     B, D, V, hd = cell.global_batch, cfg.d_model, cfg.vocab, cfg.hd
     di, H, N, k = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_conv
@@ -1225,6 +1269,125 @@ def _hand_hybrid_decode_collectives(arch: str, cell_name: str, mesh_kind: str):
             gathered *= sizes[ax]
             add([("all-gather", gathered)], f32)
     return _count(wire)
+
+
+def _stationary_keep(path: str, p, spec, plan) -> tuple[str, ...]:
+    """The mesh axes a parameter's working layout keeps on a decode plan
+    whose weights stay on their embed shards (``plan["stationary"]``: the
+    embed axes the rows leave whole): its embed entries' stationary axes,
+    the SSM heads' axes for an SSM block's ``norm``'s and ``out_proj``'s
+    ``ssm_inner`` rows, every other entry's axes (the q / k / v weights'
+    columns and the router's too); the conv weights whole only where their
+    channels do not split as the conv history's (``plan["conv"]``)."""
+    name = path.rsplit("/", 1)[-1]
+    entries = _entries(spec)
+    if "ssm_inner" in p.logical and name in ("conv_w", "conv_b") and \
+            entries[-1] != tuple(plan["conv"]):
+        return ()
+    return tuple(ax for e, lname in zip(entries, p.logical) for ax in (
+        tuple(a for a in e if a in plan["stationary"]) if lname in ("embed", "embed_d")
+        else plan["heads"] if lname == "ssm_inner" and name in ("norm", "out_proj") else e))
+
+
+def _stationary_weight_gathers(plan) -> list:
+    """The weight all-gathers of a one-row decode plan (:func:`_stationary_keep`):
+    (kind, elements), each leaf's a period at a time."""
+    from repro_torch.models import build
+    from repro_torch.models.common import resolve_spec
+    out = []
+    for path, p in _pspec_paths(build(plan["cfg"]).specs()):
+        spec = resolve_spec(p.shape, p.logical, plan["sizes"])
+        out += _weight_gathers(path, p, spec, plan["sizes"], _stationary_keep(path, p, spec, plan))
+    return out
+
+
+def _stationary_decode_wire(plan) -> list:
+    """(kind, bytes a device) of each collective of a decode step whose
+    weights stay on their embed shards (``plan["stationary"]``, the row's
+    unsplit embed axes), in the order they run, from the specs (the stream,
+    the products' partial sums and the weights in bf16; the gated norm's
+    sums, the partial softmax and the logits in float32).  A sum over an
+    axis is an all-reduce (twice its elements); a gather over axes one
+    all-gather an axis, the minor first, each of its result:
+
+    * the weights: none move (:func:`_stationary_weight_gathers`);
+    * the embedding: the partial rows summed over the vocab axes, their
+      columns gathered over the stationary axes;
+    * an SSM layer: ``in_proj``'s partial products summed over the
+      stationary axes, the row gathered over its columns' axes, the conv's
+      output over the conv history's channels' (the history does not move),
+      the gated norm's sum of squares and ``out_proj``'s partial sums over
+      the heads', its columns gathered over the stationary axes;
+    * an attention layer: q, k and v each summed over the stationary axes
+      and gathered over its weight's columns' axes, the partial softmax's
+      max, sum and weighted sum over the cache's sequence axes, ``wo``'s
+      partial sums over the heads' axes and its columns gathered;
+    * an MLP: the gate's and the up projection's partial products summed,
+      the down projection's partial sums over its columns' axes, its
+      columns gathered;
+    * a MoE block (one-token groups): the router's partial logits summed and
+      gathered over the experts' axes, the experts' up projections summed
+      over the stationary axes, the outputs over the experts' (each rank its
+      own experts of the same tokens) and hidden columns' axes, the columns
+      gathered;
+    * the unembedding's partial logits summed, the logits gathered over the
+      vocab axes, then the batch's."""
+    cfg, cell, sizes = plan["cfg"], plan["cell"], plan["sizes"]
+
+    def n(axes) -> int:
+        return math.prod(sizes[ax] for ax in axes)
+
+    def summed(m: int, axes) -> list:
+        return [("all-reduce", 2 * m)] * len(axes)
+
+    def gathered(m: int, axes) -> list:
+        out, m = [], m // n(axes)
+        for ax in reversed(axes):
+            m *= sizes[ax]
+            out.append(("all-gather", m))
+        return out
+    st = plan["stationary"]
+    B, D, V, hd = cell.global_batch, cfg.d_model, cfg.vocab, cfg.hd
+    di, H, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
+    R, Rc, e = B // n(plan["batch"]), B // n(plan["cache_batch"]), n(st)
+    bf, f32 = 2, 4
+    wire = []
+
+    def add(ops, itemsize):
+        wire.extend((kind, m * itemsize) for kind, m in ops)
+    add(_stationary_weight_gathers(plan), bf)
+    add(summed(R * D // e, plan["vocab"]) + gathered(R * D, st), bf)
+    for _ in range(cfg.n_layers // cfg.period):
+        for mixer, channel in cfg.layer_pattern():
+            if mixer == "ssm":
+                C = 2 * di + 2 * N + H
+                add(summed(R * C // n(plan["columns"]), st) + gathered(R * C, plan["columns"])
+                    + gathered(Rc * (di + 2 * N), plan["conv"]), bf)
+                add(summed(R, plan["heads"]), f32)
+                add(summed(R * D // e, plan["heads"]) + gathered(R * D, st), bf)
+            else:
+                for width, axes in ((cfg.n_heads * hd, plan["qkv"]),
+                                    (cfg.n_kv_heads * hd, plan["kv"]),
+                                    (cfg.n_kv_heads * hd, plan["kv"])):
+                    add(summed(R * width // n(axes), st) + gathered(R * width, axes), bf)
+                add(summed(Rc * cfg.n_heads, plan["cache_seq"]) * 2
+                    + summed(Rc * cfg.n_heads * hd, plan["cache_seq"]), f32)
+                add(summed(R * D // e, plan["qkv"]) + gathered(R * D, st), bf)
+            if channel == "mlp":
+                ups = 2 if cfg.mlp_style == "swiglu" else 1
+                add(summed(R * cfg.d_ff // n(plan["ffn"]), st) * ups
+                    + summed(R * D // e, plan["ffn"]) + gathered(R * D, st), bf)
+            elif channel == "moe":
+                E = cfg.n_experts
+                C = max(1, int(cfg.capacity_factor * cfg.top_k / E))
+                hidden = R * E // n(plan["experts"]) * C * (cfg.d_ff // n(plan["expert_ffn"]))
+                add(summed(R * E // n(plan["experts"]), st) + gathered(R * E, plan["experts"])
+                    + summed(hidden, st) * 2
+                    + summed(R * D // e, plan["experts"] + plan["expert_ffn"])
+                    + gathered(R * D, st), bf)
+    add(summed(R * V // n(plan["vocab"]), st), bf)
+    add(gathered(R * V, plan["vocab"]) + gathered(R * V * n(plan["batch"]), plan["batch"]), f32)
+    return wire
 
 
 def _hand_hybrid_train_collectives(arch: str, cell_name: str):

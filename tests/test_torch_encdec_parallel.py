@@ -13,7 +13,11 @@ whisper-odd, the smoke config with 3 heads of 16 (d 48), 62 frames and a
 vocabulary of 250, on (1, 4): its heads, frames and vocabulary divide no
 axis, as whisper-tiny's 6 heads, 1500 frames and 51865 tokens do not divide
 the production mesh's 16.  Prompts of 8 and 40 tokens into decode caches
-of 16 and 48 positions.  (A prompt whose length does not divide the
+of 16 and 48 positions.  And whisper smoke serving one row (the first
+prompt) on (2, 2) under the baseline (``ONE_ROW``): the row leaves ``data``
+whole, so the decode plan keeps every weight on its embed shard there
+(``stationary_axes``) and moves the token; the cases of SERVE_B rows keep
+none.  (A prompt whose length does not divide the
 ``model`` axis would put the smoke cache's 4 heads there, a layout the
 decode-SP plan refuses, for every family.)
 
@@ -77,6 +81,10 @@ PLANS = {
     "opt1-2x2": (("model",), True, True, (), ("model",), ("model",)),
     "odd-1x4": ((), False, False, (), ("model",), ()),
 }
+# serving the first row alone: (model, mesh shape, profile), and the decode
+# plan's (self cache rows, its sequence axes, the cross cache's, stationary)
+ONE_ROW = {"b1-2x2": ("smoke", (2, 2), "baseline")}
+ONE_ROW_PLAN = ((), ("model",), ("model",), ("data",))
 TRAIN = (4, 64)              # (B, S)
 PROMPTS = {8: 16, 40: 48}    # prompt: decode cache positions
 SERVE_B, NEW, STEPS = 4, 6, 3
@@ -108,17 +116,19 @@ def train_batch(cfg, i: int) -> dict:
     return dict(batch, frames=frames_for(cfg, B, 100 + i))
 
 
-def prefill_inputs(cfg, P: int) -> dict:
+def prefill_inputs(cfg, P: int, rows: int = SERVE_B) -> dict:
+    """The first ``rows`` of the SERVE_B prompts of length P and their frames."""
     rng = np.random.default_rng(7 + P)
-    return {"tokens": rng.integers(0, cfg.vocab, (SERVE_B, P)).astype(np.int32),
-            "frames": frames_for(cfg, SERVE_B, 200 + P)}
+    return {"tokens": rng.integers(0, cfg.vocab, (SERVE_B, P)).astype(np.int32)[:rows],
+            "frames": frames_for(cfg, SERVE_B, 200 + P)[:rows]}
 
 
-def serve_on_mesh(model, mesh, params, P: int, T: int) -> dict:
-    """The sharded prefill, ``seed_cache`` into T positions and NEW greedy
-    decode steps: each step's logits and tokens, this rank's prefill and
-    final decode cache shards with their specs, whether the seeded cross
-    shards equal the prefill's (values and length), and the decode plan."""
+def serve_on_mesh(model, mesh, params, P: int, T: int, rows: int = SERVE_B) -> dict:
+    """The sharded prefill of ``rows`` prompts, ``seed_cache`` into T
+    positions and NEW greedy decode steps: each step's logits and tokens,
+    this rank's prefill and final decode cache shards with their specs,
+    whether the seeded cross shards equal the prefill's (values and
+    length), and the decode plan."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.launch.steps import build_decode, build_prefill, seed_cache
     from repro_torch.models.common import sorted_leaves
@@ -127,8 +137,8 @@ def serve_on_mesh(model, mesh, params, P: int, T: int) -> dict:
         return [(x.to_local().clone(), s.spec) for x, s in zip(sorted_leaves(cache),
                                                                  sorted_leaves(sh))]
     fwd, _ = build_prefill(model, mesh)
-    dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, SERVE_B, "decode"))
-    inputs = {k: torch.as_tensor(v) for k, v in prefill_inputs(model.cfg, P).items()}
+    dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, rows, "decode"))
+    inputs = {k: torch.as_tensor(v) for k, v in prefill_inputs(model.cfg, P, rows).items()}
     pcache, logits = fwd(params, inputs)
     prefill_shards = shards(pcache, fwd.plan(inputs["tokens"])[2])
     cache = seed_cache(pcache, dsh["cache"], T)
@@ -142,7 +152,8 @@ def serve_on_mesh(model, mesh, params, P: int, T: int) -> dict:
     (tp, _), = dec._plans.values()
     return dict(steps=steps, prefill=prefill_shards, decode=shards(cache, dsh["cache"]),
                 planned=bool(fwd._plans) and bool(dec._plans), cross_kept=cross_kept,
-                plan=(tp.cache_row_axes, tp.cache_seq_axes, tp.cross_seq_axes))
+                plan=(tp.cache_row_axes, tp.cache_seq_axes, tp.cross_seq_axes),
+                stationary=tp.stationary_axes)
 
 
 def cross_first_plan(model, mesh, T: int) -> tuple:
@@ -166,7 +177,8 @@ def rank_job(rank, world, init, tmp, weights):
     """Every case on one 4-rank gloo group: three train steps, each beside
     the one-device step from the parameters and optimizer state the sharded
     step holds, gathered whole; then per prompt length the sharded serving
-    run (:func:`serve_on_mesh`), and the cross-first decode plan."""
+    run (:func:`serve_on_mesh`), and the cross-first decode plan.  Then the
+    one-row cases' serving runs."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.interop import params_onto_mesh
     from repro_torch.launch.steps import build_prefill, build_train, input_shardings
@@ -218,18 +230,28 @@ def rank_job(rank, world, init, tmp, weights):
                          coords=dict(zip(("data", "model"), mesh.get_coordinate())),
                          plan=(tp.encoder.seq_axes, tp.q_local, tp.kv_local),
                          cross_first=cross_first)
+    for name, (which, shape, profile) in ONE_ROW.items():
+        model = build(port_cfg(which))
+        with sharding_profile(profile):
+            mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+            _, psh = build_prefill(model, mesh)
+            params = params_onto_mesh(weights[which], psh["params"])
+            out[name] = dict(serve={P: serve_on_mesh(model, mesh, params, P, T, 1)
+                                    for P, T in PROMPTS.items()},
+                             coords=dict(zip(("data", "model"), mesh.get_coordinate())))
     torch.save(out, f"{tmp}/rank{rank}.pt")
     dist.destroy_process_group()
 
 
-def _reference_run(model, params, jcfg, P: int, T: int) -> dict:
-    """The reference's greedy serving run: ``Model.prefill``, its self cache
+def _reference_run(model, params, jcfg, P: int, T: int, rows: int = SERVE_B) -> dict:
+    """The reference's greedy serving run of ``rows`` prompts:
+    ``Model.prefill``, its self cache
     padded to T positions (the cross cache as it is, as the port's
     ``seed_cache`` carries it), NEW ``Model.decode`` steps; the steps'
     logits and tokens, the prefill's and the final cache's leaves."""
     import jax
     import jax.numpy as jnp
-    batch = {k: jnp.asarray(v) for k, v in prefill_inputs(jcfg, P).items()}
+    batch = {k: jnp.asarray(v) for k, v in prefill_inputs(jcfg, P, rows).items()}
     pcache, logits = jax.jit(model.prefill)(params, batch)
     pad = ((0, 0), (0, 0), (0, T - P), (0, 0), (0, 0))
     cache = {"self": jax.tree.map(lambda c: jnp.pad(c, pad), pcache["self"]),
@@ -249,7 +271,8 @@ def _reference_run(model, params, jcfg, P: int, T: int) -> dict:
 def reference():
     """Per model: the reference's ``Model.init`` weights (seed 0) in float32
     compute, its ``Model.loss`` on the first train batch and its greedy
-    serving run per prompt length."""
+    serving run per prompt length (of the first row alone too, ``one_row``,
+    where a ``ONE_ROW`` case serves it)."""
     import jax
     import jax.numpy as jnp
     from repro.models import build as jbuild
@@ -263,6 +286,9 @@ def reference():
         out[which] = dict(params=params, loss=loss,
                           serve={P: _reference_run(model, params, jcfg, P, T)
                                  for P, T in PROMPTS.items()})
+        if any(w == which for w, _, _ in ONE_ROW.values()):
+            out[which]["one_row"] = {P: _reference_run(model, params, jcfg, P, T, 1)
+                                     for P, T in PROMPTS.items()}
     return out
 
 
@@ -306,21 +332,23 @@ def _slice_err(local, spec, full, coords, shape) -> float:
 
 
 @pytest.mark.parametrize("P", list(PROMPTS))
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(ONE_ROW))
 def test_encdec_sharded_serve_matches_reference(ranks, reference, name, P):
     """Prefill, ``seed_cache`` into ``PROMPTS[P]`` positions and NEW greedy
     decode steps on the mesh, every step planned, against the reference's
     run: tokens identical, logits within 1e-5, each rank's self and cross
     cache shards (prefill's, and the decode cache's after the steps) within
     1e-6 of the reference's slice; the decode plan lays the self and the
-    cross cache out as the case names."""
-    shape = CASES[name][1]
-    ref = reference[CASES[name][0]]["serve"][P]
+    cross cache out as the case names.  The one-row case's plan keeps the
+    weights on their ``data`` shards, the others' on none."""
+    which, shape, _ = {**CASES, **ONE_ROW}[name]
+    ref = reference[which]["one_row" if name in ONE_ROW else "serve"][P]
+    want = ONE_ROW_PLAN if name in ONE_ROW else PLANS[name][3:] + ((),)
     errs = {"logits": 0.0, "prefill": 0.0, "decode": 0.0}
     for r in ranks:
         got = r[name]["serve"][P]
         assert got["planned"]
-        assert got["plan"] == PLANS[name][3:], got["plan"]
+        assert got["plan"] + (got["stationary"],) == want, (got["plan"], got["stationary"])
         assert len(got["steps"]) == len(ref["steps"]) == NEW + 1
         for (lg, tok), (wl, wt) in zip(got["steps"], ref["steps"]):
             assert tuple(lg.shape) == wl.shape

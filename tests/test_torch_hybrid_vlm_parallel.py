@@ -15,7 +15,11 @@ caches of 16, 46 and 72 positions: 46 does not divide 4, so on (1, 4) the
 decode cache is whole where the prefill's is split over ``model``, and
 ``seed_cache`` moves the rows from the one split into the other.  Beside
 them, granite smoke's prompt of 40 into 46 positions on (1, 4), the dense
-family's case of the same move.
+family's case of the same move; and jamba and qwen2-vl smoke (its M-RoPE
+positions too) serving one row (the first prompt) on (2, 2) under the
+baseline (``ONE_ROW``): the row leaves ``data`` whole, so the decode plan
+keeps every weight on its embed shard there (``stationary_axes``) and
+moves the token; the cases of SERVE_B rows keep none.
 
 Held, at ``test_torch_ssm_parallel.py``'s bounds: three train steps against
 the port's one-device step at the same parameters and optimizer state (loss
@@ -79,6 +83,8 @@ PLANS = {  # name: (cache rows beyond the stream's, cache sequence, SSM heads, e
     "qwen2vl-opt1-2x2": ({16: (), 46: (), 72: ()},
                          {16: ("model",), 46: ("model",), 72: ("model",)}, (), ()),
 }
+ONE_ROW = {"jamba-b1-2x2": ("jamba-v0.1-52b", (2, 2), "baseline"),
+           "qwen2vl-b1-2x2": ("qwen2-vl-72b", (2, 2), "baseline")}
 TRAIN = (4, 64)                    # (B, S)
 PROMPTS = {8: 16, 40: 46, 64: 72}  # prompt: decode cache positions
 SERVE_B, NEW, STEPS = 4, 6, 3
@@ -115,22 +121,23 @@ def train_batch(cfg, i: int) -> dict:
             "positions": grid_positions(B, S)}
 
 
-def prefill_inputs(cfg, P: int) -> dict:
+def prefill_inputs(cfg, P: int, rows: int = SERVE_B) -> dict:
+    """The first ``rows`` of the SERVE_B prompts of length P."""
     if cfg.family != "vlm":
-        return {"tokens": prompts_for(cfg.vocab, P)}
-    return {"embeds": embeds_for(cfg, SERVE_B, P, 200 + P),
-            "positions": grid_positions(SERVE_B, P)}
+        return {"tokens": prompts_for(cfg.vocab, P)[:rows]}
+    return {"embeds": embeds_for(cfg, SERVE_B, P, 200 + P)[:rows],
+            "positions": np.ascontiguousarray(grid_positions(SERVE_B, P)[:, :rows])}
 
 
-def decode_positions(cfg, P: int, i: int):
-    """The (3, B, 1) positions of decode step ``i`` (the grid continued), or
-    None for a model without M-RoPE."""
+def decode_positions(cfg, P: int, i: int, rows: int = SERVE_B):
+    """The (3, rows, 1) positions of decode step ``i`` (the grid continued),
+    or None for a model without M-RoPE."""
     if cfg.family != "vlm":
         return None
-    return np.ascontiguousarray(grid_positions(SERVE_B, P + NEW)[:, :, P + i:P + i + 1])
+    return np.ascontiguousarray(grid_positions(SERVE_B, P + NEW)[:, :rows, P + i:P + i + 1])
 
 
-def serve_one_device(model, params, P: int, T: int) -> dict:
+def serve_one_device(model, params, P: int, T: int, rows: int = SERVE_B) -> dict:
     """The port's one-device prefill, the decode cache seeded as its engine
     seeds it, NEW greedy decode steps: the prefill's and the final decode
     cache's leaves (sorted order)."""
@@ -139,24 +146,25 @@ def serve_one_device(model, params, P: int, T: int) -> dict:
     from repro_torch.serve.engine import Engine
     cfg = model.cfg
     pcache, logits = PrefillStep(model)(params, {k: torch.as_tensor(v) for k, v in
-                                                 prefill_inputs(cfg, P).items()})
+                                                 prefill_inputs(cfg, P, rows).items()})
     prefill = [t.clone() for t in sorted_leaves(pcache)]
-    cache = Engine(cfg, params=params, device="cpu")._seed_cache(pcache, SERVE_B, T, P)
+    cache = Engine(cfg, params=params, device="cpu")._seed_cache(pcache, rows, T, P)
     dec = DecodeStep(model)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     for i in range(NEW):
         inputs = {"tokens": tok[:, None], "pos": P + i}
-        if (pos := decode_positions(cfg, P, i)) is not None:
+        if (pos := decode_positions(cfg, P, i, rows)) is not None:
             inputs["positions"] = torch.as_tensor(pos)
         tok, logits, cache = dec(params, cache, inputs)
     return dict(prefill=prefill, decode=sorted_leaves(cache))
 
 
-def serve_on_mesh(model, mesh, params, P: int, T: int, one_device) -> dict:
-    """The sharded prefill, ``seed_cache`` into T positions and NEW greedy
-    decode steps: each step's logits and tokens, this rank's prefill and
-    final decode cache shards with their specs, the decode plan's cache
-    layout, and (``one_device``: rank 0) the one-device run's caches."""
+def serve_on_mesh(model, mesh, params, P: int, T: int, one_device, rows: int = SERVE_B) -> dict:
+    """The sharded prefill of ``rows`` prompts, ``seed_cache`` into T
+    positions and NEW greedy decode steps: each step's logits and tokens,
+    this rank's prefill and final decode cache shards with their specs, the
+    decode plan's cache layout and stationary axes, and (``one_device``:
+    rank 0) the one-device run's caches."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.launch.steps import build_decode, build_prefill, seed_cache
     from repro_torch.models.common import sorted_leaves
@@ -168,8 +176,8 @@ def serve_on_mesh(model, mesh, params, P: int, T: int, one_device) -> dict:
                                                                  sorted_leaves(sh))]
     cfg = model.cfg
     fwd, _ = build_prefill(model, mesh)
-    dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, SERVE_B, "decode"))
-    inputs = {k: torch.as_tensor(v) for k, v in prefill_inputs(cfg, P).items()}
+    dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, rows, "decode"))
+    inputs = {k: torch.as_tensor(v) for k, v in prefill_inputs(cfg, P, rows).items()}
     pcache, logits = fwd(params, inputs)
     prefill_shards = shards(pcache, fwd.plan(next(iter(inputs.values())))[2])
     cache = seed_cache(pcache, dsh["cache"], T)
@@ -177,7 +185,7 @@ def serve_on_mesh(model, mesh, params, P: int, T: int, one_device) -> dict:
     steps = [(logits, tok)]
     for i in range(NEW):
         step_in = {"tokens": tok[:, None], "pos": P + i}
-        if (pos := decode_positions(cfg, P, i)) is not None:
+        if (pos := decode_positions(cfg, P, i, rows)) is not None:
             step_in["positions"] = torch.as_tensor(pos)
         tok, logits, cache = dec(params, cache, step_in)
         steps.append((logits, tok))
@@ -185,16 +193,16 @@ def serve_on_mesh(model, mesh, params, P: int, T: int, one_device) -> dict:
     every = tree_map_sorted(lambda t: full_value(t).clone(), params)   # a collective: every rank
     return dict(steps=steps, prefill=prefill_shards, decode=shards(cache, dsh["cache"]),
                 planned=bool(fwd._plans) and bool(dec._plans),
-                plan=(tp.cache_row_axes, tp.cache_seq_axes),
-                one_device=serve_one_device(model, every, P, T) if one_device else None)
+                plan=(tp.cache_row_axes, tp.cache_seq_axes, tp.stationary_axes),
+                one_device=serve_one_device(model, every, P, T, rows) if one_device else None)
 
 
 def rank_job(rank, world, init, tmp, weights):
     """Every case on one 4-rank gloo group: three train steps, each beside
     the one-device step from the parameters and optimizer state the sharded
     step holds, gathered whole; then per prompt length the sharded serving
-    run (:func:`serve_on_mesh`).  Then granite smoke's prompt of 40 into 46
-    positions on (1, 4)."""
+    run (:func:`serve_on_mesh`).  Then the one-row cases' serving runs, and
+    granite smoke's prompt of 40 into 46 positions on (1, 4)."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.interop import params_onto_mesh
     from repro_torch.launch.steps import build_prefill, build_train, input_shardings
@@ -246,6 +254,15 @@ def rank_job(rank, world, init, tmp, weights):
                          coords=dict(zip(("data", "model"), mesh.get_coordinate())),
                          plan=(tp.ssm_head_axes, tp.expert_axes),
                          tables=table_specs(sh["params"]))
+    for name, (arch, shape, profile) in ONE_ROW.items():
+        model = build(smoke_cfg(arch))
+        with sharding_profile(profile):
+            mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+            _, psh = build_prefill(model, mesh)
+            params = params_onto_mesh(weights[arch], psh["params"])
+            out[name] = dict(serve={P: serve_on_mesh(model, mesh, params, P, T, rank == 0, 1)
+                                    for P, T in PROMPTS.items()},
+                             coords=dict(zip(("data", "model"), mesh.get_coordinate())))
 
     model = build(smoke_cfg(SEED_ARCH))
     mesh = make_mesh(SEED_MESH, ("data", "model"), device_type="cpu")
@@ -257,27 +274,28 @@ def rank_job(rank, world, init, tmp, weights):
     dist.destroy_process_group()
 
 
-def _reference_run(model, params, jcfg, P: int, T: int) -> dict:
-    """The reference's greedy serving run: ``Model.prefill``, the cache
-    seeded as its engine seeds it (``Engine._seed_cache``; the VLM's the
-    same by hand, k and v at [0, P), as no engine serves a VLM), NEW
-    ``Model.decode`` steps with the positions; the steps' logits and tokens,
-    the prefill's and the final cache's leaves."""
+def _reference_run(model, params, jcfg, P: int, T: int, rows: int = SERVE_B) -> dict:
+    """The reference's greedy serving run of ``rows`` prompts:
+    ``Model.prefill``, the cache seeded as its engine seeds it
+    (``Engine._seed_cache``; the VLM's the same by hand, k and v at [0, P),
+    as no engine serves a VLM), NEW ``Model.decode`` steps with the
+    positions; the steps' logits and tokens, the prefill's and the final
+    cache's leaves."""
     import jax
     import jax.numpy as jnp
     from repro.serve.engine import Engine
-    batch = {k: jnp.asarray(v) for k, v in prefill_inputs(jcfg, P).items()}
+    batch = {k: jnp.asarray(v) for k, v in prefill_inputs(jcfg, P, rows).items()}
     pcache, logits = jax.jit(model.prefill)(params, batch)
     if jcfg.family == "vlm":
         cache = jax.tree.map(lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, T - P), (0, 0), (0, 0))),
                              pcache)
     else:
-        cache = Engine(jcfg, params)._seed_cache(pcache, SERVE_B, T, P)
+        cache = Engine(jcfg, params)._seed_cache(pcache, rows, T, P)
     dec = jax.jit(model.decode)
     tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
     steps = [(np.asarray(logits), np.asarray(tok))]
     for i in range(NEW):
-        pos = decode_positions(jcfg, P, i)
+        pos = decode_positions(jcfg, P, i, rows)
         logits, cache = dec(params, cache, tok[:, None], jnp.int32(P + i),
                             None if pos is None else jnp.asarray(pos))
         tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
@@ -290,7 +308,8 @@ def _reference_run(model, params, jcfg, P: int, T: int) -> dict:
 def reference():
     """Per architecture (and granite smoke): the reference's ``Model.init``
     weights (seed 0) in float32 compute, its ``Model.loss`` on the first
-    train batch and its greedy serving run per prompt length."""
+    train batch and its greedy serving run per prompt length (of the first
+    row alone too, ``one_row``, where a ``ONE_ROW`` case serves it)."""
     import jax
     import jax.numpy as jnp
     import repro.configs as JC
@@ -309,6 +328,9 @@ def reference():
         out[arch] = dict(params=params, loss=loss,
                          serve={P: _reference_run(model, params, jcfg, P, T)
                                 for P, T in PROMPTS.items()})
+        if any(a == arch for a, _, _ in ONE_ROW.values()):
+            out[arch]["one_row"] = {P: _reference_run(model, params, jcfg, P, T, 1)
+                                    for P, T in PROMPTS.items()}
     return out
 
 
@@ -385,19 +407,25 @@ def _check_serving(runs: list, ref: dict, shape, layers: int) -> dict:
 
 
 @pytest.mark.parametrize("P", list(PROMPTS))
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(ONE_ROW))
 def test_sharded_serve_matches_reference(ranks, reference, name, P):
     """Prefill, ``seed_cache`` into ``PROMPTS[P]`` positions and NEW greedy
     decode steps on the mesh, the steps planned, against the reference's
     run (:func:`_check_serving`); the decode plan's cache layout is the one
-    the true cache length resolves (46 positions on (1, 4): whole)."""
-    arch, shape, _ = CASES[name]
+    the true cache length resolves (46 positions on (1, 4): whole).  The
+    one-row cases' plans keep the weights on their ``data`` shards, the
+    others' on none."""
+    arch, shape, _ = {**CASES, **ONE_ROW}[name]
     for r in ranks:
         got = r[name]["serve"][P]
-        rows, seq = PLANS[name][0][PROMPTS[P]], PLANS[name][1][PROMPTS[P]]
-        assert got["plan"] == (rows, seq), got["plan"]
-    _check_serving([(r[name]["coords"], r[name]["serve"][P]) for r in ranks],
-                   reference[arch]["serve"][P], shape, smoke_cfg(arch).n_layers)
+        if name in ONE_ROW:
+            assert got["plan"] == ((), ("model",), ("data",)), got["plan"]
+        else:
+            rows, seq = PLANS[name][0][PROMPTS[P]], PLANS[name][1][PROMPTS[P]]
+            assert got["plan"] == (rows, seq, ()), got["plan"]
+    ref = reference[arch]["one_row" if name in ONE_ROW else "serve"][P]
+    _check_serving([(r[name]["coords"], r[name]["serve"][P]) for r in ranks], ref, shape,
+                   smoke_cfg(arch).n_layers)
 
 
 def test_seed_cache_across_sequence_splits(ranks, reference):
@@ -406,7 +434,7 @@ def test_seed_cache_across_sequence_splits(ranks, reference):
     not split (46 does not divide 4), then NEW greedy steps: against the
     reference as :func:`_check_serving` holds it."""
     for r in ranks:
-        assert r["seed"]["plan"] == ((), ())
+        assert r["seed"]["plan"] == ((), (), ())
         assert all(spec[2] == "model" for _, spec in r["seed"]["prefill"])
     _check_serving([(r["seed"]["coords"], r["seed"]) for r in ranks],
                    reference[SEED_ARCH]["serve"][SEED_P], SEED_MESH,
@@ -528,6 +556,13 @@ def _axes(entry) -> tuple[str, ...]:
     return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
 
 
+def _leaves(specs) -> list:
+    from repro_torch.models.common import tree_map_pspec
+    out = []
+    tree_map_pspec(lambda _, p: out.append(p), specs)
+    return out
+
+
 def _smoke_plan(arch: str, cell_name: str, profile: str = "baseline",
                 mesh_kind: str = "single") -> dict:
     """A hybrid or VLM smoke model's layout of ``cell_name`` on a smoke mesh
@@ -537,10 +572,13 @@ def _smoke_plan(arch: str, cell_name: str, profile: str = "baseline",
     the heads', the MLP's and the experts' columns, of ``in_proj``'s
     columns, the SSM heads and the conv channels (the decode cache's
     ``ssm`` and ``conv`` leaves) and of the cache's rows and sequence;
-    whether the q (and the kv) heads split whole (``head_split``); and the
-    ranks each logical axis splits over (``parts``, for the hand FLOP
-    counts: where the experts' axes split the sequence the tokens cross
-    them instead, 1)."""
+    whether the q (and the kv) heads split whole (``head_split``); a decode
+    step's ``stationary`` axes (the weights' embed axes its rows leave
+    whole, over which the weights stay on their shards: ``data`` for one
+    row); and the ranks each logical axis splits over (``parts``, for the
+    hand FLOP counts: where the experts' axes split the sequence the tokens
+    cross them instead, 1; ``embed`` the stationary axes', ``kv`` wk's
+    columns', ``conv`` the conv history's channels')."""
     import repro_torch.configs as C
     from repro_torch.launch.dryrun import mesh_shape
     from repro_torch.models import build
@@ -559,13 +597,20 @@ def _smoke_plan(arch: str, cell_name: str, profile: str = "baseline",
         return math.prod(sizes[ax] for ax in axes)
     stream = [_axes(e) for e in resolve_spec((B, S), ("batch", "seq"), sizes, profile=profile)]
     layer = {k: v for b in model.specs()["blocks"].values() for k, v in b.items()}
+    embed = set()
+    for p in _leaves(model.specs()):
+        embed.update(ax for e, lname in zip(spec(p), p.logical) if lname in ("embed", "embed_d")
+                     for ax in e)
     cache = {k: v for e in model.cache_specs(cell.global_batch, cell.seq_len).values()
              for k, v in e.items()}
     plan = dict(cfg=cfg, cell=cell, sizes=sizes, model=model, spec=spec, batch=stream[0],
                 seq=stream[1], vocab=spec(model.specs()["embed"])[0],
-                qkv=spec(layer["attn"]["wq"])[2], ffn=spec(layer["mlp"]["wg"])[2],
+                qkv=spec(layer["attn"]["wq"])[2], kv=spec(layer["attn"]["wk"])[2],
+                ffn=spec(layer["mlp"]["wg"])[2],
                 experts=(), expert_ffn=(), columns=(), heads=(), conv=(),
-                cache_batch=spec(cache["k"])[1], cache_seq=spec(cache["k"])[2])
+                cache_batch=spec(cache["k"])[1], cache_seq=spec(cache["k"])[2],
+                stationary=tuple(ax for ax in sizes if ax in embed and ax not in stream[0])
+                if cell.kind == "decode" else ())
     if "moe" in layer:
         w = layer["moe"]["wg"]
         plan["experts"], plan["expert_ffn"] = (spec(w)[w.logical.index(k)]
@@ -574,8 +619,9 @@ def _smoke_plan(arch: str, cell_name: str, profile: str = "baseline",
         plan.update(columns=spec(layer["ssm"]["in_proj"])[2], heads=spec(cache["ssm"])[2],
                     conv=spec(cache["conv"])[3])
     plan["q_local"], plan["kv_local"] = head_split(cfg.n_heads, cfg.n_kv_heads, n(plan["qkv"]))
-    parts = {k: n(plan[k]) for k in ("batch", "seq", "vocab", "qkv", "ffn", "cache_batch",
-                                     "cache_seq")}
+    parts = {k: n(plan[k]) for k in ("batch", "seq", "vocab", "qkv", "kv", "ffn", "cache_batch",
+                                     "cache_seq", "conv")}
+    parts["embed"] = n(plan["stationary"])
     if "moe" in layer:
         parts["experts"] = 1 if set(plan["experts"]) & set(plan["seq"]) else n(plan["experts"])
         parts["expert_ffn"] = n(tuple(ax for ax in plan["expert_ffn"] if ax not in plan["seq"]))

@@ -203,12 +203,14 @@ def moe_rank_job(rank, world, init, tmp, weights):
             for i in range(NEW):
                 tok, logits, cache = dec(params, cache, {"tokens": tok[:, None], "pos": P + i})
                 steps.append((logits, tok))
+            (plan, _), = dec._plans.values()
             one_device = serve_one_device(model, whole(params), tokens, T)
         out[name] = dict(train=rows, steps=steps, prefill=prefill_shards,
                          decode=shards(cache, dsh["cache"]),
                          one_device=one_device if rank == 0 else None,
                          coords=dict(zip(axes_of(shape), mesh.get_coordinate())),
                          plan=(tp.expert_axes, tp.expert_ffn_axes, tp.seq_axes),
+                         stationary=plan.stationary_axes,
                          tables=table_specs(sh["params"]))
 
     # a split group's keep mask and positions: this rank's 16 tokens of each row
@@ -342,6 +344,7 @@ def test_moe_sharded_serve_matches_reference(ranks, reference, name):
     errs = {"logits": 0.0, "prefill": 0.0, "decode": 0.0, "prefill_one": 0.0, "decode_one": 0.0}
     for r in ranks:
         got = r[name]
+        assert got["stationary"] == ()   # no embed axis the rows leave whole
         for (lg, tok), (wl, wt) in zip(got["steps"], ref["steps"]):
             assert tuple(lg.shape) == wl.shape
             assert np.array_equal(tok.numpy(), wt)

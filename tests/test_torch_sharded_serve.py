@@ -19,7 +19,11 @@ granite smoke under ``opt1`` on (2, 2) (the (un)embedding tables whole over
 ``data``, as the reference's ``resolve_spec`` lays them out under it).
 Each prefills (B, P) prompts, moves the cache into a decode cache of T
 positions (``seed_cache``, as the engine pads the reference's) and decodes
-NEW greedy tokens.
+NEW greedy tokens.  granite smoke with one row on (2, 2) (``ONE_ROW``), under
+the baseline and under ``opt1``: the row leaves ``data`` whole, so the
+decode plan keeps every weight on its embed shard there
+(``stationary_axes``; under ``opt1`` the tables are whole and the blocks
+keep their shards) and moves the token; the cases of B rows keep none.
 
 Held: the tokens identical; the logits within 1e-5 of the reference's largest
 (the split softmax of decode is not bit for bit the one-device softmax); each
@@ -60,6 +64,10 @@ CASES = {  # name: (arch, mesh shape, profile, kv heads: None for the smoke conf
     "granite-serve-kv4-2x2": ("granite-3-8b", (2, 2), "serve", 4),
     "granite-opt1-2x2": ("granite-3-8b", (2, 2), "opt1", None),
 }
+ONE_ROW = {  # the first prompt alone
+    "granite-b1-2x2": ("granite-3-8b", (2, 2), "baseline", None),
+    "granite-opt1-b1-2x2": ("granite-3-8b", (2, 2), "opt1", None),
+}
 B, P, T, NEW = 4, 8, 16, 6
 GATHERING = "whisper-tiny"
 
@@ -93,14 +101,15 @@ def serve_rank_job(rank, world, init, tmp, weights):
         return [(x.to_local().clone(), s.spec) for x, s in zip(sorted_leaves(cache),
                                                                  sorted_leaves(sh))]
     out = {}
-    for name, (arch, shape, profile, kv) in CASES.items():
+    for name, (arch, shape, profile, kv) in {**CASES, **ONE_ROW}.items():
+        rows = 1 if name in ONE_ROW else B
         model = build(smoke_cfg(arch) if kv is None else smoke_cfg(arch, n_kv_heads=kv))
         with sharding_profile(profile):
             mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
             fwd, psh = build_prefill(model, mesh)
-            dec, dsh = build_decode(model, mesh, cell)
+            dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, rows, "decode"))
             params = params_onto_mesh(weights[model_key(arch, kv)], psh["params"])
-            tokens = torch.as_tensor(prompts_for(model.cfg.vocab))
+            tokens = torch.as_tensor(prompts_for(model.cfg.vocab)[:rows])
             pcache, logits = fwd(params, {"tokens": tokens})
             prefill_shards = shards(pcache, fwd.plan(tokens)[2])
             cache = seed_cache(pcache, dsh["cache"], T)
@@ -109,10 +118,11 @@ def serve_rank_job(rank, world, init, tmp, weights):
             for i in range(NEW):
                 tok, logits, cache = dec(params, cache, {"tokens": tok[:, None], "pos": P + i})
                 steps.append((logits, tok))
-            tp = dec.plan(torch.empty(B, 1), cache)[0]
+            tp = dec.plan(torch.empty(rows, 1), cache)[0]
         out[name] = dict(steps=steps, prefill=prefill_shards, decode=shards(cache, dsh["cache"]),
                          coords=dict(zip(("data", "model"), mesh.get_coordinate())),
-                         plan=(tp.q_local, tp.kv_local, tp.cache_row_axes, tp.cache_seq_axes),
+                         plan=(tp.q_local, tp.kv_local, tp.cache_row_axes, tp.cache_seq_axes,
+                               tp.stationary_axes),
                          tables=table_specs(psh["params"]))
 
     model = build(smoke_cfg(GATHERING))
@@ -144,37 +154,47 @@ def serve_rank_job(rank, world, init, tmp, weights):
     dist.destroy_process_group()
 
 
+def _reference_run(model, params, tokens) -> dict:
+    """The reference's greedy run of ``tokens``: the prefill's logits and
+    cache, the cache padded to T positions, NEW ``Model.decode`` steps'
+    logits and tokens, and the final cache."""
+    import jax
+    import jax.numpy as jnp
+    pcache, logits = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(tokens)})
+    cache = jax.tree.map(lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, T - P), (0, 0), (0, 0))),
+                         pcache)
+    dec = jax.jit(model.decode)
+    tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+    steps = [(np.asarray(logits), np.asarray(tok))]
+    for i in range(NEW):
+        logits, cache = dec(params, cache, tok[:, None], jnp.int32(P + i))
+        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+        steps.append((np.asarray(logits), np.asarray(tok)))
+    return dict(steps=steps, prefill=[np.asarray(x) for x in jax.tree.leaves(pcache)],
+                decode=[np.asarray(x) for x in jax.tree.leaves(cache)])
+
+
 @pytest.fixture(scope="module")
 def reference():
     """Per architecture: the reference's ``Model.init`` weights (seed 0) in
-    float32 compute, and its greedy run: the prefill's logits and cache, the
-    cache padded to T positions, NEW ``Model.decode`` steps' logits and
-    tokens, and the final cache."""
+    float32 compute, and its greedy run (:func:`_reference_run`) of the B
+    prompts, and of the first alone where a ``ONE_ROW`` case serves it
+    (``one_row``)."""
     import jax
-    import jax.numpy as jnp
     import repro.configs as JC
     from repro.models import build as jbuild
     out = {}
+    one_row = {(a, kv) for a, _, _, kv in ONE_ROW.values()}
     for arch, kv in sorted({(a, kv) for a, _, _, kv in CASES.values()}, key=str):
         jcfg = dataclasses.replace(JC.get(arch, smoke=True), compute_dtype="float32")
         if kv is not None:
             jcfg = dataclasses.replace(jcfg, n_kv_heads=kv)
         model = jbuild(jcfg)
         params = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0)))
-        pcache, logits = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(
-            prompts_for(jcfg.vocab))})
-        cache = jax.tree.map(lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, T - P), (0, 0), (0, 0))),
-                             pcache)
-        dec = jax.jit(model.decode)
-        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
-        steps = [(np.asarray(logits), np.asarray(tok))]
-        for i in range(NEW):
-            logits, cache = dec(params, cache, tok[:, None], jnp.int32(P + i))
-            tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
-            steps.append((np.asarray(logits), np.asarray(tok)))
-        out[model_key(arch, kv)] = dict(params=params, steps=steps,
-                         prefill=[np.asarray(x) for x in jax.tree.leaves(pcache)],
-                         decode=[np.asarray(x) for x in jax.tree.leaves(cache)])
+        prompts = prompts_for(jcfg.vocab)
+        out[model_key(arch, kv)] = dict(params=params, **_reference_run(model, params, prompts))
+        if (arch, kv) in one_row:
+            out[model_key(arch, kv)]["one_row"] = _reference_run(model, params, prompts[:1])
     return out
 
 
@@ -184,15 +204,18 @@ def ranks(reference, tmp_path_factory):
     return spawn(serve_rank_job, 4, tmp, {a: r["params"] for a, r in reference.items()})
 
 
-PLANS = {  # name: (q heads split, kv heads split, cache rows beyond the stream's, cache seq)
-    "granite-2x2": (True, True, (), ("model",)),
-    "granite-1x4": (True, False, (), ("model",)),
-    "llama3-1x4": (True, False, (), ("model",)),
-    "minicpm-1x4": (False, False, (), ("model",)),
-    "glm4-1x4": (True, False, (), ("model",)),
-    "granite-serve-2x2": (True, False, ("data",), ("model",)),
-    "granite-serve-kv4-2x2": (True, True, ("data",), ("model",)),
-    "granite-opt1-2x2": (True, True, (), ("model",)),
+PLANS = {  # name: (q heads split, kv heads split, cache rows beyond the stream's, cache seq,
+    #         the axes over which the weights stay on their embed shards)
+    "granite-2x2": (True, True, (), ("model",), ()),
+    "granite-1x4": (True, False, (), ("model",), ()),
+    "llama3-1x4": (True, False, (), ("model",), ()),
+    "minicpm-1x4": (False, False, (), ("model",), ()),
+    "glm4-1x4": (True, False, (), ("model",), ()),
+    "granite-serve-2x2": (True, False, ("data",), ("model",), ()),
+    "granite-serve-kv4-2x2": (True, True, ("data",), ("model",), ()),
+    "granite-opt1-2x2": (True, True, (), ("model",), ()),
+    "granite-b1-2x2": (True, True, (), ("model",), ("data",)),
+    "granite-opt1-b1-2x2": (True, True, (), ("model",), ("data",)),
 }
 
 
@@ -204,15 +227,18 @@ def _slice_err(local, spec, full, coords, shape) -> float:
     return rel(local, want)
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(ONE_ROW))
 def test_sharded_serve_matches_reference(ranks, reference, name):
     """Prefill and NEW greedy decode steps on the mesh: on every rank the
     tokens equal the reference's, the logits (whole on every rank) within
     1e-5 of its largest, and the rank's prefill and decode cache shards
     within 1e-6 of the reference's caches' matching slices.  Each case takes
-    the head branch it names."""
-    arch, shape, profile, kv = CASES[name]
+    the head branch it names; the one-row cases keep the weights on their
+    ``data`` shards, the others on none."""
+    arch, shape, profile, kv = {**CASES, **ONE_ROW}[name]
     ref = reference[model_key(arch, kv)]
+    if name in ONE_ROW:
+        ref = ref["one_row"]
     errs = {"logits": 0.0, "prefill": 0.0, "decode": 0.0}
     for r in ranks:
         got = r[name]

@@ -13,7 +13,11 @@ and under ``opt1`` on (2, 2), (2, 2)'s layout with the tied table's
 ``d_model`` axis whole over ``data`` (each case's table as the reference's
 ``resolve_spec`` lays it out).
 Prompts of 8 tokens (shorter than the 16-token chunk), 40 (a ragged last
-chunk) and 64.
+chunk) and 64.  Serving only, one row on (2, 2) under the baseline
+(``ONE_ROW``: the first prompt of each length): the row leaves ``data``
+whole, so the decode plan keeps every weight on its embed shard there
+(``stationary_axes``) and moves the token; the cases of SERVE_B rows keep
+none.
 
 Held, at ``test_torch_moe_parallel.py``'s bounds: three train steps against
 the port's one-device step at the same parameters and optimizer state (loss
@@ -64,13 +68,14 @@ PLANS = {  # name: (the heads' axes, in_proj's stored columns' axes)
     "mamba2-serve-2x2": (("model",), ("model", "data")),
     "mamba2-opt1-2x2": (("model",), ("model",)),
 }
+ONE_ROW = {"mamba2-b1-2x2": ((2, 2), "baseline")}
 TRAIN = (4, 64)                    # (B, S)
 PROMPTS = (8, 40, 64)              # shorter than a chunk, a ragged last chunk, four chunks
 SERVE_B, NEW, STEPS = 4, 6, 3
 
 
-def prompts_for(vocab: int, P: int) -> np.ndarray:
-    return np.random.default_rng(7 + P).integers(0, vocab, (SERVE_B, P)).astype(np.int32)
+def prompts_for(vocab: int, P: int, rows: int = SERVE_B) -> np.ndarray:
+    return np.random.default_rng(7 + P).integers(0, vocab, (SERVE_B, P)).astype(np.int32)[:rows]
 
 
 def head_columns(cfg, n: int, j: int) -> np.ndarray:
@@ -104,7 +109,8 @@ def ssm_rank_job(rank, world, init, tmp, weights):
     the one-device step from the parameters and optimizer state the sharded
     step holds, gathered whole; then per prompt length the sharded prefill,
     ``seed_cache`` and NEW greedy decode steps, with this rank's cache
-    shards.  Then the column move and the gated norm on each case's plan."""
+    shards.  Then the column move and the gated norm on each case's plan.
+    Then the one-row cases' serving runs."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.interop import params_onto_mesh
@@ -130,6 +136,35 @@ def ssm_rank_job(rank, world, init, tmp, weights):
     def shards(cache, sh):
         return [(x.to_local().clone(), s.spec) for x, s in zip(sorted_leaves(cache),
                                                                  sorted_leaves(sh))]
+
+    def serve_runs(mesh, rows: int) -> dict:
+        """Per prompt length: the sharded prefill of ``rows`` prompts,
+        ``seed_cache``, NEW greedy steps, this rank's cache shards, the
+        decode plan's stationary axes and (rank 0) the one-device run."""
+        fwd, psh = build_prefill(model, mesh)
+        params = params_onto_mesh(weights, psh["params"])
+        every = whole(params)
+        serve = {}
+        for P in PROMPTS:
+            T = P + NEW + 2
+            dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, rows, "decode"))
+            tokens = torch.as_tensor(prompts_for(cfg.vocab, P, rows))
+            pcache, logits = fwd(params, {"tokens": tokens})
+            prefill_shards = shards(pcache, fwd.plan(tokens)[2])
+            cache = seed_cache(pcache, dsh["cache"], T)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            steps = [(logits, tok)]
+            for i in range(NEW):
+                tok, logits, cache = dec(params, cache, {"tokens": tok[:, None], "pos": P + i})
+                steps.append((logits, tok))
+            (plan, _), = dec._plans.values()
+            serve[P] = dict(steps=steps, prefill=prefill_shards,
+                            decode=shards(cache, dsh["cache"]),
+                            planned=bool(fwd._plans) and bool(dec._plans),
+                            stationary=plan.stationary_axes,
+                            one_device=serve_one_device(model, every, tokens)
+                            if rank == 0 else None)
+        return serve
     out = {}
     for name, (shape, profile) in CASES.items():
         cell = ShapeCell("smoke", S, B, "train")
@@ -156,29 +191,7 @@ def ssm_rank_job(rank, world, init, tmp, weights):
                     grad_leaf=max(rel(full_value(g), w) for g, w in
                                   zip(sorted_leaves(grads), sorted_leaves(grads1)))))
             (tp, _, _), = step._plans.values()
-
-            fwd, psh = build_prefill(model, mesh)
-            params = params_onto_mesh(weights, psh["params"])
-            every = whole(params)
-            serve = {}
-            for P in PROMPTS:
-                T = P + NEW + 2
-                dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, SERVE_B, "decode"))
-                tokens = torch.as_tensor(prompts_for(cfg.vocab, P))
-                pcache, logits = fwd(params, {"tokens": tokens})
-                prefill_shards = shards(pcache, fwd.plan(tokens)[2])
-                cache = seed_cache(pcache, dsh["cache"], T)
-                tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-                steps = [(logits, tok)]
-                for i in range(NEW):
-                    tok, logits, cache = dec(params, cache, {"tokens": tok[:, None],
-                                                             "pos": P + i})
-                    steps.append((logits, tok))
-                serve[P] = dict(steps=steps, prefill=prefill_shards,
-                                decode=shards(cache, dsh["cache"]),
-                                planned=bool(fwd._plans) and bool(dec._plans),
-                                one_device=serve_one_device(model, every, tokens)
-                                if rank == 0 else None)
+            serve = serve_runs(mesh, SERVE_B)
 
             # in_proj's output on its stored columns -> this rank's heads'
             # columns, float64, against the one-device split; the adjoint
@@ -207,6 +220,11 @@ def ssm_rank_job(rank, world, init, tmp, weights):
         out[name] = dict(train=rows, serve=serve, move=move, norm=norm,
                          coords=dict(zip(("data", "model"), mesh.get_coordinate())),
                          plan=(tp.ssm_head_axes, tp.ssm_in_axes), tables=table_specs(sh["params"]))
+    for name, (shape, profile) in ONE_ROW.items():
+        with sharding_profile(profile):
+            mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+            out[name] = dict(serve=serve_runs(mesh, 1),
+                             coords=dict(zip(("data", "model"), mesh.get_coordinate())))
     torch.save(out, f"{tmp}/rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -215,9 +233,10 @@ def ssm_rank_job(rank, world, init, tmp, weights):
 def reference():
     """The reference's ``Model.init`` weights (seed 0) of mamba2 smoke in
     float32 compute, its ``Model.loss`` on the first train batch, and per
-    prompt length its greedy serving run: the prefill's logits and cache,
-    the cache seeded as its engine seeds it (``Engine._seed_cache``), NEW
-    ``Model.decode`` steps' logits and tokens, and the final cache."""
+    prompt length its greedy serving run of SERVE_B rows and of the first
+    row alone: the prefill's logits and cache, the cache seeded as its
+    engine seeds it (``Engine._seed_cache``), NEW ``Model.decode`` steps'
+    logits and tokens, and the final cache."""
     import jax
     import jax.numpy as jnp
     import repro.configs as JC
@@ -232,18 +251,21 @@ def reference():
     loss = float(model.loss(params, {k: jnp.asarray(v) for k, v in batch.items()}))
     prefill, dec = jax.jit(model.prefill), jax.jit(model.decode)
     serve = {}
-    for P in PROMPTS:
-        T = P + NEW + 2
-        pcache, logits = prefill(params, {"tokens": jnp.asarray(prompts_for(jcfg.vocab, P))})
-        cache = Engine(jcfg, params)._seed_cache(pcache, SERVE_B, T, P)
-        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
-        steps = [(np.asarray(logits), np.asarray(tok))]
-        for i in range(NEW):
-            logits, cache = dec(params, cache, tok[:, None], jnp.int32(P + i))
+    for rows in (SERVE_B, 1):
+        for P in PROMPTS:
+            T = P + NEW + 2
+            pcache, logits = prefill(params, {"tokens": jnp.asarray(
+                prompts_for(jcfg.vocab, P, rows))})
+            cache = Engine(jcfg, params)._seed_cache(pcache, rows, T, P)
             tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
-            steps.append((np.asarray(logits), np.asarray(tok)))
-        serve[P] = dict(steps=steps, prefill=[np.asarray(x) for x in jax.tree.leaves(pcache)],
-                        decode=[np.asarray(x) for x in jax.tree.leaves(cache)])
+            steps = [(np.asarray(logits), np.asarray(tok))]
+            for i in range(NEW):
+                logits, cache = dec(params, cache, tok[:, None], jnp.int32(P + i))
+                tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+                steps.append((np.asarray(logits), np.asarray(tok)))
+            serve[rows, P] = dict(steps=steps,
+                                  prefill=[np.asarray(x) for x in jax.tree.leaves(pcache)],
+                                  decode=[np.asarray(x) for x in jax.tree.leaves(cache)])
     return params, loss, serve
 
 
@@ -284,7 +306,7 @@ def _slice_err(local, spec, full, coords, shape) -> float:
 
 
 @pytest.mark.parametrize("P", PROMPTS)
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(ONE_ROW))
 def test_ssm_sharded_serve_matches_reference(ranks, reference, name, P):
     """Prefill, ``seed_cache`` and NEW greedy decode steps on the mesh, the
     steps planned: on every rank the tokens equal the reference's, the
@@ -294,9 +316,11 @@ def test_ssm_sharded_serve_matches_reference(ranks, reference, name, P):
     reference's within 1e-6 beyond the one-device caches' own distance
     from them.  That distance is float32 rounding (XLA's products and
     PyTorch's on the CPU; up to 0.93e-6 on mamba2 smoke's caches), so the
-    reference's caches alone cannot hold the shards to 1e-6."""
-    shape = CASES[name][0]
-    ref = reference[2][P]
+    reference's caches alone cannot hold the shards to 1e-6.  The one-row
+    case's decode plan keeps the weights on their ``data`` shards, the
+    others' on none."""
+    shape = {**CASES, **ONE_ROW}[name][0]
+    ref = reference[2][1 if name in ONE_ROW else SERVE_B, P]
     one = ranks[0][name]["serve"][P]["one_device"]
     floor = {kind: max(rel(a, b) for a, b in zip(one[kind], ref[kind]))
              for kind in ("prefill", "decode")}
@@ -304,6 +328,7 @@ def test_ssm_sharded_serve_matches_reference(ranks, reference, name, P):
     for r in ranks:
         got = r[name]["serve"][P]
         assert got["planned"]
+        assert got["stationary"] == (("data",) if name in ONE_ROW else ())
         for (lg, tok), (wl, wt) in zip(got["steps"], ref["steps"]):
             assert tuple(lg.shape) == wl.shape
             assert np.array_equal(tok.numpy(), wt)
@@ -434,7 +459,9 @@ def _smoke_plan(cell_name: str, profile: str, mesh_kind: str = "single") -> dict
     ``profile``, by hand from the resolved specs: the mesh's axis sizes, the
     stream's rows and sequence, the vocabulary's axes, ``in_proj``'s
     columns', the heads' and the rows' and conv channels' of the cache (the
-    decode cache of the cell's batch)."""
+    decode cache of the cell's batch), a decode step's ``stationary`` axes
+    (the weights' embed axes its rows leave whole: ``data`` for one row),
+    and the ranks each splits over (``parts``, for the hand FLOP counts)."""
     import repro_torch.configs as C
     from repro_torch.launch.dryrun import mesh_shape
     from repro_torch.models import build
@@ -451,10 +478,17 @@ def _smoke_plan(cell_name: str, profile: str, mesh_kind: str = "single") -> dict
     cache = model.cache_specs(cell.global_batch, cell.seq_len)["pos0"]
     ssm = spec(cache["ssm"].shape, cache["ssm"].logical)
     conv = spec(cache["conv"].shape, cache["conv"].logical)
-    return dict(cfg=cfg, cell=cell, sizes=sizes, batch=stream[0], seq=stream[1],
-                vocab=spec((cfg.vocab, cfg.d_model), ("vocab", "embed_d"))[0],
-                columns=spec((cfg.d_model, C_), ("embed", "ssm_inner"))[1],
-                heads=ssm[2], cache_batch=ssm[1], conv=conv[3])
+    table = spec((cfg.vocab, cfg.d_model), ("vocab", "embed_d"))
+    proj = spec((cfg.d_model, C_), ("embed", "ssm_inner"))
+    stationary = tuple(ax for ax in sizes if ax in table[1] + proj[0] and ax not in stream[0]) \
+        if cell.kind == "decode" else ()
+    plan = dict(cfg=cfg, cell=cell, sizes=sizes, batch=stream[0], seq=stream[1],
+                vocab=table[0], columns=proj[1], heads=ssm[2], cache_batch=ssm[1], conv=conv[3],
+                stationary=stationary)
+    parts = {k: _n(plan[k], plan) for k in ("batch", "seq", "vocab", "cache_batch", "conv")}
+    parts.update(ssm_inner=_n(plan["columns"], plan), ssm_heads=_n(plan["heads"], plan),
+                 embed=_n(plan["stationary"], plan))
+    return dict(plan, parts=parts)
 
 
 def _n(axes, plan: dict) -> int:
@@ -475,17 +509,19 @@ def test_ssm_trace_flops_hand_count(traces, cell, profile):
     assert tuple(rec["plan"]["heads"]) == plan["heads"]
     assert tuple(rec["plan"]["columns"]) == plan["columns"]
     c = plan["cell"]
-    parts = {k: _n(plan[k], plan) for k in ("batch", "seq", "vocab", "cache_batch")}
-    parts.update(ssm_inner=_n(plan["columns"], plan), ssm_heads=_n(plan["heads"], plan))
     hand = dict(train=hand_train_flops, prefill=hand_prefill_flops,
                 decode=hand_decode_flops)[c.kind]
-    assert rec["flops"] == hand(plan["cfg"], c.global_batch, c.seq_len, parts)
+    assert rec["flops"] == hand(plan["cfg"], c.global_batch, c.seq_len, plan["parts"])
 
 
 def _ssm_keep(path: str, p, spec, plan: dict) -> tuple[str, ...]:
     """The mesh axes a parameter's working layout keeps under ``plan``:
     none for the SSM's conv weights (whole), the heads' axes for its norm's
-    and ``out_proj``'s ``ssm_inner`` rows, else all but the embed axes."""
+    and ``out_proj``'s ``ssm_inner`` rows, else all but the embed axes (on
+    a one-row decode plan ``test_torch_analysis._stationary_keep``)."""
+    if plan["stationary"]:
+        from test_torch_analysis import _stationary_keep
+        return _stationary_keep(path, p, spec, plan)
     name = path.rsplit("/", 1)[-1]
     if "ssm_inner" in p.logical and name in ("conv_w", "conv_b"):
         return ()
@@ -523,16 +559,21 @@ def _hand_ssm_collectives(cell_name: str, mesh_kind: str = "single") -> tuple[in
       the recompute again but for the reduce-scatter, then each one's
       adjoint (the exchange's returns what rank 0 sent); decode: the
       one-token row and the conv history's rows gathered, the norm's sum
-      and ``out_proj``'s partial sums summed;
+      and ``out_proj``'s partial sums summed (one row, whose plan keeps the
+      weights on their embed shards:
+      ``test_torch_analysis._stationary_decode_wire``);
     * train: the loss as the dense step's (``test_torch_analysis``), the
       label counts, the loss, each working gradient into its layout (a
       block's a period at a time) and the squared norms; serving: the last token over the sequence and the
       logits over the vocabulary, then the batch."""
     from repro_torch.models.common import resolve_spec
-    from test_torch_analysis import (SMOKE_MESH, _per_period, _periods, _pspec_paths, _Stream,
-                                     _tp_reduction, _weight_gathers)
+    from test_torch_analysis import (SMOKE_MESH, _count, _per_period, _periods, _pspec_paths,
+                                     _stationary_decode_wire, _Stream, _tp_reduction,
+                                     _weight_gathers)
     from repro_torch.models import build
     plan = _smoke_plan(cell_name, "baseline", mesh_kind)
+    if plan["stationary"]:
+        return _count(_stationary_decode_wire(plan))
     sizes = plan["sizes"]
     cfg, cell = plan["cfg"], plan["cell"]
     B, S, D, V = cell.global_batch, cell.seq_len, cfg.d_model, cfg.vocab
