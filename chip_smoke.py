@@ -25,8 +25,10 @@ Phases (any failure exits non-zero; nothing is caught):
   3. plan the paper's largest graph (RGG "high", n = 16384, P = 64) through
      ``PlanCache(device="cuda")``: bit-equal to the CPU path, a partial
      re-sweep after a change to the deepest levels' costs, and one realized
-     CEFT-CPOP schedule, validated; a steady sweep launches ``seg_level``
-     once per segment-layout level and nothing else of the kernels;
+     CEFT-CPOP schedule, validated (the realize, host numpy, in a process of
+     its own beside phases 4-g, read after g); a steady sweep launches
+     ``seg_level`` once per segment-layout level and nothing else of the
+     kernels;
   4. batched re-planning (B = 8) bit-equal to 8 single sweeps;
   5. the dense layout (star fan-in) and the segment fallback (heavy-tailed
      fan-in), the padded sweep, and the paper's Algorithm 1 on a small graph;
@@ -51,7 +53,8 @@ Phases (any failure exits non-zero; nothing is caught):
      tripped and the path moved off it, nominal and degraded planes both on
      the card;
   d. the seeded chaos soak on 4 subprocess workers: every request completes
-     exactly once, and no worker child starts CUDA;
+     exactly once, and no worker child starts CUDA (in a process of its own,
+     its router on the card, beside phases e-g, read after g);
   e. the LM serving path at granite-3-8b's published widths: e1, at 2 of its
      40 layers, the engine on the card against the same weights on the CPU
      (float32 compute with TF32 off: logits within 1e-4 relative and 16
@@ -206,8 +209,10 @@ Phases (any failure exits non-zero; nothing is caught):
      card's name and power limit;
   i. the analysis tools on the card's own runs, read after every timed
      phase (every trace runs in a process of its own at low priority,
-     started before phase x): i1, ``launch.dryrun``'s trace of g2's exact
-     cell (minicpm-2b as
+     queued at the check's start beside the serial chain of phases 1-h, the
+     longest first, at most the host's cores less two at once, each on
+     host fake tensors but i1's, which fakes CUDA tensors): i1,
+     ``launch.dryrun``'s trace of g2's exact cell (minicpm-2b as
      published, (B, S) = (2, 4096), float32 weights and moments) on a
      one-rank fake mesh: the predicted per-device argument + temp bytes
      within 15 % of g2's measured peak, its product FLOPs equal to the hand
@@ -286,7 +291,10 @@ Phases (any failure exits non-zero; nothing is caught):
      ``seg_level``, ``edge_relax``, the superstep and ``minplus`` the
      instruction-issue floor at the card's largest SM clock (``edge_relax``'s
      at the instructions a candidate that its class loop really has, read
-     from the SASS of the built library by ``cuobjdump``).
+     from the SASS of the built library by ``cuobjdump``); then the chain
+     line: each phase's own seconds, where the serial chain (phases 1-h) and
+     the trace chain (phase i's traces) end, ``os.cpu_count()``, each
+     trace's seconds and the whole check's margin to its 1200 s limit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the card's name and power limit, and the one before that the kernel report.
@@ -307,11 +315,13 @@ import itertools
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -662,8 +672,8 @@ I4_TEMP_OVER_REFERENCE = 2.0
 I4_COLLECTIVE_OVER_REFERENCE = {"decode_32k": 1.5, "prefill_32k": 1.0}
 I4_GATHERED_DECODE = dict(temp=1_429_351_793_152, collective=765_624_156_672, flops=4.84e12)
 # i5 the MoE family's production cells on the same fleet, each through the
-# dry-run's command line in a process of its own, started (at low priority)
-# when phase h starts and read in phase i: (arch, cell, mesh kind, profile,
+# dry-run's command line in a process of its own, queued (at low priority)
+# at the check's start and read in phase i: (arch, cell, mesh kind, profile,
 # layers: 0 as published); the train cells trace whole in 80-130 s on a
 # CPU, the prefill cell is cut to 4 of its 40 layers (the whole depth
 # traces for about 20 minutes; PERF.md records that CPU run), its
@@ -722,8 +732,8 @@ I5_BEFORE = {
 I5_COLLECTIVE_OVER_REFERENCE = {"train": 1.0, "prefill": 1.0, "decode": 1.5}
 # i6 the SSM family's production cells on the same fleet, mamba2-2.7b as
 # published on the (16, 16) mesh under the baseline profile, each through
-# the dry-run's command line in a process of its own started (at low
-# priority) before phase x and read in phase i.  Beside the reference's XLA
+# the dry-run's command line in a process of its own queued (at low
+# priority) at the check's start and read in phase i.  Beside the reference's XLA
 # compile counts of each cell on 256 fake host devices (python -m
 # repro.launch.dryrun --arch mamba2-2.7b --cell <cell> --mesh single, on the
 # CPU, jax 0.9.0): argument, temp and output bytes a device, collective
@@ -763,8 +773,8 @@ I6_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0, "decode_32k
 I_LONG_UNDER_PARENT = 50
 I_LONG_PARENT_COLLECTIVE = {"mamba2-2.7b": 586_402_304, "jamba-v0.1-52b": 6_507_602_912}
 # i7 the hybrid's and the VLM's production cells on the same fleet, each
-# through the dry-run's command line in a process of its own started (at low
-# priority) before phase x and read in phase i: (arch, cell, layers: 0 as
+# through the dry-run's command line in a process of its own queued (at low
+# priority) at the check's start and read in phase i: (arch, cell, layers: 0 as
 # published); jamba-v0.1-52b's four cells and qwen2-vl-72b's train_4k and
 # decode_32k as published, its prefill_32k cut to 8 of its 80 layers (the
 # share of i4's and i5's cuts: the whole depth traces for far longer than
@@ -827,7 +837,7 @@ I6_TRAIN_FLOPS_UNDER_BEFORE = 12
 # i8 the encoder-decoder's production cells on the same fleet: whisper-tiny's
 # train_4k, prefill_32k and decode_32k as published on (16, 16) under the
 # baseline profile, each through the dry-run's command line in a process of
-# its own started (at low priority) before phase x and read in phase i.  Beside
+# its own queued (at low priority) at the check's start and read in phase i.  Beside
 # the reference's XLA compile counts of each cell on 256 fake host devices
 # (python -m repro.launch.dryrun --arch whisper-tiny --cell <cell> --mesh
 # single, on the CPU, jax 0.9.0): argument, temp and output bytes a device,
@@ -906,8 +916,49 @@ I_PARENT_TEMP = {
     ("whisper-tiny", "decode_32k", "single"): 142_868_160,
 }
 
+# the limit the whole check must end within, and each path's phase label in the
+# chain line (``counted``)
+CHECK_LIMIT_S = 1200
+PHASE_OF = {"relax_bf16_path": "2 bf16", "planning_path": "3-6", "superstep_path": "a",
+            "minplus_path": "b", "router_path": "c", "lm_path": "e",
+            "ssm_path": "f", "training_path": "g", "examples_path": "x", "distributed_path": "h",
+            "analysis_phase": "i"}
+# phase 3's realize and phase d run each in a process of its own beside the
+# serial chain, read after g
+REALIZE_TIMEOUT_S, CHAOS_TIMEOUT_S = 600, 600
+# phase i's traces run beside the serial chain from the check's start, each
+# on one core at priority 19, on the host's cores less TRACE_CORES_HELD (the
+# serial chain's process and phase 3's realize), the longest first by their
+# CPU seconds on an H100 machine's host, each alone on a core
+# (scripts/trace_times.py, 8 at once on its 8 cores, nothing else running)
+TRACE_CORES_HELD = 2
+TRACE_COST_S = {
+    "i1": 131.2, ("granite-3-8b", "train_4k", "single"): 137.2,
+    ("granite-3-8b", "decode_32k", "single"): 39.2,
+    ("granite-3-8b", "prefill_32k", "single"): 153.5,
+    ("dbrx-132b", "decode_32k", "single"): 41.2, ("mixtral-8x22b", "decode_32k", "moe"): 45.4,
+    ("dbrx-132b", "train_4k", "single"): 146.1, ("mixtral-8x22b", "train_4k", "moe"): 199.2,
+    ("mixtral-8x22b", "train_4k", "single"): 187.2, ("dbrx-132b", "prefill_32k", "single"): 145.5,
+    ("mamba2-2.7b", "train_4k", "single"): 96.2, ("mamba2-2.7b", "prefill_32k", "single"): 98.1,
+    ("mamba2-2.7b", "decode_32k", "single"): 34.9, ("mamba2-2.7b", "long_500k", "single"): 34.7,
+    ("jamba-v0.1-52b", "train_4k", "single"): 78.6,
+    ("jamba-v0.1-52b", "prefill_32k", "single"): 175.4,
+    ("jamba-v0.1-52b", "decode_32k", "single"): 29.0,
+    ("jamba-v0.1-52b", "long_500k", "single"): 29.0,
+    ("qwen2-vl-72b", "train_4k", "single"): 222.1, ("qwen2-vl-72b", "decode_32k", "single"): 39.2,
+    ("qwen2-vl-72b", "prefill_32k", "single"): 255.5,
+    ("whisper-tiny", "train_4k", "single"): 31.9, ("whisper-tiny", "prefill_32k", "single"): 125.3,
+    ("whisper-tiny", "decode_32k", "single"): 18.6,
+}
+
 
 _T0 = time.perf_counter()
+# each phase's (start, end) in seconds since the check began, for the chain line
+SPANS: dict[str, tuple[float, float]] = {}
+# processes the check starts outside phase i's queue, and groups of spawned
+# ranks, killed if it stops early
+CHILDREN: list[subprocess.Popen] = []
+RANKS: list = []
 
 
 def log(*args):
@@ -1250,16 +1301,65 @@ def plan_large(device):
     same_result(res2, ct.ceft_torch_csr(g, comp2, m, device=device),
                 "partial re-sweep vs full sweep")
 
+    realize = start_realize(g, comp, m, res)
+    log(f"phase 3: plan first {first_s:.4f} s, steady sweep "
+        f"{sorted(steady)[2] * 1e3:.3f} ms (median of 5), partial {partial_s:.4f} s, "
+        f"cpu-path plan {cpu_s:.3f} s, cpl {res.cpl!r}, runs {spans}; the CEFT-CPOP "
+        f"realize in a process of its own")
+    return g, comp, m, inputs, realize
+
+
+def realize_large(path: str) -> None:
+    """Phase 3's realize in a process of its own (``start_realize``): the
+    CEFT-CPOP schedule of the pickled (graph, costs, machine, CEFT result)
+    at ``path``, validated; its seconds and makespan written beside it."""
+    g, comp, m, res = pickle.loads(Path(path).read_bytes())
     t = time.perf_counter()
     plan = planners.realize("ceft_cpop", g, comp, m, res)
     realize_s = time.perf_counter() - t
     validate_schedule(plan.schedule, g, comp, m)
-    check(plan.makespan >= res.cpl * (1 - 1e-6), "makespan below the critical path")
-    log(f"phase 3: plan first {first_s:.4f} s, steady sweep "
-        f"{sorted(steady)[2] * 1e3:.3f} ms (median of 5), partial {partial_s:.4f} s, "
-        f"cpu-path plan {cpu_s:.3f} s, realize {realize_s:.3f} s, cpl {res.cpl!r}, "
-        f"makespan {plan.makespan!r}, runs {spans}")
-    return g, comp, m, inputs
+    Path(path).with_suffix(".json").write_text(json.dumps(dict(
+        realize_s=realize_s, makespan=plan.makespan, cpl=res.cpl)))
+
+
+def start_realize(g, comp, m, res) -> dict:
+    """Phase 3's realize, host numpy, off the serial chain: ``realize_large``
+    in a process of its own, started now and read by ``finish_realize``."""
+    out = Path(tempfile.mkdtemp())
+    path = out / "realize.pkl"
+    path.write_bytes(pickle.dumps((g, comp, m, res)))
+    root = Path(__file__).resolve().parent
+    with open(out / "realize.log", "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.realize_large(sys.argv[1])",
+             str(path)], cwd=root, stdout=log_file, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    CHILDREN.append(proc)
+    return dict(proc=proc, path=path, started_s=time.perf_counter() - _T0, wall=time.time())
+
+
+def finish_realize(realize: dict) -> dict:
+    """Phase 3's realize, read: the process's exit (its schedule valid), the
+    makespan at least the critical path."""
+    proc, path = realize["proc"], realize["path"]
+    try:
+        proc.wait(timeout=REALIZE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = path.with_name("realize.log").read_text()
+    check(proc.returncode == 0, f"phase 3's realize exited with {proc.returncode}: {text[-4000:]}")
+    rec = json.loads(path.with_suffix(".json").read_text())
+    check(rec["makespan"] >= rec["cpl"] * (1 - 1e-6), "makespan below the critical path")
+    ended_s = realize["started_s"] + path.with_suffix(".json").stat().st_mtime - realize["wall"]
+    rec.update(started_s=realize["started_s"], ended_s=ended_s, read_s=time.perf_counter() - _T0)
+    SPANS["3 realize (own process)"] = (rec["started_s"], ended_s)
+    log(f"phase 3: realize {rec['realize_s']:.3f} s in a process of its own (started at "
+        f"{rec['started_s']:.1f} s, read at {rec['read_s']:.1f} s), its schedule valid, cpl "
+        f"{rec['cpl']!r}, makespan {rec['makespan']!r}")
+    shutil.rmtree(path.parent, ignore_errors=True)
+    return rec
 
 
 def batched(device, g, comp, m):
@@ -1677,10 +1777,57 @@ def chaos_soak(device) -> dict:
     check(router.stats["hedges"] <= router.stats["overdue_cp"], "hedges past overdue")
     fired = {k: inj.stats[k] for k in KINDS}
     check(sum(fired.values()) >= 3, f"the soak fired {fired}")
-    log(f"phase d: chaos soak seed 7 on 4 subprocess workers: {len(rids)} requests "
-        f"exactly once in {soak_s:.3f} s; faults {fired}; pool {pool.stats}; nvidia-smi "
-        f"compute apps {apps}")
-    return dict(seconds=soak_s, faults=fired)
+    line = (f"phase d: chaos soak seed 7 on 4 subprocess workers: {len(rids)} requests "
+            f"exactly once in {soak_s:.3f} s; faults {fired}; pool {pool.stats}; nvidia-smi "
+            f"compute apps {apps}")
+    log(line)
+    return dict(seconds=soak_s, faults=fired, line=line)
+
+
+def chaos_process(path: str) -> None:
+    """Phase d in a process of its own (``start_chaos``): the soak with
+    every launch count set to 0 just before it; its result, the counts read
+    just after it and its log line written to ``path``."""
+    ops.reset_launches()
+    out = chaos_soak("cuda")
+    Path(path).write_text(json.dumps(dict(out, launches=dict(ops.LAUNCHES))))
+
+
+def start_chaos() -> dict:
+    """Phase d off the serial chain: ``chaos_process`` in a process of its
+    own (its router plans on the card; its workers wait on injected faults
+    and timeouts, not on the card), started after phase c and read by
+    ``finish_chaos`` after phase g."""
+    out = Path(tempfile.mkdtemp())
+    root = Path(__file__).resolve().parent
+    with open(out / "chaos.log", "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.chaos_process(sys.argv[1])",
+             str(out / "chaos.json")], cwd=root, stdout=log_file, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    CHILDREN.append(proc)
+    return dict(proc=proc, dir=out, started_s=time.perf_counter() - _T0, wall=time.time())
+
+
+def finish_chaos(chaos: dict) -> tuple[dict, dict]:
+    """Phase d, read: the process's exit (every check of the soak held) and
+    its result and launch counts."""
+    proc, out = chaos["proc"], chaos["dir"]
+    try:
+        proc.wait(timeout=CHAOS_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = (out / "chaos.log").read_text()
+    check(proc.returncode == 0, f"phase d exited with {proc.returncode}: {text[-4000:]}")
+    rec = json.loads((out / "chaos.json").read_text())
+    ended_s = chaos["started_s"] + (out / "chaos.json").stat().st_mtime - chaos["wall"]
+    SPANS["d (own process)"] = (chaos["started_s"], ended_s)
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"{rec.pop('line')} (in a process of its own from {chaos['started_s']:.1f} s to "
+        f"{ended_s:.1f} s, read at {time.perf_counter() - _T0:.1f} s)")
+    return rec, rec.pop("launches")
 
 
 def rel_err(got, want) -> float:
@@ -2566,24 +2713,38 @@ def meshed_full_width(device, g2: dict) -> dict:
     return out
 
 
-def spawn_ranks(fn, world: int, tmp: str, *args, timeout: float = 300.0) -> list:
-    """Run ``fn(rank, world, init_method, tmp, *args)`` on ``world`` spawned
-    processes with a deadline (every process killed past it); returns each
-    rank's result, read from ``tmp/rank{r}.pt``.  The spawn's wall time is
-    in the environment the ranks inherit (``joined`` reads it)."""
+def start_ranks(fn, world: int, tmp: str, *args):
+    """Start ``fn(rank, world, init_method, tmp, *args)`` on ``world``
+    spawned processes (killed by ``main`` if the check stops first).  The
+    spawn's wall time is in the environment the ranks inherit (``joined``
+    reads it)."""
     os.environ["CHIP_SMOKE_SPAWNED_AT"] = repr(time.time())
     ctx = torch.multiprocessing.start_processes(
         fn, args=(world, f"file://{tmp}/rendezvous", tmp, *args), nprocs=world, join=False,
         start_method="spawn")
+    RANKS.append(ctx)
+    return ctx
+
+
+def finish_ranks(ctx, what: str, world: int, tmp: str, timeout: float) -> list:
+    """Wait for ``start_ranks``' processes with a deadline (every process
+    killed past it); returns each rank's result, read from
+    ``tmp/rank{r}.pt``."""
     deadline = time.monotonic() + timeout
     try:
         while not ctx.join(timeout=5):
-            check(time.monotonic() < deadline, f"{fn.__name__} ran past {timeout} s")
+            check(time.monotonic() < deadline, f"{what} ran past {timeout} s")
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
                 proc.kill()
     return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def spawn_ranks(fn, world: int, tmp: str, *args, timeout: float = 300.0) -> list:
+    """Run ``fn(rank, world, init_method, tmp, *args)`` on ``world`` spawned
+    processes with a deadline (``start_ranks``, ``finish_ranks``)."""
+    return finish_ranks(start_ranks(fn, world, tmp, *args), fn.__name__, world, tmp, timeout)
 
 
 def joined(rank: int, world: int, init: str, device) -> float:
@@ -3596,10 +3757,16 @@ def group_work(name: str, device) -> dict:
 
 def group_rank(rank, world, init, tmp, device, phases):
     """One rank of the group on the card: it joins once (its spawn-to-first-
-    collective seconds kept), then runs each of ``phases`` in turn, timed
+    collective seconds kept) and waits for ``group_phases`` to free the card
+    (the file ``tmp/go``), then runs each of ``phases`` in turn, timed
     between barriers, its memory freed between them."""
     out = dict(startup_s=joined(rank, world, init, device), backend=dist.get_backend(),
                world=dist.get_world_size(), seconds={})
+    go, deadline = Path(tmp) / "go", time.monotonic() + GROUP_TIMEOUT_S
+    while not go.exists():
+        check(time.monotonic() < deadline, f"rank {rank}: no go in {GROUP_TIMEOUT_S} s")
+        time.sleep(0.05)
+    dist.barrier()
     for name in phases:
         t = time.perf_counter()
         out[name] = group_work(name, device)
@@ -3611,13 +3778,24 @@ def group_rank(rank, world, init, tmp, device, phases):
     dist.destroy_process_group()
 
 
-def group_phases(device) -> dict:
-    """Phases h2, h5, h7-h19 on one group of GROUP_WORLD gloo ranks spawned
-    on the card: the one-device references first, each run and freed in
-    this process (so the ranks have the card), then the ranks run every
-    phase in turn; each phase is checked against its reference after."""
+def start_group(device) -> dict:
+    """The group of GROUP_WORLD gloo ranks for phases h2, h5 and h7-h19,
+    spawned ahead of phase h (at phase x) so that its start and its
+    rendezvous overlap the phases before it; its ranks wait for
+    ``group_phases``."""
+    tmp = tempfile.mkdtemp()
+    return dict(tmp=tmp, spawned=time.monotonic(),
+                ctx=start_ranks(group_rank, GROUP_WORLD, tmp, device, GROUP_PHASES))
+
+
+def group_phases(device, group: dict) -> dict:
+    """Phases h2, h5, h7-h19 on the group ``start_group`` spawned on the
+    card: the one-device references first, each run and freed in this
+    process (so the ranks have the card), then the ranks run every phase in
+    turn; each phase is checked against its reference after."""
     card = smi("name,power.limit")
     refs, ref_s = {}, {}
+    t_refs = time.perf_counter() - _T0
     for name in GROUP_PHASES:
         t = time.perf_counter()
         if name == "h2":
@@ -3633,19 +3811,25 @@ def group_phases(device) -> dict:
         else:
             refs[name] = serve_one_device(device, name)
         ref_s[name] = time.perf_counter() - t
+    SPANS["h refs"] = (t_refs, time.perf_counter() - _T0)
     log(f"phase h: the one-device references of {list(GROUP_PHASES)} in "
         f"{sum(ref_s.values()):.1f} s: {({k: round(v, 1) for k, v in ref_s.items()})}")
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_ranks(group_rank, GROUP_WORLD, tmp, device, GROUP_PHASES,
-                            timeout=GROUP_TIMEOUT_S)
+    try:
+        (Path(group["tmp"]) / "go").touch()
+        # the group's GROUP_TIMEOUT_S counts from its spawn, its wait included
+        ranks = finish_ranks(group["ctx"], "group_rank", GROUP_WORLD, group["tmp"],
+                             GROUP_TIMEOUT_S - (time.monotonic() - group["spawned"]))
+    finally:
+        shutil.rmtree(group["tmp"], ignore_errors=True)
     wall = time.perf_counter() - t
+    SPANS["h ranks"] = (t - _T0, t - _T0 + wall)
     seconds = {k: max(r["seconds"][k] for r in ranks) for k in GROUP_PHASES}
     startup = [r["startup_s"] for r in ranks]
     log(f"phase h: one group of {GROUP_WORLD} {ranks[0]['backend']} ranks on the card ran "
-        f"{list(GROUP_PHASES)} in {wall:.1f} s: spawn to first collective by rank "
-        f"{[round(x, 2) for x in startup]} s, each phase's seconds "
+        f"{list(GROUP_PHASES)} in {wall:.1f} s: spawn (at phase x) to first collective by "
+        f"rank {[round(x, 2) for x in startup]} s, each phase's seconds "
         f"{({k: round(v, 1) for k, v in seconds.items()})}")
     out = {}
     for name in GROUP_PHASES:
@@ -3682,42 +3866,137 @@ def mean_ms(row: dict) -> list:
     return [round(sum(t) / len(t), 2) for t in row["gloo_on_one_card_decode_ms"]]
 
 
-def distributed_path(device, g2: dict) -> dict:
+def distributed_path(device, g2: dict, group: dict) -> dict:
     """Phase h: the distribution substrate on the card (h1 in this
     process's one-rank NCCL world, which h4 reuses through
     ``make_test_mesh`` and h6 through a mesh of its own; h3 in a spawned
-    gloo world of 2; h2, h5 and h7-h19 in one spawned gloo group of 4)."""
+    gloo world of 2; h2, h5 and h7-h19 in one spawned gloo group of 4,
+    ``group``)."""
     init_group("nccl")
     try:
-        h1 = meshed_full_width(device, g2)
-        h3 = compressed_psum_phase(device)
-        h4 = trainer_loop(device, "h4", make_test_mesh)
+        h1 = spanned("h1", meshed_full_width, device, g2)
+        h3 = spanned("h3", compressed_psum_phase, device)
+        h4 = spanned("h4", trainer_loop, device, "h4", make_test_mesh)
         h4.update(backend=dist.get_backend(), world=dist.get_world_size())
         log(f"phase h4: the meshed Trainer ran on backend {h4['backend']}, world "
             f"{h4['world']}, mesh {h4['mesh']}")
-        h6 = encdec_phase(device)
-        group = group_phases(device)
+        h6 = spanned("h6", encdec_phase, device)
+        group = group_phases(device, group)
     finally:
         dist.destroy_process_group()
     return dict(h1=h1, h3=h3, h4=h4, h6=h6, **group)
 
 
+class Trace:
+    """One phase i trace: a command whose process ``TraceQueue`` starts (at
+    the lowest priority, 19, one thread for the host's matrix code) when a
+    slot frees;
+    ``wait``, ``poll``, ``kill`` and ``returncode`` as a
+    ``subprocess.Popen``'s (a trace killed before it started returns -9)."""
+
+    def __init__(self, key, cmd: list, log_path: Path, cost_s: float):
+        self.key, self.cmd, self.log_path, self.cost_s = key, cmd, log_path, cost_s
+        self.proc: subprocess.Popen | None = None
+        self.killed = False
+        self.started_s = self.ended_s = None
+        self.done = threading.Event()
+        self.lock = threading.Lock()
+
+    def run(self) -> None:
+        root = Path(__file__).resolve().parent
+        with self.lock:
+            if self.killed:
+                return
+            self.started_s = time.perf_counter() - _T0
+            with open(self.log_path, "w") as log_file:
+                self.proc = subprocess.Popen(
+                    self.cmd, cwd=root, stdout=log_file, stderr=subprocess.STDOUT,
+                    env=dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1"),
+                    preexec_fn=lambda: os.nice(19))
+        self.proc.wait()
+        self.ended_s = time.perf_counter() - _T0
+        self.done.set()
+
+    @property
+    def returncode(self) -> int | None:
+        if self.proc is None:
+            return -9 if self.killed else None
+        return self.proc.returncode
+
+    def wait(self, timeout: float | None = None) -> int | None:
+        if not self.done.wait(timeout):
+            raise subprocess.TimeoutExpired(self.cmd, timeout)
+        return self.returncode
+
+    def poll(self) -> int | None:
+        return self.returncode if self.done.is_set() else None
+
+    def kill(self) -> None:
+        with self.lock:
+            self.killed = True
+            if self.proc is None:
+                self.done.set()
+            else:
+                self.proc.kill()
+
+
+class TraceQueue:
+    """Phase i's traces, started with the check: the longest first (by
+    ``TRACE_COST_S``), at most ``slots`` at once, the host's cores less
+    those the serial chain and phase 3's realize take (``TRACE_CORES_HELD``),
+    each on one core.  ``traces`` by key; ``summary`` once all ended."""
+
+    def __init__(self, traces: list[Trace]):
+        self.traces = {t.key: t for t in traces}
+        self.pending = sorted(traces, key=lambda t: -t.cost_s)
+        self.slots = max(1, min(len(traces), (os.cpu_count() or 1) - TRACE_CORES_HELD))
+        self.t0 = time.perf_counter()
+        self.started_s = self.t0 - _T0
+        self.lock = threading.Lock()
+        for _ in range(self.slots):
+            threading.Thread(target=self._work, daemon=True).start()
+
+    def _work(self) -> None:
+        while True:
+            with self.lock:
+                if not self.pending:
+                    return
+                trace = self.pending.pop(0)
+            trace.run()
+
+    def stop(self) -> None:
+        """Kill every trace still queued or running."""
+        with self.lock:
+            self.pending = []
+        for t in self.traces.values():
+            if t.poll() is None:
+                t.kill()
+                t.wait()
+
+    def summary(self) -> dict:
+        ended = [t.ended_s for t in self.traces.values() if t.ended_s is not None]
+        return dict(n=len(self.traces), slots=self.slots, cpu_count=os.cpu_count(),
+                    started_s=self.started_s, ended_s=max(ended) if ended else None,
+                    seconds={"/".join(k) if isinstance(k, tuple) else k:
+                             round(t.ended_s - t.started_s, 1)
+                             for k, t in self.traces.items() if t.ended_s is not None})
+
+
 def start_dryrun(out: str, cell: str, layers: int = 0, arch: str = I3_ARCH,
-                 mesh: str = I3_MESH, profile: str = "baseline",
-                 nice: int = 0) -> subprocess.Popen:
-    """A trace through the dry-run's command line (phases i3, i4 and i5):
+                 mesh: str = I3_MESH, profile: str = "baseline", key=None) -> Trace:
+    """A trace through the dry-run's command line (phases i3-i9):
     ``arch``'s ``cell`` as published (or cut to ``layers`` layers) on the
-    production ``mesh`` under ``profile``, a fake fleet of 256 ranks in a
-    process of its own (a process holds one default group) at priority
-    ``nice``, its output in ``out/<arch>__<cell>__<mesh>.log``."""
-    root = Path(__file__).resolve().parent
+    production ``mesh`` under ``profile``, a fake fleet of 256 ranks of host
+    (``--device cpu``) fake tensors in a process of its own (a process holds
+    one default group; no CUDA context), its output in
+    ``out/<arch>__<cell>__<mesh>.log``; queued under ``key`` (default:
+    ``(arch, cell, mesh)``)."""
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--cell",
-           cell, "--mesh", mesh, "--profile", profile, "--device", "cuda", "--out", out,
+           cell, "--mesh", mesh, "--profile", profile, "--device", "cpu", "--out", out,
            "--layers", str(layers)]
-    with open(Path(out) / f"{arch}__{cell}__{mesh}.log", "w") as log_file:
-        return subprocess.Popen(cmd, cwd=root, stdout=log_file, stderr=subprocess.STDOUT,
-                                env=dict(os.environ, PYTHONPATH=str(root / "src")),
-                                preexec_fn=(lambda: os.nice(nice)) if nice else None)
+    key = (arch, cell, mesh) if key is None else key
+    return Trace(key, cmd, Path(out) / f"{arch}__{cell}__{mesh}.log",
+                 TRACE_COST_S.get((arch, cell, mesh), 0.0))
 
 
 def finish_dryrun(proc: subprocess.Popen, out: str, cell: str, what: str,
@@ -3814,8 +4093,8 @@ def check_i4(rec: dict, cell_name: str, layers: int, card_bytes: int, card: str)
 
 def start_i5(out: str) -> dict:
     """Phase i5's traces, each in a process of its own at low priority."""
-    return {(arch, cell, mesh): start_dryrun(out, cell, layers, arch, mesh, profile, nice=10)
-            for arch, cell, mesh, profile, layers in I5_CELLS}
+    return [start_dryrun(out, cell, layers, arch, mesh, profile)
+            for arch, cell, mesh, profile, layers in I5_CELLS]
 
 
 def check_i5(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> dict:
@@ -3885,8 +4164,7 @@ def check_i5(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
 
 def start_i6(out: str) -> dict:
     """Phase i6's traces, each in a process of its own at low priority."""
-    return {(I6_ARCH, cell, I6_MESH): start_dryrun(out, cell, 0, I6_ARCH, I6_MESH, nice=10)
-            for cell in I6_CELLS}
+    return [start_dryrun(out, cell, 0, I6_ARCH, I6_MESH) for cell in I6_CELLS]
 
 
 def check_i6(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> dict:
@@ -4030,8 +4308,7 @@ def planned_parts(cfg, shape: dict, cell) -> dict:
 
 def start_i7(out: str) -> dict:
     """Phase i7's traces, each in a process of its own at low priority."""
-    return {(arch, cell, "single"): start_dryrun(out, cell, layers, arch, "single", nice=10)
-            for arch, cell, layers in I7_CELLS}
+    return [start_dryrun(out, cell, layers, arch, "single") for arch, cell, layers in I7_CELLS]
 
 
 def check_i7(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> dict:
@@ -4103,8 +4380,7 @@ def check_i7(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
 
 def start_i8(out: str) -> dict:
     """Phase i8's traces, each in a process of its own at low priority."""
-    return {(I8_ARCH, cell, "single"): start_dryrun(out, cell, 0, I8_ARCH, "single", nice=10)
-            for cell in I8_CELLS}
+    return [start_dryrun(out, cell, 0, I8_ARCH, "single") for cell in I8_CELLS]
 
 
 def check_i8(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> dict:
@@ -4193,7 +4469,7 @@ def traced_train_flops(cfg, B: int, S: int) -> int:
 
 def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float) -> dict:
     """Phase i, after every timed phase: the records of the traces
-    ``start_analysis`` started before phase x (``procs``, their output in
+    ``start_analysis`` queued at the check's start (``procs``, their output in
     ``out``): i1, the dry-run of g2's cell, then i2, the roofline of the
     cells g2 and e2 ran, on a one-rank fake world (this process's default
     group for i2 alone); i3, i4, i5, i6, i7 and i8."""
@@ -4245,8 +4521,8 @@ def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float)
           f"i3: {coll['collective_bytes_per_device']} collective bytes a device, above the "
           f"reference's {I3_REFERENCE_COLLECTIVE_BYTES}")
     i4 = {cell: check_i4(i4[cell], cell, layers, card_bytes, card) for cell, layers in I4_CELLS}
-    log(f"phase i4: {i4_wall:.1f} s in phase i to read i1 to i4, their traces started before "
-        f"phase x, {t3 - t0:.1f} s before")
+    log(f"phase i4: {i4_wall:.1f} s in phase i to read i1 to i4, their traces queued at the "
+        f"check's start, {t3 - t0:.1f} s before")
     i5 = check_i5(procs, out, t0, card_bytes, card)
     i6 = check_i6(procs, out, t0, card_bytes, card)
     i7 = check_i7(procs, out, t0, card_bytes, card)
@@ -4270,27 +4546,28 @@ def i1_trace(out: str, device: str = "cuda") -> None:
     (Path(out) / "i1.json").write_text(json.dumps(rec, default=float))
 
 
-def start_i1(out: str) -> subprocess.Popen:
-    """``i1_trace`` in a process of its own at low priority, its output in
-    ``out/i1.log``."""
-    root = Path(__file__).resolve().parent
-    with open(Path(out) / "i1.log", "w") as log_file:
-        return subprocess.Popen(
-            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.i1_trace(sys.argv[1])",
-             out], cwd=root, stdout=log_file, stderr=subprocess.STDOUT,
-            env=dict(os.environ, PYTHONPATH=str(root / "src")), preexec_fn=lambda: os.nice(10))
+def start_i1(out: str) -> Trace:
+    """``i1_trace`` in a process of its own, fake CUDA tensors (the one trace
+    that holds a CUDA context), its output in ``out/i1.log``."""
+    return Trace("i1", [sys.executable, "-c",
+                        "import sys, chip_smoke; chip_smoke.i1_trace(sys.argv[1])", out],
+                 Path(out) / "i1.log", TRACE_COST_S["i1"])
 
 
-def start_analysis(out: str) -> dict:
-    """Phase i's traces, each in a process of its own at low priority,
-    started before phase x: i1's, i3's, i4's, i5's, i6's, i7's and i8's."""
-    procs = {"i1": start_i1(out), "i3": start_dryrun(out, I3_CELL, nice=10)}
-    for cell, layers in I4_CELLS:
-        procs[cell] = start_dryrun(out, cell, layers, nice=10)
-    return {**procs, **start_i5(out), **start_i6(out), **start_i7(out), **start_i8(out)}
+def phase_i_traces(out: str) -> list[Trace]:
+    """Phase i's traces, their output in ``out``: i1's, i3's, i4's, i5's,
+    i6's, i7's and i8's."""
+    traces = [start_i1(out), start_dryrun(out, I3_CELL, key="i3")]
+    traces += [start_dryrun(out, cell, layers, key=cell) for cell, layers in I4_CELLS]
+    return traces + start_i5(out) + start_i6(out) + start_i7(out) + start_i8(out)
 
 
-def analysis_one_rank(device, g2: dict, e2: dict, card: str, proc: subprocess.Popen,
+def start_analysis(out: str) -> TraceQueue:
+    """Phase i's traces, queued at the check's start."""
+    return TraceQueue(phase_i_traces(out))
+
+
+def analysis_one_rank(device, g2: dict, e2: dict, card: str, proc: Trace,
                       out: str) -> tuple[dict, list]:
     """Phase i1 from its trace's record (``start_i1``), and i2 on a one-rank
     fake world."""
@@ -4725,12 +5002,43 @@ def turns(other_src: str) -> int:
     return 0
 
 
+def spanned(phase: str, fn, *args):
+    """``fn(*args)``, its (start, end) kept in ``SPANS`` under ``phase``."""
+    t = time.perf_counter() - _T0
+    out = fn(*args)
+    SPANS[phase] = (t, time.perf_counter() - _T0)
+    return out
+
+
 def counted(fn, *args):
     """Run one path with every launch count set to 0 just before it; returns
-    its result and the counts read just after it."""
+    its result and the counts read just after it (its span in ``SPANS``
+    under its phase's label, ``PHASE_OF``)."""
     ops.reset_launches()
-    out = fn(*args)
+    out = spanned(PHASE_OF[fn.__name__], fn, *args)
     return out, dict(ops.LAUNCHES)
+
+
+def chain_line(t_start: float, traces: TraceQueue) -> dict:
+    """Where the check's time went: each phase's own seconds (``SPANS``),
+    the end of the serial chain on the card (phases 1 to h) and of the trace
+    chain (phase i's traces, started with the check), the host's cores, and
+    the margin to the check's 1200 s limit."""
+    total = time.perf_counter() - t_start
+    tr = traces.summary()
+    out = dict(own_s={k: round(b - a, 1) for k, (a, b) in SPANS.items()},
+               serial_end_s=round(SPANS["h"][1], 1), trace_end_s=tr["ended_s"] and
+               round(tr["ended_s"], 1), traces=tr["n"], trace_slots=tr["slots"],
+               traces_started_s=round(tr["started_s"], 1), cpu_count=os.cpu_count(),
+               whole_s=round(total, 1), margin_s=round(CHECK_LIMIT_S - total, 1),
+               trace_s=tr["seconds"])
+    log(f"chains: each phase's own seconds {out['own_s']}; the serial chain (phases 1-h) ends "
+        f"at {out['serial_end_s']} s, the trace chain ({out['traces']} traces from "
+        f"{out['traces_started_s']} s, at most {out['trace_slots']} at once) at "
+        f"{out['trace_end_s']} s; os.cpu_count() {out['cpu_count']}; whole check "
+        f"{out['whole_s']} s, {out['margin_s']} s inside {CHECK_LIMIT_S} s; each trace's "
+        f"seconds {out['trace_s']}")
+    return out
 
 
 def main() -> int:
@@ -4743,13 +5051,33 @@ def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         return 2
-
     t_start = time.perf_counter()
+    i_dir = tempfile.mkdtemp()
+    traces = start_analysis(i_dir)
+    try:
+        return check_all(t_start, traces, i_dir)
+    finally:
+        traces.stop()
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for proc in (p for ctx in RANKS for p in ctx.processes):
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        shutil.rmtree(i_dir, ignore_errors=True)
+
+
+def check_all(t_start: float, traces: TraceQueue, i_dir: str) -> int:
+    """Every phase in turn on the card (the serial chain), phase i's traces
+    running beside it from the start (``traces``, their output in
+    ``i_dir``); then the chain line and the report."""
     device = "cuda"
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
-    ops.build_all()
+    spanned("1", ops.build_all)
     log(f"phase 1: kernels built and loaded in {time.perf_counter() - t:.3f} s")
     usage = ops.resource_usage()
     for source, entries in usage.items():
@@ -4757,7 +5085,7 @@ def main() -> int:
             log(f"phase 1: ptxas {source}.cu {u['function']}: {u.get('registers')} registers, "
                 f"{u.get('smem')} bytes static smem, {u.get('stack')} bytes stack, "
                 f"{u.get('spill_stores')} / {u.get('spill_loads')} bytes spill stores / loads")
-    errs = compare_kernels(device)
+    errs = spanned("2", compare_kernels, device)
     by_path = {}
     bf16_calls, by_path["ceft_relax_bf16"] = counted(relax_bf16_path, device)
     errs["ceft_relax_bf16"] = check_relax_bf16(bf16_calls)
@@ -4767,13 +5095,13 @@ def main() -> int:
           f"the bf16 path launched {by_path['ceft_relax_bf16']}")
 
     def planning_path():
-        g, comp, m, inputs = plan_large(device)
+        g, comp, m, inputs, realize = plan_large(device)
         batched(device, g, comp, m)
         layouts(device)
         straggler(device)
-        return g, inputs
+        return g, inputs, realize
 
-    (g, inputs), by_path["planning"] = counted(planning_path)
+    (g, inputs, realize), by_path["planning"] = counted(planning_path)
     log(f"planning path launches: {by_path['planning']}")
     check(by_path["planning"]["seg_level"] > 0 and by_path["planning"]["ceft_relax"] > 0,
           f"a kernel of the planning path never launched: {by_path['planning']}")
@@ -4791,7 +5119,7 @@ def main() -> int:
           and by_path["run_tables"]["edge_relax"] > 0 and by_path["minplus"]["minplus"] > 0,
           f"a standalone kernel never launched: {by_path['run_tables']} {by_path['minplus']}")
     _, by_path["router"] = counted(router_path, device)
-    _, by_path["chaos"] = counted(chaos_soak, device)
+    chaos = start_chaos()
     lm, by_path["lm_serving"] = counted(lm_path, device)
     _, by_path["lm_ssm"] = counted(ssm_path, device)
     train, by_path["training"] = counted(training_path, device)
@@ -4801,31 +5129,24 @@ def main() -> int:
           f"less than one re-plan's {replan_dense} dense levels")
     log(f"training path launches: {by_path['training']} (a re-plan of the g2 layer DAG "
         f"sweeps {replan_dense} dense levels)")
+    train["realize"] = finish_realize(realize)
+    _, by_path["chaos"] = finish_chaos(chaos)
     print(json.dumps({"training": train}), flush=True)
-    i_dir = tempfile.mkdtemp()
-    i_t0 = time.perf_counter()
-    i_procs = start_analysis(i_dir)
-    try:
-        examples, by_path["examples"] = counted(examples_path, device)
-        check(by_path["examples"]["ceft_relax"] > 0,
-              f"the examples launched no ceft_relax: {by_path['examples']}")
-        log(f"examples path launches: {by_path['examples']} (ceft_relax: x2's and x4's "
-            f"straggler re-plans)")
-        print(json.dumps({"examples": examples}, default=float), flush=True)
-        distributed, by_path["distributed"] = counted(distributed_path, device, train["g2"])
-        check(by_path["distributed"]["ceft_relax"] > 0,
-              f"the distributed path launched no ceft_relax: {by_path['distributed']}")
-        log(f"distributed path launches: {by_path['distributed']} (ceft_relax "
-            f"{by_path['distributed']['ceft_relax']}: h4's straggler re-plans)")
-        print(json.dumps({"distributed": distributed}), flush=True)
-        analysis, by_path["analysis"] = counted(analysis_phase, device, train["g2"], lm["e2"],
-                                                i_procs, i_dir, i_t0)
-    finally:
-        for proc in i_procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(i_dir, ignore_errors=True)
+    group = start_group(device)
+    examples, by_path["examples"] = counted(examples_path, device)
+    check(by_path["examples"]["ceft_relax"] > 0,
+          f"the examples launched no ceft_relax: {by_path['examples']}")
+    log(f"examples path launches: {by_path['examples']} (ceft_relax: x2's and x4's "
+        f"straggler re-plans)")
+    print(json.dumps({"examples": examples}, default=float), flush=True)
+    distributed, by_path["distributed"] = counted(distributed_path, device, train["g2"], group)
+    check(by_path["distributed"]["ceft_relax"] > 0,
+          f"the distributed path launched no ceft_relax: {by_path['distributed']}")
+    log(f"distributed path launches: {by_path['distributed']} (ceft_relax "
+        f"{by_path['distributed']['ceft_relax']}: h4's straggler re-plans)")
+    print(json.dumps({"distributed": distributed}), flush=True)
+    analysis, by_path["analysis"] = counted(analysis_phase, device, train["g2"], lm["e2"],
+                                            traces.traces, i_dir, traces.t0)
     print(json.dumps({"analysis": analysis}, default=float), flush=True)
     log(f"launches by path: {by_path}")
 
@@ -4840,7 +5161,9 @@ def main() -> int:
           f"a sweep of {n_seg} segment-layout and {n_dense} dense levels launched {per_sweep}")
     log(f"launches per full n=16384 sweep: {per_sweep} ({n_seg} segment-layout levels, "
         f"one seg_level launch each; {n_dense} dense levels)")
-    rows = kernel_report(by_path, errs, per_sweep, tables, g, inputs, device, usage)
+    rows = spanned("report", kernel_report, by_path, errs, per_sweep, tables, g, inputs, device,
+                   usage)
+    print(json.dumps({"chains": chain_line(t_start, traces)}), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     card = smi("name,power.limit")
