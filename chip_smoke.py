@@ -182,9 +182,11 @@ Phases (any failure exits non-zero; nothing is caught):
      h13; h16, the encoder-decoder's planned train step at whisper-tiny as
      published, (B, S) = (2, 4096) tokens and seeded (2, 1500, 384) frames,
      on (1, 4) baseline (the 6 heads and the vocabulary whole, 375 frames a
-     rank) and (2, 2) serve, one step (the AdamW update included) against
-     the one-device step at h5's bounds in float32 (TF32 off) and bf16;
-     h17, its sharded prefill of (4, 1000) tokens with their frames,
+     rank; each rank attends with every head of its query slice, over
+     ``model``, and over both axes under serve) and (2, 2) serve, one step
+     (the AdamW update included) against the one-device step at h5's bounds
+     in float32 (TF32 off) and bf16; h17, its sharded prefill of (4, 1000)
+     tokens with their frames,
      ``seed_cache`` into 1016 self-cache positions (the cross cache carried
      as the prefill laid it out) and 16 greedy tokens on h7's meshes,
      float32, logits within 1e-5 of the one-device steps and tokens
@@ -281,7 +283,14 @@ Phases (any failure exits non-zero; nothing is caught):
      (``I_PARENT_TEMP``: its steps gathered every period's working weights
      before the model ran, where these gather a period's where it runs; the
      long_500k cells' below the tree that gathered each period's weights
-     over ``data``);
+     over ``data``); i9, minicpm-2b's ``train_4k`` cut to 2 of its 40 layers
+     on (16, 16), whose 36 q heads do not split over the 16 ranks of
+     ``model`` (each rank attends with every head of its query slice): the
+     record's sum, temp, collective bytes and FLOPs equal to the CPU's
+     counts (``I9_CPU``) to the byte, its FLOPs to ``hand_train_flops``,
+     its argument + temp below the card's memory and below the reference's
+     whole-cell temp (80,860,100,744), beside the parent tree's
+     (``I9_PARENT``);
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -617,6 +626,12 @@ SPREAD_BOUND = ("h13", "h19-jamba")
 GROUP_PHASES = ("h2", "h5", "h7", "h8", "h10", "h11", "h12", "h13", "h14", "h15", "h16", "h17",
                 "h18", "h19-mamba2", "h19-jamba")
 GROUP_WORLD, GROUP_TIMEOUT_S = 4, 1000
+# the parent tree's seconds of the group's phases that run whisper-tiny's
+# unsplit heads (each phase's slowest rank) and of their one-device
+# references, the two phases alone on a group of 4 gloo ranks on an H100
+# 80GB HBM3 at 700 W (PERF.md, section 6)
+H_PARENT_S = {"h16": 47.5, "h17": 34.0}
+H_PARENT_REF_S = {"h16": 14.7, "h17": 0.8}
 # bytes the AdamW update moves a float32 parameter: parameter, gradient and
 # both moments read, parameter and moments written
 ADAMW_BYTES_PER_PARAM = 28
@@ -846,7 +861,8 @@ I6_TRAIN_FLOPS_UNDER_BEFORE = 12
 # serving steps through the same dry-run, torch 2.13 on the CPU: argument +
 # temp + output, temp, collective bytes a device, product FLOPs); and the
 # planned steps' counts of the same command on the CPU (the card's host, each
-# period's blocks gathered where it runs), which the card's host must print
+# period's blocks gathered where it runs, each rank attending with every head
+# of its query slice), which the card's host must print
 # to the byte.  decode_32k moves the weights where XLA moves the
 # token (Queue 1 item 14 of ROADMAP.md), so its collective bytes are held
 # below a hundredth of the gathering step's and its temp below 1 GB
@@ -874,15 +890,32 @@ I8_BEFORE = {
                        flops=3.4593e10),
 }
 I8_CPU = {
-    "train_4k": dict(total=27_703_753_128, temp=27_605_356_824, collective=2_891_531_760,
-                     flops=13_818_918_862_848),
-    "prefill_32k": dict(total=887_836_992, temp=822_726_144, collective=777_601_664,
-                        flops=14_434_749_027_840),
+    "train_4k": dict(total=4_740_720_296, temp=4_642_323_992, collective=2_980_890_096,
+                     flops=2_694_567_690_240),
+    "prefill_32k": dict(total=749_424_960, temp=684_314_112, collective=803_345_024,
+                        flops=1_107_587_667_456),
     "decode_32k": dict(total=518_386_080, temp=132_798_144, collective=114_725_888,
                        flops=536_696_832),
 }
 I8_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0}
 I8_DECODE_OVER_BEFORE, I8_DECODE_TEMP = 0.01, 1e9
+# i9 the one production cell whose q heads do not split the model axis:
+# minicpm-2b's train_4k (36 heads on 16 ranks) on the same fleet, cut to
+# I9_LAYERS of its 40 layers, through the dry-run's command line in a process
+# of its own queued at the check's start: each rank attends with every head
+# of its query slice (models/tensor_parallel.py ``q_slice_axes``).  Beside the
+# reference's XLA compile count of the whole cell on 256 fake host devices
+# (python -m repro.launch.dryrun --arch minicpm-2b --cell train_4k --mesh
+# single, on the CPU): its temp, which the cut cell's argument + temp stays
+# below, as below the card's memory; the parent tree's trace of the same cut
+# on the card's host, whose argument + temp was above the card's (I9_PARENT);
+# and this tree's counts of the same command on the CPU (the card's host),
+# which it must print to the byte
+I9_ARCH, I9_CELL, I9_LAYERS = "minicpm-2b", "train_4k", 2
+I9_REFERENCE = dict(argument=328_852_164, temp=80_860_100_744)
+I9_PARENT = dict(argument_temp=111_090_598_624, temp=110_872_587_292)
+I9_CPU = dict(total=12_337_836_968, temp=11_901_847_064, collective=5_595_182_992,
+              flops=24_724_591_607_808)
 
 
 # each phase i cell's temp a device in a parent tree's trace on the card's
@@ -947,8 +980,8 @@ TRACE_COST_S = {
     ("jamba-v0.1-52b", "long_500k", "single"): 29.0,
     ("qwen2-vl-72b", "train_4k", "single"): 222.1, ("qwen2-vl-72b", "decode_32k", "single"): 39.2,
     ("qwen2-vl-72b", "prefill_32k", "single"): 255.5,
-    ("whisper-tiny", "train_4k", "single"): 31.9, ("whisper-tiny", "prefill_32k", "single"): 125.3,
-    ("whisper-tiny", "decode_32k", "single"): 18.6,
+    ("whisper-tiny", "train_4k", "single"): 36.1, ("whisper-tiny", "prefill_32k", "single"): 32.3,
+    ("whisper-tiny", "decode_32k", "single"): 24.0, ("minicpm-2b", "train_4k", "single"): 24.0,
 }
 
 
@@ -3043,7 +3076,8 @@ def tensor_parallel_work(device, phase: str = "h5") -> dict:
                     steps=rows, routes=routes.probs,
                     max_memory_allocated=torch.cuda.max_memory_allocated(),
                     plan=dict(seq=tp.seq_axes, qkv=tp.qkv_axes, q_local=tp.q_local,
-                              ssm_heads=tp.ssm_head_axes, ssm_columns=tp.ssm_in_axes,
+                              q_slice=tp.q_slice_axes, ssm_heads=tp.ssm_head_axes,
+                              ssm_columns=tp.ssm_in_axes,
                               experts=tp.expert_axes, frames=tp.encoder.seq_axes
                               if tp.enc_stream_spec is not None else None))
                 del params, batches, step, opt
@@ -3316,9 +3350,11 @@ def serve_work(device, phase: str = "h7") -> dict:
             run = h7_run(fwd, dec, lambda c: seed_cache(c, dsh["cache"], cache_len), params,
                          prompts, dist.barrier, new)
             (tp, _), = dec._plans.values()
+            (prefill_tp, _, _), = fwd._plans.values()
             out[profile] = dict(run, max_memory_allocated=max(run["prefill_peak"],
                                                               run["decode_peak"]),
                                 plan=dict(q_local=tp.q_local, kv_local=tp.kv_local,
+                                          q_slice=prefill_tp.q_slice_axes,
                                           qkv=tp.qkv_axes, cache_rows=tp.cache_row_axes,
                                           cache_seq=tp.cache_seq_axes,
                                           cross_seq=tp.cross_seq_axes,
@@ -3831,6 +3867,13 @@ def group_phases(device, group: dict) -> dict:
         f"{list(GROUP_PHASES)} in {wall:.1f} s: spawn (at phase x) to first collective by "
         f"rank {[round(x, 2) for x in startup]} s, each phase's seconds "
         f"{({k: round(v, 1) for k, v in seconds.items()})}")
+    sliced = [k for k in H_PARENT_S if k in seconds]
+    if sliced:
+        log(f"phase h: {sliced}, whisper-tiny's 6 q heads unsplit on 4 ranks, each rank "
+            f"attending with its query slice: {[round(seconds[k], 1) for k in sliced]} s (the "
+            f"one-device references' {[round(ref_s[k], 1) for k in sliced]} s) against the "
+            f"parent tree's {[H_PARENT_S[k] for k in sliced]} s (every rank ran every head over "
+            f"the whole sequence; its references' {[H_PARENT_REF_S[k] for k in sliced]} s)")
     out = {}
     for name in GROUP_PHASES:
         got = [r[name] for r in ranks]
@@ -4451,6 +4494,55 @@ def check_i8(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
     return rows
 
 
+def start_i9(out: str) -> list:
+    """Phase i9's trace, queued as the others."""
+    return [start_dryrun(out, I9_CELL, I9_LAYERS, I9_ARCH, "single")]
+
+
+def check_i9(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> dict:
+    """Phase i9: minicpm-2b's train_4k cut to I9_LAYERS layers, its q heads
+    unsplit over the model axis: the record's sum, temp, collective bytes
+    and FLOPs equal to the CPU's counts (``I9_CPU``) to the byte, the
+    product FLOPs equal to ``hand_train_flops``, its argument + temp below
+    the card's memory and below the reference's whole-cell temp; the
+    parent tree's figures printed beside them."""
+    cfg = dataclasses.replace(configs.get(I9_ARCH), n_layers=I9_LAYERS)
+    what = f"i9 {I9_ARCH} {I9_CELL} at {I9_LAYERS} layers"
+    rec = finish_dryrun(procs[I9_ARCH, I9_CELL, "single"], out, I9_CELL, what, I9_ARCH,
+                        "single", timeout=max(1.0, I5_TIMEOUT_S - (time.perf_counter() - t0)))
+    cell = configs.SHAPES[I9_CELL]
+    parts = planned_parts(cfg, rec["mesh_shape"], cell)
+    hand = hand_train_flops(cfg, cell.global_batch, cell.seq_len, parts)
+    mem, coll, flops = rec["memory_analysis"], rec["collectives"], rec["cost_analysis"]["flops"]
+    arg_temp = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    here = dict(total=arg_temp + mem["output_size_in_bytes"], temp=mem["temp_size_in_bytes"],
+                collective=coll["collective_bytes_per_device"], flops=flops)
+    row = dict(arch=I9_ARCH, cell=I9_CELL, layers=I9_LAYERS, trace_s=rec["lower_s"], memory=mem,
+               argument_temp=arg_temp, card_bytes=card_bytes,
+               collective_bytes_per_device=coll["collective_bytes_per_device"],
+               collective_by_kind=coll["collective_bytes_per_device_by_kind"],
+               collective_ops=coll["op_counts"], flops=flops, hand_flops=hand, parts=parts,
+               reference=I9_REFERENCE, parent=I9_PARENT, cpu=I9_CPU, card=card,
+               over_parent=arg_temp / I9_PARENT["argument_temp"])
+    log(f"phase i9: {I9_ARCH} {I9_CELL} at {I9_LAYERS} of its 40 layers on the "
+        f"{rec['mesh_shape']} mesh of {math.prod(rec['mesh_shape'].values())} fake ranks, "
+        f"{cfg.n_heads} q heads on {parts['qkv']} ranks, each attending with its query slice: "
+        f"trace {rec['lower_s']} s; argument {mem['argument_size_in_bytes']} / temp "
+        f"{mem['temp_size_in_bytes']} / output {mem['output_size_in_bytes']} bytes a device, "
+        f"argument + temp {arg_temp} against the card's {card_bytes} and the reference's "
+        f"whole-cell temp {I9_REFERENCE['temp']} (the parent's {I9_PARENT['argument_temp']}: "
+        f"{row['over_parent']:.4f} x); collective bytes a device "
+        f"{coll['collective_bytes_per_device']:.0f} by kind "
+        f"{coll['collective_bytes_per_device_by_kind']}, ops {coll['op_counts']}; product FLOPs "
+        f"{flops:.6e}, the hand count {hand:.6e}; the CPU's counts {I9_CPU}; card {card}")
+    check(here == I9_CPU, f"{what}: {here}, not the CPU's counts {I9_CPU}")
+    check(flops == hand, f"{what}: {flops} product FLOPs, the hand count {hand}")
+    check(arg_temp < card_bytes and arg_temp < I9_REFERENCE["temp"],
+          f"{what}: argument + temp {arg_temp} not below the card's {card_bytes} and the "
+          f"reference's whole-cell temp {I9_REFERENCE['temp']}")
+    return row
+
+
 def traced_train_flops(cfg, B: int, S: int) -> int:
     """The product FLOPs one train step of a swiglu decoder runs, as the
     dry-run counts them: ``train_bounds``' products, but every (q, k) tile
@@ -4472,7 +4564,7 @@ def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float)
     ``start_analysis`` queued at the check's start (``procs``, their output in
     ``out``): i1, the dry-run of g2's cell, then i2, the roofline of the
     cells g2 and e2 ran, on a one-rank fake world (this process's default
-    group for i2 alone); i3, i4, i5, i6, i7 and i8."""
+    group for i2 alone); i3, i4, i5, i6, i7, i8 and i9."""
     card = smi("name,power.limit")
     t3 = time.perf_counter()
     i1, i2 = analysis_one_rank(device, g2, e2, card, procs["i1"], out)
@@ -4527,8 +4619,9 @@ def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float)
     i6 = check_i6(procs, out, t0, card_bytes, card)
     i7 = check_i7(procs, out, t0, card_bytes, card)
     i8 = check_i8(procs, out, t0, card_bytes, card)
+    i9 = check_i9(procs, out, t0, card_bytes, card)
     return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, i5=i5, i6=i6, i7=i7, i8=i8,
-                card=card)
+                i9=i9, card=card)
 
 
 def i1_trace(out: str, device: str = "cuda") -> None:
@@ -4556,10 +4649,10 @@ def start_i1(out: str) -> Trace:
 
 def phase_i_traces(out: str) -> list[Trace]:
     """Phase i's traces, their output in ``out``: i1's, i3's, i4's, i5's,
-    i6's, i7's and i8's."""
+    i6's, i7's, i8's and i9's."""
     traces = [start_i1(out), start_dryrun(out, I3_CELL, key="i3")]
     traces += [start_dryrun(out, cell, layers, key=cell) for cell, layers in I4_CELLS]
-    return traces + start_i5(out) + start_i6(out) + start_i7(out) + start_i8(out)
+    return traces + start_i5(out) + start_i6(out) + start_i7(out) + start_i8(out) + start_i9(out)
 
 
 def start_analysis(out: str) -> TraceQueue:

@@ -250,8 +250,13 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
             if tp is not None:
                 h = tp.gather_seq(h)
             q, k, v = qkv_proj(p, h, cfg, None, tp)
-            ctx = torch.repeat_interleave(v, q.shape[2] // v.shape[2], dim=2)
-            return x + attn_out(p, ctx.flatten(2), tp)
+            # v's heads stand in for the attention's output: every head of
+            # this rank's queries (its query slice where the heads do not
+            # split), brought to wo's rows as the step brings it
+            ctx = torch.repeat_interleave(v, q.shape[2] // v.shape[2], dim=2).flatten(2)
+            if tp is not None:
+                ctx = tp.query_cols(tp.query_rows(ctx), h.shape[1])
+            return x + attn_out(p, ctx, tp)
 
         add("attn_proj", attn_proj, specs, (x_abs,), (x_sh,), n_attn, train)
         if encdec:

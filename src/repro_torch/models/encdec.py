@@ -29,6 +29,7 @@ from .layers import (
     attn_out,
     attn_prefill,
     attn_specs,
+    attend,
     chunked_attention,
     mlp,
     mlp_specs,
@@ -126,16 +127,15 @@ def _cross_kv(bp, enc_out, cfg: ArchConfig, tp=None):
 def _cross_attend(bp, h, k, v, cfg: ArchConfig, tp=None):
     """h: (B, S, D) queries over the cross K/V (B, T, Hkv, hd), no mask.  On
     a plan ``h`` and the output are this rank's slice of the decoder's
-    stream: q over its rows' whole sequence on its heads, ``wo`` summed
-    back into the slice."""
+    stream: q over its rows' whole sequence on its heads (where the q heads
+    do not split, every head of its query slice, as the self-attention's:
+    :func:`layers.attend`), ``wo`` summed back into the slice."""
     if tp is not None:
         h = tp.gather_seq(h)
-    B, S, D = h.shape
-    q = (h @ bp["cross_attn"]["wq"].to(h.dtype)).unflatten(-1, (-1, cfg.hd))
-    hq, hkv = q.shape[2], k.shape[2]
-    qh = q.reshape(B, S, hkv, hq // hkv, cfg.hd).movedim(1, 3)
-    out = chunked_attention(qh, k.to(h.dtype), v.to(h.dtype), causal=False)
-    return attn_out(bp["cross_attn"], out.movedim(3, 1).reshape(B, S, hq * cfg.hd), tp)
+    xq = h if tp is None else tp.query_rows(h)
+    q = (xq @ bp["cross_attn"]["wq"].to(h.dtype)).unflatten(-1, (-1, cfg.hd))
+    out = attend(q, k.to(h.dtype), v.to(h.dtype), h.shape[1], tp, causal=False)
+    return attn_out(bp["cross_attn"], out, tp)
 
 
 def _dec_block(cfg: ArchConfig, bp, x, enc_out, tp=None):

@@ -108,18 +108,23 @@ def qkv_proj(p, x, cfg: ArchConfig, cos_sin=None, tp=None):
     """x (B,S,D) -> q (B,S,Hq,hd), k,v (B,S,Hkv,hd), RoPE applied.  The head
     counts come from the weights' widths, so on a mesh (``tp``, a
     ``TensorParallel``) they are this rank's heads; k and v there take the kv
-    heads this rank's q heads use."""
+    heads this rank's q heads use, and where the q heads do not split, q
+    covers this rank's query slice of the sequence (:meth:`TensorParallel.
+    query_rows`)."""
     B, S, _ = x.shape
     hd = cfg.hd
     wk, wv = p["wk"], p["wv"]
+    xq = x
     if tp is not None:
         wk, wv = tp.kv_heads(wk, hd), tp.kv_heads(wv, hd)
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, -1, hd)
+        xq = tp.query_rows(x)
+    q = (xq @ p["wq"].to(x.dtype)).reshape(B, xq.shape[1], -1, hd)
     k = (x @ wk.to(x.dtype)).reshape(B, S, -1, hd)
     v = (x @ wv.to(x.dtype)).reshape(B, S, -1, hd)
     if cos_sin is not None:
         cos, sin = cos_sin
-        q = apply_rope(q, cos, sin)
+        q = apply_rope(q, cos, sin) if tp is None else \
+            apply_rope(q, tp.query_rows(cos), tp.query_rows(sin))
         k = apply_rope(k, cos, sin)
     return q, k, v
 
@@ -190,22 +195,34 @@ def chunked_attention(
     return out[:, :, :, :Sq]
 
 
+def attend(q, k, v, S: int, tp=None, *, causal: bool = True, window: int = 0):
+    """The chunked attention of ``q`` (B, Sq, Hq, hd) over ``k``, ``v`` (B,
+    Sk, Hkv, hd) -> (B, S, Hq·hd).  On a plan whose q heads do not split
+    (``tp.q_slice_axes``), ``q`` holds every head of this rank's query slice
+    of the S positions: it attends at the slice's positions, and the output
+    comes back as the columns of ``wo``'s rows this rank holds over all S
+    (:meth:`TensorParallel.query_cols`)."""
+    B, Sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    qh = q.reshape(B, Sq, hkv, hq // hkv, hd).movedim(1, 3)  # (B,Hkv,G,Sq,hd)
+    out = chunked_attention(qh, k, v, causal=causal, window=window,
+                            q_offset=0 if tp is None else tp.query_start(S))
+    out = out.movedim(3, 1).reshape(B, Sq, hq * hd)
+    return out if tp is None else tp.query_cols(out, S)
+
+
 def attn_prefill(p, x, cfg: ArchConfig, cos_sin, *, window: int = 0, causal=True, tp=None):
     """Full-sequence attention; returns (out, (k, v)) for cache seeding.  On
     a mesh (``tp``) ``x`` and ``out`` are this rank's slice of the stream:
-    the sequence is gathered, this rank's heads attend over all of it, and
-    the output projection's partial sums come back into the slice; a
+    the sequence is gathered, this rank's heads attend over all of it (where
+    the q heads do not split, every head of its query slice: :func:`attend`),
+    and the output projection's partial sums come back into the slice; a
     serving plan's k, v are this rank's shard of the cache
     (:func:`_cache_kv`)."""
     if tp is not None:
         x = tp.gather_seq(x)
-    B, S, D = x.shape
-    hd = cfg.hd
     q, k, v = qkv_proj(p, x, cfg, cos_sin, tp)
-    hq, hkv = q.shape[2], k.shape[2]
-    qh = q.reshape(B, S, hkv, hq // hkv, hd).movedim(1, 3)  # (B,Hkv,G,S,hd)
-    out = chunked_attention(qh, k, v, causal=causal, window=window)
-    out = out.movedim(3, 1).reshape(B, S, hq * hd)
+    out = attend(q, k, v, x.shape[1], tp, causal=causal, window=window)
     if tp is not None and tp.cache_spec is not None:
         k, v = _cache_kv(p, x, k, v, cfg, cos_sin, tp)
     return attn_out(p, out, tp), (k, v)
@@ -238,9 +255,9 @@ def _cache_kv(p, x, k, v, cfg: ArchConfig, cos_sin, tp):
 
 def attn_out(p, ctx, tp=None, all_heads: bool = False):
     """The output projection of the attention output ``ctx`` (B, S, Hq·hd);
-    on a mesh, this rank's rows of ``wo`` on its columns of ``ctx``, summed
-    into the stream (``all_heads``: ``ctx`` holds every head, as decode's
-    does)."""
+    on a mesh, this rank's rows of ``wo`` on its columns of ``ctx`` (``ctx``
+    holds just those, but with ``all_heads``: every head, as decode's does),
+    summed into the stream."""
     if tp is None:
         return ctx @ p["wo"].to(ctx.dtype)
     return tp.to_stream(tp.head_cols(ctx, all_heads) @ p["wo"].to(ctx.dtype), tp.qkv_axes)

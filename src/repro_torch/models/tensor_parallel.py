@@ -14,10 +14,15 @@ and the encoder-decoder), as the reference's ``LOGICAL_RULES``
   partial sums are reduce-scattered into the sequence slice.
 * Heads: attention runs head-parallel only where the heads split whole
   (:func:`head_split`); elsewhere ``wq``, ``wk`` and ``wv`` are gathered
-  whole and every rank computes every head, and ``wo`` takes this rank's
-  columns of the attention output.  Where the q heads split and the kv heads
-  do not, ``wk`` and ``wv`` are gathered whole and each rank takes the
-  columns of the kv heads its q heads use (GQA groups).
+  whole, each rank projects k and v over its rows' whole sequence and q,
+  every head, over its query slice of it (:attr:`TensorParallel.
+  q_slice_axes`, the ``qkv`` axes; the sequence padded to a multiple of
+  their ranks), attends there (the causal mask and any window at the
+  slice's positions), and an all-to-all over those axes brings the output
+  to the columns of ``wo``'s rows this rank holds, over the whole sequence
+  (its backward the inverse all-to-all).  Where the q heads split and the
+  kv heads do not, ``wk`` and ``wv`` are gathered whole and each rank takes
+  the columns of the kv heads its q heads use (GQA groups).
 * Experts (``models.moe``): the router is whole on every rank, which
   routes its own tokens.  Where ``experts`` resolves to mesh axes
   (:attr:`TensorParallel.expert_axes`: dbrx's 16 on ``model``, ``expert``
@@ -55,8 +60,9 @@ and the encoder-decoder), as the reference's ``LOGICAL_RULES``
   split, and a block's partial sums are then all-reduced).  Cross-attention
   takes q from the decoder's gathered stream and k, v from this rank's rows
   of the encoder's output over every frame (gathered over the frames' axes
-  once a forward), on the heads :func:`head_split` gives; ``wo`` sums into
-  the decoder's slice.
+  once a forward), on the heads :func:`head_split` gives (where they do not
+  split, q on this rank's query slice, as the self-attention's); ``wo`` sums
+  into the decoder's slice.
 * The embedding and the loss: where ``vocab`` splits, the look-up and the
   cross-entropy are vocab-parallel (each rank its rows of the table; the
   softmax's max and sum and the gold logit summed over the vocab axes);
@@ -240,20 +246,35 @@ def _ssm_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> 
                 out_proj=2 * T * (di // parts["ssm_heads"]) * d)
 
 
+def _query_rows(cfg: ArchConfig, S: int, n: int) -> int:
+    """The queries one rank's full-sequence attention runs over ``n`` ranks
+    of ``qkv``: all S where the q heads split, else its slice of them
+    (``TensorParallel.query_rows``: S padded to a multiple of n)."""
+    return S if head_split(cfg.n_heads, cfg.n_kv_heads, n)[0] else -(-S // n)
+
+
+def _tiles(rows: int, q_heads: int, hd: int, Sq: int, Sk: int) -> int:
+    """The product FLOPs of every (q, k) tile of the chunked attention of
+    ``Sq`` queries over ``Sk`` keys (each padded to its chunk; masked tiles
+    included)."""
+    qc, kc = min(512, Sq), min(1024, Sk)
+    return 4 * rows * q_heads * hd * (-(-Sq // qc) * qc) * (-(-Sk // kc) * kc)
+
+
 def _attn_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> dict:
     """One attention layer's forward product FLOPs on one rank over its rows'
-    whole sequence: q on this rank's q heads (all of them where they do not
-    split, :func:`head_split`), k and v on the kv heads they use, every
-    (q, k) tile of the chunked attention for its q heads (masked tiles
-    included), its rows of ``wo``."""
+    whole sequence: q on this rank's q heads (where they do not split,
+    :func:`head_split`, every head of its query slice: :func:`_query_rows`),
+    k and v on the kv heads they use over every position, every (q, k)
+    tile of the chunked attention for its queries (masked tiles included),
+    its rows of ``wo``."""
     d, hd = cfg.d_model, cfg.hd
     n = parts["qkv"]
     q_heads, kv_heads = _heads(cfg, n)
-    T = rows * S
-    qc, kc = min(512, S), min(1024, S)
-    return dict(qkv=2 * T * d * hd * (q_heads + 2 * kv_heads),
-                tiles=4 * rows * q_heads * hd * (-(-S // qc) * qc) * (-(-S // kc) * kc),
-                wo=2 * T * (cfg.n_heads * hd // n) * d)
+    Sq = _query_rows(cfg, S, n)
+    return dict(qkv=2 * rows * d * hd * (Sq * q_heads + S * 2 * kv_heads),
+                tiles=_tiles(rows, q_heads, hd, Sq, S),
+                wo=2 * rows * S * (cfg.n_heads * hd // n) * d)
 
 
 def _mlp_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> dict:
@@ -268,14 +289,15 @@ def _mlp_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> 
 def _cross_products(cfg: ArchConfig, rows: int, S: int, parts: dict[str, int]) -> dict:
     """One cross-attention's forward product FLOPs on one rank: k and v of
     the kv heads this rank's q heads use over its rows' ``enc_seq`` frames,
-    q on its q heads over its rows' whole sequence of S tokens, every (q,
-    frame) tile of the chunked attention, its rows of ``wo``."""
-    d, hd, T = cfg.d_model, cfg.hd, cfg.enc_seq
-    q_heads, kv_heads = _heads(cfg, parts["qkv"])
-    qc, kc = min(512, S), min(1024, T)
-    return dict(kv=2 * 2 * rows * T * d * hd * kv_heads, q=2 * rows * S * d * hd * q_heads,
-                tiles=4 * rows * q_heads * hd * (-(-S // qc) * qc) * (-(-T // kc) * kc),
-                wo=2 * rows * S * (cfg.n_heads * hd // parts["qkv"]) * d)
+    q on its q heads over its rows' whole sequence of S tokens (where they
+    do not split, every head of its query slice), every (q, frame) tile of
+    the chunked attention, its rows of ``wo``."""
+    d, hd, T, n = cfg.d_model, cfg.hd, cfg.enc_seq, parts["qkv"]
+    q_heads, kv_heads = _heads(cfg, n)
+    Sq = _query_rows(cfg, S, n)
+    return dict(kv=2 * 2 * rows * T * d * hd * kv_heads, q=2 * rows * Sq * d * hd * q_heads,
+                tiles=_tiles(rows, q_heads, hd, Sq, T),
+                wo=2 * rows * S * (cfg.n_heads * hd // n) * d)
 
 
 def _encoder_products(cfg: ArchConfig, rows: int, parts: dict[str, int]) -> list[dict]:
@@ -468,6 +490,10 @@ class TensorParallel:
     # (its weights' channels split as the conv history's)
     stationary_axes: tuple[str, ...] = ()
     conv_local: bool = False
+    # where the q heads do not split: the mesh axes (the ``qkv`` axes) a
+    # full-sequence attention splits its queries' sequence over (every head
+    # of a query slice a rank, :meth:`query_rows`); () where the heads split
+    q_slice_axes: tuple[str, ...] = ()
 
     @property
     def stream(self) -> Sharding:
@@ -561,11 +587,47 @@ class TensorParallel:
 
     def head_cols(self, ctx: torch.Tensor, all_heads: bool = False) -> torch.Tensor:
         """This rank's columns of the attention output, the rows of ``wo`` it
-        holds: all of it where the heads split, its chunk where every rank
-        computed every head (``all_heads``: ``ctx`` holds every head)."""
-        if self.q_local and not all_heads:
+        holds: all of ``ctx`` (its heads, or where they do not split the
+        columns :meth:`query_cols` brought), its chunk where ``ctx`` holds
+        every head (``all_heads``, as decode's does)."""
+        if not all_heads:
             return ctx
         return ctx[..., chunk_of(ctx.shape[-1], self.mesh, self.qkv_axes)]
+
+    # ------------------------------------------------------ query slices
+    def _query_len(self, n: int) -> int:
+        """A sequence of ``n`` positions padded to a multiple of the
+        :attr:`q_slice_axes`' ranks."""
+        parts = self.parts(self.q_slice_axes)
+        return -(-n // parts) * parts
+
+    def query_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """(B, S, ...) over the whole sequence -> this rank's query slice,
+        (B, ceil(S / parts), ...) over the :attr:`q_slice_axes` (the last
+        slice padded with zeros past S); all of ``t`` where the heads
+        split."""
+        if not self.q_slice_axes:
+            return t
+        pad = self._query_len(t.shape[1]) - t.shape[1]
+        if pad:
+            t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t[:, chunk_of(t.shape[1], self.mesh, self.q_slice_axes)]
+
+    def query_start(self, n: int) -> int:
+        """The position of this rank's first query in a sequence of ``n``."""
+        if not self.q_slice_axes:
+            return 0
+        return chunk_of(self._query_len(n), self.mesh, self.q_slice_axes).start
+
+    def query_cols(self, ctx: torch.Tensor, n: int) -> torch.Tensor:
+        """(B, ceil(n / parts), Hq·hd), every head of this rank's query slice
+        -> (B, n, Hq·hd / parts), its chunk of the columns (the rows of
+        ``wo`` it holds) over the whole sequence: an all-to-all over the
+        :attr:`q_slice_axes` (its backward the inverse all-to-all), the
+        padding dropped; ``ctx`` as it is where the heads split."""
+        if not self.q_slice_axes:
+            return ctx
+        return all_to_all_over(ctx, self.mesh, self.q_slice_axes, 2, 1)[:, :n]
 
     def all_heads(self, t: torch.Tensor, split: bool) -> torch.Tensor:
         """(B, S, heads, hd) -> every head: gathered over the ``qkv`` axes
@@ -1168,7 +1230,8 @@ def tensor_parallel(cfg: ArchConfig, spec_tree, mesh: DeviceMesh, stream_spec,
                         q_local, kv_local, tuple(stream_spec), axes["experts"],
                         axes["expert_ffn"], ssm_head_axes=heads, ssm_in_axes=axes["ssm_in"],
                         enc_stream_spec=None if enc_stream_spec is None
-                        else tuple(enc_stream_spec), kv_axes=axes["kv"])
+                        else tuple(enc_stream_spec), kv_axes=axes["kv"],
+                        q_slice_axes=() if q_local else axes["qkv"])
     if set(tp.expert_axes) & set(seq_axes) and not tp.experts_traded:
         raise ValueError(f"experts on {tp.expert_axes} split the sequence's {seq_axes} in part")
     traded = tp.expert_ffn_traded
@@ -1291,4 +1354,4 @@ def plan_decode(cfg: ArchConfig, spec_tree, cache_spec_tree, mesh: DeviceMesh,
     tree_map_pspec(note, spec_tree)
     stationary = tuple(ax for ax in tp.mesh_axes if ax in embed and ax not in tp.batch_axes)
     return dataclasses.replace(tp, stationary_axes=stationary, conv_local=bool(
-        stationary and tp.cache_conv_axes and conv == {tp.cache_conv_axes}))
+        stationary and tp.cache_conv_axes and conv == {tp.cache_conv_axes}), q_slice_axes=())

@@ -46,7 +46,14 @@ What is held, and how closely:
 * the MoE family's sharded steps (dbrx smoke on (4, 2), mixtral smoke under
   ``moe_ep`` on (2, 2, 2)): the dry-run's product FLOPs equal the hand
   counts with the MoE block's, and the roofline's ``moe_block`` probe runs
-  the planned layer code, its FLOPs the block's hand count.
+  the planned layer code, its FLOPs the block's hand count;
+* the dense train step where the q heads do not split the model axis
+  (``QSLICE``: minicpm smoke with 3 heads on the smoke mesh's 2, each rank
+  attending with every head of its query slice): the dry-run's product
+  FLOPs, collective bytes and executions (each layer's all-to-all, again in
+  the recompute, and its adjoint) and the roofline's attention probes equal
+  hand counts, and the step's temp about halves each time the model axis
+  doubles.
 """
 import json
 import math
@@ -409,17 +416,20 @@ def _pspec_paths(tree) -> list:
     return out
 
 
-def _plan(profile: str, arch: str = "granite-3-8b"):
+def _plan(profile: str, arch: str = "granite-3-8b", **overrides):
     """The tensor-parallel layout of a dense smoke model's ``train_4k``
-    (granite's by default) on the smoke mesh, by hand from the resolved
-    specs: the stream's batch and sequence axes, the axes of the heads, the
-    MLP's hidden layer and the vocabulary, and whether the q heads (and the
-    kv heads) split whole (the port's ``head_split``, the rule's one
-    statement)."""
+    (granite's by default; its config with ``overrides``) on the smoke
+    mesh, by hand from the resolved specs: the stream's batch and sequence
+    axes, the axes of the heads, the MLP's hidden layer and the vocabulary,
+    whether the q heads (and the kv heads) split whole (the port's
+    ``head_split``, the rule's one statement), and where they do not, the
+    axes the queries' sequence splits over (the heads')."""
+    import dataclasses
     from repro_torch import configs as C
     from repro_torch.models.common import resolve_spec
     from repro_torch.models.tensor_parallel import head_split
-    cfg, cell = C.get(arch, smoke=True), C.smoke_cell("train_4k")
+    cfg = dataclasses.replace(C.get(arch, smoke=True), **overrides)
+    cell = C.smoke_cell("train_4k")
     B, S, D = cell.global_batch, cell.seq_len, cfg.d_model
 
     def axes(shape, logical, d):
@@ -430,6 +440,7 @@ def _plan(profile: str, arch: str = "granite-3-8b"):
                 vocab=axes((cfg.vocab, D), ("vocab", "embed_d"), 0))
     plan["q_local"], plan["kv_local"] = head_split(cfg.n_heads, cfg.n_kv_heads,
                                                    _parts(plan["qkv"]))
+    plan["q_slice"] = () if plan["q_local"] else plan["qkv"]
     return cfg, cell, plan
 
 
@@ -529,10 +540,10 @@ class _Stream:
         return self.sum(n, axes)
 
 
-def _hand_tp_collectives(profile: str):
+def _hand_tp_collectives(profile: str, arch: str = "granite-3-8b", **overrides):
     """Per-device collective bytes and executions of granite smoke
-    ``train_4k``'s tensor-parallel step, from the specs (the collectives in
-    the order they run):
+    ``train_4k``'s tensor-parallel step (or ``arch``'s with ``overrides``),
+    from the specs (the collectives in the order they run):
 
     * each parameter gathered over the axes its working layout drops: a
       leaf outside the stacked blocks once, a block leaf a period at a time,
@@ -541,10 +552,13 @@ def _hand_tp_collectives(profile: str):
     * the embedding, where the vocabulary splits: the tokens' sequence
       gathered (int32), the partial rows into the stream (backward: back);
     * each layer: the attention's and the MLP's input gathered and output
-      brought into the stream, in the forward; the recompute again but for
-      the MLP's output (the non-reentrant checkpoint stops at the down
-      projection, whose saved inputs are then back); in the backward, each
-      collective's adjoint;
+      brought into the stream, in the forward; where the q heads do not
+      split, the attention's output of this rank's query slice brought to
+      the columns ``wo``'s rows hold by an all-to-all an axis; the recompute
+      again but for the MLP's output (the non-reentrant checkpoint stops at
+      the down projection, whose saved inputs are then back); in the
+      backward, each collective's adjoint (the all-to-all's: the inverse
+      all-to-all);
     * the loss, where the vocabulary splits: the hidden states and labels
       gathered (the hidden states' adjoint in the backward), then per loss
       chunk the max, the sum of exponentials and the gold logit summed over
@@ -556,10 +570,13 @@ def _hand_tp_collectives(profile: str):
       summed over each mesh axis."""
     from repro_torch.models import build
     from repro_torch.models.common import resolve_spec
-    cfg, cell, plan = _plan(profile)
+    cfg, cell, plan = _plan(profile, arch, **overrides)
     sizes = SMOKE_MESH
     B, S, D = cell.global_batch, cell.seq_len, cfg.d_model
     R, Sl = B // _parts(plan["batch"]), S // _parts(plan["seq"])
+    # the attention's output of this rank's query slice, every head
+    sliced = [("all-to-all", R * -(-S // _parts(plan["q_slice"])) * cfg.n_heads * cfg.hd)
+              for _ in plan["q_slice"]]
     st = _Stream(plan)
     full, own = R * S * D, R * Sl * D
     bf, f32 = 2, 4
@@ -578,10 +595,10 @@ def _hand_tp_collectives(profile: str):
         add(st.gather(R * Sl), 4)
         add(st.to_stream(full, vocab) + st.to_stream_back(full, vocab), bf)
     for _ in range(cfg.n_layers):
-        fwd = st.gather(own) + st.to_stream(full, plan["qkv"]) + st.gather(own)
+        fwd = st.gather(own) + sliced + st.to_stream(full, plan["qkv"]) + st.gather(own)
         add(fwd + st.to_stream(full, plan["ffn"]) + fwd, bf)
         add(st.to_stream_back(full, plan["ffn"]) + st.scatter(full)
-            + st.to_stream_back(full, plan["qkv"]) + st.scatter(full), bf)
+            + st.to_stream_back(full, plan["qkv"]) + sliced + st.scatter(full), bf)
     if vocab:
         add(st.gather(own) + st.scatter(full), bf)
         add(st.gather(R * Sl), 4)
@@ -768,6 +785,95 @@ def test_dryrun_train_flops_hand_count(dry, profile):
     rec = dry["serve"] if profile == "serve" else dry[CASES[0]][1]
     assert rec["profile"] == profile
     assert rec["cost_analysis"]["flops"] == _hand_train_flops(profile)
+
+
+# a dense smoke cell whose q heads do not split the model axis: minicpm smoke
+# with 3 heads on the smoke mesh's 2 (1.5 a rank, as minicpm-2b's 36 heads on
+# the production mesh's 16), each rank every head of its query slice; and the
+# same model's train step of (2, QSLICE_S) tokens on (1, n) meshes
+QSLICE = ("minicpm-2b", {"n_heads": 3, "n_kv_heads": 3})
+QSLICE_S, QSLICE_N = 512, (2, 4, 8)
+
+
+@pytest.fixture(scope="module")
+def qslice_dry():
+    """The port's dry-run record and roofline record of ``QSLICE``'s
+    ``train_4k`` on the smoke mesh of 8 fake ranks, and the temp of its
+    train step at QSLICE_S tokens on (1, n) meshes of n fake ranks."""
+    r = _run(f"""
+        import dataclasses, json
+        import torch.distributed as dist
+        import repro_torch.configs as C
+        from repro_torch.configs.base import ShapeCell
+        from repro_torch.launch.dryrun import make_mesh, trace_step
+        from repro_torch.launch.roofline import analyze_cell
+        from repro_torch.substrate import fake_store, init_group, make_mesh as mesh_of
+        arch, over = {QSLICE!r}
+        cfg = dataclasses.replace(C.get(arch, smoke=True), **over)
+        out = {{}}
+        init_group("fake", 0, 8, store=fake_store())
+        mesh = make_mesh("single", smoke=True, device_type="cpu")
+        out["train"] = trace_step(cfg, C.smoke_cell("train_4k"), mesh, "cpu")
+        out["roof"] = analyze_cell(cfg, C.smoke_cell("train_4k"), mesh, device="cpu")
+        dist.destroy_process_group()
+        for n in {QSLICE_N!r}:
+            init_group("fake", 0, n, store=fake_store())
+            rec = trace_step(cfg, ShapeCell("long", {QSLICE_S}, 2, "train"),
+                             mesh_of((1, n), ("data", "model"), device_type="cpu"), "cpu")
+            out[f"temp{{n}}"] = rec["memory_analysis"]["temp_size_in_bytes"]
+            dist.destroy_process_group()
+        print("RESULT" + json.dumps(out, default=float))
+    """)
+    return json.loads(r.stdout.split("RESULT", 1)[1])
+
+
+def test_dryrun_query_slice_flops_hand_count(qslice_dry):
+    """Where the q heads do not split, the train step's per-device product
+    FLOPs equal ``hand_train_flops``: q, every (q, k) tile and the cross
+    products on this rank's query slice, k and v over the whole sequence."""
+    from repro_torch.models.tensor_parallel import hand_train_flops
+    cfg, cell, plan = _plan("baseline", QSLICE[0], **QSLICE[1])
+    assert not plan["q_local"] and plan["q_slice"] == ("model",)
+    parts = {k: _parts(plan[k]) for k in ("batch", "seq", "qkv", "ffn", "vocab")}
+    assert qslice_dry["train"]["cost_analysis"]["flops"] == hand_train_flops(
+        cfg, cell.global_batch, cell.seq_len, parts)
+
+
+def test_dryrun_query_slice_collectives_hand_count(qslice_dry):
+    """Its collective bytes and executions equal the hand count: each
+    layer's all-to-all of its query slice's output to ``wo``'s columns in
+    the forward and the recompute, the inverse all-to-all in the backward."""
+    want, counts, n = _hand_tp_collectives("baseline", QSLICE[0], **QSLICE[1])
+    coll = qslice_dry["train"]["collectives"]
+    assert counts["all-to-all"] == 3 * 2   # three a layer, two layers
+    assert coll["collective_bytes_per_device"] == want
+    assert coll["collective_bytes"] == want * n
+    assert coll["op_counts"] == counts
+
+
+@pytest.mark.parametrize("name", ("attn_proj", "attn_tile"))
+def test_roofline_query_slice_probes(qslice_dry, name):
+    """The roofline's attention probes on that plan: ``attn_proj``'s
+    per-device FLOPs and collective bytes equal their hand counts (q on the
+    query slice, the all-to-all and its adjoint); ``attn_tile``'s tiles take
+    the query chunk's rows over the model axis, as the step's query slice."""
+    comp = qslice_dry["roof"]["components"][name]
+    assert comp["flops"] == _hand_flops(name, "baseline", QSLICE[0], **QSLICE[1])
+    if name == "attn_proj":
+        assert comp["coll"] == _hand_probe_collectives(name, "baseline", QSLICE[0],
+                                                       **QSLICE[1])
+
+
+def test_query_slice_score_tiles_fall_with_n(qslice_dry):
+    """The step's temp (its recompute holds the chunked attention's float32
+    score tiles) about halves each time the model axis doubles: each rank
+    attends with its query slice only.  Every rank ran every head over the
+    whole sequence before, and a parent tree's trace of the same step held
+    26,230,168 / 26,029,848 / 25,929,688 bytes at n = 2 / 4 / 8."""
+    temps = [qslice_dry[f"temp{n}"] for n in QSLICE_N]
+    print(dict(zip(QSLICE_N, temps)))
+    for a, b in zip(temps, temps[1:]):
+        assert b <= 0.55 * a
 
 
 # each case's temp a device in a parent's trace (torch 2.13 on the CPU, the
@@ -1696,16 +1802,18 @@ def _local(shape, logical, profile) -> int:
     return n
 
 
-def _hand_flops(name: str, profile: str) -> int:
-    """Per-device product FLOPs of a granite smoke train_4k probe, run as
-    the tensor-parallel step runs a layer (forward and gradients; a
-    product's backward is two of its size): the projections on this rank's
-    rows of the whole sequence and its columns, the loss chunk on its
-    columns of the vocabulary."""
-    cfg, cell, plan = _plan(profile)
+def _hand_flops(name: str, profile: str, arch: str = "granite-3-8b", **overrides) -> int:
+    """Per-device product FLOPs of a granite smoke train_4k probe (or
+    ``arch``'s with ``overrides``), run as the tensor-parallel step runs a
+    layer (forward and gradients; a product's backward is two of its size):
+    the projections on this rank's rows of the whole sequence and its
+    columns (q, where the heads do not split, on its query slice), the loss
+    chunk on its columns of the vocabulary."""
+    cfg, cell, plan = _plan(profile, arch, **overrides)
     B, S, D, hd = cell.global_batch, cell.seq_len, cfg.d_model, cfg.hd
     rows = B // _parts(plan["batch"])
     T = rows * S                                   # the gathered sequence of this rank's rows
+    Tq = rows * -(-S // _parts(plan["q_slice"]))   # the queries of this rank's rows
     n = _parts(plan["qkv"])
     q = (cfg.n_heads // n if plan["q_local"] else cfg.n_heads) * hd
     kv = (cfg.n_kv_heads // n if plan["kv_local"] else 1 if plan["q_local"]
@@ -1714,7 +1822,7 @@ def _hand_flops(name: str, profile: str) -> int:
     if name == "attn_proj":
         # forward: q, k, v, o; the output reaches only v and o, so only
         # their backward runs
-        return 2 * T * D * (q + 2 * kv + o) + 2 * (2 * T * o * D + 2 * T * D * kv)
+        return 2 * D * (Tq * q + T * (2 * kv + o)) + 2 * (2 * T * o * D + 2 * T * D * kv)
     if name == "mlp_block":   # swiglu: three products
         return 3 * 3 * 2 * T * D * (cfg.d_ff // _parts(plan["ffn"]))
     if name == "loss_chunk":
@@ -1758,28 +1866,34 @@ def test_roofline_probe_flops(roof, profile, name):
         assert got <= want
 
 
-def _hand_probe_collectives(name: str, profile: str) -> int:
-    """Per-device collective bytes of a granite smoke train_4k probe, run as
-    the tensor-parallel step runs a layer: each parameter gathered over the
+def _hand_probe_collectives(name: str, profile: str, arch: str = "granite-3-8b",
+                            **overrides) -> int:
+    """Per-device collective bytes of a granite smoke train_4k probe (or
+    ``arch``'s with ``overrides``), run as the tensor-parallel step runs a
+    layer: each parameter gathered over the
     axes its working layout drops (:func:`_gathers`) and its gradient summed
     back into its layout (:func:`_tp_reduction`), float32; the stream's
     collectives of the layer code and their adjoints (:class:`_Stream`):
     the attention's and the MLP's input gathered and output brought into the
-    stream (bf16), the embedding's tokens gathered (int32) and rows brought
+    stream (bf16; where the q heads do not split, its query slice's output
+    brought to ``wo``'s columns by an all-to-all an axis, and back in the
+    backward), the embedding's tokens gathered (int32) and rows brought
     into the stream, the loss chunk's max, sum of exponentials and gold
     logit summed over the vocab axes and the two sums' adjoints (float32;
     the chunk's tokens are every rank's of the vocab axes already)."""
     from repro_torch.models.common import PSpec, resolve_spec
     from repro_torch.models.layers import attn_specs, mlp_specs, rmsnorm_spec
-    cfg, cell, plan = _plan(profile)
+    cfg, cell, plan = _plan(profile, arch, **overrides)
     B, S, D, V = cell.global_batch, cell.seq_len, cfg.d_model, cfg.vocab
     rows = B // _parts(plan["batch"])
     full, own = rows * S * D, rows * (S // _parts(plan["seq"]))
     st = _Stream(plan)
     c = min(cfg.loss_chunk, S)
+    sliced = [("all-to-all", rows * -(-S // _parts(plan["q_slice"])) * cfg.n_heads * cfg.hd)
+              for _ in plan["q_slice"]] * 2
     params, acts = {
         "attn_proj": ({"norm": rmsnorm_spec(D), **attn_specs(cfg)},
-                      [(2, st.gather(own * D) + st.to_stream(full, plan["qkv"])
+                      [(2, st.gather(own * D) + st.to_stream(full, plan["qkv"]) + sliced
                         + st.to_stream_back(full, plan["qkv"]) + st.scatter(full))]),
         "mlp_block": ({"norm": rmsnorm_spec(D), **mlp_specs(cfg)},
                       [(2, st.gather(own * D) + st.to_stream(full, plan["ffn"])

@@ -12,7 +12,10 @@ baseline profile and on (2, 2) under ``serve`` and under ``opt1``; and
 whisper-odd, the smoke config with 3 heads of 16 (d 48), 62 frames and a
 vocabulary of 250, on (1, 4): its heads, frames and vocabulary divide no
 axis, as whisper-tiny's 6 heads, 1500 frames and 51865 tokens do not divide
-the production mesh's 16.  Prompts of 8 and 40 tokens into decode caches
+the production mesh's 16 (each rank attends with every head of its query
+slice, the 62 frames padded to 64 in the encoder), and under ``serve`` on
+(2, 2) (the query slice over both axes, as whisper-tiny's on the card).
+Prompts of 8 and 40 tokens into decode caches
 of 16 and 48 positions.  And whisper smoke serving one row (the first
 prompt) on (2, 2) under the baseline (``ONE_ROW``): the row leaves ``data``
 whole, so the decode plan keeps every weight on its embed shard there
@@ -30,7 +33,8 @@ positions (the cross cache as it is) and ``Model.decode`` (tokens
 identical, logits 1e-5 of the largest; every rank's self and cross cache
 shards, prefill's and the final decode cache's, within 1e-6 of the
 reference's slice read from the shard's spec); each case's plan (the
-frames' sequence axes, whether the q and kv heads split, the self cache's
+frames' sequence axes, whether the q and kv heads split, the axes of the
+query slice where they do not, the self cache's
 rows and sequence axes and the cross cache's sequence axes); the decode
 plan reading the cache's length from the self cache by name on a cache that
 lists ``cross`` first; ``seed_cache`` leaving the cross shards' values and
@@ -69,17 +73,20 @@ CASES = {  # name: (model, mesh shape, profile)
     "serve-2x2": ("smoke", (2, 2), "serve"),
     "opt1-2x2": ("smoke", (2, 2), "opt1"),
     "odd-1x4": ("odd", (1, 4), "baseline"),
+    "odd-serve-2x2": ("odd", (2, 2), "serve"),
 }
 # each case's plan: (the frames' sequence axes, q heads split, kv heads split,
-# the self cache's rows beyond the stream's, its sequence axes, the cross
-# cache's sequence axes)
+# the axes the queries' sequence splits over where the q heads do not, the
+# self cache's rows beyond the stream's, its sequence axes, the cross cache's
+# sequence axes)
 PLANS = {
-    "1x4": (("model",), True, True, (), ("model",), ("model",)),
-    "2x2": (("model",), True, True, (), ("model",), ("model",)),
-    "4x1": ((), True, True, (), (), ()),
-    "serve-2x2": ((), True, True, ("data",), ("model",), ("model",)),
-    "opt1-2x2": (("model",), True, True, (), ("model",), ("model",)),
-    "odd-1x4": ((), False, False, (), ("model",), ()),
+    "1x4": (("model",), True, True, (), (), ("model",), ("model",)),
+    "2x2": (("model",), True, True, (), (), ("model",), ("model",)),
+    "4x1": ((), True, True, (), (), (), ()),
+    "serve-2x2": ((), True, True, (), ("data",), ("model",), ("model",)),
+    "opt1-2x2": (("model",), True, True, (), (), ("model",), ("model",)),
+    "odd-1x4": ((), False, False, ("model",), (), ("model",), ()),
+    "odd-serve-2x2": ((), False, False, ("model", "data"), ("data",), ("model",), ("model",)),
 }
 # serving the first row alone: (model, mesh shape, profile), and the decode
 # plan's (self cache rows, its sequence axes, the cross cache's, stationary)
@@ -228,7 +235,7 @@ def rank_job(rank, world, init, tmp, weights):
             cross_first = cross_first_plan(model, mesh, max(PROMPTS.values()))
         out[name] = dict(train=rows, serve=serve, planned=bool(step._plans),
                          coords=dict(zip(("data", "model"), mesh.get_coordinate())),
-                         plan=(tp.encoder.seq_axes, tp.q_local, tp.kv_local),
+                         plan=(tp.encoder.seq_axes, tp.q_local, tp.kv_local, tp.q_slice_axes),
                          cross_first=cross_first)
     for name, (which, shape, profile) in ONE_ROW.items():
         model = build(port_cfg(which))
@@ -314,7 +321,7 @@ def test_encdec_train_step_matches_one_device_step(ranks, reference, name):
     for r in ranks:
         got = r[name]
         assert got["planned"]
-        assert got["plan"] == PLANS[name][:3]
+        assert got["plan"] == PLANS[name][:4]
         assert abs(got["train"][0]["loss"][1] - want) <= 1e-5 * abs(want)
         for row in got["train"]:
             (gl, wl), (gn, wn) = row["loss"], row["grad_norm"]
@@ -343,7 +350,7 @@ def test_encdec_sharded_serve_matches_reference(ranks, reference, name, P):
     weights on their ``data`` shards, the others' on none."""
     which, shape, _ = {**CASES, **ONE_ROW}[name]
     ref = reference[which]["one_row" if name in ONE_ROW else "serve"][P]
-    want = ONE_ROW_PLAN if name in ONE_ROW else PLANS[name][3:] + ((),)
+    want = ONE_ROW_PLAN if name in ONE_ROW else PLANS[name][4:] + ((),)
     errs = {"logits": 0.0, "prefill": 0.0, "decode": 0.0}
     for r in ranks:
         got = r[name]["serve"][P]
@@ -372,7 +379,7 @@ def test_decode_plan_reads_the_self_cache_by_name(ranks, name):
     plan does (the length once came from the first leaf that held a ``k``:
     the cross cache's, in sorted order)."""
     for r in ranks:
-        assert r[name]["cross_first"] == (PLANS[name][4], PLANS[name][5], 48)
+        assert r[name]["cross_first"] == (PLANS[name][5], PLANS[name][6], 48)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -383,7 +390,7 @@ def test_seed_cache_carries_the_cross_cache(ranks, name):
     for P in PROMPTS:
         cfg = port_cfg(CASES[name][0])
         n = math.prod(dict(zip(("data", "model"), CASES[name][1]))[ax]
-                      for ax in PLANS[name][5])
+                      for ax in PLANS[name][6])
         for r in ranks:
             assert r[name]["serve"][P]["cross_kept"] == [(True, cfg.enc_seq)] * 2
             got = r[name]["serve"][P]["decode"]

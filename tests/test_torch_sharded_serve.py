@@ -8,8 +8,11 @@ prompts, in float32.
 Cases: granite smoke on (data 2, model 2) (its 2 kv heads split: prefill's
 cache through an all-to-all) and on (1, 4) (the whole ``wk`` / ``wv``
 project each rank's cache slice); llama3 smoke on (1, 4) (2 q heads a rank
-in one GQA group); minicpm smoke on (1, 4) (6 heads on 4 ranks: every head
-on every rank; tied embeddings over a split vocabulary); glm4 smoke on
+in one GQA group); minicpm smoke on (1, 4) (6 heads on 4 ranks: prefill's
+attention runs every head on each rank's query slice of the prompt and an
+all-to-all brings its output to ``wo``'s rows, decode's every head; tied
+embeddings over a split vocabulary) and under ``serve`` on (2, 2) (the query
+slice over both axes, as whisper-tiny's on the card); glm4 smoke on
 (1, 4) (one kv head); granite smoke under ``serve`` on (2, 2) (heads, MLP and
 vocabulary over both axes, the stream's batch whole, the cache's rows on
 ``data``), and so with 4 kv heads (which split over both axes, so prefill's
@@ -63,6 +66,7 @@ CASES = {  # name: (arch, mesh shape, profile, kv heads: None for the smoke conf
     "granite-serve-2x2": ("granite-3-8b", (2, 2), "serve", None),
     "granite-serve-kv4-2x2": ("granite-3-8b", (2, 2), "serve", 4),
     "granite-opt1-2x2": ("granite-3-8b", (2, 2), "opt1", None),
+    "minicpm-serve-2x2": ("minicpm-2b", (2, 2), "serve", None),
 }
 ONE_ROW = {  # the first prompt alone
     "granite-b1-2x2": ("granite-3-8b", (2, 2), "baseline", None),
@@ -119,10 +123,11 @@ def serve_rank_job(rank, world, init, tmp, weights):
                 tok, logits, cache = dec(params, cache, {"tokens": tok[:, None], "pos": P + i})
                 steps.append((logits, tok))
             tp = dec.plan(torch.empty(rows, 1), cache)[0]
+            q_slice = fwd.plan(tokens)[0].q_slice_axes
         out[name] = dict(steps=steps, prefill=prefill_shards, decode=shards(cache, dsh["cache"]),
                          coords=dict(zip(("data", "model"), mesh.get_coordinate())),
-                         plan=(tp.q_local, tp.kv_local, tp.cache_row_axes, tp.cache_seq_axes,
-                               tp.stationary_axes),
+                         plan=(tp.q_local, tp.kv_local, q_slice,
+                               tp.cache_row_axes, tp.cache_seq_axes, tp.stationary_axes),
                          tables=table_specs(psh["params"]))
 
     model = build(smoke_cfg(GATHERING))
@@ -204,18 +209,21 @@ def ranks(reference, tmp_path_factory):
     return spawn(serve_rank_job, 4, tmp, {a: r["params"] for a, r in reference.items()})
 
 
-PLANS = {  # name: (q heads split, kv heads split, cache rows beyond the stream's, cache seq,
-    #         the axes over which the weights stay on their embed shards)
-    "granite-2x2": (True, True, (), ("model",), ()),
-    "granite-1x4": (True, False, (), ("model",), ()),
-    "llama3-1x4": (True, False, (), ("model",), ()),
-    "minicpm-1x4": (False, False, (), ("model",), ()),
-    "glm4-1x4": (True, False, (), ("model",), ()),
-    "granite-serve-2x2": (True, False, ("data",), ("model",), ()),
-    "granite-serve-kv4-2x2": (True, True, ("data",), ("model",), ()),
-    "granite-opt1-2x2": (True, True, (), ("model",), ()),
-    "granite-b1-2x2": (True, True, (), ("model",), ("data",)),
-    "granite-opt1-b1-2x2": (True, True, (), ("model",), ("data",)),
+PLANS = {  # name: (q heads split, kv heads split, the axes the prefill's queries split
+    #         their sequence over where the q heads do not, cache rows beyond the
+    #         stream's, cache seq, the axes over which the weights stay on their
+    #         embed shards)
+    "granite-2x2": (True, True, (), (), ("model",), ()),
+    "granite-1x4": (True, False, (), (), ("model",), ()),
+    "llama3-1x4": (True, False, (), (), ("model",), ()),
+    "minicpm-1x4": (False, False, ("model",), (), ("model",), ()),
+    "glm4-1x4": (True, False, (), (), ("model",), ()),
+    "granite-serve-2x2": (True, False, (), ("data",), ("model",), ()),
+    "granite-serve-kv4-2x2": (True, True, (), ("data",), ("model",), ()),
+    "granite-opt1-2x2": (True, True, (), (), ("model",), ()),
+    "minicpm-serve-2x2": (False, False, ("model", "data"), ("data",), ("model",), ()),
+    "granite-b1-2x2": (True, True, (), (), ("model",), ("data",)),
+    "granite-opt1-b1-2x2": (True, True, (), (), ("model",), ("data",)),
 }
 
 

@@ -7,8 +7,11 @@ weights (the reference's ``Model.init``, carried over by
 Cases: granite smoke on (data 2, model 2) (its 2 kv heads split) and on
 (1, 4) (each rank's q head uses a kv head of the whole ``wk``); llama3 smoke
 on (1, 4) (2 q heads a rank in one GQA group); minicpm smoke on (1, 4) (6
-heads on 4 ranks: every head on every rank; tied embeddings over a split
-vocabulary); granite smoke under the ``serve`` profile on (2, 2) (heads,
+heads on 4 ranks: each rank runs every head on its query slice of the
+sequence, k and v over all of it, and an all-to-all brings the output to
+``wo``'s rows; tied embeddings over a split vocabulary) and under ``serve``
+on (2, 2) (the query slice over both axes); granite smoke under the
+``serve`` profile on (2, 2) (heads,
 MLP and vocabulary over both axes, the batch and sequence whole); granite smoke
 under ``opt1`` on (2, 2) (baseline's layout but the (un)embedding tables'
 ``d_model`` axis whole: on (1, 4) the two profiles are one layout).  Each
@@ -38,6 +41,7 @@ CASES = {  # name: (arch, mesh shape, profile)
     "minicpm-1x4": ("minicpm-2b", (1, 4), "baseline"),
     "granite-serve-2x2": ("granite-3-8b", (2, 2), "serve"),
     "granite-opt1-2x2": ("granite-3-8b", (2, 2), "opt1"),
+    "minicpm-serve-2x2": ("minicpm-2b", (2, 2), "serve"),
 }
 STEPS = 3
 
@@ -95,7 +99,8 @@ def tp_rank_job(rank, world, init, tmp, weights):
                                   zip(sorted_leaves(grads), sorted_leaves(grads1))),
                     params_in_lr=max(float((full_value(a) - b).abs().max()) for a, b in
                                      zip(sorted_leaves(params), sorted_leaves(p1))) / lr))
-        out[name] = dict(steps=rows, plan=(tp.q_local, tp.kv_local, tp.vocab_axes, tp.seq_axes),
+        out[name] = dict(steps=rows, plan=(tp.q_local, tp.kv_local, tp.q_slice_axes,
+                                           tp.vocab_axes, tp.seq_axes),
                          tables=table_specs(sh["params"]))
 
     cfg = smoke_cfg("granite-3-8b")
@@ -148,13 +153,15 @@ def ranks(reference, tmp_path_factory):
     return spawn(tp_rank_job, 4, tmp, {a: w for a, (w, _) in reference.items()})
 
 
-PLANS = {  # name: (q heads split, kv heads split, vocabulary axes, sequence axes)
-    "granite-2x2": (True, True, ("model",), ("model",)),
-    "granite-1x4": (True, False, ("model",), ("model",)),
-    "llama3-1x4": (True, False, ("model",), ("model",)),
-    "minicpm-1x4": (False, False, ("model",), ("model",)),
-    "granite-serve-2x2": (True, False, ("model", "data"), ()),
-    "granite-opt1-2x2": (True, True, ("model",), ("model",)),
+PLANS = {  # name: (q heads split, kv heads split, the axes the queries' sequence splits
+    #         over where the q heads do not, vocabulary axes, sequence axes)
+    "granite-2x2": (True, True, (), ("model",), ("model",)),
+    "granite-1x4": (True, False, (), ("model",), ("model",)),
+    "llama3-1x4": (True, False, (), ("model",), ("model",)),
+    "minicpm-1x4": (False, False, ("model",), ("model",), ("model",)),
+    "granite-serve-2x2": (True, False, (), ("model", "data"), ()),
+    "granite-opt1-2x2": (True, True, (), ("model",), ("model",)),
+    "minicpm-serve-2x2": (False, False, ("model", "data"), ("model", "data"), ()),
 }
 
 
