@@ -188,7 +188,10 @@ Phases (any failure exits non-zero; nothing is caught):
      in float32 (TF32 off) and bf16; h17, its sharded prefill of (4, 1000)
      tokens with their frames,
      ``seed_cache`` into 1016 self-cache positions (the cross cache carried
-     as the prefill laid it out) and 16 greedy tokens on h7's meshes,
+     as the prefill laid it out) and 16 greedy tokens on h7's meshes and
+     on (2, 2) under baseline (the 4 rows on data: the decode plan keeps
+     both tables on their data shards, its ``table`` axes checked to be
+     ``('data',)``, and 51865 logit columns split unevenly over model),
      float32, logits within 1e-5 of the one-device steps and tokens
      identical; h18, h8's train step at (1, 4096) against one-device steps
      of its own (at (2, 4096) four ranks of it do not fit the card) and h9's
@@ -235,8 +238,9 @@ Phases (any failure exits non-zero; nothing is caught):
      sharded serving cells on the same fleet:
      granite-3-8b ``decode_32k`` as published (argument + temp + output below
      the card's memory, temp at most twice the reference's XLA count
-     5,664,096,168, collective bytes a device at most 1.5 x its
-     2,096,794,848, product FLOPs equal to ``hand_decode_flops``) and
+     5,664,096,168, collective bytes a device at most its 2,096,794,848,
+     product FLOPs equal to ``hand_decode_flops``, the record equal to the
+     CPU's counts of the same command (``I_DECODE_CPU``) to the byte) and
      ``prefill_32k`` cut to 4 of its 40 layers (FLOPs equal to
      ``hand_prefill_flops`` at that depth, collective bytes at most 4/40 of
      the reference's 140,338,135,088, argument + temp + output below 4/40
@@ -247,16 +251,16 @@ Phases (any failure exits non-zero; nothing is caught):
      ``train_4k`` as published, mixtral-8x22b ``train_4k`` on (16, 16) and
      dbrx-132b ``prefill_32k`` cut to 4 of its 40 layers, each against the
      reference's XLA counts (``I5_REFERENCE``): argument + temp + output
-     below the card's memory, collective bytes a device at most 1.0 x
-     (train, prefill) or 1.5 x (decode) the reference's (both scaled by the
-     share of the layers where the depth is cut), product FLOPs equal to the
-     hand counts, the temp printed beside the reference's; i6, the SSM
+     below the card's memory, collective bytes a device at most the
+     reference's (scaled by the share of the layers where the depth is
+     cut, as the memory bound), product FLOPs equal to the hand counts, the
+     temp printed beside the reference's, each decode record equal to the
+     CPU's counts to the byte; i6, the SSM
      family's production cells the same way: mamba2-2.7b ``train_4k``,
      ``prefill_32k``, ``decode_32k`` and ``long_500k`` as published on
      (16, 16), against the reference's XLA counts (``I6_REFERENCE``):
      argument + temp + output below the card's memory, collective bytes a
-     device at most 1.0 x (train, prefill) or 1.5 x (``decode_32k``) the
-     reference's and, for ``long_500k`` (one row: the weights stay on their
+     device at most the reference's and, for ``long_500k`` (one row: the weights stay on their
      ``data`` shards and the token moves), at most a fiftieth of the parent
      tree's, which gathered every weight over ``data`` (the reference's
      printed beside them), product FLOPs equal to
@@ -267,17 +271,18 @@ Phases (any failure exits non-zero; nothing is caught):
      published, its ``prefill_32k`` cut to 8 of its 80 layers, against the
      reference's XLA counts (``I7_REFERENCE``): argument + temp + output
      below the card's memory (scaled by the share of the layers where the
-     depth is cut), collective bytes a device at most 1.0 x (train,
-     prefill) or 1.5 x (decode) the reference's (long_500k: at most a
-     fiftieth of the parent tree's), product FLOPs equal to the hand counts, beside
+     depth is cut), collective bytes a device at most the reference's
+     (long_500k: at most a fiftieth of the parent tree's), product FLOPs
+     equal to the hand counts, each decode and long_500k record equal to
+     the CPU's counts to the byte, beside
      the parent's gathering and ZeRO-3 steps' figures (``I7_BEFORE``); i8,
      the encoder-decoder's production cells the same way: whisper-tiny's
      ``train_4k``, ``prefill_32k`` and ``decode_32k`` as published, each
      record's sum, temp, collective bytes and FLOPs equal to the CPU's
      counts of the same command (``I8_CPU``) to the byte, FLOPs equal to the
-     hand counts, collective bytes a device at most the reference's (train,
-     prefill) and, for ``decode_32k``, below a hundredth of the gathering
-     step's with its temp below 1 GB, beside the reference's XLA counts
+     hand counts, collective bytes a device at most the reference's and,
+     for ``decode_32k``, below a hundredth of the gathering step's with its
+     temp below 1 GB, beside the reference's XLA counts
      (``I8_REFERENCE``) and the parent's ZeRO-3 and gathering steps'
      (``I8_BEFORE``); every i3-i8 cell's temp below a parent tree's
      (``I_PARENT_TEMP``: its steps gathered every period's working weights
@@ -290,7 +295,13 @@ Phases (any failure exits non-zero; nothing is caught):
      counts (``I9_CPU``) to the byte, its FLOPs to ``hand_train_flops``,
      its argument + temp below the card's memory and below the reference's
      whole-cell temp (80,860,100,744), beside the parent tree's
-     (``I9_PARENT``);
+     (``I9_PARENT``); i10, the reference cells no other i cell traces, as
+     published on (16, 16): minicpm-2b's ``decode_32k`` (36 q heads
+     unsplit, its tied 122753-row table on ``data``) and mixtral-8x22b's
+     ``long_500k`` (one row: every weight on its ``data`` shard), each
+     record equal to the CPU's counts to the byte (``I_DECODE_CPU``), its
+     FLOPs to ``hand_decode_flops``, its collective bytes at most the
+     reference's (``I10_REFERENCE``: 718,783,648 and 29,897,224);
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -379,7 +390,8 @@ from repro_torch.serve import (Engine, EnginePool, EngineSlot, Request, Router, 
                                ServeConfig,
                                WorkerSpec, null_engine_factory)
 from repro_torch.serve.faults import KINDS, install_chaos  # noqa: E402
-from repro_torch.substrate import distribute, fake_store, init_group, make_mesh  # noqa: E402
+from repro_torch.substrate import (distribute, fake_store, gather_full, init_group,  # noqa: E402
+                                   make_mesh)
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
 # the card's published peaks (H100 SXM, dense, at 700 W): memory and float32
@@ -569,8 +581,8 @@ GRID = 32
 # h5's bounds in float32 (TF32 off) and bf16, one step; h17 its sharded
 # prefill of (H17_B, H17_P) tokens with their frames, seed_cache into
 # H17_P + H17_NEW positions (the cross cache carried) and H17_NEW greedy
-# tokens on each of H7_MESHES, float32, logits within H7_RTOL of the
-# one-device steps and tokens identical
+# tokens on each of H7_MESHES and on (2, 2) under baseline (PHASE_MESHES),
+# float32, logits within H7_RTOL of the one-device steps and tokens identical
 H16_ARCH, H16_B, H16_S, H16_SEED = "whisper-tiny", 2, 4096, 61
 H16_MESHES = (((1, 4), "baseline"), ((2, 2), "serve"))
 H17_B, H17_P, H17_NEW, H17_SEED = 4, 1000, 16, 67
@@ -608,7 +620,11 @@ H19_P, H19_NEW = 1000, 16
 SERVE_PHASES.update({
     "h19-mamba2": (H10_ARCH, H10_LAYERS, 1, H19_P, H19_P + H19_NEW, H19_NEW, H11_SEED),
     "h19-jamba": (H12_ARCH, H12_LAYERS, 1, H13_P, H13_P + H19_NEW, H19_NEW, H13_SEED)})
-PHASE_MESHES = {"h19-mamba2": H19_MESHES, "h19-jamba": H19_MESHES}
+# h17 adds the baseline on (2, 2): its 4 rows split over data, so the decode
+# plan keeps both tables on their data shards and trades the rows for their
+# columns, and 51865 divides neither axis (the logits' columns uneven)
+PHASE_MESHES = {"h19-mamba2": H19_MESHES, "h19-jamba": H19_MESHES,
+                "h17": H7_MESHES + (((2, 2), "baseline"),)}
 PHASE_CUTS = {"h12": H12_CUT, "h13": H12_CUT, "h19-jamba": H12_CUT}
 GRADS_ONLY = ("h12", "h14")
 TRAIN_STEPS = {"h16": 1}
@@ -684,7 +700,7 @@ I4_REFERENCE = {
                              "collective-permute": 1}),
 }
 I4_TEMP_OVER_REFERENCE = 2.0
-I4_COLLECTIVE_OVER_REFERENCE = {"decode_32k": 1.5, "prefill_32k": 1.0}
+I4_COLLECTIVE_OVER_REFERENCE = {"decode_32k": 1.0, "prefill_32k": 1.0}
 I4_GATHERED_DECODE = dict(temp=1_429_351_793_152, collective=765_624_156_672, flops=4.84e12)
 # i5 the MoE family's production cells on the same fleet, each through the
 # dry-run's command line in a process of its own, queued (at low priority)
@@ -744,7 +760,7 @@ I5_BEFORE = {
     ("mixtral-8x22b", "decode_32k", "moe"): dict(temp=932_958_437_888,
                                                   collective=730_872_316_416),
 }
-I5_COLLECTIVE_OVER_REFERENCE = {"train": 1.0, "prefill": 1.0, "decode": 1.5}
+I5_COLLECTIVE_OVER_REFERENCE = {"train": 1.0, "prefill": 1.0, "decode": 1.0}
 # i6 the SSM family's production cells on the same fleet, mamba2-2.7b as
 # published on the (16, 16) mesh under the baseline profile, each through
 # the dry-run's command line in a process of its own queued (at low
@@ -784,7 +800,7 @@ I6_BEFORE = {
     "decode_32k": dict(temp=76_840_518_144, collective=34_550_268_416, flops=7.0238e11),
     "long_500k": dict(temp=21_233_336_320, collective=11_622_334_464, flops=5.4873e9),
 }
-I6_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0, "decode_32k": 1.5}
+I6_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0, "decode_32k": 1.0}
 I_LONG_UNDER_PARENT = 50
 I_LONG_PARENT_COLLECTIVE = {"mamba2-2.7b": 586_402_304, "jamba-v0.1-52b": 6_507_602_912}
 # i7 the hybrid's and the VLM's production cells on the same fleet, each
@@ -847,7 +863,7 @@ I7_BEFORE = {
     ("qwen2-vl-72b", "decode_32k"): dict(temp=3_082_545_006_592, collective=1_769_281_161_216,
         total=3_094_501_558_912, flops=2.9288e+13),
 }
-I7_COLLECTIVE_OVER_REFERENCE = {"train": 1.0, "prefill": 1.0, "decode": 1.5}
+I7_COLLECTIVE_OVER_REFERENCE = {"train": 1.0, "prefill": 1.0, "decode": 1.0}
 I6_TRAIN_FLOPS_UNDER_BEFORE = 12
 # i8 the encoder-decoder's production cells on the same fleet: whisper-tiny's
 # train_4k, prefill_32k and decode_32k as published on (16, 16) under the
@@ -863,9 +879,12 @@ I6_TRAIN_FLOPS_UNDER_BEFORE = 12
 # planned steps' counts of the same command on the CPU (the card's host, each
 # period's blocks gathered where it runs, each rank attending with every head
 # of its query slice), which the card's host must print
-# to the byte.  decode_32k moves the weights where XLA moves the
-# token (Queue 1 item 14 of ROADMAP.md), so its collective bytes are held
-# below a hundredth of the gathering step's and its temp below 1 GB
+# to the byte.  decode_32k's 128 rows split over data: its tables stay on
+# their data shards (the rows traded for their columns by an all-to-all),
+# its q / k / v weights keep their model columns and its logits are never
+# gathered, as XLA partitions the reference's step (Queue 1 item 5 of
+# ROADMAP.md, closed), so its collective bytes are held to the reference's,
+# and below a hundredth of the gathering step's with its temp below 1 GB
 I8_ARCH = "whisper-tiny"
 I8_CELLS = ("train_4k", "prefill_32k", "decode_32k")
 I8_REFERENCE = {
@@ -892,12 +911,11 @@ I8_BEFORE = {
 I8_CPU = {
     "train_4k": dict(total=4_740_720_296, temp=4_642_323_992, collective=2_980_890_096,
                      flops=2_694_567_690_240),
-    "prefill_32k": dict(total=749_424_960, temp=684_314_112, collective=803_345_024,
+    "prefill_32k": dict(total=743_201_160, temp=684_314_112, collective=796_706_304,
                         flops=1_107_587_667_456),
-    "decode_32k": dict(total=518_386_080, temp=132_798_144, collective=114_725_888,
-                       flops=536_696_832),
+    "decode_32k": dict(total=410_611_424, temp=51_474_624, collective=1_644_096, flops=202_567_680),
 }
-I8_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0}
+I8_COLLECTIVE_OVER_REFERENCE = {"train_4k": 1.0, "prefill_32k": 1.0, "decode_32k": 1.0}
 I8_DECODE_OVER_BEFORE, I8_DECODE_TEMP = 0.01, 1e9
 # i9 the one production cell whose q heads do not split the model axis:
 # minicpm-2b's train_4k (36 heads on 16 ranks) on the same fleet, cut to
@@ -916,13 +934,68 @@ I9_REFERENCE = dict(argument=328_852_164, temp=80_860_100_744)
 I9_PARENT = dict(argument_temp=111_090_598_624, temp=110_872_587_292)
 I9_CPU = dict(total=12_337_836_968, temp=11_901_847_064, collective=5_595_182_992,
               flops=24_724_591_607_808)
+# i10 the reference cells phase i traced nowhere else, as published, each
+# through the dry-run's command line in a process of its own queued at the
+# check's start: minicpm-2b's decode_32k (its 36 q heads unsplit on the model
+# axis, its tied 122753-row table on data, the rows traded for its columns)
+# and mixtral-8x22b's long_500k (one row on (16, 16): every weight, the
+# router and the experts' too, on its data shard, the token moving).  Beside
+# the reference's XLA compile counts of each cell on 256 fake host devices
+# (python -m repro.launch.dryrun --arch <arch> --cell <cell> --mesh single,
+# on the CPU; its scan body counted once): argument, temp and output bytes
+# a device, collective bytes a device and its HLO's collective ops by kind;
+# each record held to the CPU's counts to the byte (I_DECODE_CPU), its
+# product FLOPs to the hand count and its collective bytes to the
+# reference's; the parent tree's temp (I_PARENT_TEMP) printed beside it
+I10_CELLS = (("minicpm-2b", "decode_32k"), ("mixtral-8x22b", "long_500k"))
+I10_REFERENCE = {
+    ("minicpm-2b", "decode_32k"): dict(
+        argument=6_149_404_260, temp=12_611_437_984, output=6_043_725_920,
+        collective=718_783_648,
+        ops={"all-gather": 13, "all-reduce": 7, "collective-permute": 2, "all-to-all": 1}),
+    ("mixtral-8x22b", "long_500k"): dict(
+        argument=2_259_476_488, temp=157_617_536, output=58_728_484, collective=29_897_224,
+        ops={"all-reduce": 13, "collective-permute": 4, "all-gather": 15}),
+}
+I10_COLLECTIVE_OVER_REFERENCE = 1.0
+# every phase i decode cell's counts of the same command on the CPU (the
+# card's host; whisper-tiny's in I8_CPU), which the card's host must print to
+# the byte: argument + temp + output, temp, collective bytes a device and
+# product FLOPs
+I_DECODE_CPU = {
+    ("granite-3-8b", "decode_32k", "single"):
+        dict(total=5_759_022_688, temp=163_699_744, collective=1_021_445_408, flops=18_907_987_968),
+    ("dbrx-132b", "decode_32k", "single"):
+        dict(total=7_975_714_880, temp=548_625_952, collective=16_340_768_000,
+             flops=147_144_613_888),
+    ("mixtral-8x22b", "decode_32k", "moe"):
+        dict(total=3_565_310_272, temp=331_194_144, collective=17_631_265_792,
+             flops=143_287_924_736),
+    ("mamba2-2.7b", "decode_32k", "single"):
+        dict(total=253_324_116, temp=9_786_452, collective=357_670_368, flops=2_764_333_056),
+    ("mamba2-2.7b", "long_500k", "single"):
+        dict(total=111_326_536, temp=16_295_840, collective=2_786_464, flops=41_595_392),
+    ("jamba-v0.1-52b", "decode_32k", "single"):
+        dict(total=3_090_694_208, temp=1_732_140_224, collective=6_398_291_712,
+             flops=52_297_793_536),
+    ("jamba-v0.1-52b", "long_500k", "single"):
+        dict(total=2_024_263_576, temp=143_007_888, collective=4_257_184, flops=2_547_979_712),
+    ("qwen2-vl-72b", "decode_32k", "single"):
+        dict(total=12_132_025_984, temp=253_026_304, collective=8_875_059_456,
+             flops=114_408_030_208),
+    ("minicpm-2b", "decode_32k", "single"):
+        dict(total=12_504_067_104, temp=314_619_040, collective=321_958_944, flops=8_764_526_592),
+    ("mixtral-8x22b", "long_500k", "single"):
+        dict(total=2_337_288_936, temp=19_084_000, collective=9_069_856, flops=1_450_084_096),
+}
 
 
 # each phase i cell's temp a device in a parent tree's trace on the card's
 # host, by (arch, cell, mesh kind): of the steps that gathered every period's
 # working weights before the model ran, and for the long_500k cells of the
 # decode step that gathered each period's weights over data where it ran;
-# each cell's temp is held below it
+# each i3-i8 cell's temp is held below it (i10's printed beside it: their
+# parent's steps kept the weights where these do)
 I_PARENT_TEMP = {
     ("granite-3-8b", "train_4k", "single"): 19_353_010_204,
     ("granite-3-8b", "decode_32k", "single"): 2_569_575_456,
@@ -947,6 +1020,8 @@ I_PARENT_TEMP = {
     ("whisper-tiny", "train_4k", "single"): 27_641_091_864,
     ("whisper-tiny", "prefill_32k", "single"): 832_790_016,
     ("whisper-tiny", "decode_32k", "single"): 142_868_160,
+    ("minicpm-2b", "decode_32k", "single"): 1_166_644_512,
+    ("mixtral-8x22b", "long_500k", "single"): 19_084_000,
 }
 
 # the limit the whole check must end within, and each path's phase label in the
@@ -982,6 +1057,7 @@ TRACE_COST_S = {
     ("qwen2-vl-72b", "prefill_32k", "single"): 255.5,
     ("whisper-tiny", "train_4k", "single"): 36.1, ("whisper-tiny", "prefill_32k", "single"): 32.3,
     ("whisper-tiny", "decode_32k", "single"): 24.0, ("minicpm-2b", "train_4k", "single"): 24.0,
+    ("minicpm-2b", "decode_32k", "single"): 40.0, ("mixtral-8x22b", "long_500k", "single"): 50.0,
 }
 
 
@@ -3293,13 +3369,24 @@ def h7_prompts(cfg, device, phase: str = "h7") -> tuple[dict, torch.Tensor | Non
     return out, None
 
 
+def mesh_key(phase: str, shape: tuple, profile: str) -> str:
+    """A serving phase's record key for one of its meshes: the profile, and
+    the mesh's shape beside it where the phase runs the profile twice."""
+    meshes = PHASE_MESHES.get(phase, H7_MESHES)
+    if sum(p == profile for _, p in meshes) == 1:
+        return profile
+    return f"{profile} {'x'.join(map(str, shape))}"
+
+
 def h7_run(prefill, decode, seed, params, prompts, sync, new: int = H7_NEW) -> dict:
     """Prefill ``prompts`` (``h7_prompts``' pair: the inputs and the decode
     positions), move the cache into the decode cache (``seed``), then
     ``new`` greedy steps: each step's logits (on the host) and tokens, the
     prefill's ms and each decode step's, each timed between ``sync`` and a
     synchronize; the peak memory of the prefill and the seeding (since the
-    caller's reset) and of the decode steps alone."""
+    caller's reset) and of the decode steps alone.  A sharded step's logits
+    (a ``DTensor`` on the rows and columns that computed them) are gathered
+    whole after the timed call."""
     inputs, positions = prompts
     sync()
     t = time.perf_counter()
@@ -3310,6 +3397,7 @@ def h7_run(prefill, decode, seed, params, prompts, sync, new: int = H7_NEW) -> d
     del pcache
     prefill_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    logits = gather_full(logits)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     steps, decode_ms = [(logits.cpu(), tok.cpu())], []
     P = inputs["tokens" if "tokens" in inputs else "embeds"].shape[1]
@@ -3322,7 +3410,7 @@ def h7_run(prefill, decode, seed, params, prompts, sync, new: int = H7_NEW) -> d
         tok, logits, cache = decode(params, cache, step_in)
         torch.cuda.synchronize()
         decode_ms.append((time.perf_counter() - t) * 1e3)
-        steps.append((logits.cpu(), tok.cpu()))
+        steps.append((gather_full(logits).cpu(), tok.cpu()))
     return dict(steps=steps, prefill_ms=prefill_ms, decode_ms=decode_ms,
                 prefill_peak=prefill_peak, decode_peak=torch.cuda.max_memory_allocated())
 
@@ -3351,18 +3439,15 @@ def serve_work(device, phase: str = "h7") -> dict:
                          prompts, dist.barrier, new)
             (tp, _), = dec._plans.values()
             (prefill_tp, _, _), = fwd._plans.values()
-            out[profile] = dict(run, max_memory_allocated=max(run["prefill_peak"],
-                                                              run["decode_peak"]),
-                                plan=dict(q_local=tp.q_local, kv_local=tp.kv_local,
-                                          q_slice=prefill_tp.q_slice_axes,
-                                          qkv=tp.qkv_axes, cache_rows=tp.cache_row_axes,
-                                          cache_seq=tp.cache_seq_axes,
-                                          cross_seq=tp.cross_seq_axes,
-                                          ssm_heads=tp.ssm_head_axes,
-                                          ssm_columns=tp.ssm_in_axes,
-                                          cache_conv=tp.cache_conv_axes,
-                                          experts=tp.expert_axes,
-                                          stationary=tp.stationary_axes))
+            out[mesh_key(phase, shape, profile)] = dict(
+                run, max_memory_allocated=max(run["prefill_peak"], run["decode_peak"]),
+                plan=dict(q_local=tp.q_local, kv_local=tp.kv_local,
+                          q_slice=prefill_tp.q_slice_axes, qkv=tp.qkv_axes,
+                          cache_rows=tp.cache_row_axes, cache_seq=tp.cache_seq_axes,
+                          cross_seq=tp.cross_seq_axes, ssm_heads=tp.ssm_head_axes,
+                          ssm_columns=tp.ssm_in_axes, cache_conv=tp.cache_conv_axes,
+                          experts=tp.expert_axes, stationary=tp.stationary_axes,
+                          tables=tp.table_axes, logit_cols=tp.logit_axes))
             del params, fwd, dec
             gc.collect()
             torch.cuda.empty_cache()
@@ -3455,19 +3540,20 @@ def check_serve(phase: str, one: dict, ranks: list, card: str) -> dict:
                                max_memory_allocated=one["max_memory_allocated"]))
     want_tokens = [tok for _, tok in one["steps"]]
     for shape, profile in PHASE_MESHES.get(phase, H7_MESHES):
-        by_step = [max(rel_err(r[profile]["steps"][i][0], w) for r in ranks)
+        key = mesh_key(phase, shape, profile)
+        by_step = [max(rel_err(r[key]["steps"][i][0], w) for r in ranks)
                    for i, (w, _) in enumerate(one["steps"])]
-        errs = [max(rel_err(lg, w) for (lg, _), (w, _) in zip(r[profile]["steps"], one["steps"]))
+        errs = [max(rel_err(lg, w) for (lg, _), (w, _) in zip(r[key]["steps"], one["steps"]))
                 for r in ranks]
-        same = [all(tok.equal(w) for (_, tok), w in zip(r[profile]["steps"], want_tokens))
+        same = [all(tok.equal(w) for (_, tok), w in zip(r[key]["steps"], want_tokens))
                 for r in ranks]
-        row = dict(mesh=list(shape), plan=ranks[0][profile]["plan"], rel_err=errs,
+        row = dict(mesh=list(shape), plan=ranks[0][key]["plan"], rel_err=errs,
                    rel_err_by_step=by_step, tokens_identical=same, bound=bound,
-                   rank_max_memory_allocated=[r[profile]["max_memory_allocated"] for r in ranks],
-                   rank_decode_peak=[r[profile]["decode_peak"] for r in ranks],
-                   gloo_on_one_card_prefill_ms=[r[profile]["prefill_ms"] for r in ranks],
-                   gloo_on_one_card_decode_ms=[r[profile]["decode_ms"] for r in ranks])
-        out[profile] = row
+                   rank_max_memory_allocated=[r[key]["max_memory_allocated"] for r in ranks],
+                   rank_decode_peak=[r[key]["decode_peak"] for r in ranks],
+                   gloo_on_one_card_prefill_ms=[r[key]["prefill_ms"] for r in ranks],
+                   gloo_on_one_card_decode_ms=[r[key]["decode_ms"] for r in ranks])
+        out[key] = row
         log(f"phase {phase}: {arch} {depth(arch, layers)}"
             f"{' ' + str(out['cut']) if out['cut'] else ''}, float32, prefill ({B}, {P}) into a "
             f"{cache_len}-position cache and {new} greedy tokens, sharded on a (data, model) = "
@@ -3483,15 +3569,19 @@ def check_serve(phase: str, one: dict, ranks: list, card: str) -> dict:
             f"(one device: prefill {one['prefill_ms']:.1f}, decode mean "
             f"{sum(one['decode_ms']) / len(one['decode_ms']):.2f}); card {card}")
         check(all(math.isfinite(float(lg.abs().max())) for r in ranks
-                  for lg, _ in r[profile]["steps"]), f"{phase} {profile}: logits not finite")
+                  for lg, _ in r[key]["steps"]), f"{phase} {key}: logits not finite")
         check(all(e <= bound for e in errs),
-              f"{phase} {profile}: the sharded steps are off the one-device steps by {errs} "
+              f"{phase} {key}: the sharded steps are off the one-device steps by {errs} "
               f"(bound {bound})")
-        check(all(same), f"{phase} {profile}: the sharded steps' tokens differ: {same}")
-        if phase in PHASE_MESHES:   # h19: the weights stayed on their data shards
-            check(all(r[profile]["plan"]["stationary"] == ("data",) for r in ranks),
-                  f"{phase} {profile}: the decode plan's stationary axes are "
-                  f"{[r[profile]['plan']['stationary'] for r in ranks]}, not ('data',)")
+        check(all(same), f"{phase} {key}: the sharded steps' tokens differ: {same}")
+        if phase.startswith("h19"):   # the weights stayed on their data shards
+            check(all(r[key]["plan"]["stationary"] == ("data",) for r in ranks),
+                  f"{phase} {key}: the decode plan's stationary axes are "
+                  f"{[r[key]['plan']['stationary'] for r in ranks]}, not ('data',)")
+        if B > 1 and shape[0] > 1 and profile == "baseline":   # the rows split over data
+            check(all(r[key]["plan"]["tables"] == ("data",) for r in ranks),
+                  f"{phase} {key}: the decode plan's table axes are "
+                  f"{[r[key]['plan']['tables'] for r in ranks]}, not ('data',)")
     return out
 
 
@@ -4117,6 +4207,8 @@ def check_i4(rec: dict, cell_name: str, layers: int, card_bytes: int, card: str)
         f"card {card}")
     below_parent(f"i4 {cell_name}", (I3_ARCH, cell_name, I3_MESH), mem["temp_size_in_bytes"])
     if cell.kind == "decode":
+        same_as_cpu(f"i4 {cell_name}", (I3_ARCH, cell_name, I3_MESH), rec)
+    if cell.kind == "decode":
         g = I4_GATHERED_DECODE
         log(f"phase i4: decode_32k before (the gathering step): temp {g['temp']}, collective "
             f"bytes a device {g['collective']}, FLOPs {g['flops']:.3e}; now "
@@ -4194,6 +4286,8 @@ def check_i5(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
             f"FLOPs {flops:.6e}, the hand count {hand:.6e}; before (ZeRO-3 or gathering): "
             f"{row['before']}; the parent's temp {row['parent_temp']}; card {card}")
         below_parent(what, (arch, cell_name, mesh), mem["temp_size_in_bytes"])
+        if cell.kind == "decode":
+            same_as_cpu(what, (arch, cell_name, mesh), rec)
         check(total < card_bytes * share,
               f"{what}: argument + temp + output {total} above {card_bytes * share}")
         check(over <= I5_COLLECTIVE_OVER_REFERENCE[cell.kind],
@@ -4261,6 +4355,8 @@ def check_i6(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
             f"count {hand:.6e} (before: {before['flops']:.4e}); before: temp {before['temp']}; "
             f"the parent's temp {row['parent_temp']}; card {card}")
         below_parent(what, (I6_ARCH, cell_name, I6_MESH), mem["temp_size_in_bytes"])
+        if cell.kind == "decode":
+            same_as_cpu(what, (I6_ARCH, cell_name, I6_MESH), rec)
         check(total < card_bytes, f"{what}: argument + temp + output {total} above {card_bytes}")
         if cell_name in I6_COLLECTIVE_OVER_REFERENCE:
             check(row["collectives_over_reference"] <= I6_COLLECTIVE_OVER_REFERENCE[cell_name],
@@ -4300,7 +4396,10 @@ def planned_parts(cfg, shape: dict, cell) -> dict:
     the cache's rows and sequence, an encoder-decoder's cross cache's
     sequence (the frames'); a decode step's weights' embed axes that its
     rows leave whole (``embed``: the plan's stationary axes), wk's columns
-    (``kv``) and the conv history's channels (``conv``)."""
+    (``kv``) and the conv history's channels (``conv``); a decode step's
+    tables' embed axes that its rows split (``table``) and, where the
+    vocabulary does not split, the axes its logits' columns split over
+    (``logits``)."""
     def axes(entry) -> tuple:
         return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
 
@@ -4344,8 +4443,14 @@ def planned_parts(cfg, shape: dict, cell) -> dict:
         parts["kv"] = n(spec(layer["attn"]["wk"])[2])
     embed = {ax for p in tree_leaves(specs) for e, lname in zip(spec(p), p.logical)
              if lname in ("embed", "embed_d") for ax in axes(e)}
-    parts["embed"] = n(tuple(ax for ax in shape if ax in embed and ax not in axes(stream[0])
+    rows = axes(stream[0])
+    parts["embed"] = n(tuple(ax for ax in shape if ax in embed and ax not in rows
                              and shape[ax] > 1)) if cell.kind == "decode" else 1
+    if cell.kind == "decode":
+        tables = set(axes(spec(specs["embed"])[1]))
+        parts["table"] = n(tuple(ax for ax in rows if ax in tables))
+        if parts["table"] > 1 and parts["vocab"] == 1:
+            parts["logits"] = n(tuple(ax for ax in shape if ax not in rows))
     return parts
 
 
@@ -4407,6 +4512,8 @@ def check_i7(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
             f"{before if before else 'not traced'}; the parent's temp {row['parent_temp']}; "
             f"card {card}")
         below_parent(what, (arch, cell_name, "single"), mem["temp_size_in_bytes"])
+        if cell.kind == "decode":
+            same_as_cpu(what, (arch, cell_name, "single"), rec)
         check(total < card_bytes * share,
               f"{what}: argument + temp + output {total} above {card_bytes * share}")
         if cell_name == "long_500k":
@@ -4485,10 +4592,9 @@ def check_i8(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
                   and mem["temp_size_in_bytes"] < I8_DECODE_TEMP,
                   f"{what}: collective bytes {got} against {I8_DECODE_OVER_BEFORE} x the "
                   f"gathering step's {before['collective']}, temp {mem['temp_size_in_bytes']}")
-        else:
-            check(row["collectives_over_reference"] <= I8_COLLECTIVE_OVER_REFERENCE[cell_name],
-                  f"{what}: collective bytes {row['collectives_over_reference']:.4f} x the "
-                  f"reference's, above {I8_COLLECTIVE_OVER_REFERENCE[cell_name]}")
+        check(row["collectives_over_reference"] <= I8_COLLECTIVE_OVER_REFERENCE[cell_name],
+              f"{what}: collective bytes {row['collectives_over_reference']:.4f} x the "
+              f"reference's, above {I8_COLLECTIVE_OVER_REFERENCE[cell_name]}")
     log(f"phase i8: {time.perf_counter() - t0:.1f} s from the traces' start to their last "
         f"record")
     return rows
@@ -4543,6 +4649,74 @@ def check_i9(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> di
     return row
 
 
+def start_i10(out: str) -> list:
+    """Phase i10's traces, queued as the others."""
+    return [start_dryrun(out, cell, 0, arch, "single") for arch, cell in I10_CELLS]
+
+
+def check_i10(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> dict:
+    """Phase i10: each cell's record against the reference's counts and the
+    CPU's: sum, temp, collective bytes and FLOPs equal to ``I_DECODE_CPU``
+    to the byte, argument + temp + output below the card's memory, product
+    FLOPs equal to ``hand_decode_flops`` with ``planned_parts``, collective
+    bytes a device at most ``I10_COLLECTIVE_OVER_REFERENCE`` x the
+    reference's; the parent tree's temp printed beside them."""
+    rows = {}
+    for arch, cell_name in I10_CELLS:
+        what = f"i10 {arch} {cell_name}"
+        rec = finish_dryrun(procs[arch, cell_name, "single"], out, cell_name, what, arch,
+                            "single", timeout=max(1.0, I5_TIMEOUT_S - (time.perf_counter() - t0)))
+        cfg, cell = configs.get(arch), configs.SHAPES[cell_name]
+        parts = planned_parts(cfg, rec["mesh_shape"], cell)
+        hand = hand_decode_flops(cfg, cell.global_batch, cell.seq_len, parts)
+        mem, coll, flops = rec["memory_analysis"], rec["collectives"], rec["cost_analysis"]["flops"]
+        ref = I10_REFERENCE[arch, cell_name]
+        total = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] + \
+            mem["output_size_in_bytes"]
+        got = coll["collective_bytes_per_device"]
+        row = dict(arch=arch, cell=cell_name, trace_s=rec["lower_s"], memory=mem,
+                   argument_temp_output=total, card_bytes=card_bytes,
+                   collective_bytes_per_device=got,
+                   collective_by_kind=coll["collective_bytes_per_device_by_kind"],
+                   collective_ops=coll["op_counts"], flops=flops, hand_flops=hand, parts=parts,
+                   reference=ref, card=card, parent_temp=I_PARENT_TEMP[arch, cell_name, "single"],
+                   temp_over_reference=mem["temp_size_in_bytes"] / ref["temp"],
+                   collectives_over_reference=got / ref["collective"])
+        rows[f"{arch}/{cell_name}"] = row
+        log(f"phase i10: {arch} {cell_name} as published on the {rec['mesh_shape']} mesh of "
+            f"{math.prod(rec['mesh_shape'].values())} fake ranks, planned: trace "
+            f"{rec['lower_s']} s; argument {mem['argument_size_in_bytes']} / temp "
+            f"{mem['temp_size_in_bytes']} / output {mem['output_size_in_bytes']} bytes a device "
+            f"(the reference's {ref['argument']} / {ref['temp']} / {ref['output']}; temp "
+            f"{row['temp_over_reference']:.4f} x), argument + temp + output {total} against the "
+            f"card's {card_bytes}; collective bytes a device {got:.0f} by kind "
+            f"{coll['collective_bytes_per_device_by_kind']}, ops {coll['op_counts']}, "
+            f"{row['collectives_over_reference']:.4f} x the reference's {ref['collective']} (its "
+            f"HLO's ops {ref['ops']}); product FLOPs {flops:.6e}, the hand count {hand:.6e}; "
+            f"the parent's temp {row['parent_temp']}; card {card}")
+        same_as_cpu(what, (arch, cell_name, "single"), rec)
+        check(total < card_bytes, f"{what}: argument + temp + output {total} above {card_bytes}")
+        check(flops == hand, f"{what}: {flops} product FLOPs, the hand count {hand}")
+        check(row["collectives_over_reference"] <= I10_COLLECTIVE_OVER_REFERENCE,
+              f"{what}: collective bytes {row['collectives_over_reference']:.4f} x the "
+              f"reference's, above {I10_COLLECTIVE_OVER_REFERENCE}")
+    return rows
+
+
+def same_as_cpu(what: str, key: tuple, rec: dict) -> None:
+    """A decode record's argument + temp + output, temp, collective bytes a
+    device and product FLOPs equal to the CPU's counts (``I_DECODE_CPU``) to
+    the byte."""
+    mem = rec["memory_analysis"]
+    here = dict(total=mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                + mem["output_size_in_bytes"], temp=mem["temp_size_in_bytes"],
+                collective=rec["collectives"]["collective_bytes_per_device"],
+                flops=rec["cost_analysis"]["flops"])
+    cpu = I_DECODE_CPU[key]
+    log(f"{what}: {here}, the CPU's counts {cpu}")
+    check(here == cpu, f"{what}: {here}, not the CPU's counts {cpu}")
+
+
 def traced_train_flops(cfg, B: int, S: int) -> int:
     """The product FLOPs one train step of a swiglu decoder runs, as the
     dry-run counts them: ``train_bounds``' products, but every (q, k) tile
@@ -4564,7 +4738,7 @@ def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float)
     ``start_analysis`` queued at the check's start (``procs``, their output in
     ``out``): i1, the dry-run of g2's cell, then i2, the roofline of the
     cells g2 and e2 ran, on a one-rank fake world (this process's default
-    group for i2 alone); i3, i4, i5, i6, i7, i8 and i9."""
+    group for i2 alone); i3, i4, i5, i6, i7, i8, i9 and i10."""
     card = smi("name,power.limit")
     t3 = time.perf_counter()
     i1, i2 = analysis_one_rank(device, g2, e2, card, procs["i1"], out)
@@ -4620,8 +4794,9 @@ def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float)
     i7 = check_i7(procs, out, t0, card_bytes, card)
     i8 = check_i8(procs, out, t0, card_bytes, card)
     i9 = check_i9(procs, out, t0, card_bytes, card)
+    i10 = check_i10(procs, out, t0, card_bytes, card)
     return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, i5=i5, i6=i6, i7=i7, i8=i8,
-                i9=i9, card=card)
+                i9=i9, i10=i10, card=card)
 
 
 def i1_trace(out: str, device: str = "cuda") -> None:
@@ -4652,7 +4827,8 @@ def phase_i_traces(out: str) -> list[Trace]:
     i6's, i7's, i8's and i9's."""
     traces = [start_i1(out), start_dryrun(out, I3_CELL, key="i3")]
     traces += [start_dryrun(out, cell, layers, key=cell) for cell, layers in I4_CELLS]
-    return traces + start_i5(out) + start_i6(out) + start_i7(out) + start_i8(out) + start_i9(out)
+    return traces + start_i5(out) + start_i6(out) + start_i7(out) + start_i8(out) + \
+        start_i9(out) + start_i10(out)
 
 
 def start_analysis(out: str) -> TraceQueue:

@@ -75,7 +75,7 @@ from ..models.ssm import (_causal_conv, _conv_params, _gated_norm, _in_proj, _ou
 from ..models.tensor_parallel import (TensorParallel, expert_leaves, plan_decode,
                                       plan_prefill, plan_train, spec_entry,
                                       weight_leaves)
-from ..models.transformer import _xent_chunk, embed_tokens
+from ..models.transformer import _xent_chunk, embed_tokens, unembed
 from ..substrate import CostCounter, Sharding, local_value, mesh_context
 from .dryrun import laid_out
 from .hlo_stats import collective_stats
@@ -443,12 +443,13 @@ def build_probes(cfg: ArchConfig, cell: ShapeCell, mesh) -> list[Probe]:
     if decode:
         tok = _abs((B, 1), i32)
 
+        tied = dataclasses.replace(cfg, tie_embeddings=True)  # the probe's one table
+
         def emb_unemb(p, t, tp=None):
             if tp is None:
                 x = F.embedding(t, p["embed"]).to(bf16)
                 return (x @ p["embed"].T.to(bf16)).float()
-            x = embed_tokens(p, cfg, t, tp=tp)
-            return tp.whole_logits(tp.embed_in(x, p["embed"].T.to(x.dtype)).float())
+            return unembed(p, tied, embed_tokens(p, cfg, t, tp=tp), tp)
 
         add("embed+unembed", emb_unemb, emb_spec,
             (tok,), (_sh(mesh, tok.shape, ("batch", "none")),), 1, False)

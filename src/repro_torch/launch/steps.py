@@ -371,15 +371,18 @@ class PrefillStep:
         """``Model.prefill``: (the cache, the last token's logits).  Without
         a mesh on the parameters and inputs as they are; on a mesh sharded,
         the cache as ``DTensor``s laid out by ``Model.cache_specs`` of the
-        batch's shape at every position."""
+        batch's shape at every position, the logits a ``DTensor`` on the
+        stream's rows and the vocabulary's columns where it splits
+        (:func:`logits_tensor`)."""
         if self.mesh is None:
             return self.model.prefill(params, batch)
-        tp, layouts, cache_sh = self.plan(batch["tokens"] if "tokens" in batch
-                                          else batch["embeds"])
+        x = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        tp, layouts, cache_sh = self.plan(x)
         work = tp.weights(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
                           weight_leaves(self.model.specs()))
         cache, logits = self.model.prefill(work, _stream_inputs(batch, tp), tp)
-        return tree_map_sorted(from_shard, cache, cache_sh), logits
+        return tree_map_sorted(from_shard, cache, cache_sh), \
+            logits_tensor(logits, tp, x.shape[0], self.model.cfg.vocab)
 
 
 def build_prefill(model: Model, mesh):
@@ -413,21 +416,33 @@ class DecodeStep:
     @torch.no_grad()
     def __call__(self, params, cache, inputs: dict):
         """One greedy token: (next token (B,) int32, logits (B, 1, V), the
-        cache), the token and logits whole on every rank; the cache written
-        in place (on a mesh each rank's shard, the same ``DTensor``s)."""
+        cache), the token whole on every rank; the cache written in place
+        (on a mesh each rank's shard, the same ``DTensor``s).  On a mesh the
+        logits are a ``DTensor`` on the stream's rows and their columns
+        (:func:`logits_tensor`), never gathered, and the token their argmax
+        over the ranks that split the columns
+        (``TensorParallel.next_tokens``)."""
         if self.mesh is None:
             logits, cache = self.model.decode(params, cache, inputs["tokens"], inputs["pos"],
                                               positions=inputs.get("positions"))
-        else:
-            tp, layouts = self.plan(inputs["tokens"], cache)
-            work = tp.weights(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
-                              weight_leaves(self.model.specs()))
-            rows = _stream_inputs(inputs, tp)
-            logits, _ = self.model.decode(work, tree_map_sorted(local_value, cache),
-                                          rows["tokens"], inputs["pos"],
-                                          positions=rows.get("positions"), tp=tp)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok, logits, cache
+            return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), logits, cache
+        tp, layouts = self.plan(inputs["tokens"], cache)
+        V = self.model.cfg.vocab
+        work = tp.weights(params, layouts, torch_dtype(self.model.cfg.compute_dtype),
+                          weight_leaves(self.model.specs()))
+        rows = _stream_inputs(inputs, tp)
+        logits, _ = self.model.decode(work, tree_map_sorted(local_value, cache),
+                                      rows["tokens"], inputs["pos"],
+                                      positions=rows.get("positions"), tp=tp)
+        return tp.next_tokens(logits, V), \
+            logits_tensor(logits, tp, inputs["tokens"].shape[0], V), cache
+
+
+def logits_tensor(logits: torch.Tensor, tp: TensorParallel, B: int, n_vocab: int) -> DTensor:
+    """This rank's (rows, 1, columns) logits as the ``DTensor`` of the
+    (B, 1, V) logits laid out by ``tp.logits_spec()`` (its columns uneven
+    where the vocabulary does not divide their axes); no collective."""
+    return from_shard(logits, Sharding(tp.mesh, tp.logits_spec()), shape=(B, 1, n_vocab))
 
 
 def build_decode(model: Model, mesh, cell: ShapeCell):

@@ -188,12 +188,11 @@ def loss(params, cfg: ArchConfig, frames, tokens, labels, tp=None):
 
 def prefill(params, cfg: ArchConfig, frames, tokens, tp=None):
     """(the caches, the last token's logits (B, 1, V) float32); on a plan
-    the caches are this rank's shards and the logits whole."""
+    the caches are this rank's shards and the logits its rows and vocabulary
+    columns."""
     hidden, cache = decode_full(params, cfg, tokens, encode(params, cfg, frames, tp),
                                 want_cache=True, tp=tp)
-    if tp is None:
-        return cache, unembed(params, cfg, hidden[:, -1:])
-    return cache, tp.whole_logits(unembed(params, cfg, tp.last_token(hidden)))
+    return cache, unembed(params, cfg, hidden[:, -1:] if tp is None else tp.last_token(hidden))
 
 
 def _cross_decode(bp, h, cache, cfg: ArchConfig, tp=None):
@@ -230,12 +229,12 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, pos: int, tp=None):
     """One decoder token at position ``pos``.  cache: {self: {k, v (L, B,
     Sc, Hkv, hd)}, cross: {...}}; the self-attn cache is written in place.
     Returns (logits (B, 1, V) float32, cache).  On a decode plan the tokens
-    are this rank's stream rows, the caches its shards, the logits whole."""
+    are this rank's stream rows, the caches its shards, the logits its rows
+    and columns of them."""
     x = embed_tokens(params, cfg, tokens, tp=tp)
     x = x + sinusoidal_embedding(1, cfg.d_model, offset=pos, device=x.device).to(x.dtype)[None]
     for i in range(cfg.n_layers):
         x = at_period(_dec_decode, cfg, params["dec_blocks"], i, x, layer_params(cache, i), pos,
                       tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params, cfg, x, tp)
-    return (logits if tp is None else tp.whole_logits(logits)), cache
+    return unembed(params, cfg, x, tp), cache

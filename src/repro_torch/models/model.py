@@ -72,7 +72,8 @@ class Model:
         ``tp`` (a ``plan_prefill`` plan): ``params`` are this rank's working
         shards and ``batch`` its slice of the stream (and of the frames);
         the cache is this rank's shard (every position, a sliding window's
-        too; the cross cache in its own layout) and the logits are whole."""
+        too; the cross cache in its own layout) and the logits its rows and
+        vocabulary columns (``TensorParallel.logits_spec``)."""
         cfg = self.cfg
         if cfg.family == "encdec":
             return encdec.prefill(params, cfg, batch["frames"], batch["tokens"], tp)
@@ -84,15 +85,13 @@ class Model:
             want_cache=True,
             tp=tp,
         )
-        if tp is None:
-            return cache, transformer.unembed(params, self.cfg, hidden[:, -1:])
-        return cache, tp.whole_logits(transformer.unembed(params, self.cfg,
-                                                          tp.last_token(hidden)))
+        return cache, transformer.unembed(params, self.cfg, hidden[:, -1:] if tp is None
+                                          else tp.last_token(hidden))
 
     def decode(self, params, cache, tokens, pos: int, positions=None, tp=None):
         """One token at position ``pos``; the cache is written in place.
         ``tp`` (a ``plan_decode`` plan): this rank's working shards, stream
-        rows and cache shard; the logits are whole."""
+        rows and cache shard; the logits its rows and columns of them."""
         if self.cfg.family == "encdec":
             return encdec.decode_step(params, self.cfg, cache, tokens, pos, tp)
         return transformer.decode_step(params, self.cfg, cache, tokens=tokens,

@@ -91,11 +91,29 @@ under ``serve``, where the stream's batch does not) and its sequence on
   cache's sequence (``model``) or rows (``data`` under ``serve``): the cache
   shard's bytes, once an axis.  The last token's hidden state lies on
   the rank holding position S - 1: it is gathered over the sequence, and
-  the logits (vocab-parallel where the vocabulary splits) gathered whole.
-* Decode's stream is this rank's batch rows of one token.  q covers every
-  head (gathered over the ``qkv`` axes, one token a row), each rank attends
-  over its sequence slice of the cache with a partial softmax, the partials
-  are combined over the ``cache_seq`` axes, and ``wo`` runs row-parallel.
+  the logits (vocab-parallel where the vocabulary splits) stay on this
+  rank's rows and columns.
+* Decode's stream is this rank's batch rows of one token.  ``wq``, ``wk``
+  and ``wv`` keep their ``qkv`` columns whether or not the heads split
+  (gathered over their embed axes only): each rank projects its rows onto
+  its columns and q, k and v are gathered over the ``qkv`` axes, every head
+  a row; each rank attends over its sequence slice of the cache with a
+  partial softmax, the partials are combined over the ``cache_seq`` axes,
+  and ``wo`` runs row-parallel.
+* Where decode's rows split over the tables' embed axes (``data`` under the
+  baseline profile: :attr:`TensorParallel.table_axes`), the tables stay on
+  their embed shards, as XLA partitions the reference's step: the rows'
+  token ids are gathered over those axes, each rank looks up its columns of
+  every row and one all-to-all brings each row's columns to the rank that
+  holds it; the unembedding sends the columns back by the inverse
+  all-to-all, each rank computes every row's partial logits on its
+  vocabulary columns (the ``vocab`` shard, or a ``torch.chunk``-style
+  slice of them over the other axes where the vocabulary does not split:
+  :attr:`TensorParallel.logit_axes`) and a reduce-scatter brings them back
+  onto the rows.  No serving step gathers the logits: they stay on the
+  stream's rows and their columns (:meth:`TensorParallel.logits_spec`), and
+  decode's next token is an argmax over the column axes
+  (:meth:`TensorParallel.next_tokens`).
 * Where decode's rows do not split over a weight's ``embed`` axes (one row
   under the baseline profile: the rows leave ``data`` whole), the weights
   stay on their embed shards and the token moves, as XLA partitions the
@@ -399,10 +417,11 @@ def hand_prefill_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -
 def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) -> int:
     """The product FLOPs one rank runs in a decoder's sharded decode step of
     B tokens against a cache of S positions, counted by hand (the dry-run's
-    trace must equal it; ``parts`` as :func:`hand_prefill_flops`).  An
-    attention layer: q on this rank's stream rows and q heads, k and v on
-    them with this rank's kv heads where they split, else every kv head (the
-    whole ``wk`` / ``wv``); the scores and the weighted sum of v for every q
+    trace must equal it; ``parts`` as :func:`hand_prefill_flops`, with
+    ``parts["kv"]`` the ranks ``wk``'s columns split over where the kv heads
+    do not split).  An attention layer: q, k and v on this rank's stream
+    rows and its columns of ``wq``, ``wk`` and ``wv`` (whether or not their
+    heads split); the scores and the weighted sum of v for every q
     head over this rank's cache rows and sequence slice (a sliding window's
     cache holds ``min(S, window)`` positions); its rows of ``wo``.  An SSM
     layer: ``in_proj`` on this rank's stream rows and stored columns, the
@@ -413,11 +432,13 @@ def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) ->
     weighted sum over this rank's cache rows and ``cross_seq`` slice of the
     frames.  Then its columns of the MLP, or the MoE block
     (:func:`_moe_products` of one-token groups); the logits on its rows and
-    vocabulary columns.  Where ``parts["embed"]`` > 1 (the plan's
-    stationary axes) every product's ``d_model`` is split over them, q, k
-    and v run on their weights' columns (``parts["qkv"]``, and
-    ``parts["kv"]`` where the kv heads do not split whole) and the conv on
-    this rank's channels of the history (``parts["conv"]``)."""
+    vocabulary columns: where ``parts["table"]`` > 1 (the plan's table
+    axes) on every row of those ranks and this rank's columns of
+    ``d_model`` over them, and on its chunk of ``ceil(V /
+    parts["logits"])`` columns where the vocabulary does not split.  Where
+    ``parts["embed"]`` > 1 (the plan's stationary axes) every product's
+    ``d_model`` is split over them and the conv runs on this rank's
+    channels of the history (``parts["conv"]``)."""
     e = parts.get("embed", 1)
     d, hd = cfg.d_model // e, cfg.hd
     rows = B // parts["batch"]
@@ -425,10 +446,9 @@ def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) ->
     for mixer, channel in cfg.layer_pattern():
         if mixer == "attn":
             n = parts["qkv"]
-            q_local, kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)
-            q_cols = cfg.n_heads * hd // (n if q_local or e > 1 else 1)
-            kv_cols = cfg.n_kv_heads * hd // (n if kv_local else parts.get("kv", 1) if e > 1
-                                              else 1)
+            kv_local = head_split(cfg.n_heads, cfg.n_kv_heads, n)[1]
+            q_cols = cfg.n_heads * hd // n
+            kv_cols = cfg.n_kv_heads * hd // (n if kv_local else parts["kv"])
             period += 2 * rows * d * (q_cols + 2 * kv_cols) \
                 + 2 * rows * (cfg.n_heads * hd // n) * d \
                 + 4 * (B // parts["cache_batch"]) * cfg.n_heads * hd \
@@ -448,7 +468,9 @@ def hand_decode_flops(cfg: ArchConfig, B: int, S: int, parts: dict[str, int]) ->
             m = (_mlp_products if channel == "mlp" else _moe_products)(
                 cfg, rows, 1, dict(parts, seq=1))
             period += sum(m.values())
-    return cfg.n_layers // cfg.period * period + 2 * rows * d * (cfg.vocab // parts["vocab"])
+    t = parts.get("table", 1)
+    return cfg.n_layers // cfg.period * period \
+        + 2 * rows * t * (d // t) * -(-cfg.vocab // parts.get("logits", parts["vocab"]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -494,6 +516,12 @@ class TensorParallel:
     # full-sequence attention splits its queries' sequence over (every head
     # of a query slice a rank, :meth:`query_rows`); () where the heads split
     q_slice_axes: tuple[str, ...] = ()
+    # decode plans: the q / k / v weights keep their columns; and the mesh
+    # axes that split both the stream's rows and the tables' embed columns,
+    # over which the tables stay on their shards and the rows trade for
+    # columns (``data`` for the rows of ``decode_32k`` under the baseline)
+    decode: bool = False
+    table_axes: tuple[str, ...] = ()
 
     @property
     def stream(self) -> Sharding:
@@ -691,11 +719,77 @@ class TensorParallel:
         position, from the rank of the sequence axes that holds it."""
         return gather_over(x[:, -1:], self.mesh, self.seq_axes, 1)[:, -1:]
 
-    def whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
-        """This rank's rows and vocabulary columns of (B, 1, V) logits ->
-        all of them, the same on every rank."""
-        logits = gather_over(logits, self.mesh, self.vocab_axes, -1)
-        return gather_over(logits, self.mesh, self.batch_axes, 0)
+    # ------------------------------------------------------------- tables
+    def table_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of (B, 1) token ids -> every row of the
+        :attr:`table_axes` (gathered over them, in chunk order)."""
+        return gather_over(tokens, self.mesh, self.table_axes, 0)
+
+    def table_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """(rows of the table axes, 1, D / parts), this rank's embed columns
+        of every row -> (this rank's rows, 1, D): one all-to-all over the
+        :attr:`table_axes`; ``x`` as it is without them."""
+        return all_to_all_over(x, self.mesh, self.table_axes, 0, -1)
+
+    def table_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`table_rows`' inverse: (this rank's rows, 1, D) -> every
+        row of the :attr:`table_axes` on this rank's embed columns."""
+        return all_to_all_over(x, self.mesh, self.table_axes, 0, -1, reverse=True)
+
+    def logit_rows(self, y: torch.Tensor) -> torch.Tensor:
+        """Every row's partial logits over the :attr:`table_axes` -> this
+        rank's rows of their sum (a reduce-scatter)."""
+        return scatter_over(y, self.mesh, self.table_axes, 0)
+
+    @property
+    def logit_axes(self) -> tuple[str, ...]:
+        """The mesh axes the logits' columns split over: the vocabulary's;
+        where it does not split and the tables trade rows for columns
+        (:attr:`table_axes`), every other axis of more than one rank that
+        the rows leave whole (each such rank computes a ``torch.chunk``-
+        style slice of the vocabulary: :meth:`logit_cols`); else none."""
+        if self.vocab_axes or not self.table_axes:
+            return self.vocab_axes
+        return tuple(ax for ax in self.mesh_axes if ax not in self.batch_axes)
+
+    def logit_cols(self, n_vocab: int) -> slice:
+        """This rank's columns of ``n_vocab`` logits: its ``vocab`` shard,
+        or where the vocabulary does not split, its ``DTensor`` chunk over
+        the :attr:`logit_axes` (ceil-sized, the last ones shorter or empty;
+        each mesh axis in order splits the chunk of the one before it)."""
+        if self.vocab_axes:
+            return self.vocab_rows(n_vocab)
+        start, size = 0, n_vocab
+        for ax in self.logit_axes:
+            n = self.parts((ax,))
+            c = -(-size // n)
+            first = min(chunk_of(n, self.mesh, (ax,)).start * c, size)
+            start, size = start + first, min(c, size - first)
+        return slice(start, start + size)
+
+    def logits_spec(self) -> tuple:
+        """The spec of the (B, 1, V) logits the serving steps return: the
+        stream's rows, and the :attr:`logit_axes`' columns (uneven where the
+        vocabulary does not divide them)."""
+        return (spec_entry(self.batch_axes), None, spec_entry(self.logit_axes))
+
+    def next_tokens(self, logits: torch.Tensor, n_vocab: int) -> torch.Tensor:
+        """(rows, 1, this rank's :meth:`logit_cols`) logits -> the greedy
+        token of every row of the batch, (B,) int32 on every rank: each
+        rank's maximum and first index over its columns, the maximum over
+        the :attr:`logit_axes` (a NaN above everything), the least global
+        index that reaches it (``torch.argmax`` of the whole logits, ties
+        and NaN included), gathered over the batch axes."""
+        z = logits[:, -1]
+        i = torch.argmax(z, dim=-1)
+        v = z.gather(-1, i[:, None])[:, 0]
+        nan = torch.isnan(v)
+        top = max_over(torch.stack([nan.to(v.dtype), torch.where(nan, math.inf, v)], -1),
+                       self.mesh, self.logit_axes)
+        mine = torch.where(top[:, 0] > 0, nan, v == top[:, 1])
+        best = -max_over(-torch.where(mine, self.logit_cols(n_vocab).start + i, n_vocab),
+                         self.mesh, self.logit_axes)
+        return gather_over(best.to(torch.int32), self.mesh, self.batch_axes, 0)
 
     # -------------------------------------------------------------- vocab
     def vocab_rows(self, n_vocab: int) -> slice:
@@ -858,7 +952,9 @@ class TensorParallel:
         embed entries and nothing is whole: the q / k / v weights and the
         router keep their columns, ``conv_w`` and ``conv_b`` their channels
         where the conv history's shard holds the same ones
-        (:attr:`conv_local`)."""
+        (:attr:`conv_local`).  On any decode plan the q / k / v weights keep
+        their columns, and the tables their embed shards over the
+        :attr:`table_axes`."""
         sizes = mesh_axis_sizes(self.mesh)
 
         def work(path, p):
@@ -868,12 +964,13 @@ class TensorParallel:
             if self.stationary_axes:
                 whole = conv and not self.conv_local
             else:
-                whole = (name == "wq" and not self.q_local) or \
-                    (name in ("wk", "wv") and not self.kv_local) or name == "router" or conv
+                whole = (not self.decode and ((name == "wq" and not self.q_local) or (
+                    name in ("wk", "wv") and not self.kv_local))) or name == "router" or conv
+            kept = self.stationary_axes + (self.table_axes if path in TABLES else ())
             heads = "ssm_inner" in p.logical and name in ("norm", "out_proj")
             return Sharding(self.mesh, tuple(
                 None if whole else
-                spec_entry(tuple(ax for ax in _axes(entry) if ax in self.stationary_axes))
+                spec_entry(tuple(ax for ax in _axes(entry) if ax in kept))
                 if lname in FSDP_LOGICAL else
                 spec_entry(self.ssm_head_axes) if heads and lname == "ssm_inner" else entry
                 for entry, lname in zip(spec, p.logical)))
@@ -1020,6 +1117,8 @@ class TensorParallel:
 #: the top-level keys of a parameter tree whose leaves are stacked over
 #: periods (the reference's scanned blocks)
 STACKED = ("blocks", "enc_blocks", "dec_blocks")
+#: the paths of the (un)embedding tables
+TABLES = ("/embed", "/unembed")
 
 
 def _by_key(params, seq) -> dict:
@@ -1333,25 +1432,29 @@ def plan_decode(cfg: ArchConfig, spec_tree, cache_spec_tree, mesh: DeviceMesh,
                 batch: int) -> TensorParallel:
     """The plan of a sharded decode step of ``batch`` tokens against the
     cache of ``cache_spec_tree`` (``Model.cache_specs``): the stream this
-    rank's batch rows of one token, the cache its own resolved layout, and
-    the weights' embed axes that the rows do not split
+    rank's batch rows of one token, the cache its own resolved layout, the
+    weights' embed axes that the rows do not split
     (:attr:`TensorParallel.stationary_axes`: ``data`` for one row under the
-    baseline profile; none where the rows split over it)."""
+    baseline profile; none where the rows split over it), and the tables'
+    embed axes that they do (:attr:`TensorParallel.table_axes`)."""
     sizes = mesh_axis_sizes(mesh)
     stream = resolve_spec((batch, 1), ("batch", "seq"), sizes)
     tp = _with_cache(tensor_parallel(cfg, spec_tree, mesh, stream,
                                      _ssm_head_axes(cache_spec_tree, sizes)),
                      cfg, cache_spec_tree, mesh)
-    embed, conv = set(), set()
+    embed, table, conv = set(), set(), set()
 
     def note(path, p):
         spec = resolve_spec(p.shape, p.logical, sizes)
         for entry, lname in zip(spec, p.logical):
             if lname in FSDP_LOGICAL:
                 embed.update(_live(entry, sizes))
+                if path in TABLES:
+                    table.update(_live(entry, sizes))
         if "ssm_inner" in p.logical and path.rsplit("/", 1)[-1] in ("conv_w", "conv_b"):
             conv.add(_live(spec[-1], sizes))
     tree_map_pspec(note, spec_tree)
     stationary = tuple(ax for ax in tp.mesh_axes if ax in embed and ax not in tp.batch_axes)
     return dataclasses.replace(tp, stationary_axes=stationary, conv_local=bool(
-        stationary and tp.cache_conv_axes and conv == {tp.cache_conv_axes}), q_slice_axes=())
+        stationary and tp.cache_conv_axes and conv == {tp.cache_conv_axes}), q_slice_axes=(),
+        decode=True, table_axes=tuple(ax for ax in tp.batch_axes if ax in table))

@@ -125,27 +125,40 @@ def embed_tokens(params, cfg: ArchConfig, tokens=None, embeds=None, tp=None):
     its rows of the table over the whole sequence, and the partial rows are
     summed into the slice; where the table keeps this rank's embed shard of
     its columns (a decode plan's stationary axes), the rows' columns are
-    gathered last."""
+    gathered last; where it keeps it over axes that split the rows (a
+    decode plan's table axes), each rank looks up its columns of every row
+    of those axes and an all-to-all brings them to the rows' ranks."""
     dtype = torch_dtype(cfg.compute_dtype)
     if embeds is not None:
         return embeds.to(dtype)
     if tp is None:
         return params["embed"][tokens.long()].to(dtype)
-    if not tp.vocab_axes:
-        return tp.columns(params["embed"][tokens.long()].to(dtype), tp.stationary_axes,
-                          cfg.d_model)
     table = params["embed"]
-    idx = tp.gather_seq(tokens).long() - tp.vocab_rows(cfg.vocab).start
-    ours = (idx >= 0) & (idx < table.shape[0])
-    x = torch.where(ours[..., None], table[idx.clamp(0, table.shape[0] - 1)].to(dtype), 0)
-    return tp.columns(tp.to_stream(x, tp.vocab_axes), tp.stationary_axes, cfg.d_model)
+    tokens = tp.table_tokens(tokens)
+    if not tp.vocab_axes:
+        x = table[tokens.long()].to(dtype)
+    else:
+        idx = tp.gather_seq(tokens).long() - tp.vocab_rows(cfg.vocab).start
+        ours = (idx >= 0) & (idx < table.shape[0])
+        x = torch.where(ours[..., None], table[idx.clamp(0, table.shape[0] - 1)].to(dtype), 0)
+        x = tp.to_stream(x, tp.vocab_axes)
+    return tp.columns(tp.table_rows(x), tp.stationary_axes, cfg.d_model)
 
 
 def unembed(params, cfg: ArchConfig, x, tp=None):
     """Float32 logits of the hidden states ``x``; on a plan whose table
-    keeps this rank's embed shard (``tp``), its partial products summed."""
+    keeps this rank's embed shard (``tp``), its partial products summed:
+    over the stationary axes on this rank's rows, or over the table axes on
+    every row of them (the rows' columns brought by an all-to-all), each
+    rank on its logit columns, the sums reduce-scattered onto the rows."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return (x @ w.to(x.dtype) if tp is None else tp.embed_in(x, w.to(x.dtype))).float()
+    if tp is None:
+        return (x @ w.to(x.dtype)).float()
+    if not tp.table_axes:
+        return tp.embed_in(x, w.to(x.dtype)).float()
+    if w.shape[-1] == cfg.vocab:
+        w = w[:, tp.logit_cols(cfg.vocab)]
+    return tp.logit_rows((tp.table_cols(x) @ w.to(x.dtype)).float())
 
 
 def _period_fwd(cfg: ArchConfig, pp, x, cos_sin, tp=None):
@@ -249,7 +262,8 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
     its use) the tokens and M-RoPE's (3, B, 1)
     ``positions`` are this rank's stream rows, the cache its shard (each
     rank writes its own ``ssm`` and ``conv`` shards in place), and the
-    logits come out whole on every rank."""
+    logits are this rank's rows and columns of them
+    (``TensorParallel.logits_spec``)."""
     x = embed_tokens(params, cfg, tokens, embeds, tp)
     B = x.shape[0]
     cos_sin = None
@@ -261,8 +275,7 @@ def decode_step(params, cfg: ArchConfig, cache, *, tokens=None, embeds=None,
         x = at_period(_period_decode, cfg, params["blocks"], i, x, layer_params(cache, i), pos,
                       cos_sin, tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params, cfg, x, tp)
-    return (logits if tp is None else tp.whole_logits(logits)), cache
+    return unembed(params, cfg, x, tp), cache
 
 
 # ------------------------------------------------------------------------- loss

@@ -48,9 +48,11 @@ from typing import Any, Callable, Iterator, Sequence
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 import torch.utils._pytree as pytree
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 from torch.distributed.tensor.placement_types import Partial, _StridedShard
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
@@ -647,16 +649,46 @@ def trade_over(x: torch.Tensor, mesh: DeviceMesh, axis: str, send: Sequence[int]
     return _TradeOver.apply(x, mesh.get_group(axis), tuple(send), tuple(recv), dim % x.dim())
 
 
-def from_shard(local: torch.Tensor, sharding: "Sharding") -> DTensor:
+def from_shard(local: torch.Tensor, sharding: "Sharding",
+               shape: Sequence[int] | None = None) -> DTensor:
     """The ``DTensor`` whose shard on this rank is ``local``, laid out by
     ``sharding`` (each rank passes its own; no collective): its global
-    shape is the local one times the ranks each dimension is split over."""
+    shape is the local one times the ranks each dimension is split over,
+    or ``shape`` (a dimension split unevenly, in ``DTensor``'s ceil-sized
+    chunks)."""
     sizes = mesh_axis_sizes(sharding.mesh)
-    shape = [n * math.prod(sizes[ax] for ax in _names(sharding.spec[d]))
-             if d < len(sharding.spec) else n for d, n in enumerate(local.shape)]
+    if shape is None:
+        shape = [n * math.prod(sizes[ax] for ax in _names(sharding.spec[d]))
+                 if d < len(sharding.spec) else n for d, n in enumerate(local.shape)]
     stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
     return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False,
                               shape=torch.Size(shape), stride=stride)
+
+
+@torch.no_grad()
+def gather_full(x) -> torch.Tensor:
+    """The full value of a ``DTensor`` on every rank, from every rank's
+    shard and its place in the whole (``DTensor``'s own offsets: even,
+    uneven or strided shards), gathered over the whole mesh by
+    :func:`gather_over` (staged through the host on a gloo group, where
+    ``DTensor``'s own collectives are not), each shard padded to the
+    largest: for small values, such as a serving step's logits; any other
+    tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, local = x.device_mesh, x.to_local()
+    axes = mesh.mesh_dim_names
+    shape, offset = compute_local_shape_and_global_offset(x.shape, mesh, x.placements)
+    places = gather_over(torch.tensor([list(shape) + list(offset)], device=local.device),
+                         mesh, axes, 0).tolist()
+    top = [max(r[d] for r in places) for d in range(local.dim())]
+    pad = [q for d in reversed(range(local.dim())) for q in (0, top[d] - local.shape[d])]
+    every = gather_over(F.pad(local, pad)[None], mesh, axes, 0)
+    out = local.new_empty(x.shape)
+    for r, place in zip(every, places):
+        n, at = place[:local.dim()], place[local.dim():]
+        out[tuple(slice(a, a + k) for a, k in zip(at, n))] = r[tuple(slice(0, k) for k in n)]
+    return out
 
 
 def chunk_of(n: int, mesh: DeviceMesh, axes: Sequence[str]) -> slice:

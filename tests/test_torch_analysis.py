@@ -68,6 +68,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from conftest import REPO, run_isolated_script  # noqa: E402
+from test_torch_distributed import decode_ends  # noqa: E402
 from test_torch_hybrid_vlm_parallel import _smoke_plan as _hv_plan  # noqa: E402
 
 CASES = [  # the reference's tests/test_dryrun.py cases
@@ -436,8 +437,10 @@ def _plan(profile: str, arch: str = "granite-3-8b", **overrides):
         return _entries(resolve_spec(shape, logical, SMOKE_MESH, profile=profile))[d]
     plan = dict(batch=axes((B, S), ("batch", "seq"), 0), seq=axes((B, S), ("batch", "seq"), 1),
                 qkv=axes((D, cfg.n_heads * cfg.hd), ("embed", "qkv"), 1),
+                kv=axes((D, cfg.n_kv_heads * cfg.hd), ("embed", "qkv"), 1),
                 ffn=axes((D, cfg.d_ff), ("embed", "ffn"), 1),
-                vocab=axes((cfg.vocab, D), ("vocab", "embed_d"), 0))
+                vocab=axes((cfg.vocab, D), ("vocab", "embed_d"), 0),
+                embed_d=axes((cfg.vocab, D), ("vocab", "embed_d"), 1))
     plan["q_local"], plan["kv_local"] = head_split(cfg.n_heads, cfg.n_kv_heads,
                                                    _parts(plan["qkv"]))
     plan["q_slice"] = () if plan["q_local"] else plan["qkv"]
@@ -448,14 +451,18 @@ def _parts(axes) -> int:
     return math.prod(SMOKE_MESH[ax] for ax in axes)
 
 
-def _working_keep(path: str, p, spec, plan) -> tuple[str, ...]:
+def _working_keep(path: str, p, spec, plan, decode: bool = False) -> tuple[str, ...]:
     """The mesh axes a parameter's working layout keeps: none for a q / k / v
-    weight whose heads do not split, else all but its embed axes (FSDP)."""
+    weight whose heads do not split (but in ``decode``: its columns), else
+    all but its embed axes (FSDP); in ``decode`` the tables keep those of
+    their embed axes that split the stream's rows (``plan["batch"]``)."""
     name = path.rsplit("/", 1)[-1]
-    if (name == "wq" and not plan["q_local"]) or (name in ("wk", "wv") and not plan["kv_local"]):
+    if not decode and ((name == "wq" and not plan["q_local"])
+                       or (name in ("wk", "wv") and not plan["kv_local"])):
         return ()
-    return tuple(ax for entry, lname in zip(_entries(spec), p.logical)
-                 if lname not in ("embed", "embed_d") for ax in entry)
+    kept = plan["batch"] if decode and path in ("/embed", "/unembed") else ()
+    return tuple(ax for entry, lname in zip(_entries(spec), p.logical) for ax in entry
+                 if lname not in ("embed", "embed_d") or ax in kept)
 
 
 def _tp_reduction(numel: int, spec, keep, sizes: dict) -> list[tuple[str, int]]:
@@ -617,10 +624,11 @@ def _hand_tp_collectives(profile: str, arch: str = "granite-3-8b", **overrides):
 
 def _moe_working(arch: str, mesh_kind: str):
     """Per parameter leaf of a MoE smoke model on a smoke mesh: its path,
-    PSpec, resolved spec, the mesh axes its working layout keeps (none for the
-    router, which every rank holds whole; else all but its embed axes: the
-    smoke heads split whole on the model axis) and whether it moves; and the
-    mesh's axis sizes."""
+    PSpec, resolved spec, the mesh axes its working layout keeps in a decode
+    step (none for the router, which every rank holds whole; else all but
+    its embed axes, the tables' that split the rows kept: the smoke heads
+    split whole on the model axis) and whether it moves; and the mesh's axis
+    sizes."""
     from repro_torch import configs as C
     from repro_torch.launch.dryrun import mesh_shape
     from repro_torch.models import build
@@ -633,9 +641,10 @@ def _moe_working(arch: str, mesh_kind: str):
     out = []
     for path, p in _pspec_paths(build(cfg).specs()):
         spec = resolve_spec(p.shape, p.logical, sizes)
+        rows = ("pod", "data") if path in ("/embed", "/unembed") else ()
         keep = () if path.endswith("/router") else tuple(
-            ax for entry, lname in zip(_entries(spec), p.logical)
-            if lname not in ("embed", "embed_d") for ax in entry)
+            ax for entry, lname in zip(_entries(spec), p.logical) for ax in entry
+            if lname not in ("embed", "embed_d") or ax in rows)
         moves = set(keep) != {ax for e in _entries(spec) for ax in e}
         out.append((path, p, spec, keep, moves))
     return cfg, sizes, out
@@ -659,8 +668,8 @@ def _hand_encdec_prefill_collectives(cell_name: str):
       the MLP's input gathered over the sequence and their outputs
       reduce-scattered back; the self and the cross cache's k and v traded
       from heads to their sequence by an all-to-all each;
-    * the last token gathered over the sequence, the logits over the vocab
-      axes, then the batch's."""
+    * the last token gathered over the sequence (the logits stay on this
+      rank's rows and vocabulary columns)."""
     from repro_torch.models import build
     from repro_torch.models.common import resolve_spec
     cfg, cell, plan = _serve_plan(cell_name, "whisper-tiny")
@@ -690,11 +699,6 @@ def _hand_encdec_prefill_collectives(cell_name: str):
         add((st.gather(own) + st.to_stream(full, plan["qkv"])) * 3, bf)
         add([("all-to-all", R * L * cfg.n_kv_heads // n * hd) for L in (S, S, T, T)], bf)
     add(st.gather(R * D), bf)
-    gathered = R * (V // _parts(plan["vocab"]))
-    for axes in (plan["vocab"], plan["batch"]):
-        for ax in reversed(axes):
-            gathered *= SMOKE_MESH[ax]
-            add([("all-gather", gathered)], f32)
     counts: dict = {}
     for kind, _ in wire:
         counts[kind] = counts.get(kind, 0) + 1
@@ -705,12 +709,14 @@ def _hand_moe_decode_collectives(arch: str, cell_name: str, mesh_kind: str):
     """Per-device collective bytes and executions of a MoE smoke model's
     sharded decode step on the (pod, data, model) smoke mesh, from the
     specs: each parameter the working layout moves gathered over its embed
-    axes (the router whole) in bf16, a block's where its period runs; the embedding's partial rows summed
-    over the vocab axis; each layer's q, k and v gathered over the heads'
-    axis, the partial softmax's max, sum and weighted sum summed over the
-    cache's sequence axis (float32), ``wo``'s partial sums and the experts'
-    outputs (each rank its own experts of the same tokens) summed over the
-    model axis; the logits gathered over the vocab axis, then the batch's."""
+    axes (the router whole; the tables stay on their ``data`` shards) in
+    bf16, a block's where its period runs; each layer's q, k and v gathered
+    over the heads' axis, the partial softmax's max, sum and weighted sum
+    summed over the cache's sequence axis (float32), ``wo``'s partial sums
+    and the experts' outputs (each rank its own experts of the same tokens)
+    summed over the model axis; the embedding, the unembedding and the
+    greedy token as ``decode_ends`` gives them (the rows traded for the
+    tables' columns over ``data``)."""
     from repro_torch import configs as C
     cfg, sizes, leaves = _moe_working(arch, mesh_kind)
     cell = C.smoke_cell(cell_name)
@@ -723,17 +729,15 @@ def _hand_moe_decode_collectives(arch: str, cell_name: str, mesh_kind: str):
     for path, p, spec, keep, moves in leaves:
         if moves:
             wire += [(kind, n * bf) for kind, n in _weight_gathers(path, p, spec, sizes, keep)]
-    wire.append(("all-reduce", 2 * R * D * bf))
+    emb, ends = decode_ends(R, D, V, sizes, batch, ("model",), table=("data",))
+    wire += emb
     for _ in range(cfg.n_layers):
         wire += [("all-gather", R * h * hd * bf)
                  for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
         wire += [("all-reduce", 2 * R * cfg.n_heads * f32)] * 2
         wire.append(("all-reduce", 2 * R * cfg.n_heads * hd * f32))
         wire += [("all-reduce", 2 * R * D * bf)] * 2
-    gathered = R * V // m
-    for ax in ("model", "data", "pod"):
-        gathered *= sizes[ax]
-        wire.append(("all-gather", gathered * f32))
+    wire += ends
     counts: dict = {}
     for kind, _ in wire:
         counts[kind] = counts.get(kind, 0) + 1
@@ -888,9 +892,25 @@ PARENT_TEMP = {("granite-3-8b", "train_4k", "single"): 926_620,
                ("jamba-v0.1-52b", "long_500k", "multi"): 427_088,
                ("qwen2-vl-72b", "decode_32k", "single"): 146_144}
 # the one-row cases' collective bytes a device in that step's trace, which
-# gathered every weight over ``data``
+# gathered every weight over ``data``; mixtral's in the trace of the step that
+# kept every weight on its data shard and gathered the logits whole
 ONE_ROW = {("mamba2-2.7b", "long_500k", "multi"): 80_288,
-           ("jamba-v0.1-52b", "long_500k", "multi"): 741_216}
+           ("jamba-v0.1-52b", "long_500k", "multi"): 741_216,
+           ("mixtral-8x22b", "long_500k", "multi"): 11_168}
+
+
+@pytest.fixture(scope="module")
+def moe_one_row_dry(tmp_path_factory):
+    """The port's dry-run record of mixtral smoke's ``long_500k`` on the
+    (pod 2, data 2, model 2) smoke mesh of 8 fake ranks."""
+    out = tmp_path_factory.mktemp("moe_one_row")
+    _run(f"""
+        from pathlib import Path
+        from repro_torch.launch.dryrun import run_cell
+        assert run_cell("mixtral-8x22b", "long_500k", "multi", True, Path({str(out)!r}),
+                        device="cpu", devices=8)
+    """)
+    return json.loads((out / "mixtral-8x22b__long_500k__multi.json").read_text())
 
 
 def _held_at_once(leaves) -> int:
@@ -974,8 +994,8 @@ def test_dryrun_temp_holds_gathered_state(dry, case):
 
 
 @pytest.mark.parametrize("case", list(ONE_ROW), ids=["-".join(c) for c in ONE_ROW])
-def test_dryrun_one_row_decode_moves_no_weight(dry, hv_dry, case):
-    """mamba2's and jamba's smoke ``long_500k`` on (pod 2, data 2, model 2):
+def test_dryrun_one_row_decode_moves_no_weight(dry, hv_dry, moe_one_row_dry, case):
+    """mamba2's, jamba's and mixtral's smoke ``long_500k`` on (pod 2, data 2, model 2):
     two rows split over ``pod``, so the rows leave the weights' ``data``
     (embed) axis whole and the plan keeps every weight on its embed shard
     there (``stationary_axes``).  No all-gather moves a weight leaf: the
@@ -989,7 +1009,8 @@ def test_dryrun_one_row_decode_moves_no_weight(dry, hv_dry, case):
         from test_torch_ssm_parallel import _smoke_plan
         rec, plan = dry[case][1], _smoke_plan(case[1], "baseline", case[2])
     else:
-        rec, plan = hv_dry[case][0], _hv_plan(case[0], case[1], "baseline", case[2])
+        rec = moe_one_row_dry if case[0] == "mixtral-8x22b" else hv_dry[case][0]
+        plan = _hv_plan(case[0], case[1], "baseline", case[2])
     assert plan["batch"] == ("pod",) and plan["stationary"] == ("data",)
     assert _stationary_weight_gathers(plan) == []
     gathers = [b for kind, b in _stationary_decode_wire(plan) if kind == "all-gather"]
@@ -1002,6 +1023,109 @@ def test_dryrun_one_row_decode_moves_no_weight(dry, hv_dry, case):
     assert plan["parts"]["embed"] == 2
     assert rec["cost_analysis"]["flops"] == hand_decode_flops(plan["cfg"], c.global_batch,
                                                               c.seq_len, plan["parts"])
+
+
+# smoke decode_32k steps on the (data 4, model 2) mesh under the baseline:
+# (arch, config changes); two rows a data rank, so every plan keeps the tables
+# on their data shards; a vocabulary of 255 splits nowhere, 3 heads of 16 and
+# glm4's one kv head do not split model (the MoE's smoke expert weights, which
+# move over data as XLA moves them, are larger than its tables: left out)
+DECODE_GUARD = [("granite-3-8b", {}), ("granite-3-8b", {"vocab": 255}),
+                ("minicpm-2b", {"n_heads": 3, "n_kv_heads": 3}), ("glm4-9b", {}),
+                ("mamba2-2.7b", {}), ("qwen2-vl-72b", {}), ("whisper-tiny", {})]
+
+
+@pytest.fixture(scope="module")
+def decode_guard():
+    """Per ``DECODE_GUARD`` case: every collective of its smoke decode_32k
+    step traced on 8 fake ranks ((kind, dtype, elements) each), its plan's
+    rows, table, vocabulary and logit axes, and each table's and q / k / v
+    weight's resolved and working specs."""
+    r = _run(f"""
+        import dataclasses, json
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        import repro_torch.configs as C
+        from repro_torch.launch.dryrun import laid_out, make_mesh
+        from repro_torch.launch.steps import abstract_cache, build_decode, input_shardings
+        from repro_torch.models import build
+        from repro_torch.models.common import resolve_spec, tree_map_pspec
+        from repro_torch.optim.adamw import tree_map_sorted
+        from repro_torch.substrate import CostCounter, fake_store, init_group, mesh_context
+        init_group("fake", 0, 8, store=fake_store())
+        out = []
+        mesh = make_mesh("single", smoke=True, device_type="cpu")
+        sizes = dict(data=4, model=2)
+        cell = C.smoke_cell("decode_32k")
+        for arch, over in {DECODE_GUARD!r}:
+            cfg = dataclasses.replace(C.get(arch, smoke=True), **over)
+            model = build(cfg)
+            inputs = {{k: v for k, v in model.input_specs(cell).items() if k != "pos"}}
+            in_sh = input_shardings(inputs, mesh)
+            step, sh = build_decode(model, mesh, cell)
+            counter = CostCounter()
+            with mesh_context(mesh), FakeTensorMode(allow_non_fake_inputs=True):
+                batch = {{k: laid_out(v, in_sh[k], "cpu") for k, v in inputs.items()}}
+                params = tree_map_sorted(lambda m, s: laid_out(m, s, "cpu"), model.abstract(),
+                                         sh["params"])
+                cache = tree_map_sorted(lambda m, s: laid_out(m, s, "cpu"),
+                                        abstract_cache(model, cell), sh["cache"])
+                batch["pos"] = cell.seq_len - 1
+                with counter:
+                    step(params, cache, batch)
+                tp, _ = step.plan(batch["tokens"], cache)
+            specs = model.specs()
+            work = tp.working_shardings(specs)
+            kept = {{}}
+            def note(path, p, w=work):
+                node = w
+                for k in path.split("/")[1:]:
+                    node = node[k]
+                name = path.rsplit("/", 1)[-1]
+                if name in ("embed", "unembed", "wq", "wk", "wv"):
+                    kept[path] = [list(resolve_spec(p.shape, p.logical, sizes)), list(node.spec),
+                                  list(p.logical)]
+            tree_map_pspec(note, specs)
+            out.append(dict(arch=arch, over=over, events=[[k, str(d), n] for k, d, n in
+                                                          counter.collectives],
+                            batch=tp.batch_axes, table=tp.table_axes, vocab=tp.vocab_axes,
+                            logit=tp.logit_axes, kept=kept))
+        print("RESULT" + json.dumps(out))
+    """)
+    return json.loads(r.stdout.split("RESULT", 1)[1])
+
+
+def test_decode_moves_no_whole_table_weight_or_logits(decode_guard):
+    """No collective of a smoke decode step whose rows split ``data``
+    carries a whole table, a whole q / k / v weight or more than its rows'
+    share of the logits (:data:`DECODE_GUARD`): each table's and q / k / v
+    weight's working layout keeps every axis of its resolved spec but the
+    embed axes the rows leave whole (a table keeps its ``data`` shard, the
+    rows trading for its columns; wq / wk / wv keep their ``qkv`` columns,
+    whether or not their heads split), and no collective's result holds a
+    table's elements, whole or over ``data``; and no float32 collective's
+    input or output (a reduce-scatter's input its output times the table
+    axes' ranks) holds more than one rank's rows of every logit column or
+    every row of the table axes on the model axis' share of them."""
+    import dataclasses
+    import repro_torch.configs as C
+    sizes, B = dict(data=4, model=2), 8
+    for case in decode_guard:
+        cfg = dataclasses.replace(C.get(case["arch"], smoke=True), **case["over"])
+        V, D = cfg.vocab, cfg.d_model
+        assert case["batch"] == ["data"] and case["table"] == ["data"], case["arch"]
+        assert case["logit"] == ["model"]
+        R, t, m = B // 4, 4, sizes["model"]
+        for path, (spec, work, logical) in case["kept"].items():
+            want = [e if lname not in ("embed", "embed_d") else
+                    ("data" if path in ("/embed", "/unembed") and e == "data" else None)
+                    for e, lname in zip(spec, logical)]
+            assert work == want, (case["arch"], case["over"], path, spec, work)
+        whole = (V * D, V * D // math.prod(sizes[ax] for ax in case["vocab"]))
+        for kind, dtype, n in case["events"]:
+            assert n not in whole, (case["arch"], kind, dtype, n)
+            if dtype == "torch.float32":
+                wire = n * (t if kind == "reduce-scatter" else 1)
+                assert wire <= max(R * V, R * t * -(-V // m)), (case["arch"], kind, n)
 
 
 def _serve_plan(cell_name: str, arch: str = "granite-3-8b"):
@@ -1037,12 +1161,14 @@ def _hand_serve_collectives(cell_name: str, arch: str = "granite-3-8b"):
       :func:`_hand_tp_collectives` without the recompute), each layer's k
       and v traded from heads to sequence by an all-to-all where the kv
       heads split, the last token gathered over the sequence;
-    * decode: the embedding's partial rows summed over the vocab axes, each
-      layer's q (and, where the kv heads split, k and v) gathered over the
-      heads' axes, the partial softmax's max, sum and weighted sum summed
-      over the cache's sequence axes, ``wo``'s and the MLP's partial sums
-      summed into the stream;
-    * the logits gathered over the vocab axes, then over the batch axes."""
+    * decode: each layer's q, k and v gathered over their weights' columns'
+      axes, the partial softmax's max, sum and weighted sum summed over the
+      cache's sequence axes, ``wo``'s and the MLP's partial sums summed into
+      the stream; the embedding, the unembedding and the greedy token as
+      ``decode_ends`` gives them (the rows traded for the tables' columns
+      over ``data``);
+    * no logits gathered: they stay on the rows and columns that computed
+      them."""
     from repro_torch.models import build
     from repro_torch.models.common import resolve_spec
     cfg, cell, plan = _serve_plan(cell_name, arch)
@@ -1055,9 +1181,11 @@ def _hand_serve_collectives(cell_name: str, arch: str = "granite-3-8b"):
 
     def add(ops, itemsize):
         wire.extend((kind, k * itemsize) for kind, k in ops)
+    decode = cell.kind == "decode"
     for path, p in _pspec_paths(build(cfg).specs()):
         spec = resolve_spec(p.shape, p.logical, SMOKE_MESH)
-        add(_weight_gathers(path, p, spec, SMOKE_MESH, _working_keep(path, p, spec, plan)), bf)
+        add(_weight_gathers(path, p, spec, SMOKE_MESH,
+                            _working_keep(path, p, spec, plan, decode)), bf)
     vocab = plan["vocab"]
     if cell.kind == "prefill":
         Sl = S // _parts(plan["seq"])
@@ -1072,21 +1200,19 @@ def _hand_serve_collectives(cell_name: str, arch: str = "granite-3-8b"):
                 add([("all-to-all", R * S * cfg.n_kv_heads // n * hd)] * 2, bf)
         add(st.gather(R * D), bf)
     else:
-        if vocab:
-            add(st.sum(R * D, vocab), bf)
-        heads = [(cfg.n_heads, plan["q_local"]), (cfg.n_kv_heads, plan["kv_local"]),
-                 (cfg.n_kv_heads, plan["kv_local"])]
+        table = tuple(ax for ax in plan["batch"] if ax in plan["embed_d"])
+        emb, ends = decode_ends(R, D, V, SMOKE_MESH, plan["batch"], vocab, table=table)
+        wire += emb
         seq = _Stream(dict(seq=plan["cache_seq"]))
         for _ in range(cfg.n_layers):
-            add([("all-gather", R * h * hd) for h, split in heads if split and plan["qkv"]], bf)
+            add([("all-gather", R * h * hd) for h, axes in ((cfg.n_heads, plan["qkv"]),
+                                                            (cfg.n_kv_heads, plan["kv"]),
+                                                            (cfg.n_kv_heads, plan["kv"]))
+                 if axes], bf)
             add(seq.sum(R * cfg.n_heads, plan["cache_seq"]) * 2
                 + seq.sum(R * cfg.n_heads * hd, plan["cache_seq"]), f32)
             add(st.sum(R * D, plan["qkv"]) + st.sum(R * D, plan["ffn"]), bf)
-    gathered = R * (V // _parts(vocab))
-    for axes in (vocab, plan["batch"]):
-        for ax in reversed(axes):
-            gathered *= SMOKE_MESH[ax]
-            add([("all-gather", gathered)], f32)
+        wire += ends
     counts: dict = {}
     for kind, _ in wire:
         counts[kind] = counts.get(kind, 0) + 1
@@ -1142,12 +1268,14 @@ MOE_CASES = [("dbrx-132b", "single", "baseline"), ("mixtral-8x22b", "moe", "moe_
 MOE_CELLS = ("train_4k", "prefill_32k", "decode_32k")
 # the ranks each logical axis splits over on the smoke meshes, (data 4, model
 # 2) and (data 2, expert 2, tp 2): dbrx's 8 experts on model, mixtral's 4 on
-# expert and their hidden columns on tp; in decode (one token a row, the
+# expert and their hidden columns on tp (wk's columns on the heads' axes);
+# in decode (one token a row, the
 # sequence unsplit) the experts and their columns split among the ranks
 # that hold the same tokens
 MOE_PARTS = {
-    "dbrx-132b": dict(batch=4, seq=2, qkv=2, ffn=1, vocab=2, cache_batch=4, cache_seq=2),
-    "mixtral-8x22b": dict(batch=2, seq=4, qkv=4, ffn=1, vocab=4, cache_batch=2, cache_seq=4),
+    "dbrx-132b": dict(batch=4, seq=2, qkv=2, kv=2, ffn=1, vocab=2, cache_batch=4, cache_seq=2),
+    "mixtral-8x22b": dict(batch=2, seq=4, qkv=4, kv=4, ffn=1, vocab=4, cache_batch=2,
+                          cache_seq=4),
 }
 MOE_DECODE = {"dbrx-132b": dict(experts=2, expert_ffn=1),
               "mixtral-8x22b": dict(experts=2, expert_ffn=2)}
@@ -1288,20 +1416,23 @@ def hv_dry(tmp_path_factory):
 
 def _hv_keep(path: str, p, spec, plan) -> tuple[str, ...]:
     """The mesh axes a parameter's working layout keeps: none for the MoE
-    router, an SSM block's conv weights and a q / k / v weight whose heads
-    do not split (whole); the SSM heads' axes for its ``norm``'s and
-    ``out_proj``'s ``ssm_inner`` rows; else all but the embed axes.  On a
-    one-row decode plan, :func:`_stationary_keep`."""
+    router, an SSM block's conv weights and, but in decode, a q / k / v
+    weight whose heads do not split (whole); the SSM heads' axes for its
+    ``norm``'s and ``out_proj``'s ``ssm_inner`` rows; else all but the
+    embed axes, the tables' ``table`` axes kept.  On a one-row decode plan,
+    :func:`_stationary_keep`."""
     if plan["stationary"]:
         return _stationary_keep(path, p, spec, plan)
     name = path.rsplit("/", 1)[-1]
     if name == "router" or ("ssm_inner" in p.logical and name in ("conv_w", "conv_b")):
         return ()
-    if (name == "wq" and not plan["q_local"]) or (name in ("wk", "wv") and not plan["kv_local"]):
+    if plan["cell"].kind != "decode" and ((name == "wq" and not plan["q_local"])
+                                          or (name in ("wk", "wv") and not plan["kv_local"])):
         return ()
-    return tuple(ax for e, lname in zip(spec, p.logical) if lname not in ("embed", "embed_d")
-                 for ax in (plan["heads"] if lname == "ssm_inner" and name in ("norm", "out_proj")
-                            else e))
+    kept = plan["table"] if path in ("/embed", "/unembed") else ()
+    return tuple(ax for e, lname in zip(spec, p.logical) for ax in (
+        tuple(a for a in e if a in kept) if lname in ("embed", "embed_d")
+        else plan["heads"] if lname == "ssm_inner" and name in ("norm", "out_proj") else e))
 
 
 def _count(wire) -> tuple[int, dict]:
@@ -1319,16 +1450,17 @@ def _hand_hybrid_decode_collectives(arch: str, cell_name: str, mesh_kind: str):
 
     * each parameter gathered over the axes its working layout drops (a
       block's where its period runs, :func:`_weight_gathers`);
-    * the embedding's partial rows summed over the vocab axes;
     * an SSM layer: the one-token ``in_proj`` row gathered over its
       columns' axes, the conv history's rows over its channels', the gated
       norm's sum of squares and ``out_proj``'s partial sums over the heads';
-    * an attention layer: q (and k, v where the kv heads split) gathered
-      over the heads' axes, the partial softmax's max, sum and weighted sum
-      over the cache's sequence axes, ``wo``'s partial sums over the heads';
+    * an attention layer: q, k and v gathered over their weights' columns'
+      axes, the partial softmax's max, sum and weighted sum over the cache's
+      sequence axes, ``wo``'s partial sums over the heads';
     * the MLP's partial sums over its columns' axes, the experts' outputs
       over the experts' (each rank its own experts of the same tokens);
-    * the logits gathered over the vocab axes, then the batch's.
+    * the embedding, the unembedding and the greedy token as
+      ``decode_ends`` gives them (the rows traded for the tables' columns
+      over the ``table`` axes).
 
     A plan whose rows leave the weights' embed axes whole (one row):
     :func:`_stationary_decode_wire`."""
@@ -1352,7 +1484,8 @@ def _hand_hybrid_decode_collectives(arch: str, cell_name: str, mesh_kind: str):
         own = "ssm_inner" in p.logical and path.endswith("/norm")     # travels in float32
         add(_weight_gathers(path, p, spec, sizes, _hv_keep(path, p, spec, plan)),
             f32 if own else bf)
-    add(_Stream.sum(R * D, plan["vocab"]), bf)
+    emb, ends = decode_ends(R, D, V, sizes, plan["batch"], plan["vocab"], table=plan["table"])
+    wire += emb
     for _ in range(cfg.n_layers // cfg.period):
         for mixer, channel in cfg.layer_pattern():
             if mixer == "ssm":
@@ -1361,20 +1494,14 @@ def _hand_hybrid_decode_collectives(arch: str, cell_name: str, mesh_kind: str):
                 add(_Stream.sum(R, plan["heads"]), f32)
                 add(_Stream.sum(R * D, plan["heads"]), bf)
             else:
-                heads = [(cfg.n_heads, plan["q_local"]), (cfg.n_kv_heads, plan["kv_local"]),
-                         (cfg.n_kv_heads, plan["kv_local"])]
-                add([("all-gather", R * h * hd) for h, split in heads if split and plan["qkv"]],
-                    bf)
+                heads = [(cfg.n_heads, plan["qkv"]), (cfg.n_kv_heads, plan["kv"]),
+                         (cfg.n_kv_heads, plan["kv"])]
+                add([("all-gather", R * h * hd) for h, axes in heads if axes], bf)
                 add(_Stream.sum(Rc * cfg.n_heads, plan["cache_seq"]) * 2
                     + _Stream.sum(Rc * cfg.n_heads * hd, plan["cache_seq"]), f32)
                 add(_Stream.sum(R * D, plan["qkv"]), bf)
             add(_Stream.sum(R * D, plan["ffn"] if channel == "mlp" else plan["experts"]), bf)
-    gathered = R * (V // n(plan["vocab"]))
-    for axes in (plan["vocab"], plan["batch"]):
-        for ax in reversed(axes):
-            gathered *= sizes[ax]
-            add([("all-gather", gathered)], f32)
-    return _count(wire)
+    return _count(wire + ends)
 
 
 def _stationary_keep(path: str, p, spec, plan) -> tuple[str, ...]:
@@ -1417,8 +1544,8 @@ def _stationary_decode_wire(plan) -> list:
     all-gather an axis, the minor first, each of its result:
 
     * the weights: none move (:func:`_stationary_weight_gathers`);
-    * the embedding: the partial rows summed over the vocab axes, their
-      columns gathered over the stationary axes;
+    * the embedding and the unembedding with the greedy token:
+      ``decode_ends`` over the stationary axes;
     * an SSM layer: ``in_proj``'s partial products summed over the
       stationary axes, the row gathered over its columns' axes, the conv's
       output over the conv history's channels' (the history does not move),
@@ -1435,9 +1562,7 @@ def _stationary_decode_wire(plan) -> list:
       gathered over the experts' axes, the experts' up projections summed
       over the stationary axes, the outputs over the experts' (each rank its
       own experts of the same tokens) and hidden columns' axes, the columns
-      gathered;
-    * the unembedding's partial logits summed, the logits gathered over the
-      vocab axes, then the batch's."""
+      gathered."""
     cfg, cell, sizes = plan["cfg"], plan["cell"], plan["sizes"]
 
     def n(axes) -> int:
@@ -1462,7 +1587,8 @@ def _stationary_decode_wire(plan) -> list:
     def add(ops, itemsize):
         wire.extend((kind, m * itemsize) for kind, m in ops)
     add(_stationary_weight_gathers(plan), bf)
-    add(summed(R * D // e, plan["vocab"]) + gathered(R * D, st), bf)
+    emb, ends = decode_ends(R, D, V, sizes, plan["batch"], plan["vocab"], stationary=st)
+    wire += emb
     for _ in range(cfg.n_layers // cfg.period):
         for mixer, channel in cfg.layer_pattern():
             if mixer == "ssm":
@@ -1491,9 +1617,7 @@ def _stationary_decode_wire(plan) -> list:
                     + summed(hidden, st) * 2
                     + summed(R * D // e, plan["experts"] + plan["expert_ffn"])
                     + gathered(R * D, st), bf)
-    add(summed(R * V // n(plan["vocab"]), st), bf)
-    add(gathered(R * V, plan["vocab"]) + gathered(R * V * n(plan["batch"]), plan["batch"]), f32)
-    return wire
+    return wire + ends
 
 
 def _hand_hybrid_train_collectives(arch: str, cell_name: str):

@@ -17,6 +17,7 @@ of the one-device step; recovery on a mesh within 2e-4
 unresharded run (``tests/test_elastic.py``); decode tokens identical.
 """
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -75,6 +76,53 @@ def smoke_cfg(arch: str, **kw):
 
 
 TABLES = ("embed", "unembed")
+
+
+def decode_ends(R: int, D: int, V: int, sizes: dict, batch, vocab, table=(),
+                stationary=()) -> tuple[list, list]:
+    """(the embedding's, the unembedding's and greedy token's) collectives
+    of a sharded decode step, (kind, bytes a device) each, from its plan's
+    axes: ``R`` stream rows a rank, the rows' ``batch`` axes, the
+    vocabulary's, the tables' embed axes the rows split (``table``) and the
+    weights' embed axes they leave whole (``stationary``).  A sum over an
+    axis is an all-reduce (twice its elements), a gather an all-gather an
+    axis (the minor first, each its result); the token ids int32, the
+    tables' rows and the stream bf16, the logits float32.
+
+    * the embedding: the rows' token ids gathered over ``table``; the
+      looked-up rows summed over the vocab axes (R rows of the stationary
+      axes' share of D, or every row of ``table`` on its share); one
+      all-to-all bringing each row's columns to its rank, or the columns
+      gathered over ``stationary``;
+    * the unembedding: the partial logits summed over ``stationary`` (bf16),
+      or the inverse all-to-all and the partial logits of every row of
+      ``table`` reduce-scattered onto the rows, on this rank's columns
+      (``ceil(V / parts)`` of the logit axes: the vocabulary's, else the
+      axes the rows leave whole);
+    * the greedy token: each row's maximum with its NaN flag and then its
+      least index (int64) summed over the logit axes as maxima, the tokens
+      gathered over ``batch``."""
+    def n(axes) -> int:
+        return math.prod(sizes[ax] for ax in axes)
+
+    def gathered(m: int, axes, itemsize: int) -> list:
+        out = []
+        for ax in reversed(axes):
+            m *= sizes[ax]
+            out.append(("all-gather", m * itemsize))
+        return out
+    assert len(table) <= 1 and not (table and stationary)
+    cols = vocab if vocab or not table else tuple(ax for ax in sizes if sizes[ax] > 1
+                                                  and ax not in batch)
+    e = n(stationary)
+    emb = gathered(R, table, 4) + [("all-reduce", 2 * R * D // e * 2)] * len(vocab) \
+        + [("all-to-all", R * D * 2)] * len(table) + gathered(R * D // e, stationary, 2)
+    out = [("all-reduce", 2 * R * V // n(vocab) * 2)] * len(stationary) \
+        + [("all-to-all", R * D * 2)] * len(table) \
+        + [("reduce-scatter", R * -(-V // n(cols)) * 4)] * len(table) \
+        + [("all-reduce", 2 * R * 2 * 4), ("all-reduce", 2 * R * 8)] * len(cols) \
+        + gathered(R, batch, 4)
+    return emb, out
 
 
 def table_specs(shardings) -> dict:
@@ -139,7 +187,7 @@ def four_rank_job(rank, world, init, tmp, ref):
     from repro_torch.models.layers import rmsnorm
     from repro_torch.optim import AdamWState
     from repro_torch.optim.adamw import tree_map_sorted
-    from repro_torch.substrate import Sharding, distribute, full_value, make_mesh
+    from repro_torch.substrate import Sharding, distribute, full_value, gather_full, make_mesh
     from repro_torch.train import Trainer, TrainerConfig
     out = {}
 
@@ -217,6 +265,7 @@ def four_rank_job(rank, world, init, tmp, ref):
             cache = tree_map_sorted(distribute, init_params(gmodel.cache_specs(4, 16), None, "cpu"),
                                     dsh["cache"])
         _, logits = fwd(p, {"tokens": toks})
+        logits = gather_full(logits)
         seq = []
         tok = toks[:, :1]
         for pos in range(6):

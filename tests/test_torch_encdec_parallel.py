@@ -139,6 +139,7 @@ def serve_on_mesh(model, mesh, params, P: int, T: int, rows: int = SERVE_B) -> d
     from repro_torch.configs.base import ShapeCell
     from repro_torch.launch.steps import build_decode, build_prefill, seed_cache
     from repro_torch.models.common import sorted_leaves
+    from repro_torch.substrate import gather_full
 
     def shards(cache, sh):
         return [(x.to_local().clone(), s.spec) for x, s in zip(sorted_leaves(cache),
@@ -147,6 +148,7 @@ def serve_on_mesh(model, mesh, params, P: int, T: int, rows: int = SERVE_B) -> d
     dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, rows, "decode"))
     inputs = {k: torch.as_tensor(v) for k, v in prefill_inputs(model.cfg, P, rows).items()}
     pcache, logits = fwd(params, inputs)
+    logits = gather_full(logits)
     prefill_shards = shards(pcache, fwd.plan(inputs["tokens"])[2])
     cache = seed_cache(pcache, dsh["cache"], T)
     cross_kept = [(bool(cache["cross"][n].to_local().equal(pcache["cross"][n].to_local())),
@@ -155,6 +157,7 @@ def serve_on_mesh(model, mesh, params, P: int, T: int, rows: int = SERVE_B) -> d
     steps = [(logits, tok)]
     for i in range(NEW):
         tok, logits, cache = dec(params, cache, {"tokens": tok[:, None], "pos": P + i})
+        logits = gather_full(logits)
         steps.append((logits, tok))
     (tp, _), = dec._plans.values()
     return dict(steps=steps, prefill=prefill_shards, decode=shards(cache, dsh["cache"]),
@@ -500,7 +503,9 @@ def smoke_parts(name: str, cell_name: str, profile: str) -> tuple:
     mesh under ``profile``, by hand from the resolved specs: the stream's
     rows and sequence (one token in decode), the heads', the MLP's and the
     vocabulary's columns, the self cache's rows and sequence and the cross
-    cache's sequence (the frames')."""
+    cache's sequence (the frames'); ``wk``'s columns; a decode step's
+    tables' embed axes that its rows split and, where the vocabulary does
+    not split, the axes of its logits' columns."""
     import repro_torch.configs as C
     from repro_torch.models import build
     from repro_torch.models.common import resolve_spec
@@ -510,9 +515,11 @@ def smoke_parts(name: str, cell_name: str, profile: str) -> tuple:
     model = build(cfg)
     B, S = cell.global_batch, 1 if cell.kind == "decode" else cell.seq_len
 
+    def axes(p_shape, logical, d):
+        return _axes(resolve_spec(tuple(p_shape), logical, sizes, profile=profile)[d])
+
     def n(p_shape, logical, d):
-        return math.prod(sizes[ax] for ax in _axes(resolve_spec(
-            tuple(p_shape), logical, sizes, profile=profile)[d]))
+        return math.prod(sizes[ax] for ax in axes(p_shape, logical, d))
     specs = model.specs()
     block = specs["dec_blocks"]
     cache = model.cache_specs(cell.global_batch, cell.seq_len)
@@ -522,7 +529,14 @@ def smoke_parts(name: str, cell_name: str, profile: str) -> tuple:
                  ffn=n(block["mlp"]["w1"].shape, block["mlp"]["w1"].logical, 2),
                  cache_batch=n(cache["self"]["k"].shape, cache["self"]["k"].logical, 1),
                  cache_seq=n(cache["self"]["k"].shape, cache["self"]["k"].logical, 2),
-                 cross_seq=n(cache["cross"]["k"].shape, cache["cross"]["k"].logical, 2))
+                 cross_seq=n(cache["cross"]["k"].shape, cache["cross"]["k"].logical, 2),
+                 kv=n(block["self_attn"]["wk"].shape, block["self_attn"]["wk"].logical, 2))
+    if cell.kind == "decode":
+        rows = axes((B, S), ("batch", "seq"), 0)
+        table = [ax for ax in rows if ax in axes(specs["embed"].shape, specs["embed"].logical, 1)]
+        parts["table"] = math.prod(sizes[ax] for ax in table)
+        if table and parts["vocab"] == 1:
+            parts["logits"] = math.prod(sizes[ax] for ax in sizes if ax not in rows)
     return cfg, cell, parts
 
 

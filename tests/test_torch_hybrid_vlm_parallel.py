@@ -169,7 +169,7 @@ def serve_on_mesh(model, mesh, params, P: int, T: int, one_device, rows: int = S
     from repro_torch.launch.steps import build_decode, build_prefill, seed_cache
     from repro_torch.models.common import sorted_leaves
     from repro_torch.optim.adamw import tree_map_sorted
-    from repro_torch.substrate import full_value
+    from repro_torch.substrate import full_value, gather_full
 
     def shards(cache, sh):
         return [(x.to_local().clone(), s.spec) for x, s in zip(sorted_leaves(cache),
@@ -179,6 +179,7 @@ def serve_on_mesh(model, mesh, params, P: int, T: int, one_device, rows: int = S
     dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, rows, "decode"))
     inputs = {k: torch.as_tensor(v) for k, v in prefill_inputs(cfg, P, rows).items()}
     pcache, logits = fwd(params, inputs)
+    logits = gather_full(logits)
     prefill_shards = shards(pcache, fwd.plan(next(iter(inputs.values())))[2])
     cache = seed_cache(pcache, dsh["cache"], T)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
@@ -188,6 +189,7 @@ def serve_on_mesh(model, mesh, params, P: int, T: int, one_device, rows: int = S
         if (pos := decode_positions(cfg, P, i, rows)) is not None:
             step_in["positions"] = torch.as_tensor(pos)
         tok, logits, cache = dec(params, cache, step_in)
+        logits = gather_full(logits)
         steps.append((logits, tok))
     (tp, _), = dec._plans.values()
     every = tree_map_sorted(lambda t: full_value(t).clone(), params)   # a collective: every rank
@@ -575,7 +577,8 @@ def _smoke_plan(arch: str, cell_name: str, profile: str = "baseline",
     whether the q (and the kv) heads split whole (``head_split``); a decode
     step's ``stationary`` axes (the weights' embed axes its rows leave
     whole, over which the weights stay on their shards: ``data`` for one
-    row); and the ranks each logical axis splits over (``parts``, for the
+    row) and ``table`` axes (the tables' embed axes its rows split, over
+    which the tables stay on their shards); and the ranks each logical axis splits over (``parts``, for the
     hand FLOP counts: where the experts' axes split the sequence the tokens
     cross them instead, 1; ``embed`` the stationary axes', ``kv`` wk's
     columns', ``conv`` the conv history's channels')."""
@@ -606,10 +609,12 @@ def _smoke_plan(arch: str, cell_name: str, profile: str = "baseline",
     plan = dict(cfg=cfg, cell=cell, sizes=sizes, model=model, spec=spec, batch=stream[0],
                 seq=stream[1], vocab=spec(model.specs()["embed"])[0],
                 qkv=spec(layer["attn"]["wq"])[2], kv=spec(layer["attn"]["wk"])[2],
-                ffn=spec(layer["mlp"]["wg"])[2],
+                ffn=spec(layer["mlp"]["wg"])[2] if "mlp" in layer else (),
                 experts=(), expert_ffn=(), columns=(), heads=(), conv=(),
                 cache_batch=spec(cache["k"])[1], cache_seq=spec(cache["k"])[2],
                 stationary=tuple(ax for ax in sizes if ax in embed and ax not in stream[0])
+                if cell.kind == "decode" else (),
+                table=tuple(ax for ax in stream[0] if ax in spec(model.specs()["embed"])[1])
                 if cell.kind == "decode" else ())
     if "moe" in layer:
         w = layer["moe"]["wg"]
@@ -622,6 +627,9 @@ def _smoke_plan(arch: str, cell_name: str, profile: str = "baseline",
     parts = {k: n(plan[k]) for k in ("batch", "seq", "vocab", "qkv", "kv", "ffn", "cache_batch",
                                      "cache_seq", "conv")}
     parts["embed"] = n(plan["stationary"])
+    parts["table"] = n(plan["table"])
+    if plan["table"] and not plan["vocab"]:
+        parts["logits"] = n(tuple(ax for ax in sizes if ax not in stream[0]))
     if "moe" in layer:
         parts["experts"] = 1 if set(plan["experts"]) & set(plan["seq"]) else n(plan["experts"])
         parts["expert_ffn"] = n(tuple(ax for ax in plan["expert_ffn"] if ax not in plan["seq"]))

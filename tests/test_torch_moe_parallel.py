@@ -28,7 +28,12 @@ its profile.  mixtral smoke under ``serve`` with 4 kv heads, which split
 over (``model``, ``data``), prefills one row, which ``data`` does not
 divide: the cache is whole over ``data``, so prefill gathers the heads over
 ``data`` and trades them for the sequence over ``model`` (mixtral-8x22b's 8
-kv heads and (1, 5120) prompt on the card's (2, 2) do the same).
+kv heads and (1, 5120) prompt on the card's (2, 2) do the same).  dbrx and
+mixtral smoke (with 4 and 6 experts) serve one row under the baseline on
+(2, 2) (``*-b1-2x2``): the row leaves ``data`` whole, so the decode plan
+keeps every weight, the router and the experts' too, on its ``data`` shard
+(``stationary_axes``) and moves the token, as XLA partitions the
+reference's step.
 
 Held, at ``test_torch_tensor_parallel.py``'s and
 ``test_torch_sharded_serve.py``'s bounds: three train steps against the
@@ -71,7 +76,17 @@ CASES = {  # name: (arch, mesh shape, profile, config changes, train (B, S), ser
     "dbrx-opt1-2x2": ("dbrx-132b", (2, 2), "opt1", {}, (4, 64), (4, 8, 16)),
     "mixtral-serve-kv4-b1-2x2": ("mixtral-8x22b", (2, 2), "serve", {"n_kv_heads": 4},
                                  (4, 64), (1, 40, 48)),
+    # one row under the baseline: the row leaves data whole, so the decode
+    # plan keeps every weight (the router's and the experts' too) on its data
+    # shard and moves the token (mixtral's prompt wraps the window's ring)
+    "dbrx-b1-2x2": ("dbrx-132b", (2, 2), "baseline", {}, (4, 64), (1, 8, 16)),
+    "mixtral-b1-2x2": ("mixtral-8x22b", (2, 2), "baseline", {}, (4, 64), (1, 40, 48)),
+    "mixtral-b1-e6-2x2": ("mixtral-8x22b", (2, 2), "baseline", {"n_experts": 6}, (4, 64),
+                          (1, 40, 48)),
 }
+# the one-row cases' decode plans keep the weights on their data shards
+STATIONARY = {"dbrx-b1-2x2": ("data",), "mixtral-b1-2x2": ("data",),
+              "mixtral-b1-e6-2x2": ("data",)}
 PLANS = {  # name: (expert axes, the experts' hidden-column axes, the train stream's sequence)
     "dbrx-2x2": (("model",), (), ("model",)),
     "dbrx-1x4": (("model",), (), ("model",)),
@@ -85,6 +100,9 @@ PLANS = {  # name: (expert axes, the experts' hidden-column axes, the train stre
     "mixtral-serve-2x2": (("model",), ("data",), ()),
     "dbrx-opt1-2x2": (("model",), (), ("model",)),
     "mixtral-serve-kv4-b1-2x2": (("model",), ("data",), ()),
+    "dbrx-b1-2x2": (("model",), (), ("model",)),
+    "mixtral-b1-2x2": (("model",), (), ("model",)),
+    "mixtral-b1-e6-2x2": (("model",), (), ("model",)),
 }
 STEPS, NEW = 3, 6
 # the keep-mask probe: (B, S) tokens on (1, 4), groups of 64 (one over every
@@ -152,7 +170,8 @@ def moe_rank_job(rank, world, init, tmp, weights):
     from repro_torch.models.tensor_parallel import plan_train
     from repro_torch.optim import AdamWState
     from repro_torch.optim.adamw import tree_map_sorted
-    from repro_torch.substrate import all_to_all_over, full_value, init_group, make_mesh
+    from repro_torch.substrate import (all_to_all_over, full_value, gather_full, init_group,
+                                       make_mesh)
     torch.set_num_threads(1)
     init_group("gloo", rank, world, init)
 
@@ -196,12 +215,14 @@ def moe_rank_job(rank, world, init, tmp, weights):
             params = params_onto_mesh(weights[model_key(arch, kw)], psh["params"])
             tokens = torch.as_tensor(prompts_for(cfg.vocab, Bs, P))
             pcache, logits = fwd(params, {"tokens": tokens})
+            logits = gather_full(logits)
             prefill_shards = shards(pcache, fwd.plan(tokens)[2])
             cache = seed_cache(pcache, dsh["cache"], T, cfg.window)
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             steps = [(logits, tok)]
             for i in range(NEW):
                 tok, logits, cache = dec(params, cache, {"tokens": tok[:, None], "pos": P + i})
+                logits = gather_full(logits)
                 steps.append((logits, tok))
             (plan, _), = dec._plans.values()
             one_device = serve_one_device(model, whole(params), tokens, T)
@@ -344,7 +365,8 @@ def test_moe_sharded_serve_matches_reference(ranks, reference, name):
     errs = {"logits": 0.0, "prefill": 0.0, "decode": 0.0, "prefill_one": 0.0, "decode_one": 0.0}
     for r in ranks:
         got = r[name]
-        assert got["stationary"] == ()   # no embed axis the rows leave whole
+        # the one-row cases' rows leave data whole; the others' no embed axis
+        assert got["stationary"] == STATIONARY.get(name, ())
         for (lg, tok), (wl, wt) in zip(got["steps"], ref["steps"]):
             assert tuple(lg.shape) == wl.shape
             assert np.array_equal(tok.numpy(), wt)

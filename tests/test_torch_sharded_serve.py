@@ -57,31 +57,58 @@ import torch.distributed as dist  # noqa: E402
 from test_torch_distributed import check_tables, rel, smoke_cfg, spawn, table_specs  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CASES = {  # name: (arch, mesh shape, profile, kv heads: None for the smoke config's)
-    "granite-2x2": ("granite-3-8b", (2, 2), "baseline", None),
-    "granite-1x4": ("granite-3-8b", (1, 4), "baseline", None),
-    "llama3-1x4": ("llama3-405b", (1, 4), "baseline", None),
-    "minicpm-1x4": ("minicpm-2b", (1, 4), "baseline", None),
-    "glm4-1x4": ("glm4-9b", (1, 4), "baseline", None),
-    "granite-serve-2x2": ("granite-3-8b", (2, 2), "serve", None),
-    "granite-serve-kv4-2x2": ("granite-3-8b", (2, 2), "serve", 4),
-    "granite-opt1-2x2": ("granite-3-8b", (2, 2), "opt1", None),
-    "minicpm-serve-2x2": ("minicpm-2b", (2, 2), "serve", None),
+CASES = {  # name: (arch, mesh shape, profile, the smoke config's changes)
+    "granite-2x2": ("granite-3-8b", (2, 2), "baseline", ()),
+    "granite-1x4": ("granite-3-8b", (1, 4), "baseline", ()),
+    "llama3-1x4": ("llama3-405b", (1, 4), "baseline", ()),
+    "minicpm-1x4": ("minicpm-2b", (1, 4), "baseline", ()),
+    "glm4-1x4": ("glm4-9b", (1, 4), "baseline", ()),
+    "granite-serve-2x2": ("granite-3-8b", (2, 2), "serve", ()),
+    "granite-serve-kv4-2x2": ("granite-3-8b", (2, 2), "serve", (("n_kv_heads", 4),)),
+    "granite-opt1-2x2": ("granite-3-8b", (2, 2), "opt1", ()),
+    "minicpm-serve-2x2": ("minicpm-2b", (2, 2), "serve", ()),
+    # two rows a data rank: the decode plan keeps the tables on their data
+    # shards and trades the rows for their columns; a vocabulary of 255
+    # divides neither axis (the logits' columns uneven), 3 heads of 16 do not
+    # split model (q, k and v on their columns), glm4's one kv head neither
+    "granite-v255-2x2": ("granite-3-8b", (2, 2), "baseline", (("vocab", 255),)),
+    "minicpm-h3-2x2": ("minicpm-2b", (2, 2), "baseline", (("n_heads", 3), ("n_kv_heads", 3))),
+    "glm4-2x2": ("glm4-9b", (2, 2), "baseline", ()),
 }
 ONE_ROW = {  # the first prompt alone
-    "granite-b1-2x2": ("granite-3-8b", (2, 2), "baseline", None),
-    "granite-opt1-b1-2x2": ("granite-3-8b", (2, 2), "opt1", None),
+    "granite-b1-2x2": ("granite-3-8b", (2, 2), "baseline", ()),
+    "granite-opt1-b1-2x2": ("granite-3-8b", (2, 2), "opt1", ()),
 }
 B, P, T, NEW = 4, 8, 16, 6
 GATHERING = "whisper-tiny"
 
 
-def model_key(arch: str, kv) -> str:
-    return arch if kv is None else f"{arch}-kv{kv}"
+def model_key(arch: str, over) -> str:
+    return "-".join([arch] + [f"{k}{v}" for k, v in over])
 
 
 def prompts_for(vocab: int) -> np.ndarray:
     return np.random.default_rng(5).integers(0, vocab, (B, P)).astype(np.int32)
+
+
+# the decode plans the distributed argmax runs on: the vocabulary on model
+# with the rows on data, 255 columns over model unevenly (128 and 127) with
+# the rows on data, the vocabulary over 4 ranks with every row on each
+ARGMAX_CASES = ("granite-2x2", "granite-v255-2x2", "granite-1x4")
+
+
+def argmax_logits(V: int) -> torch.Tensor:
+    """(B, 1, V) logits whose argmax is hard to split: a maximum tied at
+    columns on every rank, a NaN (twice, after a +inf) that wins, a row of
+    -inf, and a tie across the middle column boundary."""
+    x = torch.as_tensor(np.random.default_rng(11).uniform(-4, 4, (B, 1, V)),
+                        dtype=torch.float32)
+    x[0, 0, [3, V // 2 + 2, V - 1]] = 5.0
+    x[1, 0, 2] = float("inf")
+    x[1, 0, [V - 55, V - 5]] = float("nan")
+    x[2] = float("-inf")
+    x[3, 0, [-(-V // 2) - 1, -(-V // 2)]] = 7.0
+    return x
 
 
 def serve_rank_job(rank, world, init, tmp, weights):
@@ -96,7 +123,8 @@ def serve_rank_job(rank, world, init, tmp, weights):
     from repro_torch.models import build
     from repro_torch.models.common import init_params, sharding_profile, sorted_leaves
     from repro_torch.optim.adamw import tree_map_sorted
-    from repro_torch.substrate import distribute, init_group, make_mesh
+    from repro_torch.models.tensor_parallel import plan_decode
+    from repro_torch.substrate import chunk_of, distribute, gather_full, init_group, make_mesh
     torch.set_num_threads(2)
     init_group("gloo", rank, world, init)
     cell = ShapeCell("serve", T, B, "decode")
@@ -105,30 +133,43 @@ def serve_rank_job(rank, world, init, tmp, weights):
         return [(x.to_local().clone(), s.spec) for x, s in zip(sorted_leaves(cache),
                                                                  sorted_leaves(sh))]
     out = {}
-    for name, (arch, shape, profile, kv) in {**CASES, **ONE_ROW}.items():
+    for name, (arch, shape, profile, over) in {**CASES, **ONE_ROW}.items():
         rows = 1 if name in ONE_ROW else B
-        model = build(smoke_cfg(arch) if kv is None else smoke_cfg(arch, n_kv_heads=kv))
+        model = build(smoke_cfg(arch, **dict(over)))
         with sharding_profile(profile):
             mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
             fwd, psh = build_prefill(model, mesh)
             dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, rows, "decode"))
-            params = params_onto_mesh(weights[model_key(arch, kv)], psh["params"])
+            params = params_onto_mesh(weights[model_key(arch, over)], psh["params"])
             tokens = torch.as_tensor(prompts_for(model.cfg.vocab)[:rows])
             pcache, logits = fwd(params, {"tokens": tokens})
+            logits = gather_full(logits)
             prefill_shards = shards(pcache, fwd.plan(tokens)[2])
             cache = seed_cache(pcache, dsh["cache"], T)
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             steps = [(logits, tok)]
             for i in range(NEW):
                 tok, logits, cache = dec(params, cache, {"tokens": tok[:, None], "pos": P + i})
+                logits = gather_full(logits)
                 steps.append((logits, tok))
             tp = dec.plan(torch.empty(rows, 1), cache)[0]
             q_slice = fwd.plan(tokens)[0].q_slice_axes
         out[name] = dict(steps=steps, prefill=prefill_shards, decode=shards(cache, dsh["cache"]),
                          coords=dict(zip(("data", "model"), mesh.get_coordinate())),
-                         plan=(tp.q_local, tp.kv_local, q_slice,
-                               tp.cache_row_axes, tp.cache_seq_axes, tp.stationary_axes),
+                         plan=(tp.q_local, tp.kv_local, q_slice, tp.cache_row_axes,
+                               tp.cache_seq_axes, tp.stationary_axes, tp.table_axes),
                          tables=table_specs(psh["params"]))
+
+    out["argmax"] = {}
+    for name in ARGMAX_CASES:
+        arch, shape, profile, over = CASES[name]
+        cfg = smoke_cfg(arch, **dict(over))
+        mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+        tp = plan_decode(cfg, build(cfg).specs(), build(cfg).cache_specs(B, T), mesh, B)
+        whole = argmax_logits(cfg.vocab)
+        mine = whole[chunk_of(B, mesh, tp.batch_axes)][..., tp.logit_cols(cfg.vocab)]
+        out["argmax"][name] = (tp.logit_axes, tp.next_tokens(mine, cfg.vocab),
+                               torch.argmax(whole[:, -1], dim=-1))
 
     model = build(smoke_cfg(GATHERING))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
@@ -148,6 +189,7 @@ def serve_rank_job(rank, world, init, tmp, weights):
             cache = tree_map_sorted(distribute, init_params(model.cache_specs(B, T), None, "cpu"),
                                     dsh["cache"])
         _, logits = fwd(p, {"tokens": tokens, "frames": frames})
+        logits = gather_full(logits)
         seq, tok = [], tokens[:, :1]
         for pos in range(NEW):
             nxt, _, cache = dec(p, cache, {"tokens": tok, "pos": pos})
@@ -189,17 +231,16 @@ def reference():
     import repro.configs as JC
     from repro.models import build as jbuild
     out = {}
-    one_row = {(a, kv) for a, _, _, kv in ONE_ROW.values()}
-    for arch, kv in sorted({(a, kv) for a, _, _, kv in CASES.values()}, key=str):
-        jcfg = dataclasses.replace(JC.get(arch, smoke=True), compute_dtype="float32")
-        if kv is not None:
-            jcfg = dataclasses.replace(jcfg, n_kv_heads=kv)
+    one_row = {(a, over) for a, _, _, over in ONE_ROW.values()}
+    for arch, over in sorted({(a, over) for a, _, _, over in CASES.values()}, key=str):
+        jcfg = dataclasses.replace(JC.get(arch, smoke=True), compute_dtype="float32",
+                                   **dict(over))
         model = jbuild(jcfg)
         params = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0)))
         prompts = prompts_for(jcfg.vocab)
-        out[model_key(arch, kv)] = dict(params=params, **_reference_run(model, params, prompts))
-        if (arch, kv) in one_row:
-            out[model_key(arch, kv)]["one_row"] = _reference_run(model, params, prompts[:1])
+        out[model_key(arch, over)] = dict(params=params, **_reference_run(model, params, prompts))
+        if (arch, over) in one_row:
+            out[model_key(arch, over)]["one_row"] = _reference_run(model, params, prompts[:1])
     return out
 
 
@@ -212,18 +253,22 @@ def ranks(reference, tmp_path_factory):
 PLANS = {  # name: (q heads split, kv heads split, the axes the prefill's queries split
     #         their sequence over where the q heads do not, cache rows beyond the
     #         stream's, cache seq, the axes over which the weights stay on their
-    #         embed shards)
-    "granite-2x2": (True, True, (), (), ("model",), ()),
-    "granite-1x4": (True, False, (), (), ("model",), ()),
-    "llama3-1x4": (True, False, (), (), ("model",), ()),
-    "minicpm-1x4": (False, False, ("model",), (), ("model",), ()),
-    "glm4-1x4": (True, False, (), (), ("model",), ()),
-    "granite-serve-2x2": (True, False, (), ("data",), ("model",), ()),
-    "granite-serve-kv4-2x2": (True, True, (), ("data",), ("model",), ()),
-    "granite-opt1-2x2": (True, True, (), (), ("model",), ()),
-    "minicpm-serve-2x2": (False, False, ("model", "data"), ("data",), ("model",), ()),
-    "granite-b1-2x2": (True, True, (), (), ("model",), ("data",)),
-    "granite-opt1-b1-2x2": (True, True, (), (), ("model",), ("data",)),
+    #         embed shards, the axes over which the tables stay on theirs and the
+    #         rows trade for their columns)
+    "granite-2x2": (True, True, (), (), ("model",), (), ("data",)),
+    "granite-1x4": (True, False, (), (), ("model",), (), ()),
+    "llama3-1x4": (True, False, (), (), ("model",), (), ()),
+    "minicpm-1x4": (False, False, ("model",), (), ("model",), (), ()),
+    "glm4-1x4": (True, False, (), (), ("model",), (), ()),
+    "granite-serve-2x2": (True, False, (), ("data",), ("model",), (), ()),
+    "granite-serve-kv4-2x2": (True, True, (), ("data",), ("model",), (), ()),
+    "granite-opt1-2x2": (True, True, (), (), ("model",), (), ()),
+    "minicpm-serve-2x2": (False, False, ("model", "data"), ("data",), ("model",), (), ()),
+    "granite-v255-2x2": (True, True, (), (), ("model",), (), ("data",)),
+    "minicpm-h3-2x2": (False, False, ("model",), (), ("model",), (), ("data",)),
+    "glm4-2x2": (True, False, (), (), ("model",), (), ("data",)),
+    "granite-b1-2x2": (True, True, (), (), ("model",), ("data",), ()),
+    "granite-opt1-b1-2x2": (True, True, (), (), ("model",), ("data",), ()),
 }
 
 
@@ -242,17 +287,17 @@ def test_sharded_serve_matches_reference(ranks, reference, name):
     1e-5 of its largest, and the rank's prefill and decode cache shards
     within 1e-6 of the reference's caches' matching slices.  Each case takes
     the head branch it names; the one-row cases keep the weights on their
-    ``data`` shards, the others on none."""
-    arch, shape, profile, kv = {**CASES, **ONE_ROW}[name]
-    ref = reference[model_key(arch, kv)]
+    ``data`` shards, the others on none; the baseline's cases of B rows on
+    (2, 2) keep the tables on theirs."""
+    arch, shape, profile, over = {**CASES, **ONE_ROW}[name]
+    ref = reference[model_key(arch, over)]
     if name in ONE_ROW:
         ref = ref["one_row"]
     errs = {"logits": 0.0, "prefill": 0.0, "decode": 0.0}
     for r in ranks:
         got = r[name]
         assert got["plan"] == PLANS[name]
-        check_tables(got["tables"], arch, ("data", "model"), shape, profile,
-                     **({} if kv is None else {"n_kv_heads": kv}))
+        check_tables(got["tables"], arch, ("data", "model"), shape, profile, **dict(over))
         for (lg, tok), (wl, wt) in zip(got["steps"], ref["steps"]):
             assert tuple(lg.shape) == wl.shape
             assert np.array_equal(tok.numpy(), wt)
@@ -262,6 +307,20 @@ def test_sharded_serve_matches_reference(ranks, reference, name):
                 errs[kind] = max(errs[kind], _slice_err(local, spec, full, got["coords"], shape))
     print(name, errs)
     assert errs["logits"] <= 1e-5 and errs["prefill"] <= 1e-6 and errs["decode"] <= 1e-6, errs
+
+
+def test_distributed_argmax_matches_torch_argmax(ranks):
+    """``TensorParallel.next_tokens`` on every rank, from its rows and
+    columns of :func:`argmax_logits`, equals ``torch.argmax`` of the whole
+    logits (ties to the least index, a NaN above everything, a row of -inf
+    to 0), for each plan of ``ARGMAX_CASES``, an int32 (B,) on every rank."""
+    axes = {}
+    for r in ranks:
+        for name, (cols, got, want) in r["argmax"].items():
+            axes[name] = cols
+            assert got.dtype == torch.int32 and got.shape == (B,), name
+            assert got.equal(want.to(torch.int32)), (name, got, want)
+    assert axes == {name: ("model",) for name in ARGMAX_CASES}
 
 
 def test_other_families_gather_on_a_mesh(ranks):

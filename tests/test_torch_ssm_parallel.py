@@ -53,7 +53,8 @@ torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
 
-from test_torch_distributed import check_tables, rel, smoke_cfg, spawn, table_specs  # noqa: E402
+from test_torch_distributed import (check_tables, decode_ends, rel, smoke_cfg, spawn,  # noqa: E402
+                                    table_specs)
 
 ARCH = "mamba2-2.7b"
 CASES = {  # name: (mesh shape, profile)
@@ -122,7 +123,7 @@ def ssm_rank_job(rank, world, init, tmp, weights):
     from repro_torch.models.ssm import _gated_norm
     from repro_torch.optim import AdamWState
     from repro_torch.optim.adamw import tree_map_sorted
-    from repro_torch.substrate import chunk_of, full_value, init_group, make_mesh
+    from repro_torch.substrate import chunk_of, full_value, gather_full, init_group, make_mesh
     import torch.nn.functional as F
     torch.set_num_threads(1)
     init_group("gloo", rank, world, init)
@@ -150,12 +151,14 @@ def ssm_rank_job(rank, world, init, tmp, weights):
             dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, rows, "decode"))
             tokens = torch.as_tensor(prompts_for(cfg.vocab, P, rows))
             pcache, logits = fwd(params, {"tokens": tokens})
+            logits = gather_full(logits)
             prefill_shards = shards(pcache, fwd.plan(tokens)[2])
             cache = seed_cache(pcache, dsh["cache"], T)
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             steps = [(logits, tok)]
             for i in range(NEW):
                 tok, logits, cache = dec(params, cache, {"tokens": tok[:, None], "pos": P + i})
+                logits = gather_full(logits)
                 steps.append((logits, tok))
             (plan, _), = dec._plans.values()
             serve[P] = dict(steps=steps, prefill=prefill_shards,
@@ -460,8 +463,9 @@ def _smoke_plan(cell_name: str, profile: str, mesh_kind: str = "single") -> dict
     stream's rows and sequence, the vocabulary's axes, ``in_proj``'s
     columns', the heads' and the rows' and conv channels' of the cache (the
     decode cache of the cell's batch), a decode step's ``stationary`` axes
-    (the weights' embed axes its rows leave whole: ``data`` for one row),
-    and the ranks each splits over (``parts``, for the hand FLOP counts)."""
+    (the weights' embed axes its rows leave whole: ``data`` for one row)
+    and ``table`` axes (the tables' embed axes its rows split), and the
+    ranks each splits over (``parts``, for the hand FLOP counts)."""
     import repro_torch.configs as C
     from repro_torch.launch.dryrun import mesh_shape
     from repro_torch.models import build
@@ -484,8 +488,10 @@ def _smoke_plan(cell_name: str, profile: str, mesh_kind: str = "single") -> dict
         if cell.kind == "decode" else ()
     plan = dict(cfg=cfg, cell=cell, sizes=sizes, batch=stream[0], seq=stream[1],
                 vocab=table[0], columns=proj[1], heads=ssm[2], cache_batch=ssm[1], conv=conv[3],
-                stationary=stationary)
-    parts = {k: _n(plan[k], plan) for k in ("batch", "seq", "vocab", "cache_batch", "conv")}
+                stationary=stationary, table=tuple(ax for ax in stream[0] if ax in table[1])
+                if cell.kind == "decode" else ())
+    parts = {k: _n(plan[k], plan) for k in ("batch", "seq", "vocab", "cache_batch", "conv",
+                                            "table")}
     parts.update(ssm_inner=_n(plan["columns"], plan), ssm_heads=_n(plan["heads"], plan),
                  embed=_n(plan["stationary"], plan))
     return dict(plan, parts=parts)
@@ -517,17 +523,20 @@ def test_ssm_trace_flops_hand_count(traces, cell, profile):
 def _ssm_keep(path: str, p, spec, plan: dict) -> tuple[str, ...]:
     """The mesh axes a parameter's working layout keeps under ``plan``:
     none for the SSM's conv weights (whole), the heads' axes for its norm's
-    and ``out_proj``'s ``ssm_inner`` rows, else all but the embed axes (on
-    a one-row decode plan ``test_torch_analysis._stationary_keep``)."""
+    and ``out_proj``'s ``ssm_inner`` rows, else all but the embed axes, the
+    tables' ``table`` axes kept (on a one-row decode plan
+    ``test_torch_analysis._stationary_keep``)."""
     if plan["stationary"]:
         from test_torch_analysis import _stationary_keep
         return _stationary_keep(path, p, spec, plan)
     name = path.rsplit("/", 1)[-1]
     if "ssm_inner" in p.logical and name in ("conv_w", "conv_b"):
         return ()
-    return tuple(ax for e, lname in zip(spec, p.logical) if lname not in ("embed", "embed_d")
-                 for ax in (plan["heads"] if lname == "ssm_inner" and name in ("norm", "out_proj")
-                            else _axes(e)))
+    kept = plan["table"] if path in ("/embed", "/unembed") else ()
+    return tuple(ax for e, lname in zip(spec, p.logical) for ax in (
+        tuple(a for a in _axes(e) if a in kept) if lname in ("embed", "embed_d")
+        else plan["heads"] if lname == "ssm_inner" and name in ("norm", "out_proj")
+        else _axes(e)))
 
 
 def _sent_columns(cfg, n_cols: int, n_heads: int) -> int:
@@ -550,7 +559,8 @@ def _hand_ssm_collectives(cell_name: str, mesh_kind: str = "single") -> tuple[in
       block's where its period runs, and again in train's recompute
       (``test_torch_analysis._weight_gathers``);
     * the embedding over the split vocabulary: the tokens' sequence gathered
-      (int32) and the partial rows into the stream (decode: summed);
+      (int32) and the partial rows into the stream (decode, and its
+      unembedding and greedy token: ``test_torch_distributed.decode_ends``);
     * each layer, forward: the stream's sequence gathered, ``in_proj``'s
       output exchanged to the heads' columns (the result: every column the
       heads read), the gated norm's sum of squares summed over the heads,
@@ -564,8 +574,8 @@ def _hand_ssm_collectives(cell_name: str, mesh_kind: str = "single") -> tuple[in
       ``test_torch_analysis._stationary_decode_wire``);
     * train: the loss as the dense step's (``test_torch_analysis``), the
       label counts, the loss, each working gradient into its layout (a
-      block's a period at a time) and the squared norms; serving: the last token over the sequence and the
-      logits over the vocabulary, then the batch."""
+      block's a period at a time) and the squared norms; prefill: the last
+      token over the sequence (the logits stay where they are computed)."""
     from repro_torch.models.common import resolve_spec
     from test_torch_analysis import (SMOKE_MESH, _count, _per_period, _periods, _pspec_paths,
                                      _stationary_decode_wire, _Stream, _tp_reduction,
@@ -598,11 +608,13 @@ def _hand_ssm_collectives(cell_name: str, mesh_kind: str = "single") -> tuple[in
     cols = 2 * di // nh + 2 * N + H // nh
     if cell.kind == "decode":
         Rc = B // _n(plan["cache_batch"], plan)
-        add(st.sum(R * D, vocab), bf)
+        emb, ends = decode_ends(R, D, V, sizes, plan["batch"], vocab, table=plan["table"])
+        wire += emb
         for _ in range(cfg.n_layers):
             add([("all-gather", R * (2 * di + 2 * N + H)),
                  ("all-gather", Rc * (k - 1) * (di + 2 * N))] + st.sum(R * D, plan["heads"]), bf)
             add(st.sum(R, plan["heads"]), f32)
+        wire += ends
     else:
         assert plan["seq"] == plan["heads"] and sizes == SMOKE_MESH
         Sl = S // _n(plan["seq"], plan)
@@ -631,12 +643,6 @@ def _hand_ssm_collectives(cell_name: str, mesh_kind: str = "single") -> tuple[in
                                 _periods(path, p)), f32)
         else:
             add(st.gather(R * D), bf)
-    if not train:
-        gathered = R * (V // _n(vocab, plan))
-        for axes in (vocab, plan["batch"]):
-            for ax in reversed(axes):
-                gathered *= sizes[ax]
-                add([("all-gather", gathered)], f32)
     counts: dict = {}
     for kind, _ in wire:
         counts[kind] = counts.get(kind, 0) + 1
@@ -651,7 +657,7 @@ def test_ssm_trace_collectives_hand_count(traces, cell):
     from repro_torch.launch.hlo_stats import collective_stats
     rec = traces[f"baseline/{cell}"]
     dt = {"torch.bfloat16": torch.bfloat16, "torch.float32": torch.float32,
-          "torch.int32": torch.int32}
+          "torch.int32": torch.int32, "torch.int64": torch.int64}
     st = collective_stats([(k, dt[d], n) for k, d, n in rec["collectives"]], 8)
     want, counts = _hand_ssm_collectives(cell)
     assert st["op_counts"] == counts
