@@ -301,7 +301,18 @@ Phases (any failure exits non-zero; nothing is caught):
      ``long_500k`` (one row: every weight on its ``data`` shard), each
      record equal to the CPU's counts to the byte (``I_DECODE_CPU``), its
      FLOPs to ``hand_decode_flops``, its collective bytes at most the
-     reference's (``I10_REFERENCE``: 718,783,648 and 29,897,224);
+     reference's (``I10_REFERENCE``: 718,783,648 and 29,897,224); i11, the
+     reference cells phase i traced nowhere else: llama3-405b's and
+     glm4-9b's ``decode_32k``, ``prefill_32k`` and ``train_4k``, minicpm-2b's
+     ``prefill_32k`` (its query-sliced prefill keeping only its cache
+     shard) and granite-3-8b's ``decode_32k`` and ``train_4k`` on the
+     two-pod (2, 16, 16) mesh, each decode cell as published and each other
+     at two depths projected to its published one (``I11_CELLS``): every
+     record equal to the CPU's counts to the byte (``I_DECODE_CPU``,
+     ``I11_CPU``) and its FLOPs to the hand count, and on the projection
+     argument + temp + output below the card's memory, temp and collective
+     bytes a device at most the reference's whole cell's
+     (``I11_REFERENCE``);
   7. report: launches of each kernel on each path (the counts are reset just
      before a path and read just after it), then each kernel's time at its
      path's shapes beside its plain version and its bound (``seg_level`` at
@@ -911,7 +922,7 @@ I8_BEFORE = {
 I8_CPU = {
     "train_4k": dict(total=4_740_720_296, temp=4_642_323_992, collective=2_980_890_096,
                      flops=2_694_567_690_240),
-    "prefill_32k": dict(total=743_201_160, temp=684_314_112, collective=796_706_304,
+    "prefill_32k": dict(total=441_170_312, temp=382_283_264, collective=796_706_304,
                         flops=1_107_587_667_456),
     "decode_32k": dict(total=410_611_424, temp=51_474_624, collective=1_644_096, flops=202_567_680),
 }
@@ -987,6 +998,128 @@ I_DECODE_CPU = {
         dict(total=12_504_067_104, temp=314_619_040, collective=321_958_944, flops=8_764_526_592),
     ("mixtral-8x22b", "long_500k", "single"):
         dict(total=2_337_288_936, temp=19_084_000, collective=9_069_856, flops=1_450_084_096),
+    ("llama3-405b", "decode_32k", "single"):
+        dict(total=23_820_489_792, temp=550_823_968, collective=50_510_589_696,
+             flops=539_039_367_168),
+    ("glm4-9b", "decode_32k", "single"):
+        dict(total=1_554_275_904, temp=63_601_696, collective=1_044_391_168, flops=19_516_096_512),
+    ("granite-3-8b", "decode_32k", "multi"):
+        dict(total=3_005_230_128, temp=94_310_928, collective=1_008_796_816, flops=9_453_993_984),
+}
+# i11 the reference cells phase i traced nowhere else (Queue 1 item 4 of
+# ROADMAP.md): llama3-405b's three cells (the largest dense model: d 16384, a
+# 128256-row table, bf16 AdamW moments), glm4-9b's (its 2 kv heads on the
+# model axis's 16), minicpm-2b's prefill_32k (its 36 q heads unsplit: each
+# rank attends with its query slice and keeps only its cache shard) and
+# granite-3-8b's decode_32k and train_4k on the two-pod (2, 16, 16) mesh (the
+# rows over (pod, data), the gradients summed over pod too), each through the
+# dry-run's command line in a process of its own queued at the check's start.
+# A decode cell is traced as published; a prefill or train cell at two depths
+# d and 2 d (d the least depth its layer period allows for a prefill, 2 for a
+# train step), each figure X projected to the published depth L as
+# X(2 d) + (X(2 d) - X(d)) (L - 2 d) / d (a train record is linear in the depth
+# to the byte: llama3-405b's and glm4-9b's whole traces on the CPU give their
+# projections; a whole llama3-405b train_4k trace takes 435 s there, too long
+# for the trace chain).  Beside the reference's XLA compile counts of each whole
+# cell on 256 fake host devices (512 for the two-pod mesh: python -m
+# repro.launch.dryrun --arch <arch> --cell <cell> --mesh <mesh>, on the CPU,
+# jax 0.9.0; its scan body counted once): argument, temp and output bytes a
+# device, collective bytes a device and its HLO's collective ops by kind.
+# Held: on the projection, or on the record traced whole, argument + temp +
+# output below the card's memory (a layer's working set does not shrink with
+# the depth), temp and collective bytes a device at most I11_OVER_REFERENCE x
+# the reference's whole cell's; at every depth traced the product FLOPs equal
+# to the hand count and the record equal to the CPU's counts to the byte
+# (I_DECODE_CPU, I11_CPU); the parent tree's temp (I_PARENT_TEMP) printed
+# beside each record
+I11_CELLS = (  # name, arch, cell, mesh kind, depths traced ((0,): as published)
+    ("i11a", "llama3-405b", "decode_32k", "single", (0,)),
+    ("i11b", "llama3-405b", "prefill_32k", "single", (1, 2)),
+    ("i11c", "llama3-405b", "train_4k", "single", (2, 4)),
+    ("i11d", "glm4-9b", "decode_32k", "single", (0,)),
+    ("i11e", "glm4-9b", "prefill_32k", "single", (1, 2)),
+    ("i11f", "glm4-9b", "train_4k", "single", (2, 4)),
+    ("i11g", "minicpm-2b", "prefill_32k", "single", (2, 4)),
+    ("i11h", "granite-3-8b", "decode_32k", "multi", (0,)),
+    ("i11i", "granite-3-8b", "train_4k", "multi", (2, 4)),
+)
+I11_REFERENCE = {
+    ("llama3-405b", "decode_32k", "single"): dict(
+        argument=14_813_691_940, temp=18_452_067_304, output=8_455_973_440,
+        collective=101_551_961_632,
+        ops={"all-gather": 21, "collective-permute": 3, "all-reduce": 7, "all-to-all": 1}),
+    ("llama3-405b", "prefill_32k", "single"): dict(
+        argument=6_357_991_424, temp=19_722_667_136, output=17_968_462_488,
+        collective=2_733_203_128_320,
+        ops={"all-gather": 18, "all-to-all": 3, "all-reduce": 3, "collective-permute": 2}),
+    ("llama3-405b", "train_4k", "single"): dict(
+        argument=12_715_982_852, temp=89_369_914_816, output=12_715_950_404,
+        collective=9_015_953_309_856,
+        ops={"collective-permute": 14, "all-gather": 59, "all-reduce": 15, "all-to-all": 14}),
+    ("glm4-9b", "decode_32k", "single"): dict(
+        argument=819_281_956, temp=1_594_175_240, output=671_391_808, collective=2_245_791_264,
+        ops={"all-gather": 21, "collective-permute": 5, "all-reduce": 7, "all-to-all": 1}),
+    ("glm4-9b", "prefill_32k", "single"): dict(
+        argument=148_209_664, temp=3_013_608_576, output=1_426_139_160,
+        collective=125_801_168_896,
+        ops={"all-gather": 18, "all-to-all": 3, "all-reduce": 3, "collective-permute": 2}),
+    ("glm4-9b", "train_4k", "single"): dict(
+        argument=444_612_612, temp=14_877_250_832, output=444_580_164,
+        collective=568_783_650_976,
+        ops={"collective-permute": 13, "all-gather": 60, "all-reduce": 15, "all-to-all": 11}),
+    ("minicpm-2b", "prefill_32k", "single"): dict(
+        argument=109_622_848, temp=4_369_950_840, output=12_835_552_288,
+        collective=84_633_150_480,
+        ops={"all-gather": 20, "all-to-all": 1, "collective-permute": 2, "all-reduce": 1}),
+    ("granite-3-8b", "decode_32k", "multi"): dict(
+        argument=1_568_692_244, temp=2_880_023_336, output=1_342_963_808,
+        collective=2_071_870_576, ops={"all-gather": 19, "collective-permute": 4, "all-reduce": 7}),
+    ("granite-3-8b", "train_4k", "multi"): dict(
+        argument=679_561_220, temp=8_284_108_112, output=679_545_156,
+        collective=328_259_013_792,
+        ops={"collective-permute": 15, "all-gather": 55, "all-reduce": 20, "all-to-all": 12}),
+}
+I11_OVER_REFERENCE = dict(temp=1.0, collective=1.0)
+# each i11 cell's counts at each depth it is traced at (two-depth cells; the
+# decode cells' in I_DECODE_CPU) of the same command on the CPU (the card's
+# host), which the card's host must print to the byte
+I11_CPU = {
+    ("llama3-405b", "prefill_32k", "single", "L1"):
+        dict(total=8_853_666_440, temp=8_721_137_672, collective=5_689_835_520,
+             flops=35_459_775_332_352),
+    ("llama3-405b", "prefill_32k", "single", "L2"):
+        dict(total=8_937_159_308, temp=8_737_914_892, collective=10_718_806_016,
+             flops=70_919_025_328_128),
+    ("llama3-405b", "train_4k", "single", "L2"):
+        dict(total=39_631_388_716, temp=38_968_918_044, collective=36_638_687_456,
+             flops=274_465_590_083_584),
+    ("llama3-405b", "train_4k", "single", "L4"):
+        dict(total=40_299_331_628, temp=39_237_353_500, collective=67_592_650_976,
+             flops=480_074_264_477_696),
+    ("glm4-9b", "prefill_32k", "single", "L1"):
+        dict(total=2_173_552_648, temp=2_146_631_688, collective=1_359_806_464,
+             flops=4_007_359_676_416),
+    ("glm4-9b", "prefill_32k", "single", "L2"):
+        dict(total=2_185_160_716, temp=2_150_825_996, collective=2_530_344_960,
+             flops=8_014_564_163_584),
+    ("glm4-9b", "train_4k", "single", "L2"):
+        dict(total=9_873_080_364, temp=9_717_923_868, collective=8_498_594_016,
+             flops=35_948_876_267_520),
+    ("glm4-9b", "train_4k", "single", "L4"):
+        dict(total=9_978_822_700, temp=9_785_032_732, collective=15_521_775_840,
+             flops=51_556_787_421_184),
+    ("minicpm-2b", "prefill_32k", "single", "L2"):
+        dict(total=2_398_240_852, temp=2_249_085_452, collective=1_965_961_728,
+             flops=6_084_415_595_520),
+    ("minicpm-2b", "prefill_32k", "single", "L4"):
+        dict(total=2_551_180_372, temp=2_324_582_924, collective=3_366_130_176,
+             flops=12_167_699_899_392),
+    ("granite-3-8b", "train_4k", "multi", "L2"):
+        dict(total=7_747_227_692, temp=7_105_347_612, collective=5_859_866_960,
+             flops=10_771_979_304_960),
+    ("granite-3-8b", "train_4k", "multi", "L4"):
+        dict(total=7_818_530_860, temp=7_138_902_044, collective=9_605_577_040,
+             flops=18_245_222_400_000),
 }
 
 
@@ -995,7 +1128,10 @@ I_DECODE_CPU = {
 # working weights before the model ran, and for the long_500k cells of the
 # decode step that gathered each period's weights over data where it ran;
 # each i3-i8 cell's temp is held below it (i10's printed beside it: their
-# parent's steps kept the weights where these do)
+# parent's steps kept the weights where these do); i11's (by depth, "L<n>",
+# for a cell traced at two; minicpm-2b's prefill_32k also traced whole) are
+# the parent's of this tree (the tree before a query-sliced prefill's cache
+# shard owned its storage), printed beside it
 I_PARENT_TEMP = {
     ("granite-3-8b", "train_4k", "single"): 19_353_010_204,
     ("granite-3-8b", "decode_32k", "single"): 2_569_575_456,
@@ -1022,6 +1158,22 @@ I_PARENT_TEMP = {
     ("whisper-tiny", "decode_32k", "single"): 142_868_160,
     ("minicpm-2b", "decode_32k", "single"): 1_166_644_512,
     ("mixtral-8x22b", "long_500k", "single"): 19_084_000,
+    ("llama3-405b", "decode_32k", "single"): 550_823_968,
+    ("llama3-405b", "prefill_32k", "single", "L1"): 8_721_137_672,
+    ("llama3-405b", "prefill_32k", "single", "L2"): 8_737_914_892,
+    ("llama3-405b", "train_4k", "single", "L2"): 38_968_918_044,
+    ("llama3-405b", "train_4k", "single", "L4"): 39_237_353_500,
+    ("glm4-9b", "decode_32k", "single"): 63_601_696,
+    ("glm4-9b", "prefill_32k", "single", "L1"): 2_146_631_688,
+    ("glm4-9b", "prefill_32k", "single", "L2"): 2_150_825_996,
+    ("glm4-9b", "train_4k", "single", "L2"): 9_717_923_868,
+    ("glm4-9b", "train_4k", "single", "L4"): 9_785_032_732,
+    ("minicpm-2b", "prefill_32k", "single", "L2"): 2_894_406_156,
+    ("minicpm-2b", "prefill_32k", "single", "L4"): 4_102_365_708,
+    ("minicpm-2b", "prefill_32k", "single"): 26_270_568_968,
+    ("granite-3-8b", "decode_32k", "multi"): 94_310_928,
+    ("granite-3-8b", "train_4k", "multi", "L2"): 7_105_347_612,
+    ("granite-3-8b", "train_4k", "multi", "L4"): 7_138_902_044,
 }
 
 # the limit the whole check must end within, and each path's phase label in the
@@ -1058,6 +1210,21 @@ TRACE_COST_S = {
     ("whisper-tiny", "train_4k", "single"): 36.1, ("whisper-tiny", "prefill_32k", "single"): 32.3,
     ("whisper-tiny", "decode_32k", "single"): 24.0, ("minicpm-2b", "train_4k", "single"): 24.0,
     ("minicpm-2b", "decode_32k", "single"): 40.0, ("mixtral-8x22b", "long_500k", "single"): 50.0,
+    ("llama3-405b", "decode_32k", "single"): 37.1,
+    ("llama3-405b", "prefill_32k", "single", "L1"): 49.7,
+    ("llama3-405b", "prefill_32k", "single", "L2"): 72.8,
+    ("llama3-405b", "train_4k", "single", "L2"): 27.7,
+    ("llama3-405b", "train_4k", "single", "L4"): 33.2,
+    ("glm4-9b", "decode_32k", "single"): 28.2,
+    ("glm4-9b", "prefill_32k", "single", "L1"): 47.9,
+    ("glm4-9b", "prefill_32k", "single", "L2"): 72.5,
+    ("glm4-9b", "train_4k", "single", "L2"): 25.2,
+    ("glm4-9b", "train_4k", "single", "L4"): 28.7,
+    ("minicpm-2b", "prefill_32k", "single", "L2"): 23.3,
+    ("minicpm-2b", "prefill_32k", "single", "L4"): 27.3,
+    ("granite-3-8b", "decode_32k", "multi"): 23.5,
+    ("granite-3-8b", "train_4k", "multi", "L2"): 22.9,
+    ("granite-3-8b", "train_4k", "multi", "L4"): 26.0,
 }
 
 
@@ -4117,7 +4284,7 @@ class TraceQueue:
 
 def start_dryrun(out: str, cell: str, layers: int = 0, arch: str = I3_ARCH,
                  mesh: str = I3_MESH, profile: str = "baseline", key=None) -> Trace:
-    """A trace through the dry-run's command line (phases i3-i9):
+    """A trace through the dry-run's command line (phases i3-i11):
     ``arch``'s ``cell`` as published (or cut to ``layers`` layers) on the
     production ``mesh`` under ``profile``, a fake fleet of 256 ranks of host
     (``--device cpu``) fake tensors in a process of its own (a process holds
@@ -4129,7 +4296,7 @@ def start_dryrun(out: str, cell: str, layers: int = 0, arch: str = I3_ARCH,
            "--layers", str(layers)]
     key = (arch, cell, mesh) if key is None else key
     return Trace(key, cmd, Path(out) / f"{arch}__{cell}__{mesh}.log",
-                 TRACE_COST_S.get((arch, cell, mesh), 0.0))
+                 TRACE_COST_S.get(key, TRACE_COST_S.get((arch, cell, mesh), 0.0)))
 
 
 def finish_dryrun(proc: subprocess.Popen, out: str, cell: str, what: str,
@@ -4703,6 +4870,118 @@ def check_i10(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> d
     return rows
 
 
+def i11_key(arch: str, cell: str, mesh: str, layers: int) -> tuple:
+    """An i11 trace's key: ``(arch, cell, mesh)``, with ``"L<layers>"`` for a
+    cell traced at two depths."""
+    return (arch, cell, mesh) + ((f"L{layers}",) if layers else ())
+
+
+def i11_dir(out: str, layers: int) -> str:
+    """Where an i11 trace writes: ``out``, or ``out/L<layers>`` for a cut
+    depth (the dry-run names its record by arch, cell and mesh alone)."""
+    return str(Path(out) / f"L{layers}") if layers else out
+
+
+def start_i11(out: str) -> list:
+    """Phase i11's traces, queued as the others: each cell at each of its
+    depths."""
+    traces = []
+    for _, arch, cell, mesh, depths in I11_CELLS:
+        for layers in depths:
+            where = i11_dir(out, layers)
+            Path(where).mkdir(exist_ok=True)
+            traces.append(start_dryrun(where, cell, layers, arch, mesh,
+                                       key=i11_key(arch, cell, mesh, layers)))
+    return traces
+
+
+def check_i11(procs: dict, out: str, t0: float, card_bytes: int, card: str) -> dict:
+    """Phase i11: each cell's records at each depth traced equal to the
+    CPU's counts to the byte (``I_DECODE_CPU``, ``I11_CPU``), their product
+    FLOPs to the hand count (``hand_*_flops`` with ``planned_parts``); a cell
+    traced at depths d and 2 d projected to its published depth L, each
+    figure X as X(2 d) + (X(2 d) - X(d)) (L - 2 d) / d; on the projection (or
+    the record traced whole) argument + temp + output below the card's
+    memory, temp and collective bytes a device at most
+    ``I11_OVER_REFERENCE`` x the reference's whole cell's; the reference's
+    counts and the parent tree's temp printed beside them."""
+    rows = {}
+    for name, arch, cell_name, mesh, depths in I11_CELLS:
+        published, cell = configs.get(arch), configs.SHAPES[cell_name]
+        hand_fn = dict(train=hand_train_flops, prefill=hand_prefill_flops,
+                       decode=hand_decode_flops)[cell.kind]
+        ref = I11_REFERENCE[arch, cell_name, mesh]
+        what = f"{name} {arch} {cell_name} ({mesh})"
+        figs, recs = {}, {}
+        for layers in depths:
+            key = i11_key(arch, cell_name, mesh, layers)
+            cfg = dataclasses.replace(published, n_layers=layers) if layers else published
+            at = f"{what} at {cfg.n_layers} layers"
+            rec = finish_dryrun(procs[key], i11_dir(out, layers), cell_name, at, arch, mesh,
+                                timeout=max(1.0, I5_TIMEOUT_S - (time.perf_counter() - t0)))
+            hand = hand_fn(cfg, cell.global_batch, cell.seq_len,
+                           planned_parts(cfg, rec["mesh_shape"], cell))
+            mem, coll = rec["memory_analysis"], rec["collectives"]
+            here = dict(total=mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                        + mem["output_size_in_bytes"], temp=mem["temp_size_in_bytes"],
+                        collective=coll["collective_bytes_per_device"],
+                        flops=rec["cost_analysis"]["flops"])
+            log(f"phase {at} on the {rec['mesh_shape']} mesh of "
+                f"{math.prod(rec['mesh_shape'].values())} fake ranks, planned: trace "
+                f"{rec['lower_s']} s; argument {mem['argument_size_in_bytes']} / temp "
+                f"{mem['temp_size_in_bytes']} / output {mem['output_size_in_bytes']} bytes a "
+                f"device, argument + temp + output {here['total']}; collective bytes a device "
+                f"{here['collective']:.0f} by kind {coll['collective_bytes_per_device_by_kind']}, "
+                f"ops {coll['op_counts']}; product FLOPs {here['flops']:.6e}, the hand count "
+                f"{hand:.6e}; the parent's temp {I_PARENT_TEMP[key]}; card {card}")
+            if layers:
+                cpu = I11_CPU[key]
+                log(f"{at}: {here}, the CPU's counts {cpu}")
+                check(here == cpu, f"{at}: {here}, not the CPU's counts {cpu}")
+            else:
+                same_as_cpu(at, key, rec)
+            check(here["flops"] == hand, f"{at}: {here['flops']} product FLOPs, the hand count "
+                  f"{hand}")
+            figs[layers], recs[cfg.n_layers] = here, dict(
+                trace_s=rec["lower_s"], memory=mem, collective_bytes_per_device=here["collective"],
+                collective_by_kind=coll["collective_bytes_per_device_by_kind"],
+                collective_ops=coll["op_counts"], flops=here["flops"], hand_flops=hand,
+                parent_temp=I_PARENT_TEMP[key])
+        if len(depths) == 2:
+            d, dd = depths
+            L = published.n_layers
+            proj = {k: figs[dd][k] + (figs[dd][k] - figs[d][k]) * (L - dd) // d
+                    for k in ("total", "temp", "collective")}
+            parent = I_PARENT_TEMP[i11_key(arch, cell_name, mesh, dd)]
+            parent += (parent - I_PARENT_TEMP[i11_key(arch, cell_name, mesh, d)]) * (L - dd) // d
+            how = f"projected from {d} and {dd} layers to {L}"
+        else:
+            proj = {k: figs[0][k] for k in ("total", "temp", "collective")}
+            parent, how = I_PARENT_TEMP[arch, cell_name, mesh], f"as published, {published.n_layers} layers"
+        whole_parent = I_PARENT_TEMP.get((arch, cell_name, mesh))
+        over = {k: proj[k] / ref[k] for k in ("temp", "collective")}
+        rows[name] = dict(arch=arch, cell=cell_name, mesh=mesh, depths=list(depths),
+                          records=recs, projection=proj, over_reference=over, reference=ref,
+                          parent_temp=parent, parent_whole_temp=whole_parent,
+                          card_bytes=card_bytes, card=card)
+        log(f"phase {what} {how}: argument + temp + output {proj['total']:.0f} against the "
+            f"card's {card_bytes}; temp {proj['temp']:.0f}, {over['temp']:.4f} x the reference's "
+            f"{ref['temp']} (its argument / temp / output {ref['argument']} / {ref['temp']} / "
+            f"{ref['output']}); collective bytes a device {proj['collective']:.0f}, "
+            f"{over['collective']:.4f} x the reference's {ref['collective']} (its HLO's ops "
+            f"{ref['ops']}); the parent's temp {parent}"
+            f"{f' (traced whole: {whole_parent})' if whole_parent and len(depths) == 2 else ''}")
+        check(proj["total"] < card_bytes,
+              f"{what}: argument + temp + output {proj['total']} above the card's {card_bytes}")
+        for k in ("temp", "collective"):
+            check(over[k] <= I11_OVER_REFERENCE[k],
+                  f"{what}: {k} {proj[k]} is {over[k]:.4f} x the reference's {ref[k]}, above "
+                  f"{I11_OVER_REFERENCE[k]}")
+    log(f"phase i11: {time.perf_counter() - t0:.1f} s from the traces' start to their last "
+        f"record")
+    return rows
+
+
 def same_as_cpu(what: str, key: tuple, rec: dict) -> None:
     """A decode record's argument + temp + output, temp, collective bytes a
     device and product FLOPs equal to the CPU's counts (``I_DECODE_CPU``) to
@@ -4738,7 +5017,7 @@ def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float)
     ``start_analysis`` queued at the check's start (``procs``, their output in
     ``out``): i1, the dry-run of g2's cell, then i2, the roofline of the
     cells g2 and e2 ran, on a one-rank fake world (this process's default
-    group for i2 alone); i3, i4, i5, i6, i7, i8, i9 and i10."""
+    group for i2 alone); i3, i4, i5, i6, i7, i8, i9, i10 and i11."""
     card = smi("name,power.limit")
     t3 = time.perf_counter()
     i1, i2 = analysis_one_rank(device, g2, e2, card, procs["i1"], out)
@@ -4795,8 +5074,9 @@ def analysis_phase(device, g2: dict, e2: dict, procs: dict, out: str, t0: float)
     i8 = check_i8(procs, out, t0, card_bytes, card)
     i9 = check_i9(procs, out, t0, card_bytes, card)
     i10 = check_i10(procs, out, t0, card_bytes, card)
+    i11 = check_i11(procs, out, t0, card_bytes, card)
     return dict(i1=i1, i2=i2, i3=i3, i4=i4, i4_wall_s=i4_wall, i5=i5, i6=i6, i7=i7, i8=i8,
-                i9=i9, i10=i10, card=card)
+                i9=i9, i10=i10, i11=i11, card=card)
 
 
 def i1_trace(out: str, device: str = "cuda") -> None:
@@ -4824,11 +5104,11 @@ def start_i1(out: str) -> Trace:
 
 def phase_i_traces(out: str) -> list[Trace]:
     """Phase i's traces, their output in ``out``: i1's, i3's, i4's, i5's,
-    i6's, i7's, i8's and i9's."""
+    i6's, i7's, i8's, i9's, i10's and i11's."""
     traces = [start_i1(out), start_dryrun(out, I3_CELL, key="i3")]
     traces += [start_dryrun(out, cell, layers, key=cell) for cell, layers in I4_CELLS]
     return traces + start_i5(out) + start_i6(out) + start_i7(out) + start_i8(out) + \
-        start_i9(out) + start_i10(out)
+        start_i9(out) + start_i10(out) + start_i11(out)
 
 
 def start_analysis(out: str) -> TraceQueue:

@@ -4,7 +4,11 @@ running; each trace's wall and CPU seconds and peak resident memory,
 printed and written to ``OUT/times.json`` beside the records.  The CPU
 seconds order the check's queue (``TRACE_COST_S``).
 
-    python3 scripts/trace_times.py OUT [N]
+    python3 scripts/trace_times.py OUT [N [KEY_PREFIX ...]]
+
+With KEY_PREFIXes only the traces whose key (its parts joined by "/", as
+the chain line prints it: ``llama3-405b/prefill_32k/single/L2``) starts
+with one of them run.
 
 i1 fakes CUDA tensors, so it needs a PyTorch built with CUDA; the others
 trace host fake tensors and run anywhere.
@@ -22,11 +26,18 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 
+def name_of(key) -> str:
+    return "/".join(key) if isinstance(key, tuple) else key
+
+
 def main() -> int:
     out = Path(sys.argv[1]).resolve()
     slots = int(sys.argv[2]) if len(sys.argv) > 2 else os.cpu_count() or 1
     out.mkdir(parents=True, exist_ok=True)
     todo = chip_smoke.phase_i_traces(str(out))
+    prefixes = tuple(sys.argv[3:])
+    if prefixes:
+        todo = [t for t in todo if name_of(t.key).startswith(prefixes)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     running, times = {}, {}
     t0 = time.time()
@@ -39,7 +50,7 @@ def main() -> int:
             running[proc.pid] = (trace.key, time.time())
         pid, status, usage = os.wait4(-1, 0)
         key, start = running.pop(pid)
-        name = "/".join(key) if isinstance(key, tuple) else key
+        name = name_of(key)
         times[name] = dict(rc=os.waitstatus_to_exitcode(status), start_s=round(start - t0, 1),
                            wall_s=round(time.time() - start, 1),
                            cpu_s=round(usage.ru_utime + usage.ru_stime, 1),

@@ -238,10 +238,11 @@ def _cache_kv(p, x, k, v, cfg: ArchConfig, cos_sin, tp):
     sequence slice instead of one kv head's on the whole sequence); where
     the kv heads split, an all-to-all over each of their axes, trading
     heads for the cache's sequence or rows (the shard's bytes, once an
-    axis)."""
+    axis).  A slice of the k, v attention used is copied out, so that the
+    layer's whole-head k and v are freed when it ends."""
     seq = tp.cache_seq(x.shape[1])
     if not tp.q_local:
-        return tp.cache_rows(k)[:, seq], tp.cache_rows(v)[:, seq]
+        return tp.cache_rows(k)[:, seq].clone(), tp.cache_rows(v)[:, seq].clone()
     if tp.kv_local:
         return tp.heads_to_cache(k), tp.heads_to_cache(v)
     xs = tp.cache_rows(x)[:, seq]

@@ -200,7 +200,9 @@ def ssd_prefill(p, x, cfg: ArchConfig, init_state=None, tp: TensorParallel | Non
         conv_tail = torch.cat([tp.ssm_all_heads(conv_tail[..., :di]), conv_tail[..., di:]], -1)
     conv_tail = F.pad(conv_tail, (0, 0, max(0, cfg.ssm_conv - 1 - S), 0)).to(x.dtype)
     if tp is not None and tp.cache_conv_axes is not None:
-        return out, {"ssm": tp.cache_rows(carry), "conv": tp.cache_rows(tp.conv_shard(conv_tail))}
+        # copies, so that the whole state and conv history die with the layer
+        shard = {"ssm": tp.cache_rows(carry), "conv": tp.cache_rows(tp.conv_shard(conv_tail))}
+        return out, {k: t.clone() for k, t in shard.items()}
     return out, {"ssm": carry, "conv": conv_tail}
 
 

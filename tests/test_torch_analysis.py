@@ -53,8 +53,10 @@ What is held, and how closely:
   FLOPs, collective bytes and executions (each layer's all-to-all, again in
   the recompute, and its adjoint) and the roofline's attention probes equal
   hand counts, and the step's temp about halves each time the model axis
-  doubles.
+  doubles; its prefill's product FLOPs equal ``hand_prefill_flops`` and its
+  temp grows a layer by less than twice the cache shard it returns.
 """
+import dataclasses
 import json
 import math
 import os
@@ -796,14 +798,15 @@ def test_dryrun_train_flops_hand_count(dry, profile):
 # the production mesh's 16), each rank every head of its query slice; and the
 # same model's train step of (2, QSLICE_S) tokens on (1, n) meshes
 QSLICE = ("minicpm-2b", {"n_heads": 3, "n_kv_heads": 3})
-QSLICE_S, QSLICE_N = 512, (2, 4, 8)
+QSLICE_S, QSLICE_N, QSLICE_DEPTHS = 512, (2, 4, 8), (1, 2)
 
 
 @pytest.fixture(scope="module")
 def qslice_dry():
     """The port's dry-run record and roofline record of ``QSLICE``'s
-    ``train_4k`` on the smoke mesh of 8 fake ranks, and the temp of its
-    train step at QSLICE_S tokens on (1, n) meshes of n fake ranks."""
+    ``train_4k`` on the smoke mesh of 8 fake ranks, its ``prefill_32k``
+    there at each of ``QSLICE_DEPTHS`` layers, and the temp of its train
+    step at QSLICE_S tokens on (1, n) meshes of n fake ranks."""
     r = _run(f"""
         import dataclasses, json
         import torch.distributed as dist
@@ -819,6 +822,9 @@ def qslice_dry():
         mesh = make_mesh("single", smoke=True, device_type="cpu")
         out["train"] = trace_step(cfg, C.smoke_cell("train_4k"), mesh, "cpu")
         out["roof"] = analyze_cell(cfg, C.smoke_cell("train_4k"), mesh, device="cpu")
+        for n in {QSLICE_DEPTHS!r}:
+            out[f"prefill{{n}}"] = trace_step(dataclasses.replace(cfg, n_layers=n),
+                                              C.smoke_cell("prefill_32k"), mesh, "cpu")
         dist.destroy_process_group()
         for n in {QSLICE_N!r}:
             init_group("fake", 0, n, store=fake_store())
@@ -866,6 +872,33 @@ def test_roofline_query_slice_probes(qslice_dry, name):
     if name == "attn_proj":
         assert comp["coll"] == _hand_probe_collectives(name, "baseline", QSLICE[0],
                                                        **QSLICE[1])
+
+
+@pytest.mark.parametrize("n", QSLICE_DEPTHS)
+def test_dryrun_query_slice_prefill_flops_hand_count(qslice_dry, n):
+    """Its prefill at n layers: the per-device product FLOPs equal
+    ``hand_prefill_flops`` (q, every (q, k) tile and the cross products on
+    this rank's query slice, k and v over the whole sequence)."""
+    from repro_torch.models.tensor_parallel import hand_prefill_flops
+    plan = _hv_plan(QSLICE[0], "prefill_32k", "baseline", "single", **QSLICE[1])
+    assert not plan["q_local"]
+    cfg, c = dataclasses.replace(plan["cfg"], n_layers=n), plan["cell"]
+    assert qslice_dry[f"prefill{n}"]["cost_analysis"]["flops"] == hand_prefill_flops(
+        cfg, c.global_batch, c.seq_len, plan["parts"])
+
+
+def test_query_slice_prefill_keeps_only_its_cache_shard(qslice_dry):
+    """Its prefill's temp grows a layer by less than twice the cache it
+    returns a layer: each layer's cache shard owns its storage, so the
+    whole-head k and v the rank projected for its query slice die with the
+    layer.  A parent tree's shard was a view of them, and its temp grew
+    12,292 bytes a layer against the cache's 6,144 (6,148 now), as
+    minicpm-2b's prefill_32k grew 604 MB a layer against 37.7 MB."""
+    one, two = (qslice_dry[f"prefill{n}"]["memory_analysis"] for n in QSLICE_DEPTHS)
+    temp = two["temp_size_in_bytes"] - one["temp_size_in_bytes"]
+    cache = two["output_size_in_bytes"] - one["output_size_in_bytes"]
+    print(f"temp {temp} bytes a layer, the cache {cache}")
+    assert 0 < cache and temp < 2 * cache
 
 
 def test_query_slice_score_tiles_fall_with_n(qslice_dry):

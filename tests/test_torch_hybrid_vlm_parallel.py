@@ -566,7 +566,7 @@ def _leaves(specs) -> list:
 
 
 def _smoke_plan(arch: str, cell_name: str, profile: str = "baseline",
-                mesh_kind: str = "single") -> dict:
+                mesh_kind: str = "single", **overrides) -> dict:
     """A hybrid or VLM smoke model's layout of ``cell_name`` on a smoke mesh
     (``single``: (data 4, model 2); ``multi``: (pod 2, data 2, model 2))
     under ``profile``, by hand from the resolved specs: the mesh axes of the
@@ -581,13 +581,15 @@ def _smoke_plan(arch: str, cell_name: str, profile: str = "baseline",
     which the tables stay on their shards); and the ranks each logical axis splits over (``parts``, for the
     hand FLOP counts: where the experts' axes split the sequence the tokens
     cross them instead, 1; ``embed`` the stationary axes', ``kv`` wk's
-    columns', ``conv`` the conv history's channels')."""
+    columns', ``conv`` the conv history's channels').  ``overrides`` change
+    the smoke config (a dense model's heads, as ``QSLICE``'s)."""
     import repro_torch.configs as C
     from repro_torch.launch.dryrun import mesh_shape
     from repro_torch.models import build
     from repro_torch.models.common import resolve_spec
     from repro_torch.models.tensor_parallel import head_split
-    cfg, cell = C.get(arch, smoke=True), C.smoke_cell(cell_name)
+    cfg = dataclasses.replace(C.get(arch, smoke=True), **overrides)
+    cell = C.smoke_cell(cell_name)
     sizes = dict(zip(*reversed(mesh_shape(mesh_kind, True))))
     model = build(cfg)
     B, S = cell.global_batch, 1 if cell.kind == "decode" else cell.seq_len

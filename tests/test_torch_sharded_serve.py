@@ -31,7 +31,9 @@ keep their shards) and moves the token; the cases of B rows keep none.
 Held: the tokens identical; the logits within 1e-5 of the reference's largest
 (the split softmax of decode is not bit for bit the one-device softmax); each
 rank's prefill and decode cache shard within 1e-6 of the matching slice of
-the reference's cache (``substrate.local_slices``).  The whisper smoke model
+the reference's cache (``substrate.local_slices``); on the query-sliced
+(2, 2) cases each layer's prefill cache shard owns its storage and equals,
+bit for bit, the slice of the whole-head k, v a parent tree kept as a view.  The whisper smoke model
 (the encoder-decoder, which gathered whole until it had a plan) on (2, 2)
 takes planned steps too, held to the port's one-device steps
 (``tests/test_torch_encdec_parallel.py`` holds them to the reference).  A fake 8-rank trace
@@ -125,9 +127,23 @@ def serve_rank_job(rank, world, init, tmp, weights):
     from repro_torch.optim.adamw import tree_map_sorted
     from repro_torch.models.tensor_parallel import plan_decode
     from repro_torch.substrate import chunk_of, distribute, gather_full, init_group, make_mesh
+    from repro_torch.models import layers
     torch.set_num_threads(2)
     init_group("gloo", rank, world, init)
     cell = ShapeCell("serve", T, B, "decode")
+    cache_kv, shard_calls = layers._cache_kv, []
+
+    def recorded_cache_kv(p, x, k, v, cfg, cos_sin, tp):
+        """``_cache_kv``, each query-sliced call's (k, v) recorded beside a
+        parent tree's: views of the k, v attention used."""
+        got = cache_kv(p, x, k, v, cfg, cos_sin, tp)
+        if not tp.q_local:
+            seq = tp.cache_seq(x.shape[1])
+            shard_calls.append([(a.clone(), a.untyped_storage().nbytes(),
+                                 tp.cache_rows(whole)[:, seq].clone())
+                                for a, whole in zip(got, (k, v))])
+        return got
+    layers._cache_kv = recorded_cache_kv
 
     def shards(cache, sh):
         return [(x.to_local().clone(), s.spec) for x, s in zip(sorted_leaves(cache),
@@ -142,7 +158,9 @@ def serve_rank_job(rank, world, init, tmp, weights):
             dec, dsh = build_decode(model, mesh, ShapeCell("serve", T, rows, "decode"))
             params = params_onto_mesh(weights[model_key(arch, over)], psh["params"])
             tokens = torch.as_tensor(prompts_for(model.cfg.vocab)[:rows])
+            shard_calls.clear()
             pcache, logits = fwd(params, {"tokens": tokens})
+            cache_kv_calls = list(shard_calls)
             logits = gather_full(logits)
             prefill_shards = shards(pcache, fwd.plan(tokens)[2])
             cache = seed_cache(pcache, dsh["cache"], T)
@@ -158,7 +176,8 @@ def serve_rank_job(rank, world, init, tmp, weights):
                          coords=dict(zip(("data", "model"), mesh.get_coordinate())),
                          plan=(tp.q_local, tp.kv_local, q_slice, tp.cache_row_axes,
                                tp.cache_seq_axes, tp.stationary_axes, tp.table_axes),
-                         tables=table_specs(psh["params"]))
+                         tables=table_specs(psh["params"]), cache_kv=cache_kv_calls)
+    layers._cache_kv = cache_kv
 
     out["argmax"] = {}
     for name in ARGMAX_CASES:
@@ -307,6 +326,20 @@ def test_sharded_serve_matches_reference(ranks, reference, name):
                 errs[kind] = max(errs[kind], _slice_err(local, spec, full, got["coords"], shape))
     print(name, errs)
     assert errs["logits"] <= 1e-5 and errs["prefill"] <= 1e-6 and errs["decode"] <= 1e-6, errs
+
+
+@pytest.mark.parametrize("name", ("minicpm-h3-2x2", "minicpm-serve-2x2"))
+def test_query_slice_prefill_cache_owns_its_storage(ranks, name):
+    """A query-sliced prefill on (2, 2): every layer's (k, v) cache shard is
+    bit for bit a parent tree's (the slice of the whole-head k, v its
+    attention used) and owns its storage, so those die with the layer."""
+    for r in ranks:
+        calls = r[name]["cache_kv"]
+        assert len(calls) == smoke_cfg(CASES[name][0], **dict(CASES[name][3])).n_layers
+        for pair in calls:
+            for got, nbytes, parent in pair:
+                assert torch.equal(got, parent)
+                assert nbytes == got.numel() * got.element_size()
 
 
 def test_distributed_argmax_matches_torch_argmax(ranks):
